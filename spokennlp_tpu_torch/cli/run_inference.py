@@ -1,0 +1,115 @@
+"""Topic-segmentation inference CLI on PyTorch.
+
+Counterpart of ``spokennlp_tpu/cli/run_inference.py``: the same flags and
+output files (``predict_*.txt`` with one JSON line per document and
+``predict_*_results.json`` with the metrics), plus ``--device``. Weights are
+initialised from ``--seed``; loading checkpoints is not ported yet.
+
+    python -m spokennlp_tpu_torch.cli.run_inference --data_dir <wiki_section dir> \
+        --output_dir out --dtype bfloat16 --per_device_eval_batch_size 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from spokennlp_tpu_torch.cli import common
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    common.add_model_args(p)
+    common.add_data_args(p)
+    common.add_training_args(p)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on; cuda raises when no card is present")
+    return p
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    return device
+
+
+def build_model(args, enc_cfg, task_cfg):
+    """The topic-segmentation model on ``args.device`` with weights drawn
+    from ``torch.Generator().manual_seed(args.seed)``."""
+    from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    generator = torch.Generator().manual_seed(args.seed)
+    model = TopicSegModel(enc_cfg, task_cfg, dtype=dtype, generator=generator)
+    return model.to(resolve_device(args.device)).eval()
+
+
+def main(argv=None):
+    from spokennlp_tpu_torch.eval.inference import run_topic_seg_inference
+
+    args = make_parser().parse_args(argv)
+    resolve_device(args.device)
+    if args.model_name_or_path and os.path.isdir(args.model_name_or_path):
+        raise NotImplementedError("loading checkpoints is not ported yet; omit "
+                                  "--model_name_or_path to initialise from --seed")
+    if args.model_parallel_size != 1 or args.jax_distributed:
+        raise NotImplementedError("the port runs on one device")
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    enc_cfg, task_cfg, wcfg, _ = common.build_configs(args, special)
+    model = build_model(args, enc_cfg, task_cfg)
+
+    docs = common.load_docs(args, tokenize_fn)
+    test_docs = docs.get("test") or docs.get("validation") or []
+    if not test_docs:
+        raise ValueError("no test/validation split found")
+
+    t0 = time.perf_counter()
+    out = run_topic_seg_inference(
+        model,
+        test_docs,
+        wcfg,
+        batch_size=args.per_device_eval_batch_size,
+        threshold=args.threshold,
+        topk=args.topk,
+        f1_at_k=args.f1_at_k,
+        ts_score_predictor=args.ts_score_predictor,
+    )
+    out["predict_time_s"] = time.perf_counter() - t0
+    print("predict_time(s): ", out["predict_time_s"])
+
+    metric_name = "_".join(
+        ["predict", args.test_data_name, f"max_seq{args.max_seq_length}",
+         f"ts_score_{args.ts_score_predictor}"]
+    )
+    with open(os.path.join(args.output_dir, metric_name + ".txt"), "w") as f:
+        for doc, res in zip(test_docs, out["per_doc"]):
+            preds = np.argmax(res["scores"], -1).tolist() if len(res["labels"]) else []
+            f.write(
+                json.dumps(
+                    {
+                        "sentences": doc.get("sentences", []),
+                        "labels": ["B-EOP" if l == 0 else "O" for l in res["labels"]],
+                        "int_labels": [int(v) for v in res["labels"]],
+                        "predictions": ["B-EOP" if p == 0 else "O" for p in preds],
+                        "predict_logits": res["scores"].tolist(),
+                    },
+                    ensure_ascii=False,
+                )
+                + "\n"
+            )
+    with open(os.path.join(args.output_dir, metric_name + "_results.json"), "w") as f:
+        json.dump(out["metrics"], f, indent=2, default=float)
+    print(json.dumps(out["metrics"], indent=2, default=float))
+    return out
+
+
+if __name__ == "__main__":
+    main()

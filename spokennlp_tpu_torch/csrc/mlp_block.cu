@@ -1,0 +1,75 @@
+// Fused MLP half-layer for the H100 (sm_90a):
+//   out = LayerNorm(x + act(x W1 + b1) W2 + b2)
+// with "gelu" in its tanh form, as the TPU kernel computes it.
+//
+// Replaces the TPU kernel spokennlp_tpu/ops/pallas/mlp_block.py,
+// fused_mlp_block (_mlp_block_kernel, quantized=False).
+//
+// What bounds it here. At BERT-base (M = 32 * 512 rows, H=768, I=3072) the
+// block is 155 GFLOP against about 60 MB of input, weights and output in
+// bfloat16, plus 200 MB for the intermediate's round trip below: some 600
+// operations a byte, so it is bound by arithmetic. These SIMT kernels run on
+// the CUDA cores in float32; tensor cores (mma.sync, then wgmma) are the next
+// step.
+//
+// What the design does about the TPU kernel's assumptions. The TPU kernel
+// kept both weight matrices resident in VMEM and the (rows, I) intermediate
+// in registers for each block of rows. A Hopper block has at most 227 KB of
+// shared memory, so the block is two launches:
+//   1. gemm_bias_act_kernel: act(x W1 + b1), stored in the element type as
+//      (M, I), which is where the TPU kernel rounds it before the second
+//      product;
+//   2. gemm_bias_residual_ln_kernel: h W2 + b2 + x and the LayerNorm, with
+//      one block owning whole rows (common.cuh).
+// The intermediate (M * I elements) and the pre-norm rows make one round
+// trip through device memory (or L2); keeping them on chip is later work.
+#include "common.cuh"
+
+namespace spk {
+namespace {
+
+template <typename T>
+cudaError_t mlp_block(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
+                      const float* ln_scale, const float* ln_bias, T* h_buf, float* ln_buf, T* out,
+                      int M, int H, int I, int act, float eps, cudaStream_t stream) {
+  const dim3 grid((I + 63) / 64, (M + 63) / 64);
+  gemm_bias_act_kernel<T><<<grid, kThreads, 0, stream>>>(x, w1, b1, h_buf, M, I, H, act);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_residual_ln<T>(h_buf, w2, b2, x, ln_scale, ln_bias, ln_buf, out, M, H, I, eps,
+                               1, stream);
+}
+
+}  // namespace
+}  // namespace spk
+
+// dtype: 0 = float32, 1 = bfloat16 (x, weights, h_buf and out); biases,
+// LayerNorm parameters and ln_buf (M, H) are float32; act is an
+// ACTIVATION_CODES value.
+// Returns the first CUDA error, or 0.
+extern "C" int spk_mlp_block(int dtype, const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* ln_scale,
+                             const void* ln_bias, void* h_buf, void* ln_buf, void* out, int M,
+                             int H, int I, int act, float eps, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto b1_ = static_cast<const float*>(b1);
+  const auto b2_ = static_cast<const float*>(b2);
+  const auto lns = static_cast<const float*>(ln_scale);
+  const auto lnb = static_cast<const float*>(ln_bias);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = spk::mlp_block<float>(static_cast<const float*>(x), static_cast<const float*>(w1), b1_,
+                                static_cast<const float*>(w2), b2_, lns, lnb,
+                                static_cast<float*>(h_buf), static_cast<float*>(ln_buf),
+                                static_cast<float*>(out), M, H, I, act, eps, s);
+  } else if (dtype == 1) {
+    err = spk::mlp_block<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1), b1_,
+        static_cast<const __nv_bfloat16*>(w2), b2_, lns, lnb,
+        static_cast<__nv_bfloat16*>(h_buf), static_cast<float*>(ln_buf),
+        static_cast<__nv_bfloat16*>(out), M, H, I, act, eps, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

@@ -1,0 +1,125 @@
+"""Topic-segmentation fine-tuning CLI on PyTorch.
+
+Counterpart of ``spokennlp_tpu/cli/run_finetune.py``: the same flags, plus
+``--device`` (``cuda`` by default; it raises when no card is present) and
+``--logging_steps`` (the train-metrics cadence, 50 as in the JAX trainer).
+It writes ``metrics.jsonl`` (train, eval and train_end events),
+``all_results.json`` (train, ``eval_*`` and ``predict_*`` results) and the
+trained model as ``final_model/model.pt`` (a ``state_dict``) with
+``final_model/config.json`` (the encoder config). Weights start from
+``--seed``; loading checkpoints, ``--seeds`` repeats, TensorBoard and
+multi-device training are not ported yet.
+
+    python -m spokennlp_tpu_torch.cli.run_finetune --data_dir <wiki_section dir> \
+        --output_dir out --do_train --do_eval --do_predict --dtype bfloat16 \
+        --cl_loss_weight 0.5 --cl_anchor_level eop_matrix --tssp_loss_weight 1.0 \
+        --do_tssp --do_da_ts
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import torch
+
+from spokennlp_tpu_torch.cli import common
+from spokennlp_tpu_torch.cli.run_inference import build_model, resolve_device
+
+
+def make_parser():
+    import argparse
+
+    p = argparse.ArgumentParser()
+    common.add_model_args(p)
+    common.add_data_args(p)
+    common.add_training_args(p)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on; cuda raises when no card is present")
+    p.add_argument("--logging_steps", type=int, default=50,
+                   help="log the train metrics every this many optimizer steps")
+    return p
+
+
+def save_final_model(path: str, model: torch.nn.Module, enc_cfg):
+    """``<path>/model.pt`` (the state_dict) and ``<path>/config.json``."""
+    os.makedirs(path, exist_ok=True)
+    torch.save(model.state_dict(), os.path.join(path, "model.pt"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(enc_cfg), f, indent=2)
+
+
+def main(argv=None):
+    from spokennlp_tpu_torch.eval.inference import run_topic_seg_inference
+    from spokennlp_tpu_torch.train.trainer import TopicSegTrainer
+
+    args = make_parser().parse_args(argv)
+    resolve_device(args.device)
+    if args.model_name_or_path and os.path.isdir(args.model_name_or_path):
+        raise NotImplementedError("loading checkpoints is not ported yet; omit "
+                                  "--model_name_or_path to initialise from --seed")
+    if args.model_parallel_size != 1 or args.jax_distributed:
+        raise NotImplementedError("the port trains on one device")
+    if args.report_to or args.gradient_checkpointing or args.save_hf_format:
+        raise NotImplementedError("--report_to, --gradient_checkpointing and "
+                                  "--save_hf_format are not ported yet")
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    enc_cfg, task_cfg, wcfg, tcfg = common.build_configs(args, special)
+    tcfg = dataclasses.replace(tcfg, log_every=args.logging_steps)
+    model = build_model(args, enc_cfg, task_cfg)
+
+    docs = common.load_docs(args, tokenize_fn)
+    trainer = TopicSegTrainer(
+        model,
+        task_cfg,
+        tcfg,
+        wcfg,
+        train_docs=docs.get("train", []),
+        eval_docs=docs.get("validation"),
+        metric_for_best=args.metric_for_best_model,
+        log_path=os.path.join(args.output_dir, "metrics.jsonl"),
+    )
+    # an explicit --resume_from_checkpoint must resolve; otherwise resume
+    # from the newest checkpoint under the output dir, if any
+    if args.resume_from_checkpoint:
+        if not trainer.restore_latest(args.resume_from_checkpoint):
+            raise FileNotFoundError(
+                f"--resume_from_checkpoint: no checkpoint under {args.resume_from_checkpoint}"
+            )
+        print("resumed from checkpoint")
+    elif trainer.restore_latest():
+        print("resumed from checkpoint")
+
+    results = {}
+    try:
+        if args.do_train:
+            results.update(trainer.train())
+            save_final_model(os.path.join(args.output_dir, "final_model"), model, enc_cfg)
+        if args.do_eval:
+            results.update({f"eval_{k}": v for k, v in trainer.evaluate().items()})
+    finally:
+        trainer.metrics_log.close()
+    if args.do_predict and "test" in docs:
+        out = run_topic_seg_inference(
+            model,
+            docs["test"],
+            wcfg,
+            batch_size=args.per_device_eval_batch_size,
+            threshold=args.threshold,
+            topk=args.topk,
+            f1_at_k=args.f1_at_k,
+            ts_score_predictor=args.ts_score_predictor,
+        )
+        results.update({f"predict_{k}": v for k, v in out["metrics"].items()})
+
+    with open(os.path.join(args.output_dir, "all_results.json"), "w") as f:
+        json.dump(results, f, indent=2, default=float)
+    print(json.dumps(results, indent=2, default=float))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,7 @@
 // and summed ctx . Wo over head groups in a scratch buffer across sequential
 // grid steps. Hopper blocks run in parallel and carry nothing from one to
 // the next, so the block is three launches:
-//   1. qkv_proj_kernel: one GEMM over all B*L rows, bias added, q scaled by
+//   1. qkv_proj_kernel (common.cuh): one GEMM over all B*L rows, bias added, q scaled by
 //      sm_scale, stored in the element type as (3, B, nh, L, hd);
 //   2. attn_core_kernel: one block per (query tile of 64 rows, head,
 //      sequence); it streams key tiles of 64 through shared memory with an
@@ -40,38 +40,6 @@ namespace {
 
 constexpr int kQTile = 64;    // query rows a block owns
 constexpr int kKeyTile = 64;  // keys a block stages per step
-
-// (M=B*L, H) . (H, 3*nh*hd) + bias, scattered to (3, B, nh, L, hd).
-// Grid (ceil(3*nh*hd / 64), ceil(B*L / 64)).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
-                    int nh, int hd, float sm_scale) {
-  using G = TileGemm<64, 64, T>;
-  __shared__ float smem[G::kSmemFloats];
-  const int M = B * L, HN = nh * hd, N = 3 * HN;
-  const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
-  float acc[G::TM][G::TN];
-  G::run(x, w, M, N, H, row0, col0, acc, smem);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < G::TM; ++i) {
-    const int m = row0 + ty + 16 * i;
-    if (m >= M) continue;
-    const int b = m / L, l = m - b * L;
-#pragma unroll
-    for (int j = 0; j < G::TN; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n >= N) continue;
-      const int s = n / HN, r = n - s * HN;
-      const int h = r / hd, d = r - h * hd;
-      float v = acc[i][j] + bias[n];
-      if (s == 0) v *= sm_scale;
-      qkv[((((size_t)s * B + b) * nh + h) * L + l) * hd + d] = from_f32<T>(v);
-    }
-  }
-}
 
 template <int HD>
 constexpr size_t attn_core_smem_bytes() {
@@ -241,10 +209,8 @@ cudaError_t attention_block(const T* hidden, const int32_t* seg, const T* wqkv, 
                             int H, int nh, int hd, float sm_scale, float eps, int fuse_ln,
                             cudaStream_t stream) {
   const int M = B * L, HN = nh * hd;
-  const dim3 grid_qkv((3 * HN + 63) / 64, (M + 63) / 64);
-  qkv_proj_kernel<T><<<grid_qkv, kThreads, 0, stream>>>(hidden, wqkv, bqkv, qkv_buf, B, L, H, nh,
-                                                        hd, sm_scale);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_qkv_proj<T>(hidden, wqkv, bqkv, qkv_buf, B, L, H, nh, hd, sm_scale,
+                                       stream);
   if (err != cudaSuccess) return err;
   switch (hd) {
     case 32:

@@ -1,7 +1,10 @@
-// Shared device code of the fused encoder kernels (attention_block.cu,
-// mlp_block.cu): dtype conversion, the activation table, warp sums, a SIMT
-// tiled GEMM and the GEMM whose epilogue adds bias and residual and applies
-// LayerNorm over whole rows.
+// Shared device code of the encoder kernels (attention_block.cu,
+// mlp_block.cu, train_attention.cu, train_mlp.cu): dtype conversion, the
+// activation table and its derivative, warp sums, a counter-based Philox
+// generator for dropout, a SIMT tiled GEMM (either operand may be read
+// transposed), the GEMM whose epilogue adds bias and residual and applies
+// LayerNorm over whole rows, the QKV projection and the weight-gradient GEMM
+// that reduces over all rows.
 //
 // All arithmetic accumulates in float32. Element types are float or
 // __nv_bfloat16; a value stored in the element type is rounded exactly where
@@ -58,29 +61,97 @@ __device__ __forceinline__ float apply_activation(float x, int act) {
   }
 }
 
+// (act(x), act'(x)) with one transcendental, the derivative being that of
+// the form computed above (tanh GELU for "gelu"); the training kernels'
+// counterpart of _act_and_grad in ops/pallas/train_blocks.py.
+__device__ __forceinline__ void activation_and_grad(float x, int act, float& h, float& dh) {
+  switch (act) {
+    case kActGeluTanh: {
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      const float t = tanhf(c * (x + 0.044715f * x * x * x));
+      h = 0.5f * x * (1.0f + t);
+      dh = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * x * x);
+      return;
+    }
+    case kActRelu:
+      h = fmaxf(x, 0.0f);
+      dh = x > 0.0f ? 1.0f : 0.0f;
+      return;
+    case kActSilu: {
+      const float s = 1.0f / (1.0f + expf(-x));
+      h = x * s;
+      dh = s * (1.0f + x * (1.0f - s));
+      return;
+    }
+    default:
+      h = x;
+      dh = 1.0f;
+  }
+}
+
+// Philox4x32-10 (Salmon et al., SC 2011) on the counter (c0, c1, c2, c3)
+// under the key (seed, 0); returns the first of its four output words.
+// Dropout draws one word per (sequence, head, query row, key column), so the
+// backward pass regenerates the forward's mask from the same counters. The
+// numpy twin is ops/cuda/train_blocks.py philox_bits.
+__host__ __device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t c0,
+                                                         uint32_t c1, uint32_t c2,
+                                                         uint32_t c3) {
+  uint32_t k0 = seed, k1 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint64_t p0 = (uint64_t)0xD2511F53u * c0;
+    const uint64_t p1 = (uint64_t)0xCD9E8D57u * c2;
+    const uint32_t hi0 = (uint32_t)(p0 >> 32), lo0 = (uint32_t)p0;
+    const uint32_t hi1 = (uint32_t)(p1 >> 32), lo1 = (uint32_t)p1;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return c0;
+}
+
+// keep iff bits >= thr, thr = min(int(rate * 2^32), 2^32 - 1): P(keep) = 1 - rate
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t thr, int b, int h, int row,
+                                             int col) {
+  return philox_bits(seed, (uint32_t)b, (uint32_t)h, (uint32_t)row, (uint32_t)col) >= thr;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// One BM x BN output tile of C = A (M, K) . B (K, N), both row-major, on
-// 256 threads. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and
-// columns tx + 16 j of the tile: the strided ownership keeps shared-memory
-// reads free of bank conflicts (A reads broadcast, B reads are consecutive).
-// A is staged transposed (As[k][m], padded by one) so its stores do not
-// conflict either. Out-of-range rows, columns and depths read as zero.
-template <int BM, int BN, typename T>
+// One BM x BN output tile of C = A . B on 256 threads, A (M, K) and B (K, N)
+// as matrices; A is stored row-major (M, K), or (K, M) when kTransA, and B
+// row-major (K, N), or (N, K) when kTransB. Thread (ty, tx) = (tid / 16,
+// tid % 16) owns rows ty + 16 i and columns tx + 16 j of the tile: the
+// strided ownership keeps shared-memory reads free of bank conflicts (A reads
+// broadcast, B reads are consecutive). A is staged as As[k][m], padded by
+// one, and a transposed B as Bs[k][n] padded by one, so the stores do not
+// conflict either; global reads walk the operand's contiguous index.
+// Out-of-range rows, columns and depths read as zero. With kColSumB, threads
+// tid < BN also sum their column of B over the whole depth into `bsum`
+// (the bias gradient of a weight-gradient GEMM, for free).
+template <int BM, int BN, typename T, bool kTransA = false, bool kTransB = false,
+          bool kColSumB = false>
 struct TileGemm {
   static_assert(BM % 16 == 0 && BN % 16 == 0, "tile must be a multiple of 16");
   static constexpr int TM = BM / 16;
   static constexpr int TN = BN / 16;
   static constexpr int kAStride = BM + 1;
-  static constexpr int kSmemFloats = kTileK * kAStride + kTileK * BN;
+  static constexpr int kBStride = kTransB ? BN + 1 : BN;
+  static constexpr int kSmemFloats = kTileK * kAStride + kTileK * kBStride;
 
   __device__ static void run(const T* __restrict__ A, const T* __restrict__ B, int M, int N,
                              int K, int row0, int col0, float (&acc)[TM][TN],
-                             float* __restrict__ smem) {
+                             float* __restrict__ smem, float* bsum = nullptr) {
     float* As = smem;
     float* Bs = smem + kTileK * kAStride;
     const int tid = threadIdx.x;
@@ -90,26 +161,49 @@ struct TileGemm {
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    float col_sum = 0.0f;
 
     for (int k0 = 0; k0 < K; k0 += kTileK) {
-      for (int e = tid; e < BM * kTileK; e += kThreads) {
-        const int m = e / kTileK, k = e % kTileK;
-        const int gm = row0 + m, gk = k0 + k;
-        As[k * kAStride + m] = (gm < M && gk < K) ? to_f32(A[(size_t)gm * K + gk]) : 0.0f;
+      if constexpr (kTransA) {
+        for (int e = tid; e < BM * kTileK; e += kThreads) {
+          const int k = e / BM, m = e % BM;
+          const int gm = row0 + m, gk = k0 + k;
+          As[k * kAStride + m] = (gm < M && gk < K) ? to_f32(A[(size_t)gk * M + gm]) : 0.0f;
+        }
+      } else {
+        for (int e = tid; e < BM * kTileK; e += kThreads) {
+          const int m = e / kTileK, k = e % kTileK;
+          const int gm = row0 + m, gk = k0 + k;
+          As[k * kAStride + m] = (gm < M && gk < K) ? to_f32(A[(size_t)gm * K + gk]) : 0.0f;
+        }
       }
-      for (int e = tid; e < kTileK * BN; e += kThreads) {
-        const int k = e / BN, n = e % BN;
-        const int gk = k0 + k, gn = col0 + n;
-        Bs[k * BN + n] = (gk < K && gn < N) ? to_f32(B[(size_t)gk * N + gn]) : 0.0f;
+      if constexpr (kTransB) {
+        for (int e = tid; e < kTileK * BN; e += kThreads) {
+          const int n = e / kTileK, k = e % kTileK;
+          const int gk = k0 + k, gn = col0 + n;
+          Bs[k * kBStride + n] = (gk < K && gn < N) ? to_f32(B[(size_t)gn * K + gk]) : 0.0f;
+        }
+      } else {
+        for (int e = tid; e < kTileK * BN; e += kThreads) {
+          const int k = e / BN, n = e % BN;
+          const int gk = k0 + k, gn = col0 + n;
+          Bs[k * kBStride + n] = (gk < K && gn < N) ? to_f32(B[(size_t)gk * N + gn]) : 0.0f;
+        }
       }
       __syncthreads();
+      if constexpr (kColSumB) {
+        if (tid < BN) {
+#pragma unroll
+          for (int k = 0; k < kTileK; ++k) col_sum += Bs[k * kBStride + tid];
+        }
+      }
 #pragma unroll
       for (int k = 0; k < kTileK; ++k) {
         float a[TM], b[TN];
 #pragma unroll
         for (int i = 0; i < TM; ++i) a[i] = As[k * kAStride + ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[k * BN + tx + 16 * j];
+        for (int j = 0; j < TN; ++j) b[j] = Bs[k * kBStride + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -117,16 +211,21 @@ struct TileGemm {
       }
       __syncthreads();
     }
+    if constexpr (kColSumB) {
+      if (tid < BN && bsum != nullptr && col0 + tid < N) bsum[col0 + tid] = col_sum;
+    }
   }
 };
 
-// out = act(A . W + bias), stored in T. Grid (ceil(N / 64), ceil(M / 64)).
-template <typename T>
+// out = act(A . W + bias) * gate, stored in T. W is (K, N), or (N, K) read
+// transposed when kTransW; bias (N,) and gate (M, N) float32 may be null.
+// Grid (ceil(N / 64), ceil(M / 64)).
+template <typename T, bool kTransW = false>
 __global__ void __launch_bounds__(kThreads)
     gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
                          const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K,
-                         int act) {
-  using G = TileGemm<64, 64, T>;
+                         int act, const float* __restrict__ gate = nullptr) {
+  using G = TileGemm<64, 64, T, false, kTransW>;
   __shared__ float smem[G::kSmemFloats];
   const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
   float acc[G::TM][G::TN];
@@ -139,9 +238,98 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < G::TN; ++j) {
       const int n = col0 + tx + 16 * j;
-      if (n < N) out[(size_t)m * N + n] = from_f32<T>(apply_activation(acc[i][j] + bias[n], act));
+      if (n >= N) continue;
+      float v = apply_activation(acc[i][j] + (bias != nullptr ? bias[n] : 0.0f), act);
+      if (gate != nullptr) v *= gate[(size_t)m * N + n];
+      out[(size_t)m * N + n] = from_f32<T>(v);
     }
   }
+}
+
+template <typename T, bool kTransW = false>
+inline cudaError_t launch_gemm(const T* A, const T* W, const float* bias, T* out, int M, int N,
+                               int K, int act, const float* gate, cudaStream_t stream) {
+  const dim3 grid((N + 63) / 64, (M + 63) / 64);
+  gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, 0, stream>>>(A, W, bias, out, M, N, K, act,
+                                                                  gate);
+  return cudaGetLastError();
+}
+
+// Weight gradient dW = X^T . dY (Hin, N) in float32, summed over all M rows,
+// and with db != null the bias gradient db = sum over rows of dY (N,). Each
+// block owns one 64 x 64 tile of dW and walks all M rows itself, so nothing
+// is shared between blocks: no atomics, and the same sum in the same order on
+// every run. The blocks of the first tile row also write their columns of
+// db, summed from the dY tiles they stage anyway. Grid (ceil(N / 64),
+// ceil(Hin / 64)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    weight_grad_kernel(const T* __restrict__ X, const T* __restrict__ dY, float* __restrict__ dW,
+                       float* __restrict__ db, int M, int Hin, int N) {
+  using G = TileGemm<64, 64, T, true, false, true>;
+  __shared__ float smem[G::kSmemFloats];
+  const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
+  float acc[G::TM][G::TN];
+  G::run(X, dY, Hin, N, M, row0, col0, acc, smem, blockIdx.y == 0 ? db : nullptr);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i) {
+    const int h = row0 + ty + 16 * i;
+    if (h >= Hin) continue;
+#pragma unroll
+    for (int j = 0; j < G::TN; ++j) {
+      const int n = col0 + tx + 16 * j;
+      if (n < N) dW[(size_t)h * N + n] = acc[i][j];
+    }
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_weight_grad(const T* X, const T* dY, float* dW, float* db, int M,
+                                      int Hin, int N, cudaStream_t stream) {
+  const dim3 grid((N + 63) / 64, (Hin + 63) / 64);
+  weight_grad_kernel<T><<<grid, kThreads, 0, stream>>>(X, dY, dW, db, M, Hin, N);
+  return cudaGetLastError();
+}
+
+// (M=B*L, H) . (H, 3*nh*hd) + bias, scattered to (3, B, nh, L, hd), q scaled
+// by sm_scale (1 keeps it unscaled). Grid (ceil(3*nh*hd / 64), ceil(B*L / 64)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
+                    int nh, int hd, float sm_scale) {
+  using G = TileGemm<64, 64, T>;
+  __shared__ float smem[G::kSmemFloats];
+  const int M = B * L, HN = nh * hd, N = 3 * HN;
+  const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
+  float acc[G::TM][G::TN];
+  G::run(x, w, M, N, H, row0, col0, acc, smem);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i) {
+    const int m = row0 + ty + 16 * i;
+    if (m >= M) continue;
+    const int b = m / L, l = m - b * L;
+#pragma unroll
+    for (int j = 0; j < G::TN; ++j) {
+      const int n = col0 + tx + 16 * j;
+      if (n >= N) continue;
+      const int s = n / HN, r = n - s * HN;
+      const int h = r / hd, d = r - h * hd;
+      float v = acc[i][j] + bias[n];
+      if (s == 0) v *= sm_scale;
+      qkv[((((size_t)s * B + b) * nh + h) * L + l) * hd + d] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T* qkv, int B, int L,
+                                   int H, int nh, int hd, float sm_scale, cudaStream_t stream) {
+  const dim3 grid((3 * nh * hd + 63) / 64, (B * L + 63) / 64);
+  qkv_proj_kernel<T><<<grid, kThreads, 0, stream>>>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale);
+  return cudaGetLastError();
 }
 
 // Rows of the residual-LayerNorm GEMM a block owns, and its column tile.

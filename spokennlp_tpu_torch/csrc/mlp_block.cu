@@ -32,9 +32,7 @@ template <typename T>
 cudaError_t mlp_block(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
                       const float* ln_scale, const float* ln_bias, T* h_buf, float* ln_buf, T* out,
                       int M, int H, int I, int act, float eps, cudaStream_t stream) {
-  const dim3 grid((I + 63) / 64, (M + 63) / 64);
-  gemm_bias_act_kernel<T><<<grid, kThreads, 0, stream>>>(x, w1, b1, h_buf, M, I, H, act);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_gemm<T>(x, w1, b1, h_buf, M, I, H, act, nullptr, stream);
   if (err != cudaSuccess) return err;
   return launch_residual_ln<T>(h_buf, w2, b2, x, ln_scale, ln_bias, ln_buf, out, M, H, I, eps,
                                1, stream);

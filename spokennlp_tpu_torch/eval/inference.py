@@ -7,8 +7,9 @@ Counterpart of ``predict_windows_scanned`` and ``run_topic_seg_inference`` in
   the model's device -> gather logits at sentence positions on the device ->
   one copy to the host -> per-document aggregation -> Pk/WD/F1.
 
-Featurization, aggregation and the metrics are the JAX package's own
-(``data.windowing_fast``, ``data.windowing``, ``eval.seg_metrics``).
+Featurization, aggregation and the metrics are the port's copies of the
+JAX package's host modules (``data.windowing_fast``, ``data.windowing``,
+``eval.seg_metrics``).
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from spokennlp_tpu.data import windowing as W
-from spokennlp_tpu.data.windowing_fast import window_documents_stacked
-from spokennlp_tpu.eval import seg_metrics
+from spokennlp_tpu_torch.data import windowing as W
+from spokennlp_tpu_torch.data.windowing_fast import window_documents_stacked
+from spokennlp_tpu_torch.eval import seg_metrics
 
 
 def predict_windows_scanned(
@@ -35,7 +36,8 @@ def predict_windows_scanned(
     windows' ``sent_positions`` when ``gather_sents`` (the only slots the
     aggregation reads). The tail batch is padded by repeating the last
     window, so every batch has one shape. Logits cross to the host once, in
-    bfloat16, as the JAX engine fetches them.
+    bfloat16, as the JAX engine fetches them. The model runs in eval mode
+    (no dropout, the inference kernels) and goes back to its mode after.
     """
     n, L = batch["input_ids"].shape
     B = batch_size
@@ -53,14 +55,19 @@ def predict_windows_scanned(
         keys.append("sent_positions")
     grids = [grid(batch[k]) for k in keys]
     outs = []
-    with torch.inference_mode():
-        for i in range(nb):
-            ids, mask, tt, *pos = (g[i].to(device) for g in grids)
-            logits = model(ids, attention_mask=mask, token_type_ids=tt)["token_logits"]
-            if gather_sents:
-                logits = torch.take_along_dim(logits, pos[0].long()[:, :, None], dim=1)
-            outs.append(logits.to(torch.bfloat16))
-        out = torch.cat(outs).cpu().float().numpy()
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            for i in range(nb):
+                ids, mask, tt, *pos = (g[i].to(device) for g in grids)
+                logits = model(ids, attention_mask=mask, token_type_ids=tt)["token_logits"]
+                if gather_sents:
+                    logits = torch.take_along_dim(logits, pos[0].long()[:, :, None], dim=1)
+                outs.append(logits.to(torch.bfloat16))
+            out = torch.cat(outs).cpu().float().numpy()
+    finally:
+        model.train(was_training)
     return out[:n]
 
 

@@ -7,17 +7,24 @@ names and shapes follow the Flax tree (``qkv.kernel`` (H, 3, nh, hd),
 ``scale`` and ``bias``), so a JAX checkpoint maps one-to-one onto the
 ``state_dict`` (models/convert.py).
 
-Inference only: dropout is not applied. Parameters stay float32; ``dtype``
-is the compute dtype, as in the Flax modules.
+Parameters stay float32; ``dtype`` is the compute dtype, as in the Flax
+modules. ``module.training`` plays the part of JAX's ``deterministic=False``:
+dropout (hidden states, attention probabilities) is applied only in training
+mode, with masks drawn from the ``generator`` given to ``forward``.
 
-Two attention paths, resolved by ``attention_impl``:
+Three attention paths, resolved by ``attention_impl``:
 
 - ``"einsum"``: plain PyTorch, with exact-erf GELU;
-- ``"fused"``: per layer, the fused attention block and the fused MLP block
-  (ops/cuda/), whose GELU is the tanh form, as on the TPU.
+- ``"fused"`` (inference): per layer, the fused attention block and the
+  fused MLP block (ops/cuda/), whose GELU is the tanh form, as on the TPU;
+- ``"train_fused"``: per layer, the training attention block (probability
+  dropout inside the kernel) and the training MLP core
+  (ops/cuda/train_blocks.py), each with a backward kernel; residual,
+  LayerNorm and hidden-state dropout stay in PyTorch.
 
-``"auto"`` picks ``"fused"`` for CUDA inputs without ``output_attentions``,
-and ``"einsum"`` anywhere else.
+``"auto"`` picks ``"train_fused"`` for CUDA inputs in training mode,
+``"fused"`` for CUDA inputs in eval mode without ``output_attentions``, and
+``"einsum"`` anywhere else.
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spokennlp_tpu.configs import EncoderConfig
+from spokennlp_tpu_torch.configs import EncoderConfig
 from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+from spokennlp_tpu_torch.ops.cuda.train_blocks import attention_block_train, mlp_block_train
 
 ACT2FN = {
     # HF semantics: "gelu" is the exact erf form; the fused MLP kernel uses
@@ -52,6 +60,17 @@ class EncoderOutput:
     pooled_output: Optional[torch.Tensor] = None  # (B, H) tanh(W @ h_cls)
     hidden_states: Optional[tuple] = None  # per layer (B, L, H), embeddings first
     attentions: Optional[tuple] = None  # per layer (B, nh, L, L), einsum path only
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with probability 1 - rate and scale kept
+    values by 1 / (1 - rate), in x's dtype; the identity outside training.
+    The mask comes from ``generator`` (the default one when None)."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
@@ -117,8 +136,9 @@ class Embeddings(nn.Module):
         self.embeddings_project = (
             Dense(E, cfg.hidden_size, generator) if E != cfg.hidden_size else None
         )
+        self.dropout_rate = cfg.hidden_dropout
 
-    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+    def forward(self, input_ids, token_type_ids=None, position_ids=None, generator=None):
         L = input_ids.shape[1]
         if position_ids is None:
             position_ids = torch.arange(L, device=input_ids.device)[None, :]
@@ -130,6 +150,7 @@ class Embeddings(nn.Module):
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + self.token_type_embeddings(token_type_ids, self.dtype)
         x = self.LayerNorm(x)
+        x = dropout(x, self.dropout_rate, self.training, generator)
         if self.embeddings_project is not None:
             x = self.embeddings_project(x)
         return x
@@ -173,7 +194,7 @@ class SelfAttention(nn.Module):
         self.qkv = FusedQKV(cfg.hidden_size, cfg.num_heads, cfg.head_dim, generator)
         self.out = AttnOutProj(cfg.num_heads, cfg.head_dim, cfg.hidden_size, generator)
 
-    def forward(self, hidden, attention_bias, output_attentions=False):
+    def forward(self, hidden, attention_bias, output_attentions=False, generator=None):
         dt = hidden.dtype
         q, k, v = self.qkv(hidden).unbind(2)  # (B, L, nh, hd)
         scale = 1.0 / math.sqrt(self.cfg.head_dim)
@@ -182,6 +203,7 @@ class SelfAttention(nn.Module):
             scores = scores + attention_bias.to(scores.dtype)
         sm_dtype = dt if self.cfg.softmax_in_compute_dtype else torch.float32
         probs = torch.softmax(scores.to(sm_dtype), dim=-1).to(dt)
+        probs = dropout(probs, self.cfg.attention_dropout, self.training, generator)
         ctx = torch.einsum("bhlm,bmhd->blhd", probs, v)
         return self.out(ctx), (probs if output_attentions else None)
 
@@ -199,10 +221,13 @@ class TransformerLayer(nn.Module):
         self.mlp_out = Dense(I, H, generator)
         self.mlp_ln = LayerNorm(H, cfg.layer_norm_eps)
 
-    def forward(self, hidden, attention_bias, output_attentions=False):
-        attn_out, probs = self.attention(hidden, attention_bias, output_attentions)
+    def forward(self, hidden, attention_bias, output_attentions=False, generator=None):
+        rate = self.cfg.hidden_dropout
+        attn_out, probs = self.attention(hidden, attention_bias, output_attentions, generator)
+        attn_out = dropout(attn_out, rate, self.training, generator)
         hidden = self.attention_ln(hidden + attn_out)
         mlp = self.mlp_out(ACT2FN[self.cfg.hidden_act](self.mlp_in(hidden)))
+        mlp = dropout(mlp, rate, self.training, generator)
         return self.mlp_ln(hidden + mlp), probs
 
     def forward_fused(self, hidden, segment_ids):
@@ -223,21 +248,51 @@ class TransformerLayer(nn.Module):
         )
         return out.reshape(B, L, H)
 
+    def forward_train_fused(self, hidden, segment_ids, generator=None):
+        """The training kernels: attn = attention block (probability dropout
+        inside the kernel, seeded from ``generator``), h1 = LN(x +
+        dropout(attn)); mlp = the MLP core, h2 = LN(h1 + dropout(mlp))."""
+        cfg = self.cfg
+        B, L, H = hidden.shape
+        attn = self.attention
+        rate = cfg.attention_dropout if self.training else 0.0
+        seed = torch.zeros(1, dtype=torch.int32, device=hidden.device)
+        if rate > 0.0:
+            seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=hidden.device,
+                                 dtype=torch.int32)
+        attn_out = attention_block_train(
+            hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel, attn.out.bias,
+            seed, sm_scale=1.0 / math.sqrt(cfg.head_dim), dropout_rate=rate,
+        )
+        attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
+        hidden = self.attention_ln(hidden + attn_out)
+        mlp = mlp_block_train(
+            hidden.reshape(B * L, H), self.mlp_in.kernel, self.mlp_in.bias, self.mlp_out.kernel,
+            self.mlp_out.bias, activation=cfg.hidden_act,
+        ).reshape(B, L, H)
+        mlp = dropout(mlp, cfg.hidden_dropout, self.training, generator)
+        return self.mlp_ln(hidden + mlp)
+
 
 def resolve_attention_impl(
-    cfg: EncoderConfig, device: torch.device, output_attentions: bool
+    cfg: EncoderConfig, device: torch.device, output_attentions: bool, training: bool = False
 ) -> str:
-    """"einsum" or "fused", as the encoder will run; raises for what the
-    port does not have yet."""
+    """"einsum", "fused" or "train_fused", as the encoder will run; raises
+    for what the port does not have yet."""
     if cfg.attention_type != "dense":
         raise NotImplementedError(f"attention_type={cfg.attention_type!r} is not ported yet")
     if cfg.quantize == "w8a8":
         raise NotImplementedError("quantize='w8a8' is not ported yet")
     impl = cfg.attention_impl
     if impl == "auto":
-        impl = "fused" if device.type == "cuda" else "einsum"
-    if impl not in ("einsum", "fused"):
+        if device.type != "cuda":
+            impl = "einsum"
+        else:
+            impl = "train_fused" if training else "fused"
+    if impl not in ("einsum", "fused", "train_fused"):
         raise NotImplementedError(f"attention_impl={impl!r} is not ported yet")
+    if impl == "fused" and training:
+        impl = "einsum"  # the inference kernels have no backward and skip dropout
     # the fused kernels return no attention probabilities
     return "einsum" if output_attentions else impl
 
@@ -273,22 +328,28 @@ class Encoder(nn.Module):
         pack_segment_ids: Optional[torch.Tensor] = None,
         output_hidden_states: bool = False,
         output_attentions: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> EncoderOutput:
         """``pack_segment_ids`` (B, L): 0 on pad tokens, i + 1 on packed
-        window i; tokens attend only within their window."""
+        window i; tokens attend only within their window. ``generator``
+        draws the dropout masks and kernel seeds in training mode."""
         B, L = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones((B, L), dtype=torch.int32, device=input_ids.device)
-        impl = resolve_attention_impl(self.cfg, input_ids.device, output_attentions)
+        impl = resolve_attention_impl(self.cfg, input_ids.device, output_attentions,
+                                      self.training)
 
-        hidden = self.embeddings(input_ids, token_type_ids, position_ids)
+        hidden = self.embeddings(input_ids, token_type_ids, position_ids, generator)
         all_hidden = (hidden,) if output_hidden_states else None
         all_attn = () if output_attentions else None
-        if impl == "fused":
+        if impl in ("fused", "train_fused"):
             seg = pack_segment_ids if pack_segment_ids is not None else attention_mask
             seg = seg.to(torch.int32)
             for layer in self.layers():
-                hidden = layer.forward_fused(hidden, seg)
+                if impl == "fused":
+                    hidden = layer.forward_fused(hidden, seg)
+                else:
+                    hidden = layer.forward_train_fused(hidden, seg, generator)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
         else:
@@ -297,7 +358,7 @@ class Encoder(nn.Module):
                 same = pack_segment_ids[:, :, None] == pack_segment_ids[:, None, :]
                 bias = bias + torch.where(same, 0.0, NEG_INF)[:, None, :, :]
             for layer in self.layers():
-                hidden, probs = layer(hidden, bias, output_attentions)
+                hidden, probs = layer(hidden, bias, output_attentions, generator)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
                 if output_attentions:

@@ -1,8 +1,16 @@
-"""Topic-segmentation model: encoder trunk, token-classification head and
-TSSP head (inference).
+"""Topic-segmentation model and its composite training objective.
 
-Counterpart of ``TopicSegModel`` in ``spokennlp_tpu/models/topic_seg.py``;
-the composite training objective belongs to the training port.
+Counterpart of ``spokennlp_tpu/models/topic_seg.py``: an encoder trunk, a
+token-classification head and a TSSP (topic-structure sentence-pair) head,
+and the loss of the reference's ``LossCalculator``:
+
+    total = ts_w * CE(anchor token logits)       [ts_score_predictor=lt]
+          + cl_w * CSSL(anchor eop features)     [anchor view only]
+          + ts_w * CE(DA token logits)           [when the DA view runs]
+          + tssp_w * CE(DA sentence-pair logits) [DA view only]
+
+The reference multiplies the TSSP weight twice; this applies it once, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -12,13 +20,17 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from spokennlp_tpu.configs import EncoderConfig, TopicSegConfig
-from spokennlp_tpu_torch.models.encoder import Dense, Encoder
-from spokennlp_tpu_torch.objectives.cssl import gather_sentence_features
+from spokennlp_tpu_torch.configs import EncoderConfig, TopicSegConfig
+from spokennlp_tpu_torch.models.encoder import Dense, Encoder, dropout
+from spokennlp_tpu_torch.objectives import cssl as cssl_ops
+from spokennlp_tpu_torch.ops import losses as loss_ops
+
+IGNORE = -100
 
 
 class TopicSegModel(nn.Module):
-    """Encoder trunk + token-classification head + TSSP head."""
+    """Encoder trunk + token-classification head + TSSP head; dropout on the
+    trunk's output (``classifier_dropout``) in training mode."""
 
     def __init__(
         self,
@@ -43,7 +55,10 @@ class TopicSegModel(nn.Module):
         position_ids: Optional[torch.Tensor] = None,
         pack_segment_ids: Optional[torch.Tensor] = None,
         output_hidden_states: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
+        """``generator`` draws every dropout mask and kernel seed of the
+        forward in training mode."""
         out = self.encoder(
             input_ids,
             attention_mask=attention_mask,
@@ -51,13 +66,113 @@ class TopicSegModel(nn.Module):
             position_ids=position_ids,
             pack_segment_ids=pack_segment_ids,
             output_hidden_states=output_hidden_states,
+            generator=generator,
         )
-        seq = out.last_hidden_state
+        seq = dropout(out.last_hidden_state, self.task_cfg.classifier_dropout, self.training,
+                      generator)
         result = {"seq_output": seq, "token_logits": self.classifier(seq)}
         if output_hidden_states:
             result["hidden_states"] = out.hidden_states
         if sent_positions is not None:
-            sent_feats = gather_sentence_features(seq, sent_positions)
+            sent_feats = cssl_ops.gather_sentence_features(seq, sent_positions)
             result["sent_features"] = sent_feats
             result["tssp_logits"] = self.tssp_classifier(sent_feats)
         return result
+
+
+def _view(batch: Dict[str, torch.Tensor], key: str, view: int) -> torch.Tensor:
+    """The anchor (0) or DA (1) view of a (B, 2, ...) batch tensor."""
+    return batch[key][:, view]
+
+
+def ts_view_loss(task_cfg: TopicSegConfig, outputs, labels, eop_positions, eop_mask):
+    """The boundary loss of one view and its logits for prediction.
+
+    Returns (ts_loss, logits, eop_pair_cos_sim).
+    """
+    eop_positions = eop_positions.long()
+    eop_feats = cssl_ops.gather_sentence_features(outputs["seq_output"], eop_positions)
+    eop_labels = torch.take_along_dim(labels, eop_positions, dim=1)
+    sims, sim_labels = cssl_ops.eop_pair_cosine_similarity(
+        eop_feats, eop_labels, eop_mask, task_cfg.ts_score_predictor_cos_temp
+    )
+    if task_cfg.ts_score_predictor == "lt":
+        logits = outputs["token_logits"]
+        ts = loss_ops.cross_entropy_with_ignore(
+            logits,
+            labels,
+            class_weights=loss_ops.ts_class_weights(task_cfg.weight_label_zero),
+            focal_gamma=task_cfg.focal_loss_gamma,
+        )
+    elif task_cfg.ts_score_predictor == "cos":
+        # BCE on the adjacent-eop cosine: label 1 (O, same topic) -> similar
+        ts = loss_ops.bce_with_logits_ignore(sims, sim_labels)
+        logits = torch.sigmoid(sims)
+    else:
+        raise ValueError(f"unsupported ts_score_predictor {task_cfg.ts_score_predictor}")
+    return ts, logits, sims
+
+
+def compute_topic_seg_loss(
+    task_cfg: TopicSegConfig,
+    anchor_out: Dict[str, torch.Tensor],
+    da_out: Optional[Dict[str, torch.Tensor]],
+    batch: Dict[str, torch.Tensor],
+    cssl_indices: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """The composite training loss. Returns (loss, aux dict)."""
+    aux: Dict[str, torch.Tensor] = {}
+    anchor_labels = _view(batch, "labels", 0)
+    anchor_eop_pos = _view(batch, "sent_positions", 0).long()
+    anchor_eop_mask = _view(batch, "eop_mask", 0)
+
+    ts_loss, anchor_logits, _ = ts_view_loss(
+        task_cfg, anchor_out, anchor_labels, anchor_eop_pos, anchor_eop_mask
+    )
+    loss = task_cfg.ts_loss_weight * ts_loss
+    aux["ts_loss"] = ts_loss
+    aux["anchor_logits"] = anchor_logits
+
+    if task_cfg.cl_loss_weight != 0.0:
+        eop_feats = cssl_ops.gather_sentence_features(anchor_out["seq_output"], anchor_eop_pos)
+        eop_labels = torch.take_along_dim(anchor_labels, anchor_eop_pos, dim=1)
+        if task_cfg.cl_anchor_level == "eop_matrix":
+            cl = cssl_ops.eop_matrix_cl_loss(eop_feats, eop_labels, anchor_eop_mask,
+                                             task_cfg.cl_temp)
+        elif task_cfg.cl_anchor_level in ("eop_list", "eot_list"):
+            if cssl_indices is None:
+                raise ValueError("list-mode CSSL needs the host-side indices")
+            cl = cssl_ops.list_cl_loss(
+                eop_feats,
+                cssl_indices["anchor_indices"],
+                cssl_indices["positive_indices"],
+                cssl_indices["negative_indices"],
+                cssl_indices["anchor_valid"],
+                task_cfg.cl_temp,
+            )
+        else:
+            raise ValueError(f"unsupported cl_anchor_level {task_cfg.cl_anchor_level}")
+        loss = loss + task_cfg.cl_loss_weight * cl
+        aux["cl_loss"] = cl
+
+    if da_out is not None:
+        da_ts_loss, da_logits, _ = ts_view_loss(
+            task_cfg,
+            da_out,
+            _view(batch, "labels", 1),
+            _view(batch, "sent_positions", 1),
+            _view(batch, "eop_mask", 1),
+        )
+        loss = loss + task_cfg.ts_loss_weight * da_ts_loss
+        aux["da_ts_loss"] = da_ts_loss
+        aux["da_logits"] = da_logits
+
+        if task_cfg.tssp_loss_weight != 0.0 and task_cfg.do_tssp:
+            sent_mask = _view(batch, "sent_mask", 1).bool()
+            tssp_labels = torch.where(sent_mask, _view(batch, "pair_orders", 1), IGNORE)
+            tssp = loss_ops.cross_entropy_with_ignore(da_out["tssp_logits"], tssp_labels)
+            loss = loss + task_cfg.tssp_loss_weight * tssp
+            aux["tssp_loss"] = tssp
+
+    aux["loss"] = loss
+    return loss, aux

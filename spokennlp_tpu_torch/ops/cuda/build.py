@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``spokennlp_tpu_torch/csrc/`` are compiled with ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-loaded with ``ctypes``. The library is built at first use into
+for Hopper (``sm_90a``), one ``nvcc`` per ``.cu`` file, all started together,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library is built at first use into
 ``spokennlp_tpu_torch/_build/``, named by a hash of the sources, so an edited
 source is rebuilt and an unchanged one is built once.
 """
@@ -22,14 +23,19 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C signatures of csrc/*.cu's extern "C" entries
 _SIGNATURES = {
     "spk_attention_block": [_I] + [_P] * 12 + [_I] * 5 + [_F, _F, _I, _P],
     "spk_mlp_block": [_I] + [_P] * 10 + [_I] * 4 + [_F, _P],
+    "spk_attention_train_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _U, _F, _P],
+    "spk_attention_train_bwd": [_I] + [_P] * 17 + [_I] * 5 + [_F, _U, _F, _P],
+    "spk_dropout_mask": [_P, _P, _I, _I, _I, _U, _P],
+    "spk_mlp_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    "spk_mlp_train_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
 }
 
 
@@ -59,24 +65,42 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists.
 
-    Writes the compiler's output (``-Xptxas -v``: registers, shared memory
+    Starts one ``nvcc -c`` per source at once, then links the objects.
+    Writes the compilers' output (``-Xptxas -v``: registers, shared memory
     and spills of every kernel) beside the library as ``<name>.log``. Raises
-    with that output if the compiler fails.
+    with that output if a compiler fails.
     """
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    logs, failed = [], False
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        failed |= proc.returncode != 0
+    objs = [str(obj) for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        failed = proc.returncode != 0
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    log = "\n".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    so.with_suffix(".log").write_text(f"{log}\nbuilt in {seconds:.1f} s\n")
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    so.with_suffix(".log").write_text(f"{log}\nbuilt in {time.perf_counter() - t0:.1f} s\n")
     os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
     return so
 

@@ -1,0 +1,224 @@
+"""Training loop for topic segmentation on one device: epochs, the eval
+cadence, checkpoints and best-metric retention.
+
+Counterpart of ``TopicSegTrainer`` in ``spokennlp_tpu/train/trainer.py``:
+
+- eval every ``total_steps // eval_cnt`` optimizer steps (at least 40), the
+  reference's cadence;
+- metrics stream to a JSONL file and the log, one line per event;
+- checkpoints are ``torch.save`` files (model, optimizer, step, eval
+  metrics) under ``train_cfg.checkpoint_dir``; the ``save_total_limit``
+  best by ``metric_for_best`` are kept, as the JAX trainer's Orbax manager
+  keeps them;
+- ``restore_latest`` resumes from the newest kept checkpoint.
+
+Multi-device training and TensorBoard are not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from spokennlp_tpu_torch.configs import TopicSegConfig, TrainConfig, WindowingConfig
+from spokennlp_tpu_torch.data.featurization import batches_from_docs, featurize_paired
+from spokennlp_tpu_torch.eval import seg_metrics
+from spokennlp_tpu_torch.train import optim
+from spokennlp_tpu_torch.train.train_step import batch_to_device, make_topic_seg_train_step
+
+logger = logging.getLogger("spokennlp_tpu_torch.trainer")
+
+
+class MetricLogger:
+    """JSONL metric stream (one line per event) and the log."""
+
+    def __init__(self, path: Optional[str]):
+        self._f = None
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "a")
+
+    def log(self, event: Dict):
+        line = json.dumps({**event, "time": time.time()}, default=float)
+        logger.info(line)
+        if self._f:
+            self._f.write(line + "\n")
+            self._f.flush()
+
+    def close(self):
+        if self._f:
+            self._f.close()
+
+
+class TopicSegTrainer:
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        task_cfg: TopicSegConfig,
+        train_cfg: TrainConfig,
+        windowing_cfg: WindowingConfig,
+        train_docs: Sequence[Dict],
+        eval_docs: Optional[Sequence[Dict]] = None,
+        metric_for_best: str = "f1",
+        log_path: Optional[str] = None,
+    ):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.task_cfg = task_cfg
+        self.train_cfg = train_cfg
+        self.wcfg = windowing_cfg
+        self.train_docs = list(train_docs)
+        self.eval_docs = list(eval_docs) if eval_docs else None
+        self.metric_for_best = metric_for_best
+        self.metrics_log = MetricLogger(log_path)
+        self.batch_size = train_cfg.per_device_batch_size
+
+        n_windows = len(featurize_paired(
+            self.train_docs, self.wcfg, np.random.default_rng(train_cfg.seed),
+            task_cfg.tssp_ablation, num_proc=train_cfg.preprocessing_num_workers,
+        ))
+        steps_per_epoch = max(n_windows // self.batch_size, 1)
+        self.total_steps = int(
+            steps_per_epoch * train_cfg.num_train_epochs // train_cfg.gradient_accumulation_steps
+        )
+        self.eval_steps = max(self.total_steps // max(train_cfg.eval_cnt, 1), 40)
+        self.optimizer = optim.make_optimizer(model, train_cfg, max(self.total_steps, 1))
+        self.step_fn = make_topic_seg_train_step(model, task_cfg, self.optimizer,
+                                                 seed=train_cfg.seed)
+        self.checkpoint_dir = Path(train_cfg.checkpoint_dir) if train_cfg.checkpoint_dir else None
+
+    # ------------------------------------------------------------------ train
+
+    def train(self) -> Dict:
+        cfg = self.train_cfg
+        accum = max(cfg.gradient_accumulation_steps, 1)
+        data_rng = np.random.default_rng(cfg.seed)
+        step = self.optimizer.micro_step
+        best = float("-inf")
+        t_start = time.time()
+        epoch = 0
+        while step < self.total_steps * accum:
+            epoch += 1
+            # short final batches are padded by repetition (drop_last=False)
+            for batch in batches_from_docs(
+                self.train_docs, self.wcfg, self.task_cfg, self.batch_size, data_rng,
+                drop_last=False, num_proc=cfg.preprocessing_num_workers,
+            ):
+                metrics = self.step_fn(batch_to_device(batch, self.device))
+                step += 1
+                # log and eval cadences count optimizer steps
+                at_opt_boundary = step % accum == 0
+                opt_step = step // accum
+                if at_opt_boundary and opt_step % cfg.log_every == 0:
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                    self.metrics_log.log({"event": "train", "step": opt_step, "epoch": epoch,
+                                          **scalars})
+                if self.eval_docs and at_opt_boundary and opt_step % self.eval_steps == 0:
+                    eval_metrics = self.evaluate()
+                    self.metrics_log.log({"event": "eval", "step": opt_step, **eval_metrics})
+                    best = max(best, eval_metrics.get(self.metric_for_best, 0.0))
+                    self._save(opt_step, eval_metrics)
+                if step >= self.total_steps * accum:
+                    break
+        final = {
+            "train_steps": step,
+            "train_time_s": time.time() - t_start,
+            "best_" + self.metric_for_best: best,
+        }
+        if self.eval_docs:
+            final_eval = self.evaluate()
+            final.update({f"final_{k}": v for k, v in final_eval.items()})
+            self._save(step // accum, final_eval)
+        self.metrics_log.log({"event": "train_end", **final})
+        return final
+
+    # ------------------------------------------------------------------- eval
+
+    def evaluate(self, docs: Optional[Sequence[Dict]] = None) -> Dict:
+        """Window-level eval: boundary precision/recall/F1 and Pk/WD over the
+        labelled sentences of every window (the reference's compute_metrics)."""
+        from spokennlp_tpu_torch.data.windowing import stack_windows, window_document
+        from spokennlp_tpu_torch.eval.inference import predict_windows_scanned
+
+        docs = docs if docs is not None else self.eval_docs
+        if docs is None:
+            logger.warning("evaluate() called with no eval docs; skipping")
+            return {}
+        if self.task_cfg.ts_score_predictor != "lt":
+            raise NotImplementedError("the cos predictor is not ported yet")
+        windows = []
+        for eid, doc in enumerate(docs):
+            windows.extend(window_document(doc["sent_token_ids"], doc["labels"], self.wcfg, eid))
+        if not windows:
+            return {}
+        batch = stack_windows(windows)
+        logits = predict_windows_scanned(self.model, batch, self.batch_size, gather_sents=True)
+        preds, refs = [], []
+        for i in range(len(windows)):
+            live = batch["sent_labels"][i] != -100
+            if live.any():
+                preds.append(np.argmax(logits[i][live], -1).tolist())
+                refs.append(batch["sent_labels"][i][live].tolist())
+        prf = seg_metrics.boundary_prf(preds, refs)
+        # label id 0 = B-EOP
+        wm = seg_metrics.compute_window_metric(
+            [[1 if v == 0 else 0 for v in p] for p in preds],
+            [[1 if v == 0 else 0 for v in r] for r in refs],
+        )
+        return {
+            "precision": prf["overall_precision"],
+            "recall": prf["overall_recall"],
+            "f1": prf["overall_f1"],
+            "accuracy": prf["overall_accuracy"],
+            "1-pk": wm["1-pk"],
+            "1-wd": wm["1-wd"],
+            "pk": wm["pk"],
+            "wd": wm["wd"],
+        }
+
+    # ------------------------------------------------------------ checkpoints
+
+    def _index(self, root: Path) -> list:
+        path = root / "checkpoints.json"
+        return json.loads(path.read_text()) if path.exists() else []
+
+    def _save(self, step: int, eval_metrics: Dict):
+        """Write ``step_<n>.pt`` and keep the ``save_total_limit`` best by
+        ``metric_for_best`` (the newer on a tie)."""
+        if self.checkpoint_dir is None:
+            return
+        root = self.checkpoint_dir
+        root.mkdir(parents=True, exist_ok=True)
+        name = f"step_{step}.pt"
+        tmp = root / f"{name}.tmp"
+        torch.save({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                    "step": step, "metrics": {k: float(v) for k, v in eval_metrics.items()}}, tmp)
+        os.replace(tmp, root / name)
+        entries = [e for e in self._index(root) if e["step"] != step]
+        entries.append({"step": step, "file": name,
+                        "score": float(eval_metrics.get(self.metric_for_best, float("-inf")))})
+        entries.sort(key=lambda e: (e["score"], e["step"]), reverse=True)
+        keep = max(self.train_cfg.save_total_limit, 1)
+        for e in entries[keep:]:
+            (root / e["file"]).unlink(missing_ok=True)
+        (root / "checkpoints.json").write_text(json.dumps(entries[:keep], indent=2))
+
+    def restore_latest(self, checkpoint_dir: Optional[str] = None) -> bool:
+        """Resume from the newest kept checkpoint (under ``checkpoint_dir``
+        when given); returns whether one was found."""
+        root = Path(checkpoint_dir) if checkpoint_dir else self.checkpoint_dir
+        entries = self._index(root) if root is not None else []
+        if not entries:
+            return False
+        latest = max(entries, key=lambda e: e["step"])
+        state = torch.load(root / latest["file"], map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        return True

@@ -57,7 +57,7 @@ def _jax_encoder(cfg, x, **kw):
 
 
 def _port_encoder(cfg, params, x, **kw):
-    enc = Encoder(cfg)
+    enc = Encoder(cfg).eval()
     enc.load_state_dict(jax_params_to_state_dict(params), strict=True)
     kw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
     with torch.inference_mode():
@@ -145,7 +145,7 @@ def test_topic_seg_model_matches_jax():
     params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x["ids"]), **args)["params"]
     want = jm.apply({"params": params}, jnp.asarray(x["ids"]), **args)
 
-    port = TopicSegModel(TINY, task)
+    port = TopicSegModel(TINY, task).eval()
     port.load_state_dict(jax_params_to_state_dict(jax.tree.map(np.asarray, params)), strict=True)
     with torch.inference_mode():
         got = port(
@@ -204,7 +204,7 @@ def test_encoder_fused_on_card_matches_plain_on_cpu():
         torch.from_numpy(x["mask"]).to(dev),
         torch.from_numpy(x["tt"]).to(dev),
     )
-    fused_cpu = Encoder(dataclasses.replace(cfg, attention_impl="fused"))
+    fused_cpu = Encoder(dataclasses.replace(cfg, attention_impl="fused")).eval()
     fused_cpu.load_state_dict(enc.state_dict())
     with torch.inference_mode():
         want = fused_cpu(*args("cpu")).last_hidden_state

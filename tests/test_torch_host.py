@@ -1,0 +1,170 @@
+"""The port's copies of the host modules against the JAX package's, and the
+port's isolation from the JAX package.
+
+The copies (configs, tokenization, corpora, windowing, augmentation, CSSL
+sampling, featurization, segmentation metrics, the CLI flag groups) must
+give the same arrays and numbers as the modules they copy on one corpus; and
+no module of ``spokennlp_tpu_torch``, nor ``chip_smoke.py``, may load
+``spokennlp_tpu`` or ``jax``.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _corpus(tmp_path):
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(300)] + ["Hello,", "world!", "naïve", "中文"]
+    d = tmp_path / "wiki_section"
+    d.mkdir(parents=True)
+    for split, n in (("train.jsonl", 6), ("dev.jsonl", 2), ("test.jsonl", 3)):
+        with open(d / split, "w") as f:
+            for _ in range(n):
+                ns = int(rng.integers(5, 40))
+                sents = [" ".join(rng.choice(words, size=rng.integers(2, 25))) for _ in range(ns)]
+                labels = [int(rng.random() < 0.2) for _ in range(ns)]
+                labels[-1] = 1
+                f.write(json.dumps({"sentences": sents, "labels": labels}) + "\n")
+    return str(d)
+
+
+def _assert_same(got, want, path="batch"):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _assert_same(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"{path}[{i}]")
+    elif dataclasses.is_dataclass(want):
+        _assert_same(dataclasses.asdict(got), dataclasses.asdict(want), path)
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=path)
+
+
+def _docs(tmp_path, corpora):
+    data = corpora.load_dataset_splits("wiki_section", _corpus(tmp_path))
+    tok = lambda s: [1000 + sum(map(ord, w)) % 500 for w in s.split()] or [1000]
+    return {k: corpora.tokenize_examples(v, tok) for k, v in data.items()}
+
+
+def test_corpora_windowing_and_featurization_match_jax(tmp_path):
+    from spokennlp_tpu import configs as jc
+    from spokennlp_tpu.data import corpora as j_corpora
+    from spokennlp_tpu.data import featurization as j_feat
+    from spokennlp_tpu.data import windowing as j_win
+    from spokennlp_tpu.data import windowing_fast as j_fast
+    from spokennlp_tpu_torch import configs as tc
+    from spokennlp_tpu_torch.data import corpora, featurization, windowing, windowing_fast
+
+    want_docs, got_docs = _docs(tmp_path / "j", j_corpora), _docs(tmp_path / "t", corpora)
+    _assert_same(got_docs, want_docs, "docs")
+    docs = got_docs["train"]
+    kw = dict(max_seq_length=64, cls_token_id=2, pad_token_id=0, bos_token_id=1)
+    jw, tw = jc.WindowingConfig(**kw), tc.WindowingConfig(**kw)
+    _assert_same(windowing_fast.window_documents_stacked(docs, tw),
+                 j_fast.window_documents_stacked(docs, jw), "stacked")
+    want = [j_win.window_document(d["sent_token_ids"], d["labels"], jw, i)
+            for i, d in enumerate(docs)]
+    got = [windowing.window_document(d["sent_token_ids"], d["labels"], tw, i)
+           for i, d in enumerate(docs)]
+    _assert_same(got, want, "windows")
+    flat = lambda ws: [w for doc in ws for w in doc]
+    _assert_same(windowing.stack_windows(flat(got)), j_win.stack_windows(flat(want)), "stack")
+    for level in ("eop_matrix", "eop_list", "eot_list"):
+        task = dict(cl_anchor_level=level, cl_loss_weight=0.5, do_tssp=True, do_da_ts=True)
+        want_b = list(j_feat.batches_from_docs(docs, jw, jc.TopicSegConfig(**task), 4,
+                                               np.random.default_rng(3), drop_last=False))
+        got_b = list(featurization.batches_from_docs(docs, tw, tc.TopicSegConfig(**task), 4,
+                                                     np.random.default_rng(3), drop_last=False))
+        _assert_same(got_b, want_b, level)
+    stacked = j_win.stack_windows(flat(want))
+    rng = np.random.default_rng(5)
+    token = rng.normal(size=stacked["labels"].shape + (2,)).astype(np.float32)
+    gathered = rng.normal(size=stacked["sent_labels"].shape + (2,)).astype(np.float32)
+    args = (stacked["example_id"], stacked["labels"], token, len(docs))
+    _assert_same(windowing.aggregate_window_predictions(*args),
+                 j_win.aggregate_window_predictions(*args), "aggregate")
+    args = (stacked["example_id"], stacked["sent_labels"], gathered, len(docs))
+    _assert_same(windowing.aggregate_gathered_predictions(*args),
+                 j_win.aggregate_gathered_predictions(*args), "aggregate_gathered")
+
+
+def test_segmentation_metrics_match_jax():
+    from spokennlp_tpu.eval import seg_metrics as jm
+    from spokennlp_tpu_torch.eval import seg_metrics as tm
+
+    rng = np.random.default_rng(1)
+    refs = [rng.integers(0, 2, size=rng.integers(3, 40)).tolist() for _ in range(12)]
+    preds = [(np.asarray(r) ^ (rng.random(len(r)) < 0.2)).astype(int).tolist() for r in refs]
+    assert tm.boundary_prf(preds, refs) == jm.boundary_prf(preds, refs)
+    assert tm.compute_window_metric(preds, refs) == jm.compute_window_metric(preds, refs)
+    scores = [rng.normal(size=(len(r), 2)).astype(np.float32) for r in refs]
+    for kw in ({"threshold": 0.5}, {"topk": 3}, {"threshold": 0.5, "f1_at_k": 2}, {}):
+        assert tm.compute_example_level_metric(scores, refs, **kw) == \
+            jm.compute_example_level_metric(scores, refs, **kw), kw
+
+
+def test_tokenizer_and_cli_flags_match_jax(tmp_path):
+    from spokennlp_tpu.cli import common as jcommon
+    from spokennlp_tpu.utils.tokenization import FullTokenizer as JaxTokenizer
+    from spokennlp_tpu_torch.cli import common as tcommon
+    from spokennlp_tpu_torch.utils.tokenization import FullTokenizer
+
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "hello", "world",
+                                "##s", "na", "##ive", ",", "!", "中", "文", "un", "##aff"]))
+    text = "Hello, worlds! naive UNAFFable 中文 \t x"
+    assert FullTokenizer.from_vocab_file(str(vocab)).encode(text) == \
+        JaxTokenizer.from_vocab_file(str(vocab)).encode(text)
+
+    def parse(common, argv):
+        p = argparse.ArgumentParser()
+        common.add_model_args(p)
+        common.add_data_args(p)
+        common.add_training_args(p)
+        return p.parse_args(argv)
+
+    argv = ["--output_dir", str(tmp_path / "o"), "--vocab_file", str(vocab), "--do_da_ts",
+            "--cl_loss_weight", "0.5", "--warmup_ratio", "0.1", "--dtype", "bfloat16"]
+    ja, ta = parse(jcommon, argv), parse(tcommon, argv)
+    assert vars(ja) == vars(ta)
+    (_, jspecial), (_, tspecial) = jcommon.resolve_tokenizer(ja), tcommon.resolve_tokenizer(ta)
+    assert jspecial == tspecial
+    for j, t in zip(jcommon.build_configs(ja, jspecial), tcommon.build_configs(ta, tspecial)):
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_port_imports_nothing_of_the_jax_package(target):
+    """A fresh interpreter imports every module of the port (or chip_smoke)
+    and checks that neither spokennlp_tpu nor jax was loaded."""
+    code = """
+import importlib, pkgutil, sys
+import spokennlp_tpu_torch
+names = ["chip_smoke"] if sys.argv[1] == "chip_smoke" else [
+    m.name for m in pkgutil.walk_packages(spokennlp_tpu_torch.__path__, "spokennlp_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "optax"))
+             or m == "spokennlp_tpu" or m.startswith("spokennlp_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code, target], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n, _ = proc.stdout.split(" ", 1)
+    assert int(n) >= (1 if target == "chip_smoke" else 25)

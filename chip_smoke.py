@@ -605,7 +605,7 @@ def main() -> int:
         train_data = write_corpus(Path(tmp), n_test_docs=4,
                                   n_train_docs=math.ceil(TRAIN_STEPS * B / 2.5), seed=1)
         train = train_path(train_argv(train_data, str(Path(tmp) / "train_out")), LAYERS, B)
-        fused_vs_einsum_grads(train_argv(train_data, str(Path(tmp) / "grad_out")), batch_size=8)
+        fused_vs_einsum_grads(train_argv(train_data, str(Path(tmp) / "grad_out")), batch_size=B)
 
     launches = {**infer["launches"], **train["launches"]}
     kernels = []

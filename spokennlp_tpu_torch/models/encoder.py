@@ -17,6 +17,7 @@ Three attention paths, resolved by ``attention_impl``:
 - ``"einsum"``: plain PyTorch, with exact-erf GELU;
 - ``"fused"`` (inference): per layer, the fused attention block and the
   fused MLP block (ops/cuda/), whose GELU is the tanh form, as on the TPU;
+  in training mode it means ``"train_fused"``;
 - ``"train_fused"``: per layer, the training attention block (probability
   dropout inside the kernel) and the training MLP core
   (ops/cuda/train_blocks.py), each with a backward kernel; residual,
@@ -278,7 +279,9 @@ def resolve_attention_impl(
     cfg: EncoderConfig, device: torch.device, output_attentions: bool, training: bool = False
 ) -> str:
     """"einsum", "fused" or "train_fused", as the encoder will run; raises
-    for what the port does not have yet."""
+    for what the port does not have yet. In training mode "fused" means the
+    training kernels: the inference kernels have no backward and skip
+    dropout."""
     if cfg.attention_type != "dense":
         raise NotImplementedError(f"attention_type={cfg.attention_type!r} is not ported yet")
     if cfg.quantize == "w8a8":
@@ -292,7 +295,7 @@ def resolve_attention_impl(
     if impl not in ("einsum", "fused", "train_fused"):
         raise NotImplementedError(f"attention_impl={impl!r} is not ported yet")
     if impl == "fused" and training:
-        impl = "einsum"  # the inference kernels have no backward and skip dropout
+        impl = "train_fused"
     # the fused kernels return no attention probabilities
     return "einsum" if output_attentions else impl
 

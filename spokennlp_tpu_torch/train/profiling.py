@@ -1,12 +1,10 @@
-"""Profiling of the port's composite train step.
+"""A ``torch.profiler`` measurement of the port's composite train step.
 
-Counterpart of ``spokennlp_tpu/train/profiling.py`` (``jax.profiler``
-becomes ``torch.profiler``), and a command that measures one configuration:
-the composite topic-segmentation step of ``bench.py --train`` (BERT-base,
-L=512, 64 sentence slots, anchor and DA views, eop_matrix CSSL, TSSP,
-AdamW), bfloat16 compute, random weights from a seed:
+The step of ``bench.py --train``: BERT-base at L=512, 32 windows of 64
+sentence slots, anchor and DA views, eop_matrix CSSL, TSSP and AdamW, in
+bfloat16 compute, random weights from a seed:
 
-    python -m spokennlp_tpu_torch.train.profiling --batch 32 --impl auto einsum \
+    python -m spokennlp_tpu_torch.train.profiling --impl auto einsum \
         --out chiprun_out/train_profile.json
 
 For each ``--impl`` it reports the step time (host clock around steps that
@@ -14,8 +12,7 @@ end in a synchronise, after warm-up steps), windows trained per second, the
 peak device memory, and from a ``torch.profiler`` trace of a few steps the
 device time of every kernel, the share taken by the port's own kernels
 (``csrc/``), and the busy share (the union of kernel intervals over the
-traced steps' host time). It needs a CUDA card unless ``--device cpu``
-rehearses the control flow at a small ``--hidden``.
+traced steps' host time). The command needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -37,6 +34,7 @@ from spokennlp_tpu_torch.train import optim
 from spokennlp_tpu_torch.train.train_step import batch_to_device, make_topic_seg_train_step
 
 WARMUP_STEPS, TRACED_STEPS, TOP_KERNELS, SEED = 2, 2, 20, 0
+BATCH, SLOTS, STEPS = 32, 64, 5  # windows a step, sentence slots a window, timed steps
 
 
 def synthetic_batch(B: int, L: int, K: int, vocab: int, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -93,19 +91,26 @@ def kernel_times(prof) -> Dict[str, Dict]:
     return result
 
 
-def measure(impl: str, args) -> Dict:
-    device = torch.device(args.device)
-    enc = EncoderConfig(vocab_size=30522, hidden_size=args.hidden, num_layers=args.layers,
-                        num_heads=args.hidden // 64, intermediate_size=4 * args.hidden,
-                        max_position_embeddings=args.seq, add_pooler=False, attention_impl=impl)
+def bert_base(impl: str) -> EncoderConfig:
+    """The encoder of ``bench.py --train``: BERT-base at L=512."""
+    return EncoderConfig(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12,
+                         intermediate_size=3072, max_position_embeddings=512, add_pooler=False,
+                         attention_impl=impl)
+
+
+def measure(enc: EncoderConfig, batch_size: int = BATCH, slots: int = SLOTS,
+            steps: int = STEPS, device: str = "cuda") -> Dict:
+    """One configuration's step times and trace; the tests run it on the CPU
+    at a small ``enc``."""
+    device = torch.device(device)
     task = TopicSegConfig(cl_anchor_level="eop_matrix", cl_loss_weight=0.5, do_tssp=True,
                           do_da_ts=True, tssp_loss_weight=1.0)
     model = TopicSegModel(enc, task, dtype=torch.bfloat16,
                           generator=torch.Generator().manual_seed(SEED)).to(device)
     opt = optim.make_optimizer(model, TrainConfig(gradient_accumulation_steps=1), 1000)
     step = make_topic_seg_train_step(model, task, opt, seed=SEED)
-    batch = batch_to_device(synthetic_batch(args.batch, args.seq, args.slots, enc.vocab_size),
-                            device)
+    batch = batch_to_device(
+        synthetic_batch(batch_size, enc.max_position_embeddings, slots, enc.vocab_size), device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -113,7 +118,7 @@ def measure(impl: str, args) -> Dict:
         step(batch)
     sync()
     times: List[float] = []
-    for _ in range(args.steps):
+    for _ in range(steps):
         t0 = time.perf_counter()
         metrics = step(batch)
         sync()
@@ -135,10 +140,10 @@ def measure(impl: str, args) -> Dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:TOP_KERNELS]
     mean = float(np.mean(times))
     return {
-        "attention_impl": impl,
+        "attention_impl": enc.attention_impl,
         "step_ms": [t * 1e3 for t in times],
         "step_ms_mean": mean * 1e3,
-        "windows_per_s": args.batch / mean,
+        "windows_per_s": batch_size / mean,
         "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda"
                      else None),
         "traced_steps": TRACED_STEPS,
@@ -154,36 +159,28 @@ def measure(impl: str, args) -> Dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--device", default="cuda")
     p.add_argument("--impl", nargs="+", default=["auto", "einsum"],
                    help="attention_impl values to measure in turn")
-    p.add_argument("--batch", type=int, default=32)
-    p.add_argument("--seq", type=int, default=512)
-    p.add_argument("--slots", type=int, default=64, help="sentence slots per window")
-    p.add_argument("--hidden", type=int, default=768)
-    p.add_argument("--layers", type=int, default=12)
-    p.add_argument("--steps", type=int, default=5, help="timed steps after the warm-up")
     p.add_argument("--out", default=None, help="write the results as JSON here")
     args = p.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available")
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = None
-    if args.device == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    results = {"card": card, "torch": torch.__version__, "batch": args.batch, "seq": args.seq,
-               "layers": args.layers, "hidden": args.hidden, "runs": []}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    enc = bert_base("auto")
+    results = {"card": card, "torch": torch.__version__, "batch": BATCH,
+               "seq": enc.max_position_embeddings, "layers": enc.num_layers,
+               "hidden": enc.hidden_size, "runs": []}
     for impl in args.impl:
-        run = measure(impl, args)
+        run = measure(bert_base(impl))
         results["runs"].append(run)
         print(f"{impl}: step {run['step_ms_mean']:.1f} ms ({run['windows_per_s']:.2f} windows/s), "
               f"peak {run['peak_gib']} GiB, kernels {run['kernel_ms']:.1f} ms over "
               f"{TRACED_STEPS} steps, port share {run['port_kernel_share']}, busy "
               f"{run['busy_share']}", flush=True)
-        if args.device == "cuda":
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

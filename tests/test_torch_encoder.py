@@ -181,6 +181,10 @@ def test_attention_impl_resolution():
     assert resolve_attention_impl(auto, cpu, output_attentions=False) == "einsum"
     fused = dataclasses.replace(TINY, attention_impl="fused")
     assert resolve_attention_impl(fused, cpu, output_attentions=False) == "fused"
+    for dev in (cpu, cuda):
+        assert resolve_attention_impl(fused, dev, False, training=True) == "train_fused"
+    assert resolve_attention_impl(auto, cuda, False, training=True) == "train_fused"
+    assert resolve_attention_impl(auto, cpu, False, training=True) == "einsum"
     for bad in (
         dataclasses.replace(TINY, attention_impl="stack"),
         dataclasses.replace(TINY, attention_impl="flash"),

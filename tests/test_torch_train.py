@@ -364,6 +364,41 @@ def test_train_step_dropout_streams_are_reproducible():
     assert losses_seen[0][0] != losses_seen[0][1]
 
 
+def test_fused_in_training_mode_takes_the_training_kernels_path():
+    """attention_impl="fused" on a model in training mode runs the training
+    blocks (Philox probability dropout), not the einsum path (whose masks
+    come from the torch generator): its step equals "train_fused"'s."""
+    from spokennlp_tpu_torch.data.featurization import batches_from_docs
+
+    task = TopicSegConfig(cl_anchor_level="eop_matrix", do_tssp=True, do_da_ts=True,
+                          tssp_loss_weight=1.0)
+    batch = batch_to_device(next(batches_from_docs(
+        _docs(1, 3), WindowingConfig(**WCFG), task, 3, np.random.default_rng(0))),
+        torch.device("cpu"))
+    loss = {}
+    for impl in ("fused", "train_fused", "einsum"):
+        port = TopicSegModel(EncoderConfig(**TINY, attention_impl=impl), task,
+                             generator=torch.Generator().manual_seed(0))
+        opt = optim.make_optimizer(port, TrainConfig(gradient_accumulation_steps=1), 10)
+        loss[impl] = float(make_topic_seg_train_step(port, task, opt, seed=3)(batch)["loss"])
+    assert loss["fused"] == loss["train_fused"] != loss["einsum"]
+
+
+def test_train_profile_runs_on_cpu():
+    """The profiler's control flow at a tiny size: step times, finite losses,
+    and no device kernels or device memory on the CPU."""
+    from spokennlp_tpu_torch.train import profiling
+
+    run = profiling.measure(EncoderConfig(**TINY, attention_impl="auto"), batch_size=2,
+                            slots=8, steps=1, device="cpu")
+    assert run["attention_impl"] == "auto" and len(run["step_ms"]) == 1
+    assert all(math.isfinite(v) for v in run["last_step"].values())
+    assert run["kernel_ms"] == 0 and run["kernels"] == {}
+    assert run["peak_gib"] is None and run["busy_share"] is None
+    assert profiling.kernel_name("void spk::(anonymous namespace)::attn_fwd<float, 64>(int)") == \
+        "attn_fwd"
+
+
 # ------------------------------------------------------------------ CLI
 
 

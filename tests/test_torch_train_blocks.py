@@ -262,18 +262,20 @@ def test_attention_kernels_match_plain_on_card(cuda, dtype, rate, Bc, Lc, Hc, nh
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("M,Hc,I", [(1000, 256, 1024), (70, 768, 3072)])
-def test_mlp_kernels_match_plain_on_card(cuda, dtype, M, Hc, I):
+@pytest.mark.parametrize("activation", ["gelu", "relu", "silu"])
+def test_mlp_kernels_match_plain_on_card(cuda, dtype, M, Hc, I, activation):
     t = {k: torch.from_numpy(v).to(cuda) for k, v in _mlp_inputs(M, Hc, I, seed=M).items()}
     t["x"] = t["x"].to(dtype)
     n = (tb.mlp_train_fwd.launches, tb.mlp_train_bwd.launches)
-    got = _grads_on_card(lambda s: tb.mlp_block_train(*(s[k] for k in MLP_ARGS)), dict(t),
-                         MLP_ARGS)
+    got = _grads_on_card(
+        lambda s: tb.mlp_block_train(*(s[k] for k in MLP_ARGS), activation=activation), dict(t),
+        MLP_ARGS)
     torch.cuda.synchronize()
     assert (tb.mlp_train_fwd.launches, tb.mlp_train_bwd.launches) == (n[0] + 1, n[1] + 1)
     ref = dict(t)
     ref["w1"], ref["w2"] = t["w1"].to(dtype), t["w2"].to(dtype)
     want = _grads_on_card(
-        lambda s: tb.mlp_train_plain(*(s[k] for k in MLP_ARGS), activation="gelu"), ref,
+        lambda s: tb.mlp_train_plain(*(s[k] for k in MLP_ARGS), activation=activation), ref,
         MLP_ARGS)
     for name, g, w in zip(("out",) + MLP_ARGS, got, want):
         err = _normalized_err(g, w)

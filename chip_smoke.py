@@ -33,7 +33,24 @@
 7. Fused against einsum training on one batch at dropout 0: the loss within
    1e-2 relative and the cosine similarity of every layer's weight-matrix
    gradients >= 0.99.
-8. Prints the kernels as one JSON line, the card's name and power limit,
+8. Longformer kernel phase at the reference's flagship shape (B=8, L=2048,
+   H=768, 12 heads of 64, window 512; rows full or suffix-padded to
+   1024-1900 tokens; CLS global): the inference block and the training
+   block's forward and backward against their plain versions, bfloat16 and
+   float32, with and without global rows, at dropout 0 and 0.1 (the kernels'
+   three keep masks replayed); the keep fraction of each mask within 1e-3
+   of 0.9; two backward runs bit-identical; kernel, plain and bound times.
+9. Longformer inference main path: cli/run_inference.main with
+   --attention_type sliding_window --attention_window 512 --max_seq_length
+   2048 --per_device_eval_batch_size 8 on long documents (at least half the
+   windows hold >= 1536 real tokens); each Longformer kernel ran once per
+   layer per batch; argmax agreement >= 0.99 with the plain chunked path.
+10. Longformer training main path: cli/run_finetune.main with the recipe's
+   flags (batch 2, 4 accumulation steps, DA + TSSP + eop_list CSSL) for 2
+   optimizer steps; each training kernel ran layers x views x 8 micro-steps
+   times; finite losses; then fused against chunked einsum gradients on one
+   micro-batch of 2 (qkv_global included).
+11. Prints the kernels as one JSON line, the card's name and power limit,
    and last {"ok": true, "device": {...}}.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
@@ -95,7 +112,25 @@ KERNELS = {
         "spokennlp_tpu_torch/csrc/train_mlp.cu",
         "spokennlp_tpu/ops/pallas/train_blocks.py:651",
     ),
+    "sliding_attention_block": (
+        "spokennlp_tpu_torch/csrc/sliding_block.cu",
+        "spokennlp_tpu/ops/pallas/sliding_block.py:309",
+    ),
+    "sliding_train_fwd": (
+        "spokennlp_tpu_torch/csrc/train_sliding.cu",
+        "spokennlp_tpu/ops/pallas/train_sliding.py:721",
+    ),
+    "sliding_train_bwd": (
+        "spokennlp_tpu_torch/csrc/train_sliding.cu",
+        "spokennlp_tpu/ops/pallas/train_sliding.py:778",
+    ),
 }
+# the Longformer slice: the reference's flagship recipe (scripts/run_finetune.sh:
+# window 512, 2048 tokens, training batch 2 x 4 accumulation steps), served in
+# batches of 8 windows (the dense path's 16,384 tokens a batch)
+LF_B, LF_L, LF_WINDOW, LF_MAX_GLOBALS = 8, 2048, 512, 16
+LF_TRAIN_B, LF_ACCUM, LF_STEPS = 2, 4, 2
+LF_LONG_TOKENS, LF_MIN_LONG_SHARE = 1536, 0.5
 
 
 def fail(msg: str):
@@ -141,6 +176,29 @@ def timed_pair(kernel, plain, reps=10) -> dict:
     k1, p1, p2, k2 = (time_ms(kernel, reps), time_ms(plain, reps), time_ms(plain, reps),
                       time_ms(kernel, reps))
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+
+
+def reset_peak():
+    """Start a peak-memory window on the card (nothing on the CPU), after
+    freeing what earlier phases left in reference cycles, so the peak is the
+    phase's own."""
+    import gc
+
+    import torch
+
+    if torch.cuda.is_available():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"memory in use at the start of the window: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def peak_gib() -> float:
+    """The card's peak allocation since reset_peak() in GiB; nan on the CPU."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available() else float("nan")
 
 
 def nbytes(*tensors) -> int:
@@ -371,11 +429,167 @@ def train_kernel_phase(device) -> dict:
     return rows
 
 
+# ------------------------------------------------------------ Longformer kernels
+
+
+def sliding_masks(device, global_rows=True):
+    """(B, L) attention mask (rows full, or suffix-padded to 1024-1900
+    tokens) and global mask (CLS, or none) of the Longformer kernel phase."""
+    import torch
+
+    n_valid = [LF_L, 1024, LF_L, 1300, LF_L, 1650, LF_L, 1900][:LF_B]
+    mask = (torch.arange(LF_L)[None] < torch.tensor(n_valid)[:, None]).int()
+    glob = torch.zeros_like(mask)
+    if global_rows:
+        glob[:, 0] = 1
+    return mask.to(device), glob.to(device)
+
+
+def sliding_work(mask, glob, window: int, H: int, nh: int, hd: int) -> dict:
+    """The operations the Longformer block needs for these masks: the
+    projections (local q, k, v of every row; global k, v of the real keys and
+    global q of the global rows, where a row has global tokens), the
+    attention core (scores and P.V over each row's allowed band keys, the
+    global columns and the global rows) and the output projection."""
+    mask, glob = mask.cpu().numpy(), glob.cpu().numpy()
+    B, L = mask.shape
+    C, HN = window // 2, nh * hd
+    v, g = mask.sum(1), glob.sum(1)
+    r = np.arange(L)
+    band = sum(np.clip(np.minimum(r + C, nv - 1) - np.maximum(r - C, ng) + 1, 0, None).sum()
+               for nv, ng in zip(v, g))
+    pairs = band + L * g.sum() + (g * v).sum()
+    proj = 2 * B * L * H * 3 * HN + sum(2 * nv * H * 2 * HN + 2 * ng * H * HN
+                                        for nv, ng in zip(v, g) if ng > 0)
+    return {"proj": float(proj), "core": float(4 * nh * hd * pairs),
+            "out": float(2 * B * L * HN * H)}
+
+
+def sliding_kernel_phase(device) -> dict:
+    """{(name, dtype): row} for the Longformer inference block and training
+    block at the slice's shape, with and without global rows; the keep masks'
+    fractions; the backward's determinism."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import sliding_block as sb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    g = torch.Generator(device=device).manual_seed(2)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    B, L, HN, G = LF_B, LF_L, NH * HD, sb.global_columns(LF_MAX_GLOBALS, LF_L)
+    seed = torch.tensor([20231017], dtype=torch.int32, device=device)
+    keep = ts.sliding_keep_masks(seed, B, NH, L, LF_WINDOW, G, DROPOUT)
+    for name, m in zip(("band", "global-column", "global-row"), keep):
+        frac = m.float().mean().item()
+        print(f"sliding dropout keep fraction, {name} mask {tuple(m.shape)}: {frac:.6f}")
+        if abs(frac - (1.0 - DROPOUT)) > KEEP_FRACTION_TOL:
+            fail(f"{name} keep fraction {frac:.6f} not within {KEEP_FRACTION_TOL} of "
+                 f"{1.0 - DROPOUT}")
+    names = ("qkv_kernel", "qkv_bias", "gqkv_kernel", "gqkv_bias", "out_kernel", "out_bias")
+    grad_names = ("dx",) + tuple("d" + n for n in names)
+    kw = dict(sm_scale=HD**-0.5, window=LF_WINDOW, max_globals=LF_MAX_GLOBALS)
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        params = dict(qkv_kernel=randn(H, 3, NH, HD, scale=H**-0.5),
+                      qkv_bias=randn(3, NH, HD, scale=0.02),
+                      gqkv_kernel=randn(H, 3, NH, HD, scale=H**-0.5),
+                      gqkv_bias=randn(3, NH, HD, scale=0.02),
+                      out_kernel=randn(NH, HD, H, scale=HN**-0.5), out_bias=randn(H, scale=0.02))
+        # the weights the kernels compute with, for the plain versions
+        rounded = {k: v.to(dt) if k.endswith("kernel") else v for k, v in params.items()}
+        ln = dict(ln_scale=1 + randn(H, scale=0.1), ln_bias=randn(H, scale=0.1))
+        hidden = randn(B, L, H).to(dt)
+        err = {"sliding_attention_block": 0.0, "sliding_train_fwd": 0.0, "sliding_train_bwd": 0.0}
+        for global_rows in (True, False):
+            mask, glob = sliding_masks(device, global_rows)
+            valid = mask.bool()
+            cot = (randn(B, L, H) * valid[..., None]).to(dt)
+            gkw = dict(kw, global_rows=global_rows)
+            label = f"{dtype} global_rows={global_rows}"
+            got = sb.fused_sliding_attention_block(hidden, mask, glob, *params.values(), **ln, **gkw)
+            want = sb.sliding_block_plain(hidden, mask, glob, *rounded.values(), **ln, **gkw)
+            err["sliding_attention_block"] = max(err["sliding_attention_block"], _normalized_errors(
+                [got[valid]], [want[valid]], ["out"], dtype, f"sliding_attention_block {label}"))
+            for rate in (0.0, DROPOUT):
+                def grads(fn, ps, **extra):
+                    leaves = {k: v.detach().requires_grad_() for k, v in ps.items()}
+                    h = hidden.detach().requires_grad_()
+                    out = fn(h, mask, glob, *leaves.values(), **extra, **gkw, dropout_rate=rate)
+                    return [out[valid], *torch.autograd.grad(out, [h, *leaves.values()], cot,
+                                                             allow_unused=True)]
+
+                got = grads(ts.sliding_attention_block_train, params, seed=seed)
+                want = grads(ts.sliding_train_plain, rounded, keep=keep if rate else None)
+                lab = f"sliding_train {label} rate {rate}"
+                err["sliding_train_fwd"] = max(err["sliding_train_fwd"], _normalized_errors(
+                    got[:1], want[:1], ["out"], dtype, lab + " fwd"))
+                live = [i for i, w in enumerate(want) if i > 0 and w is not None]
+                if not global_rows and not all((got[i] == 0).all() for i in (4, 5)):
+                    fail(f"{lab}: nonzero global-projection gradients without global rows")
+                err["sliding_train_bwd"] = max(err["sliding_train_bwd"], _normalized_errors(
+                    [got[i] for i in live], [want[i] for i in live],
+                    [grad_names[i - 1] for i in live], dtype, lab + " bwd"))
+                if global_rows and rate:
+                    again = grads(ts.sliding_attention_block_train, params, seed=seed)
+                    if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+                        fail(f"{lab}: two backward runs differ")
+                    print(f"  {lab}: two backward runs bit-identical")
+                del got, want
+
+        # times on the main path's masks (CLS global), the kernels called directly
+        mask, glob = sliding_masks(device)
+        valid = mask.bool()
+        cot = (randn(B, L, H) * valid[..., None]).to(dt)
+        gkw = dict(kw, global_rows=True)
+        work = sliding_work(mask, glob, LF_WINDOW, H, NH, HD)
+        ps, rs = list(params.values()), list(rounded.values())
+        with torch.no_grad():
+            blk = timed_pair(
+                lambda: sb.fused_sliding_attention_block(hidden, mask, glob, *ps, **ln, **gkw),
+                lambda: sb.sliding_block_plain(hidden, mask, glob, *rs, **ln, **gkw))
+        w = sb.card_weights(*ps[:5], dt)
+        m32, g32, bo = mask.int().contiguous(), glob.int().contiguous(), params["out_bias"]
+        cfg = dict(num_heads=NH, window=LF_WINDOW, max_globals=LF_MAX_GLOBALS, global_rows=True,
+                   sm_scale=HD**-0.5, dropout_rate=DROPOUT)
+        plain = lambda h, *p: ts.sliding_train_plain(h, mask, glob, *p, **gkw,
+                                                     dropout_rate=DROPOUT, keep=keep)
+        with torch.no_grad():
+            fwd = timed_pair(lambda: ts.sliding_train_fwd(hidden, m32, g32, seed, w, bo, **cfg),
+                             lambda: plain(hidden, *rs))
+        leaves = [p.detach().requires_grad_() for p in rs]
+        h = hidden.detach().requires_grad_()
+        out = plain(h, *leaves)
+        bwd = timed_pair(lambda: ts.sliding_train_bwd(hidden, m32, g32, seed, w, cot, **cfg),
+                         lambda: torch.autograd.grad(out, [h, *leaves], cot, retain_graph=True))
+        del out
+        weights = nbytes(*w.values(), bo)
+        io = nbytes(hidden, mask, glob) + weights
+        fwd_flops = work["proj"] + work["core"] + work["out"]
+        blk.update(bound(fwd_flops, io + nbytes(*ln.values(), hidden), dtype))
+        fwd.update(bound(fwd_flops, io + nbytes(seed, hidden), dtype))
+        # recomputed projections and attention; dctx; the backward's four
+        # attention products; dx and the projection weight gradients; dWo
+        bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
+        grads_out = nbytes(hidden) + 4 * (2 * H * 3 * HN + 2 * 3 * HN + HN * H + H)
+        bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        for name, row in (("sliding_attention_block", blk), ("sliding_train_fwd", fwd),
+                          ("sliding_train_bwd", bwd)):
+            rows[name, dtype] = {"max_abs_err": err[name], **row}
+            print(f"kernel {name} {dtype}: max_abs_err {err[name]:.3e}  kernel {row['ms']:.3f} ms  "
+                  f"plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+                  f"({row['bound_by']})")
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------ main paths
 
 
-def write_corpus(root: Path, n_test_docs: int, n_train_docs: int = 2, seed: int = 0) -> str:
-    """A wiki_section corpus (train/dev/test jsonl of {"sentences", "labels"})."""
+def write_corpus(root: Path, n_test_docs: int, n_train_docs: int = 2, seed: int = 0,
+                 sentences=(60, 120)) -> str:
+    """A wiki_section corpus (train/dev/test jsonl of {"sentences", "labels"})
+    of documents of ``sentences`` = (fewest, most) sentences."""
     rng = np.random.default_rng(seed)
     words = [f"w{i}" for i in range(2000)]
     d = root / f"wiki_section_{seed}"
@@ -383,7 +597,7 @@ def write_corpus(root: Path, n_test_docs: int, n_train_docs: int = 2, seed: int 
     for split, n in (("train.jsonl", n_train_docs), ("dev.jsonl", 2), ("test.jsonl", n_test_docs)):
         with open(d / split, "w") as f:
             for _ in range(n):
-                ns = int(rng.integers(60, 120))
+                ns = int(rng.integers(*sentences))
                 sents = [" ".join(rng.choice(words, size=rng.integers(6, 20))) for _ in range(ns)]
                 labels = [int(rng.random() < 0.15) for _ in range(ns)]
                 labels[-1] = 1
@@ -392,14 +606,16 @@ def write_corpus(root: Path, n_test_docs: int, n_train_docs: int = 2, seed: int 
 
 
 def main_path_argv(data_dir, out_dir, device="cuda", hidden=H, layers=LAYERS, heads=NH,
-                   inter=I, seq=L, batch=B):
+                   inter=I, seq=L, batch=B, window=None):
+    """run_inference flags; ``window`` makes the trunk Longformer's."""
+    sliding = ["--attention_type", "sliding_window", "--attention_window", str(window)]
     return [
         "--data_dir", data_dir, "--output_dir", out_dir, "--device", device,
         "--hidden_size", str(hidden), "--num_hidden_layers", str(layers),
         "--num_attention_heads", str(heads), "--intermediate_size", str(inter),
         "--max_seq_length", str(seq), "--dtype", "bfloat16",
         "--per_device_eval_batch_size", str(batch), "--threshold", "0.5",
-    ]
+    ] + (sliding if window else [])
 
 
 def train_argv(data_dir, out_dir, batch=B, **kw):
@@ -413,8 +629,41 @@ def train_argv(data_dir, out_dir, batch=B, **kw):
     ]
 
 
-def main_path(argv, n_layers, batch_size) -> dict:
-    """Run the inference CLI; check launches, metrics and logits against einsum."""
+def longformer_train_argv(data_dir, out_dir, epochs: float, **kw):
+    """run_finetune flags of the reference's Longformer recipe
+    (scripts/run_finetune.sh: batch 2, 4 accumulation steps, DA + TSSP,
+    eop_list CSSL, lr 5e-5, bf16) but the epochs; metrics every step."""
+    kw = {"seq": LF_L, "window": LF_WINDOW, "batch": LF_B, **kw}
+    return main_path_argv(data_dir, out_dir, **kw) + [
+        "--do_train", "--do_eval", "--do_predict", "--num_train_epochs", repr(epochs),
+        "--per_device_train_batch_size", str(LF_TRAIN_B),
+        "--gradient_accumulation_steps", str(LF_ACCUM), "--logging_steps", "1", "--do_tssp",
+        "--do_da_ts", "--tssp_loss_weight", "1.0", "--cl_anchor_level", "eop_list",
+        "--cl_loss_weight", "0.5", "--cl_temp", "0.1", "--learning_rate", "5e-5",
+    ]
+
+
+def epochs_for_steps(argv, steps: int) -> float:
+    """The --num_train_epochs that makes the trainer take exactly ``steps``
+    optimizer steps on the corpus and batch of ``argv`` (it counts the
+    training windows as TopicSegTrainer does)."""
+    from spokennlp_tpu_torch.cli import common, run_finetune
+    from spokennlp_tpu_torch.data.featurization import featurize_paired
+
+    args = run_finetune.make_parser().parse_args(argv)
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    _, task_cfg, wcfg, tcfg = common.build_configs(args, special)
+    docs = common.load_docs(args, tokenize_fn)["train"]
+    n = len(featurize_paired(docs, wcfg, np.random.default_rng(tcfg.seed), task_cfg.tssp_ablation))
+    per_epoch = max(n // args.per_device_train_batch_size, 1)
+    return (steps * args.gradient_accumulation_steps + 0.5) / per_epoch
+
+
+def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None) -> dict:
+    """Run the inference CLI; check launches, metrics and logits against
+    einsum. ``kernels``: {name: wrapper} that must run once per layer per
+    batch (the dense pair by default); ``long_tokens``: check that at least
+    LF_MIN_LONG_SHARE of the windows hold that many real tokens."""
     import torch
 
     from spokennlp_tpu_torch.cli import common, run_inference
@@ -423,11 +672,14 @@ def main_path(argv, n_layers, batch_size) -> dict:
     from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
     from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
 
-    wrappers = {"fused_attention_block": fused_attention_block, "fused_mlp_block": fused_mlp_block}
+    wrappers = kernels or {"fused_attention_block": fused_attention_block,
+                           "fused_mlp_block": fused_mlp_block}
     for w in wrappers.values():
         w.launches = 0
+    reset_peak()
     out = run_inference.main(argv)
     launches = {name: w.launches for name, w in wrappers.items()}
+    peak = peak_gib()
     n_windows = out["num_windows"]
     n_batches = math.ceil(n_windows / batch_size)
     for name, n in launches.items():
@@ -438,8 +690,8 @@ def main_path(argv, n_layers, batch_size) -> dict:
         fail(f"non-finite metrics {metrics}")
     windows_per_s = n_windows / out["predict_time_s"]
     print(f"inference main path: {n_windows} windows in {n_batches} batches, "
-          f"{out['predict_time_s']:.3f} s in the engine call ({windows_per_s:.1f} windows/s); "
-          f"launches {launches}")
+          f"{out['predict_time_s']:.3f} s in the engine call ({windows_per_s:.1f} windows/s), "
+          f"peak {peak:.2f} GiB; launches {launches}")
 
     # the same weights on the einsum path, on the first batch
     results = {}
@@ -450,8 +702,22 @@ def main_path(argv, n_layers, batch_size) -> dict:
         model = run_inference.build_model(args, enc_cfg, task_cfg)
         docs = common.load_docs(args, tokenize_fn)["test"]
         batch = window_documents_stacked(docs, wcfg)
+        if long_tokens and impl == "auto":
+            share = float((batch["attention_mask"].sum(1) >= long_tokens).mean())
+            print(f"windows holding >= {long_tokens} real tokens: {share:.3f}")
+            if share < LF_MIN_LONG_SHARE:
+                fail(f"only {share:.3f} of the windows hold >= {long_tokens} tokens")
         first = {k: v[:batch_size] for k, v in batch.items()}
         results[impl] = predict_windows_scanned(model, first, batch_size, gather_sents=True)
+        if impl == "einsum":
+            # the plain path's engine call over every window, for PERF.md
+            reset_peak()
+            t0 = time.perf_counter()
+            predict_windows_scanned(model, batch, batch_size, gather_sents=True)
+            einsum_s = time.perf_counter() - t0  # ends in a copy to the host
+            einsum_peak = peak_gib()
+            print(f"einsum path engine call: {len(batch['input_ids']) / einsum_s:.1f} windows/s, "
+                  f"peak {einsum_peak:.2f} GiB")
         del model
         torch.cuda.empty_cache()
     live = first["sent_labels"] != -100
@@ -463,38 +729,41 @@ def main_path(argv, n_layers, batch_size) -> dict:
     if agreement < MIN_ARGMAX_AGREEMENT:
         fail(f"argmax agreement {agreement:.4f} < {MIN_ARGMAX_AGREEMENT}")
     return {"launches": launches, "windows": n_windows, "windows_per_s": windows_per_s,
-            "agreement": agreement, "max_dlogit": max_dlogit, "metrics": metrics}
+            "peak_gib": peak, "einsum_windows_per_s": n_windows / einsum_s,
+            "einsum_peak_gib": einsum_peak, "agreement": agreement, "max_dlogit": max_dlogit,
+            "metrics": metrics}
 
 
-def train_path(argv, n_layers, batch_size, device="cuda") -> dict:
+def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1) -> dict:
     """Run the fine-tuning CLI; check launches (on the card), losses and the
-    checkpoint."""
+    checkpoint. ``kernels``: {name: wrapper} that must run once per layer,
+    view and micro-step (the dense training kernels by default)."""
     import torch
 
     from spokennlp_tpu_torch.cli import run_finetune
     from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
 
-    wrappers = {n: getattr(tb, n) for n in ("attention_train_fwd", "attention_train_bwd",
-                                            "mlp_train_fwd", "mlp_train_bwd")}
+    wrappers = kernels or {n: getattr(tb, n) for n in ("attention_train_fwd",
+                                                       "attention_train_bwd", "mlp_train_fwd",
+                                                       "mlp_train_bwd")}
     on_card = device == "cuda"
     for w in wrappers.values():
         w.launches = 0
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     results = run_finetune.main(argv)
     launches = {name: w.launches for name, w in wrappers.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    peak = peak_gib()
     out_dir = Path(argv[argv.index("--output_dir") + 1])
     events = [json.loads(l) for l in (out_dir / "metrics.jsonl").read_text().splitlines()]
     train = [e for e in events if e["event"] == "train"]
     steps = len(train)
-    if steps < 2 or steps != results["train_steps"]:
-        fail(f"{steps} train events for {results['train_steps']} steps")
+    if steps < 2 or steps * accum != results["train_steps"]:
+        fail(f"{steps} train events for {results['train_steps']} micro-steps of {accum}")
     views = 2  # anchor and DA
     for name, n in launches.items():
-        if on_card and n != n_layers * views * steps:
+        if on_card and n != n_layers * views * steps * accum:
             fail(f"{name} ran {n} times, expected {n_layers} layers x {views} views x "
-                 f"{steps} steps")
+                 f"{steps} steps x {accum} micro-steps")
     keys = ("loss", "ts_loss", "cl_loss", "da_ts_loss", "tssp_loss", "grad_norm")
     for e in train:
         if not all(k in e and math.isfinite(e[k]) for k in keys):
@@ -511,11 +780,12 @@ def train_path(argv, n_layers, batch_size, device="cuda") -> dict:
         fail("the last checkpoint differs from final_model")
     steady = (train[-1]["time"] - train[0]["time"]) / (steps - 1)
     row = {"launches": launches, "steps": steps, "steps_per_s": 1.0 / steady,
-           "windows_per_s": batch_size / steady, "peak_gib": peak_gib,
+           "windows_per_s": batch_size * accum / steady, "peak_gib": peak,
            "losses": {k: train[-1][k] for k in keys}}
-    print(f"training main path: {steps} optimizer steps of {batch_size} windows (x2 views), "
+    print(f"training main path: {steps} optimizer steps of {accum} x {batch_size} windows "
+          f"(x2 views), "
           f"steady {row['steps_per_s']:.3f} steps/s = {row['windows_per_s']:.2f} windows/s "
-          f"trained; peak {peak_gib:.2f} GiB; last step {row['losses']}; launches {launches}; "
+          f"trained; peak {peak:.2f} GiB; last step {row['losses']}; launches {launches}; "
           f"checkpoint step {latest['step']} reloaded, equal to final_model")
     return row
 
@@ -531,7 +801,7 @@ def fused_vs_einsum_grads(argv, batch_size, device="cuda") -> dict:
     from spokennlp_tpu_torch.cli.run_inference import build_model
     from spokennlp_tpu_torch.data.featurization import batches_from_docs
     from spokennlp_tpu_torch.models.topic_seg import compute_topic_seg_loss
-    from spokennlp_tpu_torch.train.train_step import batch_to_device
+    from spokennlp_tpu_torch.train.train_step import CSSL_KEYS, batch_to_device
 
     args = run_finetune.make_parser().parse_args(argv)
     tokenize_fn, special = common.resolve_tokenizer(args)
@@ -542,6 +812,7 @@ def fused_vs_einsum_grads(argv, batch_size, device="cuda") -> dict:
     np_batch = next(batches_from_docs(docs, wcfg, task_cfg, batch_size,
                                       np.random.default_rng(0)))
     batch = batch_to_device(np_batch, torch.device(device))
+    cssl = {v: batch[k] for k, v in CSSL_KEYS.items()} if "cssl_anchor_indices" in batch else None
     res = {}
     for impl in ("train_fused", "einsum"):
         model = build_model(args, dataclasses.replace(enc_cfg, attention_impl=impl), task_cfg)
@@ -549,7 +820,7 @@ def fused_vs_einsum_grads(argv, batch_size, device="cuda") -> dict:
         views = [model(batch["input_ids"][:, v], attention_mask=batch["attention_mask"][:, v],
                        token_type_ids=batch["token_type_ids"][:, v],
                        sent_positions=batch["sent_positions"][:, v]) for v in (0, 1)]
-        loss, _ = compute_topic_seg_loss(task_cfg, views[0], views[1], batch)
+        loss, _ = compute_topic_seg_loss(task_cfg, views[0], views[1], batch, cssl)
         names = [n for n, _ in model.named_parameters() if n.startswith("encoder.layer_")
                  and n.endswith("kernel")]
         params = dict(model.named_parameters())
@@ -560,12 +831,16 @@ def fused_vs_einsum_grads(argv, batch_size, device="cuda") -> dict:
             torch.cuda.empty_cache()
     (lf, gf), (le, ge) = res["train_fused"], res["einsum"]
     rel = abs(lf - le) / abs(le)
-    cos = {n: torch.nn.functional.cosine_similarity(gf[n].flatten(), ge[n].flatten(), dim=0).item()
-           for n in gf}
+    # a matrix that does not reach the loss (the last layer's global
+    # projections: no loss term reads the CLS row) has a zero gradient on both
+    # paths, which agree
+    zero = [n for n in gf if not gf[n].any() and not ge[n].any()]
+    cos = {n: 1.0 if n in zero else torch.nn.functional.cosine_similarity(
+        gf[n].flatten().float(), ge[n].flatten().float(), dim=0).item() for n in gf}
     worst = min(cos, key=cos.get)
     print(f"fused vs einsum training, one batch of {batch_size} at dropout 0: loss {lf:.6f} vs "
           f"{le:.6f} (rel {rel:.2e}); lowest gradient cosine {cos[worst]:.5f} ({worst}) over "
-          f"{len(cos)} weight matrices")
+          f"{len(cos)} weight matrices; zero on both paths: {zero}")
     if not rel <= LOSS_RTOL:
         fail(f"fused loss {lf} vs einsum {le}: rel {rel:.3e} > {LOSS_RTOL}")
     if cos[worst] < MIN_GRAD_COSINE:
@@ -597,6 +872,12 @@ def main() -> int:
     device = torch.device("cuda")
     rows = kernel_phase(device)
     rows.update(train_kernel_phase(device))
+    rows.update(sliding_kernel_phase(device))
+
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
 
     with tempfile.TemporaryDirectory() as tmp:
         data = write_corpus(Path(tmp), n_test_docs=120)
@@ -606,8 +887,34 @@ def main() -> int:
                                   n_train_docs=math.ceil(TRAIN_STEPS * B / 2.5), seed=1)
         train = train_path(train_argv(train_data, str(Path(tmp) / "train_out")), LAYERS, B)
         fused_vs_einsum_grads(train_argv(train_data, str(Path(tmp) / "grad_out")), batch_size=B)
+        torch.cuda.empty_cache()
 
-    launches = {**infer["launches"], **train["launches"]}
+        # the Longformer paths: long documents, about 2 windows of 2048 each
+        lf_data = write_corpus(Path(tmp), n_test_docs=40, n_train_docs=8, seed=2,
+                               sentences=(150, 300))
+        lf_infer = main_path(
+            main_path_argv(lf_data, str(Path(tmp) / "lf_out"), seq=LF_L, batch=LF_B,
+                           window=LF_WINDOW), LAYERS, LF_B,
+            kernels={"sliding_attention_block": fused_sliding_attention_block,
+                     "fused_mlp_block": fused_mlp_block}, long_tokens=LF_LONG_TOKENS)
+        argv = lambda out, epochs: longformer_train_argv(lf_data, str(Path(tmp) / out), epochs)
+        epochs = epochs_for_steps(argv("lf_train_out", 1.0), LF_STEPS)
+        lf_train = train_path(
+            argv("lf_train_out", epochs), LAYERS, LF_TRAIN_B, accum=LF_ACCUM,
+            kernels={"sliding_train_fwd": ts.sliding_train_fwd,
+                     "sliding_train_bwd": ts.sliding_train_bwd,
+                     "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
+        fused_vs_einsum_grads(argv("lf_grad_out", epochs), batch_size=LF_TRAIN_B)
+
+    launches = {**infer["launches"], **train["launches"],
+                "sliding_attention_block": lf_infer["launches"]["sliding_attention_block"],
+                **{k: lf_train["launches"][k] for k in ("sliding_train_fwd", "sliding_train_bwd")}}
+    print(json.dumps({"longformer": {
+        "inference": {k: lf_infer[k] for k in ("launches", "windows", "windows_per_s",
+                                               "peak_gib", "einsum_windows_per_s",
+                                               "einsum_peak_gib", "agreement", "max_dlogit")},
+        "training": {k: lf_train[k] for k in ("launches", "steps", "steps_per_s",
+                                              "windows_per_s", "peak_gib")}}}))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -7,17 +7,26 @@ It writes ``metrics.jsonl`` (train, eval and train_end events),
 ``all_results.json`` (train, ``eval_*`` and ``predict_*`` results) and the
 trained model as ``final_model/model.pt`` (a ``state_dict``) with
 ``final_model/config.json`` (the encoder config). Weights start from
-``--seed``; loading checkpoints, ``--seeds`` repeats, TensorBoard and
-multi-device training are not ported yet.
+``--seed``; ``--seeds`` with two or more seeds repeats the run under
+``<output_dir>/seed_<n>`` for each and writes the mean and standard
+deviation of every numeric result to ``multi_seed_results.json`` (the
+reference's ``for seed in 42 59 88`` loop). Loading checkpoints, TensorBoard
+and multi-device training are not ported yet.
 
     python -m spokennlp_tpu_torch.cli.run_finetune --data_dir <wiki_section dir> \
         --output_dir out --do_train --do_eval --do_predict --dtype bfloat16 \
         --cl_loss_weight 0.5 --cl_anchor_level eop_matrix --tssp_loss_weight 1.0 \
         --do_tssp --do_da_ts
+
+The reference's Longformer recipe (window 512, 2048 tokens, batch 2 with 4
+accumulation steps, eop_list CSSL) adds ``--attention_type sliding_window
+--attention_window 512 --max_seq_length 2048 --per_device_train_batch_size 2
+--gradient_accumulation_steps 4 --cl_anchor_level eop_list --seeds 42 59 88``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -29,8 +38,6 @@ from spokennlp_tpu_torch.cli.run_inference import build_model, resolve_device
 
 
 def make_parser():
-    import argparse
-
     p = argparse.ArgumentParser()
     common.add_model_args(p)
     common.add_data_args(p)
@@ -39,6 +46,9 @@ def make_parser():
                    help="torch device to run on; cuda raises when no card is present")
     p.add_argument("--logging_steps", type=int, default=50,
                    help="log the train metrics every this many optimizer steps")
+    p.add_argument("--seeds", type=int, nargs="+", default=None,
+                   help="multi-seed repeats with mean/std aggregation (the reference's "
+                   "`for seed in 42 59 88` loop, run_finetune.sh:50)")
     return p
 
 
@@ -51,10 +61,32 @@ def save_final_model(path: str, model: torch.nn.Module, enc_cfg):
 
 
 def main(argv=None):
+    args = make_parser().parse_args(argv)
+    if args.seeds and len(args.seeds) > 1:
+        from spokennlp_tpu_torch.eval.analysis import compute_avg_std
+
+        per_seed, keys = [], None
+        for seed in args.seeds:
+            sub = argparse.Namespace(**vars(args))
+            sub.seeds, sub.seed = None, seed
+            sub.output_dir = os.path.join(args.output_dir, f"seed_{seed}")
+            res = main_single(sub)
+            keys = keys or sorted(k for k, v in res.items() if isinstance(v, (int, float)))
+            per_seed.append([float(res.get(k, 0.0)) for k in keys])
+        agg = compute_avg_std(per_seed, keys)
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "multi_seed_results.json"), "w") as f:
+            json.dump(agg, f, indent=2)
+        print(json.dumps(agg, indent=2))
+        return agg
+    return main_single(args)
+
+
+def main_single(args):
+    """One fine-tuning run of the parsed flags; returns its results."""
     from spokennlp_tpu_torch.eval.inference import run_topic_seg_inference
     from spokennlp_tpu_torch.train.trainer import TopicSegTrainer
 
-    args = make_parser().parse_args(argv)
     resolve_device(args.device)
     if args.model_name_or_path and os.path.isdir(args.model_name_or_path):
         raise NotImplementedError("loading checkpoints is not ported yet; omit "

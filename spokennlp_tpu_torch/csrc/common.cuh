@@ -1,5 +1,6 @@
 // Shared device code of the encoder kernels (attention_block.cu,
-// mlp_block.cu, train_attention.cu, train_mlp.cu): dtype conversion, the
+// mlp_block.cu, train_attention.cu, train_mlp.cu, sliding_block.cu,
+// train_sliding.cu): dtype conversion, the
 // activation table and its derivative, warp sums, a counter-based Philox
 // generator for dropout, a SIMT tiled GEMM (either operand may be read
 // transposed), the GEMM whose epilogue adds bias and residual and applies
@@ -292,16 +293,17 @@ inline cudaError_t launch_weight_grad(const T* X, const T* dY, float* dW, float*
   return cudaGetLastError();
 }
 
-// (M=B*L, H) . (H, 3*nh*hd) + bias, scattered to (3, B, nh, L, hd), q scaled
-// by sm_scale (1 keeps it unscaled). Grid (ceil(3*nh*hd / 64), ceil(B*L / 64)).
+// (M=B*L, H) . (H, slots*nh*hd) + bias, scattered to (slots, B, nh, L, hd),
+// slot 0 scaled by sm_scale (1 keeps it unscaled): q, k, v with slots = 3.
+// Grid (ceil(slots*nh*hd / 64), ceil(B*L / 64)).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
-                    int nh, int hd, float sm_scale) {
+                    int nh, int hd, float sm_scale, int slots) {
   using G = TileGemm<64, 64, T>;
   __shared__ float smem[G::kSmemFloats];
-  const int M = B * L, HN = nh * hd, N = 3 * HN;
+  const int M = B * L, HN = nh * hd, N = slots * HN;
   const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
   float acc[G::TM][G::TN];
   G::run(x, w, M, N, H, row0, col0, acc, smem);
@@ -326,9 +328,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T* qkv, int B, int L,
-                                   int H, int nh, int hd, float sm_scale, cudaStream_t stream) {
-  const dim3 grid((3 * nh * hd + 63) / 64, (B * L + 63) / 64);
-  qkv_proj_kernel<T><<<grid, kThreads, 0, stream>>>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale);
+                                   int H, int nh, int hd, float sm_scale, cudaStream_t stream,
+                                   int slots = 3) {
+  const dim3 grid((slots * nh * hd + 63) / 64, (B * L + 63) / 64);
+  qkv_proj_kernel<T><<<grid, kThreads, 0, stream>>>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale,
+                                                    slots);
   return cudaGetLastError();
 }
 

@@ -1,0 +1,108 @@
+// Fused Longformer attention block for the H100 (sm_90a), inference:
+//   out = LayerNorm(x + attn(x) Wo + bo)
+// with attn the sliding-window + global-token attention of
+// sliding_attention.cuh (band |i - j| <= C over real keys, G global columns,
+// global rows replaced through the *_global projections).
+//
+// Replaces the TPU kernel spokennlp_tpu/ops/pallas/sliding_block.py,
+// fused_sliding_attention_block (_sliding_block_kernel, quantized=False).
+//
+// What bounds it here. At the Longformer-base recipe (B=8, L=2048, H=768,
+// 12 heads of 64, window 512, CLS global) a layer's block is about 116 GFLOP
+// of projections (local q, k, v, global k, v, out) and 26 GFLOP of band
+// attention (2C + 1 keys a row) against some 60 MB of inputs, weights and
+// output: bound by arithmetic. These are SIMT kernels on the CUDA cores in float32; the
+// tensor cores are later work.
+//
+// What the design does about the TPU kernel's assumptions. The TPU kernel
+// ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM
+// with C rows of zero padding on each side, and walked C-row chunks over a
+// (C, 3C) band. Hopper blocks run in parallel and hold far less, so the
+// block is launches over the whole batch:
+//   1. sliding_count_kernel: n_valid and n_glob of each sequence (the
+//      suffix-padding / prefix-globals contract turns both masks into two
+//      counts, as on the TPU);
+//   2. qkv_proj_kernel (common.cuh): local q (scaled), k, v, and with global
+//      rows the global k, v over all rows, to (slots, B, nh, L, hd);
+//   3. band_rows_kernel: per (64 query rows, head, sequence) the 64 + 2C
+//      band keys in 64-key tiles (tiles with no real, non-global key are
+//      skipped) and the global-column tile, two passes (max, then exp and
+//      P.V): the band never leaves the block;
+//   4. global_rows_kernel: per (global row, head, sequence) its query
+//      projected from x and attention over all real keys, written over the
+//      local row; only rows g < n_glob run;
+//   5. gemm_bias_residual_ln_kernel (common.cuh): ctx . Wo + bo + x and the
+//      LayerNorm.
+#include "sliding_attention.cuh"
+
+namespace spk {
+namespace {
+
+template <typename T>
+cudaError_t sliding_block(const T* hidden, const int32_t* mask, const int32_t* glob,
+                          const T* wqkv, const float* bqkv, const T* wgq,
+                          const float* bgq, const T* wgkv, const float* bgkv, const T* wo,
+                          const float* bo, const float* ln_scale, const float* ln_bias,
+                          int32_t* counts, T* qkv_buf, T* gkv_buf, T* ctx_buf, float* ln_buf,
+                          T* out, int B, int L, int H, int nh, int hd, int C, int G,
+                          int global_rows, float sm_scale, float eps, int fuse_ln,
+                          cudaStream_t stream) {
+  cudaError_t err = sliding_projections<T>(hidden, mask, glob, wqkv, bqkv, wgkv, bgkv, counts,
+                                           qkv_buf, gkv_buf, B, L, H, nh, hd, G, global_rows,
+                                           sm_scale, stream);
+  if (err != cudaSuccess) return err;
+  err = sliding_attention<T, false>(hidden, nullptr, wgq, bgq, counts, qkv_buf, gkv_buf, nullptr,
+                                    ctx_buf, nullptr, nullptr, nullptr, nullptr, B, L, H, nh, hd,
+                                    C, G, global_rows, 0, sm_scale, 0u, 1.0f, stream);
+  if (err != cudaSuccess) return err;
+  return launch_residual_ln<T>(ctx_buf, wo, bo, hidden, ln_scale, ln_bias, ln_buf, out, B * L, H,
+                               nh * hd, eps, fuse_ln, stream);
+}
+
+}  // namespace
+}  // namespace spk
+
+// dtype: 0 = float32, 1 = bfloat16 (hidden, weights, the q/k/v and ctx
+// buffers and out); mask and glob (B, L) int32, biases,
+// LayerNorm parameters and ln_buf (B*L, H) float32, counts (B, 2) int32.
+// wqkv (H, 3 nh hd), wgq (H, nh hd), wgkv (H, 2 nh hd), wo (nh hd, H).
+// Without global rows wgq, bgq, wgkv, bgkv and gkv_buf may be null.
+// Returns the first CUDA error, or 0.
+extern "C" int spk_sliding_block(int dtype, const void* hidden, const void* mask, const void* glob,
+                                 const void* wqkv, const void* bqkv,
+                                 const void* wgq, const void* bgq, const void* wgkv,
+                                 const void* bgkv, const void* wo, const void* bo,
+                                 const void* ln_scale, const void* ln_bias, void* counts,
+                                 void* qkv_buf, void* gkv_buf, void* ctx_buf, void* ln_buf,
+                                 void* out, int B, int L, int H, int nh, int hd, int C, int G,
+                                 int global_rows, float sm_scale, float eps, int fuse_ln,
+                                 void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  cudaError_t err;
+  if (dtype == 0) {
+    using F = float;
+    const auto c = [](const void* p) { return static_cast<const F*>(p); };
+    const auto m = [](void* p) { return static_cast<F*>(p); };
+    err = spk::sliding_block<F>(c(hidden), i32(mask), i32(glob), c(wqkv), f32(bqkv),
+                                c(wgq), f32(bgq), c(wgkv), f32(bgkv), c(wo), f32(bo),
+                                f32(ln_scale), f32(ln_bias), static_cast<int32_t*>(counts),
+                                m(qkv_buf), m(gkv_buf), m(ctx_buf), static_cast<float*>(ln_buf),
+                                m(out), B, L, H, nh, hd, C, G, global_rows, sm_scale, eps,
+                                fuse_ln, s);
+  } else if (dtype == 1) {
+    using F = __nv_bfloat16;
+    const auto c = [](const void* p) { return static_cast<const F*>(p); };
+    const auto m = [](void* p) { return static_cast<F*>(p); };
+    err = spk::sliding_block<F>(c(hidden), i32(mask), i32(glob), c(wqkv), f32(bqkv),
+                                c(wgq), f32(bgq), c(wgkv), f32(bgkv), c(wo), f32(bo),
+                                f32(ln_scale), f32(ln_bias), static_cast<int32_t*>(counts),
+                                m(qkv_buf), m(gkv_buf), m(ctx_buf), static_cast<float*>(ln_buf),
+                                m(out), B, L, H, nh, hd, C, G, global_rows, sm_scale, eps,
+                                fuse_ln, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

@@ -59,116 +59,15 @@
 //               pass.
 // The probabilities are recomputed three times in the backward (rows, dq,
 // dkv) instead of being stored: (B, nh, L, L) never touches device memory.
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace spk {
 namespace {
-
-constexpr int kTile = 64;  // query rows (or keys) a block owns, and the tile it streams
-constexpr int kPS = kTile + 1;  // row stride of the (64, 64) score tiles in shared memory
-
-template <int HD>
-struct Geometry {
-  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
-  static constexpr int S = HD + 1;  // row stride of the (64, HD) tiles: conflict-free columns
-  // thread (ty, tx) owns tile rows ty + 16 i and tile columns tx + 16 j (i, j < 4)
-  static constexpr int TD = HD / 16;  // head-dim columns a thread owns
-  static constexpr int kTileFloats = kTile * S;
-};
-
-// (64, HD) rows [row0, row0 + 64) of one head, from the (L, HD) slab `src`
-// (q, k or v of one (head, sequence)), to float; rows past L read as zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_head_tile(float* dst, const T* __restrict__ src, int row0,
-                                               int L) {
-  for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int l = row0 + r;
-    dst[r * Geometry<HD>::S + d] = l < L ? to_f32(src[(size_t)l * HD + d]) : 0.0f;
-  }
-}
-
-// The same from a (B*L, Hn) row-major matrix (ctx or dctx), head h of sequence b.
-template <typename T, int HD>
-__device__ __forceinline__ void load_row_tile(float* dst, const T* __restrict__ src, int b, int h,
-                                              int row0, int L, int nh) {
-  const size_t stride = (size_t)nh * HD;
-  for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int l = row0 + r;
-    dst[r * Geometry<HD>::S + d] =
-        l < L ? to_f32(src[((size_t)b * L + l) * stride + (size_t)h * HD + d]) : 0.0f;
-  }
-}
-
-// acc[i][j] = sum_d X[ty + 16 i][d] * Y[tx + 16 j][d] over two (64, HD) tiles
-template <int HD>
-__device__ __forceinline__ void tile_dot(const float* X, const float* Y, float (&acc)[4][4]) {
-  constexpr int S = Geometry<HD>::S;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    float xv[4], yv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = X[(ty + 16 * i) * S + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) yv[j] = Y[(tx + 16 * j) * S + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
-  }
-}
-
-// o[i][j] += sum_c P[ty + 16 i][c] * Z[c][tx + 16 j] over a (64, 64) score
-// tile and a (64, HD) tile
-template <int HD>
-__device__ __forceinline__ void tile_accumulate(const float* P, const float* Z,
-                                                float (&o)[4][Geometry<HD>::TD]) {
-  constexpr int S = Geometry<HD>::S;
-  constexpr int TD = Geometry<HD>::TD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 8
-  for (int c = 0; c < kTile; ++c) {
-    float z[TD];
-#pragma unroll
-    for (int j = 0; j < TD; ++j) z[j] = Z[c * S + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = P[(ty + 16 * i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < TD; ++j) o[i][j] = fmaf(p, z[j], o[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // the masked, scaled score of one (query, key) pair, as the TPU kernel
 // forms it: dot * sm_scale + (allowed ? 0 : -1e9)
 __device__ __forceinline__ float masked_score(float dot, float sm_scale, int seg_q, int seg_k) {
   return dot * sm_scale + ((seg_q == seg_k && seg_k > 0) ? 0.0f : kNegInf);
-}
-
-// e = exp(s - m) with s - m and the result rounded to T (the TPU's
-// compute-dtype exp)
-template <typename T>
-__device__ __forceinline__ float rounded_exp(float s, float m) {
-  return round_to<T>(expf(round_to<T>(s - m)));
 }
 
 template <int HD>
@@ -500,29 +399,6 @@ __global__ void __launch_bounds__(kThreads)
       out[(size_t)2 * nh * HD + tx + 16 * j] = from_f32<T>(dv[i][j]);
     }
   }
-}
-
-// dispatch on the head dim; Launch is a generic lambda taking an
-// std::integral_constant<int, HD>
-template <typename Launch>
-cudaError_t with_head_dim(int hd, Launch launch) {
-  switch (hd) {
-    case 16:
-      return launch(std::integral_constant<int, 16>{});
-    case 32:
-      return launch(std::integral_constant<int, 32>{});
-    case 64:
-      return launch(std::integral_constant<int, 64>{});
-    case 128:
-      return launch(std::integral_constant<int, 128>{});
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename KernelPtr>
-cudaError_t prepare(KernelPtr kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T>

@@ -1,7 +1,9 @@
-"""Transformer encoder trunk (dense attention), PyTorch.
+"""Transformer encoder trunk, PyTorch: dense attention and Longformer's
+sliding window with global tokens.
 
 Counterpart of ``spokennlp_tpu/models/encoder.py`` for ``attention_type=
-"dense"``: BERT, and ELECTRA through its embedding projection. Parameter
+"dense"`` (BERT, and ELECTRA through its embedding projection) and
+``"sliding_window"`` (Longformer, with RoBERTa positions). Parameter
 names and shapes follow the Flax tree (``qkv.kernel`` (H, 3, nh, hd),
 ``out.kernel`` (nh, hd, H), ``mlp_in.kernel`` (H, I), LayerNorms with
 ``scale`` and ``bias``), so a JAX checkpoint maps one-to-one onto the
@@ -26,6 +28,18 @@ Three attention paths, resolved by ``attention_impl``:
 ``"auto"`` picks ``"train_fused"`` for CUDA inputs in training mode,
 ``"fused"`` for CUDA inputs in eval mode without ``output_attentions``, and
 ``"einsum"`` anywhere else.
+
+Sliding-window models have the same three, with the Longformer kernels
+(ops/cuda/sliding_block.py, ops/cuda/train_sliding.py) in the attention half
+and the same MLP kernels; their einsum path is ``sliding_window_impl``'s
+``"bias"`` (an (L, L) mask, with the dense global pass) or ``"chunked"``
+(the banded pass of ops/sliding_attention.py and an O(G L) global pass),
+``"auto"`` picking chunked above 1024 tokens. The kernels need the
+contract of the TPU kernels: L a multiple of C = window // 2, C of 8, and a
+promise (``prefix_globals``) that padding is a suffix and the global tokens
+a prefix of at most ``max_global_tokens``. On CUDA a broken contract raises;
+on the CPU the encoder takes the einsum path, as the JAX encoder does off
+the TPU.
 """
 
 from __future__ import annotations
@@ -41,7 +55,12 @@ from torch import nn
 from spokennlp_tpu_torch.configs import EncoderConfig
 from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
 from spokennlp_tpu_torch.ops.cuda.train_blocks import attention_block_train, mlp_block_train
+from spokennlp_tpu_torch.ops.cuda.train_sliding import sliding_attention_block_train
+from spokennlp_tpu_torch.ops.sliding_attention import (
+    chunked_sliding_window_attention, global_key_index, sliding_window_attention_mask_bias,
+)
 
 ACT2FN = {
     # HF semantics: "gelu" is the exact erf form; the fused MLP kernel uses
@@ -53,6 +72,20 @@ ACT2FN = {
 }
 
 NEG_INF = -1e9
+
+
+@dataclasses.dataclass
+class SlidingMasks:
+    """What a sliding-window layer reads besides the hidden states: the
+    (B, L) attention and global masks, the key-padding bias of the global
+    pass (B, 1, 1, L), the plain path (``chunked`` or not) and, for the
+    kernels, whether any row is global."""
+
+    attention_mask: torch.Tensor
+    global_mask: Optional[torch.Tensor]
+    key_padding_bias: torch.Tensor
+    chunked: bool = False
+    global_rows: bool = True
 
 
 @dataclasses.dataclass
@@ -120,12 +153,15 @@ class Embed(nn.Module):
 
 class Embeddings(nn.Module):
     """Word + absolute-position + token-type embeddings, LayerNorm, and
-    ELECTRA's projection to the trunk width when ``embedding_size`` differs."""
+    ELECTRA's projection to the trunk width when ``embedding_size`` differs.
+    Positions are ``arange(L)`` ("bert") or RoBERTa's: the running count of
+    non-pad tokens on non-pad tokens, offset by the pad id ("roberta")."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype, generator=None):
         super().__init__()
-        if cfg.position_style != "bert":
+        if cfg.position_style not in ("bert", "roberta"):
             raise NotImplementedError(f"position_style={cfg.position_style!r} is not ported yet")
+        self.position_style, self.pad_token_id = cfg.position_style, cfg.pad_token_id
         self.dtype = dtype
         E = cfg.embedding_size or cfg.hidden_size
         self.word_embeddings = Embed(cfg.vocab_size, E, generator)
@@ -141,7 +177,10 @@ class Embeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None, generator=None):
         L = input_ids.shape[1]
-        if position_ids is None:
+        if position_ids is None and self.position_style == "roberta":
+            not_pad = (input_ids != self.pad_token_id).long()
+            position_ids = torch.cumsum(not_pad, dim=1) * not_pad + self.pad_token_id
+        elif position_ids is None:
             position_ids = torch.arange(L, device=input_ids.device)[None, :]
         x = self.word_embeddings(input_ids, self.dtype) + self.position_embeddings(
             position_ids, self.dtype
@@ -187,26 +226,65 @@ class AttnOutProj(nn.Module):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with a fused QKV projection (einsum path);
-    the fused path reads ``qkv`` and ``out`` directly (TransformerLayer)."""
+    the fused paths read ``qkv``, ``qkv_global`` and ``out`` directly
+    (TransformerLayer). Sliding-window models have ``qkv_global``, the
+    projections of the Longformer global pass."""
 
     def __init__(self, cfg: EncoderConfig, generator=None):
         super().__init__()
         self.cfg = cfg
         self.qkv = FusedQKV(cfg.hidden_size, cfg.num_heads, cfg.head_dim, generator)
+        self.qkv_global = (
+            FusedQKV(cfg.hidden_size, cfg.num_heads, cfg.head_dim, generator)
+            if cfg.attention_type == "sliding_window" else None
+        )
         self.out = AttnOutProj(cfg.num_heads, cfg.head_dim, cfg.hidden_size, generator)
 
-    def forward(self, hidden, attention_bias, output_attentions=False, generator=None):
+    def forward(self, hidden, attention_bias, output_attentions=False, generator=None,
+                sliding: Optional[SlidingMasks] = None):
+        cfg = self.cfg
         dt = hidden.dtype
         q, k, v = self.qkv(hidden).unbind(2)  # (B, L, nh, hd)
-        scale = 1.0 / math.sqrt(self.cfg.head_dim)
-        scores = torch.einsum("blhd,bmhd->bhlm", q * scale, k)
-        if attention_bias is not None:
-            scores = scores + attention_bias.to(scores.dtype)
-        sm_dtype = dt if self.cfg.softmax_in_compute_dtype else torch.float32
-        probs = torch.softmax(scores.to(sm_dtype), dim=-1).to(dt)
-        probs = dropout(probs, self.cfg.attention_dropout, self.training, generator)
-        ctx = torch.einsum("bhlm,bmhd->blhd", probs, v)
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        sm_dtype = dt if cfg.softmax_in_compute_dtype else torch.float32
+        probs = None
+        if sliding is not None and sliding.chunked:
+            ctx = chunked_sliding_window_attention(
+                q, k, v, sliding.attention_mask, sliding.global_mask, cfg.attention_window,
+                max_globals=cfg.max_global_tokens, softmax_dtype=sm_dtype,
+            ).to(dt)
+        else:
+            scores = torch.einsum("blhd,bmhd->bhlm", q * scale, k)
+            if attention_bias is not None:
+                scores = scores + attention_bias.to(scores.dtype)
+            probs = torch.softmax(scores.to(sm_dtype), dim=-1).to(dt)
+            probs = dropout(probs, cfg.attention_dropout, self.training, generator)
+            ctx = torch.einsum("bhlm,bmhd->blhd", probs, v)
+        if sliding is not None and sliding.global_mask is not None:
+            ctx = self._global_pass(hidden, ctx, sliding, scale, generator)
         return self.out(ctx), (probs if output_attentions else None)
+
+    def _global_pass(self, hidden, ctx, sliding: SlidingMasks, scale, generator):
+        """Longformer's global rows: their queries attend to every real key
+        through ``qkv_global`` and replace the local rows (O(G L) for the
+        first ``max_global_tokens`` global rows on the chunked path)."""
+        dt = hidden.dtype
+        qg, kg, vg = self.qkv_global(hidden).unbind(2)
+        mask, glob = sliding.attention_mask, sliding.global_mask
+        if sliding.chunked:
+            g_idx, g_valid = global_key_index(mask, glob, self.cfg.max_global_tokens)
+            index = g_idx[:, :, None, None].expand(-1, -1, *ctx.shape[2:])
+            g_scores = torch.einsum("bghd,bmhd->bhgm", torch.gather(qg, 1, index) * scale, kg)
+            g_probs = torch.softmax((g_scores + sliding.key_padding_bias).float(), dim=-1).to(dt)
+            g_probs = dropout(g_probs, self.cfg.attention_dropout, self.training, generator)
+            rows = torch.einsum("bhgm,bmhd->bghd", g_probs, vg)
+            rows = torch.where(g_valid[:, :, None, None], rows, torch.gather(ctx, 1, index))
+            return ctx.scatter(1, index, rows)
+        g_scores = torch.einsum("blhd,bmhd->bhlm", qg * scale, kg) + sliding.key_padding_bias
+        g_probs = torch.softmax(g_scores.float(), dim=-1).to(dt)
+        g_probs = dropout(g_probs, self.cfg.attention_dropout, self.training, generator)
+        g_ctx = torch.einsum("bhlm,bmhd->blhd", g_probs, vg)
+        return torch.where(glob.bool()[:, :, None, None], g_ctx, ctx)
 
 
 class TransformerLayer(nn.Module):
@@ -222,26 +300,39 @@ class TransformerLayer(nn.Module):
         self.mlp_out = Dense(I, H, generator)
         self.mlp_ln = LayerNorm(H, cfg.layer_norm_eps)
 
-    def forward(self, hidden, attention_bias, output_attentions=False, generator=None):
+    def forward(self, hidden, attention_bias, output_attentions=False, generator=None,
+                sliding: Optional[SlidingMasks] = None):
         rate = self.cfg.hidden_dropout
-        attn_out, probs = self.attention(hidden, attention_bias, output_attentions, generator)
+        attn_out, probs = self.attention(hidden, attention_bias, output_attentions, generator,
+                                         sliding)
         attn_out = dropout(attn_out, rate, self.training, generator)
         hidden = self.attention_ln(hidden + attn_out)
         mlp = self.mlp_out(ACT2FN[self.cfg.hidden_act](self.mlp_in(hidden)))
         mlp = dropout(mlp, rate, self.training, generator)
         return self.mlp_ln(hidden + mlp), probs
 
-    def forward_fused(self, hidden, segment_ids):
-        """h1 = LN(x + attn(x)) in the attention-block kernel, then
-        h2 = LN(h1 + mlp(h1)) in the MLP-block kernel."""
+    def _sliding_args(self, sliding: SlidingMasks):
+        attn = self.attention
+        return (sliding.attention_mask, sliding.global_mask, attn.qkv.kernel, attn.qkv.bias,
+                attn.qkv_global.kernel, attn.qkv_global.bias, attn.out.kernel, attn.out.bias)
+
+    def forward_fused(self, hidden, segment_ids, sliding: Optional[SlidingMasks] = None):
+        """h1 = LN(x + attn(x)) in the attention-block kernel (the dense one,
+        or the Longformer one with ``sliding``), then h2 = LN(h1 + mlp(h1))
+        in the MLP-block kernel."""
         cfg = self.cfg
         B, L, H = hidden.shape
         attn, ln1 = self.attention, self.attention_ln
-        h1 = fused_attention_block(
-            hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel,
-            attn.out.bias, sm_scale=1.0 / math.sqrt(cfg.head_dim),
-            ln_scale=ln1.scale, ln_bias=ln1.bias, eps=cfg.layer_norm_eps,
-        )
+        ln = dict(sm_scale=1.0 / math.sqrt(cfg.head_dim), ln_scale=ln1.scale, ln_bias=ln1.bias,
+                  eps=cfg.layer_norm_eps)
+        if sliding is None:
+            h1 = fused_attention_block(hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias,
+                                       attn.out.kernel, attn.out.bias, **ln)
+        else:
+            h1 = fused_sliding_attention_block(
+                hidden, *self._sliding_args(sliding), window=cfg.attention_window,
+                max_globals=cfg.max_global_tokens, global_rows=sliding.global_rows, **ln,
+            )
         out = fused_mlp_block(
             h1.reshape(B * L, H), self.mlp_in.kernel, self.mlp_in.bias,
             self.mlp_out.kernel, self.mlp_out.bias, self.mlp_ln.scale, self.mlp_ln.bias,
@@ -249,10 +340,12 @@ class TransformerLayer(nn.Module):
         )
         return out.reshape(B, L, H)
 
-    def forward_train_fused(self, hidden, segment_ids, generator=None):
+    def forward_train_fused(self, hidden, segment_ids, generator=None,
+                            sliding: Optional[SlidingMasks] = None):
         """The training kernels: attn = attention block (probability dropout
-        inside the kernel, seeded from ``generator``), h1 = LN(x +
-        dropout(attn)); mlp = the MLP core, h2 = LN(h1 + dropout(mlp))."""
+        inside the kernel, seeded from ``generator``; the Longformer block
+        with ``sliding``), h1 = LN(x + dropout(attn)); mlp = the MLP core,
+        h2 = LN(h1 + dropout(mlp))."""
         cfg = self.cfg
         B, L, H = hidden.shape
         attn = self.attention
@@ -261,10 +354,18 @@ class TransformerLayer(nn.Module):
         if rate > 0.0:
             seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=hidden.device,
                                  dtype=torch.int32)
-        attn_out = attention_block_train(
-            hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel, attn.out.bias,
-            seed, sm_scale=1.0 / math.sqrt(cfg.head_dim), dropout_rate=rate,
-        )
+        sm_scale = 1.0 / math.sqrt(cfg.head_dim)
+        if sliding is None:
+            attn_out = attention_block_train(
+                hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel,
+                attn.out.bias, seed, sm_scale=sm_scale, dropout_rate=rate,
+            )
+        else:
+            attn_out = sliding_attention_block_train(
+                hidden, *self._sliding_args(sliding), seed, sm_scale=sm_scale,
+                window=cfg.attention_window, max_globals=cfg.max_global_tokens,
+                dropout_rate=rate, global_rows=sliding.global_rows,
+            )
         attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
         hidden = self.attention_ln(hidden + attn_out)
         mlp = mlp_block_train(
@@ -275,14 +376,34 @@ class TransformerLayer(nn.Module):
         return self.mlp_ln(hidden + mlp)
 
 
+def sliding_contract_breach(cfg: EncoderConfig, seq_len: int, prefix_globals: Optional[int],
+                            has_global_mask: bool) -> Optional[str]:
+    """Why the Longformer kernels cannot take this call (the contract of the
+    TPU kernels), or None."""
+    C = cfg.attention_window // 2
+    if C <= 0 or seq_len % C or C % 8:
+        return (f"sequence length {seq_len} must be a multiple of attention_window // 2 = {C}, "
+                f"itself a multiple of 8")
+    if prefix_globals is None or not has_global_mask:
+        return ("no prefix_globals promise (suffix padding, global tokens a prefix) with a "
+                "global_attention_mask")
+    if prefix_globals > cfg.max_global_tokens:
+        return f"prefix_globals {prefix_globals} above max_global_tokens {cfg.max_global_tokens}"
+    return None
+
+
 def resolve_attention_impl(
-    cfg: EncoderConfig, device: torch.device, output_attentions: bool, training: bool = False
+    cfg: EncoderConfig, device: torch.device, output_attentions: bool, training: bool = False,
+    seq_len: Optional[int] = None, prefix_globals: Optional[int] = None,
+    has_global_mask: bool = False,
 ) -> str:
-    """"einsum", "fused" or "train_fused", as the encoder will run; raises
-    for what the port does not have yet. In training mode "fused" means the
-    training kernels: the inference kernels have no backward and skip
+    """The path the encoder will run: "einsum", "fused" or "train_fused", and
+    for sliding-window models the einsum path's "bias" or "chunked"; raises
+    for what the port does not have yet, and on CUDA for a sliding-window
+    call that breaks the kernels' contract. In training mode "fused" means
+    the training kernels: the inference kernels have no backward and skip
     dropout."""
-    if cfg.attention_type != "dense":
+    if cfg.attention_type not in ("dense", "sliding_window"):
         raise NotImplementedError(f"attention_type={cfg.attention_type!r} is not ported yet")
     if cfg.quantize == "w8a8":
         raise NotImplementedError("quantize='w8a8' is not ported yet")
@@ -297,7 +418,24 @@ def resolve_attention_impl(
     if impl == "fused" and training:
         impl = "train_fused"
     # the fused kernels return no attention probabilities
-    return "einsum" if output_attentions else impl
+    if output_attentions:
+        impl = "einsum"
+    if cfg.attention_type == "dense":
+        return impl
+    sw = cfg.sliding_window_impl
+    if sw not in ("auto", "bias", "chunked", "fused"):
+        raise ValueError(f"sliding_window_impl={sw!r}")
+    if impl != "einsum" and sw in ("auto", "fused"):
+        breach = sliding_contract_breach(cfg, seq_len, prefix_globals, has_global_mask)
+        if breach is None:
+            return impl
+        if device.type == "cuda":
+            raise ValueError(f"the Longformer kernels' contract is broken: {breach}; ask for "
+                             f"attention_impl='einsum' or sliding_window_impl='bias'/'chunked'")
+    # the einsum path, as the JAX encoder resolves it off the TPU
+    C = max(cfg.attention_window // 2, 1)
+    chunked = sw in ("chunked", "fused") or (sw == "auto" and seq_len > 1024)
+    return "chunked" if chunked and seq_len % C == 0 else "bias"
 
 
 class Encoder(nn.Module):
@@ -332,36 +470,60 @@ class Encoder(nn.Module):
         output_hidden_states: bool = False,
         output_attentions: bool = False,
         generator: Optional[torch.Generator] = None,
+        global_attention_mask: Optional[torch.Tensor] = None,
+        prefix_globals: Optional[int] = None,
     ) -> EncoderOutput:
         """``pack_segment_ids`` (B, L): 0 on pad tokens, i + 1 on packed
-        window i; tokens attend only within their window. ``generator``
-        draws the dropout masks and kernel seeds in training mode."""
+        window i; tokens attend only within their window (dense models).
+        ``generator`` draws the dropout masks and kernel seeds in training
+        mode. Sliding-window models take ``global_attention_mask`` (B, L), 1
+        on global tokens, and ``prefix_globals``: the promise that padding is
+        a suffix and the global tokens the first ``prefix_globals`` positions
+        at most, which the kernels need."""
         B, L = input_ids.shape
+        cfg = self.cfg
         if attention_mask is None:
             attention_mask = torch.ones((B, L), dtype=torch.int32, device=input_ids.device)
-        impl = resolve_attention_impl(self.cfg, input_ids.device, output_attentions,
-                                      self.training)
+        sliding = cfg.attention_type == "sliding_window"
+        if sliding and pack_segment_ids is not None:
+            raise NotImplementedError("pack_segment_ids with sliding-window attention")
+        impl = resolve_attention_impl(cfg, input_ids.device, output_attentions, self.training,
+                                      L, prefix_globals, global_attention_mask is not None)
 
         hidden = self.embeddings(input_ids, token_type_ids, position_ids, generator)
         all_hidden = (hidden,) if output_hidden_states else None
         all_attn = () if output_attentions else None
+        masks = None
+        if sliding:
+            masks = SlidingMasks(
+                attention_mask=attention_mask, global_mask=global_attention_mask,
+                key_padding_bias=(1.0 - attention_mask[:, None, None, :].float()) * NEG_INF,
+                chunked=impl == "chunked", global_rows=(prefix_globals or 0) > 0,
+            )
         if impl in ("fused", "train_fused"):
             seg = pack_segment_ids if pack_segment_ids is not None else attention_mask
             seg = seg.to(torch.int32)
             for layer in self.layers():
                 if impl == "fused":
-                    hidden = layer.forward_fused(hidden, seg)
+                    hidden = layer.forward_fused(hidden, seg, masks)
                 else:
-                    hidden = layer.forward_train_fused(hidden, seg, generator)
+                    hidden = layer.forward_train_fused(hidden, seg, generator, masks)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
         else:
-            bias = (1.0 - attention_mask[:, None, None, :].float()) * NEG_INF
-            if pack_segment_ids is not None:
-                same = pack_segment_ids[:, :, None] == pack_segment_ids[:, None, :]
-                bias = bias + torch.where(same, 0.0, NEG_INF)[:, None, :, :]
+            if impl == "bias":
+                bias = sliding_window_attention_mask_bias(
+                    attention_mask, cfg.attention_window, global_attention_mask, NEG_INF,
+                )[:, None]
+            elif impl == "chunked":
+                bias = None
+            else:
+                bias = (1.0 - attention_mask[:, None, None, :].float()) * NEG_INF
+                if pack_segment_ids is not None:
+                    same = pack_segment_ids[:, :, None] == pack_segment_ids[:, None, :]
+                    bias = bias + torch.where(same, 0.0, NEG_INF)[:, None, :, :]
             for layer in self.layers():
-                hidden, probs = layer(hidden, bias, output_attentions, generator)
+                hidden, probs = layer(hidden, bias, output_attentions, generator, masks)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
                 if output_attentions:

@@ -56,9 +56,18 @@ class TopicSegModel(nn.Module):
         pack_segment_ids: Optional[torch.Tensor] = None,
         output_hidden_states: bool = False,
         generator: Optional[torch.Generator] = None,
+        global_attention_mask: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """``generator`` draws every dropout mask and kernel seed of the
-        forward in training mode."""
+        forward in training mode. A sliding-window trunk without a
+        ``global_attention_mask`` makes CLS the one global token, as the
+        reference's Longformer model does; with the right-padding
+        featurizers that keeps the kernels' contract (``prefix_globals=1``)."""
+        prefix_globals = None
+        if global_attention_mask is None and self.enc_cfg.attention_type == "sliding_window":
+            global_attention_mask = torch.zeros_like(attention_mask)
+            global_attention_mask[:, 0] = 1
+            prefix_globals = 1
         out = self.encoder(
             input_ids,
             attention_mask=attention_mask,
@@ -67,6 +76,8 @@ class TopicSegModel(nn.Module):
             pack_segment_ids=pack_segment_ids,
             output_hidden_states=output_hidden_states,
             generator=generator,
+            global_attention_mask=global_attention_mask,
+            prefix_globals=prefix_globals,
         )
         seq = dropout(out.last_hidden_state, self.task_cfg.classifier_dropout, self.training,
                       generator)

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "spk_dropout_mask": [_P, _P, _I, _I, _I, _U, _P],
     "spk_mlp_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "spk_mlp_train_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
+    "spk_sliding_block": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
+    "spk_sliding_train_fwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _U, _F, _P],
+    "spk_sliding_train_bwd": [_I] + [_P] * 27 + [_I] * 8 + [_F, _U, _F, _P],
+    "spk_sliding_dropout_mask": [_P] * 4 + [_I] * 5 + [_U, _P],
 }
 
 

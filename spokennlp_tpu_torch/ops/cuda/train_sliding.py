@@ -1,0 +1,256 @@
+"""Training Longformer attention block with hand-written forward and
+backward kernels.
+
+Counterpart of ``spokennlp_tpu/ops/pallas/train_sliding.py``:
+``sliding_attention_block_train`` is the attention of
+``ops/cuda/sliding_block.py`` (band, global columns, global rows through the
+``*_global`` projections) followed by the output projection, without the
+LayerNorm epilogue, with dropout on the band, global-column and global-row
+probabilities inside the kernels (``csrc/train_sliding.cu``). Residual,
+LayerNorm and hidden-state dropout stay in PyTorch.
+
+On a CUDA tensor it runs the kernels through a ``torch.autograd.Function``
+whose backward is a kernel too; the forward saves only its inputs and the
+seed, and the backward recomputes the rest. On a CPU tensor it runs
+``sliding_train_plain`` (float32 PyTorch on the chunked formulation, with
+explicit keep masks), whose gradient comes from autograd.
+
+Dropout draws one Philox4x32-10 word per probability from three counter
+spaces that never meet, the second word carrying the head and a tag:
+
+    band keys       (b, h,           row, key)
+    global columns  (b, h | 1 << 16, row, g)
+    global rows     (b, h | 2 << 16, g,   key)
+
+and keeps a probability iff its bits are >= ``dropout_threshold(rate)``.
+``sliding_keep_masks`` gives the three masks on either device (the numpy twin
+``philox_bits`` on the CPU), so the plain version replays the kernels'
+dropout exactly. The TPU kernel's hardware-PRNG pattern cannot be matched bit
+for bit, so parity with JAX runs at rate 0.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spokennlp_tpu_torch.ops.cuda import build
+from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
+from spokennlp_tpu_torch.ops.cuda.sliding_block import (
+    card_weights, check_card_inputs, global_columns, sliding_context_plain,
+)
+from spokennlp_tpu_torch.ops.cuda.train_blocks import _stream, dropout_threshold, philox_bits
+
+GLOBAL_COL_STREAM, GLOBAL_ROW_STREAM = 1 << 16, 2 << 16
+
+
+def _u32(a) -> np.ndarray:
+    """Counters as the kernels pass them: int values wrapped to 32 bits."""
+    return np.asarray(a, np.int64) & 0xFFFFFFFF
+
+
+def sliding_keep_masks(seed: torch.Tensor, B: int, nh: int, L: int, window: int, G: int,
+                       rate: float):
+    """(band (B, nh, L / C, C, 3C), global columns (B, nh, L, G), global rows
+    (B, nh, G, L)) bool: where the training kernels keep a probability for
+    this (1,) int32 seed, on the seed's device. Band entry (i, ci, cj) is
+    row i C + ci against key i C - C + cj."""
+    C = window // 2
+    nc = L // C
+    thr = dropout_threshold(rate)
+    if seed.device.type == "cpu":
+        s = int(seed.reshape(-1)[0])
+        b, h, i, ci, cj = np.ix_(np.arange(B), np.arange(nh), np.arange(nc), np.arange(C),
+                                 np.arange(3 * C))
+        band = philox_bits(s, b, h, _u32(i * C + ci), _u32(i * C - C + cj))
+        b, h, r, g = np.ix_(np.arange(B), np.arange(nh), np.arange(L), np.arange(G))
+        gcol = philox_bits(s, b, h | GLOBAL_COL_STREAM, r, g)
+        b, h, g, k = np.ix_(np.arange(B), np.arange(nh), np.arange(G), np.arange(L))
+        grow = philox_bits(s, b, h | GLOBAL_ROW_STREAM, g, k)
+        return tuple(torch.from_numpy(m >= np.uint32(thr)) for m in (band, gcol, grow))
+    masks = [torch.empty(shape, dtype=torch.uint8, device=seed.device)
+             for shape in ((B, nh, nc, C, 3 * C), (B, nh, L, G), (B, nh, G, L))]
+    seed = seed.to(torch.int32).contiguous()
+    with torch.cuda.device(seed.device):
+        code = build.library().spk_sliding_dropout_mask(
+            seed.data_ptr(), *(m.data_ptr() for m in masks), B, nh, L, C, G, thr, _stream())
+    build.check(code, "sliding_keep_masks")
+    return tuple(m.bool() for m in masks)
+
+
+def sliding_train_plain(
+    hidden, attention_mask, global_mask, qkv_kernel, qkv_bias, gqkv_kernel, gqkv_bias,
+    out_kernel, out_bias, *, sm_scale: float, window: int, max_globals: int = 16,
+    global_rows: bool = True, dropout_rate: float = 0.0, keep=None,
+) -> torch.Tensor:
+    """The training block in plain float32 PyTorch; returns hidden's dtype.
+    ``keep`` (the three masks of ``sliding_keep_masks``) is needed when
+    ``dropout_rate`` > 0."""
+    if dropout_rate > 0.0 and keep is None:
+        raise ValueError("sliding_train_plain: dropout_rate > 0 needs the keep masks")
+    ctx = sliding_context_plain(
+        hidden, attention_mask, global_mask, qkv_kernel, qkv_bias, gqkv_kernel, gqkv_bias,
+        sm_scale=sm_scale, window=window, max_globals=max_globals, global_rows=global_rows,
+        dropout_rate=dropout_rate, keep=keep,
+    )
+    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    return out.to(hidden.dtype)
+
+
+# ------------------------------------------------------------ kernel calls
+
+
+def sliding_train_fwd(hidden, mask, glob, seed, w, bo, *, num_heads: int, window: int,
+                      max_globals: int, global_rows: bool, sm_scale: float,
+                      dropout_rate: float) -> torch.Tensor:
+    """Forward kernel: hidden (B, L, H), the weights of ``card_weights`` ``w``,
+    bo (H,) float32, mask, glob (B, L) and seed (1,) int32, all on one card.
+    ``sliding_train_fwd.launches`` counts its launches."""
+    B, L, H = hidden.shape
+    HN = w["wo"].shape[0]
+    hd = HN // num_heads
+    dev, dt = hidden.device, hidden.dtype
+    G = global_columns(max_globals, L)
+    empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    counts, qkv_buf, ctx_buf = empty(B, 2, dtype=torch.int32), empty(3, B, num_heads, L, hd), \
+        empty(B, L, HN)
+    gkv_buf = empty(2, B, num_heads, L, hd) if global_rows else None
+    out = torch.empty_like(hidden)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        code = build.library().spk_sliding_train_fwd(
+            _DTYPES[dt], *(ptr(t) for t in (hidden, mask, glob, seed, w["wqkv"], w["bqkv"],
+                                             w["wgq"], w["bgq"], w["wgkv"], w["bgkv"], w["wo"],
+                                             bo, counts, qkv_buf, gkv_buf, ctx_buf, out)),
+            B, L, H, num_heads, hd, window // 2, G, int(global_rows), float(sm_scale),
+            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
+        )
+    build.check(code, "sliding_train_fwd")
+    sliding_train_fwd.launches += 1
+    return out
+
+
+def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window: int,
+                      max_globals: int, global_rows: bool, sm_scale: float,
+                      dropout_rate: float):
+    """Backward kernel: recomputes the forward from its inputs and returns
+    (dx in the compute dtype, dWqkv (H, 3 Hn), dbqkv (3 Hn,), dWg (H, 3 Hn),
+    dbg (3 Hn,), dWo (Hn, H), dbo (H,) in float32, summed over the batch;
+    dWg and dbg are zero without global rows). ``sliding_train_bwd.launches``
+    counts its launches."""
+    B, L, H = hidden.shape
+    HN = w["wo"].shape[0]
+    hd = HN // num_heads
+    dev, dt = hidden.device, hidden.dtype
+    G = global_columns(max_globals, L)
+    slots = 6 if global_rows else 3
+    f32 = torch.float32
+    empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    w_all = w["wqkv"]
+    if global_rows:
+        wg = torch.cat([w["wgq"].reshape(H, 1, HN), w["wgkv"].reshape(H, 2, HN)], dim=1)
+        w_all = torch.cat([w["wqkv"], wg.reshape(H, 3 * HN)], dim=1).contiguous()
+    bufs = dict(
+        counts=empty(B, 2, dtype=torch.int32), qkv=empty(3, B, num_heads, L, hd),
+        gkv=empty(2, B, num_heads, L, hd) if global_rows else None, ctx=empty(B, L, HN),
+        dctx=empty(B, L, HN), stats=empty(3, B, num_heads, L, dtype=f32),
+        gstats=empty(3, B, num_heads, G, dtype=f32) if global_rows else None,
+        qg=empty(B, num_heads, G, hd) if global_rows else None, dproj=empty(B * L, slots * HN),
+    )
+    dx = torch.empty_like(hidden)
+    dw_all, db_all = empty(H, slots * HN, dtype=f32), empty(slots * HN, dtype=f32)
+    dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        code = build.library().spk_sliding_train_bwd(
+            _DTYPES[dt], *(ptr(t) for t in (hidden, mask, glob, seed, w["wqkv"], w["bqkv"],
+                                             w["wgq"], w["bgq"], w["wgkv"], w["bgkv"], w["wo"],
+                                             w_all, g, *bufs.values(), dx, dw_all, db_all, dwo,
+                                             dbo)),
+            B, L, H, num_heads, hd, window // 2, G, int(global_rows), float(sm_scale),
+            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
+        )
+    build.check(code, "sliding_train_bwd")
+    sliding_train_bwd.launches += 1
+    dwg, dbg = dw_all[:, 3 * HN:], db_all[3 * HN:]
+    if not global_rows:
+        dwg, dbg = torch.zeros_like(dw_all), torch.zeros_like(db_all)
+    return dx, dw_all[:, : 3 * HN], db_all[: 3 * HN], dwg, dbg, dwo, dbo
+
+
+for _fn in (sliding_train_fwd, sliding_train_bwd):
+    _fn.launches = 0
+
+
+class _SlidingTrain(torch.autograd.Function):
+    """The kernels as one differentiable function of (hidden and the float32
+    parameters); saves only the inputs and the seed."""
+
+    @staticmethod
+    def forward(ctx, hidden, mask, glob, seed, qkv_kernel, qkv_bias, gqkv_kernel, gqkv_bias,
+                out_kernel, out_bias, config):
+        w = card_weights(qkv_kernel, qkv_bias, gqkv_kernel, gqkv_bias, out_kernel, hidden.dtype)
+        out = sliding_train_fwd(hidden, mask, glob, seed, w, out_bias.detach().float().contiguous(),
+                                **config)
+        ctx.save_for_backward(hidden, mask, glob, seed, *w.values())
+        ctx.names, ctx.config = list(w), config
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, mask, glob, seed, *ws = ctx.saved_tensors
+        w = dict(zip(ctx.names, ws))
+        H = hidden.shape[-1]
+        nh = ctx.config["num_heads"]
+        hd = w["wo"].shape[0] // nh
+        dx, dwqkv, dbqkv, dwg, dbg, dwo, dbo = sliding_train_bwd(
+            hidden, mask, glob, seed, w, g.to(hidden.dtype).contiguous(), **ctx.config)
+        return (dx, None, None, None, dwqkv.reshape(H, 3, nh, hd), dbqkv.reshape(3, nh, hd),
+                dwg.reshape(H, 3, nh, hd), dbg.reshape(3, nh, hd), dwo.reshape(nh, hd, H), dbo,
+                None)
+
+
+def sliding_attention_block_train(
+    hidden: torch.Tensor,  # (B, L, H) compute dtype
+    attention_mask: torch.Tensor,  # (B, L) int; suffix padding
+    global_mask: torch.Tensor,  # (B, L) int; a prefix of globals
+    qkv_kernel: torch.Tensor,  # (H, 3, nh, hd) float32 parameter
+    qkv_bias: torch.Tensor,  # (3, nh, hd)
+    gqkv_kernel: torch.Tensor,  # (H, 3, nh, hd) global projections
+    gqkv_bias: torch.Tensor,
+    out_kernel: torch.Tensor,  # (nh, hd, H)
+    out_bias: torch.Tensor,  # (H,)
+    seed: torch.Tensor,  # (1,) int32: the dropout stream (ignored at rate 0)
+    *,
+    sm_scale: float,
+    window: int,
+    max_globals: int = 16,
+    dropout_rate: float = 0.0,
+    global_rows: bool = True,
+) -> torch.Tensor:
+    """Differentiable Longformer attention block of the training path;
+    returns (B, L, H) in hidden's dtype, before hidden-state dropout,
+    residual and LayerNorm. A CUDA tensor that breaks the contract of
+    ``ops/cuda/sliding_block.py`` raises."""
+    kw = dict(sm_scale=sm_scale, window=window, max_globals=max_globals, global_rows=global_rows,
+              dropout_rate=dropout_rate)
+    if hidden.device.type == "cpu":
+        keep = None
+        if dropout_rate > 0.0:
+            B, L, _ = hidden.shape
+            keep = sliding_keep_masks(seed, B, qkv_kernel.shape[2], L, window,
+                                      global_columns(max_globals, L), dropout_rate)
+        return sliding_train_plain(hidden, attention_mask, global_mask, qkv_kernel, qkv_bias,
+                                   gqkv_kernel, gqkv_bias, out_kernel, out_bias, keep=keep, **kw)
+    where = "sliding_attention_block_train"
+    check_card_inputs(where, hidden, attention_mask, global_mask, qkv_kernel, qkv_bias,
+                      gqkv_kernel, gqkv_bias, out_kernel, out_bias, window, max_globals)
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"{where}: dropout_rate {dropout_rate} not in [0, 1)")
+    config = dict(num_heads=qkv_kernel.shape[2], window=window, max_globals=max_globals,
+                  global_rows=global_rows, sm_scale=float(sm_scale),
+                  dropout_rate=float(dropout_rate))
+    return _SlidingTrain.apply(
+        hidden.contiguous(), attention_mask.to(torch.int32).contiguous(),
+        global_mask.to(torch.int32).contiguous(), seed.to(torch.int32).contiguous(), qkv_kernel,
+        qkv_bias, gqkv_kernel, gqkv_bias, out_kernel, out_bias, config)

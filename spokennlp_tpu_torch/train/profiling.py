@@ -1,11 +1,15 @@
 """A ``torch.profiler`` measurement of the port's composite train step.
 
-The step of ``bench.py --train``: BERT-base at L=512, 32 windows of 64
-sentence slots, anchor and DA views, eop_matrix CSSL, TSSP and AdamW, in
-bfloat16 compute, random weights from a seed:
+The step of ``bench.py --train``: anchor and DA views, eop_matrix CSSL, TSSP
+and AdamW, in bfloat16 compute, random weights from a seed, on one of the
+two trunks of ``bench.py --train-trunk``:
 
-    python -m spokennlp_tpu_torch.train.profiling --impl auto einsum \
-        --out chiprun_out/train_profile.json
+- ``dense``: BERT-base at L=512, 32 windows of 64 sentence slots;
+- ``longformer``: the reference's flagship Longformer-base (window 512,
+  RoBERTa positions, pad id 1) at L=2048, 4 windows of 128 slots.
+
+    python -m spokennlp_tpu_torch.train.profiling --trunk longformer \
+        --impl auto einsum --out chiprun_out/train_profile.json
 
 For each ``--impl`` it reports the step time (host clock around steps that
 end in a synchronise, after warm-up steps), windows trained per second, the
@@ -23,7 +27,7 @@ import re
 import subprocess
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,8 +37,9 @@ from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
 from spokennlp_tpu_torch.train import optim
 from spokennlp_tpu_torch.train.train_step import batch_to_device, make_topic_seg_train_step
 
-WARMUP_STEPS, TRACED_STEPS, TOP_KERNELS, SEED = 2, 2, 20, 0
-BATCH, SLOTS, STEPS = 32, 64, 5  # windows a step, sentence slots a window, timed steps
+WARMUP_STEPS, TRACED_STEPS, TOP_KERNELS, SEED, STEPS = 2, 2, 20, 0, 5
+# trunk: (windows a step, sequence length, sentence slots a window)
+SHAPES = {"dense": (32, 512, 64), "longformer": (4, 2048, 128)}
 
 
 def synthetic_batch(B: int, L: int, K: int, vocab: int, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -91,17 +96,25 @@ def kernel_times(prof) -> Dict[str, Dict]:
     return result
 
 
-def bert_base(impl: str) -> EncoderConfig:
-    """The encoder of ``bench.py --train``: BERT-base at L=512."""
-    return EncoderConfig(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12,
-                         intermediate_size=3072, max_position_embeddings=512, add_pooler=False,
-                         attention_impl=impl)
+def trunk_config(trunk: str, impl: str) -> EncoderConfig:
+    """The encoder of ``bench.py --train --train-trunk <trunk>``."""
+    _, L, _ = SHAPES[trunk]
+    base = dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12,
+                intermediate_size=3072, add_pooler=False, attention_impl=impl)
+    if trunk == "longformer":
+        return EncoderConfig(**base, max_position_embeddings=L + 8,
+                             attention_type="sliding_window", attention_window=512,
+                             position_style="roberta", pad_token_id=1)
+    return EncoderConfig(**base, max_position_embeddings=L)
 
 
-def measure(enc: EncoderConfig, batch_size: int = BATCH, slots: int = SLOTS,
-            steps: int = STEPS, device: str = "cuda") -> Dict:
-    """One configuration's step times and trace; the tests run it on the CPU
-    at a small ``enc``."""
+def measure(enc: EncoderConfig, batch_size: int = SHAPES["dense"][0],
+            slots: int = SHAPES["dense"][2], steps: int = STEPS, device: str = "cuda",
+            seq_len: Optional[int] = None) -> Dict:
+    """One configuration's step times and trace at ``seq_len`` tokens
+    (``enc.max_position_embeddings`` by default); the tests run it on the
+    CPU at a small ``enc``."""
+    seq_len = seq_len or enc.max_position_embeddings
     device = torch.device(device)
     task = TopicSegConfig(cl_anchor_level="eop_matrix", cl_loss_weight=0.5, do_tssp=True,
                           do_da_ts=True, tssp_loss_weight=1.0)
@@ -110,7 +123,7 @@ def measure(enc: EncoderConfig, batch_size: int = BATCH, slots: int = SLOTS,
     opt = optim.make_optimizer(model, TrainConfig(gradient_accumulation_steps=1), 1000)
     step = make_topic_seg_train_step(model, task, opt, seed=SEED)
     batch = batch_to_device(
-        synthetic_batch(batch_size, enc.max_position_embeddings, slots, enc.vocab_size), device)
+        synthetic_batch(batch_size, seq_len, slots, enc.vocab_size), device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -159,6 +172,8 @@ def measure(enc: EncoderConfig, batch_size: int = BATCH, slots: int = SLOTS,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--trunk", default="dense", choices=sorted(SHAPES),
+                   help="the encoder and shape of bench.py --train-trunk")
     p.add_argument("--impl", nargs="+", default=["auto", "einsum"],
                    help="attention_impl values to measure in turn")
     p.add_argument("--out", default=None, help="write the results as JSON here")
@@ -169,12 +184,13 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    enc = bert_base("auto")
-    results = {"card": card, "torch": torch.__version__, "batch": BATCH,
-               "seq": enc.max_position_embeddings, "layers": enc.num_layers,
+    batch, seq, slots = SHAPES[args.trunk]
+    enc = trunk_config(args.trunk, "auto")
+    results = {"card": card, "torch": torch.__version__, "trunk": args.trunk, "batch": batch,
+               "seq": seq, "slots": slots, "layers": enc.num_layers,
                "hidden": enc.hidden_size, "runs": []}
     for impl in args.impl:
-        run = measure(bert_base(impl))
+        run = measure(trunk_config(args.trunk, impl), batch, slots, seq_len=seq)
         results["runs"].append(run)
         print(f"{impl}: step {run['step_ms_mean']:.1f} ms ({run['windows_per_s']:.2f} windows/s), "
               f"peak {run['peak_gib']} GiB, kernels {run['kernel_ms']:.1f} ms over "

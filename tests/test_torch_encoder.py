@@ -188,7 +188,7 @@ def test_attention_impl_resolution():
     for bad in (
         dataclasses.replace(TINY, attention_impl="stack"),
         dataclasses.replace(TINY, attention_impl="flash"),
-        dataclasses.replace(TINY, attention_type="sliding_window"),
+        dataclasses.replace(TINY, attention_type="bigbird"),
         dataclasses.replace(TINY, quantize="w8a8"),
     ):
         with pytest.raises(NotImplementedError):

@@ -11,7 +11,19 @@
    version at the main path's shapes (B=32, L=512, H=768, 12 heads of 64,
    I=3072), bfloat16 and float32, with padded tails and two packed segments;
    prints the largest error on valid rows and both times (CUDA events,
-   after a warm-up).
+   after a warm-up). Then the W8A8 kernels at the same shapes: the W8A8
+   matmul (kernel 5) and its row-quantising form (kernel 4) at a layer's four
+   projections (768x2304, 768x768, 768x3072 with GELU, 3072x768), their
+   int32 accumulators compared exactly and the row quantiser bit for bit,
+   beside torch._int_mm on the same int8 operands; the W8A8 modes of the
+   attention block (a head group of 12 heads and of 6) and the MLP block,
+   within float32 rounding (bf16: 2e-3 and one output rounding) but for at
+   most 1 % (bf16: 0.2 %) of the outputs, moved by an int8 step, and four
+   planted faults (heads_per_block ignored, no quantisation in either block,
+   the MLP intermediate rounded to bf16) each failing that check; the attention over a projected qkv (kernel 6) beside
+   scaled_dot_product_attention; and the whole-stack kernel (kernel 3) over
+   12 layers, W8A8 and float, bit-identical to the chain of kernels 1 and 2
+   and within a limit per mode of the plain loop of layers.
 4. Training kernel phase: the four training kernels (attention and MLP,
    forward and backward) at the same shapes, bfloat16 and float32, at
    dropout rate 0 and at 0.1 with the kernels' mask replayed in the plain
@@ -20,10 +32,21 @@
    (B, nh, L, L) mask within 1e-3 of 0.9; kernel and plain times.
 5. Inference main path: topic-segmentation inference through the port's CLI
    (cli/run_inference.main) at BERT-base widths in bfloat16 on a synthetic
-   wiki_section corpus of several hundred 512-token windows. Checks that
-   each inference kernel ran once per layer per batch, that the metrics are
-   finite, and that the fused path's logits agree with the einsum path's on
-   one batch (argmax agreement >= 0.99).
+   wiki_section corpus of several hundred 512-token windows, with
+   attention_impl "fused" (at batch 32 "auto" takes the stack kernel).
+   Checks that each inference kernel ran once per layer per batch, that the
+   metrics are finite, and that the fused path's logits agree with the
+   einsum path's on one batch (argmax agreement >= 0.99). Then the serving
+   configuration (bench.py's make_model: W8A8, softmax in the compute type,
+   attention_impl "auto") through the engine call run_topic_seg_inference on
+   the same corpus: at batch 32 the stack kernel once a batch, at batch 128
+   the W8A8 attention and MLP blocks once a layer a batch, the W8A8 einsum
+   path with kernels 4 and 5 four times a layer a batch, and unquantised the
+   same two batches and the pallas path with kernel 6 once a layer a batch;
+   each kernel path's argmax agreement >= 0.99 with the einsum path of its
+   quantisation on the first 128 windows (W8A8 against unquantised printed,
+   not gated); windows/s, peak memory, and the busy share and top kernels
+   of the W8A8 engine calls under torch.profiler.
 6. Training main path: fine-tuning through cli/run_finetune.main at
    BERT-base widths and 12 layers, L=512, bfloat16, with the DA view, TSSP
    and eop_matrix CSSL, for a few optimizer steps on a synthetic corpus.
@@ -50,8 +73,8 @@
    optimizer steps; each training kernel ran layers x views x 8 micro-steps
    times; finite losses; then fused against chunked einsum gradients on one
    micro-batch of 2 (qkv_global included).
-11. Prints the kernels as one JSON line, the card's name and power limit,
-   and last {"ok": true, "device": {...}}.
+11. Prints the serving runs and the kernels as JSON lines, the card's name
+   and power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -82,10 +105,47 @@ DROPOUT = 0.1  # the encoder's attention_dropout, configs.py
 KEEP_FRACTION_TOL = 1e-3
 TRAIN_STEPS = 3  # optimizer steps of the training main path
 LOSS_RTOL, MIN_GRAD_COSINE = 1e-2, 0.99
-# the card's peaks (NVIDIA H100 SXM data sheet): dense bf16 tensor cores,
-# float32 on the CUDA cores, HBM bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the card's peaks (NVIDIA H100 SXM data sheet): dense bf16 and int8 tensor
+# cores, float32 on the CUDA cores, HBM bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
+# The W8A8 blocks against their plain versions on valid rows: the same
+# integer products and float32 epilogues, rounded where the TPU kernel
+# rounds, so in float32 an output agrees to float32 rounding (1e-5 (1 +
+# |ref|)) but where a float32 sum of another order moved a value across an
+# int8 rounding boundary: one step (1/127 of its row's or head group's
+# absmax) then moves the outputs of its row. In bfloat16 both round the
+# output (2^-7 |ref|), and the kernel's online softmax rounds the
+# probabilities to bf16 against a running max, the plain version against
+# the row's: ctx then rounds otherwise now and then, and each ctx value that
+# takes another int8 step moves its row's outputs by about 1e-3, so 2e-3
+# absolute. At most W8A8_SHARE of the outputs may be off by more, each by at
+# most W8A8_STEP beyond rounding (tests/test_torch_kernels.py). A block that
+# ignores heads_per_block, rounds the MLP intermediate to bf16 before
+# quantising it, or does not quantise moves far more of them: the phase
+# plants each of these once and fails if the check lets one through.
+W8A8_CLOSE = {"float32": (1e-5, 1e-5), "bfloat16": (2e-3, 2**-7)}  # (atol, rtol)
+W8A8_STEP = 2e-2
+W8A8_SHARE = {"float32": 0.01, "bfloat16": 0.002}
+# the matmul kernels' output: the same float32 value up to the last bits
+# (the tanh GELU of two libraries), so one bf16 step (at most 2^-7 of it)
+MATMUL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2**-7)}
+# kernel 6 takes the exponent in bfloat16, its plain version (JAX's
+# reference) in float32: 2^-9 relative per probability
+SNLD_TOL = {"float32": (1e-2, 2e-2), "bfloat16": (5e-2, 2e-2)}
+# the stack runs the device code of kernels 1 and 2 on the same tiles: it
+# must equal their chain bit for bit. Against the plain loop of layers:
+# max |err| / max |ref| over 12 layers, per (mode, dtype): float32 sums in
+# another order (float32), the kernels' bf16 roundings of q, k, v, p, ctx and
+# the intermediate where the plain loop stays in float32 (bf16), and int8
+# steps that those move, each spreading over its row in the next layers
+# (W8A8)
+STACK_TOL = {("W8A8", "bfloat16"): 5e-2, ("float", "bfloat16"): 2e-2,
+             ("float", "float32"): 1e-5}
+# the serving configuration (bench.py make_model): W8A8 projections, softmax
+# in the compute type, attention_impl "auto"; served at bench.py's default
+# batch of 128 and at the stack kernel's batch of 32
+SERVE_BATCHES = (32, 128)
 # name: (source, TPU kernel it replaces)
 KERNELS = {
     "fused_attention_block": (
@@ -123,6 +183,30 @@ KERNELS = {
     "sliding_train_bwd": (
         "spokennlp_tpu_torch/csrc/train_sliding.cu",
         "spokennlp_tpu/ops/pallas/train_sliding.py:778",
+    ),
+    "fused_attention_block_w8a8": (
+        "spokennlp_tpu_torch/csrc/attention_block.cu",
+        "spokennlp_tpu/ops/pallas/attention_block.py:360",
+    ),
+    "fused_mlp_block_w8a8": (
+        "spokennlp_tpu_torch/csrc/mlp_block.cu",
+        "spokennlp_tpu/ops/pallas/mlp_block.py:119",
+    ),
+    "fused_encoder_stack": (
+        "spokennlp_tpu_torch/csrc/stack_block.cu",
+        "spokennlp_tpu/ops/pallas/stack_block.py:221",
+    ),
+    "w8a8_matmul_bf16in": (
+        "spokennlp_tpu_torch/csrc/int8_matmul.cu",
+        "spokennlp_tpu/ops/pallas/int8_matmul.py:166",
+    ),
+    "w8a8_matmul": (
+        "spokennlp_tpu_torch/csrc/int8_matmul.cu",
+        "spokennlp_tpu/ops/pallas/int8_matmul.py:75",
+    ),
+    "snld_self_attention": (
+        "spokennlp_tpu_torch/csrc/blhd_attention.cu",
+        "spokennlp_tpu/ops/pallas/blhd_attention.py:70",
     ),
 }
 # the Longformer slice: the reference's flagship recipe (scripts/run_finetune.sh:
@@ -205,17 +289,34 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, n_bytes: int, dtype: str) -> dict:
+def bound(flops, n_bytes: int, dtype: str = "bfloat16") -> dict:
     """The least time the card could take: the larger of the operations over
     the peak rate of their type and the bytes (each input read once, each
-    output written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, n_bytes / PEAK_BYTES * 1e3
+    output written once) over the memory rate. ``flops`` is a number of
+    ``dtype`` operations, or {type: operations} for work of several types."""
+    ops = flops if isinstance(flops, dict) else {dtype: flops}
+    t_ops = sum(n / PEAK_FLOPS[t] for t, n in ops.items()) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
-def compare(name, dtype, kernel, plain, valid):
-    """Check kernel against plain on the valid rows; time both."""
+def w8a8_check(got, want, dtype) -> dict:
+    """A W8A8 block's output against its plain version (valid rows): the
+    share of outputs off by more than rounding (W8A8_CLOSE), the largest
+    |err|, and whether the share is within W8A8_SHARE and every |err| within
+    W8A8_STEP beyond rounding."""
+    err, ref = (got.float() - want.float()).abs(), want.float().abs()
+    atol, rtol = W8A8_CLOSE[dtype]
+    share = (err > atol + rtol * ref).float().mean().item()
+    beyond = (err - rtol * ref).max().item()
+    return {"share": share, "max_abs_err": err.max().item(),
+            "ok": share <= W8A8_SHARE[dtype] and beyond <= W8A8_STEP}
+
+
+def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
+    """Check kernel against plain on the valid rows (``tol`` = (atol, rtol),
+    the dtype's TOL by default; ``w8a8``: w8a8_check); time both."""
     import torch
 
     got, want = kernel(), plain()
@@ -224,12 +325,19 @@ def compare(name, dtype, kernel, plain, valid):
     if not torch.isfinite(got).all():
         fail(f"{name} {dtype}: non-finite output")
     err = (got - want).abs()
-    atol, rtol = TOL[dtype]
-    worst = (err - rtol * want.abs()).max().item()
     max_err = err.max().item()
-    if worst > atol:
-        fail(f"{name} {dtype}: max |err| {max_err:.3e} exceeds atol {atol} + rtol {rtol} * |ref|")
-    row = {"max_abs_err": max_err, **timed_pair(kernel, plain)}
+    if w8a8:
+        c = w8a8_check(got, want, dtype)
+        print(f"  {name} {dtype}: {c['share']:.2e} of the outputs beyond rounding "
+              f"(limit {W8A8_SHARE[dtype]})")
+        if not c["ok"]:
+            fail(f"{name} {dtype}: {c['share']:.3e} of the outputs beyond rounding, max |err| "
+                 f"{max_err:.3e} (limits {W8A8_SHARE[dtype]}, {W8A8_STEP} beyond rounding)")
+    else:
+        atol, rtol = tol or TOL[dtype]
+        if (err - rtol * want.abs()).max().item() > atol:
+            fail(f"{name} {dtype}: max |err| {max_err:.3e} exceeds atol {atol} + rtol {rtol} * |ref|")
+    row = {"max_abs_err": max_err, **timed_pair(kernel, plain, reps)}
     print(f"kernel {name} {dtype}: max_abs_err {max_err:.3e}  kernel {row['ms']:.3f} ms  "
           f"plain {row['plain_ms']:.3f} ms")
     return row
@@ -278,6 +386,244 @@ def kernel_phase(device) -> dict:
         )
         moved = nbytes(x, w1, b1, w2, b2, *ln.values(), x)
         rows["fused_mlp_block", dtype].update(bound(4 * M * H * I, moved, dtype))
+    return rows
+
+
+def library_time(fn, name) -> float:
+    """ms of one PyTorch call that computes the same function (the row's
+    library_ms), CUDA events after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ms = time_ms(fn)
+    print(f"  library call for {name}: {ms:.3f} ms")
+    return ms
+
+
+def mlp_w8a8_bf16_intermediate(x, w1, b1, w2, b2, ln_scale, ln_bias):
+    """A planted fault: the W8A8 MLP block (GELU) with its float32
+    intermediate rounded to bf16 before its row quantisation."""
+    import torch
+    import torch.nn.functional as F
+
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+
+    (w1q, sw1), (w2q, sw2) = im.quantize_colwise(w1), im.quantize_colwise(w2)
+    x8, sx = im.rowquant_plain(x.float())
+    h = im.ACTIVATIONS["gelu"](im.int8_product(x8, w1q) * sx * sw1 + b1)
+    h8, sh = im.rowquant_plain(h.to(torch.bfloat16).float())
+    y = im.int8_product(h8, w2q) * sh * sw2 + b2
+    return F.layer_norm(y + x.float(), (x.shape[1],), ln_scale, ln_bias, eps=1e-12).to(x.dtype)
+
+
+def w8a8_kernel_phase(device) -> dict:
+    """{(name, dtype): row} for kernels 4, 5 and 6 and the W8A8 modes of 1 and
+    2 at the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+    from spokennlp_tpu_torch.ops.cuda.attention_block import (
+        attention_block_plain, fused_attention_block,
+    )
+    from spokennlp_tpu_torch.ops.cuda.blhd_attention import (
+        reference_snld_attention, snld_self_attention,
+    )
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+
+    g = torch.Generator(device=device).manual_seed(3)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    seg = segments(device)
+    valid = seg > 0
+    M, HN = B * L, NH * HD
+    rows = {}
+
+    # kernels 5 and 4 over one layer's four projections (K x N, activation)
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0, "library_ms": 0.0, "err": 0.0}
+    k4 = dict(k5)
+    for K, N, act in ((H, 3 * HN, "none"), (HN, H, "none"), (H, I, "gelu"), (I, H, "none")):
+        x = randn(M, K).to(torch.bfloat16)
+        w, bias = randn(K, N, scale=K**-0.5), randn(N, scale=0.02)
+        w8, sw = im.quantize_colwise(w)
+        x8, sx = im.rowquant_plain(x)
+        label = f"{K}x{N} {act}"
+        # the int32 accumulators: unit scales, float32 output = float(acc)
+        ones = lambda n: torch.ones(n, device=device)
+        acc = im.w8a8_matmul(x8, ones(M), w8, ones(N), out_dtype=torch.float32)
+        if not torch.equal(acc, im.int8_product(x8, w8)):
+            fail(f"w8a8_matmul {label}: int32 accumulators differ from the exact product")
+        qx8, qsx = im.rowquant_cuda(x)
+        if not (torch.equal(qx8, x8) and torch.equal(qsx, sx)):
+            fail(f"w8a8_matmul_bf16in {label}: the row quantiser differs from rowquant_plain")
+        print(f"w8a8 {label}: int32 accumulators exact; row quantiser equal")
+        r5 = compare(f"w8a8_matmul {label}", "bfloat16",
+                     lambda: im.w8a8_matmul(x8, sx, w8, sw, bias, torch.bfloat16, act),
+                     lambda: im.w8a8_matmul_plain(x8, sx, w8, sw, bias, torch.bfloat16, act),
+                     slice(None), tol=MATMUL_TOL["bfloat16"])
+        r4 = compare(f"w8a8_matmul_bf16in {label}", "bfloat16",
+                     lambda: im.w8a8_matmul_bf16in(x, w8, sw, bias, torch.bfloat16, act),
+                     lambda: im.w8a8_matmul_plain(*im.rowquant_plain(x), w8, sw, bias,
+                                                  torch.bfloat16, act),
+                     slice(None), tol=MATMUL_TOL["bfloat16"])
+        # the library yardstick: cuBLAS's int8 product alone (torch._int_mm),
+        # on the same int8 operands, B in the column-major layout it takes
+        w8t = w8.t().contiguous().t()
+        lib = library_time(lambda: torch._int_mm(x8, w8t), f"w8a8 {label} (torch._int_mm)")
+        out_bytes = M * N * 2
+        for tot, r, in_bytes in ((k5, r5, nbytes(x8, sx, w8, sw, bias)),
+                                 (k4, r4, nbytes(x, w8, sw, bias))):
+            tot["ms"] += r["ms"]
+            tot["plain_ms"] += r["plain_ms"]
+            tot["err"] = max(tot["err"], r["max_abs_err"])
+            tot["flops"] += 2 * M * K * N
+            tot["bytes"] += in_bytes + out_bytes
+            tot["library_ms"] += lib
+    for name, tot in (("w8a8_matmul", k5), ("w8a8_matmul_bf16in", k4)):
+        row = {"max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+               **bound({"int8": tot["flops"]}, tot["bytes"])}
+        row["library_ms"] = tot["library_ms"]
+        rows[name, "bfloat16"] = row
+        print(f"kernel {name} (a layer's four projections): kernel {row['ms']:.3f} ms  plain "
+              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms ({row['bound_by']})  "
+              f"torch._int_mm {row['library_ms']:.3f} ms")
+
+    # the W8A8 modes of kernels 1 and 2: float32 weights, quantised in the wrapper
+    core = 4 * B * NH * L * L * HD
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        qkv_k, out_k = randn(H, 3, NH, HD, scale=H**-0.5), randn(NH, HD, H, scale=HN**-0.5)
+        att = dict(qkv_bias=randn(3, NH, HD, scale=0.02), out_bias=randn(H, scale=0.02))
+        ln = dict(ln_scale=1 + randn(H, scale=0.1), ln_bias=randn(H, scale=0.1))
+        hidden = randn(B, L, H).to(dt)
+        att_call = lambda fn, hb, quantized=True: fn(
+            hidden, seg, qkv_k, att["qkv_bias"], out_k, att["out_bias"], sm_scale=HD**-0.5,
+            quantized=quantized, heads_per_block=hb, **ln)
+        for hb in (NH, NH // 2):
+            row = compare(f"fused_attention_block W8A8 heads_per_block={hb}", dtype,
+                          lambda: att_call(fused_attention_block, hb),
+                          lambda: att_call(attention_block_plain, hb), valid, w8a8=True)
+            if hb == NH:
+                ops = {"int8": 2 * M * H * 3 * HN + 2 * M * HN * H, dtype: core}
+                moved = nbytes(hidden, seg, qkv_k, out_k, *att.values(), *ln.values(), hidden)
+                rows["fused_attention_block_w8a8", dtype] = {**row, **bound(ops, moved)}
+        x = randn(M, H).to(dt)
+        w1, w2 = randn(H, I, scale=H**-0.5), randn(I, H, scale=I**-0.5)
+        b1, b2 = randn(I, scale=0.02), randn(H, scale=0.02)
+        mlp = lambda fn, quantized=True: fn(x, w1, b1, w2, b2, ln["ln_scale"], ln["ln_bias"],
+                                            activation="gelu", eps=1e-12, quantized=quantized)
+        row = compare("fused_mlp_block W8A8", dtype, lambda: mlp(fused_mlp_block),
+                      lambda: mlp(mlp_block_plain), slice(None), w8a8=True)
+        moved = nbytes(x, w1, b1, w2, b2, *ln.values(), x)
+        rows["fused_mlp_block_w8a8", dtype] = {**row, **bound({"int8": 4 * M * H * I}, moved)}
+
+        # the check has teeth: each fault, planted once, fails it
+        hb = NH // 2
+        want_att, want_mlp = att_call(attention_block_plain, hb), mlp(mlp_block_plain)
+        planted = {
+            "attention block ignoring heads_per_block":
+                (att_call(fused_attention_block, NH), want_att, valid),
+            "attention block not quantising":
+                (att_call(fused_attention_block, hb, quantized=False), want_att, valid),
+            "MLP rounding its intermediate to bf16 before quantising it":
+                (mlp_w8a8_bf16_intermediate(x, w1, b1, w2, b2, **ln), want_mlp, slice(None)),
+            "MLP block not quantising": (mlp(fused_mlp_block, False), want_mlp, slice(None)),
+        }
+        for what, (got, want, v) in planted.items():
+            c = w8a8_check(got[v], want[v], dtype)
+            print(f"  planted fault, {what} ({dtype}): {c['share']:.2e} of the outputs beyond "
+                  f"rounding, max |err| {c['max_abs_err']:.3e}: "
+                  + ("PASSES the check" if c["ok"] else "rejected"))
+            if c["ok"]:
+                fail(f"the W8A8 check lets a planted fault through: {what} ({dtype})")
+        del planted, want_att, want_mlp
+
+        # kernel 6 over a projected qkv; yardstick: scaled_dot_product_attention
+        # with the segment mask as a boolean attn_mask (the same function on
+        # real rows)
+        qkv = randn(B, 3, NH, L, HD).to(dt)
+        row = compare("snld_self_attention", dtype,
+                      lambda: snld_self_attention(qkv, seg, HD**-0.5),
+                      lambda: reference_snld_attention(qkv, seg, HD**-0.5),
+                      valid[:, None, :].expand(B, NH, L), tol=SNLD_TOL[dtype])
+        allowed = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]
+        q, k, v = qkv.unbind(1)
+        row.update(bound(core, nbytes(qkv, seg, qkv[:, 0]), dtype))
+        row["library_ms"] = library_time(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=HD**-0.5),
+            f"snld_self_attention {dtype} (scaled_dot_product_attention)")
+        rows["snld_self_attention", dtype] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def stack_kernel_phase(device) -> dict:
+    """{(mode, dtype): row} for kernel 3 over all LAYERS at the main path's
+    shapes: W8A8 and the float modes, against the plain loop of layers and
+    against the chain of kernels 1 and 2."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack, stack_plain
+
+    g = torch.Generator(device=device).manual_seed(4)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    seg = segments(device)
+    valid = seg > 0
+    M, HN, NL = B * L, NH * HD, LAYERS
+    p = [randn(NL, H, 3, NH, HD, scale=H**-0.5), randn(NL, 3, NH, HD, scale=0.02),
+         randn(NL, NH, HD, H, scale=HN**-0.5), randn(NL, H, scale=0.02),
+         1 + randn(NL, H, scale=0.1), randn(NL, H, scale=0.1), randn(NL, H, I, scale=H**-0.5),
+         randn(NL, I, scale=0.02), randn(NL, I, H, scale=I**-0.5), randn(NL, H, scale=0.02),
+         1 + randn(NL, H, scale=0.1), randn(NL, H, scale=0.1)]
+    rows = {}
+    for quantized, dtype in ((True, "bfloat16"), (False, "bfloat16"), (False, "float32")):
+        dt = getattr(torch, dtype)
+        mode = "W8A8" if quantized else "float"
+        hidden = randn(B, L, H).to(dt)
+        # the float modes compute with the weight matrices rounded to dt
+        ps = [t.to(dt) if i in (0, 2, 6, 8) and not quantized else t for i, t in enumerate(p)]
+        kernel = lambda: fused_encoder_stack(hidden, seg, *p, sm_scale=HD**-0.5,
+                                             quantized=quantized)
+        plain = lambda: stack_plain(hidden, seg, *ps, sm_scale=HD**-0.5, quantized=quantized)
+
+        def chain():
+            h = hidden
+            for l in range(NL):
+                h = fused_attention_block(h, seg, *(t[l] for t in p[:4]), sm_scale=HD**-0.5,
+                                          ln_scale=p[4][l], ln_bias=p[5][l], quantized=quantized)
+                h = fused_mlp_block(h.reshape(M, H), *(t[l] for t in p[6:]), activation="gelu",
+                                    eps=1e-12, quantized=quantized).reshape(B, L, H)
+            return h
+
+        got, want, links = kernel(), plain(), chain()
+        torch.cuda.synchronize()
+        label = f"fused_encoder_stack {mode} {dtype}, {NL} layers"
+        if not torch.isfinite(got[valid]).all():
+            fail(f"{label}: non-finite output")
+        if not torch.equal(got[valid], links[valid]):
+            e = (got[valid].float() - links[valid].float()).abs().max().item()
+            fail(f"{label}: differs from the chain of kernels 1 and 2 (max |err| {e:.3e})")
+        e = (got[valid].float() - want[valid].float()).abs().max().item()
+        rel, limit = e / want[valid].float().abs().max().item(), STACK_TOL[mode, dtype]
+        print(f"  {label}: bit-identical to the chain of kernels 1 and 2; against the plain "
+              f"loop max |err| {e:.3e}, / max |ref| {rel:.3e} (limit {limit})")
+        if rel > limit:
+            fail(f"{label}: against the plain loop, max|err|/max|ref| {rel:.3e} > {limit}")
+        times = timed_pair(kernel, plain, reps=3)
+        chain_ms = time_ms(chain, reps=3)
+        layer = 2 * M * H * 3 * HN + 2 * M * HN * H + 4 * M * H * I
+        core = NL * 4 * B * NH * L * L * HD
+        ops = {"int8": NL * layer, dtype: core} if quantized else {dtype: NL * layer + core}
+        row = {"max_abs_err": e, **times, **bound(ops, nbytes(hidden, seg, *p, hidden)),
+               "chain_ms": chain_ms, "grid": fused_encoder_stack.grid}
+        rows[mode, dtype] = row
+        print(f"kernel {label}: kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  chain "
+              f"of kernels 1+2 {chain_ms:.3f} ms  bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}); grid {row['grid']} blocks")
+        del got, want, links
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -659,11 +1005,13 @@ def epochs_for_steps(argv, steps: int) -> float:
     return (steps * args.gradient_accumulation_steps + 0.5) / per_epoch
 
 
-def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None) -> dict:
+def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None,
+              kernel_impl="auto") -> dict:
     """Run the inference CLI; check launches, metrics and logits against
     einsum. ``kernels``: {name: wrapper} that must run once per layer per
     batch (the dense pair by default); ``long_tokens``: check that at least
-    LF_MIN_LONG_SHARE of the windows hold that many real tokens."""
+    LF_MIN_LONG_SHARE of the windows hold that many real tokens;
+    ``kernel_impl``: the attention_impl of the kernels' path (argv's)."""
     import torch
 
     from spokennlp_tpu_torch.cli import common, run_inference
@@ -695,14 +1043,14 @@ def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None) -> dic
 
     # the same weights on the einsum path, on the first batch
     results = {}
-    for impl in ("auto", "einsum"):
+    for impl in (kernel_impl, "einsum"):
         args = run_inference.make_parser().parse_args(argv + ["--attention_impl", impl])
         tokenize_fn, special = common.resolve_tokenizer(args)
         enc_cfg, task_cfg, wcfg, _ = common.build_configs(args, special)
         model = run_inference.build_model(args, enc_cfg, task_cfg)
         docs = common.load_docs(args, tokenize_fn)["test"]
         batch = window_documents_stacked(docs, wcfg)
-        if long_tokens and impl == "auto":
+        if long_tokens and impl == kernel_impl:
             share = float((batch["attention_mask"].sum(1) >= long_tokens).mean())
             print(f"windows holding >= {long_tokens} real tokens: {share:.3f}")
             if share < LF_MIN_LONG_SHARE:
@@ -721,7 +1069,7 @@ def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None) -> dic
         del model
         torch.cuda.empty_cache()
     live = first["sent_labels"] != -100
-    fused, einsum = results["auto"][live], results["einsum"][live]
+    fused, einsum = results[kernel_impl][live], results["einsum"][live]
     agreement = float((fused.argmax(-1) == einsum.argmax(-1)).mean())
     max_dlogit = float(np.abs(fused - einsum).max())
     print(f"fused vs einsum on {int(live.sum())} labelled sentences of one batch: "
@@ -732,6 +1080,138 @@ def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None) -> dic
             "peak_gib": peak, "einsum_windows_per_s": n_windows / einsum_s,
             "einsum_peak_gib": einsum_peak, "agreement": agreement, "max_dlogit": max_dlogit,
             "metrics": metrics}
+
+
+def serving_model(attention_impl: str, quantize: str):
+    """bench.py's make_model at full width (BERT-base, 512 positions, no
+    pooler, softmax in the compute type, bf16 compute, float32 parameters),
+    weights from seed 0 drawn on the card: every call gives the same
+    weights."""
+    import torch
+
+    from spokennlp_tpu_torch.configs import EncoderConfig, TopicSegConfig
+    from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
+
+    enc = EncoderConfig(vocab_size=30522, hidden_size=H, num_layers=LAYERS, num_heads=NH,
+                        intermediate_size=I, max_position_embeddings=L, add_pooler=False,
+                        attention_impl=attention_impl, softmax_in_compute_dtype=True,
+                        quantize=quantize)
+    with torch.device("cuda"):
+        model = TopicSegModel(enc, TopicSegConfig(), dtype=torch.bfloat16,
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+    return model.eval()
+
+
+def serving_path(data_dir: str, out_dir: str) -> dict:
+    """The repo's serving configuration through the engine call
+    (run_topic_seg_inference), as scripts/bench_engine.py drives it, on the
+    dense phase's corpus: W8A8 and unquantised, attention_impl auto at each of
+    SERVE_BATCHES, the W8A8 einsum path and the bf16 pallas and einsum paths.
+    Checks each run's launches per batch and finite metrics; holds each
+    kernel path's logits on the first 128 windows against the einsum path of
+    its quantisation (argmax agreement >= MIN_ARGMAX_AGREEMENT); prints
+    windows/s and peak memory, and the device busy share and top kernels of
+    the W8A8 engine calls."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, run_inference
+    from spokennlp_tpu_torch.data.windowing_fast import window_documents_stacked
+    from spokennlp_tpu_torch.eval.inference import predict_windows_scanned, run_topic_seg_inference
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.blhd_attention import snld_self_attention
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+    from spokennlp_tpu_torch.train.profiling import kernel_times
+
+    args = run_inference.make_parser().parse_args(
+        main_path_argv(data_dir, out_dir))
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    _, _, wcfg, _ = common.build_configs(args, special)
+    docs = common.load_docs(args, tokenize_fn)["test"]
+    batch = window_documents_stacked(docs, wcfg)
+    n = batch["input_ids"].shape[0]
+    first = {k: v[:128] for k, v in batch.items()}
+    live = first["sent_labels"] != -100
+    wrappers = {"fused_encoder_stack": fused_encoder_stack,
+                "fused_attention_block": fused_attention_block, "fused_mlp_block": fused_mlp_block,
+                "w8a8_matmul_bf16in": im.w8a8_matmul_bf16in, "w8a8_matmul": im.w8a8_matmul,
+                "snld_self_attention": snld_self_attention}
+    small, large = SERVE_BATCHES
+    blocks = {"fused_attention_block": LAYERS, "fused_mlp_block": LAYERS}
+    # (quantize, attention_impl, batch, launches a batch)
+    runs = [("w8a8", "auto", small, {"fused_encoder_stack": 1}),
+            ("w8a8", "auto", large, blocks),
+            ("w8a8", "einsum", small, {"w8a8_matmul_bf16in": 4 * LAYERS,
+                                       "w8a8_matmul": 4 * LAYERS}),
+            ("none", "auto", small, {"fused_encoder_stack": 1}),
+            ("none", "auto", large, blocks),
+            ("none", "pallas", small, {"snld_self_attention": LAYERS}),
+            ("none", "einsum", small, {})]
+    res = {}
+    for quantize, impl, bs, per_batch in runs:
+        key = f"{quantize} {impl} batch {bs}"
+        model = serving_model(impl, quantize)
+        for w in wrappers.values():
+            w.launches = 0
+        reset_peak()
+        t0 = time.perf_counter()
+        out = run_topic_seg_inference(model, docs, wcfg, batch_size=bs, threshold=0.5)
+        secs = time.perf_counter() - t0  # the engine call ends in a copy to the host
+        launches = {k: w.launches for k, w in wrappers.items()}
+        peak = peak_gib()
+        n_batches = math.ceil(n / bs)
+        expected = {k: per_batch.get(k, 0) * n_batches for k in wrappers}
+        if launches != expected:
+            fail(f"serving {key}: launches {launches}, expected {expected}")
+        if not np.isfinite(list(out["metrics"].values())).all():
+            fail(f"serving {key}: non-finite metrics {out['metrics']}")
+        row = {"windows_per_s": n / secs, "engine_s": secs, "peak_gib": peak,
+               "launches": {k: v for k, v in launches.items() if v}, "metrics": out["metrics"]}
+        print(f"serving {key}: {n} windows in {n_batches} batches, {secs:.3f} s "
+              f"({row['windows_per_s']:.1f} windows/s), peak {peak:.2f} GiB, launches "
+              f"{row['launches']}")
+        if quantize == "w8a8" and impl == "auto":
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                run_topic_seg_inference(model, docs, wcfg, batch_size=bs, threshold=0.5)
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            k = kernel_times(prof)
+            row["busy_share"] = k.pop("_busy_ms") / traced_ms
+            total = sum(v["ms"] for v in k.values())
+            top = sorted(k.items(), key=lambda kv: -kv[1]["ms"])[:6]
+            row["top_kernels"] = {name: {"ms": v["ms"], "share": v["ms"] / total,
+                                         "launches": v["launches"]} for name, v in top}
+            print(f"  profiled engine call: busy share {row['busy_share']:.4f} of {traced_ms:.1f} "
+                  f"ms; top kernels " + ", ".join(f"{name} {v['ms']:.1f} ms ({v['share']:.3f})"
+                                                  for name, v in row["top_kernels"].items()))
+        row["logits"] = predict_windows_scanned(model, first, bs, gather_sents=True)[live]
+        res[quantize, impl, bs] = row
+        del model
+        torch.cuda.empty_cache()
+
+    agree = lambda a, b: float((a["logits"].argmax(-1) == b["logits"].argmax(-1)).mean())
+    pairs = [(("w8a8", "auto", small), ("w8a8", "einsum", small), True),
+             (("w8a8", "auto", large), ("w8a8", "einsum", small), True),
+             (("none", "auto", small), ("none", "einsum", small), True),
+             (("none", "auto", large), ("none", "einsum", small), True),
+             (("none", "pallas", small), ("none", "einsum", small), True),
+             (("w8a8", "einsum", small), ("none", "einsum", small), False)]
+    agreement = {}
+    for a, b, gate in pairs:
+        value = agree(res[a], res[b])
+        name = f"{' '.join(map(str, a))} vs {' '.join(map(str, b))}"
+        agreement[name] = value
+        dmax = float(np.abs(res[a]["logits"] - res[b]["logits"]).max())
+        print(f"serving agreement {name} on {int(live.sum())} labelled sentences of the first "
+              f"{len(first['input_ids'])} windows: argmax {value:.4f}, max |dlogit| {dmax:.4f}"
+              + ("" if gate else " (printed, not gated)"))
+        if gate and value < MIN_ARGMAX_AGREEMENT:
+            fail(f"serving agreement {name}: {value:.4f} < {MIN_ARGMAX_AGREEMENT}")
+    for row in res.values():
+        row.pop("logits")
+    return {"runs": {" ".join(map(str, k)): v for k, v in res.items()}, "agreement": agreement}
 
 
 def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1) -> dict:
@@ -871,6 +1351,10 @@ def main() -> int:
 
     device = torch.device("cuda")
     rows = kernel_phase(device)
+    rows.update(w8a8_kernel_phase(device))
+    stack_rows = stack_kernel_phase(device)
+    rows["fused_encoder_stack", "bfloat16"] = stack_rows["W8A8", "bfloat16"]
+    rows["fused_encoder_stack", "float32"] = stack_rows["float", "float32"]
     rows.update(train_kernel_phase(device))
     rows.update(sliding_kernel_phase(device))
 
@@ -881,7 +1365,11 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         data = write_corpus(Path(tmp), n_test_docs=120)
-        infer = main_path(main_path_argv(data, str(Path(tmp) / "out")), LAYERS, B)
+        # kernels 1 and 2 at batch 32: "auto" would take the stack kernel there
+        infer = main_path(main_path_argv(data, str(Path(tmp) / "out")) + ["--attention_impl",
+                                                                            "fused"],
+                          LAYERS, B, kernel_impl="fused")
+        serving = serving_path(data, str(Path(tmp) / "serve_out"))
         # about 2.9 windows a document: TRAIN_STEPS batches of B in one epoch
         train_data = write_corpus(Path(tmp), n_test_docs=4,
                                   n_train_docs=math.ceil(TRAIN_STEPS * B / 2.5), seed=1)
@@ -906,9 +1394,16 @@ def main() -> int:
                      "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
         fused_vs_einsum_grads(argv("lf_grad_out", epochs), batch_size=LF_TRAIN_B)
 
+    served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
     launches = {**infer["launches"], **train["launches"],
                 "sliding_attention_block": lf_infer["launches"]["sliding_attention_block"],
-                **{k: lf_train["launches"][k] for k in ("sliding_train_fwd", "sliding_train_bwd")}}
+                **{k: lf_train["launches"][k] for k in ("sliding_train_fwd", "sliding_train_bwd")},
+                "fused_encoder_stack": served("w8a8 auto 32", "fused_encoder_stack"),
+                "fused_attention_block_w8a8": served("w8a8 auto 128", "fused_attention_block"),
+                "fused_mlp_block_w8a8": served("w8a8 auto 128", "fused_mlp_block"),
+                **{k: served("w8a8 einsum 32", k) for k in ("w8a8_matmul_bf16in", "w8a8_matmul")},
+                "snld_self_attention": served("none pallas 32", "snld_self_attention")}
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"longformer": {
         "inference": {k: lf_infer[k] for k in ("launches", "windows", "windows_per_s",
                                                "peak_gib", "einsum_windows_per_s",
@@ -919,7 +1414,7 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], **rows[name, "bfloat16"]})
-    f32 = {name: rows[name, "float32"] for name in KERNELS}
+    f32 = {name: rows[name, "float32"] for name in KERNELS if (name, "float32") in rows}
     print(json.dumps({"float32": f32}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,55 @@
+// Segment-masked self-attention over an already projected qkv for the H100
+// (sm_90a): (B, 3, nh, L, hd) -> (B, nh, L, hd), scores (q . k) * sm_scale,
+// the additive -1e9 mask of allowed = (seg_q == seg_k) & (seg_k > 0), exp in
+// bfloat16 whatever the element type, normalised after P.V.
+//
+// Replaces the TPU kernel spokennlp_tpu/ops/pallas/blhd_attention.py,
+// snld_self_attention (_attn_kernel), which serves attention_impl="pallas".
+//
+// What bounds it here. At BERT-base (B=32, L=512, 12 heads of 64) it is 25.8
+// GFLOP of attention products against 75 MB of qkv and 25 MB of output in
+// bfloat16: about 260 operations a byte, near the card's bf16 ridge, and
+// above it for the float32 CUDA cores this kernel runs on, so it is bound by
+// arithmetic (float32 FMA in the two tile products) plus the exponentials.
+//
+// What the design does about the TPU kernel's assumptions. The TPU kernel
+// took a whole (L, L) score matrix of HB heads into VMEM (L=512 fits) and
+// normalised after P.V. A Hopper block cannot hold that, so this is the
+// attention block's core (attention_core.cuh): one block per (64 query
+// rows, head, sequence) streams key tiles of 64 with an online softmax, in
+// this kernel's layouts, with the scale applied to the scores (q arrives
+// unscaled) and the exponent rounded to bfloat16 as the TPU kernel takes it.
+#include "attention_core.cuh"
+
+namespace spk {
+namespace {
+
+// (B, 3, nh, L, hd) in, (B, nh, L, hd) out
+CoreLayout snld_layout(int L, int nh, int hd) {
+  const size_t head = (size_t)L * hd;
+  return {(size_t)nh * head, (size_t)3 * nh * head, head, (size_t)nh * head, head, (size_t)hd};
+}
+
+}  // namespace
+}  // namespace spk
+
+// dtype: 0 = float32, 1 = bfloat16 of qkv and out; seg (B, L) int32.
+extern "C" int spk_snld_attention(int dtype, const void* qkv, const void* seg, void* out, int B,
+                                  int L, int nh, int hd, float sm_scale, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto sg = static_cast<const int32_t*>(seg);
+  const spk::CoreLayout lay = spk::snld_layout(L, nh, hd);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = spk::launch_attn_core<float, __nv_bfloat16>(static_cast<const float*>(qkv), sg,
+                                                      static_cast<float*>(out), B, L, nh, hd, lay,
+                                                      sm_scale, s);
+  } else if (dtype == 1) {
+    using T = __nv_bfloat16;
+    err = spk::launch_attn_core<T, T>(static_cast<const T*>(qkv), sg, static_cast<T*>(out), B, L,
+                                      nh, hd, lay, sm_scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

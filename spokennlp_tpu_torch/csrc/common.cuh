@@ -1,11 +1,13 @@
 // Shared device code of the encoder kernels (attention_block.cu,
 // mlp_block.cu, train_attention.cu, train_mlp.cu, sliding_block.cu,
-// train_sliding.cu): dtype conversion, the
+// train_sliding.cu, int8_gemm.cuh, stack_block.cu): dtype conversion, the
 // activation table and its derivative, warp sums, a counter-based Philox
 // generator for dropout, a SIMT tiled GEMM (either operand may be read
 // transposed), the GEMM whose epilogue adds bias and residual and applies
 // LayerNorm over whole rows, the QKV projection and the weight-gradient GEMM
-// that reduces over all rows.
+// that reduces over all rows. The inference kernels' bodies are device
+// functions of one tile or row block, so the whole-stack kernel
+// (stack_block.cu) runs the same code on the same tiles.
 //
 // All arithmetic accumulates in float32. Element types are float or
 // __nv_bfloat16; a value stored in the element type is rounded exactly where
@@ -129,6 +131,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // One BM x BN output tile of C = A . B on 256 threads, A (M, K) and B (K, N)
 // as matrices; A is stored row-major (M, K), or (K, M) when kTransA, and B
 // row-major (K, N), or (N, K) when kTransB. Thread (ty, tx) = (tid / 16,
@@ -150,9 +158,12 @@ struct TileGemm {
   static constexpr int kBStride = kTransB ? BN + 1 : BN;
   static constexpr int kSmemFloats = kTileK * kAStride + kTileK * kBStride;
 
-  __device__ static void run(const T* __restrict__ A, const T* __restrict__ B, int M, int N,
-                             int K, int row0, int col0, float (&acc)[TM][TN],
-                             float* __restrict__ smem, float* bsum = nullptr) {
+  // A and B carry no __restrict__: the persistent stack kernel reads
+  // buffers that an earlier phase of the same launch wrote, which the
+  // read-only (non-coherent) load path must not serve.
+  __device__ static void run(const T* A, const T* B, int M, int N, int K, int row0, int col0,
+                             float (&acc)[TM][TN], float* __restrict__ smem,
+                             float* bsum = nullptr) {
     float* As = smem;
     float* Bs = smem + kTileK * kAStride;
     const int tid = threadIdx.x;
@@ -218,17 +229,15 @@ struct TileGemm {
   }
 };
 
-// out = act(A . W + bias) * gate, stored in T. W is (K, N), or (N, K) read
-// transposed when kTransW; bias (N,) and gate (M, N) float32 may be null.
-// Grid (ceil(N / 64), ceil(M / 64)).
+// out = act(A . W + bias) * gate, stored in T, for the 64 x 64 output tile at
+// (row0, col0). W is (K, N), or (N, K) read transposed when kTransW; bias (N,)
+// and gate (M, N) float32 may be null. `smem` holds TileGemm's staging.
 template <typename T, bool kTransW = false>
-__global__ void __launch_bounds__(kThreads)
-    gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                         const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K,
-                         int act, const float* __restrict__ gate = nullptr) {
+__device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const float* bias,
+                                                   T* out, int M, int N, int K, int act,
+                                                   const float* gate, int row0, int col0,
+                                                   float* smem) {
   using G = TileGemm<64, 64, T, false, kTransW>;
-  __shared__ float smem[G::kSmemFloats];
-  const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
   float acc[G::TM][G::TN];
   G::run(A, W, M, N, K, row0, col0, acc, smem);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -245,6 +254,17 @@ __global__ void __launch_bounds__(kThreads)
       out[(size_t)m * N + n] = from_f32<T>(v);
     }
   }
+}
+
+// Grid (ceil(N / 64), ceil(M / 64)).
+template <typename T, bool kTransW = false>
+__global__ void __launch_bounds__(kThreads)
+    gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                         const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K,
+                         int act, const float* __restrict__ gate = nullptr) {
+  __shared__ float smem[TileGemm<64, 64, T, false, kTransW>::kSmemFloats];
+  gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * 64,
+                                 blockIdx.x * 64, smem);
 }
 
 template <typename T, bool kTransW = false>
@@ -293,18 +313,28 @@ inline cudaError_t launch_weight_grad(const T* X, const T* dY, float* dW, float*
   return cudaGetLastError();
 }
 
-// (M=B*L, H) . (H, slots*nh*hd) + bias, scattered to (slots, B, nh, L, hd),
-// slot 0 scaled by sm_scale (1 keeps it unscaled): q, k, v with slots = 3.
-// Grid (ceil(slots*nh*hd / 64), ceil(B*L / 64)).
+// Store one projected value of column n (slot s = n / HN, head, dim) and row
+// m = b * L + l into the (slots, B, nh, L, hd) layout.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
-                    int nh, int hd, float sm_scale, int slots) {
+__device__ __forceinline__ void store_qkv(T* qkv, float v, int m, int n, int B, int L, int nh,
+                                          int hd) {
+  const int HN = nh * hd;
+  const int b = m / L, l = m - b * L;
+  const int s = n / HN, r = n - s * HN;
+  const int h = r / hd, d = r - h * hd;
+  qkv[((((size_t)s * B + b) * nh + h) * L + l) * hd + d] = from_f32<T>(v);
+}
+
+// The (64 x 64) tile at (row0, col0) of (M=B*L, H) . (H, slots*nh*hd) + bias,
+// scattered to (slots, B, nh, L, hd), slot 0 scaled by sm_scale (1 keeps it
+// unscaled): q, k, v with slots = 3.
+template <typename T>
+__device__ __forceinline__ void qkv_proj_tile(const T* x, const T* w, const float* bias, T* qkv,
+                                              int B, int L, int H, int nh, int hd,
+                                              float sm_scale, int slots, int row0, int col0,
+                                              float* smem) {
   using G = TileGemm<64, 64, T>;
-  __shared__ float smem[G::kSmemFloats];
   const int M = B * L, HN = nh * hd, N = slots * HN;
-  const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
   float acc[G::TM][G::TN];
   G::run(x, w, M, N, H, row0, col0, acc, smem);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -312,18 +342,26 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < G::TM; ++i) {
     const int m = row0 + ty + 16 * i;
     if (m >= M) continue;
-    const int b = m / L, l = m - b * L;
 #pragma unroll
     for (int j = 0; j < G::TN; ++j) {
       const int n = col0 + tx + 16 * j;
       if (n >= N) continue;
-      const int s = n / HN, r = n - s * HN;
-      const int h = r / hd, d = r - h * hd;
       float v = acc[i][j] + bias[n];
-      if (s == 0) v *= sm_scale;
-      qkv[((((size_t)s * B + b) * nh + h) * L + l) * hd + d] = from_f32<T>(v);
+      if (n < HN) v *= sm_scale;
+      store_qkv<T>(qkv, v, m, n, B, L, nh, hd);
     }
   }
+}
+
+// Grid (ceil(slots*nh*hd / 64), ceil(B*L / 64)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
+                    int nh, int hd, float sm_scale, int slots) {
+  __shared__ float smem[TileGemm<64, 64, T>::kSmemFloats];
+  qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, slots, blockIdx.y * 64,
+                   blockIdx.x * 64, smem);
 }
 
 template <typename T>
@@ -340,46 +378,14 @@ inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T*
 constexpr int kLnRows = 32;
 constexpr int kLnCols = 128;
 
-// out = LayerNorm(resid + A . W + bias) * ln_scale + ln_bias over rows of
-// width N, or out = A . W + bias when fuse_ln == 0. One block owns kLnRows
-// whole rows: it walks the N columns tile by tile, writes the pre-norm rows
-// in float32 to `rows` (M, N), then normalises each row with one warp
-// (two-pass mean and variance in float32). The block reads back only what
-// it wrote, while it is still in L2; holding the rows in shared memory
-// instead (98 KB at N=768) let only two blocks onto an SM and ran at a third
-// of the plain GEMM's rate. Grid (ceil(M / kLnRows)).
+// The second half of the row-owning epilogue: rows [row0, row0 + kLnRows)
+// of `rows` (M, N) float32, which this block wrote, normalised into out, one
+// warp a row (two-pass mean and variance in float32), or copied when fuse_ln
+// is 0. The block's threads must have passed a __syncthreads() since writing.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gemm_bias_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                                 const float* __restrict__ bias, const T* __restrict__ resid,
-                                 const float* __restrict__ ln_scale,
-                                 const float* __restrict__ ln_bias, float* rows,
-                                 T* __restrict__ out, int M, int N, int K, float eps,
-                                 int fuse_ln) {
-  using G = TileGemm<kLnRows, kLnCols, T>;
-  __shared__ float smem[G::kSmemFloats];
-  const int row0 = blockIdx.x * kLnRows;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  for (int col0 = 0; col0 < N; col0 += kLnCols) {
-    float acc[G::TM][G::TN];
-    G::run(A, W, M, N, K, row0, col0, acc, smem);
-#pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      const int m = row0 + ty + 16 * i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < G::TN; ++j) {
-        const int c = col0 + tx + 16 * j;
-        if (c >= N) continue;
-        float v = acc[i][j] + bias[c];
-        if (fuse_ln) v += to_f32(resid[(size_t)m * N + c]);
-        rows[(size_t)m * N + c] = v;
-      }
-    }
-  }
-  __syncthreads();  // makes the block's global writes visible to the block
-
+__device__ __forceinline__ void ln_rows(const float* rows, const float* ln_scale,
+                                        const float* ln_bias, T* out, int M, int N, float eps,
+                                        int fuse_ln, int row0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kLnRows; r += kThreads / 32) {
     const int m = row0 + r;
@@ -402,6 +408,56 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = lane; c < N; c += 32)
       o[c] = from_f32<T>((row[c] - mean) * inv * ln_scale[c] + ln_bias[c]);
   }
+}
+
+// out = LayerNorm(resid + A . W + bias) * ln_scale + ln_bias over rows of
+// width N, or out = A . W + bias when fuse_ln == 0, for the kLnRows whole
+// rows from row0. The block walks the N columns tile by tile, writes the
+// pre-norm rows in float32 to `rows` (M, N), then normalises each row with
+// one warp. The block reads back only what it wrote, while it is still in
+// L2; holding the rows in shared memory instead (98 KB at N=768) let only two
+// blocks onto an SM and ran at a third of the plain GEMM's rate.
+template <typename T>
+__device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, const float* bias,
+                                                     const T* resid, const float* ln_scale,
+                                                     const float* ln_bias, float* rows, T* out,
+                                                     int M, int N, int K, float eps, int fuse_ln,
+                                                     int row0, float* smem) {
+  using G = TileGemm<kLnRows, kLnCols, T>;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int col0 = 0; col0 < N; col0 += kLnCols) {
+    float acc[G::TM][G::TN];
+    G::run(A, W, M, N, K, row0, col0, acc, smem);
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const int m = row0 + ty + 16 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < G::TN; ++j) {
+        const int c = col0 + tx + 16 * j;
+        if (c >= N) continue;
+        float v = acc[i][j] + bias[c];
+        if (fuse_ln) v += to_f32(resid[(size_t)m * N + c]);
+        rows[(size_t)m * N + c] = v;
+      }
+    }
+  }
+  __syncthreads();  // makes the block's global writes visible to the block
+  ln_rows<T>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
+}
+
+// Grid (ceil(M / kLnRows)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gemm_bias_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                                 const float* __restrict__ bias, const T* __restrict__ resid,
+                                 const float* __restrict__ ln_scale,
+                                 const float* __restrict__ ln_bias, float* rows,
+                                 T* __restrict__ out, int M, int N, int K, float eps,
+                                 int fuse_ln) {
+  __shared__ float smem[TileGemm<kLnRows, kLnCols, T>::kSmemFloats];
+  residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln,
+                          blockIdx.x * kLnRows, smem);
 }
 
 template <typename T>

@@ -14,20 +14,34 @@ modules. ``module.training`` plays the part of JAX's ``deterministic=False``:
 dropout (hidden states, attention probabilities) is applied only in training
 mode, with masks drawn from the ``generator`` given to ``forward``.
 
-Three attention paths, resolved by ``attention_impl``:
+Attention paths, resolved by ``attention_impl`` (``resolve_attention_impl``):
 
 - ``"einsum"``: plain PyTorch, with exact-erf GELU;
 - ``"fused"`` (inference): per layer, the fused attention block and the
   fused MLP block (ops/cuda/), whose GELU is the tanh form, as on the TPU;
   in training mode it means ``"train_fused"``;
+- ``"stack"`` (inference): every layer in one launch of the whole-stack
+  kernel (ops/cuda/stack_block.py); no per-layer hidden states;
+- ``"pallas"``: the einsum path's projections around the attention kernel
+  over a projected (B, 3, nh, L, hd) qkv (ops/cuda/blhd_attention.py);
 - ``"train_fused"``: per layer, the training attention block (probability
   dropout inside the kernel) and the training MLP core
   (ops/cuda/train_blocks.py), each with a backward kernel; residual,
   LayerNorm and hidden-state dropout stay in PyTorch.
 
-``"auto"`` picks ``"train_fused"`` for CUDA inputs in training mode,
-``"fused"`` for CUDA inputs in eval mode without ``output_attentions``, and
-``"einsum"`` anywhere else.
+``"auto"`` picks, as the JAX encoder does on its accelerator:
+``"train_fused"`` for CUDA inputs in training mode; for CUDA inputs in eval
+mode without ``output_attentions``, ``"stack"`` for batches of 32 or fewer
+without ``output_hidden_states`` and ``"fused"`` otherwise; ``"einsum"``
+anywhere else.
+
+``quantize="w8a8"`` (inference only: training ignores it, as rounding has
+no gradient) runs the projections int8 x int8 -> int32 where JAX does: the
+W8A8 modes of the fused and stack kernels, and on the einsum path every
+projection through ``quant_dense`` (ops/cuda/int8_matmul.py) with the MLP's
+activation (the tanh GELU) in ``mlp_in``'s epilogue. The ``"pallas"`` path
+keeps its two attention projections unquantised and quantises the MLP, as
+JAX's layouts there do.
 
 Sliding-window models have the same three, with the Longformer kernels
 (ops/cuda/sliding_block.py, ops/cuda/train_sliding.py) in the attention half
@@ -54,8 +68,11 @@ from torch import nn
 
 from spokennlp_tpu_torch.configs import EncoderConfig
 from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+from spokennlp_tpu_torch.ops.cuda.blhd_attention import snld_self_attention
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import quant_dense
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
 from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
+from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
 from spokennlp_tpu_torch.ops.cuda.train_blocks import attention_block_train, mlp_block_train
 from spokennlp_tpu_torch.ops.cuda.train_sliding import sliding_attention_block_train
 from spokennlp_tpu_torch.ops.sliding_attention import (
@@ -197,7 +214,10 @@ class Embeddings(nn.Module):
 
 
 class FusedQKV(nn.Module):
-    """Fused QKV projection: ``kernel`` (H, 3, nh, hd), ``bias`` (3, nh, hd)."""
+    """Fused QKV projection: ``kernel`` (H, 3, nh, hd), ``bias`` (3, nh, hd).
+    ``layout`` "blsnd" gives (B, L, 3, nh, hd), "bsnld" (B, 3, nh, L, hd);
+    ``quantize`` runs the "blsnd" projection on the W8A8 path, as JAX's
+    ``FusedQKV`` does (and only that layout)."""
 
     def __init__(self, hidden: int, num_heads: int, head_dim: int, generator=None):
         super().__init__()
@@ -205,13 +225,26 @@ class FusedQKV(nn.Module):
         self.bias = nn.Parameter(torch.zeros(3, num_heads, head_dim))
         _lecun_normal_(self.kernel.data, hidden, generator)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:  # -> (B, L, 3, nh, hd)
+    def forward(self, hidden: torch.Tensor, quantize: bool = False,
+                layout: str = "blsnd") -> torch.Tensor:
         dt = hidden.dtype
-        return torch.einsum("blh,hsnd->blsnd", hidden, self.kernel.to(dt)) + self.bias.to(dt)
+        if quantize and layout == "blsnd":
+            B, L, H = hidden.shape
+            out = quant_dense(hidden.reshape(B * L, H), self.kernel.reshape(H, -1),
+                              self.bias.reshape(-1), out_dtype=dt)
+            return out.reshape(B, L, *self.kernel.shape[1:])
+        kernel, bias = self.kernel.to(dt), self.bias.to(dt)
+        if layout == "blsnd":
+            return torch.einsum("blh,hsnd->blsnd", hidden, kernel) + bias
+        if layout == "bsnld":
+            return torch.einsum("blh,hsnd->bsnld", hidden, kernel) + bias[None, :, :, None, :]
+        raise ValueError(layout)
 
 
 class AttnOutProj(nn.Module):
-    """Output projection: ``kernel`` (nh, hd, H), ``bias`` (H,)."""
+    """Output projection: ``kernel`` (nh, hd, H), ``bias`` (H,), from ctx in
+    layout "blnd" (B, L, nh, hd) or "bnld" (B, nh, L, hd); ``quantize`` runs
+    the "blnd" projection on the W8A8 path, as JAX's ``AttnOutProj`` does."""
 
     def __init__(self, num_heads: int, head_dim: int, features: int, generator=None):
         super().__init__()
@@ -219,9 +252,17 @@ class AttnOutProj(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         _lecun_normal_(self.kernel.data, num_heads * head_dim, generator)
 
-    def forward(self, ctx: torch.Tensor) -> torch.Tensor:  # (B, L, nh, hd) -> (B, L, H)
+    def forward(self, ctx: torch.Tensor, quantize: bool = False,
+                layout: str = "blnd") -> torch.Tensor:  # -> (B, L, H)
         dt = ctx.dtype
-        return torch.einsum("blnd,ndh->blh", ctx, self.kernel.to(dt)) + self.bias.to(dt)
+        if quantize and layout == "blnd":
+            B, L, nh, hd = ctx.shape
+            out = quant_dense(ctx.reshape(B * L, nh * hd), self.kernel.reshape(nh * hd, -1),
+                              self.bias, out_dtype=dt)
+            return out.reshape(B, L, -1)
+        if layout not in ("blnd", "bnld"):
+            raise ValueError(layout)
+        return torch.einsum(f"{layout},ndh->blh", ctx, self.kernel.to(dt)) + self.bias.to(dt)
 
 
 class SelfAttention(nn.Module):
@@ -241,11 +282,18 @@ class SelfAttention(nn.Module):
         self.out = AttnOutProj(cfg.num_heads, cfg.head_dim, cfg.hidden_size, generator)
 
     def forward(self, hidden, attention_bias, output_attentions=False, generator=None,
-                sliding: Optional[SlidingMasks] = None):
+                sliding: Optional[SlidingMasks] = None, quantized: bool = False,
+                segment_ids: Optional[torch.Tensor] = None):
+        """``segment_ids`` (B, L) selects the ``"pallas"`` path: the
+        attention kernel over a (B, 3, nh, L, hd) projection, whose two
+        projections stay unquantised."""
         cfg = self.cfg
         dt = hidden.dtype
-        q, k, v = self.qkv(hidden).unbind(2)  # (B, L, nh, hd)
         scale = 1.0 / math.sqrt(cfg.head_dim)
+        if segment_ids is not None:
+            ctx = snld_self_attention(self.qkv(hidden, layout="bsnld"), segment_ids, scale)
+            return self.out(ctx, layout="bnld"), None
+        q, k, v = self.qkv(hidden, quantize=quantized).unbind(2)  # (B, L, nh, hd)
         sm_dtype = dt if cfg.softmax_in_compute_dtype else torch.float32
         probs = None
         if sliding is not None and sliding.chunked:
@@ -262,7 +310,7 @@ class SelfAttention(nn.Module):
             ctx = torch.einsum("bhlm,bmhd->blhd", probs, v)
         if sliding is not None and sliding.global_mask is not None:
             ctx = self._global_pass(hidden, ctx, sliding, scale, generator)
-        return self.out(ctx), (probs if output_attentions else None)
+        return self.out(ctx, quantize=quantized), (probs if output_attentions else None)
 
     def _global_pass(self, hidden, ctx, sliding: SlidingMasks, scale, generator):
         """Longformer's global rows: their queries attend to every real key
@@ -301,13 +349,20 @@ class TransformerLayer(nn.Module):
         self.mlp_ln = LayerNorm(H, cfg.layer_norm_eps)
 
     def forward(self, hidden, attention_bias, output_attentions=False, generator=None,
-                sliding: Optional[SlidingMasks] = None):
+                sliding: Optional[SlidingMasks] = None, quantized: bool = False,
+                segment_ids: Optional[torch.Tensor] = None):
         rate = self.cfg.hidden_dropout
         attn_out, probs = self.attention(hidden, attention_bias, output_attentions, generator,
-                                         sliding)
+                                         sliding, quantized, segment_ids)
         attn_out = dropout(attn_out, rate, self.training, generator)
         hidden = self.attention_ln(hidden + attn_out)
-        mlp = self.mlp_out(ACT2FN[self.cfg.hidden_act](self.mlp_in(hidden)))
+        if quantized:  # the activation in mlp_in's epilogue, as JAX's QuantDense
+            dt = hidden.dtype
+            mlp = quant_dense(hidden, self.mlp_in.kernel, self.mlp_in.bias, out_dtype=dt,
+                              activation=self.cfg.hidden_act)
+            mlp = quant_dense(mlp, self.mlp_out.kernel, self.mlp_out.bias, out_dtype=dt)
+        else:
+            mlp = self.mlp_out(ACT2FN[self.cfg.hidden_act](self.mlp_in(hidden)))
         mlp = dropout(mlp, rate, self.training, generator)
         return self.mlp_ln(hidden + mlp), probs
 
@@ -316,10 +371,11 @@ class TransformerLayer(nn.Module):
         return (sliding.attention_mask, sliding.global_mask, attn.qkv.kernel, attn.qkv.bias,
                 attn.qkv_global.kernel, attn.qkv_global.bias, attn.out.kernel, attn.out.bias)
 
-    def forward_fused(self, hidden, segment_ids, sliding: Optional[SlidingMasks] = None):
+    def forward_fused(self, hidden, segment_ids, sliding: Optional[SlidingMasks] = None,
+                      quantized: bool = False):
         """h1 = LN(x + attn(x)) in the attention-block kernel (the dense one,
         or the Longformer one with ``sliding``), then h2 = LN(h1 + mlp(h1))
-        in the MLP-block kernel."""
+        in the MLP-block kernel; ``quantized``: their W8A8 modes (dense)."""
         cfg = self.cfg
         B, L, H = hidden.shape
         attn, ln1 = self.attention, self.attention_ln
@@ -327,7 +383,9 @@ class TransformerLayer(nn.Module):
                   eps=cfg.layer_norm_eps)
         if sliding is None:
             h1 = fused_attention_block(hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias,
-                                       attn.out.kernel, attn.out.bias, **ln)
+                                       attn.out.kernel, attn.out.bias, quantized=quantized, **ln)
+        elif quantized:
+            raise NotImplementedError(W8A8_SLIDING)
         else:
             h1 = fused_sliding_attention_block(
                 hidden, *self._sliding_args(sliding), window=cfg.attention_window,
@@ -336,9 +394,18 @@ class TransformerLayer(nn.Module):
         out = fused_mlp_block(
             h1.reshape(B * L, H), self.mlp_in.kernel, self.mlp_in.bias,
             self.mlp_out.kernel, self.mlp_out.bias, self.mlp_ln.scale, self.mlp_ln.bias,
-            activation=cfg.hidden_act, eps=cfg.layer_norm_eps, quantized=False,
+            activation=cfg.hidden_act, eps=cfg.layer_norm_eps, quantized=quantized,
         )
         return out.reshape(B, L, H)
+
+    def stack_params(self):
+        """This layer's raw parameters in the order of the stack kernel
+        (ops/cuda/stack_block.py PARAM_NAMES)."""
+        attn = self.attention
+        return (attn.qkv.kernel, attn.qkv.bias, attn.out.kernel, attn.out.bias,
+                self.attention_ln.scale, self.attention_ln.bias, self.mlp_in.kernel,
+                self.mlp_in.bias, self.mlp_out.kernel, self.mlp_out.bias, self.mlp_ln.scale,
+                self.mlp_ln.bias)
 
     def forward_train_fused(self, hidden, segment_ids, generator=None,
                             sliding: Optional[SlidingMasks] = None):
@@ -392,42 +459,61 @@ def sliding_contract_breach(cfg: EncoderConfig, seq_len: int, prefix_globals: Op
     return None
 
 
+W8A8_SLIDING = ("quantize='w8a8' on the fused Longformer path (the W8A8 mode of its kernel) is "
+                "not ported yet; ask for attention_impl='einsum'")
+
+
 def resolve_attention_impl(
     cfg: EncoderConfig, device: torch.device, output_attentions: bool, training: bool = False,
     seq_len: Optional[int] = None, prefix_globals: Optional[int] = None,
-    has_global_mask: bool = False,
+    has_global_mask: bool = False, batch_size: Optional[int] = None,
+    output_hidden_states: bool = False,
 ) -> str:
-    """The path the encoder will run: "einsum", "fused" or "train_fused", and
-    for sliding-window models the einsum path's "bias" or "chunked"; raises
-    for what the port does not have yet, and on CUDA for a sliding-window
-    call that breaks the kernels' contract. In training mode "fused" means
-    the training kernels: the inference kernels have no backward and skip
-    dropout."""
+    """The path the encoder will run: "einsum", "fused", "stack", "pallas" or
+    "train_fused", and for sliding-window models the einsum path's "bias" or
+    "chunked"; raises for what the port does not have yet, and on CUDA for a
+    sliding-window call that breaks the kernels' contract. In training mode
+    "fused" and "stack" mean the training kernels: the inference kernels
+    have no backward and skip dropout. "stack" keeps no per-layer hidden
+    states, so with ``output_hidden_states`` it is "fused", as in JAX."""
     if cfg.attention_type not in ("dense", "sliding_window"):
         raise NotImplementedError(f"attention_type={cfg.attention_type!r} is not ported yet")
-    if cfg.quantize == "w8a8":
-        raise NotImplementedError("quantize='w8a8' is not ported yet")
+    if cfg.quantize not in ("none", "w8a8"):
+        raise ValueError(f"quantize={cfg.quantize!r}")
+    quantized = cfg.quantize == "w8a8" and not training
     impl = cfg.attention_impl
     if impl == "auto":
         if device.type != "cuda":
             impl = "einsum"
+        elif training:
+            impl = "train_fused"
         else:
-            impl = "train_fused" if training else "fused"
-    if impl not in ("einsum", "fused", "train_fused"):
+            small = batch_size is not None and batch_size <= 32
+            impl = "stack" if small and not output_hidden_states else "fused"
+    if impl not in ("einsum", "fused", "train_fused", "stack", "pallas"):
         raise NotImplementedError(f"attention_impl={impl!r} is not ported yet")
-    if impl == "fused" and training:
+    if training and impl in ("fused", "stack"):
         impl = "train_fused"
-    # the fused kernels return no attention probabilities
+    if training and impl == "pallas" and device.type == "cuda":
+        raise NotImplementedError("attention_impl='pallas' has no backward kernel; train with "
+                                  "'fused' or 'einsum'")
+    if impl == "stack" and (output_hidden_states or cfg.attention_type != "dense"):
+        impl = "fused"
+    # the kernels return no attention probabilities
     if output_attentions:
         impl = "einsum"
     if cfg.attention_type == "dense":
         return impl
+    if impl == "pallas":
+        impl = "einsum"  # JAX's pallas path is dense only
     sw = cfg.sliding_window_impl
     if sw not in ("auto", "bias", "chunked", "fused"):
         raise ValueError(f"sliding_window_impl={sw!r}")
     if impl != "einsum" and sw in ("auto", "fused"):
         breach = sliding_contract_breach(cfg, seq_len, prefix_globals, has_global_mask)
         if breach is None:
+            if impl == "fused" and quantized:
+                raise NotImplementedError(W8A8_SLIDING)
             return impl
         if device.type == "cuda":
             raise ValueError(f"the Longformer kernels' contract is broken: {breach}; ask for "
@@ -488,9 +574,24 @@ class Encoder(nn.Module):
         if sliding and pack_segment_ids is not None:
             raise NotImplementedError("pack_segment_ids with sliding-window attention")
         impl = resolve_attention_impl(cfg, input_ids.device, output_attentions, self.training,
-                                      L, prefix_globals, global_attention_mask is not None)
+                                      L, prefix_globals, global_attention_mask is not None,
+                                      batch_size=B, output_hidden_states=output_hidden_states)
+        quantized = cfg.quantize == "w8a8" and not self.training
+        seg = None
+        if impl in ("fused", "train_fused", "stack", "pallas"):
+            seg = pack_segment_ids if pack_segment_ids is not None else attention_mask
+            seg = seg.to(torch.int32)
 
         hidden = self.embeddings(input_ids, token_type_ids, position_ids, generator)
+        if impl == "stack":
+            stacked = [torch.stack(ps) for ps in zip(*(l.stack_params() for l in self.layers()))]
+            hidden = fused_encoder_stack(
+                hidden, seg, *stacked, sm_scale=1.0 / math.sqrt(cfg.head_dim),
+                quantized=cfg.quantize == "w8a8", activation=cfg.hidden_act,
+                eps=cfg.layer_norm_eps,
+            )
+            pooled = torch.tanh(self.pooler(hidden[:, 0])) if self.pooler is not None else None
+            return EncoderOutput(last_hidden_state=hidden, pooled_output=pooled)
         all_hidden = (hidden,) if output_hidden_states else None
         all_attn = () if output_attentions else None
         masks = None
@@ -501,11 +602,9 @@ class Encoder(nn.Module):
                 chunked=impl == "chunked", global_rows=(prefix_globals or 0) > 0,
             )
         if impl in ("fused", "train_fused"):
-            seg = pack_segment_ids if pack_segment_ids is not None else attention_mask
-            seg = seg.to(torch.int32)
             for layer in self.layers():
                 if impl == "fused":
-                    hidden = layer.forward_fused(hidden, seg, masks)
+                    hidden = layer.forward_fused(hidden, seg, masks, quantized)
                 else:
                     hidden = layer.forward_train_fused(hidden, seg, generator, masks)
                 if output_hidden_states:
@@ -515,7 +614,7 @@ class Encoder(nn.Module):
                 bias = sliding_window_attention_mask_bias(
                     attention_mask, cfg.attention_window, global_attention_mask, NEG_INF,
                 )[:, None]
-            elif impl == "chunked":
+            elif impl in ("chunked", "pallas"):
                 bias = None
             else:
                 bias = (1.0 - attention_mask[:, None, None, :].float()) * NEG_INF
@@ -523,7 +622,8 @@ class Encoder(nn.Module):
                     same = pack_segment_ids[:, :, None] == pack_segment_ids[:, None, :]
                     bias = bias + torch.where(same, 0.0, NEG_INF)[:, None, :, :]
             for layer in self.layers():
-                hidden, probs = layer(hidden, bias, output_attentions, generator, masks)
+                hidden, probs = layer(hidden, bias, output_attentions, generator, masks, quantized,
+                                      seg if impl == "pallas" else None)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
                 if output_attentions:

@@ -9,6 +9,14 @@ tests hold against the JAX kernel and the kernel is held against on the card.
 
 Masking is by segment id: 0 marks padding, positions with equal ids > 0
 attend to each other, which covers padding and window packing alike.
+
+``quantized=True`` is the TPU kernel's W8A8 mode: the QKV and output
+projections run int8 x int8 -> int32 with weights quantised per output
+column (once a call, in the wrapper) and x and ctx quantised per row inside
+the kernel; ctx is quantised over each head group's ``heads_per_block * hd``
+columns, as the TPU kernel, whose grid step owned one head group, did. Its
+plain version follows the TPU kernel's arithmetic: q, k, v and ctx rounded
+to the element type, the exponent taken in it.
 """
 
 from __future__ import annotations
@@ -18,9 +26,14 @@ from typing import Optional
 import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    DTYPE_CODES as _DTYPES,
+    int8_product,
+    quantize_colwise,
+    rowquant_plain,
+)
 
 NEG_INF = -1e9
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _layer_norm(r, scale, bias, eps):
@@ -28,6 +41,67 @@ def _layer_norm(r, scale, bias, eps):
     c = r - mean
     var = (c * c).mean(dim=-1, keepdim=True)
     return c * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def head_groups(num_heads: int, heads_per_block: int) -> int:
+    """The number of head groups G of the TPU kernel: heads_per_block heads
+    a group, or one head a group when it does not divide num_heads."""
+    hb = heads_per_block if heads_per_block > 0 and num_heads % heads_per_block == 0 else 1
+    return num_heads // hb
+
+
+def quantize_attention_weights(qkv_kernel, out_kernel, groups: int):
+    """int8 weights with per-column scales, as the TPU kernel prepares them:
+    wqkv (H, 3 nh hd) and its scales (3 nh hd,); wo (nh hd, H) quantised per
+    head group and its scales (groups, H). Works on stacks of layers too
+    (leading axes carried through)."""
+    *lead, H, _, nh, hd = qkv_kernel.shape
+    wqkv8, swqkv = quantize_colwise(qkv_kernel.reshape(*lead, H, 3 * nh * hd))
+    wo8, swo = quantize_colwise(out_kernel.reshape(*lead, groups, nh * hd // groups, H))
+    return (wqkv8, swqkv.reshape(*lead, 3 * nh * hd), wo8.reshape(*lead, nh * hd, H),
+            swo.reshape(*lead, groups, H))
+
+
+def attention_core_plain(q, k, v, segment_ids, exp_dtype):
+    """Masked softmax attention of (B, L, nh, hd) q (already scaled), k, v
+    as the TPU kernels compute it: float32 scores plus the additive -1e9
+    mask, e = exp(s - max) taken in ``exp_dtype`` and rounded to v's type,
+    the float32 sum of e, and the context divided by it after P.V. Returns
+    the float32 context (B, L, nh, hd)."""
+    scores = torch.einsum("blnd,bmnd->bnlm", q.float(), k.float())
+    seg = segment_ids
+    allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
+    scores = scores + torch.where(allowed, 0.0, NEG_INF)[:, None]
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp((scores - m).to(exp_dtype)).to(v.dtype).float()
+    denom = p.sum(dim=-1, keepdim=True)  # (B, nh, L, 1)
+    ctx = torch.einsum("bnlm,bmnd->blnd", p, v.float())
+    return ctx / denom.permute(0, 2, 1, 3)
+
+
+def _attention_w8a8_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel, out_bias,
+                          sm_scale, ln_scale, ln_bias, eps, groups):
+    dt = hidden.dtype
+    B, L, H = hidden.shape
+    _, _, nh, hd = qkv_kernel.shape
+    HN, G = nh * hd, groups
+    wqkv8, swqkv, wo8, swo = quantize_attention_weights(qkv_kernel, out_kernel, G)
+    x = hidden.reshape(B * L, H)
+    x8, sx = rowquant_plain(x)
+    qkv = int8_product(x8, wqkv8) * sx * swqkv + qkv_bias.reshape(-1).float()
+    q, k, v = qkv.reshape(B, L, 3, nh, hd).unbind(2)
+    q, k, v = (q * sm_scale).to(dt), k.to(dt), v.to(dt)
+    ctx = attention_core_plain(q, k, v, segment_ids, dt).to(dt).reshape(B * L, HN)
+    c8, sc = rowquant_plain(ctx, G)
+    W = HN // G
+    out = None
+    for g in range(G):  # each head group its own int32 product, in the TPU kernel's order
+        part = int8_product(c8[:, g * W:(g + 1) * W], wo8[g * W:(g + 1) * W])
+        part = part * sc[:, g:g + 1] * swo[g]
+        out = part + out_bias.float() if out is None else out + part
+    if ln_scale is not None:
+        out = _layer_norm(out + x.float(), ln_scale, ln_bias, eps)
+    return out.reshape(B, L, H).to(dt)
 
 
 def attention_block_plain(
@@ -42,12 +116,20 @@ def attention_block_plain(
     ln_scale: Optional[torch.Tensor] = None,
     ln_bias: Optional[torch.Tensor] = None,
     eps: float = 1e-12,
+    quantized: bool = False,
+    heads_per_block: int = 12,
 ) -> torch.Tensor:
-    """The fused block in plain float32 PyTorch; returns hidden's dtype.
+    """The fused block in plain PyTorch; returns hidden's dtype.
 
+    Float modes: everything in float32. W8A8: the TPU kernel's integer
+    arithmetic and roundings (``heads_per_block`` sets the ctx groups).
     Masked keys get an additive -1e9, as in the TPU kernel, so a fully padded
     query row becomes a uniform average of v: compare only rows with seg > 0.
     """
+    if quantized:
+        groups = head_groups(qkv_kernel.shape[2], heads_per_block)
+        return _attention_w8a8_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel,
+                                     out_bias, sm_scale, ln_scale, ln_bias, eps, groups)
     x = hidden.float()
     qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
     q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
@@ -76,19 +158,32 @@ def fused_attention_block(
     ln_bias: Optional[torch.Tensor] = None,
     eps: float = 1e-12,
     quantized: bool = False,
+    heads_per_block: int = 12,
+    seqs_per_block: int = 1,
+    core_int8=False,
 ) -> torch.Tensor:
     """Full attention block; returns (B, L, H) in hidden's dtype.
 
-    Weights are rounded to hidden's dtype and biases and LayerNorm parameters
-    kept in float32, as the TPU kernel does. ``fused_attention_block.launches``
-    counts the calls that ran the kernels on the card.
+    Float modes: weights rounded to hidden's dtype, biases and LayerNorm
+    parameters kept in float32, as the TPU kernel does. ``quantized``: the
+    W8A8 mode, the weights quantised from their float32 values.
+    ``heads_per_block`` groups the heads as the TPU kernel's grid did, which
+    changes the W8A8 result only. ``seqs_per_block`` > 1 is the TPU's tiling
+    of the same function over several sequences a grid step
+    (``_attn_block_kernel_multi``); it computes what one sequence a step
+    computes and runs the same kernel here. ``core_int8`` (the int8 attention
+    core) is not ported. ``fused_attention_block.launches`` counts the calls
+    that ran the kernels on the card.
     """
-    if quantized:
-        raise NotImplementedError("W8A8 attention block is not ported yet")
+    if core_int8:
+        raise NotImplementedError("fused_attention_block: core_int8 is not ported yet")
+    if int(seqs_per_block) < 1:
+        raise ValueError(f"fused_attention_block: seqs_per_block {seqs_per_block} < 1")
     if hidden.device.type == "cpu":
         return attention_block_plain(
             hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel, out_bias,
             sm_scale=sm_scale, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
+            quantized=quantized, heads_per_block=heads_per_block,
         )
     if hidden.device.type != "cuda":
         raise ValueError(f"fused_attention_block: unsupported device {hidden.device}")
@@ -118,28 +213,44 @@ def fused_attention_block(
             raise ValueError(f"fused_attention_block: {name} is on {t.device}, hidden on {hidden.device}")
     if segment_ids.dtype.is_floating_point:
         raise TypeError("fused_attention_block: segment_ids must be integers")
+    if quantized and H % 4:
+        raise ValueError(f"fused_attention_block: W8A8 needs H % 4 == 0, got H = {H}")
 
     dt = hidden.dtype
     seg = segment_ids.to(torch.int32).contiguous()
-    wqkv = qkv_kernel.to(dt).contiguous()
-    wo = out_kernel.to(dt).contiguous()
     f32 = lambda t: t.to(torch.float32).contiguous()
     bqkv, bo = f32(qkv_bias), f32(out_bias)
     fuse_ln = ln_scale is not None
     lns = f32(ln_scale) if fuse_ln else None
     lnb = f32(ln_bias) if fuse_ln else None
+    M, HN = B * L, nh * hd
     qkv_buf = torch.empty((3, B, nh, L, hd), dtype=dt, device=hidden.device)
-    ctx_buf = torch.empty((B, L, nh * hd), dtype=dt, device=hidden.device)
-    ln_buf = torch.empty((B * L, H), dtype=torch.float32, device=hidden.device)
+    ctx_buf = torch.empty((M, HN), dtype=dt, device=hidden.device)
+    ln_buf = torch.empty((M, H), dtype=torch.float32, device=hidden.device)
     out = torch.empty_like(hidden)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(hidden.device):
-        code = build.library().spk_attention_block(
-            _DTYPES[dt], ptr(hidden), ptr(seg), ptr(wqkv), ptr(bqkv), ptr(wo), ptr(bo),
-            ptr(lns), ptr(lnb), ptr(qkv_buf), ptr(ctx_buf), ptr(ln_buf), ptr(out),
-            B, L, H, nh, hd, float(sm_scale), float(eps), int(fuse_ln),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if quantized:
+            G = head_groups(nh, heads_per_block)
+            wqkv8, swqkv, wo8, swo = (t.contiguous() for t in quantize_attention_weights(
+                qkv_kernel, out_kernel, G))
+            x8 = torch.empty((M * max(H, HN),), dtype=torch.int8, device=hidden.device)
+            scales = torch.empty((M * G,), dtype=torch.float32, device=hidden.device)
+            code = build.library().spk_attention_block_w8a8(
+                _DTYPES[dt], ptr(hidden), ptr(seg), ptr(x8), ptr(scales), ptr(wqkv8),
+                ptr(swqkv), ptr(bqkv), ptr(wo8), ptr(swo), ptr(bo), ptr(lns), ptr(lnb),
+                ptr(qkv_buf), ptr(ctx_buf), ptr(ln_buf), ptr(out), B, L, H, nh, hd, G,
+                float(sm_scale), float(eps), int(fuse_ln), stream,
+            )
+        else:
+            wqkv = qkv_kernel.to(dt).contiguous()
+            wo = out_kernel.to(dt).contiguous()
+            code = build.library().spk_attention_block(
+                _DTYPES[dt], ptr(hidden), ptr(seg), ptr(wqkv), ptr(bqkv), ptr(wo), ptr(bo),
+                ptr(lns), ptr(lnb), ptr(qkv_buf), ptr(ctx_buf), ptr(ln_buf), ptr(out),
+                B, L, H, nh, hd, float(sm_scale), float(eps), int(fuse_ln), stream,
+            )
     build.check(code, "fused_attention_block")
     fused_attention_block.launches += 1
     return out

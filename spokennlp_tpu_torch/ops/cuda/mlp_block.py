@@ -4,6 +4,12 @@ Counterpart of ``spokennlp_tpu/ops/pallas/mlp_block.py``. On a CUDA tensor
 ``fused_mlp_block`` runs the hand-written kernels of ``csrc/mlp_block.cu``;
 on a CPU tensor it runs ``mlp_block_plain``, the same function in float32
 PyTorch. "gelu" is the tanh form here, as in the TPU kernel.
+
+``quantized=True`` is the TPU kernel's W8A8 mode: both products int8 x int8
+-> int32, the weights quantised per output column (once a call, in the
+wrapper), x quantised per row, and the intermediate act(x W1 + b1)
+quantised per row in float32, before any rounding to the element type.
+``static_h_scale`` (a per-tensor intermediate scale) is not ported.
 """
 
 from __future__ import annotations
@@ -12,14 +18,29 @@ import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, _layer_norm
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import ACTIVATION_CODES, ACTIVATIONS
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    ACTIVATION_CODES,
+    ACTIVATIONS,
+    int8_product,
+    quantize_colwise,
+    rowquant_plain,
+)
 
 
-def mlp_block_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, *, activation, eps):
-    """The fused block in plain float32 PyTorch; returns x's dtype."""
+def mlp_block_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, *, activation, eps, quantized=False):
+    """The fused block in plain PyTorch; returns x's dtype. Float modes in
+    float32; W8A8 with the TPU kernel's integer arithmetic."""
     xf = x.float()
-    h = ACTIVATIONS[activation](xf @ w1.float() + b1.float())
-    y = h @ w2.float() + b2.float()
+    if quantized:
+        w1q, sw1 = quantize_colwise(w1)
+        w2q, sw2 = quantize_colwise(w2)
+        x8, sx = rowquant_plain(xf)
+        h = ACTIVATIONS[activation](int8_product(x8, w1q) * sx * sw1 + b1.float())
+        h8, sh = rowquant_plain(h)
+        y = int8_product(h8, w2q) * sh * sw2 + b2.float()
+    else:
+        h = ACTIVATIONS[activation](xf @ w1.float() + b1.float())
+        y = h @ w2.float() + b2.float()
     return _layer_norm(y + xf, ln_scale, ln_bias, eps).to(x.dtype)
 
 
@@ -35,22 +56,23 @@ def fused_mlp_block(
     activation: str,
     eps: float,
     quantized: bool,
+    static_h_scale: bool = False,
 ) -> torch.Tensor:
     """h2 = LN(x + W2 . act(W1 . x + b1) + b2); returns (M, H) in x's dtype.
 
-    Weights are rounded to x's dtype, and the (M, I) intermediate is rounded
-    to it before the second product, as in the TPU kernel.
+    Float modes: weights rounded to x's dtype, and the (M, I) intermediate
+    rounded to it before the second product, as in the TPU kernel. W8A8
+    (``quantized``): weights quantised from their float32 values.
     ``fused_mlp_block.launches`` counts the calls that ran the kernels on the
     card.
     """
-    if quantized:
-        raise NotImplementedError("W8A8 MLP block is not ported yet")
+    if static_h_scale:
+        raise NotImplementedError("fused_mlp_block: static_h_scale is not ported yet")
     if activation not in ACTIVATIONS:
         raise ValueError(f"fused_mlp_block: unknown activation {activation!r}")
     if x.device.type == "cpu":
-        return mlp_block_plain(
-            x, w1, b1, w2, b2, ln_scale, ln_bias, activation=activation, eps=eps
-        )
+        return mlp_block_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, activation=activation,
+                               eps=eps, quantized=quantized)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_block: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
@@ -70,23 +92,37 @@ def fused_mlp_block(
             raise ValueError(f"fused_mlp_block: {name} must be {shape}, got {tuple(t.shape)}")
         if t.device != x.device:
             raise ValueError(f"fused_mlp_block: {name} is on {t.device}, x on {x.device}")
+    if quantized and (H % 4 or I % 4):
+        raise ValueError(f"fused_mlp_block: W8A8 needs H and I multiples of 4, got {H}, {I}")
 
     dt = x.dtype
-    w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     b1c, b2c, lns, lnb = (
         t.to(torch.float32).contiguous() for t in (b1, b2, ln_scale, ln_bias)
     )
-    h_buf = torch.empty((M, I), dtype=dt, device=x.device)
     ln_buf = torch.empty((M, H), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
+    act = ACTIVATION_CODES[activation]
     with torch.cuda.device(x.device):
-        code = build.library().spk_mlp_block(
-            _DTYPES[dt], x.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
-            b2c.data_ptr(), lns.data_ptr(), lnb.data_ptr(), h_buf.data_ptr(), ln_buf.data_ptr(),
-            out.data_ptr(),
-            M, H, I, ACTIVATION_CODES[activation], float(eps),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if quantized:
+            (w1q, sw1), (w2q, sw2) = quantize_colwise(w1), quantize_colwise(w2)
+            x8 = torch.empty((M * max(H, I),), dtype=torch.int8, device=x.device)
+            scales = torch.empty((M,), dtype=torch.float32, device=x.device)
+            h_buf = torch.empty((M, I), dtype=torch.float32, device=x.device)
+            code = build.library().spk_mlp_block_w8a8(
+                _DTYPES[dt], x.data_ptr(), x8.data_ptr(), scales.data_ptr(), w1q.data_ptr(),
+                sw1.data_ptr(), b1c.data_ptr(), w2q.data_ptr(), sw2.data_ptr(), b2c.data_ptr(),
+                lns.data_ptr(), lnb.data_ptr(), h_buf.data_ptr(), ln_buf.data_ptr(),
+                out.data_ptr(), M, H, I, act, float(eps), stream,
+            )
+        else:
+            w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+            h_buf = torch.empty((M, I), dtype=dt, device=x.device)
+            code = build.library().spk_mlp_block(
+                _DTYPES[dt], x.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
+                b2c.data_ptr(), lns.data_ptr(), lnb.data_ptr(), h_buf.data_ptr(),
+                ln_buf.data_ptr(), out.data_ptr(), M, H, I, act, float(eps), stream,
+            )
     build.check(code, "fused_mlp_block")
     fused_mlp_block.launches += 1
     return out

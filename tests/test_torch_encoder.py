@@ -185,14 +185,117 @@ def test_attention_impl_resolution():
         assert resolve_attention_impl(fused, dev, False, training=True) == "train_fused"
     assert resolve_attention_impl(auto, cuda, False, training=True) == "train_fused"
     assert resolve_attention_impl(auto, cpu, False, training=True) == "einsum"
+    # auto on the card, as JAX resolves it on its accelerator, W8A8 or not
+    for cfg in (auto, dataclasses.replace(auto, quantize="w8a8")):
+        at = lambda **kw: resolve_attention_impl(cfg, cuda, **{"output_attentions": False, **kw})
+        assert at(batch_size=32) == "stack"
+        assert at(batch_size=33) == "fused"
+        assert at(batch_size=8, output_hidden_states=True) == "fused"
+        assert at(batch_size=8, output_attentions=True) == "einsum"
+        assert at(batch_size=8, training=True) == "train_fused"
+        assert resolve_attention_impl(cfg, cpu, False, batch_size=8) == "einsum"
+    stack = dataclasses.replace(TINY, attention_impl="stack", quantize="w8a8")
+    assert resolve_attention_impl(stack, cpu, False, batch_size=64) == "stack"
+    assert resolve_attention_impl(stack, cuda, False, output_hidden_states=True) == "fused"
+    assert resolve_attention_impl(stack, cuda, False, training=True) == "train_fused"
+    pallas = dataclasses.replace(TINY, attention_impl="pallas", quantize="w8a8")
+    assert resolve_attention_impl(pallas, cuda, False, batch_size=8) == "pallas"
+    assert resolve_attention_impl(pallas, cuda, True, batch_size=8) == "einsum"
+    with pytest.raises(NotImplementedError):
+        resolve_attention_impl(pallas, cuda, False, training=True)
+    # W8A8 on the fused Longformer path is not ported: it raises, never runs bf16
+    lf = dataclasses.replace(TINY, attention_type="sliding_window", attention_window=16,
+                             quantize="w8a8", attention_impl="auto")
+    kw = dict(seq_len=64, prefix_globals=1, has_global_mask=True, batch_size=8)
+    with pytest.raises(NotImplementedError, match="einsum"):
+        resolve_attention_impl(lf, cuda, False, **kw)
+    assert resolve_attention_impl(lf, cuda, False, training=True, **kw) == "train_fused"
+    lf_einsum = dataclasses.replace(lf, attention_impl="einsum", sliding_window_impl="chunked")
+    assert resolve_attention_impl(lf_einsum, cuda, False, **kw) == "chunked"
     for bad in (
-        dataclasses.replace(TINY, attention_impl="stack"),
         dataclasses.replace(TINY, attention_impl="flash"),
         dataclasses.replace(TINY, attention_type="bigbird"),
-        dataclasses.replace(TINY, quantize="w8a8"),
     ):
         with pytest.raises(NotImplementedError):
             resolve_attention_impl(bad, cuda, output_attentions=False)
+
+
+W8A8_IMPLS = ["einsum", "fused", "stack", "pallas"]
+
+
+def _jax_topic_seg(cfg, x, pos, **kw):
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.models.topic_seg import TopicSegModel as JaxTopicSegModel
+
+    jm = JaxTopicSegModel(cfg, TopicSegConfig())
+    args = dict(attention_mask=jnp.asarray(x["mask"]), sent_positions=jnp.asarray(pos))
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x["ids"]), **args)["params"]
+    return jax.tree.map(np.asarray, params), jm.apply({"params": params}, jnp.asarray(x["ids"]),
+                                                      **args, **kw)
+
+
+def _port_topic_seg(cfg, params, x, pos):
+    port = TopicSegModel(cfg, TopicSegConfig()).eval()
+    port.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    with torch.inference_mode():
+        return port(torch.from_numpy(x["ids"]), attention_mask=torch.from_numpy(x["mask"]),
+                    sent_positions=torch.from_numpy(pos))
+
+
+POS = np.array([[1, 7, 20], [2, 9, 24], [1, 5, 30]], np.int32)
+
+
+@pytest.mark.parametrize("impl", W8A8_IMPLS)
+def test_topic_seg_model_w8a8_matches_jax(impl):
+    """One JAX state_dict drives every W8A8 path of the port. JAX runs its
+    Pallas kernels in interpret mode on the CPU, the port the plain
+    versions: the same integer arithmetic, so the logits agree to float32
+    rounding but where a sum order moves an int8 step: one step moves a
+    row's projection by up to 1/127 of its absmax, and attention spreads that
+    over the row's sequence in the next layer, where it moves more steps (one
+    flip in layer 0 of seed 8's stack path leaves 0.046 in its sequence's
+    hidden states after layer 1). So the bound is on the largest logit error
+    (5e-2), its mean (5e-3) and the argmax, not on a share of elements; the
+    kernel tests hold each block tightly. The pallas path differs in its
+    attention core besides: JAX's kernel takes the exponent in bfloat16, the
+    port's CPU path JAX's float32 reference (tests/test_torch_kernels.py);
+    test_pallas_w8a8_projections_stay_unquantised holds that path tightly."""
+    cfg = dataclasses.replace(TINY, attention_impl=impl, quantize="w8a8")
+    x = _inputs(8)
+    params, want = _jax_topic_seg(cfg, x, POS)
+    got = _port_topic_seg(cfg, params, x, POS)
+    valid = x["mask"] > 0
+    g, w = got["token_logits"].numpy()[valid], np.asarray(want["token_logits"])[valid]
+    err = np.abs(g - w)
+    # pallas: the exponent differs in every row, so flips are many (mean 1e-2)
+    mean_tol = 1e-2 if impl == "pallas" else 5e-3
+    assert err.max() <= 5e-2 and err.mean() <= mean_tol, (err.max(), err.mean())
+    assert (g.argmax(-1) == w.argmax(-1)).mean() >= 0.99
+
+
+def test_pallas_w8a8_projections_stay_unquantised(monkeypatch):
+    """Under W8A8 JAX's pallas path quantises the MLP but not the attention
+    projections (its bsnld / bnld layouts). With JAX's float32 reference in
+    place of its kernel on both sides the two paths are the same arithmetic:
+    a quantised projection on either side would show as an error far above
+    1e-4."""
+    from spokennlp_tpu.ops.pallas import blhd_attention
+
+    monkeypatch.setattr(
+        blhd_attention, "snld_self_attention",
+        lambda qkv, seg, sm_scale, **_: blhd_attention.reference_snld_attention(qkv, seg,
+                                                                                sm_scale))
+    cfg = dataclasses.replace(TINY, attention_impl="pallas", quantize="w8a8")
+    x = _inputs(9)
+    params, want = _jax_topic_seg(cfg, x, POS)
+    got = _port_topic_seg(cfg, params, x, POS)
+    valid = x["mask"] > 0
+    err = np.abs(got["token_logits"].numpy()[valid] - np.asarray(want["token_logits"])[valid])
+    assert err.max() <= 2e-2 and err.mean() <= 2e-3, (err.max(), err.mean())
+    quantised = _port_topic_seg(dataclasses.replace(cfg, attention_impl="einsum"), params, x, POS)
+    assert not torch.allclose(quantised["token_logits"], got["token_logits"], atol=1e-3)
 
 
 @pytest.mark.gpu

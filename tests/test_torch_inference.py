@@ -70,6 +70,41 @@ def test_run_topic_seg_inference_matches_jax():
         assert got["metrics"][key] == pytest.approx(value), key
 
 
+def test_run_topic_seg_inference_w8a8_matches_jax():
+    """The serving configuration (W8A8, bf16 softmax) on the stack path, JAX
+    in interpret mode and the port's plain versions: the same integer
+    arithmetic up to the rare int8 step a sum order moves (see
+    tests/test_torch_encoder.py), well inside the bf16 fetch's tolerance
+    here; the predictions and Pk/WD/F1 agree."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.eval.inference import run_topic_seg_inference as jax_run
+    from spokennlp_tpu.models.topic_seg import TopicSegModel as JaxTopicSegModel
+
+    enc = dataclasses.replace(ENC, quantize="w8a8", attention_impl="stack",
+                              softmax_in_compute_dtype=True)
+    jm = JaxTopicSegModel(enc, TASK)
+    L = WCFG.max_seq_length
+    params = jm.init(jax.random.PRNGKey(3), jnp.ones((2, L), jnp.int32),
+                     attention_mask=jnp.ones((2, L), jnp.int32),
+                     sent_positions=jnp.zeros((2, 3), jnp.int32))["params"]
+    port = TopicSegModel(enc, TASK).eval()
+    port.load_state_dict(jax_params_to_state_dict(jax.tree.map(np.asarray, params)), strict=True)
+    docs = _docs(2, sizes=(25, 18))
+    want = jax_run(jm, params, docs, WCFG, batch_size=4, threshold=0.5)
+    got = run_topic_seg_inference(port, docs, WCFG, batch_size=4, threshold=0.5)
+    for g, w in zip(got["per_doc"], want["per_doc"]):
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_allclose(g["scores"], w["scores"], atol=2e-2, rtol=2e-2)
+        np.testing.assert_array_equal(np.argmax(g["scores"], -1), np.argmax(w["scores"], -1))
+    assert any(k.endswith("_pk") for k in got["metrics"])
+    for key, value in want["metrics"].items():
+        assert got["metrics"][key] == pytest.approx(value), key
+
+
 def test_predict_windows_pads_the_tail_batch():
     port = TopicSegModel(ENC, TASK, generator=torch.Generator().manual_seed(0)).eval()
     from spokennlp_tpu.data.windowing_fast import window_documents_stacked

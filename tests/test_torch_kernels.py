@@ -15,7 +15,16 @@ from spokennlp_tpu_torch.ops.cuda.attention_block import (
     attention_block_plain,
     fused_attention_block,
 )
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import ACTIVATIONS
+from spokennlp_tpu_torch.ops.cuda.blhd_attention import (
+    reference_snld_attention,
+    snld_self_attention,
+)
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    ACTIVATIONS,
+    int8_product,
+    quantize_colwise,
+    rowquant_plain,
+)
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
 
 # Tolerances. CPU: the plain float32 versions against the JAX kernels in
@@ -27,6 +36,20 @@ from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_pl
 # of unit scale.
 CPU_TOL = dict(atol=5e-3, rtol=1e-2)
 CARD_TOL = {torch.float32: dict(atol=1e-3, rtol=1e-3), torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
+# W8A8 modes, plain version against the JAX kernel in interpret mode in
+# float32: the same integer products and float32 epilogues, so 1e-5, except
+# where a float32 sum of another order moves a value across an int8 rounding
+# boundary: one int8 step of a row (1/127 of its absmax) then moves a few
+# outputs by up to about 1e-2. At most W8A8_FLIPS of the outputs may do so.
+# On the card in bfloat16 both sides round the output to bf16 (2^-7 |ref|),
+# and the kernel's online softmax rounds the probabilities to bf16 against a
+# running max, the plain version against the row's: ctx then rounds
+# otherwise now and then, and each ctx value that takes another int8 step
+# moves its row's outputs by about 1e-3. So bf16 outputs agree within
+# BF16_W8A8_TOL + 2^-7 |ref| but for at most BF16_W8A8_FLIPS of them.
+# chip_smoke.py holds the blocks at the main path's shapes the same way.
+W8A8_TOL, W8A8_STEP_TOL, W8A8_FLIPS = 1e-5, 2e-2, 0.01
+BF16_W8A8_TOL, BF16_W8A8_FLIPS = 2e-3, 0.002
 
 
 def _segments(B, L, seed):
@@ -75,7 +98,7 @@ def jx():
     """The JAX kernels the port is held against."""
     import jax.numpy as jnp
 
-    from spokennlp_tpu.ops.pallas import attention_block, int8_matmul, mlp_block
+    from spokennlp_tpu.ops.pallas import attention_block, blhd_attention, int8_matmul, mlp_block
 
     return SimpleNamespace(
         jnp=jnp,
@@ -83,6 +106,8 @@ def jx():
         reference_attention_block=attention_block.reference_attention_block,
         fused_mlp_block=mlp_block.fused_mlp_block,
         activations=int8_matmul._ACTIVATIONS,
+        snld_self_attention=blhd_attention.snld_self_attention,
+        reference_snld_attention=blhd_attention.reference_snld_attention,
         arrays=lambda d: {k: jnp.asarray(v) for k, v in d.items()},
     )
 
@@ -154,15 +179,154 @@ def test_wrappers_on_cpu_run_plain_without_counting():
 
 
 def test_quantized_kernels_raise():
+    """The TPU kernels' opt-in int8 attention core and static intermediate
+    scale are not ported: the wrappers refuse them on every device."""
     att = _torch(_attention_inputs(1, 16, 32, 2, 16, seed=8))
     mlp = _torch(_mlp_inputs(M=8, H=32, I=64, seed=9))
+    for core in ("qk", "av", "both", True):
+        with pytest.raises(NotImplementedError):
+            fused_attention_block(
+                att["hidden"], att["segment_ids"], att["qkv_kernel"], att["qkv_bias"],
+                att["out_kernel"], att["out_bias"], sm_scale=0.25, quantized=True,
+                core_int8=core,
+            )
     with pytest.raises(NotImplementedError):
-        fused_attention_block(
-            att["hidden"], att["segment_ids"], att["qkv_kernel"], att["qkv_bias"],
-            att["out_kernel"], att["out_bias"], sm_scale=0.25, quantized=True,
+        fused_mlp_block(*mlp.values(), activation="gelu", eps=1e-12, quantized=True,
+                        static_h_scale=True)
+
+
+def assert_close_w8a8(got, want, bf16=False):
+    """Within W8A8_TOL (1 + |ref|), but for at most a W8A8_FLIPS share of
+    one-int8-step moves within W8A8_STEP_TOL; ``bf16``: outputs rounded to
+    bf16 on the card, within BF16_W8A8_TOL + 2^-7 |ref| but for at most a
+    BF16_W8A8_FLIPS share, each within W8A8_STEP_TOL beyond rounding."""
+    if isinstance(got, torch.Tensor):
+        got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    ref = np.abs(np.asarray(want, np.float64))
+    rounding = 2**-7 * ref if bf16 else W8A8_TOL * ref
+    assert (err - rounding).max() <= W8A8_STEP_TOL, err.max()
+    atol, flips = (BF16_W8A8_TOL, BF16_W8A8_FLIPS) if bf16 else (W8A8_TOL, W8A8_FLIPS)
+    share = (err > atol + rounding).mean()
+    assert share <= flips, share
+
+
+def _mlp_w8a8_bf16_intermediate(x, w1, b1, w2, b2, ln_scale, ln_bias):
+    """A planted fault: the W8A8 MLP block (GELU) with its float32
+    intermediate rounded to bf16 before its row quantisation."""
+    (w1q, sw1), (w2q, sw2) = quantize_colwise(w1), quantize_colwise(w2)
+    x8, sx = rowquant_plain(x.float())
+    h = ACTIVATIONS["gelu"](int8_product(x8, w1q) * sx * sw1 + b1)
+    h8, sh = rowquant_plain(h.to(torch.bfloat16).float())
+    y = int8_product(h8, w2q) * sh * sw2 + b2
+    return torch.nn.functional.layer_norm(y + x.float(), (x.shape[1],), ln_scale, ln_bias,
+                                          eps=1e-12).to(x.dtype)
+
+
+PLANTED = ["heads_per_block_ignored", "attention_unquantized", "mlp_bf16_intermediate",
+           "mlp_unquantized"]
+
+
+def _planted_fault(fault, att, mlp, hb):
+    """(what a block with ``fault`` returns, the plain W8A8 version) on the
+    given inputs; the attention block runs ``hb`` heads a group."""
+    if fault.startswith("mlp"):
+        want = mlp_block_plain(*mlp.values(), activation="gelu", eps=1e-12, quantized=True)
+        if fault == "mlp_unquantized":
+            return fused_mlp_block(*mlp.values(), activation="gelu", eps=1e-12,
+                                   quantized=False), want
+        return _mlp_w8a8_bf16_intermediate(*mlp.values()), want
+    nh = att["qkv_kernel"].shape[2]
+    want = attention_block_plain(**att, quantized=True, heads_per_block=hb)
+    if fault == "heads_per_block_ignored":
+        return fused_attention_block(**att, quantized=True, heads_per_block=nh), want
+    return fused_attention_block(**att, quantized=False, heads_per_block=hb), want
+
+
+@pytest.mark.parametrize("fault", PLANTED)
+def test_w8a8_check_rejects_planted_faults(fault):
+    """Each trap of the W8A8 blocks, planted once, fails assert_close_w8a8:
+    the check the kernels are held to on the card can tell them apart."""
+    att = _torch(_attention_inputs(2, 32, 64, 4, 16, seed=16))
+    seg = att["segment_ids"]
+    got, want = _planted_fault(fault, {**att, "sm_scale": 0.25},
+                               _torch(_mlp_inputs(M=40, H=32, I=64, seed=17)), hb=2)
+    valid = seg > 0 if fault in PLANTED[:2] else slice(None)
+    with pytest.raises(AssertionError):
+        assert_close_w8a8(got[valid], want[valid])
+
+
+@pytest.mark.parametrize("hb,seqs", [(4, 1), (2, 1), (4, 2), (3, 1)],
+                         ids=["hb=nh", "hb=nh/2", "seqs=2", "hb_not_dividing"])
+def test_attention_w8a8_plain_matches_jax_kernel(jx, hb, seqs):
+    """heads_per_block groups ctx for its row quantisation (the result
+    changes with it); seqs_per_block=2 takes the JAX multi-sequence kernel;
+    a heads_per_block that does not divide nh means one head a group."""
+    B, L, H, nh, hd = 4, 48, 64, 4, 16
+    inp = _attention_inputs(B, L, H, nh, hd, seed=11)
+    j = jx.arrays(inp)
+    kw = dict(sm_scale=hd**-0.5, quantized=True, heads_per_block=hb, seqs_per_block=seqs)
+    want = np.asarray(
+        jx.fused_attention_block(
+            j.pop("hidden"), j.pop("segment_ids"), j.pop("qkv_kernel"), j.pop("qkv_bias"),
+            j.pop("out_kernel"), j.pop("out_bias"), interpret=True, **kw, **j,
         )
-    with pytest.raises(NotImplementedError):
-        fused_mlp_block(*mlp.values(), activation="gelu", eps=1e-12, quantized=True)
+    )
+    got = fused_attention_block(**_torch(inp), **kw).numpy()
+    valid = inp["segment_ids"] > 0
+    assert_close_w8a8(got[valid], want[valid])
+
+
+def test_attention_w8a8_head_groups_change_the_result():
+    """Every output moves, each by less than an int8 step: only a check of
+    the share of moved outputs tells the two apart."""
+    inp = _torch(_attention_inputs(2, 32, 64, 4, 16, seed=12))
+    one, two = (attention_block_plain(**inp, sm_scale=0.25, quantized=True, heads_per_block=hb)
+                for hb in (4, 2))
+    assert not torch.equal(one, two)
+    torch.testing.assert_close(one, two, atol=5e-2, rtol=0)
+    valid = inp["segment_ids"] > 0
+    with pytest.raises(AssertionError):
+        assert_close_w8a8(one[valid], two[valid])
+
+
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+def test_mlp_w8a8_plain_matches_jax_kernel(jx, activation):
+    inp = _mlp_inputs(M=40, H=32, I=64, seed=13)
+    want = np.asarray(
+        jx.fused_mlp_block(
+            *jx.arrays(inp).values(), activation=activation, eps=1e-12, quantized=True,
+            interpret=True,
+        )
+    )
+    got = fused_mlp_block(*_torch(inp).values(), activation=activation, eps=1e-12,
+                          quantized=True).numpy()
+    assert_close_w8a8(got, want)
+
+
+def _qkv_inputs(B, nh, L, hd, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, 3, nh, L, hd)).astype(np.float32), _segments(B, L, seed)
+
+
+def test_snld_reference_matches_jax_reference(jx):
+    qkv, seg = _qkv_inputs(2, 4, 48, 16, seed=14)
+    want = np.asarray(jx.reference_snld_attention(jx.jnp.asarray(qkv), jx.jnp.asarray(seg), 0.25))
+    got = reference_snld_attention(torch.from_numpy(qkv), torch.from_numpy(seg), 0.25).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_snld_wrapper_on_cpu_against_jax_kernel(jx):
+    """The CPU wrapper runs the float32-softmax reference; the JAX kernel
+    takes the exponent in bfloat16 (relative error 2^-9 per probability)."""
+    qkv, seg = _qkv_inputs(2, 4, 48, 16, seed=15)
+    want = np.asarray(jx.snld_self_attention(jx.jnp.asarray(qkv), jx.jnp.asarray(seg), 0.25,
+                                             heads_per_block=2, interpret=True))
+    n = snld_self_attention.launches
+    got = snld_self_attention(torch.from_numpy(qkv), torch.from_numpy(seg), 0.25).numpy()
+    assert snld_self_attention.launches == n
+    valid = np.broadcast_to(seg[:, None, :, None] > 0, got.shape)
+    np.testing.assert_allclose(got[valid], want[valid], atol=1e-2, rtol=1e-2)
 
 
 # ---------------------------------------------------------------- on the card
@@ -223,6 +387,73 @@ def test_mlp_kernel_matches_plain_on_card(cuda, dtype, M, H, I):
     assert fused_mlp_block.launches == n + 1
     want = mlp_block_plain(*t.values(), activation="gelu", eps=1e-12)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hb", [12, 6])
+def test_attention_w8a8_kernel_matches_plain_on_card(cuda, dtype, hb):
+    """Both sides quantise the float32 weights the same way and round q, k,
+    v, e and ctx where the TPU kernel does; the kernel's online softmax and
+    sum order move ctx by float32 rounding, which can move an int8 step."""
+    B, L, H, nh, hd = 8, 512, 768, 12, 64
+    inp = _attention_inputs(B, L, H, nh, hd, seed=21)
+    t = _on_card(inp, cuda, torch.float32, activations=set())
+    t["hidden"] = t["hidden"].to(dtype)
+    kw = dict(sm_scale=hd**-0.5, quantized=True, heads_per_block=hb)
+    n = fused_attention_block.launches
+    got = fused_attention_block(**t, **kw)
+    torch.cuda.synchronize()
+    assert fused_attention_block.launches == n + 1
+    want = attention_block_plain(**t, **kw)
+    valid = t["segment_ids"] > 0
+    assert_close_w8a8(got[valid], want[valid], bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mlp_w8a8_kernel_matches_plain_on_card(cuda, dtype):
+    t = _on_card(_mlp_inputs(4096, 768, 3072, seed=22), cuda, torch.float32, activations=set())
+    t["x"] = t["x"].to(dtype)
+    n = fused_mlp_block.launches
+    got = fused_mlp_block(*t.values(), activation="gelu", eps=1e-12, quantized=True)
+    torch.cuda.synchronize()
+    assert fused_mlp_block.launches == n + 1
+    want = mlp_block_plain(*t.values(), activation="gelu", eps=1e-12, quantized=True)
+    assert_close_w8a8(got, want, bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fault", PLANTED)
+def test_w8a8_check_rejects_planted_faults_on_card(cuda, dtype, fault):
+    """The check the W8A8 kernels pass above fails for each planted fault at
+    the same shapes (the faulty block's kernel where it has one)."""
+    att = _on_card(_attention_inputs(8, 512, 768, 12, 64, seed=21), cuda, torch.float32, set())
+    att["hidden"] = att["hidden"].to(dtype)
+    mlp = _on_card(_mlp_inputs(4096, 768, 3072, seed=22), cuda, torch.float32, activations=set())
+    mlp["x"] = mlp["x"].to(dtype)
+    got, want = _planted_fault(fault, {**att, "sm_scale": 0.125}, mlp, hb=6)
+    valid = att["segment_ids"] > 0 if fault in PLANTED[:2] else slice(None)
+    with pytest.raises(AssertionError):
+        assert_close_w8a8(got[valid], want[valid], bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nh,L,hd", [(8, 12, 512, 64), (2, 3, 200, 32), (2, 2, 130, 128)])
+def test_snld_kernel_matches_plain_on_card(cuda, dtype, B, nh, L, hd):
+    """The kernel takes the exponent in bfloat16, the plain reference in
+    float32: 2^-9 relative per probability."""
+    qkv, seg = _qkv_inputs(B, nh, L, hd, seed=B + L)
+    q, s = torch.from_numpy(qkv).to(cuda, dtype), torch.from_numpy(seg).to(cuda)
+    n = snld_self_attention.launches
+    got = snld_self_attention(q, s, hd**-0.5)
+    torch.cuda.synchronize()
+    assert snld_self_attention.launches == n + 1
+    want = reference_snld_attention(q, s, hd**-0.5)
+    valid = (s > 0)[:, None, :].expand(B, nh, L)
+    torch.testing.assert_close(got[valid].float(), want[valid].float(), atol=1e-2, rtol=2e-2)
 
 
 @pytest.mark.gpu

@@ -73,8 +73,30 @@
    optimizer steps; each training kernel ran layers x views x 8 micro-steps
    times; finite losses; then fused against chunked einsum gradients on one
    micro-batch of 2 (qkv_global included).
-11. Prints the serving runs and the kernels as JSON lines, the card's name
-   and power limit, and last {"ok": true, "device": {...}}.
+11. (In phase 3.) Kernels 4 and 5 also with float32 activations and output,
+   at the same four projections, held within float32 rounding.
+12. BigBird kernel phase: the inference block at the serving shape (B=4,
+   L=4096, blocks of 64, 2 global and 3 random blocks) and the training
+   block's forward and backward at B=8, L=2048, bfloat16 and float32, rows
+   full, suffix-padded and one with 100 real tokens (fewer than the global
+   blocks hold), plus a sequence of 4 blocks whose random entries fall back
+   to padded self; dropout 0 and 0.1 with the four keep masks replayed; each
+   keep fraction within 1e-3 of 0.9; two backward runs bit-identical;
+   kernel, plain and bound times (tolerances as for kernels 7 and 12).
+13. BigBird inference main path: cli/run_inference.main with
+   --attention_type bigbird --max_seq_length 4096
+   --per_device_eval_batch_size 4 on long documents (at least half the
+   windows hold >= 3072 real tokens); the BigBird block and the MLP block ran
+   once per layer per batch; argmax agreement >= 0.99 with the plain block
+   path; windows/s and peak memory of both.
+14. BigBird training main path: the Longformer recipe's flags with
+   --attention_type bigbird --max_seq_length 2048 for 2 optimizer steps;
+   each training kernel ran layers x views x 8 micro-steps times; finite
+   losses, the checkpoint reloads; then the kernels' gradients against the
+   block path's on one micro-batch of 2 at dropout 0.
+15. Prints the serving runs, the Longformer and BigBird runs and the kernels
+   as JSON lines, the card's name and power limit, and last {"ok": true,
+   "device": {...}}.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -208,6 +230,18 @@ KERNELS = {
         "spokennlp_tpu_torch/csrc/blhd_attention.cu",
         "spokennlp_tpu/ops/pallas/blhd_attention.py:70",
     ),
+    "bigbird_attention_block": (
+        "spokennlp_tpu_torch/csrc/bigbird_block.cu",
+        "spokennlp_tpu/ops/pallas/bigbird_block_kernel.py:261",
+    ),
+    "bigbird_train_fwd": (
+        "spokennlp_tpu_torch/csrc/train_bigbird.cu",
+        "spokennlp_tpu/ops/pallas/train_bigbird.py:714",
+    ),
+    "bigbird_train_bwd": (
+        "spokennlp_tpu_torch/csrc/train_bigbird.cu",
+        "spokennlp_tpu/ops/pallas/train_bigbird.py:774",
+    ),
 }
 # the Longformer slice: the reference's flagship recipe (scripts/run_finetune.sh:
 # window 512, 2048 tokens, training batch 2 x 4 accumulation steps), served in
@@ -215,6 +249,14 @@ KERNELS = {
 LF_B, LF_L, LF_WINDOW, LF_MAX_GLOBALS = 8, 2048, 512, 16
 LF_TRAIN_B, LF_ACCUM, LF_STEPS = 2, 4, 2
 LF_LONG_TOKENS, LF_MIN_LONG_SHARE = 1536, 0.5
+# the BigBird slice: BigBird-base (EncoderConfig's pattern: blocks of 64, 2
+# global and 3 random blocks, seed 0) served over its full 4096-token context
+# in batches of 4 (16,384 tokens a batch) and trained at 2048 tokens with the
+# Longformer recipe's flags; the training kernels' phase at B=8, the windows
+# of one optimizer step of the recipe (2 x 4)
+BB_B, BB_L, BB_TRAIN_B, BB_TRAIN_L = 4, 4096, 8, 2048
+BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED = 64, 2, 3, 0
+BB_LONG_TOKENS = 3072
 
 
 def fail(msg: str):
@@ -439,54 +481,58 @@ def w8a8_kernel_phase(device) -> dict:
     M, HN = B * L, NH * HD
     rows = {}
 
-    # kernels 5 and 4 over one layer's four projections (K x N, activation)
-    k5 = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0, "library_ms": 0.0, "err": 0.0}
-    k4 = dict(k5)
-    for K, N, act in ((H, 3 * HN, "none"), (HN, H, "none"), (H, I, "gelu"), (I, H, "none")):
-        x = randn(M, K).to(torch.bfloat16)
-        w, bias = randn(K, N, scale=K**-0.5), randn(N, scale=0.02)
-        w8, sw = im.quantize_colwise(w)
-        x8, sx = im.rowquant_plain(x)
-        label = f"{K}x{N} {act}"
-        # the int32 accumulators: unit scales, float32 output = float(acc)
-        ones = lambda n: torch.ones(n, device=device)
-        acc = im.w8a8_matmul(x8, ones(M), w8, ones(N), out_dtype=torch.float32)
-        if not torch.equal(acc, im.int8_product(x8, w8)):
-            fail(f"w8a8_matmul {label}: int32 accumulators differ from the exact product")
-        qx8, qsx = im.rowquant_cuda(x)
-        if not (torch.equal(qx8, x8) and torch.equal(qsx, sx)):
-            fail(f"w8a8_matmul_bf16in {label}: the row quantiser differs from rowquant_plain")
-        print(f"w8a8 {label}: int32 accumulators exact; row quantiser equal")
-        r5 = compare(f"w8a8_matmul {label}", "bfloat16",
-                     lambda: im.w8a8_matmul(x8, sx, w8, sw, bias, torch.bfloat16, act),
-                     lambda: im.w8a8_matmul_plain(x8, sx, w8, sw, bias, torch.bfloat16, act),
-                     slice(None), tol=MATMUL_TOL["bfloat16"])
-        r4 = compare(f"w8a8_matmul_bf16in {label}", "bfloat16",
-                     lambda: im.w8a8_matmul_bf16in(x, w8, sw, bias, torch.bfloat16, act),
-                     lambda: im.w8a8_matmul_plain(*im.rowquant_plain(x), w8, sw, bias,
-                                                  torch.bfloat16, act),
-                     slice(None), tol=MATMUL_TOL["bfloat16"])
-        # the library yardstick: cuBLAS's int8 product alone (torch._int_mm),
-        # on the same int8 operands, B in the column-major layout it takes
-        w8t = w8.t().contiguous().t()
-        lib = library_time(lambda: torch._int_mm(x8, w8t), f"w8a8 {label} (torch._int_mm)")
-        out_bytes = M * N * 2
-        for tot, r, in_bytes in ((k5, r5, nbytes(x8, sx, w8, sw, bias)),
-                                 (k4, r4, nbytes(x, w8, sw, bias))):
-            tot["ms"] += r["ms"]
-            tot["plain_ms"] += r["plain_ms"]
-            tot["err"] = max(tot["err"], r["max_abs_err"])
-            tot["flops"] += 2 * M * K * N
-            tot["bytes"] += in_bytes + out_bytes
-            tot["library_ms"] += lib
-    for name, tot in (("w8a8_matmul", k5), ("w8a8_matmul_bf16in", k4)):
-        row = {"max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-               **bound({"int8": tot["flops"]}, tot["bytes"])}
-        row["library_ms"] = tot["library_ms"]
-        rows[name, "bfloat16"] = row
-        print(f"kernel {name} (a layer's four projections): kernel {row['ms']:.3f} ms  plain "
-              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms ({row['bound_by']})  "
-              f"torch._int_mm {row['library_ms']:.3f} ms")
+    # kernels 5 and 4 over one layer's four projections (K x N, activation),
+    # with bf16 and with float32 activations (kernel 4's input and both
+    # kernels' output)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        k5 = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0, "library_ms": 0.0, "err": 0.0}
+        k4 = dict(k5)
+        for K, N, act in ((H, 3 * HN, "none"), (HN, H, "none"), (H, I, "gelu"), (I, H, "none")):
+            x = randn(M, K).to(dt)
+            w, bias = randn(K, N, scale=K**-0.5), randn(N, scale=0.02)
+            w8, sw = im.quantize_colwise(w)
+            x8, sx = im.rowquant_plain(x)
+            label = f"{K}x{N} {act} {dtype}"
+            # the int32 accumulators: unit scales, float32 output = float(acc)
+            ones = lambda n: torch.ones(n, device=device)
+            acc = im.w8a8_matmul(x8, ones(M), w8, ones(N), out_dtype=torch.float32)
+            if not torch.equal(acc, im.int8_product(x8, w8)):
+                fail(f"w8a8_matmul {label}: int32 accumulators differ from the exact product")
+            qx8, qsx = im.rowquant_cuda(x)
+            if not (torch.equal(qx8, x8) and torch.equal(qsx, sx)):
+                fail(f"w8a8_matmul_bf16in {label}: the row quantiser differs from rowquant_plain")
+            print(f"w8a8 {label}: int32 accumulators exact; row quantiser equal")
+            r5 = compare(f"w8a8_matmul {label}", dtype,
+                         lambda: im.w8a8_matmul(x8, sx, w8, sw, bias, dt, act),
+                         lambda: im.w8a8_matmul_plain(x8, sx, w8, sw, bias, dt, act),
+                         slice(None), tol=MATMUL_TOL[dtype])
+            r4 = compare(f"w8a8_matmul_bf16in {label}", dtype,
+                         lambda: im.w8a8_matmul_bf16in(x, w8, sw, bias, dt, act),
+                         lambda: im.w8a8_matmul_plain(*im.rowquant_plain(x), w8, sw, bias, dt,
+                                                      act),
+                         slice(None), tol=MATMUL_TOL[dtype])
+            # the library yardstick: cuBLAS's int8 product alone (torch._int_mm),
+            # on the same int8 operands, B in the column-major layout it takes
+            w8t = w8.t().contiguous().t()
+            lib = library_time(lambda: torch._int_mm(x8, w8t), f"w8a8 {label} (torch._int_mm)")
+            out_bytes = M * N * dt.itemsize
+            for tot, r, in_bytes in ((k5, r5, nbytes(x8, sx, w8, sw, bias)),
+                                     (k4, r4, nbytes(x, w8, sw, bias))):
+                tot["ms"] += r["ms"]
+                tot["plain_ms"] += r["plain_ms"]
+                tot["err"] = max(tot["err"], r["max_abs_err"])
+                tot["flops"] += 2 * M * K * N
+                tot["bytes"] += in_bytes + out_bytes
+                tot["library_ms"] += lib
+        for name, tot in (("w8a8_matmul", k5), ("w8a8_matmul_bf16in", k4)):
+            row = {"max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                   **bound({"int8": tot["flops"]}, tot["bytes"])}
+            row["library_ms"] = tot["library_ms"]
+            rows[name, dtype] = row
+            print(f"kernel {name} {dtype} (a layer's four projections): kernel {row['ms']:.3f} ms "
+                  f" plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+                  f"({row['bound_by']})  torch._int_mm {row['library_ms']:.3f} ms")
 
     # the W8A8 modes of kernels 1 and 2: float32 weights, quantised in the wrapper
     core = 4 * B * NH * L * L * HD
@@ -929,6 +975,184 @@ def sliding_kernel_phase(device) -> dict:
     return rows
 
 
+# ------------------------------------------------------------ BigBird kernels
+
+
+def bigbird_work(mask, C: int, tables, H: int, nh: int, hd: int) -> dict:
+    """The operations the BigBird block needs for these masks: the
+    projections (q, k, v and out of every row) and the attention core
+    (scores and P.V over each row's allowed keys: the real keys of its
+    window, global and live random blocks, or every real key for a global
+    row)."""
+    n_valid = mask.sum(1).cpu().numpy()
+    B, L = mask.shape
+    nb, HN, G, R = L // C, nh * hd, tables.G, tables.R
+    rand, rok = tables.rand.cpu().numpy(), tables.rok.cpu().numpy()
+    pairs = 0
+    for nv in n_valid:
+        real = lambda j: int(np.clip(nv - j * C, 0, C))  # real keys of block j
+        for i in range(G, nb):
+            blocks = [j for j in (i - 1, i, i + 1) if G <= j < nb] + list(range(G))
+            blocks += [int(rand[i, r]) for r in range(R) if rok[i, r]]
+            pairs += C * sum(real(j) for j in blocks)
+        pairs += G * C * int(nv)
+    return {"proj": float(2 * B * L * H * 3 * HN), "core": float(4 * nh * hd * pairs),
+            "out": float(2 * B * L * HN * H)}
+
+
+def bigbird_masks(device, B: int, L: int):
+    """(B, L) attention mask of the BigBird kernel phase: rows full,
+    suffix-padded to 60-80 % of L, and one with fewer real tokens (100) than
+    the two global blocks hold."""
+    import torch
+
+    n_valid = [L, int(0.75 * L), L, 100, L, int(0.6 * L), L, int(0.8 * L)][:B]
+    return (torch.arange(L)[None] < torch.tensor(n_valid)[:, None]).int().to(device)
+
+
+def bigbird_kernel_phase(device) -> dict:
+    """{(name, dtype): row} for the BigBird inference block at the serving
+    shape and the training block at the training shape, and both at a short
+    sequence of 4 blocks (padded-self random entries); the keep masks'
+    fractions; the backward's determinism."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import bigbird_block as bbk
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+
+    g = torch.Generator(device=device).manual_seed(5)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    HN = NH * HD
+    pattern = dict(block_size=BB_BLOCK, num_global_blocks=BB_GLOBAL,
+                   num_random_blocks=BB_RANDOM)
+    seed = torch.tensor([20231019], dtype=torch.int32, device=device)
+    tables = bigbird_tables(BB_TRAIN_L // BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED, device)
+    keep = tbb.bigbird_keep_masks(seed, BB_TRAIN_B, NH, BB_TRAIN_L, BB_BLOCK, tables.G,
+                                  tables.R, DROPOUT)
+    for name, m in zip(("window", "global-column", "random", "global-row"), keep):
+        frac = m.float().mean().item()
+        print(f"bigbird dropout keep fraction, {name} mask {tuple(m.shape)}: {frac:.6f}")
+        if abs(frac - (1.0 - DROPOUT)) > KEEP_FRACTION_TOL:
+            fail(f"bigbird {name} keep fraction {frac:.6f} not within {KEEP_FRACTION_TOL} of "
+                 f"{1.0 - DROPOUT}")
+    del keep
+    names = ("qkv_kernel", "qkv_bias", "out_kernel", "out_bias")
+    grad_names = ("dx",) + tuple("d" + n for n in names)
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        params = dict(qkv_kernel=randn(H, 3, NH, HD, scale=H**-0.5),
+                      qkv_bias=randn(3, NH, HD, scale=0.02),
+                      out_kernel=randn(NH, HD, H, scale=HN**-0.5), out_bias=randn(H, scale=0.02))
+        # the weights the kernels compute with, for the plain versions
+        rounded = {k: v.to(dt) if k.endswith("kernel") else v for k, v in params.items()}
+        ln = dict(ln_scale=1 + randn(H, scale=0.1), ln_bias=randn(H, scale=0.1))
+        err = {"bigbird_attention_block": 0.0, "bigbird_train_fwd": 0.0, "bigbird_train_bwd": 0.0}
+        # (batch, tokens, pattern seed): the slice's shapes, and 4 blocks,
+        # where query blocks 2 and 3 find no random candidate (rok = 0)
+        for Bk, Lk, pseed in ((BB_B, BB_L, BB_SEED), (2, 4 * BB_BLOCK, 1)):
+            mask = bigbird_masks(device, Bk, Lk)
+            valid = mask.bool()
+            hidden = randn(Bk, Lk, H).to(dt)
+            kw = dict(pattern, seed=pseed, sm_scale=HD**-0.5)
+            label = f"{dtype} B={Bk} L={Lk}"
+            got = bbk.fused_bigbird_attention_block(hidden, mask, *params.values(), **kw, **ln)
+            want = bbk.bigbird_block_plain(hidden, mask, *rounded.values(), **kw, **ln)
+            err["bigbird_attention_block"] = max(err["bigbird_attention_block"], _normalized_errors(
+                [got[valid]], [want[valid]], ["out"], dtype, f"bigbird_attention_block {label}"))
+            del got, want
+        for Bk, Lk, pseed in ((BB_TRAIN_B, BB_TRAIN_L, BB_SEED), (2, 4 * BB_BLOCK, 1)):
+            mask = bigbird_masks(device, Bk, Lk)
+            valid = mask.bool()
+            hidden = randn(Bk, Lk, H).to(dt)
+            cot = (randn(Bk, Lk, H) * valid[..., None]).to(dt)
+            t = bigbird_tables(Lk // BB_BLOCK, BB_GLOBAL, BB_RANDOM, pseed, device)
+            kw = dict(pattern, pattern_seed=pseed, sm_scale=HD**-0.5)
+            for rate in (0.0, DROPOUT):
+                keep = (tbb.bigbird_keep_masks(seed, Bk, NH, Lk, BB_BLOCK, t.G, t.R, rate)
+                        if rate else None)
+
+                def grads(fn, ps, **extra):
+                    leaves = {k: v.detach().requires_grad_() for k, v in ps.items()}
+                    h = hidden.detach().requires_grad_()
+                    out = fn(h, mask, *leaves.values(), **extra, **kw, dropout_rate=rate)
+                    return [out[valid], *torch.autograd.grad(out, [h, *leaves.values()], cot)]
+
+                got = grads(tbb.bigbird_attention_block_train, params, seed=seed)
+                want = grads(tbb.bigbird_train_plain, rounded, keep=keep)
+                lab = f"bigbird_train {dtype} B={Bk} L={Lk} rate {rate}"
+                err["bigbird_train_fwd"] = max(err["bigbird_train_fwd"], _normalized_errors(
+                    got[:1], want[:1], ["out"], dtype, lab + " fwd"))
+                err["bigbird_train_bwd"] = max(err["bigbird_train_bwd"], _normalized_errors(
+                    got[1:], want[1:], grad_names, dtype, lab + " bwd"))
+                if rate and Lk == BB_TRAIN_L:
+                    again = grads(tbb.bigbird_attention_block_train, params, seed=seed)
+                    if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+                        fail(f"{lab}: two backward runs differ")
+                    print(f"  {lab}: two backward runs bit-identical")
+                    del again
+                del got, want, keep
+
+        # times at the slice's shapes, the kernels called directly
+        ps, rs = list(params.values()), list(rounded.values())
+        mask = bigbird_masks(device, BB_B, BB_L)
+        hidden = randn(BB_B, BB_L, H).to(dt)
+        kw = dict(pattern, seed=BB_SEED, sm_scale=HD**-0.5)
+        with torch.no_grad():
+            blk = timed_pair(
+                lambda: bbk.fused_bigbird_attention_block(hidden, mask, *ps, **kw, **ln),
+                lambda: bbk.bigbird_block_plain(hidden, mask, *rs, **kw, **ln), reps=5)
+        t = bigbird_tables(BB_L // BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED, device)
+        work = bigbird_work(mask, BB_BLOCK, t, H, NH, HD)
+        w = bbk.card_weights(*ps[:3], dt)
+        flops = work["proj"] + work["core"] + work["out"]
+        blk.update(bound(flops, nbytes(hidden, mask, *w.values(), params["out_bias"],
+                                       *ln.values(), hidden), dtype))
+        blk["work_gflop"] = flops / 1e9
+
+        mask = bigbird_masks(device, BB_TRAIN_B, BB_TRAIN_L)
+        m32 = mask.int().contiguous()
+        hidden = randn(BB_TRAIN_B, BB_TRAIN_L, H).to(dt)
+        cot = (randn(BB_TRAIN_B, BB_TRAIN_L, H) * mask.bool()[..., None]).to(dt)
+        t = bigbird_tables(BB_TRAIN_L // BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED, device)
+        keep = tbb.bigbird_keep_masks(seed, BB_TRAIN_B, NH, BB_TRAIN_L, BB_BLOCK, t.G, t.R,
+                                      DROPOUT)
+        bo = params["out_bias"]
+        cfg = dict(num_heads=NH, block_size=BB_BLOCK, sm_scale=HD**-0.5, dropout_rate=DROPOUT)
+        plain = lambda h, *p: tbb.bigbird_train_plain(
+            h, mask, *p, **pattern, pattern_seed=BB_SEED, sm_scale=HD**-0.5,
+            dropout_rate=DROPOUT, keep=keep)
+        with torch.no_grad():
+            fwd = timed_pair(lambda: tbb.bigbird_train_fwd(hidden, m32, seed, w, bo, t, **cfg),
+                             lambda: plain(hidden, *rs), reps=5)
+        leaves = [p.detach().requires_grad_() for p in rs]
+        h = hidden.detach().requires_grad_()
+        out = plain(h, *leaves)
+        bwd = timed_pair(lambda: tbb.bigbird_train_bwd(hidden, m32, seed, w, cot, t, **cfg),
+                         lambda: torch.autograd.grad(out, [h, *leaves], cot, retain_graph=True),
+                         reps=5)
+        del out, keep
+        work = bigbird_work(mask, BB_BLOCK, t, H, NH, HD)
+        io = nbytes(hidden, mask, *w.values(), bo)
+        fwd_flops = work["proj"] + work["core"] + work["out"]
+        fwd.update(bound(fwd_flops, io + nbytes(seed, hidden), dtype))
+        # recomputed projections and attention; dctx; the backward's four
+        # attention products; dx and the projection weight gradients; dWo
+        bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
+        grads_out = nbytes(hidden) + 4 * (H * 3 * HN + 3 * HN + HN * H + H)
+        bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        fwd["work_gflop"], bwd["work_gflop"] = fwd_flops / 1e9, bwd_flops / 1e9
+        for name, row in (("bigbird_attention_block", blk), ("bigbird_train_fwd", fwd),
+                          ("bigbird_train_bwd", bwd)):
+            rows[name, dtype] = {"max_abs_err": err[name], **row}
+            print(f"kernel {name} {dtype}: max_abs_err {err[name]:.3e}  kernel {row['ms']:.3f} ms  "
+                  f"plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+                  f"({row['bound_by']}; {row['work_gflop']:.1f} GFLOP)")
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------ main paths
 
 
@@ -952,16 +1176,18 @@ def write_corpus(root: Path, n_test_docs: int, n_train_docs: int = 2, seed: int 
 
 
 def main_path_argv(data_dir, out_dir, device="cuda", hidden=H, layers=LAYERS, heads=NH,
-                   inter=I, seq=L, batch=B, window=None):
-    """run_inference flags; ``window`` makes the trunk Longformer's."""
-    sliding = ["--attention_type", "sliding_window", "--attention_window", str(window)]
+                   inter=I, seq=L, batch=B, window=None, bigbird=False):
+    """run_inference flags; ``window`` makes the trunk Longformer's,
+    ``bigbird`` BigBird's."""
+    trunk = (["--attention_type", "sliding_window", "--attention_window", str(window)] if window
+             else ["--attention_type", "bigbird"] if bigbird else [])
     return [
         "--data_dir", data_dir, "--output_dir", out_dir, "--device", device,
         "--hidden_size", str(hidden), "--num_hidden_layers", str(layers),
         "--num_attention_heads", str(heads), "--intermediate_size", str(inter),
         "--max_seq_length", str(seq), "--dtype", "bfloat16",
         "--per_device_eval_batch_size", str(batch), "--threshold", "0.5",
-    ] + (sliding if window else [])
+    ] + trunk
 
 
 def train_argv(data_dir, out_dir, batch=B, **kw):
@@ -978,7 +1204,8 @@ def train_argv(data_dir, out_dir, batch=B, **kw):
 def longformer_train_argv(data_dir, out_dir, epochs: float, **kw):
     """run_finetune flags of the reference's Longformer recipe
     (scripts/run_finetune.sh: batch 2, 4 accumulation steps, DA + TSSP,
-    eop_list CSSL, lr 5e-5, bf16) but the epochs; metrics every step."""
+    eop_list CSSL, lr 5e-5, bf16) but the epochs; metrics every step. The
+    BigBird slice runs the same flags with ``window=None, bigbird=True``."""
     kw = {"seq": LF_L, "window": LF_WINDOW, "batch": LF_B, **kw}
     return main_path_argv(data_dir, out_dir, **kw) + [
         "--do_train", "--do_eval", "--do_predict", "--num_train_epochs", repr(epochs),
@@ -1008,8 +1235,9 @@ def epochs_for_steps(argv, steps: int) -> float:
 def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None,
               kernel_impl="auto") -> dict:
     """Run the inference CLI; check launches, metrics and logits against
-    einsum. ``kernels``: {name: wrapper} that must run once per layer per
-    batch (the dense pair by default); ``long_tokens``: check that at least
+    einsum (for Longformer the chunked path, for BigBird the block path).
+    ``kernels``: {name: wrapper} that must run once per layer per batch (the
+    dense pair by default); ``long_tokens``: check that at least
     LF_MIN_LONG_SHARE of the windows hold that many real tokens;
     ``kernel_impl``: the attention_impl of the kernels' path (argv's)."""
     import torch
@@ -1357,9 +1585,12 @@ def main() -> int:
     rows["fused_encoder_stack", "float32"] = stack_rows["float", "float32"]
     rows.update(train_kernel_phase(device))
     rows.update(sliding_kernel_phase(device))
+    rows.update(bigbird_kernel_phase(device))
 
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
     from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
     from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda.bigbird_block import fused_bigbird_attention_block
     from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
     from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
 
@@ -1393,23 +1624,46 @@ def main() -> int:
                      "sliding_train_bwd": ts.sliding_train_bwd,
                      "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
         fused_vs_einsum_grads(argv("lf_grad_out", epochs), batch_size=LF_TRAIN_B)
+        torch.cuda.empty_cache()
+
+        # the BigBird paths: longer documents, about 1.5 windows of 4096 each
+        bb_data = write_corpus(Path(tmp), n_test_docs=24, n_train_docs=8, seed=3,
+                               sentences=(300, 600))
+        bb_infer = main_path(
+            main_path_argv(bb_data, str(Path(tmp) / "bb_out"), seq=BB_L, batch=BB_B,
+                           bigbird=True), LAYERS, BB_B,
+            kernels={"bigbird_attention_block": fused_bigbird_attention_block,
+                     "fused_mlp_block": fused_mlp_block}, long_tokens=BB_LONG_TOKENS)
+        argv = lambda out, epochs: longformer_train_argv(
+            bb_data, str(Path(tmp) / out), epochs, seq=BB_TRAIN_L, window=None, bigbird=True,
+            batch=BB_B)
+        epochs = epochs_for_steps(argv("bb_train_out", 1.0), LF_STEPS)
+        bb_train = train_path(
+            argv("bb_train_out", epochs), LAYERS, LF_TRAIN_B, accum=LF_ACCUM,
+            kernels={"bigbird_train_fwd": tbb.bigbird_train_fwd,
+                     "bigbird_train_bwd": tbb.bigbird_train_bwd,
+                     "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
+        fused_vs_einsum_grads(argv("bb_grad_out", epochs), batch_size=LF_TRAIN_B)
 
     served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
     launches = {**infer["launches"], **train["launches"],
                 "sliding_attention_block": lf_infer["launches"]["sliding_attention_block"],
                 **{k: lf_train["launches"][k] for k in ("sliding_train_fwd", "sliding_train_bwd")},
+                "bigbird_attention_block": bb_infer["launches"]["bigbird_attention_block"],
+                **{k: bb_train["launches"][k] for k in ("bigbird_train_fwd", "bigbird_train_bwd")},
                 "fused_encoder_stack": served("w8a8 auto 32", "fused_encoder_stack"),
                 "fused_attention_block_w8a8": served("w8a8 auto 128", "fused_attention_block"),
                 "fused_mlp_block_w8a8": served("w8a8 auto 128", "fused_mlp_block"),
                 **{k: served("w8a8 einsum 32", k) for k in ("w8a8_matmul_bf16in", "w8a8_matmul")},
                 "snld_self_attention": served("none pallas 32", "snld_self_attention")}
     print(json.dumps({"serving": serving}))
-    print(json.dumps({"longformer": {
-        "inference": {k: lf_infer[k] for k in ("launches", "windows", "windows_per_s",
-                                               "peak_gib", "einsum_windows_per_s",
-                                               "einsum_peak_gib", "agreement", "max_dlogit")},
-        "training": {k: lf_train[k] for k in ("launches", "steps", "steps_per_s",
-                                              "windows_per_s", "peak_gib")}}}))
+    for name, inf, trn in (("longformer", lf_infer, lf_train), ("bigbird", bb_infer, bb_train)):
+        print(json.dumps({name: {
+            "inference": {k: inf[k] for k in ("launches", "windows", "windows_per_s", "peak_gib",
+                                              "einsum_windows_per_s", "einsum_peak_gib",
+                                              "agreement", "max_dlogit")},
+            "training": {k: trn[k] for k in ("launches", "steps", "steps_per_s",
+                                             "windows_per_s", "peak_gib")}}}))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

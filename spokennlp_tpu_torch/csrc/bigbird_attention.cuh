@@ -1,0 +1,258 @@
+// BigBird attention (ITC block-sparse) on the H100: the pieces the inference
+// block (bigbird_block.cu) and the training block (train_bigbird.cu) share.
+//
+// Semantics, per sequence b with n_valid real tokens (padding is a suffix),
+// blocks of C rows, nb = L / C blocks, G global blocks, R random blocks a
+// query block, q = (x Wq + bq) * sm_scale, k, v = x Wk + bk, x Wv + bv, all
+// three rounded to the element type:
+//   - a row of block i >= G attends to the real keys of the window blocks
+//     i - 1, i, i + 1 (those in [G, nb)), of the G global blocks and of its R
+//     random blocks (rand[i, r], where rok[i, r] is 1), one softmax (one max)
+//     over all of them; every key counts once: the random blocks never repeat
+//     a window or global block (the table's first-occurrence dedup is the rok
+//     flag), and the window skips the global blocks, which have their own
+//     columns;
+//   - a row of block i < G (a global row) attends to every real key.
+// e = exp(s - m) is taken on s - m rounded to the element type and rounded
+// again (the TPU kernel's compute-dtype exp), the denominator sums e in
+// float32, and with dropout at rate p a probability is kept iff its Philox
+// bits are >= thr and the kept ones are divided by (1 - p). A row with no
+// allowed key (only with no real token at all) gets a zero context.
+//
+// Dropout draws one Philox word per probability from four counter spaces
+// that never meet (the second counter word carries the head and a tag):
+//   window keys      (b, h,           row, key)
+//   global columns   (b, h | 1 << 16, row, key)        key < G C
+//   global rows      (b, h | 2 << 16, row, key)        row < G C
+//   random blocks    (b, h | 3 << 16, row, r C + c)    key = rand[i, r] C + c
+// so the backward pass regenerates every mask from the seed.
+//
+// Work is cut into 64-row tiles: a block of C rows spans S = ceil(C / 64)
+// query tiles (the last one short when 64 does not divide C), and each piece
+// of C keys S key tiles. At BigBird-base's block of 64 a piece is one tile.
+// A query tile of a global block walks the key tiles of [0, n_valid); one of
+// another block walks its (3 + G + R) S pieces' tiles, skipping those with no
+// allowed key. Layouts: qkv (3, B, nh, L, hd) in the element type, q
+// pre-scaled; ctx (B, L, nh*hd); counts (B, 2) int32 (n_valid, 0); row
+// statistics (3, B, nh, L) float32 = (m, D, rowsum(dp p_eff)). Nothing of
+// size (L, K C) or (L, L) is written to device memory.
+#pragma once
+
+#include "sliding_attention.cuh"
+
+namespace spk {
+
+constexpr uint32_t kRandomStream = 3u << 16;
+
+// The static pattern of one call: rand and rok (nb, R) int32 on the device.
+struct BigBird {
+  int L, C, nb, G, R, S;
+  const int32_t* rand;
+  const int32_t* rok;
+};
+
+inline BigBird make_bigbird(int L, int C, int G, int R, const int32_t* rand, const int32_t* rok) {
+  return BigBird{L, C, L / C, G, R, (C + kTile - 1) / kTile, rand, rok};
+}
+
+// Tile x of the grid's first axis: block i and its rows [r0, r_end).
+__device__ __forceinline__ void block_tile(const BigBird& bb, int x, int& i, int& r0, int& r_end) {
+  i = x / bb.S;
+  r0 = i * bb.C + (x % bb.S) * kTile;
+  r_end = min(r0 + kTile, (i + 1) * bb.C);
+}
+
+// One key tile of a query block: keys [k0, k_end) allowed; the dropout tag
+// and the offset from key to the counter's column.
+struct KeyTile {
+  int k0, k_end;
+  uint32_t tag;
+  int col_off;
+};
+
+__device__ __forceinline__ int key_tiles(const BigBird& bb, int i, int n_valid) {
+  return i < bb.G ? (n_valid + kTile - 1) / kTile : (3 + bb.G + bb.R) * bb.S;
+}
+
+// Key tile t of query block i; false when it holds no allowed key. The same
+// for every thread of a block.
+__device__ __forceinline__ bool key_tile(const BigBird& bb, int i, int t, int n_valid,
+                                         KeyTile& kt) {
+  kt.tag = 0u;
+  kt.col_off = 0;
+  if (i < bb.G) {  // a global row: every real key
+    kt.k0 = t * kTile;
+    kt.k_end = min(kt.k0 + kTile, n_valid);
+    kt.tag = kGlobalRowStream;
+    return kt.k0 < kt.k_end;
+  }
+  const int p = t / bb.S, sub = t % bb.S;
+  int j;
+  if (p < 3) {
+    j = i - 1 + p;
+    if (j < 0 || j < bb.G || j >= bb.nb) return false;
+  } else if (p < 3 + bb.G) {
+    j = p - 3;
+    kt.tag = kGlobalColStream;
+  } else {
+    const int r = p - 3 - bb.G;
+    if (!bb.rok[i * bb.R + r]) return false;
+    j = bb.rand[i * bb.R + r];
+    kt.tag = kRandomStream;
+    kt.col_off = (r - j) * bb.C;
+  }
+  kt.k0 = j * bb.C + sub * kTile;
+  kt.k_end = min(min(kt.k0 + kTile, (j + 1) * bb.C), n_valid);
+  return kt.k0 < kt.k_end;
+}
+
+template <int HD>
+constexpr size_t bigbird_rows_smem_bytes() {
+  return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
+}
+
+// The rows of one query tile (block, head, sequence): pass 1 takes the row
+// maxima over the allowed keys of every key tile, pass 2 forms e, D = sum e
+// and ctx = (kept e) . v / (D keep_prob), stored rounded to (B, L, nh*hd).
+// With kGrad (the backward) it also forms dp = dctx . v^T and writes the row
+// statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B).
+template <typename T, int HD, bool kGrad>
+__global__ void __launch_bounds__(kThreads)
+    bigbird_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
+                        BigBird bb, const int32_t* __restrict__ seed_ptr,
+                        const T* __restrict__ dctx, T* __restrict__ ctx,
+                        float* __restrict__ stats, int B, int nh, uint32_t thr, float keep_prob) {
+  using G = Geometry<HD>;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + G::kTileFloats;
+  float* Vs = Ks + G::kTileFloats;
+  float* dCs = Vs + G::kTileFloats;
+  float* Ps = dCs + G::kTileFloats;
+
+  int i, q0, q_end;
+  block_tile(bb, blockIdx.x, i, q0, q_end);
+  const int h = blockIdx.y, b = blockIdx.z, L = bb.L;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t head = (size_t)L * HD;
+  const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
+  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
+  const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
+  const int n_valid = counts[2 * b];
+  const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
+  const int nt = key_tiles(bb, i, n_valid);
+
+  load_head_tile<T, HD>(Qs, Q, q0, L);
+  if constexpr (kGrad) load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh);
+
+  float m[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) m[a] = -CUDART_INF_F;
+  for (int t = 0; t < nt; ++t) {
+    KeyTile kt;
+    if (!key_tile(bb, i, t, n_valid, kt)) continue;
+    __syncthreads();
+    load_head_tile<T, HD>(Ks, K, kt.k0, L);
+    __syncthreads();
+    float s[4][4];
+    tile_dot<HD>(Qs, Ks, s);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (kt.k0 + tx + 16 * c < kt.k_end) m[a] = fmaxf(m[a], s[a][c]);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) m[a] = half_warp_max(m[a]);
+
+  float D[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float o[4][G::TD];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < G::TD; ++c) o[a][c] = 0.0f;
+  for (int t = 0; t < nt; ++t) {
+    KeyTile kt;
+    if (!key_tile(bb, i, t, n_valid, kt)) continue;
+    __syncthreads();
+    load_head_tile<T, HD>(Ks, K, kt.k0, L);
+    load_head_tile<T, HD>(Vs, V, kt.k0, L);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    tile_dot<HD>(Qs, Ks, s);
+    if constexpr (kGrad) tile_dot<HD>(dCs, Vs, dp);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = q0 + ty + 16 * a;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tx + 16 * c, key = kt.k0 + col;
+        float pe = 0.0f;
+        if (key < kt.k_end) {
+          const float e = rounded_exp<T>(s[a][c], m[a]);
+          D[a] += e;
+          pe = keep_prob_bits(seed, thr, b, h | kt.tag, row, key + kt.col_off) ? e : 0.0f;
+          if constexpr (kGrad) rs[a] = fmaf(pe, dp[a][c], rs[a]);
+        }
+        Ps[(ty + 16 * a) * kPS + col] = pe;
+      }
+    }
+    __syncthreads();
+    tile_accumulate<HD>(Ps, Vs, o);
+  }
+
+  const size_t row_stride = (size_t)nh * HD;
+  const size_t plane = (size_t)B * nh * L;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float d_sum = half_warp_sum(D[a]);
+    const float rs_sum = kGrad ? half_warp_sum(rs[a]) : 0.0f;
+    const int l = q0 + ty + 16 * a;
+    if (l >= q_end) continue;
+    const float denom = d_sum * keep_prob;
+    T* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
+#pragma unroll
+    for (int c = 0; c < G::TD; ++c)
+      out[tx + 16 * c] = from_f32<T>(d_sum > 0.0f ? o[a][c] / denom : 0.0f);
+    if (kGrad && tx == 0) {
+      const size_t r = ((size_t)b * nh + h) * L + l;
+      stats[r] = m[a];
+      stats[plane + r] = d_sum;
+      stats[2 * plane + r] = d_sum > 0.0f ? rs_sum / denom : 0.0f;
+    }
+  }
+}
+
+// counts and q, k, v; wqkv (H, 3 nh hd) in the element type, bqkv float32.
+template <typename T>
+cudaError_t bigbird_projections(const T* hidden, const int32_t* mask, const T* wqkv,
+                                const float* bqkv, int32_t* counts, T* qkv_buf, int B, int L,
+                                int H, int nh, int hd, float sm_scale, cudaStream_t stream) {
+  // the mask stands in for the global mask: with global_rows = 0 the kernel
+  // counts the real tokens only
+  sliding_count_kernel<><<<B, kThreads, 0, stream>>>(mask, mask, counts, L, 0, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_qkv_proj<T>(hidden, wqkv, bqkv, qkv_buf, B, L, H, nh, hd, sm_scale, stream);
+}
+
+// The attention of the projected q, k, v into ctx; with kGrad also the row
+// statistics.
+template <typename T, bool kGrad>
+cudaError_t bigbird_attention(const BigBird& bb, const int32_t* seed, const int32_t* counts,
+                              const T* qkv_buf, const T* dctx, T* ctx_buf, float* stats, int B,
+                              int nh, int hd, uint32_t thr, float keep_prob,
+                              cudaStream_t stream) {
+  return with_head_dim(hd, [&](auto hd_c) {
+    constexpr int HD = decltype(hd_c)::value;
+    auto rows = bigbird_rows_kernel<T, HD, kGrad>;
+    cudaError_t e = prepare(rows, bigbird_rows_smem_bytes<HD>());
+    if (e != cudaSuccess) return e;
+    const dim3 grid(bb.nb * bb.S, nh, B);
+    rows<<<grid, kThreads, bigbird_rows_smem_bytes<HD>(), stream>>>(
+        qkv_buf, counts, bb, seed, dctx, ctx_buf, stats, B, nh, thr, keep_prob);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace spk

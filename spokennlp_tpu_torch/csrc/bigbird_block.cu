@@ -1,0 +1,89 @@
+// Fused BigBird attention block for the H100 (sm_90a), inference:
+//   out = LayerNorm(x + attn(x) Wo + bo)
+// with attn the ITC block-sparse attention of bigbird_attention.cuh (window
+// blocks, global columns, random blocks from a static table, global rows
+// dense over every real key).
+//
+// Replaces the TPU kernel spokennlp_tpu/ops/pallas/bigbird_block_kernel.py,
+// fused_bigbird_attention_block (_bigbird_block_kernel, quantized=False).
+//
+// What bounds it here. At BigBird-base's serving shape (B=4, L=4096, H=768,
+// 12 heads of 64, blocks of 64, 2 global and 3 random blocks) a layer's block
+// is about 77 GFLOP of projections (q, k, v, out) and 30 GFLOP of attention
+// (at most 8 key blocks a query block, 64 for the two global blocks)
+// against some 30 MB of inputs, weights and output: bound by arithmetic.
+// These are SIMT kernels on the CUDA cores in float32; the tensor cores are
+// later work.
+//
+// What the design does about the TPU kernel's assumptions. The TPU kernel
+// ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM
+// (with a block of zero rows on each side for the window slabs), read the
+// random block ids from SMEM and walked the query blocks in a loop, then ran
+// the global rows densely. Hopper blocks run in parallel and hold far less,
+// so the block is launches over the whole batch:
+//   1. sliding_count_kernel: n_valid of each sequence (the suffix-padding
+//      contract turns the mask into one count, as on the TPU);
+//   2. qkv_proj_kernel (common.cuh): q (scaled), k, v to (3, B, nh, L, hd);
+//   3. bigbird_rows_kernel: per (64 query rows, head, sequence) the key tiles
+//      of its pieces, two passes (max, then exp and P.V); a tile of a global
+//      block walks every real key instead, so the global rows need no launch
+//      of their own and no sparse pass that the TPU kernel overwrote;
+//   4. gemm_bias_residual_ln_kernel (common.cuh): ctx . Wo + bo + x and the
+//      LayerNorm.
+// The random table (and its validity flags) lives on the device, built once
+// per pattern by the wrapper; a block reads its own entries.
+#include "bigbird_attention.cuh"
+
+namespace spk {
+namespace {
+
+template <typename T>
+cudaError_t bigbird_block(const T* hidden, const int32_t* mask, const int32_t* rand,
+                          const int32_t* rok, const T* wqkv, const float* bqkv, const T* wo,
+                          const float* bo, const float* ln_scale, const float* ln_bias,
+                          int32_t* counts, T* qkv_buf, T* ctx_buf, float* ln_buf, T* out, int B,
+                          int L, int H, int nh, int hd, int C, int G, int R, float sm_scale,
+                          float eps, int fuse_ln, cudaStream_t stream) {
+  cudaError_t err = bigbird_projections<T>(hidden, mask, wqkv, bqkv, counts, qkv_buf, B, L, H, nh,
+                                           hd, sm_scale, stream);
+  if (err != cudaSuccess) return err;
+  const BigBird bb = make_bigbird(L, C, G, R, rand, rok);
+  err = bigbird_attention<T, false>(bb, nullptr, counts, qkv_buf, nullptr, ctx_buf, nullptr, B, nh,
+                                    hd, 0u, 1.0f, stream);
+  if (err != cudaSuccess) return err;
+  return launch_residual_ln<T>(ctx_buf, wo, bo, hidden, ln_scale, ln_bias, ln_buf, out, B * L, H,
+                               nh * hd, eps, fuse_ln, stream);
+}
+
+}  // namespace
+}  // namespace spk
+
+// dtype: 0 = float32, 1 = bfloat16 (hidden, weights, the q/k/v and ctx
+// buffers and out); mask (B, L), rand and rok (nb, max(R, 1)) and counts
+// (B, 2) int32; biases, LayerNorm parameters and ln_buf (B*L, H) float32.
+// wqkv (H, 3 nh hd), wo (nh hd, H). Returns the first CUDA error, or 0.
+extern "C" int spk_bigbird_block(int dtype, const void* hidden, const void* mask, const void* rand,
+                                 const void* rok, const void* wqkv, const void* bqkv,
+                                 const void* wo, const void* bo, const void* ln_scale,
+                                 const void* ln_bias, void* counts, void* qkv_buf, void* ctx_buf,
+                                 void* ln_buf, void* out, int B, int L, int H, int nh, int hd,
+                                 int C, int G, int R, float sm_scale, float eps, int fuse_ln,
+                                 void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  const auto run = [&](auto tag) {
+    using F = decltype(tag);
+    const auto c = [](const void* p) { return static_cast<const F*>(p); };
+    const auto m = [](void* p) { return static_cast<F*>(p); };
+    return spk::bigbird_block<F>(c(hidden), i32(mask), i32(rand), i32(rok), c(wqkv), f32(bqkv),
+                                 c(wo), f32(bo), f32(ln_scale), f32(ln_bias),
+                                 static_cast<int32_t*>(counts), m(qkv_buf), m(ctx_buf),
+                                 static_cast<float*>(ln_buf), m(out), B, L, H, nh, hd, C, G, R,
+                                 sm_scale, eps, fuse_ln, s);
+  };
+  cudaError_t err = dtype == 0   ? run(float{})
+                    : dtype == 1 ? run(__nv_bfloat16{})
+                                 : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}

@@ -1,9 +1,10 @@
-"""Transformer encoder trunk, PyTorch: dense attention and Longformer's
-sliding window with global tokens.
+"""Transformer encoder trunk, PyTorch: dense attention, Longformer's
+sliding window with global tokens, and BigBird's block-sparse attention.
 
 Counterpart of ``spokennlp_tpu/models/encoder.py`` for ``attention_type=
-"dense"`` (BERT, and ELECTRA through its embedding projection) and
-``"sliding_window"`` (Longformer, with RoBERTa positions). Parameter
+"dense"`` (BERT, and ELECTRA through its embedding projection),
+``"sliding_window"`` (Longformer, with RoBERTa positions) and ``"bigbird"``
+(BigBird ITC, with BERT's parameter layout). Parameter
 names and shapes follow the Flax tree (``qkv.kernel`` (H, 3, nh, hd),
 ``out.kernel`` (nh, hd, H), ``mlp_in.kernel`` (H, I), LayerNorms with
 ``scale`` and ``bias``), so a JAX checkpoint maps one-to-one onto the
@@ -54,6 +55,16 @@ promise (``prefix_globals``) that padding is a suffix and the global tokens
 a prefix of at most ``max_global_tokens``. On CUDA a broken contract raises;
 on the CPU the encoder takes the einsum path, as the JAX encoder does off
 the TPU.
+
+BigBird models likewise, with the BigBird kernels (ops/cuda/bigbird_block.py,
+ops/cuda/train_bigbird.py) in the attention half; their einsum path is
+``bigbird_impl``'s ``"bias"`` (the (L, L) mask through the dense branch,
+probability dropout included) or ``"block"`` (the gather path of
+ops/bigbird_attention.py, which drops out no probabilities, as in JAX),
+``"auto"`` picking block above 1024 tokens. The kernels need L a multiple of
+``bigbird_block_size``, that of 8, and the suffix-padding promise
+(``prefix_globals``, 0 for BigBird: its globals are the first blocks); in
+training they run whatever ``bigbird_impl`` says, as in JAX.
 """
 
 from __future__ import annotations
@@ -67,12 +78,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from spokennlp_tpu_torch.configs import EncoderConfig
+from spokennlp_tpu_torch.ops.bigbird_attention import (
+    bigbird_attention_bias, bigbird_block_sparse_attention,
+)
 from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+from spokennlp_tpu_torch.ops.cuda.bigbird_block import W8A8_BIGBIRD, fused_bigbird_attention_block
 from spokennlp_tpu_torch.ops.cuda.blhd_attention import snld_self_attention
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import quant_dense
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
 from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
 from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+from spokennlp_tpu_torch.ops.cuda.train_bigbird import bigbird_attention_block_train
 from spokennlp_tpu_torch.ops.cuda.train_blocks import attention_block_train, mlp_block_train
 from spokennlp_tpu_torch.ops.cuda.train_sliding import sliding_attention_block_train
 from spokennlp_tpu_torch.ops.sliding_attention import (
@@ -283,10 +299,12 @@ class SelfAttention(nn.Module):
 
     def forward(self, hidden, attention_bias, output_attentions=False, generator=None,
                 sliding: Optional[SlidingMasks] = None, quantized: bool = False,
-                segment_ids: Optional[torch.Tensor] = None):
+                segment_ids: Optional[torch.Tensor] = None,
+                bigbird: Optional[torch.Tensor] = None):
         """``segment_ids`` (B, L) selects the ``"pallas"`` path: the
         attention kernel over a (B, 3, nh, L, hd) projection, whose two
-        projections stay unquantised."""
+        projections stay unquantised. ``bigbird`` (the (B, L) attention
+        mask) selects BigBird's block path."""
         cfg = self.cfg
         dt = hidden.dtype
         scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -296,7 +314,12 @@ class SelfAttention(nn.Module):
         q, k, v = self.qkv(hidden, quantize=quantized).unbind(2)  # (B, L, nh, hd)
         sm_dtype = dt if cfg.softmax_in_compute_dtype else torch.float32
         probs = None
-        if sliding is not None and sliding.chunked:
+        if bigbird is not None:
+            ctx = bigbird_block_sparse_attention(
+                q, k, v, bigbird, cfg.bigbird_block_size, cfg.bigbird_num_global_blocks,
+                cfg.bigbird_num_random_blocks, cfg.bigbird_seed, softmax_dtype=sm_dtype,
+            ).to(dt)
+        elif sliding is not None and sliding.chunked:
             ctx = chunked_sliding_window_attention(
                 q, k, v, sliding.attention_mask, sliding.global_mask, cfg.attention_window,
                 max_globals=cfg.max_global_tokens, softmax_dtype=sm_dtype,
@@ -350,10 +373,11 @@ class TransformerLayer(nn.Module):
 
     def forward(self, hidden, attention_bias, output_attentions=False, generator=None,
                 sliding: Optional[SlidingMasks] = None, quantized: bool = False,
-                segment_ids: Optional[torch.Tensor] = None):
+                segment_ids: Optional[torch.Tensor] = None,
+                bigbird: Optional[torch.Tensor] = None):
         rate = self.cfg.hidden_dropout
         attn_out, probs = self.attention(hidden, attention_bias, output_attentions, generator,
-                                         sliding, quantized, segment_ids)
+                                         sliding, quantized, segment_ids, bigbird)
         attn_out = dropout(attn_out, rate, self.training, generator)
         hidden = self.attention_ln(hidden + attn_out)
         if quantized:  # the activation in mlp_in's epilogue, as JAX's QuantDense
@@ -371,17 +395,27 @@ class TransformerLayer(nn.Module):
         return (sliding.attention_mask, sliding.global_mask, attn.qkv.kernel, attn.qkv.bias,
                 attn.qkv_global.kernel, attn.qkv_global.bias, attn.out.kernel, attn.out.bias)
 
+    def _bigbird_pattern(self):
+        cfg = self.cfg
+        return (cfg.bigbird_block_size, cfg.bigbird_num_global_blocks,
+                cfg.bigbird_num_random_blocks, cfg.bigbird_seed)
+
     def forward_fused(self, hidden, segment_ids, sliding: Optional[SlidingMasks] = None,
-                      quantized: bool = False):
+                      quantized: bool = False, bigbird: Optional[torch.Tensor] = None):
         """h1 = LN(x + attn(x)) in the attention-block kernel (the dense one,
-        or the Longformer one with ``sliding``), then h2 = LN(h1 + mlp(h1))
-        in the MLP-block kernel; ``quantized``: their W8A8 modes (dense)."""
+        the Longformer one with ``sliding``, the BigBird one with ``bigbird``,
+        the (B, L) attention mask), then h2 = LN(h1 + mlp(h1)) in the
+        MLP-block kernel; ``quantized``: their W8A8 modes (dense)."""
         cfg = self.cfg
         B, L, H = hidden.shape
         attn, ln1 = self.attention, self.attention_ln
         ln = dict(sm_scale=1.0 / math.sqrt(cfg.head_dim), ln_scale=ln1.scale, ln_bias=ln1.bias,
                   eps=cfg.layer_norm_eps)
-        if sliding is None:
+        if bigbird is not None:  # its wrapper raises for the W8A8 mode, not ported yet
+            h1 = fused_bigbird_attention_block(hidden, bigbird, attn.qkv.kernel, attn.qkv.bias,
+                                               attn.out.kernel, attn.out.bias,
+                                               *self._bigbird_pattern(), quantized=quantized, **ln)
+        elif sliding is None:
             h1 = fused_attention_block(hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias,
                                        attn.out.kernel, attn.out.bias, quantized=quantized, **ln)
         elif quantized:
@@ -408,11 +442,12 @@ class TransformerLayer(nn.Module):
                 self.mlp_ln.bias)
 
     def forward_train_fused(self, hidden, segment_ids, generator=None,
-                            sliding: Optional[SlidingMasks] = None):
+                            sliding: Optional[SlidingMasks] = None,
+                            bigbird: Optional[torch.Tensor] = None):
         """The training kernels: attn = attention block (probability dropout
         inside the kernel, seeded from ``generator``; the Longformer block
-        with ``sliding``), h1 = LN(x + dropout(attn)); mlp = the MLP core,
-        h2 = LN(h1 + dropout(mlp))."""
+        with ``sliding``, the BigBird one with ``bigbird``), h1 = LN(x +
+        dropout(attn)); mlp = the MLP core, h2 = LN(h1 + dropout(mlp))."""
         cfg = self.cfg
         B, L, H = hidden.shape
         attn = self.attention
@@ -422,7 +457,12 @@ class TransformerLayer(nn.Module):
             seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=hidden.device,
                                  dtype=torch.int32)
         sm_scale = 1.0 / math.sqrt(cfg.head_dim)
-        if sliding is None:
+        if bigbird is not None:
+            attn_out = bigbird_attention_block_train(
+                hidden, bigbird, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel, attn.out.bias,
+                seed, sm_scale, *self._bigbird_pattern(), dropout_rate=rate,
+            )
+        elif sliding is None:
             attn_out = attention_block_train(
                 hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel,
                 attn.out.bias, seed, sm_scale=sm_scale, dropout_rate=rate,
@@ -463,6 +503,42 @@ W8A8_SLIDING = ("quantize='w8a8' on the fused Longformer path (the W8A8 mode of 
                 "not ported yet; ask for attention_impl='einsum'")
 
 
+def bigbird_contract_breach(cfg: EncoderConfig, seq_len: int,
+                            prefix_globals: Optional[int]) -> Optional[str]:
+    """Why the BigBird kernels cannot take this call (the contract of the TPU
+    kernels), or None."""
+    C = cfg.bigbird_block_size
+    if C <= 0 or seq_len % C or C % 8:
+        return (f"sequence length {seq_len} must be a multiple of bigbird_block_size = {C}, "
+                f"itself a multiple of 8")
+    if prefix_globals is None:
+        return "no prefix_globals promise (suffix padding)"
+    return None
+
+
+def _resolve_bigbird(cfg: EncoderConfig, device: torch.device, impl: str, quantized: bool,
+                     seq_len: int, prefix_globals: Optional[int]) -> str:
+    """BigBird's path, as the JAX encoder resolves it: the training kernels
+    whatever ``bigbird_impl`` says, the inference kernels under "auto" or
+    "fused"; else "bias" or "block" ("auto": block above 1024 tokens,
+    "fused": block)."""
+    bb = cfg.bigbird_impl
+    if bb not in ("auto", "bias", "block", "fused"):
+        raise ValueError(f"bigbird_impl={bb!r}")
+    if impl == "train_fused" or (impl == "fused" and bb in ("auto", "fused")):
+        breach = bigbird_contract_breach(cfg, seq_len, prefix_globals)
+        if breach is None:
+            if impl == "fused" and quantized:
+                raise NotImplementedError(W8A8_BIGBIRD)
+            return impl
+        if device.type == "cuda":
+            raise ValueError(f"the BigBird kernels' contract is broken: {breach}; ask for "
+                             f"attention_impl='einsum'")
+    if bb == "auto":
+        return "block" if seq_len > 1024 else "bias"
+    return "bias" if bb == "bias" else "block"
+
+
 def resolve_attention_impl(
     cfg: EncoderConfig, device: torch.device, output_attentions: bool, training: bool = False,
     seq_len: Optional[int] = None, prefix_globals: Optional[int] = None,
@@ -470,13 +546,14 @@ def resolve_attention_impl(
     output_hidden_states: bool = False,
 ) -> str:
     """The path the encoder will run: "einsum", "fused", "stack", "pallas" or
-    "train_fused", and for sliding-window models the einsum path's "bias" or
-    "chunked"; raises for what the port does not have yet, and on CUDA for a
-    sliding-window call that breaks the kernels' contract. In training mode
+    "train_fused", for sliding-window models the einsum path's "bias" or
+    "chunked", for BigBird models its "bias" or "block"; raises for what the
+    port does not have yet, and on CUDA for a sliding-window or BigBird call
+    that breaks the kernels' contract. In training mode
     "fused" and "stack" mean the training kernels: the inference kernels
     have no backward and skip dropout. "stack" keeps no per-layer hidden
     states, so with ``output_hidden_states`` it is "fused", as in JAX."""
-    if cfg.attention_type not in ("dense", "sliding_window"):
+    if cfg.attention_type not in ("dense", "sliding_window", "bigbird"):
         raise NotImplementedError(f"attention_type={cfg.attention_type!r} is not ported yet")
     if cfg.quantize not in ("none", "w8a8"):
         raise ValueError(f"quantize={cfg.quantize!r}")
@@ -506,6 +583,8 @@ def resolve_attention_impl(
         return impl
     if impl == "pallas":
         impl = "einsum"  # JAX's pallas path is dense only
+    if cfg.attention_type == "bigbird":
+        return _resolve_bigbird(cfg, device, impl, quantized, seq_len, prefix_globals)
     sw = cfg.sliding_window_impl
     if sw not in ("auto", "bias", "chunked", "fused"):
         raise ValueError(f"sliding_window_impl={sw!r}")
@@ -565,14 +644,15 @@ class Encoder(nn.Module):
         mode. Sliding-window models take ``global_attention_mask`` (B, L), 1
         on global tokens, and ``prefix_globals``: the promise that padding is
         a suffix and the global tokens the first ``prefix_globals`` positions
-        at most, which the kernels need."""
+        at most, which the kernels need; BigBird models take
+        ``prefix_globals`` (0) as the suffix-padding promise alone."""
         B, L = input_ids.shape
         cfg = self.cfg
         if attention_mask is None:
             attention_mask = torch.ones((B, L), dtype=torch.int32, device=input_ids.device)
         sliding = cfg.attention_type == "sliding_window"
-        if sliding and pack_segment_ids is not None:
-            raise NotImplementedError("pack_segment_ids with sliding-window attention")
+        if cfg.attention_type != "dense" and pack_segment_ids is not None:
+            raise NotImplementedError(f"pack_segment_ids with {cfg.attention_type} attention")
         impl = resolve_attention_impl(cfg, input_ids.device, output_attentions, self.training,
                                       L, prefix_globals, global_attention_mask is not None,
                                       batch_size=B, output_hidden_states=output_hidden_states)
@@ -601,20 +681,28 @@ class Encoder(nn.Module):
                 key_padding_bias=(1.0 - attention_mask[:, None, None, :].float()) * NEG_INF,
                 chunked=impl == "chunked", global_rows=(prefix_globals or 0) > 0,
             )
+        # BigBird's kernels and block path read the (B, L) mask itself
+        bigbird = (attention_mask if cfg.attention_type == "bigbird"
+                   and impl in ("fused", "train_fused", "block") else None)
         if impl in ("fused", "train_fused"):
             for layer in self.layers():
                 if impl == "fused":
-                    hidden = layer.forward_fused(hidden, seg, masks, quantized)
+                    hidden = layer.forward_fused(hidden, seg, masks, quantized, bigbird)
                 else:
-                    hidden = layer.forward_train_fused(hidden, seg, generator, masks)
+                    hidden = layer.forward_train_fused(hidden, seg, generator, masks, bigbird)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
         else:
-            if impl == "bias":
+            if impl == "bias" and sliding:
                 bias = sliding_window_attention_mask_bias(
                     attention_mask, cfg.attention_window, global_attention_mask, NEG_INF,
                 )[:, None]
-            elif impl in ("chunked", "pallas"):
+            elif impl == "bias":
+                bias = bigbird_attention_bias(
+                    attention_mask, cfg.bigbird_block_size, cfg.bigbird_num_global_blocks,
+                    cfg.bigbird_num_random_blocks, cfg.bigbird_seed, NEG_INF,
+                )
+            elif impl in ("chunked", "pallas", "block"):
                 bias = None
             else:
                 bias = (1.0 - attention_mask[:, None, None, :].float()) * NEG_INF
@@ -623,7 +711,7 @@ class Encoder(nn.Module):
                     bias = bias + torch.where(same, 0.0, NEG_INF)[:, None, :, :]
             for layer in self.layers():
                 hidden, probs = layer(hidden, bias, output_attentions, generator, masks, quantized,
-                                      seg if impl == "pallas" else None)
+                                      seg if impl == "pallas" else None, bigbird)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
                 if output_attentions:

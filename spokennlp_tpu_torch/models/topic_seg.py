@@ -62,8 +62,10 @@ class TopicSegModel(nn.Module):
         forward in training mode. A sliding-window trunk without a
         ``global_attention_mask`` makes CLS the one global token, as the
         reference's Longformer model does; with the right-padding
-        featurizers that keeps the kernels' contract (``prefix_globals=1``)."""
-        prefix_globals = None
+        featurizers that keeps the kernels' contract (``prefix_globals=1``).
+        A BigBird trunk gets ``prefix_globals=0``: the featurizers right-pad,
+        and its globals are its first blocks."""
+        prefix_globals = 0 if self.enc_cfg.attention_type == "bigbird" else None
         if global_attention_mask is None and self.enc_cfg.attention_type == "sliding_window":
             global_attention_mask = torch.zeros_like(attention_mask)
             global_attention_mask[:, 0] = 1

@@ -46,6 +46,10 @@ _SIGNATURES = {
     "spk_sliding_train_fwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_sliding_train_bwd": [_I] + [_P] * 27 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_sliding_dropout_mask": [_P] * 4 + [_I] * 5 + [_U, _P],
+    "spk_bigbird_block": [_I] + [_P] * 15 + [_I] * 8 + [_F, _F, _I, _P],
+    "spk_bigbird_train_fwd": [_I] + [_P] * 13 + [_I] * 8 + [_F, _U, _F, _P],
+    "spk_bigbird_train_bwd": [_I] + [_P] * 22 + [_I] * 8 + [_F, _U, _F, _P],
+    "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],
 }
 
 

@@ -1,0 +1,242 @@
+"""Training BigBird attention block with hand-written forward and backward
+kernels.
+
+Counterpart of ``spokennlp_tpu/ops/pallas/train_bigbird.py``:
+``bigbird_attention_block_train`` is the attention of
+``ops/cuda/bigbird_block.py`` (window, global-column and random key blocks,
+global rows dense) followed by the output projection, without the LayerNorm
+epilogue, with dropout on the window, global-column, random and global-row
+probabilities inside the kernels (``csrc/train_bigbird.cu``). Residual,
+LayerNorm and hidden-state dropout stay in PyTorch.
+
+On a CUDA tensor it runs the kernels through a ``torch.autograd.Function``
+whose backward is a kernel too; the forward saves only its inputs and the
+seed, and the backward recomputes the rest. On a CPU tensor it runs
+``bigbird_train_plain`` (float32 PyTorch on the block-sparse formulation,
+with explicit keep masks), whose gradient comes from autograd.
+
+Dropout draws one Philox4x32-10 word per probability from four counter
+spaces that never meet, the second word carrying the head and a tag:
+
+    window keys     (b, h,           row, key)
+    global columns  (b, h | 1 << 16, row, key)       key < G C
+    global rows     (b, h | 2 << 16, row, key)       row < G C
+    random blocks   (b, h | 3 << 16, row, r C + c)   the r-th random block's key c
+
+and keeps a probability iff its bits are >= ``dropout_threshold(rate)``.
+``bigbird_keep_masks`` gives the four masks on either device (the numpy twin
+``philox_bits`` on the CPU), so the plain version replays the kernels'
+dropout exactly. The TPU kernel's hardware-PRNG pattern cannot be matched bit
+for bit, so parity with JAX runs at rate 0.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+from spokennlp_tpu_torch.ops.cuda import build
+from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
+from spokennlp_tpu_torch.ops.cuda.bigbird_block import (
+    bigbird_context_plain, card_weights, check_card_inputs,
+)
+from spokennlp_tpu_torch.ops.cuda.train_blocks import _stream, dropout_threshold, philox_bits
+from spokennlp_tpu_torch.ops.cuda.train_sliding import (
+    GLOBAL_COL_STREAM, GLOBAL_ROW_STREAM, _u32,
+)
+
+RANDOM_STREAM = 3 << 16
+
+
+def bigbird_keep_masks(seed: torch.Tensor, B: int, nh: int, L: int, block_size: int, G: int,
+                       R: int, rate: float):
+    """(window (B, nh, nb, C, 3C), global columns (B, nh, L, G C), random
+    (B, nh, L, R C), global rows (B, nh, G C, L)) bool: where the training
+    kernels keep a probability for this (1,) int32 seed, on the seed's
+    device. ``G`` and ``R`` are the pattern's (``bigbird_tables``). Window
+    entry (i, ci, cj) is row i C + ci against key i C - C + cj; random entry
+    (row, r C + c) is the row against the c-th key of its r-th random
+    block."""
+    C = block_size
+    nb, GC, RC = L // C, G * C, R * C
+    thr = dropout_threshold(rate)
+    if seed.device.type == "cpu":
+        s = int(seed.reshape(-1)[0])
+        b, h, i, ci, cj = np.ix_(np.arange(B), np.arange(nh), np.arange(nb), np.arange(C),
+                                 np.arange(3 * C))
+        win = philox_bits(s, b, h, _u32(i * C + ci), _u32(i * C - C + cj))
+        b, h, r, c = np.ix_(np.arange(B), np.arange(nh), np.arange(L), np.arange(GC))
+        gcol = philox_bits(s, b, h | GLOBAL_COL_STREAM, r, c)
+        b, h, r, c = np.ix_(np.arange(B), np.arange(nh), np.arange(L), np.arange(RC))
+        rnd = philox_bits(s, b, h | RANDOM_STREAM, r, c)
+        b, h, g, k = np.ix_(np.arange(B), np.arange(nh), np.arange(GC), np.arange(L))
+        grow = philox_bits(s, b, h | GLOBAL_ROW_STREAM, g, k)
+        return tuple(torch.from_numpy(m >= np.uint32(thr)) for m in (win, gcol, rnd, grow))
+    masks = [torch.empty(shape, dtype=torch.uint8, device=seed.device)
+             for shape in ((B, nh, nb, C, 3 * C), (B, nh, L, GC), (B, nh, L, RC), (B, nh, GC, L))]
+    seed = seed.to(torch.int32).contiguous()
+    with torch.cuda.device(seed.device):
+        code = build.library().spk_bigbird_dropout_mask(
+            seed.data_ptr(), *(m.data_ptr() for m in masks), B, nh, L, C, G, R, thr, _stream())
+    build.check(code, "bigbird_keep_masks")
+    return tuple(m.bool() for m in masks)
+
+
+def bigbird_train_plain(
+    hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel, out_bias, *, sm_scale: float,
+    block_size: int, num_global_blocks: int, num_random_blocks: int, pattern_seed: int,
+    dropout_rate: float = 0.0, keep=None,
+) -> torch.Tensor:
+    """The training block in plain float32 PyTorch; returns hidden's dtype.
+    ``keep`` (the four masks of ``bigbird_keep_masks``) is needed when
+    ``dropout_rate`` > 0."""
+    if dropout_rate > 0.0 and keep is None:
+        raise ValueError("bigbird_train_plain: dropout_rate > 0 needs the keep masks")
+    ctx = bigbird_context_plain(
+        hidden, attention_mask, qkv_kernel, qkv_bias, sm_scale=sm_scale, block_size=block_size,
+        num_global_blocks=num_global_blocks, num_random_blocks=num_random_blocks,
+        seed=pattern_seed, dropout_rate=dropout_rate, keep=keep,
+    )
+    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    return out.to(hidden.dtype)
+
+
+# ------------------------------------------------------------ kernel calls
+
+
+def bigbird_train_fwd(hidden, mask, seed, w, bo, tables, *, num_heads: int, block_size: int,
+                      sm_scale: float, dropout_rate: float) -> torch.Tensor:
+    """Forward kernel: hidden (B, L, H), the weights of ``card_weights`` ``w``,
+    bo (H,) float32, mask (B, L) and seed (1,) int32 and the pattern's
+    ``bigbird_tables``, all on one card. ``bigbird_train_fwd.launches``
+    counts its launches."""
+    B, L, H = hidden.shape
+    HN = w["wo"].shape[0]
+    hd = HN // num_heads
+    dev, dt = hidden.device, hidden.dtype
+    empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    counts, qkv_buf, ctx_buf = (empty(B, 2, dtype=torch.int32), empty(3, B, num_heads, L, hd),
+                                empty(B, L, HN))
+    out = torch.empty_like(hidden)
+    with torch.cuda.device(dev):
+        code = build.library().spk_bigbird_train_fwd(
+            _DTYPES[dt], *(t.data_ptr() for t in (hidden, mask, tables.rand, tables.rok, seed,
+                                                  w["wqkv"], w["bqkv"], w["wo"], bo, counts,
+                                                  qkv_buf, ctx_buf, out)),
+            B, L, H, num_heads, hd, block_size, tables.G, tables.R, float(sm_scale),
+            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
+        )
+    build.check(code, "bigbird_train_fwd")
+    bigbird_train_fwd.launches += 1
+    return out
+
+
+def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block_size: int,
+                      sm_scale: float, dropout_rate: float):
+    """Backward kernel: recomputes the forward from its inputs and returns
+    (dx in the compute dtype, dWqkv (H, 3 Hn), dbqkv (3 Hn,), dWo (Hn, H),
+    dbo (H,) in float32, summed over the batch).
+    ``bigbird_train_bwd.launches`` counts its launches."""
+    B, L, H = hidden.shape
+    HN = w["wo"].shape[0]
+    hd = HN // num_heads
+    dev, dt = hidden.device, hidden.dtype
+    f32 = torch.float32
+    empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
+    bufs = (empty(B, 2, dtype=torch.int32), empty(3, B, num_heads, L, hd), empty(B, L, HN),
+            empty(B, L, HN), empty(3, B, num_heads, L, dtype=f32), empty(B * L, 3 * HN))
+    dx = torch.empty_like(hidden)
+    dwqkv, dbqkv = empty(H, 3 * HN, dtype=f32), empty(3 * HN, dtype=f32)
+    dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
+    with torch.cuda.device(dev):
+        code = build.library().spk_bigbird_train_bwd(
+            _DTYPES[dt], *(t.data_ptr() for t in (hidden, mask, tables.rand, tables.rok,
+                                                  tables.inv_offsets, tables.inv_entries, seed,
+                                                  w["wqkv"], w["bqkv"], w["wo"], g, *bufs, dx,
+                                                  dwqkv, dbqkv, dwo, dbo)),
+            B, L, H, num_heads, hd, block_size, tables.G, tables.R, float(sm_scale),
+            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
+        )
+    build.check(code, "bigbird_train_bwd")
+    bigbird_train_bwd.launches += 1
+    return dx, dwqkv, dbqkv, dwo, dbo
+
+
+for _fn in (bigbird_train_fwd, bigbird_train_bwd):
+    _fn.launches = 0
+
+
+class _BigBirdTrain(torch.autograd.Function):
+    """The kernels as one differentiable function of (hidden and the float32
+    parameters); saves only the inputs and the seed."""
+
+    @staticmethod
+    def forward(ctx, hidden, mask, seed, qkv_kernel, qkv_bias, out_kernel, out_bias, tables,
+                config):
+        w = card_weights(qkv_kernel, qkv_bias, out_kernel, hidden.dtype)
+        out = bigbird_train_fwd(hidden, mask, seed, w, out_bias.detach().float().contiguous(),
+                                tables, **config)
+        ctx.save_for_backward(hidden, mask, seed, *w.values())
+        ctx.names, ctx.tables, ctx.config = list(w), tables, config
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, mask, seed, *ws = ctx.saved_tensors
+        w = dict(zip(ctx.names, ws))
+        H = hidden.shape[-1]
+        nh = ctx.config["num_heads"]
+        hd = w["wo"].shape[0] // nh
+        dx, dwqkv, dbqkv, dwo, dbo = bigbird_train_bwd(
+            hidden, mask, seed, w, g.to(hidden.dtype).contiguous(), ctx.tables, **ctx.config)
+        return (dx, None, None, dwqkv.reshape(H, 3, nh, hd), dbqkv.reshape(3, nh, hd),
+                dwo.reshape(nh, hd, H), dbo, None, None)
+
+
+def bigbird_attention_block_train(
+    hidden: torch.Tensor,  # (B, L, H) compute dtype
+    attention_mask: torch.Tensor,  # (B, L) int; suffix padding
+    qkv_kernel: torch.Tensor,  # (H, 3, nh, hd) float32 parameter
+    qkv_bias: torch.Tensor,  # (3, nh, hd)
+    out_kernel: torch.Tensor,  # (nh, hd, H)
+    out_bias: torch.Tensor,  # (H,)
+    seed: torch.Tensor,  # (1,) int32: the dropout stream (ignored at rate 0)
+    sm_scale: float,
+    block_size: int,
+    num_global_blocks: int,
+    num_random_blocks: int,
+    pattern_seed: int,
+    dropout_rate: float = 0.0,
+) -> torch.Tensor:
+    """Differentiable BigBird attention block of the training path; returns
+    (B, L, H) in hidden's dtype, before hidden-state dropout, residual and
+    LayerNorm. The random pattern is ``bigbird_block_indices`` at
+    ``pattern_seed``. A CUDA tensor that breaks the contract of
+    ``ops/cuda/bigbird_block.py`` raises."""
+    kw = dict(sm_scale=sm_scale, block_size=block_size, num_global_blocks=num_global_blocks,
+              num_random_blocks=num_random_blocks, pattern_seed=pattern_seed,
+              dropout_rate=dropout_rate)
+    B, L, _ = hidden.shape
+    if hidden.device.type == "cpu":
+        keep = None
+        if dropout_rate > 0.0:
+            t = bigbird_tables(L // block_size, num_global_blocks, num_random_blocks,
+                               pattern_seed, "cpu")
+            keep = bigbird_keep_masks(seed, B, qkv_kernel.shape[2], L, block_size, t.G, t.R,
+                                      dropout_rate)
+        return bigbird_train_plain(hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel,
+                                   out_bias, keep=keep, **kw)
+    where = "bigbird_attention_block_train"
+    check_card_inputs(where, hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel, out_bias,
+                      block_size)
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"{where}: dropout_rate {dropout_rate} not in [0, 1)")
+    tables = bigbird_tables(L // block_size, num_global_blocks, num_random_blocks, pattern_seed,
+                            hidden.device)
+    config = dict(num_heads=qkv_kernel.shape[2], block_size=block_size,
+                  sm_scale=float(sm_scale), dropout_rate=float(dropout_rate))
+    return _BigBirdTrain.apply(
+        hidden.contiguous(), attention_mask.to(torch.int32).contiguous(),
+        seed.to(torch.int32).contiguous(), qkv_kernel, qkv_bias, out_kernel, out_bias, tables,
+        config)

@@ -1,0 +1,364 @@
+"""Port BigBird attention: ``ops/bigbird_attention.py`` (the index table, the
+bias, block and reference paths), the plain versions of the BigBird
+inference block and training block against the JAX package's Pallas kernels
+(interpret mode) on the CPU, the kernels' tables, the Philox keep masks of
+the four probability sets, and the CUDA kernels against the plain versions
+on the card (``-m gpu``). JAX is imported inside the CPU tests only.
+
+Shapes: B=2, H=32, 2 heads, blocks of 8 with 2 global and 3 random blocks,
+at L=64 (nb=8) and at L=32 (nb=4, where short rows of the table fall back to
+padded-self entries), and without random blocks (the JAX inference kernel
+takes no zero-width table, so that case runs against the training kernel and
+the gather path). Tolerances: the functions
+of ops/bigbird_attention.py and the float32 blocks to 1e-5 (the same math
+summed in another order); the training block's output and gradients to
+1e-4 (gradients relative to their largest magnitude); bfloat16, where the
+JAX kernel rounds q, k, v, the probabilities and ctx to bf16 (unit roundoff
+2^-9) and the plain version stays in float32, to 3e-2 of the largest
+output. Only real rows are compared where a row may have no allowed key.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spokennlp_tpu_torch.ops import bigbird_attention as ba
+from spokennlp_tpu_torch.ops.cuda import bigbird_block as bb
+from spokennlp_tpu_torch.ops.cuda import train_bigbird as tb
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+MODULE_TOL = 1e-4
+BF16_RTOL = 3e-2
+# card: largest |kernel - plain| over the largest |plain| of each output,
+# the tolerances of the dense and Longformer training kernels
+# (tests/test_torch_train_blocks.py)
+CARD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+
+B, H, NH, BLOCK, G, R = 2, 32, 2, 8, 2, 3
+HD = H // NH
+ARGS = ("hidden", "qkv_kernel", "qkv_bias", "out_kernel", "out_bias")
+
+
+def _inputs(B, L, H, nh, seed, n_valid=None, w_scale=None):
+    """Suffix padding: row 0 full, the others cut to ``n_valid`` (default
+    40-90 % of L)."""
+    hd = H // nh
+    rng = np.random.default_rng(seed)
+    w_scale = w_scale or H**-0.5
+    f = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)
+    mask = np.zeros((B, L), np.int32)
+    for b in range(B):
+        n = L if b == 0 else (n_valid or int(rng.integers(int(0.4 * L), int(0.9 * L))))
+        mask[b, :n] = 1
+    return dict(
+        hidden=f(B, L, H), attention_mask=mask,
+        qkv_kernel=f(H, 3, nh, hd, scale=w_scale), qkv_bias=f(3, nh, hd, scale=0.1),
+        out_kernel=f(nh, hd, H, scale=w_scale), out_bias=f(H, scale=0.1),
+        ln_scale=1 + f(H, scale=0.1), ln_bias=f(H, scale=0.1),
+        cotangent=f(B, L, H) * mask[:, :, None],
+    )
+
+
+def _normalized(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+# ------------------------------------------------------ ops/bigbird_attention
+
+
+@pytest.mark.parametrize("nb,g,r,seed", [(8, 2, 3, 0), (4, 2, 3, 7), (16, 2, 3, 1), (1, 2, 3, 0),
+                                         (6, 1, 2, 5), (5, 3, 0, 2), (64, 2, 3, 0)])
+def test_index_table_and_tables_match_jax(nb, g, r, seed):
+    """The static table is numpy's and identical to JAX's; the kernels' random
+    tail, flags and inverse table follow from it."""
+    from spokennlp_tpu.ops import bigbird_attention as jba
+
+    idx = ba.bigbird_block_indices(nb, g, r, seed)
+    np.testing.assert_array_equal(idx, jba.bigbird_block_indices(nb, g, r, seed))
+    np.testing.assert_array_equal(ba._first_occurrence_mask(idx), jba._first_occurrence_mask(idx))
+    t = ba.bigbird_tables(nb, g, r, seed, "cpu")
+    assert ba.bigbird_tables(nb, g, r, seed, "cpu") is t  # cached
+    Gk = min(g, nb)
+    assert (t.G, t.R) == (Gk, r if nb > 1 else 0)
+    occ = ba._first_occurrence_mask(ba.bigbird_block_indices(nb, Gk, r, seed))
+    if t.R:
+        np.testing.assert_array_equal(t.rand.numpy(), idx[:, Gk + 3:])
+        np.testing.assert_array_equal(t.rok.numpy(), occ[:, Gk + 3:].astype(np.int32))
+    # the inverse table lists each live entry of a non-global query block once
+    want = sorted((int(t.rand[i, k]), i * t.R + k) for i in range(Gk, nb) for k in range(t.R)
+                  if t.rok[i, k])
+    off, ent = t.inv_offsets.numpy(), t.inv_entries.numpy()
+    got = [(j, int(e)) for j in range(nb) for e in ent[off[j]:off[j + 1]]]
+    assert got == want and off[-1] == len(want)
+
+
+@pytest.mark.parametrize("L,r", [(64, 3), (32, 3), (64, 0)])
+def test_bias_block_and_reference_match_jax(L, r):
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops import bigbird_attention as jba
+
+    rng = np.random.default_rng(L + r)
+    q, k, v = (rng.normal(size=(B, L, NH, HD)).astype(np.float32) for _ in range(3))
+    mask = np.ones((B, L), np.int32)
+    mask[1, 13:] = 0  # fewer real tokens than the global blocks hold
+    j = [jnp.asarray(a) for a in (q, k, v, mask)]
+    t = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    pattern = (BLOCK, G, r, 3)
+    np.testing.assert_array_equal(ba.bigbird_attention_bias(t[3], *pattern).numpy(),
+                                  np.asarray(jba.bigbird_attention_bias(j[3], *pattern)))
+    np.testing.assert_allclose(ba.bigbird_block_sparse_attention(*t, *pattern).numpy(),
+                               np.asarray(jba.bigbird_block_sparse_attention(*j, *pattern)),
+                               **F32_TOL)
+    np.testing.assert_allclose(ba.reference_bigbird_attention(*t, *pattern).numpy(),
+                               np.asarray(jba.reference_bigbird_attention(*j, *pattern)),
+                               **F32_TOL)
+
+
+# --------------------------------------------------- kernel 8: plain vs JAX
+
+
+@pytest.mark.parametrize("L,n_valid,r,dtype,fuse_ln", [
+    (64, 45, 3, "float32", True),    # suffix padding
+    (64, 13, 3, "float32", False),   # n_valid < G * block: masked global columns
+    (32, 20, 3, "float32", True),    # nb = 4: padded-self random entries
+    (32, 32, 3, "float32", True),    # full rows
+    (64, 45, 3, "bfloat16", True),
+])
+def test_bigbird_block_plain_matches_jax_kernel(L, n_valid, r, dtype, fuse_ln):
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.bigbird_block_kernel import fused_bigbird_attention_block as jb
+
+    inp = _inputs(B, L, H, NH, seed=L + n_valid, n_valid=n_valid)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ln = ({"ln_scale": inp["ln_scale"], "ln_bias": inp["ln_bias"]} if fuse_ln else {})
+    kw = dict(block_size=BLOCK, num_global_blocks=G, num_random_blocks=r, seed=3,
+              sm_scale=HD**-0.5)
+    want = jb(jnp.asarray(inp["hidden"]).astype(jdt), jnp.asarray(inp["attention_mask"]),
+              *(jnp.asarray(inp[k]) for k in ARGS[1:]), interpret=True,
+              **{k: jnp.asarray(v) for k, v in ln.items()}, **kw)
+    t = {k: torch.from_numpy(inp[k]) for k in ARGS}
+    for k in ("qkv_kernel", "out_kernel"):  # the weights the kernel reads
+        t[k] = t[k].to(tdt)
+    got = bb.fused_bigbird_attention_block(
+        t["hidden"].to(tdt), torch.from_numpy(inp["attention_mask"]),
+        *(t[k] for k in ARGS[1:]), **{k: torch.from_numpy(v) for k, v in ln.items()}, **kw)
+    live = inp["attention_mask"].astype(bool)
+    got, want = got.float().numpy()[live], np.asarray(want.astype(jnp.float32))[live]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **F32_TOL)
+    else:
+        assert _normalized(got, want) < BF16_RTOL
+
+
+# -------------------------------------------------- kernel 13: plain vs JAX
+
+
+@pytest.mark.parametrize("L,n_valid,r", [(64, 45, 3), (32, 11, 3), (64, 50, 0)])
+def test_bigbird_train_plain_and_grads_match_jax_kernel(L, n_valid, r):
+    """Rate 0: the output and all five gradients (dx, dWqkv, dbqkv, dWo,
+    dbo) through autograd of the plain version against the TPU kernel's
+    custom VJP."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_bigbird import bigbird_attention_block_train as jt
+
+    inp = _inputs(B, L, H, NH, seed=L + n_valid + 1, n_valid=n_valid)
+    mask, cot = jnp.asarray(inp["attention_mask"]), jnp.asarray(inp["cotangent"])
+    kw = dict(block_size=BLOCK, num_global_blocks=G, num_random_blocks=r, pattern_seed=4)
+
+    def f(hidden, *params):
+        o = jt(hidden, mask, *params, jnp.zeros((1,), jnp.int32), HD**-0.5, dropout_rate=0.0,
+               interpret=True, **kw)
+        return jnp.sum(o * cot), o
+
+    (_, want), want_grads = jax.value_and_grad(f, argnums=tuple(range(5)), has_aux=True)(
+        *(jnp.asarray(inp[k]) for k in ARGS))
+    t = {k: torch.from_numpy(inp[k]).requires_grad_(k in ARGS) for k in inp}
+    out = tb.bigbird_attention_block_train(
+        t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:]),
+        torch.zeros(1, dtype=torch.int32), HD**-0.5, **kw)
+    (out * t["cotangent"]).sum().backward()
+    live = inp["attention_mask"].astype(bool)
+    np.testing.assert_allclose(out.detach().numpy()[live], np.asarray(want)[live],
+                               atol=MODULE_TOL, rtol=MODULE_TOL)
+    for name, w in zip(ARGS, want_grads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t[name].grad.numpy(), w, rtol=MODULE_TOL,
+                                   atol=MODULE_TOL * np.abs(w).max(), err_msg=name)
+
+
+# ------------------------------------------------------------------ dropout
+
+
+def test_keep_masks_are_deterministic_disjoint_and_fair():
+    seed = torch.tensor([20231018], dtype=torch.int32)
+    Bm, nh, Lm, C, Gm, Rm, rate = 2, 3, 256, 16, 2, 3, 0.1
+    masks = tb.bigbird_keep_masks(seed, Bm, nh, Lm, C, Gm, Rm, rate)
+    again = tb.bigbird_keep_masks(seed, Bm, nh, Lm, C, Gm, Rm, rate)
+    other = tb.bigbird_keep_masks(seed + 1, Bm, nh, Lm, C, Gm, Rm, rate)
+    assert [tuple(m.shape) for m in masks] == [
+        (Bm, nh, Lm // C, C, 3 * C), (Bm, nh, Lm, Gm * C), (Bm, nh, Lm, Rm * C),
+        (Bm, nh, Gm * C, Lm)]
+    for m, a, o in zip(masks, again, other):
+        assert torch.equal(m, a) and not torch.equal(m, o)
+        assert abs(m.float().mean().item() - (1 - rate)) < 1e-2
+    # the four counter spaces differ where their (row, column) coincide: the
+    # window's (row, key) against the global columns', the random blocks'
+    # and the global rows' for rows and columns in [0, G C)
+    win, gcol, rnd, grow = masks
+    n = Gm * C
+    win_abs = np.zeros((Bm, nh, n, n), bool)
+    for row in range(n):  # window entry of row against key j: cj = j - (row - row % C) + C
+        for j in range(max(0, row - row % C - C), min(n, row - row % C + 2 * C)):
+            win_abs[:, :, row, j] = win[:, :, row // C, row % C, j - (row - row % C) + C].numpy()
+    band = np.abs(np.arange(n)[:, None] // C - np.arange(n)[None] // C) <= 1
+    for m in (gcol[:, :, :n, :n], rnd[:, :, :n, :n], grow[:, :, :n, :n]):
+        assert (win_abs != m.numpy())[:, :, band].any()
+    bits = [tb.philox_bits(7, 0, 1 | s, 3, 5) for s in (0, tb.GLOBAL_COL_STREAM,
+                                                         tb.GLOBAL_ROW_STREAM, tb.RANDOM_STREAM)]
+    assert len({int(b) for b in bits}) == 4
+
+
+@pytest.mark.parametrize("L,n_valid", [(64, 45), (32, 20)])
+def test_dropout_replays_the_keep_masks_on_cpu(L, n_valid):
+    """At rate 0.1 the block equals the plain version given the four masks,
+    another seed drops other probabilities, and every mask takes part."""
+    inp = _inputs(B, L, H, NH, seed=7, n_valid=n_valid)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    seed = torch.tensor([99], dtype=torch.int32)
+    kw = dict(sm_scale=HD**-0.5, block_size=BLOCK, num_global_blocks=G, num_random_blocks=R,
+              pattern_seed=4, dropout_rate=0.1)
+    args = (t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:]))
+    got = tb.bigbird_attention_block_train(*args, seed, **kw)
+    tables = ba.bigbird_tables(L // BLOCK, G, R, 4, "cpu")
+    keep = tb.bigbird_keep_masks(seed, B, NH, L, BLOCK, tables.G, tables.R, 0.1)
+    want = tb.bigbird_train_plain(*args, keep=keep, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (tb.bigbird_attention_block_train(*args, seed + 1, **kw) - got).abs().max() > 1e-3
+    # keeping one set whole changes the output (at nb = 4 no non-global block
+    # holds a live random block)
+    for i in (0, 1, 2, 3) if tables.rok[G:].any() else (0, 1, 3):
+        whole = tuple(torch.ones_like(m) if j == i else m for j, m in enumerate(keep))
+        assert (tb.bigbird_train_plain(*args, keep=whole, **kw) - got).abs().max() > 1e-4, i
+
+
+def test_wrappers_on_cpu_count_no_launches_and_check_the_contract():
+    before = (bb.fused_bigbird_attention_block.launches, tb.bigbird_train_fwd.launches,
+              tb.bigbird_train_bwd.launches)
+    inp = _inputs(B, 64, H, NH, seed=8)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    args = (t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:]))
+    bb.fused_bigbird_attention_block(*args, BLOCK, G, R, 0, HD**-0.5)
+    tb.bigbird_attention_block_train(*args, torch.zeros(1, dtype=torch.int32), HD**-0.5, BLOCK,
+                                     G, R, 0)
+    assert (bb.fused_bigbird_attention_block.launches, tb.bigbird_train_fwd.launches,
+            tb.bigbird_train_bwd.launches) == before
+    with pytest.raises(NotImplementedError, match="einsum"):
+        bb.fused_bigbird_attention_block(*args, BLOCK, G, R, 0, HD**-0.5, quantized=True)
+    for L, C in ((60, 8), (64, 12), (64, 0)):
+        with pytest.raises(ValueError, match="block_size"):
+            bb.check_contract(L, C, "test")
+
+
+# ---------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (B, L, H, nh, block, R, n_valid of the padded rows): blocks of 64 with nb =
+# 4 (padded-self entries) and 8, blocks of 32 and 16 (a tile holds one block),
+# of 128 and 96 (a block spans two tiles, the last one short), head dims 64,
+# 16, 32 and 128, short rows (n_valid below the global blocks), no random
+# blocks; and the slice's shapes
+CARD_SHAPES = [(2, 256, 128, 2, 64, 3, 100), (2, 512, 64, 4, 64, 3, 70),
+               (2, 256, 128, 4, 32, 3, 200), (2, 192, 256, 2, 16, 2, 150),
+               (2, 512, 128, 1, 128, 3, 300), (2, 384, 128, 2, 96, 1, 250),
+               (2, 512, 128, 2, 64, 0, 400)]
+SLICE_SHAPES = [(4, 4096, 768, 12, 64, 3, 3100), (8, 2048, 768, 12, 64, 3, 1500)]
+
+
+def _card_tensors(inp, device, dtype):
+    t = {k: torch.from_numpy(v).to(device) for k, v in inp.items()}
+    t["hidden"] = t["hidden"].to(dtype)
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,C,r,nv", CARD_SHAPES + SLICE_SHAPES[:1])
+def test_bigbird_block_kernel_matches_plain_on_card(cuda, dtype, Bc, Lc, Hc, nh, C, r, nv):
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + C, n_valid=nv)
+    t = _card_tensors(inp, cuda, dtype)
+    hd = Hc // nh
+    pattern = (C, 2, r, 5, hd**-0.5)
+    ln = dict(ln_scale=t["ln_scale"], ln_bias=t["ln_bias"])
+    args = [t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:])]
+    n = bb.fused_bigbird_attention_block.launches
+    got = bb.fused_bigbird_attention_block(*args, *pattern, **ln)
+    torch.cuda.synchronize()
+    assert bb.fused_bigbird_attention_block.launches == n + 1
+    for i in (2, 4):  # the weights the kernel reads
+        args[i] = args[i].to(dtype)
+    want = bb.bigbird_block_plain(*args, *pattern, **ln)
+    live = t["attention_mask"].bool()
+    assert torch.isfinite(got).all()
+    err = (got[live].float() - want[live].float()).abs().max() / want[live].float().abs().max()
+    assert err.item() < CARD_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,C,r,nv", CARD_SHAPES + SLICE_SHAPES[1:])
+def test_bigbird_train_kernels_match_plain_on_card(cuda, dtype, rate, Bc, Lc, Hc, nh, C, r, nv):
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + C + 1, n_valid=nv)
+    hd = Hc // nh
+    seed = torch.tensor([11 + Lc], dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd**-0.5, block_size=C, num_global_blocks=2, num_random_blocks=r,
+              pattern_seed=6, dropout_rate=rate)
+
+    def run(fn, weights_dtype=None, **extra):
+        t = _card_tensors(inp, cuda, dtype)
+        for k in ARGS:
+            t[k] = (t[k].to(weights_dtype) if weights_dtype and k.endswith("kernel")
+                    else t[k]).detach().requires_grad_()
+        out = fn(t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:]), **extra, **kw)
+        grads = torch.autograd.grad(out, [t[k] for k in ARGS], t["cotangent"].to(out.dtype))
+        return [out.detach(), *grads]
+
+    n = (tb.bigbird_train_fwd.launches, tb.bigbird_train_bwd.launches)
+    got = run(tb.bigbird_attention_block_train, seed=seed)
+    torch.cuda.synchronize()
+    assert (tb.bigbird_train_fwd.launches, tb.bigbird_train_bwd.launches) == (n[0] + 1, n[1] + 1)
+    tables = ba.bigbird_tables(Lc // C, 2, r, 6, cuda)
+    keep = (tb.bigbird_keep_masks(seed, Bc, nh, Lc, C, tables.G, tables.R, rate)
+            if rate else None)
+    want = run(tb.bigbird_train_plain, weights_dtype=dtype, keep=keep)
+    live = torch.from_numpy(inp["attention_mask"]).bool().to(cuda)
+    got[0], want[0] = got[0][live], want[0][live]
+    for name, g, w in zip(("out",) + ARGS, got, want):
+        assert torch.isfinite(g).all(), name
+        err = ((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)).item()
+        assert err < CARD_TOL[dtype], (name, err)
+    again = run(tb.bigbird_attention_block_train, seed=seed)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))  # deterministic backward
+
+
+@pytest.mark.gpu
+def test_keep_masks_on_card_match_numpy(cuda):
+    seed = torch.tensor([4242], dtype=torch.int32)
+    want = tb.bigbird_keep_masks(seed, 2, 3, 128, 16, 2, 3, 0.25)
+    got = tb.bigbird_keep_masks(seed.to(cuda), 2, 3, 128, 16, 2, 3, 0.25)
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)

@@ -214,7 +214,7 @@ def test_attention_impl_resolution():
     assert resolve_attention_impl(lf_einsum, cuda, False, **kw) == "chunked"
     for bad in (
         dataclasses.replace(TINY, attention_impl="flash"),
-        dataclasses.replace(TINY, attention_type="bigbird"),
+        dataclasses.replace(TINY, attention_type="ponet"),
     ):
         with pytest.raises(NotImplementedError):
             resolve_attention_impl(bad, cuda, output_attentions=False)

@@ -146,9 +146,10 @@ def test_tokenizer_and_cli_flags_match_jax(tmp_path):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
 
 
-# the Longformer slice's modules, which the package walk must reach
+# the Longformer and BigBird slices' modules, which the package walk must reach
 LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
-    "ops.sliding_attention", "ops.cuda.sliding_block", "ops.cuda.train_sliding", "eval.analysis")]
+    "ops.sliding_attention", "ops.cuda.sliding_block", "ops.cuda.train_sliding", "eval.analysis",
+    "ops.bigbird_attention", "ops.cuda.bigbird_block", "ops.cuda.train_bigbird")]
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])

@@ -94,9 +94,29 @@
    each training kernel ran layers x views x 8 micro-steps times; finite
    losses, the checkpoint reloads; then the kernels' gradients against the
    block path's on one micro-batch of 2 at dropout 0.
-15. Prints the serving runs, the Longformer and BigBird runs and the kernels
-   as JSON lines, the card's name and power limit, and last {"ok": true,
-   "device": {...}}.
+15. PoNet kernel phase: the fused PoNet mixer block (kernel 9) at B=8,
+   L=4096, H=768, window 3, in bfloat16, float32 and its W8A8 mode with
+   either activation type, on ids as the MUG featuriser makes them (CLS in
+   segment 0, sentence runs of 5-60 tokens, the pad run n_sent + 1; rows
+   full and suffix-padded, one with singleton runs and tied rows, one with
+   non-contiguous ids), against its plain version on real rows (float32
+   1e-4 and bfloat16 3e-2 of the largest output, W8A8 as the W8A8 blocks);
+   four planted faults (the XLA mixer's SMP with pads in segment 0, no
+   second max, the LMP window shifted by one, GA's mean over all rows) each
+   failing the check; kernel, plain and bound times.
+16. MUG main path: cli/run_mug.main, Track 1, from a PoNet-base checkpoint
+   written by models/checkpoint_io.save_checkpoint (ponet_mixer_impl
+   "fused"; a second run with quantize "w8a8"), on a synthetic MUG corpus:
+   2 optimizer steps at batch 4 over 4096 tokens on the plain mixer, then
+   prediction of 18 windows (most with >= 3072 real tokens) through kernel
+   9 once a layer a batch (and the W8A8 MLP block under W8A8); finite
+   metrics; on the trained model, predict_boundaries' windows/s and peak
+   memory on the kernel path and both plain paths, and argmax agreement
+   >= 0.99 on the labelled EOS positions with the plain fused path (with
+   the XLA mixer printed, not gated). Then Track 2 once.
+17. Prints the serving runs, the Longformer, BigBird and MUG runs and the
+   kernels as JSON lines, the card's name and power limit, and last
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -117,11 +137,24 @@ import numpy as np
 # the main path's shapes: BERT-base over 512-token windows, batches of 32
 B, L, H, NH, HD, I, LAYERS = 32, 512, 768, 12, 64, 3072, 12
 # kernel against plain version, largest deviation allowed on valid rows
-# (tests/test_torch_kernels.py gives the reasons)
-TOL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 2e-2)}  # (atol, rtol)
-# training kernels: max |kernel - plain| / max |plain| per output
-# (tests/test_torch_train_blocks.py gives the reasons)
-TRAIN_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+# (tests/test_torch_kernels.py gives the reasons): bf16 (atol, rtol) for
+# every block; float32 per kernel below
+TOL = {"bfloat16": (5e-2, 2e-2)}
+# the other kernels: max |kernel - plain| / max |plain| per output
+# (tests/test_torch_train_blocks.py gives the reasons): bf16 for every kernel
+TRAIN_TOL = {"bfloat16": 3e-2}
+# float32, per kernel, from this script's H100 readings (PERF.md: kernels 1
+# and 2 at most 1.4e-6 absolute; the others 1.2e-7 to 6e-6 of the largest
+# output, the attention training block's dqkv_bias up to 3.9e-5), so about
+# ten times the largest (the blocks' absolute limit a hundred). An attention
+# block rounding its probabilities to bf16 landed just beyond the old 1e-3
+# and lands an order of magnitude beyond these: the kernel phase plants it
+# and must see it fail
+F32_TOL = {"fused_attention_block": (1e-4, 1e-4), "fused_mlp_block": (1e-4, 1e-4),
+           "attention_train_fwd": 1e-4, "attention_train_bwd": 2e-4, "mlp_train_fwd": 1e-4,
+           "mlp_train_bwd": 1e-4, "sliding_attention_block": 1e-4, "sliding_train_fwd": 1e-4,
+           "sliding_train_bwd": 1e-4, "bigbird_attention_block": 1e-4, "bigbird_train_fwd": 1e-4,
+           "bigbird_train_bwd": 1e-4, "fused_ponet_mixer_block": 1e-4}
 MIN_ARGMAX_AGREEMENT = 0.99
 DROPOUT = 0.1  # the encoder's attention_dropout, configs.py
 KEEP_FRACTION_TOL = 1e-3
@@ -242,6 +275,14 @@ KERNELS = {
         "spokennlp_tpu_torch/csrc/train_bigbird.cu",
         "spokennlp_tpu/ops/pallas/train_bigbird.py:774",
     ),
+    "fused_ponet_mixer_block": (
+        "spokennlp_tpu_torch/csrc/ponet_block.cu",
+        "spokennlp_tpu/ops/pallas/ponet_block.py:325",
+    ),
+    "fused_ponet_mixer_block_w8a8": (
+        "spokennlp_tpu_torch/csrc/ponet_block.cu",
+        "spokennlp_tpu/ops/pallas/ponet_block.py:325",
+    ),
 }
 # the Longformer slice: the reference's flagship recipe (scripts/run_finetune.sh:
 # window 512, 2048 tokens, training batch 2 x 4 accumulation steps), served in
@@ -257,6 +298,12 @@ LF_LONG_TOKENS, LF_MIN_LONG_SHARE = 1536, 0.5
 BB_B, BB_L, BB_TRAIN_B, BB_TRAIN_L = 4, 4096, 8, 2048
 BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED = 64, 2, 3, 0
 BB_LONG_TOKENS = 3072
+# the MUG slice: PoNet-base (BERT-base widths, local window 3, single-head
+# GA, max_position_embeddings 4096, float32 as run_mug computes) over its
+# recipe's 4096 tokens; kernel 9's phase at B=8, run_mug at its default
+# batch of 4 for training and prediction
+PN_B, PN_L, PN_WINDOW, PN_BATCH = 8, 4096, 3, 4
+PN_LONG_TOKENS, PN_MIN_WINDOWS = 3072, 16
 
 
 def fail(msg: str):
@@ -356,9 +403,18 @@ def w8a8_check(got, want, dtype) -> dict:
             "ok": share <= W8A8_SHARE[dtype] and beyond <= W8A8_STEP}
 
 
+def limit(kernel: str, dtype: str):
+    """The largest deviation allowed between a kernel and its plain version:
+    (atol, rtol) for the blocks of ``compare``, a share of the largest
+    output for ``_normalized_errors``."""
+    if dtype == "float32":
+        return F32_TOL[kernel]
+    return (TOL if kernel in ("fused_attention_block", "fused_mlp_block") else TRAIN_TOL)[dtype]
+
+
 def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
     """Check kernel against plain on the valid rows (``tol`` = (atol, rtol),
-    the dtype's TOL by default; ``w8a8``: w8a8_check); time both."""
+    the kernel's limit by default; ``w8a8``: w8a8_check); time both."""
     import torch
 
     got, want = kernel(), plain()
@@ -376,7 +432,7 @@ def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
             fail(f"{name} {dtype}: {c['share']:.3e} of the outputs beyond rounding, max |err| "
                  f"{max_err:.3e} (limits {W8A8_SHARE[dtype]}, {W8A8_STEP} beyond rounding)")
     else:
-        atol, rtol = tol or TOL[dtype]
+        atol, rtol = tol or limit(name, dtype)
         if (err - rtol * want.abs()).max().item() > atol:
             fail(f"{name} {dtype}: max |err| {max_err:.3e} exceeds atol {atol} + rtol {rtol} * |ref|")
     row = {"max_abs_err": max_err, **timed_pair(kernel, plain, reps)}
@@ -385,8 +441,29 @@ def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
     return row
 
 
+def attention_block_bf16_probabilities(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel,
+                                       out_bias, *, sm_scale, ln_scale, ln_bias, eps=1e-12):
+    """A planted fault: the float32 attention block with its probabilities
+    rounded to bf16 (2^-9 relative each)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = hidden.float()
+    qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
+    q, k, v = qkv.unbind(2)
+    scores = torch.einsum("blnd,bmnd->bnlm", q * sm_scale, k)
+    allowed = (segment_ids[:, :, None] == segment_ids[:, None, :]) & (segment_ids[:, None, :] > 0)
+    scores = scores + torch.where(allowed, 0.0, -1e9)[:, None]
+    probs = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
+    ctx = torch.einsum("bnlm,bmnd->blnd", probs, v)
+    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    return F.layer_norm(out + x, (x.shape[-1],), ln_scale, ln_bias, eps)
+
+
 def kernel_phase(device) -> dict:
-    """{(name, dtype): row} for the inference kernels at the main path's shapes."""
+    """{(name, dtype): row} for the inference kernels at the main path's
+    shapes; in float32, the check must reject the attention block with
+    bf16 probabilities."""
     import torch
 
     from spokennlp_tpu_torch.ops.cuda.attention_block import (
@@ -414,6 +491,17 @@ def kernel_phase(device) -> dict:
             "fused_attention_block", dtype, lambda: call(fused_attention_block),
             lambda: call(attention_block_plain), valid,
         )
+        if dtype == "float32":
+            got = call(fused_attention_block)[valid]
+            bad = call(attention_block_bf16_probabilities)[valid]
+            atol, rtol = limit("fused_attention_block", dtype)
+            excess = ((got - bad).abs() - rtol * bad.abs()).max().item()
+            print(f"  planted fault, attention block with bf16 probabilities (float32): "
+                  f"|err| - {rtol} |ref| up to {excess:.3e} against atol {atol}: "
+                  + ("rejected" if excess > atol else "ACCEPTED"))
+            if excess <= atol:
+                fail("the float32 limit accepts an attention block with bf16 probabilities")
+            del got, bad
         flops = 2 * M * H * 3 * HN + 4 * B * NH * L * L * HD + 2 * M * HN * H
         moved = nbytes(hidden, seg, qkv_k, out_k, *att.values(), *ln.values(), hidden)
         rows["fused_attention_block", dtype].update(bound(flops, moved, dtype))
@@ -676,9 +764,9 @@ def stack_kernel_phase(device) -> dict:
 # ------------------------------------------------------------ training kernels
 
 
-def _normalized_errors(got, want, names, dtype, label):
+def _normalized_errors(got, want, names, dtype, label, kernel):
     """max |got - want| / max |want| for each named output; fails above the
-    tolerance. Returns the largest absolute error over all outputs."""
+    kernel's limit. Returns the largest absolute error over all outputs."""
     import torch
 
     worst_abs, parts = 0.0, []
@@ -690,8 +778,8 @@ def _normalized_errors(got, want, names, dtype, label):
         rel = abs_err / max(wt.abs().max().item(), 1e-30)
         worst_abs = max(worst_abs, abs_err)
         parts.append(f"{name} {rel:.2e}")
-        if rel > TRAIN_TOL[dtype]:
-            fail(f"{label}: {name} max|err|/max|ref| {rel:.3e} > {TRAIN_TOL[dtype]}")
+        if rel > limit(kernel, dtype):
+            fail(f"{label}: {name} max|err|/max|ref| {rel:.3e} > {limit(kernel, dtype)}")
     print(f"  {label}: " + ", ".join(parts))
     return worst_abs
 
@@ -743,9 +831,9 @@ def train_kernel_phase(device) -> dict:
             want = [out, *torch.autograd.grad(out, [h, *ref.values()], cot)]
             label = f"attention_train {dtype} rate {rate}"
             err["attention_train_fwd"] = max(err["attention_train_fwd"], _normalized_errors(
-                got[:1], want[:1], att_names[:1], dtype, label + " fwd"))
+                got[:1], want[:1], att_names[:1], dtype, label + " fwd", "attention_train_fwd"))
             err["attention_train_bwd"] = max(err["attention_train_bwd"], _normalized_errors(
-                got[1:], want[1:], att_names[1:], dtype, label + " bwd"))
+                got[1:], want[1:], att_names[1:], dtype, label + " bwd", "attention_train_bwd"))
 
             leaves = {k: v.detach().requires_grad_() for k, v in mlp_p.items()}
             xx = x.detach().requires_grad_()
@@ -758,9 +846,9 @@ def train_kernel_phase(device) -> dict:
             want = [out, *torch.autograd.grad(out, [xx, *ref.values()], cot2)]
             label = f"mlp_train {dtype} rate {rate}"
             err["mlp_train_fwd"] = max(err["mlp_train_fwd"], _normalized_errors(
-                got[:1], want[:1], mlp_names[:1], dtype, label + " fwd"))
+                got[:1], want[:1], mlp_names[:1], dtype, label + " fwd", "mlp_train_fwd"))
             err["mlp_train_bwd"] = max(err["mlp_train_bwd"], _normalized_errors(
-                got[1:], want[1:], mlp_names[1:], dtype, label + " bwd"))
+                got[1:], want[1:], mlp_names[1:], dtype, label + " bwd", "mlp_train_bwd"))
 
         # times at the training path's rate, the kernels called directly
         wqkv = att_p["qkv_kernel"].to(dt).reshape(H, 3 * HN).contiguous()
@@ -902,7 +990,8 @@ def sliding_kernel_phase(device) -> dict:
             got = sb.fused_sliding_attention_block(hidden, mask, glob, *params.values(), **ln, **gkw)
             want = sb.sliding_block_plain(hidden, mask, glob, *rounded.values(), **ln, **gkw)
             err["sliding_attention_block"] = max(err["sliding_attention_block"], _normalized_errors(
-                [got[valid]], [want[valid]], ["out"], dtype, f"sliding_attention_block {label}"))
+                [got[valid]], [want[valid]], ["out"], dtype, f"sliding_attention_block {label}",
+                "sliding_attention_block"))
             for rate in (0.0, DROPOUT):
                 def grads(fn, ps, **extra):
                     leaves = {k: v.detach().requires_grad_() for k, v in ps.items()}
@@ -915,13 +1004,13 @@ def sliding_kernel_phase(device) -> dict:
                 want = grads(ts.sliding_train_plain, rounded, keep=keep if rate else None)
                 lab = f"sliding_train {label} rate {rate}"
                 err["sliding_train_fwd"] = max(err["sliding_train_fwd"], _normalized_errors(
-                    got[:1], want[:1], ["out"], dtype, lab + " fwd"))
+                    got[:1], want[:1], ["out"], dtype, lab + " fwd", "sliding_train_fwd"))
                 live = [i for i, w in enumerate(want) if i > 0 and w is not None]
                 if not global_rows and not all((got[i] == 0).all() for i in (4, 5)):
                     fail(f"{lab}: nonzero global-projection gradients without global rows")
                 err["sliding_train_bwd"] = max(err["sliding_train_bwd"], _normalized_errors(
                     [got[i] for i in live], [want[i] for i in live],
-                    [grad_names[i - 1] for i in live], dtype, lab + " bwd"))
+                    [grad_names[i - 1] for i in live], dtype, lab + " bwd", "sliding_train_bwd"))
                 if global_rows and rate:
                     again = grads(ts.sliding_attention_block_train, params, seed=seed)
                     if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
@@ -1060,7 +1149,8 @@ def bigbird_kernel_phase(device) -> dict:
             got = bbk.fused_bigbird_attention_block(hidden, mask, *params.values(), **kw, **ln)
             want = bbk.bigbird_block_plain(hidden, mask, *rounded.values(), **kw, **ln)
             err["bigbird_attention_block"] = max(err["bigbird_attention_block"], _normalized_errors(
-                [got[valid]], [want[valid]], ["out"], dtype, f"bigbird_attention_block {label}"))
+                [got[valid]], [want[valid]], ["out"], dtype, f"bigbird_attention_block {label}",
+                "bigbird_attention_block"))
             del got, want
         for Bk, Lk, pseed in ((BB_TRAIN_B, BB_TRAIN_L, BB_SEED), (2, 4 * BB_BLOCK, 1)):
             mask = bigbird_masks(device, Bk, Lk)
@@ -1083,9 +1173,9 @@ def bigbird_kernel_phase(device) -> dict:
                 want = grads(tbb.bigbird_train_plain, rounded, keep=keep)
                 lab = f"bigbird_train {dtype} B={Bk} L={Lk} rate {rate}"
                 err["bigbird_train_fwd"] = max(err["bigbird_train_fwd"], _normalized_errors(
-                    got[:1], want[:1], ["out"], dtype, lab + " fwd"))
+                    got[:1], want[:1], ["out"], dtype, lab + " fwd", "bigbird_train_fwd"))
                 err["bigbird_train_bwd"] = max(err["bigbird_train_bwd"], _normalized_errors(
-                    got[1:], want[1:], grad_names, dtype, lab + " bwd"))
+                    got[1:], want[1:], grad_names, dtype, lab + " bwd", "bigbird_train_bwd"))
                 if rate and Lk == BB_TRAIN_L:
                     again = grads(tbb.bigbird_attention_block_train, params, seed=seed)
                     if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
@@ -1150,6 +1240,163 @@ def bigbird_kernel_phase(device) -> dict:
                   f"plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
                   f"({row['bound_by']}; {row['work_gflop']:.1f} GFLOP)")
         torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ PoNet kernel
+
+
+def ponet_rows(device):
+    """(mask, segment ids, tie rows) of kernel 9's phase (B=8, L=4096), as
+    the MUG featuriser makes them: CLS in segment 0, one id a sentence of
+    5-60 tokens, pads in the run n_sent + 1. Rows 0-1 full; 2-5 suffix-
+    padded to 2048-4000 tokens (row 5 to 100, a meeting's short last
+    window), their ids from where a later window of a meeting starts; row 6
+    padded, with singleton sentences among the others
+    and a pair of equal rows inside each longer run (returned as (b, l), l
+    a copy of l - 1, so the s projections tie on the max); row 7 full, two
+    ids alternating in runs of 5 (equal ids not adjacent)."""
+    import torch
+
+    rng = np.random.default_rng(9)
+    mask = np.zeros((PN_B, PN_L), np.int32)
+    seg = np.zeros((PN_B, PN_L), np.int32)
+    ties = []
+    for b in range(PN_B):
+        if b == 7:
+            seg[b] = np.where(np.arange(PN_L) % 10 < 5, 3, 7)
+            seg[b, 0] = 0
+            mask[b] = 1
+            continue
+        n = PN_L if b < 2 else 100 if b == 5 else int(rng.integers(2048, 4000))
+        sid = int(rng.integers(100, 900)) if 2 <= b <= 5 else 1
+        ids = [0]
+        while len(ids) < n:
+            run = 1 if b == 6 and rng.random() < 0.3 else int(rng.integers(5, 61))
+            if b == 6 and run > 1:
+                ties.append((b, len(ids) + 1))
+            ids.extend([sid] * run)
+            sid += 1
+        seg[b, :n] = ids[:n]
+        seg[b, n:] = sid
+        mask[b, :n] = 1
+    ties = [(b, l) for b, l in ties if mask[b, l]]
+    return torch.from_numpy(mask).to(device), torch.from_numpy(seg).to(device), ties
+
+
+def ponet_planted_faults():
+    """{name: (function of ops/cuda/ponet_block.py, its faulty stand-in)}:
+    SMP with the XLA mixer's semantics (pads merged into segment 0 with
+    their s projections), SMP without the second-max trick, the LMP window
+    shifted by one row, GA's mean query over all L rows."""
+    import torch
+
+    from spokennlp_tpu_torch.models.ponet import smp_second_max
+    from spokennlp_tpu_torch.ops.cuda import ponet_block as pb
+
+    def smp_xla(s, mrow, segment_ids):
+        seg = torch.where(mrow[..., 0], segment_ids, 0)
+        return smp_second_max(s, seg, s.shape[1] + 1)
+
+    def smp_max_only(s, mrow, segment_ids):
+        return pb.run_top2(torch.where(mrow, s.float(), pb.NEG_INF), segment_ids)[0].to(s.dtype)
+
+    def ga_all_rows(q, k, v, mrow, sm_scale):
+        g = q.float().mean(dim=1, keepdim=True).to(q.dtype)
+        att = (k.float() * g.float()).sum(dim=2, keepdim=True) * sm_scale
+        w = torch.softmax(att + torch.where(mrow, 0.0, pb.NEG_INF), dim=1).to(q.dtype)
+        return (v.float() * w.float()).sum(dim=1, keepdim=True).to(q.dtype) * q
+
+    return {"pads in segment 0 (XLA semantics)": ("smp_plain", smp_xla),
+            "no second max": ("smp_plain", smp_max_only),
+            "LMP window shifted": ("lmp_offsets",
+                                   lambda w: range(-(w // 2) + 1, w - w // 2 + 1)),
+            "GA mean over all rows": ("ga_plain", ga_all_rows)}
+
+
+def ponet_check(got, want, dtype: str, quantized: bool):
+    """(ok, max |err|, what was measured) of kernel 9's output against a
+    plain version on real rows: W8A8 by w8a8_check, float modes by the
+    largest error over the largest output."""
+    if quantized:
+        c = w8a8_check(got, want, dtype)
+        return c["ok"], c["max_abs_err"], f"{c['share']:.2e} of the outputs beyond rounding"
+    err = (got - want).abs().max().item()
+    rel, lim = err / max(want.abs().max().item(), 1e-30), limit("fused_ponet_mixer_block", dtype)
+    return rel <= lim, err, f"max|err|/max|ref| {rel:.2e} (limit {lim})"
+
+
+def ponet_kernel_phase(device) -> dict:
+    """{(name, dtype): row} for kernel 9 (the fused PoNet mixer block) at
+    B=8, L=4096, H=768, window 3, in its float and W8A8 modes with bf16 and
+    float32 activations, against its plain version on real rows; each
+    planted fault must fail the same check."""
+    from unittest import mock
+
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import ponet_block as pb
+
+    g = torch.Generator(device=device).manual_seed(6)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    mask, seg, ties = ponet_rows(device)
+    valid = mask > 0
+    params = dict(proj_kernels=randn(5, H, H, scale=H**-0.5), proj_biases=randn(5, H, scale=0.02),
+                  out_kernel=randn(H, H, scale=H**-0.5), out_bias=randn(H, scale=0.02))
+    ln = dict(ln_scale=1 + randn(H, scale=0.1), ln_bias=randn(H, scale=0.1))
+    # the rows of a sequence share a direction, as a trunk's hidden states
+    # do, so GA's softmax over the sequence is not flat; the pads share
+    # another, twice as long (a pad embedding is no word's)
+    x = randn(PN_B, PN_L, H) + torch.where(valid[..., None], randn(PN_B, 1, H),
+                                           randn(1, 1, H, scale=2.0))
+    for b, l in ties:
+        x[b, l] = x[b, l - 1]
+    print(f"ponet kernel phase: {int(valid.sum())} real rows of {PN_B} x {PN_L}, "
+          f"{len(ties)} tied pairs")
+    faults = ponet_planted_faults()
+    M = PN_B * PN_L
+    rows = {}
+    for quantized in (False, True):
+        name = "fused_ponet_mixer_block" + ("_w8a8" if quantized else "")
+        for dtype in ("bfloat16", "float32"):
+            hidden = x.to(getattr(torch, dtype))
+            call = lambda fn: fn(hidden, mask, seg, *params.values(), local_window=PN_WINDOW,
+                                 sm_scale=H**-0.5, quantized=quantized, **ln)
+            got = call(pb.fused_ponet_mixer_block)
+            torch.cuda.synchronize()
+            got = got[valid].float()
+            if not torch.isfinite(got).all():
+                fail(f"{name} {dtype}: non-finite output")
+            ok, err, what = ponet_check(got, call(pb.ponet_mixer_block_plain)[valid].float(),
+                                        dtype, quantized)
+            print(f"  {name} {dtype}: {what}")
+            if not ok:
+                fail(f"{name} {dtype} against its plain version: {what}")
+            for fault, (attr, fn) in faults.items():
+                with mock.patch.object(pb, attr, fn):
+                    bad = call(pb.ponet_mixer_block_plain)[valid].float()
+                accepted, _, what = ponet_check(got, bad, dtype, quantized)
+                print(f"  planted fault, {fault} ({name} {dtype}): {what}: "
+                      + ("ACCEPTED" if accepted else "rejected"))
+                if accepted:
+                    fail(f"{name} {dtype}: the check accepts the planted fault {fault}")
+                del bad
+            del got
+            row = timed_pair(lambda: call(pb.fused_ponet_mixer_block),
+                             lambda: call(pb.ponet_mixer_block_plain), reps=5)
+            # the six products, and GA, the pools, the mix and the epilogue
+            # (about 20 float32 operations an element)
+            products, elementwise = 12 * M * H * H, 20 * M * H
+            ops = {"int8" if quantized else dtype: products}
+            ops["float32"] = ops.get("float32", 0) + elementwise
+            row.update(bound(ops, nbytes(hidden, mask, seg, *params.values(), *ln.values(),
+                                         hidden)))
+            row.update(max_abs_err=err, work_gflop=(products + elementwise) / 1e9)
+            rows[name, dtype] = row
+            print(f"kernel {name} {dtype}: max_abs_err {err:.3e}  kernel {row['ms']:.3f} ms  "
+                  f"plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+                  f"({row['bound_by']}; {row['work_gflop']:.1f} GFLOP)")
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1308,6 +1555,207 @@ def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None,
             "peak_gib": peak, "einsum_windows_per_s": n_windows / einsum_s,
             "einsum_peak_gib": einsum_peak, "agreement": agreement, "max_dlogit": max_dlogit,
             "metrics": metrics}
+
+
+def write_mug_corpus(root: Path, n_train: int, n_eval: int, seed: int = 4) -> Path:
+    """MUG meeting jsonl (train.jsonl, dev.jsonl): sentences of 4-59 words
+    (runs of 5-60 tokens with the EOS marker under the fallback tokenizer),
+    train meetings of 200-240 sentences, eval meetings of 480-560 (about
+    four 4096-token windows each), topics of 20-60 sentences with key
+    sentences and key words, a meeting-level candidate."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(2000)]
+
+    def meeting(key, sentences):
+        ns = int(rng.integers(*sentences))
+        sents = [{"id": j + 1, "s": " ".join(rng.choice(words, size=int(rng.integers(4, 60))))}
+                 for j in range(ns)]
+        ends, e = [], 0
+        while e < ns:
+            e = min(ns, e + int(rng.integers(20, 61)))
+            ends.append(e)
+        topics = [{"id": end, "candidate": [{
+            "title": f"t{end}", "key_word": [words[end]],
+            "key_sentence": sorted(set(rng.integers(start + 1, end + 1, size=3).tolist()))}]}
+            for start, end in zip([0] + ends[:-1], ends)]
+        return {"meeting_key": key, "sentences": sents,
+                "paragraph_segment_ids": [{"id": j} for j in range(10, ns + 1, 10)],
+                "topic_segment_ids": topics,
+                "candidate": [{"key_word": words[:3], "key_sentence": [1, 5, 9]}]}
+
+    root.mkdir(parents=True)
+    for name, n, sentences in (("train.jsonl", n_train, (200, 241)),
+                               ("dev.jsonl", n_eval, (480, 561))):
+        with open(root / name, "w") as f:
+            for i in range(n):
+                f.write(json.dumps(meeting(f"{name[:3]}{i}", sentences)) + "\n")
+    return root
+
+
+def ponet_checkpoints(root: Path, device="cuda") -> dict:
+    """PoNet-base checkpoints written by models/checkpoint_io.save_checkpoint:
+    weights drawn on ``device`` from seed 0, the config's ponet_mixer_impl
+    "fused"; a second directory with the same params.msgpack and
+    quantize="w8a8" in its config.json."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from spokennlp_tpu_torch.configs import EncoderConfig
+    from spokennlp_tpu_torch.models import checkpoint_io
+    from spokennlp_tpu_torch.models.ponet import PoNetForTokenClassification
+
+    cfg = EncoderConfig(vocab_size=30522, hidden_size=H, num_layers=LAYERS, num_heads=NH,
+                        intermediate_size=I, max_position_embeddings=PN_L, pad_token_id=0,
+                        add_pooler=False, ponet_local_window=PN_WINDOW, ponet_mixer_impl="fused")
+    with torch.device(device):
+        model = PoNetForTokenClassification(
+            cfg, generator=torch.Generator(device=device).manual_seed(0))
+    t0 = time.perf_counter()
+    fused = root / "ponet_base"
+    checkpoint_io.save_checkpoint(str(fused), checkpoint_io.params_from_state_dict(
+        model.state_dict()), cfg)
+    del model
+    w8a8 = root / "ponet_base_w8a8"
+    w8a8.mkdir()
+    os.link(fused / checkpoint_io.PARAMS_FILE, w8a8 / checkpoint_io.PARAMS_FILE)
+    (w8a8 / checkpoint_io.CONFIG_FILE).write_text(
+        json.dumps(dataclasses.asdict(dataclasses.replace(cfg, quantize="w8a8"))))
+    size = (fused / checkpoint_io.PARAMS_FILE).stat().st_size / 2**20
+    print(f"PoNet-base checkpoint: {size:.0f} MiB written in {time.perf_counter() - t0:.1f} s")
+    return {"float32": fused, "W8A8": w8a8}
+
+
+def mug_path(ckpts: dict, data: Path, out: Path, device="cuda") -> dict:
+    """MUG Track 1 through cli/run_mug.main from each checkpoint (about 2
+    optimizer steps at batch 4 over 4096 tokens, then prediction), and
+    Track 2 once from the float32 one. Checks kernel 9's launches (once a
+    layer a predict batch; the W8A8 MLP block's too under W8A8) and finite
+    metrics; then, on the trained model, times predict_boundaries (windows/s,
+    peak memory) on the kernel path and both plain paths (the fused block's
+    plain version, the XLA mixer) and holds the kernel path's argmax on the
+    labelled EOS positions against the plain fused path (>= 0.99; against
+    the XLA path printed, not gated: the two mixers differ on padded
+    windows)."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, run_mug
+    from spokennlp_tpu_torch.configs import WindowingConfig
+    from spokennlp_tpu_torch.ops.cuda import ponet_block as pb
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.projects.mug import data as mug_data
+    from spokennlp_tpu_torch.projects.mug.extractive_summarization import featurize_es_examples
+    from spokennlp_tpu_torch.projects.mug.topic_segmentation import (
+        IGNORE, predict_boundaries, predict_window_logits, stack_eos_windows, window_document_eos,
+    )
+
+    tokenize_fn, special = common.resolve_tokenizer(
+        argparse.Namespace(model_name_or_path=None, vocab_file=None))
+    wcfg = WindowingConfig(max_seq_length=PN_L, cls_token_id=special["cls"],
+                           pad_token_id=special["pad"], bos_token_id=special["bos"])
+    eos = special["sep"]
+    raw = mug_data.read_jsonl(str(data / "dev.jsonl"))
+    meetings = [mug_data.parse_topic_segmentation(m) for m in raw]
+    windows = [w for i, m in enumerate(meetings) for w in window_document_eos(
+        [tokenize_fn(s) for s in m["sentences"]], m["labels"], wcfg, eos, example_id=i)]
+    batch = stack_eos_windows(windows)
+    n = len(windows)
+    share = float((batch["attention_mask"].sum(1) >= PN_LONG_TOKENS).mean())
+    print(f"MUG eval: {len(meetings)} meetings, {n} windows of {PN_L} tokens, {share:.3f} of "
+          f"them with >= {PN_LONG_TOKENS} real tokens")
+    if n < PN_MIN_WINDOWS or share < 0.5:
+        fail(f"the MUG eval corpus gives {n} windows, {share:.3f} of them long")
+    live = batch["labels"] != IGNORE
+    n_batches = math.ceil(n / PN_BATCH)
+    wrappers = {"fused_ponet_mixer_block": pb.fused_ponet_mixer_block,
+                "fused_mlp_block": fused_mlp_block}
+    built = []  # the model each run_mug.main call builds (and trains in place)
+    build_model = run_mug.build_model
+
+    def capture(*args, **kw):
+        built.append(build_model(*args, **kw))
+        return built[-1]
+
+    def drive(ckpt, track, out_dir):
+        argv = ["--track", track, "--train_file", str(data / "train.jsonl"), "--eval_file",
+                str(data / "dev.jsonl"), "--output_dir", str(out_dir), "--init_checkpoint",
+                str(ckpt), "--max_seq_length", str(PN_L), "--per_device_train_batch_size",
+                str(PN_BATCH), "--num_train_epochs", "1", "--device", device]
+        for w in wrappers.values():
+            w.launches = 0
+        reset_peak()
+        t0 = time.perf_counter()
+        run_mug.build_model = capture
+        try:
+            res = run_mug.main(argv)
+        finally:
+            run_mug.build_model = build_model
+        secs, peak = time.perf_counter() - t0, peak_gib()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        values = [v for v in (res["metrics"] | {"train_loss": res["train_loss"][-1]}).values()
+                  if isinstance(v, (int, float))]
+        if not values or not np.isfinite(values).all():
+            fail(f"run_mug {track} from {ckpt.name}: non-finite metrics {res['metrics']}")
+        print(f"run_mug {track} from {ckpt.name}: {secs:.1f} s, peak {peak:.2f} GiB, train "
+              f"loss {res['train_loss']}, launches {launches}, metrics {res['metrics']}")
+        return res, launches, {"run_s": secs, "peak_gib": peak}, built.pop()
+
+    result = {}
+    for label, ckpt in ckpts.items():
+        res, launches, row, model = drive(ckpt, "topic_segmentation", out / f"mug_{label}")
+        w8a8 = label == "W8A8"
+        expected = {"fused_ponet_mixer_block": LAYERS * n_batches,
+                    "fused_mlp_block": LAYERS * n_batches if w8a8 else 0}
+        if device == "cuda" and launches != expected:
+            fail(f"run_mug {label}: launches {launches}, expected {expected} ({LAYERS} layers x "
+                 f"{n_batches} predict batches)")
+        row.update(launches=launches, windows=n, metrics=res["metrics"],
+                   train_loss=res["train_loss"])
+        layers = model.ponet.layers()
+        paths = {"kernel": lambda: None,
+                 "plain fused": lambda: [setattr(x, "mixer_block", pb.ponet_mixer_block_plain)
+                                         for x in layers],
+                 "xla": lambda: [setattr(x, "cfg", dataclasses.replace(
+                     x.cfg, ponet_mixer_impl="xla")) for x in layers]}
+        logits = {}
+        for path, setup in paths.items():
+            setup()
+            reset_peak()
+            t0 = time.perf_counter()
+            predict_boundaries(model, meetings, tokenize_fn, wcfg, eos, batch_size=PN_BATCH)
+            secs = time.perf_counter() - t0  # ends in a copy of the logits to the host
+            row[path] = {"windows_per_s": n / secs, "peak_gib": peak_gib()}
+            logits[path] = predict_window_logits(model, batch, PN_BATCH)[live]
+            print(f"  predict_boundaries {label}, {path} path: {n} windows in {secs:.3f} s "
+                  f"({n / secs:.2f} windows/s), peak {row[path]['peak_gib']:.2f} GiB")
+        for other, gate in (("plain fused", True), ("xla", False)):
+            agree = float((logits["kernel"].argmax(-1) == logits[other].argmax(-1)).mean())
+            dmax = float(np.abs(logits["kernel"] - logits[other]).max())
+            row[f"agreement vs {other}"] = agree
+            print(f"  {label} kernel path vs {other} path on {int(live.sum())} labelled EOS "
+                  f"positions: argmax {agree:.4f}, max |dlogit| {dmax:.4f}"
+                  + ("" if gate else " (printed, not gated)"))
+            if gate and agree < MIN_ARGMAX_AGREEMENT:
+                fail(f"run_mug {label}: argmax agreement {agree:.4f} < {MIN_ARGMAX_AGREEMENT}")
+        result[label] = row
+        del model, layers, logits
+        torch.cuda.empty_cache()
+
+    _, es_windows = featurize_es_examples(raw, tokenize_fn, wcfg, eos)
+    res, launches, row, model = drive(ckpts["float32"], "extractive_summarization", out / "mug_es")
+    del model
+    expected = LAYERS * math.ceil(len(es_windows) / PN_BATCH)
+    if device == "cuda" and launches["fused_ponet_mixer_block"] != expected:
+        fail(f"run_mug extractive_summarization: kernel 9 ran {launches} times, expected "
+             f"{expected}")
+    result["extractive_summarization"] = dict(row, launches=launches, windows=len(es_windows),
+                                              metrics=res["metrics"])
+    torch.cuda.empty_cache()
+    return result
 
 
 def serving_model(attention_impl: str, quantize: str):
@@ -1644,6 +2092,17 @@ def main() -> int:
                      "bigbird_train_bwd": tbb.bigbird_train_bwd,
                      "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
         fused_vs_einsum_grads(argv("bb_grad_out", epochs), batch_size=LF_TRAIN_B)
+        torch.cuda.empty_cache()
+        print(f"build and phases 3-14: {time.perf_counter() - t0:.1f} s")
+
+        # the MUG slice: kernel 9, then Tracks 1 and 2 through run_mug
+        t1 = time.perf_counter()
+        rows.update(ponet_kernel_phase(device))
+        print(f"phase 15 (kernel 9): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        mug_data = write_mug_corpus(Path(tmp) / "mug", n_train=3, n_eval=4)
+        mug = mug_path(ponet_checkpoints(Path(tmp)), mug_data, Path(tmp))
+        print(f"phase 16 (MUG Tracks 1 and 2): {time.perf_counter() - t1:.1f} s")
 
     served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
     launches = {**infer["launches"], **train["launches"],
@@ -1655,7 +2114,10 @@ def main() -> int:
                 "fused_attention_block_w8a8": served("w8a8 auto 128", "fused_attention_block"),
                 "fused_mlp_block_w8a8": served("w8a8 auto 128", "fused_mlp_block"),
                 **{k: served("w8a8 einsum 32", k) for k in ("w8a8_matmul_bf16in", "w8a8_matmul")},
-                "snld_self_attention": served("none pallas 32", "snld_self_attention")}
+                "snld_self_attention": served("none pallas 32", "snld_self_attention"),
+                "fused_ponet_mixer_block": mug["float32"]["launches"]["fused_ponet_mixer_block"],
+                "fused_ponet_mixer_block_w8a8":
+                    mug["W8A8"]["launches"]["fused_ponet_mixer_block"]}
     print(json.dumps({"serving": serving}))
     for name, inf, trn in (("longformer", lf_infer, lf_train), ("bigbird", bb_infer, bb_train)):
         print(json.dumps({name: {
@@ -1664,10 +2126,13 @@ def main() -> int:
                                               "agreement", "max_dlogit")},
             "training": {k: trn[k] for k in ("launches", "steps", "steps_per_s",
                                              "windows_per_s", "peak_gib")}}}))
+    print(json.dumps({"mug": mug}, default=float))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        # each kernel's row in the type its main path computes in
+        dtype = "float32" if name.startswith("fused_ponet") else "bfloat16"
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], **rows[name, "bfloat16"]})
+                        "launches": launches[name], **rows[name, dtype], "dtype": dtype})
     f32 = {name: rows[name, "float32"] for name in KERNELS if (name, "float32") in rows}
     print(json.dumps({"float32": f32}))
     print(json.dumps({"kernels": kernels}))

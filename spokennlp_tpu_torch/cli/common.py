@@ -3,16 +3,18 @@ configs and corpus loading.
 
 The port's own copy of ``spokennlp_tpu/cli/common.py``'s flag groups,
 ``resolve_tokenizer``, ``build_configs`` and ``load_docs``, with the same
-flags and defaults. Loading checkpoints is not ported yet, so
-``resolve_tokenizer`` knows a ``--vocab_file`` and the hash fallback but not
-a checkpoint directory's tokenizer (the CLIs refuse a checkpoint directory
-before they get here).
+flags and defaults. ``resolve_tokenizer`` knows a ``--vocab_file`` and the
+hash fallback but not a checkpoint directory's tokenizer (the CLIs refuse a
+checkpoint directory before they get here). The fallback hashes words with
+``zlib.crc32``, where the JAX package's uses the salted ``hash()``: the same
+flags give the same ids in every interpreter, and other ids than JAX's.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import zlib
 from typing import Callable, List, Tuple
 
 from spokennlp_tpu_torch.configs import EncoderConfig, TopicSegConfig, TrainConfig, WindowingConfig
@@ -127,13 +129,14 @@ def resolve_tokenizer(args) -> Tuple[Callable[[str], List[int]], dict]:
         if "[MASK]" in vocab:
             special["mask"] = vocab["[MASK]"]
         return tok.encode, special
-    # fallback hash tokenizer (smoke tests without vocab assets)
+    # fallback hash tokenizer (smoke tests without vocab assets); crc32, not
+    # the salted hash(), so every interpreter gives the same ids
     V = 30522
     special = {"cls": 101, "pad": 0, "bos": 1, "sep": 102, "mask": 103,
                "vocab_size": V}
 
     def hash_tokenize(s: str) -> List[int]:
-        return [1000 + (hash(w) % (V - 1100)) for w in s.split()] or [1000]
+        return [1000 + (zlib.crc32(w.encode()) % (V - 1100)) for w in s.split()] or [1000]
 
     return hash_tokenize, special
 

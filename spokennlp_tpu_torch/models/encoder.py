@@ -140,8 +140,17 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
+# the std of a standard normal truncated to [-2, 2]: Flax's truncated normal
+# divides by it so that the truncated draw keeps the variance asked for
+_TRUNC_STD = 0.87962566103423978
+
+
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
-    std = 1.0 / math.sqrt(fan_in)
+    """Flax's ``lecun_normal`` (variance_scaling(1, "fan_in",
+    "truncated_normal")): variance 1 / fan_in, truncated at two of its
+    (uncorrected) standard deviations. ``fan_in`` is the product of the
+    kernel's input axes (FusedQKV: H; AttnOutProj: nh * hd)."""
+    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
     nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
@@ -173,12 +182,14 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """Flax ``nn.Embed``: ``embedding`` (num, features)."""
+    """Flax ``nn.Embed``: ``embedding`` (num, features), drawn as Flax draws
+    it (variance_scaling(1, "fan_in", "normal", out_axis=0): the fan-in of a
+    (num, features) table is ``features``, so N(0, 1 / features))."""
 
     def __init__(self, num: int, features: int, generator=None):
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(num, features))
-        nn.init.normal_(self.embedding.data, std=0.02, generator=generator)
+        nn.init.normal_(self.embedding.data, std=1.0 / math.sqrt(features), generator=generator)
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return F.embedding(ids, self.embedding).to(dtype)

@@ -29,10 +29,12 @@ from spokennlp_tpu_torch.ops.cuda import train_bigbird as tb
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 MODULE_TOL = 1e-4
 BF16_RTOL = 3e-2
-# card: largest |kernel - plain| over the largest |plain| of each output,
-# the tolerances of the dense and Longformer training kernels
-# (tests/test_torch_train_blocks.py)
-CARD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+# card: largest |kernel - plain| over the largest |plain| of each output;
+# bf16 as for the dense and Longformer training kernels
+# (tests/test_torch_train_blocks.py), float32 from the H100 readings of
+# kernels 8 and 13 in chip_smoke.py (PERF.md: 2.2e-7 to 5.5e-6), about ten
+# times the largest
+CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 B, H, NH, BLOCK, G, R = 2, 32, 2, 8, 2, 3
 HD = H // NH

@@ -2,10 +2,11 @@
 port's isolation from the JAX package.
 
 The copies (configs, tokenization, corpora, windowing, augmentation, CSSL
-sampling, featurization, segmentation metrics, the CLI flag groups) must
-give the same arrays and numbers as the modules they copy on one corpus; and
-no module of ``spokennlp_tpu_torch``, nor ``chip_smoke.py``, may load
-``spokennlp_tpu`` or ``jax``.
+sampling, featurization, segmentation metrics, the CLI flag groups; the MUG
+data parsers, EOS windowing, ES featuriser, rouge and challenge evaluator)
+must give the same arrays and numbers as the modules they copy on one
+corpus; and no module of ``spokennlp_tpu_torch``, nor ``chip_smoke.py``, may
+load ``spokennlp_tpu``, ``jax`` or ``flax``.
 """
 
 import argparse
@@ -146,10 +147,106 @@ def test_tokenizer_and_cli_flags_match_jax(tmp_path):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
 
 
-# the Longformer and BigBird slices' modules, which the package walk must reach
+def _mug_submissions(rng, meetings):
+    """One submission of each track for the meetings, from noisy labels."""
+    keys = [m["meeting_key"] for m in meetings]
+    n = [len(m["sentences"]) for m in meetings]
+    pick = lambda k: sorted(set(rng.integers(1, k + 1, size=3).tolist()))
+    topics = [[{"id": t["id"], "key_sentence": pick(k), "title": t["candidate"][0]["title"]}
+               for t in m["topic_segment_ids"]] for m, k in zip(meetings, n)]
+    return {
+        "topic_segmentation": [{"meeting_key": mk, "topic_segment_ids": [{"id": i}
+                                                                        for i in pick(k)]}
+                               for mk, k in zip(keys, n)],
+        "extractive_summarization": [
+            {"meeting_key": mk, "topic_segment_ids": t, "key_sentence": pick(k)}
+            for mk, t, k in zip(keys, topics, n)],
+        "topic_title_generation": [{"meeting_key": mk, "topic_segment_ids": t}
+                                   for mk, t in zip(keys, topics)],
+        "keyphrase_extraction": [{"meeting_key": mk, "key_word": ["预算", "方案讨论", "x"]}
+                                 for mk in keys],
+        "action_item_detection": [{"meeting_key": mk, "action_ids": [{"id": i}
+                                                                    for i in pick(k)]}
+                                  for mk, k in zip(keys, n)],
+    }
+
+
+def test_mug_host_copies_match_jax(tmp_path):
+    """The MUG slice's host copies: the data parsers and submission
+    functions, the EOS windowing and the ES featuriser, rouge, and the
+    challenge evaluator (its five tracks and run_mug_evaluate) give what the
+    JAX package's modules give."""
+    from spokennlp_tpu import configs as jc
+    from spokennlp_tpu.cli import run_mug_evaluate as j_cli
+    from spokennlp_tpu.eval import rouge as j_rouge
+    from spokennlp_tpu.projects.mug import data as j_data
+    from spokennlp_tpu.projects.mug import evaluate as j_eval
+    from spokennlp_tpu.projects.mug import extractive_summarization as j_es
+    from spokennlp_tpu.projects.mug import topic_segmentation as j_ts
+    from spokennlp_tpu_torch import configs as tc
+    from spokennlp_tpu_torch.cli import run_mug_evaluate as t_cli
+    from spokennlp_tpu_torch.eval import rouge
+    from spokennlp_tpu_torch.projects.mug import data, evaluate
+    from spokennlp_tpu_torch.projects.mug import extractive_summarization as es
+    from spokennlp_tpu_torch.projects.mug import topic_segmentation as ts
+    from test_torch_mug import write_mug_corpus
+
+    write_mug_corpus(tmp_path, n_meetings=4, n_sent=40, seed=3)
+    meetings = data.read_jsonl(str(tmp_path / "dev.jsonl"))
+    _assert_same(meetings, j_data.read_jsonl(str(tmp_path / "dev.jsonl")), "read_jsonl")
+    tok = lambda s: [1000 + ord(c) % 500 for c in s] or [1000]
+    kw = dict(max_seq_length=48, cls_token_id=2, pad_token_id=0, bos_token_id=1)
+    jw, tw = jc.WindowingConfig(**kw), tc.WindowingConfig(**kw)
+    for m in meetings:
+        for fn in ("parse_topic_segmentation", "parse_title_generation", "parse_action_items",
+                   "parse_keyphrases"):
+            _assert_same(getattr(data, fn)(m), getattr(j_data, fn)(m), fn)
+        for level in ("topic", "doc"):
+            for strategy in ("single", "union", "major_vote", "pool"):
+                _assert_same(data.parse_extractive_summarization(m, level, strategy),
+                             j_data.parse_extractive_summarization(m, level, strategy),
+                             f"es {level} {strategy}")
+        parsed = data.parse_topic_segmentation(m)
+        sents = [tok(s) for s in parsed["sentences"]]
+        paragraphs = [1 + i // 3 for i in range(len(sents))]
+        for par in (None, paragraphs):
+            got = ts.window_document_eos(sents, parsed["labels"], tw, 3, 7, paragraph_ids=par)
+            want = j_ts.window_document_eos(sents, parsed["labels"], jw, 3, 7, paragraph_ids=par)
+            _assert_same(got, want, "windows")
+            _assert_same(ts.stack_eos_windows(got), j_ts.stack_eos_windows(want), "stack")
+    for level, strategy in (("topic", "single"), ("doc", "union"), ("topic", "pool")):
+        _assert_same(es.featurize_es_examples(meetings, tok, tw, 3, level, strategy),
+                     j_es.featurize_es_examples(meetings, tok, jw, 3, level, strategy), "es")
+
+    rng = np.random.default_rng(4)
+    words = [f"w{i}" for i in range(30)]
+    text = lambda: " ".join(rng.choice(words, size=int(rng.integers(1, 12))))
+    hyps, refs = [text() for _ in range(6)], [text() for _ in range(6)]
+    for avg in (True, False):
+        assert rouge.rouge_scores(hyps, refs, avg) == j_rouge.rouge_scores(hyps, refs, avg)
+    multi = [[text() for _ in range(3)] for _ in hyps]
+    assert rouge.multi_reference_rouge(hyps, multi) == j_rouge.multi_reference_rouge(hyps, multi)
+
+    subs = _mug_submissions(rng, meetings)
+    keys = [m["meeting_key"] for m in meetings]
+    _assert_same(data.topic_segmentation_submission(keys, [[1, 5], [2]] * 2),
+                 j_data.topic_segmentation_submission(keys, [[1, 5], [2]] * 2), "ts sub")
+    for task, sub in subs.items():
+        assert evaluate.TRACK_EVALUATORS[task](meetings, sub) == \
+            j_eval.TRACK_EVALUATORS[task](meetings, sub), task
+        data.write_jsonl(str(tmp_path / f"{task}.jsonl"), sub)
+        argv = ["--task", task, "--label_file", str(tmp_path / "dev.jsonl"), "--pred_file",
+                str(tmp_path / f"{task}.jsonl")]
+        assert t_cli.main(argv) == j_cli.main(argv), task
+
+
+# the Longformer, BigBird and MUG slices' modules, which the package walk must reach
 LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.sliding_attention", "ops.cuda.sliding_block", "ops.cuda.train_sliding", "eval.analysis",
-    "ops.bigbird_attention", "ops.cuda.bigbird_block", "ops.cuda.train_bigbird")]
+    "ops.bigbird_attention", "ops.cuda.bigbird_block", "ops.cuda.train_bigbird",
+    "models.checkpoint_io", "models.ponet", "ops.cuda.ponet_block", "projects.mug.data",
+    "projects.mug.topic_segmentation", "projects.mug.extractive_summarization",
+    "projects.mug.evaluate", "eval.rouge", "cli.run_mug", "cli.run_mug_evaluate")]
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
@@ -176,4 +273,4 @@ assert not missing, missing
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n, _ = proc.stdout.split(" ", 1)
-    assert int(n) >= (1 if target == "chip_smoke" else 29)
+    assert int(n) >= (1 if target == "chip_smoke" else 40)

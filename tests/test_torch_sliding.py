@@ -23,9 +23,11 @@ from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_RTOL = 1e-3
 BF16_RTOL = 3e-2
-# card: largest |kernel - plain| over the largest |plain| of each output,
-# the tolerances of the dense training kernels (tests/test_torch_train_blocks.py)
-CARD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+# card: largest |kernel - plain| over the largest |plain| of each output;
+# bf16 as for the dense training kernels (tests/test_torch_train_blocks.py),
+# float32 from the H100 readings of kernels 7 and 12 in chip_smoke.py
+# (PERF.md: 2.5e-7 to 6.0e-6), about ten times the largest
+CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 B, L, H, NH, WINDOW = 2, 32, 32, 2, 16
 HD = H // NH

@@ -20,7 +20,11 @@ GRAD_RTOL = 1e-3
 # float32 differs only by summation order; bf16 kernels round q, k, v, the
 # probabilities, ctx, dS and dq/dk/dv (or the MLP intermediate and dpre) to
 # bf16 (unit roundoff 2^-9) where the plain version stays in float32.
-CARD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+# float32 limits per kernel from the H100 readings of chip_smoke.py (PERF.md:
+# 1.2e-7 to 6e-6, the attention block's dqkv_bias up to 3.9e-5), about ten
+# times the largest.
+CARD_TOL = {"attention": {torch.float32: 2e-4, torch.bfloat16: 3e-2},
+            "mlp": {torch.float32: 1e-4, torch.bfloat16: 3e-2}}
 
 # the sizes of tests/test_train_blocks.py
 B, L, H, NH = 2, 128, 64, 4
@@ -256,7 +260,7 @@ def test_attention_kernels_match_plain_on_card(cuda, dtype, rate, Bc, Lc, Hc, nh
     )
     for name, g, w in zip(("out",) + ATT_ARGS, got, want):
         err = _normalized_err(g, w)
-        assert err < CARD_TOL[dtype], (name, err)
+        assert err < CARD_TOL["attention"][dtype], (name, err)
 
 
 @pytest.mark.gpu
@@ -279,7 +283,7 @@ def test_mlp_kernels_match_plain_on_card(cuda, dtype, M, Hc, I, activation):
         MLP_ARGS)
     for name, g, w in zip(("out",) + MLP_ARGS, got, want):
         err = _normalized_err(g, w)
-        assert err < CARD_TOL[dtype], (name, err)
+        assert err < CARD_TOL["mlp"][dtype], (name, err)
 
 
 @pytest.mark.gpu

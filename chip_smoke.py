@@ -114,9 +114,39 @@
    memory on the kernel path and both plain paths, and argmax agreement
    >= 0.99 on the labelled EOS positions with the plain fused path (with
    the XLA mixer printed, not gated). Then Track 2 once.
-17. Prints the serving runs, the Longformer, BigBird and MUG runs and the
-   kernels as JSON lines, the card's name and power limit, and last
-   {"ok": true, "device": {...}}.
+17. W8A8 long-context kernel phase: the W8A8 modes of the Longformer block
+   (kernel 7, B=8, L=2048, with and without global rows) and the BigBird
+   block (kernel 8, B=4, L=4096, with the 100-token row), bf16 and float32,
+   against their plain versions (the W8A8 check of phase 3); planted
+   faults, each made by patching one helper of the plain version: one x
+   scale, one ctx scale or one QKV weight scale for the batch must fail the
+   check in both dtypes; ctx unquantised or quantised per head in float32
+   (printed in bf16, where ctx's int8 step is within the check's rounding);
+   a ctx rounded to bf16 before its quantisation is printed, not gated; for
+   Longformer, the global query from the local q weights must fail it on
+   the global rows; kernel, plain, bound and torch._int_mm times.
+18. The last two kernel modes at the main path's shapes: the W8A8 MLP block
+   with a static intermediate scale (2b) and the W8A8 attention block with
+   the int8 core (1c: "qk", "av", "both"; head groups of 12 and 6), against
+   their plain versions, with three planted faults (2b with per-row scales;
+   1c with q and k scales over the batch, or its denominator summed over the
+   rounded p8); times, bounds and torch._int_mm on the projections (1c's
+   library time leaves out the core's products).
+19. W8A8 long-context serving: the engine call run_topic_seg_inference on
+   Longformer-base (batch 8 x 2048) and BigBird-base (batch 4 x 4096), built
+   as JAX's on-chip suite builds them (W8A8, softmax in the compute type,
+   attention_impl auto, bf16), on the long corpora of phases 9 and 13: the
+   W8A8 blocks ran once a layer a batch; JAX's own gate (argmax >= 0.999,
+   mean |dlogit| <= 0.1 on real tokens of two batches with suffix padding)
+   against the unquantised bf16 chunked or block path; argmax >= 0.99
+   against the W8A8 einsum path (kernels 4 and 5) at the sentence slots;
+   median windows/s of 3 calls and peak memory of the W8A8 kernel path, the
+   W8A8 einsum path and the float kernel path; busy share and top kernels
+   of the W8A8 kernel path. Every main path counts the launches of 1c and
+   2b apart and fails if one ran: the kernels line gives their sum.
+20. Prints the serving runs, the Longformer, BigBird, MUG and W8A8
+   long-context runs and the kernels as JSON lines, the card's name and
+   power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -124,6 +154,8 @@ when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -283,6 +315,24 @@ KERNELS = {
         "spokennlp_tpu_torch/csrc/ponet_block.cu",
         "spokennlp_tpu/ops/pallas/ponet_block.py:325",
     ),
+    "sliding_attention_block_w8a8": (
+        "spokennlp_tpu_torch/csrc/sliding_block.cu",
+        "spokennlp_tpu/ops/pallas/sliding_block.py:309",
+    ),
+    "bigbird_attention_block_w8a8": (
+        "spokennlp_tpu_torch/csrc/bigbird_block.cu",
+        "spokennlp_tpu/ops/pallas/bigbird_block_kernel.py:261",
+    ),
+    # the last two modes lie on no model path (JAX sets them nowhere): held
+    # at the kernel level only, with no launches on a main path
+    "fused_attention_block_core_int8": (
+        "spokennlp_tpu_torch/csrc/attention_block.cu",
+        "spokennlp_tpu/ops/pallas/attention_block.py:360",
+    ),
+    "fused_mlp_block_static_h": (
+        "spokennlp_tpu_torch/csrc/mlp_block.cu",
+        "spokennlp_tpu/ops/pallas/mlp_block.py:119",
+    ),
 }
 # the Longformer slice: the reference's flagship recipe (scripts/run_finetune.sh:
 # window 512, 2048 tokens, training batch 2 x 4 accumulation steps), served in
@@ -298,6 +348,10 @@ LF_LONG_TOKENS, LF_MIN_LONG_SHARE = 1536, 0.5
 BB_B, BB_L, BB_TRAIN_B, BB_TRAIN_L = 4, 4096, 8, 2048
 BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED = 64, 2, 3, 0
 BB_LONG_TOKENS = 3072
+# the W8A8 long-context slice: JAX's on-chip parity gate (tests/
+# test_tpu_kernel_parity.py _assert_parity) and the engine calls per path
+PARITY_ARGMAX, PARITY_MEAN_DLOGIT = 0.999, 0.1
+RUNS_PER_PATH = 3
 # the MUG slice: PoNet-base (BERT-base widths, local window 3, single-head
 # GA, max_position_embeddings 4096, float32 as run_mug computes) over its
 # recipe's 4096 tokens; kernel 9's phase at B=8, run_mug at its default
@@ -367,6 +421,43 @@ def reset_peak():
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
+# launches of the kernel modes that their wrappers count apart from their
+# other launches, summed over every main path's run (read_counts): the
+# kernels line's numbers for those modes, which no model path sets
+MODE_LAUNCHES = {"fused_attention_block_core_int8": 0, "fused_mlp_block_static_h": 0}
+
+
+def mode_counters() -> dict:
+    """{kernels-line name: (wrapper, its counter)} of the modes in
+    MODE_LAUNCHES."""
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+
+    return {"fused_attention_block_core_int8": (fused_attention_block, "core_int8_launches"),
+            "fused_mlp_block_static_h": (fused_mlp_block, "static_h_launches")}
+
+
+def reset_counts(wrappers: dict):
+    """Set the launch counts of ``wrappers`` ({name: wrapper}) and of the
+    modes in MODE_LAUNCHES to 0, just before a main path's run."""
+    for w in wrappers.values():
+        w.launches = 0
+    for w, counter in mode_counters().values():
+        setattr(w, counter, 0)
+
+
+def read_counts(wrappers: dict) -> dict:
+    """{name: launches} of ``wrappers`` just after a main path's run; adds
+    the modes' counts to MODE_LAUNCHES and fails if one of them ran, since
+    no model configuration sets it."""
+    for name, (w, counter) in mode_counters().items():
+        n = getattr(w, counter)
+        MODE_LAUNCHES[name] += n
+        if n:
+            fail(f"{name} ran {n} times on a main path: no model configuration sets that mode")
+    return {name: w.launches for name, w in wrappers.items()}
+
+
 def peak_gib() -> float:
     """The card's peak allocation since reset_peak() in GiB; nan on the CPU."""
     import torch
@@ -401,6 +492,20 @@ def w8a8_check(got, want, dtype) -> dict:
     beyond = (err - rtol * ref).max().item()
     return {"share": share, "max_abs_err": err.max().item(),
             "ok": share <= W8A8_SHARE[dtype] and beyond <= W8A8_STEP}
+
+
+def check_planted(planted: dict, dtype: str, reported=()):
+    """Each planted fault {what: (got, want, rows)} must fail w8a8_check;
+    those in ``reported`` are printed with their reading, not gated."""
+    for what, (got, want, rows) in planted.items():
+        c = w8a8_check(got[rows], want[rows], dtype)
+        gated = what not in reported
+        print(f"  planted fault, {what} ({dtype}): {c['share']:.2e} of the outputs beyond "
+              f"rounding, max |err| {c['max_abs_err']:.3e}: "
+              + ("PASSES the check" if c["ok"] else "rejected")
+              + ("" if gated else " (reported, not gated)"))
+        if c["ok"] and gated:
+            fail(f"the W8A8 check lets a planted fault through: {what} ({dtype})")
 
 
 def limit(kernel: str, dtype: str):
@@ -547,6 +652,144 @@ def mlp_w8a8_bf16_intermediate(x, w1, b1, w2, b2, ln_scale, ln_bias):
     return F.layer_norm(y + x.float(), (x.shape[1],), ln_scale, ln_bias, eps=1e-12).to(x.dtype)
 
 
+# planted faults of the W8A8 long-context blocks and the last two kernel
+# modes, each planted by patching the one helper of the plain version that
+# it changes (planted()); each, at the phase's shapes, must fail w8a8_check
+# against the plain version (tests/test_torch_w8a8_long.py holds the same at
+# small shapes)
+LONG_W8A8_FAULTS = ("one x scale for the batch", "one ctx scale for the batch",
+                    "one scale for the QKV weights", "ctx unquantised", "ctx quantised per head")
+# In bf16 the check's rounding (2e-3 + 2^-7 |ref|) is about what an int8 step
+# of ctx moves an output (PERF.md: 0.07-0.22 % of the outputs beyond it), so
+# there the faults that change ctx's quantisation by its own noise are
+# printed with their reading; they are gated in float32, which is the bf16
+# path's coverage of ctx's quantisation (ctx is float32 in both modes), and
+# the faults that move every row are gated in both.
+BF16_GATED_FAULTS = LONG_W8A8_FAULTS[:3]
+# a fault the check may not tell apart, printed with its reading, not gated:
+# a ctx rounded to bf16 (in bf16 that moves it by less than the output's
+# own rounding)
+CTX_BF16_FAULT = "ctx rounded to bf16 before its quantisation"
+# kernel 7's global query projected with the local q weights: it moves the
+# global rows only (one a sequence), so it is checked on them alone
+GLOBAL_FAULT = "global query from the local q weights"
+CORE_MLP_FAULTS = ("static-scale MLP with per-row scales",
+                   "int8 core with q and k scales over the batch",
+                   "int8 core summing the rounded p8 in its denominator")
+
+
+def rowquant_per_tensor(x):
+    """A planted fault's quantiser: one scale for all rows of (M, K) x."""
+    import torch
+
+    s = x.float().abs().amax().clamp_min(1e-6) * (1.0 / 127.0)
+    q = torch.round(x.float() * (1.0 / s)).clamp(-127, 127).to(torch.int8)
+    return q, s.expand(x.shape[0], 1)
+
+
+def colquant_per_tensor(w):
+    """A planted fault's weight quantiser: one scale for all columns of
+    (..., K, N) w, returned per column as quantize_colwise returns it."""
+    import torch
+
+    wf = w.float()
+    s = wf.abs().amax().clamp_min(1e-6) / 127.0
+    q = torch.round(wf / s).clamp(-127, 127).to(torch.int8)
+    return q, s.expand(*wf.shape[:-2], 1, wf.shape[-1]).contiguous()
+
+
+@contextlib.contextmanager
+def planted(patches):
+    """Plant a fault in a plain version: each (owner, name, call, stand_in)
+    sends the ``call``-th call (from 0; None: every call) of owner.name to
+    stand_in(the real function, *its arguments)."""
+    from unittest import mock
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, call, stand_in in patches:
+            def patched(*args, real=getattr(owner, name), calls=itertools.count(), call=call,
+                        stand_in=stand_in):
+                i = next(calls)
+                return stand_in(real, *args) if call is None or i == call else real(*args)
+
+            stack.enter_context(mock.patch.object(owner, name, patched))
+        yield
+
+
+def long_w8a8_faults(block, num_heads: int) -> dict:
+    """{fault: patches for planted()} of the W8A8 plain version of kernel 7
+    (``block`` ops/cuda/sliding_block.py) or kernel 8 (bigbird_block.py)
+    with ``num_heads`` heads. In both, rowquant_plain's first call
+    quantises x and its second ctx, and quantize_colwise's first call the
+    QKV weights; the ctx faults hand the out projection float values with a
+    scale of 1."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import attention_block as ab
+    from spokennlp_tpu_torch.ops.cuda import sliding_block as sb
+
+    def ctx_as(values):
+        def quant(real, c):
+            return values(real, c), torch.ones_like(c[:, :1])
+
+        def product(real, a, b):
+            return real(a, b) if a.dtype == torch.int8 else (a.double() @ b.double()).float()
+
+        return [(block, "rowquant_plain", 1, quant), (block, "int8_product", None, product)]
+
+    def per_head(real, c):
+        c8, s = real(c, num_heads)
+        return (c8.float().reshape(len(c), num_heads, -1) * s[..., None]).reshape(c.shape)
+
+    def global_q_local(real, *args):
+        w = real(*args)
+        n = w["wgq8"].shape[1]
+        return dict(w, wgq8=w["wqkv8"][:, :n].contiguous(), swgq=w["swqkv"][:n].contiguous())
+
+    x_scale, ctx_scale, w_scale, ctx_float, ctx_head = LONG_W8A8_FAULTS
+    faults = {x_scale: [(block, "rowquant_plain", 0, lambda real, x: rowquant_per_tensor(x))],
+              ctx_scale: [(block, "rowquant_plain", 1, lambda real, c: rowquant_per_tensor(c))],
+              w_scale: [(sb if block is sb else ab, "quantize_colwise", 0,
+                         lambda real, w: colquant_per_tensor(w))],
+              ctx_float: ctx_as(lambda real, c: c.float()),
+              ctx_head: ctx_as(per_head),
+              CTX_BF16_FAULT: [(block, "rowquant_plain", 1,
+                                lambda real, c: real(c.to(torch.bfloat16)))]}
+    if block is sb:
+        faults[GLOBAL_FAULT] = [(sb, "quantize_sliding_weights", None, global_q_local)]
+    return faults
+
+
+def core_mlp_fault(fault, att, mlp, *, sm_scale, hb):
+    """(the block with ``fault``, its plain version, the rows to compare):
+    the static-scale MLP block run with per-row scales, or the W8A8
+    attention block with a faulty int8 core ("qk" or "av", ``hb`` heads a
+    group). ``att``: fused_attention_block's tensors by name; ``mlp``:
+    fused_mlp_block's in order."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import attention_block as ab
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import mlp_block_plain
+
+    if fault == CORE_MLP_FAULTS[0]:
+        kw = dict(activation="gelu", eps=1e-12, quantized=True)
+        return (mlp_block_plain(*mlp.values(), **kw),
+                mlp_block_plain(*mlp.values(), **kw, static_h_scale=True), slice(None))
+
+    def over_batch(real, t, groups):  # the batch quantised as one sequence
+        t8, s = real(t.reshape(1, -1, *t.shape[2:]), groups)
+        return t8.reshape(t.shape), s.expand(t.shape[0], -1)
+
+    core, patch = (("qk", (ab, "core_int8_quantize", None, over_batch)) if "batch" in fault else
+                   ("av", (ab, "core_int8_denominator", None,
+                           lambda real, p: real(torch.round(p).clamp(0, 127)))))
+    kw = dict(sm_scale=sm_scale, quantized=True, heads_per_block=hb, core_int8=core)
+    want = ab.attention_block_plain(**att, **kw)
+    with planted([patch]):
+        got = ab.attention_block_plain(**att, **kw)
+    return got, want, att["segment_ids"] > 0
+
+
 def w8a8_kernel_phase(device) -> dict:
     """{(name, dtype): row} for kernels 4, 5 and 6 and the W8A8 modes of 1 and
     2 at the main path's shapes."""
@@ -663,13 +906,7 @@ def w8a8_kernel_phase(device) -> dict:
                 (mlp_w8a8_bf16_intermediate(x, w1, b1, w2, b2, **ln), want_mlp, slice(None)),
             "MLP block not quantising": (mlp(fused_mlp_block, False), want_mlp, slice(None)),
         }
-        for what, (got, want, v) in planted.items():
-            c = w8a8_check(got[v], want[v], dtype)
-            print(f"  planted fault, {what} ({dtype}): {c['share']:.2e} of the outputs beyond "
-                  f"rounding, max |err| {c['max_abs_err']:.3e}: "
-                  + ("PASSES the check" if c["ok"] else "rejected"))
-            if c["ok"]:
-                fail(f"the W8A8 check lets a planted fault through: {what} ({dtype})")
+        check_planted(planted, dtype)
         del planted, want_att, want_mlp
 
         # kernel 6 over a projected qkv; yardstick: scaled_dot_product_attention
@@ -1400,6 +1637,376 @@ def ponet_kernel_phase(device) -> dict:
     return rows
 
 
+# ------------------------------------------- W8A8 long-context and kernel modes
+
+
+def int_mm_time(pairs, name) -> float:
+    """torch._int_mm over int8 (A, B) products (the library's int8 GEMM, B
+    passed column-major as it takes it): a W8A8 row's library_ms."""
+    import torch
+
+    cols = [(a, b.t().contiguous().t()) for a, b in pairs]
+    return library_time(lambda: [torch._int_mm(a, b) for a, b in cols], f"{name} (torch._int_mm)")
+
+
+def w8a8_long_kernel_phase(device) -> dict:
+    """{(name, dtype): row} for the W8A8 modes of kernel 7 (B=8, L=2048, with
+    and without global rows) and kernel 8 (B=4, L=4096, the 100-token row
+    among them), bf16 and float32: each against its plain version on real
+    rows (w8a8_check) with three planted faults that must fail the check and
+    one reported; kernel, plain, bound and torch._int_mm times."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import bigbird_block as bbk
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+    from spokennlp_tpu_torch.ops.cuda import sliding_block as sb
+    from spokennlp_tpu_torch.ops.cuda.attention_block import quantize_attention_weights
+
+    g = torch.Generator(device=device).manual_seed(7)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    HN = NH * HD
+    weight = lambda: dict(qkv_kernel=randn(H, 3, NH, HD, scale=H**-0.5),
+                          qkv_bias=randn(3, NH, HD, scale=0.02))
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        reported = (CTX_BF16_FAULT,) + tuple(
+            f for f in LONG_W8A8_FAULTS if dtype == "bfloat16" and f not in BF16_GATED_FAULTS)
+        ln = dict(ln_scale=1 + randn(H, scale=0.1), ln_bias=randn(H, scale=0.1))
+        out_w = lambda: dict(out_kernel=randn(NH, HD, H, scale=HN**-0.5),
+                             out_bias=randn(H, scale=0.02))
+
+        # kernel 7 W8A8
+        gw = weight()
+        params = {**weight(), "gqkv_kernel": gw["qkv_kernel"], "gqkv_bias": gw["qkv_bias"],
+                  **out_w()}
+        params = {k: params[k] for k in ("qkv_kernel", "qkv_bias", "gqkv_kernel", "gqkv_bias",
+                                         "out_kernel", "out_bias")}
+        ps = list(params.values())
+        hidden = randn(LF_B, LF_L, H).to(dt)
+        kw = dict(sm_scale=HD**-0.5, window=LF_WINDOW, max_globals=LF_MAX_GLOBALS, **ln)
+        for global_rows in (True, False):
+            mask, glob = sliding_masks(device, global_rows)
+            gkw = dict(kw, global_rows=global_rows)
+            row = compare(f"sliding_attention_block W8A8 global_rows={global_rows}", dtype,
+                          lambda: sb.fused_sliding_attention_block(hidden, mask, glob, *ps,
+                                                                   quantized=True, **gkw),
+                          lambda: sb.sliding_block_plain(hidden, mask, glob, *ps, quantized=True,
+                                                         **gkw), mask.bool(), w8a8=True, reps=5)
+            if global_rows:
+                plain = lambda: sb.sliding_block_plain(hidden, mask, glob, *ps, quantized=True,
+                                                       **gkw)
+                want, valid, rows_g = plain(), mask.bool(), glob.bool() & mask.bool()
+                planted_rows = {}
+                for f, patches in long_w8a8_faults(sb, NH).items():
+                    with planted(patches):
+                        planted_rows[f] = (plain(), want, rows_g if f == GLOBAL_FAULT else valid)
+                check_planted(planted_rows, dtype, reported=reported)
+                del want, planted_rows
+                work = sliding_work(mask, glob, LF_WINDOW, H, NH, HD)
+                w = sb.quantize_sliding_weights(ps[0], ps[2], ps[4])
+                moved = nbytes(hidden, mask, glob, *w.values(), *ps[1:4:2], ps[5], *ln.values(),
+                               hidden)
+                row.update(bound({"int8": work["proj"] + work["out"], dtype: work["core"]},
+                                 moved))
+                x8, _ = im.rowquant_plain(hidden.reshape(-1, H))
+                xg8 = x8.reshape(LF_B, LF_L, H)[:, :sb.global_columns(LF_MAX_GLOBALS, LF_L)]
+                # the ctx's int8 operand has x8's shape (Hn = H): x8 stands in for it
+                row["library_ms"] = int_mm_time(
+                    [(x8, w["wqkv8"]), (x8, w["wgkv8"]), (xg8.reshape(-1, H), w["wgq8"]),
+                     (x8, w["wo8"])], f"sliding_attention_block W8A8 {dtype}")
+                row["work_gop"] = (work["proj"] + work["core"] + work["out"]) / 1e9
+                rows["sliding_attention_block_w8a8", dtype] = row
+        del hidden
+
+        # kernel 8 W8A8
+        params = {**weight(), **out_w()}
+        ps = list(params.values())
+        pattern = (BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED, HD**-0.5)
+        mask = bigbird_masks(device, BB_B, BB_L)
+        hidden = randn(BB_B, BB_L, H).to(dt)
+        args = (hidden, mask, *ps, *pattern)
+        row = compare("bigbird_attention_block W8A8", dtype,
+                      lambda: bbk.fused_bigbird_attention_block(*args, quantized=True, **ln),
+                      lambda: bbk.bigbird_block_plain(*args, quantized=True, **ln), mask.bool(),
+                      w8a8=True, reps=5)
+        want = bbk.bigbird_block_plain(*args, quantized=True, **ln)
+        planted_rows = {}
+        for f, patches in long_w8a8_faults(bbk, NH).items():
+            with planted(patches):
+                planted_rows[f] = (bbk.bigbird_block_plain(*args, quantized=True, **ln), want,
+                                   mask.bool())
+        check_planted(planted_rows, dtype, reported=reported)
+        del want, planted_rows
+        t = bigbird_tables(BB_L // BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED, device)
+        work = bigbird_work(mask, BB_BLOCK, t, H, NH, HD)
+        wqkv8, swqkv, wo8, swo = quantize_attention_weights(ps[0], ps[2], 1)
+        moved = nbytes(hidden, mask, wqkv8, swqkv, wo8, swo, ps[1], ps[3], *ln.values(), hidden)
+        row.update(bound({"int8": work["proj"] + work["out"], dtype: work["core"]}, moved))
+        x8, _ = im.rowquant_plain(hidden.reshape(-1, H))
+        row["library_ms"] = int_mm_time([(x8, wqkv8), (x8, wo8)],
+                                        f"bigbird_attention_block W8A8 {dtype}")
+        row["work_gop"] = (work["proj"] + work["core"] + work["out"]) / 1e9
+        rows["bigbird_attention_block_w8a8", dtype] = row
+        del hidden, args
+        for name in ("sliding_attention_block_w8a8", "bigbird_attention_block_w8a8"):
+            r = rows[name, dtype]
+            print(f"kernel {name} {dtype}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}; {r['work_gop']:.1f} GOP)  "
+                  f"torch._int_mm {r['library_ms']:.3f} ms")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def core_static_kernel_phase(device) -> dict:
+    """{(name, dtype): row} for the last two kernel modes at the main path's
+    shapes (B=32, L=512, padded tails and two packed segments), bf16 and
+    float32: the W8A8 MLP block with a static intermediate scale (2b) and
+    the W8A8 attention block with the int8 core (1c) in each of "qk", "av"
+    and "both" at head groups of 12 and 6, each against its plain version
+    (w8a8_check; a "qk" core on every row, since a row with no allowed key
+    is uniform by construction), with planted faults; times, bounds and
+    torch._int_mm on the int8 products."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+    from spokennlp_tpu_torch.ops.cuda.attention_block import (
+        attention_block_plain, fused_attention_block, quantize_attention_weights,
+    )
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+
+    g = torch.Generator(device=device).manual_seed(8)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    seg = segments(device)
+    M, HN = B * L, NH * HD
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        ln = dict(ln_scale=1 + randn(H, scale=0.1), ln_bias=randn(H, scale=0.1))
+
+        # 2b: the static intermediate scale
+        mlp = dict(x=randn(M, H).to(dt), w1=randn(H, I, scale=H**-0.5), b1=randn(I, scale=0.02),
+                   w2=randn(I, H, scale=I**-0.5), b2=randn(H, scale=0.02), **ln)
+        kw = dict(activation="gelu", eps=1e-12, quantized=True, static_h_scale=True)
+        row = compare("fused_mlp_block W8A8 static_h_scale", dtype,
+                      lambda: fused_mlp_block(*mlp.values(), **kw),
+                      lambda: mlp_block_plain(*mlp.values(), **kw), slice(None), w8a8=True)
+        (w1q, _), (w2q, _) = im.quantize_colwise(mlp["w1"]), im.quantize_colwise(mlp["w2"])
+        x8, _ = im.rowquant_plain(mlp["x"])
+        h8 = torch.randint(-127, 128, (M, I), dtype=torch.int8, device=device)  # h8's shape
+        row.update(bound({"int8": 4 * M * H * I}, nbytes(*mlp.values(), mlp["x"])))
+        row["library_ms"] = int_mm_time([(x8, w1q), (h8, w2q)],
+                                        f"fused_mlp_block static_h_scale {dtype}")
+        rows["fused_mlp_block_static_h", dtype] = row
+
+        # 1c: the int8 attention core
+        att = dict(hidden=randn(B, L, H).to(dt), segment_ids=seg,
+                   qkv_kernel=randn(H, 3, NH, HD, scale=H**-0.5),
+                   qkv_bias=randn(3, NH, HD, scale=0.02),
+                   out_kernel=randn(NH, HD, H, scale=HN**-0.5), out_bias=randn(H, scale=0.02),
+                   **ln)
+        modes = {}
+        for core in ("qk", "av", "both"):
+            every = torch.ones_like(seg, dtype=torch.bool) if core != "av" else seg > 0
+            for hb in (NH, NH // 2):
+                kw = dict(sm_scale=HD**-0.5, quantized=True, heads_per_block=hb, core_int8=core)
+                r = compare(f"fused_attention_block W8A8 core_int8={core} heads_per_block={hb}",
+                            dtype, lambda: fused_attention_block(**att, **kw),
+                            lambda: attention_block_plain(**att, **kw), every, w8a8=True,
+                            reps=10 if hb == NH else 2)
+                if hb == NH:
+                    modes[core] = r
+        # the core's products: int8 where the mode quantises them, else dtype
+        half = 2 * B * NH * L * L * HD
+        wqkv8, _, wo8, _ = quantize_attention_weights(att["qkv_kernel"], att["out_kernel"], 1)
+        x8, _ = im.rowquant_plain(att["hidden"].reshape(M, H))
+        lib = int_mm_time([(x8, wqkv8), (x8, wo8)], f"fused_attention_block core_int8 {dtype}")
+        moved = nbytes(*att.values(), att["hidden"])
+        for core, r in modes.items():
+            ops = {"int8": 2 * M * H * 3 * HN + 2 * M * HN * H + half * (1 + (core == "both")),
+                   dtype: half * (core != "both")}
+            r.update(bound(ops, moved))
+            r["library_ms"] = lib
+        row = dict(modes["both"])
+        row["modes"] = {core: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                        for core, r in modes.items()}
+        rows["fused_attention_block_core_int8", dtype] = row
+        check_planted({f: core_mlp_fault(f, att, mlp, sm_scale=HD**-0.5, hb=NH // 2)
+                       for f in CORE_MLP_FAULTS}, dtype)
+        print(f"kernel fused_mlp_block_static_h {dtype}: kernel "
+              f"{rows['fused_mlp_block_static_h', dtype]['ms']:.3f} ms; fused_attention_block "
+              f"core_int8 {dtype}: " + ", ".join(
+                  f"{c} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f})"
+                  for c, r in modes.items()) + f"; torch._int_mm {lib:.3f} ms")
+        del att, mlp
+        torch.cuda.empty_cache()
+    return rows
+
+
+def long_serving_model(trunk: str, quantize: str, attention_impl: str):
+    """The W8A8 long-context serving model as JAX's on-chip suite builds it
+    (tests/test_tpu_kernel_parity.py _build): TopicSegModel at BERT-base
+    widths, 12 layers, softmax in the compute type, bf16 compute, float32
+    parameters, ``trunk`` Longformer (window 512, 16 global tokens at most,
+    2048 positions) or BigBird (blocks of 64, 2 global and 3 random, seed 0,
+    4096 positions); weights from seed 0 drawn on the card, the same on
+    every call."""
+    import torch
+
+    from spokennlp_tpu_torch.configs import EncoderConfig, TopicSegConfig
+    from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
+
+    shape = (dict(attention_type="sliding_window", attention_window=LF_WINDOW,
+                  max_global_tokens=LF_MAX_GLOBALS, max_position_embeddings=LF_L)
+             if trunk == "longformer" else
+             dict(attention_type="bigbird", bigbird_block_size=BB_BLOCK,
+                  bigbird_num_global_blocks=BB_GLOBAL, bigbird_num_random_blocks=BB_RANDOM,
+                  bigbird_seed=BB_SEED, max_position_embeddings=BB_L))
+    enc = EncoderConfig(vocab_size=30522, hidden_size=H, num_layers=LAYERS, num_heads=NH,
+                        intermediate_size=I, add_pooler=False, softmax_in_compute_dtype=True,
+                        quantize=quantize, attention_impl=attention_impl, **shape)
+    with torch.device("cuda"):
+        model = TopicSegModel(enc, TopicSegConfig(), dtype=torch.bfloat16,
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+    return model.eval()
+
+
+def long_serving_path(trunk: str, data_dir: str, out_dir: str) -> dict:
+    """The W8A8 long-context serving configuration through the engine call
+    (run_topic_seg_inference) on the Longformer (batch 8 x 2048) or BigBird
+    (batch 4 x 4096) corpus: the W8A8 kernel path (attention_impl auto:
+    kernel 7 or 8 and the MLP block in their W8A8 modes once a layer a
+    batch), the W8A8 einsum path (kernels 4 and 5, chunked or block
+    attention) and the float kernel path; each timed over RUNS_PER_PATH
+    calls (median windows/s) with its peak memory, the W8A8 kernel path also
+    profiled. Gates: JAX's on-chip parity (_assert_parity) of the W8A8
+    kernel path's token logits against the unquantised bf16 chunked or block
+    path on two batches with suffix padding (argmax >= 0.999, mean |dlogit|
+    <= 0.1 on real tokens), and argmax >= MIN_ARGMAX_AGREEMENT against the W8A8
+    einsum path at the sentence slots of the first two batches."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, run_inference
+    from spokennlp_tpu_torch.data.windowing_fast import window_documents_stacked
+    from spokennlp_tpu_torch.eval.inference import predict_windows_scanned, run_topic_seg_inference
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.bigbird_block import fused_bigbird_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
+    from spokennlp_tpu_torch.train.profiling import kernel_times
+
+    lf = trunk == "longformer"
+    seq, bs, block_name = ((LF_L, LF_B, "sliding_attention_block") if lf else
+                           (BB_L, BB_B, "bigbird_attention_block"))
+    argv = main_path_argv(data_dir, out_dir, seq=seq, batch=bs,
+                          **({"window": LF_WINDOW} if lf else {"bigbird": True}))
+    args = run_inference.make_parser().parse_args(argv)
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    _, _, wcfg, _ = common.build_configs(args, special)
+    docs = common.load_docs(args, tokenize_fn)["test"]
+    batch = window_documents_stacked(docs, wcfg)
+    n = batch["input_ids"].shape[0]
+    n_real = batch["attention_mask"].sum(1)
+    padded, full = np.flatnonzero(n_real < seq), np.flatnonzero(n_real == seq)
+    # two batches, each half suffix-padded windows and half full ones
+    half = bs // 2
+    if len(padded) < 2 * half or len(full) < 2 * (bs - half):
+        fail(f"{trunk} serving: {len(padded)} padded and {len(full)} full windows, too few")
+    pick = np.concatenate([padded[:half], full[:bs - half], padded[half:2 * half],
+                           full[bs - half:2 * (bs - half)]])
+    gate_batch = {k: v[pick] for k, v in batch.items()}
+    first = {k: v[:2 * bs] for k, v in batch.items()}
+    live = first["sent_labels"] != -100
+    real = gate_batch["attention_mask"] > 0
+    wrappers = {block_name: fused_sliding_attention_block if lf else fused_bigbird_attention_block,
+                "fused_mlp_block": fused_mlp_block,
+                "fused_attention_block": fused_attention_block,
+                "w8a8_matmul_bf16in": im.w8a8_matmul_bf16in, "w8a8_matmul": im.w8a8_matmul}
+    kernel_path = {block_name: LAYERS, "fused_mlp_block": LAYERS}
+    # (quantize, attention_impl, launches a batch; None: the gate's reference, not timed)
+    runs = [("w8a8", "auto", kernel_path),
+            ("w8a8", "einsum", {"w8a8_matmul_bf16in": 4 * LAYERS, "w8a8_matmul": 4 * LAYERS}),
+            ("none", "auto", kernel_path), ("none", "einsum", None)]
+    n_batches = math.ceil(n / bs)
+    res = {}
+    for quantize, impl, per_batch in runs:
+        key = f"{quantize} {impl}"
+        model = long_serving_model(trunk, quantize, impl)
+        row = {}
+        if per_batch is not None:
+            reset_counts(wrappers)
+            reset_peak()
+            calls = []
+            for i in range(RUNS_PER_PATH):
+                t0 = time.perf_counter()
+                out = run_topic_seg_inference(model, docs, wcfg, batch_size=bs, threshold=0.5)
+                calls.append(n / (time.perf_counter() - t0))  # ends in a copy to the host
+                if i == 0:
+                    launches = read_counts(wrappers)
+                    expected = {k: per_batch.get(k, 0) * n_batches for k in wrappers}
+                    if launches != expected:
+                        fail(f"{trunk} serving {key}: launches {launches}, expected {expected}")
+                    if not np.isfinite(list(out["metrics"].values())).all():
+                        fail(f"{trunk} serving {key}: non-finite metrics {out['metrics']}")
+            row = {"windows_per_s": float(np.median(calls)), "calls_windows_per_s": calls,
+                   "peak_gib": peak_gib(), "launches": {k: v for k, v in launches.items() if v}}
+            print(f"{trunk} serving {key}: {n} windows in {n_batches} batches of {bs}, "
+                  f"windows/s {row['windows_per_s']:.2f} (median of "
+                  f"{', '.join(f'{c:.2f}' for c in calls)}), peak {row['peak_gib']:.2f} GiB, "
+                  f"launches {row['launches']}")
+            if (quantize, impl) == ("w8a8", "auto"):
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    run_topic_seg_inference(model, docs, wcfg, batch_size=bs, threshold=0.5)
+                    traced_ms = (time.perf_counter() - t0) * 1e3
+                k = kernel_times(prof)
+                row["busy_share"] = k.pop("_busy_ms") / traced_ms
+                total = sum(v["ms"] for v in k.values())
+                top = sorted(k.items(), key=lambda kv: -kv[1]["ms"])[:6]
+                row["top_kernels"] = {name: {"ms": v["ms"], "share": v["ms"] / total,
+                                             "launches": v["launches"]} for name, v in top}
+                print(f"  profiled engine call: busy share {row['busy_share']:.4f} of "
+                      f"{traced_ms:.1f} ms; top kernels " + ", ".join(
+                          f"{name} {v['ms']:.1f} ms ({v['share']:.3f})"
+                          for name, v in row["top_kernels"].items()))
+        row["token_logits"] = predict_windows_scanned(model, gate_batch, bs).astype(np.float32)
+        row["sent_logits"] = predict_windows_scanned(model, first, bs, gather_sents=True)[live]
+        res[key] = row
+        del model
+        torch.cuda.empty_cache()
+
+    kern, ref = res["w8a8 auto"], res["none einsum"]
+    a, b = kern["token_logits"][real], ref["token_logits"][real]
+    gate = {"argmax": float((a.argmax(-1) == b.argmax(-1)).mean()),
+            "mean_dlogit": float(np.abs(a - b).mean()), "max_dlogit": float(np.abs(a - b).max()),
+            "tokens": int(real.sum())}
+    print(f"{trunk} W8A8 kernel path vs unquantised bf16 {'chunked' if lf else 'block'} path on "
+          f"{gate['tokens']} real tokens of 2 batches ({int((gate_batch['attention_mask'].sum(1) < seq).sum())} "
+          f"windows suffix-padded): argmax {gate['argmax']:.4f}, mean |dlogit| "
+          f"{gate['mean_dlogit']:.4f}, max {gate['max_dlogit']:.4f}")
+    if gate["argmax"] < PARITY_ARGMAX or gate["mean_dlogit"] > PARITY_MEAN_DLOGIT:
+        fail(f"{trunk} W8A8 parity: argmax {gate['argmax']:.4f} (>= {PARITY_ARGMAX}), mean "
+             f"|dlogit| {gate['mean_dlogit']:.4f} (<= {PARITY_MEAN_DLOGIT})")
+    agree = {}
+    for other in ("w8a8 einsum", "none auto"):
+        x, y = kern["sent_logits"], res[other]["sent_logits"]
+        agree[other] = float((x.argmax(-1) == y.argmax(-1)).mean())
+        gated = other == "w8a8 einsum"
+        print(f"{trunk} W8A8 kernel path vs {other} on {int(live.sum())} labelled sentences: "
+              f"argmax {agree[other]:.4f}, max |dlogit| {float(np.abs(x - y).max()):.4f}"
+              + ("" if gated else " (printed, not gated)"))
+        if gated and agree[other] < MIN_ARGMAX_AGREEMENT:
+            fail(f"{trunk} W8A8 agreement with the W8A8 einsum path {agree[other]:.4f} < "
+                 f"{MIN_ARGMAX_AGREEMENT}")
+    for row in res.values():
+        row.pop("token_logits"), row.pop("sent_logits")
+    res.pop("none einsum")
+    return {"runs": res, "windows": n, "parity": gate, "agreement": agree}
+
+
 # ------------------------------------------------------------ main paths
 
 
@@ -1497,11 +2104,10 @@ def main_path(argv, n_layers, batch_size, kernels=None, long_tokens=None,
 
     wrappers = kernels or {"fused_attention_block": fused_attention_block,
                            "fused_mlp_block": fused_mlp_block}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts(wrappers)
     reset_peak()
     out = run_inference.main(argv)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_counts(wrappers)
     peak = peak_gib()
     n_windows = out["num_windows"]
     n_batches = math.ceil(n_windows / batch_size)
@@ -1685,8 +2291,7 @@ def mug_path(ckpts: dict, data: Path, out: Path, device="cuda") -> dict:
                 str(data / "dev.jsonl"), "--output_dir", str(out_dir), "--init_checkpoint",
                 str(ckpt), "--max_seq_length", str(PN_L), "--per_device_train_batch_size",
                 str(PN_BATCH), "--num_train_epochs", "1", "--device", device]
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts(wrappers)
         reset_peak()
         t0 = time.perf_counter()
         run_mug.build_model = capture
@@ -1695,7 +2300,7 @@ def mug_path(ckpts: dict, data: Path, out: Path, device="cuda") -> dict:
         finally:
             run_mug.build_model = build_model
         secs, peak = time.perf_counter() - t0, peak_gib()
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = read_counts(wrappers)
         values = [v for v in (res["metrics"] | {"train_loss": res["train_loss"][-1]}).values()
                   if isinstance(v, (int, float))]
         if not values or not np.isfinite(values).all():
@@ -1828,13 +2433,12 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
     for quantize, impl, bs, per_batch in runs:
         key = f"{quantize} {impl} batch {bs}"
         model = serving_model(impl, quantize)
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts(wrappers)
         reset_peak()
         t0 = time.perf_counter()
         out = run_topic_seg_inference(model, docs, wcfg, batch_size=bs, threshold=0.5)
         secs = time.perf_counter() - t0  # the engine call ends in a copy to the host
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = read_counts(wrappers)
         peak = peak_gib()
         n_batches = math.ceil(n / bs)
         expected = {k: per_batch.get(k, 0) * n_batches for k in wrappers}
@@ -1903,11 +2507,10 @@ def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1)
                                                        "attention_train_bwd", "mlp_train_fwd",
                                                        "mlp_train_bwd")}
     on_card = device == "cuda"
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts(wrappers)
     reset_peak()
     results = run_finetune.main(argv)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_counts(wrappers)
     peak = peak_gib()
     out_dir = Path(argv[argv.index("--output_dir") + 1])
     events = [json.loads(l) for l in (out_dir / "metrics.jsonl").read_text().splitlines()]
@@ -2104,6 +2707,18 @@ def main() -> int:
         mug = mug_path(ponet_checkpoints(Path(tmp)), mug_data, Path(tmp))
         print(f"phase 16 (MUG Tracks 1 and 2): {time.perf_counter() - t1:.1f} s")
 
+        # the W8A8 long-context slice and the last two kernel modes
+        t1 = time.perf_counter()
+        rows.update(w8a8_long_kernel_phase(device))
+        rows.update(core_static_kernel_phase(device))
+        print(f"phases 17-18 (W8A8 kernels 7 and 8, 1c and 2b): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        w8a8_long = {"longformer": long_serving_path("longformer", lf_data,
+                                                     str(Path(tmp) / "lf_w8a8")),
+                     "bigbird": long_serving_path("bigbird", bb_data, str(Path(tmp) / "bb_w8a8"))}
+        print(f"phase 19 (W8A8 long-context serving): {time.perf_counter() - t1:.1f} s")
+    print(f"all phases: {time.perf_counter() - t0:.1f} s")
+
     served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
     launches = {**infer["launches"], **train["launches"],
                 "sliding_attention_block": lf_infer["launches"]["sliding_attention_block"],
@@ -2117,7 +2732,14 @@ def main() -> int:
                 "snld_self_attention": served("none pallas 32", "snld_self_attention"),
                 "fused_ponet_mixer_block": mug["float32"]["launches"]["fused_ponet_mixer_block"],
                 "fused_ponet_mixer_block_w8a8":
-                    mug["W8A8"]["launches"]["fused_ponet_mixer_block"]}
+                    mug["W8A8"]["launches"]["fused_ponet_mixer_block"],
+                "sliding_attention_block_w8a8":
+                    w8a8_long["longformer"]["runs"]["w8a8 auto"]["launches"][
+                        "sliding_attention_block"],
+                "bigbird_attention_block_w8a8":
+                    w8a8_long["bigbird"]["runs"]["w8a8 auto"]["launches"][
+                        "bigbird_attention_block"],
+                **MODE_LAUNCHES}
     print(json.dumps({"serving": serving}))
     for name, inf, trn in (("longformer", lf_infer, lf_train), ("bigbird", bb_infer, bb_train)):
         print(json.dumps({name: {
@@ -2127,6 +2749,7 @@ def main() -> int:
             "training": {k: trn[k] for k in ("launches", "steps", "steps_per_s",
                                              "windows_per_s", "peak_gib")}}}))
     print(json.dumps({"mug": mug}, default=float))
+    print(json.dumps({"w8a8_long": w8a8_long}, default=float))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's row in the type its main path computes in

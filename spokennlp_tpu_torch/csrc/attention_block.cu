@@ -7,7 +7,8 @@
 // Replaces the TPU kernel spokennlp_tpu/ops/pallas/attention_block.py,
 // fused_attention_block (_attn_block_kernel, and _attn_block_kernel_multi,
 // which computes the same function S sequences a grid step), in its float
-// modes and its W8A8 mode (quantized=True, core_int8=False).
+// modes and its W8A8 mode (quantized=True), with the float attention core or
+// the int8 one (core_int8 = "qk", "av" or "both").
 //
 // What bounds it here. At BERT-base (B=32, L=512, H=768, 12 heads of 64) a
 // layer's attention block is about 103 GFLOP: 56% in the QKV projection, 25%
@@ -26,7 +27,10 @@
 //      launch of x in W8A8): one GEMM over all B*L rows, bias added, q
 //      scaled by sm_scale, stored in the element type as (3, B, nh, L, hd);
 //   2. the attention core (attention_core.cuh): one block per (query tile of
-//      64 rows, head, sequence), exp in the element type as on the TPU;
+//      64 rows, head, sequence), exp in the element type as on the TPU; with
+//      core_int8, a launch of the q/k scales per (sequence, head group) and
+//      one of v's column scales, then the int8 core (__dp4a products, two
+//      passes over the keys);
 //   3. in W8A8, a row-quant launch of ctx over each head group's HB*hd
 //      columns (the TPU quantised each group's ctx in its own grid step);
 //   4. ctx . Wo + bo + x and the LayerNorm, with one block owning whole rows
@@ -59,15 +63,17 @@ cudaError_t attention_block(const T* hidden, const int32_t* seg, const T* wqkv, 
 }
 
 // W8A8: x8 (M, max(H, nh hd)) int8 and scales (M * G) float32 hold first
-// the quantised x, then the quantised ctx of the G head groups.
+// the quantised x, then the quantised ctx of the G head groups. core: 0 the
+// float core, else CoreInt8 flags (1 qk, 2 av, 3 both) with core_scales (2 B
+// G + B nh hd floats) as scratch.
 template <typename T>
 cudaError_t attention_block_w8a8(const T* hidden, const int32_t* seg, int8_t* x8, float* scales,
                                  const int8_t* wqkv, const float* swqkv, const float* bqkv,
                                  const int8_t* wo, const float* swo, const float* bo,
                                  const float* ln_scale, const float* ln_bias, T* qkv_buf,
-                                 T* ctx_buf, float* ln_buf, T* out, int B, int L, int H, int nh,
-                                 int hd, int G, float sm_scale, float eps, int fuse_ln,
-                                 cudaStream_t stream) {
+                                 T* ctx_buf, float* ln_buf, T* out, float* core_scales, int B,
+                                 int L, int H, int nh, int hd, int G, int core, float sm_scale,
+                                 float eps, int fuse_ln, cudaStream_t stream) {
   const int M = B * L, HN = nh * hd;
   if (G <= 0 || nh % G) return cudaErrorInvalidValue;
   cudaError_t err = launch_rowquant<T>(hidden, M, H, 1, x8, scales, stream);
@@ -75,8 +81,10 @@ cudaError_t attention_block_w8a8(const T* hidden, const int32_t* seg, int8_t* x8
   err = launch_qkv_proj_i8<T>(x8, scales, wqkv, swqkv, bqkv, qkv_buf, B, L, H, nh, hd, sm_scale,
                               stream);
   if (err != cudaSuccess) return err;
-  err = launch_attn_core<T, T>(qkv_buf, seg, ctx_buf, B, L, nh, hd, block_layout(B, L, nh, hd),
-                               1.0f, stream);
+  const CoreLayout lay = block_layout(B, L, nh, hd);
+  err = core ? launch_attn_core_i8<T>(qkv_buf, seg, ctx_buf, B, L, nh, hd, nh / G, core, lay,
+                                      core_scales, stream)
+             : launch_attn_core<T, T>(qkv_buf, seg, ctx_buf, B, L, nh, hd, lay, 1.0f, stream);
   if (err != cudaSuccess) return err;
   err = launch_rowquant<T>(ctx_buf, M, HN, G, x8, scales, stream);
   if (err != cudaSuccess) return err;
@@ -128,15 +136,18 @@ extern "C" int spk_attention_block(int dtype, const void* hidden, const void* se
 // The W8A8 mode. dtype as above for hidden, qkv_buf, ctx_buf and out;
 // wqkv (H, 3 nh hd) and wo (nh hd, H) are int8 with per-column scales swqkv
 // (3 nh hd) and swo (G, H), one row of scales per head group; x8 (B*L,
-// max(H, nh hd)) int8 and scales (B*L*G) float32 are scratch.
+// max(H, nh hd)) int8 and scales (B*L*G) float32 are scratch. core: 0 for
+// the float attention core, 1 ("qk"), 2 ("av") or 3 ("both") for the int8
+// one, which takes core_scales (2 B G + B nh hd floats) as scratch (null
+// with core 0).
 extern "C" int spk_attention_block_w8a8(int dtype, const void* hidden, const void* seg, void* x8,
                                         void* scales, const void* wqkv, const void* swqkv,
                                         const void* bqkv, const void* wo, const void* swo,
                                         const void* bo, const void* ln_scale,
                                         const void* ln_bias, void* qkv_buf, void* ctx_buf,
-                                        void* ln_buf, void* out, int B, int L, int H, int nh,
-                                        int hd, int G, float sm_scale, float eps, int fuse_ln,
-                                        void* stream) {
+                                        void* ln_buf, void* out, void* core_scales, int B, int L,
+                                        int H, int nh, int hd, int G, int core, float sm_scale,
+                                        float eps, int fuse_ln, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto sg = static_cast<const int32_t*>(seg);
   const auto q8 = static_cast<int8_t*>(x8);
@@ -150,19 +161,20 @@ extern "C" int spk_attention_block_w8a8(int dtype, const void* hidden, const voi
   const auto lns = static_cast<const float*>(ln_scale);
   const auto lnb = static_cast<const float*>(ln_bias);
   const auto lb = static_cast<float*>(ln_buf);
+  const auto cs = static_cast<float*>(core_scales);
   cudaError_t err;
   if (dtype == 0) {
     using T = float;
     err = spk::attention_block_w8a8<T>(static_cast<const T*>(hidden), sg, q8, sc, w, sw, bq, wo8,
                                        swo_, bo_, lns, lnb, static_cast<T*>(qkv_buf),
-                                       static_cast<T*>(ctx_buf), lb, static_cast<T*>(out), B, L,
-                                       H, nh, hd, G, sm_scale, eps, fuse_ln, s);
+                                       static_cast<T*>(ctx_buf), lb, static_cast<T*>(out), cs, B,
+                                       L, H, nh, hd, G, core, sm_scale, eps, fuse_ln, s);
   } else if (dtype == 1) {
     using T = __nv_bfloat16;
     err = spk::attention_block_w8a8<T>(static_cast<const T*>(hidden), sg, q8, sc, w, sw, bq, wo8,
                                        swo_, bo_, lns, lnb, static_cast<T*>(qkv_buf),
-                                       static_cast<T*>(ctx_buf), lb, static_cast<T*>(out), B, L,
-                                       H, nh, hd, G, sm_scale, eps, fuse_ln, s);
+                                       static_cast<T*>(ctx_buf), lb, static_cast<T*>(out), cs, B,
+                                       L, H, nh, hd, G, core, sm_scale, eps, fuse_ln, s);
   } else {
     err = cudaErrorInvalidValue;
   }

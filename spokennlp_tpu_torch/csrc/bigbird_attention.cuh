@@ -33,7 +33,8 @@
 // A query tile of a global block walks the key tiles of [0, n_valid); one of
 // another block walks its (3 + G + R) S pieces' tiles, skipping those with no
 // allowed key. Layouts: qkv (3, B, nh, L, hd) in the element type, q
-// pre-scaled; ctx (B, L, nh*hd); counts (B, 2) int32 (n_valid, 0); row
+// pre-scaled; ctx (B, L, nh*hd) in its type Tc (the element type, or
+// float32 in W8A8); counts (B, 2) int32 (n_valid, 0); row
 // statistics (3, B, nh, L) float32 = (m, D, rowsum(dp p_eff)). Nothing of
 // size (L, K C) or (L, L) is written to device memory.
 #pragma once
@@ -113,14 +114,14 @@ constexpr size_t bigbird_rows_smem_bytes() {
 
 // The rows of one query tile (block, head, sequence): pass 1 takes the row
 // maxima over the allowed keys of every key tile, pass 2 forms e, D = sum e
-// and ctx = (kept e) . v / (D keep_prob), stored rounded to (B, L, nh*hd).
-// With kGrad (the backward) it also forms dp = dctx . v^T and writes the row
-// statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B).
-template <typename T, int HD, bool kGrad>
+// and ctx = (kept e) . v / (D keep_prob), stored rounded to Tc in (B, L,
+// nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T and writes
+// the row statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B).
+template <typename T, int HD, bool kGrad, typename Tc = T>
 __global__ void __launch_bounds__(kThreads)
     bigbird_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                         BigBird bb, const int32_t* __restrict__ seed_ptr,
-                        const T* __restrict__ dctx, T* __restrict__ ctx,
+                        const T* __restrict__ dctx, Tc* __restrict__ ctx,
                         float* __restrict__ stats, int B, int nh, uint32_t thr, float keep_prob) {
   using G = Geometry<HD>;
   extern __shared__ float smem[];
@@ -210,10 +211,10 @@ __global__ void __launch_bounds__(kThreads)
     const int l = q0 + ty + 16 * a;
     if (l >= q_end) continue;
     const float denom = d_sum * keep_prob;
-    T* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
+    Tc* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
 #pragma unroll
     for (int c = 0; c < G::TD; ++c)
-      out[tx + 16 * c] = from_f32<T>(d_sum > 0.0f ? o[a][c] / denom : 0.0f);
+      out[tx + 16 * c] = from_f32<Tc>(d_sum > 0.0f ? o[a][c] / denom : 0.0f);
     if (kGrad && tx == 0) {
       const size_t r = ((size_t)b * nh + h) * L + l;
       stats[r] = m[a];
@@ -236,16 +237,16 @@ cudaError_t bigbird_projections(const T* hidden, const int32_t* mask, const T* w
   return launch_qkv_proj<T>(hidden, wqkv, bqkv, qkv_buf, B, L, H, nh, hd, sm_scale, stream);
 }
 
-// The attention of the projected q, k, v into ctx; with kGrad also the row
-// statistics.
-template <typename T, bool kGrad>
+// The attention of the projected q, k, v into ctx (of type Tc); with kGrad
+// also the row statistics.
+template <typename T, bool kGrad, typename Tc = T>
 cudaError_t bigbird_attention(const BigBird& bb, const int32_t* seed, const int32_t* counts,
-                              const T* qkv_buf, const T* dctx, T* ctx_buf, float* stats, int B,
+                              const T* qkv_buf, const T* dctx, Tc* ctx_buf, float* stats, int B,
                               int nh, int hd, uint32_t thr, float keep_prob,
                               cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    auto rows = bigbird_rows_kernel<T, HD, kGrad>;
+    auto rows = bigbird_rows_kernel<T, HD, kGrad, Tc>;
     cudaError_t e = prepare(rows, bigbird_rows_smem_bytes<HD>());
     if (e != cudaSuccess) return e;
     const dim3 grid(bb.nb * bb.S, nh, B);

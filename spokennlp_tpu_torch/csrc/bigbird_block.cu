@@ -5,7 +5,8 @@
 // dense over every real key).
 //
 // Replaces the TPU kernel spokennlp_tpu/ops/pallas/bigbird_block_kernel.py,
-// fused_bigbird_attention_block (_bigbird_block_kernel, quantized=False).
+// fused_bigbird_attention_block (_bigbird_block_kernel), in its float modes
+// and its W8A8 mode (quantized=True).
 //
 // What bounds it here. At BigBird-base's serving shape (B=4, L=4096, H=768,
 // 12 heads of 64, blocks of 64, 2 global and 3 random blocks) a layer's block
@@ -32,6 +33,15 @@
 //      LayerNorm.
 // The random table (and its validity flags) lives on the device, built once
 // per pattern by the wrapper; a block reads its own entries.
+//
+// W8A8 (the TPU kernel's quantized=True): the QKV and output projections run
+// int8 x int8 -> int32 (int8_gemm.cuh) with weights quantised per output
+// column in the wrapper, x quantised per row once, and ctx kept in float32
+// up to its own row quantisation, as the TPU kernel quantised its float32
+// ctx scratch:
+//   rowquant(x) -> int8 q, k, v -> the rows kernel (float32 ctx) ->
+//   rowquant(ctx) -> int8 ctx . Wo + bo + x and the LayerNorm.
+// The projections are about 7 of every 10 operations at the serving shape.
 #include "bigbird_attention.cuh"
 
 namespace spk {
@@ -53,6 +63,34 @@ cudaError_t bigbird_block(const T* hidden, const int32_t* mask, const int32_t* r
   if (err != cudaSuccess) return err;
   return launch_residual_ln<T>(ctx_buf, wo, bo, hidden, ln_scale, ln_bias, ln_buf, out, B * L, H,
                                nh * hd, eps, fuse_ln, stream);
+}
+
+// W8A8: x8 (B L, max(H, nh hd)) int8 and scales (B L) float32 hold first
+// the quantised x, then the quantised ctx; ctx_buf (B L, nh hd) is float32.
+template <typename T>
+cudaError_t bigbird_block_w8a8(const T* hidden, const int32_t* mask, const int32_t* rand,
+                               const int32_t* rok, int8_t* x8, float* scales, const int8_t* wqkv,
+                               const float* swqkv, const float* bqkv, const int8_t* wo,
+                               const float* swo, const float* bo, const float* ln_scale,
+                               const float* ln_bias, int32_t* counts, T* qkv_buf, float* ctx_buf,
+                               float* ln_buf, T* out, int B, int L, int H, int nh, int hd, int C,
+                               int G, int R, float sm_scale, float eps, int fuse_ln,
+                               cudaStream_t stream) {
+  const int M = B * L, HN = nh * hd;
+  // the Longformer block's W8A8 projections without global rows: the mask
+  // stands in for the global mask, and counts holds (n_valid, 0)
+  cudaError_t err = sliding_projections_w8a8<T>(hidden, mask, mask, x8, scales, wqkv, swqkv, bqkv,
+                                                nullptr, nullptr, nullptr, counts, qkv_buf,
+                                                nullptr, B, L, H, nh, hd, 0, 0, sm_scale, stream);
+  if (err != cudaSuccess) return err;
+  const BigBird bb = make_bigbird(L, C, G, R, rand, rok);
+  err = bigbird_attention<T, false, float>(bb, nullptr, counts, qkv_buf, nullptr, ctx_buf, nullptr,
+                                           B, nh, hd, 0u, 1.0f, stream);
+  if (err != cudaSuccess) return err;
+  if ((err = launch_rowquant<float>(ctx_buf, M, HN, 1, x8, scales, stream)) != cudaSuccess)
+    return err;
+  return launch_residual_ln_i8<T>(x8, scales, wo, swo, bo, hidden, ln_scale, ln_bias, ln_buf, out,
+                                  M, H, HN, 1, eps, fuse_ln, stream);
 }
 
 }  // namespace
@@ -85,5 +123,36 @@ extern "C" int spk_bigbird_block(int dtype, const void* hidden, const void* mask
   cudaError_t err = dtype == 0   ? run(float{})
                     : dtype == 1 ? run(__nv_bfloat16{})
                                  : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The W8A8 mode. dtype as above for hidden, qkv_buf and out; wqkv (H, 3 nh
+// hd) and wo (nh hd, H) int8 with per-column scales swqkv and swo; x8 (B L,
+// max(H, nh hd)) int8, scales (B L) and ctx_buf (B L, nh hd) float32 are
+// scratch.
+extern "C" int spk_bigbird_block_w8a8(int dtype, const void* hidden, const void* mask,
+                                      const void* rand, const void* rok, void* x8, void* scales,
+                                      const void* wqkv, const void* swqkv, const void* bqkv,
+                                      const void* wo, const void* swo, const void* bo,
+                                      const void* ln_scale, const void* ln_bias, void* counts,
+                                      void* qkv_buf, void* ctx_buf, void* ln_buf, void* out, int B,
+                                      int L, int H, int nh, int hd, int C, int G, int R,
+                                      float sm_scale, float eps, int fuse_ln, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  const auto run = [&](auto tag) {
+    using F = decltype(tag);
+    return spk::bigbird_block_w8a8<F>(
+        static_cast<const F*>(hidden), i32(mask), i32(rand), i32(rok), static_cast<int8_t*>(x8),
+        static_cast<float*>(scales), i8(wqkv), f32(swqkv), f32(bqkv), i8(wo), f32(swo), f32(bo),
+        f32(ln_scale), f32(ln_bias), static_cast<int32_t*>(counts), static_cast<F*>(qkv_buf),
+        static_cast<float*>(ctx_buf), static_cast<float*>(ln_buf), static_cast<F*>(out), B, L, H,
+        nh, hd, C, G, R, sm_scale, eps, fuse_ln, s);
+  };
+  const cudaError_t err = dtype == 0   ? run(float{})
+                          : dtype == 1 ? run(__nv_bfloat16{})
+                                       : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

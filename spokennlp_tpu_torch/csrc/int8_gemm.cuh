@@ -1,8 +1,9 @@
 // Device code of the W8A8 paths (int8_matmul.cu, attention_block.cu,
-// mlp_block.cu, stack_block.cu): the row quantiser, an int8 tiled GEMM on
-// __dp4a with an int32 accumulator, and the three epilogues the encoder needs
-// (dequant + bias + activation, the q/k/v scatter, and residual + LayerNorm
-// over whole rows with per-head-group scales).
+// mlp_block.cu, stack_block.cu, sliding_block.cu, bigbird_block.cu): the row
+// quantiser, an int8 tiled GEMM on __dp4a with an int32 accumulator, and the
+// epilogues the encoder needs (dequant + bias + activation, the same
+// quantised again with one static scale, the q/k/v scatter, and residual +
+// LayerNorm over whole rows with per-head-group scales).
 //
 // Quantisation follows spokennlp_tpu/ops/pallas/int8_matmul.py
 // rowquant_in_kernel: s = max(absmax, 1e-6) * (1 / 127), q = clip(rint(x *
@@ -185,16 +186,76 @@ inline cudaError_t launch_gemm_i8(const int8_t* A, const float* sa, const int8_t
   return cudaGetLastError();
 }
 
-// The W8A8 QKV projection of the 64 x 64 tile at (row0, col0): dequant(x8 .
-// w8) + bias, slot 0 (q) times sm_scale, in T, scattered to (3, B, nh, L, hd).
+// The W8A8 MLP's first product under a static intermediate scale (the TPU
+// kernel's static_h_scale) for the 64 x 64 tile at (row0, col0): h =
+// act(dequant(A8 . W8) + bias) in float32, then q = clip(rint(h * (1 / s)),
+// -127, 127) with the one per-tensor scale s = *hs, stored int8: no row
+// absmax, and h never leaves the registers. The tiles of the first column
+// also write s as every row's scale, for the second product's dequant.
+__device__ __forceinline__ void gemm_act_quant_tile_i8(const int8_t* A, const float* sa,
+                                                       const int8_t* W, const float* sw,
+                                                       const float* bias, const float* hs,
+                                                       int8_t* out, float* out_scales, int M,
+                                                       int N, int K, int act, int row0, int col0,
+                                                       int* smem) {
+  using G = TileGemmI8<64, 64>;
+  int acc[G::TM][G::TN];
+  G::run(A, W, M, N, K, 0, K, row0, col0, acc, smem);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float s = *hs, inv = 1.0f / s;
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i) {
+    const int m = row0 + ty + 16 * i;
+    if (m >= M) continue;
+    if (col0 == 0 && tx == 0) out_scales[m] = s;
+    const float sr = sa[m];
+#pragma unroll
+    for (int j = 0; j < G::TN; ++j) {
+      const int n = col0 + tx + 16 * j;
+      if (n >= N) continue;
+      float v = dequant(acc[i][j], sr, sw[n]);
+      if (bias != nullptr) v = __fadd_rn(v, bias[n]);
+      const float q = rintf(__fmul_rn(apply_activation(v, act), inv));
+      out[(size_t)m * N + n] = static_cast<int8_t>(fminf(fmaxf(q, -127.0f), 127.0f));
+    }
+  }
+}
+
+// Grid (ceil(N / 64), ceil(M / 64)). out and out_scales must not alias A and
+// sa: other blocks still read those.
+template <int kUnused = 0>
+__global__ void __launch_bounds__(kThreads)
+    gemm_act_quant_i8_kernel(const int8_t* A, const float* sa, const int8_t* W, const float* sw,
+                             const float* bias, const float* hs, int8_t* out, float* out_scales,
+                             int M, int N, int K, int act) {
+  __shared__ int smem[TileGemmI8<64, 64>::kSmemWords];
+  gemm_act_quant_tile_i8(A, sa, W, sw, bias, hs, out, out_scales, M, N, K, act, blockIdx.y * 64,
+                         blockIdx.x * 64, smem);
+}
+
+inline cudaError_t launch_gemm_act_quant_i8(const int8_t* A, const float* sa, const int8_t* W,
+                                            const float* sw, const float* bias, const float* hs,
+                                            int8_t* out, float* out_scales, int M, int N, int K,
+                                            int act, cudaStream_t stream) {
+  if (K % 4) return cudaErrorInvalidValue;
+  const dim3 grid((N + 63) / 64, (M + 63) / 64);
+  gemm_act_quant_i8_kernel<><<<grid, kThreads, 0, stream>>>(A, sa, W, sw, bias, hs, out,
+                                                            out_scales, M, N, K, act);
+  return cudaGetLastError();
+}
+
+// The W8A8 projection of the 64 x 64 tile at (row0, col0) of x8 . w8 with
+// w8 (H, slots nh hd): dequant + bias, slot 0 times sm_scale (1 keeps it
+// unscaled), in T, scattered to (slots, B, nh, L, hd): q, k, v with slots =
+// 3, the Longformer global k, v with slots = 2 and sm_scale = 1.
 template <typename T>
 __device__ __forceinline__ void qkv_proj_tile_i8(const int8_t* x8, const float* sx,
                                                  const int8_t* w8, const float* sw,
                                                  const float* bias, T* qkv, int B, int L, int H,
                                                  int nh, int hd, float sm_scale, int row0,
-                                                 int col0, int* smem) {
+                                                 int col0, int* smem, int slots = 3) {
   using G = TileGemmI8<64, 64>;
-  const int M = B * L, HN = nh * hd, N = 3 * HN;
+  const int M = B * L, HN = nh * hd, N = slots * HN;
   int acc[G::TM][G::TN];
   G::run(x8, w8, M, N, H, 0, H, row0, col0, acc, smem);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -214,26 +275,26 @@ __device__ __forceinline__ void qkv_proj_tile_i8(const int8_t* x8, const float* 
   }
 }
 
-// Grid (ceil(3 nh hd / 64), ceil(B L / 64)).
+// Grid (ceil(slots nh hd / 64), ceil(B L / 64)).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     qkv_proj_i8_kernel(const int8_t* x8, const float* sx, const int8_t* w8, const float* sw,
                        const float* bias, T* qkv, int B, int L, int H, int nh, int hd,
-                       float sm_scale) {
+                       float sm_scale, int slots) {
   __shared__ int smem[TileGemmI8<64, 64>::kSmemWords];
   qkv_proj_tile_i8<T>(x8, sx, w8, sw, bias, qkv, B, L, H, nh, hd, sm_scale, blockIdx.y * 64,
-                      blockIdx.x * 64, smem);
+                      blockIdx.x * 64, smem, slots);
 }
 
 template <typename T>
 inline cudaError_t launch_qkv_proj_i8(const int8_t* x8, const float* sx, const int8_t* w8,
                                       const float* sw, const float* bias, T* qkv, int B, int L,
                                       int H, int nh, int hd, float sm_scale,
-                                      cudaStream_t stream) {
+                                      cudaStream_t stream, int slots = 3) {
   if (H % 4) return cudaErrorInvalidValue;
-  const dim3 grid((3 * nh * hd + 63) / 64, (B * L + 63) / 64);
+  const dim3 grid((slots * nh * hd + 63) / 64, (B * L + 63) / 64);
   qkv_proj_i8_kernel<T><<<grid, kThreads, 0, stream>>>(x8, sx, w8, sw, bias, qkv, B, L, H, nh, hd,
-                                                       sm_scale);
+                                                       sm_scale, slots);
   return cudaGetLastError();
 }
 

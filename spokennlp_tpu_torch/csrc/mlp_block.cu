@@ -3,8 +3,8 @@
 // with "gelu" in its tanh form, as the TPU kernel computes it.
 //
 // Replaces the TPU kernel spokennlp_tpu/ops/pallas/mlp_block.py,
-// fused_mlp_block (_mlp_block_kernel), in its float modes and its W8A8 mode
-// (quantized=True, static_h_scale=False).
+// fused_mlp_block (_mlp_block_kernel), in its float modes and its W8A8 modes
+// (quantized=True, with static_h_scale False or True).
 //
 // What bounds it here. At BERT-base (M = 32 * 512 rows, H=768, I=3072) the
 // block is 155 GFLOP against about 60 MB of input, weights and output in
@@ -32,6 +32,14 @@
 //   b2 + x and LayerNorm.
 // The intermediate (M * I elements) and the pre-norm rows make one round
 // trip through device memory (or L2); keeping them on chip is later work.
+//
+// With a static intermediate scale (static_h_scale: one per-tensor scale s,
+// estimated by the wrapper from a row sample, as the TPU kernel's caller
+// does) nothing needs a row's absmax, so the W1 product's epilogue quantises
+// act(x W1 + b1) with s in registers and writes int8 (M * I bytes, not a
+// float32 scratch and a row-quant pass):
+//   rowquant(x) -> int8 x W1, act, quantise by s -> int8 h W2 + b2 + x and
+//   LayerNorm.
 #include "int8_gemm.cuh"
 
 namespace spk {
@@ -47,16 +55,28 @@ cudaError_t mlp_block(const T* x, const T* w1, const float* b1, const T* w2, con
                                1, stream);
 }
 
-// x8 (M, I) int8 and scales (M) hold first the quantised x, then the
-// quantised intermediate; h_buf (M, I) is float32.
+// Per-row intermediate scales (hs null): x8 (M, I) int8 and scales (M) hold
+// first the quantised x, then the quantised intermediate; h_buf (M, I) is
+// float32. Static scale (hs: the one float32 scale on the device): x8 (M, H
+// + I) and scales (2 M) hold x's and the intermediate's side by side, since
+// the fused epilogue writes one while other blocks still read the other;
+// h_buf is unused.
 template <typename T>
 cudaError_t mlp_block_w8a8(const T* x, int8_t* x8, float* scales, const int8_t* w1,
                            const float* sw1, const float* b1, const int8_t* w2, const float* sw2,
                            const float* b2, const float* ln_scale, const float* ln_bias,
-                           float* h_buf, float* ln_buf, T* out, int M, int H, int I, int act,
-                           float eps, cudaStream_t stream) {
+                           const float* hs, float* h_buf, float* ln_buf, T* out, int M, int H,
+                           int I, int act, float eps, cudaStream_t stream) {
   cudaError_t err = launch_rowquant<T>(x, M, H, 1, x8, scales, stream);
   if (err != cudaSuccess) return err;
+  if (hs != nullptr) {
+    int8_t* h8 = x8 + (size_t)M * H;
+    err = launch_gemm_act_quant_i8(x8, scales, w1, sw1, b1, hs, h8, scales + M, M, I, H, act,
+                                   stream);
+    if (err != cudaSuccess) return err;
+    return launch_residual_ln_i8<T>(h8, scales + M, w2, sw2, b2, x, ln_scale, ln_bias, ln_buf,
+                                    out, M, H, I, 1, eps, 1, stream);
+  }
   err = launch_gemm_i8<float>(x8, scales, w1, sw1, b1, h_buf, M, I, H, act, stream);
   if (err != cudaSuccess) return err;
   err = launch_rowquant<float>(h_buf, M, I, 1, x8, scales, stream);
@@ -99,14 +119,17 @@ extern "C" int spk_mlp_block(int dtype, const void* x, const void* w1, const voi
   return static_cast<int>(err);
 }
 
-// The W8A8 mode: x and out as above; w1 (H, I) and w2 (I, H) int8 with
-// per-column scales sw1 (I) and sw2 (H); x8 (M, I) int8, scales (M) and
-// h_buf (M, I) float32 are scratch.
+// The W8A8 modes: x and out as above; w1 (H, I) and w2 (I, H) int8 with
+// per-column scales sw1 (I) and sw2 (H). h_scale null: per-row intermediate
+// scales, x8 (M, I) int8, scales (M) and h_buf (M, I) float32 are scratch.
+// h_scale (one float32 on the device): the static intermediate scale, x8
+// (M, H + I) and scales (2 M) are scratch and h_buf may be null.
 extern "C" int spk_mlp_block_w8a8(int dtype, const void* x, void* x8, void* scales,
                                   const void* w1, const void* sw1, const void* b1, const void* w2,
                                   const void* sw2, const void* b2, const void* ln_scale,
-                                  const void* ln_bias, void* h_buf, void* ln_buf, void* out,
-                                  int M, int H, int I, int act, float eps, void* stream) {
+                                  const void* ln_bias, const void* h_scale, void* h_buf,
+                                  void* ln_buf, void* out, int M, int H, int I, int act, float eps,
+                                  void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto q8 = static_cast<int8_t*>(x8);
   const auto sc = static_cast<float*>(scales);
@@ -118,17 +141,18 @@ extern "C" int spk_mlp_block_w8a8(int dtype, const void* x, void* x8, void* scal
   const auto b2_ = static_cast<const float*>(b2);
   const auto lns = static_cast<const float*>(ln_scale);
   const auto lnb = static_cast<const float*>(ln_bias);
+  const auto hs = static_cast<const float*>(h_scale);
   const auto hb = static_cast<float*>(h_buf);
   const auto lb = static_cast<float*>(ln_buf);
   cudaError_t err;
   if (dtype == 0) {
     using T = float;
     err = spk::mlp_block_w8a8<T>(static_cast<const T*>(x), q8, sc, w1_, sw1_, b1_, w2_, sw2_, b2_,
-                                 lns, lnb, hb, lb, static_cast<T*>(out), M, H, I, act, eps, s);
+                                 lns, lnb, hs, hb, lb, static_cast<T*>(out), M, H, I, act, eps, s);
   } else if (dtype == 1) {
     using T = __nv_bfloat16;
     err = spk::mlp_block_w8a8<T>(static_cast<const T*>(x), q8, sc, w1_, sw1_, b1_, w2_, sw2_, b2_,
-                                 lns, lnb, hb, lb, static_cast<T*>(out), M, H, I, act, eps, s);
+                                 lns, lnb, hs, hb, lb, static_cast<T*>(out), M, H, I, act, eps, s);
   } else {
     err = cudaErrorInvalidValue;
   }

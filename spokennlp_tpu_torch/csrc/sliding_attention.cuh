@@ -26,13 +26,16 @@
 // so the backward pass regenerates every mask from the seed.
 //
 // Layouts: qkv (3, B, nh, L, hd) and gkv (2, B, nh, L, hd) in the element
-// type, q pre-scaled; ctx (B, L, nh*hd); counts (B, 2) int32 = (n_valid,
-// n_glob); row statistics (3, B, nh, L) float32 = (m, D, rowsum(dp p_eff)).
-// Nothing of size (L, 3C) or (L, L) is written to device memory: a block
-// recomputes the scores of the tiles it streams.
+// type, q pre-scaled; ctx (B, L, nh*hd) in its own type Tc (the element type,
+// or float32 in W8A8, where the TPU kernel row-quantised the float32 ctx);
+// counts (B, 2) int32 = (n_valid, n_glob); row statistics (3, B, nh, L)
+// float32 = (m, D, rowsum(dp p_eff)). Nothing of size (L, 3C) or (L, L) is
+// written to device memory: a block recomputes the scores of the tiles it
+// streams.
 #pragma once
 
 #include "attention_tiles.cuh"
+#include "int8_gemm.cuh"
 
 namespace spk {
 
@@ -113,15 +116,15 @@ constexpr size_t band_smem_bytes() {
 
 // The local rows of one (64 query rows, head, sequence): pass 1 takes the
 // row maxima over the band tiles and the global-column tile, pass 2 forms e,
-// D = sum e and ctx = (kept e) . v / (D keep_prob), stored rounded to (B, L,
-// nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T, with the
-// cotangent of global rows taken as zero, and writes the row statistics
-// (m, D, rowsum(dp p_eff)). Grid (ceil(L / 64), nh, B).
-template <typename T, int HD, bool kGrad>
+// D = sum e and ctx = (kept e) . v / (D keep_prob), stored rounded to Tc in
+// (B, L, nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T,
+// with the cotangent of global rows taken as zero, and writes the row
+// statistics (m, D, rowsum(dp p_eff)). Grid (ceil(L / 64), nh, B).
+template <typename T, int HD, bool kGrad, typename Tc = T>
 __global__ void __launch_bounds__(kThreads)
     band_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                      const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
-                     T* __restrict__ ctx, float* __restrict__ stats, int B, int L, int nh, int C,
+                     Tc* __restrict__ ctx, float* __restrict__ stats, int B, int L, int nh, int C,
                      uint32_t thr, float keep_prob) {
   using G = Geometry<HD>;
   extern __shared__ float smem[];
@@ -219,10 +222,10 @@ __global__ void __launch_bounds__(kThreads)
     const int l = q0 + ty + 16 * i;
     if (l >= L) continue;
     const float denom = d_sum * keep_prob;
-    T* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
+    Tc* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
 #pragma unroll
     for (int j = 0; j < G::TD; ++j)
-      out[tx + 16 * j] = from_f32<T>(d_sum > 0.0f ? o[i][j] / denom : 0.0f);
+      out[tx + 16 * j] = from_f32<Tc>(d_sum > 0.0f ? o[i][j] / denom : 0.0f);
     if (kGrad && tx == 0) {
       const size_t r = ((size_t)b * nh + h) * L + l;
       stats[r] = m[i];
@@ -232,25 +235,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The W8A8 global query: x8 (B L, H) int8 with row scales sx (the block's
+// one row quantisation of x) and the global query weights w8 (H, nh hd) int8
+// with column scales sw. Null x8: the float query from x and wgq.
+struct QuantQuery {
+  const int8_t* x8 = nullptr;
+  const float* sx = nullptr;
+  const int8_t* w8 = nullptr;
+  const float* sw = nullptr;
+};
+
 template <int HD>
 size_t global_rows_smem_bytes(int L) {
   return sizeof(float) * (2 * (size_t)L + 2 * HD + kThreads + kThreads / 32);
 }
 
 // One global row g < n_glob of (head, sequence): qg from x and the global
-// query weights, full attention over the real keys through kg and vg, and
-// ctx row g replaced. With kGrad it also writes qg (rounded) to qg_buf (B,
-// nh, G, hd), the row statistics (m, D, rowsum(dp p_eff)) to gstats (3, B,
-// nh, G), and d(x Wgq + bgq) = dS . kg * sm_scale, rounded, to row g of
-// dqg (row stride ld). Grid (G, nh, B); blocks of rows g >= n_glob return.
-template <typename T, int HD, bool kGrad>
+// query weights (in W8A8 from the int8 row of x and int8 weights: qq),
+// full attention over the real keys through kg and vg, and ctx row g
+// replaced. With kGrad it also writes qg (rounded) to qg_buf (B, nh, G,
+// hd), the row statistics (m, D, rowsum(dp p_eff)) to gstats (3, B, nh, G),
+// and d(x Wgq + bgq) = dS . kg * sm_scale, rounded, to row g of dqg (row
+// stride ld). Grid (G, nh, B); blocks of rows g >= n_glob return.
+template <typename T, int HD, bool kGrad, typename Tc = T>
 __global__ void __launch_bounds__(kThreads)
     global_rows_kernel(const T* __restrict__ x, const T* __restrict__ wgq,
                        const float* __restrict__ bgq, const T* __restrict__ gkv,
                        const int32_t* __restrict__ counts, const int32_t* __restrict__ seed_ptr,
-                       const T* __restrict__ dctx, T* __restrict__ ctx, T* __restrict__ qg_buf,
+                       const T* __restrict__ dctx, Tc* __restrict__ ctx, T* __restrict__ qg_buf,
                        float* __restrict__ gstats, T* __restrict__ dqg, int B, int L, int H,
-                       int nh, int G, int ld, float sm_scale, uint32_t thr, float keep_prob) {
+                       int nh, int G, int ld, float sm_scale, uint32_t thr, float keep_prob,
+                       QuantQuery qq) {
   constexpr int P = kThreads / HD;  // threads that share a head-dim column
   extern __shared__ float smem[];
   float* ebuf = smem;          // scores, then e
@@ -270,15 +285,29 @@ __global__ void __launch_bounds__(kThreads)
   const T* VG = gkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
   const size_t grow = (size_t)b * L + g;
 
-  // qg = round((x_g Wgq + bgq) * sm_scale)
-  float acc = 0.0f;
-  for (int k = p; k < H; k += P) acc = fmaf(to_f32(x[grow * H + k]), to_f32(wgq[(size_t)k * HN + h * HD + d]), acc);
-  part[tid] = acc;
+  // qg = round((x_g Wgq + bgq) * sm_scale); in W8A8 the int32 product of
+  // the quantised row and weights, dequantised as the projections are
+  if (qq.x8 != nullptr) {
+    int acc = 0;
+    for (int k = p; k < H; k += P)
+      acc += (int)qq.x8[grow * H + k] * (int)qq.w8[(size_t)k * HN + h * HD + d];
+    part[tid] = __int_as_float(acc);
+  } else {
+    float acc = 0.0f;
+    for (int k = p; k < H; k += P) acc = fmaf(to_f32(x[grow * H + k]), to_f32(wgq[(size_t)k * HN + h * HD + d]), acc);
+    part[tid] = acc;
+  }
   __syncthreads();
   if (tid < HD) {
     float sum = 0.0f;
-    for (int i = 0; i < P; ++i) sum += part[i * HD + tid];
-    const float q = round_to<T>((sum + bgq[h * HD + tid]) * sm_scale);
+    if (qq.x8 != nullptr) {
+      int isum = 0;
+      for (int i = 0; i < P; ++i) isum += __float_as_int(part[i * HD + tid]);
+      sum = dequant(isum, qq.sx[grow], qq.sw[h * HD + tid]);
+    } else {
+      for (int i = 0; i < P; ++i) sum += part[i * HD + tid];
+    }
+    const float q = round_to<T>(__fmul_rn(__fadd_rn(sum, bgq[h * HD + tid]), sm_scale));
     qs[tid] = q;
     if constexpr (kGrad) {
       qg_buf[(((size_t)b * nh + h) * G + g) * HD + tid] = from_f32<T>(q);
@@ -328,7 +357,7 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < HD) {
     float sum = 0.0f;
     for (int i = 0; i < P; ++i) sum += part[i * HD + tid];
-    ctx[grow * HN + h * HD + tid] = from_f32<T>(D > 0.0f ? sum / denom : 0.0f);
+    ctx[grow * HN + h * HD + tid] = from_f32<Tc>(D > 0.0f ? sum / denom : 0.0f);
   }
   if constexpr (kGrad) {
     const float rs_sum = block_sum(rs, red);
@@ -376,31 +405,56 @@ cudaError_t sliding_projections(const T* hidden, const int32_t* mask, const int3
   return launch_qkv_proj<T>(hidden, wgkv, bgkv, gkv_buf, B, L, H, nh, hd, 1.0f, stream, 2);
 }
 
-// The attention of the projected q, k, v into ctx: the band rows, then the
-// global rows over them. With kGrad, the backward's recomputation: also the
-// row statistics, qg, the global rows' statistics and their dqg.
-template <typename T, bool kGrad>
+// The W8A8 twin of sliding_projections: counts, one row quantisation of x
+// into x8 (B L, H) and sx (B L), then q, k, v and (with global rows) kg, vg
+// from int8 weights wqkv (H, 3 nh hd) and wgkv (H, 2 nh hd) with per-column
+// scales.
+template <typename T>
+cudaError_t sliding_projections_w8a8(const T* hidden, const int32_t* mask, const int32_t* glob,
+                                     int8_t* x8, float* sx, const int8_t* wqkv,
+                                     const float* swqkv, const float* bqkv, const int8_t* wgkv,
+                                     const float* swgkv, const float* bgkv, int32_t* counts,
+                                     T* qkv_buf, T* gkv_buf, int B, int L, int H, int nh, int hd,
+                                     int G, int global_rows, float sm_scale,
+                                     cudaStream_t stream) {
+  sliding_count_kernel<><<<B, kThreads, 0, stream>>>(mask, glob, counts, L, G, global_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = launch_rowquant<T>(hidden, B * L, H, 1, x8, sx, stream)) != cudaSuccess) return err;
+  err = launch_qkv_proj_i8<T>(x8, sx, wqkv, swqkv, bqkv, qkv_buf, B, L, H, nh, hd, sm_scale,
+                              stream);
+  if (err != cudaSuccess || !global_rows) return err;
+  return launch_qkv_proj_i8<T>(x8, sx, wgkv, swgkv, bgkv, gkv_buf, B, L, H, nh, hd, 1.0f, stream,
+                               2);
+}
+
+// The attention of the projected q, k, v into ctx (of type Tc): the band
+// rows, then the global rows over them (their query from qq in W8A8). With
+// kGrad, the backward's recomputation: also the row statistics, qg, the
+// global rows' statistics and their dqg.
+template <typename T, bool kGrad, typename Tc = T>
 cudaError_t sliding_attention(const T* hidden, const int32_t* seed, const T* wgq, const float* bgq,
                               const int32_t* counts, const T* qkv_buf, const T* gkv_buf,
-                              const T* dctx, T* ctx_buf, float* stats, T* qg_buf, float* gstats,
+                              const T* dctx, Tc* ctx_buf, float* stats, T* qg_buf, float* gstats,
                               T* dqg, int B, int L, int H, int nh, int hd, int C, int G,
                               int global_rows, int ld, float sm_scale, uint32_t thr,
-                              float keep_prob, cudaStream_t stream) {
+                              float keep_prob, cudaStream_t stream,
+                              const QuantQuery& qq = QuantQuery{}) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    auto band = band_rows_kernel<T, HD, kGrad>;
+    auto band = band_rows_kernel<T, HD, kGrad, Tc>;
     cudaError_t e = prepare(band, band_smem_bytes<HD>());
     if (e != cudaSuccess) return e;
     const dim3 grid((L + kTile - 1) / kTile, nh, B);
     band<<<grid, kThreads, band_smem_bytes<HD>(), stream>>>(qkv_buf, counts, seed, dctx, ctx_buf,
                                                            stats, B, L, nh, C, thr, keep_prob);
     if ((e = cudaGetLastError()) != cudaSuccess || !global_rows) return e;
-    auto rows = global_rows_kernel<T, HD, kGrad>;
+    auto rows = global_rows_kernel<T, HD, kGrad, Tc>;
     const size_t smem = global_rows_smem_bytes<HD>(L);
     if ((e = prepare(rows, smem)) != cudaSuccess) return e;
     rows<<<dim3(G, nh, B), kThreads, smem, stream>>>(hidden, wgq, bgq, gkv_buf, counts, seed, dctx,
                                                      ctx_buf, qg_buf, gstats, dqg, B, L, H, nh, G,
-                                                     ld, sm_scale, thr, keep_prob);
+                                                     ld, sm_scale, thr, keep_prob, qq);
     return cudaGetLastError();
   });
 }

@@ -5,7 +5,8 @@
 // global rows replaced through the *_global projections).
 //
 // Replaces the TPU kernel spokennlp_tpu/ops/pallas/sliding_block.py,
-// fused_sliding_attention_block (_sliding_block_kernel, quantized=False).
+// fused_sliding_attention_block (_sliding_block_kernel), in its float modes
+// and its W8A8 mode (quantized=True).
 //
 // What bounds it here. At the Longformer-base recipe (B=8, L=2048, H=768,
 // 12 heads of 64, window 512, CLS global) a layer's block is about 116 GFLOP
@@ -33,6 +34,19 @@
 //      local row; only rows g < n_glob run;
 //   5. gemm_bias_residual_ln_kernel (common.cuh): ctx . Wo + bo + x and the
 //      LayerNorm.
+//
+// W8A8 (the TPU kernel's quantized=True). The local q, k, v, the global k,
+// v, the global query and the output projection run int8 x int8 -> int32
+// with weights quantised per output column (in the wrapper) and one row
+// quantisation of x shared by all of them, as on the TPU, where the global
+// query of row g took the same x8[g] and its scale:
+//   rowquant(x) -> int8 q, k, v (int8_gemm.cuh) -> int8 kg, vg -> band rows
+//   -> global rows (the int32 product x8[g] . Wgq8 in the block) -> rowquant
+//   of the float32 ctx -> int8 ctx . Wo + bo + x and the LayerNorm.
+// ctx stays float32 up to its row quantisation: the TPU kernel held it in a
+// float32 scratch and quantised that, rounding to the element type only in
+// its float modes. The projections are 7 of every 8 operations at the
+// recipe's shape, now on __dp4a (int8) instead of float32 FMA.
 #include "sliding_attention.cuh"
 
 namespace spk {
@@ -57,6 +71,37 @@ cudaError_t sliding_block(const T* hidden, const int32_t* mask, const int32_t* g
   if (err != cudaSuccess) return err;
   return launch_residual_ln<T>(ctx_buf, wo, bo, hidden, ln_scale, ln_bias, ln_buf, out, B * L, H,
                                nh * hd, eps, fuse_ln, stream);
+}
+
+// W8A8: x8 (B L, max(H, nh hd)) int8 and scales (B L) float32 hold first
+// the quantised x (read by the projections and the global rows), then the
+// quantised ctx; ctx_buf (B L, nh hd) is float32.
+template <typename T>
+cudaError_t sliding_block_w8a8(const T* hidden, const int32_t* mask, const int32_t* glob,
+                               int8_t* x8, float* scales, const int8_t* wqkv, const float* swqkv,
+                               const float* bqkv, const int8_t* wgq, const float* swgq,
+                               const float* bgq, const int8_t* wgkv, const float* swgkv,
+                               const float* bgkv, const int8_t* wo, const float* swo,
+                               const float* bo, const float* ln_scale, const float* ln_bias,
+                               int32_t* counts, T* qkv_buf, T* gkv_buf, float* ctx_buf,
+                               float* ln_buf, T* out, int B, int L, int H, int nh, int hd, int C,
+                               int G, int global_rows, float sm_scale, float eps, int fuse_ln,
+                               cudaStream_t stream) {
+  const int M = B * L, HN = nh * hd;
+  cudaError_t err = sliding_projections_w8a8<T>(hidden, mask, glob, x8, scales, wqkv, swqkv, bqkv,
+                                                wgkv, swgkv, bgkv, counts, qkv_buf, gkv_buf, B, L,
+                                                H, nh, hd, G, global_rows, sm_scale, stream);
+  if (err != cudaSuccess) return err;
+  const QuantQuery qq{x8, scales, wgq, swgq};
+  err = sliding_attention<T, false, float>(hidden, nullptr, nullptr, bgq, counts, qkv_buf, gkv_buf,
+                                           nullptr, ctx_buf, nullptr, nullptr, nullptr, nullptr, B,
+                                           L, H, nh, hd, C, G, global_rows, 0, sm_scale, 0u, 1.0f,
+                                           stream, qq);
+  if (err != cudaSuccess) return err;
+  if ((err = launch_rowquant<float>(ctx_buf, M, HN, 1, x8, scales, stream)) != cudaSuccess)
+    return err;
+  return launch_residual_ln_i8<T>(x8, scales, wo, swo, bo, hidden, ln_scale, ln_bias, ln_buf, out,
+                                  M, H, HN, 1, eps, fuse_ln, stream);
 }
 
 }  // namespace
@@ -104,5 +149,42 @@ extern "C" int spk_sliding_block(int dtype, const void* hidden, const void* mask
   } else {
     err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// The W8A8 mode. dtype as above for hidden, qkv_buf, gkv_buf and out; wqkv
+// (H, 3 nh hd), wgq (H, nh hd), wgkv (H, 2 nh hd) and wo (nh hd, H) int8
+// with per-column scales swqkv, swgq, swgkv and swo; biases, LayerNorm
+// parameters and ln_buf float32; x8 (B L, max(H, nh hd)) int8, scales (B L)
+// and ctx_buf (B L, nh hd) float32 are scratch. Without global rows wgq,
+// swgq, bgq, wgkv, swgkv, bgkv and gkv_buf may be null.
+extern "C" int spk_sliding_block_w8a8(int dtype, const void* hidden, const void* mask,
+                                      const void* glob, void* x8, void* scales, const void* wqkv,
+                                      const void* swqkv, const void* bqkv, const void* wgq,
+                                      const void* swgq, const void* bgq, const void* wgkv,
+                                      const void* swgkv, const void* bgkv, const void* wo,
+                                      const void* swo, const void* bo, const void* ln_scale,
+                                      const void* ln_bias, void* counts, void* qkv_buf,
+                                      void* gkv_buf, void* ctx_buf, void* ln_buf, void* out, int B,
+                                      int L, int H, int nh, int hd, int C, int G, int global_rows,
+                                      float sm_scale, float eps, int fuse_ln, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  const auto run = [&](auto tag) {
+    using F = decltype(tag);
+    const auto m = [](void* p) { return static_cast<F*>(p); };
+    return spk::sliding_block_w8a8<F>(
+        static_cast<const F*>(hidden), i32(mask), i32(glob), static_cast<int8_t*>(x8),
+        static_cast<float*>(scales), i8(wqkv), f32(swqkv), f32(bqkv), i8(wgq), f32(swgq), f32(bgq),
+        i8(wgkv), f32(swgkv), f32(bgkv), i8(wo), f32(swo), f32(bo), f32(ln_scale), f32(ln_bias),
+        static_cast<int32_t*>(counts), m(qkv_buf), m(gkv_buf), static_cast<float*>(ctx_buf),
+        static_cast<float*>(ln_buf), m(out), B, L, H, nh, hd, C, G, global_rows, sm_scale, eps,
+        fuse_ln, s);
+  };
+  const cudaError_t err = dtype == 0   ? run(float{})
+                          : dtype == 1 ? run(__nv_bfloat16{})
+                                       : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

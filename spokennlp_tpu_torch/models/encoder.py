@@ -82,7 +82,7 @@ from spokennlp_tpu_torch.ops.bigbird_attention import (
     bigbird_attention_bias, bigbird_block_sparse_attention,
 )
 from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
-from spokennlp_tpu_torch.ops.cuda.bigbird_block import W8A8_BIGBIRD, fused_bigbird_attention_block
+from spokennlp_tpu_torch.ops.cuda.bigbird_block import fused_bigbird_attention_block
 from spokennlp_tpu_torch.ops.cuda.blhd_attention import snld_self_attention
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import quant_dense
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
@@ -416,21 +416,20 @@ class TransformerLayer(nn.Module):
         """h1 = LN(x + attn(x)) in the attention-block kernel (the dense one,
         the Longformer one with ``sliding``, the BigBird one with ``bigbird``,
         the (B, L) attention mask), then h2 = LN(h1 + mlp(h1)) in the
-        MLP-block kernel; ``quantized``: their W8A8 modes (dense)."""
+        MLP-block kernel; ``quantized``: the W8A8 modes of both, for every
+        attention type, as JAX passes ``quantized`` to each of its kernels."""
         cfg = self.cfg
         B, L, H = hidden.shape
         attn, ln1 = self.attention, self.attention_ln
         ln = dict(sm_scale=1.0 / math.sqrt(cfg.head_dim), ln_scale=ln1.scale, ln_bias=ln1.bias,
-                  eps=cfg.layer_norm_eps)
-        if bigbird is not None:  # its wrapper raises for the W8A8 mode, not ported yet
+                  eps=cfg.layer_norm_eps, quantized=quantized)
+        if bigbird is not None:
             h1 = fused_bigbird_attention_block(hidden, bigbird, attn.qkv.kernel, attn.qkv.bias,
                                                attn.out.kernel, attn.out.bias,
-                                               *self._bigbird_pattern(), quantized=quantized, **ln)
+                                               *self._bigbird_pattern(), **ln)
         elif sliding is None:
             h1 = fused_attention_block(hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias,
-                                       attn.out.kernel, attn.out.bias, quantized=quantized, **ln)
-        elif quantized:
-            raise NotImplementedError(W8A8_SLIDING)
+                                       attn.out.kernel, attn.out.bias, **ln)
         else:
             h1 = fused_sliding_attention_block(
                 hidden, *self._sliding_args(sliding), window=cfg.attention_window,
@@ -510,10 +509,6 @@ def sliding_contract_breach(cfg: EncoderConfig, seq_len: int, prefix_globals: Op
     return None
 
 
-W8A8_SLIDING = ("quantize='w8a8' on the fused Longformer path (the W8A8 mode of its kernel) is "
-                "not ported yet; ask for attention_impl='einsum'")
-
-
 def bigbird_contract_breach(cfg: EncoderConfig, seq_len: int,
                             prefix_globals: Optional[int]) -> Optional[str]:
     """Why the BigBird kernels cannot take this call (the contract of the TPU
@@ -527,8 +522,8 @@ def bigbird_contract_breach(cfg: EncoderConfig, seq_len: int,
     return None
 
 
-def _resolve_bigbird(cfg: EncoderConfig, device: torch.device, impl: str, quantized: bool,
-                     seq_len: int, prefix_globals: Optional[int]) -> str:
+def _resolve_bigbird(cfg: EncoderConfig, device: torch.device, impl: str, seq_len: int,
+                     prefix_globals: Optional[int]) -> str:
     """BigBird's path, as the JAX encoder resolves it: the training kernels
     whatever ``bigbird_impl`` says, the inference kernels under "auto" or
     "fused"; else "bias" or "block" ("auto": block above 1024 tokens,
@@ -539,8 +534,6 @@ def _resolve_bigbird(cfg: EncoderConfig, device: torch.device, impl: str, quanti
     if impl == "train_fused" or (impl == "fused" and bb in ("auto", "fused")):
         breach = bigbird_contract_breach(cfg, seq_len, prefix_globals)
         if breach is None:
-            if impl == "fused" and quantized:
-                raise NotImplementedError(W8A8_BIGBIRD)
             return impl
         if device.type == "cuda":
             raise ValueError(f"the BigBird kernels' contract is broken: {breach}; ask for "
@@ -568,7 +561,6 @@ def resolve_attention_impl(
         raise NotImplementedError(f"attention_type={cfg.attention_type!r} is not ported yet")
     if cfg.quantize not in ("none", "w8a8"):
         raise ValueError(f"quantize={cfg.quantize!r}")
-    quantized = cfg.quantize == "w8a8" and not training
     impl = cfg.attention_impl
     if impl == "auto":
         if device.type != "cuda":
@@ -595,15 +587,13 @@ def resolve_attention_impl(
     if impl == "pallas":
         impl = "einsum"  # JAX's pallas path is dense only
     if cfg.attention_type == "bigbird":
-        return _resolve_bigbird(cfg, device, impl, quantized, seq_len, prefix_globals)
+        return _resolve_bigbird(cfg, device, impl, seq_len, prefix_globals)
     sw = cfg.sliding_window_impl
     if sw not in ("auto", "bias", "chunked", "fused"):
         raise ValueError(f"sliding_window_impl={sw!r}")
     if impl != "einsum" and sw in ("auto", "fused"):
         breach = sliding_contract_breach(cfg, seq_len, prefix_globals, has_global_mask)
         if breach is None:
-            if impl == "fused" and quantized:
-                raise NotImplementedError(W8A8_SLIDING)
             return impl
         if device.type == "cuda":
             raise ValueError(f"the Longformer kernels' contract is broken: {breach}; ask for "

@@ -16,7 +16,10 @@ column (once a call, in the wrapper) and x and ctx quantised per row inside
 the kernel; ctx is quantised over each head group's ``heads_per_block * hd``
 columns, as the TPU kernel, whose grid step owned one head group, did. Its
 plain version follows the TPU kernel's arithmetic: q, k, v and ctx rounded
-to the element type, the exponent taken in it.
+to the element type, the exponent taken in it. ``core_int8`` ("qk", "av",
+"both" or True for both) also runs the attention core on int8 operands as
+the TPU kernel does (``attention_core_int8_plain``); without ``quantized``
+it is ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
 )
 
 NEG_INF = -1e9
+LN127 = 4.844187086458591  # ln(127)
+# core_int8 values -> the kernel's CoreInt8 flags (csrc/attention_core.cuh)
+CORE_INT8_CODES = {False: 0, None: 0, "qk": 1, "av": 2, "both": 3, True: 3}
 
 
 def _layer_norm(r, scale, bias, eps):
@@ -79,8 +85,82 @@ def attention_core_plain(q, k, v, segment_ids, exp_dtype):
     return ctx / denom.permute(0, 2, 1, 3)
 
 
+def _int_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An exact integer product of integer-valued tensors, as float32: in
+    int64 on the CPU, in float64 on the card (exact below 2^53)."""
+    wide = torch.int64 if a.device.type == "cpu" else torch.float64
+    return torch.einsum(eq, a.to(wide), b.to(wide)).float()
+
+
+def core_int8_quantize(t, groups: int):
+    """The int8 core's q or k: (B, L, nh, hd) float32 quantised with one
+    scale per (sequence, head group) over all L rows; returns the int8
+    values (as float32) and the scales per head (B, nh)."""
+    B, L, nh, hd = t.shape
+    tg = t.reshape(B, L, groups, nh // groups * hd)
+    s = tg.abs().amax(dim=(1, 3)).clamp_min(1e-6) * (1.0 / 127.0)  # (B, groups)
+    t8 = torch.round(tg * (1.0 / s)[:, None, :, None]).clamp(-127, 127)
+    return t8.reshape(B, L, nh, hd), s.repeat_interleave(nh // groups, dim=1)
+
+
+def core_int8_denominator(p):
+    """The "av" core's softmax denominator of (B, nh, L, L) p = exp(arg +
+    ln 127): max(sum p, 1e-6) over every key, before p is rounded; (B, L, nh,
+    1)."""
+    return p.sum(dim=-1).clamp_min(1e-6).permute(0, 2, 1)[..., None]
+
+
+def attention_core_int8_plain(q, k, v, segment_ids, groups: int, core: int):
+    """The TPU kernel's int8 attention core (``core`` = CORE_INT8_CODES
+    value: 1 "qk", 2 "av", 3 both) on (B, L, nh, hd) q (scaled and rounded),
+    k, v in the compute dtype, heads in ``groups`` groups; returns ctx (B, L,
+    nh, hd) rounded to v's dtype.
+
+    "qk": q and k quantised with one scale each per (sequence, head group)
+    over all L rows (padded ones too); the row max of the int32 scores over
+    the allowed keys (-3e38 with none); arg = (s - m) sq sk where allowed,
+    -30 elsewhere. "av": p = exp(arg + ln 127), denominator max(sum p, 1e-6)
+    over every key, p8 = clip(rint(p), 0, 127), v quantised per column over
+    the L rows; ctx = (p8 . v8) s_v (1 / denom). Without "av" the float
+    branch: e = exp(arg) in the compute dtype, ctx = (e . v) / sum e."""
+    dt = v.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    seg = segment_ids
+    allowed = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]  # (B,1,L,L)
+    if core & 1:
+        (q8, sq), (k8, sk) = core_int8_quantize(qf, groups), core_int8_quantize(kf, groups)
+        c = (sq * sk)[:, :, None, None]  # (B, nh, 1, 1)
+        s_int = _int_einsum("blnd,bmnd->bnlm", q8, k8)
+        m = torch.where(allowed, s_int, -3e38).amax(dim=-1, keepdim=True)
+        arg = torch.where(allowed, (s_int - m) * c, -30.0)
+    else:
+        scores = torch.einsum("blnd,bmnd->bnlm", qf, kf) + torch.where(allowed, 0.0, NEG_INF)
+        arg = scores - scores.amax(dim=-1, keepdim=True)
+    if core & 2:
+        sv = vf.abs().amax(dim=1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)  # (B,1,nh,hd)
+        v8 = torch.round(vf * (1.0 / sv)).clamp(-127, 127)
+        p = torch.exp(arg + LN127)
+        denom = core_int8_denominator(p)
+        p8 = torch.round(p).clamp(0, 127)
+        ctx = _int_einsum("bnlm,bmnd->blnd", p8, v8) * sv * (1.0 / denom)
+    else:
+        p = torch.exp(arg.to(dt)).to(dt).float()
+        denom = p.sum(dim=-1).permute(0, 2, 1)[..., None]
+        ctx = torch.einsum("bnlm,bmnd->blnd", p, vf) / denom
+    return ctx.to(dt)
+
+
+def core_int8_code(core_int8, quantized: bool, multi: bool = False) -> int:
+    """The int8 core's mode (CORE_INT8_CODES) of a call: 0 unless
+    ``quantized``, and 0 on the TPU's multi-sequence kernel (``multi``),
+    which has no int8 core; raises for a value JAX does not name."""
+    if not isinstance(core_int8, (bool, str, type(None))) or core_int8 not in CORE_INT8_CODES:
+        raise ValueError(f"core_int8={core_int8!r}: False, 'qk', 'av', 'both' or True")
+    return CORE_INT8_CODES[core_int8] if quantized and not multi else 0
+
+
 def _attention_w8a8_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel, out_bias,
-                          sm_scale, ln_scale, ln_bias, eps, groups):
+                          sm_scale, ln_scale, ln_bias, eps, groups, core=0):
     dt = hidden.dtype
     B, L, H = hidden.shape
     _, _, nh, hd = qkv_kernel.shape
@@ -91,7 +171,10 @@ def _attention_w8a8_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel,
     qkv = int8_product(x8, wqkv8) * sx * swqkv + qkv_bias.reshape(-1).float()
     q, k, v = qkv.reshape(B, L, 3, nh, hd).unbind(2)
     q, k, v = (q * sm_scale).to(dt), k.to(dt), v.to(dt)
-    ctx = attention_core_plain(q, k, v, segment_ids, dt).to(dt).reshape(B * L, HN)
+    if core:
+        ctx = attention_core_int8_plain(q, k, v, segment_ids, G, core).reshape(B * L, HN)
+    else:
+        ctx = attention_core_plain(q, k, v, segment_ids, dt).to(dt).reshape(B * L, HN)
     c8, sc = rowquant_plain(ctx, G)
     W = HN // G
     out = None
@@ -118,18 +201,22 @@ def attention_block_plain(
     eps: float = 1e-12,
     quantized: bool = False,
     heads_per_block: int = 12,
+    core_int8=False,
 ) -> torch.Tensor:
     """The fused block in plain PyTorch; returns hidden's dtype.
 
     Float modes: everything in float32. W8A8: the TPU kernel's integer
-    arithmetic and roundings (``heads_per_block`` sets the ctx groups).
-    Masked keys get an additive -1e9, as in the TPU kernel, so a fully padded
-    query row becomes a uniform average of v: compare only rows with seg > 0.
+    arithmetic and roundings (``heads_per_block`` sets the ctx groups and,
+    with ``core_int8``, the q and k scales). Masked keys get an additive
+    -1e9, as in the TPU kernel, so a fully padded query row becomes a uniform
+    average of v: compare only rows with seg > 0 (with a "qk" core such a row
+    is uniform by construction and can be compared too).
     """
+    core = core_int8_code(core_int8, quantized)
     if quantized:
         groups = head_groups(qkv_kernel.shape[2], heads_per_block)
         return _attention_w8a8_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel,
-                                     out_bias, sm_scale, ln_scale, ln_bias, eps, groups)
+                                     out_bias, sm_scale, ln_scale, ln_bias, eps, groups, core)
     x = hidden.float()
     qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
     q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
@@ -171,19 +258,26 @@ def fused_attention_block(
     changes the W8A8 result only. ``seqs_per_block`` > 1 is the TPU's tiling
     of the same function over several sequences a grid step
     (``_attn_block_kernel_multi``); it computes what one sequence a step
-    computes and runs the same kernel here. ``core_int8`` (the int8 attention
-    core) is not ported. ``fused_attention_block.launches`` counts the calls
-    that ran the kernels on the card.
+    computes and runs the same kernel here; as there, it has no int8 core,
+    so it ignores ``core_int8`` where the TPU took that kernel (one head
+    group, B a multiple of it). ``core_int8`` ("qk", "av", "both", True)
+    runs the W8A8 attention core on int8 operands (ignored without
+    ``quantized``). ``fused_attention_block.launches`` counts the calls that
+    ran the kernels on the card, ``fused_attention_block.core_int8_launches``
+    those of them that ran the int8 core.
     """
-    if core_int8:
-        raise NotImplementedError("fused_attention_block: core_int8 is not ported yet")
     if int(seqs_per_block) < 1:
         raise ValueError(f"fused_attention_block: seqs_per_block {seqs_per_block} < 1")
+    B, nh = hidden.shape[0], qkv_kernel.shape[2]
+    multi = (int(seqs_per_block) > 1 and head_groups(nh, heads_per_block) == 1
+             and B % int(seqs_per_block) == 0)
+    core = core_int8_code(core_int8, quantized, multi)
     if hidden.device.type == "cpu":
         return attention_block_plain(
             hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel, out_bias,
             sm_scale=sm_scale, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
             quantized=quantized, heads_per_block=heads_per_block,
+            core_int8=False if multi else core_int8,
         )
     if hidden.device.type != "cuda":
         raise ValueError(f"fused_attention_block: unsupported device {hidden.device}")
@@ -237,11 +331,13 @@ def fused_attention_block(
                 qkv_kernel, out_kernel, G))
             x8 = torch.empty((M * max(H, HN),), dtype=torch.int8, device=hidden.device)
             scales = torch.empty((M * G,), dtype=torch.float32, device=hidden.device)
+            core_scales = (torch.empty((2 * B * G + B * HN,), dtype=torch.float32,
+                                       device=hidden.device) if core else None)
             code = build.library().spk_attention_block_w8a8(
                 _DTYPES[dt], ptr(hidden), ptr(seg), ptr(x8), ptr(scales), ptr(wqkv8),
                 ptr(swqkv), ptr(bqkv), ptr(wo8), ptr(swo), ptr(bo), ptr(lns), ptr(lnb),
-                ptr(qkv_buf), ptr(ctx_buf), ptr(ln_buf), ptr(out), B, L, H, nh, hd, G,
-                float(sm_scale), float(eps), int(fuse_ln), stream,
+                ptr(qkv_buf), ptr(ctx_buf), ptr(ln_buf), ptr(out), ptr(core_scales), B, L, H,
+                nh, hd, G, core, float(sm_scale), float(eps), int(fuse_ln), stream,
             )
         else:
             wqkv = qkv_kernel.to(dt).contiguous()
@@ -253,7 +349,9 @@ def fused_attention_block(
             )
     build.check(code, "fused_attention_block")
     fused_attention_block.launches += 1
+    fused_attention_block.core_int8_launches += bool(core)
     return out
 
 
 fused_attention_block.launches = 0
+fused_attention_block.core_int8_launches = 0

@@ -13,6 +13,12 @@ Contract, as on the TPU: padding is a suffix of each row; L is a multiple of
 the block size and the block size of 8. The random blocks come from
 ``ops/bigbird_attention.py:bigbird_block_indices`` at ``seed``: the same
 pattern as the gather and bias paths.
+
+``quantized=True`` is the TPU kernel's W8A8 mode: the QKV and output
+projections run int8 x int8 -> int32, weights quantised per output column
+(once a call, in the wrapper), x quantised per row, and the float32 ctx
+quantised per row. Its plain version follows the TPU kernel's roundings: q,
+k, v rounded to the element type, the exponent taken in it.
 """
 
 from __future__ import annotations
@@ -23,12 +29,13 @@ import torch
 
 from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables, random_tail
 from spokennlp_tpu_torch.ops.cuda import build
-from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, NEG_INF, _layer_norm
+from spokennlp_tpu_torch.ops.cuda.attention_block import (
+    _DTYPES, NEG_INF, _layer_norm, quantize_attention_weights,
+)
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product, rowquant_plain
+from spokennlp_tpu_torch.ops.cuda.sliding_block import _divide, _softmax
 from spokennlp_tpu_torch.ops.cuda.train_blocks import HEAD_DIMS
 from spokennlp_tpu_torch.ops.sliding_attention import _ctx_windows
-
-W8A8_BIGBIRD = ("quantize='w8a8' on the fused BigBird path (the W8A8 mode of its kernel) is not "
-                "ported yet; ask for attention_impl='einsum'")
 
 
 def check_contract(L: int, block_size: int, where: str) -> None:
@@ -37,6 +44,63 @@ def check_contract(L: int, block_size: int, where: str) -> None:
     if block_size <= 0 or L % block_size or block_size % 8:
         raise ValueError(f"{where}: the BigBird kernels need L % block_size == 0 and "
                          f"block_size % 8 == 0; got L={L}, block_size={block_size}")
+
+
+def bigbird_attend(q, k, v, attention_mask, *, block_size: int, num_global_blocks: int,
+                   num_random_blocks: int, seed: int, exp_dtype=None, dropout_rate: float = 0.0,
+                   keep=None) -> torch.Tensor:
+    """The attention context (B, L, nh, hd) float32 of the kernels' semantics
+    from projected (B, L, nh, hd) q (scaled), k, v, piece by piece as the
+    kernels take them. ``exp_dtype``: the TPU kernels' rounded exponent
+    (``sliding_block._softmax``). ``keep`` as in ``bigbird_context_plain``."""
+    q, k, v = q.float(), k.float(), v.float()
+    B, L, nh, hd = q.shape
+    C = block_size
+    nb = L // C
+    G, R, rand, rok = random_tail(nb, num_global_blocks, num_random_blocks, seed)
+    GC, dev = G * C, q.device
+    n_valid = (attention_mask > 0).sum(1)
+    real = lambda keys: keys[None] < n_valid.reshape(-1, *[1] * keys.dim())  # (B, *keys.shape)
+    qc = q.reshape(B, nb, C, nh, hd)
+
+    # window blocks i - 1, i, i + 1 without the global blocks; then the
+    # global columns; then the random blocks: (scores, values, keys allowed)
+    key_w = torch.arange(nb, device=dev)[:, None] * C - C + torch.arange(3 * C, device=dev)[None]
+    pieces = [(_ctx_windows(k, C), _ctx_windows(v, C), real(key_w) & (key_w >= GC)[None])]
+    if GC:
+        ok = real(torch.arange(GC, device=dev))[:, None].expand(B, nb, GC)
+        pieces.append((k[:, None, :GC].expand(B, nb, GC, nh, hd),
+                       v[:, None, :GC].expand(B, nb, GC, nh, hd), ok))
+    if R:
+        blocks = torch.from_numpy(rand).long().to(dev)
+        keys_r = (blocks[:, :, None] * C + torch.arange(C, device=dev)).reshape(nb, R * C)
+        live = torch.from_numpy(rok).bool().to(dev).repeat_interleave(C, dim=1)
+        gather = lambda t: t[:, keys_r.reshape(-1)].reshape(B, nb, R * C, nh, hd)
+        pieces.append((gather(k), gather(v), real(keys_r) & live[None]))
+    scores = torch.cat([
+        torch.where(ok[:, None, :, None, :], torch.einsum("bicnd,bijnd->bnicj", qc, kp), NEG_INF)
+        for kp, _, ok in pieces], dim=-1)  # (B, nh, nb, C, K C)
+    probs, denom = _softmax(scores, exp_dtype)
+    probs = probs.split([kp.shape[2] for kp, _, _ in pieces], dim=-1)
+    if dropout_rate > 0.0:
+        win, gcol, rnd, _ = keep
+        masks = [win, gcol.reshape(B, nh, nb, C, GC), rnd.reshape(B, nh, nb, C, R * C)]
+        masks = [m for m, n in zip(masks, (1, GC, R)) if n]
+        scale = 1.0 / (1.0 - dropout_rate)
+        probs = [torch.where(m, p * scale, 0.0) for m, p in zip(masks, probs)]
+    ctx = sum(torch.einsum("bnicj,bijnd->bicnd", p, vp) for p, (_, vp, _) in zip(probs, pieces))
+    ctx = _divide(ctx, denom, (0, 2, 3, 1, 4)).reshape(B, L, nh, hd)
+    if not GC:
+        return ctx
+
+    # the global rows: dense over every real key
+    s = torch.einsum("bgnd,blnd->bngl", q[:, :GC], k)
+    p, denom = _softmax(torch.where(real(torch.arange(L, device=dev))[:, None, None], s,
+                                    NEG_INF), exp_dtype)
+    if dropout_rate > 0.0:
+        p = torch.where(keep[3], p / (1.0 - dropout_rate), 0.0)
+    cg = _divide(torch.einsum("bngl,blnd->bgnd", p, v), denom, (0, 2, 1, 3))
+    return torch.cat([cg, ctx[:, GC:]], dim=1)
 
 
 def bigbird_context_plain(
@@ -64,65 +128,48 @@ def bigbird_context_plain(
     with no allowed key (none without a real token) averages its pieces:
     compare real rows only.
     """
-    B, L, _ = hidden.shape
-    nh, hd = qkv_kernel.shape[2], qkv_kernel.shape[3]
-    C = block_size
-    nb = L // C
-    G, R, rand, rok = random_tail(nb, num_global_blocks, num_random_blocks, seed)
-    GC, dev = G * C, hidden.device
     x = hidden.float()
     qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
     q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
-    q = q * sm_scale
-    n_valid = (attention_mask > 0).sum(1)
-    real = lambda keys: keys[None] < n_valid.reshape(-1, *[1] * keys.dim())  # (B, *keys.shape)
-    qc = q.reshape(B, nb, C, nh, hd)
+    return bigbird_attend(q * sm_scale, k, v, attention_mask, block_size=block_size,
+                          num_global_blocks=num_global_blocks,
+                          num_random_blocks=num_random_blocks, seed=seed,
+                          dropout_rate=dropout_rate, keep=keep)
 
-    # window blocks i - 1, i, i + 1 without the global blocks; then the
-    # global columns; then the random blocks: (scores, values, keys allowed)
-    key_w = torch.arange(nb, device=dev)[:, None] * C - C + torch.arange(3 * C, device=dev)[None]
-    pieces = [(_ctx_windows(k, C), _ctx_windows(v, C), real(key_w) & (key_w >= GC)[None])]
-    if GC:
-        ok = real(torch.arange(GC, device=dev))[:, None].expand(B, nb, GC)
-        pieces.append((k[:, None, :GC].expand(B, nb, GC, nh, hd),
-                       v[:, None, :GC].expand(B, nb, GC, nh, hd), ok))
-    if R:
-        blocks = torch.from_numpy(rand).long().to(dev)
-        keys_r = (blocks[:, :, None] * C + torch.arange(C, device=dev)).reshape(nb, R * C)
-        live = torch.from_numpy(rok).bool().to(dev).repeat_interleave(C, dim=1)
-        gather = lambda t: t[:, keys_r.reshape(-1)].reshape(B, nb, R * C, nh, hd)
-        pieces.append((gather(k), gather(v), real(keys_r) & live[None]))
-    scores = torch.cat([
-        torch.where(ok[:, None, :, None, :], torch.einsum("bicnd,bijnd->bnicj", qc, kp), NEG_INF)
-        for kp, _, ok in pieces], dim=-1)  # (B, nh, nb, C, K C)
-    probs = torch.softmax(scores, dim=-1).split([kp.shape[2] for kp, _, _ in pieces], dim=-1)
-    if dropout_rate > 0.0:
-        win, gcol, rnd, _ = keep
-        masks = [win, gcol.reshape(B, nh, nb, C, GC), rnd.reshape(B, nh, nb, C, R * C)]
-        masks = [m for m, n in zip(masks, (1, GC, R)) if n]
-        scale = 1.0 / (1.0 - dropout_rate)
-        probs = [torch.where(m, p * scale, 0.0) for m, p in zip(masks, probs)]
-    ctx = sum(torch.einsum("bnicj,bijnd->bicnd", p, vp)
-              for p, (_, vp, _) in zip(probs, pieces)).reshape(B, L, nh, hd)
-    if not GC:
-        return ctx
 
-    # the global rows: dense over every real key
-    s = torch.einsum("bgnd,blnd->bngl", q[:, :GC], k)
-    p = torch.softmax(torch.where(real(torch.arange(L, device=dev))[:, None, None], s, NEG_INF),
-                      dim=-1)
-    if dropout_rate > 0.0:
-        p = torch.where(keep[3], p / (1.0 - dropout_rate), 0.0)
-    return torch.cat([torch.einsum("bngl,blnd->bgnd", p, v), ctx[:, GC:]], dim=1)
+def _bigbird_block_w8a8_plain(hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel, out_bias,
+                              pattern, sm_scale, ln_scale, ln_bias, eps):
+    dt = hidden.dtype
+    B, L, H = hidden.shape
+    nh, hd = qkv_kernel.shape[2], qkv_kernel.shape[3]
+    wqkv8, swqkv, wo8, swo = quantize_attention_weights(qkv_kernel.float(), out_kernel.float(), 1)
+    x = hidden.reshape(B * L, H)
+    x8, sx = rowquant_plain(x)
+    qkv = int8_product(x8, wqkv8) * sx * swqkv + qkv_bias.reshape(-1).float()
+    q, k, v = qkv.reshape(B, L, 3, nh, hd).unbind(2)
+    ctx = bigbird_attend((q * sm_scale).to(dt), k.to(dt), v.to(dt), attention_mask, **pattern,
+                         exp_dtype=dt)
+    c8, sc = rowquant_plain(ctx.reshape(B * L, nh * hd))
+    out = int8_product(c8, wo8) * sc * swo + out_bias.float()
+    if ln_scale is not None:
+        out = _layer_norm(out + x.float(), ln_scale, ln_bias, eps)
+    return out.reshape(B, L, H).to(dt)
 
 
 def bigbird_block_plain(
     hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel, out_bias, block_size: int,
     num_global_blocks: int, num_random_blocks: int, seed: int, sm_scale: float,
     ln_scale: Optional[torch.Tensor] = None, ln_bias: Optional[torch.Tensor] = None,
-    eps: float = 1e-12,
+    eps: float = 1e-12, quantized: bool = False,
 ) -> torch.Tensor:
-    """The fused block in plain float32 PyTorch; returns hidden's dtype."""
+    """The fused block in plain PyTorch; returns hidden's dtype. Float
+    modes in float32; W8A8 (``quantized``) with the TPU kernel's integer
+    arithmetic and roundings."""
+    if quantized:
+        pattern = dict(block_size=block_size, num_global_blocks=num_global_blocks,
+                       num_random_blocks=num_random_blocks, seed=seed)
+        return _bigbird_block_w8a8_plain(hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel,
+                                         out_bias, pattern, sm_scale, ln_scale, ln_bias, eps)
     ctx = bigbird_context_plain(
         hidden, attention_mask, qkv_kernel, qkv_bias, sm_scale=sm_scale, block_size=block_size,
         num_global_blocks=num_global_blocks, num_random_blocks=num_random_blocks, seed=seed,
@@ -190,26 +237,27 @@ def fused_bigbird_attention_block(
     (post-LN with ``ln_scale``).
 
     Weights are rounded to hidden's dtype and biases and LayerNorm parameters
-    kept in float32, as the TPU kernel does. ``quantized`` (the TPU kernel's
-    W8A8 mode) is not ported and raises. A CUDA tensor that breaks the
-    contract raises. ``fused_bigbird_attention_block.launches`` counts the
-    calls that ran the kernels on the card.
+    kept in float32, as the TPU kernel does; ``quantized``: the W8A8 mode,
+    the weights quantised from their float32 values. A CUDA tensor that
+    breaks the contract raises. ``fused_bigbird_attention_block.launches``
+    counts the calls that ran the kernels on the card.
     """
     where = "fused_bigbird_attention_block"
-    if quantized:
-        raise NotImplementedError(f"{where}: {W8A8_BIGBIRD}")
     pattern = dict(block_size=block_size, num_global_blocks=num_global_blocks,
                    num_random_blocks=num_random_blocks, seed=seed, sm_scale=sm_scale)
     if hidden.device.type == "cpu":
         return bigbird_block_plain(hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel,
-                                   out_bias, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, **pattern)
+                                   out_bias, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
+                                   quantized=quantized, **pattern)
     check_card_inputs(where, hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel, out_bias,
                       block_size)
     B, L, H = hidden.shape
     nh, hd = qkv_kernel.shape[2], qkv_kernel.shape[3]
+    HN = nh * hd
+    if quantized and H % 4:
+        raise ValueError(f"{where}: W8A8 needs H % 4 == 0, got H = {H}")
     dt, dev = hidden.dtype, hidden.device
     tables = bigbird_tables(L // block_size, num_global_blocks, num_random_blocks, seed, dev)
-    w = card_weights(qkv_kernel, qkv_bias, out_kernel, dt)
     f32 = lambda t: t.float().contiguous()
     fuse_ln = ln_scale is not None
     lns, lnb = (f32(ln_scale), f32(ln_bias)) if fuse_ln else (None, None)
@@ -218,17 +266,34 @@ def fused_bigbird_attention_block(
     mask = attention_mask.to(torch.int32).contiguous()
     empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
     counts = empty(B, 2, dtype=torch.int32)
-    qkv_buf, ctx_buf = empty(3, B, nh, L, hd), empty(B, L, nh * hd)
+    qkv_buf = empty(3, B, nh, L, hd)
     ln_buf, out = empty(B * L, H, dtype=torch.float32), torch.empty_like(hidden)
     ptr = lambda t: None if t is None else t.data_ptr()
+    shape = (B, L, H, nh, hd, block_size, tables.G, tables.R, float(sm_scale), float(eps),
+             int(fuse_ln))
     with torch.cuda.device(dev):
-        code = build.library().spk_bigbird_block(
-            _DTYPES[dt], *(ptr(t) for t in (hidden, mask, tables.rand, tables.rok, w["wqkv"],
-                                             w["bqkv"], w["wo"], bo, lns, lnb, counts,
-                                             qkv_buf, ctx_buf, ln_buf, out)),
-            B, L, H, nh, hd, block_size, tables.G, tables.R, float(sm_scale), float(eps),
-            int(fuse_ln), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if quantized:
+            wqkv8, swqkv, wo8, swo = (t.contiguous() for t in quantize_attention_weights(
+                qkv_kernel.detach().float(), out_kernel.detach().float(), 1))
+            x8 = empty(B * L * max(H, HN), dtype=torch.int8)
+            scales, ctx_buf = empty(B * L, dtype=torch.float32), empty(B * L, HN,
+                                                                         dtype=torch.float32)
+            code = build.library().spk_bigbird_block_w8a8(
+                _DTYPES[dt], *(ptr(t) for t in (hidden, mask, tables.rand, tables.rok, x8, scales,
+                                                 wqkv8, swqkv, f32(qkv_bias), wo8, swo, bo, lns,
+                                                 lnb, counts, qkv_buf, ctx_buf, ln_buf, out)),
+                *shape, stream,
+            )
+        else:
+            w = card_weights(qkv_kernel, qkv_bias, out_kernel, dt)
+            ctx_buf = empty(B, L, HN)
+            code = build.library().spk_bigbird_block(
+                _DTYPES[dt], *(ptr(t) for t in (hidden, mask, tables.rand, tables.rok, w["wqkv"],
+                                                 w["bqkv"], w["wo"], bo, lns, lnb, counts,
+                                                 qkv_buf, ctx_buf, ln_buf, out)),
+                *shape, stream,
+            )
     build.check(code, where)
     fused_bigbird_attention_block.launches += 1
     return out

@@ -30,9 +30,9 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C signatures of csrc/*.cu's extern "C" entries
 _SIGNATURES = {
     "spk_attention_block": [_I] + [_P] * 12 + [_I] * 5 + [_F, _F, _I, _P],
-    "spk_attention_block_w8a8": [_I] + [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
+    "spk_attention_block_w8a8": [_I] + [_P] * 17 + [_I] * 7 + [_F, _F, _I, _P],
     "spk_mlp_block": [_I] + [_P] * 10 + [_I] * 4 + [_F, _P],
-    "spk_mlp_block_w8a8": [_I] + [_P] * 14 + [_I] * 4 + [_F, _P],
+    "spk_mlp_block_w8a8": [_I] + [_P] * 15 + [_I] * 4 + [_F, _P],
     "spk_rowquant": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "spk_w8a8_matmul": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "spk_snld_attention": [_I] + [_P] * 3 + [_I] * 4 + [_F, _P],
@@ -43,10 +43,12 @@ _SIGNATURES = {
     "spk_mlp_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "spk_mlp_train_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
     "spk_sliding_block": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
+    "spk_sliding_block_w8a8": [_I] + [_P] * 25 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_sliding_train_fwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_sliding_train_bwd": [_I] + [_P] * 27 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_sliding_dropout_mask": [_P] * 4 + [_I] * 5 + [_U, _P],
     "spk_bigbird_block": [_I] + [_P] * 15 + [_I] * 8 + [_F, _F, _I, _P],
+    "spk_bigbird_block_w8a8": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_bigbird_train_fwd": [_I] + [_P] * 13 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_bigbird_train_bwd": [_I] + [_P] * 22 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],

@@ -257,10 +257,11 @@ def test_wrappers_on_cpu_count_no_launches_and_check_the_contract():
     bb.fused_bigbird_attention_block(*args, BLOCK, G, R, 0, HD**-0.5)
     tb.bigbird_attention_block_train(*args, torch.zeros(1, dtype=torch.int32), HD**-0.5, BLOCK,
                                      G, R, 0)
+    got = bb.fused_bigbird_attention_block(*args, BLOCK, G, R, 0, HD**-0.5, quantized=True)
+    want = bb.bigbird_block_plain(*args, BLOCK, G, R, 0, HD**-0.5, quantized=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)  # the W8A8 mode's plain version
     assert (bb.fused_bigbird_attention_block.launches, tb.bigbird_train_fwd.launches,
             tb.bigbird_train_bwd.launches) == before
-    with pytest.raises(NotImplementedError, match="einsum"):
-        bb.fused_bigbird_attention_block(*args, BLOCK, G, R, 0, HD**-0.5, quantized=True)
     for L, C in ((60, 8), (64, 12), (64, 0)):
         with pytest.raises(ValueError, match="block_size"):
             bb.check_contract(L, C, "test")

@@ -206,9 +206,8 @@ def test_bigbird_resolution():
     assert resolve_attention_impl(einsum, cuda, False, True, **ok) == "block"
     assert resolve_attention_impl(dataclasses.replace(einsum, bigbird_impl="fused"), cuda, False,
                                   False, **ok) == "block"
-    w8a8 = dataclasses.replace(auto, quantize="w8a8")
-    with pytest.raises(NotImplementedError, match="einsum"):
-        resolve_attention_impl(w8a8, cuda, False, False, **ok)
+    w8a8 = dataclasses.replace(auto, quantize="w8a8")  # the W8A8 mode of kernel 8
+    assert resolve_attention_impl(w8a8, cuda, False, False, **ok) == "fused"
     assert resolve_attention_impl(w8a8, cuda, False, True, **ok) == "train_fused"
     assert resolve_attention_impl(dataclasses.replace(w8a8, attention_impl="einsum"), cuda, False,
                                   False, **ok) == "block"

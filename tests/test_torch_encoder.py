@@ -203,12 +203,13 @@ def test_attention_impl_resolution():
     assert resolve_attention_impl(pallas, cuda, True, batch_size=8) == "einsum"
     with pytest.raises(NotImplementedError):
         resolve_attention_impl(pallas, cuda, False, training=True)
-    # W8A8 on the fused Longformer path is not ported: it raises, never runs bf16
+    # W8A8 on the Longformer path runs the W8A8 mode of its kernel, as JAX resolves it
     lf = dataclasses.replace(TINY, attention_type="sliding_window", attention_window=16,
                              quantize="w8a8", attention_impl="auto")
     kw = dict(seq_len=64, prefix_globals=1, has_global_mask=True, batch_size=8)
-    with pytest.raises(NotImplementedError, match="einsum"):
-        resolve_attention_impl(lf, cuda, False, **kw)
+    assert resolve_attention_impl(lf, cuda, False, **kw) == "fused"
+    assert resolve_attention_impl(dataclasses.replace(lf, attention_impl="stack"), cuda, False,
+                                  **kw) == "fused"
     assert resolve_attention_impl(lf, cuda, False, training=True, **kw) == "train_fused"
     lf_einsum = dataclasses.replace(lf, attention_impl="einsum", sliding_window_impl="chunked")
     assert resolve_attention_impl(lf_einsum, cuda, False, **kw) == "chunked"

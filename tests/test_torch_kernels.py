@@ -198,21 +198,27 @@ def test_wrappers_on_cpu_run_plain_without_counting():
     assert (fused_attention_block.launches, fused_mlp_block.launches) == (n_att, n_mlp)
 
 
-def test_quantized_kernels_raise():
-    """The TPU kernels' opt-in int8 attention core and static intermediate
-    scale are not ported: the wrappers refuse them on every device."""
+def test_quantized_kernel_options_on_cpu_run_their_plain_versions():
+    """The TPU kernels' int8 attention core and static intermediate scale
+    run their plain versions on the CPU without counting a launch; without
+    ``quantized`` both are ignored, as in JAX; an unknown core raises."""
     att = _torch(_attention_inputs(1, 16, 32, 2, 16, seed=8))
     mlp = _torch(_mlp_inputs(M=8, H=32, I=64, seed=9))
+    n_att, n_mlp = fused_attention_block.launches, fused_mlp_block.launches
     for core in ("qk", "av", "both", True):
-        with pytest.raises(NotImplementedError):
-            fused_attention_block(
-                att["hidden"], att["segment_ids"], att["qkv_kernel"], att["qkv_bias"],
-                att["out_kernel"], att["out_bias"], sm_scale=0.25, quantized=True,
-                core_int8=core,
-            )
-    with pytest.raises(NotImplementedError):
-        fused_mlp_block(*mlp.values(), activation="gelu", eps=1e-12, quantized=True,
-                        static_h_scale=True)
+        for quantized in (True, False):
+            kw = dict(sm_scale=0.25, quantized=quantized)
+            got = fused_attention_block(**att, **kw, core_int8=core)
+            want = attention_block_plain(**att, **kw, core_int8=core if quantized else False)
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="core_int8"):
+        fused_attention_block(**att, sm_scale=0.25, quantized=True, core_int8="xyz")
+    for quantized in (True, False):
+        kw = dict(activation="gelu", eps=1e-12, quantized=quantized)
+        got = fused_mlp_block(*mlp.values(), **kw, static_h_scale=True)
+        want = mlp_block_plain(*mlp.values(), **kw, static_h_scale=quantized)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert (fused_attention_block.launches, fused_mlp_block.launches) == (n_att, n_mlp)
 
 
 def assert_close_w8a8(got, want, bf16=False):

@@ -6,7 +6,12 @@
 1. Preconditions: a CUDA card; prints the torch, CUDA and nvcc versions and
    the card's name and power limit.
 2. Builds the kernels (csrc/*.cu, one nvcc per source for sm_90a) and prints
-   the build time.
+   the build time; prints the registers and spills (the build's ptxas
+   report) of the int8 tile's kernels and the tiles' shared memory; runs
+   cuobjdump -sass on the library and fails unless every int8 tile kernel
+   (gemm_act, gemm_act_quant, qkv_proj, residual_ln and the W8A8 stack)
+   holds IMMA, the tensor cores' int8 product, and no function but 1c's int8
+   attention core and the W8A8 global query holds IDP4A (__dp4a).
 3. Inference kernel phase: each inference kernel against its plain PyTorch
    version at the main path's shapes (B=32, L=512, H=768, 12 heads of 64,
    I=3072), bfloat16 and float32, with padded tails and two packed segments;
@@ -15,7 +20,9 @@
    matmul (kernel 5) and its row-quantising form (kernel 4) at a layer's four
    projections (768x2304, 768x768, 768x3072 with GELU, 3072x768), their
    int32 accumulators compared exactly and the row quantiser bit for bit,
-   beside torch._int_mm on the same int8 operands; the W8A8 modes of the
+   beside torch._int_mm on the same int8 operands (kernel 5's TOPS and its
+   ratio to torch._int_mm printed, for the projections timed one by one and
+   for the four back to back); the W8A8 modes of the
    attention block (a head group of 12 heads and of 6) and the MLP block,
    within float32 rounding (bf16: 2e-3 and one output rounding) but for at
    most 1 % (bf16: 0.2 %) of the outputs, moved by an int8 step, and four
@@ -23,7 +30,9 @@
    the MLP intermediate rounded to bf16) each failing that check; the attention over a projected qkv (kernel 6) beside
    scaled_dot_product_attention; and the whole-stack kernel (kernel 3) over
    12 layers, W8A8 and float, bit-identical to the chain of kernels 1 and 2
-   and within a limit per mode of the plain loop of layers.
+   and within a limit per mode of the plain loop of layers. Rows 1, 2 and 3
+   in W8A8 (and 9 in phase 15) also time torch._int_mm on their int8
+   products alone, their library column.
 4. Training kernel phase: the four training kernels (attention and MLP,
    forward and backward) at the same shapes, bfloat16 and float32, at
    dropout rate 0 and at 0.1 with the kernels' mask replayed in the plain
@@ -565,6 +574,98 @@ def attention_block_bf16_probabilities(hidden, segment_ids, qkv_kernel, qkv_bias
     return F.layer_norm(out + x, (x.shape[-1],), ln_scale, ln_bias, eps)
 
 
+# the int8 tile's kernels (csrc/int8_gemm.cuh) and the W8A8 stack kernel:
+# each function whose name holds one of these must contain IMMA
+IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_kernel",
+                "residual_ln_i8_kernel", "encoder_stack_i8_kernel")
+# the only functions that may still multiply int8 with IDP4A: 1c's int8
+# attention core and the W8A8 global query (global_rows_kernel)
+IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
+
+
+def int8_build_report(log: str) -> list:
+    """Registers and spills of the int8 tile's kernels from the build's
+    ptxas report (-Xptxas -v), one line a compiled function, with the tiles'
+    dynamic shared memory; fails if one of them is missing."""
+    from spokennlp_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    smem = {"GemmTileI8": lib.spk_int8_tile_smem(0), "LnTileI8": lib.spk_int8_tile_smem(1)}
+    print(f"int8 tiles' dynamic shared memory: GemmTileI8 {smem['GemmTileI8']} bytes "
+          f"(gemm_act, gemm_act_quant, qkv_proj), LnTileI8 {smem['LnTileI8']} bytes "
+          f"(residual_ln); the W8A8 stack kernel takes the largest of its phases' needs")
+    report, name, spills = [], None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            if any(p in name for p in IMMA_KERNELS):
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                report.append({"function": name, "registers": int(regs), "spills": spills})
+            name, spills = None, None
+    for p in IMMA_KERNELS:
+        if not any(p in r["function"] for r in report):
+            fail(f"the ptxas report has no function for {p}")
+    for r in sorted(report, key=lambda r: r["function"]):
+        print(f"  ptxas: {r['function']}: {r['registers']} registers; {r['spills']}")
+    return report
+
+
+def cuobjdump_path() -> str:
+    """The toolkit's cuobjdump, else Triton's copy."""
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/cuobjdump").exists():
+        return "/usr/local/cuda/bin/cuobjdump"
+    import triton
+
+    bundled = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    if bundled.exists():
+        return str(bundled)
+    fail("no cuobjdump: the SASS check cannot run")
+
+
+def sass_check(library: Path) -> dict:
+    """Disassembles the built library (cuobjdump -sass) and fails unless
+    every int8 tile kernel (IMMA_KERNELS) runs IMMA, the tensor cores' int8
+    product, and no function outside IDP4A_ALLOWED keeps IDP4A. Returns
+    {function: (IMMA count, IDP4A count)} for the functions that hold either."""
+    proc = subprocess.Popen([cuobjdump_path(), "-sass", str(library)], stdout=subprocess.PIPE,
+                            text=True)
+    counts, name = {}, None
+    for line in proc.stdout:
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += " IMMA" in line
+            counts[name][1] += "IDP.4A" in line or "IDP4A" in line  # __dp4a's SASS
+    if proc.wait() != 0:
+        fail("cuobjdump -sass failed")
+    for p in IMMA_KERNELS:
+        found = [n for n in counts if p in n]
+        if not found:
+            fail(f"cuobjdump -sass shows no function for {p}")
+        for n in found:
+            if not counts[n][0]:
+                fail(f"{n} has no IMMA: its int8 products do not run on the tensor cores")
+    stray = [n for n, (_, dp4a) in counts.items()
+             if dp4a and not any(a in n for a in IDP4A_ALLOWED)]
+    if stray:
+        fail(f"IDP4A outside the int8 attention core and the global query: {stray}")
+    held = {n: tuple(c) for n, c in counts.items() if any(c)}
+    for n, (imma, dp4a) in sorted(held.items()):
+        print(f"  sass: {n}: {imma} IMMA, {dp4a} IDP4A")
+    print(f"SASS check: {sum(1 for c in held.values() if c[0])} functions run IMMA; IDP4A only "
+          f"in {sorted({a for n, c in held.items() if c[1] for a in IDP4A_ALLOWED if a in n})}")
+    return held
+
+
 def kernel_phase(device) -> dict:
     """{(name, dtype): row} for the inference kernels at the main path's
     shapes; in float32, the check must reject the attention block with
@@ -798,7 +899,7 @@ def w8a8_kernel_phase(device) -> dict:
 
     from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
     from spokennlp_tpu_torch.ops.cuda.attention_block import (
-        attention_block_plain, fused_attention_block,
+        attention_block_plain, fused_attention_block, quantize_attention_weights,
     )
     from spokennlp_tpu_torch.ops.cuda.blhd_attention import (
         reference_snld_attention, snld_self_attention,
@@ -819,11 +920,13 @@ def w8a8_kernel_phase(device) -> dict:
         dt = getattr(torch, dtype)
         k5 = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0, "library_ms": 0.0, "err": 0.0}
         k4 = dict(k5)
+        prods = []
         for K, N, act in ((H, 3 * HN, "none"), (HN, H, "none"), (H, I, "gelu"), (I, H, "none")):
             x = randn(M, K).to(dt)
             w, bias = randn(K, N, scale=K**-0.5), randn(N, scale=0.02)
             w8, sw = im.quantize_colwise(w)
             x8, sx = im.rowquant_plain(x)
+            prods.append((x8, sx, w8, sw, bias, dt, act))
             label = f"{K}x{N} {act} {dtype}"
             # the int32 accumulators: unit scales, float32 output = float(acc)
             ones = lambda n: torch.ones(n, device=device)
@@ -864,6 +967,18 @@ def w8a8_kernel_phase(device) -> dict:
             print(f"kernel {name} {dtype} (a layer's four projections): kernel {row['ms']:.3f} ms "
                   f" plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
                   f"({row['bound_by']})  torch._int_mm {row['library_ms']:.3f} ms")
+        print(f"kernel 5 {dtype}: {k5['flops'] / k5['ms'] / 1e9:.1f} TOPS over a layer's four "
+              f"projections, {k5['ms'] / k5['library_ms']:.2f} x torch._int_mm's time "
+              f"({k5['flops'] / k5['library_ms'] / 1e9:.1f} TOPS)")
+        # the row's time sums each projection timed alone, in turns with its
+        # plain version; a layer runs the four back to back
+        loop = lambda: [im.w8a8_matmul(*p) for p in prods]
+        loop()
+        torch.cuda.synchronize()
+        ms = time_ms(loop, 20)
+        print(f"kernel 5 {dtype}, the four projections back to back: {ms:.3f} ms, "
+              f"{k5['flops'] / ms / 1e9:.1f} TOPS, {ms / k5['library_ms']:.2f} x torch._int_mm's "
+              f"time")
 
     # the W8A8 modes of kernels 1 and 2: float32 weights, quantised in the wrapper
     core = 4 * B * NH * L * L * HD
@@ -883,7 +998,13 @@ def w8a8_kernel_phase(device) -> dict:
             if hb == NH:
                 ops = {"int8": 2 * M * H * 3 * HN + 2 * M * HN * H, dtype: core}
                 moved = nbytes(hidden, seg, qkv_k, out_k, *att.values(), *ln.values(), hidden)
-                rows["fused_attention_block_w8a8", dtype] = {**row, **bound(ops, moved)}
+                row = {**row, **bound(ops, moved)}
+                # the library column: torch._int_mm on the block's two products only
+                wqkv8, _, wo8, _ = quantize_attention_weights(qkv_k, out_k, 1)
+                x8 = im.rowquant_plain(hidden.reshape(M, H))[0]
+                row["library_ms"] = int_mm_time(
+                    [(x8, wqkv8), (x8, wo8)], f"fused_attention_block W8A8 {dtype}")
+                rows["fused_attention_block_w8a8", dtype] = row
         x = randn(M, H).to(dt)
         w1, w2 = randn(H, I, scale=H**-0.5), randn(I, H, scale=I**-0.5)
         b1, b2 = randn(I, scale=0.02), randn(H, scale=0.02)
@@ -892,7 +1013,16 @@ def w8a8_kernel_phase(device) -> dict:
         row = compare("fused_mlp_block W8A8", dtype, lambda: mlp(fused_mlp_block),
                       lambda: mlp(mlp_block_plain), slice(None), w8a8=True)
         moved = nbytes(x, w1, b1, w2, b2, *ln.values(), x)
-        rows["fused_mlp_block_w8a8", dtype] = {**row, **bound({"int8": 4 * M * H * I}, moved)}
+        row = {**row, **bound({"int8": 4 * M * H * I}, moved)}
+        x8 = im.rowquant_plain(x)[0]
+        h8 = im.rowquant_plain(randn(M, I))[0]
+        row["library_ms"] = int_mm_time([(x8, im.quantize_colwise(w1)[0]),
+                                         (h8, im.quantize_colwise(w2)[0])],
+                                        f"fused_mlp_block W8A8 {dtype}")
+        print(f"kernel 2 W8A8 {dtype}: {row['ms']:.3f} ms, "
+              f"{row['ms'] / row['library_ms']:.2f} x torch._int_mm on its two products")
+        rows["fused_mlp_block_w8a8", dtype] = row
+        del x8, h8
 
         # the check has teeth: each fault, planted once, fails it
         hb = NH // 2
@@ -934,7 +1064,10 @@ def stack_kernel_phase(device) -> dict:
     against the chain of kernels 1 and 2."""
     import torch
 
-    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+    from spokennlp_tpu_torch.ops.cuda.attention_block import (
+        fused_attention_block, quantize_attention_weights,
+    )
     from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
     from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack, stack_plain
 
@@ -989,6 +1122,16 @@ def stack_kernel_phase(device) -> dict:
         ops = {"int8": NL * layer, dtype: core} if quantized else {dtype: NL * layer + core}
         row = {"max_abs_err": e, **times, **bound(ops, nbytes(hidden, seg, *p, hidden)),
                "chain_ms": chain_ms, "grid": fused_encoder_stack.grid}
+        if quantized:  # the library column: torch._int_mm on the 4 NL products only
+            x8 = im.rowquant_plain(hidden.reshape(M, H))[0]
+            h8 = im.rowquant_plain(randn(M, I))[0]
+            wqkv8, _, wo8, _ = quantize_attention_weights(p[0], p[2], 1)
+            w18, w28 = im.quantize_colwise(p[6])[0], im.quantize_colwise(p[8])[0]
+            row["library_ms"] = int_mm_time(
+                [pair for l in range(NL) for pair in ((x8, wqkv8[l]), (x8, wo8[l]),
+                                                      (x8, w18[l]), (h8, w28[l]))],
+                f"fused_encoder_stack {mode} {dtype}")
+            del x8, h8, wqkv8, wo8, w18, w28
         rows[mode, dtype] = row
         print(f"kernel {label}: kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  chain "
               f"of kernels 1+2 {chain_ms:.3f} ms  bound {row['bound_ms']:.3f} ms "
@@ -1572,6 +1715,7 @@ def ponet_kernel_phase(device) -> dict:
 
     import torch
 
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
     from spokennlp_tpu_torch.ops.cuda import ponet_block as pb
 
     g = torch.Generator(device=device).manual_seed(6)
@@ -1629,6 +1773,13 @@ def ponet_kernel_phase(device) -> dict:
             row.update(bound(ops, nbytes(hidden, mask, seg, *params.values(), *ln.values(),
                                          hidden)))
             row.update(max_abs_err=err, work_gflop=(products + elementwise) / 1e9)
+            if quantized:  # the library column: torch._int_mm on the six products only
+                x8 = im.rowquant_plain(hidden.reshape(M, H))[0]
+                wp8 = im.quantize_colwise(params["proj_kernels"])[0]
+                wo8 = im.quantize_colwise(params["out_kernel"])[0]
+                row["library_ms"] = int_mm_time([(x8, w) for w in (*wp8, wo8)],
+                                                f"{name} {dtype}")
+                del x8
             rows[name, dtype] = row
             print(f"kernel {name} {dtype}: max_abs_err {err:.3e}  kernel {row['ms']:.3f} ms  "
                   f"plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
@@ -2627,6 +2778,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s ({build.library_path().name})")
+    int8_build_report(build.library_path().with_suffix(".log").read_text())
+    sass_check(build.library_path())
+    print(f"build checks: {time.perf_counter() - t0:.1f} s")
 
     device = torch.device("cuda")
     rows = kernel_phase(device)

@@ -14,9 +14,12 @@
 // layer's attention block is about 103 GFLOP: 56% in the QKV projection, 25%
 // in the two attention products and 19% in the output projection. That is
 // far above the card's ratio of operations to bytes, so the block is bound by
-// arithmetic: these SIMT kernels run on the CUDA cores (float32 FMA, or
-// __dp4a for the W8A8 projections) and reach a small share of what the tensor
-// cores offer. Moving the products onto mma.sync / wgmma is the next step.
+// arithmetic. The float modes run SIMT kernels on the CUDA cores (float32
+// FMA) and reach a small share of what the tensor cores offer. In W8A8 the
+// projections run on the tensor cores (int8_gemm.cuh's mma.sync s8 tile,
+// weights handed over K-major), so there the float attention core, still on
+// the CUDA cores, holds most of the block's time; moving it and the float
+// products onto mma.sync, then the int8 tile onto wgmma, is later work.
 //
 // What the design does about the TPU kernel's assumptions. On the TPU one
 // grid step owned a whole (sequence, head group), kept q, k and v in VMEM
@@ -134,8 +137,10 @@ extern "C" int spk_attention_block(int dtype, const void* hidden, const void* se
 }
 
 // The W8A8 mode. dtype as above for hidden, qkv_buf, ctx_buf and out;
-// wqkv (H, 3 nh hd) and wo (nh hd, H) are int8 with per-column scales swqkv
-// (3 nh hd) and swo (G, H), one row of scales per head group; x8 (B*L,
+// wqkv (3 nh hd, H) and wo (H, nh hd) are int8, K-major (the (K, N)
+// weights transposed), with per-column scales swqkv (3 nh hd) and swo (G,
+// H), one row of scales per head group (head group g is wo's K-columns
+// [g nh hd / G, (g + 1) nh hd / G)); x8 (B*L,
 // max(H, nh hd)) int8 and scales (B*L*G) float32 are scratch. core: 0 for
 // the float attention core, 1 ("qk"), 2 ("av") or 3 ("both") for the int8
 // one, which takes core_scales (2 B G + B nh hd floats) as scratch (null

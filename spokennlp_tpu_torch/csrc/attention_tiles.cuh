@@ -137,9 +137,4 @@ cudaError_t with_head_dim(int hd, Launch launch) {
   }
 }
 
-template <typename KernelPtr>
-cudaError_t prepare(KernelPtr kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 }  // namespace spk

@@ -41,7 +41,9 @@
 // ctx scratch:
 //   rowquant(x) -> int8 q, k, v -> the rows kernel (float32 ctx) ->
 //   rowquant(ctx) -> int8 ctx . Wo + bo + x and the LayerNorm.
-// The projections are about 7 of every 10 operations at the serving shape.
+// The projections are about 7 of every 10 operations at the serving shape;
+// they run on the tensor cores (int8_gemm.cuh's mma.sync s8 tile, weights
+// K-major), so the float rows kernel on the CUDA cores bounds the rest.
 #include "bigbird_attention.cuh"
 
 namespace spk {
@@ -126,10 +128,10 @@ extern "C" int spk_bigbird_block(int dtype, const void* hidden, const void* mask
   return static_cast<int>(err);
 }
 
-// The W8A8 mode. dtype as above for hidden, qkv_buf and out; wqkv (H, 3 nh
-// hd) and wo (nh hd, H) int8 with per-column scales swqkv and swo; x8 (B L,
-// max(H, nh hd)) int8, scales (B L) and ctx_buf (B L, nh hd) float32 are
-// scratch.
+// The W8A8 mode. dtype as above for hidden, qkv_buf and out; wqkv (3 nh hd,
+// H) and wo (H, nh hd) int8, K-major, with per-column scales swqkv and swo;
+// x8 (B L, max(H, nh hd)) int8, scales (B L) and ctx_buf (B L, nh hd)
+// float32 are scratch.
 extern "C" int spk_bigbird_block_w8a8(int dtype, const void* hidden, const void* mask,
                                       const void* rand, const void* rok, void* x8, void* scales,
                                       const void* wqkv, const void* swqkv, const void* bqkv,

@@ -27,6 +27,13 @@ constexpr int kThreads = 256;  // every kernel here runs 256 threads a block
 constexpr int kTileK = 16;     // depth of one GEMM k-step
 constexpr float kNegInf = -1e9f;  // additive mask, as the JAX kernels use
 
+// Allow `kernel` `smem` bytes of dynamic shared memory (above 48 KB a launch
+// needs it).
+template <typename KernelPtr>
+cudaError_t prepare(KernelPtr kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -378,16 +385,16 @@ inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T*
 constexpr int kLnRows = 32;
 constexpr int kLnCols = 128;
 
-// The second half of the row-owning epilogue: rows [row0, row0 + kLnRows)
+// The second half of the row-owning epilogue: rows [row0, row0 + kRows)
 // of `rows` (M, N) float32, which this block wrote, normalised into out, one
 // warp a row (two-pass mean and variance in float32), or copied when fuse_ln
 // is 0. The block's threads must have passed a __syncthreads() since writing.
-template <typename T>
+template <typename T, int kRows = kLnRows>
 __device__ __forceinline__ void ln_rows(const float* rows, const float* ln_scale,
                                         const float* ln_bias, T* out, int M, int N, float eps,
                                         int fuse_ln, int row0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kLnRows; r += kThreads / 32) {
+  for (int r = warp; r < kRows; r += kThreads / 32) {
     const int m = row0 + r;
     if (m >= M) break;
     const float* row = rows + (size_t)m * N;

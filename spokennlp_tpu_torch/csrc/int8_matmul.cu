@@ -1,7 +1,8 @@
 // W8A8 matrix product for the H100 (sm_90a):
 //   out = act(float(x8 . w8) * s_x[row] * s_w[col] + b[col])
-// with int8 x8 (M, K), int8 w8 (K, N), an int32 accumulator and a float32
-// dequant epilogue, stored as float32 or bfloat16; and the row quantiser
+// with int8 x8 (M, K), int8 w8 (K, N) (handed over K-major), an int32
+// accumulator and a float32 dequant epilogue, stored as float32 or
+// bfloat16; and the row quantiser
 // that makes x8 and s_x from a float32 or bfloat16 x.
 //
 // Replaces the TPU kernels of spokennlp_tpu/ops/pallas/int8_matmul.py:
@@ -14,16 +15,18 @@
 // What bounds it here. At the main path's shapes (M = 16,384 rows, K x N =
 // 768 x 2304, 768 x 768, 768 x 3072, 3072 x 768) a product does 19-58
 // G int8 multiply-adds against 12-63 MB of int8 operands and bfloat16
-// output: hundreds of operations a byte, so it is bound by arithmetic. The
-// tensor cores' int8 rate (1,979 TOPS) is out of reach of this kernel:
-// __dp4a runs on the CUDA cores, four multiply-adds an instruction. Moving
-// the product onto mma.sync (s8) and then wgmma is later work.
+// output: hundreds of operations a byte, so it is bound by arithmetic, at
+// the tensor cores' int8 rate (1,979 TOPS dense). The product runs on them
+// through mma.sync m16n8k32 s8 (int8_gemm.cuh), which reaches part of that
+// rate: wgmma with TMA is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept the whole (K, N) weight resident in VMEM and quantised a (bm, K)
-// block of rows in VMEM before the product. Here a block owns a 64 x 64
-// output tile and stages 32-deep slices of both operands through shared
-// memory, packed four int8 to a word so __dp4a reads whole words; the row
+// block of rows in VMEM before the product. Here a block owns a 128 x 128
+// output tile and streams 64-deep slices of both operands through a
+// three-stage cp.async ring in shared memory; the weight comes K-major (the
+// wrapper transposes it once a call), so both operands are copied 16 bytes
+// at a time and read by ldmatrix as the mma fragments want them. The row
 // quantiser is a launch of its own (one warp a row writes int8 and its
 // scale), so the product reads one byte an element instead of two.
 #include "int8_gemm.cuh"
@@ -48,7 +51,8 @@ extern "C" int spk_rowquant(int dtype, const void* x, void* x8, void* scales, in
 }
 
 // out_dtype: 0 = float32, 1 = bfloat16. x8 (M, K) int8 with scales sx (M),
-// w8 (K, N) int8 with scales sw (N), bias (N) float32 or null; act is an
+// w8 (N, K) int8 K-major (each output column's K bytes contiguous) with
+// scales sw (N), bias (N) float32 or null; act is an
 // ACTIVATION_CODES value; K a multiple of 4.
 extern "C" int spk_w8a8_matmul(int out_dtype, const void* x8, const void* sx, const void* w8,
                                const void* sw, const void* bias, void* out, int M, int N, int K,
@@ -69,4 +73,12 @@ extern "C" int spk_w8a8_matmul(int out_dtype, const void* x8, const void* sx, co
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory of the int8 tile kernels, in bytes: which = 0
+// the GEMM, 2b and projection kernels' (GemmTileI8), 1 the residual-LN
+// kernel's (LnTileI8); -1 for another value.
+extern "C" int spk_int8_tile_smem(int which) {
+  return which == 0 ? spk::GemmTileI8::kSmemBytes
+                    : which == 1 ? spk::LnTileI8::kSmemBytes : -1;
 }

@@ -9,9 +9,13 @@
 // What bounds it here. At BERT-base (M = 32 * 512 rows, H=768, I=3072) the
 // block is 155 GFLOP against about 60 MB of input, weights and output in
 // bfloat16, plus 200 MB for the intermediate's round trip below: some 600
-// operations a byte, so it is bound by arithmetic. These SIMT kernels run on
-// the CUDA cores (float32 FMA, or __dp4a in W8A8); tensor cores (mma.sync,
-// then wgmma) are the next step.
+// operations a byte, so it is bound by arithmetic. The float modes run SIMT
+// kernels on the CUDA cores (float32 FMA). In W8A8 both products run on the
+// tensor cores (int8_gemm.cuh's mma.sync s8 tile, weights handed over
+// K-major): the tile's issue rate and barriers bound them, and the float32
+// intermediate's round trip below (about 0.2 ms at this shape) and the
+// row-quant passes become a visible share; wgmma with TMA, and the float
+// products on mma.sync, are later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept both weight matrices resident in VMEM and the (rows, I) intermediate
@@ -119,9 +123,10 @@ extern "C" int spk_mlp_block(int dtype, const void* x, const void* w1, const voi
   return static_cast<int>(err);
 }
 
-// The W8A8 modes: x and out as above; w1 (H, I) and w2 (I, H) int8 with
-// per-column scales sw1 (I) and sw2 (H). h_scale null: per-row intermediate
-// scales, x8 (M, I) int8, scales (M) and h_buf (M, I) float32 are scratch.
+// The W8A8 modes: x and out as above; w1 (I, H) and w2 (H, I) int8, K-major
+// (the (K, N) weights transposed), with per-column scales sw1 (I) and sw2
+// (H). h_scale null: per-row intermediate scales, x8 (M, I) int8, scales (M)
+// and h_buf (M, I) float32 are scratch.
 // h_scale (one float32 on the device): the static intermediate scale, x8
 // (M, H + I) and scales (2 M) are scratch and h_buf may be null.
 extern "C" int spk_mlp_block_w8a8(int dtype, const void* x, void* x8, void* scales,

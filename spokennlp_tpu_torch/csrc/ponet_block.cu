@@ -22,10 +22,12 @@
 //
 // What bounds it here. At PoNet-base (B=8, L=4096, H=768) the block is six
 // (M, H) x (H, H) products, 232 GFLOP, against about 100 MB of input and
-// output in float32: bound by arithmetic. The products run on the port's
-// SIMT tiles (float32 FMA, or __dp4a in W8A8), as every GEMM of the port
-// does until the tensor-core rewrite; the pooling phases are a few passes
-// over the (M, 5H) projections.
+// output in float32: bound by arithmetic. The float products run on the
+// port's SIMT tile (float32 FMA on the CUDA cores); in W8A8 they run on the
+// tensor cores (int8_gemm.cuh's mma.sync s8 tile, weights K-major), which
+// leaves the pooling phases, a few passes over the (M, 5H) projections
+// bound by memory, a larger share; the float tile's move to mma.sync is
+// later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // held a whole (L, H) sequence in VMEM per grid step, on a grid of (B,), and
@@ -413,8 +415,9 @@ int ponet_block_entry(int quantized, const void* x, const void* mask, const void
 // dtype: 0 = float32, 1 = bfloat16 (x, out, and the proj and mixed scratch).
 // x (B, L, H); mask and seg (B, L) int32. Float modes: wp (H, 5H) the five
 // projections side by side and wo (H, H) in the element type, swp and swo
-// null. W8A8 (quantized = 1): wp (H, 5H) and wo (H, H) int8 with per-column
-// scales swp (5H) and swo (H). bp (5H), bo (H), ln_scale and ln_bias (H) are
+// null. W8A8 (quantized = 1): wp (5H, H) and wo (H, H) int8, K-major (the
+// float layouts transposed), with per-column scales swp (5H) and swo (H).
+// bp (5H), bo (H), ln_scale and ln_bias (H) are
 // float32; fuse_ln = 0 returns the projection alone (no residual, no
 // LayerNorm). Scratch as in Scratch above; x8 and scales may be null in the
 // float modes. Returns the first CUDA error, or 0.

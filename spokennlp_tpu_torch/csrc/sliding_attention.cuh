@@ -407,8 +407,8 @@ cudaError_t sliding_projections(const T* hidden, const int32_t* mask, const int3
 
 // The W8A8 twin of sliding_projections: counts, one row quantisation of x
 // into x8 (B L, H) and sx (B L), then q, k, v and (with global rows) kg, vg
-// from int8 weights wqkv (H, 3 nh hd) and wgkv (H, 2 nh hd) with per-column
-// scales.
+// from int8 weights wqkv (3 nh hd, H) and wgkv (2 nh hd, H), K-major, with
+// per-column scales.
 template <typename T>
 cudaError_t sliding_projections_w8a8(const T* hidden, const int32_t* mask, const int32_t* glob,
                                      int8_t* x8, float* sx, const int8_t* wqkv,

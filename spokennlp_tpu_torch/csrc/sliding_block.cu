@@ -46,7 +46,10 @@
 // ctx stays float32 up to its row quantisation: the TPU kernel held it in a
 // float32 scratch and quantised that, rounding to the element type only in
 // its float modes. The projections are 7 of every 8 operations at the
-// recipe's shape, now on __dp4a (int8) instead of float32 FMA.
+// recipe's shape, here on the tensor cores (int8_gemm.cuh's mma.sync s8
+// tile, weights K-major); the global query stays an exact int32 loop in
+// global_rows_kernel (a row a block, too small for a tile), and the band
+// rows on the CUDA cores bound what is left.
 #include "sliding_attention.cuh"
 
 namespace spk {
@@ -153,11 +156,12 @@ extern "C" int spk_sliding_block(int dtype, const void* hidden, const void* mask
 }
 
 // The W8A8 mode. dtype as above for hidden, qkv_buf, gkv_buf and out; wqkv
-// (H, 3 nh hd), wgq (H, nh hd), wgkv (H, 2 nh hd) and wo (nh hd, H) int8
-// with per-column scales swqkv, swgq, swgkv and swo; biases, LayerNorm
-// parameters and ln_buf float32; x8 (B L, max(H, nh hd)) int8, scales (B L)
-// and ctx_buf (B L, nh hd) float32 are scratch. Without global rows wgq,
-// swgq, bgq, wgkv, swgkv, bgkv and gkv_buf may be null.
+// (3 nh hd, H), wgkv (2 nh hd, H) and wo (H, nh hd) int8, K-major (the
+// tile's operands), and wgq (H, nh hd) int8 as it stands (the global query's
+// own loop reads it), with per-column scales swqkv, swgq, swgkv and swo;
+// biases, LayerNorm parameters and ln_buf float32; x8 (B L, max(H, nh hd))
+// int8, scales (B L) and ctx_buf (B L, nh hd) float32 are scratch. Without
+// global rows wgq, swgq, bgq, wgkv, swgkv, bgkv and gkv_buf may be null.
 extern "C" int spk_sliding_block_w8a8(int dtype, const void* hidden, const void* mask,
                                       const void* glob, void* x8, void* scales, const void* wqkv,
                                       const void* swqkv, const void* bqkv, const void* wgq,

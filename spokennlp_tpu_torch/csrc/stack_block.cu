@@ -10,10 +10,12 @@
 //
 // What bounds it here. Its work is the two blocks' work times NL (about 3.1
 // TFLOP for 12 BERT-base layers at B=32, L=512), so it is bound by
-// arithmetic on the CUDA cores, as they are. What the TPU kernel saved is
-// what a stack of launches costs besides: 2-5 launches a block, 24-108 a
-// forward, each with a ramp-up and a tail where SMs idle, and the hidden
-// state's trips through device memory between them.
+// arithmetic, as they are: on the CUDA cores in its float modes, on the
+// tensor cores (int8_gemm.cuh's mma.sync tile) for the W8A8 products, where
+// the float attention core is left on the CUDA cores. What the TPU kernel
+// saved is what a stack of launches costs besides: 2-5 launches a block,
+// 24-108 a forward, each with a ramp-up and a tail where SMs idle, and the
+// hidden state's trips through device memory between them.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept one sequence's hidden state in VMEM and walked the layers in a
@@ -47,18 +49,18 @@ namespace {
 struct StackArgs {
   const void* hidden;
   const int32_t* seg;
-  const void* wqkv;  // (NL, H, 3 HN), T or int8
+  const void* wqkv;  // (NL, H, 3 HN) T, or (NL, 3 HN, H) int8 (K-major)
   const float* swqkv;  // (NL, 3 HN) in W8A8
   const float* bqkv;  // (NL, 3 HN)
-  const void* wo;  // (NL, HN, H)
+  const void* wo;  // (NL, HN, H) T, or (NL, H, HN) int8
   const float* swo;  // (NL, H)
   const float* bo;  // (NL, H)
   const float* ln1s;
   const float* ln1b;
-  const void* w1;  // (NL, H, I)
+  const void* w1;  // (NL, H, I) T, or (NL, I, H) int8
   const float* sw1;  // (NL, I)
   const float* b1;  // (NL, I)
-  const void* w2;  // (NL, I, H)
+  const void* w2;  // (NL, I, H) T, or (NL, H, I) int8
   const float* sw2;  // (NL, H)
   const float* b2;  // (NL, H)
   const float* ln2s;
@@ -75,25 +77,32 @@ struct StackArgs {
   float sm_scale, eps;
 };
 
-template <int HD>
+// The dynamic shared memory of a block: the largest of its phases' needs,
+// the float tiles or (W8A8) the int8 tiles' rings, and the attention core.
+template <int HD, bool kQuant>
 constexpr size_t stack_smem_bytes() {
-  constexpr size_t gemm = sizeof(float) * TileGemm<64, 64, float>::kSmemFloats;
-  constexpr size_t ln = sizeof(float) * TileGemm<kLnRows, kLnCols, float>::kSmemFloats;
+  constexpr size_t gemm = kQuant ? GemmTileI8::kSmemBytes
+                                 : sizeof(float) * TileGemm<64, 64, float>::kSmemFloats;
+  constexpr size_t ln = kQuant ? LnTileI8::kSmemBytes
+                               : sizeof(float) * TileGemm<kLnRows, kLnCols, float>::kSmemFloats;
   constexpr size_t core = attn_core_smem_bytes<HD>();
   constexpr size_t a = gemm > ln ? gemm : ln;
-  return a > core ? a : core;  // the int8 tiles need less than the float ones
+  return a > core ? a : core;
 }
 
+// Every layer of the stack, for one block of the cooperative grid.
 template <typename T, int HD, bool kQuant>
-__global__ void __launch_bounds__(kThreads) encoder_stack_kernel(StackArgs a) {
-  extern __shared__ float smem[];
-  int* ismem = reinterpret_cast<int*>(smem);
+__device__ __forceinline__ void stack_layers(StackArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* smem8 = reinterpret_cast<unsigned char*>(smem);
   cg::grid_group grid = cg::this_grid();
   const int B = a.B, L = a.L, H = a.H, nh = a.nh, I = a.I, M = B * L, HN = nh * HD;
   const int nblk = gridDim.x, blk = blockIdx.x;
   constexpr int kWarps = kThreads / 32;
   const int warp0 = blk * kWarps + threadIdx.x / 32, nwarps = nblk * kWarps;
   const int mt = (M + 63) / 64, rb = (M + kLnRows - 1) / kLnRows;
+  // the int8 tiles' counts
+  const int mt8 = (M + kGemmRows8 - 1) / kGemmRows8, rb8 = (M + kLnRows8 - 1) / kLnRows8;
   const CoreLayout lay = block_layout(B, L, nh, HD);
   T* qkv = static_cast<T*>(a.qkv);
   T* ctx = static_cast<T*>(a.ctx);
@@ -116,12 +125,14 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_kernel(StackArgs a) {
     // ---- attention half-layer: h1 = LN(x + outproj(MHA(qkv(x))))
     const int qt = (3 * HN + 63) / 64;
     if constexpr (kQuant) {
+      const int qt8 = (3 * HN + kGemmCols8 - 1) / kGemmCols8;
       rowquant_items<T>(x, M, H, 1, a.q8, a.scales, warp0, nwarps);
       grid.sync();
       const int8_t* w = static_cast<const int8_t*>(a.wqkv) + lq;
-      for (int t = blk; t < mt * qt; t += nblk)
+      for (int t = blk; t < mt8 * qt8; t += nblk)
         qkv_proj_tile_i8<T>(a.q8, a.scales, w, a.swqkv + (size_t)layer * 3 * HN, bqkv, qkv, B, L,
-                            H, nh, HD, a.sm_scale, (t / qt) * 64, (t % qt) * 64, ismem);
+                            H, nh, HD, a.sm_scale, (t / qt8) * kGemmRows8,
+                            (t % qt8) * kGemmCols8, smem8);
     } else {
       const T* w = static_cast<const T*>(a.wqkv) + lq;
       for (int t = blk; t < mt * qt; t += nblk)
@@ -138,9 +149,9 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_kernel(StackArgs a) {
       rowquant_items<T>(ctx, M, HN, 1, a.q8, a.scales, warp0, nwarps);
       grid.sync();
       const int8_t* w = static_cast<const int8_t*>(a.wo) + lo;
-      for (int t = blk; t < rb; t += nblk)
+      for (int t = blk; t < rb8; t += nblk)
         residual_ln_rowblock_i8<T>(a.q8, a.scales, w, a.swo + (size_t)layer * H, bo, x, ln1s,
-                                   ln1b, a.rows, h1, M, H, HN, 1, a.eps, 1, t * kLnRows, ismem);
+                                   ln1b, a.rows, h1, M, H, HN, 1, a.eps, 1, t * kLnRows8, smem8);
     } else {
       const T* w = static_cast<const T*>(a.wo) + lo;
       for (int t = blk; t < rb; t += nblk)
@@ -152,20 +163,21 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_kernel(StackArgs a) {
     // ---- MLP half-layer: x' = LN(h1 + W2 . act(W1 . h1 + b1) + b2)
     const int it = (I + 63) / 64;
     if constexpr (kQuant) {
+      const int it8 = (I + kGemmCols8 - 1) / kGemmCols8;
       float* mid = static_cast<float*>(a.mid);
       rowquant_items<T>(h1, M, H, 1, a.q8, a.scales, warp0, nwarps);
       grid.sync();
       const int8_t* w1 = static_cast<const int8_t*>(a.w1) + lm;
-      for (int t = blk; t < mt * it; t += nblk)
+      for (int t = blk; t < mt8 * it8; t += nblk)
         gemm_act_tile_i8<float>(a.q8, a.scales, w1, a.sw1 + (size_t)layer * I, b1, mid, M, I, H,
-                                a.act, (t / it) * 64, (t % it) * 64, ismem);
+                                a.act, (t / it8) * kGemmRows8, (t % it8) * kGemmCols8, smem8);
       grid.sync();
       rowquant_items<float>(mid, M, I, 1, a.q8, a.scales, warp0, nwarps);
       grid.sync();
       const int8_t* w2 = static_cast<const int8_t*>(a.w2) + lm;
-      for (int t = blk; t < rb; t += nblk)
+      for (int t = blk; t < rb8; t += nblk)
         residual_ln_rowblock_i8<T>(a.q8, a.scales, w2, a.sw2 + (size_t)layer * H, b2, h1, ln2s,
-                                   ln2b, a.rows, out, M, H, I, 1, a.eps, 1, t * kLnRows, ismem);
+                                   ln2b, a.rows, out, M, H, I, 1, a.eps, 1, t * kLnRows8, smem8);
     } else {
       T* mid = static_cast<T*>(a.mid);
       const T* w1 = static_cast<const T*>(a.w1) + lm;
@@ -180,6 +192,18 @@ __global__ void __launch_bounds__(kThreads) encoder_stack_kernel(StackArgs a) {
     }
     grid.sync();
   }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) encoder_stack_kernel(StackArgs a) {
+  stack_layers<T, HD, false>(a);
+}
+
+// W8A8 at two blocks an SM: 128 registers a thread (the int8 phases
+// otherwise take 246-255 and leave one block an SM; PERF.md has both times).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2) encoder_stack_i8_kernel(StackArgs a) {
+  stack_layers<T, HD, true>(a);
 }
 
 // The largest co-resident grid, or 0 when one block does not fit.
@@ -206,8 +230,13 @@ cudaError_t encoder_stack(StackArgs a, int* grid_out, cudaStream_t stream) {
     if constexpr (HD < 32) {
       return cudaErrorInvalidValue;
     } else {
-      auto kernel = encoder_stack_kernel<T, HD, kQuant>;
-      constexpr size_t smem = stack_smem_bytes<HD>();
+      void (*kernel)(StackArgs);
+      if constexpr (kQuant) {
+        kernel = encoder_stack_i8_kernel<T, HD>;
+      } else {
+        kernel = encoder_stack_kernel<T, HD>;
+      }
+      constexpr size_t smem = stack_smem_bytes<HD, kQuant>();
       int grid = 0;
       const cudaError_t err = cooperative_grid(kernel, smem, &grid);
       if (err != cudaSuccess) return err;
@@ -224,7 +253,7 @@ cudaError_t encoder_stack(StackArgs a, int* grid_out, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 of hidden, out and the T buffers
 // (qkv_buf, ctx_buf, h1_buf, and mid_buf unless quantized); quantized: the
-// weights are int8 with per-column scales and mid_buf is float32. Stacked
+// weights are int8, K-major, with per-column scales and mid_buf is float32. Stacked
 // weights in the layouts of StackArgs; seg (B, L) int32; q8_buf and s_buf
 // are read only in W8A8 and may be null otherwise; *grid_out receives the
 // number of blocks launched. hd is 32, 64 or 128.

@@ -32,6 +32,7 @@ from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     DTYPE_CODES as _DTYPES,
     int8_product,
+    kmajor,
     quantize_colwise,
     rowquant_plain,
 )
@@ -327,8 +328,9 @@ def fused_attention_block(
         stream = torch.cuda.current_stream().cuda_stream
         if quantized:
             G = head_groups(nh, heads_per_block)
-            wqkv8, swqkv, wo8, swo = (t.contiguous() for t in quantize_attention_weights(
-                qkv_kernel, out_kernel, G))
+            wqkv8, swqkv, wo8, swo = quantize_attention_weights(qkv_kernel, out_kernel, G)
+            wqkv8, wo8 = kmajor(wqkv8), kmajor(wo8)
+            swqkv, swo = swqkv.contiguous(), swo.contiguous()
             x8 = torch.empty((M * max(H, HN),), dtype=torch.int8, device=hidden.device)
             scales = torch.empty((M * G,), dtype=torch.float32, device=hidden.device)
             core_scales = (torch.empty((2 * B * G + B * HN,), dtype=torch.float32,

@@ -32,7 +32,7 @@ from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import (
     _DTYPES, NEG_INF, _layer_norm, quantize_attention_weights,
 )
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product, rowquant_plain
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product, kmajor, rowquant_plain
 from spokennlp_tpu_torch.ops.cuda.sliding_block import _divide, _softmax
 from spokennlp_tpu_torch.ops.cuda.train_blocks import HEAD_DIMS
 from spokennlp_tpu_torch.ops.sliding_attention import _ctx_windows
@@ -274,8 +274,10 @@ def fused_bigbird_attention_block(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if quantized:
-            wqkv8, swqkv, wo8, swo = (t.contiguous() for t in quantize_attention_weights(
-                qkv_kernel.detach().float(), out_kernel.detach().float(), 1))
+            wqkv8, swqkv, wo8, swo = quantize_attention_weights(
+                qkv_kernel.detach().float(), out_kernel.detach().float(), 1)
+            wqkv8, wo8 = kmajor(wqkv8), kmajor(wo8)
+            swqkv, swo = swqkv.contiguous(), swo.contiguous()
             x8 = empty(B * L * max(H, HN), dtype=torch.int8)
             scales, ctx_buf = empty(B * L, dtype=torch.float32), empty(B * L, HN,
                                                                          dtype=torch.float32)

@@ -83,6 +83,16 @@ def rowquant_plain(x: torch.Tensor, groups: int = 1):
     return q.reshape(M, K), s.reshape(M, groups)
 
 
+def kmajor(w8: torch.Tensor) -> torch.Tensor:
+    """The kernels' layout of int8 weights (..., K, N): (..., N, K), each
+    output column's K bytes contiguous, as the tensor-core tile reads its B
+    operand (``csrc/int8_gemm.cuh``). A stack (NL, K, N) becomes (NL, N, K);
+    a grouped out-projection is transposed whole, so head group g is
+    K-columns [g K / G, (g + 1) K / G) of the result. The wrappers call it
+    once a call, at the launch, on the weights they quantised."""
+    return w8.transpose(-1, -2).contiguous()
+
+
 def int8_product(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """The exact int32 accumulator of int8 (M, K) . int8 (K, N), as float32:
     in int64 on the CPU, in float64 on the card (exact below 2^53; the card
@@ -146,7 +156,7 @@ def w8a8_matmul(
         if t is not None and (t.numel() != n or t.device != x8.device):
             raise ValueError(f"w8a8_matmul: {name} must hold {n} values on {x8.device}")
     f32 = lambda t: None if t is None else t.to(torch.float32).reshape(-1).contiguous()
-    x8c, w8c, sxc, swc, bc = x8.contiguous(), w8.contiguous(), f32(sx), f32(sw), f32(bias)
+    x8c, w8c, sxc, swc, bc = x8.contiguous(), kmajor(w8), f32(sx), f32(sw), f32(bias)
     out = torch.empty((M, N), dtype=out_dtype, device=x8.device)
     with torch.cuda.device(x8.device):
         code = build.library().spk_w8a8_matmul(

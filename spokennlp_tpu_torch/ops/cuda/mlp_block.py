@@ -25,6 +25,7 @@ from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     ACTIVATION_CODES,
     ACTIVATIONS,
     int8_product,
+    kmajor,
     quantize_colwise,
     rowquant_plain,
 )
@@ -130,6 +131,7 @@ def fused_mlp_block(
         stream = torch.cuda.current_stream().cuda_stream
         if quantized:
             (w1q, sw1), (w2q, sw2) = quantize_colwise(w1), quantize_colwise(w2)
+            w1q, w2q = kmajor(w1q), kmajor(w2q)
             if static_h:
                 hs = static_h_scale_estimate(x, w1, b1, activation).contiguous()
                 x8 = torch.empty((M * (H + I),), dtype=torch.int8, device=x.device)

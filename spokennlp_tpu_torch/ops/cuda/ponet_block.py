@@ -31,7 +31,12 @@ import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, NEG_INF, _layer_norm
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product, quantize_colwise, rowquant_plain
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    int8_product,
+    kmajor,
+    quantize_colwise,
+    rowquant_plain,
+)
 
 GA_ROWS, SMP_ROWS = 128, 64  # csrc/ponet_block.cu kGaRows, kSmpRows
 
@@ -209,7 +214,7 @@ def fused_ponet_mixer_block(
     if quantized:
         wp8, swp = quantize_colwise(proj_kernels)
         wo8, swo = quantize_colwise(out_kernel)
-        wp, swp, wo, swo = side_by_side(wp8), f32(swp), wo8.contiguous(), f32(swo)
+        wp, swp, wo, swo = kmajor(side_by_side(wp8)), f32(swp), kmajor(wo8), f32(swo)
         x8 = torch.empty((M, H), dtype=torch.int8, device=dev)
         scales = torch.empty((M,), dtype=torch.float32, device=dev)
     else:

@@ -32,7 +32,12 @@ import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, NEG_INF, _layer_norm
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product, quantize_colwise, rowquant_plain
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    int8_product,
+    kmajor,
+    quantize_colwise,
+    rowquant_plain,
+)
 from spokennlp_tpu_torch.ops.cuda.train_blocks import HEAD_DIMS
 from spokennlp_tpu_torch.ops.sliding_attention import _ctx_windows
 
@@ -345,6 +350,8 @@ def fused_sliding_attention_block(
         stream = torch.cuda.current_stream().cuda_stream
         if quantized:
             w = quantize_sliding_weights(qkv_kernel, gqkv_kernel, out_kernel)
+            # the tile's operands K-major; the global query's loop reads wgq8 as it stands
+            w.update({k: kmajor(w[k]) for k in ("wqkv8", "wgkv8", "wo8")})
             b = [f32(t).reshape(-1) for t in (qkv_bias, gqkv_bias[0], gqkv_bias[1:], out_bias)]
             x8 = empty(B * L * max(H, HN), dtype=torch.int8)
             scales, ctx_buf = empty(B * L, dtype=torch.float32), empty(B * L, HN,

@@ -26,6 +26,7 @@ from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     ACTIVATION_CODES,
     ACTIVATIONS,
     DTYPE_CODES,
+    kmajor,
     quantize_colwise,
 )
 from spokennlp_tpu_torch.ops.cuda.mlp_block import mlp_block_plain
@@ -126,6 +127,7 @@ def fused_encoder_stack(
     if quantized:
         wqkv, swqkv, wo, swo = quantize_attention_weights(qkv_kernels, out_kernels, 1)
         (w1, sw1), (w2, sw2) = quantize_colwise(mlp_w1), quantize_colwise(mlp_w2)
+        wqkv, wo, w1, w2 = (kmajor(t) for t in (wqkv, wo, w1, w2))
         swqkv, swo, sw1, sw2 = (f32(swqkv, NL, -1), f32(swo, NL, -1), f32(sw1, NL, -1),
                                 f32(sw2, NL, -1))
         mid = torch.empty((M, I), dtype=torch.float32, device=dev)

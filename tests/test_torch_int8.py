@@ -124,6 +124,39 @@ def test_rowquant_plain_groups_quantise_each_group():
     assert q.abs().max() <= 127 and (q == -128).sum() == 0
 
 
+@pytest.mark.parametrize("case", ["matrix", "stack", "grouped"])
+def test_kmajor_product_matches_int8_product_and_jax(jx, case):
+    """The kernels' K-major weights (N, K) (``kmajor``) give the exact
+    integer product of the (K, N) layout: int64 x8 . kmajor(w8)^T equals
+    int8_product and JAX's w8a8_matmul_reference with unit scales, for one
+    matrix, each matrix of a stack (NL, K, N), and each head group of an
+    out projection quantised per group (group g is K-columns [g K / G, (g +
+    1) K / G) of the transposed whole)."""
+    rng = np.random.default_rng(12)
+    M, K, N, G = 10, 48, 20, 4
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+    lead = (3,) if case == "stack" else ()
+    w = torch.from_numpy(rng.normal(size=(*lead, K, N)).astype(np.float32))
+    if case == "grouped":
+        w8 = im.quantize_colwise(w.reshape(G, K // G, N))[0].reshape(K, N)
+        x8 = im.rowquant_plain(x, G)[0]
+        groups = [slice(g * K // G, (g + 1) * K // G) for g in range(G)]
+    else:
+        w8, x8, groups = im.quantize_colwise(w)[0], im.rowquant_plain(x)[0], [slice(None)]
+    wt = im.kmajor(w8)
+    assert wt.shape == (*lead, N, K) and wt.dtype == torch.int8 and wt.is_contiguous()
+    mats = [(w8[i], wt[i]) for i in range(lead[0])] if lead else [(w8, wt)]
+    j = lambda t: jx.jnp.asarray(t.numpy())
+    for wk, wn in mats:
+        for cols in groups:
+            got = (x8[:, cols].long() @ wn[:, cols].long().T).float()
+            torch.testing.assert_close(got, im.int8_product(x8[:, cols], wk[cols]), atol=0,
+                                       rtol=0)
+            want = jx.m.w8a8_matmul_reference(j(x8[:, cols]), jx.jnp.ones((M, 1)), j(wk[cols]),
+                                              jx.jnp.ones((1, N)), out_dtype=jx.jnp.float32)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_wrappers_on_cpu_run_plain_without_counting():
     x, w, b = (torch.from_numpy(a) for a in _data(16, 32, 8, seed=6))
     n = (im.w8a8_matmul.launches, im.w8a8_matmul_bf16in.launches)
@@ -181,3 +214,26 @@ def test_w8a8_bf16in_kernel_matches_plain_on_card(cuda, dtype, activation):
     want = im.w8a8_matmul_plain(px8, psx, w8, sw, b, dtype, activation)
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=2**-7)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [68, 768, 3072])
+@pytest.mark.parametrize("N", [40, 768, 2304])
+@pytest.mark.parametrize("M", [1, 70, 16384])
+def test_gemm_i8_launcher_on_ragged_shapes_on_card(cuda, M, N, K):
+    """launch_gemm_i8 through kernel 5 (K = 68: the tile's 4-byte copies):
+    with unit scales and no bias the float32 output is float(acc) and equals
+    the exact product; with scales, bias and the tanh GELU in bf16 it equals
+    the plain version within one output step (2^-7 of the value)."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    x8 = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8)
+    ones = lambda n: torch.ones(n, device=cuda)
+    got = im.w8a8_matmul(x8, ones(M), w8, ones(N), out_dtype=torch.float32)
+    torch.testing.assert_close(got, im.int8_product(x8, w8), atol=0, rtol=0)
+    sx = torch.rand(M, generator=g, device=cuda) * 1e-3 + 1e-4
+    sw = torch.rand(N, generator=g, device=cuda) * 1e-2 + 1e-3
+    b = torch.randn(N, generator=g, device=cuda) * 0.1
+    got = im.w8a8_matmul(x8, sx, w8, sw, b, torch.bfloat16, "gelu")
+    want = im.w8a8_matmul_plain(x8, sx, w8, sw, b, torch.bfloat16, "gelu")
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=2**-7)

@@ -26,6 +26,7 @@ from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     rowquant_plain,
 )
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
 
 # Tolerances. CPU: the plain float32 versions against the JAX kernels in
 # interpret mode, as tests/test_attention_block.py compares them. Card,
@@ -479,6 +480,75 @@ def test_mlp_w8a8_kernel_matches_plain_on_card(cuda, dtype):
     assert fused_mlp_block.launches == n + 1
     want = mlp_block_plain(*t.values(), activation="gelu", eps=1e-12, quantized=True)
     assert_close_w8a8(got, want, bf16=dtype == torch.bfloat16)
+
+
+# Ragged shapes for the int8 tile's launchers (csrc/int8_gemm.cuh): rows M
+# = B L of 1, 70 and 16,384; K of 68 and 136 (the tile's 4-byte copies), 768
+# and 3072; N of 68, 192, 768, 2304 and 3072; G = 1, 2 and 12 head groups in
+# the out projection. Each block against its plain version at the W8A8
+# limits.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,H,nh,hd,hb", [(1, 1, 68, 2, 32, 2), (1, 70, 68, 2, 32, 1),
+                                            (2, 35, 768, 12, 64, 1), (32, 512, 768, 12, 64, 6)])
+def test_attention_w8a8_launchers_on_ragged_shapes_on_card(cuda, dtype, B, L, H, nh, hd, hb):
+    """qkv_proj_i8 (slots 3) and residual_ln_i8 with nh / hb head groups."""
+    t = _on_card(_attention_inputs(B, L, H, nh, hd, seed=L + hb), cuda, torch.float32, set())
+    if L < 8:  # every row real
+        t["segment_ids"] = torch.ones_like(t["segment_ids"])
+    t["hidden"] = t["hidden"].to(dtype)
+    kw = dict(sm_scale=hd**-0.5, quantized=True, heads_per_block=hb)
+    got = fused_attention_block(**t, **kw)
+    torch.cuda.synchronize()
+    want = attention_block_plain(**t, **kw)
+    valid = t["segment_ids"] > 0
+    assert_close_w8a8(got[valid], want[valid], bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("static_h", [False, True], ids=["per_row", "static"])
+@pytest.mark.parametrize("M,H,I", [(1, 68, 136), (70, 768, 3072), (16384, 768, 3072)])
+def test_mlp_w8a8_launchers_on_ragged_shapes_on_card(cuda, dtype, static_h, M, H, I):
+    """gemm_act_i8 with its float32 intermediate, or gemm_act_quant_i8 (the
+    static scale), then residual_ln_i8 over K = I."""
+    t = _on_card(_mlp_inputs(M, H, I, seed=M + I), cuda, torch.float32, activations=set())
+    t["x"] = t["x"].to(dtype)
+    kw = dict(activation="gelu", eps=1e-12, quantized=True, static_h_scale=static_h)
+    got = fused_mlp_block(*t.values(), **kw)
+    torch.cuda.synchronize()
+    assert_close_w8a8(got, mlp_block_plain(*t.values(), **kw), bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stack_w8a8_equals_chain_on_ragged_shapes_on_card(cuda, dtype):
+    """Kernel 3 in W8A8 runs the tile's device functions on the per-layer
+    kernels' tiles: bit-identical to the chain of kernels 1 and 2 at M = 210
+    rows, H = 68 (4-byte copies), I = 136."""
+    B, L, H, nh, hd, I, NL = 3, 70, 68, 2, 32, 136, 2
+    rng = np.random.default_rng(31)
+    f = lambda *s, scale=1.0: torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32))
+    p = [f(NL, H, 3, nh, hd, scale=H**-0.5), f(NL, 3, nh, hd, scale=0.02),
+         f(NL, nh, hd, H, scale=(nh * hd) ** -0.5), f(NL, H, scale=0.02), 1 + f(NL, H, scale=0.1),
+         f(NL, H, scale=0.1), f(NL, H, I, scale=H**-0.5), f(NL, I, scale=0.02),
+         f(NL, I, H, scale=I**-0.5), f(NL, H, scale=0.02), 1 + f(NL, H, scale=0.1),
+         f(NL, H, scale=0.1)]
+    p = [t.to(cuda) for t in p]
+    seg = torch.from_numpy(_segments(B, L, seed=31)).to(cuda)
+    hidden = f(B, L, H).to(cuda, dtype)
+    got = fused_encoder_stack(hidden, seg, *p, sm_scale=hd**-0.5, quantized=True)
+    h = hidden
+    for l in range(NL):
+        # one head group, as the stack quantises ctx
+        h = fused_attention_block(h, seg, *(t[l] for t in p[:4]), sm_scale=hd**-0.5,
+                                  ln_scale=p[4][l], ln_bias=p[5][l], quantized=True,
+                                  heads_per_block=nh)
+        h = fused_mlp_block(h.reshape(B * L, H), *(t[l] for t in p[6:]), activation="gelu",
+                            eps=1e-12, quantized=True).reshape(B, L, H)
+    torch.cuda.synchronize()
+    valid = seg > 0
+    assert torch.equal(got[valid], h[valid])
 
 
 @pytest.mark.gpu

@@ -47,6 +47,7 @@ from test_torch_kernels import (
 from test_torch_longformer import LONGFORMER, _jax_cfg, _jax_task
 from test_torch_longformer import _inputs as longformer_ids
 from test_torch_sliding import _inputs as sliding_inputs
+from test_torch_sliding import _masks as sliding_masks
 
 from spokennlp_tpu_torch.configs import TopicSegConfig
 from spokennlp_tpu_torch.models.convert import jax_params_to_state_dict
@@ -430,6 +431,34 @@ def test_sliding_w8a8_kernel_matches_plain_on_card(cuda, dtype, shape):
         want = sb.sliding_block_plain(*args, **kw)
         valid = t["attention_mask"] > 0
         assert_close_long(got[valid], want[valid], bf16=dtype == "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Bc,Lc", [(1, 8), (3, 24)])
+def test_sliding_w8a8_projection_slots_on_ragged_shapes_on_card(cuda, dtype, Bc, Lc):
+    """The int8 tile's q/k/v scatter with slots 3 (q, k, v) and 2 (the
+    global k, v) at ragged rows M = B L of 8 and 72 and H = 68, whose rows
+    the tile copies 4 bytes at a time; two heads of 32, window 16."""
+    Hc, nh, hd, window = 68, 2, 32, 16
+    rng = np.random.default_rng(Lc)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.normal(size=s) * scale).astype(np.float32)).to(cuda)
+    mask, glob = (torch.from_numpy(m).to(cuda) for m in sliding_masks(Bc, Lc, seed=Lc))
+    w = Hc**-0.5
+    weights = (f(Hc, 3, nh, hd, scale=w), f(3, nh, hd, scale=0.1), f(Hc, 3, nh, hd, scale=w),
+               f(3, nh, hd, scale=0.1), f(nh, hd, Hc, scale=(nh * hd) ** -0.5),
+               f(Hc, scale=0.1))
+    ln = dict(ln_scale=1 + f(Hc, scale=0.1), ln_bias=f(Hc, scale=0.1))
+    args = (f(Bc, Lc, Hc).to(getattr(torch, dtype)), mask, glob, *weights)
+    kw = dict(sm_scale=hd**-0.5, window=window, max_globals=2, quantized=True, **ln)
+    n = sb.fused_sliding_attention_block.launches
+    got = sb.fused_sliding_attention_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert sb.fused_sliding_attention_block.launches == n + 1
+    want = sb.sliding_block_plain(*args, **kw)
+    valid = mask > 0
+    assert_close_long(got[valid], want[valid], bf16=dtype == "bfloat16")
 
 
 @pytest.mark.gpu

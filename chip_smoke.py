@@ -11,7 +11,11 @@
    cuobjdump -sass on the library and fails unless every int8 tile kernel
    (gemm_act, gemm_act_quant, qkv_proj, residual_ln and the W8A8 stack)
    holds IMMA, the tensor cores' int8 product, and no function but 1c's int8
-   attention core and the W8A8 global query holds IDP4A (__dp4a).
+   attention core and the W8A8 global query holds IDP4A (__dp4a); every
+   bf16 instantiation of the dense attention core (attn_core_kernel and the
+   two stack entries) holds HMMA, the tensor cores' bf16 product, and no
+   float32 one or other function does. Prints the ptxas registers and
+   spills of those functions too.
 3. Inference kernel phase: each inference kernel against its plain PyTorch
    version at the main path's shapes (B=32, L=512, H=768, 12 heads of 64,
    I=3072), bfloat16 and float32, with padded tails and two packed segments;
@@ -27,9 +31,15 @@
    within float32 rounding (bf16: 2e-3 and one output rounding) but for at
    most 1 % (bf16: 0.2 %) of the outputs, moved by an int8 step, and four
    planted faults (heads_per_block ignored, no quantisation in either block,
-   the MLP intermediate rounded to bf16) each failing that check; the attention over a projected qkv (kernel 6) beside
-   scaled_dot_product_attention; and the whole-stack kernel (kernel 3) over
-   12 layers, W8A8 and float, bit-identical to the chain of kernels 1 and 2
+   the MLP intermediate rounded to bf16) each failing that check; the
+   attention over a projected qkv (kernel 6) beside
+   scaled_dot_product_attention (its TFLOP/s and ratio printed), also held
+   against its own rounding model (CORE_GATE) with two planted faults
+   failing that gate; the blocks' dense core alone at their own launch
+   (attention_block.attention_core), held to the same gate and timed beside
+   scaled_dot_product_attention: the core columns of rows 1 and 1 W8A8 (row
+   3's cores run inside the stack, untimed: it gets the library calls
+   only); and the whole-stack kernel (kernel 3) over 12 layers, W8A8 and float, bit-identical to the chain of kernels 1 and 2
    and within a limit per mode of the plain loop of layers. Rows 1, 2 and 3
    in W8A8 (and 9 in phase 15) also time torch._int_mm on their int8
    products alone, their library column.
@@ -55,7 +65,7 @@
    each kernel path's argmax agreement >= 0.99 with the einsum path of its
    quantisation on the first 128 windows (W8A8 against unquantised printed,
    not gated); windows/s, peak memory, and the busy share and top kernels
-   of the W8A8 engine calls under torch.profiler.
+   of the auto and pallas engine calls under torch.profiler.
 6. Training main path: fine-tuning through cli/run_finetune.main at
    BERT-base widths and 12 layers, L=512, bfloat16, with the DA view, TSSP
    and eop_matrix CSSL, for a few optimizer steps on a synthetic corpus.
@@ -229,6 +239,18 @@ MATMUL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2**-7)}
 # kernel 6 takes the exponent in bfloat16, its plain version (JAX's
 # reference) in float32: 2^-9 relative per probability
 SNLD_TOL = {"float32": (1e-2, 2e-2), "bfloat16": (5e-2, 2e-2)}
+# kernel 6 against its own rounding model (blhd_attention.py
+# snld_attention_plain: the online softmax over key tiles of 64, every
+# rounding of the kernel), (relative to max |ctx|, absolute) per dtype: the
+# float32 sums run in another order, so in bf16 the outputs differ by at
+# most one bf16 step of the largest (2^-7 of max |ctx|), plus 1e-4 for an
+# exponent whose bf16 rounding another sum order flipped
+# (tests/test_torch_kernels.py); in float32 by float32 rounding, held to
+# F32_TOL's 1e-4 of kernel 1 (a core on TF32 or bf16 products lands beyond
+# it). Each of CORE_FAULTS, planted in the model (blhd_attention.py
+# core_alpha, core_allowed), must fail it.
+CORE_GATE = {"bfloat16": (2**-7, 1e-4), "float32": (1e-4, 1e-4)}
+CORE_FAULTS = ("rescale alpha not applied", "packed-segment mask reduced to the padding mask")
 # the stack runs the device code of kernels 1 and 2 on the same tiles: it
 # must equal their chain bit for bit. Against the plain loop of layers:
 # max |err| / max |ref| over 12 layers, per (mode, dtype): float32 sums in
@@ -581,12 +603,35 @@ IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_k
 # the only functions that may still multiply int8 with IDP4A: 1c's int8
 # attention core and the W8A8 global query (global_rows_kernel)
 IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
+# the functions that run the dense attention core (attention_core.cuh): the
+# bf16 core kernel (kernels 1 and 6), and the stack entries, whose bf16 core
+# runs out of line in stack_core_item (the float32 one inline); each bf16
+# instantiation must hold HMMA (the stack's, or its stack_core_item's), the
+# float32 ones (with attn_core_simt_kernel, the float32 core) none, and no
+# other function may hold it
+HMMA_KERNELS = ("attn_core_kernel", "stack_core_item", "encoder_stack_kernel",
+                "encoder_stack_i8_kernel")
+CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kernel")
+
+
+def template_args(name: str, kernel: str) -> str:
+    """The template arguments of a mangled ``kernel<...>`` name, e.g.
+    ``13__nv_bfloat16Li64`` or ``fLi64``."""
+    return name.split(f"{kernel}I", 1)[1].split("EE", 1)[0]
+
+
+def is_float32_instance(name: str, kernel: str) -> bool:
+    """Whether the mangled ``name`` of a ``kernel`` template takes float as
+    its first (element) type: ``<kernel>If...``, bf16 being
+    ``<kernel>I13__nv_bfloat16...``."""
+    return template_args(name, kernel).startswith("f")
 
 
 def int8_build_report(log: str) -> list:
-    """Registers and spills of the int8 tile's kernels from the build's
-    ptxas report (-Xptxas -v), one line a compiled function, with the tiles'
-    dynamic shared memory; fails if one of them is missing."""
+    """Registers and spills of the int8 tile's kernels and the dense core's
+    functions from the build's ptxas report (-Xptxas -v), one line a
+    compiled function, with the tiles' dynamic shared memory; fails if one
+    of them is missing."""
     from spokennlp_tpu_torch.ops.cuda import build
 
     lib = build.library()
@@ -601,11 +646,11 @@ def int8_build_report(log: str) -> list:
         elif "spill stores" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name is not None:
-            if any(p in name for p in IMMA_KERNELS):
+            if any(p in name for p in IMMA_KERNELS + CORE_REPORT):
                 regs = line.split("Used")[1].split("registers")[0].strip()
                 report.append({"function": name, "registers": int(regs), "spills": spills})
             name, spills = None, None
-    for p in IMMA_KERNELS:
+    for p in IMMA_KERNELS + CORE_REPORT:
         if not any(p in r["function"] for r in report):
             fail(f"the ptxas report has no function for {p}")
     for r in sorted(report, key=lambda r: r["function"]):
@@ -633,18 +678,21 @@ def cuobjdump_path() -> str:
 def sass_check(library: Path) -> dict:
     """Disassembles the built library (cuobjdump -sass) and fails unless
     every int8 tile kernel (IMMA_KERNELS) runs IMMA, the tensor cores' int8
-    product, and no function outside IDP4A_ALLOWED keeps IDP4A. Returns
-    {function: (IMMA count, IDP4A count)} for the functions that hold either."""
+    product, no function outside IDP4A_ALLOWED keeps IDP4A, and every bf16
+    instantiation of HMMA_KERNELS runs HMMA (the bf16 product), which no
+    float32 one and no other function holds. Returns {function: (IMMA count,
+    IDP4A count, HMMA count)} for the functions that hold any."""
     proc = subprocess.Popen([cuobjdump_path(), "-sass", str(library)], stdout=subprocess.PIPE,
                             text=True)
     counts, name = {}, None
     for line in proc.stdout:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0]
+            counts[name] = [0, 0, 0]
         elif name is not None:
             counts[name][0] += " IMMA" in line
             counts[name][1] += "IDP.4A" in line or "IDP4A" in line  # __dp4a's SASS
+            counts[name][2] += " HMMA" in line
     if proc.wait() != 0:
         fail("cuobjdump -sass failed")
     for p in IMMA_KERNELS:
@@ -654,14 +702,37 @@ def sass_check(library: Path) -> dict:
         for n in found:
             if not counts[n][0]:
                 fail(f"{n} has no IMMA: its int8 products do not run on the tensor cores")
-    stray = [n for n, (_, dp4a) in counts.items()
+    stray = [n for n, (_, dp4a, _) in counts.items()
              if dp4a and not any(a in n for a in IDP4A_ALLOWED)]
     if stray:
         fail(f"IDP4A outside the int8 attention core and the global query: {stray}")
+    # HMMA counts of stack_core_item (bf16 only) by its template argument,
+    # the head dim: a bf16 stack entry, whose core runs out of line, holds
+    # its HMMA there
+    items = {template_args(n, "stack_core_item"): c[2] for n, c in counts.items()
+             if "stack_core_itemI" in n}
+    for p in HMMA_KERNELS:
+        found = [n for n in counts if f"{p}I" in n]
+        # (stack_core_item is listed only where the disassembly shows a
+        # function called out of line apart from its caller)
+        if p != "stack_core_item" and not any(not is_float32_instance(n, p) for n in found):
+            fail(f"cuobjdump -sass shows no bf16 instantiation of {p}")
+        for n in found:
+            f32, hmma = is_float32_instance(n, p), counts[n][2]
+            if p.startswith("encoder_stack") and not f32:  # "<T>Li<HD>" -> "Li<HD>"
+                hmma += items.get("L" + template_args(n, p).split("L", 1)[1], 0)
+            if f32 and hmma:
+                fail(f"{n} is float32 and holds HMMA: its core must stay true float32")
+            if not f32 and not hmma:
+                fail(f"{n} has no HMMA: its bf16 attention core does not run on the tensor cores")
+    stray = [n for n, c in counts.items() if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS)]
+    if stray:
+        fail(f"HMMA outside the dense attention core's functions: {stray}")
     held = {n: tuple(c) for n, c in counts.items() if any(c)}
-    for n, (imma, dp4a) in sorted(held.items()):
-        print(f"  sass: {n}: {imma} IMMA, {dp4a} IDP4A")
-    print(f"SASS check: {sum(1 for c in held.values() if c[0])} functions run IMMA; IDP4A only "
+    for n, (imma, dp4a, hmma) in sorted(held.items()):
+        print(f"  sass: {n}: {imma} IMMA, {dp4a} IDP4A, {hmma} HMMA")
+    print(f"SASS check: {sum(1 for c in held.values() if c[0])} functions run IMMA, "
+          f"{sum(1 for c in held.values() if c[2])} HMMA; IDP4A only "
           f"in {sorted({a for n, c in held.items() if c[1] for a in IDP4A_ALLOWED if a in n})}")
     return held
 
@@ -891,6 +962,56 @@ def core_mlp_fault(fault, att, mlp, *, sm_scale, hb):
     return got, want, att["segment_ids"] > 0
 
 
+def core_faults() -> dict:
+    """{fault: patch for planted()} of CORE_FAULTS in kernel 6's rounding
+    model: the rescale alpha replaced by 1, or the allowed mask by the
+    padding mask (seg_k > 0 alone)."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import blhd_attention as ba
+
+    alpha, mask = CORE_FAULTS
+    return {alpha: (ba, "core_alpha", None, lambda real, m_old, m_new: torch.ones_like(m_new)),
+            mask: (ba, "core_allowed", None,
+                   lambda real, s: (s[:, None, :] > 0)[:, None].expand(-1, -1, s.shape[1], -1))}
+
+
+def core_limit(want, dtype: str) -> float:
+    """CORE_GATE's limit on max |err| against the outputs `want`."""
+    rel, atol = CORE_GATE[dtype]
+    return rel * want.float().abs().max().item() + atol
+
+
+def core_model_check(qkv, seg, valid, dtype: str) -> dict:
+    """Kernel 6 against its own rounding model (snld_attention_plain) on the
+    valid rows within CORE_GATE; each of CORE_FAULTS, planted in the model,
+    must fail that gate. Returns the reading."""
+    from spokennlp_tpu_torch.ops.cuda import blhd_attention as ba
+
+    def reading(got, want):
+        err = (got[valid].float() - want[valid].float()).abs().max().item()
+        return err, core_limit(want[valid], dtype)
+
+    scale = HD**-0.5
+    want = ba.snld_attention_plain(qkv, seg, scale)
+    err, lim = reading(ba.snld_self_attention(qkv, seg, scale), want)
+    rel, atol = CORE_GATE[dtype]
+    print(f"  snld_self_attention {dtype} against its rounding model: max |err| {err:.3e} "
+          f"(limit {lim:.3e} = {rel:.3g} max |ctx| + {atol})")
+    if err > lim:
+        fail(f"snld_self_attention {dtype}: max |err| {err:.3e} against its rounding model "
+             f"exceeds {lim:.3e}")
+    for what, patch in core_faults().items():
+        with planted([patch]):
+            bad = ba.snld_attention_plain(qkv, seg, scale)
+        e, _ = reading(bad, want)
+        print(f"  planted fault, core {what} ({dtype}): max |err| {e:.3e}: "
+              + ("rejected" if e > lim else "PASSES the gate"))
+        if e <= lim:
+            fail(f"the core gate lets a planted fault through: {what} ({dtype})")
+    return {"model_err": err, "model_limit": lim}
+
+
 def w8a8_kernel_phase(device) -> dict:
     """{(name, dtype): row} for kernels 4, 5 and 6 and the W8A8 modes of 1 and
     2 at the main path's shapes."""
@@ -1047,15 +1168,87 @@ def w8a8_kernel_phase(device) -> dict:
                       lambda: snld_self_attention(qkv, seg, HD**-0.5),
                       lambda: reference_snld_attention(qkv, seg, HD**-0.5),
                       valid[:, None, :].expand(B, NH, L), tol=SNLD_TOL[dtype])
+        row.update(core_model_check(qkv, seg, valid[:, None, :].expand(B, NH, L), dtype))
         allowed = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]
         q, k, v = qkv.unbind(1)
         row.update(bound(core, nbytes(qkv, seg, qkv[:, 0]), dtype))
         row["library_ms"] = library_time(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=HD**-0.5),
             f"snld_self_attention {dtype} (scaled_dot_product_attention)")
+        row["tflops"] = core / row["ms"] / 1e9
+        print(f"kernel 6 {dtype}: {row['tflops']:.1f} TFLOP/s, {row['ms'] / row['library_ms']:.2f} x "
+              f"scaled_dot_product_attention's time ({core / row['library_ms'] / 1e9:.1f} TFLOP/s)")
         rows["snld_self_attention", dtype] = row
         torch.cuda.empty_cache()
     return rows
+
+
+def core_columns(rows: dict, device):
+    """The dense core's columns of rows 1, 1 W8A8 and 3 at B=32, L=512, 12
+    heads of 64. Rows 1 and 1 W8A8: the core alone at the blocks' own launch
+    (attention_block.attention_core: the launch both blocks make, on a qkv
+    buffer in their (3, B, nh, L, hd) layout from the QKV projection, q
+    scaled, the exponent in the element type), held to CORE_GATE against
+    its rounding model, each row timing it ("core_ms") and
+    scaled_dot_product_attention on the same q, k, v ("core_library_ms").
+    Row 3 runs its cores inside the stack kernel, where they are not timed:
+    its row takes LAYERS of those library calls back to back, and the
+    chain's cores (LAYERS x the block's) are printed apart as derived."""
+    import torch
+    import torch.nn.functional as F
+
+    from spokennlp_tpu_torch.ops.cuda.attention_block import (
+        attention_core, attention_core_plain,
+    )
+    from spokennlp_tpu_torch.ops.cuda.blhd_attention import snld_attention_plain
+
+    g = torch.Generator(device=device).manual_seed(9)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    seg = segments(device)
+    valid = seg > 0
+    allowed = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        hidden, w = randn(B, L, H), randn(H, 3, NH, HD, scale=H**-0.5)
+        qkv = torch.einsum("blh,hsnd->sbnld", hidden, w) + randn(3, 1, NH, 1, HD, scale=0.02)
+        qkv[0] *= HD**-0.5
+        qkv = qkv.to(dt).contiguous()
+        # the rounding model: exp in bf16 (snld_attention_plain) or float32
+        if dtype == "bfloat16":
+            want = snld_attention_plain(qkv.transpose(0, 1), seg, 1.0).transpose(1, 2)
+        else:
+            q, k, v = (t.transpose(1, 2) for t in qkv.unbind(0))
+            want = attention_core_plain(q, k, v, seg, torch.float32)
+        got = attention_core(qkv, seg).reshape(B, L, NH, HD)
+        err = (got[valid].float() - want[valid].float()).abs().max().item()
+        lim = core_limit(want[valid], dtype)
+        print(f"  the blocks' core {dtype} against its rounding model: max |err| {err:.3e} "
+              f"(limit {lim:.3e})")
+        if not (torch.isfinite(got).all() and err <= lim):
+            fail(f"attention_core {dtype}: max |err| {err:.3e} against its rounding model "
+                 f"exceeds {lim:.3e}")
+        q, k, v = qkv.unbind(0)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=1.0)
+        for name in ("fused_attention_block", "fused_attention_block_w8a8"):
+            row = rows[name, dtype]
+            attention_core(qkv, seg)
+            torch.cuda.synchronize()
+            row["core_ms"] = time_ms(lambda: attention_core(qkv, seg))
+            row["core_library_ms"] = library_time(sdpa, f"{name} {dtype}'s core "
+                                                        "(scaled_dot_product_attention)")
+            print(f"kernel {name} {dtype}: its dense core alone {row['core_ms']:.3f} ms, "
+                  f"scaled_dot_product_attention {row['core_library_ms']:.3f} ms; the row's "
+                  f"library column: {row['library_ms']}")
+        row = rows["fused_encoder_stack", dtype]
+        row["core_library_ms"] = library_time(lambda: [sdpa() for _ in range(LAYERS)],
+                                              f"fused_encoder_stack {dtype}'s {LAYERS} cores")
+        print(f"kernel fused_encoder_stack {dtype}: {LAYERS} scaled_dot_product_attention calls "
+              f"{row['core_library_ms']:.3f} ms; derived, not measured: the chain's cores "
+              f"{LAYERS} x {rows['fused_attention_block', dtype]['core_ms']:.3f} = "
+              f"{LAYERS * rows['fused_attention_block', dtype]['core_ms']:.3f} ms (the stack's "
+              f"own run inside it, untimed)")
+        del hidden, w, qkv, want, got
+        torch.cuda.empty_cache()
 
 
 def stack_kernel_phase(device) -> dict:
@@ -2543,7 +2736,7 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
     kernel path's logits on the first 128 windows against the einsum path of
     its quantisation (argmax agreement >= MIN_ARGMAX_AGREEMENT); prints
     windows/s and peak memory, and the device busy share and top kernels of
-    the W8A8 engine calls."""
+    the auto and pallas engine calls."""
     import torch
 
     from spokennlp_tpu_torch.cli import common, run_inference
@@ -2602,7 +2795,7 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
         print(f"serving {key}: {n} windows in {n_batches} batches, {secs:.3f} s "
               f"({row['windows_per_s']:.1f} windows/s), peak {peak:.2f} GiB, launches "
               f"{row['launches']}")
-        if quantize == "w8a8" and impl == "auto":
+        if impl in ("auto", "pallas"):
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
                 t0 = time.perf_counter()
@@ -2788,6 +2981,7 @@ def main() -> int:
     stack_rows = stack_kernel_phase(device)
     rows["fused_encoder_stack", "bfloat16"] = stack_rows["W8A8", "bfloat16"]
     rows["fused_encoder_stack", "float32"] = stack_rows["float", "float32"]
+    core_columns(rows, device)
     rows.update(train_kernel_phase(device))
     rows.update(sliding_kernel_phase(device))
     rows.update(bigbird_kernel_phase(device))

@@ -14,12 +14,13 @@
 // layer's attention block is about 103 GFLOP: 56% in the QKV projection, 25%
 // in the two attention products and 19% in the output projection. That is
 // far above the card's ratio of operations to bytes, so the block is bound by
-// arithmetic. The float modes run SIMT kernels on the CUDA cores (float32
-// FMA) and reach a small share of what the tensor cores offer. In W8A8 the
-// projections run on the tensor cores (int8_gemm.cuh's mma.sync s8 tile,
-// weights handed over K-major), so there the float attention core, still on
-// the CUDA cores, holds most of the block's time; moving it and the float
-// products onto mma.sync, then the int8 tile onto wgmma, is later work.
+// arithmetic. In bfloat16 the attention core runs on the tensor cores
+// (attention_core.cuh's mma.sync m16n8k16 bf16 core), and in W8A8 so do the
+// projections (int8_gemm.cuh's mma.sync s8 tile, weights handed over
+// K-major). The float projections (common.cuh's SIMT TileGemm) and the
+// float32 core stay on the CUDA cores (float32 FMA) and reach a small share
+// of what the tensor cores offer; moving the float products onto mma.sync,
+// then both tiles onto wgmma, is later work.
 //
 // What the design does about the TPU kernel's assumptions. On the TPU one
 // grid step owned a whole (sequence, head group), kept q, k and v in VMEM
@@ -30,7 +31,8 @@
 //      launch of x in W8A8): one GEMM over all B*L rows, bias added, q
 //      scaled by sm_scale, stored in the element type as (3, B, nh, L, hd);
 //   2. the attention core (attention_core.cuh): one block per (query tile of
-//      64 rows, head, sequence), exp in the element type as on the TPU; with
+//      128 rows in bf16, 64 in float32, head, sequence), exp in the element
+//      type as on the TPU; with
 //      core_int8, a launch of the q/k scales per (sequence, head group) and
 //      one of v's column scales, then the int8 core (__dp4a products, two
 //      passes over the keys);
@@ -180,6 +182,31 @@ extern "C" int spk_attention_block_w8a8(int dtype, const void* hidden, const voi
                                        swo_, bo_, lns, lnb, static_cast<T*>(qkv_buf),
                                        static_cast<T*>(ctx_buf), lb, static_cast<T*>(out), cs, B,
                                        L, H, nh, hd, G, core, sm_scale, eps, fuse_ln, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The attention core alone, as both modes above launch it (step 2, with no
+// int8 core): qkv_buf (3, B, nh, L, hd) as the QKV projection leaves it, q
+// already scaled; ctx_buf (B*L, nh hd); dtype as above, the exponent taken
+// in it. Times the core at the block's own launch. Returns the first CUDA
+// error, or 0.
+extern "C" int spk_attention_core(int dtype, const void* qkv_buf, const void* seg, void* ctx_buf,
+                                  int B, int L, int nh, int hd, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto sg = static_cast<const int32_t*>(seg);
+  const spk::CoreLayout lay = spk::block_layout(B, L, nh, hd);
+  cudaError_t err;
+  if (dtype == 0) {
+    using T = float;
+    err = spk::launch_attn_core<T, T>(static_cast<const T*>(qkv_buf), sg, static_cast<T*>(ctx_buf),
+                                      B, L, nh, hd, lay, 1.0f, s);
+  } else if (dtype == 1) {
+    using T = __nv_bfloat16;
+    err = spk::launch_attn_core<T, T>(static_cast<const T*>(qkv_buf), sg, static_cast<T*>(ctx_buf),
+                                      B, L, nh, hd, lay, 1.0f, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,20 +1,32 @@
-// Segment-masked softmax attention of one (query tile of 64 rows, head,
-// sequence), shared by the attention block (attention_block.cu), the
-// attention over a projected qkv (blhd_attention.cu) and the whole-stack
-// kernel (stack_block.cu), so the three compute the same function the same
-// way.
+// Segment-masked softmax attention of one (query tile, head, sequence),
+// shared by the attention block (attention_block.cu), the attention over a
+// projected qkv (blhd_attention.cu) and the whole-stack kernel
+// (stack_block.cu), so the three compute the same function the same way.
 //
 // allowed = (seg_q == seg_k) & (seg_k > 0); a masked key's score gets the
-// TPU kernels' additive -1e9, a key beyond the sequence -inf. The block
-// streams key tiles of 64 through shared memory with an online softmax
-// (running max and sum in float32). As on the TPU, the exponent is taken in
-// the type ExpT: e = exp(s - m) with s - m and e rounded to ExpT (the
-// compute type in the attention block and the stack, bfloat16 always over a
-// projected qkv); e is rounded to T before it meets v, the row sums add the
-// rounded e in float32, and the context is divided by the sum after P.V.
+// TPU kernels' additive -1e9, a key beyond the sequence -inf. Scores are
+// (q . k) * score_scale in float32. The block streams key tiles of 64
+// through shared memory with an online softmax (running max and sum in
+// float32). As on the TPU, the exponent is taken in the type ExpT: e =
+// exp(s - m) with s - m and e rounded to ExpT (the compute type in the
+// attention block and the stack, bfloat16 always over a projected qkv); e is
+// rounded to T before it meets v, the row sums add the rounded e in float32,
+// alpha = exp(m_old - m_new) rescales them unrounded, and the context is
+// divided by the sum after P.V, then rounded to T.
+//
+// Two cores keep those rounding points. In bfloat16 (T = __nv_bfloat16)
+// both products run on the tensor cores: mma.sync m16n8k16 bf16 with
+// float32 sums, on 128 query rows a block (16 a warp), the key and value
+// tiles staged through a two-stage cp.async ring and read with ldmatrix, the
+// softmax on the score fragments in registers; q, k, v and the rounded p are
+// bf16 values, so the products are those of the float32 core but for the
+// order of the float32 sums. In float32 (T = float) the core stays on the
+// CUDA cores (fmaf on float32 tiles, 64 query rows a block): true float32,
+// which a TF32 product would not give.
 #pragma once
 
 #include "attention_tiles.cuh"
+#include "ptx.cuh"
 
 namespace spk {
 
@@ -34,24 +46,49 @@ __host__ __device__ inline CoreLayout block_layout(int B, int L, int nh, int hd)
           (size_t)nh * hd};
 }
 
+// The bfloat16 core's shared memory: q's tile of kRows rows, then two
+// stages of (k tile, v tile, the key tile's segment ids). A staged row of
+// HD bf16 is padded by 16 bytes, so the 8 row addresses of an ldmatrix
+// phase fall on 8 distinct 16-byte bank groups (the row stride is an odd
+// number of 16-byte units).
 template <int HD>
-constexpr size_t attn_core_smem_bytes() {
-  // Qs [64][HD+1], Kt [HD][64+1], Vs [64][HD], Ps [64][64+1] as float, then
-  // the key tile's segment ids
-  return sizeof(float) * ((size_t)kTile * (HD + 1) + (size_t)HD * (kTile + 1) +
-                          (size_t)kTile * HD + (size_t)kTile * (kTile + 1)) +
-         sizeof(int) * kTile;
+struct CoreMma {
+  static constexpr int kRows = 16 * (kThreads / 32);  // query rows a block: 16 a warp
+  static constexpr int kRowBytes = 2 * HD + 16;
+  static constexpr int kKvBytes = kTile * kRowBytes;
+  static constexpr int kStageBytes = 2 * kKvBytes + kTile * (int)sizeof(int);
+  static constexpr size_t kSmemBytes = (size_t)kRows * kRowBytes + 2 * (size_t)kStageBytes;
+  static_assert(HD % 16 == 0 && kRowBytes % 32 == 16, "whole k16 steps, odd 16-byte row stride");
+};
+
+// query rows a block owns: 128 on the tensor cores (bf16), 64 in float32
+template <typename T>
+__host__ __device__ constexpr int core_rows() {
+  return std::is_same<T, float>::value ? kTile : CoreMma<16>::kRows;
 }
 
-// Thread (ty, tx) owns query rows ty + 16 i (i < 4), score columns tx + 16 j
-// of each key tile (j < 4) and output columns tx + 16 j (j < HD/16). The 16
-// threads that share a row sit in one half-warp, so row maxima and sums
-// reduce with shuffles. Scores are (q . k) * score_scale. No __restrict__ on
-// qkv: the stack kernel wrote it earlier in the same launch.
+template <typename T, int HD>
+constexpr size_t attn_core_smem_bytes() {
+  if constexpr (std::is_same<T, float>::value) {
+    // Qs [64][HD+1], Kt [HD][64+1], Vs [64][HD], Ps [64][64+1] as float,
+    // then the key tile's segment ids
+    return sizeof(float) * ((size_t)kTile * (HD + 1) + (size_t)HD * (kTile + 1) +
+                            (size_t)kTile * HD + (size_t)kTile * (kTile + 1)) +
+           sizeof(int) * kTile;
+  } else {
+    return CoreMma<HD>::kSmemBytes;
+  }
+}
+
+// The float32 core. Thread (ty, tx) owns query rows ty + 16 i (i < 4),
+// score columns tx + 16 j of each key tile (j < 4) and output columns tx +
+// 16 j (j < HD/16). The 16 threads that share a row sit in one half-warp, so
+// row maxima and sums reduce with shuffles. No __restrict__ on qkv: the
+// stack kernel wrote it earlier in the same launch.
 template <typename T, int HD, typename ExpT>
-__device__ __forceinline__ void attn_core_tile(const T* qkv, const int32_t* seg, T* out, int L,
-                                               CoreLayout lay, float score_scale, int q0, int h,
-                                               int b, float* smem) {
+__device__ __forceinline__ void attn_core_tile_simt(const T* qkv, const int32_t* seg, T* out,
+                                                    int L, CoreLayout lay, float score_scale,
+                                                    int q0, int h, int b, float* smem) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = HD + 1;
   constexpr int KS = kTile + 1;
@@ -174,31 +211,266 @@ __device__ __forceinline__ void attn_core_tile(const T* qkv, const int32_t* seg,
   }
 }
 
+// two float32 values that are bf16 values, as one bf16 pair (lo first)
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The bfloat16 core on the tensor cores, rows [q0, q0 + 128) of (b, h).
+// Warp w owns query rows q0 + 16 w .. + 15; in the m16n8 fragments of its
+// scores and its output, lane (g, t) = (lane / 4, lane % 4) holds rows g and
+// g + 8, columns 2 t and 2 t + 1 of each n8 tile, so a row's maxima and sums
+// reduce over the 4 lanes of a quad. Per key tile of 64: S (16 x 64) = Q K^T
+// from q's A fragments and k's B fragments (ldmatrix of the k rows as they
+// stand), the scale, the mask and the -inf tail on S's fragments, the online
+// max and rescale, then p in registers: S's accumulator layout is P's A
+// fragment layout, so each pair of rounded p becomes one bf16x2 register;
+// O += P V with v's B fragments from ldmatrix.trans. A warp whose rows all
+// lie beyond L skips the products but keeps the block's barriers.
+template <int HD, typename ExpT>
+__device__ __forceinline__ void attn_core_tile_mma(const __nv_bfloat16* qkv, const int32_t* seg,
+                                                   __nv_bfloat16* out, int L, CoreLayout lay,
+                                                   float score_scale, int q0, int h, int b,
+                                                   unsigned char* smem) {
+  using C = CoreMma<HD>;
+  using bf16 = __nv_bfloat16;
+  constexpr int kChunks = HD / 8;  // 16-byte copies a staged row
+  constexpr int KS = HD / 16;      // k16 steps of Q K^T
+  constexpr int ND = HD / 8;       // n8 tiles of the output
+  constexpr int NS = kTile / 8;    // n8 tiles of a key tile's scores
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const bf16* Q = qkv + (size_t)b * lay.b_stride + (size_t)h * lay.h_stride;
+  const bf16* K = Q + lay.s_stride;
+  const bf16* V = K + lay.s_stride;
+  const int32_t* seg_b = seg + (size_t)b * L;
+  unsigned char* stages = smem + C::kRows * C::kRowBytes;
+
+  // rows [r0, r0 + R) of the (L, HD) slab X into dst, zero-filled beyond L
+  const auto copy_rows = [&](const bf16* X, int r0, int R, unsigned char* dst) {
+    for (int e = tid; e < R * kChunks; e += kThreads) {
+      const int r = e / kChunks, c = e % kChunks, l = r0 + r;
+      const bool in = l < L;
+      cp_async16(smem_addr(dst + r * C::kRowBytes + 16 * c), in ? X + (size_t)l * HD + 8 * c : X,
+                 in ? 16 : 0);
+    }
+  };
+  const auto load_keys = [&](int kt) {
+    unsigned char* s = stages + (kt % 2) * C::kStageBytes;
+    const int k0 = kt * kTile;
+    copy_rows(K, k0, kTile, s);
+    copy_rows(V, k0, kTile, s + C::kKvBytes);
+    if (tid < kTile)
+      reinterpret_cast<int*>(s + 2 * C::kKvBytes)[tid] = k0 + tid < L ? seg_b[k0 + tid] : 0;
+  };
+
+  __syncthreads();  // a previous item of this block is done with the shared memory
+  copy_rows(Q, q0, C::kRows, smem);
+  load_keys(0);
+  cp_async_commit();
+
+  const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+  const bool live = q0 + 16 * warp < L;  // warp-uniform
+  const int seg_lo = r_lo < L ? seg_b[r_lo] : 0, seg_hi = r_hi < L ? seg_b[r_hi] : 0;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, sum_lo = 0.0f, sum_hi = 0.0f;
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  // q's fragments are read from shared memory at every key tile: held in
+  // registers they take HD / 4 of the 128 a thread has at two blocks an SM,
+  // and the core spills more and runs slower (PERF.md)
+  // ldmatrix row addresses: q's four 8 x 8 matrices are (rows 0-7, d 0-7),
+  // (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of an m16 x k16 fragment; k's
+  // are (keys 0-7, d 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of two n8
+  // x k16 fragments; v's, transposed, (keys 0-7, d 0-7), (8-15, 0-7), (0-7,
+  // 8-15), (8-15, 8-15) of two k16 x n8 fragments
+  const uint32_t q_addr = smem_addr(smem + (16 * warp + lane % 16) * C::kRowBytes + (lane / 16) * 16);
+  const int k_off = (lane % 8 + 8 * (lane / 16)) * C::kRowBytes + ((lane / 8) % 2) * 16;
+  const int v_off = (lane % 8 + 8 * ((lane / 8) % 2)) * C::kRowBytes + (lane / 16) * 16;
+
+  const int nk = (L + kTile - 1) / kTile;
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load_keys(kt + 1);  // its slot was freed by the barrier ending kt - 1
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and q) have landed
+    __syncthreads();
+    if (live) {
+      const unsigned char* s = stages + (kt % 2) * C::kStageBytes;
+      const uint32_t k_base = smem_addr(s) + k_off, v_base = smem_addr(s) + C::kKvBytes + v_off;
+      const int* seg_k = reinterpret_cast<const int*>(s + 2 * C::kKvBytes);
+      float sc[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(q_addr + kk * 32, a);
+#pragma unroll
+        for (int nj = 0; nj < NS / 2; ++nj) {
+          uint32_t r[4];
+          ldmatrix_x4(k_base + nj * 16 * C::kRowBytes + kk * 32, r);
+          mma_bf16(sc[2 * nj], a, r[0], r[1]);
+          mma_bf16(sc[2 * nj + 1], a, r[2], r[3]);
+        }
+      }
+
+      // scale, mask, -inf tail; the tile's row maxima
+      const int k0 = kt * kTile;
+      float max_lo = -CUDART_INF_F, max_hi = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int c = 8 * j + 2 * t;
+        const int2 sk = *reinterpret_cast<const int2*>(seg_k + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key_seg = e % 2 ? sk.y : sk.x;
+          const int row_seg = e < 2 ? seg_lo : seg_hi;
+          float v;
+          if (k0 + c + e % 2 >= L) {
+            v = -CUDART_INF_F;  // beyond the sequence: not a key at all
+          } else {
+            v = sc[j][e] * score_scale;
+            if (!(row_seg == key_seg && key_seg > 0)) v += kNegInf;
+          }
+          sc[j][e] = v;
+          if (e < 2) max_lo = fmaxf(max_lo, v);
+          else max_hi = fmaxf(max_hi, v);
+        }
+      }
+      // every key tile holds at least one in-range key, so the maxima are finite
+      const float new_lo = fmaxf(m_lo, quad_max(max_lo)), new_hi = fmaxf(m_hi, quad_max(max_hi));
+      const float alpha_lo = expf(m_lo - new_lo), alpha_hi = expf(m_hi - new_hi);
+      m_lo = new_lo;
+      m_hi = new_hi;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha_lo;
+        o[n][1] *= alpha_lo;
+        o[n][2] *= alpha_hi;
+        o[n][3] *= alpha_hi;
+      }
+
+      // p = e rounded to bf16, A fragments of P V, 16 keys a k-step
+      float tile_lo = 0.0f, tile_hi = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t a[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float(&x)[4] = sc[2 * kk + half];
+          // e rounded to ExpT, then to bf16 (a bf16 e already is)
+          const auto p = [](float s, float m) {
+            const float e = rounded_exp<ExpT>(s, m);
+            return std::is_same<ExpT, bf16>::value ? e : round_to<bf16>(e);
+          };
+          const float p0 = p(x[0], m_lo), p1 = p(x[1], m_lo), p2 = p(x[2], m_hi),
+                      p3 = p(x[3], m_hi);
+          tile_lo += p0 + p1;
+          tile_hi += p2 + p3;
+          a[2 * half] = bf16_pair(p0, p1);
+          a[2 * half + 1] = bf16_pair(p2, p3);
+        }
+#pragma unroll
+        for (int dn = 0; dn < ND / 2; ++dn) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(v_base + kk * 16 * C::kRowBytes + dn * 32, r);
+          mma_bf16(o[2 * dn], a, r[0], r[1]);
+          mma_bf16(o[2 * dn + 1], a, r[2], r[3]);
+        }
+      }
+      sum_lo = sum_lo * alpha_lo + tile_lo;  // each lane's share of its rows' sums
+      sum_hi = sum_hi * alpha_hi + tile_hi;
+    }
+    __syncthreads();  // every warp is done with slot kt % 2
+  }
+  cp_async_wait<0>();
+
+  if (live) {
+    sum_lo = quad_sum(sum_lo);
+    sum_hi = quad_sum(sum_hi);
+    bf16* dst = out + (size_t)b * lay.ob_stride + (size_t)h * lay.oh_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (r_lo < L)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r_lo * lay.ol_stride + 8 * n) =
+            __floats2bfloat162_rn(o[n][0] / sum_lo, o[n][1] / sum_lo);
+      if (r_hi < L)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r_hi * lay.ol_stride + 8 * n) =
+            __floats2bfloat162_rn(o[n][2] / sum_hi, o[n][3] / sum_hi);
+    }
+  }
+}
+
+// One (query tile of core_rows<T>() rows, head, sequence): the bf16 core on
+// the tensor cores, or the float32 one on the CUDA cores. smem holds
+// attn_core_smem_bytes<T, HD>(), 16-byte aligned.
+template <typename T, int HD, typename ExpT>
+__device__ __forceinline__ void attn_core_tile(const T* qkv, const int32_t* seg, T* out, int L,
+                                               CoreLayout lay, float score_scale, int q0, int h,
+                                               int b, float* smem) {
+  if constexpr (std::is_same<T, float>::value) {
+    attn_core_tile_simt<T, HD, ExpT>(qkv, seg, out, L, lay, score_scale, q0, h, b, smem);
+  } else {
+    attn_core_tile_mma<HD, ExpT>(qkv, seg, out, L, lay, score_scale, q0, h, b,
+                                 reinterpret_cast<unsigned char*>(smem));
+  }
+}
+
 namespace {
 
-// Grid (ceil(L / 64), nh, B).
+// Grid (ceil(L / 128), nh, B): the bf16 core, two blocks an SM (at most 128
+// registers a thread; unbounded it takes 138 and one block an SM, PERF.md)
 template <typename T, int HD, typename ExpT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     attn_core_kernel(const T* qkv, const int32_t* seg, T* out, int L, CoreLayout lay,
                      float score_scale) {
-  extern __shared__ float smem[];
-  attn_core_tile<T, HD, ExpT>(qkv, seg, out, L, lay, score_scale, blockIdx.x * kTile, blockIdx.y,
-                              blockIdx.z, smem);
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core core is bf16");
+  extern __shared__ __align__(16) float smem[];
+  attn_core_tile<T, HD, ExpT>(qkv, seg, out, L, lay, score_scale, blockIdx.x * core_rows<T>(),
+                              blockIdx.y, blockIdx.z, smem);
+}
+
+// Grid (ceil(L / 64), nh, B): the float32 core
+template <typename T, int HD, typename ExpT>
+__global__ void __launch_bounds__(kThreads)
+    attn_core_simt_kernel(const T* qkv, const int32_t* seg, T* out, int L, CoreLayout lay,
+                          float score_scale) {
+  static_assert(std::is_same<T, float>::value, "the CUDA-core core is float32");
+  extern __shared__ __align__(16) float smem[];
+  attn_core_tile<T, HD, ExpT>(qkv, seg, out, L, lay, score_scale, blockIdx.x * core_rows<T>(),
+                              blockIdx.y, blockIdx.z, smem);
 }
 
 }  // namespace
 
+// The core over (3, B, nh, L, hd) q, k, v in the layout `lay`; qkv 16-byte
+// aligned in bfloat16 (its cp.async copies).
 template <typename T, typename ExpT>
 cudaError_t launch_attn_core(const T* qkv, const int32_t* seg, T* out, int B, int L, int nh,
                              int hd, CoreLayout lay, float score_scale, cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    constexpr size_t smem = attn_core_smem_bytes<HD>();  // above 48 KB for HD >= 64
-    const cudaError_t err = prepare(attn_core_kernel<T, HD, ExpT>, smem);
+    constexpr size_t smem = attn_core_smem_bytes<T, HD>();  // above 48 KB for HD >= 64
+    void (*kernel)(const T*, const int32_t*, T*, int, CoreLayout, float);
+    if constexpr (std::is_same<T, float>::value) {
+      kernel = attn_core_simt_kernel<T, HD, ExpT>;
+    } else {
+      kernel = attn_core_kernel<T, HD, ExpT>;
+    }
+    const cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((L + kTile - 1) / kTile, nh, B);
-    attn_core_kernel<T, HD, ExpT><<<grid, kThreads, smem, stream>>>(qkv, seg, out, L, lay,
-                                                                   score_scale);
+    const dim3 grid((L + core_rows<T>() - 1) / core_rows<T>(), nh, B);
+    kernel<<<grid, kThreads, smem, stream>>>(qkv, seg, out, L, lay, score_scale);
     return cudaGetLastError();
   });
 }

@@ -7,18 +7,22 @@
 // snld_self_attention (_attn_kernel), which serves attention_impl="pallas".
 //
 // What bounds it here. At BERT-base (B=32, L=512, 12 heads of 64) it is 25.8
-// GFLOP of attention products against 75 MB of qkv and 25 MB of output in
-// bfloat16: about 260 operations a byte, near the card's bf16 ridge, and
-// above it for the float32 CUDA cores this kernel runs on, so it is bound by
-// arithmetic (float32 FMA in the two tile products) plus the exponentials.
+// GFLOP of attention products and 100M exponentials against 75 MB of qkv and
+// 25 MB of output in bfloat16: about 260 operations a byte, below the card's
+// bf16 ridge (about 295), so on the tensor cores its bound is the bytes
+// (0.030 ms); its softmax (an exponential, the mask and four roundings a
+// score, on the CUDA cores) is the larger share of its instructions.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // took a whole (L, L) score matrix of HB heads into VMEM (L=512 fits) and
 // normalised after P.V. A Hopper block cannot hold that, so this is the
-// attention block's core (attention_core.cuh): one block per (64 query
-// rows, head, sequence) streams key tiles of 64 with an online softmax, in
-// this kernel's layouts, with the scale applied to the scores (q arrives
-// unscaled) and the exponent rounded to bfloat16 as the TPU kernel takes it.
+// attention block's core (attention_core.cuh): in bfloat16 one block per (128
+// query rows, head, sequence) runs both products on the tensor cores
+// (mma.sync m16n8k16 bf16, float32 sums) over key tiles of 64 streamed
+// through a two-stage cp.async ring, with the online softmax in registers;
+// in float32 the CUDA-core core over 64 query rows. Both use this kernel's
+// layouts, apply the scale to the scores (q arrives unscaled) and round the
+// exponent to bfloat16 as the TPU kernel takes it.
 #include "attention_core.cuh"
 
 namespace spk {

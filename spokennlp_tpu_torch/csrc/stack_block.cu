@@ -10,9 +10,10 @@
 //
 // What bounds it here. Its work is the two blocks' work times NL (about 3.1
 // TFLOP for 12 BERT-base layers at B=32, L=512), so it is bound by
-// arithmetic, as they are: on the CUDA cores in its float modes, on the
-// tensor cores (int8_gemm.cuh's mma.sync tile) for the W8A8 products, where
-// the float attention core is left on the CUDA cores. What the TPU kernel
+// arithmetic, as they are: the bf16 attention core and the W8A8 products run
+// on the tensor cores (attention_core.cuh's bf16 mma.sync core,
+// int8_gemm.cuh's s8 mma.sync tile), the float GEMMs and the float32 core on
+// the CUDA cores. What the TPU kernel
 // saved is what a stack of launches costs besides: 2-5 launches a block,
 // 24-108 a forward, each with a ramp-up and a tail where SMs idle, and the
 // hidden state's trips through device memory between them.
@@ -79,15 +80,27 @@ struct StackArgs {
 
 // The dynamic shared memory of a block: the largest of its phases' needs,
 // the float tiles or (W8A8) the int8 tiles' rings, and the attention core.
-template <int HD, bool kQuant>
+template <typename T, int HD, bool kQuant>
 constexpr size_t stack_smem_bytes() {
   constexpr size_t gemm = kQuant ? GemmTileI8::kSmemBytes
                                  : sizeof(float) * TileGemm<64, 64, float>::kSmemFloats;
   constexpr size_t ln = kQuant ? LnTileI8::kSmemBytes
                                : sizeof(float) * TileGemm<kLnRows, kLnCols, float>::kSmemFloats;
-  constexpr size_t core = attn_core_smem_bytes<HD>();
+  constexpr size_t core = attn_core_smem_bytes<T, HD>();
   constexpr size_t a = gemm > ln ? gemm : ln;
   return a > core ? a : core;
+}
+
+// One bf16 attention-core item of the stack, kept out of line: inlined, the
+// tensor-core core's registers raise the pressure of the whole kernel, and
+// the float bf16 stack spills more and runs about 1.5 times as long
+// (PERF.md). The float32 core stays inline, as it costs the float32 stack
+// nothing there.
+template <int HD>
+__device__ __noinline__ void stack_core_item(const __nv_bfloat16* qkv, const int32_t* seg,
+                                             __nv_bfloat16* ctx, int L, CoreLayout lay, int q0,
+                                             int h, int b, float* smem) {
+  attn_core_tile<__nv_bfloat16, HD, __nv_bfloat16>(qkv, seg, ctx, L, lay, 1.0f, q0, h, b, smem);
 }
 
 // Every layer of the stack, for one block of the cooperative grid.
@@ -140,10 +153,16 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
                          (t % qt) * 64, smem);
     }
     grid.sync();
-    const int lt = (L + kTile - 1) / kTile;
-    for (int t = blk; t < lt * nh * B; t += nblk)
-      attn_core_tile<T, HD, T>(qkv, a.seg, ctx, L, lay, 1.0f, (t % lt) * kTile, (t / lt) % nh,
-                               t / (lt * nh), smem);
+    constexpr int kRows = core_rows<T>();  // the query tile of kernel 1's core launch
+    const int lt = (L + kRows - 1) / kRows;
+    for (int t = blk; t < lt * nh * B; t += nblk) {
+      const int q0 = (t % lt) * kRows, h = (t / lt) % nh, b = t / (lt * nh);
+      if constexpr (std::is_same<T, float>::value) {
+        attn_core_tile<T, HD, T>(qkv, a.seg, ctx, L, lay, 1.0f, q0, h, b, smem);
+      } else {
+        stack_core_item<HD>(qkv, a.seg, ctx, L, lay, q0, h, b, smem);
+      }
+    }
     grid.sync();
     if constexpr (kQuant) {
       rowquant_items<T>(ctx, M, HN, 1, a.q8, a.scales, warp0, nwarps);
@@ -194,8 +213,20 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
   }
 }
 
+// The float entry's least blocks an SM: bf16 two, as the bf16 core runs
+// alone (128 registers a thread; unbounded, this entry takes 234-248 and one
+// block an SM); float32 none (0 leaves ptxas as without the argument: 128
+// registers at head dim 64 and two blocks an SM, as before the bf16 core
+// moved; an explicit 1 makes it take 168, one block an SM and 1.55 times as
+// long; PERF.md)
+template <typename T>
+constexpr int stack_min_blocks() {
+  return std::is_same<T, float>::value ? 0 : 2;
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) encoder_stack_kernel(StackArgs a) {
+__global__ void __launch_bounds__(kThreads, stack_min_blocks<T>())
+    encoder_stack_kernel(StackArgs a) {
   stack_layers<T, HD, false>(a);
 }
 
@@ -236,7 +267,7 @@ cudaError_t encoder_stack(StackArgs a, int* grid_out, cudaStream_t stream) {
       } else {
         kernel = encoder_stack_kernel<T, HD>;
       }
-      constexpr size_t smem = stack_smem_bytes<HD, kQuant>();
+      constexpr size_t smem = stack_smem_bytes<T, HD, kQuant>();
       int grid = 0;
       const cudaError_t err = cooperative_grid(kernel, smem, &grid);
       if (err != cudaSuccess) return err;

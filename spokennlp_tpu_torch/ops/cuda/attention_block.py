@@ -38,6 +38,7 @@ from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
 )
 
 NEG_INF = -1e9
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the attention kernels are built for
 LN127 = 4.844187086458591  # ln(127)
 # core_int8 values -> the kernel's CoreInt8 flags (csrc/attention_core.cuh)
 CORE_INT8_CODES = {False: 0, None: 0, "qk": 1, "av": 2, "both": 3, True: 3}
@@ -290,8 +291,8 @@ def fused_attention_block(
     if qkv_kernel.dim() != 4 or qkv_kernel.shape[0] != H or qkv_kernel.shape[1] != 3:
         raise ValueError(f"fused_attention_block: qkv_kernel must be (H, 3, nh, hd), got {tuple(qkv_kernel.shape)}")
     nh, hd = qkv_kernel.shape[2], qkv_kernel.shape[3]
-    if hd not in (32, 64, 128):
-        raise ValueError(f"fused_attention_block: head_dim {hd} not supported (32, 64 or 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"fused_attention_block: head_dim {hd} not supported {HEAD_DIMS}")
     expect = {
         "segment_ids": (segment_ids, (B, L)),
         "qkv_bias": (qkv_bias, (3, nh, hd)),
@@ -357,3 +358,47 @@ def fused_attention_block(
 
 fused_attention_block.launches = 0
 fused_attention_block.core_int8_launches = 0
+
+
+def attention_core(qkv_buf: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
+    """The attention core alone, as ``fused_attention_block`` launches it
+    between its projections (float modes, and W8A8 without ``core_int8``):
+    qkv_buf (3, B, nh, L, hd) float32 or bfloat16 as the QKV projection
+    leaves it, q already scaled; the exponent taken in qkv_buf's type.
+    Returns ctx (B, L, nh * hd) in that type. No model path calls it: it
+    times the block's core at the block's own launch.
+    ``attention_core.launches`` counts the calls that ran the kernel on the
+    card. On a CPU tensor it runs ``attention_core_plain``."""
+    if qkv_buf.dim() != 5 or qkv_buf.shape[0] != 3:
+        raise ValueError(f"attention_core: qkv_buf must be (3, B, nh, L, hd), got {tuple(qkv_buf.shape)}")
+    _, B, nh, L, hd = qkv_buf.shape
+    if qkv_buf.device.type == "cpu":
+        q, k, v = (t.transpose(1, 2) for t in qkv_buf.unbind(0))
+        ctx = attention_core_plain(q, k, v, segment_ids, qkv_buf.dtype)
+        return ctx.reshape(B, L, nh * hd).to(qkv_buf.dtype)
+    if qkv_buf.device.type != "cuda":
+        raise ValueError(f"attention_core: unsupported device {qkv_buf.device}")
+    if qkv_buf.dtype not in _DTYPES:
+        raise TypeError(f"attention_core: qkv_buf must be float32 or bfloat16, got {qkv_buf.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"attention_core: head_dim {hd} not supported {HEAD_DIMS}")
+    if tuple(segment_ids.shape) != (B, L) or segment_ids.device != qkv_buf.device:
+        raise ValueError(f"attention_core: segment_ids must be ({B}, {L}) on {qkv_buf.device}")
+    if segment_ids.dtype.is_floating_point:
+        raise TypeError("attention_core: segment_ids must be integers")
+    x = qkv_buf.contiguous()
+    if x.data_ptr() % 16:  # the bf16 core copies 16 bytes at a time
+        x = x.clone()
+    seg = segment_ids.to(torch.int32).contiguous()
+    ctx = torch.empty((B, L, nh * hd), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.library().spk_attention_core(
+            _DTYPES[x.dtype], x.data_ptr(), seg.data_ptr(), ctx.data_ptr(), B, L, nh, hd,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(code, "attention_core")
+    attention_core.launches += 1
+    return ctx
+
+
+attention_core.launches = 0

@@ -7,7 +7,10 @@ Counterpart of ``spokennlp_tpu/ops/pallas/blhd_attention.py``, which serves
 ``csrc/blhd_attention.cu`` (exp in bfloat16, normalised after P.V, as the
 TPU kernel computes it); on a CPU tensor it runs
 ``reference_snld_attention``, JAX's reference of the same function with a
-float32 softmax.
+float32 softmax. ``snld_attention_plain`` repeats the kernel's own
+arithmetic (the online softmax over key tiles of 64 of
+``csrc/attention_core.cuh``, every rounding where the kernel rounds), so the
+card can hold the kernel to it within one bf16 step of the output.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
-from spokennlp_tpu_torch.ops.cuda.attention_block import NEG_INF
+from spokennlp_tpu_torch.ops.cuda.attention_block import HEAD_DIMS, NEG_INF
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import DTYPE_CODES
 
 
@@ -30,6 +33,49 @@ def reference_snld_attention(qkv: torch.Tensor, segment_ids: torch.Tensor,
     scores = torch.where(allowed[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bnlm,bnmd->bnld", probs.float(), v.float()).to(qkv.dtype)
+
+
+CORE_KEY_TILE = 64  # the key tile of csrc/attention_core.cuh (kTile)
+
+
+def core_allowed(segment_ids: torch.Tensor) -> torch.Tensor:
+    """(B, 1, L, L): key m is allowed for query l iff seg[l] == seg[m] > 0."""
+    seg = segment_ids
+    return ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]
+
+
+def core_alpha(m_old: torch.Tensor, m_new: torch.Tensor) -> torch.Tensor:
+    """The online softmax's rescale of the running sums, exp(m_old - m_new),
+    unrounded."""
+    return torch.exp(m_old - m_new)
+
+
+def snld_attention_plain(qkv: torch.Tensor, segment_ids: torch.Tensor,
+                         sm_scale: float) -> torch.Tensor:
+    """Kernel 6's own arithmetic, the dense core of
+    ``csrc/attention_core.cuh`` with every rounding where the kernel
+    rounds: scores (q . k) * sm_scale in float32 plus -1e9 where a key is
+    not allowed; per key tile of 64 the running max m, e = exp(s - m) with
+    s - m and e rounded to bfloat16, e rounded to qkv's type before it
+    meets v, float32 sums of the rounded e, both rescaled by
+    ``core_alpha``; the context divided by the sum after P.V, then rounded
+    to qkv's type. Returns (B, nh, L, hd)."""
+    q, k, v = (qkv[:, i].float() for i in range(3))  # (B, nh, L, hd)
+    B, nh, L, hd = q.shape
+    bias = torch.where(core_allowed(segment_ids), 0.0, NEG_INF)
+    m = torch.full((B, nh, L, 1), float("-inf"), device=q.device)
+    total = torch.zeros((B, nh, L, 1), device=q.device)
+    o = torch.zeros((B, nh, L, hd), device=q.device)
+    for k0 in range(0, L, CORE_KEY_TILE):
+        keys = slice(k0, k0 + CORE_KEY_TILE)
+        s = torch.einsum("bnld,bnmd->bnlm", q, k[:, :, keys]) * sm_scale + bias[..., keys]
+        new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = core_alpha(m, new)
+        e = torch.exp((s - new).to(torch.bfloat16)).to(qkv.dtype).float()
+        total = total * alpha + e.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.einsum("bnlm,bnmd->bnld", e, v[:, :, keys])
+        m = new
+    return (o / total).to(qkv.dtype)
 
 
 def snld_self_attention(
@@ -49,13 +95,15 @@ def snld_self_attention(
     if qkv.dim() != 5 or qkv.shape[1] != 3:
         raise ValueError(f"snld_self_attention: qkv must be (B, 3, nh, L, hd), got {tuple(qkv.shape)}")
     B, _, nh, L, hd = qkv.shape
-    if hd not in (32, 64, 128):
-        raise ValueError(f"snld_self_attention: head_dim {hd} not supported (32, 64 or 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"snld_self_attention: head_dim {hd} not supported {HEAD_DIMS}")
     if tuple(segment_ids.shape) != (B, L) or segment_ids.device != qkv.device:
         raise ValueError(f"snld_self_attention: segment_ids must be ({B}, {L}) on {qkv.device}")
     if segment_ids.dtype.is_floating_point:
         raise TypeError("snld_self_attention: segment_ids must be integers")
     x = qkv.contiguous()
+    if x.data_ptr() % 16:  # the bf16 core copies 16 bytes at a time
+        x = x.clone()
     seg = segment_ids.to(torch.int32).contiguous()
     out = torch.empty((B, nh, L, hd), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "spk_rowquant": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "spk_w8a8_matmul": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "spk_snld_attention": [_I] + [_P] * 3 + [_I] * 4 + [_F, _P],
+    "spk_attention_core": [_I] + [_P] * 3 + [_I] * 4 + [_P],
     "spk_encoder_stack": [_I, _I] + [_P] * 27 + [_I] * 8 + [_F, _F, _P],
     "spk_attention_train_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _U, _F, _P],
     "spk_attention_train_bwd": [_I] + [_P] * 17 + [_I] * 5 + [_F, _U, _F, _P],

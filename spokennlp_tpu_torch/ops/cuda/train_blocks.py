@@ -32,10 +32,9 @@ import numpy as np
 import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
-from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, NEG_INF
+from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, HEAD_DIMS, NEG_INF
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import ACTIVATION_CODES, ACTIVATIONS
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims the attention kernels are built for
 TRAIN_ACTIVATIONS = ("gelu", "gelu_new", "relu", "silu")  # those with a derivative
 
 

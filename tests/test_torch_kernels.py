@@ -5,6 +5,8 @@ JAX is imported inside the CPU tests only, so the card tests (``-m gpu``) do
 not depend on it.
 """
 
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -13,10 +15,13 @@ import torch
 
 from spokennlp_tpu_torch.ops.cuda.attention_block import (
     attention_block_plain,
+    attention_core,
+    attention_core_plain,
     fused_attention_block,
 )
 from spokennlp_tpu_torch.ops.cuda.blhd_attention import (
     reference_snld_attention,
+    snld_attention_plain,
     snld_self_attention,
 )
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
@@ -27,6 +32,9 @@ from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
 )
 from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
 from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the planted faults of the core's card gate)
 
 # Tolerances. CPU: the plain float32 versions against the JAX kernels in
 # interpret mode, as tests/test_attention_block.py compares them. Card,
@@ -55,6 +63,44 @@ CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol
 # chip_smoke.py holds the blocks at the main path's shapes the same way.
 W8A8_TOL, W8A8_STEP_TOL, W8A8_FLIPS = 1e-5, 2e-2, 0.01
 BF16_W8A8_TOL, BF16_W8A8_FLIPS = 2e-3, 0.002
+# The dense core against its own rounding model (snld_attention_plain) on
+# the card: the same roundings, float32 sums in another order, so in bf16
+# the outputs differ by at most one bf16 step of the largest one (2^-7 of
+# max |ctx|), plus CORE_ATOL for an exponent whose bf16 rounding another
+# sum order flipped (it moves a context by about 1e-5 at these scales); in
+# float32 by float32 rounding, held to CORE_F32_REL of max |ctx| (kernel
+# 1's float32 limit) plus CORE_ATOL, which a core on TF32 or bf16 products
+# would miss. chip_smoke.py's CORE_GATE holds the same limits. On the CPU
+# the model against JAX's kernel in interpret mode, which rounds s - m
+# against the row's max where the model rounds it against the running max:
+# within the same 2^-7 of max |ctx| (measured: at most 2.6e-3 of it).
+CORE_REL, CORE_F32_REL, CORE_ATOL = 2**-7, 1e-4, 1e-4
+
+
+def _core_rel(dtype):
+    return CORE_F32_REL if dtype == torch.float32 else CORE_REL
+
+
+def _core_gate(got, want, rel=CORE_REL, atol=CORE_ATOL):
+    """max |got - want| <= rel max |want| + atol."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item() + atol, err
+
+
+def _ragged_segments(B, L, seed):
+    """_segments' padding tails and packed windows (the first token always
+    real), with the last key of every packed row a segment of its own (a
+    query row with a single key) and, where B > 2, a last sequence with no
+    real token."""
+    seg = _segments(B, L, seed)
+    seg[0, 0] = max(seg[0, 0], 1)
+    for b in range(1, B, 2):
+        n = int((seg[b] > 0).sum())
+        if n > 2:
+            seg[b, n - 1] = 3
+    if B > 2:
+        seg[-1] = 0
+    return seg
 
 
 def _segments(B, L, seed):
@@ -69,12 +115,12 @@ def _segments(B, L, seed):
     return seg
 
 
-def _attention_inputs(B, L, H, nh, hd, seed):
+def _attention_inputs(B, L, H, nh, hd, seed, ragged=False):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)
     return dict(
         hidden=f(B, L, H),
-        segment_ids=_segments(B, L, seed),
+        segment_ids=(_ragged_segments if ragged else _segments)(B, L, seed),
         qkv_kernel=f(H, 3, nh, hd, scale=H**-0.5),
         qkv_bias=f(3, nh, hd, scale=0.02),
         out_kernel=f(nh, hd, H, scale=(nh * hd) ** -0.5),
@@ -356,6 +402,95 @@ def test_snld_wrapper_on_cpu_against_jax_kernel(jx):
     np.testing.assert_allclose(got[valid], want[valid], atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("L", [1, 65, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_snld_core_model_matches_jax_kernel(jx, dtype, L, hd):
+    """The kernel's rounding model (online max over key tiles of 64) against
+    JAX's kernel in interpret mode, bf16 or f32 qkv, padding, packed
+    windows, a single-key segment and a sequence with no real token:
+    within 2^-7 of the largest |ctx| (CORE_REL) on the real rows, finite
+    everywhere."""
+    qkv, _ = _qkv_inputs(3, 4, L, hd, seed=L + hd)
+    seg = _ragged_segments(3, L, seed=L + hd)
+    jq = jx.jnp.asarray(qkv).astype(getattr(jx.jnp, dtype))
+    want = np.asarray(jx.snld_self_attention(jq, jx.jnp.asarray(seg), hd**-0.5,
+                                             heads_per_block=2, interpret=True)
+                      .astype(jx.jnp.float32))
+    tq = torch.from_numpy(qkv).to(getattr(torch, dtype))
+    got = snld_attention_plain(tq, torch.from_numpy(seg), hd**-0.5)
+    assert got.dtype == tq.dtype and got.shape == (3, 4, L, hd)
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    valid = np.broadcast_to(seg[:, None, :, None] > 0, got.shape)
+    _core_gate(torch.from_numpy(got[valid]), torch.from_numpy(want[valid]), atol=0.0)
+
+
+@pytest.mark.parametrize("fault", chip_smoke.CORE_FAULTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_snld_core_model_gate_rejects_planted_faults(dtype, fault):
+    """The card gate of the core, at its limit for the dtype, fails for
+    each fault chip_smoke.py plants in the model: rescales not applied, the
+    packed-segment mask reduced to the padding mask."""
+    qkv, _ = _qkv_inputs(4, 2, 512, 64, seed=5)
+    seg = torch.from_numpy(_segments(4, 512, seed=5))
+    q = torch.from_numpy(qkv).to(dtype)
+    want = snld_attention_plain(q, seg, 0.125)
+    valid = (seg > 0)[:, None, :].expand(4, 2, 512)
+    _core_gate(want[valid], want[valid], rel=_core_rel(dtype))
+    with chip_smoke.planted([chip_smoke.core_faults()[fault]]):
+        bad = snld_attention_plain(q, seg, 0.125)
+    with pytest.raises(AssertionError):
+        _core_gate(bad[valid], want[valid], rel=_core_rel(dtype))
+
+
+def test_core_gate_limits_match_chip_smoke():
+    """The card test and chip_smoke.py hold the core to the same limits."""
+    assert chip_smoke.CORE_GATE == {"bfloat16": (CORE_REL, CORE_ATOL),
+                                    "float32": (CORE_F32_REL, CORE_ATOL)}
+
+
+def _block_qkv(B, nh, L, hd, seed, dtype):
+    """A qkv buffer as the attention block's QKV projection leaves it:
+    (3, B, nh, L, hd), q scaled by hd^-0.5, in ``dtype``."""
+    qkv, _ = _qkv_inputs(B, nh, L, hd, seed)
+    qkv = torch.from_numpy(qkv).transpose(0, 1).contiguous()
+    qkv[0] *= hd**-0.5
+    return qkv.to(dtype)
+
+
+def _block_core_model(qkv, seg):
+    """The block's core's rounding model, (B, L, nh, hd): the exponent in
+    bfloat16 over key tiles of 64 (snld_attention_plain, scale 1) for bf16,
+    in float32 (attention_core_plain) for float32."""
+    if qkv.dtype == torch.bfloat16:
+        return snld_attention_plain(qkv.transpose(0, 1), seg, 1.0).transpose(1, 2)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(0))
+    return attention_core_plain(q, k, v, seg, torch.float32)
+
+
+@pytest.mark.parametrize("L", [1, 65, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_core_on_cpu_matches_its_rounding_model(dtype, L):
+    """The blocks' core alone (attention_core) runs its plain version on the
+    CPU, counting no launch: its rounding model within the core's card
+    gate on the real rows, finite everywhere; a qkv buffer of another shape
+    raises."""
+    B, nh, hd = 3, 2, 32
+    qkv = _block_qkv(B, nh, L, hd, seed=L, dtype=dtype)
+    seg = torch.from_numpy(_ragged_segments(B, L, seed=L))
+    n = attention_core.launches
+    got = attention_core(qkv, seg)
+    assert attention_core.launches == n
+    assert got.dtype == dtype and got.shape == (B, L, nh * hd)
+    assert torch.isfinite(got).all()
+    valid = seg > 0
+    want = _block_core_model(qkv, seg)
+    _core_gate(got.reshape(B, L, nh, hd)[valid], want[valid], rel=_core_rel(dtype))
+    with pytest.raises(ValueError):
+        attention_core(qkv[:2], seg)
+
+
 # ---------------------------------------------------------------- on the card
 
 
@@ -379,14 +514,22 @@ def _on_card(inp, device, dtype, activations):
     return out
 
 
+# the core's ragged shapes: L around its 64-key and 128-row tiles, every
+# head dim it is built for, three sequences (_ragged_segments: a single-key
+# segment, a sequence with no real token)
+RAGGED_L, CORE_HEAD_DIMS = (1, 63, 64, 65, 127, 129, 513), (16, 32, 64, 128)
+RAGGED_CORE = [(3, L, 2, hd) for L in RAGGED_L for hd in CORE_HEAD_DIMS]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "B,L,H,nh,hd", [(32, 512, 768, 12, 64), (3, 48, 256, 4, 64), (2, 200, 256, 8, 32),
-                    (2, 130, 256, 2, 128), (2, 96, 1024, 16, 64)],
+                    (2, 130, 256, 2, 128), (2, 96, 1024, 16, 64)]
+    + [(B, L, 96, nh, hd) for B, L, nh, hd in RAGGED_CORE],
 )
 def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, L, H, nh, hd):
-    inp = _attention_inputs(B, L, H, nh, hd, seed=B + L)
+    inp = _attention_inputs(B, L, H, nh, hd, seed=B + L, ragged=H == 96)
     t = _on_card(inp, cuda, dtype, activations={"hidden"})
     for ln in (True, False):
         kw = dict(sm_scale=hd**-0.5)
@@ -553,6 +696,38 @@ def test_stack_w8a8_equals_chain_on_ragged_shapes_on_card(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", [70, 129])
+def test_stack_float_equals_chain_on_ragged_shapes_on_card(cuda, dtype, L):
+    """Kernel 3's float modes run the core (bf16: 128-row tiles on the
+    tensor cores) and the float tiles of kernels 1 and 2: bit-identical to
+    their chain at ragged L, a single-key segment and a sequence with no
+    real token."""
+    B, H, nh, hd, I, NL = 3, 68, 2, 32, 136, 2
+    rng = np.random.default_rng(L)
+    f = lambda *s, scale=1.0: torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32))
+    p = [f(NL, H, 3, nh, hd, scale=H**-0.5), f(NL, 3, nh, hd, scale=0.02),
+         f(NL, nh, hd, H, scale=(nh * hd) ** -0.5), f(NL, H, scale=0.02), 1 + f(NL, H, scale=0.1),
+         f(NL, H, scale=0.1), f(NL, H, I, scale=H**-0.5), f(NL, I, scale=0.02),
+         f(NL, I, H, scale=I**-0.5), f(NL, H, scale=0.02), 1 + f(NL, H, scale=0.1),
+         f(NL, H, scale=0.1)]
+    p = [t.to(cuda) for t in p]
+    seg = torch.from_numpy(_ragged_segments(B, L, seed=L)).to(cuda)
+    hidden = f(B, L, H).to(cuda, dtype)
+    got = fused_encoder_stack(hidden, seg, *p, sm_scale=hd**-0.5, quantized=False)
+    h = hidden
+    for l in range(NL):
+        h = fused_attention_block(h, seg, *(t[l] for t in p[:4]), sm_scale=hd**-0.5,
+                                  ln_scale=p[4][l], ln_bias=p[5][l])
+        h = fused_mlp_block(h.reshape(B * L, H), *(t[l] for t in p[6:]), activation="gelu",
+                            eps=1e-12, quantized=False).reshape(B, L, H)
+    torch.cuda.synchronize()
+    valid = seg > 0
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[valid], h[valid])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("fault", PLANTED)
 def test_w8a8_check_rejects_planted_faults_on_card(cuda, dtype, fault):
     """The check the W8A8 kernels pass above fails for each planted fault at
@@ -569,19 +744,46 @@ def test_w8a8_check_rejects_planted_faults_on_card(cuda, dtype, fault):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,nh,L,hd", [(8, 12, 512, 64), (2, 3, 200, 32), (2, 2, 130, 128)])
+@pytest.mark.parametrize("B,nh,L,hd",
+                         [(8, 12, 512, 64), (2, 3, 200, 32), (2, 2, 130, 128)] + RAGGED_CORE)
 def test_snld_kernel_matches_plain_on_card(cuda, dtype, B, nh, L, hd):
     """The kernel takes the exponent in bfloat16, the plain reference in
-    float32: 2^-9 relative per probability."""
+    float32: 2^-9 relative per probability. Against its own rounding model
+    (snld_attention_plain): within one bf16 step of the largest output
+    (_core_gate). The ragged cases (B = 3) add a single-key segment and a
+    sequence with no real token, whose output must be finite."""
     qkv, seg = _qkv_inputs(B, nh, L, hd, seed=B + L)
+    if B == 3:
+        seg = _ragged_segments(B, L, seed=B + L)
     q, s = torch.from_numpy(qkv).to(cuda, dtype), torch.from_numpy(seg).to(cuda)
     n = snld_self_attention.launches
     got = snld_self_attention(q, s, hd**-0.5)
     torch.cuda.synchronize()
     assert snld_self_attention.launches == n + 1
+    assert torch.isfinite(got).all()
     want = reference_snld_attention(q, s, hd**-0.5)
     valid = (s > 0)[:, None, :].expand(B, nh, L)
     torch.testing.assert_close(got[valid].float(), want[valid].float(), atol=1e-2, rtol=2e-2)
+    _core_gate(got[valid], snld_attention_plain(q, s, hd**-0.5)[valid], rel=_core_rel(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nh,L,hd", [(8, 12, 512, 64)] + RAGGED_CORE)
+def test_attention_core_matches_its_rounding_model_on_card(cuda, dtype, B, nh, L, hd):
+    """The blocks' core alone at their launch (attention_core, the block
+    layout, the exponent in the element type) within the core's gate of
+    its rounding model, finite everywhere, one launch counted."""
+    qkv = _block_qkv(B, nh, L, hd, seed=B + L + hd, dtype=dtype).to(cuda)
+    seg = torch.from_numpy(_ragged_segments(B, L, seed=B + L + hd)).to(cuda)
+    n = attention_core.launches
+    got = attention_core(qkv, seg)
+    torch.cuda.synchronize()
+    assert attention_core.launches == n + 1
+    assert torch.isfinite(got).all()
+    valid = seg > 0
+    _core_gate(got.reshape(B, L, nh, hd)[valid], _block_core_model(qkv, seg)[valid],
+               rel=_core_rel(dtype))
 
 
 @pytest.mark.gpu

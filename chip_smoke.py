@@ -12,15 +12,21 @@
    (gemm_act, gemm_act_quant, qkv_proj, residual_ln and the W8A8 stack)
    holds IMMA, the tensor cores' int8 product, and no function but 1c's int8
    attention core and the W8A8 global query holds IDP4A (__dp4a); every
-   bf16 instantiation of the dense attention core (attn_core_kernel and the
-   two stack entries) holds HMMA, the tensor cores' bf16 product, and no
-   float32 one or other function does. Prints the ptxas registers and
-   spills of those functions too.
+   bf16 instantiation of the dense attention core (attn_core_kernel), of the
+   forward GEMM tile's kernels (gemm_bias_act, qkv_proj,
+   gemm_bias_residual_ln) and of the two stack entries (or their out-of-line
+   items) holds HMMA, the tensor cores' bf16 product, and no float32 one,
+   transposed-weight GEMM or other function does (sass_verdict). Prints the
+   ptxas registers and spills of those functions too.
 3. Inference kernel phase: each inference kernel against its plain PyTorch
    version at the main path's shapes (B=32, L=512, H=768, 12 heads of 64,
    I=3072), bfloat16 and float32, with padded tails and two packed segments;
    prints the largest error on valid rows and both times (CUDA events,
-   after a warm-up). Then the W8A8 kernels at the same shapes: the W8A8
+   after a warm-up); in bf16 two planted faults of a GEMM tile (partial sums
+   rounded to bf16 every k-stage, the last k-step dropped) in the plain
+   version must fail the kernel's limit (BF16_TOL); torch.matmul on the
+   blocks' products alone is their library column (bf16, and float32
+   without TF32). Then the W8A8 kernels at the same shapes: the W8A8
    matmul (kernel 5) and its row-quantising form (kernel 4) at a layer's four
    projections (768x2304, 768x768, 768x3072 with GELU, 3072x768), their
    int32 accumulators compared exactly and the row quantiser bit for bit,
@@ -42,7 +48,8 @@
    only); and the whole-stack kernel (kernel 3) over 12 layers, W8A8 and float, bit-identical to the chain of kernels 1 and 2
    and within a limit per mode of the plain loop of layers. Rows 1, 2 and 3
    in W8A8 (and 9 in phase 15) also time torch._int_mm on their int8
-   products alone, their library column.
+   products alone, their library column; the float stacks torch.matmul on
+   their 48 products.
 4. Training kernel phase: the four training kernels (attention and MLP,
    forward and backward) at the same shapes, bfloat16 and float32, at
    dropout rate 0 and at 0.1 with the kernels' mask replayed in the plain
@@ -187,10 +194,22 @@ import numpy as np
 
 # the main path's shapes: BERT-base over 512-token windows, batches of 32
 B, L, H, NH, HD, I, LAYERS = 32, 512, 768, 12, 64, 3072, 12
-# kernel against plain version, largest deviation allowed on valid rows
-# (tests/test_torch_kernels.py gives the reasons): bf16 (atol, rtol) for
-# every block; float32 per kernel below
-TOL = {"bfloat16": (5e-2, 2e-2)}
+# kernels 1 and 2 in bf16 against their plain versions (float32 throughout,
+# on the same bf16 inputs and weights), on valid rows: |err| <= atol + rtol
+# |ref|. rtol 2^-7 takes the output's own bf16 rounding (one step of a value
+# that both sides round, from either side of a rounding boundary); atol
+# takes the kernel's other roundings (q, k, v, the probabilities and ctx; the
+# MLP intermediate), where the plain version stays in float32. Per kernel,
+# from the H100 readings of max(|err| - 2^-7 |ref|) (PERF.md, section 6) over
+# this script's shapes and every shape of the card tests: attention at most
+# 5.8e-3 (two heads of 16 over 63 keys; 2.7e-3 at the main path's shapes),
+# MLP 4.4e-3. A product whose float32 partial sums were rounded to bf16
+# after every k-stage reads 1.02e-2 (attention) and 7.9e-2 (MLP) at the main
+# path's shapes, one that left out its last k-step 0.26 and 0.68: the kernel
+# phase plants both in the plain version (BF16_GEMM_FAULTS) and must see
+# each fail. (The old limit, 5e-2 + 2e-2 |ref| for both, lets the
+# attention block's rounding fault through.)
+BF16_TOL = {"fused_attention_block": (7.5e-3, 2**-7), "fused_mlp_block": (1.2e-2, 2**-7)}
 # the other kernels: max |kernel - plain| / max |plain| per output
 # (tests/test_torch_train_blocks.py gives the reasons): bf16 for every kernel
 TRAIN_TOL = {"bfloat16": 3e-2}
@@ -545,7 +564,63 @@ def limit(kernel: str, dtype: str):
     output for ``_normalized_errors``."""
     if dtype == "float32":
         return F32_TOL[kernel]
-    return (TOL if kernel in ("fused_attention_block", "fused_mlp_block") else TRAIN_TOL)[dtype]
+    return BF16_TOL[kernel] if kernel in BF16_TOL else TRAIN_TOL[dtype]
+
+
+def beyond_limit(got, want, tol) -> float:
+    """max(|got - want| - rtol |want|) - atol for tol = (atol, rtol): above 0
+    where ``got`` fails the limit."""
+    atol, rtol = tol
+    return ((got.float() - want.float()).abs() - rtol * want.float().abs()).max().item() - atol
+
+
+# The bf16 limit's planted faults: the plain version's float products
+# (float_product, ops/cuda/int8_matmul.py) with the float32 sum rounded to
+# bf16 after every 32-deep k-stage (the tile's stage depth), or without the
+# last 16-deep k-step (one mma.sync k-step)
+BF16_GEMM_FAULTS = ("partial sums rounded to bf16 every k-stage", "last k-step dropped")
+
+
+def bf16_stage_sums(real, x, w, depth=32):
+    import torch
+
+    acc = None
+    for k0 in range(0, w.shape[0], depth):
+        part = x[..., k0:k0 + depth].float() @ w[k0:k0 + depth].float()
+        acc = (part if acc is None else acc + part).to(torch.bfloat16).float()
+    return acc
+
+
+def dropped_k_step(real, x, w, step=16):
+    K = w.shape[0]
+    keep = K - ((K - 1) % step + 1)
+    return real(x[..., :keep], w[:keep])
+
+
+def bf16_gemm_faults() -> dict:
+    """{fault: patches for planted()} of kernels 1 and 2's plain versions:
+    every float product of both blocks (the QKV and out projections, W1 and
+    W2) takes the fault."""
+    from spokennlp_tpu_torch.ops.cuda import attention_block as ab
+    from spokennlp_tpu_torch.ops.cuda import mlp_block as mb
+
+    stand_ins = dict(zip(BF16_GEMM_FAULTS, (bf16_stage_sums, dropped_k_step)))
+    return {f: [(ab, "float_product", None, s), (mb, "float_product", None, s)]
+            for f, s in stand_ins.items()}
+
+
+def check_bf16_faults(name: str, got, plain, valid):
+    """Each of BF16_GEMM_FAULTS planted in ``plain`` (a call of kernel
+    ``name``'s plain version) must put ``got``, the kernel's output, beyond
+    its bf16 limit on the valid rows."""
+    for fault, patches in bf16_gemm_faults().items():
+        with planted(patches):
+            bad = plain()
+        excess = beyond_limit(got[valid], bad[valid], BF16_TOL[name])
+        print(f"  planted fault, {name} with {fault} (bf16): beyond the limit by {excess:.3e}: "
+              + ("rejected" if excess > 0 else "ACCEPTED"))
+        if excess <= 0:
+            fail(f"the bf16 limit of {name} accepts a plain version with {fault}")
 
 
 def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
@@ -569,7 +644,9 @@ def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
                  f"{max_err:.3e} (limits {W8A8_SHARE[dtype]}, {W8A8_STEP} beyond rounding)")
     else:
         atol, rtol = tol or limit(name, dtype)
-        if (err - rtol * want.abs()).max().item() > atol:
+        excess = beyond_limit(got, want, (0.0, rtol))
+        print(f"  {name} {dtype}: max(|err| - {rtol:.3g} |ref|) {excess:.3e} (atol {atol})")
+        if excess > atol:
             fail(f"{name} {dtype}: max |err| {max_err:.3e} exceeds atol {atol} + rtol {rtol} * |ref|")
     row = {"max_abs_err": max_err, **timed_pair(kernel, plain, reps)}
     print(f"kernel {name} {dtype}: max_abs_err {max_err:.3e}  kernel {row['ms']:.3f} ms  "
@@ -603,15 +680,22 @@ IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_k
 # the only functions that may still multiply int8 with IDP4A: 1c's int8
 # attention core and the W8A8 global query (global_rows_kernel)
 IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
-# the functions that run the dense attention core (attention_core.cuh): the
-# bf16 core kernel (kernels 1 and 6), and the stack entries, whose bf16 core
-# runs out of line in stack_core_item (the float32 one inline); each bf16
-# instantiation must hold HMMA (the stack's, or its stack_core_item's), the
-# float32 ones (with attn_core_simt_kernel, the float32 core) none, and no
+# the functions that run bf16 products on the tensor cores: the dense
+# attention core's kernel (kernels 1 and 6), the forward GEMM tile's three
+# kernels (bf16_gemm.cuh: kernels 1, 2, 7-9 and the training forwards) and
+# the stack entries, whose bf16 core and GEMMs run out of line in
+# stack_core_item and STACK_GEMM_ITEMS. Each bf16 instantiation must hold HMMA (a stack entry
+# itself or in its items), except the GEMM kernel's with a transposed
+# weight (the backward passes' launch_gemm<T, true>, on the SIMT tile); the
+# float32 ones (with attn_core_simt_kernel, the float32 core) none; and no
 # other function may hold it
-HMMA_KERNELS = ("attn_core_kernel", "stack_core_item", "encoder_stack_kernel",
-                "encoder_stack_i8_kernel")
-CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kernel")
+HMMA_KERNELS = ("attn_core_kernel", "gemm_bias_act_kernel", "qkv_proj_kernel",
+                "gemm_bias_residual_ln_kernel", "encoder_stack_kernel", "encoder_stack_i8_kernel")
+# the bf16 stack's out-of-line items (stack_block.cu): stack_core_item, a
+# template on the head dim, and the three GEMM items (no template)
+STACK_GEMM_ITEMS = ("stack_qkv_item", "stack_gemm_act_item", "stack_residual_ln_item")
+CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kernel",
+               "gemm_bias_act_kernel", "qkv_proj_kernel", "gemm_bias_residual_ln_kernel")
 
 
 def template_args(name: str, kernel: str) -> str:
@@ -628,17 +712,20 @@ def is_float32_instance(name: str, kernel: str) -> bool:
 
 
 def int8_build_report(log: str) -> list:
-    """Registers and spills of the int8 tile's kernels and the dense core's
-    functions from the build's ptxas report (-Xptxas -v), one line a
-    compiled function, with the tiles' dynamic shared memory; fails if one
-    of them is missing."""
+    """Registers and spills of the int8 tile's kernels, the dense core's
+    functions and the bf16 GEMM tile's kernels and stack items from the
+    build's ptxas report (-Xptxas -v), one line a compiled function, with the
+    tiles' dynamic shared memory; fails if one of them is missing."""
     from spokennlp_tpu_torch.ops.cuda import build
 
     lib = build.library()
-    smem = {"GemmTileI8": lib.spk_int8_tile_smem(0), "LnTileI8": lib.spk_int8_tile_smem(1)}
+    smem = {"GemmTileI8": lib.spk_int8_tile_smem(0), "LnTileI8": lib.spk_int8_tile_smem(1),
+            "GemmTileB": lib.spk_bf16_tile_smem(0), "LnTileB": lib.spk_bf16_tile_smem(1)}
     print(f"int8 tiles' dynamic shared memory: GemmTileI8 {smem['GemmTileI8']} bytes "
           f"(gemm_act, gemm_act_quant, qkv_proj), LnTileI8 {smem['LnTileI8']} bytes "
-          f"(residual_ln); the W8A8 stack kernel takes the largest of its phases' needs")
+          f"(residual_ln); bf16 tiles': GemmTileB {smem['GemmTileB']} bytes (gemm_bias_act, "
+          f"qkv_proj), LnTileB {smem['LnTileB']} bytes (residual_ln); a stack kernel takes the "
+          f"largest of its phases' needs")
     report, name, spills = [], None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -646,7 +733,7 @@ def int8_build_report(log: str) -> list:
         elif "spill stores" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name is not None:
-            if any(p in name for p in IMMA_KERNELS + CORE_REPORT):
+            if any(p in name for p in IMMA_KERNELS + CORE_REPORT + STACK_GEMM_ITEMS):
                 regs = line.split("Used")[1].split("registers")[0].strip()
                 report.append({"function": name, "registers": int(regs), "spills": spills})
             name, spills = None, None
@@ -675,13 +762,62 @@ def cuobjdump_path() -> str:
     fail("no cuobjdump: the SASS check cannot run")
 
 
+def sass_verdict(counts: dict) -> list:
+    """The SASS check's findings on {mangled function: [IMMA, IDP4A, HMMA]
+    counts} (one entry a function of the disassembly): every int8 tile
+    kernel (IMMA_KERNELS) holds IMMA; no function outside IDP4A_ALLOWED holds
+    IDP4A; each bf16 instantiation of HMMA_KERNELS holds HMMA (a bf16 stack
+    entry itself or in its out-of-line items; the GEMM kernel with a transposed
+    weight none, as its product runs the SIMT tile), no float32 one does,
+    and no other function does. Returns the failures, [] when it passes."""
+    bad = []
+    for p in IMMA_KERNELS:
+        found = [n for n in counts if p in n]
+        if not found:
+            bad.append(f"cuobjdump -sass shows no function for {p}")
+        bad += [f"{n} has no IMMA: its int8 products do not run on the tensor cores"
+                for n in found if not counts[n][0]]
+    stray = [n for n, (_, dp4a, _) in counts.items()
+             if dp4a and not any(a in n for a in IDP4A_ALLOWED)]
+    if stray:
+        bad.append(f"IDP4A outside the int8 attention core and the global query: {stray}")
+    # HMMA of the out-of-line items: stack_core_item by its template
+    # argument, the head dim; the GEMM items apart
+    core_items = {template_args(n, "stack_core_item"): c[2] for n, c in counts.items()
+                  if "stack_core_itemI" in n}
+    gemm_items = {n: c[2] for n, c in counts.items()
+                  if any(f"{p}E" in n for p in STACK_GEMM_ITEMS)}
+    bad += [f"{n} has no HMMA: the bf16 stack's GEMMs do not run on the tensor cores"
+            for n, hmma in gemm_items.items() if not hmma]
+    bad += [f"{n} has no HMMA: the bf16 stack's core does not run on the tensor cores"
+            for n, hmma in core_items.items() if not hmma]
+    for p in HMMA_KERNELS:
+        found = [n for n in counts if f"{p}I" in n]
+        if not any(not is_float32_instance(n, p) for n in found):
+            bad.append(f"cuobjdump -sass shows no bf16 instantiation of {p}")
+        for n in found:
+            args, hmma, f32 = template_args(n, p), counts[n][2], is_float32_instance(n, p)
+            simt = f32 or (p == "gemm_bias_act_kernel" and args.endswith("Lb1"))
+            if p.startswith("encoder_stack") and not f32:  # "<T>Li<HD>" -> "Li<HD>"
+                hmma += core_items.get("L" + args.split("L", 1)[1], 0)
+                if p == "encoder_stack_kernel":
+                    hmma += sum(gemm_items.values())
+            if simt and hmma:
+                bad.append(f"{n} holds HMMA: its products must stay on the CUDA cores")
+            if not simt and not hmma:
+                bad.append(f"{n} has no HMMA: its bf16 products do not run on the tensor cores")
+    stray = [n for n, c in counts.items()
+             if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS + ("stack_core_item",))
+             and n not in gemm_items]
+    if stray:
+        bad.append(f"HMMA outside the bf16 tensor-core functions: {stray}")
+    return bad
+
+
 def sass_check(library: Path) -> dict:
-    """Disassembles the built library (cuobjdump -sass) and fails unless
-    every int8 tile kernel (IMMA_KERNELS) runs IMMA, the tensor cores' int8
-    product, no function outside IDP4A_ALLOWED keeps IDP4A, and every bf16
-    instantiation of HMMA_KERNELS runs HMMA (the bf16 product), which no
-    float32 one and no other function holds. Returns {function: (IMMA count,
-    IDP4A count, HMMA count)} for the functions that hold any."""
+    """Disassembles the built library (cuobjdump -sass) and fails on any
+    finding of sass_verdict. Returns {function: (IMMA count, IDP4A count,
+    HMMA count)} for the functions that hold any."""
     proc = subprocess.Popen([cuobjdump_path(), "-sass", str(library)], stdout=subprocess.PIPE,
                             text=True)
     counts, name = {}, None
@@ -695,39 +831,9 @@ def sass_check(library: Path) -> dict:
             counts[name][2] += " HMMA" in line
     if proc.wait() != 0:
         fail("cuobjdump -sass failed")
-    for p in IMMA_KERNELS:
-        found = [n for n in counts if p in n]
-        if not found:
-            fail(f"cuobjdump -sass shows no function for {p}")
-        for n in found:
-            if not counts[n][0]:
-                fail(f"{n} has no IMMA: its int8 products do not run on the tensor cores")
-    stray = [n for n, (_, dp4a, _) in counts.items()
-             if dp4a and not any(a in n for a in IDP4A_ALLOWED)]
-    if stray:
-        fail(f"IDP4A outside the int8 attention core and the global query: {stray}")
-    # HMMA counts of stack_core_item (bf16 only) by its template argument,
-    # the head dim: a bf16 stack entry, whose core runs out of line, holds
-    # its HMMA there
-    items = {template_args(n, "stack_core_item"): c[2] for n, c in counts.items()
-             if "stack_core_itemI" in n}
-    for p in HMMA_KERNELS:
-        found = [n for n in counts if f"{p}I" in n]
-        # (stack_core_item is listed only where the disassembly shows a
-        # function called out of line apart from its caller)
-        if p != "stack_core_item" and not any(not is_float32_instance(n, p) for n in found):
-            fail(f"cuobjdump -sass shows no bf16 instantiation of {p}")
-        for n in found:
-            f32, hmma = is_float32_instance(n, p), counts[n][2]
-            if p.startswith("encoder_stack") and not f32:  # "<T>Li<HD>" -> "Li<HD>"
-                hmma += items.get("L" + template_args(n, p).split("L", 1)[1], 0)
-            if f32 and hmma:
-                fail(f"{n} is float32 and holds HMMA: its core must stay true float32")
-            if not f32 and not hmma:
-                fail(f"{n} has no HMMA: its bf16 attention core does not run on the tensor cores")
-    stray = [n for n, c in counts.items() if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS)]
-    if stray:
-        fail(f"HMMA outside the dense attention core's functions: {stray}")
+    bad = sass_verdict(counts)
+    if bad:
+        fail("; ".join(bad))
     held = {n: tuple(c) for n, c in counts.items() if any(c)}
     for n, (imma, dp4a, hmma) in sorted(held.items()):
         print(f"  sass: {n}: {imma} IMMA, {dp4a} IDP4A, {hmma} HMMA")
@@ -740,7 +846,9 @@ def sass_check(library: Path) -> dict:
 def kernel_phase(device) -> dict:
     """{(name, dtype): row} for the inference kernels at the main path's
     shapes; in float32, the check must reject the attention block with
-    bf16 probabilities."""
+    bf16 probabilities, in bf16 each of BF16_GEMM_FAULTS planted in the
+    plain version. The library column: cuBLAS (torch.matmul) on the block's
+    products alone, in the row's dtype (float32 without TF32)."""
     import torch
 
     from spokennlp_tpu_torch.ops.cuda.attention_block import (
@@ -768,6 +876,9 @@ def kernel_phase(device) -> dict:
             "fused_attention_block", dtype, lambda: call(fused_attention_block),
             lambda: call(attention_block_plain), valid,
         )
+        if dtype == "bfloat16":
+            check_bf16_faults("fused_attention_block", call(fused_attention_block),
+                              lambda: call(attention_block_plain), valid)
         if dtype == "float32":
             got = call(fused_attention_block)[valid]
             bad = call(attention_block_bf16_probabilities)[valid]
@@ -782,6 +893,12 @@ def kernel_phase(device) -> dict:
         flops = 2 * M * H * 3 * HN + 4 * B * NH * L * L * HD + 2 * M * HN * H
         moved = nbytes(hidden, seg, qkv_k, out_k, *att.values(), *ln.values(), hidden)
         rows["fused_attention_block", dtype].update(bound(flops, moved, dtype))
+        x2, w_qkv = hidden.reshape(M, H), qkv_k.reshape(H, 3 * HN)
+        c2, w_o = randn(M, HN).to(dt), out_k.reshape(HN, H)
+        rows["fused_attention_block", dtype]["library_ms"] = library_time(
+            lambda: (x2 @ w_qkv, c2 @ w_o), f"fused_attention_block {dtype} (torch.matmul on "
+                                            "its two projections)")
+        del c2
         x = randn(M, H).to(dt)
         w1, w2 = randn(H, I, scale=H**-0.5).to(dt), randn(I, H, scale=I**-0.5).to(dt)
         b1, b2 = randn(I, scale=0.02), randn(H, scale=0.02)
@@ -791,8 +908,15 @@ def kernel_phase(device) -> dict:
             "fused_mlp_block", dtype, lambda: mlp(fused_mlp_block, quantized=False),
             lambda: mlp(mlp_block_plain), slice(None),
         )
+        if dtype == "bfloat16":
+            check_bf16_faults("fused_mlp_block", mlp(fused_mlp_block, quantized=False),
+                              lambda: mlp(mlp_block_plain), slice(None))
         moved = nbytes(x, w1, b1, w2, b2, *ln.values(), x)
         rows["fused_mlp_block", dtype].update(bound(4 * M * H * I, moved, dtype))
+        h = randn(M, I).to(dt)
+        rows["fused_mlp_block", dtype]["library_ms"] = library_time(
+            lambda: (x @ w1, h @ w2), f"fused_mlp_block {dtype} (torch.matmul on its two products)")
+        del h
     return rows
 
 
@@ -1325,6 +1449,16 @@ def stack_kernel_phase(device) -> dict:
                                                       (x8, w18[l]), (h8, w28[l]))],
                 f"fused_encoder_stack {mode} {dtype}")
             del x8, h8, wqkv8, wo8, w18, w28
+        else:  # the library column: torch.matmul on the 4 NL products only
+            x2, h2 = hidden.reshape(M, H), randn(M, I).to(dt)
+            c2 = randn(M, HN).to(dt)
+            ws = [(x2, ps[0][l].reshape(H, 3 * HN)) for l in range(NL)]
+            ws += [(c2, ps[2][l].reshape(HN, H)) for l in range(NL)]
+            ws += [(x2, ps[6][l]) for l in range(NL)] + [(h2, ps[8][l]) for l in range(NL)]
+            row["library_ms"] = library_time(lambda: [a @ w for a, w in ws],
+                                             f"fused_encoder_stack {mode} {dtype} (torch.matmul "
+                                             f"on its {4 * NL} products)")
+            del x2, h2, c2, ws
         rows[mode, dtype] = row
         print(f"kernel {label}: kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  chain "
               f"of kernels 1+2 {chain_ms:.3f} ms  bound {row['bound_ms']:.3f} ms "
@@ -3106,6 +3240,8 @@ def main() -> int:
                         "launches": launches[name], **rows[name, dtype], "dtype": dtype})
     f32 = {name: rows[name, "float32"] for name in KERNELS if (name, "float32") in rows}
     print(json.dumps({"float32": f32}))
+    print(json.dumps({"fused_encoder_stack float": {dtype: stack_rows["float", dtype]
+                                                    for dtype in ("bfloat16", "float32")}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

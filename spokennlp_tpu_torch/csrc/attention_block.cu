@@ -14,13 +14,13 @@
 // layer's attention block is about 103 GFLOP: 56% in the QKV projection, 25%
 // in the two attention products and 19% in the output projection. That is
 // far above the card's ratio of operations to bytes, so the block is bound by
-// arithmetic. In bfloat16 the attention core runs on the tensor cores
-// (attention_core.cuh's mma.sync m16n8k16 bf16 core), and in W8A8 so do the
-// projections (int8_gemm.cuh's mma.sync s8 tile, weights handed over
-// K-major). The float projections (common.cuh's SIMT TileGemm) and the
-// float32 core stay on the CUDA cores (float32 FMA) and reach a small share
-// of what the tensor cores offer; moving the float products onto mma.sync,
-// then both tiles onto wgmma, is later work.
+// arithmetic. In bfloat16 the attention core (attention_core.cuh's mma.sync
+// m16n8k16 bf16 core) and both projections (bf16_gemm.cuh's mma.sync bf16
+// tile) run on the tensor cores, and in W8A8 the projections run the int8
+// tile (int8_gemm.cuh's mma.sync s8 tile, weights handed over K-major). The
+// float32 projections (common.cuh's SIMT TileGemm) and the float32 core stay
+// on the CUDA cores (float32 FMA); moving the tiles onto wgmma is later
+// work.
 //
 // What the design does about the TPU kernel's assumptions. On the TPU one
 // grid step owned a whole (sequence, head group), kept q, k and v in VMEM

@@ -1,0 +1,526 @@
+// The float modes' forward GEMMs (attention_block.cu, mlp_block.cu,
+// stack_block.cu, sliding_block.cu, bigbird_block.cu, ponet_block.cu and the
+// training kernels' forwards): the three tile functions every caller shares,
+// out = act(A . W + bias) * gate, the q/k/v projection with its scatter, and
+// A . W + bias + residual with a LayerNorm over whole rows, with their
+// kernels and launchers.
+//
+// In bfloat16 their products run on the tensor cores (TileGemmBf16 below:
+// mma.sync m16n8k16 bf16 with float32 sums). In float32, and for a weight
+// read transposed (the backward passes' launch_gemm<T, true>), they run
+// common.cuh's SIMT TileGemm, as before the tensor-core tile existed, so the
+// float32 modes are unchanged by a bit. Bias, activation, residual and
+// LayerNorm are float32 in both, and a value is rounded to the element type
+// exactly where the SIMT version rounds it: only the order of the float32
+// sums differs (a bf16 x bf16 product is exact in float32).
+//
+// The tile (TileGemmBf16). A is (M, K) row-major and the weight B (K, N)
+// row-major, as the callers hold them: no K-major copy of the weights, since
+// ldmatrix's .trans form reads B's (k, n) rows as the mma's column-major
+// fragment. A k-stage is 32 deep (two k16 mma steps, 64 bytes of an A row):
+// A's (BM x 32) and B's (32 x BN) slices are copied into shared memory by
+// cp.async into a ring of three stages, so two stages are in flight while
+// the warps multiply the third. Copies are 16 bytes where K, N and both base
+// pointers allow 8-element copies, else 4 bytes (2 elements); an odd K or N
+// takes a synchronous path that stages element by element through the same
+// ring. Staged rows are padded by 16 bytes to an odd number of 16-byte units
+// (A: 80 bytes, B: 2 BN + 16), so the 8 row addresses of one ldmatrix phase
+// fall on 8 distinct 16-byte bank groups. The 8 warps of a block stand 2 x 4,
+// each owning a (BM / 2) x (BN / 4) sub-tile of m16 x n8 fragments. Rows past
+// M, columns past N and depth past K are zero-filled through the copy's
+// source size, so they add nothing to the sums.
+//
+// What bounds it. At BERT-base the encoder's products are hundreds of
+// operations a byte, so bound by the tensor cores' bf16 rate (989 TFLOP/s
+// dense). mma.sync reaches part of it (each warp issues its own ldmatrix and
+// mma, and a block waits at one barrier a stage); wgmma with TMA is later
+// work, and the epilogues here already work on the accumulator fragments,
+// which it keeps in the same places.
+#pragma once
+
+#include "ptx.cuh"
+
+namespace spk {
+
+// The tile's shape: 32-deep stages in a ring of three; (kGemmRowsB x
+// kGemmColsB) output tiles for the GEMM and projection kernels; the
+// residual-LayerNorm blocks own kLnRowsB whole rows and walk them kLnColsB
+// columns at a time.
+constexpr int kTileKB = 32;
+constexpr int kStagesB = 3;
+constexpr int kARowBytesB = 2 * kTileKB + 16;  // a staged A row, padded by 16 bytes
+constexpr int kGemmRowsB = 128, kGemmColsB = 128;
+constexpr int kLnRowsB = 64, kLnColsB = 128;
+static_assert(kTileKB % 16 == 0 && kStagesB >= 2, "whole mma k-steps, a ring of two or more");
+
+// Whether a forward GEMM of element type T runs on the tensor cores: bf16
+// with the weight read as it is stored
+template <typename T, bool kTransW = false>
+__host__ __device__ constexpr bool on_tensor_cores() {
+  return std::is_same<T, __nv_bfloat16>::value && !kTransW;
+}
+
+// One BM x BN tile of the float32 product A . B of bf16 A (M, K) and B (K,
+// N), both row-major, on 256 threads (the file's header describes it).
+// acc[mi][ni][e] is the sum at tile row row(mi, e) and column col(ni, e).
+// smem holds kSmemBytes, 16-byte aligned; the tile leaves it free (all
+// copies landed, every warp past its last read) when it returns. A and B
+// carry no __restrict__: the stack kernel reads buffers that an earlier
+// phase of the same launch wrote.
+template <int BM, int BN>
+struct TileGemmBf16 {
+  using bf16 = __nv_bfloat16;
+  static constexpr int kWarpsN = 4;                     // warps stand 2 x 4
+  static constexpr int WM = BM / 2, WN = BN / kWarpsN;  // a warp's sub-tile
+  static_assert(kThreads == 256, "the warps stand 2 x 4");
+  static_assert(WM % 16 == 0 && WN % 16 == 0, "a warp owns m16 x n16 steps");
+  static constexpr int MI = WM / 16, NI = WN / 8;  // m16 and n8 fragments a warp
+  static constexpr int kBRowBytes = 2 * BN + 16;   // a staged B row (k), padded
+  static constexpr int kStageBytes = BM * kARowBytesB + kTileKB * kBRowBytes;
+  static constexpr int kSmemBytes = kStagesB * kStageBytes;
+  using Acc = float[MI][NI][4];
+
+  __device__ static int row(int mi, int e) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    return (warp / kWarpsN) * WM + mi * 16 + lane / 4 + 8 * (e / 2);
+  }
+
+  __device__ static int col(int ni, int e) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    return (warp % kWarpsN) * WN + ni * 8 + 2 * (lane % 4) + e % 2;
+  }
+
+  // f(r, c, acc at (r, c), acc at (r, c + 1)) for each pair of neighbouring
+  // columns a thread holds (c even), in tile coordinates
+  template <typename F>
+  __device__ static void for_pairs(const Acc& acc, F&& f) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          f(row(mi, 2 * h), col(ni, 0), acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+  }
+
+  // Copy R rows of W elements of X (rows, cols), from (r0, c0), into dst
+  // (rows of `pitch` bytes), zero past `rows` and `cols`: by cp.async of
+  // kBytes (16 or 4), or with kBytes == 2 element by element.
+  template <int R, int W, int kBytes>
+  __device__ static void stage(const bf16* X, int rows, int cols, int r0, int c0, int pitch,
+                               unsigned char* dst) {
+    constexpr int kElems = kBytes / 2, kPerRow = W / kElems, kCopies = R * kPerRow;
+#pragma unroll
+    for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (kCopies % kThreads && e >= kCopies) break;
+      const int r = e / kPerRow, c = e % kPerRow;
+      const int gr = r0 + r, gc = c0 + kElems * c;
+      const int n = gr < rows ? max(0, min(kElems, cols - gc)) : 0;
+      const bf16* src = n > 0 ? X + (size_t)gr * cols + gc : X;
+      unsigned char* d = dst + r * pitch + kBytes * c;
+      if constexpr (kBytes == 2) {
+        *reinterpret_cast<bf16*>(d) = n > 0 ? *src : __float2bfloat16(0.0f);
+      } else if constexpr (kBytes == 16) {
+        cp_async16(smem_addr(d), src, 2 * n);
+      } else {
+        cp_async4(smem_addr(d), src, 2 * n);
+      }
+    }
+  }
+
+  template <int kBytes>
+  __device__ static void pipeline(const bf16* A, const bf16* B, int M, int N, int K, int row0,
+                                  int col0, Acc& acc, unsigned char* smem) {
+    const int nk = (K + kTileKB - 1) / kTileKB;
+    const auto load = [&](int kt) {
+      unsigned char* s = smem + (kt % kStagesB) * kStageBytes;
+      const int k0 = kt * kTileKB;
+      stage<BM, kTileKB, kBytes>(A, M, K, row0, k0, kARowBytesB, s);
+      stage<kTileKB, BN, kBytes>(B, K, N, k0, col0, kBRowBytes, s + BM * kARowBytesB);
+    };
+#pragma unroll
+    for (int s = 0; s < kStagesB - 1; ++s) {
+      if (s < nk) load(s);
+      cp_async_commit();
+    }
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    // ldmatrix.x4 row addresses: A's four 8 x 8 matrices are (rows 0-7, k
+    // 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of an m16 x k16 fragment;
+    // B's, read transposed, are (k 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15),
+    // (8-15, 8-15): b0 and b1 of two n8 fragments
+    const int a_off = ((warp / kWarpsN) * WM + lane % 16) * kARowBytesB + (lane / 16) * 16;
+    const int b_off = BM * kARowBytesB + (lane % 16) * kBRowBytes +
+                      ((warp % kWarpsN) * WN + (lane / 16) * 8) * 2;
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kStagesB - 2>();  // stage kt has landed
+      __syncthreads();                // and every warp is done with stage kt - 1's slot
+      if (kt + kStagesB - 1 < nk) load(kt + kStagesB - 1);
+      cp_async_commit();
+      const uint32_t base = smem_addr(smem + (kt % kStagesB) * kStageBytes);
+#pragma unroll
+      for (int ks = 0; ks < kTileKB / 16; ++ks) {
+        uint32_t a[MI][4];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          ldmatrix_x4(base + a_off + mi * 16 * kARowBytesB + ks * 32, a[mi]);
+        // B two n8 fragments at a time, each used as soon as it is read, so
+        // that only four of B's registers are live beside the accumulators
+#pragma unroll
+        for (int nj = 0; nj < NI / 2; ++nj) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(base + b_off + ks * 16 * kBRowBytes + nj * 32, r);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_bf16(acc[mi][2 * nj], a[mi], r[0], r[1]);
+            mma_bf16(acc[mi][2 * nj + 1], a[mi], r[2], r[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  __device__ static void run(const bf16* A, const bf16* B, int M, int N, int K, int row0,
+                             int col0, Acc& acc, unsigned char* smem) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B);
+    if (K % 8 == 0 && N % 8 == 0 && ptrs % 16 == 0) {
+      pipeline<16>(A, B, M, N, K, row0, col0, acc, smem);
+    } else if (K % 2 == 0 && N % 2 == 0 && ptrs % 4 == 0) {
+      pipeline<4>(A, B, M, N, K, row0, col0, acc, smem);
+    } else {
+      pipeline<2>(A, B, M, N, K, row0, col0, acc, smem);
+    }
+  }
+};
+
+using GemmTileB = TileGemmBf16<kGemmRowsB, kGemmColsB>;
+using LnTileB = TileGemmBf16<kLnRowsB, kLnColsB>;
+
+// The output tiles of the three tile functions for element type T: the
+// tensor-core tile's in bf16, the SIMT tile's (64 x 64, kLnRows rows) else.
+template <typename T, bool kTransW = false>
+__host__ __device__ constexpr int gemm_tile_rows() {
+  return on_tensor_cores<T, kTransW>() ? kGemmRowsB : 64;
+}
+
+template <typename T, bool kTransW = false>
+__host__ __device__ constexpr int gemm_tile_cols() {
+  return on_tensor_cores<T, kTransW>() ? kGemmColsB : 64;
+}
+
+template <typename T>
+__host__ __device__ constexpr int ln_tile_rows() {
+  return on_tensor_cores<T>() ? kLnRowsB : kLnRows;
+}
+
+// The shared memory the tile functions take: the tensor-core ring (dynamic,
+// above 48 KB) or the SIMT staging
+template <typename T, bool kTransW = false>
+__host__ __device__ constexpr size_t gemm_smem_bytes() {
+  return on_tensor_cores<T, kTransW>()
+             ? (size_t)GemmTileB::kSmemBytes
+             : sizeof(float) * TileGemm<64, 64, T, false, kTransW>::kSmemFloats;
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t ln_smem_bytes() {
+  return on_tensor_cores<T>() ? (size_t)LnTileB::kSmemBytes
+                              : sizeof(float) * TileGemm<kLnRows, kLnCols, T>::kSmemFloats;
+}
+
+// the least blocks an SM of a tile kernel: two for the tensor-core tile (128
+// registers a thread), none (ptxas's own choice, as before it) for the SIMT
+template <typename T, bool kTransW = false>
+__host__ __device__ constexpr int gemm_min_blocks() {
+  return on_tensor_cores<T, kTransW>() ? 2 : 0;
+}
+
+// out[i] = v0 and, when `both`, out[i + 1] = v1: one 4- or 8-byte store
+// where i is even, which the callers' row-major outputs of even width give
+template <typename T>
+__device__ __forceinline__ void store_pair(T* out, size_t i, float v0, float v1, bool both) {
+  if (both && i % 2 == 0) {
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float2*>(out + i) = make_float2(v0, v1);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(v0, v1);
+    }
+    return;
+  }
+  out[i] = from_f32<T>(v0);
+  if (both) out[i + 1] = from_f32<T>(v1);
+}
+
+// out = act(A . W + bias) * gate, stored in T, for the output tile at (row0,
+// col0) (gemm_tile_rows x gemm_tile_cols). W is (K, N), or (N, K) read
+// transposed when kTransW; bias (N,) and gate (M, N) float32 may be null.
+// `smem` holds gemm_smem_bytes<T, kTransW>(), 16-byte aligned.
+template <typename T, bool kTransW = false>
+__device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const float* bias,
+                                                   T* out, int M, int N, int K, int act,
+                                                   const float* gate, int row0, int col0,
+                                                   float* smem) {
+  if constexpr (on_tensor_cores<T, kTransW>()) {
+    using G = GemmTileB;
+    G::Acc acc;
+    G::run(A, W, M, N, K, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
+    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+      const int m = row0 + r, n = col0 + c;
+      if (m >= M || n >= N) return;
+      const bool both = n + 1 < N;
+      float v0 = apply_activation(a0 + (bias != nullptr ? bias[n] : 0.0f), act);
+      float v1 = both ? apply_activation(a1 + (bias != nullptr ? bias[n + 1] : 0.0f), act) : 0.0f;
+      if (gate != nullptr) {
+        v0 *= gate[(size_t)m * N + n];
+        if (both) v1 *= gate[(size_t)m * N + n + 1];
+      }
+      store_pair(out, (size_t)m * N + n, v0, v1, both);
+    });
+  } else {
+    using G = TileGemm<64, 64, T, false, kTransW>;
+    float acc[G::TM][G::TN];
+    G::run(A, W, M, N, K, row0, col0, acc, smem);
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const int m = row0 + ty + 16 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < G::TN; ++j) {
+        const int n = col0 + tx + 16 * j;
+        if (n >= N) continue;
+        float v = apply_activation(acc[i][j] + (bias != nullptr ? bias[n] : 0.0f), act);
+        if (gate != nullptr) v *= gate[(size_t)m * N + n];
+        out[(size_t)m * N + n] = from_f32<T>(v);
+      }
+    }
+  }
+}
+
+// Grid (ceil(N / gemm_tile_cols), ceil(M / gemm_tile_rows)); the tensor-core
+// tile takes gemm_smem_bytes of dynamic shared memory, the SIMT tile static.
+template <typename T, bool kTransW = false>
+__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T, kTransW>())
+    gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                         const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K,
+                         int act, const float* __restrict__ gate = nullptr) {
+  constexpr int BM = gemm_tile_rows<T, kTransW>(), BN = gemm_tile_cols<T, kTransW>();
+  if constexpr (on_tensor_cores<T, kTransW>()) {
+    extern __shared__ __align__(16) unsigned char smem_bf16[];
+    gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * BM,
+                                   blockIdx.x * BN, reinterpret_cast<float*>(smem_bf16));
+  } else {
+    __shared__ float smem[TileGemm<64, 64, T, false, kTransW>::kSmemFloats];
+    gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * BM,
+                                   blockIdx.x * BN, smem);
+  }
+}
+
+// The dynamic shared memory a tile kernel launches with (after allowing it)
+template <typename T, bool kTransW, typename Kernel>
+cudaError_t tile_smem(Kernel kernel, size_t bytes, size_t* smem) {
+  *smem = on_tensor_cores<T, kTransW>() ? bytes : 0;
+  return *smem ? prepare(kernel, *smem) : cudaSuccess;
+}
+
+template <typename T, bool kTransW = false>
+inline cudaError_t launch_gemm(const T* A, const T* W, const float* bias, T* out, int M, int N,
+                               int K, int act, const float* gate, cudaStream_t stream) {
+  constexpr int BM = gemm_tile_rows<T, kTransW>(), BN = gemm_tile_cols<T, kTransW>();
+  size_t smem = 0;
+  const cudaError_t err = tile_smem<T, kTransW>(gemm_bias_act_kernel<T, kTransW>,
+                                                gemm_smem_bytes<T, kTransW>(), &smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, smem, stream>>>(A, W, bias, out, M, N, K,
+                                                                     act, gate);
+  return cudaGetLastError();
+}
+
+// The output tile at (row0, col0) of (M=B*L, H) . (H, slots*nh*hd) + bias,
+// scattered to (slots, B, nh, L, hd), slot 0 scaled by sm_scale (1 keeps it
+// unscaled): q, k, v with slots = 3. `smem` as for gemm_bias_act_tile.
+template <typename T>
+__device__ __forceinline__ void qkv_proj_tile(const T* x, const T* w, const float* bias, T* qkv,
+                                              int B, int L, int H, int nh, int hd,
+                                              float sm_scale, int slots, int row0, int col0,
+                                              float* smem) {
+  const int M = B * L, HN = nh * hd, N = slots * HN;
+  if constexpr (on_tensor_cores<T>()) {
+    using G = GemmTileB;
+    G::Acc acc;
+    G::run(x, w, M, N, H, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
+    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+      const int m = row0 + r, n = col0 + c;
+      if (m >= M || n >= N) return;
+      float v0 = a0 + bias[n];
+      if (n < HN) v0 *= sm_scale;
+      if (n + 1 >= N) {
+        store_qkv<T>(qkv, v0, m, n, B, L, nh, hd);
+        return;
+      }
+      float v1 = a1 + bias[n + 1];
+      if (n + 1 < HN) v1 *= sm_scale;
+      if (hd % 2 == 0) {  // n even: d and d + 1 of one head, neighbours in qkv
+        const int b = m / L, l = m - b * L, s = n / HN, rr = n - s * HN, h = rr / hd;
+        store_pair(qkv, ((((size_t)s * B + b) * nh + h) * L + l) * hd + (rr - h * hd), v0, v1,
+                   true);
+      } else {
+        store_qkv<T>(qkv, v0, m, n, B, L, nh, hd);
+        store_qkv<T>(qkv, v1, m, n + 1, B, L, nh, hd);
+      }
+    });
+  } else {
+    using G = TileGemm<64, 64, T>;
+    float acc[G::TM][G::TN];
+    G::run(x, w, M, N, H, row0, col0, acc, smem);
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const int m = row0 + ty + 16 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < G::TN; ++j) {
+        const int n = col0 + tx + 16 * j;
+        if (n >= N) continue;
+        float v = acc[i][j] + bias[n];
+        if (n < HN) v *= sm_scale;
+        store_qkv<T>(qkv, v, m, n, B, L, nh, hd);
+      }
+    }
+  }
+}
+
+// Grid (ceil(slots*nh*hd / gemm_tile_cols), ceil(B*L / gemm_tile_rows)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+    qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
+                    int nh, int hd, float sm_scale, int slots) {
+  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
+  if constexpr (on_tensor_cores<T>()) {
+    extern __shared__ __align__(16) unsigned char smem_bf16[];
+    qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, slots, blockIdx.y * BM,
+                     blockIdx.x * BN, reinterpret_cast<float*>(smem_bf16));
+  } else {
+    __shared__ float smem[TileGemm<64, 64, T>::kSmemFloats];
+    qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, slots, blockIdx.y * BM,
+                     blockIdx.x * BN, smem);
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T* qkv, int B, int L,
+                                   int H, int nh, int hd, float sm_scale, cudaStream_t stream,
+                                   int slots = 3) {
+  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
+  size_t smem = 0;
+  const cudaError_t err = tile_smem<T, false>(qkv_proj_kernel<T>, gemm_smem_bytes<T>(), &smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((slots * nh * hd + BN - 1) / BN, (B * L + BM - 1) / BM);
+  qkv_proj_kernel<T><<<grid, kThreads, smem, stream>>>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale,
+                                                       slots);
+  return cudaGetLastError();
+}
+
+// out = LayerNorm(resid + A . W + bias) * ln_scale + ln_bias over rows of
+// width N, or out = A . W + bias when fuse_ln == 0, for the ln_tile_rows<T>
+// whole rows from row0. The block walks the N columns tile by tile, writes
+// the pre-norm rows in float32 to `rows` (M, N), then normalises each row
+// with one warp (ln_rows). The block reads back only what it wrote, while it
+// is still in L2; holding the rows in shared memory instead (98 KB at N=768)
+// let only two blocks onto an SM and ran at a third of the plain GEMM's
+// rate. `smem` holds ln_smem_bytes<T>(), 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, const float* bias,
+                                                     const T* resid, const float* ln_scale,
+                                                     const float* ln_bias, float* rows, T* out,
+                                                     int M, int N, int K, float eps, int fuse_ln,
+                                                     int row0, float* smem) {
+  if constexpr (on_tensor_cores<T>()) {
+    using G = LnTileB;
+    for (int col0 = 0; col0 < N; col0 += kLnColsB) {
+      G::Acc acc;
+      G::run(A, W, M, N, K, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
+      G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+        const int m = row0 + r, n = col0 + c;
+        if (m >= M || n >= N) return;
+        const bool both = n + 1 < N;
+        const size_t i = (size_t)m * N + n;
+        float v0 = a0 + bias[n], v1 = both ? a1 + bias[n + 1] : 0.0f;
+        if (fuse_ln) {
+          v0 += to_f32(resid[i]);
+          if (both) v1 += to_f32(resid[i + 1]);
+        }
+        store_pair(rows, i, v0, v1, both);
+      });
+    }
+  } else {
+    using G = TileGemm<kLnRows, kLnCols, T>;
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    for (int col0 = 0; col0 < N; col0 += kLnCols) {
+      float acc[G::TM][G::TN];
+      G::run(A, W, M, N, K, row0, col0, acc, smem);
+#pragma unroll
+      for (int i = 0; i < G::TM; ++i) {
+        const int m = row0 + ty + 16 * i;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < G::TN; ++j) {
+          const int c = col0 + tx + 16 * j;
+          if (c >= N) continue;
+          float v = acc[i][j] + bias[c];
+          if (fuse_ln) v += to_f32(resid[(size_t)m * N + c]);
+          rows[(size_t)m * N + c] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();  // makes the block's global writes visible to the block
+  ln_rows<T, ln_tile_rows<T>()>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
+}
+
+// Grid (ceil(M / ln_tile_rows<T>)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+    gemm_bias_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                                 const float* __restrict__ bias, const T* __restrict__ resid,
+                                 const float* __restrict__ ln_scale,
+                                 const float* __restrict__ ln_bias, float* rows,
+                                 T* __restrict__ out, int M, int N, int K, float eps,
+                                 int fuse_ln) {
+  if constexpr (on_tensor_cores<T>()) {
+    extern __shared__ __align__(16) unsigned char smem_bf16[];
+    residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
+                            fuse_ln, blockIdx.x * kLnRowsB, reinterpret_cast<float*>(smem_bf16));
+  } else {
+    __shared__ float smem[TileGemm<kLnRows, kLnCols, T>::kSmemFloats];
+    residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
+                            fuse_ln, blockIdx.x * kLnRows, smem);
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_residual_ln(const T* A, const T* W, const float* bias, const T* resid,
+                                      const float* ln_scale, const float* ln_bias, float* rows,
+                                      T* out, int M, int N, int K, float eps, int fuse_ln,
+                                      cudaStream_t stream) {
+  constexpr int R = ln_tile_rows<T>();
+  size_t smem = 0;
+  const cudaError_t err = tile_smem<T, false>(gemm_bias_residual_ln_kernel<T>, ln_smem_bytes<T>(),
+                                              &smem);
+  if (err != cudaSuccess) return err;
+  gemm_bias_residual_ln_kernel<T><<<(M + R - 1) / R, kThreads, smem, stream>>>(
+      A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln);
+  return cudaGetLastError();
+}
+
+}  // namespace spk

@@ -13,8 +13,9 @@
 // is about 77 GFLOP of projections (q, k, v, out) and 30 GFLOP of attention
 // (at most 8 key blocks a query block, 64 for the two global blocks)
 // against some 30 MB of inputs, weights and output: bound by arithmetic.
-// These are SIMT kernels on the CUDA cores in float32; the tensor cores are
-// later work.
+// In bf16 the projections and the out-LN run bf16_gemm.cuh's tensor-core
+// tile; the rows kernel is a SIMT kernel on the CUDA cores in float32, whose
+// move is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM

@@ -1,13 +1,14 @@
-// Shared device code of the encoder kernels (attention_block.cu,
-// mlp_block.cu, train_attention.cu, train_mlp.cu, sliding_block.cu,
-// train_sliding.cu, int8_gemm.cuh, stack_block.cu): dtype conversion, the
+// Shared device code of the encoder kernels: dtype conversion, the
 // activation table and its derivative, warp sums, a counter-based Philox
 // generator for dropout, a SIMT tiled GEMM (either operand may be read
-// transposed), the GEMM whose epilogue adds bias and residual and applies
-// LayerNorm over whole rows, the QKV projection and the weight-gradient GEMM
-// that reduces over all rows. The inference kernels' bodies are device
-// functions of one tile or row block, so the whole-stack kernel
-// (stack_block.cu) runs the same code on the same tiles.
+// transposed), the weight-gradient GEMM that reduces over all rows, the q/k/v
+// scatter and the row LayerNorm. The forward tile functions built on them
+// (the GEMM with bias and activation, the QKV projection, the GEMM whose
+// epilogue adds bias and residual and applies LayerNorm over whole rows)
+// live in bf16_gemm.cuh beside the tensor-core tile their bf16 instantiations
+// run. The inference kernels' bodies are device functions of one tile or row
+// block, so the whole-stack kernel (stack_block.cu) runs the same code on the
+// same tiles.
 //
 // All arithmetic accumulates in float32. Element types are float or
 // __nv_bfloat16; a value stored in the element type is rounded exactly where
@@ -236,53 +237,6 @@ struct TileGemm {
   }
 };
 
-// out = act(A . W + bias) * gate, stored in T, for the 64 x 64 output tile at
-// (row0, col0). W is (K, N), or (N, K) read transposed when kTransW; bias (N,)
-// and gate (M, N) float32 may be null. `smem` holds TileGemm's staging.
-template <typename T, bool kTransW = false>
-__device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const float* bias,
-                                                   T* out, int M, int N, int K, int act,
-                                                   const float* gate, int row0, int col0,
-                                                   float* smem) {
-  using G = TileGemm<64, 64, T, false, kTransW>;
-  float acc[G::TM][G::TN];
-  G::run(A, W, M, N, K, row0, col0, acc, smem);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < G::TM; ++i) {
-    const int m = row0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < G::TN; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n >= N) continue;
-      float v = apply_activation(acc[i][j] + (bias != nullptr ? bias[n] : 0.0f), act);
-      if (gate != nullptr) v *= gate[(size_t)m * N + n];
-      out[(size_t)m * N + n] = from_f32<T>(v);
-    }
-  }
-}
-
-// Grid (ceil(N / 64), ceil(M / 64)).
-template <typename T, bool kTransW = false>
-__global__ void __launch_bounds__(kThreads)
-    gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                         const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K,
-                         int act, const float* __restrict__ gate = nullptr) {
-  __shared__ float smem[TileGemm<64, 64, T, false, kTransW>::kSmemFloats];
-  gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * 64,
-                                 blockIdx.x * 64, smem);
-}
-
-template <typename T, bool kTransW = false>
-inline cudaError_t launch_gemm(const T* A, const T* W, const float* bias, T* out, int M, int N,
-                               int K, int act, const float* gate, cudaStream_t stream) {
-  const dim3 grid((N + 63) / 64, (M + 63) / 64);
-  gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, 0, stream>>>(A, W, bias, out, M, N, K, act,
-                                                                  gate);
-  return cudaGetLastError();
-}
-
 // Weight gradient dW = X^T . dY (Hin, N) in float32, summed over all M rows,
 // and with db != null the bias gradient db = sum over rows of dY (N,). Each
 // block owns one 64 x 64 tile of dW and walks all M rows itself, so nothing
@@ -332,56 +286,8 @@ __device__ __forceinline__ void store_qkv(T* qkv, float v, int m, int n, int B, 
   qkv[((((size_t)s * B + b) * nh + h) * L + l) * hd + d] = from_f32<T>(v);
 }
 
-// The (64 x 64) tile at (row0, col0) of (M=B*L, H) . (H, slots*nh*hd) + bias,
-// scattered to (slots, B, nh, L, hd), slot 0 scaled by sm_scale (1 keeps it
-// unscaled): q, k, v with slots = 3.
-template <typename T>
-__device__ __forceinline__ void qkv_proj_tile(const T* x, const T* w, const float* bias, T* qkv,
-                                              int B, int L, int H, int nh, int hd,
-                                              float sm_scale, int slots, int row0, int col0,
-                                              float* smem) {
-  using G = TileGemm<64, 64, T>;
-  const int M = B * L, HN = nh * hd, N = slots * HN;
-  float acc[G::TM][G::TN];
-  G::run(x, w, M, N, H, row0, col0, acc, smem);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < G::TM; ++i) {
-    const int m = row0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < G::TN; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n >= N) continue;
-      float v = acc[i][j] + bias[n];
-      if (n < HN) v *= sm_scale;
-      store_qkv<T>(qkv, v, m, n, B, L, nh, hd);
-    }
-  }
-}
-
-// Grid (ceil(slots*nh*hd / 64), ceil(B*L / 64)).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
-                    int nh, int hd, float sm_scale, int slots) {
-  __shared__ float smem[TileGemm<64, 64, T>::kSmemFloats];
-  qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, slots, blockIdx.y * 64,
-                   blockIdx.x * 64, smem);
-}
-
-template <typename T>
-inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T* qkv, int B, int L,
-                                   int H, int nh, int hd, float sm_scale, cudaStream_t stream,
-                                   int slots = 3) {
-  const dim3 grid((slots * nh * hd + 63) / 64, (B * L + 63) / 64);
-  qkv_proj_kernel<T><<<grid, kThreads, 0, stream>>>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale,
-                                                    slots);
-  return cudaGetLastError();
-}
-
-// Rows of the residual-LayerNorm GEMM a block owns, and its column tile.
+// Rows of the SIMT residual-LayerNorm GEMM a block owns, and its column tile
+// (bf16_gemm.cuh has the tensor-core tile's).
 constexpr int kLnRows = 32;
 constexpr int kLnCols = 128;
 
@@ -415,67 +321,6 @@ __device__ __forceinline__ void ln_rows(const float* rows, const float* ln_scale
     for (int c = lane; c < N; c += 32)
       o[c] = from_f32<T>((row[c] - mean) * inv * ln_scale[c] + ln_bias[c]);
   }
-}
-
-// out = LayerNorm(resid + A . W + bias) * ln_scale + ln_bias over rows of
-// width N, or out = A . W + bias when fuse_ln == 0, for the kLnRows whole
-// rows from row0. The block walks the N columns tile by tile, writes the
-// pre-norm rows in float32 to `rows` (M, N), then normalises each row with
-// one warp. The block reads back only what it wrote, while it is still in
-// L2; holding the rows in shared memory instead (98 KB at N=768) let only two
-// blocks onto an SM and ran at a third of the plain GEMM's rate.
-template <typename T>
-__device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, const float* bias,
-                                                     const T* resid, const float* ln_scale,
-                                                     const float* ln_bias, float* rows, T* out,
-                                                     int M, int N, int K, float eps, int fuse_ln,
-                                                     int row0, float* smem) {
-  using G = TileGemm<kLnRows, kLnCols, T>;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int col0 = 0; col0 < N; col0 += kLnCols) {
-    float acc[G::TM][G::TN];
-    G::run(A, W, M, N, K, row0, col0, acc, smem);
-#pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      const int m = row0 + ty + 16 * i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < G::TN; ++j) {
-        const int c = col0 + tx + 16 * j;
-        if (c >= N) continue;
-        float v = acc[i][j] + bias[c];
-        if (fuse_ln) v += to_f32(resid[(size_t)m * N + c]);
-        rows[(size_t)m * N + c] = v;
-      }
-    }
-  }
-  __syncthreads();  // makes the block's global writes visible to the block
-  ln_rows<T>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
-}
-
-// Grid (ceil(M / kLnRows)).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gemm_bias_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                                 const float* __restrict__ bias, const T* __restrict__ resid,
-                                 const float* __restrict__ ln_scale,
-                                 const float* __restrict__ ln_bias, float* rows,
-                                 T* __restrict__ out, int M, int N, int K, float eps,
-                                 int fuse_ln) {
-  __shared__ float smem[TileGemm<kLnRows, kLnCols, T>::kSmemFloats];
-  residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln,
-                          blockIdx.x * kLnRows, smem);
-}
-
-template <typename T>
-inline cudaError_t launch_residual_ln(const T* A, const T* W, const float* bias, const T* resid,
-                                      const float* ln_scale, const float* ln_bias, float* rows,
-                                      T* out, int M, int N, int K, float eps, int fuse_ln,
-                                      cudaStream_t stream) {
-  const dim3 grid((M + kLnRows - 1) / kLnRows);
-  gemm_bias_residual_ln_kernel<T><<<grid, kThreads, 0, stream>>>(
-      A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln);
-  return cudaGetLastError();
 }
 
 }  // namespace spk

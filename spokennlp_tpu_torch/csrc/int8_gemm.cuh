@@ -44,7 +44,7 @@
 // on the accumulator fragments, which it keeps in the same places.
 #pragma once
 
-#include "ptx.cuh"
+#include "bf16_gemm.cuh"
 
 namespace spk {
 
@@ -251,22 +251,6 @@ struct TileGemmI8 {
 
 using GemmTileI8 = TileGemmI8<kGemmRows8, kGemmCols8>;
 using LnTileI8 = TileGemmI8<kLnRows8, kLnCols8>;
-
-// out[i] = v0 and, when `both`, out[i + 1] = v1: one 4- or 8-byte store
-// where i is even, which the callers' row-major outputs of even width give
-template <typename T>
-__device__ __forceinline__ void store_pair(T* out, size_t i, float v0, float v1, bool both) {
-  if (both && i % 2 == 0) {
-    if constexpr (std::is_same<T, float>::value) {
-      *reinterpret_cast<float2*>(out + i) = make_float2(v0, v1);
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(v0, v1);
-    }
-    return;
-  }
-  out[i] = from_f32<T>(v0);
-  if (both) out[i + 1] = from_f32<T>(v1);
-}
 
 // out = act(dequant(A8 . W8) + bias) in Tout for the GemmTileI8 tile at
 // (row0, col0): W8 (N, K) K-major, sa (M,) row scales, sw (N,) column

@@ -82,3 +82,10 @@ extern "C" int spk_int8_tile_smem(int which) {
   return which == 0 ? spk::GemmTileI8::kSmemBytes
                     : which == 1 ? spk::LnTileI8::kSmemBytes : -1;
 }
+
+// The bf16 tensor-core tiles' dynamic shared memory (bf16_gemm.cuh): which 0
+// the GEMM and projection tile, 1 the residual-LayerNorm tile.
+extern "C" int spk_bf16_tile_smem(int which) {
+  return which == 0 ? spk::GemmTileB::kSmemBytes
+                    : which == 1 ? spk::LnTileB::kSmemBytes : -1;
+}

@@ -9,13 +9,14 @@
 // What bounds it here. At BERT-base (M = 32 * 512 rows, H=768, I=3072) the
 // block is 155 GFLOP against about 60 MB of input, weights and output in
 // bfloat16, plus 200 MB for the intermediate's round trip below: some 600
-// operations a byte, so it is bound by arithmetic. The float modes run SIMT
-// kernels on the CUDA cores (float32 FMA). In W8A8 both products run on the
-// tensor cores (int8_gemm.cuh's mma.sync s8 tile, weights handed over
-// K-major): the tile's issue rate and barriers bound them, and the float32
-// intermediate's round trip below (about 0.2 ms at this shape) and the
-// row-quant passes become a visible share; wgmma with TMA, and the float
-// products on mma.sync, are later work.
+// operations a byte, so it is bound by arithmetic. In bfloat16 both products
+// run on the tensor cores (bf16_gemm.cuh's mma.sync bf16 tile, float32
+// sums); in float32 they run SIMT kernels on the CUDA cores (float32 FMA).
+// In W8A8 both products run on the tensor cores (int8_gemm.cuh's mma.sync s8
+// tile, weights handed over K-major): the tile's issue rate and barriers
+// bound them, and the float32 intermediate's round trip below (about 0.2 ms
+// at this shape) and the row-quant passes become a visible share; wgmma with
+// TMA is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept both weight matrices resident in VMEM and the (rows, I) intermediate

@@ -22,12 +22,12 @@
 //
 // What bounds it here. At PoNet-base (B=8, L=4096, H=768) the block is six
 // (M, H) x (H, H) products, 232 GFLOP, against about 100 MB of input and
-// output in float32: bound by arithmetic. The float products run on the
-// port's SIMT tile (float32 FMA on the CUDA cores); in W8A8 they run on the
-// tensor cores (int8_gemm.cuh's mma.sync s8 tile, weights K-major), which
-// leaves the pooling phases, a few passes over the (M, 5H) projections
-// bound by memory, a larger share; the float tile's move to mma.sync is
-// later work.
+// output in float32: bound by arithmetic. The float32 products run on the
+// port's SIMT tile (float32 FMA on the CUDA cores), the bf16 ones on
+// bf16_gemm.cuh's mma.sync bf16 tile; in W8A8 they run on the tensor cores
+// (int8_gemm.cuh's mma.sync s8 tile, weights K-major), which leaves the
+// pooling phases, a few passes over the (M, 5H) projections bound by
+// memory, a larger share.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // held a whole (L, H) sequence in VMEM per grid step, on a grid of (B,), and

@@ -12,8 +12,9 @@
 // 12 heads of 64, window 512, CLS global) a layer's block is about 116 GFLOP
 // of projections (local q, k, v, global k, v, out) and 26 GFLOP of band
 // attention (2C + 1 keys a row) against some 60 MB of inputs, weights and
-// output: bound by arithmetic. These are SIMT kernels on the CUDA cores in float32; the
-// tensor cores are later work.
+// output: bound by arithmetic. In bf16 the projections and the out-LN run
+// bf16_gemm.cuh's tensor-core tile; the band and global-row kernels are SIMT
+// kernels on the CUDA cores in float32, whose move is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM

@@ -10,10 +10,10 @@
 //
 // What bounds it here. Its work is the two blocks' work times NL (about 3.1
 // TFLOP for 12 BERT-base layers at B=32, L=512), so it is bound by
-// arithmetic, as they are: the bf16 attention core and the W8A8 products run
-// on the tensor cores (attention_core.cuh's bf16 mma.sync core,
-// int8_gemm.cuh's s8 mma.sync tile), the float GEMMs and the float32 core on
-// the CUDA cores. What the TPU kernel
+// arithmetic, as they are: the bf16 attention core, the bf16 GEMMs and the
+// W8A8 products run on the tensor cores (attention_core.cuh's bf16 mma.sync
+// core, bf16_gemm.cuh's bf16 and int8_gemm.cuh's s8 mma.sync tiles), the
+// float32 GEMMs and core on the CUDA cores. What the TPU kernel
 // saved is what a stack of launches costs besides: 2-5 launches a block,
 // 24-108 a forward, each with a ramp-up and a tail where SMs idle, and the
 // hidden state's trips through device memory between them.
@@ -79,16 +79,40 @@ struct StackArgs {
 };
 
 // The dynamic shared memory of a block: the largest of its phases' needs,
-// the float tiles or (W8A8) the int8 tiles' rings, and the attention core.
+// the float tiles (bf16: the tensor-core tiles' rings) or (W8A8) the int8
+// tiles' rings, and the attention core.
 template <typename T, int HD, bool kQuant>
 constexpr size_t stack_smem_bytes() {
-  constexpr size_t gemm = kQuant ? GemmTileI8::kSmemBytes
-                                 : sizeof(float) * TileGemm<64, 64, float>::kSmemFloats;
-  constexpr size_t ln = kQuant ? LnTileI8::kSmemBytes
-                               : sizeof(float) * TileGemm<kLnRows, kLnCols, float>::kSmemFloats;
+  constexpr size_t gemm = kQuant ? GemmTileI8::kSmemBytes : gemm_smem_bytes<T>();
+  constexpr size_t ln = kQuant ? LnTileI8::kSmemBytes : ln_smem_bytes<T>();
   constexpr size_t core = attn_core_smem_bytes<T, HD>();
   constexpr size_t a = gemm > ln ? gemm : ln;
   return a > core ? a : core;
+}
+
+// The bf16 stack's tensor-core GEMM items, kept out of line as its core item
+// is: inlined, their registers would add to the whole kernel's pressure. The
+// float32 stack calls the SIMT tile functions inline, as before.
+__device__ __noinline__ void stack_qkv_item(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                            const float* bias, __nv_bfloat16* qkv, int B, int L,
+                                            int H, int nh, int hd, float sm_scale, int row0,
+                                            int col0, float* smem) {
+  qkv_proj_tile<__nv_bfloat16>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, 3, row0, col0, smem);
+}
+
+__device__ __noinline__ void stack_gemm_act_item(const __nv_bfloat16* A,
+                                                 const __nv_bfloat16* W, const float* bias,
+                                                 __nv_bfloat16* out, int M, int N, int K,
+                                                 int act, int row0, int col0, float* smem) {
+  gemm_bias_act_tile<__nv_bfloat16>(A, W, bias, out, M, N, K, act, nullptr, row0, col0, smem);
+}
+
+__device__ __noinline__ void stack_residual_ln_item(
+    const __nv_bfloat16* A, const __nv_bfloat16* W, const float* bias,
+    const __nv_bfloat16* resid, const float* ln_scale, const float* ln_bias, float* rows,
+    __nv_bfloat16* out, int M, int N, int K, float eps, int row0, float* smem) {
+  residual_ln_rowblock<__nv_bfloat16>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K,
+                                      eps, 1, row0, smem);
 }
 
 // One bf16 attention-core item of the stack, kept out of line: inlined, the
@@ -113,7 +137,10 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
   const int nblk = gridDim.x, blk = blockIdx.x;
   constexpr int kWarps = kThreads / 32;
   const int warp0 = blk * kWarps + threadIdx.x / 32, nwarps = nblk * kWarps;
-  const int mt = (M + 63) / 64, rb = (M + kLnRows - 1) / kLnRows;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  // the float tiles' counts (bf16: the tensor-core tiles')
+  constexpr int TR = gemm_tile_rows<T>(), TC = gemm_tile_cols<T>(), LR = ln_tile_rows<T>();
+  const int mt = (M + TR - 1) / TR, rb = (M + LR - 1) / LR;
   // the int8 tiles' counts
   const int mt8 = (M + kGemmRows8 - 1) / kGemmRows8, rb8 = (M + kLnRows8 - 1) / kLnRows8;
   const CoreLayout lay = block_layout(B, L, nh, HD);
@@ -136,7 +163,7 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
     const float* ln2b = a.ln2b + (size_t)layer * H;
 
     // ---- attention half-layer: h1 = LN(x + outproj(MHA(qkv(x))))
-    const int qt = (3 * HN + 63) / 64;
+    const int qt = (3 * HN + TC - 1) / TC;
     if constexpr (kQuant) {
       const int qt8 = (3 * HN + kGemmCols8 - 1) / kGemmCols8;
       rowquant_items<T>(x, M, H, 1, a.q8, a.scales, warp0, nwarps);
@@ -148,16 +175,22 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
                             (t % qt8) * kGemmCols8, smem8);
     } else {
       const T* w = static_cast<const T*>(a.wqkv) + lq;
-      for (int t = blk; t < mt * qt; t += nblk)
-        qkv_proj_tile<T>(x, w, bqkv, qkv, B, L, H, nh, HD, a.sm_scale, 3, (t / qt) * 64,
-                         (t % qt) * 64, smem);
+      for (int t = blk; t < mt * qt; t += nblk) {
+        if constexpr (kF32) {
+          qkv_proj_tile<T>(x, w, bqkv, qkv, B, L, H, nh, HD, a.sm_scale, 3, (t / qt) * TR,
+                           (t % qt) * TC, smem);
+        } else {
+          stack_qkv_item(x, w, bqkv, qkv, B, L, H, nh, HD, a.sm_scale, (t / qt) * TR,
+                         (t % qt) * TC, smem);
+        }
+      }
     }
     grid.sync();
     constexpr int kRows = core_rows<T>();  // the query tile of kernel 1's core launch
     const int lt = (L + kRows - 1) / kRows;
     for (int t = blk; t < lt * nh * B; t += nblk) {
       const int q0 = (t % lt) * kRows, h = (t / lt) % nh, b = t / (lt * nh);
-      if constexpr (std::is_same<T, float>::value) {
+      if constexpr (kF32) {
         attn_core_tile<T, HD, T>(qkv, a.seg, ctx, L, lay, 1.0f, q0, h, b, smem);
       } else {
         stack_core_item<HD>(qkv, a.seg, ctx, L, lay, q0, h, b, smem);
@@ -173,14 +206,20 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
                                    ln1b, a.rows, h1, M, H, HN, 1, a.eps, 1, t * kLnRows8, smem8);
     } else {
       const T* w = static_cast<const T*>(a.wo) + lo;
-      for (int t = blk; t < rb; t += nblk)
-        residual_ln_rowblock<T>(ctx, w, bo, x, ln1s, ln1b, a.rows, h1, M, H, HN, a.eps, 1,
-                                t * kLnRows, smem);
+      for (int t = blk; t < rb; t += nblk) {
+        if constexpr (kF32) {
+          residual_ln_rowblock<T>(ctx, w, bo, x, ln1s, ln1b, a.rows, h1, M, H, HN, a.eps, 1,
+                                  t * LR, smem);
+        } else {
+          stack_residual_ln_item(ctx, w, bo, x, ln1s, ln1b, a.rows, h1, M, H, HN, a.eps, t * LR,
+                                 smem);
+        }
+      }
     }
     grid.sync();
 
     // ---- MLP half-layer: x' = LN(h1 + W2 . act(W1 . h1 + b1) + b2)
-    const int it = (I + 63) / 64;
+    const int it = (I + TC - 1) / TC;
     if constexpr (kQuant) {
       const int it8 = (I + kGemmCols8 - 1) / kGemmCols8;
       float* mid = static_cast<float*>(a.mid);
@@ -200,14 +239,26 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
     } else {
       T* mid = static_cast<T*>(a.mid);
       const T* w1 = static_cast<const T*>(a.w1) + lm;
-      for (int t = blk; t < mt * it; t += nblk)
-        gemm_bias_act_tile<T>(h1, w1, b1, mid, M, I, H, a.act, nullptr, (t / it) * 64,
-                              (t % it) * 64, smem);
+      for (int t = blk; t < mt * it; t += nblk) {
+        if constexpr (kF32) {
+          gemm_bias_act_tile<T>(h1, w1, b1, mid, M, I, H, a.act, nullptr, (t / it) * TR,
+                                (t % it) * TC, smem);
+        } else {
+          stack_gemm_act_item(h1, w1, b1, mid, M, I, H, a.act, (t / it) * TR, (t % it) * TC,
+                              smem);
+        }
+      }
       grid.sync();
       const T* w2 = static_cast<const T*>(a.w2) + lm;
-      for (int t = blk; t < rb; t += nblk)
-        residual_ln_rowblock<T>(mid, w2, b2, h1, ln2s, ln2b, a.rows, out, M, H, I, a.eps, 1,
-                                t * kLnRows, smem);
+      for (int t = blk; t < rb; t += nblk) {
+        if constexpr (kF32) {
+          residual_ln_rowblock<T>(mid, w2, b2, h1, ln2s, ln2b, a.rows, out, M, H, I, a.eps, 1,
+                                  t * LR, smem);
+        } else {
+          stack_residual_ln_item(mid, w2, b2, h1, ln2s, ln2b, a.rows, out, M, H, I, a.eps,
+                                 t * LR, smem);
+        }
+      }
     }
     grid.sync();
   }

@@ -29,8 +29,10 @@
 // What bounds it here. At BERT-base (B=32, L=512, H=768, 12 heads of 64) the
 // forward is about 103 GFLOP and the backward, which recomputes the forward,
 // about three times that, against some 25 MB (forward) and 50 MB (backward)
-// of inputs, weights and outputs in bf16: bound by arithmetic. These are
-// SIMT kernels on the CUDA cores in float32; tensor cores are later work.
+// of inputs, weights and outputs in bf16: bound by arithmetic. In bf16 the
+// forward's projections run bf16_gemm.cuh's tensor-core tile; the rest are
+// SIMT kernels on the CUDA cores in float32, whose move to the tensor cores
+// is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v and the (L, L) probabilities
@@ -60,6 +62,7 @@
 // The probabilities are recomputed three times in the backward (rows, dq,
 // dkv) instead of being stored: (B, nh, L, L) never touches device memory.
 #include "attention_tiles.cuh"
+#include "bf16_gemm.cuh"
 
 namespace spk {
 namespace {

@@ -22,8 +22,9 @@
 // heads of 64, blocks of 64) the forward is about 27 GFLOP and the backward,
 // which recomputes the forward's projections and attention, about 80 GFLOP,
 // against some 15 MB (forward) and 40 MB (backward) of inputs, weights and
-// outputs in bf16: bound by arithmetic. SIMT kernels on the CUDA cores in
-// float32; tensor cores are later work.
+// outputs in bf16: bound by arithmetic. In bf16 the forward's projections
+// run bf16_gemm.cuh's tensor-core tile; the rest are SIMT kernels on the CUDA
+// cores in float32, whose move to the tensor cores is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence and scatter-added each query block's dk and

@@ -11,8 +11,11 @@
 // What bounds it here. At BERT-base (M = 32 * 512 rows, H=768, I=3072) the
 // forward is 155 GFLOP and the backward 309 GFLOP plus the recomputed
 // forward product, against 30 MB (forward) and 60 MB (backward) of inputs,
-// weights and outputs in bf16: bound by arithmetic. These SIMT kernels run
-// on the CUDA cores in float32; tensor cores are later work.
+// weights and outputs in bf16: bound by arithmetic. In bf16 the forward's two
+// products run bf16_gemm.cuh's tensor-core tile; the rest (the float32
+// modes, the backward's products and the recomputed act') are SIMT kernels
+// on the CUDA cores in float32, whose move to the tensor cores is later
+// work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept both weight matrices in VMEM, the (rows, I) intermediate in registers,
@@ -31,7 +34,7 @@
 //               no atomics and come out the same on every run.
 // The (M, I) intermediates (h, and in the backward act' and dpre) make a
 // round trip through device memory; keeping them on chip is later work.
-#include "common.cuh"
+#include "bf16_gemm.cuh"
 
 namespace spk {
 namespace {

@@ -23,8 +23,9 @@
 // heads of 64, window 512) the forward is about 36 GFLOP and the backward,
 // which recomputes the forward's projections and attention, about 100 GFLOP,
 // against some 20 MB (forward) and 50 MB (backward) of inputs, weights and
-// outputs in bf16: bound by arithmetic. SIMT kernels on the CUDA cores in
-// float32; tensor cores are later work.
+// outputs in bf16: bound by arithmetic. In bf16 the forward's projections
+// run bf16_gemm.cuh's tensor-core tile; the rest are SIMT kernels on the CUDA
+// cores in float32, whose move to the tensor cores is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into

@@ -31,6 +31,7 @@ import torch
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     DTYPE_CODES as _DTYPES,
+    float_product,
     int8_product,
     kmajor,
     quantize_colwise,
@@ -220,7 +221,9 @@ def attention_block_plain(
         return _attention_w8a8_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel,
                                      out_bias, sm_scale, ln_scale, ln_bias, eps, groups, core)
     x = hidden.float()
-    qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
+    B, L, H = x.shape
+    qkv = float_product(x, qkv_kernel.reshape(H, -1)).reshape(B, L, *qkv_kernel.shape[1:])
+    qkv = qkv + qkv_bias.float()
     q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
     scores = torch.einsum("blnd,bmnd->bnlm", q * sm_scale, k)
     seg = segment_ids
@@ -228,7 +231,7 @@ def attention_block_plain(
     scores = scores + torch.where(allowed, 0.0, NEG_INF)[:, None]
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bnlm,bmnd->blnd", probs, v)
-    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    out = float_product(ctx.reshape(B, L, -1), out_kernel.reshape(-1, H)) + out_bias.float()
     if ln_scale is not None:
         out = _layer_norm(out + x, ln_scale, ln_bias, eps)
     return out.to(hidden.dtype)

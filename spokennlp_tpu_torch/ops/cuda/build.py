@@ -55,6 +55,7 @@ _SIGNATURES = {
     "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],
     "spk_ponet_block": [_I, _I] + [_P] * 24 + [_I] * 5 + [_F, _F, _P],
     "spk_int8_tile_smem": [_I],
+    "spk_bf16_tile_smem": [_I],
 }
 
 

@@ -93,6 +93,12 @@ def kmajor(w8: torch.Tensor) -> torch.Tensor:
     return w8.transpose(-1, -2).contiguous()
 
 
+def float_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., K) . (K, N) in float32: the products of the float modes' plain
+    versions (the planted faults of their bf16 card limit replace it)."""
+    return x.float() @ w.float()
+
+
 def int8_product(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """The exact int32 accumulator of int8 (M, K) . int8 (K, N), as float32:
     in int64 on the CPU, in float64 on the card (exact below 2^53; the card

@@ -24,6 +24,7 @@ from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, _layer_norm
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     ACTIVATION_CODES,
     ACTIVATIONS,
+    float_product,
     int8_product,
     kmajor,
     quantize_colwise,
@@ -62,8 +63,8 @@ def mlp_block_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, *, activation, eps, qu
             h8, sh = rowquant_plain(h)
         y = int8_product(h8, w2q) * sh * sw2 + b2.float()
     else:
-        h = ACTIVATIONS[activation](xf @ w1.float() + b1.float())
-        y = h @ w2.float() + b2.float()
+        h = ACTIVATIONS[activation](float_product(xf, w1) + b1.float())
+        y = float_product(h, w2) + b2.float()
     return _layer_norm(y + xf, ln_scale, ln_bias, eps).to(x.dtype)
 
 

@@ -42,13 +42,24 @@ import chip_smoke  # noqa: E402  (the planted faults of the core's card gate)
 # get the same bf16 inputs and weights; the kernels also round q, k, v, the
 # probabilities and ctx (or the MLP intermediate) to bf16 (unit roundoff
 # 2^-9 each) where the plain version stays in float32, on LayerNorm outputs
-# of unit scale. The float32 limit comes from the H100 readings of kernels 1
+# of unit scale; chip_smoke.BF16_TOL gives each kernel's limit, from the
+# H100 readings of this PR's tensor-core tile, and its reasons
+# (test_bf16_limit_rejects_planted_faults holds it against two faults of a
+# GEMM tile). The float32 limit comes from the H100 readings of kernels 1
 # and 2 in chip_smoke.py (PERF.md: 1.4e-6 at most), about a hundred times the
 # largest: an attention block that rounds its probabilities to bf16
 # (test_f32_limit_rejects_bf16_probabilities) lands an order of magnitude
 # beyond it, where it landed just beyond the old 1e-3.
 CPU_TOL = dict(atol=5e-3, rtol=1e-2)
-CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
+CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4)}
+
+
+def _card_tol(kernel, dtype):
+    """assert_close's limits of kernel 1 or 2 against its plain version."""
+    if dtype == torch.float32:
+        return CARD_TOL[dtype]
+    atol, rtol = chip_smoke.BF16_TOL[kernel]
+    return dict(atol=atol, rtol=rtol)
 # W8A8 modes, plain version against the JAX kernel in interpret mode in
 # float32: the same integer products and float32 epilogues, so 1e-5, except
 # where a float32 sum of another order moves a value across an int8 rounding
@@ -444,6 +455,96 @@ def test_snld_core_model_gate_rejects_planted_faults(dtype, fault):
         _core_gate(bad[valid], want[valid], rel=_core_rel(dtype))
 
 
+def _bf16_block_call(kernel, seed, B=2, L=128, M=256):
+    """(call(fn), fn's plain version, valid rows) of kernel 1 or 2 at BERT-base
+    widths over a few rows, bf16 inputs and weights."""
+    if kernel == "fused_attention_block":
+        t = _on_card(_attention_inputs(B, L, 768, 12, 64, seed=seed), "cpu", torch.bfloat16,
+                     {"hidden"})
+        args = [t[k] for k in ("hidden", "segment_ids", "qkv_kernel", "qkv_bias", "out_kernel",
+                               "out_bias")]
+        kw = dict(sm_scale=0.125, ln_scale=t["ln_scale"], ln_bias=t["ln_bias"])
+        return (lambda fn: fn(*args, **kw)), attention_block_plain, t["segment_ids"] > 0
+    t = _on_card(_mlp_inputs(M, 768, 3072, seed=seed), "cpu", torch.bfloat16, {"x"})
+    return ((lambda fn: fn(*t.values(), activation="gelu", eps=1e-12)), mlp_block_plain,
+            slice(None))
+
+
+@pytest.mark.parametrize("kernel", ["fused_attention_block", "fused_mlp_block"])
+def test_bf16_limit_accepts_other_sum_orders_and_rejects_planted_faults(kernel):
+    """Kernels 1 and 2's bf16 limit (chip_smoke.BF16_TOL) accepts the plain
+    version with its products summed in another order (float64, then
+    rounded to float32) and rejects it with each of the GEMM tile's planted
+    faults: partial sums rounded to bf16 every k-stage, the last k-step
+    dropped."""
+    from spokennlp_tpu_torch.ops.cuda import attention_block as ab
+    from spokennlp_tpu_torch.ops.cuda import mlp_block as mb
+
+    call, plain, valid = _bf16_block_call(kernel, seed=7)
+    want = call(plain)
+    tol = chip_smoke.BF16_TOL[kernel]
+    f64 = lambda real, x, w: (x.double() @ w.double()).float()
+    with chip_smoke.planted([(ab, "float_product", None, f64), (mb, "float_product", None, f64)]):
+        other = call(plain)
+    assert not torch.equal(other, want)  # the sums did run in another order
+    assert chip_smoke.beyond_limit(other[valid], want[valid], tol) <= 0
+    for fault, patches in chip_smoke.bf16_gemm_faults().items():
+        with chip_smoke.planted(patches):
+            bad = call(plain)
+        assert chip_smoke.beyond_limit(bad[valid], want[valid], tol) > 0, fault
+
+
+def test_sass_verdict_on_canned_counts():
+    """chip_smoke.sass_verdict on disassembly counts {function: [IMMA,
+    IDP4A, HMMA]}: a passing library, then one fault at a time."""
+    ns, bf = "_ZN3spk", "13__nv_bfloat16"
+    stack = "_ZN3spk12_GLOBAL__N_1"
+    good = {
+        f"{ns}18gemm_act_i8_kernelI{bf}EEvPKa": [8, 0, 0],
+        f"{ns}24gemm_act_quant_i8_kernelILi0EEEvPKa": [8, 0, 0],
+        f"{ns}18qkv_proj_i8_kernelI{bf}EEvPKa": [8, 0, 0],
+        f"{ns}21residual_ln_i8_kernelI{bf}EEvPKa": [8, 0, 0],
+        f"{stack}23encoder_stack_i8_kernelI{bf}Li64EEEvNS0_9StackArgsE": [8, 0, 4],
+        f"{stack}23encoder_stack_i8_kernelIfLi64EEEvNS0_9StackArgsE": [8, 0, 0],
+        f"{ns}17attn_core_i8_kernelI{bf}Li64EEEvPKT_": [0, 6, 0],
+        f"{ns}16attn_core_kernelILi64E{bf}EEvPKS1_": [0, 0, 16],
+        f"{ns}21attn_core_simt_kernelIfLi64EfEEvPKT_": [0, 0, 0],
+        f"{ns}20gemm_bias_act_kernelI{bf}Lb0EEEvPKT_": [0, 0, 32],
+        f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_": [0, 0, 0],
+        f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_": [0, 0, 0],
+        f"{ns}15qkv_proj_kernelI{bf}EEvPKT_": [0, 0, 32],
+        f"{ns}15qkv_proj_kernelIfEEvPKT_": [0, 0, 0],
+        f"{ns}28gemm_bias_residual_ln_kernelI{bf}EEvPKT_": [0, 0, 16],
+        f"{ns}28gemm_bias_residual_ln_kernelIfEEvPKT_": [0, 0, 0],
+        f"{stack}20encoder_stack_kernelI{bf}Li64EEEvNS0_9StackArgsE": [0, 0, 0],
+        f"{stack}20encoder_stack_kernelIfLi64EEEvNS0_9StackArgsE": [0, 0, 0],
+        f"{stack}15stack_core_itemILi64EEEvPK{bf}": [0, 0, 16],
+        f"{stack}14stack_qkv_itemEPK{bf}": [0, 0, 32],
+        f"{stack}19stack_gemm_act_itemEPK{bf}": [0, 0, 32],
+        f"{stack}22stack_residual_ln_itemEPK{bf}": [0, 0, 16],
+        f"{ns}17global_rows_kernelI{bf}Li64EEEvPKT_": [0, 2, 0],
+    }
+    assert chip_smoke.sass_verdict(good) == []
+
+    def with_counts(name, counts):
+        changed = {k: list(v) for k, v in good.items()}
+        changed[name] = counts
+        return chip_smoke.sass_verdict(changed)
+
+    # a bf16 instantiation without HMMA, a float32 one (or the transposed
+    # SIMT GEMM) with HMMA, a stack GEMM item without HMMA
+    assert with_counts(f"{ns}15qkv_proj_kernelI{bf}EEvPKT_", [0, 0, 0])
+    assert with_counts(f"{ns}28gemm_bias_residual_ln_kernelI{bf}EEvPKT_", [0, 0, 0])
+    assert with_counts(f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_", [0, 0, 8])
+    assert with_counts(f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_", [0, 0, 8])
+    assert with_counts(f"{stack}20encoder_stack_kernelIfLi64EEEvNS0_9StackArgsE", [0, 0, 8])
+    assert with_counts(f"{stack}19stack_gemm_act_itemEPK{bf}", [0, 0, 0])
+    # a stray function with HMMA or IDP4A, an int8 tile kernel without IMMA
+    assert with_counts(f"{ns}19act_and_grad_kernelI{bf}EEvPKT_", [0, 0, 4])
+    assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64EEEvPKT_", [0, 3, 0])
+    assert with_counts(f"{ns}18gemm_act_i8_kernelI{bf}EEvPKa", [0, 0, 0])
+
+
 def test_core_gate_limits_match_chip_smoke():
     """The card test and chip_smoke.py hold the core to the same limits."""
     assert chip_smoke.CORE_GATE == {"bfloat16": (CORE_REL, CORE_ATOL),
@@ -526,7 +627,10 @@ RAGGED_CORE = [(3, L, 2, hd) for L in RAGGED_L for hd in CORE_HEAD_DIMS]
 @pytest.mark.parametrize(
     "B,L,H,nh,hd", [(32, 512, 768, 12, 64), (3, 48, 256, 4, 64), (2, 200, 256, 8, 32),
                     (2, 130, 256, 2, 128), (2, 96, 1024, 16, 64)]
-    + [(B, L, 96, nh, hd) for B, L, nh, hd in RAGGED_CORE],
+    + [(B, L, 96, nh, hd) for B, L, nh, hd in RAGGED_CORE]
+    # the GEMM tile's ragged widths (K tails, N % 8 != 0, the 4-byte copies
+    # of H = 68 and the element-wise staging of an odd H)
+    + [(3, 70, 68, 2, 32), (2, 129, 100, 3, 16), (2, 65, 67, 2, 16)],
 )
 def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, L, H, nh, hd):
     inp = _attention_inputs(B, L, H, nh, hd, seed=B + L, ragged=H == 96)
@@ -543,7 +647,8 @@ def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, L, H, nh, hd):
         assert fused_attention_block.launches == n + 1
         want = attention_block_plain(*args, **kw)
         valid = t["segment_ids"] > 0
-        torch.testing.assert_close(got[valid].float(), want[valid].float(), **CARD_TOL[dtype])
+        torch.testing.assert_close(got[valid].float(), want[valid].float(),
+                                   **_card_tol("fused_attention_block", dtype))
 
 
 def test_f32_limit_rejects_bf16_probabilities():
@@ -580,7 +685,10 @@ def test_f32_limit_rejects_bf16_probabilities_on_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("M,H,I", [(32 * 512, 768, 3072), (100, 256, 640), (70, 1024, 4096)])
+@pytest.mark.parametrize("M,H,I", [(32 * 512, 768, 3072), (100, 256, 640), (70, 1024, 4096),
+                                   # the GEMM tile's ragged widths: K tails, N % 8 != 0,
+                                   # 4-byte copies (68, 100, 250), odd widths (67, 131)
+                                   (70, 68, 136), (129, 100, 250), (50, 67, 131), (1, 96, 8)])
 def test_mlp_kernel_matches_plain_on_card(cuda, dtype, M, H, I):
     t = _on_card(_mlp_inputs(M, H, I, seed=M), cuda, dtype, activations={"x"})
     n = fused_mlp_block.launches
@@ -588,7 +696,35 @@ def test_mlp_kernel_matches_plain_on_card(cuda, dtype, M, H, I):
     torch.cuda.synchronize()
     assert fused_mlp_block.launches == n + 1
     want = mlp_block_plain(*t.values(), activation="gelu", eps=1e-12)
-    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), **_card_tol("fused_mlp_block", dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused_attention_block", "fused_mlp_block"])
+def test_bf16_limit_rejects_planted_faults_on_card(cuda, kernel):
+    """At the main path's shapes (B=32, L=512, BERT-base) the bf16 kernel
+    passes its limit against its plain version, and the same check rejects
+    the plain version with each of the GEMM tile's planted faults."""
+    if kernel == "fused_attention_block":
+        t = _on_card(_attention_inputs(32, 512, 768, 12, 64, seed=11), cuda, torch.bfloat16,
+                     {"hidden"})
+        args = [t[k] for k in ("hidden", "segment_ids", "qkv_kernel", "qkv_bias", "out_kernel",
+                               "out_bias")]
+        kw = dict(sm_scale=0.125, ln_scale=t["ln_scale"], ln_bias=t["ln_bias"])
+        call, plain, valid = (lambda fn: fn(*args, **kw)), attention_block_plain, \
+            t["segment_ids"] > 0
+    else:
+        t = _on_card(_mlp_inputs(32 * 512, 768, 3072, seed=11), cuda, torch.bfloat16, {"x"})
+        call = lambda fn, **kw: fn(*t.values(), activation="gelu", eps=1e-12, **kw)
+        plain, valid = mlp_block_plain, slice(None)
+    got = (call(fused_attention_block) if kernel == "fused_attention_block"
+           else call(fused_mlp_block, quantized=False))
+    tol = chip_smoke.BF16_TOL[kernel]
+    assert chip_smoke.beyond_limit(got[valid], call(plain)[valid], tol) <= 0
+    for fault, patches in chip_smoke.bf16_gemm_faults().items():
+        with chip_smoke.planted(patches):
+            bad = call(plain)
+        assert chip_smoke.beyond_limit(got[valid], bad[valid], tol) > 0, fault
 
 
 @pytest.mark.gpu

@@ -623,6 +623,120 @@ def check_bf16_faults(name: str, got, plain, valid):
             fail(f"the bf16 limit of {name} accepts a plain version with {fault}")
 
 
+# Kernel 1 in bf16 against its own rounding model (blhd_attention.py
+# attention_block_model: the projections with float32 sums rounded where
+# the kernel rounds them, the core's rounding model, the out projection
+# with its residual LayerNorm), on valid rows: |err| <= atol + 2^-7 |ref|.
+# Both sides round the same values at the same places, so they differ where
+# a float32 sum of another order moved a bf16 rounding of q, k, v, an
+# exponent or ctx, and by the output's own rounding (2^-7 |ref|). atol from
+# the H100 readings of max(|err| - 2^-7 |ref|) over this script's shapes and
+# every bf16 shape of the card tests (PERF.md, section 6: at most 1.62e-3,
+# over 63-65 keys; 7.7e-4 at the main path's shapes), where BF16_GEMM_FAULTS
+# planted in the model read 1.3e-2 and 0.26: atol sits 2.5 x above the one
+# and 3 x below the other. BF16_TOL against the float32 plain version stays
+# beside it.
+BF16_MODEL_TOL = (4e-3, 2**-7)
+# The training backwards' products in bf16 (rows 10-13) against their
+# explicit plain backwards (ops/cuda/train_blocks.py backward_product and
+# the *_bwd_plain functions), element by element: |err| <= share max |ref| +
+# 2^-7 |ref| for each product's output. Kernel 11 from its inputs (it is
+# products only); rows 10, 12 and 13 from the intermediates the kernel's
+# products read (its own ctx and the projections' gradient dproj, which its
+# attention core wrote): dctx = g Wo^T, dx = dproj W_all^T, dW_all and db_all,
+# dWo and dbo; and the weight gradient alone (train_blocks.weight_grad).
+# rtol 2^-7 takes the rounding of dctx and dx to bf16 on both sides; the
+# share takes the float32 sums of another order and, in kernel 11, the bf16
+# roundings of h and dpre that such a sum moved. Shares from the H100
+# readings (PERF.md, section 6) over this script's and the card tests'
+# shapes: kernel 11 at most 8.1e-4 (2.4e-4 at the main path's shapes), the
+# products on the kernel's own intermediates at most 4.8e-6 (a weight
+# gradient summed over 16384 rows in one range), where each of
+# BF16_GEMM_FAULTS planted in backward_product reads 4.9e-2 or more.
+BWD_GEMM_TOL = {"mlp_train_bwd": 3e-3, "attention_train_bwd": 1e-4, "sliding_train_bwd": 1e-4,
+                "bigbird_train_bwd": 1e-4, "weight_grad": 1e-4}
+
+
+def block_model_check(got, call, valid) -> float:
+    """Kernel 1 bf16 (``got``) against its rounding model (``call(fn)`` runs
+    the block function ``fn`` on the phase's inputs) within BF16_MODEL_TOL;
+    each of BF16_GEMM_FAULTS planted in the model must fail it. Returns the
+    reading max(|err| - 2^-7 |ref|)."""
+    from spokennlp_tpu_torch.ops.cuda.blhd_attention import attention_block_model
+
+    reading = beyond_limit(got[valid], call(attention_block_model)[valid], (0.0, BF16_MODEL_TOL[1]))
+    print(f"  fused_attention_block bfloat16 against its rounding model: max(|err| - 2^-7 |ref|) "
+          f"{reading:.3e} (atol {BF16_MODEL_TOL[0]})")
+    if reading > BF16_MODEL_TOL[0]:
+        fail(f"fused_attention_block bfloat16: {reading:.3e} beyond its rounding model's limit")
+    for fault, patches in bf16_gemm_faults().items():
+        with planted(patches):
+            bad = call(attention_block_model)
+        excess = beyond_limit(got[valid], bad[valid], BF16_MODEL_TOL)
+        print(f"  planted fault, the block model with {fault}: beyond the limit by {excess:.3e}: "
+              + ("rejected" if excess > 0 else "ACCEPTED"))
+        if excess <= 0:
+            fail(f"the rounding-model limit of fused_attention_block accepts {fault}")
+    return reading
+
+
+def backward_gemm_faults() -> dict:
+    """{fault: patches for planted()}: BF16_GEMM_FAULTS in every product of
+    the explicit plain backwards (train_blocks.backward_product)."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    stand_ins = dict(zip(BF16_GEMM_FAULTS, (bf16_stage_sums, dropped_k_step)))
+    return {f: [(tb, "backward_product", None, s)] for f, s in stand_ins.items()}
+
+
+def backward_gemm_readings(got: dict, want: dict) -> dict:
+    """{output: max(|got - want| - 2^-7 |want|) / max |want|}."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        g, w = got[k].float().reshape(w.shape), w.float()
+        if not torch.isfinite(g).all():
+            fail(f"non-finite {k}")
+        out[k] = beyond_limit(g, w, (0.0, 2**-7)) / max(w.abs().max().item(), 1e-30)
+    return out
+
+
+def projection_gemms_plain(x, g, bufs: dict, w_all, wo) -> dict:
+    """The explicit plain backward's products of rows 10, 12 and 13 on the
+    intermediates the kernel's products read (``bufs`` from the backward
+    wrapper's ``buffers``): {dctx, dx, dw_all, db_all, dwo, dbo}."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    return dict(zip(("dctx", "dx", "dw_all", "db_all", "dwo", "dbo"), (
+        tb.out_grad_plain(g, wo),
+        *tb.projection_grads_plain(x, g, bufs["ctx"], bufs["dproj"], w_all, wo))))
+
+
+def check_backward_gemms(name: str, got: dict, plain) -> float:
+    """Row ``name``'s bf16 backward products ``got`` against its explicit
+    plain backward (``plain()`` -> {output: tensor}) within BWD_GEMM_TOL;
+    each of BF16_GEMM_FAULTS planted in backward_product must fail it.
+    Returns the largest reading (a share of max |ref|)."""
+    tol = BWD_GEMM_TOL[name]
+    readings = backward_gemm_readings(got, plain())
+    worst = max(readings.values())
+    print(f"  {name} bfloat16 products against the explicit plain backward: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in readings.items()) + f" (limit {tol:g} max |ref|)")
+    if worst > tol:
+        fail(f"{name} bfloat16: a backward product {worst:.3e} of max |ref| beyond 2^-7 |ref|, "
+             f"limit {tol}")
+    for fault, patches in backward_gemm_faults().items():
+        with planted(patches):
+            bad = backward_gemm_readings(got, plain())
+        top = max(bad, key=bad.get)
+        print(f"  planted fault, {name}'s plain backward with {fault}: {top} {bad[top]:.2e}: "
+              + ("rejected" if bad[top] > tol else "ACCEPTED"))
+        if bad[top] <= tol:
+            fail(f"the backward-GEMM limit of {name} accepts {fault}")
+    return worst
+
+
 def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
     """Check kernel against plain on the valid rows (``tol`` = (atol, rtol),
     the kernel's limit by default; ``w8a8``: w8a8_check); time both."""
@@ -681,21 +795,24 @@ IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_k
 # attention core and the W8A8 global query (global_rows_kernel)
 IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # the functions that run bf16 products on the tensor cores: the dense
-# attention core's kernel (kernels 1 and 6), the forward GEMM tile's three
-# kernels (bf16_gemm.cuh: kernels 1, 2, 7-9 and the training forwards) and
+# attention core's kernel (kernels 1 and 6), the GEMM tile's kernels
+# (bf16_gemm.cuh: kernels 1, 2, 7-9 and the training kernels' forward and
+# backward products, a weight read as stored or transposed, and the weight
+# gradient), the MLP backward's recomputed product (act_and_grad_kernel) and
 # the stack entries, whose bf16 core and GEMMs run out of line in
-# stack_core_item and STACK_GEMM_ITEMS. Each bf16 instantiation must hold HMMA (a stack entry
-# itself or in its items), except the GEMM kernel's with a transposed
-# weight (the backward passes' launch_gemm<T, true>, on the SIMT tile); the
-# float32 ones (with attn_core_simt_kernel, the float32 core) none; and no
-# other function may hold it
+# stack_core_item and STACK_GEMM_ITEMS. Each bf16 instantiation must hold
+# HMMA (a stack entry itself or in its items); the float32 ones (with
+# attn_core_simt_kernel, the float32 core) none; and no other function may
+# hold it
 HMMA_KERNELS = ("attn_core_kernel", "gemm_bias_act_kernel", "qkv_proj_kernel",
-                "gemm_bias_residual_ln_kernel", "encoder_stack_kernel", "encoder_stack_i8_kernel")
+                "gemm_bias_residual_ln_kernel", "encoder_stack_kernel", "encoder_stack_i8_kernel",
+                "weight_grad_kernel", "act_and_grad_kernel")
 # the bf16 stack's out-of-line items (stack_block.cu): stack_core_item, a
 # template on the head dim, and the three GEMM items (no template)
 STACK_GEMM_ITEMS = ("stack_qkv_item", "stack_gemm_act_item", "stack_residual_ln_item")
 CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kernel",
-               "gemm_bias_act_kernel", "qkv_proj_kernel", "gemm_bias_residual_ln_kernel")
+               "gemm_bias_act_kernel", "qkv_proj_kernel", "gemm_bias_residual_ln_kernel",
+               "weight_grad_kernel", "act_and_grad_kernel")
 
 
 def template_args(name: str, kernel: str) -> str:
@@ -767,9 +884,8 @@ def sass_verdict(counts: dict) -> list:
     counts} (one entry a function of the disassembly): every int8 tile
     kernel (IMMA_KERNELS) holds IMMA; no function outside IDP4A_ALLOWED holds
     IDP4A; each bf16 instantiation of HMMA_KERNELS holds HMMA (a bf16 stack
-    entry itself or in its out-of-line items; the GEMM kernel with a transposed
-    weight none, as its product runs the SIMT tile), no float32 one does,
-    and no other function does. Returns the failures, [] when it passes."""
+    entry itself or in its out-of-line items), no float32 one does, and no
+    other function does. Returns the failures, [] when it passes."""
     bad = []
     for p in IMMA_KERNELS:
         found = [n for n in counts if p in n]
@@ -797,14 +913,13 @@ def sass_verdict(counts: dict) -> list:
             bad.append(f"cuobjdump -sass shows no bf16 instantiation of {p}")
         for n in found:
             args, hmma, f32 = template_args(n, p), counts[n][2], is_float32_instance(n, p)
-            simt = f32 or (p == "gemm_bias_act_kernel" and args.endswith("Lb1"))
             if p.startswith("encoder_stack") and not f32:  # "<T>Li<HD>" -> "Li<HD>"
                 hmma += core_items.get("L" + args.split("L", 1)[1], 0)
                 if p == "encoder_stack_kernel":
                     hmma += sum(gemm_items.values())
-            if simt and hmma:
+            if f32 and hmma:
                 bad.append(f"{n} holds HMMA: its products must stay on the CUDA cores")
-            if not simt and not hmma:
+            if not f32 and not hmma:
                 bad.append(f"{n} has no HMMA: its bf16 products do not run on the tensor cores")
     stray = [n for n, c in counts.items()
              if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS + ("stack_core_item",))
@@ -877,8 +992,11 @@ def kernel_phase(device) -> dict:
             lambda: call(attention_block_plain), valid,
         )
         if dtype == "bfloat16":
-            check_bf16_faults("fused_attention_block", call(fused_attention_block),
-                              lambda: call(attention_block_plain), valid)
+            got = call(fused_attention_block)
+            check_bf16_faults("fused_attention_block", got, lambda: call(attention_block_plain),
+                              valid)
+            rows["fused_attention_block", dtype]["model_err"] = block_model_check(got, call, valid)
+            del got
         if dtype == "float32":
             got = call(fused_attention_block)[valid]
             bad = call(attention_block_bf16_probabilities)[valid]
@@ -1584,6 +1702,24 @@ def train_kernel_phase(device) -> dict:
         bwd_flops = 3 * qkv_flops + 3 * core + 4 * M * H * HN
         out_bytes = nbytes(hidden) + 4 * (H * 3 * HN + 3 * HN + HN * H + H)
         bwd.update(bound(bwd_flops, in_bytes + nbytes(cot) + out_bytes, dtype))
+        x2, g2 = hidden.reshape(M, H), cot.reshape(M, H)
+        dqkv = randn(M, 3 * HN).to(dt)
+        c2 = randn(M, HN).to(dt)
+        bwd["library_ms"] = library_time(
+            lambda: (x2 @ wqkv, g2 @ wo.t(), dqkv @ wqkv.t(), x2.t() @ dqkv, c2.t() @ g2),
+            f"attention_train_bwd {dtype} (torch.matmul on its five products)")
+        if dtype == "bfloat16":
+            bufs = {}
+            got = tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kw,
+                                         buffers=bufs)
+            bwd["gemm_reading"] = check_backward_gemms(
+                "attention_train_bwd", {"dctx": bufs["dctx"], **dict(zip(
+                    ("dx", "dw_all", "db_all", "dwo", "dbo"), got))},
+                lambda: projection_gemms_plain(x2, g2, bufs, wqkv, wo))
+            same_bits("attention_train_bwd", got, tb.attention_train_bwd(
+                hidden, seg, seed, wqkv, bqkv, wo, cot, **kw))
+            del got, bufs
+        del dqkv, c2
         rows["attention_train_fwd", dtype] = {"max_abs_err": err["attention_train_fwd"], **fwd}
         rows["attention_train_bwd", dtype] = {"max_abs_err": err["attention_train_bwd"], **bwd}
 
@@ -1605,6 +1741,21 @@ def train_kernel_phase(device) -> dict:
         # recomputed x.W1; g.W2^T; dx; dW1; dW2
         out_bytes = nbytes(x) + 4 * (H * I + I + I * H + H)
         bwd.update(bound(10 * M * H * I, in_bytes + nbytes(cot2) + out_bytes, dtype))
+        hh = randn(M, I).to(dt)
+        bwd["library_ms"] = library_time(
+            lambda: (x @ w1, cot2 @ w2.t(), hh @ w1.t(), x.t() @ hh, hh.t() @ cot2),
+            f"mlp_train_bwd {dtype} (torch.matmul on its five products)")
+        del hh
+        if dtype == "bfloat16":
+            names = ("dx", "dw1", "db1", "dw2", "db2")
+            got = tb.mlp_train_bwd(x, w1, b1, w2, cot2, activation="gelu")
+            bwd["gemm_reading"] = check_backward_gemms(
+                "mlp_train_bwd", dict(zip(names, got)), lambda: dict(zip(
+                    names, tb.mlp_train_bwd_plain(x, w1, b1, w2, cot2, activation="gelu"))))
+            same_bits("mlp_train_bwd", got, tb.mlp_train_bwd(x, w1, b1, w2, cot2,
+                                                             activation="gelu"))
+            del got
+            weight_grad_sweep(device)
         rows["mlp_train_fwd", dtype] = {"max_abs_err": err["mlp_train_fwd"], **fwd}
         rows["mlp_train_bwd", dtype] = {"max_abs_err": err["mlp_train_bwd"], **bwd}
         for name in err:
@@ -1614,6 +1765,49 @@ def train_kernel_phase(device) -> dict:
                   f"({r['bound_by']})")
         torch.cuda.empty_cache()
     return rows
+
+
+def same_bits(name: str, got, again):
+    """Fails unless two runs of a backward gave the same weight and bias
+    gradients (every output after dx) bit for bit."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+        fail(f"{name} bfloat16: two runs' weight gradients differ")
+    print(f"  {name} bfloat16: two runs' weight gradients bit-identical")
+
+
+# the weight gradients of the training main paths' backwards (M, Hin, N):
+# BERT-base's W1, W2, Wqkv and Wo at B*L = 16384 rows, the Longformer
+# block's [Wqkv Wg] at 16384 rows (kernel phase) and at its training micro-
+# batch's 4096
+WGRAD_SHAPES = ((B * L, H, I), (B * L, I, H), (B * L, H, 3 * NH * HD), (B * L, NH * HD, H),
+                (B * L, H, 6 * NH * HD), (2 * 2048, H, 6 * NH * HD), (2 * 2048, NH * HD, H))
+
+
+def weight_grad_sweep(device) -> dict:
+    """ms of the bf16 weight gradient (train_blocks.weight_grad) at each
+    split count 1-8 and at weight_grad_splits' choice, for WGRAD_SHAPES: the
+    measurement the split rule was chosen by. Prints one JSON line."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    g = torch.Generator(device=device).manual_seed(4)
+    out = {}
+    for M, Hin, N in WGRAD_SHAPES:
+        x = torch.randn(M, Hin, generator=g, device=device).to(torch.bfloat16)
+        dy = torch.randn(M, N, generator=g, device=device).to(torch.bfloat16)
+        times = {s: time_ms(lambda: tb.weight_grad(x, dy, splits=s)) for s in range(1, 9)}
+        chosen = tb.weight_grad_splits(M, Hin, N, tb._sm_count(device.index or 0))
+        best = min(times, key=times.get)
+        out[f"{M}x{Hin}x{N}"] = {"ms": times, "chosen": chosen, "fastest": best,
+                                 "tflops_chosen": 2 * M * Hin * N / times[chosen] / 1e9}
+        print(f"  weight_grad bf16 {M} x {Hin} x {N}: " + ", ".join(
+            f"{s}: {t:.3f}" for s, t in times.items()) + f" ms; chosen {chosen}, fastest {best}")
+        del x, dy
+    print(json.dumps({"weight_grad_splits": out}))
+    return out
 
 
 # ------------------------------------------------------------ Longformer kernels
@@ -1650,6 +1844,45 @@ def sliding_work(mask, glob, window: int, H: int, nh: int, hd: int) -> dict:
                                         for nv, ng in zip(v, g) if ng > 0)
     return {"proj": float(proj), "core": float(4 * nh * hd * pairs),
             "out": float(2 * B * L * HN * H)}
+
+
+def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn) -> dict:
+    """The library column and, in bf16, the backward-GEMM gate of row 12
+    (``name`` sliding_train_bwd, with and without global rows) or 13
+    (bigbird_train_bwd): ``masks(global_rows)`` gives (mask, glob) and
+    ``backward(mask, glob, cot, global_rows, buffers)`` runs the backward
+    kernel. Returns {library_ms, gemm_reading (bf16)}."""
+    import torch
+
+    B, L, H = hidden.shape
+    M, HN = B * L, wo.shape[0]
+    x2, row = hidden.reshape(M, H), {}
+    settings = (True, False) if name == "sliding_train_bwd" else (False,)
+    for gr in settings:
+        mk, gl = masks(gr)
+        cot = (randn(B, L, H) * mk.bool()[..., None]).to(dt)
+        bufs = {}
+        got = backward(mk, gl, cot, gr, bufs)
+        w_all = bufs["w_all"]
+        if gr:
+            out = {"dx": got[0], "dw_all": torch.cat([got[1], got[3]], 1),
+                   "db_all": torch.cat([got[2], got[4]]), "dwo": got[5], "dbo": got[6]}
+        else:
+            out = dict(zip(("dx", "dw_all", "db_all"), got[:3]))
+            out.update(dwo=got[-2], dbo=got[-1])
+        if gr == settings[0]:
+            g2, dproj, ctx = cot.reshape(M, H), randn(M, w_all.shape[1]).to(dt), randn(M, HN).to(dt)
+            row["library_ms"] = library_time(
+                lambda: (x2 @ w_all, g2 @ wo.t(), dproj @ w_all.t(), x2.t() @ dproj, ctx.t() @ g2),
+                f"{name} {dt} (torch.matmul on its five products)")
+            del dproj, ctx
+        if dt == torch.bfloat16:
+            out["dctx"] = bufs["dctx"]
+            reading = check_backward_gemms(name, out, lambda: projection_gemms_plain(
+                x2, cot.reshape(M, H), bufs, w_all, wo))
+            row["gemm_reading"] = max(row.get("gemm_reading", 0.0), reading)
+        del got, bufs, out
+    return row
 
 
 def sliding_kernel_phase(device) -> dict:
@@ -1761,6 +1994,11 @@ def sliding_kernel_phase(device) -> dict:
         bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
         grads_out = nbytes(hidden) + 4 * (2 * H * 3 * HN + 2 * 3 * HN + HN * H + H)
         bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        bwd.update(long_backward_gemms(
+            "sliding_train_bwd", hidden, dt, w["wo"], lambda gr: sliding_masks(device, gr),
+            lambda mk, gl, ck, gr, bufs: ts.sliding_train_bwd(
+                hidden, mk.int().contiguous(), gl.int().contiguous(), seed, w, ck,
+                **dict(cfg, global_rows=gr), buffers=bufs), randn))
         for name, row in (("sliding_attention_block", blk), ("sliding_train_fwd", fwd),
                           ("sliding_train_bwd", bwd)):
             rows[name, dtype] = {"max_abs_err": err[name], **row}
@@ -1939,6 +2177,10 @@ def bigbird_kernel_phase(device) -> dict:
         bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
         grads_out = nbytes(hidden) + 4 * (H * 3 * HN + 3 * HN + HN * H + H)
         bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        bwd.update(long_backward_gemms(
+            "bigbird_train_bwd", hidden, dt, w["wo"], lambda gr: (mask, None),
+            lambda mk, gl, ck, gr, bufs: tbb.bigbird_train_bwd(hidden, m32, seed, w, ck, t, **cfg,
+                                                               buffers=bufs), randn))
         fwd["work_gflop"], bwd["work_gflop"] = fwd_flops / 1e9, bwd_flops / 1e9
         for name, row in (("bigbird_attention_block", blk), ("bigbird_train_fwd", fwd),
                           ("bigbird_train_bwd", bwd)):

@@ -1,34 +1,39 @@
-// The float modes' forward GEMMs (attention_block.cu, mlp_block.cu,
-// stack_block.cu, sliding_block.cu, bigbird_block.cu, ponet_block.cu and the
-// training kernels' forwards): the three tile functions every caller shares,
-// out = act(A . W + bias) * gate, the q/k/v projection with its scatter, and
-// A . W + bias + residual with a LayerNorm over whole rows, with their
-// kernels and launchers.
+// The float modes' GEMMs (attention_block.cu, mlp_block.cu, stack_block.cu,
+// sliding_block.cu, bigbird_block.cu, ponet_block.cu and the training
+// kernels): the three forward tile functions every caller shares, out =
+// act(A . W + bias) * gate (W as stored, or read transposed by the backward
+// passes), the q/k/v projection with its scatter, and A . W + bias +
+// residual with a LayerNorm over whole rows, with their kernels and
+// launchers; and the backward passes' weight gradient dW = X^T . dY with the
+// bias gradient, summed over all rows.
 //
 // In bfloat16 their products run on the tensor cores (TileGemmBf16 below:
-// mma.sync m16n8k16 bf16 with float32 sums). In float32, and for a weight
-// read transposed (the backward passes' launch_gemm<T, true>), they run
+// mma.sync m16n8k16 bf16 with float32 sums). In float32 they run
 // common.cuh's SIMT TileGemm, as before the tensor-core tile existed, so the
 // float32 modes are unchanged by a bit. Bias, activation, residual and
 // LayerNorm are float32 in both, and a value is rounded to the element type
 // exactly where the SIMT version rounds it: only the order of the float32
 // sums differs (a bf16 x bf16 product is exact in float32).
 //
-// The tile (TileGemmBf16). A is (M, K) row-major and the weight B (K, N)
-// row-major, as the callers hold them: no K-major copy of the weights, since
-// ldmatrix's .trans form reads B's (k, n) rows as the mma's column-major
-// fragment. A k-stage is 32 deep (two k16 mma steps, 64 bytes of an A row):
-// A's (BM x 32) and B's (32 x BN) slices are copied into shared memory by
-// cp.async into a ring of three stages, so two stages are in flight while
-// the warps multiply the third. Copies are 16 bytes where K, N and both base
-// pointers allow 8-element copies, else 4 bytes (2 elements); an odd K or N
+// The tile (TileGemmBf16). It multiplies A (M, K) by B (K, N), each stored
+// as its caller holds it: A row-major (M, K), or (K, M) for the weight
+// gradient's X^T; B row-major (K, N), as the forward weights, or (N, K) for
+// a weight read transposed. No operand is copied into another layout:
+// ldmatrix reads the mma's fragments from either, with .trans where the
+// stored rows run along k (A stored (K, M), B stored (K, N)) and without it
+// where they run along m or n. A k-stage is 32 deep (two k16 mma steps): the
+// stage's slices of A and B are copied into shared memory by cp.async into a
+// ring of three stages, so two stages are in flight while the warps
+// multiply the third. Copies are 16 bytes where both stored widths and base
+// pointers allow 8-element copies, else 4 bytes (2 elements); an odd width
 // takes a synchronous path that stages element by element through the same
 // ring. Staged rows are padded by 16 bytes to an odd number of 16-byte units
-// (A: 80 bytes, B: 2 BN + 16), so the 8 row addresses of one ldmatrix phase
-// fall on 8 distinct 16-byte bank groups. The 8 warps of a block stand 2 x 4,
-// each owning a (BM / 2) x (BN / 4) sub-tile of m16 x n8 fragments. Rows past
-// M, columns past N and depth past K are zero-filled through the copy's
-// source size, so they add nothing to the sums.
+// (a 32-deep row: 80 bytes; a row of BM or BN: 2 BM + 16 or 2 BN + 16), so
+// the 8 row addresses of one ldmatrix phase fall on 8 distinct 16-byte bank
+// groups. The 8 warps of a block stand 2 x 4, each owning a (BM / 2) x (BN /
+// 4) sub-tile of m16 x n8 fragments. Rows past M, columns past N and depth
+// past the k-range's end are zero-filled through the copy's source size, so
+// they add nothing to the sums.
 //
 // What bounds it. At BERT-base the encoder's products are hundreds of
 // operations a byte, so bound by the tensor cores' bf16 rate (989 TFLOP/s
@@ -36,6 +41,15 @@
 // mma, and a block waits at one barrier a stage); wgmma with TMA is later
 // work, and the epilogues here already work on the accumulator fragments,
 // which it keeps in the same places.
+//
+// The weight gradient (weight_grad_kernel) sums over all B*L rows, a long
+// k-walk onto a small output: dWo (768 x 768) is 36 tiles of 128 x 128 for
+// 132 SMs. So its bf16 instantiation splits the rows into `splits` fixed
+// ranges (grid z), each block writing its range's partial tile into a
+// float32 workspace from the wrapper's allocator, and weight_grad_reduce_kernel
+// adds the partials in split order: no atomics, the same bits on every run.
+// The bias gradient comes from the same pass, as float32 column sums of the
+// staged dY slices in the blocks of the first tile row.
 #pragma once
 
 #include "ptx.cuh"
@@ -53,30 +67,37 @@ constexpr int kGemmRowsB = 128, kGemmColsB = 128;
 constexpr int kLnRowsB = 64, kLnColsB = 128;
 static_assert(kTileKB % 16 == 0 && kStagesB >= 2, "whole mma k-steps, a ring of two or more");
 
-// Whether a forward GEMM of element type T runs on the tensor cores: bf16
-// with the weight read as it is stored
-template <typename T, bool kTransW = false>
+// Whether a GEMM of element type T runs on the tensor cores: bf16
+template <typename T>
 __host__ __device__ constexpr bool on_tensor_cores() {
-  return std::is_same<T, __nv_bfloat16>::value && !kTransW;
+  return std::is_same<T, __nv_bfloat16>::value;
 }
 
 // One BM x BN tile of the float32 product A . B of bf16 A (M, K) and B (K,
-// N), both row-major, on 256 threads (the file's header describes it).
-// acc[mi][ni][e] is the sum at tile row row(mi, e) and column col(ni, e).
-// smem holds kSmemBytes, 16-byte aligned; the tile leaves it free (all
-// copies landed, every warp past its last read) when it returns. A and B
-// carry no __restrict__: the stack kernel reads buffers that an earlier
-// phase of the same launch wrote.
-template <int BM, int BN>
+// N) on 256 threads (the file's header describes it): A stored row-major (M,
+// K), or (K, M) when kTransA; B stored row-major (K, N), or (N, K) when
+// kTransB. acc[mi][ni][e] is the sum at tile row row(mi, e) and column
+// col(ni, e). The sum runs over k in [k_begin, K); a k_begin above 0 (a
+// range of the rows a weight gradient sums) needs K to be no stride, that
+// is kTransA and !kTransB. smem holds kSmemBytes, 16-byte aligned; the tile
+// leaves it free (all copies landed, every warp past its last read) when it
+// returns. A and B carry no __restrict__: the stack kernel reads buffers
+// that an earlier phase of the same launch wrote.
+template <int BM, int BN, bool kTransA = false, bool kTransB = false>
 struct TileGemmBf16 {
   using bf16 = __nv_bfloat16;
   static constexpr int kWarpsN = 4;                     // warps stand 2 x 4
   static constexpr int WM = BM / 2, WN = BN / kWarpsN;  // a warp's sub-tile
   static_assert(kThreads == 256, "the warps stand 2 x 4");
   static_assert(WM % 16 == 0 && WN % 16 == 0, "a warp owns m16 x n16 steps");
+  static_assert(!kTransB || !kTransA, "no caller reads both operands transposed");
   static constexpr int MI = WM / 16, NI = WN / 8;  // m16 and n8 fragments a warp
-  static constexpr int kBRowBytes = 2 * BN + 16;   // a staged B row (k), padded
-  static constexpr int kStageBytes = BM * kARowBytesB + kTileKB * kBRowBytes;
+  // staged rows: 32-deep rows of A (m) or of a transposed B (n), padded; or
+  // rows of BM (A stored (K, M)) or BN (B stored (K, N)) elements, padded
+  static constexpr int kARowBytes = kTransA ? 2 * BM + 16 : kARowBytesB;
+  static constexpr int kBRowBytes = kTransB ? kARowBytesB : 2 * BN + 16;
+  static constexpr int kABytes = (kTransA ? kTileKB : BM) * kARowBytes;
+  static constexpr int kStageBytes = kABytes + (kTransB ? BN : kTileKB) * kBRowBytes;
   static constexpr int kSmemBytes = kStagesB * kStageBytes;
   using Acc = float[MI][NI][4];
 
@@ -105,7 +126,8 @@ struct TileGemmBf16 {
 
   // Copy R rows of W elements of X (rows, cols), from (r0, c0), into dst
   // (rows of `pitch` bytes), zero past `rows` and `cols`: by cp.async of
-  // kBytes (16 or 4), or with kBytes == 2 element by element.
+  // kBytes (16 or 4), or with kBytes == 2 element by element. `cols` is X's
+  // stride too; `rows` only bounds.
   template <int R, int W, int kBytes>
   __device__ static void stage(const bf16* X, int rows, int cols, int r0, int c0, int pitch,
                                unsigned char* dst) {
@@ -129,15 +151,29 @@ struct TileGemmBf16 {
     }
   }
 
+  // With bsum != null (kTransA and !kTransB only), the threads also sum each
+  // of B's staged columns over the k-range in float32: thread t takes
+  // column t % BN of rows (t / BN) kSumRows to (t / BN + 1) kSumRows - 1 of
+  // each stage, and the 256 / BN partial sums of a column are added in
+  // order at the end into bsum[col0 + c], for the columns below N.
   template <int kBytes>
-  __device__ static void pipeline(const bf16* A, const bf16* B, int M, int N, int K, int row0,
-                                  int col0, Acc& acc, unsigned char* smem) {
-    const int nk = (K + kTileKB - 1) / kTileKB;
+  __device__ static void pipeline(const bf16* A, const bf16* B, int M, int N, int K, int k_begin,
+                                  int row0, int col0, Acc& acc, unsigned char* smem,
+                                  float* bsum) {
+    const int nk = max(0, (K - k_begin + kTileKB - 1) / kTileKB);
     const auto load = [&](int kt) {
       unsigned char* s = smem + (kt % kStagesB) * kStageBytes;
-      const int k0 = kt * kTileKB;
-      stage<BM, kTileKB, kBytes>(A, M, K, row0, k0, kARowBytesB, s);
-      stage<kTileKB, BN, kBytes>(B, K, N, k0, col0, kBRowBytes, s + BM * kARowBytesB);
+      const int k0 = k_begin + kt * kTileKB;
+      if constexpr (kTransA) {
+        stage<kTileKB, BM, kBytes>(A, K, M, k0, row0, kARowBytes, s);
+      } else {
+        stage<BM, kTileKB, kBytes>(A, M, K, row0, k0, kARowBytes, s);
+      }
+      if constexpr (kTransB) {
+        stage<BN, kTileKB, kBytes>(B, N, K, col0, k0, kBRowBytes, s + kABytes);
+      } else {
+        stage<kTileKB, BN, kBytes>(B, K, N, k0, col0, kBRowBytes, s + kABytes);
+      }
     };
 #pragma unroll
     for (int s = 0; s < kStagesB - 1; ++s) {
@@ -145,31 +181,63 @@ struct TileGemmBf16 {
       cp_async_commit();
     }
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    // ldmatrix.x4 row addresses: A's four 8 x 8 matrices are (rows 0-7, k
-    // 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of an m16 x k16 fragment;
-    // B's, read transposed, are (k 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15),
-    // (8-15, 8-15): b0 and b1 of two n8 fragments
-    const int a_off = ((warp / kWarpsN) * WM + lane % 16) * kARowBytesB + (lane / 16) * 16;
-    const int b_off = BM * kARowBytesB + (lane % 16) * kBRowBytes +
-                      ((warp % kWarpsN) * WN + (lane / 16) * 8) * 2;
+    const int wm0 = (warp / kWarpsN) * WM, wn0 = (warp % kWarpsN) * WN;
+    // ldmatrix.x4 row addresses. A's four 8 x 8 matrices are (rows 0-7, k
+    // 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of an m16 x k16
+    // fragment; B's are (k 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15), (8-15,
+    // 8-15): b0 and b1 of two n8 fragments. A stored (K, M) and B stored (K,
+    // N) are read with .trans from their k rows; A stored (M, K) and B stored
+    // (N, K) without it, from their m or n rows.
+    int a_off, b_off;
+    if constexpr (kTransA) {
+      a_off = (lane % 8 + (lane / 16) * 8) * kARowBytes + (wm0 + ((lane / 8) % 2) * 8) * 2;
+    } else {
+      a_off = (wm0 + lane % 16) * kARowBytes + (lane / 16) * 16;
+    }
+    if constexpr (kTransB) {
+      b_off = kABytes + (wn0 + lane % 8 + (lane / 16) * 8) * kBRowBytes + ((lane / 8) % 2) * 16;
+    } else {
+      b_off = kABytes + (lane % 16) * kBRowBytes + (wn0 + (lane / 16) * 8) * 2;
+    }
+    constexpr int kSumRows = kTileKB * BN / kThreads;  // rows of a column a thread sums
+    float col_sum = 0.0f;
     for (int kt = 0; kt < nk; ++kt) {
       cp_async_wait<kStagesB - 2>();  // stage kt has landed
       __syncthreads();                // and every warp is done with stage kt - 1's slot
       if (kt + kStagesB - 1 < nk) load(kt + kStagesB - 1);
       cp_async_commit();
-      const uint32_t base = smem_addr(smem + (kt % kStagesB) * kStageBytes);
+      const unsigned char* stage_ptr = smem + (kt % kStagesB) * kStageBytes;
+      const uint32_t base = smem_addr(stage_ptr);
+      if constexpr (kTransA && !kTransB) {
+        if (bsum != nullptr) {
+          const unsigned char* c = stage_ptr + kABytes + (threadIdx.x / BN) * kSumRows * kBRowBytes +
+                                   (threadIdx.x % BN) * 2;
+#pragma unroll
+          for (int k = 0; k < kSumRows; ++k)
+            col_sum += __bfloat162float(*reinterpret_cast<const bf16*>(c + k * kBRowBytes));
+        }
+      }
 #pragma unroll
       for (int ks = 0; ks < kTileKB / 16; ++ks) {
         uint32_t a[MI][4];
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-          ldmatrix_x4(base + a_off + mi * 16 * kARowBytesB + ks * 32, a[mi]);
+        for (int mi = 0; mi < MI; ++mi) {
+          if constexpr (kTransA) {
+            ldmatrix_x4_trans(base + a_off + ks * 16 * kARowBytes + mi * 32, a[mi]);
+          } else {
+            ldmatrix_x4(base + a_off + mi * 16 * kARowBytes + ks * 32, a[mi]);
+          }
+        }
         // B two n8 fragments at a time, each used as soon as it is read, so
         // that only four of B's registers are live beside the accumulators
 #pragma unroll
         for (int nj = 0; nj < NI / 2; ++nj) {
           uint32_t r[4];
-          ldmatrix_x4_trans(base + b_off + ks * 16 * kBRowBytes + nj * 32, r);
+          if constexpr (kTransB) {
+            ldmatrix_x4(base + b_off + nj * 16 * kBRowBytes + ks * 32, r);
+          } else {
+            ldmatrix_x4_trans(base + b_off + ks * 16 * kBRowBytes + nj * 32, r);
+          }
 #pragma unroll
           for (int mi = 0; mi < MI; ++mi) {
             mma_bf16(acc[mi][2 * nj], a[mi], r[0], r[1]);
@@ -180,40 +248,63 @@ struct TileGemmBf16 {
     }
     cp_async_wait<0>();
     __syncthreads();
+    if constexpr (kTransA && !kTransB) {
+      if (bsum != nullptr) {  // the partial sums of each column, added in a fixed order
+        static_assert(kThreads % BN == 0 && kTileKB % (kThreads / BN) == 0, "whole columns");
+        float* part = reinterpret_cast<float*>(smem);
+        part[threadIdx.x] = col_sum;
+        __syncthreads();
+        if (threadIdx.x < BN && col0 + (int)threadIdx.x < N) {
+          float v = 0.0f;
+#pragma unroll
+          for (int p = 0; p < kThreads / BN; ++p) v += part[threadIdx.x + p * BN];
+          bsum[col0 + threadIdx.x] = v;
+        }
+        __syncthreads();
+      }
+    }
   }
 
+  // bsum: the column sums of pipeline, or null
   __device__ static void run(const bf16* A, const bf16* B, int M, int N, int K, int row0,
-                             int col0, Acc& acc, unsigned char* smem) {
+                             int col0, Acc& acc, unsigned char* smem, int k_begin = 0,
+                             float* bsum = nullptr) {
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+    // the stored widths of A and B
+    const int wa = kTransA ? M : K, wb = kTransB ? K : N;
     const uintptr_t ptrs = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B);
-    if (K % 8 == 0 && N % 8 == 0 && ptrs % 16 == 0) {
-      pipeline<16>(A, B, M, N, K, row0, col0, acc, smem);
-    } else if (K % 2 == 0 && N % 2 == 0 && ptrs % 4 == 0) {
-      pipeline<4>(A, B, M, N, K, row0, col0, acc, smem);
+    if (wa % 8 == 0 && wb % 8 == 0 && ptrs % 16 == 0) {
+      pipeline<16>(A, B, M, N, K, k_begin, row0, col0, acc, smem, bsum);
+    } else if (wa % 2 == 0 && wb % 2 == 0 && ptrs % 4 == 0) {
+      pipeline<4>(A, B, M, N, K, k_begin, row0, col0, acc, smem, bsum);
     } else {
-      pipeline<2>(A, B, M, N, K, row0, col0, acc, smem);
+      pipeline<2>(A, B, M, N, K, k_begin, row0, col0, acc, smem, bsum);
     }
   }
 };
 
 using GemmTileB = TileGemmBf16<kGemmRowsB, kGemmColsB>;
 using LnTileB = TileGemmBf16<kLnRowsB, kLnColsB>;
+// the backward passes' tiles: a weight read transposed, and the weight
+// gradient X^T . dY
+using GemmTileTransB = TileGemmBf16<kGemmRowsB, kGemmColsB, false, true>;
+using WgradTileB = TileGemmBf16<kGemmRowsB, kGemmColsB, true, false>;
 
 // The output tiles of the three tile functions for element type T: the
 // tensor-core tile's in bf16, the SIMT tile's (64 x 64, kLnRows rows) else.
-template <typename T, bool kTransW = false>
+template <typename T>
 __host__ __device__ constexpr int gemm_tile_rows() {
-  return on_tensor_cores<T, kTransW>() ? kGemmRowsB : 64;
+  return on_tensor_cores<T>() ? kGemmRowsB : 64;
 }
 
-template <typename T, bool kTransW = false>
+template <typename T>
 __host__ __device__ constexpr int gemm_tile_cols() {
-  return on_tensor_cores<T, kTransW>() ? kGemmColsB : 64;
+  return on_tensor_cores<T>() ? kGemmColsB : 64;
 }
 
 template <typename T>
@@ -225,8 +316,8 @@ __host__ __device__ constexpr int ln_tile_rows() {
 // above 48 KB) or the SIMT staging
 template <typename T, bool kTransW = false>
 __host__ __device__ constexpr size_t gemm_smem_bytes() {
-  return on_tensor_cores<T, kTransW>()
-             ? (size_t)GemmTileB::kSmemBytes
+  return on_tensor_cores<T>()
+             ? (size_t)TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>::kSmemBytes
              : sizeof(float) * TileGemm<64, 64, T, false, kTransW>::kSmemFloats;
 }
 
@@ -238,9 +329,9 @@ __host__ __device__ constexpr size_t ln_smem_bytes() {
 
 // the least blocks an SM of a tile kernel: two for the tensor-core tile (128
 // registers a thread), none (ptxas's own choice, as before it) for the SIMT
-template <typename T, bool kTransW = false>
+template <typename T>
 __host__ __device__ constexpr int gemm_min_blocks() {
-  return on_tensor_cores<T, kTransW>() ? 2 : 0;
+  return on_tensor_cores<T>() ? 2 : 0;
 }
 
 // out[i] = v0 and, when `both`, out[i + 1] = v1: one 4- or 8-byte store
@@ -268,9 +359,9 @@ __device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const
                                                    T* out, int M, int N, int K, int act,
                                                    const float* gate, int row0, int col0,
                                                    float* smem) {
-  if constexpr (on_tensor_cores<T, kTransW>()) {
-    using G = GemmTileB;
-    G::Acc acc;
+  if constexpr (on_tensor_cores<T>()) {
+    using G = TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>;
+    typename G::Acc acc;
     G::run(A, W, M, N, K, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
     G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
       const int m = row0 + r, n = col0 + c;
@@ -308,12 +399,12 @@ __device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const
 // Grid (ceil(N / gemm_tile_cols), ceil(M / gemm_tile_rows)); the tensor-core
 // tile takes gemm_smem_bytes of dynamic shared memory, the SIMT tile static.
 template <typename T, bool kTransW = false>
-__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T, kTransW>())
+__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
     gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
                          const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K,
                          int act, const float* __restrict__ gate = nullptr) {
-  constexpr int BM = gemm_tile_rows<T, kTransW>(), BN = gemm_tile_cols<T, kTransW>();
-  if constexpr (on_tensor_cores<T, kTransW>()) {
+  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
+  if constexpr (on_tensor_cores<T>()) {
     extern __shared__ __align__(16) unsigned char smem_bf16[];
     gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * BM,
                                    blockIdx.x * BN, reinterpret_cast<float*>(smem_bf16));
@@ -325,19 +416,19 @@ __global__ void __launch_bounds__(kThreads, gemm_min_blocks<T, kTransW>())
 }
 
 // The dynamic shared memory a tile kernel launches with (after allowing it)
-template <typename T, bool kTransW, typename Kernel>
+template <typename T, typename Kernel>
 cudaError_t tile_smem(Kernel kernel, size_t bytes, size_t* smem) {
-  *smem = on_tensor_cores<T, kTransW>() ? bytes : 0;
+  *smem = on_tensor_cores<T>() ? bytes : 0;
   return *smem ? prepare(kernel, *smem) : cudaSuccess;
 }
 
 template <typename T, bool kTransW = false>
 inline cudaError_t launch_gemm(const T* A, const T* W, const float* bias, T* out, int M, int N,
                                int K, int act, const float* gate, cudaStream_t stream) {
-  constexpr int BM = gemm_tile_rows<T, kTransW>(), BN = gemm_tile_cols<T, kTransW>();
+  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
   size_t smem = 0;
-  const cudaError_t err = tile_smem<T, kTransW>(gemm_bias_act_kernel<T, kTransW>,
-                                                gemm_smem_bytes<T, kTransW>(), &smem);
+  const cudaError_t err = tile_smem<T>(gemm_bias_act_kernel<T, kTransW>,
+                                       gemm_smem_bytes<T, kTransW>(), &smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, smem, stream>>>(A, W, bias, out, M, N, K,
@@ -423,7 +514,7 @@ inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T*
                                    int slots = 3) {
   constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
   size_t smem = 0;
-  const cudaError_t err = tile_smem<T, false>(qkv_proj_kernel<T>, gemm_smem_bytes<T>(), &smem);
+  const cudaError_t err = tile_smem<T>(qkv_proj_kernel<T>, gemm_smem_bytes<T>(), &smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((slots * nh * hd + BN - 1) / BN, (B * L + BM - 1) / BM);
   qkv_proj_kernel<T><<<grid, kThreads, smem, stream>>>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale,
@@ -515,12 +606,135 @@ inline cudaError_t launch_residual_ln(const T* A, const T* W, const float* bias,
                                       cudaStream_t stream) {
   constexpr int R = ln_tile_rows<T>();
   size_t smem = 0;
-  const cudaError_t err = tile_smem<T, false>(gemm_bias_residual_ln_kernel<T>, ln_smem_bytes<T>(),
-                                              &smem);
+  const cudaError_t err = tile_smem<T>(gemm_bias_residual_ln_kernel<T>, ln_smem_bytes<T>(),
+                                       &smem);
   if (err != cudaSuccess) return err;
   gemm_bias_residual_ln_kernel<T><<<(M + R - 1) / R, kThreads, smem, stream>>>(
       A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln);
   return cudaGetLastError();
+}
+
+// Weight gradient dW = X^T . dY (Hin, N) in float32, summed over the M rows
+// of X (M, Hin) and dY (M, N), and with db != null the bias gradient db =
+// sum over rows of dY (N,). Nothing is shared between blocks: no atomics,
+// and the same sums in the same order on every run.
+//   float32: each block owns one 64 x 64 tile of dW and walks all M rows
+//            itself on the SIMT tile; the blocks of the first tile row also
+//            write their columns of db, summed from the dY tiles they stage
+//            anyway. Grid (ceil(N / 64), ceil(Hin / 64)); rows_per_split and
+//            the strides are not read.
+//   bf16:    each block owns one 128 x 128 tile of dW (WgradTileB) and the
+//            rows [z rows_per_split, (z + 1) rows_per_split) for z =
+//            blockIdx.z, and writes its partial tile to dW + z w_stride (and
+//            the first tile row its partial db to db + z b_stride). Grid
+//            (ceil(N / 128), ceil(Hin / 128), splits).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+    weight_grad_kernel(const T* __restrict__ X, const T* __restrict__ dY, float* __restrict__ dW,
+                       float* __restrict__ db, int M, int Hin, int N, int rows_per_split,
+                       size_t w_stride, size_t b_stride) {
+  if constexpr (on_tensor_cores<T>()) {
+    extern __shared__ __align__(16) unsigned char smem_bf16[];
+    using G = WgradTileB;
+    const int row0 = blockIdx.y * kGemmRowsB, col0 = blockIdx.x * kGemmColsB;
+    const int k_begin = blockIdx.z * rows_per_split;
+    const int k_end = min(M, k_begin + rows_per_split);
+    float* out = dW + blockIdx.z * w_stride;
+    float* bsum = blockIdx.y == 0 && db != nullptr ? db + blockIdx.z * b_stride : nullptr;
+    G::Acc acc;
+    G::run(X, dY, Hin, N, k_end, row0, col0, acc, smem_bf16, k_begin, bsum);
+    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+      const int h = row0 + r, n = col0 + c;
+      if (h < Hin && n < N) store_pair(out, (size_t)h * N + n, a0, a1, n + 1 < N);
+    });
+  } else {
+    using G = TileGemm<64, 64, T, true, false, true>;
+    __shared__ float smem[G::kSmemFloats];
+    const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
+    float acc[G::TM][G::TN];
+    G::run(X, dY, Hin, N, M, row0, col0, acc, smem, blockIdx.y == 0 ? db : nullptr);
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const int h = row0 + ty + 16 * i;
+      if (h >= Hin) continue;
+#pragma unroll
+      for (int j = 0; j < G::TN; ++j) {
+        const int n = col0 + tx + 16 * j;
+        if (n < N) dW[(size_t)h * N + n] = acc[i][j];
+      }
+    }
+  }
+}
+
+namespace {  // a kernel that is no template gets one copy a translation unit
+
+// dW[i] = sum over z of ws[z w_stride + i] (i < Hin N) and db[j] = sum over
+// z of ws[splits w_stride + z b_stride + j] (j < N), z in order from 0
+__global__ void weight_grad_reduce_kernel(const float* __restrict__ ws, int splits,
+                                          size_t w_stride, size_t b_stride,
+                                          float* __restrict__ dW, size_t n_w,
+                                          float* __restrict__ db, int N) {
+  const size_t total = n_w + (db != nullptr ? (size_t)N : 0);
+  const float* wsb = ws + splits * w_stride;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.0f;
+    if (i < n_w) {
+      for (int z = 0; z < splits; ++z) v += ws[z * w_stride + i];
+      dW[i] = v;
+    } else {
+      for (int z = 0; z < splits; ++z) v += wsb[z * b_stride + (i - n_w)];
+      db[i - n_w] = v;
+    }
+  }
+}
+
+}  // namespace
+
+// The float32 workspace of a bf16 weight gradient over `splits` row ranges
+// (none for one range): each range's partial dW, then each one's partial db,
+// each padded to a multiple of 4 floats. ops/cuda/train_blocks.py
+// weight_grad_workspace is its Python twin.
+inline size_t weight_grad_workspace_floats(int splits, int Hin, int N) {
+  const auto pad4 = [](size_t n) { return (n + 3) / 4 * 4; };
+  return splits > 1 ? (size_t)splits * (pad4((size_t)Hin * N) + pad4((size_t)N)) : 0;
+}
+
+// dW (Hin, N) and db (N,) of X (M, Hin) and dY (M, N), the rows cut into
+// `splits` ranges of whole 32-row stages in bf16 (ws: a workspace of at least
+// ws_floats >= weight_grad_workspace_floats(splits, Hin, N) floats when
+// splits > 1); float32 ignores splits and ws.
+template <typename T>
+inline cudaError_t launch_weight_grad(const T* X, const T* dY, float* dW, float* db, float* ws,
+                                      size_t ws_floats, int splits, int M, int Hin, int N,
+                                      cudaStream_t stream) {
+  if constexpr (!on_tensor_cores<T>()) {
+    const dim3 grid((N + 63) / 64, (Hin + 63) / 64);
+    weight_grad_kernel<T><<<grid, kThreads, 0, stream>>>(X, dY, dW, db, M, Hin, N, M, 0, 0);
+    return cudaGetLastError();
+  } else {
+    const int stages = max(1, (M + kTileKB - 1) / kTileKB);
+    const int per_split = (stages + max(1, splits) - 1) / max(1, splits) * kTileKB;
+    splits = max(1, (M + per_split - 1) / per_split);  // no empty range
+    if (splits > 1 && (ws == nullptr || ws_floats < weight_grad_workspace_floats(splits, Hin, N)))
+      return cudaErrorInvalidValue;
+    size_t smem = 0;
+    cudaError_t err = tile_smem<T>(weight_grad_kernel<T>, WgradTileB::kSmemBytes, &smem);
+    if (err != cudaSuccess) return err;
+    const size_t w_stride = ((size_t)Hin * N + 3) / 4 * 4, b_stride = ((size_t)N + 3) / 4 * 4;
+    const dim3 grid((N + kGemmColsB - 1) / kGemmColsB, (Hin + kGemmRowsB - 1) / kGemmRowsB,
+                    splits);
+    float* wsb = db != nullptr && splits > 1 ? ws + splits * w_stride : db;
+    weight_grad_kernel<T><<<grid, kThreads, smem, stream>>>(
+        X, dY, splits > 1 ? ws : dW, wsb, M, Hin, N, per_split, w_stride, b_stride);
+    if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+    const size_t total = (size_t)Hin * N + N;
+    const int blocks = (int)min((total + kThreads - 1) / kThreads, (size_t)1056);
+    weight_grad_reduce_kernel<<<blocks, kThreads, 0, stream>>>(ws, splits, w_stride, b_stride, dW,
+                                                               (size_t)Hin * N, db, N);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace spk

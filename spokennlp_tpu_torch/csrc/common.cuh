@@ -1,12 +1,11 @@
 // Shared device code of the encoder kernels: dtype conversion, the
 // activation table and its derivative, warp sums, a counter-based Philox
 // generator for dropout, a SIMT tiled GEMM (either operand may be read
-// transposed), the weight-gradient GEMM that reduces over all rows, the q/k/v
-// scatter and the row LayerNorm. The forward tile functions built on them
-// (the GEMM with bias and activation, the QKV projection, the GEMM whose
-// epilogue adds bias and residual and applies LayerNorm over whole rows)
-// live in bf16_gemm.cuh beside the tensor-core tile their bf16 instantiations
-// run. The inference kernels' bodies are device functions of one tile or row
+// transposed), the q/k/v scatter and the row LayerNorm. The tile functions
+// built on them (the GEMM with bias and activation, the QKV projection, the
+// GEMM whose epilogue adds bias and residual and applies LayerNorm over whole
+// rows, the weight gradient that reduces over all rows) live in bf16_gemm.cuh
+// beside the tensor-core tile their bf16 instantiations run. The inference kernels' bodies are device functions of one tile or row
 // block, so the whole-stack kernel (stack_block.cu) runs the same code on the
 // same tiles.
 //
@@ -236,43 +235,6 @@ struct TileGemm {
     }
   }
 };
-
-// Weight gradient dW = X^T . dY (Hin, N) in float32, summed over all M rows,
-// and with db != null the bias gradient db = sum over rows of dY (N,). Each
-// block owns one 64 x 64 tile of dW and walks all M rows itself, so nothing
-// is shared between blocks: no atomics, and the same sum in the same order on
-// every run. The blocks of the first tile row also write their columns of
-// db, summed from the dY tiles they stage anyway. Grid (ceil(N / 64),
-// ceil(Hin / 64)).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    weight_grad_kernel(const T* __restrict__ X, const T* __restrict__ dY, float* __restrict__ dW,
-                       float* __restrict__ db, int M, int Hin, int N) {
-  using G = TileGemm<64, 64, T, true, false, true>;
-  __shared__ float smem[G::kSmemFloats];
-  const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
-  float acc[G::TM][G::TN];
-  G::run(X, dY, Hin, N, M, row0, col0, acc, smem, blockIdx.y == 0 ? db : nullptr);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < G::TM; ++i) {
-    const int h = row0 + ty + 16 * i;
-    if (h >= Hin) continue;
-#pragma unroll
-    for (int j = 0; j < G::TN; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n < N) dW[(size_t)h * N + n] = acc[i][j];
-    }
-  }
-}
-
-template <typename T>
-inline cudaError_t launch_weight_grad(const T* X, const T* dY, float* dW, float* db, int M,
-                                      int Hin, int N, cudaStream_t stream) {
-  const dim3 grid((N + 63) / 64, (Hin + 63) / 64);
-  weight_grad_kernel<T><<<grid, kThreads, 0, stream>>>(X, dY, dW, db, M, Hin, N);
-  return cudaGetLastError();
-}
 
 // Store one projected value of column n (slot s = n / HN, head, dim) and row
 // m = b * L + l into the (slots, B, nh, L, hd) layout.

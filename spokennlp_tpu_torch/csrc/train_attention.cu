@@ -29,10 +29,12 @@
 // What bounds it here. At BERT-base (B=32, L=512, H=768, 12 heads of 64) the
 // forward is about 103 GFLOP and the backward, which recomputes the forward,
 // about three times that, against some 25 MB (forward) and 50 MB (backward)
-// of inputs, weights and outputs in bf16: bound by arithmetic. In bf16 the
-// forward's projections run bf16_gemm.cuh's tensor-core tile; the rest are
-// SIMT kernels on the CUDA cores in float32, whose move to the tensor cores
-// is later work.
+// of inputs, weights and outputs in bf16: bound by arithmetic. In bf16 every
+// product of the projections runs bf16_gemm.cuh's tensor-core tile, forward
+// and backward (dctx and dx with a weight read transposed, the two weight
+// gradients); the attention cores (attn_rows, attn_dq, attn_dkv) are SIMT
+// kernels on the CUDA cores in float32, whose move to the tensor cores is
+// later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v and the (L, L) probabilities
@@ -55,10 +57,11 @@
 //               the same order on every run;
 //            5. dx = [dq dk dv] . Wqkv^T in one GEMM;
 //            6. dWqkv = x^T [dq dk dv] and dWo = ctx^T g in
-//               weight_grad_kernel (common.cuh): each block owns a tile of
-//               the weight gradient and walks all B*L rows, so the batch sum
-//               is deterministic too; the bias gradients come from the same
-//               pass.
+//               weight_grad_kernel (bf16_gemm.cuh): each block owns a tile
+//               of the weight gradient and a fixed range of the B*L rows,
+//               whose partial sums are added in order after it, so the
+//               batch sum is deterministic too; the bias gradients come from
+//               the same pass.
 // The probabilities are recomputed three times in the backward (rows, dq,
 // dkv) instead of being stored: (B, nh, L, L) never touches device memory.
 #include "attention_tiles.cuh"
@@ -432,8 +435,9 @@ template <typename T>
 cudaError_t attention_train_bwd(const T* hidden, const int32_t* seg, const int32_t* seed,
                                 const T* wqkv, const float* bqkv, const T* wo, const T* g,
                                 T* qkv_buf, T* dctx_buf, T* ctx_buf, float* stats, T* dqkv,
-                                T* dx, float* dwqkv, float* dbqkv, float* dwo, float* dbo, int B,
-                                int L, int H, int nh, int hd, float sm_scale, uint32_t thr,
+                                T* dx, float* dwqkv, float* dbqkv, float* dwo, float* dbo,
+                                float* ws, size_t ws_floats, int splits_proj, int splits_out,
+                                int B, int L, int H, int nh, int hd, float sm_scale, uint32_t thr,
                                 float keep_prob, cudaStream_t stream) {
   const int M = B * L, HN = nh * hd;
   cudaError_t err = launch_qkv_proj<T>(hidden, wqkv, bqkv, qkv_buf, B, L, H, nh, hd, 1.0f, stream);
@@ -467,9 +471,10 @@ cudaError_t attention_train_bwd(const T* hidden, const int32_t* seg, const int32
   // dx = [dq dk dv] . Wqkv^T (Wqkv is (H, 3 Hn): read transposed)
   err = launch_gemm<T, true>(dqkv, wqkv, nullptr, dx, M, H, 3 * HN, kActNone, nullptr, stream);
   if (err != cudaSuccess) return err;
-  err = launch_weight_grad<T>(hidden, dqkv, dwqkv, dbqkv, M, H, 3 * HN, stream);
+  err = launch_weight_grad<T>(hidden, dqkv, dwqkv, dbqkv, ws, ws_floats, splits_proj, M, H,
+                              3 * HN, stream);
   if (err != cudaSuccess) return err;
-  return launch_weight_grad<T>(ctx_buf, g, dwo, dbo, M, HN, H, stream);
+  return launch_weight_grad<T>(ctx_buf, g, dwo, dbo, ws, ws_floats, splits_out, M, HN, H, stream);
 }
 
 // keep[b, h, row, col] = 1 where the kernels keep the probability
@@ -493,7 +498,10 @@ __global__ void dropout_mask_kernel(const int32_t* __restrict__ seed_ptr, uint8_
 // dtype: 0 = float32, 1 = bfloat16 (hidden, weights, g, the buffers and the
 // outputs dx/out); biases, stats and the weight/bias gradients are float32;
 // seg is int32 (B, L) and seed one int32 on the card. thr = 0 turns dropout
-// off. Each entry returns the first CUDA error, or 0.
+// off. The backward's ws (ws_floats float32) is the weight gradients'
+// workspace for splits_proj (dWqkv) and splits_out (dWo) row ranges
+// (launch_weight_grad, bf16_gemm.cuh; bf16 only). Each entry returns the
+// first CUDA error, or 0.
 extern "C" int spk_attention_train_fwd(int dtype, const void* hidden, const void* seg,
                                        const void* seed, const void* wqkv, const void* bqkv,
                                        const void* wo, const void* bo, void* qkv_buf,
@@ -529,8 +537,10 @@ extern "C" int spk_attention_train_bwd(int dtype, const void* hidden, const void
                                        const void* wo, const void* g, void* qkv_buf,
                                        void* dctx_buf, void* ctx_buf, void* stats, void* dqkv,
                                        void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo,
-                                       int B, int L, int H, int nh, int hd, float sm_scale,
-                                       unsigned int thr, float keep_prob, void* stream) {
+                                       void* ws, size_t ws_floats, int splits_proj,
+                                       int splits_out, int B, int L, int H, int nh, int hd,
+                                       float sm_scale, unsigned int thr, float keep_prob,
+                                       void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto sg = static_cast<const int32_t*>(seg);
   const auto sd = static_cast<const int32_t*>(seed);
@@ -542,16 +552,16 @@ extern "C" int spk_attention_train_bwd(int dtype, const void* hidden, const void
     err = spk::attention_train_bwd<float>(
         static_cast<const float*>(hidden), sg, sd, static_cast<const float*>(wqkv), bq,
         static_cast<const float*>(wo), static_cast<const float*>(g), f(qkv_buf), f(dctx_buf),
-        f(ctx_buf), st, f(dqkv), f(dx), f(dwqkv), f(dbqkv), f(dwo), f(dbo), B, L, H, nh, hd,
-        sm_scale, thr, keep_prob, s);
+        f(ctx_buf), st, f(dqkv), f(dx), f(dwqkv), f(dbqkv), f(dwo), f(dbo), f(ws), ws_floats,
+        splits_proj, splits_out, B, L, H, nh, hd, sm_scale, thr, keep_prob, s);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     const auto t = [](void* p) { return static_cast<bf*>(p); };
     err = spk::attention_train_bwd<bf>(
         static_cast<const bf*>(hidden), sg, sd, static_cast<const bf*>(wqkv), bq,
         static_cast<const bf*>(wo), static_cast<const bf*>(g), t(qkv_buf), t(dctx_buf),
-        t(ctx_buf), st, t(dqkv), t(dx), f(dwqkv), f(dbqkv), f(dwo), f(dbo), B, L, H, nh, hd,
-        sm_scale, thr, keep_prob, s);
+        t(ctx_buf), st, t(dqkv), t(dx), f(dwqkv), f(dbqkv), f(dwo), f(dbo), f(ws), ws_floats,
+        splits_proj, splits_out, B, L, H, nh, hd, sm_scale, thr, keep_prob, s);
   } else {
     err = cudaErrorInvalidValue;
   }

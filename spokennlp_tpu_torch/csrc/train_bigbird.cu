@@ -22,9 +22,11 @@
 // heads of 64, blocks of 64) the forward is about 27 GFLOP and the backward,
 // which recomputes the forward's projections and attention, about 80 GFLOP,
 // against some 15 MB (forward) and 40 MB (backward) of inputs, weights and
-// outputs in bf16: bound by arithmetic. In bf16 the forward's projections
-// run bf16_gemm.cuh's tensor-core tile; the rest are SIMT kernels on the CUDA
-// cores in float32, whose move to the tensor cores is later work.
+// outputs in bf16: bound by arithmetic. In bf16 every product of the
+// projections runs bf16_gemm.cuh's tensor-core tile, forward and backward
+// (dctx and dx with a weight read transposed, the two weight gradients); the
+// attention cores are SIMT kernels on the CUDA cores in float32, whose move
+// to the tensor cores is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence and scatter-added each query block's dk and
@@ -47,9 +49,10 @@
 //               global rows. Each block owns its keys: no atomics, the same
 //               order on every run;
 //            5. dx = [dq dk dv] . Wqkv^T in one GEMM, and dWqkv = x^T [dq dk
-//               dv] and dWo = ctx^T g in weight_grad_kernel (common.cuh):
-//               each block owns a tile of a weight gradient and walks all B*L
-//               rows, so the batch sum is deterministic; the bias gradients
+//               dv] and dWo = ctx^T g in weight_grad_kernel (bf16_gemm.cuh):
+//               each block owns a tile of a weight gradient and a fixed range
+//               of the B*L rows, whose partial sums are added in order after
+//               it, so the batch sum is deterministic; the bias gradients
 //               come from the same pass.
 // Saved between the passes: the inputs and the seed only; the scores and
 // probabilities are recomputed tile by tile in each kernel.
@@ -339,7 +342,9 @@ cudaError_t bigbird_train_bwd(const T* hidden, const int32_t* mask, const int32_
                               const int32_t* seed, const T* wqkv, const float* bqkv, const T* wo,
                               const T* g, int32_t* counts, T* qkv_buf, T* ctx_buf, T* dctx_buf,
                               float* stats, T* dproj, T* dx, float* dwqkv, float* dbqkv,
-                              float* dwo, float* dbo, int B, int L, int H, int nh, int hd, int C,
+                              float* dwo, float* dbo, float* ws, size_t ws_floats,
+                              int splits_proj, int splits_out, int B, int L, int H, int nh, int hd,
+                              int C,
                               int G, int R, float sm_scale, uint32_t thr, float keep_prob,
                               cudaStream_t stream) {
   const int M = B * L, HN = nh * hd, ld = 3 * HN;
@@ -373,9 +378,10 @@ cudaError_t bigbird_train_bwd(const T* hidden, const int32_t* mask, const int32_
   // dx = dproj . Wqkv^T (Wqkv is (H, 3 Hn): read transposed)
   err = launch_gemm<T, true>(dproj, wqkv, nullptr, dx, M, H, ld, kActNone, nullptr, stream);
   if (err != cudaSuccess) return err;
-  err = launch_weight_grad<T>(hidden, dproj, dwqkv, dbqkv, M, H, ld, stream);
+  err = launch_weight_grad<T>(hidden, dproj, dwqkv, dbqkv, ws, ws_floats, splits_proj, M, H, ld,
+                              stream);
   if (err != cudaSuccess) return err;
-  return launch_weight_grad<T>(ctx_buf, g, dwo, dbo, M, HN, H, stream);
+  return launch_weight_grad<T>(ctx_buf, g, dwo, dbo, ws, ws_floats, splits_out, M, HN, H, stream);
 }
 
 // The four keep masks of one seed, as the kernels draw them: window (B, nh,
@@ -461,9 +467,11 @@ extern "C" int spk_bigbird_train_bwd(int dtype, const void* hidden, const void* 
                                      const void* bqkv, const void* wo, const void* g,
                                      void* counts, void* qkv_buf, void* ctx_buf, void* dctx_buf,
                                      void* stats, void* dproj, void* dx, void* dwqkv,
-                                     void* dbqkv, void* dwo, void* dbo, int B, int L, int H,
-                                     int nh, int hd, int C, int G, int R, float sm_scale,
-                                     unsigned int thr, float keep_prob, void* stream) {
+                                     void* dbqkv, void* dwo, void* dbo, void* ws,
+                                     size_t ws_floats, int splits_proj, int splits_out, int B,
+                                     int L, int H, int nh, int hd, int C, int G, int R,
+                                     float sm_scale, unsigned int thr, float keep_prob,
+                                     void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
@@ -475,8 +483,8 @@ extern "C" int spk_bigbird_train_bwd(int dtype, const void* hidden, const void* 
     return spk::bigbird_train_bwd<F>(
         c(hidden), i32(mask), i32(rand), i32(rok), i32(inv_off), i32(inv), i32(seed), c(wqkv),
         f32(bqkv), c(wo), c(g), static_cast<int32_t*>(counts), m(qkv_buf), m(ctx_buf),
-        m(dctx_buf), mf(stats), m(dproj), m(dx), mf(dwqkv), mf(dbqkv), mf(dwo), mf(dbo), B, L, H,
-        nh, hd, C, G, R, sm_scale, thr, keep_prob, s);
+        m(dctx_buf), mf(stats), m(dproj), m(dx), mf(dwqkv), mf(dbqkv), mf(dwo), mf(dbo), mf(ws),
+        ws_floats, splits_proj, splits_out, B, L, H, nh, hd, C, G, R, sm_scale, thr, keep_prob, s);
   };
   cudaError_t err = dtype == 0   ? run(float{})
                     : dtype == 1 ? run(__nv_bfloat16{})

@@ -23,9 +23,11 @@
 // heads of 64, window 512) the forward is about 36 GFLOP and the backward,
 // which recomputes the forward's projections and attention, about 100 GFLOP,
 // against some 20 MB (forward) and 50 MB (backward) of inputs, weights and
-// outputs in bf16: bound by arithmetic. In bf16 the forward's projections
-// run bf16_gemm.cuh's tensor-core tile; the rest are SIMT kernels on the CUDA
-// cores in float32, whose move to the tensor cores is later work.
+// outputs in bf16: bound by arithmetic. In bf16 every product of the
+// projections runs bf16_gemm.cuh's tensor-core tile, forward and backward
+// (dctx and dx with a weight read transposed, the two weight gradients); the
+// attention cores are SIMT kernels on the CUDA cores in float32, whose move
+// to the tensor cores is later work.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into
@@ -49,9 +51,11 @@
 //               dvg summed over the (at most G) global rows;
 //            7. dx = [dq dk dv dqg dkg dvg] . [Wqkv Wg]^T in one GEMM, and
 //               d[Wqkv Wg] = x^T [dq ... dvg] and dWo = ctx^T g in
-//               weight_grad_kernel (common.cuh): each block owns a tile of a
-//               weight gradient and walks all B*L rows, so the batch sum is
-//               deterministic; the bias gradients come from the same pass.
+//               weight_grad_kernel (bf16_gemm.cuh): each block owns a tile
+//               of a weight gradient and a fixed range of the B*L rows,
+//               whose partial sums are added in order after it, so the batch
+//               sum is deterministic; the bias gradients come from the same
+//               pass.
 // Saved between the passes: the inputs and the seed only; the scores and
 // probabilities are recomputed tile by tile in each kernel.
 #include "sliding_attention.cuh"
@@ -391,7 +395,9 @@ cudaError_t sliding_train_bwd(const T* hidden, const int32_t* mask, const int32_
                               const T* w_all, const T* g, int32_t* counts, T* qkv_buf,
                               T* gkv_buf, T* ctx_buf, T* dctx_buf, float* stats, float* gstats,
                               T* qg_buf, T* dproj, T* dx, float* dw_all, float* db_all,
-                              float* dwo, float* dbo, int B, int L, int H, int nh, int hd, int C,
+                              float* dwo, float* dbo, float* ws, size_t ws_floats,
+                              int splits_proj, int splits_out, int B, int L, int H, int nh, int hd,
+                              int C,
                               int G, int global_rows, float sm_scale, uint32_t thr,
                               float keep_prob, cudaStream_t stream) {
   const int M = B * L, HN = nh * hd, ld = (global_rows ? 6 : 3) * HN;
@@ -438,9 +444,10 @@ cudaError_t sliding_train_bwd(const T* hidden, const int32_t* mask, const int32_
   // dx = dproj . [Wqkv Wg]^T ([Wqkv Wg] is (H, ld): read transposed)
   err = launch_gemm<T, true>(dproj, w_all, nullptr, dx, M, H, ld, kActNone, nullptr, stream);
   if (err != cudaSuccess) return err;
-  err = launch_weight_grad<T>(hidden, dproj, dw_all, db_all, M, H, ld, stream);
+  err = launch_weight_grad<T>(hidden, dproj, dw_all, db_all, ws, ws_floats, splits_proj, M, H, ld,
+                              stream);
   if (err != cudaSuccess) return err;
-  return launch_weight_grad<T>(ctx_buf, g, dwo, dbo, M, HN, H, stream);
+  return launch_weight_grad<T>(ctx_buf, g, dwo, dbo, ws, ws_floats, splits_out, M, HN, H, stream);
 }
 
 // The three keep masks of one seed, as the kernels draw them: band (B, nh,
@@ -520,6 +527,7 @@ extern "C" int spk_sliding_train_bwd(int dtype, const void* hidden, const void* 
                                      void* qkv_buf, void* gkv_buf, void* ctx_buf, void* dctx_buf,
                                      void* stats, void* gstats, void* qg_buf, void* dproj,
                                      void* dx, void* dw_all, void* db_all, void* dwo, void* dbo,
+                                     void* ws, size_t ws_floats, int splits_proj, int splits_out,
                                      int B, int L, int H, int nh, int hd, int C, int G,
                                      int global_rows, float sm_scale, unsigned int thr,
                                      float keep_prob, void* stream) {
@@ -535,8 +543,8 @@ extern "C" int spk_sliding_train_bwd(int dtype, const void* hidden, const void* 
         c(hidden), i32(mask), i32(glob), i32(seed), c(wqkv), f32(bqkv), c(wgq), f32(bgq),
         c(wgkv), f32(bgkv), c(wo), c(w_all), c(g), static_cast<int32_t*>(counts), m(qkv_buf),
         m(gkv_buf), m(ctx_buf), m(dctx_buf), mf(stats), mf(gstats), m(qg_buf), m(dproj), m(dx),
-        mf(dw_all), mf(db_all), mf(dwo), mf(dbo), B, L, H, nh, hd, C, G, global_rows, sm_scale,
-        thr, keep_prob, s);
+        mf(dw_all), mf(db_all), mf(dwo), mf(dbo), mf(ws), ws_floats, splits_proj, splits_out, B,
+        L, H, nh, hd, C, G, global_rows, sm_scale, thr, keep_prob, s);
   };
   cudaError_t err = dtype == 0   ? run(float{})
                     : dtype == 1 ? run(__nv_bfloat16{})

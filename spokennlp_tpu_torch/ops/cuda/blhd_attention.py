@@ -10,13 +10,16 @@ TPU kernel computes it); on a CPU tensor it runs
 float32 softmax. ``snld_attention_plain`` repeats the kernel's own
 arithmetic (the online softmax over key tiles of 64 of
 ``csrc/attention_core.cuh``, every rounding where the kernel rounds), so the
-card can hold the kernel to it within one bf16 step of the output.
+card can hold the kernel to it within one bf16 step of the output;
+``attention_block_model`` does the same for the whole float attention block
+(kernel 1) around that core.
 """
 
 from __future__ import annotations
 
 import torch
 
+from spokennlp_tpu_torch.ops.cuda import attention_block as ab
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import HEAD_DIMS, NEG_INF
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import DTYPE_CODES
@@ -76,6 +79,30 @@ def snld_attention_plain(qkv: torch.Tensor, segment_ids: torch.Tensor,
         o = o * alpha + torch.einsum("bnlm,bnmd->bnld", e, v[:, :, keys])
         m = new
     return (o / total).to(qkv.dtype)
+
+
+def attention_block_model(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel, out_bias, *,
+                          sm_scale: float, ln_scale=None, ln_bias=None,
+                          eps: float = 1e-12) -> torch.Tensor:
+    """Kernel 1's own arithmetic in its float modes, every rounding where
+    the kernel rounds: q = (x Wq + bq) sm_scale, k = x Wk + bk, v = x Wv + bv
+    with float32 sums, rounded to hidden's type; the core's rounding model
+    (``snld_attention_plain`` on the scaled q); ctx rounded; out = ctx Wo +
+    bo, plus x and the LayerNorm with ``ln_scale``, in float32, rounded.
+    Both products go through ``attention_block.float_product``. Returns (B,
+    L, H) in hidden's type; compare rows with segment_ids > 0."""
+    B, L, H = hidden.shape
+    _, _, nh, hd = qkv_kernel.shape
+    x, dt = hidden.float(), hidden.dtype
+    qkv = ab.float_product(x, qkv_kernel.reshape(H, -1)).reshape(B, L, 3, nh, hd)
+    qkv = qkv + qkv_bias.float()
+    scale = torch.tensor([sm_scale, 1.0, 1.0], device=x.device)[:, None, None]
+    qkv = (qkv * scale).to(dt).permute(0, 2, 3, 1, 4)  # (B, 3, nh, L, hd)
+    ctx = snld_attention_plain(qkv, segment_ids, 1.0).transpose(1, 2).reshape(B, L, nh * hd)
+    out = ab.float_product(ctx, out_kernel.reshape(-1, H)) + out_bias.float()
+    if ln_scale is not None:
+        out = ab._layer_norm(out + x, ln_scale, ln_bias, eps)
+    return out.to(dt)
 
 
 def snld_self_attention(

@@ -26,7 +26,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_P, _I, _F, _U, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_size_t
 # C signatures of csrc/*.cu's extern "C" entries
 _SIGNATURES = {
     "spk_attention_block": [_I] + [_P] * 12 + [_I] * 5 + [_F, _F, _I, _P],
@@ -39,19 +39,20 @@ _SIGNATURES = {
     "spk_attention_core": [_I] + [_P] * 3 + [_I] * 4 + [_P],
     "spk_encoder_stack": [_I, _I] + [_P] * 27 + [_I] * 8 + [_F, _F, _P],
     "spk_attention_train_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _U, _F, _P],
-    "spk_attention_train_bwd": [_I] + [_P] * 17 + [_I] * 5 + [_F, _U, _F, _P],
+    "spk_attention_train_bwd": [_I] + [_P] * 18 + [_Z] + [_I] * 7 + [_F, _U, _F, _P],
     "spk_dropout_mask": [_P, _P, _I, _I, _I, _U, _P],
     "spk_mlp_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
-    "spk_mlp_train_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
+    "spk_mlp_train_bwd": [_I] + [_P] * 14 + [_Z] + [_I] * 5 + [_P],
+    "spk_weight_grad": [_I] + [_P] * 5 + [_Z] + [_I] * 4 + [_P],
     "spk_sliding_block": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_sliding_block_w8a8": [_I] + [_P] * 25 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_sliding_train_fwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _U, _F, _P],
-    "spk_sliding_train_bwd": [_I] + [_P] * 27 + [_I] * 8 + [_F, _U, _F, _P],
+    "spk_sliding_train_bwd": [_I] + [_P] * 28 + [_Z] + [_I] * 10 + [_F, _U, _F, _P],
     "spk_sliding_dropout_mask": [_P] * 4 + [_I] * 5 + [_U, _P],
     "spk_bigbird_block": [_I] + [_P] * 15 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_bigbird_block_w8a8": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_bigbird_train_fwd": [_I] + [_P] * 13 + [_I] * 8 + [_F, _U, _F, _P],
-    "spk_bigbird_train_bwd": [_I] + [_P] * 22 + [_I] * 8 + [_F, _U, _F, _P],
+    "spk_bigbird_train_bwd": [_I] + [_P] * 23 + [_Z] + [_I] * 10 + [_F, _U, _F, _P],
     "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],
     "spk_ponet_block": [_I, _I] + [_P] * 24 + [_I] * 5 + [_F, _F, _P],
     "spk_int8_tile_smem": [_I],

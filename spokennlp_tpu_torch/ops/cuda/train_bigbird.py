@@ -28,6 +28,10 @@ and keeps a probability iff its bits are >= ``dropout_threshold(rate)``.
 ``philox_bits`` on the CPU), so the plain version replays the kernels'
 dropout exactly. The TPU kernel's hardware-PRNG pattern cannot be matched bit
 for bit, so parity with JAX runs at rate 0.
+
+``bigbird_train_bwd_plain`` is the backward kernel written out, every
+product through ``train_blocks.backward_product`` (no model path runs it;
+the card checks hold the kernel's products to it).
 """
 
 from __future__ import annotations
@@ -37,11 +41,14 @@ import torch
 
 from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
 from spokennlp_tpu_torch.ops.cuda import build
+from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
 from spokennlp_tpu_torch.ops.cuda.bigbird_block import (
-    bigbird_context_plain, card_weights, check_card_inputs,
+    bigbird_attend, bigbird_context_plain, card_weights, check_card_inputs,
 )
-from spokennlp_tpu_torch.ops.cuda.train_blocks import _stream, dropout_threshold, philox_bits
+from spokennlp_tpu_torch.ops.cuda.train_blocks import (
+    _ptr, _stream, dropout_threshold, philox_bits, weight_grad_plan,
+)
 from spokennlp_tpu_torch.ops.cuda.train_sliding import (
     GLOBAL_COL_STREAM, GLOBAL_ROW_STREAM, _u32,
 )
@@ -102,6 +109,35 @@ def bigbird_train_plain(
     return out.to(hidden.dtype)
 
 
+def bigbird_train_bwd_plain(
+    hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel, g, *, sm_scale: float,
+    block_size: int, num_global_blocks: int, num_random_blocks: int, pattern_seed: int,
+    dropout_rate: float = 0.0, keep=None,
+):
+    """The backward kernel written out: the projections recomputed and
+    rounded to hidden's dtype, dctx = g Wo^T rounded, the core's gradient
+    (autograd of ``bigbird_attend`` in float32) rounded, then
+    ``train_blocks.projection_grads_plain`` on the rounded ctx. Returns (dx,
+    dWqkv (H, 3 Hn), dbqkv, dWo (Hn, H), dbo) as ``bigbird_train_bwd`` does;
+    in float32 it is autograd of ``bigbird_train_plain``."""
+    B, L, H = hidden.shape
+    _, _, nh, hd = qkv_kernel.shape
+    dt, M, HN = hidden.dtype, B * L, nh * hd
+    x, g2 = hidden.reshape(M, H), g.reshape(M, H)
+    wqkv, wo = qkv_kernel.reshape(H, 3 * HN), out_kernel.reshape(HN, H)
+    qkv = (tb.backward_product(x, wqkv) + qkv_bias.float().reshape(-1)).to(dt).float()
+    with torch.enable_grad():
+        qkv = qkv.requires_grad_()
+        q, k, v = qkv.reshape(B, L, 3, nh, hd).unbind(2)
+        ctx = bigbird_attend(q * sm_scale, k, v, attention_mask, block_size=block_size,
+                             num_global_blocks=num_global_blocks,
+                             num_random_blocks=num_random_blocks, seed=pattern_seed,
+                             dropout_rate=dropout_rate, keep=keep).reshape(M, HN)
+        (dqkv,) = torch.autograd.grad(ctx, qkv, tb.out_grad_plain(g2, wo).float())
+    dx, *grads = tb.projection_grads_plain(x, g2, ctx.detach().to(dt), dqkv.to(dt), wqkv, wo)
+    return (dx.reshape(B, L, H), *grads)
+
+
 # ------------------------------------------------------------ kernel calls
 
 
@@ -133,11 +169,13 @@ def bigbird_train_fwd(hidden, mask, seed, w, bo, tables, *, num_heads: int, bloc
 
 
 def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block_size: int,
-                      sm_scale: float, dropout_rate: float):
+                      sm_scale: float, dropout_rate: float, buffers: dict = None):
     """Backward kernel: recomputes the forward from its inputs and returns
     (dx in the compute dtype, dWqkv (H, 3 Hn), dbqkv (3 Hn,), dWo (Hn, H),
-    dbo (H,) in float32, summed over the batch).
-    ``bigbird_train_bwd.launches`` counts its launches."""
+    dbo (H,) in float32, summed over the batch). A ``buffers`` dict receives
+    the intermediates its products read: ctx and dctx (M, Hn), dproj = [dq
+    dk dv] (M, 3 Hn) and w_all = Wqkv (H, 3 Hn). ``bigbird_train_bwd.
+    launches`` counts its launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
     hd = HN // num_heads
@@ -149,17 +187,21 @@ def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block
     dx = torch.empty_like(hidden)
     dwqkv, dbqkv = empty(H, 3 * HN, dtype=f32), empty(3 * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
+    splits, ws, floats = weight_grad_plan(dev, dt, B * L, (H, 3 * HN), (HN, H))
     with torch.cuda.device(dev):
         code = build.library().spk_bigbird_train_bwd(
-            _DTYPES[dt], *(t.data_ptr() for t in (hidden, mask, tables.rand, tables.rok,
-                                                  tables.inv_offsets, tables.inv_entries, seed,
-                                                  w["wqkv"], w["bqkv"], w["wo"], g, *bufs, dx,
-                                                  dwqkv, dbqkv, dwo, dbo)),
-            B, L, H, num_heads, hd, block_size, tables.G, tables.R, float(sm_scale),
-            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
+            _DTYPES[dt], *(_ptr(t) for t in (hidden, mask, tables.rand, tables.rok,
+                                              tables.inv_offsets, tables.inv_entries, seed,
+                                              w["wqkv"], w["bqkv"], w["wo"], g, *bufs, dx,
+                                              dwqkv, dbqkv, dwo, dbo, ws)),
+            floats, *splits, B, L, H, num_heads, hd, block_size, tables.G, tables.R,
+            float(sm_scale), dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
         )
     build.check(code, "bigbird_train_bwd")
     bigbird_train_bwd.launches += 1
+    if buffers is not None:
+        buffers.update(ctx=bufs[2].reshape(B * L, HN), dctx=bufs[3].reshape(B * L, HN),
+                       dproj=bufs[5], w_all=w["wqkv"])
     return dx, dwqkv, dbqkv, dwo, dbo
 
 

@@ -16,6 +16,13 @@ the rest, as the TPU kernels do. On a CPU tensor it runs the plain float32
 version beside it, whose gradient comes from autograd; the tests hold those
 against the JAX kernels, and the kernels are held against them on the card.
 
+Each backward kernel also has an explicit plain version
+(``attention_train_bwd_plain``, ``mlp_train_bwd_plain``): the backward
+written out step by step, every product through ``backward_product`` and
+rounded where the kernels round. No model path runs it; the tests and the
+card checks hold the kernels' products to it element by element, and plant
+faults of a GEMM tile in ``backward_product``.
+
 Dropout draws keep bits from Philox4x32-10 keyed by the seed, one per
 (sequence, head, query row, key column), and keeps a probability iff its
 bits are >= ``min(int(rate * 2**32), 2**32 - 1)``, as the TPU kernel
@@ -26,6 +33,7 @@ kernels' generator, so the plain version replays the kernels' mask exactly;
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -109,6 +117,14 @@ def attention_train_plain(
     x = hidden.float()
     qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
     q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
+    ctx = _attention_core_train(q, k, v, segment_ids, sm_scale, dropout_rate, keep)
+    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    return out.to(hidden.dtype)
+
+
+def _attention_core_train(q, k, v, segment_ids, sm_scale, dropout_rate, keep):
+    """ctx (B, L, nh, hd) of q, k, v (B, L, nh, hd) float32: the training
+    core of ``attention_train_plain``."""
     scores = torch.einsum("blnd,bmnd->bnlm", q, k) * sm_scale
     seg = segment_ids
     allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
@@ -118,9 +134,7 @@ def attention_train_plain(
         if keep is None:
             raise ValueError("attention_train_plain: dropout_rate > 0 needs the keep mask")
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
-    ctx = torch.einsum("bnlm,bmnd->blnd", probs, v)
-    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
-    return out.to(hidden.dtype)
+    return torch.einsum("bnlm,bmnd->blnd", probs, v)
 
 
 def mlp_train_plain(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
@@ -130,11 +144,148 @@ def mlp_train_plain(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
     return (h @ w2.float() + b2.float()).to(x.dtype)
 
 
+# ------------------------------------------------------- explicit backwards
+
+
+def backward_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., K) . (K, N) in float32: every product of the explicit plain
+    backwards (the planted faults of their bf16 card limit replace it)."""
+    return a.float() @ b.float()
+
+
+def weight_grad_plain(x: torch.Tensor, dy: torch.Tensor):
+    """(dW = x^T dy, db = the column sums of dy), float32, of x (M, Hin) and
+    dy (M, N): the weight gradient of ``weight_grad``."""
+    return backward_product(x.t(), dy), dy.float().sum(0)
+
+
+def out_grad_plain(g: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """dctx = g Wo^T rounded to g's dtype, of g (M, H) and wo (Hn, H): the
+    first product of an attention block's backward."""
+    return backward_product(g, wo.t()).to(g.dtype)
+
+
+def projection_grads_plain(x, g, ctx, dproj, w_all, wo):
+    """The products that close a training attention block's backward, of x
+    (M, H), g (M, H), ctx (M, Hn) and the projections' gradient dproj (M,
+    ld) in the compute dtype, and the weights w_all (H, ld) and wo (Hn, H):
+    (dx = dproj W_all^T rounded to x's dtype, dW_all, db_all, dWo, dbo in
+    float32, summed over the rows)."""
+    dx = backward_product(dproj, w_all.t()).to(x.dtype)
+    return (dx, *weight_grad_plain(x, dproj), *weight_grad_plain(ctx, g))
+
+
+def activation_and_grad_plain(pre: torch.Tensor, activation: str):
+    """(act(pre), act'(pre)) in float32, the derivative by autograd of the
+    ``ACTIVATIONS`` form (tanh GELU for "gelu", as the kernels take it)."""
+    with torch.enable_grad():
+        p = pre.detach().float().requires_grad_()
+        h = ACTIVATIONS[activation](p)
+        (dh,) = torch.autograd.grad(h.sum(), p)
+    return h.detach(), dh
+
+
+def mlp_train_bwd_plain(x, w1, b1, w2, g, *, activation: str):
+    """The MLP kernels' backward written out: pre = x W1 + b1, h = act(pre)
+    rounded to x's dtype and act'(pre) in float32, dpre = (g W2^T) act'
+    rounded, dx = dpre W1^T rounded, dW1 = x^T dpre, dW2 = h^T g and the bias
+    gradients in float32. Returns (dx, dW1, db1, dW2, db2) as
+    ``mlp_train_bwd`` does; in float32 it is autograd of ``mlp_train_plain``."""
+    dt = x.dtype
+    h, dh = activation_and_grad_plain(backward_product(x, w1) + b1.float(), activation)
+    dpre = (backward_product(g, w2.t()) * dh).to(dt)
+    dx = backward_product(dpre, w1.t()).to(dt)
+    return (dx, *weight_grad_plain(x, dpre), *weight_grad_plain(h.to(dt), g))
+
+
+def attention_train_bwd_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_kernel, g, *,
+                              sm_scale: float, dropout_rate: float = 0.0, keep=None):
+    """The attention kernels' backward written out: the projections
+    recomputed and rounded to hidden's dtype, dctx = g Wo^T rounded, the
+    core's gradient (autograd of the plain core in float32) rounded, then
+    ``projection_grads_plain`` on the rounded ctx. Returns (dx, dWqkv (H, 3
+    Hn), dbqkv, dWo (Hn, H), dbo) as ``attention_train_bwd`` does; in
+    float32 it is autograd of ``attention_train_plain``."""
+    B, L, H = hidden.shape
+    _, _, nh, hd = qkv_kernel.shape
+    dt, M = hidden.dtype, B * L
+    x, g2 = hidden.reshape(M, H), g.reshape(M, H)
+    wqkv, wo = qkv_kernel.reshape(H, 3 * nh * hd), out_kernel.reshape(nh * hd, H)
+    qkv = (backward_product(x, wqkv) + qkv_bias.float().reshape(-1)).to(dt).float()
+    with torch.enable_grad():
+        qkv = qkv.requires_grad_()
+        q, k, v = qkv.reshape(B, L, 3, nh, hd).unbind(2)
+        ctx = _attention_core_train(q, k, v, segment_ids, sm_scale, dropout_rate, keep)
+        ctx = ctx.reshape(M, nh * hd)
+        (dqkv,) = torch.autograd.grad(ctx, qkv, out_grad_plain(g2, wo).float())
+    dx, *grads = projection_grads_plain(x, g2, ctx.detach().to(dt), dqkv.to(dt), wqkv, wo)
+    return (dx.reshape(B, L, H), *grads)
+
+
 # ------------------------------------------------------------ kernel calls
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# The bf16 weight gradients split their rows into ranges (launch_weight_grad,
+# csrc/bf16_gemm.cuh): each block of 128 x 128 output tiles walks one range,
+# two blocks an SM, and the ranges' partial sums are added in order after.
+# weight_grad_splits leaves a gradient of at least 1.5 tiles an SM whole (on
+# the H100, 216 tiles ran fastest unsplit: most SMs already hold two blocks,
+# and blocks at one k-range share their operands in L2) and otherwise takes
+# the count that fills the SMs best: the fewest waves of blocks per share of
+# the work, each range at least WGRAD_MIN_STAGES stages of 32 rows, at most
+# WGRAD_MAX_SPLITS ranges (PERF.md gives the measurement it was chosen by).
+WGRAD_TILE, WGRAD_BLOCKS_PER_SM, WGRAD_MIN_STAGES, WGRAD_MAX_SPLITS = 128, 2, 16, 8
+
+
+def weight_grad_splits(M: int, Hin: int, N: int, sms: int) -> int:
+    """The row ranges of a bf16 weight gradient (Hin, N) over M rows on a
+    card of ``sms`` SMs."""
+    tiles = -(-Hin // WGRAD_TILE) * -(-N // WGRAD_TILE)
+    if 2 * tiles >= 3 * sms:
+        return 1
+    slots, stages = WGRAD_BLOCKS_PER_SM * sms, -(-M // 32)
+    best, cost = 1, float(-(-tiles // slots))
+    for s in range(2, WGRAD_MAX_SPLITS + 1):
+        if stages < s * WGRAD_MIN_STAGES:
+            break
+        c = -(-tiles * s // slots) / s  # waves of blocks, each a 1/s share of the rows
+        if c < cost:
+            best, cost = s, c
+    return best
+
+
+def weight_grad_workspace(splits: int, Hin: int, N: int) -> int:
+    """float32 elements of the workspace of a bf16 weight gradient over
+    ``splits`` row ranges: each range's partial dW and db, padded to
+    multiples of 4 (csrc/bf16_gemm.cuh weight_grad_workspace_floats)."""
+    pad4 = lambda n: -(-n // 4) * 4
+    return splits * (pad4(Hin * N) + pad4(N)) if splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def weight_grad_plan(device, dtype, M: int, *shapes):
+    """(splits of each weight gradient (Hin, N) over M rows, the float32
+    workspace they share, one after another on the stream, from the
+    allocator (None in float32, which takes no split), its length)."""
+    if dtype != torch.bfloat16:
+        return [1] * len(shapes), None, 0
+    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+    splits = [weight_grad_splits(M, hin, n, sms) for hin, n in shapes]
+    floats = max(weight_grad_workspace(s, hin, n) for s, (hin, n) in zip(splits, shapes))
+    ws = torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+    return splits, ws, floats
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _check_card_tensor(name: str, t: torch.Tensor, device, shape, dtype=None):
@@ -174,10 +325,12 @@ def attention_train_fwd(hidden, seg, seed, wqkv, bqkv, wo, bo, *, num_heads: int
 
 
 def attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, g, *, num_heads: int,
-                        sm_scale: float, dropout_rate: float):
+                        sm_scale: float, dropout_rate: float, buffers: Optional[dict] = None):
     """Backward kernel: recomputes the forward from its inputs and returns
     (dx in the compute dtype, dWqkv (H, 3 Hn), dbqkv (3 Hn,), dWo (Hn, H),
-    dbo (H,) in float32, summed over the batch). ``attention_train_bwd.
+    dbo (H,) in float32, summed over the batch). A ``buffers`` dict receives
+    the intermediates its products read: ctx and dctx (M, Hn), dproj = [dq
+    dk dv] (M, 3 Hn) and w_all = Wqkv (H, 3 Hn). ``attention_train_bwd.
     launches`` counts its launches."""
     B, L, H = hidden.shape
     HN = wo.shape[0]
@@ -190,15 +343,19 @@ def attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, g, *, num_heads: int,
     f32 = torch.float32
     dwqkv, dbqkv = empty(H, 3 * HN, dtype=f32), empty(3 * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
-    ptrs = [t.data_ptr() for t in (hidden, seg, seed, wqkv, bqkv, wo, g, qkv_buf, dctx_buf,
-                                   ctx_buf, stats, dqkv, dx, dwqkv, dbqkv, dwo, dbo)]
+    splits, ws, floats = weight_grad_plan(dev, dt, B * L, (H, 3 * HN), (HN, H))
+    ptrs = [_ptr(t) for t in (hidden, seg, seed, wqkv, bqkv, wo, g, qkv_buf, dctx_buf, ctx_buf,
+                              stats, dqkv, dx, dwqkv, dbqkv, dwo, dbo, ws)]
     with torch.cuda.device(dev):
         code = build.library().spk_attention_train_bwd(
-            _DTYPES[dt], *ptrs, B, L, H, num_heads, hd, float(sm_scale),
+            _DTYPES[dt], *ptrs, floats, *splits, B, L, H, num_heads, hd, float(sm_scale),
             dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
         )
     build.check(code, "attention_train_bwd")
     attention_train_bwd.launches += 1
+    if buffers is not None:
+        buffers.update(ctx=ctx_buf.reshape(B * L, HN), dctx=dctx_buf.reshape(B * L, HN),
+                       dproj=dqkv.reshape(B * L, 3 * HN), w_all=wqkv)
     return dx, dwqkv, dbqkv, dwo, dbo
 
 
@@ -234,18 +391,52 @@ def mlp_train_bwd(x, w1, b1, w2, g, *, activation: str):
     dx = torch.empty_like(x)
     dw1, db1 = torch.empty((H, I), dtype=f32, device=dev), torch.empty(I, dtype=f32, device=dev)
     dw2, db2 = torch.empty((I, H), dtype=f32, device=dev), torch.empty(H, dtype=f32, device=dev)
-    ptrs = [t.data_ptr() for t in (x, w1, b1, w2, g, h_buf, hgrad_buf, dpre_buf, dx, dw1, db1,
-                                   dw2, db2)]
+    (splits, _), ws, floats = weight_grad_plan(dev, dt, M, (H, I), (I, H))
+    ptrs = [_ptr(t) for t in (x, w1, b1, w2, g, h_buf, hgrad_buf, dpre_buf, dx, dw1, db1, dw2,
+                              db2, ws)]
     with torch.cuda.device(dev):
         code = build.library().spk_mlp_train_bwd(
-            _DTYPES[dt], *ptrs, M, H, I, ACTIVATION_CODES[activation], _stream(),
+            _DTYPES[dt], *ptrs, floats, splits, M, H, I, ACTIVATION_CODES[activation], _stream(),
         )
     build.check(code, "mlp_train_bwd")
     mlp_train_bwd.launches += 1
     return dx, dw1, db1, dw2, db2
 
 
-for _fn in (attention_train_fwd, attention_train_bwd, mlp_train_fwd, mlp_train_bwd):
+def weight_grad(x: torch.Tensor, dy: torch.Tensor, splits: Optional[int] = None):
+    """The training backwards' weight gradient alone: (dW = x^T dy (Hin, N),
+    db (N,)) in float32 of x (M, Hin) and dy (M, N) in one compute dtype,
+    over ``splits`` row ranges in bf16 (``weight_grad_splits``' count by
+    default). No model path calls it: it holds and times the weight-gradient
+    tile alone. On a CPU tensor it runs ``weight_grad_plain``.
+    ``weight_grad.launches`` counts its launches."""
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"weight_grad: x (M, Hin) and dy (M, N), got {tuple(x.shape)} and "
+                         f"{tuple(dy.shape)}")
+    if x.device.type == "cpu":
+        return weight_grad_plain(x, dy)
+    (M, Hin), N = x.shape, dy.shape[1]
+    _check_card_tensor("weight_grad: dy", dy.contiguous(), x.device, (M, N), x.dtype)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"weight_grad: x must be float32 or bfloat16, got {x.dtype}")
+    dev, f32 = x.device, torch.float32
+    x, dy = x.contiguous(), dy.contiguous()
+    if splits is None or x.dtype != torch.bfloat16:
+        (splits,), ws, floats = weight_grad_plan(dev, x.dtype, M, (Hin, N))
+    else:
+        floats = weight_grad_workspace(int(splits), Hin, N)
+        ws = torch.empty(floats, dtype=f32, device=dev) if floats else None
+    dw, db = torch.empty((Hin, N), dtype=f32, device=dev), torch.empty(N, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().spk_weight_grad(
+            _DTYPES[x.dtype], x.data_ptr(), dy.data_ptr(), dw.data_ptr(), db.data_ptr(), _ptr(ws),
+            floats, int(splits), M, Hin, N, _stream())
+    build.check(code, "weight_grad")
+    weight_grad.launches += 1
+    return dw, db
+
+
+for _fn in (attention_train_fwd, attention_train_bwd, mlp_train_fwd, mlp_train_bwd, weight_grad):
     _fn.launches = 0
 
 

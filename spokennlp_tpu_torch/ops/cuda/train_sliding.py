@@ -27,6 +27,10 @@ and keeps a probability iff its bits are >= ``dropout_threshold(rate)``.
 ``philox_bits`` on the CPU), so the plain version replays the kernels'
 dropout exactly. The TPU kernel's hardware-PRNG pattern cannot be matched bit
 for bit, so parity with JAX runs at rate 0.
+
+``sliding_train_bwd_plain`` is the backward kernel written out, every
+product through ``train_blocks.backward_product`` (no model path runs it;
+the card checks hold the kernel's products to it).
 """
 
 from __future__ import annotations
@@ -35,11 +39,15 @@ import numpy as np
 import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
+from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
 from spokennlp_tpu_torch.ops.cuda.sliding_block import (
-    card_weights, check_card_inputs, global_columns, sliding_context_plain,
+    _counts, card_weights, check_card_inputs, global_columns, sliding_attend,
+    sliding_context_plain,
 )
-from spokennlp_tpu_torch.ops.cuda.train_blocks import _stream, dropout_threshold, philox_bits
+from spokennlp_tpu_torch.ops.cuda.train_blocks import (
+    _ptr, _stream, dropout_threshold, philox_bits, weight_grad_plan,
+)
 
 GLOBAL_COL_STREAM, GLOBAL_ROW_STREAM = 1 << 16, 2 << 16
 
@@ -97,6 +105,48 @@ def sliding_train_plain(
     return out.to(hidden.dtype)
 
 
+def sliding_train_bwd_plain(
+    hidden, attention_mask, global_mask, qkv_kernel, qkv_bias, gqkv_kernel, gqkv_bias,
+    out_kernel, g, *, sm_scale: float, window: int, max_globals: int = 16,
+    global_rows: bool = True, dropout_rate: float = 0.0, keep=None,
+):
+    """The backward kernel written out: the projections [q k v qg kg vg]
+    recomputed (qg of every row; the core reads the first G) and rounded to
+    hidden's dtype, dctx = g Wo^T rounded, the core's gradient (autograd of
+    ``sliding_attend`` in float32) rounded, then
+    ``train_blocks.projection_grads_plain`` on the rounded ctx. Returns (dx,
+    dWqkv, dbqkv, dWg, dbg, dWo, dbo) as ``sliding_train_bwd`` does (dWg and
+    dbg zero without global rows); in float32 it is autograd of
+    ``sliding_train_plain``."""
+    B, L, H = hidden.shape
+    _, _, nh, hd = qkv_kernel.shape
+    dt, M, HN = hidden.dtype, B * L, nh * hd
+    G = global_columns(max_globals, L)
+    x, g2, wo = hidden.reshape(M, H), g.reshape(M, H), out_kernel.reshape(HN, H)
+    kernels, biases = [qkv_kernel], [qkv_bias]
+    if global_rows:
+        kernels, biases = [qkv_kernel, gqkv_kernel], [qkv_bias, gqkv_bias]
+    w_all = torch.cat([k.reshape(H, 3 * HN) for k in kernels], dim=1)
+    b_all = torch.cat([b.float().reshape(-1) for b in biases])
+    proj = (tb.backward_product(x, w_all) + b_all).to(dt).float()
+    with torch.enable_grad():
+        proj = proj.requires_grad_()
+        p = proj.reshape(B, L, -1, nh, hd)
+        glob_qkv = (p[:, :G, 3] * sm_scale, p[:, :, 4], p[:, :, 5]) if global_rows else None
+        ctx = sliding_attend(p[:, :, 0] * sm_scale, p[:, :, 1], p[:, :, 2], glob_qkv,
+                             *_counts(attention_mask, global_mask, G, global_rows),
+                             window=window, G=G, dropout_rate=dropout_rate, keep=keep)
+        ctx = ctx.reshape(M, HN)
+        (dproj,) = torch.autograd.grad(ctx, proj, tb.out_grad_plain(g2, wo).float())
+    dx, dw_all, db_all, dwo, dbo = tb.projection_grads_plain(
+        x, g2, ctx.detach().to(dt), dproj.to(dt), w_all, wo)
+    if global_rows:
+        dwg, dbg = dw_all[:, 3 * HN:], db_all[3 * HN:]
+    else:
+        dwg, dbg = torch.zeros_like(dw_all), torch.zeros_like(db_all)
+    return (dx.reshape(B, L, H), dw_all[:, :3 * HN], db_all[:3 * HN], dwg, dbg, dwo, dbo)
+
+
 # ------------------------------------------------------------ kernel calls
 
 
@@ -132,12 +182,15 @@ def sliding_train_fwd(hidden, mask, glob, seed, w, bo, *, num_heads: int, window
 
 def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window: int,
                       max_globals: int, global_rows: bool, sm_scale: float,
-                      dropout_rate: float):
+                      dropout_rate: float, buffers: dict = None):
     """Backward kernel: recomputes the forward from its inputs and returns
     (dx in the compute dtype, dWqkv (H, 3 Hn), dbqkv (3 Hn,), dWg (H, 3 Hn),
     dbg (3 Hn,), dWo (Hn, H), dbo (H,) in float32, summed over the batch;
-    dWg and dbg are zero without global rows). ``sliding_train_bwd.launches``
-    counts its launches."""
+    dWg and dbg are zero without global rows). A ``buffers`` dict receives
+    the intermediates its products read: ctx and dctx (M, Hn), dproj = [dq
+    dk dv dqg dkg dvg] (M, ld) and w_all = [Wqkv Wg] (H, ld), ld = 6 Hn (3
+    Hn without global rows). ``sliding_train_bwd.launches`` counts its
+    launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
     hd = HN // num_heads
@@ -160,18 +213,21 @@ def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window:
     dx = torch.empty_like(hidden)
     dw_all, db_all = empty(H, slots * HN, dtype=f32), empty(slots * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    splits, ws, floats = weight_grad_plan(dev, dt, B * L, (H, slots * HN), (HN, H))
     with torch.cuda.device(dev):
         code = build.library().spk_sliding_train_bwd(
-            _DTYPES[dt], *(ptr(t) for t in (hidden, mask, glob, seed, w["wqkv"], w["bqkv"],
-                                             w["wgq"], w["bgq"], w["wgkv"], w["bgkv"], w["wo"],
-                                             w_all, g, *bufs.values(), dx, dw_all, db_all, dwo,
-                                             dbo)),
-            B, L, H, num_heads, hd, window // 2, G, int(global_rows), float(sm_scale),
-            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
+            _DTYPES[dt], *(_ptr(t) for t in (hidden, mask, glob, seed, w["wqkv"], w["bqkv"],
+                                              w["wgq"], w["bgq"], w["wgkv"], w["bgkv"], w["wo"],
+                                              w_all, g, *bufs.values(), dx, dw_all, db_all, dwo,
+                                              dbo, ws)),
+            floats, *splits, B, L, H, num_heads, hd, window // 2, G, int(global_rows),
+            float(sm_scale), dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
         )
     build.check(code, "sliding_train_bwd")
     sliding_train_bwd.launches += 1
+    if buffers is not None:
+        buffers.update(ctx=bufs["ctx"].reshape(B * L, HN), dctx=bufs["dctx"].reshape(B * L, HN),
+                       dproj=bufs["dproj"], w_all=w_all)
     dwg, dbg = dw_all[:, 3 * HN:], db_all[3 * HN:]
     if not global_rows:
         dwg, dbg = torch.zeros_like(dw_all), torch.zeros_like(db_all)

@@ -193,6 +193,51 @@ def test_bigbird_train_plain_and_grads_match_jax_kernel(L, n_valid, r):
                                    atol=MODULE_TOL * np.abs(w).max(), err_msg=name)
 
 
+def _explicit_backward(inp, kw, rate=0.0, keep=None):
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    return [g.numpy() for g in tb.bigbird_train_bwd_plain(
+        t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:4]), t["cotangent"],
+        sm_scale=HD**-0.5, dropout_rate=rate, keep=keep, **kw)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bigbird_explicit_backward_matches_autograd_of_plain(rate):
+    """The backward kernel's explicit plain version in float32 against
+    autograd of bigbird_train_plain, to 1e-5 of each gradient's largest
+    magnitude."""
+    L = 64
+    inp = _inputs(B, L, H, NH, seed=12, n_valid=45)
+    kw = dict(block_size=BLOCK, num_global_blocks=G, num_random_blocks=R, pattern_seed=4)
+    seed = torch.tensor([6], dtype=torch.int32)
+    keep = tb.bigbird_keep_masks(seed, B, NH, L, BLOCK, G, R, rate) if rate else None
+    t = {k: torch.from_numpy(v).requires_grad_(k in ARGS) for k, v in inp.items()}
+    out = tb.bigbird_train_plain(t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:]),
+                                 sm_scale=HD**-0.5, dropout_rate=rate, keep=keep, **kw)
+    want = torch.autograd.grad(out, [t[k] for k in ARGS], t["cotangent"])
+    for name, g, w in zip(ARGS, _explicit_backward(inp, kw, rate, keep), want):
+        w = w.numpy().reshape(g.shape)
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+def test_bigbird_explicit_backward_matches_jax_kernel_vjp():
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_bigbird import bigbird_attention_block_train as jt
+
+    inp = _inputs(B, 64, H, NH, seed=13, n_valid=50)
+    kw = dict(block_size=BLOCK, num_global_blocks=G, num_random_blocks=R, pattern_seed=4)
+    mask = jnp.asarray(inp["attention_mask"])
+    _, vjp = jax.vjp(lambda h, *p: jt(h, mask, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                      dropout_rate=0.0, interpret=True, **kw),
+                     *(jnp.asarray(inp[k]) for k in ARGS))
+    want = vjp(jnp.asarray(inp["cotangent"]))
+    for name, g, w in zip(ARGS, _explicit_backward(inp, kw), want):
+        w = np.asarray(w).reshape(g.shape)
+        np.testing.assert_allclose(g, w, rtol=MODULE_TOL, atol=MODULE_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
 # ------------------------------------------------------------------ dropout
 
 

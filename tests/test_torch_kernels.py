@@ -510,8 +510,14 @@ def test_sass_verdict_on_canned_counts():
         f"{ns}16attn_core_kernelILi64E{bf}EEvPKS1_": [0, 0, 16],
         f"{ns}21attn_core_simt_kernelIfLi64EfEEvPKT_": [0, 0, 0],
         f"{ns}20gemm_bias_act_kernelI{bf}Lb0EEEvPKT_": [0, 0, 32],
-        f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_": [0, 0, 0],
+        f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_": [0, 0, 32],
         f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_": [0, 0, 0],
+        f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_": [0, 0, 0],
+        f"{ns}18weight_grad_kernelI{bf}EEvPKT_": [0, 0, 64],
+        f"{ns}18weight_grad_kernelIfEEvPKT_": [0, 0, 0],
+        f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i": [0, 0, 0],
+        f"{stack}19act_and_grad_kernelI{bf}EEvPKT_": [0, 0, 32],
+        f"{stack}19act_and_grad_kernelIfEEvPKT_": [0, 0, 0],
         f"{ns}15qkv_proj_kernelI{bf}EEvPKT_": [0, 0, 32],
         f"{ns}15qkv_proj_kernelIfEEvPKT_": [0, 0, 0],
         f"{ns}28gemm_bias_residual_ln_kernelI{bf}EEvPKT_": [0, 0, 16],
@@ -531,16 +537,23 @@ def test_sass_verdict_on_canned_counts():
         changed[name] = counts
         return chip_smoke.sass_verdict(changed)
 
-    # a bf16 instantiation without HMMA, a float32 one (or the transposed
-    # SIMT GEMM) with HMMA, a stack GEMM item without HMMA
+    # a bf16 instantiation without HMMA (the backward's transposed-weight
+    # GEMM, weight gradient and recomputed product among them), a float32
+    # one with HMMA, a stack GEMM item without HMMA
     assert with_counts(f"{ns}15qkv_proj_kernelI{bf}EEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}28gemm_bias_residual_ln_kernelI{bf}EEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_", [0, 0, 8])
-    assert with_counts(f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_", [0, 0, 8])
+    assert with_counts(f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_", [0, 0, 0])
+    assert with_counts(f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_", [0, 0, 8])
+    assert with_counts(f"{ns}18weight_grad_kernelI{bf}EEvPKT_", [0, 0, 0])
+    assert with_counts(f"{ns}18weight_grad_kernelIfEEvPKT_", [0, 0, 8])
+    assert with_counts(f"{stack}19act_and_grad_kernelI{bf}EEvPKT_", [0, 0, 0])
+    assert with_counts(f"{stack}19act_and_grad_kernelIfEEvPKT_", [0, 0, 8])
     assert with_counts(f"{stack}20encoder_stack_kernelIfLi64EEEvNS0_9StackArgsE", [0, 0, 8])
     assert with_counts(f"{stack}19stack_gemm_act_itemEPK{bf}", [0, 0, 0])
     # a stray function with HMMA or IDP4A, an int8 tile kernel without IMMA
-    assert with_counts(f"{ns}19act_and_grad_kernelI{bf}EEvPKT_", [0, 0, 4])
+    assert with_counts(f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i", [0, 0, 4])
+    assert with_counts(f"{stack}14band_dq_kernelI{bf}Li64EEEvPKT_", [0, 0, 4])
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64EEEvPKT_", [0, 3, 0])
     assert with_counts(f"{ns}18gemm_act_i8_kernelI{bf}EEvPKa", [0, 0, 0])
 
@@ -622,16 +635,20 @@ RAGGED_L, CORE_HEAD_DIMS = (1, 63, 64, 65, 127, 129, 513), (16, 32, 64, 128)
 RAGGED_CORE = [(3, L, 2, hd) for L in RAGGED_L for hd in CORE_HEAD_DIMS]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize(
-    "B,L,H,nh,hd", [(32, 512, 768, 12, 64), (3, 48, 256, 4, 64), (2, 200, 256, 8, 32),
-                    (2, 130, 256, 2, 128), (2, 96, 1024, 16, 64)]
+# the attention block's card shapes
+ATTENTION_CARD_SHAPES = (
+    [(32, 512, 768, 12, 64), (3, 48, 256, 4, 64), (2, 200, 256, 8, 32), (2, 130, 256, 2, 128),
+     (2, 96, 1024, 16, 64)]
     + [(B, L, 96, nh, hd) for B, L, nh, hd in RAGGED_CORE]
     # the GEMM tile's ragged widths (K tails, N % 8 != 0, the 4-byte copies
     # of H = 68 and the element-wise staging of an odd H)
-    + [(3, 70, 68, 2, 32), (2, 129, 100, 3, 16), (2, 65, 67, 2, 16)],
+    + [(3, 70, 68, 2, 32), (2, 129, 100, 3, 16), (2, 65, 67, 2, 16)]
 )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,H,nh,hd", ATTENTION_CARD_SHAPES)
 def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, L, H, nh, hd):
     inp = _attention_inputs(B, L, H, nh, hd, seed=B + L, ragged=H == 96)
     t = _on_card(inp, cuda, dtype, activations={"hidden"})
@@ -663,6 +680,57 @@ def test_f32_limit_rejects_bf16_probabilities():
     valid = inp["segment_ids"] > 0
     with pytest.raises(AssertionError):
         torch.testing.assert_close(bad[valid], want[valid], **CARD_TOL[torch.float32])
+
+
+def _attention_model_call(B, L, H, nh, hd, device, ln=True, seed=None):
+    """(call(fn), valid rows) of the attention block on bf16 inputs and
+    weights at these shapes, with or without the LayerNorm epilogue."""
+    inp = _attention_inputs(B, L, H, nh, hd, seed=B + L if seed is None else seed,
+                            ragged=H == 96)
+    t = _on_card(inp, device, torch.bfloat16, activations={"hidden"})
+    kw = dict(sm_scale=hd**-0.5)
+    if ln:
+        kw.update(ln_scale=t["ln_scale"], ln_bias=t["ln_bias"])
+    args = [t[k] for k in ("hidden", "segment_ids", "qkv_kernel", "qkv_bias", "out_kernel",
+                           "out_bias")]
+    return (lambda fn: fn(*args, **kw)), t["segment_ids"] > 0
+
+
+def test_bf16_model_limit_accepts_other_sum_orders_and_rejects_planted_faults():
+    """Kernel 1's bf16 limit against its rounding model
+    (chip_smoke.BF16_MODEL_TOL) at two sequences of 128, BERT-base widths:
+    the model with its products summed in another order (float64, then
+    rounded to float32) passes, the model with each of the GEMM tile's
+    planted faults fails."""
+    from spokennlp_tpu_torch.ops.cuda import attention_block as ab
+    from spokennlp_tpu_torch.ops.cuda.blhd_attention import attention_block_model
+
+    call, valid = _attention_model_call(2, 128, 768, 12, 64, "cpu", seed=7)
+    want = call(attention_block_model)
+    f64 = lambda real, x, w: (x.double() @ w.double()).float()
+    with chip_smoke.planted([(ab, "float_product", None, f64)]):
+        other = call(attention_block_model)
+    assert not torch.equal(other, want)
+    assert chip_smoke.beyond_limit(other[valid], want[valid], chip_smoke.BF16_MODEL_TOL) <= 0
+    for fault, patches in chip_smoke.bf16_gemm_faults().items():
+        with chip_smoke.planted(patches):
+            bad = call(attention_block_model)
+        assert chip_smoke.beyond_limit(bad[valid], want[valid], chip_smoke.BF16_MODEL_TOL) > 0, \
+            fault
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("B,L,H,nh,hd", ATTENTION_CARD_SHAPES)
+def test_attention_kernel_matches_its_rounding_model_on_card(cuda, ln, B, L, H, nh, hd):
+    """Kernel 1 in bf16 against blhd_attention.attention_block_model within
+    chip_smoke.BF16_MODEL_TOL on the valid rows."""
+    from spokennlp_tpu_torch.ops.cuda.blhd_attention import attention_block_model
+
+    call, valid = _attention_model_call(B, L, H, nh, hd, cuda, ln)
+    got, want = call(fused_attention_block), call(attention_block_model)
+    assert torch.isfinite(got).all()
+    assert chip_smoke.beyond_limit(got[valid], want[valid], chip_smoke.BF16_MODEL_TOL) <= 0
 
 
 @pytest.mark.gpu

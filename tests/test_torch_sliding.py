@@ -12,6 +12,9 @@ rows are compared: a padding row with no allowed key is defined differently
 (the kernels give it a zero context).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +31,9 @@ BF16_RTOL = 3e-2
 # float32 from the H100 readings of kernels 7 and 12 in chip_smoke.py
 # (PERF.md: 2.5e-7 to 6.0e-6), about ten times the largest
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the backward products' card limit)
 
 B, L, H, NH, WINDOW = 2, 32, 32, 2, 16
 HD = H // NH
@@ -166,6 +172,57 @@ def test_sliding_train_plain_and_grads_match_jax_kernel(global_rows):
         w = np.asarray(w)
         g = ts_[name].grad  # None where the plain version does not read the parameter
         g = np.zeros_like(w) if g is None else g.numpy()
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
+
+
+def _explicit_backward(inp, global_rows, rate=0.0, keep=None):
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    return [g.numpy() for g in ts.sliding_train_bwd_plain(
+        t["hidden"], t["attention_mask"], t["global_mask"], *(t[k] for k in ARGS[1:6]),
+        t["cotangent"], sm_scale=HD**-0.5, window=WINDOW, max_globals=16,
+        global_rows=global_rows, dropout_rate=rate, keep=keep)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_sliding_explicit_backward_matches_autograd_of_plain(global_rows, rate):
+    """The backward kernel's explicit plain version in float32 against
+    autograd of sliding_train_plain: to 1e-5 of each gradient's largest
+    magnitude."""
+    inp = _inputs(B, L, H, NH, seed=8, global_rows=global_rows)
+    seed = torch.tensor([5], dtype=torch.int32)
+    keep = (ts.sliding_keep_masks(seed, B, NH, L, WINDOW, sb.global_columns(16, L), rate)
+            if rate else None)
+    t = {k: torch.from_numpy(v).requires_grad_(k in ARGS) for k, v in inp.items()}
+    out = ts.sliding_train_plain(t["hidden"], t["attention_mask"], t["global_mask"],
+                                 *(t[k] for k in ARGS[1:]), sm_scale=HD**-0.5, window=WINDOW,
+                                 global_rows=global_rows, dropout_rate=rate, keep=keep)
+    want = torch.autograd.grad(out, [t[k] for k in ARGS], t["cotangent"], allow_unused=True)
+    got = _explicit_backward(inp, global_rows, rate, keep)
+    for name, g, w in zip(ARGS, got, want):
+        w = np.zeros_like(g) if w is None else w.numpy().reshape(g.shape)
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * np.abs(w).max() + 1e-12,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_sliding_explicit_backward_matches_jax_kernel_vjp(global_rows):
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_sliding import sliding_attention_block_train as jax_train
+
+    inp = _inputs(B, L, H, NH, seed=9, global_rows=global_rows)
+    mask, glob = jnp.asarray(inp["attention_mask"]), jnp.asarray(inp["global_mask"])
+    _, vjp = jax.vjp(
+        lambda h, *p: jax_train(h, mask, glob, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                dropout_rate=0.0, interpret=True, window=WINDOW, max_globals=16,
+                                global_rows=global_rows),
+        *(jnp.asarray(inp[k]) for k in ARGS))
+    want = vjp(jnp.asarray(inp["cotangent"]))
+    for name, g, w in zip(ARGS, _explicit_backward(inp, global_rows), want):
+        w = np.asarray(w).reshape(g.shape)
         np.testing.assert_allclose(g, w, rtol=GRAD_RTOL,
                                    atol=GRAD_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
 
@@ -338,3 +395,34 @@ def test_keep_masks_on_card_match_numpy(cuda):
     got = ts.sliding_keep_masks(seed.to(cuda), 2, 3, 96, 32, 16, 0.25)
     for w, g in zip(want, got):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,window", CARD_SHAPES)
+def test_sliding_backward_products_match_explicit_plain_on_card(cuda, global_rows, Bc, Lc, Hc,
+                                                               nh, window):
+    """bf16: dctx, dx, the weight and the bias gradients of the backward
+    kernel against its explicit plain products on the intermediates the
+    kernel's products read (its ctx, and dproj from its attention core),
+    within chip_smoke.BWD_GEMM_TOL element by element."""
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + 2, global_rows=global_rows)
+    t = _card_tensors(inp, cuda, torch.bfloat16)
+    hd = Hc // nh
+    w = sb.card_weights(*(t[k] for k in ARGS[1:6]), torch.bfloat16)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    bufs = {}
+    got = ts.sliding_train_bwd(
+        t["hidden"], t["attention_mask"], t["global_mask"], seed, w,
+        t["cotangent"].to(torch.bfloat16), num_heads=nh, window=window, max_globals=16,
+        global_rows=global_rows, sm_scale=hd**-0.5, dropout_rate=0.1, buffers=bufs)
+    if global_rows:
+        out = {"dx": got[0], "dw_all": torch.cat([got[1], got[3]], 1),
+               "db_all": torch.cat([got[2], got[4]]), "dwo": got[5], "dbo": got[6]}
+    else:
+        out = dict(zip(("dx", "dw_all", "db_all"), got[:3]), dwo=got[5], dbo=got[6])
+    want = chip_smoke.projection_gemms_plain(
+        t["hidden"].reshape(-1, Hc), t["cotangent"].to(torch.bfloat16).reshape(-1, Hc), bufs,
+        bufs["w_all"], w["wo"])
+    readings = chip_smoke.backward_gemm_readings({"dctx": bufs["dctx"], **out}, want)
+    assert max(readings.values()) <= chip_smoke.BWD_GEMM_TOL["sliding_train_bwd"], readings

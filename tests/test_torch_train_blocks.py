@@ -5,11 +5,17 @@ formula, and the CUDA kernels against the plain versions on the card
 do not depend on it.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the backward products' card limit and its planted faults)
 
 # CPU, float32: the plain versions against the JAX kernels in interpret mode
 # at rate 0 compute the same math summed in another order; outputs to 1e-4,
@@ -201,6 +207,145 @@ def test_wrappers_on_cpu_count_no_launches():
         tb.mlp_block_train(*(torch.from_numpy(inp[k]) for k in MLP_ARGS), activation="none")
 
 
+# ------------------------------------------------------- explicit backwards
+# The explicit plain backwards (train_blocks.*_bwd_plain) in float32 equal
+# autograd of the plain forwards (the same sums, another order of a few:
+# to 1e-5 of each gradient's largest magnitude) and the JAX kernels' VJPs
+# (GRAD_RTOL, as the plain forwards' gradients).
+EXPLICIT_RTOL = 1e-5
+
+
+def _assert_close_rel(got, want, rtol, names=None):
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64).reshape(np.shape(g))
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * np.abs(w).max() + 1e-12,
+                                   err_msg=str(names[i] if names else i))
+
+
+def _mlp_explicit(inp, activation="gelu"):
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    return [g.numpy() for g in tb.mlp_train_bwd_plain(
+        t["x"], t["w1"], t["b1"], t["w2"], t["cotangent"], activation=activation)]
+
+
+def _attention_explicit(inp, rate=0.0, keep=None):
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    return [g.numpy() for g in tb.attention_train_bwd_plain(
+        t["hidden"], t["segment_ids"], t["qkv_kernel"], t["qkv_bias"], t["out_kernel"],
+        t["cotangent"], sm_scale=HD**-0.5, dropout_rate=rate, keep=keep)]
+
+
+@pytest.mark.parametrize("activation", ["gelu", "relu", "silu"])
+def test_mlp_explicit_backward_matches_autograd_of_plain(activation):
+    inp = _mlp_inputs(M=B * L, H=H, I=2 * H, seed=4)
+    _, want = _torch_value_and_grads(
+        lambda t: tb.mlp_train_plain(*(t[k] for k in MLP_ARGS), activation=activation), inp,
+        MLP_ARGS)
+    _assert_close_rel(_mlp_explicit(inp, activation), [want[0], *want[1:3], *want[3:]],
+                      EXPLICIT_RTOL, MLP_ARGS)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_explicit_backward_matches_autograd_of_plain(rate):
+    inp = _attention_inputs(B, L, H, NH, seed=5)
+    seed = torch.tensor([99], dtype=torch.int32)
+    keep = tb.dropout_keep_mask(seed, B, NH, L, rate) if rate else None
+    _, want = _torch_value_and_grads(
+        lambda t: tb.attention_train_plain(
+            t["hidden"], t["segment_ids"], t["qkv_kernel"], t["qkv_bias"], t["out_kernel"],
+            t["out_bias"], sm_scale=HD**-0.5, dropout_rate=rate, keep=keep), inp, ATT_ARGS)
+    _assert_close_rel(_attention_explicit(inp, rate, keep), want, EXPLICIT_RTOL, ATT_ARGS)
+
+
+def test_explicit_backwards_match_jax_kernels_vjp():
+    """The MLP and attention kernels' explicit plain backwards against the
+    VJPs of JAX's training kernels (interpret mode) at rate 0."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_blocks import attention_block_train as jax_attention
+    from spokennlp_tpu.ops.pallas.train_blocks import mlp_block_train as jax_mlp
+
+    inp = _mlp_inputs(M=B * L, H=H, I=2 * H, seed=6)
+    cot = jnp.asarray(inp["cotangent"])
+    _, vjp = jax.vjp(lambda *a: jax_mlp(*a, activation="gelu", interpret=True),
+                     *(jnp.asarray(inp[k]) for k in MLP_ARGS))
+    _assert_close_rel(_mlp_explicit(inp), vjp(cot), GRAD_RTOL, MLP_ARGS)
+
+    inp = _attention_inputs(B, L, H, NH, seed=7)
+    seg, seed = jnp.asarray(inp["segment_ids"]), jnp.zeros((1,), jnp.int32)
+    _, vjp = jax.vjp(lambda h, *w: jax_attention(h, seg, *w, seed, HD**-0.5, dropout_rate=0.0,
+                                                 interpret=True),
+                     *(jnp.asarray(inp[k]) for k in ATT_ARGS))
+    _assert_close_rel(_attention_explicit(inp), vjp(jnp.asarray(inp["cotangent"])), GRAD_RTOL,
+                      ATT_ARGS)
+
+
+def _gemm_limit_readings(fn, **kw):
+    """chip_smoke's backward-product readings of ``fn()`` ({output: tensor})
+    with backward_product summed in float64 (another order) against fn()
+    itself, and with each planted fault against it."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks
+
+    want = fn()
+    f64 = lambda real, a, b: (a.double() @ b.double()).float()
+    with chip_smoke.planted([(train_blocks, "backward_product", None, f64)]):
+        other = fn()
+    assert any(not torch.equal(other[k], want[k]) for k in want)  # another order did run
+    readings = {"float64": max(chip_smoke.backward_gemm_readings(other, want).values())}
+    for fault, patches in chip_smoke.backward_gemm_faults().items():
+        with chip_smoke.planted(patches):
+            readings[fault] = max(chip_smoke.backward_gemm_readings(fn(), want).values())
+    return readings
+
+
+@pytest.mark.parametrize("kernel", ["mlp_train_bwd", "attention_train_bwd"])
+def test_backward_gemm_limit_accepts_other_sum_orders_and_rejects_planted_faults(kernel):
+    """The bf16 backward products' limit (chip_smoke.BWD_GEMM_TOL, element by
+    element) accepts the explicit plain backward with its products summed in
+    another order and rejects it with each of the GEMM tile's planted faults:
+    partial sums rounded to bf16 every k-stage, the last k-step dropped."""
+    bf = torch.bfloat16
+    if kernel == "mlp_train_bwd":
+        t = {k: torch.from_numpy(v) for k, v in _mlp_inputs(512, 128, 256, seed=8).items()}
+        x, g, w1, w2 = (t[k].to(bf) for k in ("x", "cotangent", "w1", "w2"))
+        names = ("dx", "dw1", "db1", "dw2", "db2")
+        fn = lambda: dict(zip(names, tb.mlp_train_bwd_plain(x, w1, t["b1"], w2, g,
+                                                            activation="gelu")))
+    else:
+        inp = _attention_inputs(4, 128, 128, 4, seed=9, w_scale=128**-0.5)
+        t = {k: torch.from_numpy(v) for k, v in inp.items()}
+        x, g = t["hidden"].to(bf).reshape(-1, 128), t["cotangent"].to(bf).reshape(-1, 128)
+        rng = np.random.default_rng(9)
+        bufs = {"ctx": torch.from_numpy(rng.normal(size=(512, 128)).astype(np.float32)).to(bf),
+                "dproj": torch.from_numpy(rng.normal(size=(512, 384)).astype(np.float32)).to(bf)}
+        wqkv, wo = t["qkv_kernel"].to(bf).reshape(128, 384), t["out_kernel"].to(bf).reshape(128, 128)
+        fn = lambda: chip_smoke.projection_gemms_plain(x, g, bufs, wqkv, wo)
+    readings = _gemm_limit_readings(fn)
+    tol = chip_smoke.BWD_GEMM_TOL[kernel]
+    assert readings.pop("float64") <= tol
+    for fault, r in readings.items():
+        assert r > tol, (fault, r)
+
+
+def test_weight_grad_splits_and_workspace():
+    """The split rule at the training paths' shapes on 132 SMs, the
+    workspace's size (csrc/bf16_gemm.cuh's formula) and the CPU path."""
+    assert tb.weight_grad_splits(16384, 768, 3072, 132) == 7
+    assert tb.weight_grad_splits(16384, 768, 768, 132) == 7
+    assert tb.weight_grad_splits(16384, 768, 4608, 132) == 1  # 216 tiles fill the card
+    assert tb.weight_grad_splits(4096, 768, 768, 132) == 7
+    assert tb.weight_grad_splits(126, 68, 136, 132) == 1  # too few rows to split
+    assert tb.weight_grad_workspace(1, 768, 768) == 0
+    assert tb.weight_grad_workspace(3, 67, 131) == 3 * (8780 + 132)
+    x, dy = torch.randn(40, 6), torch.randn(40, 10)
+    n = tb.weight_grad.launches
+    dw, db = tb.weight_grad(x, dy)
+    assert tb.weight_grad.launches == n
+    torch.testing.assert_close(dw, x.t() @ dy)
+    torch.testing.assert_close(db, dy.sum(0))
+
+
 # ---------------------------------------------------------------- on the card
 
 
@@ -292,3 +437,141 @@ def test_dropout_mask_on_card_matches_numpy(cuda):
     want = tb.dropout_keep_mask(seed, 2, 3, 70, 0.25)
     got = tb.dropout_keep_mask(seed.to(cuda), 2, 3, 70, 0.25).cpu()
     assert torch.equal(got, want)
+
+
+# The backward's products in bf16 against the explicit plain backward, element
+# by element within chip_smoke.BWD_GEMM_TOL, at the GEMM tile's ragged widths:
+# H = 68 (4-byte copies), odd H and I (element-wise staging), sequences of 63
+# (row tails, a weight gradient's depth B * 63), and the main path's shape.
+BWD_NAMES = ("dx", "dw_all", "db_all", "dwo", "dbo")
+MLP_NAMES = ("dx", "dw1", "db1", "dw2", "db2")
+
+
+def _bf16_mlp(M, Hc, I, device, seed):
+    t = {k: torch.from_numpy(v).to(device) for k, v in _mlp_inputs(M, Hc, I, seed=seed).items()}
+    for k in ("x", "w1", "w2", "cotangent"):
+        t[k] = t[k].to(torch.bfloat16)
+    return t
+
+
+def _mlp_bwd(fn, t):
+    return dict(zip(MLP_NAMES, fn(t["x"], t["w1"], t["b1"], t["w2"], t["cotangent"],
+                                  activation="gelu")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,Hc,I", [(2 * 63, 68, 136), (3 * 63, 67, 131), (4 * 63, 768, 3072),
+                                    (32 * 512, 768, 3072)])
+def test_mlp_backward_products_match_explicit_plain_on_card(cuda, M, Hc, I):
+    t = _bf16_mlp(M, Hc, I, cuda, seed=M + Hc)
+    n = tb.mlp_train_bwd.launches
+    got = _mlp_bwd(tb.mlp_train_bwd, t)
+    torch.cuda.synchronize()
+    assert tb.mlp_train_bwd.launches == n + 1
+    readings = chip_smoke.backward_gemm_readings(got, _mlp_bwd(tb.mlp_train_bwd_plain, t))
+    assert max(readings.values()) <= chip_smoke.BWD_GEMM_TOL["mlp_train_bwd"], readings
+
+
+def _bf16_attention(Bc, Lc, Hc, nh, hd, device, seed):
+    """Inputs of attention_train_bwd with any H beside nh heads of hd."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32))
+    HN, bf = nh * hd, torch.bfloat16
+    t = dict(hidden=f(Bc, Lc, Hc).to(bf), seg=torch.from_numpy(_segments(Bc, Lc, seed)),
+             wqkv=f(Hc, 3 * HN, scale=Hc**-0.5).to(bf), bqkv=f(3 * HN, scale=0.1),
+             wo=f(HN, Hc, scale=HN**-0.5).to(bf), g=f(Bc, Lc, Hc).to(bf),
+             seed=torch.tensor([seed], dtype=torch.int32))
+    return {k: v.to(device) for k, v in t.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,hd", [(2, 63, 68, 2, 32), (3, 63, 67, 2, 16),
+                                            (4, 200, 256, 4, 64), (32, 512, 768, 12, 64)])
+def test_attention_backward_products_match_explicit_plain_on_card(cuda, Bc, Lc, Hc, nh, hd):
+    """dctx, dx, the weight and the bias gradients of the attention block's
+    backward against its explicit plain products on the intermediates the
+    kernel's products read (its ctx, and dproj from its attention core)."""
+    t = _bf16_attention(Bc, Lc, Hc, nh, hd, cuda, seed=Lc + Hc)
+    bufs = {}
+    got = tb.attention_train_bwd(t["hidden"], t["seg"], t["seed"], t["wqkv"], t["bqkv"], t["wo"],
+                                 t["g"], num_heads=nh, sm_scale=hd**-0.5, dropout_rate=0.1,
+                                 buffers=bufs)
+    want = chip_smoke.projection_gemms_plain(t["hidden"].reshape(-1, Hc), t["g"].reshape(-1, Hc),
+                                             bufs, t["wqkv"], t["wo"])
+    readings = chip_smoke.backward_gemm_readings(
+        {"dctx": bufs["dctx"], **dict(zip(BWD_NAMES, got))}, want)
+    assert max(readings.values()) <= chip_smoke.BWD_GEMM_TOL["attention_train_bwd"], readings
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,Hin,N,splits", [(126, 68, 136, None), (189, 67, 131, 2),
+                                            (63, 136, 68, 1), (3000, 768, 768, 5),
+                                            (32 * 512, 768, 3072, None)])
+def test_weight_grad_tile_matches_plain_on_card(cuda, dtype, M, Hin, N, splits):
+    """The weight gradient alone (its row ranges summed in order, the bias
+    gradient from the same pass) against weight_grad_plain."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, Hin, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(M, N, generator=g, device=cuda).to(dtype)
+    n = tb.weight_grad.launches
+    dw, db = tb.weight_grad(x, dy, splits=splits)
+    torch.cuda.synchronize()
+    assert tb.weight_grad.launches == n + 1
+    want = dict(zip(("dw", "db"), tb.weight_grad_plain(x, dy)))
+    readings = chip_smoke.backward_gemm_readings({"dw": dw, "db": db}, want)
+    assert max(readings.values()) <= chip_smoke.BWD_GEMM_TOL["mlp_train_bwd"], readings
+
+
+def _long_backward(kernel, device):
+    """A bf16 call of the Longformer or BigBird backward kernel at the
+    training shape (B=2, L=2048, BERT-base widths, dropout 0.1)."""
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import bigbird_block, sliding_block
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    g = torch.Generator(device=device).manual_seed(5)
+    randn = lambda *s: torch.randn(*s, generator=g, device=device)
+    bf, Lc = torch.bfloat16, 2048
+    hidden, cot = randn(2, Lc, 768).to(bf), randn(2, Lc, 768).to(bf)
+    mask = (torch.arange(Lc, device=device)[None] < torch.tensor([[Lc], [1500]],
+                                                                   device=device)).int()
+    seed = torch.tensor([9], dtype=torch.int32, device=device)
+    p = [randn(768, 3, 12, 64) * 0.036, randn(3, 12, 64) * 0.02, randn(12, 64, 768) * 0.036]
+    kw = dict(num_heads=12, sm_scale=0.125, dropout_rate=0.1)
+    if kernel == "sliding_train_bwd":
+        glob = torch.zeros_like(mask)
+        glob[:, 0] = 1
+        w = sliding_block.card_weights(p[0], p[1], p[0], p[1], p[2], bf)
+        return lambda: ts.sliding_train_bwd(hidden, mask, glob, seed, w, cot, window=512,
+                                            max_globals=16, global_rows=True, **kw)[1:]
+    w = bigbird_block.card_weights(*p, bf)
+    tables = bigbird_tables(Lc // 64, 2, 3, 0, device)
+    return lambda: tbb.bigbird_train_bwd(hidden, mask, seed, w, cot, tables, block_size=64,
+                                         **kw)[1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["mlp_train_bwd", "attention_train_bwd", "sliding_train_bwd",
+                                    "bigbird_train_bwd", "weight_grad"])
+def test_bf16_weight_gradients_repeat_bit_for_bit_on_card(cuda, kernel):
+    """Each bf16 weight gradient (the rows split into ranges, summed in
+    order) gives the same bits on a second run, at the main paths' shapes."""
+    if kernel in ("sliding_train_bwd", "bigbird_train_bwd"):
+        run = _long_backward(kernel, cuda)
+    elif kernel == "mlp_train_bwd":
+        t = _bf16_mlp(32 * 512, 768, 3072, cuda, seed=3)
+        run = lambda: list(_mlp_bwd(tb.mlp_train_bwd, t).values())[1:]
+    elif kernel == "attention_train_bwd":
+        t = _bf16_attention(32, 512, 768, 12, 64, cuda, seed=3)
+        run = lambda: tb.attention_train_bwd(
+            t["hidden"], t["seg"], t["seed"], t["wqkv"], t["bqkv"], t["wo"], t["g"],
+            num_heads=12, sm_scale=0.125, dropout_rate=0.1)[1:]
+    else:
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x, dy = (torch.randn(32 * 512, n, generator=g, device=cuda).to(torch.bfloat16)
+                 for n in (768, 768))
+        run = lambda: tb.weight_grad(x, dy)
+    first = run()
+    assert all(torch.equal(a, b) for a, b in zip(first, run()))

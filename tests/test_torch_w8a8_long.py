@@ -533,14 +533,14 @@ def test_c_entries_match_their_ctypes_signatures():
     from spokennlp_tpu_torch.ops.cuda import build
 
     kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int", ctypes.c_float: "float",
-             ctypes.c_uint: "uint"}
+             ctypes.c_uint: "uint", ctypes.c_size_t: "size_t"}
     found = {}
     for src in build.CSRC.glob("*.cu"):
         for name, params in re.findall(r'extern "C" int (spk_\w+)\(([^)]*)\)', src.read_text()):
             args = [a.strip() for a in params.split(",")]
             found[name] = ["ptr" if "*" in a else "float" if a.startswith("float")
-                           else "uint" if a.startswith(("uint32_t", "unsigned")) else "int"
-                           for a in args]
+                           else "uint" if a.startswith(("uint32_t", "unsigned"))
+                           else "size_t" if a.startswith("size_t") else "int" for a in args]
     assert set(found) == set(build._SIGNATURES)
     for name, argtypes in build._SIGNATURES.items():
         assert found[name] == [kinds[t] for t in argtypes], name

@@ -737,6 +737,112 @@ def check_backward_gemms(name: str, got: dict, plain) -> float:
     return worst
 
 
+# The bf16 gradient kernels of rows 12 and 13's backwards (band_dq,
+# band_dkv and global_kv_grad; bigbird_dq and bigbird_dkv) against their
+# rounding models (ops/cuda/train_sliding.py sliding_core_bwd_model,
+# train_bigbird.py bigbird_core_bwd_model: dense over a sequence's keys,
+# float32 sums, rounded where the kernels round) on the kernels' own q, k, v,
+# dctx, row statistics and keep masks (the backward wrapper's ``buffers``),
+# in each slot of dproj: element by element, |err| <= s max |ref| + 2^-7
+# |ref|, and in norm, ||err|| <= r ||ref||. rtol 2^-7 takes the final
+# rounding of dq, dk and dv on both sides. The float32 sums run in another
+# order, and now and then one moves s - m across a bf16 rounding boundary,
+# which moves that e by one bf16 step of s - m (up to a few per cent of a
+# small e): such rare steps set the element-wise readings, the largest of
+# 12.6M elements a slot, at most 2.39e-3 on the H100 (this script's
+# Longformer phase; 8.1e-4 over the card tests' shapes; PERF.md, section
+# 6), so s = 5e-3. A fault that moves every term of a sum by a rounding, dS
+# or p_eff left unrounded, reads 6.4e-4 to 2.4e-3 element-wise, inside that
+# spread, but 2.5e-3 or more in norm, where the honest readings stay at
+# 2.0e-4 or less: r = 1e-3. Each of BWD_CORE_FAULTS, planted in the model,
+# must fail the gate (the rounding faults through its norm part).
+BWD_CORE_TOL = {"sliding_train_bwd": (5e-3, 1e-3), "bigbird_train_bwd": (5e-3, 1e-3)}
+BWD_CORE_FAULTS = ("dS left unrounded", "p_eff unrounded in dv", "a key tile dropped")
+DPROJ_SLOTS = ("dq", "dk", "dv", "dqg", "dkg", "dvg")
+
+
+def core_bwd_faults(name: str) -> dict:
+    """{fault: patches for planted()}: BWD_CORE_FAULTS in row ``name``'s
+    rounding model: dS or p_eff (for dv) not rounded to bf16; the Longformer
+    model without the band key tile that starts in the second query tile's
+    rows, for those rows; the BigBird model without the first live random
+    key block's first 64 keys (else a window block's) for its query block."""
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    unrounded = lambda real, x, dt: x.float()
+    faults = {BWD_CORE_FAULTS[0]: [(ts, "round_ds", None, unrounded)],
+              BWD_CORE_FAULTS[1]: [(ts, "round_p_eff", None, unrounded)]}
+    if name == "sliding_train_bwd":
+        def drop(real, L, C, n_valid, n_glob, device):
+            allowed = real(L, C, n_valid, n_glob, device).clone()
+            q0 = 64
+            k0 = q0 - C + 64 * -(-C // 64)  # band tile ceil(C / 64) of query tile 1
+            allowed[q0:q0 + 64, k0:k0 + 64] = False
+            return allowed
+        faults[BWD_CORE_FAULTS[2]] = [(ts, "sliding_model_allowed", None, drop)]
+    else:
+        def drop(real, L, C, G, R, rand, rok):
+            reg = real(L, C, G, R, rand, rok).copy()
+            live = [(i, int(rand[i, r])) for i in range(G, L // C) for r in range(R) if rok[i, r]]
+            i, j = live[0] if live else (G, G)
+            reg[i * C:(i + 1) * C, j * C:j * C + 64] = 0
+            return reg
+        faults[BWD_CORE_FAULTS[2]] = [(tbb, "bigbird_model_regions", None, drop)]
+    return faults
+
+
+def core_bwd_readings(got, want, hn: int) -> dict:
+    """{slot of dproj: (max(|got - want| - 2^-7 |want|) / max |want|,
+    ||got - want|| / ||want||)}."""
+    import torch
+
+    out = {}
+    for i in range(want.shape[1] // hn):
+        g, w = got[:, i * hn:(i + 1) * hn].float(), want[:, i * hn:(i + 1) * hn].float()
+        if not torch.isfinite(g).all():
+            fail(f"non-finite {DPROJ_SLOTS[i]}")
+        out[DPROJ_SLOTS[i]] = (beyond_limit(g, w, (0.0, 2**-7)) / max(w.abs().max().item(), 1e-30),
+                               ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def core_bwd_excess(readings: dict, tol) -> float:
+    """The largest reading over its limit, (s, r) = tol: above 1 fails."""
+    s, r = tol
+    return max(max(e / s, n / r) for e, n in readings.values())
+
+
+def check_backward_cores(name: str, dproj, model, hn: int) -> dict:
+    """Row ``name``'s bf16 dproj against its rounding model (``model()`` ->
+    the model's dproj) within BWD_CORE_TOL; each of BWD_CORE_FAULTS planted
+    in the model must fail it. Returns {reading, norm_reading, faults: {fault:
+    (element-wise, norm)}}."""
+    tol = BWD_CORE_TOL[name]
+    show = lambda rd: ", ".join(f"{k} {e:.2e} / {n:.2e}" for k, (e, n) in rd.items())
+    readings = core_bwd_readings(dproj, model(), hn)
+    print(f"  {name} bfloat16 gradient kernels against their rounding model, element-wise / "
+          f"norm: {show(readings)} (limits {tol[0]:g} max |ref|, {tol[1]:g} ||ref||)")
+    if core_bwd_excess(readings, tol) > 1:
+        fail(f"{name} bfloat16: dproj beyond its rounding model's limits: {show(readings)}")
+    faults = {}
+    for fault, patches in core_bwd_faults(name).items():
+        with planted(patches):
+            bad = core_bwd_readings(dproj, model(), hn)
+        worst = (max(e for e, _ in bad.values()), max(n for _, n in bad.values()))
+        faults[fault] = worst
+        inside = worst[0] <= tol[0]
+        print(f"  planted fault, {name}'s rounding model with {fault}: element-wise "
+              f"{worst[0]:.2e}, norm {worst[1]:.2e}: "
+              + ("rejected" if core_bwd_excess(bad, tol) > 1 else "ACCEPTED")
+              + (" (inside the element-wise limit: the norm limit rejects it)"
+                 if inside and worst[1] > tol[1] else ""))
+        if core_bwd_excess(bad, tol) <= 1:
+            fail(f"the rounding-model limits of {name} accept {fault}")
+    return {"reading": max(e for e, _ in readings.values()),
+            "norm_reading": max(n for _, n in readings.values()), "faults": faults}
+
+
 def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
     """Check kernel against plain on the valid rows (``tol`` = (atol, rtol),
     the kernel's limit by default; ``w8a8``: w8a8_check); time both."""
@@ -798,21 +904,24 @@ IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # attention core's kernel (kernels 1 and 6), the GEMM tile's kernels
 # (bf16_gemm.cuh: kernels 1, 2, 7-9 and the training kernels' forward and
 # backward products, a weight read as stored or transposed, and the weight
-# gradient), the MLP backward's recomputed product (act_and_grad_kernel) and
-# the stack entries, whose bf16 core and GEMMs run out of line in
+# gradient), the MLP backward's recomputed product (act_and_grad_kernel), the
+# Longformer and BigBird backwards' gradient kernels (attention_grad_mma.cuh)
+# and the stack entries, whose bf16 core and GEMMs run out of line in
 # stack_core_item and STACK_GEMM_ITEMS. Each bf16 instantiation must hold
 # HMMA (a stack entry itself or in its items); the float32 ones (with
 # attn_core_simt_kernel, the float32 core) none; and no other function may
 # hold it
 HMMA_KERNELS = ("attn_core_kernel", "gemm_bias_act_kernel", "qkv_proj_kernel",
                 "gemm_bias_residual_ln_kernel", "encoder_stack_kernel", "encoder_stack_i8_kernel",
-                "weight_grad_kernel", "act_and_grad_kernel")
+                "weight_grad_kernel", "act_and_grad_kernel", "band_dq_kernel", "band_dkv_kernel",
+                "bigbird_dq_kernel", "bigbird_dkv_kernel")
 # the bf16 stack's out-of-line items (stack_block.cu): stack_core_item, a
 # template on the head dim, and the three GEMM items (no template)
 STACK_GEMM_ITEMS = ("stack_qkv_item", "stack_gemm_act_item", "stack_residual_ln_item")
 CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kernel",
                "gemm_bias_act_kernel", "qkv_proj_kernel", "gemm_bias_residual_ln_kernel",
-               "weight_grad_kernel", "act_and_grad_kernel")
+               "weight_grad_kernel", "act_and_grad_kernel", "band_dq_kernel", "band_dkv_kernel",
+               "global_kv_grad_kernel", "bigbird_dq_kernel", "bigbird_dkv_kernel")
 
 
 def template_args(name: str, kernel: str) -> str:
@@ -1846,12 +1955,30 @@ def sliding_work(mask, glob, window: int, H: int, nh: int, hd: int) -> dict:
             "out": float(2 * B * L * HN * H)}
 
 
-def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn) -> dict:
-    """The library column and, in bf16, the backward-GEMM gate of row 12
-    (``name`` sliding_train_bwd, with and without global rows) or 13
-    (bigbird_train_bwd): ``masks(global_rows)`` gives (mask, glob) and
-    ``backward(mask, glob, cot, global_rows, buffers)`` runs the backward
-    kernel. Returns {library_ms, gemm_reading (bf16)}."""
+def grad_bound(work: dict, slab: int, n_in: int, n_out: int, rows: int, dtype: str) -> float:
+    """ms: the bound of a training backward's gradient kernels alone (rows 12
+    and 13), from ``work`` (sliding_work or bigbird_work: ``core`` counts 4 hd
+    operations a (row, key) pair of every head): S, dP and the dq, dk and dv
+    products, 10 hd a pair (the global rows' dq of row 12 is counted too,
+    one row of 2048); n_in slabs of (B L, nh hd) read (q, k, v, dctx and the
+    global rows' kg, vg), n_out written, and the rows' three float32
+    statistics."""
+    size = 4 if dtype == "float32" else 2
+    return bound(2.5 * work["core"], (n_in + n_out) * slab * size + 3 * rows * 4,
+                 dtype)["bound_ms"]
+
+
+def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model,
+                        row_bound: float) -> dict:
+    """The library column and, in bf16, the backward-GEMM gate, the
+    gradient kernels' gate (``core_model(buffers, global_rows)`` gives the
+    rounding model's dproj), dproj the same bits in two runs and the
+    backward's device time by kernel of row 12 (``name`` sliding_train_bwd,
+    with and without global rows) or 13 (bigbird_train_bwd):
+    ``masks(global_rows)`` gives (mask, glob) and ``backward(mask, glob,
+    cot, global_rows, buffers)`` runs the backward kernel. Returns
+    {library_ms, gemm_reading, core_reading, core_norm_reading, core_faults,
+    split_ms (bf16)}."""
     import torch
 
     B, L, H = hidden.shape
@@ -1881,6 +2008,25 @@ def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn) -> dict:
             reading = check_backward_gemms(name, out, lambda: projection_gemms_plain(
                 x2, cot.reshape(M, H), bufs, w_all, wo))
             row["gemm_reading"] = max(row.get("gemm_reading", 0.0), reading)
+            gate = check_backward_cores(name, bufs["dproj"], lambda: core_model(bufs, gr), HN)
+            for k in ("reading", "norm_reading"):
+                row[f"core_{k}"] = max(row.get(f"core_{k}", 0.0), gate[k])
+            row.setdefault("core_faults", {}).update(
+                {f"{f}, global_rows={gr}": v for f, v in gate["faults"].items()})
+            again = {}
+            backward(mk, gl, cot, gr, again)
+            if not torch.equal(again["dproj"], bufs["dproj"]):
+                fail(f"{name} bfloat16 global_rows={gr}: two runs' dproj differ")
+            print(f"  {name} bfloat16 global_rows={gr}: two runs' dproj bit-identical")
+            del again
+            if gr == settings[0]:
+                from backward_core_turns import device_split
+
+                split = device_split(lambda: backward(mk, gl, cot, gr, None))
+                row["split_ms"] = split
+                print(f"  {name} bfloat16 device time by kernel (ms): " + ", ".join(
+                    f"{k[:-3]} {v:.3f}" for k, v in split.items() if v)
+                    + f"; the gradient kernels' bound {row_bound:.3f}")
         del got, bufs, out
     return row
 
@@ -1994,11 +2140,15 @@ def sliding_kernel_phase(device) -> dict:
         bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
         grads_out = nbytes(hidden) + 4 * (2 * H * 3 * HN + 2 * 3 * HN + HN * H + H)
         bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        bwd["grad_bound_ms"] = grad_bound(work, B * L * HN, 6, 5, B * NH * L, dtype)
         bwd.update(long_backward_gemms(
             "sliding_train_bwd", hidden, dt, w["wo"], lambda gr: sliding_masks(device, gr),
             lambda mk, gl, ck, gr, bufs: ts.sliding_train_bwd(
                 hidden, mk.int().contiguous(), gl.int().contiguous(), seed, w, ck,
-                **dict(cfg, global_rows=gr), buffers=bufs), randn))
+                **dict(cfg, global_rows=gr), buffers=bufs), randn,
+            lambda bufs, gr: ts.sliding_core_model_dproj(
+                bufs, window=LF_WINDOW, sm_scale=HD**-0.5, dropout_rate=DROPOUT, keep=keep),
+            bwd["grad_bound_ms"]))
         for name, row in (("sliding_attention_block", blk), ("sliding_train_fwd", fwd),
                           ("sliding_train_bwd", bwd)):
             rows[name, dtype] = {"max_abs_err": err[name], **row}
@@ -2167,7 +2317,7 @@ def bigbird_kernel_phase(device) -> dict:
         bwd = timed_pair(lambda: tbb.bigbird_train_bwd(hidden, m32, seed, w, cot, t, **cfg),
                          lambda: torch.autograd.grad(out, [h, *leaves], cot, retain_graph=True),
                          reps=5)
-        del out, keep
+        del out
         work = bigbird_work(mask, BB_BLOCK, t, H, NH, HD)
         io = nbytes(hidden, mask, *w.values(), bo)
         fwd_flops = work["proj"] + work["core"] + work["out"]
@@ -2177,10 +2327,16 @@ def bigbird_kernel_phase(device) -> dict:
         bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
         grads_out = nbytes(hidden) + 4 * (H * 3 * HN + 3 * HN + HN * H + H)
         bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        bwd["grad_bound_ms"] = grad_bound(work, BB_TRAIN_B * BB_TRAIN_L * HN, 4, 3,
+                                          BB_TRAIN_B * NH * BB_TRAIN_L, dtype)
         bwd.update(long_backward_gemms(
             "bigbird_train_bwd", hidden, dt, w["wo"], lambda gr: (mask, None),
             lambda mk, gl, ck, gr, bufs: tbb.bigbird_train_bwd(hidden, m32, seed, w, ck, t, **cfg,
-                                                               buffers=bufs), randn))
+                                                               buffers=bufs), randn,
+            lambda bufs, gr: tbb.bigbird_core_model_dproj(
+                bufs, t, block_size=BB_BLOCK, sm_scale=HD**-0.5, dropout_rate=DROPOUT, keep=keep),
+            bwd["grad_bound_ms"]))
+        del keep
         fwd["work_gflop"], bwd["work_gflop"] = fwd_flops / 1e9, bwd_flops / 1e9
         for name, row in (("bigbird_attention_block", blk), ("bigbird_train_fwd", fwd),
                           ("bigbird_train_bwd", bwd)):

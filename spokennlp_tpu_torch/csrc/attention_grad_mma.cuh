@@ -1,0 +1,298 @@
+// The bf16 gradient passes of the training attention backwards on the
+// tensor cores, shared by the Longformer (train_sliding.cu) and BigBird
+// (train_bigbird.cu) gradient kernels.
+//
+// A block runs kGradWarps = 4 warps over 64 rows of "its" side: keys in the
+// dk/dv pass, query rows in the dq pass. Warp w owns rows 16 w .. 16 w +
+// 15; in the m16n8 fragments of its products lane (g, t) = (lane / 4, lane
+// % 4) holds rows g and g + 8, columns 2 t and 2 t + 1 of each n8 tile. The
+// other side streams in 64-row tiles, staged in bf16 through a two-stage
+// cp.async ring (rows padded to an odd number of 16-byte units, as
+// CoreMma's, so the 8 addresses of an ldmatrix phase fall on distinct
+// banks). The dk/dv pass (grad_tile_mma), in chunks of 32 query columns:
+//   S^T = k q^T and dP^T = v dctx^T on mma.sync m16n8k16 bf16 with float32
+//   sums from ldmatrix fragments;
+//   the caller's softmax-with-dropout gradient on each accumulator element
+//   in registers, from the element's (key, row) in the fragment: dS rounded
+//   to bf16, and p_eff;
+//   dS^T and p_eff^T packed into A fragments with bf16_pair: the
+//   accumulator layout of an m16n8 tile is the A layout of an m16k8 slice,
+//   and dS is a bf16 value, so its pack is exact (p_eff is rounded by it);
+//   dk += dS^T q and dv += p_eff^T dctx, with q and dctx read as k16 x n8
+//   fragments through ldmatrix.trans;
+//   each dS stored once, in bf16, for the dq pass.
+// The dq pass (dq_from_ds_tile) reads those dS tiles as A fragments
+// (ldmatrix.trans) and forms dq += dS k. The products are those of the
+// CUDA-core bodies but for the order of the float32 sums; every rounding
+// point stays where it was.
+#pragma once
+
+#include "attention_core.cuh"
+
+namespace spk {
+
+constexpr int kGradWarps = 4;
+constexpr int kGradThreads = 32 * kGradWarps;
+
+// threads of a gradient kernel: 256 on the CUDA cores (float32), 128 on
+// the tensor cores (bf16)
+template <typename T>
+__host__ __device__ constexpr int grad_threads() {
+  return std::is_same<T, float>::value ? kThreads : kGradThreads;
+}
+
+// the least resident blocks an SM that a gradient kernel is compiled for
+// (its launch bounds' second argument): 4 in bf16 up to head dim 64, which
+// caps a thread at 128 registers (on the H100, rows 12 and 13's gradient
+// kernels ran 1.27 x and 1.11 x faster than at ptxas's own 186-246
+// registers, PERF.md); at head dim 128 the accumulators alone take 128 and
+// shared memory holds two blocks an SM, so ptxas chooses; 0 for float32, as
+// before
+template <typename T, int HD>
+__host__ __device__ constexpr int grad_min_blocks() {
+  return std::is_same<T, float>::value || HD > 64 ? 0 : 4;
+}
+
+template <int HD>
+struct GradMma {
+  static_assert(HD % 16 == 0, "whole k16 steps");
+  static constexpr int kRowBytes = 2 * HD + 16;  // an odd number of 16-byte units
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kChunks = HD / 8;  // 16-byte copies a staged row
+  static constexpr int ND = HD / 8;       // n8 tiles of a (16, HD) accumulator
+  static_assert(kRowBytes % 32 == 16, "odd 16-byte row stride");
+};
+
+// rows [r0, r0 + 64) of a bf16 slab X (row stride `stride` elements) into
+// dst, rows outside [lo, hi) zero-filled through the copy's source size
+template <int HD>
+__device__ __forceinline__ void stage_grad_rows(const __nv_bfloat16* X, size_t stride, int r0,
+                                                int lo, int hi, unsigned char* dst) {
+  using M = GradMma<HD>;
+  for (int e = threadIdx.x; e < kTile * M::kChunks; e += kGradThreads) {
+    const int r = e / M::kChunks, c = e % M::kChunks, l = r0 + r;
+    const bool in = l >= lo && l < hi;
+    cp_async16(smem_addr(dst + r * M::kRowBytes + 16 * c), in ? X + (size_t)l * stride + 8 * c : X,
+               in ? 16 : 0);
+  }
+}
+
+// 64 float32 row statistics from src[r0 ..] into dst, rows outside [lo,
+// hi) zero
+__device__ __forceinline__ void stage_grad_stats(const float* src, int r0, int lo, int hi,
+                                                 float* dst) {
+  for (int i = threadIdx.x; i < kTile; i += kGradThreads) {
+    const int l = r0 + i;
+    const bool in = l >= lo && l < hi;
+    cp_async4(smem_addr(dst + i), in ? src + l : src, in ? 4 : 0);
+  }
+}
+
+// The block's walk over its live tiles of the other side, t in [0, n) in
+// order: next(t) is the first live tile >= t (n when none is left, the
+// same for every thread), load(stage, t) stages tile t into ring slot
+// `stage`, body(stage, t) computes on it. Whatever the caller staged before
+// the call lands with the first tile.
+template <typename Next, typename Load, typename Body>
+__device__ __forceinline__ void grad_ring(int n, Next next, Load load, Body body) {
+  int t = next(0);
+  if (t < n) load(0, t);
+  cp_async_commit();
+  int stage = 0;
+  while (t < n) {
+    const int tn = next(t + 1);
+    if (tn < n) load(stage ^ 1, tn);  // its slot was freed by the barrier ending the last tile
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and what came before it) has landed
+    __syncthreads();
+    body(stage, t);
+    __syncthreads();  // every warp is done with slot `stage`
+    t = tn;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+// Per-lane ldmatrix offsets (bytes) into a staged tile: the warp's A rows
+// (four 8 x 8 matrices (rows 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15), (8-15,
+// 8-15) of an m16 x k16 fragment), the B rows as stored (two n8 x k16
+// fragments: (cols 0-7, d 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15)) and
+// transposed (two k16 x n8 fragments: (rows 0-7, d 0-7), (8-15, 0-7), (0-7,
+// 8-15), (8-15, 8-15)).
+template <int HD>
+struct GradLane {
+  int a, b, bt;
+  __device__ __forceinline__ GradLane() {
+    constexpr int RB = GradMma<HD>::kRowBytes;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    a = (16 * warp + lane % 16) * RB + (lane / 16) * 16;
+    b = (lane % 8 + 8 * (lane / 16)) * RB + ((lane / 8) % 2) * 16;
+    bt = (lane % 8 + 8 * ((lane / 8) % 2)) * RB + (lane / 16) * 16;
+  }
+};
+
+// One 64-column tile for the warp's 16 rows (keys). as_ / ap: shared-memory
+// addresses of the A tiles of X and Y (the block's own k and v), bs / bp:
+// of the staged B tiles (q and dctx). grad(x, y, hi, col, pe) returns the
+// element's dS (a bf16 value) and sets pe (p_eff) of row g + 8 hi, column
+// col in [0, 64); sink(hi, col, ds0, ds1) then receives the dS of columns
+// col and col + 1 (col even). acc0 += dS . B_s and acc1 += p_eff . B_p.
+template <int HD, typename Grad, typename Sink>
+__device__ __forceinline__ void grad_tile_mma(uint32_t as_, uint32_t ap, uint32_t bs, uint32_t bp,
+                                              const GradLane<HD>& lane, Grad grad, Sink sink,
+                                              float (&acc0)[HD / 8][4],
+                                              float (&acc1)[HD / 8][4]) {
+  constexpr int RB = GradMma<HD>::kRowBytes;
+  constexpr int KS = HD / 16;  // k16 steps of the first products
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int c = 0; c < kTile / 32; ++c) {
+    float x[4][4], y[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4], ad[4];
+      ldmatrix_x4(as_ + lane.a + kk * 32, a);
+      ldmatrix_x4(ap + lane.a + kk * 32, ad);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        const int off = lane.b + (32 * c + 16 * nj) * RB + kk * 32;
+        uint32_t r[4];
+        ldmatrix_x4(bs + off, r);
+        mma_bf16(x[2 * nj], a, r[0], r[1]);
+        mma_bf16(x[2 * nj + 1], a, r[2], r[3]);
+        ldmatrix_x4(bp + off, r);
+        mma_bf16(y[2 * nj], ad, r[0], r[1]);
+        mma_bf16(y[2 * nj + 1], ad, r[2], r[3]);
+      }
+    }
+    // the gradient on the fragments: x becomes dS, y p_eff
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = 0.0f;
+        x[j][e] = grad(x[j][e], y[j][e], e / 2, 32 * c + 8 * j + 2 * t + e % 2, pe);
+        y[j][e] = pe;
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) sink(hi, 32 * c + 8 * j + 2 * t, x[j][2 * hi], x[j][2 * hi + 1]);
+    // second products: 16 columns of the tile a k-step
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint32_t a[4] = {bf16_pair(x[2 * ks][0], x[2 * ks][1]),
+                             bf16_pair(x[2 * ks][2], x[2 * ks][3]),
+                             bf16_pair(x[2 * ks + 1][0], x[2 * ks + 1][1]),
+                             bf16_pair(x[2 * ks + 1][2], x[2 * ks + 1][3])};
+      const uint32_t ap2[4] = {bf16_pair(y[2 * ks][0], y[2 * ks][1]),
+                               bf16_pair(y[2 * ks][2], y[2 * ks][3]),
+                               bf16_pair(y[2 * ks + 1][0], y[2 * ks + 1][1]),
+                               bf16_pair(y[2 * ks + 1][2], y[2 * ks + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < HD / 16; ++dn) {
+        const int off = lane.bt + (32 * c + 16 * ks) * RB + dn * 32;
+        uint32_t r[4];
+        ldmatrix_x4_trans(bs + off, r);
+        mma_bf16(acc0[2 * dn], a, r[0], r[1]);
+        mma_bf16(acc0[2 * dn + 1], a, r[2], r[3]);
+        ldmatrix_x4_trans(bp + off, r);
+        mma_bf16(acc1[2 * dn], ap2, r[0], r[1]);
+        mma_bf16(acc1[2 * dn + 1], ap2, r[2], r[3]);
+      }
+    }
+  }
+}
+
+// dS written once. The dk/dv pass, which forms every (row, key) dS that the
+// dq pass needs, stores it in bf16, one (64 keys, 64 query rows) tile (keys
+// major) for each (query tile, key tile) the dq pass visits; the dq pass
+// reads dS instead of forming S, dP, the exponent and the dropout draw
+// again (on the H100 the dq pass forming them took 1.0-1.2 ms at B=8, L=2048,
+// reading them 0.11-0.13, PERF.md). kDsRowBytes pads a staged tile's rows
+// as kRowBytes does.
+constexpr int kDsTile = kTile * kTile;  // elements of a stored dS tile
+constexpr int kDsRowBytes = 2 * kTile + 16;
+constexpr int kDsTileBytes = kTile * kDsRowBytes;
+
+__device__ __forceinline__ void stage_ds_tile(const __nv_bfloat16* src, unsigned char* dst) {
+  constexpr int kChunks = kTile / 8;
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kGradThreads) {
+    const int r = e / kChunks, c = e % kChunks;
+    cp_async16(smem_addr(dst + r * kDsRowBytes + 16 * c), src + r * kTile + 8 * c, 16);
+  }
+}
+
+// acc += dS . K over one staged (64 keys, 64 rows) dS tile at ds and the
+// (64 keys, HD) k tile at ks, for the warp's 16 rows: dS's A fragments
+// through ldmatrix.trans of the keys-major tile (matrices (rows 0-7, keys
+// 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)), k's B fragments as in
+// grad_tile_mma
+template <int HD>
+__device__ __forceinline__ void dq_from_ds_tile(uint32_t ds, uint32_t ks, const GradLane<HD>& lane,
+                                                float (&acc)[HD / 8][4]) {
+  constexpr int RB = GradMma<HD>::kRowBytes;
+  const int l = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const uint32_t a_addr =
+      ds + (l % 8 + 8 * (l / 16)) * kDsRowBytes + (16 * warp + 8 * ((l / 8) % 2)) * 2;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4_trans(a_addr + kk * 16 * kDsRowBytes, a);
+#pragma unroll
+    for (int dn = 0; dn < HD / 16; ++dn) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(ks + lane.bt + kk * 16 * RB + dn * 32, r);
+      mma_bf16(acc[2 * dn], a, r[0], r[1]);
+      mma_bf16(acc[2 * dn + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// a stage of the dq pass: the k tile, then the dS tile
+template <int HD>
+__host__ __device__ constexpr size_t grad_dq_stage_bytes() {
+  return (size_t)GradMma<HD>::kTileBytes + kDsTileBytes;
+}
+
+template <int HD>
+__device__ __forceinline__ void zero_acc(float (&acc)[HD / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+}
+
+// row g + 8 hi of the warp's accumulator into dst (a bf16 row of HD),
+// each element through f
+template <int HD, typename F>
+__device__ __forceinline__ void store_acc_row(const float (&acc)[HD / 8][4], int hi,
+                                              __nv_bfloat16* dst, F f) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(f(acc[n][2 * hi]), f(acc[n][2 * hi + 1]));
+}
+
+// the shared memory of the bf16 gradient kernels: the dq pass holds two
+// stages of (k, dS); the dk/dv pass k and v, then two stages of (q, dctx,
+// the 64 rows' m, D and rowsum(dp p_eff))
+template <int HD>
+__host__ __device__ constexpr size_t grad_dq_smem_mma() {
+  return 2 * grad_dq_stage_bytes<HD>();
+}
+
+template <int HD>
+__host__ __device__ constexpr size_t grad_dkv_stage_bytes() {
+  return 2 * (size_t)GradMma<HD>::kTileBytes + 3 * kTile * sizeof(float);
+}
+
+template <int HD>
+__host__ __device__ constexpr size_t grad_dkv_smem_mma() {
+  return 2 * (size_t)GradMma<HD>::kTileBytes + 2 * grad_dkv_stage_bytes<HD>();
+}
+
+}  // namespace spk

@@ -24,9 +24,13 @@
 // against some 15 MB (forward) and 40 MB (backward) of inputs, weights and
 // outputs in bf16: bound by arithmetic. In bf16 every product of the
 // projections runs bf16_gemm.cuh's tensor-core tile, forward and backward
-// (dctx and dx with a weight read transposed, the two weight gradients); the
-// attention cores are SIMT kernels on the CUDA cores in float32, whose move
-// to the tensor cores is later work.
+// (dctx and dx with a weight read transposed, the two weight gradients), and
+// the backward's gradient kernels bigbird_dq and bigbird_dkv run
+// attention_grad_mma.cuh's tensor-core body (S, dP and the dq, dk, dv
+// products on mma.sync; the softmax gradient with its Philox draw on the
+// fragments in registers). The rows kernel (the forward's attention and the
+// backward's statistics pass) stays a SIMT kernel on the CUDA cores in
+// float32; float32 runs every attention kernel there.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence and scatter-added each query block's dk and
@@ -39,15 +43,17 @@
 //            2. bigbird_rows_kernel<kGrad>: ctx again (for dWo) and the row
 //               statistics (m, D, rowsum(dp p_eff)) of every row, the global
 //               rows' from their dense pass;
-//            3. bigbird_dq_kernel: per (query tile, head, sequence) dq over
-//               the key tiles the forward visited;
-//            4. bigbird_dkv_kernel: per (KEY tile, head, sequence) dk and dv
+//            3. bigbird_dkv_kernel: per (KEY tile, head, sequence) dk and dv
 //               summed over the query tiles that reach it: the window blocks
 //               around it, the query blocks whose random entries hold it (an
 //               inverse table, built on the host from the same static table),
 //               every non-global block when it is a global block, and the
 //               global rows. Each block owns its keys: no atomics, the same
-//               order on every run;
+//               order on every run. In bf16 it also stores each dS once
+//               (bigbird_ds_tile);
+//            4. bigbird_dq_kernel: per (query tile, head, sequence) dq over
+//               the key tiles the forward visited, from those dS tiles in
+//               bf16;
 //            5. dx = [dq dk dv] . Wqkv^T in one GEMM, and dWqkv = x^T [dq dk
 //               dv] and dWo = ctx^T g in weight_grad_kernel (bf16_gemm.cuh):
 //               each block owns a tile of a weight gradient and a fixed range
@@ -55,15 +61,32 @@
 //               it, so the batch sum is deterministic; the bias gradients
 //               come from the same pass.
 // Saved between the passes: the inputs and the seed only; the scores and
-// probabilities are recomputed tile by tile in each kernel.
+// probabilities are recomputed tile by tile in each kernel (in bf16, dS
+// passes from step 3 to step 4 through device memory).
+#include "attention_grad_mma.cuh"
 #include "bigbird_attention.cuh"
 
 namespace spk {
 namespace {
 
-template <int HD>
+// The stored dS tile of query tile qt (the grid's first index) and key-tile
+// slot t (key_tile's t) of (b, h) = bh: the G S query tiles of the global
+// rows hold ceil(L / 64) slots each, the others (3 + G + R) S.
+__host__ __device__ __forceinline__ size_t bigbird_ds_tile(const BigBird& bb, size_t bh, int qt,
+                                                          int t) {
+  const int gq = bb.G * bb.S, nkt = (bb.L + kTile - 1) / kTile, K = (3 + bb.G + bb.R) * bb.S;
+  const size_t per = (size_t)gq * nkt + (size_t)(bb.nb * bb.S - gq) * K;
+  return (bh * per + (qt < gq ? (size_t)qt * nkt + t : (size_t)gq * nkt + (size_t)(qt - gq) * K + t)) *
+         kDsTile;
+}
+
+template <typename T, int HD>
 constexpr size_t bigbird_dq_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
+  if constexpr (std::is_same<T, float>::value) {
+    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
+  } else {
+    return grad_dq_smem_mma<HD>();
+  }
 }
 
 // dS of one (row, key) pair, rounded to T, and p_eff, from the row's
@@ -79,15 +102,64 @@ __device__ __forceinline__ void bigbird_score_grad(float s, float dp, float m, f
 
 // dq of one (query tile, head, sequence): sum over the key tiles of dS . k;
 // stored as round(round(dq) * sm_scale) into slot 0 of dproj (B*L rows of
-// stride ld). Grid (nb S, nh, B).
+// stride ld). Grid (nb S, nh, B). float32 on the CUDA cores (256 threads)
+// forms dS itself; bf16 on the tensor cores (128 threads,
+// attention_grad_mma.cuh) reads the dS tiles bigbird_dkv_kernel stored in
+// ds_in (bigbird_ds_tile).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
     bigbird_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts, BigBird bb,
                       const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
-                      const float* __restrict__ stats, T* __restrict__ dproj, int B, int nh,
-                      int ld, float sm_scale, uint32_t thr, float keep_prob) {
+                      const float* __restrict__ stats, const T* __restrict__ ds_in,
+                      T* __restrict__ dproj, int B, int nh, int ld, float sm_scale, uint32_t thr,
+                      float keep_prob) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!std::is_same<T, float>::value) {
+    using Mm = GradMma<HD>;
+    unsigned char* ring = reinterpret_cast<unsigned char*>(smem);  // stage s: k, then dS
+    int i, q0, q_end;
+    block_tile(bb, blockIdx.x, i, q0, q_end);
+    const int h = blockIdx.y, b = blockIdx.z, L = bb.L;
+    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+    const T* K = qkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
+    const int n_valid = counts[2 * b];
+    const int nt = key_tiles(bb, i, n_valid);
+    const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+    const bool live = q0 + 16 * warp < q_end;  // warp-uniform
+    float dq[HD / 8][4];
+    zero_acc<HD>(dq);
+    const GradLane<HD> lane;
+    const auto stage_of = [&](int s) { return ring + s * grad_dq_stage_bytes<HD>(); };
+    grad_ring(
+        nt,
+        [&](int t) {
+          KeyTile kt;
+          while (t < nt && !key_tile(bb, i, t, n_valid, kt)) ++t;
+          return t;
+        },
+        [&](int s, int t) {
+          KeyTile kt;
+          key_tile(bb, i, t, n_valid, kt);
+          stage_grad_rows<HD>(K, HD, kt.k0, 0, L, stage_of(s));
+          stage_ds_tile(ds_in + bigbird_ds_tile(bb, (size_t)b * nh + h, blockIdx.x, t),
+                        stage_of(s) + Mm::kTileBytes);
+        },
+        [&](int s, int t) {
+          if (live)
+            dq_from_ds_tile<HD>(smem_addr(stage_of(s) + Mm::kTileBytes), smem_addr(stage_of(s)),
+                                lane, dq);
+        });
+    if (!live) return;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int l = hi ? r_hi : r_lo;
+      if (l < q_end)
+        store_acc_row<HD>(dq, hi, dproj + ((size_t)b * L + l) * ld + (size_t)h * HD,
+                          [&](float v) { return round_to<T>(v) * sm_scale; });
+    }
+    return;
+  } else {
   using G = Geometry<HD>;
-  extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + G::kTileFloats;
   float* Vs = Ks + G::kTileFloats;
@@ -162,12 +234,17 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < G::TD; ++c)
       out[tx + 16 * c] = from_f32<T>(round_to<T>(dq[a][c]) * sm_scale);
   }
+  }
 }
 
-template <int HD>
+template <typename T, int HD>
 constexpr size_t bigbird_dkv_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + 2 * (size_t)kTile * kPS +
-                          3 * (size_t)kTile);
+  if constexpr (std::is_same<T, float>::value) {
+    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + 2 * (size_t)kTile * kPS +
+                            3 * (size_t)kTile);
+  } else {
+    return grad_dkv_smem_mma<HD>();
+  }
 }
 
 // One query tile that reaches a key block: its block, its first row, the
@@ -219,17 +296,126 @@ __device__ __forceinline__ bool query_tile_of(const BigBird& bb, const int32_t* 
 
 // dk and dv of one (KEY tile, head, sequence): sums of dS^T . q and
 // round(p_eff)^T . dctx over the query tiles that reach its keys, stored
-// rounded into slots 1 and 2 of dproj. Thread (ty, tx) owns keys ty + 16 a
-// and, in the score tiles, queries tx + 16 c. Grid (nb S, nh, B).
+// rounded into slots 1 and 2 of dproj. Grid (nb S, nh, B). In float32 (256
+// threads) thread (ty, tx) owns keys ty + 16 a and, in the score tiles,
+// queries tx + 16 c; in bf16 (128 threads) warp w owns keys 16 w .. 16 w +
+// 15 and forms S^T = k q^T and dP^T = v dctx^T on the tensor cores, whose
+// dS^T and p_eff^T are the A fragments of dk += dS^T q and dv += p_eff^T
+// dctx; it also stores every dS in ds_out's tiles, which bigbird_dq_kernel
+// reads (bigbird_ds_tile).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
     bigbird_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts, BigBird bb,
                        const int32_t* __restrict__ inv_off, const int32_t* __restrict__ inv,
                        const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
-                       const float* __restrict__ stats, T* __restrict__ dproj, int B, int nh,
-                       int ld, uint32_t thr, float keep_prob) {
+                       const float* __restrict__ stats, T* __restrict__ ds_out,
+                       T* __restrict__ dproj, int B, int nh, int ld, uint32_t thr,
+                       float keep_prob) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!std::is_same<T, float>::value) {
+    using Mm = GradMma<HD>;
+    unsigned char* Ks = reinterpret_cast<unsigned char*>(smem);
+    unsigned char* Vs = Ks + Mm::kTileBytes;
+    unsigned char* ring = Vs + Mm::kTileBytes;  // stage s: q, dctx, then m, D, rowsum
+    int j, k0, k_end;
+    block_tile(bb, blockIdx.x, j, k0, k_end);
+    const int h = blockIdx.y, b = blockIdx.z, L = bb.L, S = bb.S;
+    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
+    const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
+    const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
+    const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
+    const int n_valid = counts[2 * b];
+    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
+    const size_t plane = (size_t)B * nh * L;
+    const float* st0 = stats + ((size_t)b * nh + h) * L;
+    const int key_end = min(k_end, n_valid);
+
+    stage_grad_rows<HD>(K, HD, k0, 0, L, Ks);
+    stage_grad_rows<HD>(V, HD, k0, 0, L, Vs);
+    const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
+    const bool live = k0 + 16 * warp < k_end;  // warp-uniform
+    float dk[HD / 8][4], dv[HD / 8][4];
+    zero_acc<HD>(dk);
+    zero_acc<HD>(dv);
+    const GradLane<HD> lane;
+    // no real key here: nothing reaches the tile
+    const int nq = k0 < n_valid ? (j >= bb.G ? 3 * S : 0) + (inv_off[j + 1] - inv_off[j]) * S +
+                                      (j < bb.G ? (bb.nb - bb.G) * S : 0) + bb.G * S
+                                : 0;
+    const auto stage_of = [&](int s) { return ring + s * grad_dkv_stage_bytes<HD>(); };
+    grad_ring(
+        nq,
+        [&](int t) {
+          QueryTile qt;
+          while (t < nq && !query_tile_of(bb, inv_off, inv, j, t, qt)) ++t;
+          return t;
+        },
+        [&](int s, int t) {
+          QueryTile qt;
+          query_tile_of(bb, inv_off, inv, j, t, qt);
+          const int q_end = min(qt.q0 + kTile, (qt.i + 1) * bb.C);
+          unsigned char* st = stage_of(s);
+          stage_grad_rows<HD>(Q, HD, qt.q0, 0, L, st);
+          stage_grad_rows<HD>(dctx + (size_t)b * L * HN + (size_t)h * HD, HN, qt.q0, 0, L,
+                              st + Mm::kTileBytes);
+          float* sf = reinterpret_cast<float*>(st + 2 * Mm::kTileBytes);
+          stage_grad_stats(st0, qt.q0, 0, q_end, sf);
+          stage_grad_stats(st0 + plane, qt.q0, 0, q_end, sf + kTile);
+          stage_grad_stats(st0 + 2 * plane, qt.q0, 0, q_end, sf + 2 * kTile);
+        },
+        [&](int s, int t) {
+          if (!live) return;
+          QueryTile qt;
+          query_tile_of(bb, inv_off, inv, j, t, qt);
+          const int q_end = min(qt.q0 + kTile, (qt.i + 1) * bb.C);
+          const unsigned char* st = stage_of(s);
+          const float* m_s = reinterpret_cast<const float*>(st + 2 * Mm::kTileBytes);
+          const float* d_s = m_s + kTile;
+          const float* rs_s = d_s + kTile;
+          grad_tile_mma<HD>(
+              smem_addr(Ks), smem_addr(Vs), smem_addr(st), smem_addr(st + Mm::kTileBytes), lane,
+              [&](float sc, float dp, int hi, int col, float& pe) {
+                const int key = hi ? key_hi : key_lo, row = qt.q0 + col;
+                if (row >= q_end || key >= key_end) return 0.0f;
+                const bool keep = keep_prob_bits(seed, thr, b, h | qt.tag, row, key + qt.col_off);
+                float ds;
+                bigbird_score_grad<T>(sc, dp, m_s[col], d_s[col], rs_s[col], keep, keep_prob, ds,
+                                      pe);
+                return ds;
+              },
+              // dS of rows (row, row + 1) at key into the dq pass's tile of
+              // this query tile and the key's tile in its key_tile order
+              [&](int hi, int col, float d0, float d1) {
+                const int key = hi ? key_hi : key_lo;
+                if (key >= k_end) return;
+                int t = key / kTile, kin = key % kTile;  // a global row: every key tile
+                if (qt.tag != kGlobalRowStream) {
+                  const int piece = qt.tag == kGlobalColStream ? 3 + j
+                                    : qt.tag == kRandomStream ? 3 + bb.G + qt.col_off / bb.C + j
+                                                              : j - qt.i + 1;
+                  t = piece * S + blockIdx.x % S;
+                  kin = key - k0;
+                }
+                const int qtile = qt.i * S + (qt.q0 - qt.i * bb.C) / kTile;
+                T* dst = ds_out + bigbird_ds_tile(bb, (size_t)b * nh + h, qtile, t) +
+                         kin * kTile + col;
+                *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(d0, d1);
+              },
+              dk, dv);
+        });
+    if (!live) return;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int l = hi ? key_hi : key_lo;
+      if (l >= k_end) continue;
+      T* out = dproj + ((size_t)b * L + l) * ld + (size_t)h * HD;
+      store_acc_row<HD>(dk, hi, out + HN, [](float v) { return v; });
+      store_acc_row<HD>(dv, hi, out + 2 * HN, [](float v) { return v; });
+    }
+    return;
+  } else {
   using G = Geometry<HD>;
-  extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + G::kTileFloats;
   float* Qs = Vs + G::kTileFloats;
@@ -317,6 +503,7 @@ __global__ void __launch_bounds__(kThreads)
       out[2 * HN + tx + 16 * c] = from_f32<T>(dv[a][c]);
     }
   }
+  }
 }
 
 template <typename T>
@@ -341,11 +528,10 @@ cudaError_t bigbird_train_bwd(const T* hidden, const int32_t* mask, const int32_
                               const int32_t* rok, const int32_t* inv_off, const int32_t* inv,
                               const int32_t* seed, const T* wqkv, const float* bqkv, const T* wo,
                               const T* g, int32_t* counts, T* qkv_buf, T* ctx_buf, T* dctx_buf,
-                              float* stats, T* dproj, T* dx, float* dwqkv, float* dbqkv,
-                              float* dwo, float* dbo, float* ws, size_t ws_floats,
+                              float* stats, T* dproj, T* ds_buf, T* dx, float* dwqkv,
+                              float* dbqkv, float* dwo, float* dbo, float* ws, size_t ws_floats,
                               int splits_proj, int splits_out, int B, int L, int H, int nh, int hd,
-                              int C,
-                              int G, int R, float sm_scale, uint32_t thr, float keep_prob,
+                              int C, int G, int R, float sm_scale, uint32_t thr, float keep_prob,
                               cudaStream_t stream) {
   const int M = B * L, HN = nh * hd, ld = 3 * HN;
   cudaError_t err = bigbird_projections<T>(hidden, mask, wqkv, bqkv, counts, qkv_buf, B, L, H, nh,
@@ -361,16 +547,24 @@ cudaError_t bigbird_train_bwd(const T* hidden, const int32_t* mask, const int32_
   err = with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     const dim3 grid(bb.nb * bb.S, nh, B);
-    auto dq = bigbird_dq_kernel<T, HD>;
-    cudaError_t e = prepare(dq, bigbird_dq_smem_bytes<HD>());
-    if (e != cudaSuccess) return e;
-    dq<<<grid, kThreads, bigbird_dq_smem_bytes<HD>(), stream>>>(
-        qkv_buf, counts, bb, seed, dctx_buf, stats, dproj, B, nh, ld, sm_scale, thr, keep_prob);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    constexpr int threads = grad_threads<T>();
+    cudaError_t e = cudaSuccess;
+    if (ds_buf != nullptr && C % kTile) {  // bf16
+      // tiles that no block fills whole: what the dk/dv pass leaves stays zero
+      e = cudaMemsetAsync(ds_buf, 0, bigbird_ds_tile(bb, (size_t)B * nh, 0, 0) * sizeof(T),
+                          stream);
+      if (e != cudaSuccess) return e;
+    }
     auto dkv = bigbird_dkv_kernel<T, HD>;
-    if ((e = prepare(dkv, bigbird_dkv_smem_bytes<HD>())) != cudaSuccess) return e;
-    dkv<<<grid, kThreads, bigbird_dkv_smem_bytes<HD>(), stream>>>(
-        qkv_buf, counts, bb, inv_off, inv, seed, dctx_buf, stats, dproj, B, nh, ld, thr,
+    if ((e = prepare(dkv, bigbird_dkv_smem_bytes<T, HD>())) != cudaSuccess) return e;
+    dkv<<<grid, threads, bigbird_dkv_smem_bytes<T, HD>(), stream>>>(
+        qkv_buf, counts, bb, inv_off, inv, seed, dctx_buf, stats, ds_buf, dproj, B, nh, ld, thr,
+        keep_prob);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    auto dq = bigbird_dq_kernel<T, HD>;
+    if ((e = prepare(dq, bigbird_dq_smem_bytes<T, HD>())) != cudaSuccess) return e;
+    dq<<<grid, threads, bigbird_dq_smem_bytes<T, HD>(), stream>>>(
+        qkv_buf, counts, bb, seed, dctx_buf, stats, ds_buf, dproj, B, nh, ld, sm_scale, thr,
         keep_prob);
     return cudaGetLastError();
   });
@@ -434,7 +628,10 @@ __global__ void bigbird_mask_kernel(const int32_t* __restrict__ seed_ptr,
 // (nb + 1), inv, seed (1,) and counts (B, 2) int32; biases, stats (3, B, nh,
 // L) and the weight and bias gradients float32. wqkv (H, 3 nh hd), wo (nh hd,
 // H); dproj (B*L, 3 nh hd). thr = 0 turns dropout off (seed may then be
-// null). Each entry returns the first CUDA error, or 0.
+// null). ds_buf (bf16; null in float32) holds the 64 x 64 dS tiles of
+// bigbird_ds_tile (B nh (G S ceil(L / 64) + (nb - G) S
+// (3 + G + R) S) of them) that the dk/dv pass writes and the dq pass reads.
+// Each entry returns the first CUDA error, or 0.
 extern "C" int spk_bigbird_train_fwd(int dtype, const void* hidden, const void* mask,
                                      const void* rand, const void* rok, const void* seed,
                                      const void* wqkv, const void* bqkv, const void* wo,
@@ -466,7 +663,8 @@ extern "C" int spk_bigbird_train_bwd(int dtype, const void* hidden, const void* 
                                      const void* inv, const void* seed, const void* wqkv,
                                      const void* bqkv, const void* wo, const void* g,
                                      void* counts, void* qkv_buf, void* ctx_buf, void* dctx_buf,
-                                     void* stats, void* dproj, void* dx, void* dwqkv,
+                                     void* stats, void* dproj, void* ds_buf, void* dx,
+                                     void* dwqkv,
                                      void* dbqkv, void* dwo, void* dbo, void* ws,
                                      size_t ws_floats, int splits_proj, int splits_out, int B,
                                      int L, int H, int nh, int hd, int C, int G, int R,
@@ -483,7 +681,8 @@ extern "C" int spk_bigbird_train_bwd(int dtype, const void* hidden, const void* 
     return spk::bigbird_train_bwd<F>(
         c(hidden), i32(mask), i32(rand), i32(rok), i32(inv_off), i32(inv), i32(seed), c(wqkv),
         f32(bqkv), c(wo), c(g), static_cast<int32_t*>(counts), m(qkv_buf), m(ctx_buf),
-        m(dctx_buf), mf(stats), m(dproj), m(dx), mf(dwqkv), mf(dbqkv), mf(dwo), mf(dbo), mf(ws),
+        m(dctx_buf), mf(stats), m(dproj), m(ds_buf), m(dx), mf(dwqkv), mf(dbqkv), mf(dwo),
+        mf(dbo), mf(ws),
         ws_floats, splits_proj, splits_out, B, L, H, nh, hd, C, G, R, sm_scale, thr, keep_prob, s);
   };
   cudaError_t err = dtype == 0   ? run(float{})

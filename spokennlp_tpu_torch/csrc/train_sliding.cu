@@ -25,9 +25,14 @@
 // against some 20 MB (forward) and 50 MB (backward) of inputs, weights and
 // outputs in bf16: bound by arithmetic. In bf16 every product of the
 // projections runs bf16_gemm.cuh's tensor-core tile, forward and backward
-// (dctx and dx with a weight read transposed, the two weight gradients); the
-// attention cores are SIMT kernels on the CUDA cores in float32, whose move
-// to the tensor cores is later work.
+// (dctx and dx with a weight read transposed, the two weight gradients), and
+// the backward's gradient kernels band_dq and band_dkv run
+// attention_grad_mma.cuh's tensor-core body (S, dP and the dq, dk, dv
+// products on mma.sync; the softmax gradient with its Philox draw on the
+// fragments in registers). The rows kernels (the forward's attention and
+// the backward's statistics pass) and global_kv_grad_kernel, whose G global
+// rows are a small share of the work, stay SIMT kernels on the CUDA cores
+// in float32; float32 runs every attention kernel there.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into
@@ -40,13 +45,14 @@
 //               statistics (m, D, rowsum(dp p_eff));
 //            3. global_rows_kernel<kGrad>: the global rows' ctx, statistics,
 //               qg and d(qg), written as slot 3 of the projection gradient;
-//            4. band_dq_kernel: per (query tile, head, sequence) dq over the
-//               band and global-column tiles;
-//            5. band_dkv_kernel: per (KEY tile, head, sequence) dk and dv
+//            4. band_dkv_kernel: per (KEY tile, head, sequence) dk and dv
 //               summed over the query tiles whose band covers it and, for
 //               the tile that holds the global keys, over every query row's
 //               global columns. Each block owns its keys: no atomics, the
-//               same order on every run;
+//               same order on every run. In bf16 it also stores each dS
+//               once (sliding_ds_tiles);
+//            5. band_dq_kernel: per (query tile, head, sequence) dq over the
+//               band and global-column tiles, from those dS tiles in bf16;
 //            6. global_kv_grad_kernel: per (key tile, head, sequence) dkg and
 //               dvg summed over the (at most G) global rows;
 //            7. dx = [dq dk dv dqg dkg dvg] . [Wqkv Wg]^T in one GEMM, and
@@ -57,15 +63,27 @@
 //               sum is deterministic; the bias gradients come from the same
 //               pass.
 // Saved between the passes: the inputs and the seed only; the scores and
-// probabilities are recomputed tile by tile in each kernel.
+// probabilities are recomputed tile by tile in each kernel (in bf16, dS
+// passes from step 4 to step 5 through device memory).
+#include "attention_grad_mma.cuh"
 #include "sliding_attention.cuh"
 
 namespace spk {
 namespace {
 
-template <int HD>
+// The first stored dS tile of query tile qt of (b, h) = bh: a query tile
+// holds band_tiles(C) band tiles, then the global-column tile.
+__host__ __device__ __forceinline__ size_t sliding_ds_tiles(int bh, int qt, int L, int C) {
+  return ((size_t)bh * ((L + kTile - 1) / kTile) + qt) * (band_tiles(C) + 1) * (size_t)kDsTile;
+}
+
+template <typename T, int HD>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
+  if constexpr (std::is_same<T, float>::value) {
+    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
+  } else {
+    return grad_dq_smem_mma<HD>();
+  }
 }
 
 // dS of one (row, key) pair, rounded to T, and p_eff, from the row's
@@ -81,15 +99,60 @@ __device__ __forceinline__ void sliding_score_grad(float s, float dp, float m, f
 
 // dq of one (query tile, head, sequence): sum over the band and global-column
 // tiles of dS . k; stored as round(round(dq) * sm_scale) into slot 0 of
-// dproj (B*L rows of stride ld). Grid (ceil(L / 64), nh, B).
+// dproj (B*L rows of stride ld). Grid (ceil(L / 64), nh, B). float32 on the
+// CUDA cores (256 threads) forms dS itself; bf16 on the tensor cores (128
+// threads, attention_grad_mma.cuh) reads the dS tiles band_dkv_kernel
+// stored in ds_in (sliding_ds_tiles).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
     band_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                    const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
-                   const float* __restrict__ stats, T* __restrict__ dproj, int B, int L, int nh,
-                   int C, int ld, float sm_scale, uint32_t thr, float keep_prob) {
+                   const float* __restrict__ stats, const T* __restrict__ ds_in,
+                   T* __restrict__ dproj, int B, int L, int nh, int C, int ld, float sm_scale,
+                   uint32_t thr, float keep_prob) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!std::is_same<T, float>::value) {
+    using Mm = GradMma<HD>;
+    unsigned char* ring = reinterpret_cast<unsigned char*>(smem);  // stage s: k, then dS
+    const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+    const T* K = qkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
+    const T* tiles = ds_in + sliding_ds_tiles(b * nh + h, blockIdx.x, L, C);
+    const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
+    const int nbt = band_tiles(C), nt = nbt + (n_glob > 0 ? 1 : 0);  // the last: global columns
+    const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+    const bool live = q0 + 16 * warp < L;  // warp-uniform
+    float dq[HD / 8][4];
+    zero_acc<HD>(dq);
+    const GradLane<HD> lane;
+    const auto k0_of = [&](int t) { return t == nbt ? 0 : q0 - C + kTile * t; };
+    const auto stage_of = [&](int s) { return ring + s * grad_dq_stage_bytes<HD>(); };
+    grad_ring(
+        nt,
+        [&](int t) {
+          while (t < nt && t != nbt && !band_tile_live(k0_of(t), n_glob, n_valid)) ++t;
+          return t;
+        },
+        [&](int s, int t) {
+          stage_grad_rows<HD>(K, HD, k0_of(t), 0, L, stage_of(s));
+          stage_ds_tile(tiles + (size_t)t * kDsTile, stage_of(s) + Mm::kTileBytes);
+        },
+        [&](int s, int t) {
+          if (live)
+            dq_from_ds_tile<HD>(smem_addr(stage_of(s) + Mm::kTileBytes), smem_addr(stage_of(s)),
+                                lane, dq);
+        });
+    if (!live) return;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int l = hi ? r_hi : r_lo;
+      if (l < L)
+        store_acc_row<HD>(dq, hi, dproj + ((size_t)b * L + l) * ld + (size_t)h * HD,
+                          [&](float v) { return round_to<T>(v) * sm_scale; });
+    }
+    return;
+  } else {
   using G = Geometry<HD>;
-  extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + G::kTileFloats;
   float* Vs = Ks + G::kTileFloats;
@@ -165,28 +228,140 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < G::TD; ++j) out[tx + 16 * j] = from_f32<T>(round_to<T>(dq[i][j]) * sm_scale);
   }
+  }
 }
 
-template <int HD>
+template <typename T, int HD>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + 2 * (size_t)kTile * kPS +
-                          3 * (size_t)kTile);
+  if constexpr (std::is_same<T, float>::value) {
+    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + 2 * (size_t)kTile * kPS +
+                            3 * (size_t)kTile);
+  } else {
+    return grad_dkv_smem_mma<HD>();
+  }
 }
 
 // dk and dv of one (KEY tile, head, sequence): sums of dS^T . q and
 // round(p_eff)^T . dctx over the query tiles whose band reaches the keys,
 // and, when the tile holds global keys (k0 < n_glob), over every query
-// tile's global columns; stored rounded into slots 1 and 2 of dproj. Thread
-// (ty, tx) owns keys ty + 16 i and, in the score tiles, queries tx + 16 j.
-// Grid (ceil(L / 64), nh, B).
+// tile's global columns; stored rounded into slots 1 and 2 of dproj. Grid
+// (ceil(L / 64), nh, B). In float32 (256 threads) thread (ty, tx) owns keys
+// ty + 16 i and, in the score tiles, queries tx + 16 j; in bf16 (128
+// threads) warp w owns keys 16 w .. 16 w + 15 and forms S^T = k q^T and
+// dP^T = v dctx^T on the tensor cores, whose dS^T and p_eff^T are the A
+// fragments of dk += dS^T q and dv += p_eff^T dctx; it also stores every
+// dS in ds_out's tiles, which band_dq_kernel reads (sliding_ds_tiles).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
     band_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                     const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
-                    const float* __restrict__ stats, T* __restrict__ dproj, int B, int L, int nh,
-                    int C, int ld, uint32_t thr, float keep_prob) {
+                    const float* __restrict__ stats, T* __restrict__ ds_out,
+                    T* __restrict__ dproj, int B, int L, int nh, int C, int ld, uint32_t thr,
+                    float keep_prob) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!std::is_same<T, float>::value) {
+    using Mm = GradMma<HD>;
+    unsigned char* Ks = reinterpret_cast<unsigned char*>(smem);
+    unsigned char* Vs = Ks + Mm::kTileBytes;
+    unsigned char* ring = Vs + Mm::kTileBytes;  // stage s: q, dctx, then m, D, rowsum
+    const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
+    const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
+    const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
+    const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
+    const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
+    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
+    const size_t plane = (size_t)B * nh * L;
+    const float* st0 = stats + ((size_t)b * nh + h) * L;
+
+    stage_grad_rows<HD>(K, HD, k0, 0, L, Ks);
+    stage_grad_rows<HD>(V, HD, k0, 0, L, Vs);
+    const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
+    const bool live = k0 + 16 * warp < L;  // warp-uniform
+    float dk[HD / 8][4], dv[HD / 8][4];
+    zero_acc<HD>(dk);
+    zero_acc<HD>(dv);
+    const GradLane<HD> lane;
+    // band query tiles (when the keys hold a real, non-global one), then, for
+    // the tile of the global keys, every query tile for the global columns
+    const int nbt = band_tiles(C);
+    const int n_band = band_tile_live(k0, n_glob, n_valid) ? nbt : 0;
+    const int n = n_band + (k0 < n_glob ? (L + kTile - 1) / kTile : 0);
+    const auto q0_of = [&](int t) { return t >= n_band ? kTile * (t - n_band) : k0 - C + kTile * t; };
+    const auto stage_of = [&](int s) { return ring + s * grad_dkv_stage_bytes<HD>(); };
+    grad_ring(
+        n,
+        [&](int t) {
+          for (; t < n; ++t)
+            if (q0_of(t) + kTile > 0 && q0_of(t) < L) break;
+          return t;
+        },
+        [&](int s, int t) {
+          unsigned char* st = stage_of(s);
+          const int q0 = q0_of(t);
+          stage_grad_rows<HD>(Q, HD, q0, 0, L, st);
+          stage_grad_rows<HD>(dctx + (size_t)b * L * HN + (size_t)h * HD, HN, q0, n_glob, L,
+                              st + Mm::kTileBytes);
+          float* sf = reinterpret_cast<float*>(st + 2 * Mm::kTileBytes);
+          stage_grad_stats(st0, q0, 0, L, sf);
+          stage_grad_stats(st0 + plane, q0, 0, L, sf + kTile);
+          stage_grad_stats(st0 + 2 * plane, q0, 0, L, sf + 2 * kTile);
+        },
+        [&](int s, int t) {
+          if (!live) return;
+          const bool gcol = t >= n_band;
+          const int q0 = q0_of(t);
+          const unsigned char* st = stage_of(s);
+          const float* m_s = reinterpret_cast<const float*>(st + 2 * Mm::kTileBytes);
+          const float* d_s = m_s + kTile;
+          const float* rs_s = d_s + kTile;
+          grad_tile_mma<HD>(
+              smem_addr(Ks), smem_addr(Vs), smem_addr(st), smem_addr(st + Mm::kTileBytes), lane,
+              [&](float sc, float dp, int hi, int col, float& pe) {
+                const int key = hi ? key_hi : key_lo, row = q0 + col;
+                const bool ok = row >= 0 && row < L &&
+                                (gcol ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid));
+                if (!ok) return 0.0f;
+                const bool keep = gcol
+                                      ? keep_prob_bits(seed, thr, b, h | kGlobalColStream, row, key)
+                                      : keep_prob_bits(seed, thr, b, h, row, key);
+                float ds;
+                sliding_score_grad<T>(sc, dp, m_s[col], d_s[col], rs_s[col], keep, keep_prob, ds,
+                                      pe);
+                return ds;
+              },
+              // dS of rows (row, row + 1) at key into the dq pass's tile of
+              // the row's query tile: the band tile that holds the key, or
+              // the global-column tile
+              [&](int hi, int col, float d0, float d1) {
+                const int key = hi ? key_hi : key_lo, row = q0 + col;
+                if (row < 0 || row >= L) return;
+                int t = nbt, kin = key;
+                if (!gcol) {
+                  const int off = key - (row - row % kTile) + C;
+                  if (off < 0 || off >= kTile * nbt) return;  // no band tile of the row's: masked
+                  t = off / kTile;
+                  kin = off % kTile;
+                }
+                T* dst = ds_out + sliding_ds_tiles(b * nh + h, row / kTile, L, C) +
+                         (size_t)t * kDsTile + kin * kTile + row % kTile;
+                *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(d0, d1);
+              },
+              dk, dv);
+        });
+    if (!live) return;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int l = hi ? key_hi : key_lo;
+      if (l >= L) continue;
+      T* out = dproj + ((size_t)b * L + l) * ld + (size_t)h * HD;
+      store_acc_row<HD>(dk, hi, out + HN, [](float v) { return v; });
+      store_acc_row<HD>(dv, hi, out + 2 * HN, [](float v) { return v; });
+    }
+    return;
+  } else {
   using G = Geometry<HD>;
-  extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + G::kTileFloats;
   float* Qs = Vs + G::kTileFloats;
@@ -273,6 +448,7 @@ __global__ void __launch_bounds__(kThreads)
       out[HN + tx + 16 * j] = from_f32<T>(dk[i][j]);
       out[2 * HN + tx + 16 * j] = from_f32<T>(dv[i][j]);
     }
+  }
   }
 }
 
@@ -394,11 +570,10 @@ cudaError_t sliding_train_bwd(const T* hidden, const int32_t* mask, const int32_
                               const float* bgq, const T* wgkv, const float* bgkv, const T* wo,
                               const T* w_all, const T* g, int32_t* counts, T* qkv_buf,
                               T* gkv_buf, T* ctx_buf, T* dctx_buf, float* stats, float* gstats,
-                              T* qg_buf, T* dproj, T* dx, float* dw_all, float* db_all,
-                              float* dwo, float* dbo, float* ws, size_t ws_floats,
+                              T* qg_buf, T* dproj, T* ds_buf, T* dx, float* dw_all,
+                              float* db_all, float* dwo, float* dbo, float* ws, size_t ws_floats,
                               int splits_proj, int splits_out, int B, int L, int H, int nh, int hd,
-                              int C,
-                              int G, int global_rows, float sm_scale, uint32_t thr,
+                              int C, int G, int global_rows, float sm_scale, uint32_t thr,
                               float keep_prob, cudaStream_t stream) {
   const int M = B * L, HN = nh * hd, ld = (global_rows ? 6 : 3) * HN;
   cudaError_t err = sliding_projections<T>(hidden, mask, glob, wqkv, bqkv, wgkv, bgkv, counts,
@@ -421,17 +596,24 @@ cudaError_t sliding_train_bwd(const T* hidden, const int32_t* mask, const int32_
   err = with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     const dim3 grid((L + kTile - 1) / kTile, nh, B);
-    auto dq = band_dq_kernel<T, HD>;
-    cudaError_t e = prepare(dq, dq_smem_bytes<HD>());
-    if (e != cudaSuccess) return e;
-    dq<<<grid, kThreads, dq_smem_bytes<HD>(), stream>>>(qkv_buf, counts, seed, dctx_buf, stats,
-                                                         dproj, B, L, nh, C, ld, sm_scale, thr,
-                                                         keep_prob);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    constexpr int threads = grad_threads<T>();
+    cudaError_t e = cudaSuccess;
+    if (ds_buf != nullptr && (C % kTile || L % kTile)) {  // bf16
+      // tiles that no block fills whole: what the dk/dv pass leaves stays zero
+      e = cudaMemsetAsync(ds_buf, 0, sliding_ds_tiles(B * nh, 0, L, C) * sizeof(T), stream);
+      if (e != cudaSuccess) return e;
+    }
     auto dkv = band_dkv_kernel<T, HD>;
-    if ((e = prepare(dkv, dkv_smem_bytes<HD>())) != cudaSuccess) return e;
-    dkv<<<grid, kThreads, dkv_smem_bytes<HD>(), stream>>>(qkv_buf, counts, seed, dctx_buf, stats,
-                                                           dproj, B, L, nh, C, ld, thr, keep_prob);
+    if ((e = prepare(dkv, dkv_smem_bytes<T, HD>())) != cudaSuccess) return e;
+    dkv<<<grid, threads, dkv_smem_bytes<T, HD>(), stream>>>(qkv_buf, counts, seed, dctx_buf,
+                                                             stats, ds_buf, dproj, B, L, nh, C, ld,
+                                                             thr, keep_prob);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    auto dq = band_dq_kernel<T, HD>;
+    if ((e = prepare(dq, dq_smem_bytes<T, HD>())) != cudaSuccess) return e;
+    dq<<<grid, threads, dq_smem_bytes<T, HD>(), stream>>>(qkv_buf, counts, seed, dctx_buf, stats,
+                                                           ds_buf, dproj, B, L, nh, C, ld,
+                                                           sm_scale, thr, keep_prob);
     if ((e = cudaGetLastError()) != cudaSuccess || !global_rows) return e;
     auto gkv = global_kv_grad_kernel<T, HD>;
     const size_t smem = gkv_smem_bytes<HD>(G);
@@ -491,7 +673,10 @@ __global__ void sliding_mask_kernel(const int32_t* __restrict__ seed_ptr, uint8_
 // gradients float32. wqkv (H, 3 nh hd), wgq (H, nh hd), wgkv (H, 2 nh hd),
 // wo (nh hd, H), w_all = [wqkv wg] (H, ld); dproj (B*L, ld) with ld = 6 nh hd
 // (3 nh hd without global rows), qg_buf (B, nh, G, hd). thr = 0 turns dropout
-// off (seed may then be null). Each entry returns the first CUDA error, or 0.
+// off (seed may then be null). ds_buf (bf16; null in float32) holds B nh
+// ceil(L / 64) (band_tiles(C) + 1) tiles of 64 x 64 dS that the dk/dv pass
+// writes and the dq pass reads. Each entry returns the first CUDA error, or
+// 0.
 extern "C" int spk_sliding_train_fwd(int dtype, const void* hidden, const void* mask,
                                      const void* glob, const void* seed, const void* wqkv,
                                      const void* bqkv, const void* wgq, const void* bgq,
@@ -526,7 +711,8 @@ extern "C" int spk_sliding_train_bwd(int dtype, const void* hidden, const void* 
                                      const void* w_all, const void* g, void* counts,
                                      void* qkv_buf, void* gkv_buf, void* ctx_buf, void* dctx_buf,
                                      void* stats, void* gstats, void* qg_buf, void* dproj,
-                                     void* dx, void* dw_all, void* db_all, void* dwo, void* dbo,
+                                     void* ds_buf, void* dx, void* dw_all, void* db_all,
+                                     void* dwo, void* dbo,
                                      void* ws, size_t ws_floats, int splits_proj, int splits_out,
                                      int B, int L, int H, int nh, int hd, int C, int G,
                                      int global_rows, float sm_scale, unsigned int thr,
@@ -542,7 +728,8 @@ extern "C" int spk_sliding_train_bwd(int dtype, const void* hidden, const void* 
     return spk::sliding_train_bwd<F>(
         c(hidden), i32(mask), i32(glob), i32(seed), c(wqkv), f32(bqkv), c(wgq), f32(bgq),
         c(wgkv), f32(bgkv), c(wo), c(w_all), c(g), static_cast<int32_t*>(counts), m(qkv_buf),
-        m(gkv_buf), m(ctx_buf), m(dctx_buf), mf(stats), mf(gstats), m(qg_buf), m(dproj), m(dx),
+        m(gkv_buf), m(ctx_buf), m(dctx_buf), mf(stats), mf(gstats), m(qg_buf), m(dproj),
+        m(ds_buf), m(dx),
         mf(dw_all), mf(db_all), mf(dwo), mf(dbo), mf(ws), ws_floats, splits_proj, splits_out, B,
         L, H, nh, hd, C, G, global_rows, sm_scale, thr, keep_prob, s);
   };

@@ -31,7 +31,9 @@ for bit, so parity with JAX runs at rate 0.
 
 ``bigbird_train_bwd_plain`` is the backward kernel written out, every
 product through ``train_blocks.backward_product`` (no model path runs it;
-the card checks hold the kernel's products to it).
+the card checks hold the kernel's products to it). ``bigbird_core_bwd_model``
+is the rounding model of its gradient kernels (the card checks hold the
+kernels' dproj to it element by element).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from spokennlp_tpu_torch.ops.cuda.bigbird_block import (
 from spokennlp_tpu_torch.ops.cuda.train_blocks import (
     _ptr, _stream, dropout_threshold, philox_bits, weight_grad_plan,
 )
+from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
 from spokennlp_tpu_torch.ops.cuda.train_sliding import (
     GLOBAL_COL_STREAM, GLOBAL_ROW_STREAM, _u32,
 )
@@ -112,30 +115,130 @@ def bigbird_train_plain(
 def bigbird_train_bwd_plain(
     hidden, attention_mask, qkv_kernel, qkv_bias, out_kernel, g, *, sm_scale: float,
     block_size: int, num_global_blocks: int, num_random_blocks: int, pattern_seed: int,
-    dropout_rate: float = 0.0, keep=None,
+    dropout_rate: float = 0.0, keep=None, model_core: bool = False,
 ):
     """The backward kernel written out: the projections recomputed and
     rounded to hidden's dtype, dctx = g Wo^T rounded, the core's gradient
     (autograd of ``bigbird_attend`` in float32) rounded, then
     ``train_blocks.projection_grads_plain`` on the rounded ctx. Returns (dx,
     dWqkv (H, 3 Hn), dbqkv, dWo (Hn, H), dbo) as ``bigbird_train_bwd`` does;
-    in float32 it is autograd of ``bigbird_train_plain``."""
+    in float32 it is autograd of ``bigbird_train_plain``. ``model_core``:
+    the core's gradient from ``bigbird_core_bwd_model`` instead, on q scaled
+    before it is rounded and a ctx with the kernels' rounded exponent, as the
+    kernels take them."""
     B, L, H = hidden.shape
     _, _, nh, hd = qkv_kernel.shape
     dt, M, HN = hidden.dtype, B * L, nh * hd
     x, g2 = hidden.reshape(M, H), g.reshape(M, H)
     wqkv, wo = qkv_kernel.reshape(H, 3 * HN), out_kernel.reshape(HN, H)
+    pattern = dict(block_size=block_size, num_global_blocks=num_global_blocks,
+                   num_random_blocks=num_random_blocks, seed=pattern_seed)
+    if model_core:
+        p = (tb.backward_product(x, wqkv) + qkv_bias.float().reshape(-1)).reshape(B, L, 3, nh, hd)
+        q, k, v = (p[:, :, 0] * sm_scale).to(dt), p[:, :, 1].to(dt), p[:, :, 2].to(dt)
+        dctx = tb.out_grad_plain(g2, wo)
+        ctx = bigbird_attend(q, k, v, attention_mask, **pattern, exp_dtype=dt,
+                             dropout_rate=dropout_rate, keep=keep).reshape(M, HN)
+        tables = bigbird_tables(L // block_size, num_global_blocks, num_random_blocks,
+                                pattern_seed, "cpu")
+        heads = lambda t: t.transpose(1, 2)
+        grads = bigbird_core_bwd_model(
+            heads(q), heads(k), heads(v), dctx.reshape(B, L, nh, hd),
+            (attention_mask > 0).sum(1), tables, block_size=block_size, sm_scale=sm_scale,
+            dropout_rate=dropout_rate, keep=keep)
+        dqkv = torch.stack(grads, dim=2).reshape(M, 3 * HN)
+        dx, *grads = tb.projection_grads_plain(x, g2, ctx.to(dt), dqkv, wqkv, wo)
+        return (dx.reshape(B, L, H), *grads)
     qkv = (tb.backward_product(x, wqkv) + qkv_bias.float().reshape(-1)).to(dt).float()
     with torch.enable_grad():
         qkv = qkv.requires_grad_()
         q, k, v = qkv.reshape(B, L, 3, nh, hd).unbind(2)
-        ctx = bigbird_attend(q * sm_scale, k, v, attention_mask, block_size=block_size,
-                             num_global_blocks=num_global_blocks,
-                             num_random_blocks=num_random_blocks, seed=pattern_seed,
+        ctx = bigbird_attend(q * sm_scale, k, v, attention_mask, **pattern,
                              dropout_rate=dropout_rate, keep=keep).reshape(M, HN)
         (dqkv,) = torch.autograd.grad(ctx, qkv, tb.out_grad_plain(g2, wo).float())
     dx, *grads = tb.projection_grads_plain(x, g2, ctx.detach().to(dt), dqkv.to(dt), wqkv, wo)
     return (dx.reshape(B, L, H), *grads)
+
+
+# ------------------------------------------------- the gradient kernels' model
+
+WINDOW, GLOBAL_COLUMN, RANDOM, GLOBAL_ROW = 1, 2, 3, 4  # the pieces of bigbird_model_regions
+
+
+def bigbird_model_regions(L: int, C: int, G: int, R: int, rand: np.ndarray,
+                          rok: np.ndarray) -> np.ndarray:
+    """(L, L) int8: the piece through which each row reaches each key
+    (WINDOW, GLOBAL_COLUMN, RANDOM or GLOBAL_ROW; 0 for none), before the
+    real-key mask."""
+    blk = np.arange(L) // C
+    rows, keys = blk[:, None], blk[None, :]
+    reg = np.zeros((L, L), np.int8)
+    local = rows >= G
+    reg[local & (np.abs(keys - rows) <= 1) & (keys >= G)] = WINDOW
+    reg[local & (keys < G)] = GLOBAL_COLUMN
+    for i in range(G, L // C):
+        for r in range(R):
+            if rok[i, r]:
+                j = int(rand[i, r])
+                reg[i * C:(i + 1) * C, j * C:(j + 1) * C] = RANDOM
+    reg[:G * C] = GLOBAL_ROW
+    return reg
+
+
+def bigbird_core_bwd_model(q, k, v, dctx, n_valid, tables, *, block_size: int, sm_scale: float,
+                           stats=None, dropout_rate: float = 0.0, keep=None):
+    """The rounding model of the BigBird backward's gradient kernels
+    (bigbird_dq_kernel, bigbird_dkv_kernel), from the kernels' own q
+    (scaled), k, v (B, nh, L, hd), dctx (B, L, nh, hd), n_valid (B,), the
+    pattern's ``bigbird_tables``, the row statistics stats (3, B, nh, L)
+    (None: taken here) and the four keep masks of ``bigbird_keep_masks``.
+    Dense over a sequence's keys with float32 sums and no tiles; rounds
+    where the kernels round (``train_sliding.dense_core_grad``; dq before
+    and after the scale, dk and dv once). Returns (dq, dk, dv), each (B, L,
+    nh, hd) in q's dtype."""
+    dt, dev = q.dtype, q.device
+    B, nh, L, hd = q.shape
+    C, G, R, kp = block_size, tables.G, tables.R, 1.0 - dropout_rate
+    rand, rok = tables.rand.cpu().numpy(), tables.rok.cpu().numpy()
+    reg = torch.from_numpy(bigbird_model_regions(L, C, G, R, rand, rok)).to(dev)
+    GC, tr = G * C, lambda t: t.transpose(-1, -2)
+    outs = [torch.zeros(B, nh, L, hd, device=dev) for _ in range(3)]
+    for b in range(B):
+        allowed = (reg > 0) & (torch.arange(L, device=dev) < int(n_valid[b]))[None]
+        kd = None
+        if keep is not None:
+            win, gcol, rnd, grow = (m[b] for m in keep)
+            kd = ts.dense_band_keep(win, L, C) & (reg == WINDOW)
+            kd[:, :, :GC] |= gcol & (reg[:, :GC] == GLOBAL_COLUMN)
+            for i in range(G, L // C):
+                for r in range(R):
+                    if rok[i, r]:
+                        j = int(rand[i, r])
+                        kd[:, i * C:(i + 1) * C, j * C:(j + 1) * C] = rnd[:, i * C:(i + 1) * C,
+                                                                          r * C:(r + 1) * C]
+            kd[:, :GC] = grow
+        qb, kb, vb = (t[b].float() for t in (q, k, v))
+        dc = dctx[b].float().transpose(0, 1)
+        ds, pe = ts.dense_core_grad(qb @ tr(kb), dc @ tr(vb), allowed, kd,
+                                    None if stats is None else stats[:, b], dt, kp)
+        outs[0][b] = ts._rounded(ts._rounded(ds @ kb, dt) * sm_scale, dt)
+        outs[1][b] = ts._rounded(tr(ds) @ qb, dt)
+        outs[2][b] = ts._rounded(tr(pe) @ dc, dt)
+    return tuple(o.transpose(1, 2).to(dt) for o in outs)
+
+
+def bigbird_core_model_dproj(buffers: dict, tables, *, block_size: int, sm_scale: float,
+                             dropout_rate: float = 0.0, keep=None) -> torch.Tensor:
+    """The model's [dq dk dv] (B*L, 3 Hn) on the intermediates that
+    ``bigbird_train_bwd`` put into ``buffers``: the layout of the kernel's
+    dproj."""
+    qkv = buffers["qkv"]
+    B, nh, L, hd = qkv.shape[1:]
+    grads = bigbird_core_bwd_model(
+        qkv[0], qkv[1], qkv[2], buffers["dctx"].reshape(B, L, nh, hd),
+        buffers["counts"].long()[:, 0], tables, block_size=block_size, sm_scale=sm_scale,
+        stats=buffers["stats"], dropout_rate=dropout_rate, keep=keep)
+    return torch.stack(grads, dim=2).reshape(B * L, -1)
 
 
 # ------------------------------------------------------------ kernel calls
@@ -168,14 +271,27 @@ def bigbird_train_fwd(hidden, mask, seed, w, bo, tables, *, num_heads: int, bloc
     return out
 
 
+def bigbird_ds_elements(B: int, nh: int, L: int, block_size: int, G: int, R: int) -> int:
+    """bf16 elements of the dS tiles that the bf16 backward's dk/dv pass
+    writes once for its dq pass: a (64, 64) tile for each key tile that a
+    64-row query tile visits, ceil(L / 64) for the global rows' query tiles
+    and (3 + G + R) S for the others (csrc/train_bigbird.cu
+    bigbird_ds_tile)."""
+    S, nb = -(-block_size // 64), L // block_size
+    return B * nh * (G * S * -(-L // 64) + (nb - G) * S * (3 + G + R) * S) * 64 * 64
+
+
 def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block_size: int,
                       sm_scale: float, dropout_rate: float, buffers: dict = None):
     """Backward kernel: recomputes the forward from its inputs and returns
     (dx in the compute dtype, dWqkv (H, 3 Hn), dbqkv (3 Hn,), dWo (Hn, H),
     dbo (H,) in float32, summed over the batch). A ``buffers`` dict receives
     the intermediates its products read: ctx and dctx (M, Hn), dproj = [dq
-    dk dv] (M, 3 Hn) and w_all = Wqkv (H, 3 Hn). ``bigbird_train_bwd.
-    launches`` counts its launches."""
+    dk dv] (M, 3 Hn) and w_all = Wqkv (H, 3 Hn); and those its gradient
+    kernels read: qkv (3, B, nh, L, hd), the row statistics stats (3, B, nh,
+    L) and counts (B, 2) (``bigbird_core_model_dproj``). In bf16 the dk/dv
+    pass stores dS in a buffer of ``bigbird_ds_elements`` for the dq pass.
+    ``bigbird_train_bwd.launches`` counts its launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
     hd = HN // num_heads
@@ -184,6 +300,8 @@ def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block
     empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
     bufs = (empty(B, 2, dtype=torch.int32), empty(3, B, num_heads, L, hd), empty(B, L, HN),
             empty(B, L, HN), empty(3, B, num_heads, L, dtype=f32), empty(B * L, 3 * HN))
+    ds = (empty(bigbird_ds_elements(B, num_heads, L, block_size, tables.G, tables.R))
+          if dt == torch.bfloat16 else None)
     dx = torch.empty_like(hidden)
     dwqkv, dbqkv = empty(H, 3 * HN, dtype=f32), empty(3 * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
@@ -192,7 +310,7 @@ def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block
         code = build.library().spk_bigbird_train_bwd(
             _DTYPES[dt], *(_ptr(t) for t in (hidden, mask, tables.rand, tables.rok,
                                               tables.inv_offsets, tables.inv_entries, seed,
-                                              w["wqkv"], w["bqkv"], w["wo"], g, *bufs, dx,
+                                              w["wqkv"], w["bqkv"], w["wo"], g, *bufs, ds, dx,
                                               dwqkv, dbqkv, dwo, dbo, ws)),
             floats, *splits, B, L, H, num_heads, hd, block_size, tables.G, tables.R,
             float(sm_scale), dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
@@ -201,7 +319,8 @@ def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block
     bigbird_train_bwd.launches += 1
     if buffers is not None:
         buffers.update(ctx=bufs[2].reshape(B * L, HN), dctx=bufs[3].reshape(B * L, HN),
-                       dproj=bufs[5], w_all=w["wqkv"])
+                       dproj=bufs[5], w_all=w["wqkv"], qkv=bufs[1], stats=bufs[4],
+                       counts=bufs[0])
     return dx, dwqkv, dbqkv, dwo, dbo
 
 

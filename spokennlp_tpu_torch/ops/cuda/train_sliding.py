@@ -30,7 +30,10 @@ for bit, so parity with JAX runs at rate 0.
 
 ``sliding_train_bwd_plain`` is the backward kernel written out, every
 product through ``train_blocks.backward_product`` (no model path runs it;
-the card checks hold the kernel's products to it).
+the card checks hold the kernel's products to it). ``sliding_core_bwd_model``
+is the rounding model of its gradient kernels: dense over a sequence's
+keys, float32 sums, rounded where the kernels round (the card checks hold
+the kernels' dproj to it element by element).
 """
 
 from __future__ import annotations
@@ -108,7 +111,7 @@ def sliding_train_plain(
 def sliding_train_bwd_plain(
     hidden, attention_mask, global_mask, qkv_kernel, qkv_bias, gqkv_kernel, gqkv_bias,
     out_kernel, g, *, sm_scale: float, window: int, max_globals: int = 16,
-    global_rows: bool = True, dropout_rate: float = 0.0, keep=None,
+    global_rows: bool = True, dropout_rate: float = 0.0, keep=None, model_core: bool = False,
 ):
     """The backward kernel written out: the projections [q k v qg kg vg]
     recomputed (qg of every row; the core reads the first G) and rounded to
@@ -117,7 +120,10 @@ def sliding_train_bwd_plain(
     ``train_blocks.projection_grads_plain`` on the rounded ctx. Returns (dx,
     dWqkv, dbqkv, dWg, dbg, dWo, dbo) as ``sliding_train_bwd`` does (dWg and
     dbg zero without global rows); in float32 it is autograd of
-    ``sliding_train_plain``."""
+    ``sliding_train_plain``. ``model_core``: the core's gradient from
+    ``sliding_core_bwd_model`` instead, on q and qg scaled before they are
+    rounded and a ctx with the kernels' rounded exponent, as the kernels
+    take them."""
     B, L, H = hidden.shape
     _, _, nh, hd = qkv_kernel.shape
     dt, M, HN = hidden.dtype, B * L, nh * hd
@@ -128,6 +134,11 @@ def sliding_train_bwd_plain(
         kernels, biases = [qkv_kernel, gqkv_kernel], [qkv_bias, gqkv_bias]
     w_all = torch.cat([k.reshape(H, 3 * HN) for k in kernels], dim=1)
     b_all = torch.cat([b.float().reshape(-1) for b in biases])
+    if model_core:
+        return _bwd_plain_model_core(x, g2, w_all, b_all, wo, attention_mask, global_mask,
+                                     B, L, nh, hd, G, sm_scale=sm_scale, window=window,
+                                     global_rows=global_rows, dropout_rate=dropout_rate,
+                                     keep=keep)
     proj = (tb.backward_product(x, w_all) + b_all).to(dt).float()
     with torch.enable_grad():
         proj = proj.requires_grad_()
@@ -140,11 +151,169 @@ def sliding_train_bwd_plain(
         (dproj,) = torch.autograd.grad(ctx, proj, tb.out_grad_plain(g2, wo).float())
     dx, dw_all, db_all, dwo, dbo = tb.projection_grads_plain(
         x, g2, ctx.detach().to(dt), dproj.to(dt), w_all, wo)
+    return _split_grads(B, L, H, HN, global_rows, dx, dw_all, db_all, dwo, dbo)
+
+
+def _split_grads(B, L, H, HN, global_rows, dx, dw_all, db_all, dwo, dbo):
     if global_rows:
         dwg, dbg = dw_all[:, 3 * HN:], db_all[3 * HN:]
     else:
         dwg, dbg = torch.zeros_like(dw_all), torch.zeros_like(db_all)
     return (dx.reshape(B, L, H), dw_all[:, :3 * HN], db_all[:3 * HN], dwg, dbg, dwo, dbo)
+
+
+def _bwd_plain_model_core(x, g2, w_all, b_all, wo, attention_mask, global_mask, B, L, nh, hd, G,
+                          *, sm_scale, window, global_rows, dropout_rate, keep):
+    """``sliding_train_bwd_plain`` with the core's gradient from the rounding
+    model."""
+    dt, M, HN, H = x.dtype, B * L, nh * hd, x.shape[1]
+    p = (tb.backward_product(x, w_all) + b_all).reshape(B, L, -1, nh, hd)
+    q, k, v = (p[:, :, 0] * sm_scale).to(dt), p[:, :, 1].to(dt), p[:, :, 2].to(dt)
+    glob_qkv = None
+    if global_rows:
+        glob_qkv = ((p[:, :G, 3] * sm_scale).to(dt), p[:, :, 4].to(dt), p[:, :, 5].to(dt))
+    counts = _counts(attention_mask, global_mask, G, global_rows)
+    dctx = tb.out_grad_plain(g2, wo)
+    ctx = sliding_attend(q, k, v, glob_qkv, *counts, window=window, G=G, exp_dtype=dt,
+                         dropout_rate=dropout_rate, keep=keep).reshape(M, HN)
+    heads = lambda t: t.transpose(1, 2)  # (B, L, nh, hd) -> the kernels' (B, nh, L, hd)
+    grads = sliding_core_bwd_model(
+        heads(q), heads(k), heads(v), None if glob_qkv is None else tuple(map(heads, glob_qkv)),
+        dctx.reshape(B, L, nh, hd), *counts, window=window, sm_scale=sm_scale,
+        dropout_rate=dropout_rate, keep=keep)
+    dproj = torch.stack(grads, dim=2).reshape(M, -1)
+    dx, dw_all, db_all, dwo, dbo = tb.projection_grads_plain(x, g2, ctx.to(dt), dproj, w_all, wo)
+    return _split_grads(B, L, H, HN, global_rows, dx, dw_all, db_all, dwo, dbo)
+
+
+# ------------------------------------------------- the gradient kernels' model
+
+
+def round_ds(ds: torch.Tensor, dt) -> torch.Tensor:
+    """dS rounded to the compute dtype, where the gradient kernels round it
+    (a planted fault of the card gate replaces it)."""
+    return ds.to(dt).float()
+
+
+def round_p_eff(p_eff: torch.Tensor, dt) -> torch.Tensor:
+    """p_eff rounded to the compute dtype for dv += p_eff^T dctx (a planted
+    fault of the card gate replaces it)."""
+    return p_eff.to(dt).float()
+
+
+def _rounded(x: torch.Tensor, dt) -> torch.Tensor:
+    return x.to(dt).float()
+
+
+def dense_core_grad(s, dp, allowed, keep, stats, dt, keep_prob: float):
+    """The softmax-with-dropout gradient of the training kernels on dense
+    (..., rows, keys) float32 scores s and dp = dctx v^T: e = exp(s - m)
+    with s - m and e rounded to dt, p_eff = e / (D keep_prob) where kept,
+    dS = round(p_eff dp - (e / D) rowsum(dp p_eff)); zero where not
+    ``allowed``. ``stats`` = (m, D, rowsum(dp p_eff)) (..., rows), the
+    kernels' own, or None: taken here in float32 as the statistics pass
+    takes them. ``keep`` bool or None (dropout off). Returns (dS, p_eff
+    rounded for dv), float32 tensors of dt values."""
+    kept = allowed if keep is None else allowed & keep
+    if stats is None:
+        m = torch.where(allowed, s, -torch.inf).amax(-1)
+        e = torch.where(allowed, _rounded(torch.exp(_rounded(s - m[..., None], dt)), dt), 0.0)
+        D = e.sum(-1)
+        rs = (torch.where(kept, e, 0.0) * dp).sum(-1) / (D * keep_prob)
+    else:
+        m, D, rs = stats
+    m, D, rs = m[..., None], D[..., None], rs[..., None]
+    e = _rounded(torch.exp(_rounded(s - m, dt)), dt)
+    p_eff = torch.where(kept, e / (D * keep_prob), 0.0)
+    ds = torch.where(allowed, round_ds(p_eff * dp - (e / D) * rs, dt), 0.0)
+    return ds, torch.where(allowed, round_p_eff(p_eff, dt), 0.0)
+
+
+def dense_band_keep(band: torch.Tensor, L: int, C: int) -> torch.Tensor:
+    """A band keep mask (..., L / C, C, 3C) (entry (i, ci, cj): row i C + ci
+    against key i C - C + cj) as a dense (..., L, L) one."""
+    nc, dev = L // C, band.device
+    i, ci, cj = (torch.arange(n, device=dev) for n in (nc, C, 3 * C))
+    rows = (i[:, None, None] * C + ci[None, :, None]).expand(nc, C, 3 * C)
+    keys = (i[:, None, None] * C - C + cj[None, None, :]).expand(nc, C, 3 * C)
+    ok = (keys >= 0) & (keys < L)
+    out = torch.zeros(*band.shape[:-3], L, L, dtype=torch.bool, device=dev)
+    out[..., rows[ok], keys[ok]] = band[..., ok]
+    return out
+
+
+def sliding_model_allowed(L: int, C: int, n_valid: int, n_glob: int, device) -> torch.Tensor:
+    """(L, L) bool: the keys a local row reaches, its band's real non-global
+    keys and the global columns (keys < n_glob)."""
+    r = torch.arange(L, device=device)
+    d = r[None] - r[:, None]
+    band = (d.abs() <= C) & (r[None] >= n_glob) & (r[None] < n_valid)
+    return band | (r[None] < n_glob)
+
+
+def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: int,
+                           sm_scale: float, stats=None, gstats=None, dropout_rate: float = 0.0,
+                           keep=None):
+    """The rounding model of the Longformer backward's gradient kernels
+    (band_dq_kernel, band_dkv_kernel, global_kv_grad_kernel) and of the
+    global rows' dq (global_rows_kernel), from the kernels' own q (scaled),
+    k, v (B, nh, L, hd), glob_qkv = (qg (B, nh, G, hd) scaled, kg, vg (B,
+    nh, L, hd)) or None, dctx (B, L, nh, hd), the counts n_valid, n_glob
+    (B,), the row statistics stats (3, B, nh, L) and gstats (3, B, nh, G)
+    (None: taken here) and the keep masks of ``sliding_keep_masks``. Dense
+    over a sequence's keys with float32 sums and no tiles; rounds where the
+    kernels round (``dense_core_grad``; dq before and after the scale, the
+    global rows' dq after it, dk and dv once). The banded rows' cotangent is
+    zero on global rows. Returns (dq, dk, dv) and with glob_qkv (dqg, dkg,
+    dvg), each (B, L, nh, hd) in q's dtype (dqg zero beyond the global
+    rows)."""
+    dt, dev = q.dtype, q.device
+    B, nh, L, hd = q.shape
+    C, kp = window // 2, 1.0 - dropout_rate
+    outs = [torch.zeros(B, nh, L, hd, device=dev) for _ in range(3 if glob_qkv is None else 6)]
+    tr = lambda t: t.transpose(-1, -2)
+    for b in range(B):
+        nv, ng = int(n_valid[b]), int(n_glob[b])
+        qb, kb, vb = (t[b].float() for t in (q, k, v))
+        dc = dctx[b].float().transpose(0, 1)  # (nh, L, hd)
+        dcl = dc.clone()
+        dcl[:, :ng] = 0.0
+        kd = None
+        if keep is not None:
+            kd = dense_band_keep(keep[0][b], L, C)
+            kd[:, :, :ng] = keep[1][b][:, :, :ng]
+        ds, pe = dense_core_grad(qb @ tr(kb), dcl @ tr(vb), sliding_model_allowed(L, C, nv, ng, dev),
+                                 kd, None if stats is None else stats[:, b], dt, kp)
+        outs[0][b] = _rounded(_rounded(ds @ kb, dt) * sm_scale, dt)
+        outs[1][b] = _rounded(tr(ds) @ qb, dt)
+        outs[2][b] = _rounded(tr(pe) @ dcl, dt)
+        if glob_qkv is None or ng == 0:
+            continue
+        qg, kg, vg = (t[b].float() for t in glob_qkv)
+        qg = qg[:, :ng]
+        allowed = (torch.arange(L, device=dev) < nv)[None].expand(ng, L)
+        ds, pe = dense_core_grad(qg @ tr(kg), dc[:, :ng] @ tr(vg), allowed,
+                                 None if keep is None else keep[2][b][:, :ng],
+                                 None if gstats is None else gstats[:, b, :, :ng], dt, kp)
+        outs[3][b, :, :ng] = _rounded(ds @ kg * sm_scale, dt)
+        outs[4][b] = _rounded(tr(ds) @ qg, dt)
+        outs[5][b] = _rounded(tr(pe) @ dc[:, :ng], dt)
+    return tuple(o.transpose(1, 2).to(dt) for o in outs)
+
+
+def sliding_core_model_dproj(buffers: dict, *, window: int, sm_scale: float,
+                             dropout_rate: float = 0.0, keep=None) -> torch.Tensor:
+    """The model's [dq dk dv (dqg dkg dvg)] (B*L, ld) on the intermediates
+    that ``sliding_train_bwd`` put into ``buffers``: the layout of the
+    kernel's dproj."""
+    qkv, gkv, counts = buffers["qkv"], buffers["gkv"], buffers["counts"].long()
+    B, nh, L, hd = qkv.shape[1:]
+    glob_qkv = None if gkv is None else (buffers["qg"], gkv[0], gkv[1])
+    grads = sliding_core_bwd_model(
+        qkv[0], qkv[1], qkv[2], glob_qkv, buffers["dctx"].reshape(B, L, nh, hd), counts[:, 0],
+        counts[:, 1], window=window, sm_scale=sm_scale, stats=buffers["stats"],
+        gstats=buffers["gstats"], dropout_rate=dropout_rate, keep=keep)
+    return torch.stack(grads, dim=2).reshape(B * L, -1)
 
 
 # ------------------------------------------------------------ kernel calls
@@ -180,6 +349,15 @@ def sliding_train_fwd(hidden, mask, glob, seed, w, bo, *, num_heads: int, window
     return out
 
 
+def sliding_ds_elements(B: int, nh: int, L: int, window: int) -> int:
+    """bf16 elements of the dS tiles that the bf16 backward's dk/dv pass
+    writes once for its dq pass: a (64, 64) tile for each of the
+    band_tiles(C) band tiles and the global-column tile of every 64-row query
+    tile (csrc/train_sliding.cu sliding_ds_tiles)."""
+    band_tiles = (64 + 2 * (window // 2) + 63) // 64
+    return B * nh * -(-L // 64) * (band_tiles + 1) * 64 * 64
+
+
 def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window: int,
                       max_globals: int, global_rows: bool, sm_scale: float,
                       dropout_rate: float, buffers: dict = None):
@@ -189,8 +367,12 @@ def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window:
     dWg and dbg are zero without global rows). A ``buffers`` dict receives
     the intermediates its products read: ctx and dctx (M, Hn), dproj = [dq
     dk dv dqg dkg dvg] (M, ld) and w_all = [Wqkv Wg] (H, ld), ld = 6 Hn (3
-    Hn without global rows). ``sliding_train_bwd.launches`` counts its
-    launches."""
+    Hn without global rows); and those its gradient kernels read: qkv (3, B,
+    nh, L, hd), gkv (2, B, nh, L, hd), qg (B, nh, G, hd) (None without global
+    rows), the row statistics stats (3, B, nh, L) and gstats (3, B, nh, G)
+    and counts (B, 2) (``sliding_core_model_dproj``). In bf16 the dk/dv
+    pass stores dS in a buffer of ``sliding_ds_elements`` for the dq pass.
+    ``sliding_train_bwd.launches`` counts its launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
     hd = HN // num_heads
@@ -210,6 +392,7 @@ def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window:
         gstats=empty(3, B, num_heads, G, dtype=f32) if global_rows else None,
         qg=empty(B, num_heads, G, hd) if global_rows else None, dproj=empty(B * L, slots * HN),
     )
+    ds = empty(sliding_ds_elements(B, num_heads, L, window)) if dt == torch.bfloat16 else None
     dx = torch.empty_like(hidden)
     dw_all, db_all = empty(H, slots * HN, dtype=f32), empty(slots * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
@@ -218,8 +401,8 @@ def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window:
         code = build.library().spk_sliding_train_bwd(
             _DTYPES[dt], *(_ptr(t) for t in (hidden, mask, glob, seed, w["wqkv"], w["bqkv"],
                                               w["wgq"], w["bgq"], w["wgkv"], w["bgkv"], w["wo"],
-                                              w_all, g, *bufs.values(), dx, dw_all, db_all, dwo,
-                                              dbo, ws)),
+                                              w_all, g, *bufs.values(), ds, dx, dw_all, db_all,
+                                              dwo, dbo, ws)),
             floats, *splits, B, L, H, num_heads, hd, window // 2, G, int(global_rows),
             float(sm_scale), dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream(),
         )
@@ -227,11 +410,10 @@ def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window:
     sliding_train_bwd.launches += 1
     if buffers is not None:
         buffers.update(ctx=bufs["ctx"].reshape(B * L, HN), dctx=bufs["dctx"].reshape(B * L, HN),
-                       dproj=bufs["dproj"], w_all=w_all)
-    dwg, dbg = dw_all[:, 3 * HN:], db_all[3 * HN:]
-    if not global_rows:
-        dwg, dbg = torch.zeros_like(dw_all), torch.zeros_like(db_all)
-    return dx, dw_all[:, : 3 * HN], db_all[: 3 * HN], dwg, dbg, dwo, dbo
+                       dproj=bufs["dproj"], w_all=w_all, qkv=bufs["qkv"], gkv=bufs["gkv"],
+                       qg=bufs["qg"], stats=bufs["stats"], gstats=bufs["gstats"],
+                       counts=bufs["counts"])
+    return _split_grads(B, L, H, HN, global_rows, dx, dw_all, db_all, dwo, dbo)
 
 
 for _fn in (sliding_train_fwd, sliding_train_bwd):

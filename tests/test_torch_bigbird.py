@@ -18,6 +18,9 @@ JAX kernel rounds q, k, v, the probabilities and ctx to bf16 (unit roundoff
 output. Only real rows are compared where a row may have no allowed key.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,9 @@ BF16_RTOL = 3e-2
 # kernels 8 and 13 in chip_smoke.py (PERF.md: 2.2e-7 to 5.5e-6), about ten
 # times the largest
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the gradient kernels' card limit)
 
 B, H, NH, BLOCK, G, R = 2, 32, 2, 8, 2, 3
 HD = H // NH
@@ -238,6 +244,92 @@ def test_bigbird_explicit_backward_matches_jax_kernel_vjp():
                                    err_msg=name)
 
 
+# ------------------------------------- the gradient kernels' rounding model
+
+
+@pytest.mark.parametrize("rate,r", [(0.0, 3), (0.1, 3), (0.1, 0)])
+def test_core_bwd_model_matches_autograd_in_float32(rate, r):
+    """bigbird_core_bwd_model in float32, where its roundings are exact and
+    the statistics are its own, against autograd of bigbird_attend at L=128
+    in blocks of 16 (one padded row): dq, dk, dv to 1e-5 of their largest
+    magnitude."""
+    Lm, C, nh, hd = 128, 16, 2, 16
+    sm = hd**-0.5
+    rng = np.random.default_rng(22 + r)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    n_valid = torch.tensor([Lm, 70])
+    mask = (torch.arange(Lm)[None] < n_valid[:, None]).int()
+    q, k, v = (f(2, Lm, nh, hd).requires_grad_() for _ in range(3))
+    dctx = f(2, Lm, nh, hd) * mask[..., None, None]
+    tables = ba.bigbird_tables(Lm // C, G, r, 4, "cpu")
+    keep = (tb.bigbird_keep_masks(torch.tensor([6], dtype=torch.int32), 2, nh, Lm, C, tables.G,
+                                  tables.R, rate) if rate else None)
+    ctx = bb.bigbird_attend(q * sm, k, v, mask, block_size=C, num_global_blocks=G,
+                            num_random_blocks=r, seed=4, dropout_rate=rate, keep=keep)
+    want = torch.autograd.grad(ctx, [q, k, v], dctx)
+    heads = lambda t: t.detach().transpose(1, 2)
+    got = tb.bigbird_core_bwd_model(heads(q) * sm, heads(k), heads(v), dctx, n_valid, tables,
+                                    block_size=C, sm_scale=sm, dropout_rate=rate, keep=keep)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * w.abs().max().item(), err_msg=name)
+
+
+@pytest.mark.parametrize("fault", chip_smoke.BWD_CORE_FAULTS)
+def test_core_gate_rejects_the_planted_faults(fault):
+    """chip_smoke's limits of the gradient kernels (BWD_CORE_TOL) reject each
+    planted fault of the rounding model: in bf16 at L=256 in blocks of 32 (2
+    global, 3 random), rate 0.1, the model with the fault read against the
+    model."""
+    Lm, C, nh, hd = 256, 32, 2, 64
+    sm = hd**-0.5
+    rng = np.random.default_rng(24)
+    f = lambda *s, scale=1.0: torch.from_numpy(rng.normal(size=s).astype(np.float32) * scale)
+    n_valid = torch.tensor([Lm, 200])
+    q, k, v = (f(2, nh, Lm, hd, scale=sc).to(torch.bfloat16) for sc in (sm, 1.0, 1.0))
+    dctx = (f(2, Lm, nh, hd) * (torch.arange(Lm)[None] < n_valid[:, None])[..., None, None])
+    tables = ba.bigbird_tables(Lm // C, G, R, 4, "cpu")
+    keep = tb.bigbird_keep_masks(torch.tensor([5], dtype=torch.int32), 2, nh, Lm, C, tables.G,
+                                 tables.R, 0.1)
+    model = lambda: torch.stack(tb.bigbird_core_bwd_model(
+        q, k, v, dctx.to(torch.bfloat16), n_valid, tables, block_size=C, sm_scale=sm,
+        dropout_rate=0.1, keep=keep), dim=2).reshape(2 * Lm, -1)
+    want = model()
+    with chip_smoke.planted(chip_smoke.core_bwd_faults("bigbird_train_bwd")[fault]):
+        bad = model()
+    tol = chip_smoke.BWD_CORE_TOL["bigbird_train_bwd"]
+    assert chip_smoke.core_bwd_excess(chip_smoke.core_bwd_readings(want, bad, nh * hd), tol) > 1
+    assert chip_smoke.core_bwd_excess(chip_smoke.core_bwd_readings(want, want, nh * hd), tol) == 0
+
+
+def test_explicit_backward_with_model_core_matches_jax_kernel_vjp_in_bf16():
+    """bf16: the explicit plain backward with its core's gradient from the
+    rounding model against the TPU kernel's custom VJP in interpret mode,
+    both in bf16, to BF16_RTOL of each gradient's largest magnitude."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_bigbird import bigbird_attention_block_train as jt
+
+    inp = _inputs(B, 64, H, NH, seed=14, n_valid=50)
+    kw = dict(block_size=BLOCK, num_global_blocks=G, num_random_blocks=R, pattern_seed=4)
+    mask = jnp.asarray(inp["attention_mask"])
+    bf16 = lambda k: jnp.asarray(inp[k]).astype(jnp.bfloat16 if k == "hidden" else jnp.float32)
+    _, vjp = jax.vjp(lambda h, *p: jt(h, mask, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                      dropout_rate=0.0, interpret=True, **kw),
+                     *(bf16(k) for k in ARGS))
+    want = vjp(jnp.asarray(inp["cotangent"]).astype(jnp.bfloat16))
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    got = tb.bigbird_train_bwd_plain(
+        t["hidden"].bfloat16(), t["attention_mask"], *(t[k] for k in ARGS[1:4]),
+        t["cotangent"].bfloat16(), sm_scale=HD**-0.5, model_core=True, **kw)
+    assert got[0].dtype == torch.bfloat16
+    for name, g, w in zip(ARGS, got, want):
+        w = np.asarray(w.astype(jnp.float32)).reshape(g.shape)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=BF16_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
+
+
 # ------------------------------------------------------------------ dropout
 
 
@@ -410,3 +502,39 @@ def test_keep_masks_on_card_match_numpy(cuda):
     got = tb.bigbird_keep_masks(seed.to(cuda), 2, 3, 128, 16, 2, 3, 0.25)
     for w, g in zip(want, got):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,C,r,nv", CARD_SHAPES + SLICE_SHAPES[1:])
+def test_bigbird_gradient_kernels_match_rounding_model_on_card(cuda, rate, Bc, Lc, Hc, nh, C, r,
+                                                                nv):
+    """bf16: the gradient kernels' dproj against bigbird_core_bwd_model on the
+    kernel's own intermediates, within chip_smoke.BWD_CORE_TOL element by
+    element and in norm in each slot; two runs give the same bits; each
+    planted fault of the model fails the limits."""
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + C + 3, n_valid=nv)
+    t = _card_tensors(inp, cuda, torch.bfloat16)
+    hd = Hc // nh
+    w = bb.card_weights(t["qkv_kernel"], t["qkv_bias"], t["out_kernel"], torch.bfloat16)
+    seed = torch.tensor([9], dtype=torch.int32, device=cuda)
+    tables = ba.bigbird_tables(Lc // C, 2, r, 6, cuda)
+    runs = [{}, {}]
+    for bufs in runs:
+        tb.bigbird_train_bwd(t["hidden"], t["attention_mask"], seed, w,
+                             t["cotangent"].to(torch.bfloat16), tables, num_heads=nh,
+                             block_size=C, sm_scale=hd**-0.5, dropout_rate=rate, buffers=bufs)
+    keep = (tb.bigbird_keep_masks(seed, Bc, nh, Lc, C, tables.G, tables.R, rate)
+            if rate else None)
+    model = lambda: tb.bigbird_core_model_dproj(runs[0], tables, block_size=C,
+                                                sm_scale=hd**-0.5, dropout_rate=rate, keep=keep)
+    readings = chip_smoke.core_bwd_readings(runs[0]["dproj"], model(), nh * hd)
+    print(f"{Bc}x{Lc} hd {hd} block {C} R {r} rate {rate}: {readings}")
+    tol = chip_smoke.BWD_CORE_TOL["bigbird_train_bwd"]
+    assert chip_smoke.core_bwd_excess(readings, tol) <= 1, readings
+    assert torch.equal(runs[0]["dproj"], runs[1]["dproj"])
+    for fault, patches in chip_smoke.core_bwd_faults("bigbird_train_bwd").items():
+        with chip_smoke.planted(patches):
+            bad = chip_smoke.core_bwd_readings(runs[0]["dproj"], model(), nh * hd)
+        print(f"  {fault}: {bad}")
+        assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)

@@ -529,6 +529,14 @@ def test_sass_verdict_on_canned_counts():
         f"{stack}19stack_gemm_act_itemEPK{bf}": [0, 0, 32],
         f"{stack}22stack_residual_ln_itemEPK{bf}": [0, 0, 16],
         f"{ns}17global_rows_kernelI{bf}Li64EEEvPKT_": [0, 2, 0],
+        f"{stack}14band_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
+        f"{stack}14band_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
+        f"{stack}15band_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}17bigbird_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
+        f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}18bigbird_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
+        f"{stack}18bigbird_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
     }
     assert chip_smoke.sass_verdict(good) == []
 
@@ -551,9 +559,13 @@ def test_sass_verdict_on_canned_counts():
     assert with_counts(f"{stack}19act_and_grad_kernelIfEEvPKT_", [0, 0, 8])
     assert with_counts(f"{stack}20encoder_stack_kernelIfLi64EEEvNS0_9StackArgsE", [0, 0, 8])
     assert with_counts(f"{stack}19stack_gemm_act_itemEPK{bf}", [0, 0, 0])
+    # the training backwards' gradient kernels: bf16 without HMMA, float32
+    # with it
+    assert with_counts(f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
+    assert with_counts(f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_", [0, 0, 8])
     # a stray function with HMMA or IDP4A, an int8 tile kernel without IMMA
     assert with_counts(f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i", [0, 0, 4])
-    assert with_counts(f"{stack}14band_dq_kernelI{bf}Li64EEEvPKT_", [0, 0, 4])
+    assert with_counts(f"{stack}16band_rows_kernelI{bf}Li64ELb1EEEvPKT_", [0, 0, 4])
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64EEEvPKT_", [0, 3, 0])
     assert with_counts(f"{ns}18gemm_act_i8_kernelI{bf}EEvPKa", [0, 0, 0])
 

@@ -227,6 +227,104 @@ def test_sliding_explicit_backward_matches_jax_kernel_vjp(global_rows):
                                    atol=GRAD_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
 
 
+# ------------------------------------- the gradient kernels' rounding model
+
+
+def _core_leaves(B, L, nh, hd, seed, n_valid):
+    """q, k, v, qg, kg, vg (B, L, nh, hd) float32 leaves and dctx, zero on
+    padding rows (as g Wo^T of a masked cotangent)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    leaves = [f(B, L, nh, hd).requires_grad_() for _ in range(6)]
+    real = (torch.arange(L)[None] < n_valid[:, None])[..., None, None]
+    return leaves, f(B, L, nh, hd) * real
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_core_bwd_model_matches_autograd_in_float32(global_rows, rate):
+    """sliding_core_bwd_model in float32, where its roundings are exact and
+    the statistics are its own, against autograd of sliding_attend: every
+    gradient of q, k, v (and qg, kg, vg) to 1e-5 of its largest magnitude."""
+    Bm, Lm, nh, hd, window = 2, 64, 2, 16, 32
+    G, sm = sb.global_columns(16, Lm), hd**-0.5
+    n_valid = torch.tensor([Lm, 40])
+    n_glob = torch.tensor([1, 2]) if global_rows else torch.zeros(2, dtype=torch.long)
+    (q, k, v, qg, kg, vg), dctx = _core_leaves(Bm, Lm, nh, hd, 21, n_valid)
+    keep = (ts.sliding_keep_masks(torch.tensor([5], dtype=torch.int32), Bm, nh, Lm, window, G,
+                                  rate) if rate else None)
+    glob_qkv = (qg[:, :G] * sm, kg, vg) if global_rows else None
+    ctx = sb.sliding_attend(q * sm, k, v, glob_qkv, n_valid, n_glob, window=window, G=G,
+                            dropout_rate=rate, keep=keep)
+    leaves = [q, k, v] + ([qg, kg, vg] if global_rows else [])
+    want = torch.autograd.grad(ctx, leaves, dctx)
+    heads = lambda t: t.detach().transpose(1, 2)
+    got = ts.sliding_core_bwd_model(
+        heads(q) * sm, heads(k), heads(v),
+        (heads(qg)[:, :, :G] * sm, heads(kg), heads(vg)) if global_rows else None, dctx,
+        n_valid, n_glob, window=window, sm_scale=sm, dropout_rate=rate, keep=keep)
+    assert len(got) == len(want)
+    for name, g, w in zip(("dq", "dk", "dv", "dqg", "dkg", "dvg"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * w.abs().max().item(), err_msg=name)
+
+
+@pytest.mark.parametrize("fault", chip_smoke.BWD_CORE_FAULTS)
+def test_core_gate_rejects_the_planted_faults(fault):
+    """chip_smoke's limits of the gradient kernels (BWD_CORE_TOL) reject each
+    planted fault of the rounding model: in bf16 at L=256, window 64, CLS
+    global, rate 0.1, the model with the fault read against the model."""
+    Bm, Lm, nh, hd, window = 2, 256, 2, 64, 64
+    G, sm = sb.global_columns(16, Lm), hd**-0.5
+    n_valid, n_glob = torch.tensor([Lm, 200]), torch.tensor([1, 1])
+    (q, k, v, qg, kg, vg), dctx = _core_leaves(Bm, Lm, nh, hd, 23, n_valid)
+    heads = lambda t, scale=1.0: (t.detach() * scale).to(torch.bfloat16).transpose(1, 2)
+    keep = ts.sliding_keep_masks(torch.tensor([3], dtype=torch.int32), Bm, nh, Lm, window, G, 0.1)
+    model = lambda: torch.stack(ts.sliding_core_bwd_model(
+        heads(q, sm), heads(k), heads(v), (heads(qg, sm)[:, :, :G], heads(kg), heads(vg)),
+        dctx.to(torch.bfloat16), n_valid, n_glob, window=window, sm_scale=sm, dropout_rate=0.1,
+        keep=keep), dim=2).reshape(Bm * Lm, -1)
+    want = model()
+    with chip_smoke.planted(chip_smoke.core_bwd_faults("sliding_train_bwd")[fault]):
+        bad = model()
+    readings = chip_smoke.core_bwd_readings(want, bad, nh * hd)
+    assert chip_smoke.core_bwd_excess(readings, chip_smoke.BWD_CORE_TOL["sliding_train_bwd"]) > 1
+    assert chip_smoke.core_bwd_excess(chip_smoke.core_bwd_readings(want, want, nh * hd),
+                                      chip_smoke.BWD_CORE_TOL["sliding_train_bwd"]) == 0
+
+
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_explicit_backward_with_model_core_matches_jax_kernel_vjp_in_bf16(global_rows):
+    """bf16: the explicit plain backward with its core's gradient from the
+    rounding model against the TPU kernel's custom VJP in interpret mode,
+    both in bf16, to BF16_RTOL of each gradient's largest magnitude (the two
+    round q, k, v, dctx, e, dS and the outputs to bf16 at their own points)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_sliding import sliding_attention_block_train as jax_train
+
+    inp = _inputs(B, L, H, NH, seed=10, global_rows=global_rows)
+    mask, glob = jnp.asarray(inp["attention_mask"]), jnp.asarray(inp["global_mask"])
+    bf16 = lambda k: jnp.asarray(inp[k]).astype(jnp.bfloat16 if k == "hidden" else jnp.float32)
+    _, vjp = jax.vjp(
+        lambda h, *p: jax_train(h, mask, glob, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                dropout_rate=0.0, interpret=True, window=WINDOW, max_globals=16,
+                                global_rows=global_rows),
+        *(bf16(k) for k in ARGS))
+    want = vjp(jnp.asarray(inp["cotangent"]).astype(jnp.bfloat16))
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    got = ts.sliding_train_bwd_plain(
+        t["hidden"].bfloat16(), t["attention_mask"], t["global_mask"], *(t[k] for k in ARGS[1:6]),
+        t["cotangent"].bfloat16(), sm_scale=HD**-0.5, window=WINDOW, max_globals=16,
+        global_rows=global_rows, model_core=True)
+    assert got[0].dtype == torch.bfloat16
+    for name, g, w in zip(ARGS, got, want):
+        w = np.asarray(w.astype(jnp.float32)).reshape(g.shape)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=BF16_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
+
+
 # ------------------------------------------------------------------ dropout
 
 
@@ -426,3 +524,40 @@ def test_sliding_backward_products_match_explicit_plain_on_card(cuda, global_row
         bufs["w_all"], w["wo"])
     readings = chip_smoke.backward_gemm_readings({"dctx": bufs["dctx"], **out}, want)
     assert max(readings.values()) <= chip_smoke.BWD_GEMM_TOL["sliding_train_bwd"], readings
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,window", CARD_SHAPES)
+def test_sliding_gradient_kernels_match_rounding_model_on_card(cuda, rate, global_rows, Bc, Lc,
+                                                               Hc, nh, window):
+    """bf16: the gradient kernels' dproj against sliding_core_bwd_model on the
+    kernel's own intermediates, within chip_smoke.BWD_CORE_TOL element by
+    element and in norm in each slot; two runs give the same bits; each
+    planted fault of the model fails the limits."""
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + 3, global_rows=global_rows)
+    t = _card_tensors(inp, cuda, torch.bfloat16)
+    hd = Hc // nh
+    w = sb.card_weights(*(t[k] for k in ARGS[1:6]), torch.bfloat16)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    runs = [{}, {}]
+    for bufs in runs:
+        ts.sliding_train_bwd(t["hidden"], t["attention_mask"], t["global_mask"], seed, w,
+                             t["cotangent"].to(torch.bfloat16), num_heads=nh, window=window,
+                             max_globals=16, global_rows=global_rows, sm_scale=hd**-0.5,
+                             dropout_rate=rate, buffers=bufs)
+    keep = (ts.sliding_keep_masks(seed, Bc, nh, Lc, window, sb.global_columns(16, Lc), rate)
+            if rate else None)
+    model = lambda: ts.sliding_core_model_dproj(runs[0], window=window, sm_scale=hd**-0.5,
+                                                dropout_rate=rate, keep=keep)
+    readings = chip_smoke.core_bwd_readings(runs[0]["dproj"], model(), nh * hd)
+    print(f"{Bc}x{Lc} hd {hd} window {window} global_rows={global_rows} rate {rate}: {readings}")
+    tol = chip_smoke.BWD_CORE_TOL["sliding_train_bwd"]
+    assert chip_smoke.core_bwd_excess(readings, tol) <= 1, readings
+    assert torch.equal(runs[0]["dproj"], runs[1]["dproj"])
+    for fault, patches in chip_smoke.core_bwd_faults("sliding_train_bwd").items():
+        with chip_smoke.planted(patches):
+            bad = chip_smoke.core_bwd_readings(runs[0]["dproj"], model(), nh * hd)
+        print(f"  {fault}: {bad}")
+        assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)

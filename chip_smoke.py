@@ -14,9 +14,10 @@
    attention core and the W8A8 global query holds IDP4A (__dp4a); every
    bf16 instantiation of the dense attention core (attn_core_kernel), of the
    forward GEMM tile's kernels (gemm_bias_act, qkv_proj,
-   gemm_bias_residual_ln) and of the two stack entries (or their out-of-line
-   items) holds HMMA, the tensor cores' bf16 product, and no float32 one,
-   transposed-weight GEMM or other function does (sass_verdict). Prints the
+   gemm_bias_residual_ln), of the rows kernels (band_rows, bigbird_rows) and
+   of the two stack entries (or their out-of-line items) holds HMMA, the
+   tensor cores' bf16 product, and no float32 one, transposed-weight GEMM or
+   other function does (sass_verdict). Prints the
    ptxas registers and spills of those functions too.
 3. Inference kernel phase: each inference kernel against its plain PyTorch
    version at the main path's shapes (B=32, L=512, H=768, 12 heads of 64,
@@ -170,7 +171,20 @@
    W8A8 einsum path and the float kernel path; busy share and top kernels
    of the W8A8 kernel path. Every main path counts the launches of 1c and
    2b apart and fails if one ran: the kernels line gives their sum.
-20. Prints the serving runs, the Longformer, BigBird, MUG and W8A8
+20. The rows kernels alone (band_rows_kernel, bigbird_rows_kernel on
+   attention_rows_mma.cuh's bf16 tensor-core body), in each mode a main path
+   runs them: band_rows at B=8, L=2048 as kernel 7 (bf16 ctx), kernel 7
+   W8A8 (float32 ctx), row 12's forward at dropout 0.1 and its statistics
+   pass; bigbird_rows at B=4, L=4096 as kernel 8 and 8 W8A8 and at B=8,
+   L=2048 as row 13's forward and statistics pass. Each against its
+   rounding model (ctx and the statistics m, D, rowsum(dp p_eff)) within
+   ROWS_TOL, with three planted faults (probabilities unrounded, a key tile
+   dropped, a running maximum) each failing it; its time beside its bound
+   and, for the forwards, scaled_dot_product_attention with the boolean
+   mask of the allowed keys (dense) on the same q, k, v: rows_ms,
+   rows_bound_ms and rows_library_ms of the kernels line's rows 7, 8, 12
+   and 13.
+21. Prints the serving runs, the Longformer, BigBird, MUG and W8A8
    long-context runs and the kernels as JSON lines, the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
@@ -843,6 +857,256 @@ def check_backward_cores(name: str, dproj, model, hn: int) -> dict:
             "norm_reading": max(n for _, n in readings.values()), "faults": faults}
 
 
+# The rows kernels (band_rows_kernel, bigbird_rows_kernel), launched alone
+# (train_sliding.sliding_rows, train_bigbird.bigbird_rows) on their own q, k,
+# v at the main paths' shapes, against their rounding models
+# (sliding_rows_model, bigbird_rows_model: dense over a row's keys, float32
+# sums, e rounded against the row's true maximum): ctx and, in the
+# statistics pass, (m, D, rowsum(dp p_eff)), each read element-wise,
+# max(|got - want| - rtol |want|) / max |want| (rtol 2^-7 for a bf16 ctx,
+# which both round; 0 for a float32 one and the statistics), and in norm,
+# ||got - want|| / ||want||, within ROWS_TOL[ctx's dtype] = (s, r) as
+# BWD_CORE_TOL is read: the products' float32 sums run in another order,
+# which now and then moves a rounding of s - m or of a bf16 ctx by one bf16
+# step. On the H100 (PERF.md, section 6; the card tests -k rows_kernel and
+# this script's phase 20) the honest readings reach 6.3e-4 element-wise
+# and, in norm, 9.9e-5 with a bf16 ctx (ctx and the statistics) and 2.9e-5
+# with a float32 one (the W8A8 mode, which takes no rounding of its own).
+# The faults that move every e by a rounding read 3.9e-4 (a running
+# maximum, float32 ctx) to 1.7e-3 in norm, inside the element-wise part:
+# so r = 2e-4 (bf16) and 1e-4 (float32), about three times from either
+# side, and s = 5e-3 as BWD_CORE_TOL's. Each of ROWS_FAULTS, planted in the
+# model, must fail it in every mode.
+ROWS_TOL = {"bfloat16": (5e-3, 2e-4), "float32": (5e-3, 1e-4)}
+ROWS_FAULTS = ("probabilities left unrounded", "a key tile dropped",
+               "a running maximum in place of the row's")
+ROWS_STATS = ("m", "D", "rs")
+
+
+def running_max_softmax(real, s, allowed, dt):
+    """A planted fault of the rows kernels' model: e rounded against the
+    running maximum over key tiles of 64 (an online softmax's), then scaled
+    to the row's maximum, in place of ``train_sliding.rows_softmax``."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    ninf = torch.tensor(-torch.inf, device=s.device)
+    safe = lambda m: torch.where(torch.isfinite(m), m, 0.0)
+    m = torch.where(allowed, s, ninf).amax(-1)
+    run = torch.full_like(m, -torch.inf)
+    e = torch.zeros_like(s)
+    for k0 in range(0, s.shape[-1], 64):
+        sl, ok = s[..., k0:k0 + 64], allowed[..., k0:k0 + 64]
+        run = torch.maximum(run, torch.where(ok, sl, ninf).amax(-1))
+        scale = torch.exp(safe(run) - safe(m))[..., None]
+        e[..., k0:k0 + 64] = torch.where(ok, ts.rows_exponent(sl, safe(run)[..., None], dt) * scale,
+                                         0.0)
+    return m, e
+
+
+def rows_faults(name: str) -> dict:
+    """{fault: patches for planted()}: ROWS_FAULTS in the rounding model of
+    ``name`` (band_rows or bigbird_rows): e not rounded; a key tile dropped
+    (core_bwd_faults' tile of the same row); running_max_softmax."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    row = "sliding_train_bwd" if name == "band_rows" else "bigbird_train_bwd"
+    return {ROWS_FAULTS[0]: [(ts, "rows_exponent", None, lambda real, s, m, dt: torch.exp(s - m))],
+            ROWS_FAULTS[1]: core_bwd_faults(row)[BWD_CORE_FAULTS[2]],
+            ROWS_FAULTS[2]: [(ts, "rows_softmax", None, running_max_softmax)]}
+
+
+def rows_readings(got, want) -> dict:
+    """{output: (element-wise, norm)} of (ctx, stats or None) against the
+    model's; fails where one is finite and the other not (a row's m is -inf
+    where it has no allowed key)."""
+    import torch
+
+    (gc, gs), (wc, ws) = got, want
+    parts = [("ctx", gc, wc, 2**-7 if gc.dtype == torch.bfloat16 else 0.0)]
+    if gs is not None:
+        parts += [(k, gs[i], ws[i], 0.0) for i, k in enumerate(ROWS_STATS)]
+    out = {}
+    for k, g, w, rtol in parts:
+        g, w = g.float(), w.float()
+        fin = torch.isfinite(w)
+        if not torch.equal(torch.isfinite(g), fin):
+            fail(f"rows kernel: {k} is finite where its model's is not, or the other way")
+        g, w = g[fin], w[fin]
+        out[k] = (beyond_limit(g, w, (0.0, rtol)) / max(w.abs().max().item(), 1e-30),
+                  ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def rows_tol(got):
+    """ROWS_TOL of a rows kernel's (ctx, stats) by ctx's dtype."""
+    return ROWS_TOL[str(got[0].dtype).split(".")[-1]]
+
+
+def check_rows(label: str, name: str, got, model) -> dict:
+    """A rows kernel's (ctx, stats) against ``model()`` within ROWS_TOL; each
+    of ROWS_FAULTS planted in the model must fail it. Returns {reading,
+    norm_reading, faults: {fault: (element-wise, norm)}}."""
+    show = lambda rd: ", ".join(f"{k} {e:.2e} / {n:.2e}" for k, (e, n) in rd.items())
+    tol = rows_tol(got)
+    readings = rows_readings(got, model())
+    print(f"  {label} against its rounding model, element-wise / norm: {show(readings)} (limits "
+          f"{tol[0]:g} max |ref|, {tol[1]:g} ||ref||)")
+    if core_bwd_excess(readings, tol) > 1:
+        fail(f"{label}: beyond its rounding model's limits: {show(readings)}")
+    faults = {}
+    for fault, patches in rows_faults(name).items():
+        with planted(patches):
+            bad = rows_readings(got, model())
+        worst = (max(e for e, _ in bad.values()), max(n for _, n in bad.values()))
+        faults[fault] = worst
+        rejected = core_bwd_excess(bad, tol) > 1
+        print(f"  planted fault, {label}'s model with {fault}: element-wise {worst[0]:.2e}, "
+              f"norm {worst[1]:.2e}: " + ("rejected" if rejected else "ACCEPTED"))
+        if not rejected:
+            fail(f"the rows kernels' limits accept {fault} ({label})")
+    return {"reading": max(e for e, _ in readings.values()),
+            "norm_reading": max(n for _, n in readings.values()), "faults": faults}
+
+
+def rows_qkv(randn, Bq: int, Lq: int, dt):
+    """(3, B, nh, L, hd) q (scaled), k, v in dt from a random projection."""
+    import torch
+
+    hidden, w = randn(Bq, Lq, H), randn(H, 3, NH, HD, scale=H**-0.5)
+    qkv = torch.einsum("blh,hsnd->sbnld", hidden, w) + randn(3, 1, NH, 1, HD, scale=0.02)
+    qkv[0] *= HD**-0.5
+    return qkv.to(dt).contiguous()
+
+
+def rows_kernel_phase(device, rows: dict):
+    """The rows kernels alone, bf16, in each mode a main path runs them:
+    band_rows at B=8, L=2048 (CLS global) as kernel 7 (bf16 ctx), kernel 7
+    W8A8 (float32 ctx), row 12's forward (dropout 0.1) and its statistics
+    pass (kGrad, with dctx); bigbird_rows at B=4, L=4096 as kernel 8 and 8
+    W8A8 and at B=8, L=2048 as row 13's forward and statistics pass. Each
+    held to its rounding model (check_rows), timed (rows_ms) beside its
+    bound (rows_bound_ms: the core's operations, 4 hd a (row, key) pair and
+    2 hd more for dP, over the bf16 peak, or q, k, v, ctx and in the
+    statistics pass dctx and the statistics over the memory rate) and, for
+    the forwards, scaled_dot_product_attention on the same q, k, v with the
+    boolean mask of the allowed keys, dense over L x L (rows_library_ms).
+    Adds those keys to the bf16 rows of kernels 7, 8, 12 and 13."""
+    import torch
+    import torch.nn.functional as F
+
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import sliding_block as sb
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    g = torch.Generator(device=device).manual_seed(13)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    bf16, HN = torch.bfloat16, NH * HD
+    seed = torch.tensor([20231020], dtype=torch.int32, device=device)
+    heads = lambda t: t.transpose(1, 2)
+
+    def run(label, name, row, launch, model, work_pairs, qkv, dctx, sdpa):
+        """check, time and bound one mode; returns its readings."""
+        got = launch()
+        torch.cuda.synchronize()
+        gate = check_rows(label, name, got, model)
+        ms = time_ms(launch)
+        Bq, Lq = qkv.shape[1], qkv.shape[3]
+        flops = 4 * NH * HD * work_pairs * (1.5 if dctx is not None else 1.0)
+        io = nbytes(qkv, got[0]) + (0 if dctx is None else nbytes(dctx, got[1]))
+        b = bound(flops, io)
+        row.update(rows_ms=ms, rows_bound_ms=b["bound_ms"], rows_bound_by=b["bound_by"],
+                   rows_reading=gate["reading"], rows_norm_reading=gate["norm_reading"])
+        lib = ""
+        if sdpa is not None:
+            row["rows_library_ms"] = sdpa
+            lib = f", SDPA with the mask (dense) {sdpa:.3f} ms"
+        print(f"kernel {label}: {ms:.3f} ms alone, bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']}){lib}")
+        return gate
+
+    def sdpa_ms(qkv, allowed, label):
+        q, k, v = qkv.unbind(0)
+        return library_time(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
+                                                                    scale=1.0),
+                            f"{label} (scaled_dot_product_attention with the mask, dense)")
+
+    # band_rows at kernel 7's and row 12's shape
+    mask, glob = sliding_masks(device)
+    n_valid, n_glob = mask.sum(1), glob.sum(1)
+    counts = torch.stack([n_valid, n_glob], 1).int().contiguous()
+    C, G = LF_WINDOW // 2, sb.global_columns(LF_MAX_GLOBALS, LF_L)
+    work = sliding_work(mask, glob, LF_WINDOW, H, NH, HD)
+    pairs = work["rows_pairs"]
+    qkv = rows_qkv(randn, LF_B, LF_L, bf16)
+    dctx = (randn(LF_B, LF_L, HN) * mask[..., None]).to(bf16)
+    allowed = torch.stack([ts.sliding_model_allowed(LF_L, C, int(nv), int(ng), device)
+                           for nv, ng in zip(n_valid, n_glob)])[:, None]
+    lib = sdpa_ms(qkv, allowed, "band_rows")
+    del allowed
+    keep = ts.sliding_keep_masks(seed, LF_B, NH, LF_L, LF_WINDOW, G, DROPOUT)
+    model = lambda rate, ctx_dtype=None, dc=None: ts.sliding_rows_model(
+        qkv[0], qkv[1], qkv[2], None, n_valid, n_glob, window=LF_WINDOW, dropout_rate=rate,
+        keep=keep if rate else None, ctx_dtype=ctx_dtype,
+        dctx=None if dc is None else dc.reshape(LF_B, LF_L, NH, HD))
+    launch = lambda rate, ctx_dtype=None, dc=None: ts.sliding_rows(
+        qkv, counts, seed, window=LF_WINDOW, dctx=dc, dropout_rate=rate, ctx_dtype=ctx_dtype)
+    for label, row, rate, cdt, dc, lib_ms in (
+            ("band_rows (kernel 7 bfloat16)", rows["sliding_attention_block", "bfloat16"], 0.0,
+             None, None, lib),
+            ("band_rows (kernel 7 W8A8, float32 ctx)",
+             rows["sliding_attention_block_w8a8", "bfloat16"], 0.0, torch.float32, None, lib),
+            ("band_rows (row 12 forward, dropout 0.1)", rows["sliding_train_fwd", "bfloat16"],
+             DROPOUT, None, None, lib),
+            ("band_rows (row 12 statistics pass, dropout 0.1)",
+             rows["sliding_train_bwd", "bfloat16"], DROPOUT, None, dctx, None)):
+        run(label, "band_rows", row, lambda: launch(rate, cdt, dc), lambda: model(rate, cdt, dc),
+            pairs, qkv, dc, lib_ms)
+    del qkv, dctx, keep
+    torch.cuda.empty_cache()
+
+    # bigbird_rows at kernel 8's shape, then at row 13's
+    for Bq, Lq, modes in (
+            (BB_B, BB_L, (("bigbird_rows (kernel 8 bfloat16)", "bigbird_attention_block", 0.0,
+                           None, False),
+                          ("bigbird_rows (kernel 8 W8A8, float32 ctx)",
+                           "bigbird_attention_block_w8a8", 0.0, torch.float32, False))),
+            (BB_TRAIN_B, BB_TRAIN_L, (("bigbird_rows (row 13 forward, dropout 0.1)",
+                                       "bigbird_train_fwd", DROPOUT, None, False),
+                                      ("bigbird_rows (row 13 statistics pass, dropout 0.1)",
+                                       "bigbird_train_bwd", DROPOUT, None, True)))):
+        mask = bigbird_masks(device, Bq, Lq)
+        n_valid = mask.sum(1)
+        counts = torch.stack([n_valid, torch.zeros_like(n_valid)], 1).int().contiguous()
+        t = bigbird_tables(Lq // BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED, device)
+        pairs = bigbird_work(mask, BB_BLOCK, t, H, NH, HD)["core"] / (4 * NH * HD)
+        qkv = rows_qkv(randn, Bq, Lq, bf16)
+        dctx = (randn(Bq, Lq, HN) * mask[..., None]).to(bf16)
+        reg = torch.from_numpy(tbb.bigbird_model_regions(
+            Lq, BB_BLOCK, t.G, t.R, t.rand.cpu().numpy(), t.rok.cpu().numpy())).to(device) > 0
+        allowed = (reg[None] & (torch.arange(Lq, device=device)[None, None]
+                                < n_valid[:, None, None]))[:, None]
+        lib = sdpa_ms(qkv, allowed, f"bigbird_rows B={Bq} L={Lq}")
+        del allowed, reg
+        keep = tbb.bigbird_keep_masks(seed, Bq, NH, Lq, BB_BLOCK, t.G, t.R, DROPOUT)
+        for label, name, rate, cdt, grad in modes:
+            dc = dctx if grad else None
+            run(label, "bigbird_rows", rows[name, "bfloat16"],
+                lambda: tbb.bigbird_rows(qkv, counts, seed, t, block_size=BB_BLOCK, dctx=dc,
+                                         dropout_rate=rate, ctx_dtype=cdt),
+                lambda: tbb.bigbird_rows_model(
+                    qkv[0], qkv[1], qkv[2], n_valid, t, block_size=BB_BLOCK, dropout_rate=rate,
+                    keep=keep if rate else None, ctx_dtype=cdt,
+                    dctx=None if dc is None else dc.reshape(Bq, Lq, NH, HD)),
+                pairs, qkv, dc, None if grad else lib)
+        del qkv, dctx, keep
+        torch.cuda.empty_cache()
+
+
 def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
     """Check kernel against plain on the valid rows (``tol`` = (atol, rtol),
     the kernel's limit by default; ``w8a8``: w8a8_check); time both."""
@@ -905,23 +1169,28 @@ IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # (bf16_gemm.cuh: kernels 1, 2, 7-9 and the training kernels' forward and
 # backward products, a weight read as stored or transposed, and the weight
 # gradient), the MLP backward's recomputed product (act_and_grad_kernel), the
-# Longformer and BigBird backwards' gradient kernels (attention_grad_mma.cuh)
-# and the stack entries, whose bf16 core and GEMMs run out of line in
-# stack_core_item and STACK_GEMM_ITEMS. Each bf16 instantiation must hold
+# Longformer and BigBird backwards' gradient kernels (attention_grad_mma.cuh),
+# the sliding-window and BigBird rows kernels (attention_rows_mma.cuh: kernels
+# 7 and 8 in both modes, rows 12 and 13's forwards and statistics passes;
+# global_rows_kernel stays on the CUDA cores) and the stack entries, whose
+# bf16 core and GEMMs run out of line in stack_core_item and
+# STACK_GEMM_ITEMS. Each bf16 instantiation must hold
 # HMMA (a stack entry itself or in its items); the float32 ones (with
 # attn_core_simt_kernel, the float32 core) none; and no other function may
 # hold it
 HMMA_KERNELS = ("attn_core_kernel", "gemm_bias_act_kernel", "qkv_proj_kernel",
                 "gemm_bias_residual_ln_kernel", "encoder_stack_kernel", "encoder_stack_i8_kernel",
                 "weight_grad_kernel", "act_and_grad_kernel", "band_dq_kernel", "band_dkv_kernel",
-                "bigbird_dq_kernel", "bigbird_dkv_kernel")
+                "bigbird_dq_kernel", "bigbird_dkv_kernel", "band_rows_kernel",
+                "bigbird_rows_kernel")
 # the bf16 stack's out-of-line items (stack_block.cu): stack_core_item, a
 # template on the head dim, and the three GEMM items (no template)
 STACK_GEMM_ITEMS = ("stack_qkv_item", "stack_gemm_act_item", "stack_residual_ln_item")
 CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kernel",
                "gemm_bias_act_kernel", "qkv_proj_kernel", "gemm_bias_residual_ln_kernel",
                "weight_grad_kernel", "act_and_grad_kernel", "band_dq_kernel", "band_dkv_kernel",
-               "global_kv_grad_kernel", "bigbird_dq_kernel", "bigbird_dkv_kernel")
+               "global_kv_grad_kernel", "bigbird_dq_kernel", "bigbird_dkv_kernel",
+               "band_rows_kernel", "global_rows_kernel", "bigbird_rows_kernel")
 
 
 def template_args(name: str, kernel: str) -> str:
@@ -1952,7 +2221,7 @@ def sliding_work(mask, glob, window: int, H: int, nh: int, hd: int) -> dict:
     proj = 2 * B * L * H * 3 * HN + sum(2 * nv * H * 2 * HN + 2 * ng * H * HN
                                         for nv, ng in zip(v, g) if ng > 0)
     return {"proj": float(proj), "core": float(4 * nh * hd * pairs),
-            "out": float(2 * B * L * HN * H)}
+            "out": float(2 * B * L * HN * H), "rows_pairs": float(band + L * g.sum())}
 
 
 def grad_bound(work: dict, slab: int, n_in: int, n_out: int, rows: int, dtype: str) -> float:
@@ -3592,6 +3861,9 @@ def main() -> int:
         rows.update(w8a8_long_kernel_phase(device))
         rows.update(core_static_kernel_phase(device))
         print(f"phases 17-18 (W8A8 kernels 7 and 8, 1c and 2b): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        rows_kernel_phase(device, rows)
+        print(f"phase 20 (the rows kernels alone): {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         w8a8_long = {"longformer": long_serving_path("longformer", lf_data,
                                                      str(Path(tmp) / "lf_w8a8")),

@@ -24,7 +24,9 @@
 // The dq pass (dq_from_ds_tile) reads those dS tiles as A fragments
 // (ldmatrix.trans) and forms dq += dS k. The products are those of the
 // CUDA-core bodies but for the order of the float32 sums; every rounding
-// point stays where it was.
+// point stays where it was. The rows kernels' bf16 body
+// (attention_rows_mma.cuh) stages its tiles through the same ring and reads
+// them with the same ldmatrix offsets.
 #pragma once
 
 #include "attention_core.cuh"

@@ -63,20 +63,38 @@ __device__ __forceinline__ void block_tile(const BigBird& bb, int x, int& i, int
   r_end = min(r0 + kTile, (i + 1) * bb.C);
 }
 
-// One key tile of a query block: keys [k0, k_end) allowed; the dropout tag
-// and the offset from key to the counter's column.
-struct KeyTile {
-  int k0, k_end;
-  uint32_t tag;
-  int col_off;
-};
+// The bf16 rows kernel's block order: block (blockIdx.x, y, z) of the grid
+// (nb S, nh, B), taken in linear order (x fastest), works on query tile x of
+// (head h, sequence b) with the G S tiles of the global blocks of every
+// (head, sequence) first, then the others. A global tile walks every real
+// key (up to 8 times the tiles of another at BigBird-base): in grid order
+// the last heads' global tiles started late and ran on alone at the end of
+// the launch (on the H100 the launch without them took 46 % of its time,
+// PERF.md); started first, they run beside the short tiles.
+__device__ __forceinline__ void global_first(const BigBird& bb, int nh, int& x, int& h, int& b) {
+  const int gs = bb.G * bb.S, per = bb.nb * bb.S;
+  const int lin = blockIdx.x + per * (blockIdx.y + nh * blockIdx.z);
+  const int n_global = gs * nh * gridDim.z;
+  int hb;
+  if (lin < n_global) {
+    x = lin % gs;
+    hb = lin / gs;
+  } else {
+    const int r = lin - n_global, rest = per - gs;
+    x = gs + r % rest;
+    hb = r / rest;
+  }
+  h = hb % nh;
+  b = hb / nh;
+}
 
 __device__ __forceinline__ int key_tiles(const BigBird& bb, int i, int n_valid) {
   return i < bb.G ? (n_valid + kTile - 1) / kTile : (3 + bb.G + bb.R) * bb.S;
 }
 
-// Key tile t of query block i; false when it holds no allowed key. The same
-// for every thread of a block.
+// Key tile t of query block i (attention_rows_mma.cuh's KeyTile: keys
+// [k0, k_end) allowed); false when it holds no allowed key. The same for
+// every thread of a block.
 __device__ __forceinline__ bool key_tile(const BigBird& bb, int i, int t, int n_valid,
                                          KeyTile& kt) {
   kt.tag = 0u;
@@ -107,24 +125,44 @@ __device__ __forceinline__ bool key_tile(const BigBird& bb, int i, int t, int n_
   return kt.k0 < kt.k_end;
 }
 
-template <int HD>
-constexpr size_t bigbird_rows_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
-}
-
 // The rows of one query tile (block, head, sequence): pass 1 takes the row
 // maxima over the allowed keys of every key tile, pass 2 forms e, D = sum e
 // and ctx = (kept e) . v / (D keep_prob), stored rounded to Tc in (B, L,
 // nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T and writes
-// the row statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B).
+// the row statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B). bf16 runs
+// attention_rows_mma.cuh's tensor-core body (128 threads), float32 the
+// CUDA-core body below (256 threads).
 template <typename T, int HD, bool kGrad, typename Tc = T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
     bigbird_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                         BigBird bb, const int32_t* __restrict__ seed_ptr,
                         const T* __restrict__ dctx, Tc* __restrict__ ctx,
                         float* __restrict__ stats, int B, int nh, uint32_t thr, float keep_prob) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!std::is_same<T, float>::value) {
+    int x, h, b, i, q0, q_end;
+    global_first(bb, nh, x, h, b);
+    block_tile(bb, x, i, q0, q_end);
+    const int L = bb.L;
+    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
+    const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
+    const int n_valid = counts[2 * b];
+    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
+    rows_tile_mma<HD, kGrad>(
+        Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
+        kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, 0, q0, q_end, L,
+        key_tiles(bb, i, n_valid),
+        [&](int t, KeyTile& kt) { return key_tile(bb, i, t, n_valid, kt); },
+        [&](const KeyTile& kt, int row, int key) { return key < kt.k_end; },
+        [&](const KeyTile& kt, int row, int key) {
+          return keep_prob_bits(seed, thr, b, h | kt.tag, row, key + kt.col_off);
+        },
+        keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
+        kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
+        reinterpret_cast<unsigned char*>(smem));
+    return;
+  } else {
   using G = Geometry<HD>;
-  extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + G::kTileFloats;
   float* Vs = Ks + G::kTileFloats;
@@ -222,6 +260,7 @@ __global__ void __launch_bounds__(kThreads)
       stats[2 * plane + r] = d_sum > 0.0f ? rs_sum / denom : 0.0f;
     }
   }
+  }
 }
 
 // counts and q, k, v; wqkv (H, 3 nh hd) in the element type, bqkv float32.
@@ -247,11 +286,12 @@ cudaError_t bigbird_attention(const BigBird& bb, const int32_t* seed, const int3
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     auto rows = bigbird_rows_kernel<T, HD, kGrad, Tc>;
-    cudaError_t e = prepare(rows, bigbird_rows_smem_bytes<HD>());
+    constexpr size_t smem = rows_smem_bytes<T, HD, kGrad>();
+    cudaError_t e = prepare(rows, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid(bb.nb * bb.S, nh, B);
-    rows<<<grid, kThreads, bigbird_rows_smem_bytes<HD>(), stream>>>(
-        qkv_buf, counts, bb, seed, dctx, ctx_buf, stats, B, nh, thr, keep_prob);
+    rows<<<grid, grad_threads<T>(), smem, stream>>>(qkv_buf, counts, bb, seed, dctx, ctx_buf,
+                                                    stats, B, nh, thr, keep_prob);
     return cudaGetLastError();
   });
 }

@@ -14,8 +14,9 @@
 // (at most 8 key blocks a query block, 64 for the two global blocks)
 // against some 30 MB of inputs, weights and output: bound by arithmetic.
 // In bf16 the projections and the out-LN run bf16_gemm.cuh's tensor-core
-// tile; the rows kernel is a SIMT kernel on the CUDA cores in float32, whose
-// move is later work.
+// tile and the rows kernel attention_rows_mma.cuh's tensor-core body (S and
+// P.V on mma.sync, the mask, exponent and sums on the fragments); float32
+// keeps the rows kernel on the CUDA cores.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM
@@ -44,7 +45,8 @@
 //   rowquant(ctx) -> int8 ctx . Wo + bo + x and the LayerNorm.
 // The projections are about 7 of every 10 operations at the serving shape;
 // they run on the tensor cores (int8_gemm.cuh's mma.sync s8 tile, weights
-// K-major), so the float rows kernel on the CUDA cores bounds the rest.
+// K-major), and the rows kernel runs the bf16 tensor-core body with a
+// float32 ctx (Tc = float).
 #include "bigbird_attention.cuh"
 
 namespace spk {
@@ -157,5 +159,40 @@ extern "C" int spk_bigbird_block_w8a8(int dtype, const void* hidden, const void*
   const cudaError_t err = dtype == 0   ? run(float{})
                           : dtype == 1 ? run(__nv_bfloat16{})
                                        : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// bigbird_rows_kernel alone, on (3, B, nh, L, hd) q (scaled), k, v in qkv,
+// counts (B, 2) int32 and the pattern's rand and rok (nb, max(R, 1)) int32,
+// into ctx (B, L, nh hd) and, with grad, the row statistics (3, B, nh, L)
+// float32 (dctx (B, L, nh hd) read). dtype and ctx_f32 as for
+// spk_sliding_rows; seed (1,) int32 may be null when thr is 0. Returns the
+// first CUDA error, or 0.
+extern "C" int spk_bigbird_rows(int dtype, int ctx_f32, int grad, const void* qkv,
+                                const void* counts, const void* rand, const void* rok,
+                                const void* seed, const void* dctx, void* ctx, void* stats, int B,
+                                int L, int nh, int hd, int C, int G, int R, unsigned thr,
+                                float keep_prob, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const spk::BigBird bb = spk::make_bigbird(L, C, G, R, i32(rand), i32(rok));
+  const auto run = [&](auto t_tag, auto c_tag, auto grad_c) {
+    using T = decltype(t_tag);
+    using Tc = decltype(c_tag);
+    return spk::bigbird_attention<T, decltype(grad_c)::value, Tc>(
+        bb, i32(seed), i32(counts), static_cast<const T*>(qkv), static_cast<const T*>(dctx),
+        static_cast<Tc*>(ctx), static_cast<float*>(stats), B, nh, hd, thr, keep_prob, s);
+  };
+  using bf16 = __nv_bfloat16;
+  using Yes = std::true_type;
+  using No = std::false_type;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = grad ? run(float{}, float{}, Yes{}) : run(float{}, float{}, No{});
+  } else if (dtype == 1 && ctx_f32) {
+    if (!grad) err = run(bf16{}, float{}, No{});
+  } else if (dtype == 1) {
+    err = grad ? run(bf16{}, bf16{}, Yes{}) : run(bf16{}, bf16{}, No{});
+  }
   return static_cast<int>(err);
 }

@@ -34,6 +34,7 @@
 // streams.
 #pragma once
 
+#include "attention_rows_mma.cuh"
 #include "attention_tiles.cuh"
 #include "int8_gemm.cuh"
 
@@ -109,9 +110,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD>
-constexpr size_t band_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
+// shared memory of a rows kernel (band_rows_kernel, bigbird_rows_kernel):
+// in float32 four (64, HD) float tiles and a (64, 64) score tile, in bf16
+// attention_rows_mma.cuh's staged tiles
+template <typename T, int HD, bool kGrad>
+constexpr size_t rows_smem_bytes() {
+  if constexpr (std::is_same<T, float>::value) {
+    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
+  } else {
+    return rows_smem_mma<HD, kGrad>();
+  }
 }
 
 // The local rows of one (64 query rows, head, sequence): pass 1 takes the
@@ -119,15 +127,47 @@ constexpr size_t band_smem_bytes() {
 // D = sum e and ctx = (kept e) . v / (D keep_prob), stored rounded to Tc in
 // (B, L, nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T,
 // with the cotangent of global rows taken as zero, and writes the row
-// statistics (m, D, rowsum(dp p_eff)). Grid (ceil(L / 64), nh, B).
+// statistics (m, D, rowsum(dp p_eff)). Grid (ceil(L / 64), nh, B). bf16 runs
+// attention_rows_mma.cuh's tensor-core body (128 threads), float32 the
+// CUDA-core body below (256 threads).
 template <typename T, int HD, bool kGrad, typename Tc = T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
     band_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                      const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                      Tc* __restrict__ ctx, float* __restrict__ stats, int B, int L, int nh, int C,
                      uint32_t thr, float keep_prob) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!std::is_same<T, float>::value) {
+    const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
+    const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
+    const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
+    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
+    const int nbt = band_tiles(C);  // then the global-column tile
+    rows_tile_mma<HD, kGrad>(
+        Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
+        kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, n_glob, q0, L, L,
+        nbt + (n_glob > 0 ? 1 : 0),
+        [&](int t, KeyTile& kt) {
+          const bool gcol = t == nbt;
+          kt.k0 = gcol ? 0 : q0 - C + kTile * t;
+          kt.k_end = gcol ? n_glob : n_valid;
+          kt.tag = gcol ? kGlobalColStream : 0u;
+          kt.col_off = 0;
+          return gcol || band_tile_live(kt.k0, n_glob, n_valid);
+        },
+        [&](const KeyTile& kt, int row, int key) {
+          return kt.tag ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid);
+        },
+        [&](const KeyTile& kt, int row, int key) {
+          return keep_prob_bits(seed, thr, b, h | kt.tag, row, key);
+        },
+        keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
+        kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
+        reinterpret_cast<unsigned char*>(smem));
+    return;
+  } else {
   using G = Geometry<HD>;
-  extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + G::kTileFloats;
   float* Vs = Ks + G::kTileFloats;
@@ -232,6 +272,7 @@ __global__ void __launch_bounds__(kThreads)
       stats[plane + r] = d_sum;
       stats[2 * plane + r] = d_sum > 0.0f ? rs_sum / denom : 0.0f;
     }
+  }
   }
 }
 
@@ -428,6 +469,21 @@ cudaError_t sliding_projections_w8a8(const T* hidden, const int32_t* mask, const
                                2);
 }
 
+// band_rows_kernel over (3, B, nh, L, hd) q, k, v
+template <typename T, int HD, bool kGrad, typename Tc>
+cudaError_t launch_band_rows(const T* qkv_buf, const int32_t* counts, const int32_t* seed,
+                             const T* dctx, Tc* ctx_buf, float* stats, int B, int L, int nh,
+                             int C, uint32_t thr, float keep_prob, cudaStream_t stream) {
+  auto band = band_rows_kernel<T, HD, kGrad, Tc>;
+  constexpr size_t smem = rows_smem_bytes<T, HD, kGrad>();
+  const cudaError_t e = prepare(band, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((L + kTile - 1) / kTile, nh, B);
+  band<<<grid, grad_threads<T>(), smem, stream>>>(qkv_buf, counts, seed, dctx, ctx_buf, stats, B,
+                                                  L, nh, C, thr, keep_prob);
+  return cudaGetLastError();
+}
+
 // The attention of the projected q, k, v into ctx (of type Tc): the band
 // rows, then the global rows over them (their query from qq in W8A8). With
 // kGrad, the backward's recomputation: also the row statistics, qg, the
@@ -442,13 +498,10 @@ cudaError_t sliding_attention(const T* hidden, const int32_t* seed, const T* wgq
                               const QuantQuery& qq = QuantQuery{}) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    auto band = band_rows_kernel<T, HD, kGrad, Tc>;
-    cudaError_t e = prepare(band, band_smem_bytes<HD>());
-    if (e != cudaSuccess) return e;
-    const dim3 grid((L + kTile - 1) / kTile, nh, B);
-    band<<<grid, kThreads, band_smem_bytes<HD>(), stream>>>(qkv_buf, counts, seed, dctx, ctx_buf,
-                                                           stats, B, L, nh, C, thr, keep_prob);
-    if ((e = cudaGetLastError()) != cudaSuccess || !global_rows) return e;
+    cudaError_t e = launch_band_rows<T, HD, kGrad, Tc>(qkv_buf, counts, seed, dctx, ctx_buf,
+                                                          stats, B, L, nh, C, thr, keep_prob,
+                                                          stream);
+    if (e != cudaSuccess || !global_rows) return e;
     auto rows = global_rows_kernel<T, HD, kGrad, Tc>;
     const size_t smem = global_rows_smem_bytes<HD>(L);
     if ((e = prepare(rows, smem)) != cudaSuccess) return e;

@@ -13,8 +13,10 @@
 // of projections (local q, k, v, global k, v, out) and 26 GFLOP of band
 // attention (2C + 1 keys a row) against some 60 MB of inputs, weights and
 // output: bound by arithmetic. In bf16 the projections and the out-LN run
-// bf16_gemm.cuh's tensor-core tile; the band and global-row kernels are SIMT
-// kernels on the CUDA cores in float32, whose move is later work.
+// bf16_gemm.cuh's tensor-core tile and band_rows_kernel attention_rows_mma.cuh's
+// tensor-core body (S and P.V on mma.sync, the mask, exponent and sums on the
+// fragments); the global-row kernel, G rows a sequence, stays a SIMT kernel
+// on the CUDA cores, as float32 keeps every attention kernel there.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM
@@ -50,7 +52,7 @@
 // recipe's shape, here on the tensor cores (int8_gemm.cuh's mma.sync s8
 // tile, weights K-major); the global query stays an exact int32 loop in
 // global_rows_kernel (a row a block, too small for a tile), and the band
-// rows on the CUDA cores bound what is left.
+// rows run the bf16 tensor-core body with a float32 ctx (Tc = float).
 #include "sliding_attention.cuh"
 
 namespace spk {
@@ -191,5 +193,41 @@ extern "C" int spk_sliding_block_w8a8(int dtype, const void* hidden, const void*
   const cudaError_t err = dtype == 0   ? run(float{})
                           : dtype == 1 ? run(__nv_bfloat16{})
                                        : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// band_rows_kernel alone, on (3, B, nh, L, hd) q (scaled), k, v in qkv and
+// counts (B, 2) int32, into ctx (B, L, nh hd) and, with grad, the row
+// statistics (3, B, nh, L) float32 (dctx (B, L, nh hd) read, rows below
+// n_glob as zero). dtype: 0 = float32, 1 = bfloat16 (qkv, dctx and ctx);
+// ctx_f32: a float32 ctx from bfloat16 q, k, v (the W8A8 blocks' mode, no
+// grad). seed (1,) int32 may be null when thr is 0. Returns the first CUDA
+// error, or 0.
+extern "C" int spk_sliding_rows(int dtype, int ctx_f32, int grad, const void* qkv,
+                                const void* counts, const void* seed, const void* dctx, void* ctx,
+                                void* stats, int B, int L, int nh, int hd, int C, unsigned thr,
+                                float keep_prob, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const auto run = [&](auto t_tag, auto c_tag, auto grad_c) {
+    using T = decltype(t_tag);
+    using Tc = decltype(c_tag);
+    return spk::with_head_dim(hd, [&](auto hd_c) {
+      return spk::launch_band_rows<T, decltype(hd_c)::value, decltype(grad_c)::value, Tc>(
+          static_cast<const T*>(qkv), i32(counts), i32(seed), static_cast<const T*>(dctx),
+          static_cast<Tc*>(ctx), static_cast<float*>(stats), B, L, nh, C, thr, keep_prob, s);
+    });
+  };
+  using bf16 = __nv_bfloat16;
+  using Yes = std::true_type;
+  using No = std::false_type;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = grad ? run(float{}, float{}, Yes{}) : run(float{}, float{}, No{});
+  } else if (dtype == 1 && ctx_f32) {
+    if (!grad) err = run(bf16{}, float{}, No{});
+  } else if (dtype == 1) {
+    err = grad ? run(bf16{}, bf16{}, Yes{}) : run(bf16{}, bf16{}, No{});
+  }
   return static_cast<int>(err);
 }

@@ -29,8 +29,10 @@
 // attention_grad_mma.cuh's tensor-core body (S, dP and the dq, dk, dv
 // products on mma.sync; the softmax gradient with its Philox draw on the
 // fragments in registers). The rows kernel (the forward's attention and the
-// backward's statistics pass) stays a SIMT kernel on the CUDA cores in
-// float32; float32 runs every attention kernel there.
+// backward's statistics pass) runs attention_rows_mma.cuh's tensor-core body
+// (S, dP and P.V on mma.sync; the mask, the rounded exponent and the Philox
+// draw on the fragments); float32 runs every attention kernel on the CUDA
+// cores.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence and scatter-added each query block's dk and

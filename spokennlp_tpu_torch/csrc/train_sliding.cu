@@ -29,10 +29,13 @@
 // the backward's gradient kernels band_dq and band_dkv run
 // attention_grad_mma.cuh's tensor-core body (S, dP and the dq, dk, dv
 // products on mma.sync; the softmax gradient with its Philox draw on the
-// fragments in registers). The rows kernels (the forward's attention and
-// the backward's statistics pass) and global_kv_grad_kernel, whose G global
-// rows are a small share of the work, stay SIMT kernels on the CUDA cores
-// in float32; float32 runs every attention kernel there.
+// fragments in registers). The band rows kernel (the forward's attention
+// and the backward's statistics pass) runs attention_rows_mma.cuh's
+// tensor-core body (S, dP and P.V on mma.sync; the mask, the rounded
+// exponent and the Philox draw on the fragments). global_rows_kernel and
+// global_kv_grad_kernel, whose G global rows are a small share of the work,
+// stay SIMT kernels on the CUDA cores in float32; float32 runs every
+// attention kernel there.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into

@@ -49,11 +49,13 @@ _SIGNATURES = {
     "spk_sliding_train_fwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_sliding_train_bwd": [_I] + [_P] * 29 + [_Z] + [_I] * 10 + [_F, _U, _F, _P],
     "spk_sliding_dropout_mask": [_P] * 4 + [_I] * 5 + [_U, _P],
+    "spk_sliding_rows": [_I] * 3 + [_P] * 6 + [_I] * 5 + [_U, _F, _P],
     "spk_bigbird_block": [_I] + [_P] * 15 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_bigbird_block_w8a8": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_bigbird_train_fwd": [_I] + [_P] * 13 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_bigbird_train_bwd": [_I] + [_P] * 24 + [_Z] + [_I] * 10 + [_F, _U, _F, _P],
     "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],
+    "spk_bigbird_rows": [_I] * 3 + [_P] * 8 + [_I] * 7 + [_U, _F, _P],
     "spk_ponet_block": [_I, _I] + [_P] * 24 + [_I] * 5 + [_F, _F, _P],
     "spk_int8_tile_smem": [_I],
     "spk_bf16_tile_smem": [_I],

@@ -185,6 +185,24 @@ def bigbird_model_regions(L: int, C: int, G: int, R: int, rand: np.ndarray,
     return reg
 
 
+def _bigbird_dense_keep(keep, b: int, reg, C: int, G: int, R: int, rand, rok):
+    """The four keep masks of ``bigbird_keep_masks`` for sequence b as one
+    dense (nh, L, L) mask over the regions ``reg`` of
+    ``bigbird_model_regions``."""
+    L, GC = reg.shape[0], G * C
+    win, gcol, rnd, grow = (m[b] for m in keep)
+    kd = ts.dense_band_keep(win, L, C) & (reg == WINDOW)
+    kd[:, :, :GC] |= gcol & (reg[:, :GC] == GLOBAL_COLUMN)
+    for i in range(G, L // C):
+        for r in range(R):
+            if rok[i, r]:
+                j = int(rand[i, r])
+                kd[:, i * C:(i + 1) * C, j * C:(j + 1) * C] = rnd[:, i * C:(i + 1) * C,
+                                                                  r * C:(r + 1) * C]
+    kd[:, :GC] = grow
+    return kd
+
+
 def bigbird_core_bwd_model(q, k, v, dctx, n_valid, tables, *, block_size: int, sm_scale: float,
                            stats=None, dropout_rate: float = 0.0, keep=None):
     """The rounding model of the BigBird backward's gradient kernels
@@ -201,22 +219,11 @@ def bigbird_core_bwd_model(q, k, v, dctx, n_valid, tables, *, block_size: int, s
     C, G, R, kp = block_size, tables.G, tables.R, 1.0 - dropout_rate
     rand, rok = tables.rand.cpu().numpy(), tables.rok.cpu().numpy()
     reg = torch.from_numpy(bigbird_model_regions(L, C, G, R, rand, rok)).to(dev)
-    GC, tr = G * C, lambda t: t.transpose(-1, -2)
+    tr = lambda t: t.transpose(-1, -2)
     outs = [torch.zeros(B, nh, L, hd, device=dev) for _ in range(3)]
     for b in range(B):
         allowed = (reg > 0) & (torch.arange(L, device=dev) < int(n_valid[b]))[None]
-        kd = None
-        if keep is not None:
-            win, gcol, rnd, grow = (m[b] for m in keep)
-            kd = ts.dense_band_keep(win, L, C) & (reg == WINDOW)
-            kd[:, :, :GC] |= gcol & (reg[:, :GC] == GLOBAL_COLUMN)
-            for i in range(G, L // C):
-                for r in range(R):
-                    if rok[i, r]:
-                        j = int(rand[i, r])
-                        kd[:, i * C:(i + 1) * C, j * C:(j + 1) * C] = rnd[:, i * C:(i + 1) * C,
-                                                                          r * C:(r + 1) * C]
-            kd[:, :GC] = grow
+        kd = None if keep is None else _bigbird_dense_keep(keep, b, reg, C, G, R, rand, rok)
         qb, kb, vb = (t[b].float() for t in (q, k, v))
         dc = dctx[b].float().transpose(0, 1)
         ds, pe = ts.dense_core_grad(qb @ tr(kb), dc @ tr(vb), allowed, kd,
@@ -239,6 +246,80 @@ def bigbird_core_model_dproj(buffers: dict, tables, *, block_size: int, sm_scale
         buffers["counts"].long()[:, 0], tables, block_size=block_size, sm_scale=sm_scale,
         stats=buffers["stats"], dropout_rate=dropout_rate, keep=keep)
     return torch.stack(grads, dim=2).reshape(B * L, -1)
+
+
+def bigbird_rows_model(q, k, v, n_valid, tables, *, block_size: int, dctx=None,
+                       dropout_rate: float = 0.0, keep=None, ctx_dtype=None):
+    """The rounding model of bigbird_rows_kernel, the attention the BigBird
+    blocks run, from the kernels' own q (scaled), k, v (B, nh, L, hd),
+    n_valid (B,), the pattern's ``bigbird_tables`` and the four keep masks
+    of ``bigbird_keep_masks``; with ``dctx`` (B, L, nh, hd) also
+    rowsum(dp p_eff). Dense over a sequence's keys (its regions of
+    ``bigbird_model_regions``) with float32 sums and no tiles; e rounded
+    where the kernel rounds it (``train_sliding.rows_exponent``, against the
+    row's true maximum), ctx rounded to ``ctx_dtype`` (q's dtype by
+    default). Returns ctx (B, L, nh, hd) and the row statistics (3, B, nh,
+    L) float32 = (m, D, rowsum(dp p_eff)) (-inf, 0, 0 for a row with no
+    allowed key; rs zero without dctx)."""
+    dt, dev = q.dtype, q.device
+    B, nh, L, hd = q.shape
+    C, G, R, kp = block_size, tables.G, tables.R, 1.0 - dropout_rate
+    rand, rok = tables.rand.cpu().numpy(), tables.rok.cpu().numpy()
+    reg = torch.from_numpy(bigbird_model_regions(L, C, G, R, rand, rok)).to(dev)
+    tr = lambda t: t.transpose(-1, -2)
+    ctx = torch.zeros(B, nh, L, hd, device=dev)
+    stats = torch.zeros(3, B, nh, L, device=dev)
+    for b in range(B):
+        allowed = (reg > 0) & (torch.arange(L, device=dev) < int(n_valid[b]))[None]
+        kd = None if keep is None else _bigbird_dense_keep(keep, b, reg, C, G, R, rand, rok)
+        qb, kb, vb = (t[b].float() for t in (q, k, v))
+        dp = None if dctx is None else dctx[b].float().transpose(0, 1) @ tr(vb)
+        c, m, D, rs = ts.rows_attend(qb @ tr(kb), vb, allowed, kd, dt, kp, dp)
+        ctx[b], stats[0, b], stats[1, b] = c, m, D
+        if rs is not None:
+            stats[2, b] = rs
+    return ctx.transpose(1, 2).to(ctx_dtype or dt), stats
+
+
+def bigbird_rows(qkv, counts, seed, tables, *, block_size: int, dctx=None,
+                 dropout_rate: float = 0.0, ctx_dtype=None):
+    """bigbird_rows_kernel alone: qkv (3, B, nh, L, hd) with q scaled, counts
+    (B, 2) int32 (n_valid first), seed (1,) int32 (read at a rate above 0),
+    the pattern's ``bigbird_tables`` and, for the statistics pass, dctx (B,
+    L, nh hd). Returns ctx (B, L, nh, hd) in ``ctx_dtype`` (qkv's dtype, or
+    float32 from bf16 q, k, v as the W8A8 block runs it) and, with dctx, the
+    row statistics (3, B, nh, L) float32 (else None). On the CPU it runs
+    ``bigbird_rows_model``; on the card the kernel, whose launches
+    ``bigbird_rows.launches`` counts. No model path calls it: the blocks
+    launch the kernel inside their own entries."""
+    _, B, nh, L, hd = qkv.shape
+    dt = qkv.dtype
+    ctx_dtype = ctx_dtype or dt
+    if qkv.device.type == "cpu":
+        keep = None
+        if dropout_rate > 0.0:
+            keep = bigbird_keep_masks(seed, B, nh, L, block_size, tables.G, tables.R,
+                                      dropout_rate)
+        ctx, stats = bigbird_rows_model(
+            qkv[0], qkv[1], qkv[2], counts.long()[:, 0], tables, block_size=block_size,
+            dropout_rate=dropout_rate, keep=keep, ctx_dtype=ctx_dtype,
+            dctx=None if dctx is None else dctx.reshape(B, L, nh, hd))
+        return ctx, None if dctx is None else stats
+    ctx = torch.empty(B, L, nh, hd, dtype=ctx_dtype, device=qkv.device)
+    stats = None if dctx is None else torch.empty(3, B, nh, L, device=qkv.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(qkv.device):
+        code = build.library().spk_bigbird_rows(
+            _DTYPES[dt], int(ctx_dtype != dt), int(dctx is not None), ptr(qkv), ptr(counts),
+            ptr(tables.rand), ptr(tables.rok), ptr(seed), ptr(dctx), ptr(ctx), ptr(stats), B, L,
+            nh, hd, block_size, tables.G, tables.R, dropout_threshold(dropout_rate),
+            1.0 - dropout_rate, _stream())
+    build.check(code, "bigbird_rows")
+    bigbird_rows.launches += 1
+    return ctx, stats
+
+
+bigbird_rows.launches = 0
 
 
 # ------------------------------------------------------------ kernel calls

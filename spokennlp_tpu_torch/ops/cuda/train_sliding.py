@@ -216,14 +216,13 @@ def dense_core_grad(s, dp, allowed, keep, stats, dt, keep_prob: float):
     rounded for dv), float32 tensors of dt values."""
     kept = allowed if keep is None else allowed & keep
     if stats is None:
-        m = torch.where(allowed, s, -torch.inf).amax(-1)
-        e = torch.where(allowed, _rounded(torch.exp(_rounded(s - m[..., None], dt)), dt), 0.0)
+        m, e = rows_softmax(s, allowed, dt)
         D = e.sum(-1)
         rs = (torch.where(kept, e, 0.0) * dp).sum(-1) / (D * keep_prob)
     else:
         m, D, rs = stats
     m, D, rs = m[..., None], D[..., None], rs[..., None]
-    e = _rounded(torch.exp(_rounded(s - m, dt)), dt)
+    e = rows_exponent(s, m, dt)
     p_eff = torch.where(kept, e / (D * keep_prob), 0.0)
     ds = torch.where(allowed, round_ds(p_eff * dp - (e / D) * rs, dt), 0.0)
     return ds, torch.where(allowed, round_p_eff(p_eff, dt), 0.0)
@@ -278,10 +277,7 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
         dc = dctx[b].float().transpose(0, 1)  # (nh, L, hd)
         dcl = dc.clone()
         dcl[:, :ng] = 0.0
-        kd = None
-        if keep is not None:
-            kd = dense_band_keep(keep[0][b], L, C)
-            kd[:, :, :ng] = keep[1][b][:, :, :ng]
+        kd = None if keep is None else _sliding_dense_keep(keep, b, L, C, ng)
         ds, pe = dense_core_grad(qb @ tr(kb), dcl @ tr(vb), sliding_model_allowed(L, C, nv, ng, dev),
                                  kd, None if stats is None else stats[:, b], dt, kp)
         outs[0][b] = _rounded(_rounded(ds @ kb, dt) * sm_scale, dt)
@@ -314,6 +310,133 @@ def sliding_core_model_dproj(buffers: dict, *, window: int, sm_scale: float,
         counts[:, 1], window=window, sm_scale=sm_scale, stats=buffers["stats"],
         gstats=buffers["gstats"], dropout_rate=dropout_rate, keep=keep)
     return torch.stack(grads, dim=2).reshape(B * L, -1)
+
+
+# ------------------------------------------------------ the rows kernels' model
+
+
+def rows_exponent(s: torch.Tensor, m: torch.Tensor, dt) -> torch.Tensor:
+    """e = exp(s - m) with s - m and e rounded to dt, where the rows kernels
+    round it (a planted fault of the card gate replaces it)."""
+    return _rounded(torch.exp(_rounded(s - m, dt)), dt)
+
+
+def rows_softmax(s: torch.Tensor, allowed: torch.Tensor, dt):
+    """(m, e) of the rows kernels on dense (..., rows, keys) float32 scores:
+    the row's maximum over its allowed keys (-inf with none) and
+    ``rows_exponent`` against it where allowed, else 0 (a planted fault of
+    the card gate replaces it)."""
+    m = torch.where(allowed, s, -torch.inf).amax(-1)
+    e = rows_exponent(s, torch.where(torch.isfinite(m), m, 0.0)[..., None], dt)
+    return m, torch.where(allowed, e, 0.0)
+
+
+def rows_attend(s, v, allowed, keep, dt, keep_prob: float, dp=None):
+    """(ctx, m, D, rs) of the rows kernels on dense float32 scores s (...,
+    rows, keys), values v (..., keys, hd), ``allowed`` and ``keep`` (bool or
+    None) and, for the statistics pass, dp = dctx v^T: D = sum e, ctx = (kept
+    e) . v / (D keep_prob), rs = rowsum(dp p_eff) / (D keep_prob), both zero
+    where D = 0 (rs None without dp). float32 sums, no tiles."""
+    m, e = rows_softmax(s, allowed, dt)
+    pe = e if keep is None else torch.where(keep, e, 0.0)
+    D = e.sum(-1)
+    live = D > 0
+    denom = torch.where(live, D * keep_prob, 1.0)
+    ctx = torch.where(live[..., None], (pe @ v) / denom[..., None], 0.0)
+    rs = None if dp is None else torch.where(live, (pe * dp).sum(-1) / denom, 0.0)
+    return ctx, m, D, rs
+
+
+def _sliding_dense_keep(keep, b: int, L: int, C: int, ng: int):
+    """The band and global-column keep masks of sequence b as one dense (nh,
+    L, L) mask of a local row's keys."""
+    kd = dense_band_keep(keep[0][b], L, C)
+    kd[:, :, :ng] = keep[1][b][:, :, :ng]
+    return kd
+
+
+def sliding_rows_model(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, dctx=None,
+                       dropout_rate: float = 0.0, keep=None, ctx_dtype=None):
+    """The rounding model of band_rows_kernel and, with ``glob_qkv``, of
+    global_rows_kernel over it: the attention the Longformer blocks run,
+    from the kernels' own q (scaled), k, v (B, nh, L, hd), glob_qkv = (qg
+    (B, nh, G, hd) scaled, kg, vg (B, nh, L, hd)) or None, the counts
+    n_valid, n_glob (B,) and the keep masks of ``sliding_keep_masks``. With
+    ``dctx`` (B, L, nh, hd), zero on global rows as the statistics pass
+    reads it, also rowsum(dp p_eff). Dense over a sequence's keys with
+    float32 sums and no tiles; e rounded where the kernels round it
+    (``rows_exponent``, against the row's true maximum), ctx rounded to
+    ``ctx_dtype`` (q's dtype by default). Returns ctx (B, L, nh, hd) and the
+    row statistics (3, B, nh, L) float32 = (m, D, rowsum(dp p_eff)) of the
+    band rows (-inf, 0, 0 for a row with no allowed key; rs zero without
+    dctx)."""
+    dt, dev = q.dtype, q.device
+    B, nh, L, hd = q.shape
+    C, kp = window // 2, 1.0 - dropout_rate
+    ctx = torch.zeros(B, nh, L, hd, device=dev)
+    stats = torch.zeros(3, B, nh, L, device=dev)
+    tr = lambda t: t.transpose(-1, -2)
+    for b in range(B):
+        nv, ng = int(n_valid[b]), int(n_glob[b])
+        qb, kb, vb = (t[b].float() for t in (q, k, v))
+        dp = None
+        if dctx is not None:
+            dcl = dctx[b].float().transpose(0, 1).clone()  # (nh, L, hd)
+            dcl[:, :ng] = 0.0
+            dp = dcl @ tr(vb)
+        kd = None if keep is None else _sliding_dense_keep(keep, b, L, C, ng)
+        c, m, D, rs = rows_attend(qb @ tr(kb), vb, sliding_model_allowed(L, C, nv, ng, dev), kd,
+                                  dt, kp, dp)
+        ctx[b], stats[0, b], stats[1, b] = c, m, D
+        if rs is not None:
+            stats[2, b] = rs
+        if glob_qkv is None or ng == 0:
+            continue
+        qg, kg, vg = (t[b].float() for t in glob_qkv)
+        allowed = (torch.arange(L, device=dev) < nv)[None].expand(ng, L)
+        ctx[b, :, :ng] = rows_attend(qg[:, :ng] @ tr(kg), vg, allowed,
+                                     None if keep is None else keep[2][b][:, :ng], dt, kp)[0]
+    return ctx.transpose(1, 2).to(ctx_dtype or dt), stats
+
+
+def sliding_rows(qkv, counts, seed, *, window: int, dctx=None, dropout_rate: float = 0.0,
+                 ctx_dtype=None):
+    """band_rows_kernel alone (no global rows): qkv (3, B, nh, L, hd) with q
+    scaled, counts (B, 2) int32 = (n_valid, n_glob), seed (1,) int32 (read at
+    a rate above 0) and, for the statistics pass, dctx (B, L, nh hd).
+    Returns ctx (B, L, nh, hd) in ``ctx_dtype`` (qkv's dtype, or float32
+    from bf16 q, k, v as the W8A8 blocks run it) and, with dctx, the row
+    statistics (3, B, nh, L) float32 (else None). On the CPU it runs
+    ``sliding_rows_model``; on the card the kernel, whose launches
+    ``sliding_rows.launches`` counts. No model path calls it: the blocks
+    launch the kernel inside their own entries."""
+    _, B, nh, L, hd = qkv.shape
+    dt = qkv.dtype
+    ctx_dtype = ctx_dtype or dt
+    if qkv.device.type == "cpu":
+        n, keep = counts.long(), None
+        if dropout_rate > 0.0:
+            keep = sliding_keep_masks(seed, B, nh, L, window,
+                                      global_columns(int(n[:, 1].max()), L), dropout_rate)
+        ctx, stats = sliding_rows_model(qkv[0], qkv[1], qkv[2], None, n[:, 0], n[:, 1],
+                                        window=window, dropout_rate=dropout_rate, keep=keep,
+                                        ctx_dtype=ctx_dtype,
+                                        dctx=None if dctx is None else dctx.reshape(B, L, nh, hd))
+        return ctx, None if dctx is None else stats
+    ctx = torch.empty(B, L, nh, hd, dtype=ctx_dtype, device=qkv.device)
+    stats = None if dctx is None else torch.empty(3, B, nh, L, device=qkv.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(qkv.device):
+        code = build.library().spk_sliding_rows(
+            _DTYPES[dt], int(ctx_dtype != dt), int(dctx is not None), ptr(qkv), ptr(counts),
+            ptr(seed), ptr(dctx), ptr(ctx), ptr(stats), B, L, nh, hd, window // 2,
+            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream())
+    build.check(code, "sliding_rows")
+    sliding_rows.launches += 1
+    return ctx, stats
+
+
+sliding_rows.launches = 0
 
 
 # ------------------------------------------------------------ kernel calls

@@ -302,6 +302,101 @@ def test_core_gate_rejects_the_planted_faults(fault):
     assert chip_smoke.core_bwd_excess(chip_smoke.core_bwd_readings(want, want, nh * hd), tol) == 0
 
 
+# ------------------------------------------ the rows kernel's rounding model
+
+
+@pytest.mark.parametrize("L,n_valid,r", [(64, 45, 3), (64, 13, 3), (32, 20, 3)])
+def test_rows_model_matches_jax_kernel_context_in_float32(L, n_valid, r):
+    """bigbird_rows_model in float32 against the context of the TPU kernel in
+    interpret mode, read through an identity output projection (H = nh hd,
+    zero bias, no LayerNorm): real rows to 1e-5 of the largest."""
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.bigbird_block_kernel import fused_bigbird_attention_block as jb
+
+    inp = _inputs(B, L, H, NH, seed=L + n_valid + 50, n_valid=n_valid)
+    inp["out_kernel"] = np.eye(H, dtype=np.float32).reshape(NH, HD, H)
+    inp["out_bias"] = np.zeros(H, np.float32)
+    kw = dict(block_size=BLOCK, num_global_blocks=G, num_random_blocks=r, seed=3,
+              sm_scale=HD**-0.5)
+    want = jb(jnp.asarray(inp["hidden"]), jnp.asarray(inp["attention_mask"]),
+              *(jnp.asarray(inp[k]) for k in ARGS[1:]), interpret=True, **kw)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    q, k, v = (torch.einsum("blh,hnd->bnld", t["hidden"], t["qkv_kernel"][:, i])
+               + t["qkv_bias"][i][None, :, None] for i in range(3))
+    tables = ba.bigbird_tables(L // BLOCK, G, r, 3, "cpu")
+    got, _ = tb.bigbird_rows_model(q * HD**-0.5, k, v, t["attention_mask"].sum(1), tables,
+                                   block_size=BLOCK)
+    live = inp["attention_mask"].astype(bool)
+    want = np.asarray(want)[live]
+    np.testing.assert_allclose(got.reshape(B, L, H).numpy()[live], want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("rate,r", [(0.0, 3), (0.1, 3), (0.1, 0)])
+def test_rows_model_statistics_match_autograd_of_plain_softmax(rate, r):
+    """float32: bigbird_rows_model's statistics against the plain softmax
+    over each row's allowed keys (its regions of bigbird_model_regions): m
+    its maximum, m + log D its logsumexp, and rowsum(dp p_eff) / (D
+    keep_prob) = sum_k p_k dL/dp_k from autograd of ctx = (kept p /
+    keep_prob) . v with the cotangent dctx; to 1e-5 of the largest."""
+    Lm, C, nh, hd = 128, 16, 2, 16
+    rng = np.random.default_rng(26 + r)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    n_valid = torch.tensor([Lm, 70])
+    q, k, v = (f(2, nh, Lm, hd) for _ in range(3))
+    dctx = f(2, Lm, nh, hd) * (torch.arange(Lm)[None] < n_valid[:, None])[..., None, None]
+    tables = ba.bigbird_tables(Lm // C, G, r, 4, "cpu")
+    keep = (tb.bigbird_keep_masks(torch.tensor([6], dtype=torch.int32), 2, nh, Lm, C, tables.G,
+                                  tables.R, rate) if rate else None)
+    _, stats = tb.bigbird_rows_model(q, k, v, n_valid, tables, block_size=C, dctx=dctx,
+                                     dropout_rate=rate, keep=keep)
+    rand, rok = tables.rand.numpy(), tables.rok.numpy()
+    reg = torch.from_numpy(tb.bigbird_model_regions(Lm, C, tables.G, tables.R, rand, rok))
+    for b in range(2):
+        allowed = (reg > 0) & (torch.arange(Lm) < int(n_valid[b]))[None]
+        s = torch.where(allowed, q[b] @ k[b].transpose(-1, -2), -torch.inf)
+        p = torch.softmax(s, -1).requires_grad_()
+        kept = p if keep is None else torch.where(
+            tb._bigbird_dense_keep(keep, b, reg, C, tables.G, tables.R, rand, rok), p, 0.0)
+        (gp,) = torch.autograd.grad(kept / (1.0 - rate) @ v[b], p, dctx[b].transpose(0, 1))
+        for got, want in ((stats[0, b], s.amax(-1)),
+                          (stats[0, b] + stats[1, b].log(), torch.logsumexp(s, -1)),
+                          (stats[2, b], (p * gp).sum(-1))):
+            np.testing.assert_allclose(got.numpy(), want.detach().numpy(), rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("fault", chip_smoke.ROWS_FAULTS)
+def test_rows_gate_rejects_the_planted_faults(fault):
+    """chip_smoke's limits of the rows kernels (ROWS_TOL) reject each planted
+    fault of the rounding model in bf16 at L=256 in blocks of 32 (2 global,
+    3 random): ctx and the statistics at rate 0.1, and the W8A8 mode's
+    float32 ctx, the model with the fault read against the model."""
+    Lm, C, nh, hd = 256, 32, 2, 64
+    sm = hd**-0.5
+    rng = np.random.default_rng(25)
+    f = lambda *s, scale=1.0: torch.from_numpy(rng.normal(size=s).astype(np.float32) * scale)
+    n_valid = torch.tensor([Lm, 200])
+    q, k, v = (f(2, nh, Lm, hd, scale=sc).to(torch.bfloat16) for sc in (sm, 1.0, 1.0))
+    dctx = (f(2, Lm, nh, hd) * (torch.arange(Lm)[None] < n_valid[:, None])[..., None, None])
+    tables = ba.bigbird_tables(Lm // C, G, R, 4, "cpu")
+    keep = tb.bigbird_keep_masks(torch.tensor([5], dtype=torch.int32), 2, nh, Lm, C, tables.G,
+                                 tables.R, 0.1)
+    for rate, ctx_dtype, dc in ((0.1, None, dctx.to(torch.bfloat16)), (0.0, torch.float32, None)):
+        model = lambda: tb.bigbird_rows_model(q, k, v, n_valid, tables, block_size=C, dctx=dc,
+                                              dropout_rate=rate, keep=keep if rate else None,
+                                              ctx_dtype=ctx_dtype)
+        want = model()
+        if dc is None:
+            want = (want[0], None)
+        with chip_smoke.planted(chip_smoke.rows_faults("bigbird_rows")[fault]):
+            bad = model()
+        tol = chip_smoke.rows_tol(want)
+        assert chip_smoke.core_bwd_excess(chip_smoke.rows_readings(want, bad), tol) > 1
+        assert chip_smoke.core_bwd_excess(chip_smoke.rows_readings(want, want), tol) == 0
+
+
 def test_explicit_backward_with_model_core_matches_jax_kernel_vjp_in_bf16():
     """bf16: the explicit plain backward with its core's gradient from the
     rounding model against the TPU kernel's custom VJP in interpret mode,
@@ -538,3 +633,51 @@ def test_bigbird_gradient_kernels_match_rounding_model_on_card(cuda, rate, Bc, L
             bad = chip_smoke.core_bwd_readings(runs[0]["dproj"], model(), nh * hd)
         print(f"  {fault}: {bad}")
         assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "w8a8", "stats"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,C,r,nv", CARD_SHAPES)
+def test_bigbird_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, Bc, Lc, Hc, nh, C,
+                                                            r, nv):
+    """bf16: bigbird_rows_kernel alone (tb.bigbird_rows) on the q, k, v,
+    counts and dctx of a backward of the block against bigbird_rows_model
+    within chip_smoke.ROWS_TOL, in each mode: a bf16 ctx, the W8A8 block's
+    float32 ctx, and the statistics pass (bf16 ctx and the statistics, which
+    must equal the backward's own); two runs give the same bits; each
+    planted fault of the model fails the limits."""
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + C + 7, n_valid=nv)
+    t = _card_tensors(inp, cuda, torch.bfloat16)
+    hd = Hc // nh
+    w = bb.card_weights(t["qkv_kernel"], t["qkv_bias"], t["out_kernel"], torch.bfloat16)
+    seed = torch.tensor([13], dtype=torch.int32, device=cuda)
+    tables = ba.bigbird_tables(Lc // C, 2, r, 6, cuda)
+    bufs = {}
+    tb.bigbird_train_bwd(t["hidden"], t["attention_mask"], seed, w,
+                         t["cotangent"].to(torch.bfloat16), tables, num_heads=nh, block_size=C,
+                         sm_scale=hd**-0.5, dropout_rate=rate, buffers=bufs)
+    qkv, counts = bufs["qkv"], bufs["counts"]
+    dctx = bufs["dctx"] if mode == "stats" else None
+    cdt = torch.float32 if mode == "w8a8" else None
+    runs = [tb.bigbird_rows(qkv, counts, seed, tables, block_size=C, dctx=dctx,
+                            dropout_rate=rate, ctx_dtype=cdt) for _ in range(2)]
+    if mode == "stats":
+        assert torch.equal(runs[0][1], bufs["stats"])
+        assert torch.equal(runs[0][0].reshape(Bc * Lc, -1), bufs["ctx"])
+    keep = (tb.bigbird_keep_masks(seed, Bc, nh, Lc, C, tables.G, tables.R, rate)
+            if rate else None)
+    model = lambda: tb.bigbird_rows_model(
+        qkv[0], qkv[1], qkv[2], counts.long()[:, 0], tables, block_size=C, dropout_rate=rate,
+        keep=keep, ctx_dtype=cdt, dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd))
+    readings = chip_smoke.rows_readings(runs[0], model())
+    print(f"{Bc}x{Lc} hd {hd} block {C} R {r} {mode} rate {rate}: {readings}")
+    tol = chip_smoke.rows_tol(runs[0])
+    assert chip_smoke.core_bwd_excess(readings, tol) <= 1, readings
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    for fault, patches in chip_smoke.rows_faults("bigbird_rows").items():
+        with chip_smoke.planted(patches):
+            bad = chip_smoke.rows_readings(runs[0], model())
+        print(f"  {fault}: {bad}")
+        assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
+

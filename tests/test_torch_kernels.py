@@ -537,6 +537,12 @@ def test_sass_verdict_on_canned_counts():
         f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
         f"{stack}18bigbird_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
         f"{stack}18bigbird_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{ns}16band_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 96],
+        f"{ns}16band_rows_kernelI{bf}Li64ELb0EfEEvPKT_": [0, 0, 96],
+        f"{ns}16band_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_": [0, 0, 128],
+        f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 0, 0],
+        f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 96],
+        f"{ns}19bigbird_rows_kernelIfLi64ELb1EfEEvPKT_": [0, 0, 0],
     }
     assert chip_smoke.sass_verdict(good) == []
 
@@ -563,10 +569,15 @@ def test_sass_verdict_on_canned_counts():
     # with it
     assert with_counts(f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
     assert with_counts(f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_", [0, 0, 8])
+    # the rows kernels: bf16 (the W8A8 mode's float32 ctx among them) without
+    # HMMA, float32 with it
+    assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 0, 0])
+    assert with_counts(f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_", [0, 0, 0])
+    assert with_counts(f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_", [0, 0, 8])
     # a stray function with HMMA or IDP4A, an int8 tile kernel without IMMA
     assert with_counts(f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i", [0, 0, 4])
-    assert with_counts(f"{stack}16band_rows_kernelI{bf}Li64ELb1EEEvPKT_", [0, 0, 4])
-    assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64EEEvPKT_", [0, 3, 0])
+    assert with_counts(f"{ns}17global_rows_kernelI{bf}Li64EEEvPKT_", [0, 2, 4])
+    assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_", [0, 3, 128])
     assert with_counts(f"{ns}18gemm_act_i8_kernelI{bf}EEvPKa", [0, 0, 0])
 
 

@@ -293,6 +293,100 @@ def test_core_gate_rejects_the_planted_faults(fault):
                                       chip_smoke.BWD_CORE_TOL["sliding_train_bwd"]) == 0
 
 
+# ------------------------------------------ the rows kernels' rounding model
+
+
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_rows_model_matches_jax_kernel_context_in_float32(global_rows):
+    """sliding_rows_model (with the global rows over it) in float32 against
+    the context of the TPU kernel in interpret mode, read through an
+    identity output projection (H = nh hd, zero bias, no LayerNorm): real
+    rows to 1e-5 of the largest."""
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.sliding_block import fused_sliding_attention_block as jax_block
+
+    inp = _inputs(B, L, H, NH, seed=41, global_rows=global_rows)
+    inp["out_kernel"] = np.eye(H, dtype=np.float32).reshape(NH, HD, H)
+    inp["out_bias"] = np.zeros(H, np.float32)
+    kw = dict(sm_scale=HD**-0.5, window=WINDOW, max_globals=16, global_rows=global_rows)
+    want = jax_block(*(jnp.asarray(inp[k]) for k in ("hidden", "attention_mask", "global_mask")),
+                     *(jnp.asarray(inp[k]) for k in ARGS[1:]), interpret=True, **kw)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    x, G = t["hidden"], sb.global_columns(16, L)
+    proj = lambda w, b: torch.einsum("blh,hnd->bnld", x, w) + b[None, :, None]
+    sm = HD**-0.5
+    q, k, v = (proj(t["qkv_kernel"][:, i], t["qkv_bias"][i]) for i in range(3))
+    gq, gk, gv = (proj(t["gqkv_kernel"][:, i], t["gqkv_bias"][i]) for i in range(3))
+    n_valid, n_glob = sb._counts(t["attention_mask"], t["global_mask"], G, global_rows)
+    got, _ = ts.sliding_rows_model(q * sm, k, v, (gq[:, :, :G] * sm, gk, gv) if global_rows
+                                   else None, n_valid, n_glob, window=WINDOW)
+    live = inp["attention_mask"].astype(bool)
+    want = np.asarray(want)[live]
+    np.testing.assert_allclose(got.reshape(B, L, H).numpy()[live], want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rows_model_statistics_match_autograd_of_plain_softmax(rate):
+    """float32: sliding_rows_model's statistics against the plain softmax
+    over each local row's allowed keys (band and global columns): m its
+    maximum, m + log D its logsumexp, and rowsum(dp p_eff) / (D keep_prob)
+    = sum_k p_k dL/dp_k from autograd of ctx = (kept p / keep_prob) . v
+    with the cotangent dctx, zero on global rows; to 1e-5 of the largest."""
+    Bm, Lm, nh, hd, window = 2, 64, 2, 16, 32
+    C, G = window // 2, sb.global_columns(16, Lm)
+    n_valid, n_glob = torch.tensor([Lm, 40]), torch.tensor([1, 2])
+    (q, k, v, *_), dctx = _core_leaves(Bm, Lm, nh, hd, 43, n_valid)
+    q, k, v = (t.detach().transpose(1, 2) for t in (q, k, v))
+    keep = (ts.sliding_keep_masks(torch.tensor([8], dtype=torch.int32), Bm, nh, Lm, window, G,
+                                  rate) if rate else None)
+    _, stats = ts.sliding_rows_model(q, k, v, None, n_valid, n_glob, window=window, dctx=dctx,
+                                     dropout_rate=rate, keep=keep)
+    for b in range(Bm):
+        ng = int(n_glob[b])
+        allowed = ts.sliding_model_allowed(Lm, C, int(n_valid[b]), ng, "cpu")
+        s = torch.where(allowed, q[b] @ k[b].transpose(-1, -2), -torch.inf)
+        p = torch.softmax(s, -1).requires_grad_()
+        kept = p if keep is None else torch.where(ts._sliding_dense_keep(keep, b, Lm, C, ng),
+                                                  p, 0.0)
+        dc = dctx[b].transpose(0, 1).clone()
+        dc[:, :ng] = 0.0
+        (gp,) = torch.autograd.grad(kept / (1.0 - rate) @ v[b], p, dc)
+        for got, want in ((stats[0, b], s.amax(-1)),
+                          (stats[0, b] + stats[1, b].log(), torch.logsumexp(s, -1)),
+                          (stats[2, b], (p * gp).sum(-1))):
+            np.testing.assert_allclose(got.numpy(), want.detach().numpy(), rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("fault", chip_smoke.ROWS_FAULTS)
+def test_rows_gate_rejects_the_planted_faults(fault):
+    """chip_smoke's limits of the rows kernels (ROWS_TOL) reject each planted
+    fault of the rounding model in bf16 at L=256, window 64, CLS global:
+    ctx and the statistics at rate 0.1, and the W8A8 mode's float32 ctx,
+    the model with the fault read against the model."""
+    Bm, Lm, nh, hd, window = 2, 256, 2, 64, 64
+    G, sm = sb.global_columns(16, Lm), hd**-0.5
+    n_valid, n_glob = torch.tensor([Lm, 200]), torch.tensor([1, 1])
+    (q, k, v, *_), dctx = _core_leaves(Bm, Lm, nh, hd, 45, n_valid)
+    q, k, v = ((t.detach() * sc).to(torch.bfloat16).transpose(1, 2)
+               for t, sc in ((q, sm), (k, 1.0), (v, 1.0)))
+    keep = ts.sliding_keep_masks(torch.tensor([3], dtype=torch.int32), Bm, nh, Lm, window, G, 0.1)
+    for rate, ctx_dtype, dc in ((0.1, None, dctx.to(torch.bfloat16)), (0.0, torch.float32, None)):
+        model = lambda: ts.sliding_rows_model(q, k, v, None, n_valid, n_glob, window=window,
+                                              dctx=dc, dropout_rate=rate,
+                                              keep=keep if rate else None, ctx_dtype=ctx_dtype)
+        want = model()
+        if dc is None:
+            want = (want[0], None)
+        with chip_smoke.planted(chip_smoke.rows_faults("band_rows")[fault]):
+            bad = model()
+        tol = chip_smoke.rows_tol(want)
+        assert chip_smoke.core_bwd_excess(chip_smoke.rows_readings(want, bad), tol) > 1
+        assert chip_smoke.core_bwd_excess(chip_smoke.rows_readings(want, want), tol) == 0
+
+
 @pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
 def test_explicit_backward_with_model_core_matches_jax_kernel_vjp_in_bf16(global_rows):
     """bf16: the explicit plain backward with its core's gradient from the
@@ -561,3 +655,51 @@ def test_sliding_gradient_kernels_match_rounding_model_on_card(cuda, rate, globa
             bad = chip_smoke.core_bwd_readings(runs[0]["dproj"], model(), nh * hd)
         print(f"  {fault}: {bad}")
         assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "w8a8", "stats"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,window", CARD_SHAPES)
+def test_sliding_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, Bc, Lc, Hc, nh,
+                                                            window):
+    """bf16: band_rows_kernel alone (ts.sliding_rows) on the q, k, v, counts
+    and dctx of a backward of the block (CLS and a second global token)
+    against sliding_rows_model within chip_smoke.ROWS_TOL, in each mode: a
+    bf16 ctx, the W8A8 blocks' float32 ctx, and the statistics pass (bf16
+    ctx and the statistics, which must equal the backward's own); two runs
+    give the same bits; each planted fault of the model fails the limits."""
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + 7)
+    t = _card_tensors(inp, cuda, torch.bfloat16)
+    hd = Hc // nh
+    w = sb.card_weights(*(t[k] for k in ARGS[1:6]), torch.bfloat16)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda)
+    bufs = {}
+    ts.sliding_train_bwd(t["hidden"], t["attention_mask"], t["global_mask"], seed, w,
+                         t["cotangent"].to(torch.bfloat16), num_heads=nh, window=window,
+                         max_globals=16, global_rows=True, sm_scale=hd**-0.5, dropout_rate=rate,
+                         buffers=bufs)
+    qkv, counts = bufs["qkv"], bufs["counts"]
+    dctx = bufs["dctx"] if mode == "stats" else None
+    cdt = torch.float32 if mode == "w8a8" else None
+    runs = [ts.sliding_rows(qkv, counts, seed, window=window, dctx=dctx, dropout_rate=rate,
+                            ctx_dtype=cdt) for _ in range(2)]
+    if mode == "stats":
+        assert torch.equal(runs[0][1], bufs["stats"])
+    n = counts.long()
+    keep = (ts.sliding_keep_masks(seed, Bc, nh, Lc, window, sb.global_columns(16, Lc), rate)
+            if rate else None)
+    model = lambda: ts.sliding_rows_model(
+        qkv[0], qkv[1], qkv[2], None, n[:, 0], n[:, 1], window=window, dropout_rate=rate,
+        keep=keep, ctx_dtype=cdt, dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd))
+    readings = chip_smoke.rows_readings(runs[0], model())
+    print(f"{Bc}x{Lc} hd {hd} window {window} {mode} rate {rate}: {readings}")
+    tol = chip_smoke.rows_tol(runs[0])
+    assert chip_smoke.core_bwd_excess(readings, tol) <= 1, readings
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    for fault, patches in chip_smoke.rows_faults("band_rows").items():
+        with chip_smoke.planted(patches):
+            bad = chip_smoke.rows_readings(runs[0], model())
+        print(f"  {fault}: {bad}")
+        assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
+

@@ -14,11 +14,13 @@
    attention core and the W8A8 global query holds IDP4A (__dp4a); every
    bf16 instantiation of the dense attention core (attn_core_kernel), of the
    forward GEMM tile's kernels (gemm_bias_act, qkv_proj,
-   gemm_bias_residual_ln), of the rows kernels (band_rows, bigbird_rows) and
-   of the two stack entries (or their out-of-line items) holds HMMA, the
-   tensor cores' bf16 product, and no float32 one, transposed-weight GEMM or
-   other function does (sass_verdict). Prints the
-   ptxas registers and spills of those functions too.
+   gemm_bias_residual_ln), of the rows kernels (band_rows, bigbird_rows,
+   attn_rows), of the training gradient kernels (band, bigbird and attn dq
+   and dkv) and of the two stack entries (or their out-of-line items) holds
+   HMMA, the tensor cores' product, and no float32 one, transposed-weight
+   GEMM or other function does but kernel 9's 3xTF32 tile kernels
+   (gemm_bias_act_f32tc, residual_ln_f32tc), which must (sass_verdict).
+   Prints the ptxas registers and spills of those functions too.
 3. Inference kernel phase: each inference kernel against its plain PyTorch
    version at the main path's shapes (B=32, L=512, H=768, 12 heads of 64,
    I=3072), bfloat16 and float32, with padded tails and two packed segments;
@@ -56,7 +58,12 @@
    dropout rate 0 and at 0.1 with the kernels' mask replayed in the plain
    version: the output, dx and every weight and bias gradient against the
    plain version's output and autograd gradients; the keep fraction of one
-   (B, nh, L, L) mask within 1e-3 of 0.9; kernel and plain times.
+   (B, nh, L, L) mask within 1e-3 of 0.9; kernel and plain times, and
+   torch.matmul on the blocks' products (library column). In bf16 the
+   attention backward's dproj against the rounding model of its gradient
+   kernels (BWD_CORE_TOL, three planted faults each failing it), two runs'
+   dproj bit-identical, its forward and backward split by kernel name and
+   its peak memory.
 5. Inference main path: topic-segmentation inference through the port's CLI
    (cli/run_inference.main) at BERT-base widths in bfloat16 on a synthetic
    wiki_section corpus of several hundred 512-token windows, with
@@ -129,8 +136,11 @@
    non-contiguous ids), against its plain version on real rows (float32
    1e-4 and bfloat16 3e-2 of the largest output, W8A8 as the W8A8 blocks);
    four planted faults (the XLA mixer's SMP with pads in segment 0, no
-   second max, the LMP window shifted by one, GA's mean over all rows) each
-   failing the check; kernel, plain and bound times.
+   second max, the LMP window shifted by one, GA's mean over all rows, and
+   in float32 the six products in plain TF32) each failing the check;
+   kernel, plain and bound times (float32's bound with its products on the
+   3xTF32 tensor cores, and on the CUDA cores beside it) and torch.matmul
+   (or torch._int_mm) on the six products.
 16. MUG main path: cli/run_mug.main, Track 1, from a PoNet-base checkpoint
    written by models/checkpoint_io.save_checkpoint (ponet_mixer_impl
    "fused"; a second run with quantize "w8a8"), on a synthetic MUG corpus:
@@ -183,7 +193,9 @@
    and, for the forwards, scaled_dot_product_attention with the boolean
    mask of the allowed keys (dense) on the same q, k, v: rows_ms,
    rows_bound_ms and rows_library_ms of the kernels line's rows 7, 8, 12
-   and 13.
+   and 13. The same for attn_rows (row 10's rows kernel) at B=32, L=512 as
+   its forward and statistics pass at dropout 0.1, then row 10's gradient
+   kernels alone (attn_dkv, attn_dq: dkv_ms, dq_ms, grad_bound_ms).
 21. Prints the serving runs, the Longformer, BigBird, MUG and W8A8
    long-context runs and the kernels as JSON lines, the card's name and
    power limit, and last {"ok": true, "device": {...}}.
@@ -245,8 +257,10 @@ KEEP_FRACTION_TOL = 1e-3
 TRAIN_STEPS = 3  # optimizer steps of the training main path
 LOSS_RTOL, MIN_GRAD_COSINE = 1e-2, 0.99
 # the card's peaks (NVIDIA H100 SXM data sheet): dense bf16 and int8 tensor
-# cores, float32 on the CUDA cores, HBM bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# cores, float32 on the CUDA cores, HBM bandwidth; and float32 products as
+# 3xTF32 takes them on the TF32 tensor cores (495 TFLOP/s dense), three TF32
+# products each (kernel 9's float32 tile, csrc/tf32x3_gemm.cuh)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 # The W8A8 blocks against their plain versions on valid rows: the same
 # integer products and float32 epilogues, rounded where the TPU kernel
@@ -770,24 +784,35 @@ def check_backward_gemms(name: str, got: dict, plain) -> float:
 # spread, but 2.5e-3 or more in norm, where the honest readings stay at
 # 2.0e-4 or less: r = 1e-3. Each of BWD_CORE_FAULTS, planted in the model,
 # must fail the gate (the rounding faults through its norm part).
-BWD_CORE_TOL = {"sliding_train_bwd": (5e-3, 1e-3), "bigbird_train_bwd": (5e-3, 1e-3)}
+BWD_CORE_TOL = {"sliding_train_bwd": (5e-3, 1e-3), "bigbird_train_bwd": (5e-3, 1e-3),
+                "attention_train_bwd": (5e-3, 1e-3)}
 BWD_CORE_FAULTS = ("dS left unrounded", "p_eff unrounded in dv", "a key tile dropped")
 DPROJ_SLOTS = ("dq", "dk", "dv", "dqg", "dkg", "dvg")
 
 
 def core_bwd_faults(name: str) -> dict:
     """{fault: patches for planted()}: BWD_CORE_FAULTS in row ``name``'s
-    rounding model: dS or p_eff (for dv) not rounded to bf16; the Longformer
-    model without the band key tile that starts in the second query tile's
-    rows, for those rows; the BigBird model without the first live random
-    key block's first 64 keys (else a window block's) for its query block."""
+    rounding model: dS or p_eff (for dv) not rounded to bf16; the dense
+    model without the second key tile for the second query tile's rows; the
+    Longformer model without the band key tile that starts in the second
+    query tile's rows, for those rows; the BigBird model without the first
+    live random key block's first 64 keys (else a window block's) for its
+    query block."""
+    from spokennlp_tpu_torch.ops.cuda import attention_models as am
     from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
     from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
 
     unrounded = lambda real, x, dt: x.float()
-    faults = {BWD_CORE_FAULTS[0]: [(ts, "round_ds", None, unrounded)],
-              BWD_CORE_FAULTS[1]: [(ts, "round_p_eff", None, unrounded)]}
-    if name == "sliding_train_bwd":
+    faults = {BWD_CORE_FAULTS[0]: [(am, "round_ds", None, unrounded)],
+              BWD_CORE_FAULTS[1]: [(am, "round_p_eff", None, unrounded)]}
+    if name == "attention_train_bwd":
+        def drop(real, L, device):
+            allowed = real(L, device).clone()
+            allowed[64:128, 64:128] = False
+            return allowed
+        faults[BWD_CORE_FAULTS[2]] = [(tb, "dense_model_allowed", None, drop)]
+    elif name == "sliding_train_bwd":
         def drop(real, L, C, n_valid, n_glob, device):
             allowed = real(L, C, n_valid, n_glob, device).clone()
             q0 = 64
@@ -886,10 +911,10 @@ ROWS_STATS = ("m", "D", "rs")
 def running_max_softmax(real, s, allowed, dt):
     """A planted fault of the rows kernels' model: e rounded against the
     running maximum over key tiles of 64 (an online softmax's), then scaled
-    to the row's maximum, in place of ``train_sliding.rows_softmax``."""
+    to the row's maximum, in place of ``attention_models.rows_softmax``."""
     import torch
 
-    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda import attention_models as am
 
     ninf = torch.tensor(-torch.inf, device=s.device)
     safe = lambda m: torch.where(torch.isfinite(m), m, 0.0)
@@ -900,23 +925,24 @@ def running_max_softmax(real, s, allowed, dt):
         sl, ok = s[..., k0:k0 + 64], allowed[..., k0:k0 + 64]
         run = torch.maximum(run, torch.where(ok, sl, ninf).amax(-1))
         scale = torch.exp(safe(run) - safe(m))[..., None]
-        e[..., k0:k0 + 64] = torch.where(ok, ts.rows_exponent(sl, safe(run)[..., None], dt) * scale,
+        e[..., k0:k0 + 64] = torch.where(ok, am.rows_exponent(sl, safe(run)[..., None], dt) * scale,
                                          0.0)
     return m, e
 
 
 def rows_faults(name: str) -> dict:
     """{fault: patches for planted()}: ROWS_FAULTS in the rounding model of
-    ``name`` (band_rows or bigbird_rows): e not rounded; a key tile dropped
-    (core_bwd_faults' tile of the same row); running_max_softmax."""
+    ``name`` (band_rows, bigbird_rows or attn_rows): e not rounded; a key
+    tile dropped (core_bwd_faults' tile of the same row); running_max_softmax."""
     import torch
 
-    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda import attention_models as am
 
-    row = "sliding_train_bwd" if name == "band_rows" else "bigbird_train_bwd"
-    return {ROWS_FAULTS[0]: [(ts, "rows_exponent", None, lambda real, s, m, dt: torch.exp(s - m))],
+    row = {"band_rows": "sliding_train_bwd", "bigbird_rows": "bigbird_train_bwd",
+           "attn_rows": "attention_train_bwd"}[name]
+    return {ROWS_FAULTS[0]: [(am, "rows_exponent", None, lambda real, s, m, dt: torch.exp(s - m))],
             ROWS_FAULTS[1]: core_bwd_faults(row)[BWD_CORE_FAULTS[2]],
-            ROWS_FAULTS[2]: [(ts, "rows_softmax", None, running_max_softmax)]}
+            ROWS_FAULTS[2]: [(am, "rows_softmax", None, running_max_softmax)]}
 
 
 def rows_readings(got, want) -> dict:
@@ -972,13 +998,15 @@ def check_rows(label: str, name: str, got, model) -> dict:
             "norm_reading": max(n for _, n in readings.values()), "faults": faults}
 
 
-def rows_qkv(randn, Bq: int, Lq: int, dt):
-    """(3, B, nh, L, hd) q (scaled), k, v in dt from a random projection."""
+def rows_qkv(randn, Bq: int, Lq: int, dt, scale_q: bool = True):
+    """(3, B, nh, L, hd) q (scaled by hd^-0.5 when scale_q), k, v in dt from
+    a random projection."""
     import torch
 
     hidden, w = randn(Bq, Lq, H), randn(H, 3, NH, HD, scale=H**-0.5)
     qkv = torch.einsum("blh,hsnd->sbnld", hidden, w) + randn(3, 1, NH, 1, HD, scale=0.02)
-    qkv[0] *= HD**-0.5
+    if scale_q:
+        qkv[0] *= HD**-0.5
     return qkv.to(dt).contiguous()
 
 
@@ -987,14 +1015,17 @@ def rows_kernel_phase(device, rows: dict):
     band_rows at B=8, L=2048 (CLS global) as kernel 7 (bf16 ctx), kernel 7
     W8A8 (float32 ctx), row 12's forward (dropout 0.1) and its statistics
     pass (kGrad, with dctx); bigbird_rows at B=4, L=4096 as kernel 8 and 8
-    W8A8 and at B=8, L=2048 as row 13's forward and statistics pass. Each
-    held to its rounding model (check_rows), timed (rows_ms) beside its
-    bound (rows_bound_ms: the core's operations, 4 hd a (row, key) pair and
-    2 hd more for dP, over the bf16 peak, or q, k, v, ctx and in the
-    statistics pass dctx and the statistics over the memory rate) and, for
-    the forwards, scaled_dot_product_attention on the same q, k, v with the
-    boolean mask of the allowed keys, dense over L x L (rows_library_ms).
-    Adds those keys to the bf16 rows of kernels 7, 8, 12 and 13."""
+    W8A8 and at B=8, L=2048 as row 13's forward and statistics pass;
+    attn_rows at B=32, L=512 as row 10's forward and statistics pass (dropout
+    0.1). Each held to its rounding model (check_rows), timed (rows_ms)
+    beside its bound (rows_bound_ms: the core's operations, 4 hd a (row,
+    key) pair and 2 hd more for dP, over the bf16 peak, or q, k, v, ctx and
+    in the statistics pass dctx and the statistics over the memory rate)
+    and, for the forwards, scaled_dot_product_attention on the same q, k, v
+    with the boolean mask of the allowed keys, dense over L x L
+    (rows_library_ms). Then row 10's gradient kernels alone, attn_dkv and
+    attn_dq (dkv_ms, dq_ms, beside grad_bound_ms). Adds those keys to the
+    bf16 rows of kernels 7, 8, 10, 12 and 13."""
     import torch
     import torch.nn.functional as F
 
@@ -1029,11 +1060,47 @@ def rows_kernel_phase(device, rows: dict):
               f"({b['bound_by']}){lib}")
         return gate
 
-    def sdpa_ms(qkv, allowed, label):
+    def sdpa_ms(qkv, allowed, label, scale=1.0):
         q, k, v = qkv.unbind(0)
         return library_time(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
-                                                                    scale=1.0),
+                                                                    scale=scale),
                             f"{label} (scaled_dot_product_attention with the mask, dense)")
+
+    # attn_rows at row 10's shape, then its gradient kernels alone
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    seg, sm = segments(device), HD**-0.5
+    qkv = rows_qkv(randn, B, L, bf16, scale_q=False)
+    dctx = randn(B, L, HN).to(bf16)
+    allowed = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]
+    lib = sdpa_ms(qkv, allowed, "attn_rows", scale=sm)
+    del allowed
+    keep = tb.dropout_keep_mask(seed, B, NH, L, DROPOUT)
+    for label, name, dc, lib_ms in (
+            ("attn_rows (row 10 forward, dropout 0.1)", "attention_train_fwd", None, lib),
+            ("attn_rows (row 10 statistics pass, dropout 0.1)", "attention_train_bwd", dctx,
+             None)):
+        run(label, "attn_rows", rows[name, "bfloat16"],
+            lambda: tb.attention_rows(qkv, seg, seed, sm_scale=sm, dctx=dc, dropout_rate=DROPOUT),
+            lambda: tb.attention_rows_model(
+                qkv[0], qkv[1], qkv[2], seg, sm_scale=sm, dropout_rate=DROPOUT, keep=keep,
+                dctx=None if dc is None else dc.reshape(B, L, NH, HD)),
+            B * L * L, qkv, dc, lib_ms)
+    stats = tb.attention_rows(qkv, seg, seed, sm_scale=sm, dctx=dctx, dropout_rate=DROPOUT)[1]
+    grad = lambda which, out=None: tb.attention_grad(qkv, seg, seed, dctx, stats, sm_scale=sm,
+                                                     dropout_rate=DROPOUT, which=which, out=out)
+    out = grad(1)
+    row = rows["attention_train_bwd", "bfloat16"]
+    row.update(dkv_ms=time_ms(lambda: grad(1, out)), dq_ms=time_ms(lambda: grad(2, out)))
+    # S, dP and the dq, dk, dv products, 10 hd a (row, key) pair of every
+    # head; q, k, v, dctx and the statistics read, dq, dk, dv written
+    row["grad_bound_ms"] = bound(10 * NH * HD * B * L * L,
+                                 7 * nbytes(dctx) + nbytes(stats))["bound_ms"]
+    print(f"kernel attn_dkv (row 10): {row['dkv_ms']:.3f} ms alone, attn_dq "
+          f"{row['dq_ms']:.3f} ms alone (from the stored dS tiles); the pair's bound "
+          f"{row['grad_bound_ms']:.3f} ms")
+    del qkv, dctx, keep, stats, out
+    torch.cuda.empty_cache()
 
     # band_rows at kernel 7's and row 12's shape
     mask, glob = sliding_masks(device)
@@ -1172,17 +1239,23 @@ IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # Longformer and BigBird backwards' gradient kernels (attention_grad_mma.cuh),
 # the sliding-window and BigBird rows kernels (attention_rows_mma.cuh: kernels
 # 7 and 8 in both modes, rows 12 and 13's forwards and statistics passes;
-# global_rows_kernel stays on the CUDA cores) and the stack entries, whose
+# global_rows_kernel stays on the CUDA cores), row 10's three cores (its
+# rows kernel on attention_rows_mma.cuh, its gradient kernels on
+# attention_grad_mma.cuh) and the stack entries, whose
 # bf16 core and GEMMs run out of line in stack_core_item and
 # STACK_GEMM_ITEMS. Each bf16 instantiation must hold
 # HMMA (a stack entry itself or in its items); the float32 ones (with
 # attn_core_simt_kernel, the float32 core) none; and no other function may
-# hold it
+# hold it but TF32_HMMA_KERNELS
 HMMA_KERNELS = ("attn_core_kernel", "gemm_bias_act_kernel", "qkv_proj_kernel",
                 "gemm_bias_residual_ln_kernel", "encoder_stack_kernel", "encoder_stack_i8_kernel",
                 "weight_grad_kernel", "act_and_grad_kernel", "band_dq_kernel", "band_dkv_kernel",
                 "bigbird_dq_kernel", "bigbird_dkv_kernel", "band_rows_kernel",
-                "bigbird_rows_kernel")
+                "bigbird_rows_kernel", "attn_rows_kernel", "attn_dq_kernel", "attn_dkv_kernel")
+# kernel 9's float32 products on the 3xTF32 tile (csrc/tf32x3_gemm.cuh): float
+# kernels whose products run on the TF32 tensor cores (HMMA in SASS); each
+# must hold HMMA
+TF32_HMMA_KERNELS = ("gemm_bias_act_f32tc_kernel", "residual_ln_f32tc_kernel")
 # the bf16 stack's out-of-line items (stack_block.cu): stack_core_item, a
 # template on the head dim, and the three GEMM items (no template)
 STACK_GEMM_ITEMS = ("stack_qkv_item", "stack_gemm_act_item", "stack_residual_ln_item")
@@ -1190,7 +1263,8 @@ CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kerne
                "gemm_bias_act_kernel", "qkv_proj_kernel", "gemm_bias_residual_ln_kernel",
                "weight_grad_kernel", "act_and_grad_kernel", "band_dq_kernel", "band_dkv_kernel",
                "global_kv_grad_kernel", "bigbird_dq_kernel", "bigbird_dkv_kernel",
-               "band_rows_kernel", "global_rows_kernel", "bigbird_rows_kernel")
+               "band_rows_kernel", "global_rows_kernel", "bigbird_rows_kernel",
+               "attn_rows_kernel", "attn_dq_kernel", "attn_dkv_kernel") + TF32_HMMA_KERNELS
 
 
 def template_args(name: str, kernel: str) -> str:
@@ -1262,8 +1336,9 @@ def sass_verdict(counts: dict) -> list:
     counts} (one entry a function of the disassembly): every int8 tile
     kernel (IMMA_KERNELS) holds IMMA; no function outside IDP4A_ALLOWED holds
     IDP4A; each bf16 instantiation of HMMA_KERNELS holds HMMA (a bf16 stack
-    entry itself or in its out-of-line items), no float32 one does, and no
-    other function does. Returns the failures, [] when it passes."""
+    entry itself or in its out-of-line items), no float32 one does; each of
+    TF32_HMMA_KERNELS holds HMMA; and no other function does. Returns the
+    failures, [] when it passes."""
     bad = []
     for p in IMMA_KERNELS:
         found = [n for n in counts if p in n]
@@ -1299,11 +1374,17 @@ def sass_verdict(counts: dict) -> list:
                 bad.append(f"{n} holds HMMA: its products must stay on the CUDA cores")
             if not f32 and not hmma:
                 bad.append(f"{n} has no HMMA: its bf16 products do not run on the tensor cores")
+    for p in TF32_HMMA_KERNELS:
+        found = [n for n in counts if p in n]
+        if not found:
+            bad.append(f"cuobjdump -sass shows no function for {p}")
+        bad += [f"{n} has no HMMA: kernel 9's float32 products do not run on the tensor cores"
+                for n in found if not counts[n][2]]
     stray = [n for n, c in counts.items()
              if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS + ("stack_core_item",))
-             and n not in gemm_items]
+             and n not in gemm_items and not any(p in n for p in TF32_HMMA_KERNELS)]
     if stray:
-        bad.append(f"HMMA outside the bf16 tensor-core functions: {stray}")
+        bad.append(f"HMMA outside the tensor-core functions: {stray}")
     return bad
 
 
@@ -2076,13 +2157,17 @@ def train_kernel_phase(device) -> dict:
         in_bytes = nbytes(hidden, seg, wqkv, bqkv, wo, bo)
         qkv_flops, core = 2 * M * H * 3 * HN, 4 * B * NH * L * L * HD
         fwd.update(bound(qkv_flops + core + 2 * M * HN * H, in_bytes + nbytes(hidden), dtype))
+        c2 = randn(M, HN).to(dt)
+        x2 = hidden.reshape(M, H)
+        fwd["library_ms"] = library_time(
+            lambda: (x2 @ wqkv, c2 @ wo),
+            f"attention_train_fwd {dtype} (torch.matmul on its two products)")
         # recomputed q, k, v and p.v; dctx; dp, dq, dk, dv; dx; dWqkv; dWo
         bwd_flops = 3 * qkv_flops + 3 * core + 4 * M * H * HN
         out_bytes = nbytes(hidden) + 4 * (H * 3 * HN + 3 * HN + HN * H + H)
         bwd.update(bound(bwd_flops, in_bytes + nbytes(cot) + out_bytes, dtype))
-        x2, g2 = hidden.reshape(M, H), cot.reshape(M, H)
+        g2 = cot.reshape(M, H)
         dqkv = randn(M, 3 * HN).to(dt)
-        c2 = randn(M, HN).to(dt)
         bwd["library_ms"] = library_time(
             lambda: (x2 @ wqkv, g2 @ wo.t(), dqkv @ wqkv.t(), x2.t() @ dqkv, c2.t() @ g2),
             f"attention_train_bwd {dtype} (torch.matmul on its five products)")
@@ -2096,7 +2181,31 @@ def train_kernel_phase(device) -> dict:
                 lambda: projection_gemms_plain(x2, g2, bufs, wqkv, wo))
             same_bits("attention_train_bwd", got, tb.attention_train_bwd(
                 hidden, seg, seed, wqkv, bqkv, wo, cot, **kw))
-            del got, bufs
+            gate = check_backward_cores(
+                "attention_train_bwd", bufs["dproj"],
+                lambda: tb.attention_core_model_dproj(bufs, sm_scale=sm, dropout_rate=DROPOUT,
+                                                      keep=keep), HN)
+            bwd.update(core_reading=gate["reading"], core_norm_reading=gate["norm_reading"],
+                       core_faults=gate["faults"])
+            again = {}
+            tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kw, buffers=again)
+            if not torch.equal(again["dproj"], bufs["dproj"]):
+                fail("attention_train_bwd bfloat16: two runs' dproj differ")
+            del got, bufs, again
+            from dense_core_turns import device_split
+
+            for name, call in (("attention_train_fwd", lambda: tb.attention_train_fwd(
+                    hidden, seg, seed, wqkv, bqkv, wo, bo, **kw)), ("attention_train_bwd",
+                    lambda: tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kw))):
+                split = device_split(call)
+                (fwd if name == "attention_train_fwd" else bwd)["split_ms"] = split
+                print(f"  {name} bfloat16 device time by kernel (ms): "
+                      + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in split.items()))
+            reset_peak()
+            tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kw)
+            bwd["peak_gib"] = peak_gib()
+            print(f"  attention_train_bwd bfloat16 peak memory {bwd['peak_gib']:.3f} GiB "
+                  f"(the dS tiles {2 * tb.dense_ds_elements(B, NH, L) / 2**30:.3f} GiB)")
         del dqkv, c2
         rows["attention_train_fwd", dtype] = {"max_abs_err": err["attention_train_fwd"], **fwd}
         rows["attention_train_bwd", dtype] = {"max_abs_err": err["attention_train_bwd"], **bwd}
@@ -2120,6 +2229,8 @@ def train_kernel_phase(device) -> dict:
         out_bytes = nbytes(x) + 4 * (H * I + I + I * H + H)
         bwd.update(bound(10 * M * H * I, in_bytes + nbytes(cot2) + out_bytes, dtype))
         hh = randn(M, I).to(dt)
+        fwd["library_ms"] = library_time(
+            lambda: (x @ w1, hh @ w2), f"mlp_train_fwd {dtype} (torch.matmul on its two products)")
         bwd["library_ms"] = library_time(
             lambda: (x @ w1, cot2 @ w2.t(), hh @ w1.t(), x.t() @ hh, hh.t() @ cot2),
             f"mlp_train_bwd {dtype} (torch.matmul on its five products)")
@@ -2688,16 +2799,48 @@ def ponet_planted_faults():
             "GA mean over all rows": ("ga_plain", ga_all_rows)}
 
 
-def ponet_check(got, want, dtype: str, quantized: bool):
+# kernel 9's float32 products in plain TF32 (the big x big term of the 3xTF32
+# tile alone): a planted fault of the float32 check
+PONET_TF32_FAULT = "products in plain TF32"
+# Kernel 9 in float32 is checked in two parts, each within F32_TOL: its five
+# projections (the kernel's own buffer) against the plain version's, and its
+# output against the plain block fed those same projections. SMP's strict
+# second maximum is discontinuous where two s values of a run tie on the
+# maximum: a run whose top two values tie exactly in one version and differ
+# by a rounding in the other moves its maximal rows by their gap to the third
+# value. On the H100 the 3xTF32 projections (6.4e-6 of the largest off a
+# float64 product, cuBLAS's float32 1.6e-6) broke one such chance tie of the
+# plain version in phase 15's inputs: 2 of 24383 rows read 1.8e-2 of max
+# |ref| end to end, every other row at most 6.4e-6 (PERF.md, section 6). Split
+# there, each part is continuous, and the whole block is still checked.
+
+
+def ponet_projections(pb, hidden, params):
+    """The plain version's five projections (B*L, 5H) in hidden's dtype, its
+    products through ponet_block.float_product (where the planted faults
+    go)."""
+    B_, L_, H_ = hidden.shape
+    wp = params["proj_kernels"].to(hidden.dtype).permute(1, 0, 2).reshape(H_, 5 * H_)
+    return (pb.float_product(hidden.reshape(B_ * L_, H_), wp)
+            + params["proj_biases"].float().reshape(-1)).to(hidden.dtype)
+
+
+def ponet_check(got, want, dtype: str, quantized: bool, proj=None):
     """(ok, max |err|, what was measured) of kernel 9's output against a
     plain version on real rows: W8A8 by w8a8_check, float modes by the
-    largest error over the largest output."""
+    largest error over the largest output; with proj = (the kernel's
+    projections, the plain version's), those within the same limit too."""
     if quantized:
         c = w8a8_check(got, want, dtype)
         return c["ok"], c["max_abs_err"], f"{c['share']:.2e} of the outputs beyond rounding"
     err = (got - want).abs().max().item()
     rel, lim = err / max(want.abs().max().item(), 1e-30), limit("fused_ponet_mixer_block", dtype)
-    return rel <= lim, err, f"max|err|/max|ref| {rel:.2e} (limit {lim})"
+    if proj is None:
+        return rel <= lim, err, f"max|err|/max|ref| {rel:.2e} (limit {lim})"
+    pg, pw = (p.float() for p in proj)
+    prel = ((pg - pw).abs().max() / pw.abs().max().clamp_min(1e-30)).item()
+    return (max(rel, prel) <= lim, err, f"projections max|err|/max|ref| {prel:.2e}, the block on "
+            f"them {rel:.2e} (limit {lim} each)")
 
 
 def ponet_kernel_phase(device) -> dict:
@@ -2735,37 +2878,50 @@ def ponet_kernel_phase(device) -> dict:
         name = "fused_ponet_mixer_block" + ("_w8a8" if quantized else "")
         for dtype in ("bfloat16", "float32"):
             hidden = x.to(getattr(torch, dtype))
-            call = lambda fn: fn(hidden, mask, seg, *params.values(), local_window=PN_WINDOW,
-                                 sm_scale=H**-0.5, quantized=quantized, **ln)
-            got = call(pb.fused_ponet_mixer_block)
+            call = lambda fn, **kw: fn(hidden, mask, seg, *params.values(),
+                                       local_window=PN_WINDOW, sm_scale=H**-0.5,
+                                       quantized=quantized, **ln, **kw)
+            bufs = {}
+            got = call(pb.fused_ponet_mixer_block, buffers=bufs)
             torch.cuda.synchronize()
             got = got[valid].float()
             if not torch.isfinite(got).all():
                 fail(f"{name} {dtype}: non-finite output")
-            ok, err, what = ponet_check(got, call(pb.ponet_mixer_block_plain)[valid].float(),
-                                        dtype, quantized)
+            # float32: the projections, then the rest of the block on the
+            # kernel's own projections (the note above ponet_projections)
+            split = not quantized and dtype == "float32"
+            proj = bufs["proj"] if split else None
+            check = lambda: ponet_check(
+                got, call(pb.ponet_mixer_block_plain, proj=proj)[valid].float(), dtype,
+                quantized, None if proj is None else (proj, ponet_projections(pb, hidden, params)))
+            ok, err, what = check()
             print(f"  {name} {dtype}: {what}")
             if not ok:
                 fail(f"{name} {dtype} against its plain version: {what}")
-            for fault, (attr, fn) in faults.items():
+            mode_faults = dict(faults)
+            if split:
+                mode_faults[PONET_TF32_FAULT] = (
+                    "float_product", lambda a, b: im.tf32x3_product(a, b, terms=1))
+            for fault, (attr, fn) in mode_faults.items():
                 with mock.patch.object(pb, attr, fn):
-                    bad = call(pb.ponet_mixer_block_plain)[valid].float()
-                accepted, _, what = ponet_check(got, bad, dtype, quantized)
+                    accepted, _, what = check()
                 print(f"  planted fault, {fault} ({name} {dtype}): {what}: "
                       + ("ACCEPTED" if accepted else "rejected"))
                 if accepted:
                     fail(f"{name} {dtype}: the check accepts the planted fault {fault}")
-                del bad
-            del got
+            del got, bufs, proj
             row = timed_pair(lambda: call(pb.fused_ponet_mixer_block),
                              lambda: call(pb.ponet_mixer_block_plain), reps=5)
             # the six products, and GA, the pools, the mix and the epilogue
-            # (about 20 float32 operations an element)
+            # (about 20 float32 operations an element); float32's products
+            # as the 3xTF32 tile takes them on the tensor cores, and beside
+            # them on the CUDA cores (simt_bound_ms)
             products, elementwise = 12 * M * H * H, 20 * M * H
-            ops = {"int8" if quantized else dtype: products}
-            ops["float32"] = ops.get("float32", 0) + elementwise
-            row.update(bound(ops, nbytes(hidden, mask, seg, *params.values(), *ln.values(),
-                                         hidden)))
+            io = nbytes(hidden, mask, seg, *params.values(), *ln.values(), hidden)
+            ptype = "int8" if quantized else "tf32x3" if dtype == "float32" else dtype
+            row.update(bound({ptype: products, "float32": elementwise}, io))
+            if ptype == "tf32x3":
+                row["simt_bound_ms"] = bound(products + elementwise, io, "float32")["bound_ms"]
             row.update(max_abs_err=err, work_gflop=(products + elementwise) / 1e9)
             if quantized:  # the library column: torch._int_mm on the six products only
                 x8 = im.rowquant_plain(hidden.reshape(M, H))[0]
@@ -2774,10 +2930,20 @@ def ponet_kernel_phase(device) -> dict:
                 row["library_ms"] = int_mm_time([(x8, w) for w in (*wp8, wo8)],
                                                 f"{name} {dtype}")
                 del x8
+            else:  # torch.matmul on the two products (float32: TF32 off)
+                dt = getattr(torch, dtype)
+                x2 = hidden.reshape(M, H)
+                wp = params["proj_kernels"].permute(1, 0, 2).reshape(H, 5 * H).to(dt)
+                wo, mixed = params["out_kernel"].to(dt), randn(M, H).to(dt)
+                row["library_ms"] = library_time(lambda: (x2 @ wp, mixed @ wo),
+                                                 f"{name} {dtype} (torch.matmul on its products)")
+                del wp, wo, mixed
             rows[name, dtype] = row
             print(f"kernel {name} {dtype}: max_abs_err {err:.3e}  kernel {row['ms']:.3f} ms  "
                   f"plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
-                  f"({row['bound_by']}; {row['work_gflop']:.1f} GFLOP)")
+                  f"({row['bound_by']}; {row['work_gflop']:.1f} GFLOP)"
+                  + (f"; on the CUDA cores {row['simt_bound_ms']:.3f} ms"
+                     if "simt_bound_ms" in row else ""))
             torch.cuda.empty_cache()
     return rows
 

@@ -1,6 +1,6 @@
 // The bf16 gradient passes of the training attention backwards on the
-// tensor cores, shared by the Longformer (train_sliding.cu) and BigBird
-// (train_bigbird.cu) gradient kernels.
+// tensor cores, shared by the dense (train_attention.cu), Longformer
+// (train_sliding.cu) and BigBird (train_bigbird.cu) gradient kernels.
 //
 // A block runs kGradWarps = 4 warps over 64 rows of "its" side: keys in the
 // dk/dv pass, query rows in the dq pass. Warp w owns rows 16 w .. 16 w +

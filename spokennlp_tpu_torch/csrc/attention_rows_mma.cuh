@@ -1,14 +1,15 @@
-// The bf16 body of the sliding-window and BigBird rows kernels on the
-// tensor cores (band_rows_kernel in sliding_attention.cuh, bigbird_rows_kernel
-// in bigbird_attention.cuh): the attention of 64 query rows of one (head,
-// sequence) over the key tiles their pattern reaches, as the inference
-// blocks' attention (kernels 7 and 8, float and W8A8 modes), the training
-// forwards' attention and, with kGrad, the training backwards' statistics
-// pass (rows 12 and 13).
+// The bf16 body of the rows kernels on the tensor cores (band_rows_kernel in
+// sliding_attention.cuh, bigbird_rows_kernel in bigbird_attention.cuh,
+// attn_rows_kernel in train_attention.cu): the attention of 64 query rows
+// of one (head, sequence) over the key tiles their pattern reaches, as the
+// inference blocks' attention (kernels 7 and 8, float and W8A8 modes), the
+// training forwards' attention and, with kGrad, the training backwards'
+// statistics pass (rows 10, 12 and 13).
 //
 // Replaces the score and context products of the TPU kernels
-// spokennlp_tpu/ops/pallas/sliding_block.py:156-186 and
-// spokennlp_tpu/ops/pallas/bigbird_block_kernel.py:150-186: S = q k^T and
+// spokennlp_tpu/ops/pallas/sliding_block.py:156-186,
+// spokennlp_tpu/ops/pallas/bigbird_block_kernel.py:150-186 and
+// spokennlp_tpu/ops/pallas/train_blocks.py:103-122: S = q k^T and
 // P V as dot_general on bf16 operands with float32 sums, e = exp((s -
 // m).astype(bf16)) rounded to bf16 against the row's true maximum over all
 // its key groups, the denominator D = sum e in float32, ctx = (kept e) . v /
@@ -42,6 +43,11 @@
 // float32 in W8A8, where the block's row quantisation reads it) and zero
 // for a row with D = 0, and with kGrad the row statistics (m, D,
 // rowsum(dp p_eff) / (D keep_prob)).
+//
+// The dense training kernels (train_attention.cu) run the same body over
+// every key tile of the sequence, with a score functor that scales the
+// product and adds the TPU kernel's -1e9 on masked keys (RawScore, the
+// product itself, for the others).
 //
 // What bounds it. At kernel 7's shape (B=8, L=2048, 12 heads of 64, window
 // 512) the three products the block runs (S twice, P V) over its 9 band
@@ -95,6 +101,16 @@ __device__ __forceinline__ void rows_scores(uint32_t a_tile, uint32_t b_tile,
   }
 }
 
+// The score of an element as the sliding-window and BigBird kernels take it:
+// the product itself (their q is pre-scaled; their mask is the Allowed
+// functor's). The dense training kernels scale it and add the TPU kernel's
+// -1e9 on masked keys instead (train_attention.cu).
+struct RawScore {
+  __device__ __forceinline__ float operator()(const KeyTile&, int, int, float x) const {
+    return x;
+  }
+};
+
 // two adjacent outputs of a row
 __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
@@ -108,17 +124,20 @@ __device__ __forceinline__ void store_pair(float* dst, float v0, float v1) {
 // Q, K, V: the (L, HD) slabs; dC: dctx's rows (stride dc_stride), rows
 // below dc_lo read as zero (kGrad only). live(i, kt) fills key tile i < n
 // and says whether it holds an allowed key (the same for every thread);
-// allowed(kt, row, key) is the mask and keep(kt, row, key) the dropout
+// allowed(kt, row, key) is the mask, score(kt, row, key, x) the score of an
+// allowed element from its product x, and keep(kt, row, key) the dropout
 // bit. out: ctx's row 0 of the head (row stride out_stride); stats: the
 // statistics' row 0 of (b, h) in its first plane (kGrad only). smem holds
 // rows_smem_mma<HD, kGrad>(), 16-byte aligned; 128 threads.
-template <int HD, bool kGrad, typename Tc, typename Live, typename Allowed, typename Keep>
+template <int HD, bool kGrad, typename Tc, typename Live, typename Allowed, typename Keep,
+          typename Score = RawScore>
 __device__ __forceinline__ void rows_tile_mma(const __nv_bfloat16* Q, const __nv_bfloat16* K,
                                               const __nv_bfloat16* V, const __nv_bfloat16* dC,
                                               size_t dc_stride, int dc_lo, int q0, int q_end,
                                               int L, int n, Live live, Allowed allowed, Keep keep,
                                               float keep_prob, Tc* out, size_t out_stride,
-                                              float* stats, size_t plane, unsigned char* smem) {
+                                              float* stats, size_t plane, unsigned char* smem,
+                                              Score score = Score{}) {
   using Mm = GradMma<HD>;
   using bf16 = __nv_bfloat16;
   constexpr int RB = Mm::kRowBytes, ND = HD / 8;
@@ -163,9 +182,9 @@ __device__ __forceinline__ void rows_tile_mma(const __nv_bfloat16* Q, const __nv
         for (int e = 0; e < 4; ++e) {
           const int key = kt.k0 + 32 * c + 8 * j + 2 * t + e % 2;
           if (e < 2) {
-            if (allowed(kt, r_lo, key)) m_lo = fmaxf(m_lo, x[j][e]);
+            if (allowed(kt, r_lo, key)) m_lo = fmaxf(m_lo, score(kt, r_lo, key, x[j][e]));
           } else if (allowed(kt, r_hi, key)) {
-            m_hi = fmaxf(m_hi, x[j][e]);
+            m_hi = fmaxf(m_hi, score(kt, r_hi, key, x[j][e]));
           }
         }
     }
@@ -197,7 +216,8 @@ __device__ __forceinline__ void rows_tile_mma(const __nv_bfloat16* Q, const __nv
               const int key = kt.k0 + 32 * c + 8 * j + 2 * t + e % 2, row = hi ? r_hi : r_lo;
               float pe = 0.0f;
               if (allowed(kt, row, key)) {
-                const float ex = rounded_exp<bf16>(x[j][e], hi ? m_hi : m_lo);
+                const float ex =
+                    rounded_exp<bf16>(score(kt, row, key, x[j][e]), hi ? m_hi : m_lo);
                 (hi ? D_hi : D_lo) += ex;
                 if (keep(kt, row, key)) pe = ex;
                 if constexpr (kGrad) {

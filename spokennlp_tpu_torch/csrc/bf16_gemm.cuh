@@ -8,12 +8,17 @@
 // bias gradient, summed over all rows.
 //
 // In bfloat16 their products run on the tensor cores (TileGemmBf16 below:
-// mma.sync m16n8k16 bf16 with float32 sums). In float32 they run
-// common.cuh's SIMT TileGemm, as before the tensor-core tile existed, so the
-// float32 modes are unchanged by a bit. Bias, activation, residual and
-// LayerNorm are float32 in both, and a value is rounded to the element type
-// exactly where the SIMT version rounds it: only the order of the float32
-// sums differs (a bf16 x bf16 product is exact in float32).
+// mma.sync m16n8k16 bf16 with float32 sums). In float32 the three tile
+// functions and the weight gradient run common.cuh's SIMT TileGemm, as
+// before the tensor-core tile existed, so the float32 modes of kernels 1-3,
+// 7, 8 and 10-13 are unchanged by a bit; kernel 9's float32 products alone
+// take tf32x3_gemm.cuh's 3xTF32 tensor-core tile, through its own
+// launchers (launch_gemm_f32tc, launch_residual_ln_f32tc), which run the
+// epilogues below on that tile (gemm_bias_act_mma, residual_ln_mma). Bias,
+// activation, residual and LayerNorm are float32 in every mode, and a value
+// is rounded to the element type exactly where the SIMT version rounds it:
+// only the order of the float32 sums differs (a bf16 x bf16 product is
+// exact in float32) and, on the 3xTF32 tile, the products' precision.
 //
 // The tile (TileGemmBf16). It multiplies A (M, K) by B (K, N), each stored
 // as its caller holds it: A row-major (M, K), or (K, M) for the weight
@@ -86,6 +91,7 @@ __host__ __device__ constexpr bool on_tensor_cores() {
 template <int BM, int BN, bool kTransA = false, bool kTransB = false>
 struct TileGemmBf16 {
   using bf16 = __nv_bfloat16;
+  static constexpr int kRows = BM, kCols = BN;
   static constexpr int kWarpsN = 4;                     // warps stand 2 x 4
   static constexpr int WM = BM / 2, WN = BN / kWarpsN;  // a warp's sub-tile
   static_assert(kThreads == 256, "the warps stand 2 x 4");
@@ -350,6 +356,30 @@ __device__ __forceinline__ void store_pair(T* out, size_t i, float v0, float v1,
   if (both) out[i + 1] = from_f32<T>(v1);
 }
 
+// gemm_bias_act_tile on a tensor-core tile G of T (TileGemmBf16, or
+// tf32x3_gemm.cuh's TileGemmTf32x3): the output tile at (row0, col0), smem
+// holding G::kSmemBytes, 16-byte aligned
+template <typename G, typename T>
+__device__ __forceinline__ void gemm_bias_act_mma(const T* A, const T* W, const float* bias,
+                                                  T* out, int M, int N, int K, int act,
+                                                  const float* gate, int row0, int col0,
+                                                  unsigned char* smem) {
+  typename G::Acc acc;
+  G::run(A, W, M, N, K, row0, col0, acc, smem);
+  G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+    const int m = row0 + r, n = col0 + c;
+    if (m >= M || n >= N) return;
+    const bool both = n + 1 < N;
+    float v0 = apply_activation(a0 + (bias != nullptr ? bias[n] : 0.0f), act);
+    float v1 = both ? apply_activation(a1 + (bias != nullptr ? bias[n + 1] : 0.0f), act) : 0.0f;
+    if (gate != nullptr) {
+      v0 *= gate[(size_t)m * N + n];
+      if (both) v1 *= gate[(size_t)m * N + n + 1];
+    }
+    store_pair(out, (size_t)m * N + n, v0, v1, both);
+  });
+}
+
 // out = act(A . W + bias) * gate, stored in T, for the output tile at (row0,
 // col0) (gemm_tile_rows x gemm_tile_cols). W is (K, N), or (N, K) read
 // transposed when kTransW; bias (N,) and gate (M, N) float32 may be null.
@@ -360,21 +390,8 @@ __device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const
                                                    const float* gate, int row0, int col0,
                                                    float* smem) {
   if constexpr (on_tensor_cores<T>()) {
-    using G = TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>;
-    typename G::Acc acc;
-    G::run(A, W, M, N, K, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
-    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
-      const int m = row0 + r, n = col0 + c;
-      if (m >= M || n >= N) return;
-      const bool both = n + 1 < N;
-      float v0 = apply_activation(a0 + (bias != nullptr ? bias[n] : 0.0f), act);
-      float v1 = both ? apply_activation(a1 + (bias != nullptr ? bias[n + 1] : 0.0f), act) : 0.0f;
-      if (gate != nullptr) {
-        v0 *= gate[(size_t)m * N + n];
-        if (both) v1 *= gate[(size_t)m * N + n + 1];
-      }
-      store_pair(out, (size_t)m * N + n, v0, v1, both);
-    });
+    gemm_bias_act_mma<TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>>(
+        A, W, bias, out, M, N, K, act, gate, row0, col0, reinterpret_cast<unsigned char*>(smem));
   } else {
     using G = TileGemm<64, 64, T, false, kTransW>;
     float acc[G::TM][G::TN];
@@ -530,6 +547,36 @@ inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T*
 // is still in L2; holding the rows in shared memory instead (98 KB at N=768)
 // let only two blocks onto an SM and ran at a third of the plain GEMM's
 // rate. `smem` holds ln_smem_bytes<T>(), 16-byte aligned.
+// residual_ln_rowblock on a tensor-core tile G of T (TileGemmBf16, or
+// tf32x3_gemm.cuh's TileGemmTf32x3): the G::kRows whole rows from row0,
+// walked G::kCols columns at a time, then normalised; smem holding
+// G::kSmemBytes, 16-byte aligned
+template <typename G, typename T>
+__device__ __forceinline__ void residual_ln_mma(const T* A, const T* W, const float* bias,
+                                                const T* resid, const float* ln_scale,
+                                                const float* ln_bias, float* rows, T* out, int M,
+                                                int N, int K, float eps, int fuse_ln, int row0,
+                                                unsigned char* smem) {
+  for (int col0 = 0; col0 < N; col0 += G::kCols) {
+    typename G::Acc acc;
+    G::run(A, W, M, N, K, row0, col0, acc, smem);
+    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+      const int m = row0 + r, n = col0 + c;
+      if (m >= M || n >= N) return;
+      const bool both = n + 1 < N;
+      const size_t i = (size_t)m * N + n;
+      float v0 = a0 + bias[n], v1 = both ? a1 + bias[n + 1] : 0.0f;
+      if (fuse_ln) {
+        v0 += to_f32(resid[i]);
+        if (both) v1 += to_f32(resid[i + 1]);
+      }
+      store_pair(rows, i, v0, v1, both);
+    });
+  }
+  __syncthreads();  // makes the block's global writes visible to the block
+  ln_rows<T, G::kRows>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
+}
+
 template <typename T>
 __device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, const float* bias,
                                                      const T* resid, const float* ln_scale,
@@ -537,23 +584,8 @@ __device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, con
                                                      int M, int N, int K, float eps, int fuse_ln,
                                                      int row0, float* smem) {
   if constexpr (on_tensor_cores<T>()) {
-    using G = LnTileB;
-    for (int col0 = 0; col0 < N; col0 += kLnColsB) {
-      G::Acc acc;
-      G::run(A, W, M, N, K, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
-      G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
-        const int m = row0 + r, n = col0 + c;
-        if (m >= M || n >= N) return;
-        const bool both = n + 1 < N;
-        const size_t i = (size_t)m * N + n;
-        float v0 = a0 + bias[n], v1 = both ? a1 + bias[n + 1] : 0.0f;
-        if (fuse_ln) {
-          v0 += to_f32(resid[i]);
-          if (both) v1 += to_f32(resid[i + 1]);
-        }
-        store_pair(rows, i, v0, v1, both);
-      });
-    }
+    residual_ln_mma<LnTileB>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
+                             fuse_ln, row0, reinterpret_cast<unsigned char*>(smem));
   } else {
     using G = TileGemm<kLnRows, kLnCols, T>;
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -574,9 +606,9 @@ __device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, con
         }
       }
     }
+    __syncthreads();  // makes the block's global writes visible to the block
+    ln_rows<T, kLnRows>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
   }
-  __syncthreads();  // makes the block's global writes visible to the block
-  ln_rows<T, ln_tile_rows<T>()>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
 }
 
 // Grid (ceil(M / ln_tile_rows<T>)).

@@ -22,10 +22,12 @@
 //
 // What bounds it here. At PoNet-base (B=8, L=4096, H=768) the block is six
 // (M, H) x (H, H) products, 232 GFLOP, against about 100 MB of input and
-// output in float32: bound by arithmetic. The float32 products run on the
-// port's SIMT tile (float32 FMA on the CUDA cores), the bf16 ones on
-// bf16_gemm.cuh's mma.sync bf16 tile; in W8A8 they run on the tensor cores
-// (int8_gemm.cuh's mma.sync s8 tile, weights K-major), which leaves the
+// output in float32: bound by arithmetic. Every mode runs its products on
+// the tensor cores: float32 on tf32x3_gemm.cuh's 3xTF32 tile (mma.sync TF32,
+// each operand split into two TF32 parts, three products a pair: about
+// float32's accuracy at a third of the TF32 rate, 165 TFLOP/s against the
+// CUDA cores' 67), bf16 on bf16_gemm.cuh's mma.sync bf16 tile, W8A8 on
+// int8_gemm.cuh's mma.sync s8 tile (weights K-major). That leaves the
 // pooling phases, a few passes over the (M, 5H) projections bound by
 // memory, a larger share.
 //
@@ -50,8 +52,10 @@
 //      its run is finished, and written once;
 //   5. the out projection with the residual-LayerNorm epilogue of kernels 1
 //      and 2 (W8A8: one row-quant launch of mixed first).
+// Steps 1 and 5 in float32 take tf32x3_gemm.cuh's launchers.
 // Nothing is atomic: every sum is taken in the same order on every run.
 #include "int8_gemm.cuh"
+#include "tf32x3_gemm.cuh"
 
 namespace spk {
 namespace {
@@ -348,6 +352,9 @@ cudaError_t ponet_block(int quantized, const T* x, const int* mask, const int* s
     if (err != cudaSuccess) return err;
     err = launch_gemm_i8<T>(s.x8, s.scales, static_cast<const int8_t*>(wp), swp, bp, s.proj, M,
                             5 * H, H, kActNone, stream);
+  } else if constexpr (std::is_same<T, float>::value) {
+    err = launch_gemm_f32tc(x, static_cast<const float*>(wp), bp, s.proj, M, 5 * H, H, kActNone,
+                            stream);
   } else {
     err = launch_gemm<T>(x, static_cast<const T*>(wp), bp, s.proj, M, 5 * H, H, kActNone, nullptr,
                          stream);
@@ -382,8 +389,13 @@ cudaError_t ponet_block(int quantized, const T* x, const int* mask, const int* s
                                     ln_scale, ln_bias, s.rows, out, M, H, H, 1, eps, fuse_ln,
                                     stream);
   }
-  return launch_residual_ln<T>(s.mixed, static_cast<const T*>(wo), bo, x, ln_scale, ln_bias,
-                               s.rows, out, M, H, H, eps, fuse_ln, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_residual_ln_f32tc(s.mixed, static_cast<const float*>(wo), bo, x, ln_scale,
+                                    ln_bias, s.rows, out, M, H, H, eps, fuse_ln, stream);
+  } else {
+    return launch_residual_ln<T>(s.mixed, static_cast<const T*>(wo), bo, x, ln_scale, ln_bias,
+                                 s.rows, out, M, H, H, eps, fuse_ln, stream);
+  }
 }
 
 template <typename T>
@@ -442,4 +454,15 @@ extern "C" int spk_ponet_block(int dtype, int quantized, const void* x, const vo
                                                  mixed, first, last, flags, x8, scales, rows, out,
                                                  B, L, H, window, fuse_ln, sm_scale, eps, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out (M, N) = A (M, K) . W (K, N) + bias (N,), float32, on kernel 9's
+// float32 product tile (tf32x3_gemm.cuh) alone; no model path calls it.
+// Returns the first CUDA error, or 0.
+extern "C" int spk_gemm_f32tc(const void* A, const void* W, const void* bias, void* out, int M,
+                              int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(spk::launch_gemm_f32tc(
+      static_cast<const float*>(A), static_cast<const float*>(W), static_cast<const float*>(bias),
+      static_cast<float*>(out), M, N, K, spk::kActNone, static_cast<cudaStream_t>(stream)));
 }

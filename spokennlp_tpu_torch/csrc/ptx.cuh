@@ -1,6 +1,7 @@
 // The PTX the tensor-core tiles share (int8_gemm.cuh's s8 GEMM tile,
-// attention_core.cuh's bf16 attention core): cp.async copies into shared
-// memory, ldmatrix fragment reads and the two mma.sync shapes.
+// attention_core.cuh's bf16 attention core, tf32x3_gemm.cuh's float32
+// tile): cp.async copies into shared memory, ldmatrix fragment reads, the
+// TF32 rounding and the three mma.sync shapes.
 #pragma once
 
 #include "common.cuh"
@@ -63,6 +64,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a . b over one m16 x n8 x k8 fragment, tf32 in, float32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

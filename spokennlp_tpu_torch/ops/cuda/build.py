@@ -39,7 +39,9 @@ _SIGNATURES = {
     "spk_attention_core": [_I] + [_P] * 3 + [_I] * 4 + [_P],
     "spk_encoder_stack": [_I, _I] + [_P] * 27 + [_I] * 8 + [_F, _F, _P],
     "spk_attention_train_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _U, _F, _P],
-    "spk_attention_train_bwd": [_I] + [_P] * 18 + [_Z] + [_I] * 7 + [_F, _U, _F, _P],
+    "spk_attention_train_bwd": [_I] + [_P] * 19 + [_Z] + [_I] * 7 + [_F, _U, _F, _P],
+    "spk_attention_rows": [_I] * 2 + [_P] * 6 + [_I] * 4 + [_F, _U, _F, _P],
+    "spk_attention_grad": [_I] * 2 + [_P] * 7 + [_I] * 4 + [_F, _U, _F, _P],
     "spk_dropout_mask": [_P, _P, _I, _I, _I, _U, _P],
     "spk_mlp_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "spk_mlp_train_bwd": [_I] + [_P] * 14 + [_Z] + [_I] * 5 + [_P],
@@ -57,6 +59,7 @@ _SIGNATURES = {
     "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],
     "spk_bigbird_rows": [_I] * 3 + [_P] * 8 + [_I] * 7 + [_U, _F, _P],
     "spk_ponet_block": [_I, _I] + [_P] * 24 + [_I] * 5 + [_F, _F, _P],
+    "spk_gemm_f32tc": [_P] * 4 + [_I] * 3 + [_P],
     "spk_int8_tile_smem": [_I],
     "spk_bf16_tile_smem": [_I],
 }

@@ -95,8 +95,31 @@ def kmajor(w8: torch.Tensor) -> torch.Tensor:
 
 def float_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) . (K, N) in float32: the products of the float modes' plain
-    versions (the planted faults of their bf16 card limit replace it)."""
+    versions (the planted faults of their card limits replace it)."""
     return x.float() @ w.float()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds it: on the int32 view, half a
+    unit of the 13 dropped bits added to the magnitude's bits, then those
+    bits cleared (finite values)."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32x3_product(x: torch.Tensor, w: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """(..., K) . (K, N) as kernel 9's float32 tile takes it
+    (``csrc/tf32x3_gemm.cuh``): each operand split into big = tf32(a) and
+    small = tf32(a - big), and small_x . big_w + big_x . small_w + big_x .
+    big_w summed in float32, each TF32 product exact in float32. terms=1
+    keeps big_x . big_w alone: a plain TF32 product (the planted fault of
+    kernel 9's float32 card limit)."""
+    x, w = x.float(), w.float()
+    xb, wb = tf32_round(x), tf32_round(w)
+    if terms == 1:
+        return xb @ wb
+    return (tf32_round(x - xb) @ wb + xb @ tf32_round(w - wb)) + xb @ wb
 
 
 def int8_product(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:

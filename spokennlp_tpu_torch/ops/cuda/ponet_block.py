@@ -32,6 +32,7 @@ import torch
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, NEG_INF, _layer_norm
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    float_product,
     int8_product,
     kmajor,
     quantize_colwise,
@@ -116,22 +117,29 @@ def lmp_plain(l, mrow, local_window: int):
 def ponet_mixer_block_plain(hidden, attention_mask, segment_ids, proj_kernels, proj_biases,
                             out_kernel, out_bias, *, local_window: int, sm_scale: float,
                             quantized: bool = False, ln_scale=None, ln_bias=None,
-                            eps: float = 1e-12):
+                            eps: float = 1e-12, proj: Optional[torch.Tensor] = None):
     """The TPU kernel's function in PyTorch; returns hidden's dtype. Sums and
     the epilogue in float32, values rounded to the element type where the
-    TPU kernel rounds them; W8A8 with its integer arithmetic."""
+    TPU kernel rounds them; W8A8 with its integer arithmetic. The float
+    modes' six products go through ``float_product`` (a planted fault of
+    the card limit replaces it). ``proj`` (B*L, 5H) in hidden's dtype, the
+    five projections side by side as the kernel's buffer holds them, takes
+    the place of the first products (the card check of the float32 mode
+    feeds the kernel's own: see ``fused_ponet_mixer_block``)."""
     dt = hidden.dtype
     B, L, H = hidden.shape
     x = hidden.float()
     bp = proj_biases.float().reshape(5, 1, H)
-    if quantized:
+    if proj is not None:
+        proj = [p.reshape(B, L, H) for p in proj.to(dt).split(H, dim=-1)]
+    elif quantized:
         wp8, swp = quantize_colwise(proj_kernels)  # (5, H, H), (5, 1, H)
         x8, sx = rowquant_plain(x.reshape(B * L, H))
         proj = [(int8_product(x8, wp8[i]) * sx * swp[i] + bp[i]).to(dt).reshape(B, L, H)
                 for i in range(5)]
     else:
-        wp = proj_kernels.to(dt).float()
-        proj = [(x @ wp[i] + bp[i]).to(dt) for i in range(5)]
+        wp = proj_kernels.to(dt)
+        proj = [(float_product(x, wp[i]) + bp[i]).to(dt) for i in range(5)]
     q, k, v, s, l = proj
     mrow = (attention_mask > 0)[..., None]  # (B, L, 1)
     pooled = ga_plain(q, k, v, mrow, sm_scale) + smp_plain(s, mrow, segment_ids)
@@ -141,7 +149,7 @@ def ponet_mixer_block_plain(hidden, attention_mask, segment_ids, proj_kernels, p
         c8, sc = rowquant_plain(mixed.reshape(B * L, H))
         out = (int8_product(c8, wo8) * sc * swo).reshape(B, L, H)
     else:
-        out = mixed.to(dt).float() @ out_kernel.to(dt).float()
+        out = float_product(mixed.to(dt), out_kernel.to(dt))
     out = out + out_bias.float()
     if ln_scale is None:
         return out.to(dt)
@@ -163,11 +171,14 @@ def fused_ponet_mixer_block(
     ln_scale: Optional[torch.Tensor] = None,
     ln_bias: Optional[torch.Tensor] = None,
     eps: float = 1e-12,
+    buffers: Optional[dict] = None,
 ) -> torch.Tensor:
     """LN(x + mixer(x) Wo + bo) when ln_scale and ln_bias are given, else
     mixer(x) Wo + bo; returns (B, L, H) in hidden's dtype. Float modes:
-    weights rounded to hidden's dtype. ``fused_ponet_mixer_block.launches``
-    counts the calls that ran the kernels on the card."""
+    weights rounded to hidden's dtype. A ``buffers`` dict receives the five
+    projections the kernel computed, ``proj`` (B*L, 5H) in hidden's dtype
+    (on the card only). ``fused_ponet_mixer_block.launches`` counts the
+    calls that ran the kernels on the card."""
     if hidden.device.type == "cpu":
         return ponet_mixer_block_plain(
             hidden, attention_mask, segment_ids, proj_kernels, proj_biases, out_kernel, out_bias,
@@ -238,7 +249,42 @@ def fused_ponet_mixer_block(
         )
     build.check(code, "fused_ponet_mixer_block")
     fused_ponet_mixer_block.launches += 1
+    if buffers is not None:
+        buffers["proj"] = scratch[0]
     return out
 
 
 fused_ponet_mixer_block.launches = 0
+
+
+def gemm_f32tc(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None):
+    """a (M, K) . w (K, N) + bias (N,), float32: kernel 9's float32 product
+    tile (``csrc/tf32x3_gemm.cuh``) alone. On the CPU it runs the plain
+    float32 product; on the card the tile, whose launches
+    ``gemm_f32tc.launches`` counts. No model path calls it: kernel 9
+    launches the tile inside its own entry."""
+    if a.device.type == "cpu":
+        out = float_product(a, w)
+        return out if bias is None else out + bias.float()
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_f32tc: unsupported device {a.device}")
+    for name, t in (("a", a), ("w", w), ("bias", bias)):
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                              or t.device != a.device):
+            raise ValueError(f"gemm_f32tc: {name} must be a contiguous float32 tensor on "
+                             f"{a.device}")
+    (M, K), N = a.shape, w.shape[1]
+    if w.shape[0] != K or (bias is not None and tuple(bias.shape) != (N,)):
+        raise ValueError(f"gemm_f32tc: shapes {tuple(a.shape)}, {tuple(w.shape)} and bias "
+                         f"{None if bias is None else tuple(bias.shape)} do not fit")
+    out = torch.empty(M, N, device=a.device)
+    with torch.cuda.device(a.device):
+        code = build.library().spk_gemm_f32tc(
+            a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
+    build.check(code, "gemm_f32tc")
+    gemm_f32tc.launches += 1
+    return out
+
+
+gemm_f32tc.launches = 0

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
@@ -211,7 +212,7 @@ def bigbird_core_bwd_model(q, k, v, dctx, n_valid, tables, *, block_size: int, s
     pattern's ``bigbird_tables``, the row statistics stats (3, B, nh, L)
     (None: taken here) and the four keep masks of ``bigbird_keep_masks``.
     Dense over a sequence's keys with float32 sums and no tiles; rounds
-    where the kernels round (``train_sliding.dense_core_grad``; dq before
+    where the kernels round (``attention_models.dense_core_grad``; dq before
     and after the scale, dk and dv once). Returns (dq, dk, dv), each (B, L,
     nh, hd) in q's dtype."""
     dt, dev = q.dtype, q.device
@@ -226,11 +227,11 @@ def bigbird_core_bwd_model(q, k, v, dctx, n_valid, tables, *, block_size: int, s
         kd = None if keep is None else _bigbird_dense_keep(keep, b, reg, C, G, R, rand, rok)
         qb, kb, vb = (t[b].float() for t in (q, k, v))
         dc = dctx[b].float().transpose(0, 1)
-        ds, pe = ts.dense_core_grad(qb @ tr(kb), dc @ tr(vb), allowed, kd,
+        ds, pe = am.dense_core_grad(qb @ tr(kb), dc @ tr(vb), allowed, kd,
                                     None if stats is None else stats[:, b], dt, kp)
-        outs[0][b] = ts._rounded(ts._rounded(ds @ kb, dt) * sm_scale, dt)
-        outs[1][b] = ts._rounded(tr(ds) @ qb, dt)
-        outs[2][b] = ts._rounded(tr(pe) @ dc, dt)
+        outs[0][b] = am.rounded(am.rounded(ds @ kb, dt) * sm_scale, dt)
+        outs[1][b] = am.rounded(tr(ds) @ qb, dt)
+        outs[2][b] = am.rounded(tr(pe) @ dc, dt)
     return tuple(o.transpose(1, 2).to(dt) for o in outs)
 
 
@@ -256,7 +257,7 @@ def bigbird_rows_model(q, k, v, n_valid, tables, *, block_size: int, dctx=None,
     of ``bigbird_keep_masks``; with ``dctx`` (B, L, nh, hd) also
     rowsum(dp p_eff). Dense over a sequence's keys (its regions of
     ``bigbird_model_regions``) with float32 sums and no tiles; e rounded
-    where the kernel rounds it (``train_sliding.rows_exponent``, against the
+    where the kernel rounds it (``attention_models.rows_exponent``, against the
     row's true maximum), ctx rounded to ``ctx_dtype`` (q's dtype by
     default). Returns ctx (B, L, nh, hd) and the row statistics (3, B, nh,
     L) float32 = (m, D, rowsum(dp p_eff)) (-inf, 0, 0 for a row with no
@@ -274,7 +275,7 @@ def bigbird_rows_model(q, k, v, n_valid, tables, *, block_size: int, dctx=None,
         kd = None if keep is None else _bigbird_dense_keep(keep, b, reg, C, G, R, rand, rok)
         qb, kb, vb = (t[b].float() for t in (q, k, v))
         dp = None if dctx is None else dctx[b].float().transpose(0, 1) @ tr(vb)
-        c, m, D, rs = ts.rows_attend(qb @ tr(kb), vb, allowed, kd, dt, kp, dp)
+        c, m, D, rs = am.rows_attend(qb @ tr(kb), vb, allowed, kd, dt, kp, dp)
         ctx[b], stats[0, b], stats[1, b] = c, m, D
         if rs is not None:
             stats[2, b] = rs

@@ -23,6 +23,14 @@ rounded where the kernels round. No model path runs it; the tests and the
 card checks hold the kernels' products to it element by element, and plant
 faults of a GEMM tile in ``backward_product``.
 
+The attention kernels' bf16 cores have rounding models
+(``attention_rows_model``: the rows pass and its statistics;
+``attention_core_bwd_model``: the gradient kernels' dq, dk, dv), dense over
+a sequence's keys with float32 sums and no tiles, built from
+``attention_models``; ``attention_rows`` and ``attention_grad`` launch those
+cores alone (no model path calls them), and the card checks hold them to
+the models.
+
 Dropout draws keep bits from Philox4x32-10 keyed by the seed, one per
 (sequence, head, query row, key column), and keeps a probability iff its
 bits are >= ``min(int(rate * 2**32), 2**32 - 1)``, as the TPU kernel
@@ -39,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, HEAD_DIMS, NEG_INF
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import ACTIVATION_CODES, ACTIVATIONS
@@ -222,6 +231,77 @@ def attention_train_bwd_plain(hidden, segment_ids, qkv_kernel, qkv_bias, out_ker
     return (dx.reshape(B, L, H), *grads)
 
 
+# ------------------------------------------------ the cores' rounding models
+
+
+def dense_model_scores(q, k, segment_ids, sm_scale: float) -> torch.Tensor:
+    """The dense kernels' scores (B, nh, L, L) float32 of q, k (B, nh, L, hd):
+    q k^T sm_scale, plus -1e9 where the key is masked (its segment id differs
+    from the row's, or is 0), as the TPU kernel adds it."""
+    seg = segment_ids
+    allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
+    s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
+    return s + torch.where(allowed, 0.0, NEG_INF)[:, None]
+
+
+def dense_model_allowed(L: int, device) -> torch.Tensor:
+    """(L, L) bool: the keys the dense kernels run a row over, every key of
+    the sequence (the segment mask is in the scores; a planted fault of the
+    card gate replaces it)."""
+    return torch.ones(L, L, dtype=torch.bool, device=device)
+
+
+def attention_rows_model(q, k, v, segment_ids, *, sm_scale: float, dctx=None,
+                         dropout_rate: float = 0.0, keep=None):
+    """The rounding model of attn_rows_kernel from the kernels' own q
+    (unscaled), k, v (B, nh, L, hd), the segment ids (B, L) and the keep
+    mask of ``dropout_keep_mask`` (None at rate 0); with ``dctx`` (B, L, nh,
+    hd) also rowsum(dp p_eff). Dense over a sequence's keys with float32
+    sums and no tiles; e rounded where the kernel rounds it
+    (``attention_models.rows_exponent``, against the row's true maximum).
+    Returns ctx (B, L, nh, hd) in q's dtype and the row statistics (3, B,
+    nh, L) float32 = (m, D, rowsum(dp p_eff)) (rs zero without dctx)."""
+    dt, L = q.dtype, q.shape[2]
+    s = dense_model_scores(q, k, segment_ids, sm_scale)
+    dp = None if dctx is None else dctx.float().transpose(1, 2) @ v.float().transpose(-1, -2)
+    ctx, m, D, rs = am.rows_attend(s, v.float(), dense_model_allowed(L, q.device), keep, dt,
+                                   1.0 - dropout_rate, dp)
+    stats = torch.stack([m, D, torch.zeros_like(D) if rs is None else rs])
+    return ctx.transpose(1, 2).to(dt), stats
+
+
+def attention_core_bwd_model(q, k, v, dctx, segment_ids, *, sm_scale: float, stats=None,
+                             dropout_rate: float = 0.0, keep=None):
+    """The rounding model of the dense backward's gradient kernels
+    (attn_dkv_kernel, attn_dq_kernel), from the kernels' own q (unscaled),
+    k, v (B, nh, L, hd), dctx (B, L, nh, hd), the segment ids, the row
+    statistics stats (3, B, nh, L) (None: taken here) and the keep mask.
+    Dense with float32 sums and no tiles; dS = round((p_eff dp - p rs)
+    sm_scale) (``attention_models.dense_core_grad``), dq, dk and dv rounded
+    once. Returns (dq, dk, dv), each (B, L, nh, hd) in q's dtype."""
+    dt, L = q.dtype, q.shape[2]
+    s = dense_model_scores(q, k, segment_ids, sm_scale)
+    dc = dctx.float().transpose(1, 2)  # (B, nh, L, hd)
+    tr = lambda t: t.transpose(-1, -2)
+    ds, pe = am.dense_core_grad(s, dc @ tr(v.float()), dense_model_allowed(L, q.device), keep,
+                                stats, dt, 1.0 - dropout_rate, scale=sm_scale)
+    grads = (ds @ k.float(), tr(ds) @ q.float(), tr(pe) @ dc)
+    return tuple(am.rounded(t, dt).transpose(1, 2).to(dt) for t in grads)
+
+
+def attention_core_model_dproj(buffers: dict, *, sm_scale: float, dropout_rate: float = 0.0,
+                               keep=None) -> torch.Tensor:
+    """The model's [dq dk dv] (B*L, 3 Hn) on the intermediates that
+    ``attention_train_bwd`` put into ``buffers``: the layout of the kernel's
+    dproj."""
+    qkv = buffers["qkv"]
+    B, nh, L, hd = qkv.shape[1:]
+    grads = attention_core_bwd_model(
+        qkv[0], qkv[1], qkv[2], buffers["dctx"].reshape(B, L, nh, hd), buffers["seg"],
+        sm_scale=sm_scale, stats=buffers["stats"], dropout_rate=dropout_rate, keep=keep)
+    return torch.stack(grads, dim=2).reshape(B * L, -1)
+
+
 # ------------------------------------------------------------ kernel calls
 
 
@@ -339,13 +419,14 @@ def attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, g, *, num_heads: int,
     empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
     qkv_buf, dctx_buf, ctx_buf = empty(3, B, num_heads, L, hd), empty(B, L, HN), empty(B, L, HN)
     stats, dqkv = empty(3, B, num_heads, L, dtype=torch.float32), empty(B, L, 3 * HN)
+    ds_buf = empty(dense_ds_elements(B, num_heads, L)) if dt == torch.bfloat16 else None
     dx = torch.empty_like(hidden)
     f32 = torch.float32
     dwqkv, dbqkv = empty(H, 3 * HN, dtype=f32), empty(3 * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)
     splits, ws, floats = weight_grad_plan(dev, dt, B * L, (H, 3 * HN), (HN, H))
     ptrs = [_ptr(t) for t in (hidden, seg, seed, wqkv, bqkv, wo, g, qkv_buf, dctx_buf, ctx_buf,
-                              stats, dqkv, dx, dwqkv, dbqkv, dwo, dbo, ws)]
+                              stats, dqkv, ds_buf, dx, dwqkv, dbqkv, dwo, dbo, ws)]
     with torch.cuda.device(dev):
         code = build.library().spk_attention_train_bwd(
             _DTYPES[dt], *ptrs, floats, *splits, B, L, H, num_heads, hd, float(sm_scale),
@@ -355,8 +436,83 @@ def attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, g, *, num_heads: int,
     attention_train_bwd.launches += 1
     if buffers is not None:
         buffers.update(ctx=ctx_buf.reshape(B * L, HN), dctx=dctx_buf.reshape(B * L, HN),
-                       dproj=dqkv.reshape(B * L, 3 * HN), w_all=wqkv)
+                       dproj=dqkv.reshape(B * L, 3 * HN), w_all=wqkv, qkv=qkv_buf, stats=stats,
+                       seg=seg)
     return dx, dwqkv, dbqkv, dwo, dbo
+
+
+def dense_ds_elements(B: int, nh: int, L: int) -> int:
+    """Elements of the bf16 backward's dS buffer: a (64 keys, 64 rows) tile
+    for each (query tile, key tile) of each (sequence, head)
+    (csrc/train_attention.cu dense_ds_tile)."""
+    nt = -(-L // 64)
+    return B * nh * nt * nt * 64 * 64
+
+
+def attention_rows(qkv, seg, seed, *, sm_scale: float, dctx=None, dropout_rate: float = 0.0):
+    """attn_rows_kernel alone: qkv (3, B, nh, L, hd) with q unscaled, seg (B,
+    L) and seed (1,) int32 and, for the statistics pass, dctx (B, L, nh hd).
+    Returns ctx (B, L, nh, hd) in qkv's dtype and, with dctx, the row
+    statistics (3, B, nh, L) float32 (else None). On the CPU it runs
+    ``attention_rows_model``; on the card the kernel, whose launches
+    ``attention_rows.launches`` counts. No model path calls it: the blocks
+    launch the kernel inside their own entries."""
+    _, B, nh, L, hd = qkv.shape
+    if qkv.device.type == "cpu":
+        keep = dropout_keep_mask(seed, B, nh, L, dropout_rate) if dropout_rate > 0.0 else None
+        ctx, stats = attention_rows_model(
+            qkv[0], qkv[1], qkv[2], seg, sm_scale=sm_scale, dropout_rate=dropout_rate, keep=keep,
+            dctx=None if dctx is None else dctx.reshape(B, L, nh, hd))
+        return ctx, None if dctx is None else stats
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_rows: unsupported device {qkv.device}")
+    ctx = torch.empty(B, L, nh, hd, dtype=qkv.dtype, device=qkv.device)
+    stats = None if dctx is None else torch.empty(3, B, nh, L, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        code = build.library().spk_attention_rows(
+            _DTYPES[qkv.dtype], int(dctx is not None), _ptr(qkv), _ptr(seg), _ptr(seed),
+            _ptr(dctx), _ptr(ctx), _ptr(stats), B, L, nh, hd, float(sm_scale),
+            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream())
+    build.check(code, "attention_rows")
+    attention_rows.launches += 1
+    return ctx, stats
+
+
+def attention_grad(qkv, seg, seed, dctx, stats, *, sm_scale: float, dropout_rate: float = 0.0,
+                   which: int = 3, out=None):
+    """The backward's gradient kernels alone, after ``attention_rows`` with
+    dctx: which = 1 runs attn_dkv_kernel (dk, dv and, in bf16, every dS
+    tile), 2 attn_dq_kernel (dq; in bf16 from the dS tiles of an earlier
+    call with the same ``out``), 3 both. qkv (3, B, nh, L, hd), seg (B, L),
+    seed (1,), dctx (B, L, nh hd), stats (3, B, nh, L). ``out`` = (dqkv,
+    ds_buf) of an earlier call to write into, or None. Returns (dqkv (B*L,
+    3 nh hd), ds_buf (None in float32)). On the CPU it runs
+    ``attention_core_bwd_model`` (all three slots); on the card the
+    kernels, whose launches ``attention_grad.launches`` counts. No model
+    path calls it."""
+    _, B, nh, L, hd = qkv.shape
+    if qkv.device.type == "cpu":
+        keep = dropout_keep_mask(seed, B, nh, L, dropout_rate) if dropout_rate > 0.0 else None
+        grads = attention_core_bwd_model(qkv[0], qkv[1], qkv[2], dctx.reshape(B, L, nh, hd), seg,
+                                         sm_scale=sm_scale, stats=stats,
+                                         dropout_rate=dropout_rate, keep=keep)
+        return torch.stack(grads, dim=2).reshape(B * L, -1), None
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_grad: unsupported device {qkv.device}")
+    dt, dev = qkv.dtype, qkv.device
+    if out is None:
+        ds = torch.empty(dense_ds_elements(B, nh, L), dtype=dt, device=dev) \
+            if dt == torch.bfloat16 else None
+        out = (torch.empty(B * L, 3 * nh * hd, dtype=dt, device=dev), ds)
+    dqkv, ds_buf = out
+    with torch.cuda.device(dev):
+        code = build.library().spk_attention_grad(
+            _DTYPES[dt], which, _ptr(qkv), _ptr(seg), _ptr(seed), _ptr(dctx), _ptr(stats),
+            _ptr(ds_buf), _ptr(dqkv), B, L, nh, hd, float(sm_scale),
+            dropout_threshold(dropout_rate), 1.0 - dropout_rate, _stream())
+    build.check(code, "attention_grad")
+    attention_grad.launches += 1
+    return dqkv, ds_buf
 
 
 def mlp_train_fwd(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
@@ -436,7 +592,8 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, splits: Optional[int] = None)
     return dw, db
 
 
-for _fn in (attention_train_fwd, attention_train_bwd, mlp_train_fwd, mlp_train_bwd, weight_grad):
+for _fn in (attention_train_fwd, attention_train_bwd, mlp_train_fwd, mlp_train_bwd, weight_grad,
+            attention_rows, attention_grad):
     _fn.launches = 0
 
 

@@ -43,6 +43,9 @@ import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+from spokennlp_tpu_torch.ops.cuda.attention_models import (
+    dense_core_grad, rounded, rows_attend,
+)
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
 from spokennlp_tpu_torch.ops.cuda.sliding_block import (
     _counts, card_weights, check_card_inputs, global_columns, sliding_attend,
@@ -189,45 +192,6 @@ def _bwd_plain_model_core(x, g2, w_all, b_all, wo, attention_mask, global_mask, 
 # ------------------------------------------------- the gradient kernels' model
 
 
-def round_ds(ds: torch.Tensor, dt) -> torch.Tensor:
-    """dS rounded to the compute dtype, where the gradient kernels round it
-    (a planted fault of the card gate replaces it)."""
-    return ds.to(dt).float()
-
-
-def round_p_eff(p_eff: torch.Tensor, dt) -> torch.Tensor:
-    """p_eff rounded to the compute dtype for dv += p_eff^T dctx (a planted
-    fault of the card gate replaces it)."""
-    return p_eff.to(dt).float()
-
-
-def _rounded(x: torch.Tensor, dt) -> torch.Tensor:
-    return x.to(dt).float()
-
-
-def dense_core_grad(s, dp, allowed, keep, stats, dt, keep_prob: float):
-    """The softmax-with-dropout gradient of the training kernels on dense
-    (..., rows, keys) float32 scores s and dp = dctx v^T: e = exp(s - m)
-    with s - m and e rounded to dt, p_eff = e / (D keep_prob) where kept,
-    dS = round(p_eff dp - (e / D) rowsum(dp p_eff)); zero where not
-    ``allowed``. ``stats`` = (m, D, rowsum(dp p_eff)) (..., rows), the
-    kernels' own, or None: taken here in float32 as the statistics pass
-    takes them. ``keep`` bool or None (dropout off). Returns (dS, p_eff
-    rounded for dv), float32 tensors of dt values."""
-    kept = allowed if keep is None else allowed & keep
-    if stats is None:
-        m, e = rows_softmax(s, allowed, dt)
-        D = e.sum(-1)
-        rs = (torch.where(kept, e, 0.0) * dp).sum(-1) / (D * keep_prob)
-    else:
-        m, D, rs = stats
-    m, D, rs = m[..., None], D[..., None], rs[..., None]
-    e = rows_exponent(s, m, dt)
-    p_eff = torch.where(kept, e / (D * keep_prob), 0.0)
-    ds = torch.where(allowed, round_ds(p_eff * dp - (e / D) * rs, dt), 0.0)
-    return ds, torch.where(allowed, round_p_eff(p_eff, dt), 0.0)
-
-
 def dense_band_keep(band: torch.Tensor, L: int, C: int) -> torch.Tensor:
     """A band keep mask (..., L / C, C, 3C) (entry (i, ci, cj): row i C + ci
     against key i C - C + cj) as a dense (..., L, L) one."""
@@ -280,9 +244,9 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
         kd = None if keep is None else _sliding_dense_keep(keep, b, L, C, ng)
         ds, pe = dense_core_grad(qb @ tr(kb), dcl @ tr(vb), sliding_model_allowed(L, C, nv, ng, dev),
                                  kd, None if stats is None else stats[:, b], dt, kp)
-        outs[0][b] = _rounded(_rounded(ds @ kb, dt) * sm_scale, dt)
-        outs[1][b] = _rounded(tr(ds) @ qb, dt)
-        outs[2][b] = _rounded(tr(pe) @ dcl, dt)
+        outs[0][b] = rounded(rounded(ds @ kb, dt) * sm_scale, dt)
+        outs[1][b] = rounded(tr(ds) @ qb, dt)
+        outs[2][b] = rounded(tr(pe) @ dcl, dt)
         if glob_qkv is None or ng == 0:
             continue
         qg, kg, vg = (t[b].float() for t in glob_qkv)
@@ -291,9 +255,9 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
         ds, pe = dense_core_grad(qg @ tr(kg), dc[:, :ng] @ tr(vg), allowed,
                                  None if keep is None else keep[2][b][:, :ng],
                                  None if gstats is None else gstats[:, b, :, :ng], dt, kp)
-        outs[3][b, :, :ng] = _rounded(ds @ kg * sm_scale, dt)
-        outs[4][b] = _rounded(tr(ds) @ qg, dt)
-        outs[5][b] = _rounded(tr(pe) @ dc[:, :ng], dt)
+        outs[3][b, :, :ng] = rounded(ds @ kg * sm_scale, dt)
+        outs[4][b] = rounded(tr(ds) @ qg, dt)
+        outs[5][b] = rounded(tr(pe) @ dc[:, :ng], dt)
     return tuple(o.transpose(1, 2).to(dt) for o in outs)
 
 
@@ -313,38 +277,6 @@ def sliding_core_model_dproj(buffers: dict, *, window: int, sm_scale: float,
 
 
 # ------------------------------------------------------ the rows kernels' model
-
-
-def rows_exponent(s: torch.Tensor, m: torch.Tensor, dt) -> torch.Tensor:
-    """e = exp(s - m) with s - m and e rounded to dt, where the rows kernels
-    round it (a planted fault of the card gate replaces it)."""
-    return _rounded(torch.exp(_rounded(s - m, dt)), dt)
-
-
-def rows_softmax(s: torch.Tensor, allowed: torch.Tensor, dt):
-    """(m, e) of the rows kernels on dense (..., rows, keys) float32 scores:
-    the row's maximum over its allowed keys (-inf with none) and
-    ``rows_exponent`` against it where allowed, else 0 (a planted fault of
-    the card gate replaces it)."""
-    m = torch.where(allowed, s, -torch.inf).amax(-1)
-    e = rows_exponent(s, torch.where(torch.isfinite(m), m, 0.0)[..., None], dt)
-    return m, torch.where(allowed, e, 0.0)
-
-
-def rows_attend(s, v, allowed, keep, dt, keep_prob: float, dp=None):
-    """(ctx, m, D, rs) of the rows kernels on dense float32 scores s (...,
-    rows, keys), values v (..., keys, hd), ``allowed`` and ``keep`` (bool or
-    None) and, for the statistics pass, dp = dctx v^T: D = sum e, ctx = (kept
-    e) . v / (D keep_prob), rs = rowsum(dp p_eff) / (D keep_prob), both zero
-    where D = 0 (rs None without dp). float32 sums, no tiles."""
-    m, e = rows_softmax(s, allowed, dt)
-    pe = e if keep is None else torch.where(keep, e, 0.0)
-    D = e.sum(-1)
-    live = D > 0
-    denom = torch.where(live, D * keep_prob, 1.0)
-    ctx = torch.where(live[..., None], (pe @ v) / denom[..., None], 0.0)
-    rs = None if dp is None else torch.where(live, (pe * dp).sum(-1) / denom, 0.0)
-    return ctx, m, D, rs
 
 
 def _sliding_dense_keep(keep, b: int, L: int, C: int, ng: int):

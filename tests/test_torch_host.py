@@ -246,10 +246,12 @@ LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.bigbird_attention", "ops.cuda.bigbird_block", "ops.cuda.train_bigbird",
     "models.checkpoint_io", "models.ponet", "ops.cuda.ponet_block", "projects.mug.data",
     "projects.mug.topic_segmentation", "projects.mug.extractive_summarization",
-    "projects.mug.evaluate", "eval.rouge", "cli.run_mug", "cli.run_mug_evaluate")]
+    "projects.mug.evaluate", "eval.rouge", "cli.run_mug", "cli.run_mug_evaluate",
+    "ops.cuda.attention_models")]
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "backward_gemm_turns"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "backward_gemm_turns",
+                                    "dense_core_turns"])
 def test_port_imports_nothing_of_the_jax_package(target):
     """A fresh interpreter imports every module of the port (or one of the
     card scripts) and checks that neither spokennlp_tpu nor jax was loaded."""

@@ -543,6 +543,15 @@ def test_sass_verdict_on_canned_counts():
         f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 0, 0],
         f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 96],
         f"{ns}19bigbird_rows_kernelIfLi64ELb1EfEEvPKT_": [0, 0, 0],
+        f"{stack}16attn_rows_kernelI{bf}Li64ELb0EEEvPKT_": [0, 0, 96],
+        f"{stack}16attn_rows_kernelI{bf}Li64ELb1EEEvPKT_": [0, 0, 128],
+        f"{stack}16attn_rows_kernelIfLi64ELb1EEEvPKT_": [0, 0, 0],
+        f"{stack}14attn_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
+        f"{stack}14attn_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}15attn_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
+        f"{stack}15attn_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}26gemm_bias_act_f32tc_kernelEPKfS2_S2_Pfiiii": [0, 0, 192],
+        f"{stack}24residual_ln_f32tc_kernelEPKfS2_S2_S2_S2_S2_PfS3_iiifi": [0, 0, 96],
     }
     assert chip_smoke.sass_verdict(good) == []
 
@@ -574,6 +583,15 @@ def test_sass_verdict_on_canned_counts():
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_", [0, 0, 8])
+    # row 10's cores: bf16 (the statistics pass among them) without HMMA,
+    # float32 with it; kernel 9's 3xTF32 tile without HMMA
+    assert with_counts(f"{stack}16attn_rows_kernelI{bf}Li64ELb1EEEvPKT_", [0, 0, 0])
+    assert with_counts(f"{stack}15attn_dkv_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
+    assert with_counts(f"{stack}14attn_dq_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
+    assert with_counts(f"{stack}14attn_dq_kernelIfLi64EEEvPKT_", [0, 0, 8])
+    assert with_counts(f"{stack}26gemm_bias_act_f32tc_kernelEPKfS2_S2_Pfiiii", [0, 0, 0])
+    assert with_counts(f"{stack}24residual_ln_f32tc_kernelEPKfS2_S2_S2_S2_S2_PfS3_iiifi",
+                       [0, 0, 0])
     # a stray function with HMMA or IDP4A, an int8 tile kernel without IMMA
     assert with_counts(f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i", [0, 0, 4])
     assert with_counts(f"{ns}17global_rows_kernelI{bf}Li64EEEvPKT_", [0, 2, 4])

@@ -282,6 +282,65 @@ def test_planted_faults_fail_the_check(fault, quantized):
         assert _normalized(bad[valid], want[valid]) > F32_TOL
 
 
+def test_tf32x3_product_model_and_its_plain_tf32_fault():
+    """The model of kernel 9's float32 product tile (int8_matmul.
+    tf32x3_product) at the block's depth K = 768, unit inputs and weights of
+    std 0.02: its split alone (float64 sums) within 2e-7 of a float64
+    product's largest value, the model itself (float32 sums, as the tile)
+    within 1e-6; its big x big-only variant (plain TF32) beyond kernel 9's
+    float32 card limit. TF32 rounds to nearest with ties away from zero."""
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+
+    tie = torch.tensor([1 + 2**-11, -(1 + 3 * 2**-11), 1 + 2**-12, 3.0])
+    assert im.tf32_round(tie).tolist() == [1 + 2**-10, -(1 + 2**-9), 1.0, 3.0]
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((256, 768)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((768, 256)) * 0.02).astype(np.float32))
+    ref = x.double() @ w.double()
+    rel = lambda got: ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    big = lambda t: im.tf32_round(t).double()
+    small = lambda t: im.tf32_round(t - im.tf32_round(t)).double()
+    assert rel(small(x) @ big(w) + big(x) @ small(w) + big(x) @ big(w)) < 2e-7
+    assert rel(im.tf32x3_product(x, w)) < 1e-6
+    assert rel(im.tf32x3_product(x, w, terms=1)) > F32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_block_on_given_projections(dtype):
+    """ponet_mixer_block_plain fed its own five projections side by side
+    (as kernel 9's buffer holds them, the card check's second part) gives
+    its output bit for bit; fed other projections, it follows them."""
+    import chip_smoke
+
+    inp = block_inputs(3, L, 32, seed=17)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    hidden = t["hidden"].to(dtype)
+    params = {k: t[k] for k in BLOCK_ARGS[3:]}
+    call = lambda **kw: pb.ponet_mixer_block_plain(
+        hidden, t["attention_mask"], t["segment_ids"], *params.values(), local_window=3,
+        sm_scale=32**-0.5, ln_scale=t["ln_scale"], ln_bias=t["ln_bias"], **kw)
+    proj = chip_smoke.ponet_projections(pb, hidden, params)
+    assert torch.equal(call(proj=proj), call())
+    assert not torch.equal(call(proj=proj * 1.5), call())
+
+
+def test_plain_tf32_products_fail_the_float32_check():
+    """The block's float32 check (1e-4 of the largest output on real rows)
+    rejects the plain version with its six products in plain TF32 (the
+    planted fault of the card check at H = 768) and passes it with the
+    3xTF32 model of the kernel's tile."""
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+
+    inp = block_inputs(2, 128, 768, seed=13)
+    want = _block(pb.ponet_mixer_block_plain, inp, torch.from_numpy)
+    valid = inp["attention_mask"] > 0
+    for terms, fails in ((1, True), (3, False)):
+        with mock.patch.object(pb, "float_product",
+                               lambda a, b, terms=terms: im.tf32x3_product(a, b, terms)):
+            got = _block(pb.ponet_mixer_block_plain, inp, torch.from_numpy)
+        assert (_normalized(got[valid], want[valid]) > F32_TOL) == fails
+
+
 # ------------------------------------------------------------ the model
 
 
@@ -594,3 +653,54 @@ def test_ponet_model_runs_kernel_9_on_card(cuda, quantize):
     valid = T("attention_mask") > 0
     err = (got - want).abs()[valid]
     assert err.max().item() < (2e-2 if quantize == "w8a8" else F32_TOL), err.max()
+
+
+# (M, N, K): none a multiple of the 128 x 128 tile or the 32-deep stage;
+# odd widths (4-byte copies), the projections' and out projection's shapes
+TILE_SHAPES = [(130, 200, 72), (257, 129, 130), (33, 17, 9), (300, 3840, 768), (1000, 768, 768)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", TILE_SHAPES)
+def test_f32tc_tile_matches_plain_product_on_card(cuda, M, N, K):
+    """Kernel 9's float32 product tile alone (pb.gemm_f32tc) against the
+    float64 product plus bias: within 1e-5 of the largest output (3xTF32
+    keeps about float32's accuracy); plain TF32 products of the same
+    operands land beyond it from K = 64 on."""
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g, device=cuda)
+    w = torch.randn(K, N, generator=g, device=cuda) * K**-0.5
+    bias = torch.randn(N, generator=g, device=cuda)
+    n = pb.gemm_f32tc.launches
+    got = pb.gemm_f32tc(a, w, bias)
+    torch.cuda.synchronize()
+    assert pb.gemm_f32tc.launches == n + 1
+    want = a.double() @ w.double() + bias.double()
+    rel = lambda t: ((t.double() - want).abs().max() / want.abs().max()).item()
+    assert rel(got) < 1e-5, rel(got)
+    assert torch.equal(pb.gemm_f32tc(a, w) + bias, got)  # the bias added last, in float32
+    if K >= 64:
+        assert rel(im.tf32x3_product(a, w, terms=1) + bias) > 1e-5
+
+
+@pytest.mark.gpu
+def test_ponet_kernel_rejects_plain_tf32_products_on_card(cuda):
+    """The float32 check that passes kernel 9 rejects its plain version with
+    the six products in plain TF32 (the big x big term of the tile alone)."""
+    from spokennlp_tpu_torch.ops.cuda import int8_matmul as im
+
+    inp = _on_card(block_inputs(2, 1024, 768, seed=7, run_len=(5, 61)), cuda, torch.float32)
+    args = [inp[k] for k in BLOCK_ARGS]
+    kw = dict(local_window=3, sm_scale=768**-0.5, ln_scale=inp["ln_scale"],
+              ln_bias=inp["ln_bias"])
+    got = pb.fused_ponet_mixer_block(*args, **kw)
+    valid = inp["attention_mask"] > 0
+    want = pb.ponet_mixer_block_plain(*args, **kw)
+    err = ((got[valid] - want[valid]).abs().max() / want[valid].abs().max()).item()
+    assert err < CARD_TOL[torch.float32], err
+    with mock.patch.object(pb, "float_product", lambda a, b: im.tf32x3_product(a, b, terms=1)):
+        bad = pb.ponet_mixer_block_plain(*args, **kw)
+    err = ((got[valid] - bad[valid]).abs().max() / bad[valid].abs().max()).item()
+    assert err > CARD_TOL[torch.float32], err

@@ -346,6 +346,163 @@ def test_weight_grad_splits_and_workspace():
     torch.testing.assert_close(db, dy.sum(0))
 
 
+# ------------------------------------------- the bf16 cores' rounding models
+
+
+def _dense_leaves(Bm, Lm, nh, hd, seed):
+    """q, k, v (B, nh, L, hd) and dctx (B, L, nh, hd) float32, and the
+    segment ids (B, L) of ``_segments``."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    return (f(Bm, nh, Lm, hd), f(Bm, nh, Lm, hd), f(Bm, nh, Lm, hd), f(Bm, Lm, nh, hd),
+            torch.from_numpy(_segments(Bm, Lm, seed)))
+
+
+def _plain_scores(q, k, seg, sm):
+    """q k^T sm + (0 where allowed, else -1e9), (B, nh, L, L): the plain
+    core's scores."""
+    allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
+    return q @ k.transpose(-1, -2) * sm + torch.where(allowed, 0.0, -1e9)[:, None]
+
+
+def test_attention_rows_model_matches_jax_kernel_context_in_float32():
+    """attention_rows_model in float32 against the context of the TPU kernel
+    in interpret mode, read through an identity output projection (H = nh
+    hd, zero bias): every row, the padded ones too (the -1e9 mask of both
+    spreads them over the sequence), to 1e-5 of the largest."""
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_blocks import attention_block_train as jax_attention
+
+    inp = _attention_inputs(B, L, H, NH, seed=3)
+    inp["out_kernel"] = np.eye(H, dtype=np.float32).reshape(NH, HD, H)
+    inp["out_bias"] = np.zeros(H, np.float32)
+    want = jax_attention(jnp.asarray(inp["hidden"]), jnp.asarray(inp["segment_ids"]),
+                         *(jnp.asarray(inp[k]) for k in ATT_ARGS[1:]), jnp.zeros((1,), jnp.int32),
+                         HD**-0.5, dropout_rate=0.0, interpret=True)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    qkv = (torch.einsum("blh,hsnd->sbnld", t["hidden"], t["qkv_kernel"])
+           + t["qkv_bias"][:, None, :, None])
+    got, _ = tb.attention_rows_model(qkv[0], qkv[1], qkv[2], t["segment_ids"], sm_scale=HD**-0.5)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.reshape(B, L, H).numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_rows_model_statistics_match_autograd_of_plain_softmax(rate):
+    """float32: attention_rows_model's statistics against the plain softmax
+    of the -1e9-masked scores: m its maximum and m + log D its logsumexp on
+    real rows, and rowsum(dp p_eff) / (D keep_prob) = sum_k p_k dL/dp_k from
+    autograd of ctx = (kept p / keep_prob) . v with the cotangent dctx on
+    every row; to 1e-5 of the largest."""
+    Bm, Lm, nh, hd = 2, 96, 2, 16
+    sm = hd**-0.5
+    q, k, v, dctx, seg = _dense_leaves(Bm, Lm, nh, hd, 31)
+    keep = tb.dropout_keep_mask(torch.tensor([5], dtype=torch.int32), Bm, nh, Lm, rate) \
+        if rate else None
+    _, stats = tb.attention_rows_model(q, k, v, seg, sm_scale=sm, dctx=dctx, dropout_rate=rate,
+                                       keep=keep)
+    s = _plain_scores(q, k, seg, sm)
+    p = torch.softmax(s, -1).requires_grad_()
+    kept = p if keep is None else torch.where(keep, p, 0.0)
+    (gp,) = torch.autograd.grad(kept / (1.0 - rate) @ v, p, dctx.transpose(1, 2))
+    real = (seg > 0)[:, None].expand(Bm, nh, Lm)
+    for got, want in ((stats[0][real], s.amax(-1)[real]),
+                      ((stats[0] + stats[1].log())[real], torch.logsumexp(s, -1)[real]),
+                      (stats[2], (p * gp).sum(-1))):
+        np.testing.assert_allclose(got.numpy(), want.detach().numpy(), rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_core_bwd_model_matches_autograd_of_plain_core(rate):
+    """float32: attention_core_bwd_model's dq, dk, dv (its statistics taken
+    by attention_rows_model, as the kernels' statistics pass takes them)
+    against autograd of the plain core with the cotangent dctx, the keep
+    mask replayed; to 1e-5 of the largest."""
+    Bm, Lm, nh, hd = 2, 96, 2, 16
+    sm = hd**-0.5
+    q, k, v, dctx, seg = _dense_leaves(Bm, Lm, nh, hd, 37)
+    keep = tb.dropout_keep_mask(torch.tensor([6], dtype=torch.int32), Bm, nh, Lm, rate) \
+        if rate else None
+    _, stats = tb.attention_rows_model(q, k, v, seg, sm_scale=sm, dctx=dctx, dropout_rate=rate,
+                                       keep=keep)
+    got = tb.attention_core_bwd_model(q, k, v, dctx, seg, sm_scale=sm, stats=stats,
+                                      dropout_rate=rate, keep=keep)
+    leaves = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+    ctx = tb._attention_core_train(*leaves, seg, sm, rate, keep)
+    want = torch.autograd.grad(ctx, leaves, dctx)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5 * w.abs().max().item(),
+                                   err_msg=name)
+
+
+def _bf16_dense_leaves(Bm, Lm, nh, hd, seed):
+    q, k, v, dctx, seg = _dense_leaves(Bm, Lm, nh, hd, seed)
+    return (*(t.to(torch.bfloat16) for t in (q, k, v, dctx)), seg)
+
+
+@pytest.mark.parametrize("fault", chip_smoke.ROWS_FAULTS)
+def test_dense_rows_gate_rejects_the_planted_faults(fault):
+    """chip_smoke's limits of the rows kernels (ROWS_TOL) reject each planted
+    fault of attention_rows_model in bf16 at L=256, rate 0.1: ctx alone (the
+    forward) and ctx with the statistics, the model with the fault read
+    against the model."""
+    Bm, Lm, nh, hd = 2, 256, 2, 64
+    q, k, v, dctx, seg = _bf16_dense_leaves(Bm, Lm, nh, hd, 41)
+    keep = tb.dropout_keep_mask(torch.tensor([3], dtype=torch.int32), Bm, nh, Lm, 0.1)
+    for dc in (None, dctx):
+        model = lambda: tb.attention_rows_model(q, k, v, seg, sm_scale=hd**-0.5, dctx=dc,
+                                                dropout_rate=0.1, keep=keep)
+        want = model()
+        if dc is None:
+            want = (want[0], None)
+        with chip_smoke.planted(chip_smoke.rows_faults("attn_rows")[fault]):
+            bad = model()
+        tol = chip_smoke.rows_tol(want)
+        assert chip_smoke.core_bwd_excess(chip_smoke.rows_readings(want, bad), tol) > 1
+        assert chip_smoke.core_bwd_excess(chip_smoke.rows_readings(want, want), tol) == 0
+
+
+@pytest.mark.parametrize("fault", chip_smoke.BWD_CORE_FAULTS)
+def test_dense_core_gate_rejects_the_planted_faults(fault):
+    """chip_smoke's limits of the gradient kernels
+    (BWD_CORE_TOL["attention_train_bwd"]) reject each planted fault of
+    attention_core_bwd_model in bf16 at L=256, rate 0.1."""
+    Bm, Lm, nh, hd = 2, 256, 2, 64
+    q, k, v, dctx, seg = _bf16_dense_leaves(Bm, Lm, nh, hd, 43)
+    keep = tb.dropout_keep_mask(torch.tensor([4], dtype=torch.int32), Bm, nh, Lm, 0.1)
+    model = lambda: torch.stack(tb.attention_core_bwd_model(
+        q, k, v, dctx, seg, sm_scale=hd**-0.5, dropout_rate=0.1, keep=keep), dim=2).reshape(
+            Bm * Lm, -1)
+    want = model()
+    with chip_smoke.planted(chip_smoke.core_bwd_faults("attention_train_bwd")[fault]):
+        bad = model()
+    tol = chip_smoke.BWD_CORE_TOL["attention_train_bwd"]
+    assert chip_smoke.core_bwd_excess(chip_smoke.core_bwd_readings(want, bad, nh * hd), tol) > 1
+    assert chip_smoke.core_bwd_excess(chip_smoke.core_bwd_readings(want, want, nh * hd), tol) == 0
+
+
+def test_core_wrappers_on_cpu_run_the_models_and_count_no_launches():
+    """attention_rows and attention_grad on CPU tensors run the rounding
+    models and launch nothing; dense_ds_elements sizes the dS tiles."""
+    Bm, Lm, nh, hd = 2, 70, 2, 16
+    q, k, v, dctx, seg = _dense_leaves(Bm, Lm, nh, hd, 47)
+    qkv, seed = torch.stack([q, k, v]), torch.tensor([9], dtype=torch.int32)
+    n = (tb.attention_rows.launches, tb.attention_grad.launches)
+    kw = dict(sm_scale=hd**-0.5, dropout_rate=0.1)
+    ctx, stats = tb.attention_rows(qkv, seg, seed, dctx=dctx.reshape(Bm, Lm, -1), **kw)
+    keep = tb.dropout_keep_mask(seed, Bm, nh, Lm, 0.1)
+    want = tb.attention_rows_model(q, k, v, seg, dctx=dctx, keep=keep, **kw)
+    assert torch.equal(ctx, want[0]) and torch.equal(stats, want[1])
+    dproj, ds = tb.attention_grad(qkv, seg, seed, dctx.reshape(Bm, Lm, -1), stats, **kw)
+    grads = tb.attention_core_bwd_model(q, k, v, dctx, seg, stats=stats, keep=keep, **kw)
+    assert ds is None and torch.equal(dproj, torch.stack(grads, dim=2).reshape(Bm * Lm, -1))
+    assert (tb.attention_rows.launches, tb.attention_grad.launches) == n
+    assert tb.dense_ds_elements(2, 3, 70) == 2 * 3 * 2 * 2 * 64 * 64
+
+
 # ---------------------------------------------------------------- on the card
 
 
@@ -575,3 +732,103 @@ def test_bf16_weight_gradients_repeat_bit_for_bit_on_card(cuda, kernel):
         run = lambda: tb.weight_grad(x, dy)
     first = run()
     assert all(torch.equal(a, b) for a, b in zip(first, run()))
+
+
+# (B, L, H, heads): L not a multiple of the 64-row tile, head dims 64, 32,
+# 128 and 16, and the main path's shape (every L above 64, so that the
+# planted fault's dropped key tile, keys 64-127 of rows 64-127, exists)
+DENSE_CARD_SHAPES = [(4, 200, 256, 4), (2, 130, 256, 8), (2, 96, 256, 2), (3, 80, 64, 4),
+                     (2, 512, 768, 12)]
+
+
+def _dense_backward(cuda, Bc, Lc, Hc, nh, rate, seed):
+    """bf16 inputs of the attention block on the card, a backward's
+    intermediates (``attention_train_bwd``'s buffers), the keep mask and the
+    seed."""
+    hd = Hc // nh
+    inp = _attention_inputs(Bc, Lc, Hc, nh, seed=seed, w_scale=Hc**-0.5)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in inp.items()}
+    bf = torch.bfloat16
+    seed_t = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    wqkv = t["qkv_kernel"].to(bf).reshape(Hc, 3 * Hc).contiguous()
+    wo = t["out_kernel"].to(bf).reshape(Hc, Hc).contiguous()
+    args = (t["hidden"].to(bf), t["segment_ids"], seed_t, wqkv, t["qkv_bias"].reshape(-1), wo,
+            t["cotangent"].to(bf))
+    bufs = {}
+    got = tb.attention_train_bwd(*args, num_heads=nh, sm_scale=hd**-0.5, dropout_rate=rate,
+                                 buffers=bufs)
+    keep = tb.dropout_keep_mask(seed_t, Bc, nh, Lc, rate) if rate else None
+    return args, bufs, got, keep, seed_t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fwd", "stats"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh", DENSE_CARD_SHAPES)
+def test_attention_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, Bc, Lc, Hc, nh):
+    """bf16: attn_rows_kernel alone (tb.attention_rows) on the q, k, v and
+    dctx of a backward of the block against attention_rows_model within
+    chip_smoke.ROWS_TOL: the forward's ctx, and the statistics pass (ctx and
+    the statistics, which must equal the backward's own); two runs give the
+    same bits; each planted fault of the model fails the limits."""
+    hd = Hc // nh
+    _, bufs, _, keep, seed = _dense_backward(cuda, Bc, Lc, Hc, nh, rate, Lc + 5)
+    qkv, seg = bufs["qkv"], bufs["seg"]
+    dctx = bufs["dctx"].reshape(Bc, Lc, Hc) if mode == "stats" else None
+    n = tb.attention_rows.launches
+    runs = [tb.attention_rows(qkv, seg, seed, sm_scale=hd**-0.5, dctx=dctx, dropout_rate=rate)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tb.attention_rows.launches == n + 2
+    if mode == "stats":
+        assert torch.equal(runs[0][1], bufs["stats"])
+        assert torch.equal(runs[0][0].reshape(Bc * Lc, Hc), bufs["ctx"])
+    model = lambda: tb.attention_rows_model(
+        qkv[0], qkv[1], qkv[2], seg, sm_scale=hd**-0.5, dropout_rate=rate, keep=keep,
+        dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd))
+    want = model()
+    readings = chip_smoke.rows_readings(runs[0], want if dctx is not None else (want[0], None))
+    print(f"{Bc}x{Lc} hd {hd} {mode} rate {rate}: {readings}")
+    tol = chip_smoke.rows_tol(runs[0])
+    assert chip_smoke.core_bwd_excess(readings, tol) <= 1, readings
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    for fault, patches in chip_smoke.rows_faults("attn_rows").items():
+        with chip_smoke.planted(patches):
+            bad = model()
+        bad = chip_smoke.rows_readings(runs[0], bad if dctx is not None else (bad[0], None))
+        print(f"  {fault}: {bad}")
+        assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh", DENSE_CARD_SHAPES)
+def test_attention_gradient_kernels_match_rounding_model_on_card(cuda, rate, Bc, Lc, Hc, nh):
+    """bf16: the gradient kernels' dproj against attention_core_model_dproj
+    on the kernel's own intermediates, within
+    chip_smoke.BWD_CORE_TOL["attention_train_bwd"] element by element and in
+    norm in each slot; two runs give the same bits; attn_dkv then attn_dq
+    launched alone (tb.attention_grad) give the backward's dproj; each
+    planted fault of the model fails the limits."""
+    hd = Hc // nh
+    args, bufs, _, keep, seed = _dense_backward(cuda, Bc, Lc, Hc, nh, rate, Lc + 9)
+    again = {}
+    tb.attention_train_bwd(*args, num_heads=nh, sm_scale=hd**-0.5, dropout_rate=rate,
+                           buffers=again)
+    assert torch.equal(bufs["dproj"], again["dproj"])
+    kw = dict(sm_scale=hd**-0.5, dropout_rate=rate)
+    dctx = bufs["dctx"].reshape(Bc, Lc, Hc)
+    out = tb.attention_grad(bufs["qkv"], bufs["seg"], seed, dctx, bufs["stats"], which=1, **kw)
+    alone, _ = tb.attention_grad(bufs["qkv"], bufs["seg"], seed, dctx, bufs["stats"], which=2,
+                                 out=out, **kw)
+    assert torch.equal(alone, bufs["dproj"])
+    model = lambda: tb.attention_core_model_dproj(bufs, keep=keep, **kw)
+    readings = chip_smoke.core_bwd_readings(bufs["dproj"], model(), Hc)
+    print(f"{Bc}x{Lc} hd {hd} rate {rate}: {readings}")
+    tol = chip_smoke.BWD_CORE_TOL["attention_train_bwd"]
+    assert chip_smoke.core_bwd_excess(readings, tol) <= 1, readings
+    for fault, patches in chip_smoke.core_bwd_faults("attention_train_bwd").items():
+        with chip_smoke.planted(patches):
+            bad = chip_smoke.core_bwd_readings(bufs["dproj"], model(), Hc)
+        print(f"  {fault}: {bad}")
+        assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)

@@ -15,8 +15,10 @@
    bf16 instantiation of the dense attention core (attn_core_kernel), of the
    forward GEMM tile's kernels (gemm_bias_act, qkv_proj,
    gemm_bias_residual_ln), of the rows kernels (band_rows, bigbird_rows,
-   attn_rows), of the training gradient kernels (band, bigbird and attn dq
-   and dkv) and of the two stack entries (or their out-of-line items) holds
+   attn_rows), of the Longformer global rows (global_rows, its W8A8 and
+   statistics-pass instances among them), of the training gradient kernels
+   (band, bigbird and attn dq and dkv) and of the two stack entries (or
+   their out-of-line items) holds
    HMMA, the tensor cores' product, and no float32 one, transposed-weight
    GEMM or other function does but kernel 9's 3xTF32 tile kernels
    (gemm_bias_act_f32tc, residual_ln_f32tc), which must (sass_verdict).
@@ -195,7 +197,19 @@
    rows_bound_ms and rows_library_ms of the kernels line's rows 7, 8, 12
    and 13. The same for attn_rows (row 10's rows kernel) at B=32, L=512 as
    its forward and statistics pass at dropout 0.1, then row 10's gradient
-   kernels alone (attn_dkv, attn_dq: dkv_ms, dq_ms, grad_bound_ms).
+   kernels alone (attn_dkv, attn_dq: dkv_ms, dq_ms, grad_bound_ms). Then the
+   Longformer global rows alone (global_rows_kernel on global_rows_mma.cuh's
+   tensor-core body, train_sliding.sliding_global_rows) at B=8, L=2048 with
+   CLS global (n_glob 1) and with 16 global tokens, in each mode: kernel 7
+   bf16, kernel 7 W8A8 (int8 query, float32 ctx), row 12's forward at
+   dropout 0.1 and its statistics pass (with dqg): qg against the plain
+   query (QG_TOL, W8A8 bit for bit; a query without its bias must fail),
+   ctx and the statistics within ROWS_TOL and dqg within BWD_CORE_TOL
+   against sliding_global_rows_model, the three planted faults each
+   failing, two launches the same bits; the kernel's device time beside
+   its bound and SDPA's with the key-padding mask: global_ms,
+   global_bound_ms and global_library_ms (and their _16 twins) of the
+   kernels line's rows 7, 7 W8A8 and 12.
 21. Prints the serving runs, the Longformer, BigBird, MUG and W8A8
    long-context runs and the kernels as JSON lines, the card's name and
    power limit, and last {"ok": true, "device": {...}}.
@@ -932,16 +946,26 @@ def running_max_softmax(real, s, allowed, dt):
 
 def rows_faults(name: str) -> dict:
     """{fault: patches for planted()}: ROWS_FAULTS in the rounding model of
-    ``name`` (band_rows, bigbird_rows or attn_rows): e not rounded; a key
-    tile dropped (core_bwd_faults' tile of the same row); running_max_softmax."""
+    ``name`` (band_rows, bigbird_rows, attn_rows or global_rows): e not
+    rounded; a key tile dropped (core_bwd_faults' tile of the same row; for
+    the global rows keys 64-127 of every global row); running_max_softmax."""
     import torch
 
     from spokennlp_tpu_torch.ops.cuda import attention_models as am
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
 
-    row = {"band_rows": "sliding_train_bwd", "bigbird_rows": "bigbird_train_bwd",
-           "attn_rows": "attention_train_bwd"}[name]
+    if name == "global_rows":
+        def drop(real, L, n_valid, n_glob, device):
+            allowed = real(L, n_valid, n_glob, device).clone()
+            allowed[:, 64:128] = False
+            return allowed
+        tile = [(ts, "sliding_global_allowed", None, drop)]
+    else:
+        row = {"band_rows": "sliding_train_bwd", "bigbird_rows": "bigbird_train_bwd",
+               "attn_rows": "attention_train_bwd"}[name]
+        tile = core_bwd_faults(row)[BWD_CORE_FAULTS[2]]
     return {ROWS_FAULTS[0]: [(am, "rows_exponent", None, lambda real, s, m, dt: torch.exp(s - m))],
-            ROWS_FAULTS[1]: core_bwd_faults(row)[BWD_CORE_FAULTS[2]],
+            ROWS_FAULTS[1]: tile,
             ROWS_FAULTS[2]: [(am, "rows_softmax", None, running_max_softmax)]}
 
 
@@ -1008,6 +1032,207 @@ def rows_qkv(randn, Bq: int, Lq: int, dt, scale_q: bool = True):
     if scale_q:
         qkv[0] *= HD**-0.5
     return qkv.to(dt).contiguous()
+
+
+# The global rows (global_rows_kernel) launched alone
+# (train_sliding.sliding_global_rows) on their own x, Wgq, kg and vg, against
+# sliding_global_rows_model on the kernel's own qg: ctx and, in the
+# statistics pass, the rows' (m, D, rowsum(dp p_eff)) read as rows_readings
+# reads them, within ROWS_TOL, and dqg read as a slot of dproj is
+# (core_bwd_readings), within BWD_CORE_TOL["sliding_train_bwd"]: its model
+# is the gradient kernels' (dense_core_grad). Each of ROWS_FAULTS, planted
+# in the model, must fail one of them. qg itself is held to the plain query
+# (train_sliding.sliding_global_query): in bf16 within QG_TOL = (s, r),
+# max(|got - want| - r |want|) <= s max |want|, r = 2^-7 for the bf16
+# rounding both take after float32 sums in another order and s for values
+# near 0; a query without its bias must fail it; in W8A8 bit for bit (int32
+# sums, the same dequantisation).
+QG_TOL = (1e-4, 2**-7)
+QG_FAULT = "the global query without its bias"
+
+
+def global_rows_readings(got, want) -> dict:
+    """{output: (element-wise, norm)} of the global rows' (ctx, qg, stats,
+    dqg) from sliding_global_rows against the model's (ctx, stats, dqg)."""
+    import torch
+
+    (gc, _, gs, gd), (wc, ws, wd) = got, want
+    out = rows_readings((gc, gs), (wc, ws))
+    if gd is not None:
+        g, w = gd.float(), wd.float()
+        if not torch.isfinite(g).all():
+            fail("global rows: non-finite dqg")
+        out["dqg"] = (beyond_limit(g, w, (0.0, 2**-7)) / max(w.abs().max().item(), 1e-30),
+                      ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def global_rows_excess(readings: dict, ctx_dtype) -> float:
+    """The largest global-rows reading over its limit (ROWS_TOL by ctx's
+    dtype, BWD_CORE_TOL for dqg): above 1 fails."""
+    rows = {k: v for k, v in readings.items() if k != "dqg"}
+    excess = core_bwd_excess(rows, ROWS_TOL[str(ctx_dtype).split(".")[-1]])
+    if "dqg" in readings:
+        excess = max(excess, core_bwd_excess({"dqg": readings["dqg"]},
+                                             BWD_CORE_TOL["sliding_train_bwd"]))
+    return excess
+
+
+def check_global_rows(label: str, got, model) -> dict:
+    """The global rows' (ctx, qg, stats, dqg) against ``model()`` within
+    their limits; each of ROWS_FAULTS planted in the model must fail them.
+    Returns {reading, norm_reading, faults: {fault: (element-wise, norm)}}."""
+    show = lambda rd: ", ".join(f"{k} {e:.2e} / {n:.2e}" for k, (e, n) in rd.items())
+    readings = global_rows_readings(got, model())
+    print(f"  {label} against its rounding model, element-wise / norm: {show(readings)}")
+    if global_rows_excess(readings, got[0].dtype) > 1:
+        fail(f"{label}: beyond its rounding model's limits: {show(readings)}")
+    faults = {}
+    for fault, patches in rows_faults("global_rows").items():
+        with planted(patches):
+            bad = global_rows_readings(got, model())
+        worst = (max(e for e, _ in bad.values()), max(n for _, n in bad.values()))
+        faults[fault] = worst
+        rejected = global_rows_excess(bad, got[0].dtype) > 1
+        print(f"  planted fault, {label}'s model with {fault}: element-wise {worst[0]:.2e}, "
+              f"norm {worst[1]:.2e}: " + ("rejected" if rejected else "ACCEPTED"))
+        if not rejected:
+            fail(f"the global rows' limits accept {fault} ({label})")
+    return {"reading": max(e for e, _ in readings.values()),
+            "norm_reading": max(n for _, n in readings.values()), "faults": faults}
+
+
+def query_reading(qg, want) -> float:
+    """max(|qg - want| - 2^-7 |want|) / max |want| of the kernel's global
+    query against the plain one (QG_TOL's element-wise part)."""
+    return beyond_limit(qg, want, (0.0, QG_TOL[1])) / max(want.float().abs().max().item(), 1e-30)
+
+
+def kernel_device_ms(fn, name=None, reps: int = 10) -> float:
+    """ms of device time a call of fn (torch.profiler, after a warm-up): of
+    the kernels whose name holds ``name``, or of every kernel of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0 and (name is None or name in e.key):
+            us += t
+    if us <= 0:
+        fail(f"torch.profiler saw no device time of {name or 'the call'}")
+    return us / 1e3 / reps
+
+
+def global_rows_phase(device, rows: dict):
+    """The global rows alone at kernel 7's and row 12's shape (B=8, L=2048,
+    BERT-base widths, the Longformer phase's padding), with CLS global (n_glob
+    1, the main paths') and with 16 global tokens, in each mode a main path
+    runs them: kernel 7 bf16, kernel 7 W8A8 (the int8 query, float32 ctx),
+    row 12's forward at dropout 0.1 and its statistics pass (kGrad: the
+    statistics and dqg). Each: qg against the plain query (query_reading,
+    QG_TOL; W8A8 bit for bit), the rest against the rounding model
+    (check_global_rows), two launches the same bits, the kernel's device
+    time (torch.profiler) beside its bound (the real keys' kg and vg read
+    once, x's global rows, Wgq, and the rows' outputs; the query's and the
+    attention's operations, 4 hd a (row, key) pair, 8 hd with dP and dS .
+    kg) and SDPA's (scaled_dot_product_attention on the kernel's qg, kg, vg
+    with the key-padding mask, device time). Adds global_ms,
+    global_bound_ms, global_bound_by, global_library_ms, global_reading and
+    global_norm_reading (n_glob 1) and the same keys ending in _16 (n_glob
+    16) to rows 7, 7 W8A8 and 12 (forward and backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from spokennlp_tpu_torch.ops.cuda import sliding_block as sb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import quantize_colwise, rowquant_plain
+
+    g = torch.Generator(device=device).manual_seed(15)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    bf16, HN, sm = torch.bfloat16, NH * HD, HD**-0.5
+    seed = torch.tensor([20231021], dtype=torch.int32, device=device)
+    G = sb.global_columns(LF_MAX_GLOBALS, LF_L)
+    x = randn(LF_B, LF_L, H).to(bf16)
+    wgq, bgq = randn(H, HN, scale=H**-0.5).to(bf16), randn(HN, scale=0.02)
+    gkv = rows_qkv(randn, LF_B, LF_L, bf16, scale_q=False)[1:].contiguous()
+    x8, sx = rowquant_plain(x.reshape(-1, H))
+    wgq8, swgq = quantize_colwise(wgq.float())
+    quant = {"x8": x8.contiguous(), "sx": sx.reshape(-1).contiguous(),
+             "wgq8": wgq8.contiguous(), "swgq": swgq.reshape(-1).contiguous()}
+    mask, _ = sliding_masks(device)
+    n_valid = mask.sum(1)
+    dctx = (randn(LF_B, LF_L, HN) * mask[..., None]).to(bf16)
+    keep = ts.sliding_keep_masks(seed, LF_B, NH, LF_L, LF_WINDOW, G, DROPOUT)[2]
+    key_mask = mask.bool()[:, None, None, :]
+    keys = int(n_valid.sum())
+    modes = (("kernel 7 bfloat16", "sliding_attention_block", 0.0, None, False),
+             ("kernel 7 W8A8, float32 ctx", "sliding_attention_block_w8a8", 0.0, quant, False),
+             ("row 12 forward, dropout 0.1", "sliding_train_fwd", DROPOUT, None, False),
+             ("row 12 statistics pass, dropout 0.1", "sliding_train_bwd", DROPOUT, None, True))
+    for n_g in (1, 16):
+        counts = torch.stack([n_valid, torch.full_like(n_valid, n_g)], 1).int().contiguous()
+        suffix = "" if n_g == 1 else "_16"
+        lib = None
+        for label, name, rate, q, grad in modes:
+            label = f"global_rows ({label}, n_glob {n_g})"
+            dc = dctx if grad else None
+            launch = lambda: ts.sliding_global_rows(x, wgq, bgq, gkv, counts, seed, sm_scale=sm,
+                                                    dctx=dc, dropout_rate=rate, quant=q)
+            got, again = launch(), launch()
+            torch.cuda.synchronize()
+            if not all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{label}: two launches differ")
+            want_q = ts.sliding_global_query(x, wgq, bgq, counts[:, 1], num_heads=NH,
+                                             sm_scale=sm, G=G, quant=q)
+            if q is not None:
+                if not torch.equal(got[1], want_q):
+                    fail(f"{label}: the int8 query differs from the plain one")
+                print(f"  {label}: qg equals the plain int8 query bit for bit")
+            else:
+                qr = query_reading(got[1], want_q)
+                bad_q = query_reading(got[1], ts.sliding_global_query(
+                    x, wgq, torch.zeros_like(bgq), counts[:, 1], num_heads=NH, sm_scale=sm,
+                    G=G))
+                print(f"  {label}: qg against the plain query {qr:.2e} (limit {QG_TOL[0]:g} "
+                      f"max |ref|); with {QG_FAULT}: {bad_q:.2e}")
+                if qr > QG_TOL[0] or bad_q <= QG_TOL[0]:
+                    fail(f"{label}: the query's limit does not hold or accepts {QG_FAULT}")
+            gate = check_global_rows(label, got, lambda: ts.sliding_global_rows_model(
+                got[1], gkv[0], gkv[1], n_valid, counts[:, 1], sm_scale=sm,
+                dctx=None if dc is None else dc.reshape(LF_B, LF_L, NH, HD), dropout_rate=rate,
+                keep=keep if rate else None, ctx_dtype=torch.float32 if q is not None else None))
+            if lib is None:
+                qg = got[1]
+                lib = kernel_device_ms(lambda: F.scaled_dot_product_attention(
+                    qg, gkv[0], gkv[1], attn_mask=key_mask, scale=1.0))
+            ms = kernel_device_ms(launch, "global_rows_kernel")
+            n_rows = LF_B * n_g
+            query_ops = 2 * H * HN * n_rows
+            attn_ops = (8 if grad else 4) * HD * NH * n_g * keys
+            ops = ({"int8": query_ops, "bfloat16": attn_ops} if q is not None
+                   else query_ops + attn_ops)
+            io = (2 * 2 * NH * HD * keys + n_rows * H * (1 if q is not None else 2)
+                  + H * HN * (1 if q is not None else 2) + n_rows * HN * got[0].element_size()
+                  + (n_rows * HN * 2 * 3 + 3 * n_rows * NH * 4 if grad else 0))
+            b = bound(ops, io)
+            rows[name, "bfloat16"].update({
+                f"global_ms{suffix}": ms, f"global_bound_ms{suffix}": b["bound_ms"],
+                f"global_bound_by{suffix}": b["bound_by"], f"global_library_ms{suffix}": lib,
+                f"global_reading{suffix}": gate["reading"],
+                f"global_norm_reading{suffix}": gate["norm_reading"]})
+            print(f"kernel {label}: {ms:.4f} ms of device time, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}), SDPA with the key-padding mask {lib:.4f} ms; with the "
+                  f"wrapper (CUDA events) {time_ms(launch):.4f} ms")
+        torch.cuda.empty_cache()
 
 
 def rows_kernel_phase(device, rows: dict):
@@ -1135,6 +1360,7 @@ def rows_kernel_phase(device, rows: dict):
             pairs, qkv, dc, lib_ms)
     del qkv, dctx, keep
     torch.cuda.empty_cache()
+    global_rows_phase(device, rows)
 
     # bigbird_rows at kernel 8's shape, then at row 13's
     for Bq, Lq, modes in (
@@ -1229,7 +1455,10 @@ def attention_block_bf16_probabilities(hidden, segment_ids, qkv_kernel, qkv_bias
 IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_kernel",
                 "residual_ln_i8_kernel", "encoder_stack_i8_kernel")
 # the only functions that may still multiply int8 with IDP4A: 1c's int8
-# attention core and the W8A8 global query (global_rows_kernel)
+# attention core and the W8A8 global query, which stays an exact int32 sum
+# on the CUDA cores inside global_rows_kernel (one live row a sequence on
+# the main paths: no tile to fill; its W8A8 instances' attention runs on the
+# tensor cores all the same)
 IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # the functions that run bf16 products on the tensor cores: the dense
 # attention core's kernel (kernels 1 and 6), the GEMM tile's kernels
@@ -1238,10 +1467,11 @@ IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # gradient), the MLP backward's recomputed product (act_and_grad_kernel), the
 # Longformer and BigBird backwards' gradient kernels (attention_grad_mma.cuh),
 # the sliding-window and BigBird rows kernels (attention_rows_mma.cuh: kernels
-# 7 and 8 in both modes, rows 12 and 13's forwards and statistics passes;
-# global_rows_kernel stays on the CUDA cores), row 10's three cores (its
-# rows kernel on attention_rows_mma.cuh, its gradient kernels on
-# attention_grad_mma.cuh) and the stack entries, whose
+# 7 and 8 in both modes, rows 12 and 13's forwards and statistics passes),
+# the Longformer global rows (global_rows_mma.cuh: kernel 7 in both modes,
+# row 12's forward and statistics pass; the bf16 query, S, P.V, dP and dS .
+# kg), row 10's three cores (its rows kernel on attention_rows_mma.cuh, its
+# gradient kernels on attention_grad_mma.cuh) and the stack entries, whose
 # bf16 core and GEMMs run out of line in stack_core_item and
 # STACK_GEMM_ITEMS. Each bf16 instantiation must hold
 # HMMA (a stack entry itself or in its items); the float32 ones (with
@@ -1251,7 +1481,8 @@ HMMA_KERNELS = ("attn_core_kernel", "gemm_bias_act_kernel", "qkv_proj_kernel",
                 "gemm_bias_residual_ln_kernel", "encoder_stack_kernel", "encoder_stack_i8_kernel",
                 "weight_grad_kernel", "act_and_grad_kernel", "band_dq_kernel", "band_dkv_kernel",
                 "bigbird_dq_kernel", "bigbird_dkv_kernel", "band_rows_kernel",
-                "bigbird_rows_kernel", "attn_rows_kernel", "attn_dq_kernel", "attn_dkv_kernel")
+                "bigbird_rows_kernel", "global_rows_kernel", "attn_rows_kernel", "attn_dq_kernel",
+                "attn_dkv_kernel")
 # kernel 9's float32 products on the 3xTF32 tile (csrc/tf32x3_gemm.cuh): float
 # kernels whose products run on the TF32 tensor cores (HMMA in SASS); each
 # must hold HMMA

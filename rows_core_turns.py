@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Times the sliding-window and BigBird rows kernels (``band_rows``,
-``bigbird_rows``) inside kernels 7 and 8 (both modes) and rows 12 and 13
-(forward and backward) of two checkouts of the port in turns on one CUDA
-card, splits each call's device time by kernel name, and checks that the
-outputs that must not move are the same bits in both.
+``bigbird_rows``) and the Longformer global rows (``global_rows``) inside
+kernels 7 and 8 (both modes) and rows 12 and 13 (forward and backward) of
+two checkouts of the port in turns on one CUDA card, splits each call's
+device time by kernel name, and checks that the outputs that must not move
+are the same bits in both.
 
     python3 rows_core_turns.py --parent DIR [--reps N]
 
@@ -13,10 +14,13 @@ parent, this, this, parent, each building that checkout's kernels at first
 use and printing one JSON line:
 
 - ms a call (CUDA events after a warm-up) of kernel 7 in bf16 and W8A8 at
-  B=8, L=2048 (window 512, CLS global), kernel 8 in bf16 and W8A8 at B=4,
-  L=4096 (blocks of 64, 2 global and 3 random), and rows 12 and 13's
-  forwards and backwards in bf16 at B=8, L=2048, dropout 0.1, all at
-  BERT-base widths; the card's SM clock and power draw read after each;
+  B=8, L=2048 (window 512, CLS global) and at B=2, kernel 8 in bf16 and
+  W8A8 at B=4, L=4096 (blocks of 64, 2 global and 3 random), rows 12 and
+  13's forwards and backwards in bf16 at B=8, L=2048, dropout 0.1, and row
+  12's also at the recipe's micro-batch B=2, all at BERT-base widths; the
+  card's SM clock and power draw read after each; where the checkout has
+  it (``train_sliding.sliding_global_rows``), the global rows alone in each
+  mode at B=8 and B=2 (device time);
 - the device time of one call of each, by kernel name (torch.profiler):
   the rows kernel (``rows_ms``: ``band_rows`` or ``bigbird_rows``; in a
   backward its ``kGrad`` instance, the statistics pass), ``global_rows``,
@@ -26,9 +30,12 @@ use and printing one JSON line:
   quantisation, memsets);
 - sha256 digests of what must not move: every float32 output of kernels 7
   and 8 (float and W8A8 modes) and of rows 12 and 13 (forward and
-  backward), and every output of rows 1-6 and 9-11 (the digests of
-  ``backward_gemm_turns.py`` without those of kernels 7 and 8 and rows 12
-  and 13 in bf16);
+  backward); every output of kernel 8 and row 13 in bf16 and W8A8; every
+  output of kernel 7 and row 12 without global rows; kernel 7's output rows
+  at or beyond n_glob (rows 1 on; CLS is the one global token) in bf16 and
+  W8A8, which do not depend on the global rows; and every output of rows
+  1-6 and 9-11 (the digests of ``backward_gemm_turns.py`` without those of
+  kernel 7 and row 12's forward in bf16);
 - digests of the bf16 and W8A8 outputs of kernels 7 and 8 and of rows 12
   and 13's bf16 forwards and backwards from two calls, which must be equal
   within this checkout.
@@ -41,6 +48,15 @@ only two checkouts measured in one call are compared.
     python3 rows_core_turns.py --measure
 
 measures the checkout the script is run from (its working directory) alone.
+
+    python3 rows_core_turns.py --parent DIR --paths
+
+reads instead, in the same turns, the Longformer main paths end to end
+through ``chip_smoke.py``'s own functions of each checkout: the engine call
+at batch 8 x 2048 (windows/s, host clock), the recipe's training for 2
+optimizer steps of 4 x 2 windows (windows trained/s) and the W8A8 and float
+kernel paths of the W8A8 long-context serving phase (median windows/s of 3
+calls).
 """
 
 from __future__ import annotations
@@ -65,10 +81,11 @@ SPLIT = (("rows", ("band_rows_kernel", "bigbird_rows_kernel")),
          ("proj", ("qkv_proj",)),
          ("out", ("residual_ln", "gemm_bias_act")),
          ("wgrad", ("weight_grad",)))
-# backward_gemm_turns.py's digests that this work moves: the bf16 and W8A8
-# outputs of kernels 7 and 8 and rows 12 and 13's bf16 forwards
-MOVED = ("digest kernel 7 ", "digest kernel 8 ", "digest row 12 forward bfloat16",
-         "digest row 13 forward bfloat16")
+# backward_gemm_turns.py's digests that the global rows move: the bf16 and
+# W8A8 outputs of kernel 7 and row 12's bf16 forward
+MOVED = ("digest kernel 7 ", "digest row 12 forward bfloat16")
+# the calls whose bf16 outputs must not move (``must_not_move``)
+STILL = ("kernel 8 float", "kernel 8 W8A8", "row 13 forward", "row 13 backward")
 
 
 def device_split(fn) -> dict:
@@ -134,34 +151,124 @@ def measure(reps: int) -> dict:
         kw = dict(num_heads=NH, sm_scale=HD**-0.5, dropout_rate=0.1)
         scfg = dict(kw, window=WINDOW, max_globals=16, global_rows=True)
         bcfg = dict(kw, block_size=BLOCK)
-        calls = {}
+        calls, timed = {}, set()
         for mode, q in (("float", False), ("W8A8", True)):
-            calls[f"kernel 7 {mode}"] = lambda q=q: sb.fused_sliding_attention_block(
-                lhid, mask, glob, att[0], att[1], *gqkv, att[2], att[3], sm_scale=HD**-0.5,
-                window=WINDOW, **ln, quantized=q)
+            for nb, tag in ((LB, ""), (2, " B=2")):
+                calls[f"kernel 7 {mode}{tag}"] = (
+                    lambda q=q, nb=nb: sb.fused_sliding_attention_block(
+                        lhid[:nb], mask[:nb], glob[:nb], att[0], att[1], *gqkv, att[2], att[3],
+                        sm_scale=HD**-0.5, window=WINDOW, **ln, quantized=q))
+                timed.add(f"kernel 7 {mode}{tag}")
+            calls[f"kernel 7 {mode} no globals"] = lambda q=q: sb.fused_sliding_attention_block(
+                lhid, mask, torch.zeros_like(glob), att[0], att[1], *gqkv, att[2], att[3],
+                sm_scale=HD**-0.5, window=WINDOW, **ln, quantized=q, global_rows=False)
             calls[f"kernel 8 {mode}"] = lambda q=q: bbk.fused_bigbird_attention_block(
                 bhid, bmask, att[0], att[1], att[2], att[3], block_size=BLOCK,
                 num_global_blocks=2, num_random_blocks=3, seed=0, sm_scale=HD**-0.5, **ln,
                 quantized=q)
-        calls["row 12 forward"] = lambda: ts.sliding_train_fwd(lhid, mask, glob, seed, sw, att[3],
-                                                               **scfg)
-        calls["row 12 backward"] = lambda: ts.sliding_train_bwd(lhid, mask, glob, seed, sw, lcot,
-                                                                **scfg)
+            timed.add(f"kernel 8 {mode}")
+        for nb, tag in ((LB, ""), (2, " B=2")):
+            calls[f"row 12 forward{tag}"] = lambda nb=nb: ts.sliding_train_fwd(
+                lhid[:nb], mask[:nb], glob[:nb], seed, sw, att[3], **scfg)
+            calls[f"row 12 backward{tag}"] = lambda nb=nb: ts.sliding_train_bwd(
+                lhid[:nb], mask[:nb], glob[:nb], seed, sw, lcot[:nb], **scfg)
+            timed |= {f"row 12 forward{tag}", f"row 12 backward{tag}"}
+        nog = dict(scfg, global_rows=False)
+        calls["row 12 forward no globals"] = lambda: ts.sliding_train_fwd(
+            lhid, mask, torch.zeros_like(glob), seed, sw, att[3], **nog)
+        calls["row 12 backward no globals"] = lambda: ts.sliding_train_bwd(
+            lhid, mask, torch.zeros_like(glob), seed, sw, lcot, **nog)
         calls["row 13 forward"] = lambda: tbb.bigbird_train_fwd(lhid, mask, seed, bw, att[3],
                                                                 tables, **bcfg)
         calls["row 13 backward"] = lambda: tbb.bigbird_train_bwd(lhid, mask, seed, bw, lcot,
                                                                  tables, **bcfg)
+        timed |= {"row 13 forward", "row 13 backward"}
         for name, fn in calls.items():
-            if dtype == "float32":
-                out[f"digest {name} float32"] = digest(fn())
+            if dtype == "float32" or name.endswith("no globals") or name in STILL:
+                out[f"digest {name} {dtype}"] = digest(fn())
+            if name.startswith("kernel 7 ") and dtype == "bfloat16" and name in timed:
+                # the rows at or beyond n_glob (CLS only) do not depend on the global rows
+                out[f"digest {name} rows 1 on bfloat16"] = digest(fn()[:, 1:])
+            if dtype == "float32" or name not in timed:
                 continue
             out[f"{name} ms"] = time_ms(fn, reps)
             out[f"{name} sm clock, power draw"] = smi("clocks.sm,power.draw")
             out.update({f"{name} {k}": v for k, v in device_split(fn).items()})
             for run in ("a", "b"):
                 out[f"twice {name} bf16 run {run}"] = digest(fn())
+        if dtype == "bfloat16" and hasattr(ts, "sliding_global_rows"):
+            out.update(global_rows_alone(lhid, mask, sw, gqkv, seed, reps))
         torch.cuda.empty_cache()
     return out
+
+
+def global_rows_alone(x, mask, sw, gqkv, seed, reps: int) -> dict:
+    """ms of device time of one launch of the global rows alone
+    (``train_sliding.sliding_global_rows``) in each mode (kernel 7 bf16 and
+    W8A8, row 12's forward and statistics pass at dropout 0.1), CLS global, at
+    B=8 and B=2, on the global projections of x."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import quantize_colwise, rowquant_plain
+
+    out = {}
+    dev = x.device
+    kv = torch.einsum("blh,hsnd->sbnld", x.float(), gqkv[0][:, 1:]) + gqkv[1][1:, None, :, None]
+    gkv = kv.to(x.dtype).contiguous()
+    x8, sx = rowquant_plain(x.reshape(-1, H))
+    w8, swq = quantize_colwise(sw["wgq"].float())
+    dctx = torch.randn(x.shape[0], LL, NH * HD, device=dev).to(x.dtype)
+    for nb, tag in ((LB, ""), (2, " B=2")):
+        counts = torch.stack([mask[:nb].sum(1), torch.ones(nb, dtype=torch.long, device=dev)],
+                             1).int().contiguous()
+        quant = dict(x8=x8[:nb * LL], sx=sx.reshape(-1)[:nb * LL], wgq8=w8.contiguous(),
+                     swgq=swq.reshape(-1).contiguous())
+        for mode, q, rate, dc in (("kernel 7 float", None, 0.0, None),
+                                  ("kernel 7 W8A8", quant, 0.0, None),
+                                  ("row 12 forward", None, 0.1, None),
+                                  ("row 12 statistics pass", None, 0.1, dctx[:nb])):
+            fn = lambda q=q, rate=rate, dc=dc: ts.sliding_global_rows(
+                x[:nb], sw["wgq"], sw["bgq"], gkv[:, :nb].contiguous(), counts, seed,
+                sm_scale=HD**-0.5, dctx=dc, dropout_rate=rate, quant=q)
+            out[f"global rows alone, {mode}{tag} ms"] = device_split(fn)["global_rows_ms"]
+    return out
+
+
+def paths() -> dict:
+    """{path: windows/s} of the Longformer main paths of the checkout on
+    sys.path, through its chip_smoke.py's phases 9, 10 and 19 (the same
+    corpus, seeds and flags)."""
+    import tempfile
+
+    import chip_smoke as cs
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = cs.write_corpus(Path(tmp), n_test_docs=40, n_train_docs=8, seed=2,
+                               sentences=(150, 300))
+        infer = cs.main_path(
+            cs.main_path_argv(data, str(Path(tmp) / "lf_out"), seq=cs.LF_L, batch=cs.LF_B,
+                              window=cs.LF_WINDOW), cs.LAYERS, cs.LF_B,
+            kernels={"sliding_attention_block": fused_sliding_attention_block,
+                     "fused_mlp_block": fused_mlp_block}, long_tokens=cs.LF_LONG_TOKENS)
+        argv = lambda out, epochs: cs.longformer_train_argv(data, str(Path(tmp) / out), epochs)
+        epochs = cs.epochs_for_steps(argv("lf_train_out", 1.0), cs.LF_STEPS)
+        train = cs.train_path(
+            argv("lf_train_out", epochs), cs.LAYERS, cs.LF_TRAIN_B, accum=cs.LF_ACCUM,
+            kernels={"sliding_train_fwd": ts.sliding_train_fwd,
+                     "sliding_train_bwd": ts.sliding_train_bwd,
+                     "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
+        serving = cs.long_serving_path("longformer", data, str(Path(tmp) / "lf_w8a8"))
+    return {"engine call, float, windows/s": infer["windows_per_s"],
+            "recipe training, windows trained/s": train["windows_per_s"],
+            "W8A8 serving, W8A8 kernel path, windows/s":
+                serving["runs"]["w8a8 auto"]["windows_per_s"],
+            "W8A8 serving, float kernel path, windows/s":
+                serving["runs"]["none auto"]["windows_per_s"]}
 
 
 def main() -> int:
@@ -169,6 +276,8 @@ def main() -> int:
     ap.add_argument("--parent", help="the other checkout's root")
     ap.add_argument("--measure", action="store_true", help="measure this checkout alone")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--paths", action="store_true",
+                    help="the Longformer main paths end to end instead of the kernels")
     args = ap.parse_args()
     import torch
 
@@ -177,7 +286,7 @@ def main() -> int:
         return 1
     if args.measure:
         sys.path.insert(0, os.getcwd())  # the measured checkout, before the script's own
-        print(json.dumps(measure(args.reps)))
+        print(json.dumps(paths() if args.paths else measure(args.reps)))
         return 0
     if not args.parent:
         ap.error("--parent or --measure")
@@ -189,8 +298,8 @@ def main() -> int:
         root = roots[label]
         env = {**os.environ, "PYTHONPATH": str(root)}
         proc = subprocess.run([sys.executable, str(here / "rows_core_turns.py"), "--measure",
-                               "--reps", str(args.reps)], cwd=root, env=env,
-                              capture_output=True, text=True)
+                               "--reps", str(args.reps)] + ["--paths"] * args.paths, cwd=root,
+                              env=env, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode

@@ -36,6 +36,7 @@
 
 #include "attention_rows_mma.cuh"
 #include "attention_tiles.cuh"
+#include "global_rows_mma.cuh"
 #include "int8_gemm.cuh"
 
 namespace spk {
@@ -291,15 +292,19 @@ size_t global_rows_smem_bytes(int L) {
   return sizeof(float) * (2 * (size_t)L + 2 * HD + kThreads + kThreads / 32);
 }
 
-// One global row g < n_glob of (head, sequence): qg from x and the global
-// query weights (in W8A8 from the int8 row of x and int8 weights: qq),
-// full attention over the real keys through kg and vg, and ctx row g
-// replaced. With kGrad it also writes qg (rounded) to qg_buf (B, nh, G,
-// hd), the row statistics (m, D, rowsum(dp p_eff)) to gstats (3, B, nh, G),
-// and d(x Wgq + bgq) = dS . kg * sm_scale, rounded, to row g of dqg (row
-// stride ld). Grid (G, nh, B); blocks of rows g >= n_glob return.
+// The global rows g < n_glob of (head, sequence): qg from x and the global
+// query weights (in W8A8 from the int8 rows of x and int8 weights: qq),
+// full attention over the real keys through kg and vg, and ctx rows g
+// replaced. qg (rounded) goes to qg_buf (B, nh, G, hd) where it is not
+// null (always with kGrad). With kGrad it also writes the row statistics
+// (m, D, rowsum(dp p_eff)) to gstats (3, B, nh, G) and d(x Wgq + bgq) = dS
+// . kg * sm_scale, rounded, to row g of dqg (row stride ld). bf16 runs
+// global_rows_mma.cuh's tensor-core body: grid (ceil(G / 16), nh, B) of
+// 128 threads, a block for 16 global rows. float32 runs the CUDA-core body
+// below: grid (G, nh, B) of 256 threads, a block for one row. Blocks whose
+// rows all lie at or beyond n_glob return.
 template <typename T, int HD, bool kGrad, typename Tc = T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
     global_rows_kernel(const T* __restrict__ x, const T* __restrict__ wgq,
                        const float* __restrict__ bgq, const T* __restrict__ gkv,
                        const int32_t* __restrict__ counts, const int32_t* __restrict__ seed_ptr,
@@ -307,8 +312,19 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ gstats, T* __restrict__ dqg, int B, int L, int H,
                        int nh, int G, int ld, float sm_scale, uint32_t thr, float keep_prob,
                        QuantQuery qq) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!std::is_same<T, float>::value) {
+    const int b = blockIdx.z;
+    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
+    const uint32_t tag = blockIdx.y | kGlobalRowStream;
+    global_rows_tile_mma<HD, kGrad, Tc>(
+        x, wgq, bgq, gkv, counts, thr != 0u,
+        [&](int row, int key) { return keep_prob_bits(seed, thr, b, tag, row, key); }, dctx, ctx,
+        qg_buf, gstats, dqg, B, L, H, nh, G, ld, sm_scale, keep_prob, qq.x8, qq.sx, qq.w8, qq.sw,
+        reinterpret_cast<unsigned char*>(smem));
+    return;
+  } else {
   constexpr int P = kThreads / HD;  // threads that share a head-dim column
-  extern __shared__ float smem[];
   float* ebuf = smem;          // scores, then e
   float* dpbuf = ebuf + L;     // dp, then dS
   float* qs = dpbuf + L;       // qg
@@ -350,10 +366,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     const float q = round_to<T>(__fmul_rn(__fadd_rn(sum, bgq[h * HD + tid]), sm_scale));
     qs[tid] = q;
-    if constexpr (kGrad) {
-      qg_buf[(((size_t)b * nh + h) * G + g) * HD + tid] = from_f32<T>(q);
-      dcs[tid] = to_f32(dctx[grow * HN + h * HD + tid]);
-    }
+    if (qg_buf != nullptr) qg_buf[(((size_t)b * nh + h) * G + g) * HD + tid] = from_f32<T>(q);
+    if constexpr (kGrad) dcs[tid] = to_f32(dctx[grow * HN + h * HD + tid]);
   }
   __syncthreads();
 
@@ -428,6 +442,26 @@ __global__ void __launch_bounds__(kThreads)
       gstats[2 * plane + r] = rsn;
     }
   }
+  }
+}
+
+// global_rows_kernel over the (2, B, nh, L, hd) kg, vg in gkv
+template <typename T, int HD, bool kGrad, typename Tc>
+cudaError_t launch_global_rows(const T* x, const T* wgq, const float* bgq, const T* gkv,
+                               const int32_t* counts, const int32_t* seed, const T* dctx, Tc* ctx,
+                               T* qg_buf, float* gstats, T* dqg, int B, int L, int H, int nh,
+                               int G, int ld, float sm_scale, uint32_t thr, float keep_prob,
+                               const QuantQuery& qq, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  auto rows = global_rows_kernel<T, HD, kGrad, Tc>;
+  const size_t smem = kF32 ? global_rows_smem_bytes<HD>(L) : global_rows_smem_mma<HD, kGrad>();
+  const cudaError_t e = prepare(rows, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(kF32 ? G : (G + kGlobRows - 1) / kGlobRows, nh, B);
+  rows<<<grid, grad_threads<T>(), smem, stream>>>(x, wgq, bgq, gkv, counts, seed, dctx, ctx,
+                                                   qg_buf, gstats, dqg, B, L, H, nh, G, ld,
+                                                   sm_scale, thr, keep_prob, qq);
+  return cudaGetLastError();
 }
 
 // counts, q, k, v and (with global rows) kg, vg. wqkv (H, 3 nh hd) and
@@ -502,13 +536,9 @@ cudaError_t sliding_attention(const T* hidden, const int32_t* seed, const T* wgq
                                                           stats, B, L, nh, C, thr, keep_prob,
                                                           stream);
     if (e != cudaSuccess || !global_rows) return e;
-    auto rows = global_rows_kernel<T, HD, kGrad, Tc>;
-    const size_t smem = global_rows_smem_bytes<HD>(L);
-    if ((e = prepare(rows, smem)) != cudaSuccess) return e;
-    rows<<<dim3(G, nh, B), kThreads, smem, stream>>>(hidden, wgq, bgq, gkv_buf, counts, seed, dctx,
-                                                     ctx_buf, qg_buf, gstats, dqg, B, L, H, nh, G,
-                                                     ld, sm_scale, thr, keep_prob, qq);
-    return cudaGetLastError();
+    return launch_global_rows<T, HD, kGrad, Tc>(hidden, wgq, bgq, gkv_buf, counts, seed, dctx,
+                                                 ctx_buf, qg_buf, gstats, dqg, B, L, H, nh, G, ld,
+                                                 sm_scale, thr, keep_prob, qq, stream);
   });
 }
 

@@ -15,8 +15,9 @@
 // output: bound by arithmetic. In bf16 the projections and the out-LN run
 // bf16_gemm.cuh's tensor-core tile and band_rows_kernel attention_rows_mma.cuh's
 // tensor-core body (S and P.V on mma.sync, the mask, exponent and sums on the
-// fragments); the global-row kernel, G rows a sequence, stays a SIMT kernel
-// on the CUDA cores, as float32 keeps every attention kernel there.
+// fragments), and global_rows_kernel global_rows_mma.cuh's (the global
+// query, S and P.V on mma.sync, the keys split over the warps); float32
+// keeps every attention kernel on the CUDA cores.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM
@@ -32,9 +33,9 @@
 //      band keys in 64-key tiles (tiles with no real, non-global key are
 //      skipped) and the global-column tile, two passes (max, then exp and
 //      P.V): the band never leaves the block;
-//   4. global_rows_kernel: per (global row, head, sequence) its query
-//      projected from x and attention over all real keys, written over the
-//      local row; only rows g < n_glob run;
+//   4. global_rows_kernel: per (16 global rows, head, sequence) their
+//      query projected from x and attention over all real keys, written
+//      over the local rows; only tiles that hold a row g < n_glob run;
 //   5. gemm_bias_residual_ln_kernel (common.cuh): ctx . Wo + bo + x and the
 //      LayerNorm.
 //
@@ -50,9 +51,10 @@
 // float32 scratch and quantised that, rounding to the element type only in
 // its float modes. The projections are 7 of every 8 operations at the
 // recipe's shape, here on the tensor cores (int8_gemm.cuh's mma.sync s8
-// tile, weights K-major); the global query stays an exact int32 loop in
-// global_rows_kernel (a row a block, too small for a tile), and the band
-// rows run the bf16 tensor-core body with a float32 ctx (Tc = float).
+// tile, weights K-major); the global query stays an exact int32 loop on
+// the CUDA cores in global_rows_kernel (one live row a sequence on the main
+// paths, too small for a tile), and the band and global rows run their
+// bf16 tensor-core bodies with a float32 ctx (Tc = float).
 #include "sliding_attention.cuh"
 
 namespace spk {
@@ -223,6 +225,53 @@ extern "C" int spk_sliding_rows(int dtype, int ctx_f32, int grad, const void* qk
   using No = std::false_type;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
+    err = grad ? run(float{}, float{}, Yes{}) : run(float{}, float{}, No{});
+  } else if (dtype == 1 && ctx_f32) {
+    if (!grad) err = run(bf16{}, float{}, No{});
+  } else if (dtype == 1) {
+    err = grad ? run(bf16{}, bf16{}, Yes{}) : run(bf16{}, bf16{}, No{});
+  }
+  return static_cast<int>(err);
+}
+
+// global_rows_kernel alone: x (B, L, H), wgq (H, nh hd), bgq (nh hd)
+// float32, kg, vg in gkv (2, B, nh, L, hd) and counts (B, 2) int32, into
+// ctx rows g < n_glob of (B, L, nh hd) and qg (B, nh, G, hd); with grad
+// also the global rows' statistics gstats (3, B, nh, G) float32 and dqg
+// rows g < n_glob (row stride ld), from dctx (B, L, nh hd). dtype: 0 =
+// float32, 1 = bfloat16 (x, wgq, gkv, dctx, qg, dqg and ctx); ctx_f32: the
+// W8A8 blocks' mode (bf16 kg, vg, a float32 ctx, no grad), the query from
+// x8 (B L, H) int8 with row scales sx (B L) and wgq8 (H, nh hd) int8 with
+// column scales swgq (x and wgq unused). seed (1,) int32 may be null when
+// thr is 0. Returns the first CUDA error, or 0.
+extern "C" int spk_sliding_global_rows(int dtype, int ctx_f32, int grad, const void* x,
+                                       const void* wgq, const void* bgq, const void* gkv,
+                                       const void* counts, const void* seed, const void* dctx,
+                                       void* ctx, void* qg, void* gstats, void* dqg,
+                                       const void* x8, const void* sx, const void* wgq8,
+                                       const void* swgq, int B, int L, int H, int nh, int hd,
+                                       int G, int ld, float sm_scale, unsigned thr,
+                                       float keep_prob, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const spk::QuantQuery qq{static_cast<const int8_t*>(x8), static_cast<const float*>(sx),
+                           static_cast<const int8_t*>(wgq8), static_cast<const float*>(swgq)};
+  const auto run = [&](auto t_tag, auto c_tag, auto grad_c) {
+    using T = decltype(t_tag);
+    using Tc = decltype(c_tag);
+    return spk::with_head_dim(hd, [&](auto hd_c) {
+      return spk::launch_global_rows<T, decltype(hd_c)::value, decltype(grad_c)::value, Tc>(
+          static_cast<const T*>(x), static_cast<const T*>(wgq), static_cast<const float*>(bgq),
+          static_cast<const T*>(gkv), i32(counts), i32(seed), static_cast<const T*>(dctx),
+          static_cast<Tc*>(ctx), static_cast<T*>(qg), static_cast<float*>(gstats),
+          static_cast<T*>(dqg), B, L, H, nh, G, ld, sm_scale, thr, keep_prob, qq, s);
+    });
+  };
+  using bf16 = __nv_bfloat16;
+  using Yes = std::true_type;
+  using No = std::false_type;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && !ctx_f32) {
     err = grad ? run(float{}, float{}, Yes{}) : run(float{}, float{}, No{});
   } else if (dtype == 1 && ctx_f32) {
     if (!grad) err = run(bf16{}, float{}, No{});

@@ -32,10 +32,11 @@
 // fragments in registers). The band rows kernel (the forward's attention
 // and the backward's statistics pass) runs attention_rows_mma.cuh's
 // tensor-core body (S, dP and P.V on mma.sync; the mask, the rounded
-// exponent and the Philox draw on the fragments). global_rows_kernel and
-// global_kv_grad_kernel, whose G global rows are a small share of the work,
-// stay SIMT kernels on the CUDA cores in float32; float32 runs every
-// attention kernel there.
+// exponent and the Philox draw on the fragments), and global_rows_kernel
+// global_rows_mma.cuh's (the global query, S, dP, P.V and dS . kg on
+// mma.sync, the keys split over the warps). global_kv_grad_kernel, whose G
+// global rows are a small share of the work, stays a SIMT kernel on the
+// CUDA cores; float32 runs every attention kernel there.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "spk_sliding_train_bwd": [_I] + [_P] * 29 + [_Z] + [_I] * 10 + [_F, _U, _F, _P],
     "spk_sliding_dropout_mask": [_P] * 4 + [_I] * 5 + [_U, _P],
     "spk_sliding_rows": [_I] * 3 + [_P] * 6 + [_I] * 5 + [_U, _F, _P],
+    "spk_sliding_global_rows": [_I] * 3 + [_P] * 15 + [_I] * 7 + [_F, _U, _F, _P],
     "spk_bigbird_block": [_I] + [_P] * 15 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_bigbird_block_w8a8": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_bigbird_train_fwd": [_I] + [_P] * 13 + [_I] * 8 + [_F, _U, _F, _P],

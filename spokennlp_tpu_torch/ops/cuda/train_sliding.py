@@ -47,6 +47,7 @@ from spokennlp_tpu_torch.ops.cuda.attention_models import (
     dense_core_grad, rounded, rows_attend,
 )
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product
 from spokennlp_tpu_torch.ops.cuda.sliding_block import (
     _counts, card_weights, check_card_inputs, global_columns, sliding_attend,
     sliding_context_plain,
@@ -61,6 +62,12 @@ GLOBAL_COL_STREAM, GLOBAL_ROW_STREAM = 1 << 16, 2 << 16
 def _u32(a) -> np.ndarray:
     """Counters as the kernels pass them: int values wrapped to 32 bits."""
     return np.asarray(a, np.int64) & 0xFFFFFFFF
+
+
+def _global_row_keep(seed: int, B: int, nh: int, G: int, L: int, thr: int) -> torch.Tensor:
+    """The global-row plane (B, nh, G, L) of the keep masks on the CPU."""
+    b, h, g, k = np.ix_(np.arange(B), np.arange(nh), np.arange(G), np.arange(L))
+    return torch.from_numpy(philox_bits(seed, b, h | GLOBAL_ROW_STREAM, g, k) >= np.uint32(thr))
 
 
 def sliding_keep_masks(seed: torch.Tensor, B: int, nh: int, L: int, window: int, G: int,
@@ -79,9 +86,8 @@ def sliding_keep_masks(seed: torch.Tensor, B: int, nh: int, L: int, window: int,
         band = philox_bits(s, b, h, _u32(i * C + ci), _u32(i * C - C + cj))
         b, h, r, g = np.ix_(np.arange(B), np.arange(nh), np.arange(L), np.arange(G))
         gcol = philox_bits(s, b, h | GLOBAL_COL_STREAM, r, g)
-        b, h, g, k = np.ix_(np.arange(B), np.arange(nh), np.arange(G), np.arange(L))
-        grow = philox_bits(s, b, h | GLOBAL_ROW_STREAM, g, k)
-        return tuple(torch.from_numpy(m >= np.uint32(thr)) for m in (band, gcol, grow))
+        return (*(torch.from_numpy(m >= np.uint32(thr)) for m in (band, gcol)),
+                _global_row_keep(s, B, nh, G, L, thr))
     masks = [torch.empty(shape, dtype=torch.uint8, device=seed.device)
              for shape in ((B, nh, nc, C, 3 * C), (B, nh, L, G), (B, nh, G, L))]
     seed = seed.to(torch.int32).contiguous()
@@ -214,6 +220,11 @@ def sliding_model_allowed(L: int, C: int, n_valid: int, n_glob: int, device) -> 
     return band | (r[None] < n_glob)
 
 
+def sliding_global_allowed(L: int, n_valid: int, n_glob: int, device) -> torch.Tensor:
+    """(n_glob, L) bool: the keys a global row reaches, every real one."""
+    return (torch.arange(L, device=device) < n_valid)[None].expand(n_glob, L)
+
+
 def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: int,
                            sm_scale: float, stats=None, gstats=None, dropout_rate: float = 0.0,
                            keep=None):
@@ -251,8 +262,8 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
             continue
         qg, kg, vg = (t[b].float() for t in glob_qkv)
         qg = qg[:, :ng]
-        allowed = (torch.arange(L, device=dev) < nv)[None].expand(ng, L)
-        ds, pe = dense_core_grad(qg @ tr(kg), dc[:, :ng] @ tr(vg), allowed,
+        ds, pe = dense_core_grad(qg @ tr(kg), dc[:, :ng] @ tr(vg),
+                                 sliding_global_allowed(L, nv, ng, dev),
                                  None if keep is None else keep[2][b][:, :ng],
                                  None if gstats is None else gstats[:, b, :, :ng], dt, kp)
         outs[3][b, :, :ng] = rounded(ds @ kg * sm_scale, dt)
@@ -322,13 +333,57 @@ def sliding_rows_model(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, dctx=
         ctx[b], stats[0, b], stats[1, b] = c, m, D
         if rs is not None:
             stats[2, b] = rs
-        if glob_qkv is None or ng == 0:
-            continue
-        qg, kg, vg = (t[b].float() for t in glob_qkv)
-        allowed = (torch.arange(L, device=dev) < nv)[None].expand(ng, L)
-        ctx[b, :, :ng] = rows_attend(qg[:, :ng] @ tr(kg), vg, allowed,
-                                     None if keep is None else keep[2][b][:, :ng], dt, kp)[0]
+    if glob_qkv is not None:
+        gctx = sliding_global_rows_model(*glob_qkv, n_valid, n_glob, dropout_rate=dropout_rate,
+                                         keep=None if keep is None else keep[2],
+                                         ctx_dtype=torch.float32)[0]
+        for b in range(B):
+            ng = int(n_glob[b])
+            ctx[b, :, :ng] = gctx[b, :ng].transpose(0, 1)
     return ctx.transpose(1, 2).to(ctx_dtype or dt), stats
+
+
+def sliding_global_rows_model(qg, kg, vg, n_valid, n_glob, *, sm_scale: float = 1.0, dctx=None,
+                              dropout_rate: float = 0.0, keep=None, ctx_dtype=None):
+    """The rounding model of global_rows_kernel from its own qg (B, nh, G,
+    hd) scaled, kg, vg (B, nh, L, hd), the counts n_valid, n_glob (B,) and
+    the global-row keep mask (B, nh, G, L) of ``sliding_keep_masks`` (or
+    None): each global row g < n_glob attends to every real key
+    (``sliding_global_allowed``), e rounded against its true maximum
+    (``rows_attend``), ctx rounded to ``ctx_dtype`` (qg's dtype by default).
+    With ``dctx`` (B, L, nh, hd) also the statistics (m, D, rowsum(dp
+    p_eff)) and dqg = round((dS . kg) sm_scale) with dS from
+    ``dense_core_grad`` on those statistics. Dense over the keys with float32
+    sums. Returns ctx (B, G, nh, hd), the statistics (3, B, nh, G) float32
+    and dqg (B, G, nh, hd) in qg's dtype (the last two None without dctx),
+    zero on rows g >= n_glob."""
+    dt, dev = qg.dtype, qg.device
+    B, nh, G, hd = qg.shape
+    L = kg.shape[2]
+    kp = 1.0 - dropout_rate
+    ctx = torch.zeros(B, nh, G, hd, device=dev)
+    stats = torch.zeros(3, B, nh, G, device=dev)
+    dqg = torch.zeros(B, nh, G, hd, device=dev)
+    tr = lambda t: t.transpose(-1, -2)
+    for b in range(B):
+        nv, ng = int(n_valid[b]), int(n_glob[b])
+        if ng == 0:
+            continue
+        q, k, v = qg[b, :, :ng].float(), kg[b].float(), vg[b].float()
+        s, allowed = q @ tr(k), sliding_global_allowed(L, nv, ng, dev)
+        kb = None if keep is None else keep[b][:, :ng]
+        dp = None if dctx is None else dctx[b, :ng].float().transpose(0, 1) @ tr(v)
+        c, m, D, rs = rows_attend(s, v, allowed, kb, dt, kp, dp)
+        ctx[b, :, :ng] = c
+        if dctx is None:
+            continue
+        stats[0, b, :, :ng], stats[1, b, :, :ng], stats[2, b, :, :ng] = m, D, rs
+        ds, _ = dense_core_grad(s, dp, allowed, kb, (m, D, rs), dt, kp)
+        dqg[b, :, :ng] = rounded(ds @ k * sm_scale, dt)
+    ctx = ctx.transpose(1, 2).to(ctx_dtype or dt)
+    if dctx is None:
+        return ctx, None, None
+    return ctx, stats, dqg.transpose(1, 2).to(dt)
 
 
 def sliding_rows(qkv, counts, seed, *, window: int, dctx=None, dropout_rate: float = 0.0,
@@ -369,6 +424,91 @@ def sliding_rows(qkv, counts, seed, *, window: int, dctx=None, dropout_rate: flo
 
 
 sliding_rows.launches = 0
+
+
+def sliding_global_query(x, wgq, bgq, n_glob, *, num_heads: int, sm_scale: float, G: int,
+                         quant=None):
+    """The global rows' query as the plain versions take it: qg = round((x_g
+    Wgq + bgq) sm_scale) of the first G rows of x (B, L, H), wgq (H, nh hd)
+    in x's dtype, bgq (nh hd,) float32, float32 sums; with ``quant`` (as
+    ``sliding_global_rows`` takes it) the exact int32 product of the int8
+    rows and weights, dequantised as the projections are. Returns (B, nh,
+    G, hd) in x's dtype, zero on rows g >= n_glob (B,)."""
+    B, L, H = x.shape
+    dev = x.device
+    if quant is None:
+        qg = x[:, :G].float() @ wgq.float() + bgq.float()
+    else:
+        rows = (torch.arange(B, device=dev)[:, None] * L + torch.arange(G, device=dev)[None])
+        rows = rows.reshape(-1)
+        qg = int8_product(quant["x8"][rows], quant["wgq8"]) * quant["sx"].reshape(-1)[rows, None]
+        qg = (qg * quant["swgq"].float() + bgq.float()).reshape(B, G, -1)
+    live = torch.arange(G, device=dev)[None] < n_glob[:, None].long()
+    qg = torch.where(live[..., None], qg * sm_scale, 0.0).to(x.dtype)
+    return qg.reshape(B, G, num_heads, -1).transpose(1, 2)
+
+
+def sliding_global_rows(x, wgq, bgq, gkv, counts, seed, *, sm_scale: float, max_globals: int = 16,
+                        dctx=None, dropout_rate: float = 0.0, quant=None):
+    """global_rows_kernel alone: x (B, L, H), wgq (H, nh hd) in x's dtype,
+    bgq (nh hd,) float32, gkv (2, B, nh, L, hd) = (kg, vg), counts (B, 2)
+    int32 = (n_valid, n_glob), seed (1,) int32 (read at a rate above 0) and,
+    for the statistics pass, dctx (B, L, nh hd). ``quant``: the W8A8 blocks'
+    global query, a dict of x8 (B L, H) int8 with row scales sx (B L,) and
+    wgq8 (H, nh hd) int8 with column scales swgq (nh hd,), and a float32
+    ctx. Returns ctx (B, G, nh, hd), the kernel's own qg (B, nh, G, hd) and,
+    with dctx, the statistics (3, B, nh, G) float32 and dqg (B, G, nh, hd)
+    (else None, None); zero on rows g >= n_glob. On the CPU it runs the
+    query of the plain versions and ``sliding_global_rows_model``; on the
+    card the kernel, whose launches ``sliding_global_rows.launches`` counts.
+    No model path calls it: the blocks launch the kernel inside their own
+    entries."""
+    B, L, H = x.shape
+    _, _, nh, _, hd = gkv.shape
+    HN, dt, dev = nh * hd, x.dtype, x.device
+    G = global_columns(max_globals, L)
+    ctx_dtype = torch.float32 if quant is not None else dt
+    if dev.type == "cpu":
+        n = counts.long()
+        qg = sliding_global_query(x, wgq, bgq, n[:, 1], num_heads=nh, sm_scale=sm_scale, G=G,
+                                  quant=quant)
+        keep = None
+        if dropout_rate > 0.0:
+            keep = _global_row_keep(int(seed.reshape(-1)[0]), B, nh, G, L,
+                                    dropout_threshold(dropout_rate))
+        ctx, stats, dqg = sliding_global_rows_model(
+            qg, gkv[0], gkv[1], n[:, 0], n[:, 1], sm_scale=sm_scale,
+            dctx=None if dctx is None else dctx.reshape(B, L, nh, hd),
+            dropout_rate=dropout_rate, keep=keep, ctx_dtype=ctx_dtype)
+        return ctx, qg, stats, dqg
+    q = quant or {}
+    given = (x, wgq, bgq, gkv, counts, seed, dctx, *q.values())
+    if any(t is not None and (t.device != dev or not t.is_contiguous()) for t in given):
+        raise ValueError("sliding_global_rows: every tensor must be contiguous on x's device")
+    grad = dctx is not None
+    ctx = torch.empty(B, L, nh, hd, dtype=ctx_dtype, device=dev)
+    qg = torch.empty(B, nh, G, hd, dtype=dt, device=dev)
+    stats = torch.empty(3, B, nh, G, device=dev) if grad else None
+    dqg = torch.empty(B, L, nh, hd, dtype=dt, device=dev) if grad else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        code = build.library().spk_sliding_global_rows(
+            _DTYPES[dt], int(quant is not None), int(grad),
+            *(ptr(t) for t in (x, wgq, bgq, gkv, counts, seed, dctx, ctx, qg, stats, dqg,
+                               q.get("x8"), q.get("sx"), q.get("wgq8"), q.get("swgq"))),
+            B, L, H, nh, hd, G, HN, float(sm_scale), dropout_threshold(dropout_rate),
+            1.0 - dropout_rate, _stream())
+    build.check(code, "sliding_global_rows")
+    sliding_global_rows.launches += 1
+    live = torch.arange(G, device=dev)[None] < counts[:, 1:2].long()  # (B, G): rows g < n_glob
+    rows = live[:, :, None, None]
+    ctx, qg = torch.where(rows, ctx[:, :G], 0.0), torch.where(live[:, None, :, None], qg, 0.0)
+    if not grad:
+        return ctx, qg, None, None
+    return ctx, qg, torch.where(live[None, :, None], stats, 0.0), torch.where(rows, dqg[:, :G], 0.0)
+
+
+sliding_global_rows.launches = 0
 
 
 # ------------------------------------------------------------ kernel calls

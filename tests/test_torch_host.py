@@ -251,7 +251,8 @@ LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke", "backward_gemm_turns",
-                                    "dense_core_turns"])
+                                    "dense_core_turns", "backward_core_turns",
+                                    "rows_core_turns"])
 def test_port_imports_nothing_of_the_jax_package(target):
     """A fresh interpreter imports every module of the port (or one of the
     card scripts) and checks that neither spokennlp_tpu nor jax was loaded."""

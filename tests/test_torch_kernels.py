@@ -528,7 +528,10 @@ def test_sass_verdict_on_canned_counts():
         f"{stack}14stack_qkv_itemEPK{bf}": [0, 0, 32],
         f"{stack}19stack_gemm_act_itemEPK{bf}": [0, 0, 32],
         f"{stack}22stack_residual_ln_itemEPK{bf}": [0, 0, 16],
-        f"{ns}17global_rows_kernelI{bf}Li64EEEvPKT_": [0, 2, 0],
+        f"{ns}18global_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 64],
+        f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_": [0, 2, 64],
+        f"{ns}18global_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_": [0, 0, 112],
+        f"{ns}18global_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 2, 0],
         f"{stack}14band_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
         f"{stack}14band_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
         f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
@@ -592,9 +595,13 @@ def test_sass_verdict_on_canned_counts():
     assert with_counts(f"{stack}26gemm_bias_act_f32tc_kernelEPKfS2_S2_Pfiiii", [0, 0, 0])
     assert with_counts(f"{stack}24residual_ln_f32tc_kernelEPKfS2_S2_S2_S2_S2_PfS3_iiifi",
                        [0, 0, 0])
+    # the global rows: bf16 (the W8A8 mode's float32 ctx and the statistics
+    # pass among them) without HMMA, float32 with it
+    assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 2, 0])
+    assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_", [0, 0, 0])
+    assert with_counts(f"{ns}18global_rows_kernelIfLi64ELb0EfEEvPKT_", [0, 2, 4])
     # a stray function with HMMA or IDP4A, an int8 tile kernel without IMMA
     assert with_counts(f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i", [0, 0, 4])
-    assert with_counts(f"{ns}17global_rows_kernelI{bf}Li64EEEvPKT_", [0, 2, 4])
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_", [0, 3, 128])
     assert with_counts(f"{ns}18gemm_act_i8_kernelI{bf}EEvPKa", [0, 0, 0])
 

@@ -419,6 +419,215 @@ def test_explicit_backward_with_model_core_matches_jax_kernel_vjp_in_bf16(global
                                    atol=BF16_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
 
 
+# --------------------------------------------- the global rows alone (CPU)
+
+
+def _jnp_philox_global_rows(seed: int, b, h: int, shape):
+    """The global-row plane's Philox words (ts.philox_bits at (b, h | 2 << 16,
+    g, key)) in jnp uint32 over a (G, L) grid, for a Pallas kernel traced in
+    interpret mode (which captures no constant arrays): the 32 x 32 -> 64
+    products from 16-bit halves."""
+    import jax
+    import jax.numpy as jnp
+
+    u32 = lambda v: jnp.asarray(v).astype(jnp.uint32)
+
+    def mulhilo(a, m):
+        lo = a * jnp.uint32(m)
+        a_lo, a_hi, m_lo, m_hi = a & 0xFFFF, a >> 16, m & 0xFFFF, m >> 16
+        t = a_lo * jnp.uint32(m_lo)
+        mid = a_hi * jnp.uint32(m_lo) + (t >> 16)
+        mid2 = a_lo * jnp.uint32(m_hi) + (mid & 0xFFFF)
+        return a_hi * jnp.uint32(m_hi) + (mid >> 16) + (mid2 >> 16), lo
+
+    zero = jnp.zeros(shape, jnp.uint32)
+    c = [zero + u32(b), zero + jnp.uint32(h | ts.GLOBAL_ROW_STREAM),
+         jax.lax.broadcasted_iota(jnp.int32, shape, 0).astype(jnp.uint32),
+         jax.lax.broadcasted_iota(jnp.int32, shape, 1).astype(jnp.uint32)]
+    k0, k1 = seed & 0xFFFFFFFF, 0
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) & 0xFFFFFFFF
+        hi0, lo0 = mulhilo(c[0], 0xD2511F53)
+        hi1, lo1 = mulhilo(c[2], 0xCD9E8D57)
+        c = [hi1 ^ c[1] ^ jnp.uint32(k0), lo1, hi0 ^ c[3] ^ jnp.uint32(k1), lo0]
+    return c[0]
+
+
+def _global_rows_inputs(seed, n_glob, Lg=64):
+    """Float32 inputs at B=2, L=64 with n_glob global tokens a row (G the
+    whole global block when n_glob is "G") and suffix padding, the output
+    projection the identity (H = nh hd, zero bias): the training block's
+    output is its context."""
+    inp = _inputs(B, Lg, H, NH, seed=seed)
+    G = sb.global_columns(16, Lg)
+    ng = G if n_glob == "G" else n_glob
+    inp["global_mask"][:] = 0
+    inp["global_mask"][:, :ng] = 1
+    inp["out_kernel"] = np.eye(H, dtype=np.float32).reshape(NH, HD, H)
+    inp["out_bias"] = np.zeros(H, np.float32)
+    return inp, G
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n_glob", [1, 2, "G"])
+def test_global_rows_wrapper_matches_jax_kernel(n_glob, rate):
+    """sliding_global_rows on the CPU (the plain query and the global-rows
+    part of the rows model) against the global rows of the TPU training
+    kernel's forward in interpret mode, read through an identity output
+    projection, in float32 on padded rows: 1, 2 or G global tokens. At rate
+    0.1 the kernel's PRNG draws (pltpu.prng_random_bits) are replaced by the
+    port's Philox words of the global-row plane (and keep-everything for
+    the band and global columns, whose rows are not compared), so both keep
+    the same probabilities; to 1e-5 of the largest."""
+    from unittest import mock
+
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from spokennlp_tpu.ops.pallas.train_sliding import sliding_attention_block_train as jax_train
+
+    Lg, seed = 64, 20231023
+    inp, G = _global_rows_inputs(17, n_glob, Lg)
+    calls = {"n": 0}
+
+    def bits(shape):
+        if tuple(shape) != (G, Lg):
+            return jnp.full(shape, 0xFFFFFFFF, jnp.uint32)
+        h = calls["n"] % NH
+        calls["n"] += 1
+        return _jnp_philox_global_rows(seed, pl.program_id(0), h, tuple(shape))
+
+    kw = dict(sm_scale=HD**-0.5, window=WINDOW, max_globals=16, dropout_rate=rate,
+              interpret=True)
+    with mock.patch.object(pltpu, "prng_random_bits", bits), \
+            mock.patch.object(pltpu, "prng_seed", lambda *a: None):
+        want = jax_train(*(jnp.asarray(inp[k]) for k in ("hidden", "attention_mask",
+                                                           "global_mask")),
+                         *(jnp.asarray(inp[k]) for k in ARGS[1:]),
+                         jnp.asarray([seed], jnp.int32), **kw)
+    assert rate == 0.0 or calls["n"] >= NH
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    x, HN = t["hidden"], NH * HD
+    gw, gb = t["gqkv_kernel"], t["gqkv_bias"]
+    gkv = torch.stack([torch.einsum("blh,hnd->bnld", x, gw[:, i]) + gb[i][None, :, None]
+                       for i in (1, 2)]).contiguous()
+    n_valid, n_g = sb._counts(t["attention_mask"], t["global_mask"], G, True)
+    counts = torch.stack([n_valid, n_g], 1).int()
+    ctx, qg, stats, dqg = ts.sliding_global_rows(
+        x, gw[:, 0].reshape(H, HN), gb[0].reshape(HN), gkv, counts,
+        torch.tensor([seed], dtype=torch.int32), sm_scale=HD**-0.5, dropout_rate=rate)
+    assert ctx.shape == (B, G, NH, HD) and qg.shape == (B, NH, G, HD) and stats is None
+    want = np.asarray(want)
+    for b in range(B):
+        ng = int(n_g[b])
+        w = want[b, :ng]
+        np.testing.assert_allclose(ctx[b, :ng].reshape(ng, H).numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+        assert not ctx[b, ng:].any() and not qg[b, :, ng:].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_global_rows_model_statistics_and_dqg_match_autograd(rate):
+    """float32: sliding_global_rows (CPU) in its statistics pass against a
+    plain softmax over each global row's real keys: m its maximum, m + log D
+    its logsumexp, rowsum(dp p_eff) / (D keep_prob) = sum_k p_k dL/dp_k and
+    dqg = sm_scale dL/dqg from autograd of ctx = (kept p / keep_prob) . vg
+    with the cotangent dctx; to 1e-5 of the largest."""
+    Lg, seed = 64, torch.tensor([5], dtype=torch.int32)
+    inp, G = _global_rows_inputs(19, 2, Lg)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    x, HN, sm = t["hidden"], NH * HD, HD**-0.5
+    gw, gb = t["gqkv_kernel"], t["gqkv_bias"]
+    gkv = torch.stack([torch.einsum("blh,hnd->bnld", x, gw[:, i]) + gb[i][None, :, None]
+                       for i in (1, 2)]).contiguous()
+    n_valid, n_g = sb._counts(t["attention_mask"], t["global_mask"], G, True)
+    counts = torch.stack([n_valid, n_g], 1).int()
+    dctx = torch.from_numpy(np.random.default_rng(3).normal(size=(B, Lg, HN)).astype(np.float32))
+    ctx, qg, stats, dqg = ts.sliding_global_rows(
+        x, gw[:, 0].reshape(H, HN), gb[0].reshape(HN), gkv, counts, seed, sm_scale=sm,
+        dctx=dctx, dropout_rate=rate)
+    keep = ts.sliding_keep_masks(seed, B, NH, Lg, WINDOW, G, rate)[2] if rate else None
+    for b in range(B):
+        ng, nv = int(n_g[b]), int(n_valid[b])
+        q = qg[b, :, :ng].clone().requires_grad_()
+        s = torch.where(torch.arange(Lg) < nv, q @ gkv[0, b].transpose(-1, -2), -torch.inf)
+        p = torch.softmax(s, -1)
+        p.retain_grad()
+        kept = p if keep is None else torch.where(keep[b][:, :ng], p, 0.0)
+        dc = dctx[b, :ng].reshape(ng, NH, HD).transpose(0, 1)
+        (kept / (1.0 - rate) @ gkv[1, b]).backward(dc)
+        for got, want in ((stats[0, b, :, :ng], s.amax(-1)),
+                          (stats[0, b, :, :ng] + stats[1, b, :, :ng].log(),
+                           torch.logsumexp(s, -1)),
+                          (stats[2, b, :, :ng], (p * p.grad).sum(-1)),
+                          (dqg[b, :ng].transpose(0, 1), q.grad * sm)):
+            want = want.detach()
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
+        assert not stats[:, b, :, ng:].any() and not dqg[b, ng:].any()
+
+
+@pytest.mark.parametrize("fault", chip_smoke.ROWS_FAULTS)
+def test_global_rows_gate_rejects_the_planted_faults(fault):
+    """chip_smoke's limits of the global rows (ROWS_TOL on ctx and the
+    statistics, BWD_CORE_TOL on dqg) reject each planted fault of the
+    rounding model in bf16 at L=256, CLS global: the statistics pass at rate
+    0.1 and the W8A8 mode's float32 ctx, the model with the fault read
+    against the model."""
+    Bm, Lm, nh, hd = 2, 256, 2, 64
+    G, sm = sb.global_columns(16, Lm), hd**-0.5
+    n_valid, n_glob = torch.tensor([Lm, 200]), torch.tensor([1, 1])
+    rng = np.random.default_rng(47)
+    f = lambda *shape, scale=1.0: torch.from_numpy(
+        (rng.normal(size=shape) * scale).astype(np.float32)).to(torch.bfloat16)
+    qg, kg, vg = f(Bm, nh, G, hd, scale=sm), f(Bm, nh, Lm, hd), f(Bm, nh, Lm, hd)
+    dctx = f(Bm, Lm, nh, hd)
+    keep = ts.sliding_keep_masks(torch.tensor([3], dtype=torch.int32), Bm, nh, Lm, 64, G,
+                                 0.1)[2]
+    for rate, ctx_dtype, dc in ((0.1, None, dctx), (0.0, torch.float32, None)):
+        model = lambda: ts.sliding_global_rows_model(qg, kg, vg, n_valid, n_glob, sm_scale=sm,
+                                                     dctx=dc, dropout_rate=rate,
+                                                     keep=keep if rate else None,
+                                                     ctx_dtype=ctx_dtype)
+        want = model()
+        got = (want[0], qg, want[1], want[2])
+        with chip_smoke.planted(chip_smoke.rows_faults("global_rows")[fault]):
+            bad = model()
+        assert chip_smoke.global_rows_excess(chip_smoke.global_rows_readings(got, bad),
+                                             want[0].dtype) > 1
+        assert chip_smoke.global_rows_excess(chip_smoke.global_rows_readings(got, want),
+                                             want[0].dtype) == 0
+
+
+@pytest.mark.parametrize("Bm,nh,keys,within", [(3, 2, 192, False), (2, 12, 2048, True)],
+                         ids=["16 rows of 192 keys", "16 rows of 2048 keys"])
+def test_global_rows_norm_reading_of_score_noise(Bm, nh, keys, within):
+    """Why the card test holds 16 live global rows at 2048 keys: the bf16
+    rounding model against itself, its float32 scores moved by 1e-7 (about
+    what two float32 sum orders of a 64-term product differ by), read as
+    chip_smoke reads a bf16 ctx. One s - m that crosses a bf16 rounding
+    boundary moves a whole global row's ctx, so over 40 draws the norm
+    reading of 16 rows of 192 keys a head passes ROWS_TOL's bf16 norm limit,
+    and over 6 draws of 2048 keys it stays within."""
+    from spokennlp_tpu_torch.ops.cuda import attention_models as am
+
+    worst = 0.0
+    for seed in range(40 if keys < 1024 else 6):
+        g = torch.Generator().manual_seed(seed)
+        qg = (torch.randn(Bm, nh, 16, 64, generator=g) / 8).to(torch.bfloat16).float()
+        kg, vg = (torch.randn(Bm, nh, keys, 64, generator=g).to(torch.bfloat16).float()
+                  for _ in range(2))
+        s = qg @ kg.transpose(-1, -2)
+        allowed = torch.ones(16, keys, dtype=torch.bool)
+        ctx = lambda sc: am.rows_attend(sc, vg, allowed, None, torch.bfloat16, 1.0)[0].to(
+            torch.bfloat16)
+        moved = ctx(s + 1e-7 * torch.randn(s.shape, generator=g))
+        worst = max(worst, chip_smoke.rows_readings((moved, None), (ctx(s), None))["ctx"][1])
+    assert (worst <= chip_smoke.ROWS_TOL["bfloat16"][1]) == within, worst
+
+
 # ------------------------------------------------------------------ dropout
 
 
@@ -703,3 +912,89 @@ def test_sliding_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, Bc
         print(f"  {fault}: {bad}")
         assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
 
+
+
+GLOBAL_MODES = [("bf16", 0.0), ("bf16", 0.1), ("w8a8", 0.0), ("stats", 0.0), ("stats", 0.1)]
+# (shape, n_glob): 1 and 2 global tokens at every card shape; all G = 16 rows
+# of the tile live at 2048 tokens, in each head dim. A global row sees every
+# key, and where two float32 sum orders put one s - m on either side of a
+# bf16 rounding boundary, that e moves by a step: at 16 rows of 192 keys one
+# such step moves a whole row's bf16 ctx, and the norm part of ROWS_TOL,
+# set for the main paths' 2048 keys, reads it (3.0e-4 on the H100 with 48
+# rows of 192 keys; the model against itself with its scores moved by 1e-7
+# reads up to 2.8e-4 there and 1.2e-4 at 2048 keys:
+# test_global_rows_norm_reading_of_score_noise).
+GLOBAL_CARD_CASES = ([(shape, n) for shape in CARD_SHAPES for n in (1, 2)]
+                     + [(shape, "G") for shape in ((2, 2048, 64, 4, 512), (2, 2048, 128, 4, 512),
+                                                   (2, 2048, 768, 12, 512),
+                                                   (2, 2048, 256, 2, 512))])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,rate", GLOBAL_MODES)
+@pytest.mark.parametrize("shape,n_glob", GLOBAL_CARD_CASES)
+def test_sliding_global_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, shape,
+                                                                   n_glob):
+    """bf16: global_rows_kernel alone (ts.sliding_global_rows) on the kg, vg,
+    counts and dctx of a backward of the block with 1, 2 or G global tokens,
+    in each mode: a bf16 ctx, the W8A8 blocks' int8 query with a float32
+    ctx, and the statistics pass. qg against the plain query (chip_smoke's
+    QG_TOL; W8A8 bit for bit), ctx, the statistics and dqg against
+    sliding_global_rows_model within chip_smoke's limits; the statistics
+    pass's qg, statistics and dqg equal the backward's own; two runs give
+    the same bits; each planted fault of the model fails the limits."""
+    Bc, Lc, Hc, nh, window = shape
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import quantize_colwise, rowquant_plain
+
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + 11)
+    G = sb.global_columns(16, Lc)
+    inp["global_mask"][:] = 0
+    inp["global_mask"][:, :G if n_glob == "G" else n_glob] = 1
+    t = _card_tensors(inp, cuda, torch.bfloat16)
+    hd, HN = Hc // nh, Hc
+    w = sb.card_weights(*(t[k] for k in ARGS[1:6]), torch.bfloat16)
+    seed = torch.tensor([13], dtype=torch.int32, device=cuda)
+    bufs = {}
+    ts.sliding_train_bwd(t["hidden"], t["attention_mask"], t["global_mask"], seed, w,
+                         t["cotangent"].to(torch.bfloat16), num_heads=nh, window=window,
+                         max_globals=16, global_rows=True, sm_scale=hd**-0.5, dropout_rate=rate,
+                         buffers=bufs)
+    counts, gkv = bufs["counts"], bufs["gkv"]
+    x = t["hidden"]
+    quant = None
+    if mode == "w8a8":
+        x8, sx = rowquant_plain(x.reshape(-1, Hc))
+        w8, sw = quantize_colwise(w["wgq"].float())
+        quant = dict(x8=x8, sx=sx.reshape(-1).contiguous(), wgq8=w8.contiguous(),
+                     swgq=sw.reshape(-1).contiguous())
+    dctx = bufs["dctx"] if mode == "stats" else None
+    runs = [ts.sliding_global_rows(x, w["wgq"], w["bgq"], gkv, counts, seed, sm_scale=hd**-0.5,
+                                   dctx=dctx, dropout_rate=rate, quant=quant) for _ in range(2)]
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    ctx, qg, stats, dqg = runs[0]
+    n = counts.long()
+    live = torch.arange(G, device=cuda)[None] < n[:, 1:2]
+    want_q = ts.sliding_global_query(x, w["wgq"], w["bgq"], n[:, 1], num_heads=nh,
+                                     sm_scale=hd**-0.5, G=G, quant=quant)
+    if quant is not None:
+        assert torch.equal(qg, want_q)
+    else:
+        assert chip_smoke.query_reading(qg, want_q) <= chip_smoke.QG_TOL[0]
+    if mode == "stats":
+        assert torch.equal(qg, torch.where(live[:, None, :, None], bufs["qg"], 0.0))
+        assert torch.equal(stats, torch.where(live[None, :, None], bufs["gstats"], 0.0))
+        dproj = bufs["dproj"].reshape(Bc, Lc, 6, nh, hd)[:, :G, 3]
+        assert torch.equal(dqg, torch.where(live[:, :, None, None], dproj, 0.0))
+    keep = (ts.sliding_keep_masks(seed, Bc, nh, Lc, window, G, rate)[2] if rate else None)
+    model = lambda: ts.sliding_global_rows_model(
+        qg, gkv[0], gkv[1], n[:, 0], n[:, 1], sm_scale=hd**-0.5,
+        dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd), dropout_rate=rate,
+        keep=keep, ctx_dtype=torch.float32 if quant is not None else None)
+    readings = chip_smoke.global_rows_readings(runs[0], model())
+    print(f"{Bc}x{Lc} hd {hd} n_glob {n_glob} {mode} rate {rate}: {readings}")
+    assert chip_smoke.global_rows_excess(readings, ctx.dtype) <= 1, readings
+    for fault, patches in chip_smoke.rows_faults("global_rows").items():
+        with chip_smoke.planted(patches):
+            bad = chip_smoke.global_rows_readings(runs[0], model())
+        print(f"  {fault}: {bad}")
+        assert chip_smoke.global_rows_excess(bad, ctx.dtype) > 1, (fault, bad)

@@ -4,32 +4,42 @@ two checkouts of the port in turns on one CUDA card, splits each backward's
 device time between its GEMMs and its attention cores, and checks that the
 outputs that must not move are the same bits in both.
 
-    python3 backward_gemm_turns.py --parent DIR [--reps N]
+    python3 backward_gemm_turns.py --parent DIR [--dtype bfloat16|float32] [--reps N]
 
 DIR is another checkout of the repo (the parent commit, unpacked with ``git
 archive``). The script runs one measuring process a checkout in the order
 parent, this, this, parent, each building that checkout's kernels at first
 use and printing one JSON line:
 
-- ms a call of each backward in bf16 (CUDA events after a warm-up): the
-  attention block (row 10) and the MLP block (row 11) at B=32, L=512,
-  BERT-base widths; the Longformer block (row 12, window 512, CLS global)
-  and the BigBird block (row 13, blocks of 64, 2 global and 3 random) at
-  B=8, L=2048;
+- ms a call of each backward in ``--dtype`` (bf16 by default; CUDA events
+  after a warm-up): the attention block (row 10) and the MLP block (row 11)
+  at B=32, L=512, BERT-base widths; the Longformer block (row 12, window
+  512, CLS global) and the BigBird block (row 13, blocks of 64, 2 global and
+  3 random) at B=8, L=2048;
 - the device time of one call of each, by kernel name (torch.profiler),
-  summed into its GEMM kernels (the GEMM tile's kernels, the weight
+  summed into its GEMM kernels (the GEMM tiles' kernels, the weight
   gradient and its reduction, the MLP's recomputed product) and the rest
   (the attention cores, the count and memset kernels);
+- with ``--dtype float32``, windows trained per second of the Longformer
+  recipe (run_finetune at the CLI's default dtype, float32: 3 optimizer
+  steps of 4 micro-batches of 2 windows of 2048 tokens, BERT-base widths,
+  12 layers, weights from a seed) through the checkout's own
+  chip_smoke.train_path (host clock between the steps' metrics events);
 - the card's SM clock and power draw, read just after;
-- sha256 digests of every float32 output of rows 10-13 (forward and
-  backward) and of the bf16 and W8A8 outputs of the forward kernels (1, 2,
-  3, 6-9 and rows 10-13's forwards), on the same inputs.
+- sha256 digests, on the same inputs, of what must not move: every float32
+  forward of rows 10-13, the bf16 and W8A8 outputs of the forward kernels
+  (1, 2, 3, 6-9 and rows 10-13's forwards) and the backwards in the other
+  dtype; and of what the change may move, the timed backwards' outputs
+  (``moved digest ...``).
 
-Then it prints the mean of each checkout and whether each digest is the
-same in every run. Readings of one kernel move by up to a third between
-calls of the card, so only two checkouts measured in one call are compared.
+Then it prints the mean of each checkout, whether each must-not-move digest
+is the same in every run, and whether each moved digest differs from the
+parent's and repeats within each checkout; it exits 1 if a must-not-move
+digest differs or a moved one does not repeat. Readings of one kernel move
+by up to a third between calls of the card, so only two checkouts measured
+in one call are compared.
 
-    python3 backward_gemm_turns.py --measure
+    python3 backward_gemm_turns.py --measure [--dtype ...]
 
 measures the checkout the script is run from (its working directory) alone.
 """
@@ -37,6 +47,7 @@ measures the checkout the script is run from (its working directory) alone.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -102,9 +113,37 @@ def device_split(fn) -> dict:
     return split
 
 
-def measure(reps: int) -> dict:
+def recipe_windows_per_s(steps: int = 3) -> float:
+    """Windows trained per second of the float32 Longformer recipe through
+    the measured checkout's chip_smoke.py (``train_path``), its corpus and
+    flags but --dtype, so run_finetune takes its default, float32."""
+    import tempfile
+
+    import chip_smoke as cs
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = cs.write_corpus(Path(tmp), n_test_docs=4, n_train_docs=12, seed=2,
+                               sentences=(150, 300))
+
+        def argv(out, epochs):
+            a = cs.longformer_train_argv(data, str(Path(tmp) / out), epochs)
+            i = a.index("--dtype")
+            return a[:i] + a[i + 2:]
+
+        epochs = cs.epochs_for_steps(argv("probe", 1.0), steps)
+        row = cs.train_path(argv("train", epochs), cs.LAYERS, cs.LF_TRAIN_B, accum=cs.LF_ACCUM,
+                            kernels={"sliding_train_fwd": ts.sliding_train_fwd,
+                                     "sliding_train_bwd": ts.sliding_train_bwd,
+                                     "mlp_train_fwd": tb.mlp_train_fwd,
+                                     "mlp_train_bwd": tb.mlp_train_bwd})
+    return row["windows_per_s"]
+
+
+def measure(reps: int, timed: str = "bfloat16") -> dict:
     """{reading: ms, or the digest of an output} of the checkout on sys.path,
-    with the card's clock."""
+    the backwards timed in ``timed``, with the card's clock."""
     import torch
 
     from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
@@ -171,11 +210,12 @@ def measure(reps: int) -> dict:
             "13": lambda: tbb.bigbird_train_bwd(lhid, m32, seed, bw, lcot, tables, **bcfg),
         }
         for row, fn in backwards.items():
-            if dtype == "bfloat16":
+            if dtype == timed:
                 out[f"row {row} backward ms"] = time_ms(fn, reps)
                 out.update({f"row {row} backward {k}": v for k, v in device_split(fn).items()})
+                out[f"moved digest row {row} backward {dtype}"] = digest(fn())
             else:
-                out[f"digest row {row} backward float32"] = digest(fn())
+                out[f"digest row {row} backward {dtype}"] = digest(fn())
         for row, fn in forwards.items():
             out[f"digest row {row} forward {dtype}"] = digest(fn())
         if dtype == "float32":
@@ -211,6 +251,9 @@ def measure(reps: int) -> dict:
         qkv = randn(B, 3, NH, L, HD).to(dt)
         out["digest kernel 6 bf16"] = digest(snld_self_attention(qkv, seg, HD**-0.5))
         torch.cuda.empty_cache()
+    if timed == "float32":
+        with contextlib.redirect_stdout(sys.stderr):  # train_path's report
+            out["recipe float32 windows per s"] = recipe_windows_per_s()
     out["sm clock, power draw"] = smi("clocks.sm,power.draw")
     return out
 
@@ -220,6 +263,8 @@ def main() -> int:
     ap.add_argument("--parent", help="the other checkout's root")
     ap.add_argument("--measure", action="store_true", help="measure this checkout alone")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the backwards' dtype to time; their outputs may move")
     args = ap.parse_args()
     import torch
 
@@ -228,7 +273,7 @@ def main() -> int:
         return 1
     if args.measure:
         sys.path.insert(0, os.getcwd())  # the measured checkout, before the script's own
-        print(json.dumps(measure(args.reps)))
+        print(json.dumps(measure(args.reps, args.dtype)))
         return 0
     if not args.parent:
         ap.error("--parent or --measure")
@@ -240,8 +285,8 @@ def main() -> int:
         root = roots[label]
         env = {**os.environ, "PYTHONPATH": str(root)}
         proc = subprocess.run([sys.executable, str(here / "backward_gemm_turns.py"), "--measure",
-                               "--reps", str(args.reps)], cwd=root, env=env,
-                              capture_output=True, text=True)
+                               "--reps", str(args.reps), "--dtype", args.dtype], cwd=root,
+                              env=env, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode
@@ -251,10 +296,16 @@ def main() -> int:
     for label in ("parent", "this"):
         rows = [r for l, r in runs if l == label]
         print(json.dumps({"mean": label, **{k: sum(r[k] for r in rows) / len(rows)
-                                             for k in rows[0] if k.startswith("row")}}))
+                                             for k in rows[0] if isinstance(rows[0][k], float)}}))
     same = {k: len({r[k] for _, r in runs}) == 1 for k in runs[0][1] if k.startswith("digest")}
     print(json.dumps({"same output in every run": same}))
-    return 0 if all(same.values()) else 1
+    moved = {k: {"differs from the parent": runs[0][1][k] != runs[1][1][k],
+                 "repeats in each checkout": all(len({r[k] for l, r in runs if l == label}) == 1
+                                                 for label in roots)}
+             for k in runs[0][1] if k.startswith("moved digest")}
+    print(json.dumps({"moved outputs": moved}))
+    repeats = all(m["repeats in each checkout"] for m in moved.values())
+    return 0 if all(same.values()) and repeats else 1
 
 
 if __name__ == "__main__":

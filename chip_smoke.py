@@ -573,6 +573,20 @@ def bound(flops, n_bytes: int, dtype: str = "bfloat16") -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
+def backward_bound(rest, moved, n_bytes: int, dtype: str) -> dict:
+    """bound() of a training backward that does ``moved`` operations in the
+    products it takes the 3xTF32 tile for in float32 (those with a weight
+    read transposed and the weight gradients) and ``rest`` in the others
+    (the recomputed products, the attention cores): in float32 the moved
+    ones at the 3xTF32 rate and the rest on the CUDA cores, with the bound of
+    all of it on the CUDA cores beside (``simt_bound_ms``); in bf16 all of it
+    on the tensor cores."""
+    if dtype != "float32":
+        return bound(rest + moved, n_bytes, dtype)
+    return {**bound({"float32": rest, "tf32x3": moved}, n_bytes),
+            "simt_bound_ms": bound(rest + moved, n_bytes, dtype)["bound_ms"]}
+
+
 def w8a8_check(got, want, dtype) -> dict:
     """A W8A8 block's output against its plain version (valid rows): the
     share of outputs off by more than rounding (W8A8_CLOSE), the largest
@@ -777,6 +791,91 @@ def check_backward_gemms(name: str, got: dict, plain) -> float:
         if bad[top] <= tol:
             fail(f"the backward-GEMM limit of {name} accepts {fault}")
     return worst
+
+
+# The float32 backwards' products of rows 10-13 on the 3xTF32 tile
+# (csrc/tf32x3_gemm.cuh: dctx = g Wo^T, dx = dproj W_all^T and the weight
+# gradients; the MLP's dpre = (g W2^T) act', dx = dpre W1^T, dW1 and dW2)
+# against the explicit plain backward in float32, for each output: element
+# by element, max |err| <= s max |ref|, and in norm, ||err|| <= r ||ref||,
+# F32_BWD_GEMM_TOL = (s, r). Rows 10, 12 and 13 from the intermediates the
+# kernel's products read (its ctx and dproj, ``buffers``), row 11 from its
+# inputs. s is F32_TOL's 1e-4 of these kernels. The tile reads up to 3.0e-5
+# element-wise and 3.2e-5 in norm at a depth of 4608 (row 12's dx, the card
+# test's widest product; the tensor cores' float32 sums truncate, so the
+# reading grows with the depth), 2.7e-5 / 2.6e-5 at 3072 (row 11's dx), on
+# the H100 (PERF.md, section 6). A plain TF32
+# product reads 2.2e-4 or more in norm, but where the largest errors of a sum
+# cancel its element-wise reading fell to 5.8e-5, inside s (row 10's dx on
+# the CPU test's inputs): so the norm part, which averages over every
+# output, sits between the two at r = 8e-5, and the plain-TF32 fault
+# (int8_matmul.tf32x3_product(..., terms=1) in train_blocks.backward_product)
+# must fail the gate in every output it reaches (the bias gradients of dY
+# itself are column sums, which no product reaches).
+F32_BWD_GEMM_TOL = (1e-4, 8e-5)
+F32_GEMM_FAULT = "plain TF32 products"
+
+
+def f32_gemm_readings(got: dict, want: dict) -> dict:
+    """{output: (max |got - want| / max |want|, ||got - want|| / ||want||)}."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        g, w = got[k].float().reshape(w.shape), w.float()
+        if not torch.isfinite(g).all():
+            fail(f"non-finite {k}")
+        err = g - w
+        out[k] = (err.abs().max().item() / max(w.abs().max().item(), 1e-30),
+                  err.norm().item() / max(w.norm().item(), 1e-30))
+    return out
+
+
+def f32_gemm_excess(reading) -> float:
+    """The larger of a reading's two parts over their limits: above 1 where
+    it fails F32_BWD_GEMM_TOL."""
+    return max(r / t for r, t in zip(reading, F32_BWD_GEMM_TOL))
+
+
+def plain_tf32_products():
+    """planted() patches: every product of the explicit plain backwards in
+    plain TF32 (big . big alone)."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    return [(tb, "backward_product", None, lambda real, a, b: tf32x3_product(a, b, terms=1))]
+
+
+def check_f32_backward_gemms(name: str, got: dict, plain) -> dict:
+    """Row ``name``'s float32 backward products ``got`` against its explicit
+    plain backward (``plain()`` -> {output: tensor}) within F32_BWD_GEMM_TOL;
+    F32_GEMM_FAULT planted in backward_product must fail it in every output
+    it moves. Returns {"reading", "norm_reading": the largest of each part,
+    "fault_excess": the fault's smallest excess (f32_gemm_excess) over those
+    outputs}."""
+    import torch
+
+    want = plain()
+    readings = f32_gemm_readings(got, want)
+    fmt = lambda r: ", ".join(f"{k} {v[0]:.2e} / {v[1]:.2e}" for k, v in r.items())
+    print(f"  {name} float32 products against the explicit plain backward (max, norm): "
+          + fmt(readings) + f" (limits {F32_BWD_GEMM_TOL})")
+    worst = max(readings, key=lambda k: f32_gemm_excess(readings[k]))
+    if f32_gemm_excess(readings[worst]) > 1:
+        fail(f"{name} float32: {worst} reads {readings[worst]}, beyond its limit "
+             f"{F32_BWD_GEMM_TOL}")
+    with planted(plain_tf32_products()):
+        bad_plain = plain()
+    reached = [k for k in want if not torch.equal(bad_plain[k], want[k])]
+    bad = f32_gemm_readings(got, {k: bad_plain[k] for k in reached})
+    print(f"  planted fault, {name}'s plain backward with {F32_GEMM_FAULT}: " + fmt(bad)
+          + f"; not reached: {[k for k in want if k not in reached]}")
+    passed = [k for k in reached if f32_gemm_excess(bad[k]) <= 1]
+    if passed or not reached:
+        fail(f"the float32 backward-GEMM limit of {name} accepts {F32_GEMM_FAULT} in {passed}")
+    return {"reading": max(r[0] for r in readings.values()),
+            "norm_reading": max(r[1] for r in readings.values()),
+            "fault_excess": min(f32_gemm_excess(r) for r in bad.values())}
 
 
 # The bf16 gradient kernels of rows 12 and 13's backwards (band_dq,
@@ -1483,10 +1582,13 @@ HMMA_KERNELS = ("attn_core_kernel", "gemm_bias_act_kernel", "qkv_proj_kernel",
                 "bigbird_dq_kernel", "bigbird_dkv_kernel", "band_rows_kernel",
                 "bigbird_rows_kernel", "global_rows_kernel", "attn_rows_kernel", "attn_dq_kernel",
                 "attn_dkv_kernel")
-# kernel 9's float32 products on the 3xTF32 tile (csrc/tf32x3_gemm.cuh): float
+# the float32 products on the 3xTF32 tile (csrc/tf32x3_gemm.cuh): kernel 9's
+# (ponet_block.cu) and the float32 training backwards' products with a
+# weight read transposed and weight gradients (bf16_gemm.cuh); float32
 # kernels whose products run on the TF32 tensor cores (HMMA in SASS); each
 # must hold HMMA
-TF32_HMMA_KERNELS = ("gemm_bias_act_f32tc_kernel", "residual_ln_f32tc_kernel")
+TF32_HMMA_KERNELS = ("gemm_bias_act_f32tc_kernel", "residual_ln_f32tc_kernel",
+                     "gemm_bias_act_t_f32tc_kernel", "weight_grad_f32tc_kernel")
 # the bf16 stack's out-of-line items (stack_block.cu): stack_core_item, a
 # template on the head dim, and the three GEMM items (no template)
 STACK_GEMM_ITEMS = ("stack_qkv_item", "stack_gemm_act_item", "stack_residual_ln_item")
@@ -1609,7 +1711,7 @@ def sass_verdict(counts: dict) -> list:
         found = [n for n in counts if p in n]
         if not found:
             bad.append(f"cuobjdump -sass shows no function for {p}")
-        bad += [f"{n} has no HMMA: kernel 9's float32 products do not run on the tensor cores"
+        bad += [f"{n} has no HMMA: its float32 products do not run on the tensor cores"
                 for n in found if not counts[n][2]]
     stray = [n for n, c in counts.items()
              if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS + ("stack_core_item",))
@@ -2393,10 +2495,11 @@ def train_kernel_phase(device) -> dict:
         fwd["library_ms"] = library_time(
             lambda: (x2 @ wqkv, c2 @ wo),
             f"attention_train_fwd {dtype} (torch.matmul on its two products)")
-        # recomputed q, k, v and p.v; dctx; dp, dq, dk, dv; dx; dWqkv; dWo
-        bwd_flops = 3 * qkv_flops + 3 * core + 4 * M * H * HN
+        # recomputed q, k, v and p.v; dp, dq, dk, dv; and the moved
+        # products: dctx, dx, dWqkv, dWo
         out_bytes = nbytes(hidden) + 4 * (H * 3 * HN + 3 * HN + HN * H + H)
-        bwd.update(bound(bwd_flops, in_bytes + nbytes(cot) + out_bytes, dtype))
+        bwd.update(backward_bound(qkv_flops + 3 * core, 2 * qkv_flops + 4 * M * H * HN,
+                                  in_bytes + nbytes(cot) + out_bytes, dtype))
         g2 = cot.reshape(M, H)
         dqkv = randn(M, 3 * HN).to(dt)
         bwd["library_ms"] = library_time(
@@ -2437,6 +2540,20 @@ def train_kernel_phase(device) -> dict:
             bwd["peak_gib"] = peak_gib()
             print(f"  attention_train_bwd bfloat16 peak memory {bwd['peak_gib']:.3f} GiB "
                   f"(the dS tiles {2 * tb.dense_ds_elements(B, NH, L) / 2**30:.3f} GiB)")
+        else:  # the products on the 3xTF32 tile, at both rates
+            for rate in (0.0, DROPOUT):
+                bufs, kr = {}, dict(kw, dropout_rate=rate)
+                got = tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kr,
+                                             buffers=bufs)
+                gate = check_f32_backward_gemms(
+                    f"attention_train_bwd rate {rate}", {"dctx": bufs["dctx"], **dict(zip(
+                        ("dx", "dw_all", "db_all", "dwo", "dbo"), got))},
+                    lambda: projection_gemms_plain(x2, g2, bufs, wqkv, wo))
+                for k in ("reading", "norm_reading"):
+                    bwd[f"gemm_{k}"] = max(bwd.get(f"gemm_{k}", 0.0), gate[k])
+                same_bits("attention_train_bwd", got, tb.attention_train_bwd(
+                    hidden, seg, seed, wqkv, bqkv, wo, cot, **kr), dtype)
+                del got, bufs
         del dqkv, c2
         rows["attention_train_fwd", dtype] = {"max_abs_err": err["attention_train_fwd"], **fwd}
         rows["attention_train_bwd", dtype] = {"max_abs_err": err["attention_train_bwd"], **bwd}
@@ -2456,9 +2573,10 @@ def train_kernel_phase(device) -> dict:
         del out
         in_bytes = nbytes(x, w1, b1, w2, b2)
         fwd.update(bound(4 * M * H * I, in_bytes + nbytes(x), dtype))
-        # recomputed x.W1; g.W2^T; dx; dW1; dW2
+        # recomputed x.W1; and the moved products: g.W2^T; dx; dW1; dW2
         out_bytes = nbytes(x) + 4 * (H * I + I + I * H + H)
-        bwd.update(bound(10 * M * H * I, in_bytes + nbytes(cot2) + out_bytes, dtype))
+        bwd.update(backward_bound(2 * M * H * I, 8 * M * H * I,
+                                  in_bytes + nbytes(cot2) + out_bytes, dtype))
         hh = randn(M, I).to(dt)
         fwd["library_ms"] = library_time(
             lambda: (x @ w1, hh @ w2), f"mlp_train_fwd {dtype} (torch.matmul on its two products)")
@@ -2475,7 +2593,18 @@ def train_kernel_phase(device) -> dict:
             same_bits("mlp_train_bwd", got, tb.mlp_train_bwd(x, w1, b1, w2, cot2,
                                                              activation="gelu"))
             del got
-            weight_grad_sweep(device)
+        else:
+            names = ("dx", "dw1", "db1", "dw2", "db2")
+            got = tb.mlp_train_bwd(x, w1, b1, w2, cot2, activation="gelu")
+            gate = check_f32_backward_gemms(
+                "mlp_train_bwd", dict(zip(names, got)), lambda: dict(zip(
+                    names, tb.mlp_train_bwd_plain(x, w1, b1, w2, cot2, activation="gelu"))))
+            bwd.update(gemm_reading=gate["reading"], gemm_norm_reading=gate["norm_reading"])
+            same_bits("mlp_train_bwd", got, tb.mlp_train_bwd(x, w1, b1, w2, cot2,
+                                                             activation="gelu"), dtype)
+            del got
+            transposed_gemm_rates(device)
+        weight_grad_sweep(device, dtype)
         rows["mlp_train_fwd", dtype] = {"max_abs_err": err["mlp_train_fwd"], **fwd}
         rows["mlp_train_bwd", dtype] = {"max_abs_err": err["mlp_train_bwd"], **bwd}
         for name in err:
@@ -2487,14 +2616,14 @@ def train_kernel_phase(device) -> dict:
     return rows
 
 
-def same_bits(name: str, got, again):
+def same_bits(name: str, got, again, dtype: str = "bfloat16"):
     """Fails unless two runs of a backward gave the same weight and bias
     gradients (every output after dx) bit for bit."""
     import torch
 
     if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
-        fail(f"{name} bfloat16: two runs' weight gradients differ")
-    print(f"  {name} bfloat16: two runs' weight gradients bit-identical")
+        fail(f"{name} {dtype}: two runs' weight gradients differ")
+    print(f"  {name} {dtype}: two runs' weight gradients bit-identical")
 
 
 # the weight gradients of the training main paths' backwards (M, Hin, N):
@@ -2505,10 +2634,41 @@ WGRAD_SHAPES = ((B * L, H, I), (B * L, I, H), (B * L, H, 3 * NH * HD), (B * L, N
                 (B * L, H, 6 * NH * HD), (2 * 2048, H, 6 * NH * HD), (2 * 2048, NH * HD, H))
 
 
-def weight_grad_sweep(device) -> dict:
-    """ms of the bf16 weight gradient (train_blocks.weight_grad) at each
-    split count 1-8 and at weight_grad_splits' choice, for WGRAD_SHAPES: the
-    measurement the split rule was chosen by. Prints one JSON line."""
+# the float32 backwards' products with a weight read transposed (M, N, K):
+# rows 10-13's dctx = g Wo^T, row 10's dx, row 12's dx with global rows, the
+# MLP's dpre = g W2^T and dx = dpre W1^T, at B*L = 16384 rows
+GEMM_T_SHAPES = ((B * L, NH * HD, H), (B * L, H, 3 * NH * HD), (B * L, H, 6 * NH * HD),
+                 (B * L, I, H), (B * L, H, I))
+
+
+def transposed_gemm_rates(device) -> dict:
+    """ms and TFLOP/s of the float32 transposed-weight tile alone
+    (train_blocks.gemm_transposed) and of torch.matmul (TF32 off) on the same
+    product, for GEMM_T_SHAPES. Prints one JSON line."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    g = torch.Generator(device=device).manual_seed(5)
+    out = {}
+    for M, N, K in GEMM_T_SHAPES:
+        a = torch.randn(M, K, generator=g, device=device)
+        w = torch.randn(N, K, generator=g, device=device)
+        tb.gemm_transposed(a, w), a @ w.t()  # warm-up
+        ms, lib = time_ms(lambda: tb.gemm_transposed(a, w)), time_ms(lambda: a @ w.t())
+        out[f"{M}x{N}x{K}"] = {"ms": ms, "tflops": 2 * M * N * K / ms / 1e9, "library_ms": lib}
+        print(f"  gemm_transposed float32 {M} x {N} x {K}: {ms:.3f} ms "
+              f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s); torch.matmul {lib:.3f} ms")
+        del a, w
+    print(json.dumps({"gemm_transposed_float32": out}))
+    return out
+
+
+def weight_grad_sweep(device, dtype: str = "bfloat16") -> dict:
+    """ms of the weight gradient (train_blocks.weight_grad) in ``dtype`` at
+    each split count 1-8 and at weight_grad_splits' choice, for
+    WGRAD_SHAPES: the measurement the split rule was chosen by. Prints one
+    JSON line."""
     import torch
 
     from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
@@ -2516,17 +2676,18 @@ def weight_grad_sweep(device) -> dict:
     g = torch.Generator(device=device).manual_seed(4)
     out = {}
     for M, Hin, N in WGRAD_SHAPES:
-        x = torch.randn(M, Hin, generator=g, device=device).to(torch.bfloat16)
-        dy = torch.randn(M, N, generator=g, device=device).to(torch.bfloat16)
+        x = torch.randn(M, Hin, generator=g, device=device).to(getattr(torch, dtype))
+        dy = torch.randn(M, N, generator=g, device=device).to(getattr(torch, dtype))
         times = {s: time_ms(lambda: tb.weight_grad(x, dy, splits=s)) for s in range(1, 9)}
-        chosen = tb.weight_grad_splits(M, Hin, N, tb._sm_count(device.index or 0))
+        chosen = tb.weight_grad_splits(M, Hin, N, tb._sm_count(device.index or 0),
+                                       getattr(torch, dtype))
         best = min(times, key=times.get)
         out[f"{M}x{Hin}x{N}"] = {"ms": times, "chosen": chosen, "fastest": best,
                                  "tflops_chosen": 2 * M * Hin * N / times[chosen] / 1e9}
-        print(f"  weight_grad bf16 {M} x {Hin} x {N}: " + ", ".join(
+        print(f"  weight_grad {dtype} {M} x {Hin} x {N}: " + ", ".join(
             f"{s}: {t:.3f}" for s, t in times.items()) + f" ms; chosen {chosen}, fastest {best}")
         del x, dy
-    print(json.dumps({"weight_grad_splits": out}))
+    print(json.dumps({"weight_grad_splits": {dtype: out}}))
     return out
 
 
@@ -2579,17 +2740,32 @@ def grad_bound(work: dict, slab: int, n_in: int, n_out: int, rows: int, dtype: s
                  dtype)["bound_ms"]
 
 
+def projections_library_ms(hidden, w: dict, names, label: str) -> float:
+    """ms of torch.matmul (float32: TF32 off) on a long-context block's
+    projections: hidden (B, L, H) times each of the card weights ``names``
+    (wqkv, and for Longformer the global rows' wgkv, over every row) and the
+    out projection w["wo"] (a context of ones: the time does not depend on
+    the values)."""
+    import torch
+
+    x2 = hidden.reshape(-1, hidden.shape[-1])
+    c2 = torch.ones(x2.shape[0], w["wo"].shape[0], dtype=hidden.dtype, device=hidden.device)
+    return library_time(lambda: ([x2 @ w[n] for n in names], c2 @ w["wo"]),
+                        f"{label} (torch.matmul on its projections)")
+
+
 def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model,
                         row_bound: float) -> dict:
     """The library column and, in bf16, the backward-GEMM gate, the
     gradient kernels' gate (``core_model(buffers, global_rows)`` gives the
     rounding model's dproj), dproj the same bits in two runs and the
-    backward's device time by kernel of row 12 (``name`` sliding_train_bwd,
-    with and without global rows) or 13 (bigbird_train_bwd):
-    ``masks(global_rows)`` gives (mask, glob) and ``backward(mask, glob,
-    cot, global_rows, buffers)`` runs the backward kernel. Returns
-    {library_ms, gemm_reading, core_reading, core_norm_reading, core_faults,
-    split_ms (bf16)}."""
+    backward's device time by kernel, in float32 the float32 backward-GEMM
+    gate at rates 0 and DROPOUT, of row 12 (``name`` sliding_train_bwd, with
+    and without global rows) or 13 (bigbird_train_bwd): ``masks(global_rows)``
+    gives (mask, glob) and ``backward(mask, glob, cot, global_rows, buffers,
+    rate=DROPOUT)`` runs the backward kernel. Returns {library_ms,
+    gemm_reading, and in bf16 core_reading, core_norm_reading, core_faults,
+    split_ms}."""
     import torch
 
     B, L, H = hidden.shape
@@ -2599,15 +2775,18 @@ def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model
     for gr in settings:
         mk, gl = masks(gr)
         cot = (randn(B, L, H) * mk.bool()[..., None]).to(dt)
+
+        def outputs(got):
+            if gr:
+                return {"dx": got[0], "dw_all": torch.cat([got[1], got[3]], 1),
+                        "db_all": torch.cat([got[2], got[4]]), "dwo": got[5], "dbo": got[6]}
+            return {**dict(zip(("dx", "dw_all", "db_all"), got[:3])), "dwo": got[-2],
+                    "dbo": got[-1]}
+
         bufs = {}
         got = backward(mk, gl, cot, gr, bufs)
         w_all = bufs["w_all"]
-        if gr:
-            out = {"dx": got[0], "dw_all": torch.cat([got[1], got[3]], 1),
-                   "db_all": torch.cat([got[2], got[4]]), "dwo": got[5], "dbo": got[6]}
-        else:
-            out = dict(zip(("dx", "dw_all", "db_all"), got[:3]))
-            out.update(dwo=got[-2], dbo=got[-1])
+        out = outputs(got)
         if gr == settings[0]:
             g2, dproj, ctx = cot.reshape(M, H), randn(M, w_all.shape[1]).to(dt), randn(M, HN).to(dt)
             row["library_ms"] = library_time(
@@ -2638,6 +2817,17 @@ def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model
                 print(f"  {name} bfloat16 device time by kernel (ms): " + ", ".join(
                     f"{k[:-3]} {v:.3f}" for k, v in split.items() if v)
                     + f"; the gradient kernels' bound {row_bound:.3f}")
+        else:  # float32: the moved products on the 3xTF32 tile, at both rates
+            for rate in (DROPOUT, 0.0):
+                if rate != DROPOUT:
+                    bufs = {}
+                    out = outputs(backward(mk, gl, cot, gr, bufs, rate))
+                out["dctx"] = bufs["dctx"]
+                gate = check_f32_backward_gemms(
+                    f"{name} global_rows={gr} rate {rate}", out, lambda: projection_gemms_plain(
+                        x2, cot.reshape(M, H), bufs, w_all, wo))
+                for k in ("reading", "norm_reading"):
+                    row[f"gemm_{k}"] = max(row.get(f"gemm_{k}", 0.0), gate[k])
         del got, bufs, out
     return row
 
@@ -2746,17 +2936,22 @@ def sliding_kernel_phase(device) -> dict:
         fwd_flops = work["proj"] + work["core"] + work["out"]
         blk.update(bound(fwd_flops, io + nbytes(*ln.values(), hidden), dtype))
         fwd.update(bound(fwd_flops, io + nbytes(seed, hidden), dtype))
-        # recomputed projections and attention; dctx; the backward's four
-        # attention products; dx and the projection weight gradients; dWo
+        blk["library_ms"] = fwd["library_ms"] = projections_library_ms(
+            hidden, w, ("wqkv", "wgkv"), f"sliding_attention_block and sliding_train_fwd {dtype}")
+        # recomputed projections and attention; the backward's four
+        # attention products; and the moved products: dctx, dx and the
+        # projection weight gradients, dWo
         bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
         grads_out = nbytes(hidden) + 4 * (2 * H * 3 * HN + 2 * 3 * HN + HN * H + H)
-        bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        bwd.update(backward_bound(work["proj"] + 3 * work["core"],
+                                  2 * work["proj"] + 2 * work["out"],
+                                  io + nbytes(seed, cot) + grads_out, dtype))
         bwd["grad_bound_ms"] = grad_bound(work, B * L * HN, 6, 5, B * NH * L, dtype)
         bwd.update(long_backward_gemms(
             "sliding_train_bwd", hidden, dt, w["wo"], lambda gr: sliding_masks(device, gr),
-            lambda mk, gl, ck, gr, bufs: ts.sliding_train_bwd(
+            lambda mk, gl, ck, gr, bufs, rate=DROPOUT: ts.sliding_train_bwd(
                 hidden, mk.int().contiguous(), gl.int().contiguous(), seed, w, ck,
-                **dict(cfg, global_rows=gr), buffers=bufs), randn,
+                **dict(cfg, global_rows=gr, dropout_rate=rate), buffers=bufs), randn,
             lambda bufs, gr: ts.sliding_core_model_dproj(
                 bufs, window=LF_WINDOW, sm_scale=HD**-0.5, dropout_rate=DROPOUT, keep=keep),
             bwd["grad_bound_ms"]))
@@ -2906,6 +3101,8 @@ def bigbird_kernel_phase(device) -> dict:
         blk.update(bound(flops, nbytes(hidden, mask, *w.values(), params["out_bias"],
                                        *ln.values(), hidden), dtype))
         blk["work_gflop"] = flops / 1e9
+        blk["library_ms"] = projections_library_ms(hidden, w, ("wqkv",),
+                                                   f"bigbird_attention_block {dtype}")
 
         mask = bigbird_masks(device, BB_TRAIN_B, BB_TRAIN_L)
         m32 = mask.int().contiguous()
@@ -2933,17 +3130,23 @@ def bigbird_kernel_phase(device) -> dict:
         io = nbytes(hidden, mask, *w.values(), bo)
         fwd_flops = work["proj"] + work["core"] + work["out"]
         fwd.update(bound(fwd_flops, io + nbytes(seed, hidden), dtype))
-        # recomputed projections and attention; dctx; the backward's four
-        # attention products; dx and the projection weight gradients; dWo
+        fwd["library_ms"] = projections_library_ms(hidden, w, ("wqkv",),
+                                                   f"bigbird_train_fwd {dtype}")
+        # recomputed projections and attention; the backward's four
+        # attention products; and the moved products: dctx, dx and the
+        # projection weight gradients, dWo
         bwd_flops = 3 * work["proj"] + 3 * work["core"] + 2 * work["out"]
         grads_out = nbytes(hidden) + 4 * (H * 3 * HN + 3 * HN + HN * H + H)
-        bwd.update(bound(bwd_flops, io + nbytes(seed, cot) + grads_out, dtype))
+        bwd.update(backward_bound(work["proj"] + 3 * work["core"],
+                                  2 * work["proj"] + 2 * work["out"],
+                                  io + nbytes(seed, cot) + grads_out, dtype))
         bwd["grad_bound_ms"] = grad_bound(work, BB_TRAIN_B * BB_TRAIN_L * HN, 4, 3,
                                           BB_TRAIN_B * NH * BB_TRAIN_L, dtype)
         bwd.update(long_backward_gemms(
             "bigbird_train_bwd", hidden, dt, w["wo"], lambda gr: (mask, None),
-            lambda mk, gl, ck, gr, bufs: tbb.bigbird_train_bwd(hidden, m32, seed, w, ck, t, **cfg,
-                                                               buffers=bufs), randn,
+            lambda mk, gl, ck, gr, bufs, rate=DROPOUT: tbb.bigbird_train_bwd(
+                hidden, m32, seed, w, ck, t, **dict(cfg, dropout_rate=rate), buffers=bufs),
+            randn,
             lambda bufs, gr: tbb.bigbird_core_model_dproj(
                 bufs, t, block_size=BB_BLOCK, sm_scale=HD**-0.5, dropout_rate=DROPOUT, keep=keep),
             bwd["grad_bound_ms"]))
@@ -3612,6 +3815,12 @@ def longformer_train_argv(data_dir, out_dir, epochs: float, **kw):
     ]
 
 
+def cli_default_dtype(argv) -> list:
+    """``argv`` without its ``--dtype``: the CLI's default, float32."""
+    i = argv.index("--dtype")
+    return argv[:i] + argv[i + 2:]
+
+
 def epochs_for_steps(argv, steps: int) -> float:
     """The --num_train_epochs that makes the trainer take exactly ``steps``
     optimizer steps on the corpus and batch of ``argv`` (it counts the
@@ -4222,6 +4431,17 @@ def main() -> int:
                      "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
         fused_vs_einsum_grads(argv("lf_grad_out", epochs), batch_size=LF_TRAIN_B)
         torch.cuda.empty_cache()
+        # the same recipe at the CLI's default dtype (float32): the float32
+        # training kernels, their backwards' products on the 3xTF32 tile
+        lf_train_f32 = train_path(
+            cli_default_dtype(argv("lf_f32_train_out", epochs)), LAYERS, LF_TRAIN_B,
+            accum=LF_ACCUM,
+            kernels={"sliding_train_fwd": ts.sliding_train_fwd,
+                     "sliding_train_bwd": ts.sliding_train_bwd,
+                     "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
+        lf_train_f32.update(fused_vs_einsum_grads(
+            cli_default_dtype(argv("lf_f32_grad_out", epochs)), batch_size=LF_TRAIN_B))
+        torch.cuda.empty_cache()
 
         # the BigBird paths: longer documents, about 1.5 windows of 4096 each
         bb_data = write_corpus(Path(tmp), n_test_docs=24, n_train_docs=8, seed=3,
@@ -4297,6 +4517,9 @@ def main() -> int:
                                               "agreement", "max_dlogit")},
             "training": {k: trn[k] for k in ("launches", "steps", "steps_per_s",
                                              "windows_per_s", "peak_gib")}}}))
+    print(json.dumps({"longformer float32": {"training": {
+        k: lf_train_f32[k] for k in ("launches", "steps", "steps_per_s", "windows_per_s",
+                                     "peak_gib", "loss_rel", "min_cos")}}}))
     print(json.dumps({"mug": mug}, default=float))
     print(json.dumps({"w8a8_long": w8a8_long}, default=float))
     kernels = []

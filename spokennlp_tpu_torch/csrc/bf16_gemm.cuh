@@ -8,13 +8,16 @@
 // bias gradient, summed over all rows.
 //
 // In bfloat16 their products run on the tensor cores (TileGemmBf16 below:
-// mma.sync m16n8k16 bf16 with float32 sums). In float32 the three tile
-// functions and the weight gradient run common.cuh's SIMT TileGemm, as
-// before the tensor-core tile existed, so the float32 modes of kernels 1-3,
-// 7, 8 and 10-13 are unchanged by a bit; kernel 9's float32 products alone
-// take tf32x3_gemm.cuh's 3xTF32 tensor-core tile, through its own
-// launchers (launch_gemm_f32tc, launch_residual_ln_f32tc), which run the
-// epilogues below on that tile (gemm_bias_act_mma, residual_ln_mma). Bias,
+// mma.sync m16n8k16 bf16 with float32 sums). In float32 the three forward
+// tile functions run common.cuh's SIMT TileGemm, as before the tensor-core
+// tile existed, so the float32 forwards of kernels 1-3, 7, 8 and 10-13 and
+// the products the float32 backwards recompute are unchanged by a bit; the
+// float32 backwards' products with a weight read transposed
+// (gemm_bias_act_t_f32tc_kernel, from launch_gemm<float, true>) and their
+// weight gradients (weight_grad_f32tc_kernel, from launch_weight_grad<float>)
+// run tf32x3_gemm.cuh's 3xTF32 tensor-core tile, as kernel 9's float32
+// products do (ponet_block.cu's own launchers). Every tensor-core tile shares
+// the epilogues below (gemm_bias_act_mma, residual_ln_mma). Bias,
 // activation, residual and LayerNorm are float32 in every mode, and a value
 // is rounded to the element type exactly where the SIMT version rounds it:
 // only the order of the float32 sums differs (a bf16 x bf16 product is
@@ -47,17 +50,18 @@
 // work, and the epilogues here already work on the accumulator fragments,
 // which it keeps in the same places.
 //
-// The weight gradient (weight_grad_kernel) sums over all B*L rows, a long
+// The weight gradient (weight_grad_kernel in bf16, weight_grad_f32tc_kernel
+// in float32, both through weight_grad_mma) sums over all B*L rows, a long
 // k-walk onto a small output: dWo (768 x 768) is 36 tiles of 128 x 128 for
-// 132 SMs. So its bf16 instantiation splits the rows into `splits` fixed
-// ranges (grid z), each block writing its range's partial tile into a
-// float32 workspace from the wrapper's allocator, and weight_grad_reduce_kernel
-// adds the partials in split order: no atomics, the same bits on every run.
-// The bias gradient comes from the same pass, as float32 column sums of the
-// staged dY slices in the blocks of the first tile row.
+// 132 SMs. So it splits the rows into `splits` fixed ranges (grid z), each
+// block writing its range's partial tile into a float32 workspace from the
+// wrapper's allocator, and weight_grad_reduce_kernel adds the partials in
+// split order: no atomics, the same bits on every run. The bias gradient
+// comes from the same pass, as float32 column sums of the staged dY slices
+// in the blocks of the first tile row.
 #pragma once
 
-#include "ptx.cuh"
+#include "tf32x3_gemm.cuh"
 
 namespace spk {
 
@@ -319,12 +323,13 @@ __host__ __device__ constexpr int ln_tile_rows() {
 }
 
 // The shared memory the tile functions take: the tensor-core ring (dynamic,
-// above 48 KB) or the SIMT staging
+// above 48 KB) or the SIMT staging (no weight read transposed: float32 reads
+// one on the 3xTF32 tile)
 template <typename T, bool kTransW = false>
 __host__ __device__ constexpr size_t gemm_smem_bytes() {
   return on_tensor_cores<T>()
              ? (size_t)TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>::kSmemBytes
-             : sizeof(float) * TileGemm<64, 64, T, false, kTransW>::kSmemFloats;
+             : sizeof(float) * TileGemm<64, 64, T>::kSmemFloats;
 }
 
 template <typename T>
@@ -357,8 +362,8 @@ __device__ __forceinline__ void store_pair(T* out, size_t i, float v0, float v1,
 }
 
 // gemm_bias_act_tile on a tensor-core tile G of T (TileGemmBf16, or
-// tf32x3_gemm.cuh's TileGemmTf32x3): the output tile at (row0, col0), smem
-// holding G::kSmemBytes, 16-byte aligned
+// tf32x3_gemm.cuh's TileGemmTf32x3 in float32): the output tile at (row0,
+// col0), smem holding G::kSmemBytes, 16-byte aligned
 template <typename G, typename T>
 __device__ __forceinline__ void gemm_bias_act_mma(const T* A, const T* W, const float* bias,
                                                   T* out, int M, int N, int K, int act,
@@ -382,8 +387,9 @@ __device__ __forceinline__ void gemm_bias_act_mma(const T* A, const T* W, const 
 
 // out = act(A . W + bias) * gate, stored in T, for the output tile at (row0,
 // col0) (gemm_tile_rows x gemm_tile_cols). W is (K, N), or (N, K) read
-// transposed when kTransW; bias (N,) and gate (M, N) float32 may be null.
-// `smem` holds gemm_smem_bytes<T, kTransW>(), 16-byte aligned.
+// transposed when kTransW (bf16 only: float32 reads it on the 3xTF32 tile,
+// gemm_bias_act_t_f32tc_kernel); bias (N,) and gate (M, N) float32 may be
+// null. `smem` holds gemm_smem_bytes<T, kTransW>(), 16-byte aligned.
 template <typename T, bool kTransW = false>
 __device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const float* bias,
                                                    T* out, int M, int N, int K, int act,
@@ -393,7 +399,8 @@ __device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const
     gemm_bias_act_mma<TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>>(
         A, W, bias, out, M, N, K, act, gate, row0, col0, reinterpret_cast<unsigned char*>(smem));
   } else {
-    using G = TileGemm<64, 64, T, false, kTransW>;
+    static_assert(!kTransW, "float32 reads a weight transposed on the 3xTF32 tile");
+    using G = TileGemm<64, 64, T>;
     float acc[G::TM][G::TN];
     G::run(A, W, M, N, K, row0, col0, acc, smem);
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -426,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
     gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * BM,
                                    blockIdx.x * BN, reinterpret_cast<float*>(smem_bf16));
   } else {
-    __shared__ float smem[TileGemm<64, 64, T, false, kTransW>::kSmemFloats];
+    __shared__ float smem[TileGemm<64, 64, T>::kSmemFloats];
     gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * BM,
                                    blockIdx.x * BN, smem);
   }
@@ -439,18 +446,48 @@ cudaError_t tile_smem(Kernel kernel, size_t bytes, size_t* smem) {
   return *smem ? prepare(kernel, *smem) : cudaSuccess;
 }
 
+// out = act(A . W^T + bias) * gate (M, N) in float32, W (N, K) read
+// transposed, on the 3xTF32 tile: the float32 backwards' products. A
+// template (T = float), so that only the translation units that launch it
+// compile it. Grid (ceil(N / 128), ceil(M / 128)), GemmTileTransBF32::
+// kSmemBytes of dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_bias_act_t_f32tc_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                                 const float* __restrict__ bias, T* __restrict__ out, int M,
+                                 int N, int K, int act, const float* __restrict__ gate) {
+  static_assert(std::is_same<T, float>::value, "the 3xTF32 tile takes float32");
+  using G = GemmTileTransBF32;
+  extern __shared__ __align__(16) unsigned char smem_f32tc_t[];
+  gemm_bias_act_mma<G, T>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * G::kRows,
+                          blockIdx.x * G::kCols, smem_f32tc_t);
+}
+
+// W (K, N), or (N, K) read transposed when kTransW: bf16 on TileGemmBf16,
+// float32 on the SIMT tile, or with kTransW (the backwards' products) on the
+// 3xTF32 tile
 template <typename T, bool kTransW = false>
 inline cudaError_t launch_gemm(const T* A, const T* W, const float* bias, T* out, int M, int N,
                                int K, int act, const float* gate, cudaStream_t stream) {
-  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
-  size_t smem = 0;
-  const cudaError_t err = tile_smem<T>(gemm_bias_act_kernel<T, kTransW>,
-                                       gemm_smem_bytes<T, kTransW>(), &smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, smem, stream>>>(A, W, bias, out, M, N, K,
-                                                                     act, gate);
-  return cudaGetLastError();
+  if constexpr (!on_tensor_cores<T>() && kTransW) {
+    using G = GemmTileTransBF32;
+    const cudaError_t err = prepare(gemm_bias_act_t_f32tc_kernel<T>, G::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + G::kCols - 1) / G::kCols, (M + G::kRows - 1) / G::kRows);
+    gemm_bias_act_t_f32tc_kernel<T><<<grid, kThreads, G::kSmemBytes, stream>>>(
+        A, W, bias, out, M, N, K, act, gate);
+    return cudaGetLastError();
+  } else {
+    constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
+    size_t smem = 0;
+    const cudaError_t err = tile_smem<T>(gemm_bias_act_kernel<T, kTransW>,
+                                         gemm_smem_bytes<T, kTransW>(), &smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, smem, stream>>>(A, W, bias, out, M, N, K,
+                                                                       act, gate);
+    return cudaGetLastError();
+  }
 }
 
 // The output tile at (row0, col0) of (M=B*L, H) . (H, slots*nh*hd) + bias,
@@ -649,54 +686,54 @@ inline cudaError_t launch_residual_ln(const T* A, const T* W, const float* bias,
 // Weight gradient dW = X^T . dY (Hin, N) in float32, summed over the M rows
 // of X (M, Hin) and dY (M, N), and with db != null the bias gradient db =
 // sum over rows of dY (N,). Nothing is shared between blocks: no atomics,
-// and the same sums in the same order on every run.
-//   float32: each block owns one 64 x 64 tile of dW and walks all M rows
-//            itself on the SIMT tile; the blocks of the first tile row also
-//            write their columns of db, summed from the dY tiles they stage
-//            anyway. Grid (ceil(N / 64), ceil(Hin / 64)); rows_per_split and
-//            the strides are not read.
-//   bf16:    each block owns one 128 x 128 tile of dW (WgradTileB) and the
-//            rows [z rows_per_split, (z + 1) rows_per_split) for z =
-//            blockIdx.z, and writes its partial tile to dW + z w_stride (and
-//            the first tile row its partial db to db + z b_stride). Grid
-//            (ceil(N / 128), ceil(Hin / 128), splits).
+// and the same sums in the same order on every run. The block at grid (x,
+// y, z) owns the 128 x 128 tile (y, x) of dW on the tile G (WgradTileB in
+// bf16, WgradTileF32 in float32) and the rows [z rows_per_split, (z + 1)
+// rows_per_split), and writes its partial tile to dW + z w_stride (and the
+// first tile row its partial db, the float32 column sums of the staged dY,
+// to db + z b_stride). Grid (ceil(N / 128), ceil(Hin / 128), splits).
+template <typename G, typename T>
+__device__ __forceinline__ void weight_grad_mma(const T* X, const T* dY, float* dW, float* db,
+                                                int M, int Hin, int N, int rows_per_split,
+                                                size_t w_stride, size_t b_stride,
+                                                unsigned char* smem) {
+  const int row0 = blockIdx.y * G::kRows, col0 = blockIdx.x * G::kCols;
+  const int k_begin = blockIdx.z * rows_per_split;
+  const int k_end = min(M, k_begin + rows_per_split);
+  float* out = dW + blockIdx.z * w_stride;
+  float* bsum = blockIdx.y == 0 && db != nullptr ? db + blockIdx.z * b_stride : nullptr;
+  typename G::Acc acc;
+  G::run(X, dY, Hin, N, k_end, row0, col0, acc, smem, k_begin, bsum);
+  G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+    const int h = row0 + r, n = col0 + c;
+    if (h < Hin && n < N) store_pair(out, (size_t)h * N + n, a0, a1, n + 1 < N);
+  });
+}
+
+// the bf16 weight gradient, WgradTileB::kSmemBytes of dynamic shared memory
 template <typename T>
-__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+__global__ void __launch_bounds__(kThreads, 2)
     weight_grad_kernel(const T* __restrict__ X, const T* __restrict__ dY, float* __restrict__ dW,
                        float* __restrict__ db, int M, int Hin, int N, int rows_per_split,
                        size_t w_stride, size_t b_stride) {
-  if constexpr (on_tensor_cores<T>()) {
-    extern __shared__ __align__(16) unsigned char smem_bf16[];
-    using G = WgradTileB;
-    const int row0 = blockIdx.y * kGemmRowsB, col0 = blockIdx.x * kGemmColsB;
-    const int k_begin = blockIdx.z * rows_per_split;
-    const int k_end = min(M, k_begin + rows_per_split);
-    float* out = dW + blockIdx.z * w_stride;
-    float* bsum = blockIdx.y == 0 && db != nullptr ? db + blockIdx.z * b_stride : nullptr;
-    G::Acc acc;
-    G::run(X, dY, Hin, N, k_end, row0, col0, acc, smem_bf16, k_begin, bsum);
-    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
-      const int h = row0 + r, n = col0 + c;
-      if (h < Hin && n < N) store_pair(out, (size_t)h * N + n, a0, a1, n + 1 < N);
-    });
-  } else {
-    using G = TileGemm<64, 64, T, true, false, true>;
-    __shared__ float smem[G::kSmemFloats];
-    const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
-    float acc[G::TM][G::TN];
-    G::run(X, dY, Hin, N, M, row0, col0, acc, smem, blockIdx.y == 0 ? db : nullptr);
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      const int h = row0 + ty + 16 * i;
-      if (h >= Hin) continue;
-#pragma unroll
-      for (int j = 0; j < G::TN; ++j) {
-        const int n = col0 + tx + 16 * j;
-        if (n < N) dW[(size_t)h * N + n] = acc[i][j];
-      }
-    }
-  }
+  static_assert(on_tensor_cores<T>(), "float32 takes weight_grad_f32tc_kernel");
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  weight_grad_mma<WgradTileB>(X, dY, dW, db, M, Hin, N, rows_per_split, w_stride, b_stride,
+                              smem_bf16);
+}
+
+// the float32 weight gradient on the 3xTF32 tile, WgradTileF32::kSmemBytes
+// of dynamic shared memory (a template, T = float, as
+// gemm_bias_act_t_f32tc_kernel)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    weight_grad_f32tc_kernel(const T* __restrict__ X, const T* __restrict__ dY,
+                             float* __restrict__ dW, float* __restrict__ db, int M, int Hin, int N,
+                             int rows_per_split, size_t w_stride, size_t b_stride) {
+  static_assert(std::is_same<T, float>::value, "the 3xTF32 tile takes float32");
+  extern __shared__ __align__(16) unsigned char smem_f32tc_w[];
+  weight_grad_mma<WgradTileF32>(X, dY, dW, db, M, Hin, N, rows_per_split, w_stride, b_stride,
+                                smem_f32tc_w);
 }
 
 namespace {  // a kernel that is no template gets one copy a translation unit
@@ -724,9 +761,9 @@ __global__ void weight_grad_reduce_kernel(const float* __restrict__ ws, int spli
 
 }  // namespace
 
-// The float32 workspace of a bf16 weight gradient over `splits` row ranges
-// (none for one range): each range's partial dW, then each one's partial db,
-// each padded to a multiple of 4 floats. ops/cuda/train_blocks.py
+// The float32 workspace of a weight gradient over `splits` row ranges (none
+// for one range): each range's partial dW, then each one's partial db, each
+// padded to a multiple of 4 floats. ops/cuda/train_blocks.py
 // weight_grad_workspace is its Python twin.
 inline size_t weight_grad_workspace_floats(int splits, int Hin, int N) {
   const auto pad4 = [](size_t n) { return (n + 3) / 4 * 4; };
@@ -734,39 +771,44 @@ inline size_t weight_grad_workspace_floats(int splits, int Hin, int N) {
 }
 
 // dW (Hin, N) and db (N,) of X (M, Hin) and dY (M, N), the rows cut into
-// `splits` ranges of whole 32-row stages in bf16 (ws: a workspace of at least
+// `splits` ranges of whole 32-row stages (ws: a workspace of at least
 // ws_floats >= weight_grad_workspace_floats(splits, Hin, N) floats when
-// splits > 1); float32 ignores splits and ws.
+// splits > 1): bf16 on WgradTileB, float32 on the 3xTF32 WgradTileF32.
 template <typename T>
 inline cudaError_t launch_weight_grad(const T* X, const T* dY, float* dW, float* db, float* ws,
                                       size_t ws_floats, int splits, int M, int Hin, int N,
                                       cudaStream_t stream) {
-  if constexpr (!on_tensor_cores<T>()) {
-    const dim3 grid((N + 63) / 64, (Hin + 63) / 64);
-    weight_grad_kernel<T><<<grid, kThreads, 0, stream>>>(X, dY, dW, db, M, Hin, N, M, 0, 0);
-    return cudaGetLastError();
+  static_assert(kTileKB == kTileKF && WgradTileB::kRows == WgradTileF32::kRows &&
+                    WgradTileB::kCols == WgradTileF32::kCols,
+                "one split rule and one grid for both tiles");
+  constexpr int BM = WgradTileB::kRows, BN = WgradTileB::kCols;
+  void (*kernel)(const T*, const T*, float*, float*, int, int, int, int, size_t, size_t);
+  size_t smem;
+  if constexpr (on_tensor_cores<T>()) {
+    kernel = weight_grad_kernel<T>;
+    smem = WgradTileB::kSmemBytes;
   } else {
-    const int stages = max(1, (M + kTileKB - 1) / kTileKB);
-    const int per_split = (stages + max(1, splits) - 1) / max(1, splits) * kTileKB;
-    splits = max(1, (M + per_split - 1) / per_split);  // no empty range
-    if (splits > 1 && (ws == nullptr || ws_floats < weight_grad_workspace_floats(splits, Hin, N)))
-      return cudaErrorInvalidValue;
-    size_t smem = 0;
-    cudaError_t err = tile_smem<T>(weight_grad_kernel<T>, WgradTileB::kSmemBytes, &smem);
-    if (err != cudaSuccess) return err;
-    const size_t w_stride = ((size_t)Hin * N + 3) / 4 * 4, b_stride = ((size_t)N + 3) / 4 * 4;
-    const dim3 grid((N + kGemmColsB - 1) / kGemmColsB, (Hin + kGemmRowsB - 1) / kGemmRowsB,
-                    splits);
-    float* wsb = db != nullptr && splits > 1 ? ws + splits * w_stride : db;
-    weight_grad_kernel<T><<<grid, kThreads, smem, stream>>>(
-        X, dY, splits > 1 ? ws : dW, wsb, M, Hin, N, per_split, w_stride, b_stride);
-    if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
-    const size_t total = (size_t)Hin * N + N;
-    const int blocks = (int)min((total + kThreads - 1) / kThreads, (size_t)1056);
-    weight_grad_reduce_kernel<<<blocks, kThreads, 0, stream>>>(ws, splits, w_stride, b_stride, dW,
-                                                               (size_t)Hin * N, db, N);
-    return cudaGetLastError();
+    kernel = weight_grad_f32tc_kernel<T>;
+    smem = WgradTileF32::kSmemBytes;
   }
+  const int stages = max(1, (M + kTileKB - 1) / kTileKB);
+  const int per_split = (stages + max(1, splits) - 1) / max(1, splits) * kTileKB;
+  splits = max(1, (M + per_split - 1) / per_split);  // no empty range
+  if (splits > 1 && (ws == nullptr || ws_floats < weight_grad_workspace_floats(splits, Hin, N)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const size_t w_stride = ((size_t)Hin * N + 3) / 4 * 4, b_stride = ((size_t)N + 3) / 4 * 4;
+  const dim3 grid((N + BN - 1) / BN, (Hin + BM - 1) / BM, splits);
+  float* wsb = db != nullptr && splits > 1 ? ws + splits * w_stride : db;
+  kernel<<<grid, kThreads, smem, stream>>>(X, dY, splits > 1 ? ws : dW, wsb, M, Hin, N, per_split,
+                                           w_stride, b_stride);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  const size_t total = (size_t)Hin * N + N;
+  const int blocks = (int)min((total + kThreads - 1) / kThreads, (size_t)1056);
+  weight_grad_reduce_kernel<<<blocks, kThreads, 0, stream>>>(ws, splits, w_stride, b_stride, dW,
+                                                             (size_t)Hin * N, db, N);
+  return cudaGetLastError();
 }
 
 }  // namespace spk

@@ -145,32 +145,26 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // One BM x BN output tile of C = A . B on 256 threads, A (M, K) and B (K, N)
-// as matrices; A is stored row-major (M, K), or (K, M) when kTransA, and B
-// row-major (K, N), or (N, K) when kTransB. Thread (ty, tx) = (tid / 16,
-// tid % 16) owns rows ty + 16 i and columns tx + 16 j of the tile: the
-// strided ownership keeps shared-memory reads free of bank conflicts (A reads
-// broadcast, B reads are consecutive). A is staged as As[k][m], padded by
-// one, and a transposed B as Bs[k][n] padded by one, so the stores do not
+// stored row-major. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty +
+// 16 i and columns tx + 16 j of the tile: the strided ownership keeps
+// shared-memory reads free of bank conflicts (A reads broadcast, B reads are
+// consecutive). A is staged as As[k][m], padded by one, so the stores do not
 // conflict either; global reads walk the operand's contiguous index.
-// Out-of-range rows, columns and depths read as zero. With kColSumB, threads
-// tid < BN also sum their column of B over the whole depth into `bsum`
-// (the bias gradient of a weight-gradient GEMM, for free).
-template <int BM, int BN, typename T, bool kTransA = false, bool kTransB = false,
-          bool kColSumB = false>
+// Out-of-range rows, columns and depths read as zero.
+template <int BM, int BN, typename T>
 struct TileGemm {
   static_assert(BM % 16 == 0 && BN % 16 == 0, "tile must be a multiple of 16");
   static constexpr int TM = BM / 16;
   static constexpr int TN = BN / 16;
   static constexpr int kAStride = BM + 1;
-  static constexpr int kBStride = kTransB ? BN + 1 : BN;
+  static constexpr int kBStride = BN;
   static constexpr int kSmemFloats = kTileK * kAStride + kTileK * kBStride;
 
   // A and B carry no __restrict__: the persistent stack kernel reads
   // buffers that an earlier phase of the same launch wrote, which the
   // read-only (non-coherent) load path must not serve.
   __device__ static void run(const T* A, const T* B, int M, int N, int K, int row0, int col0,
-                             float (&acc)[TM][TN], float* __restrict__ smem,
-                             float* bsum = nullptr) {
+                             float (&acc)[TM][TN], float* __restrict__ smem) {
     float* As = smem;
     float* Bs = smem + kTileK * kAStride;
     const int tid = threadIdx.x;
@@ -180,42 +174,19 @@ struct TileGemm {
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-    float col_sum = 0.0f;
 
     for (int k0 = 0; k0 < K; k0 += kTileK) {
-      if constexpr (kTransA) {
-        for (int e = tid; e < BM * kTileK; e += kThreads) {
-          const int k = e / BM, m = e % BM;
-          const int gm = row0 + m, gk = k0 + k;
-          As[k * kAStride + m] = (gm < M && gk < K) ? to_f32(A[(size_t)gk * M + gm]) : 0.0f;
-        }
-      } else {
-        for (int e = tid; e < BM * kTileK; e += kThreads) {
-          const int m = e / kTileK, k = e % kTileK;
-          const int gm = row0 + m, gk = k0 + k;
-          As[k * kAStride + m] = (gm < M && gk < K) ? to_f32(A[(size_t)gm * K + gk]) : 0.0f;
-        }
+      for (int e = tid; e < BM * kTileK; e += kThreads) {
+        const int m = e / kTileK, k = e % kTileK;
+        const int gm = row0 + m, gk = k0 + k;
+        As[k * kAStride + m] = (gm < M && gk < K) ? to_f32(A[(size_t)gm * K + gk]) : 0.0f;
       }
-      if constexpr (kTransB) {
-        for (int e = tid; e < kTileK * BN; e += kThreads) {
-          const int n = e / kTileK, k = e % kTileK;
-          const int gk = k0 + k, gn = col0 + n;
-          Bs[k * kBStride + n] = (gk < K && gn < N) ? to_f32(B[(size_t)gn * K + gk]) : 0.0f;
-        }
-      } else {
-        for (int e = tid; e < kTileK * BN; e += kThreads) {
-          const int k = e / BN, n = e % BN;
-          const int gk = k0 + k, gn = col0 + n;
-          Bs[k * kBStride + n] = (gk < K && gn < N) ? to_f32(B[(size_t)gk * N + gn]) : 0.0f;
-        }
+      for (int e = tid; e < kTileK * BN; e += kThreads) {
+        const int k = e / BN, n = e % BN;
+        const int gk = k0 + k, gn = col0 + n;
+        Bs[k * kBStride + n] = (gk < K && gn < N) ? to_f32(B[(size_t)gk * N + gn]) : 0.0f;
       }
       __syncthreads();
-      if constexpr (kColSumB) {
-        if (tid < BN) {
-#pragma unroll
-          for (int k = 0; k < kTileK; ++k) col_sum += Bs[k * kBStride + tid];
-        }
-      }
 #pragma unroll
       for (int k = 0; k < kTileK; ++k) {
         float a[TM], b[TN];
@@ -229,9 +200,6 @@ struct TileGemm {
           for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
       __syncthreads();
-    }
-    if constexpr (kColSumB) {
-      if (tid < BN && bsum != nullptr && col0 + tid < N) bsum[col0 + tid] = col_sum;
     }
   }
 };

@@ -1,14 +1,21 @@
-// Kernel 9's float32 products on the tensor cores: TileGemmTf32x3, a
-// float32 GEMM tile on mma.sync m16n8k8 TF32 with float32 sums, three
-// products a fragment pair (3xTF32), and the two launchers of kernel 9's
-// float32 mode (ponet_block.cu): its five projections (launch_gemm_f32tc)
-// and its out projection with the residual-LayerNorm epilogue
-// (launch_residual_ln_f32tc). Every other float32 caller keeps common.cuh's
-// SIMT tile.
+// The float32 products on the tensor cores: TileGemmTf32x3, a float32 GEMM
+// tile on mma.sync m16n8k8 TF32 with float32 sums, three products a fragment
+// pair (3xTF32). Kernel 9's float32 mode takes it for its five projections
+// and its out projection (ponet_block.cu's launch_gemm_f32tc and
+// launch_residual_ln_f32tc); the float32 training backwards of rows 10-13
+// take it for their products with a weight read transposed (dctx = g Wo^T,
+// dx = dproj W^T, the MLP's dpre = (g W2^T) act' and dx = dpre W1^T) and
+// their weight gradients (dW = X^T dY), through bf16_gemm.cuh's launch_gemm
+// <float, true> and launch_weight_grad<float> (gemm_bias_act_t_f32tc_kernel,
+// weight_grad_f32tc_kernel). Every other float32 product, the forwards' and
+// the ones the backwards recompute, keeps common.cuh's SIMT tile.
 //
 // Replaces no TPU kernel of its own: it is the product tile of kernel 9's
 // float32 mode (spokennlp_tpu/ops/pallas/ponet_block.py, the jnp.dot of
-// _ponet_block_kernel in float32), which ran on the CUDA cores.
+// _ponet_block_kernel in float32) and of the float32 backwards of
+// spokennlp_tpu/ops/pallas/train_blocks.py (_attention_train_bwd_kernel,
+// _mlp_train_bwd_kernel), train_sliding.py and train_bigbird.py, which ran
+// on the CUDA cores.
 //
 // The split. TF32 keeps 10 of float32's 23 mantissa bits, so one TF32
 // product of float32 operands errs by about 5e-4 of each term. Each operand
@@ -19,55 +26,74 @@
 // out), each TF32 x TF32 product exact in float32. That keeps about
 // float32's accuracy (2^-21 or so of a term) at a third of the TF32 tensor
 // cores' rate: 495 / 3 = 165 TFLOP/s against 67 on the CUDA cores. Bias,
-// residual and LayerNorm are float32 as on the SIMT tile (bf16_gemm.cuh's
-// gemm_bias_act_mma and residual_ln_mma epilogues); only the products'
-// precision and the order of the float32 sums change.
+// activation, gate, residual and LayerNorm are float32 as on the SIMT tile
+// (bf16_gemm.cuh's gemm_bias_act_mma and residual_ln_mma epilogues); a
+// weight gradient's bias gradient is the plain float32 column sum of the
+// staged dY, never a TF32 product. Only the products' precision and the
+// order of the float32 sums change.
 //
-// The tile. It multiplies A (M, K) row-major by B (K, N) row-major, as the
-// forward weights are stored, on 256 threads: 8 warps standing 2 x 4, each
-// owning a (BM / 2) x (BN / 4) sub-tile of m16 x n8 fragments. A k-stage
-// is 32 floats deep (four k8 steps); each stage's slices of A and B are
-// copied into shared memory by cp.async into a ring of three stages, 16
-// bytes a copy where K, N and the base pointers allow it, else 4; rows past
-// M, columns past N and depth past K are zero-filled through the copy's
-// source size. Staged A rows are padded to 36 floats: an odd number of
+// The tile. It multiplies A (M, K) by B (K, N) on 256 threads: 8 warps
+// standing 2 x 4, each owning a (BM / 2) x (BN / 4) sub-tile of m16 x n8
+// fragments. A is stored row-major (M, K), or (K, M) when kTransA (the
+// weight gradient's X^T); B row-major (K, N), as the forward weights, or (N,
+// K) when kTransB (a weight read transposed). A k-stage is 32 floats deep
+// (four k8 steps); each stage's slices of A and B are copied into shared
+// memory by cp.async into a ring of three stages, 16 bytes a copy where the
+// stored widths and the base pointers allow it, else 4; rows past M, columns
+// past N and depth past the k-range's end are zero-filled through the
+// copy's source size. An operand whose stored rows run along k (A (M, K), B
+// (N, K)) is staged as 32-float rows padded to 36 floats: an odd number of
 // 16-byte units, so the 8 row addresses of one ldmatrix phase fall on 8
-// distinct bank groups; ldmatrix (no .trans) reads A's fragments, each
-// 8 x 8 b16 matrix being 8 rows of 4 floats, which is a TF32 A fragment's
-// layout. B's fragments run along k down a column of the row-major slice,
-// which ldmatrix (16-bit transposes only) cannot read, so each lane reads
-// its two 32-bit values itself; staged B rows are padded to BN + 8 floats,
-// so that the 32 lanes of one fragment load (k = t, n = g) fall on 32
-// distinct banks. Each k8 step splits the warp's B fragments once and
-// keeps them for its m16 tiles, and splits each A fragment once for its n8
-// tiles.
+// distinct bank groups; ldmatrix (no .trans) reads its fragments, each 8 x
+// 8 b16 matrix being 8 rows of 4 floats, which is a TF32 fragment's layout
+// (A: m16 x k8; B: two n8 x k8 fragments a load). An operand whose stored
+// rows run along m or n (A (K, M), B (K, N)) has its fragments down a
+// column of the staged slice, which ldmatrix (16-bit transposes only)
+// cannot read, so each lane reads its 32-bit values itself; those rows are
+// padded to BM + 8 or BN + 8 floats, so that the 32 lanes of one fragment
+// load (k = t, m or n = g) fall on 32 distinct banks. Each k8 step splits
+// the warp's B fragments once and keeps them for its m16 tiles, and splits
+// each A fragment once for its n8 tiles.
 //
 // What bounds it. Kernel 9 at PoNet-base (B=8, L=4096, H=768) does 232 GFLOP
-// of products: 1.41 ms at 165 TFLOP/s. mma.sync reaches part of the tensor
-// cores' rate (wgmma takes TF32 only from K-major operands in shared
-// memory, which needs a transposed weight copy: later work).
+// of products: 1.41 ms at 165 TFLOP/s; row 11's backward at BERT-base (M =
+// 16384, H=768, I=3072) moves four products of 77.3 GFLOP onto it: 1.87 ms.
+// mma.sync reaches part of the tensor cores' rate (wgmma takes TF32 only
+// from K-major operands in shared memory, which needs a transposed weight
+// copy: later work).
 #pragma once
 
-#include "bf16_gemm.cuh"
+#include "ptx.cuh"
 
 namespace spk {
 
 constexpr int kTileKF = 32;  // floats of a k-stage
 constexpr int kStagesF = 3;
 
-template <int BM, int BN>
+// One BM x BN tile of the product (the file's header describes it).
+// acc[mi][ni][e] is the sum at tile row row(mi, e) and column col(ni, e).
+// The sum runs over k in [k_begin, K); a k_begin above 0 (a range of the
+// rows a weight gradient sums) needs K to be no stride, that is kTransA and
+// !kTransB. smem holds kSmemBytes, 16-byte aligned; the tile leaves it free
+// (all copies landed, every warp past its last read) when it returns.
+template <int BM, int BN, bool kTransA = false, bool kTransB = false>
 struct TileGemmTf32x3 {
   static constexpr int kRows = BM, kCols = BN;
   static constexpr int kWarpsN = 4;                     // warps stand 2 x 4
   static constexpr int WM = BM / 2, WN = BN / kWarpsN;  // a warp's sub-tile
   static_assert(kThreads == 256, "the warps stand 2 x 4");
-  static_assert(WM % 16 == 0 && WN % 8 == 0, "a warp owns m16 x n8 steps");
+  static_assert(WM % 16 == 0 && WN % 16 == 0, "a warp owns m16 x n16 steps");
+  static_assert(!kTransA || !kTransB, "no caller reads both operands transposed");
   static constexpr int MI = WM / 16, NI = WN / 8;  // m16 and n8 fragments a warp
-  static constexpr int kARow = kTileKF + 4;        // floats: 9 16-byte units
-  static constexpr int kBRow = BN + 8;             // floats: 8 mod 32 banks
-  static_assert(kARow % 8 == 4 && kBRow % 32 == 8, "conflict-free fragment reads");
-  static constexpr int kAFloats = BM * kARow;
-  static constexpr int kStageFloats = kAFloats + kTileKF * kBRow;
+  // staged rows: 32-float rows of A (m) or of a transposed B (n), or rows
+  // of BM (A stored (K, M)) or BN (B stored (K, N)) floats, each padded
+  static constexpr int kKRow = kTileKF + 4;  // floats: 9 16-byte units
+  static constexpr int kARow = kTransA ? BM + 8 : kKRow;
+  static constexpr int kBRow = kTransB ? kKRow : BN + 8;
+  static_assert(kKRow % 8 == 4 && (BM + 8) % 32 == 8 && (BN + 8) % 32 == 8,
+                "conflict-free fragment reads");
+  static constexpr int kAFloats = (kTransA ? kTileKF : BM) * kARow;
+  static constexpr int kStageFloats = kAFloats + (kTransB ? BN : kTileKF) * kBRow;
   static constexpr int kSmemBytes = kStagesF * kStageFloats * (int)sizeof(float);
   using Acc = float[MI][NI][4];
 
@@ -102,7 +128,8 @@ struct TileGemmTf32x3 {
 
   // Copy R rows of W floats of X (rows, cols), from (r0, c0), into dst (rows
   // of `pitch` floats), zero past `rows` and `cols`, by cp.async of kBytes
-  // (16: four floats, or 4: one). `cols` is X's stride too.
+  // (16: four floats, or 4: one). `cols` is X's stride too; `rows` only
+  // bounds.
   template <int R, int W, int kBytes>
   __device__ static void stage(const float* X, int rows, int cols, int r0, int c0, int pitch,
                                float* dst) {
@@ -124,15 +151,30 @@ struct TileGemmTf32x3 {
     }
   }
 
+  // With bsum != null (kTransA and !kTransB only), the threads also sum each
+  // of B's staged columns over the k-range in float32, as TileGemmBf16 does
+  // (bf16_gemm.cuh): thread t takes column t % BN of rows (t / BN) kSumRows
+  // to (t / BN + 1) kSumRows - 1 of each stage, and the 256 / BN partial
+  // sums of a column are added in order at the end into bsum[col0 + c], for
+  // the columns below N.
   template <int kBytes>
-  __device__ static void pipeline(const float* A, const float* B, int M, int N, int K, int row0,
-                                  int col0, Acc& acc, float* smem) {
-    const int nk = (K + kTileKF - 1) / kTileKF;
+  __device__ static void pipeline(const float* A, const float* B, int M, int N, int K,
+                                  int k_begin, int row0, int col0, Acc& acc, float* smem,
+                                  float* bsum) {
+    const int nk = max(0, (K - k_begin + kTileKF - 1) / kTileKF);
     const auto load = [&](int kt) {
       float* s = smem + (kt % kStagesF) * kStageFloats;
-      const int k0 = kt * kTileKF;
-      stage<BM, kTileKF, kBytes>(A, M, K, row0, k0, kARow, s);
-      stage<kTileKF, BN, kBytes>(B, K, N, k0, col0, kBRow, s + kAFloats);
+      const int k0 = k_begin + kt * kTileKF;
+      if constexpr (kTransA) {
+        stage<kTileKF, BM, kBytes>(A, K, M, k0, row0, kARow, s);
+      } else {
+        stage<BM, kTileKF, kBytes>(A, M, K, row0, k0, kARow, s);
+      }
+      if constexpr (kTransB) {
+        stage<BN, kTileKF, kBytes>(B, N, K, col0, k0, kBRow, s + kAFloats);
+      } else {
+        stage<kTileKF, BN, kBytes>(B, K, N, k0, col0, kBRow, s + kAFloats);
+      }
     };
 #pragma unroll
     for (int s = 0; s < kStagesF - 1; ++s) {
@@ -141,11 +183,19 @@ struct TileGemmTf32x3 {
     }
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     const int wm0 = (warp / kWarpsN) * WM, wn0 = (warp % kWarpsN) * WN;
-    // ldmatrix.x4 row addresses of A's four 8 x 4-float matrices (rows 0-7,
-    // k 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7): a0, a1, a2, a3 of a
-    // TF32 m16 x k8 fragment; B's values (k t, n g) and (k t + 4, n g)
-    const int a_off = (wm0 + lane % 16) * kARow + (lane / 16) * 4;
-    const int b_off = kAFloats + t * kBRow + wn0 + g;
+    // A stored (M, K): ldmatrix.x4 row addresses of A's four 8 x 4-float
+    // matrices (rows 0-7, k 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7): a0,
+    // a1, a2, a3 of a TF32 m16 x k8 fragment. A stored (K, M): the lane's
+    // (k t, m g). B stored (K, N): the lane's (k t, n g), b0, and (k t + 4,
+    // n g), b1. B stored (N, K): ldmatrix.x4 row addresses of (n 0-7, k
+    // 0-3), (0-7, 4-7), (8-15, 0-3), (8-15, 4-7): b0 and b1 of two n8
+    // fragments.
+    const int a_off = kTransA ? t * kARow + wm0 + g : (wm0 + lane % 16) * kARow + (lane / 16) * 4;
+    const int b_off =
+        kAFloats + (kTransB ? (wn0 + (lane / 16) * 8 + lane % 8) * kBRow + ((lane / 8) % 2) * 4
+                            : t * kBRow + wn0 + g);
+    constexpr int kSumRows = kTileKF * BN / kThreads;  // rows of a column a thread sums
+    float col_sum = 0.0f;
     for (int kt = 0; kt < nk; ++kt) {
       cp_async_wait<kStagesF - 2>();  // stage kt has landed
       __syncthreads();                // and every warp is done with stage kt - 1's slot
@@ -153,19 +203,45 @@ struct TileGemmTf32x3 {
       cp_async_commit();
       const float* st = smem + (kt % kStagesF) * kStageFloats;
       const uint32_t base = smem_addr(st);
+      if constexpr (kTransA && !kTransB) {
+        if (bsum != nullptr) {
+          const float* c = st + kAFloats + (threadIdx.x / BN) * kSumRows * kBRow + threadIdx.x % BN;
+#pragma unroll
+          for (int k = 0; k < kSumRows; ++k) col_sum += c[k * kBRow];
+        }
+      }
 #pragma unroll
       for (int ks = 0; ks < kTileKF / 8; ++ks) {
         uint32_t bb[NI][2], bs[NI][2];
+        if constexpr (kTransB) {
 #pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          const float* b = st + b_off + ks * 8 * kBRow + ni * 8;
-          split(b[0], bb[ni][0], bs[ni][0]);
-          split(b[4 * kBRow], bb[ni][1], bs[ni][1]);
+          for (int nj = 0; nj < NI / 2; ++nj) {
+            uint32_t r[4];
+            ldmatrix_x4(base + 4 * (b_off + nj * 16 * kBRow + ks * 8), r);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              split(__uint_as_float(r[i]), bb[2 * nj + i / 2][i % 2], bs[2 * nj + i / 2][i % 2]);
+          }
+        } else {
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            const float* b = st + b_off + ks * 8 * kBRow + ni * 8;
+            split(b[0], bb[ni][0], bs[ni][0]);
+            split(b[4 * kBRow], bb[ni][1], bs[ni][1]);
+          }
         }
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi) {
           uint32_t r[4], ab[4], as[4];
-          ldmatrix_x4(base + 4 * (a_off + mi * 16 * kARow + ks * 8), r);
+          if constexpr (kTransA) {
+            const float* a = st + a_off + ks * 8 * kARow + mi * 16;
+            r[0] = __float_as_uint(a[0]);
+            r[1] = __float_as_uint(a[8]);
+            r[2] = __float_as_uint(a[4 * kARow]);
+            r[3] = __float_as_uint(a[4 * kARow + 8]);
+          } else {
+            ldmatrix_x4(base + 4 * (a_off + mi * 16 * kARow + ks * 8), r);
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), ab[i], as[i]);
 #pragma unroll
@@ -179,12 +255,27 @@ struct TileGemmTf32x3 {
     }
     cp_async_wait<0>();
     __syncthreads();
+    if constexpr (kTransA && !kTransB) {
+      if (bsum != nullptr) {  // the partial sums of each column, added in a fixed order
+        static_assert(kThreads % BN == 0 && kTileKF % (kThreads / BN) == 0, "whole columns");
+        smem[threadIdx.x] = col_sum;
+        __syncthreads();
+        if (threadIdx.x < BN && col0 + (int)threadIdx.x < N) {
+          float v = 0.0f;
+#pragma unroll
+          for (int p = 0; p < kThreads / BN; ++p) v += smem[threadIdx.x + p * BN];
+          bsum[col0 + threadIdx.x] = v;
+        }
+        __syncthreads();
+      }
+    }
   }
 
-  // acc = A[row0 .., :] . B[:, col0 ..] over the tile; smem holds
-  // kSmemBytes, 16-byte aligned, and is free again when it returns
+  // acc = A . B over the tile at (row0, col0) and the k-range [k_begin, K);
+  // bsum: the column sums of pipeline, or null
   __device__ static void run(const float* A, const float* B, int M, int N, int K, int row0,
-                             int col0, Acc& acc, unsigned char* smem) {
+                             int col0, Acc& acc, unsigned char* smem, int k_begin = 0,
+                             float* bsum = nullptr) {
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -192,72 +283,22 @@ struct TileGemmTf32x3 {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
     float* s = reinterpret_cast<float*>(smem);
+    // the stored widths of A and B
+    const int wa = kTransA ? M : K, wb = kTransB ? K : N;
     const uintptr_t ptrs = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B);
-    if (K % 4 == 0 && N % 4 == 0 && ptrs % 16 == 0) {
-      pipeline<16>(A, B, M, N, K, row0, col0, acc, s);
+    if (wa % 4 == 0 && wb % 4 == 0 && ptrs % 16 == 0) {
+      pipeline<16>(A, B, M, N, K, k_begin, row0, col0, acc, s, bsum);
     } else {
-      pipeline<4>(A, B, M, N, K, row0, col0, acc, s);
+      pipeline<4>(A, B, M, N, K, k_begin, row0, col0, acc, s, bsum);
     }
   }
 };
 
 using GemmTileF32 = TileGemmTf32x3<128, 128>;
 using LnTileF32 = TileGemmTf32x3<64, 128>;
-
-namespace {  // one copy a translation unit: ponet_block.cu includes this file
-
-// out = act(A . W + bias) (M, N) float32, W (K, N); grid (ceil(N / 128),
-// ceil(M / 128)), GemmTileF32::kSmemBytes of dynamic shared memory
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_bias_act_f32tc_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                               const float* __restrict__ bias, float* __restrict__ out, int M,
-                               int N, int K, int act) {
-  extern __shared__ __align__(16) unsigned char smem_f32tc[];
-  gemm_bias_act_mma<GemmTileF32, float>(A, W, bias, out, M, N, K, act, nullptr,
-                                        blockIdx.y * GemmTileF32::kRows,
-                                        blockIdx.x * GemmTileF32::kCols, smem_f32tc);
-}
-
-// out = LayerNorm(resid + A . W + bias) (or A . W + bias when fuse_ln is 0)
-// for 64 whole rows a block; grid (ceil(M / 64)), LnTileF32::kSmemBytes
-__global__ void __launch_bounds__(kThreads, 2)
-    residual_ln_f32tc_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                             const float* __restrict__ bias, const float* __restrict__ resid,
-                             const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-                             float* rows, float* __restrict__ out, int M, int N, int K, float eps,
-                             int fuse_ln) {
-  extern __shared__ __align__(16) unsigned char smem_f32tc_ln[];
-  residual_ln_mma<LnTileF32, float>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
-                                    fuse_ln, blockIdx.x * LnTileF32::kRows, smem_f32tc_ln);
-}
-
-}  // namespace
-
-// launch_gemm (bias, activation, no gate) for kernel 9's float32 products
-inline cudaError_t launch_gemm_f32tc(const float* A, const float* W, const float* bias,
-                                     float* out, int M, int N, int K, int act,
-                                     cudaStream_t stream) {
-  using G = GemmTileF32;
-  const cudaError_t err = prepare(gemm_bias_act_f32tc_kernel, G::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + G::kCols - 1) / G::kCols, (M + G::kRows - 1) / G::kRows);
-  gemm_bias_act_f32tc_kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(A, W, bias, out, M, N, K,
-                                                                       act);
-  return cudaGetLastError();
-}
-
-// launch_residual_ln for kernel 9's float32 out projection
-inline cudaError_t launch_residual_ln_f32tc(const float* A, const float* W, const float* bias,
-                                            const float* resid, const float* ln_scale,
-                                            const float* ln_bias, float* rows, float* out, int M,
-                                            int N, int K, float eps, int fuse_ln,
-                                            cudaStream_t stream) {
-  using G = LnTileF32;
-  const cudaError_t err = prepare(residual_ln_f32tc_kernel, G::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  residual_ln_f32tc_kernel<<<(M + G::kRows - 1) / G::kRows, kThreads, G::kSmemBytes, stream>>>(
-      A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln);
-  return cudaGetLastError();
-}
+// the float32 backwards' tiles: a weight read transposed, and the weight
+// gradient X^T . dY
+using GemmTileTransBF32 = TileGemmTf32x3<128, 128, false, true>;
+using WgradTileF32 = TileGemmTf32x3<128, 128, true, false>;
 
 }  // namespace spk

@@ -42,6 +42,11 @@
 // pairs: the mask, the exponent and its roundings, a Philox-4x32-10 draw.
 // float32 runs the three cores' SIMT bodies (256 threads, float32 copies of
 // the tiles, attention_tiles.cuh), unchanged.
+// In float32 the backward's products with a weight read transposed and its
+// weight gradients run tf32x3_gemm.cuh's 3xTF32 tensor-core tile through the
+// same launchers (gemm_bias_act_t_f32tc_kernel, weight_grad_f32tc_kernel);
+// the projections it recomputes stay on the forward's SIMT tile, so it
+// differentiates the forward's own values.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v and the (L, L) probabilities
@@ -68,7 +73,7 @@
 //               tiles; in float32 it forms dS again);
 //            5. dx = [dq dk dv] . Wqkv^T in one GEMM;
 //            6. dWqkv = x^T [dq dk dv] and dWo = ctx^T g in
-//               weight_grad_kernel (bf16_gemm.cuh): each block owns a tile
+//               launch_weight_grad (bf16_gemm.cuh): each block owns a tile
 //               of the weight gradient and a fixed range of the B*L rows,
 //               whose partial sums are added in order after it, so the
 //               batch sum is deterministic too; the bias gradients come from
@@ -749,7 +754,7 @@ __global__ void dropout_mask_kernel(const int32_t* __restrict__ seed_ptr, uint8_
 // seg is int32 (B, L) and seed one int32 on the card. thr = 0 turns dropout
 // off. The backward's ws (ws_floats float32) is the weight gradients'
 // workspace for splits_proj (dWqkv) and splits_out (dWo) row ranges
-// (launch_weight_grad, bf16_gemm.cuh; bf16 only); its ds_buf (bf16; null in
+// (launch_weight_grad, bf16_gemm.cuh); its ds_buf (bf16; null in
 // float32) holds B nh ceil(L / 64)^2 dS tiles of 64 x 64 (dense_ds_tile).
 // Each entry returns the first CUDA error, or 0.
 extern "C" int spk_attention_train_fwd(int dtype, const void* hidden, const void* seg,

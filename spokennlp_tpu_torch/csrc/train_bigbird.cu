@@ -33,6 +33,11 @@
 // (S, dP and P.V on mma.sync; the mask, the rounded exponent and the Philox
 // draw on the fragments); float32 runs every attention kernel on the CUDA
 // cores.
+// In float32 the backward's products with a weight read transposed and its
+// weight gradients run tf32x3_gemm.cuh's 3xTF32 tensor-core tile through the
+// same launchers (gemm_bias_act_t_f32tc_kernel, weight_grad_f32tc_kernel);
+// the projections it recomputes stay on the forward's SIMT tile, so it
+// differentiates the forward's own values.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence and scatter-added each query block's dk and
@@ -57,7 +62,7 @@
 //               the key tiles the forward visited, from those dS tiles in
 //               bf16;
 //            5. dx = [dq dk dv] . Wqkv^T in one GEMM, and dWqkv = x^T [dq dk
-//               dv] and dWo = ctx^T g in weight_grad_kernel (bf16_gemm.cuh):
+//               dv] and dWo = ctx^T g in launch_weight_grad (bf16_gemm.cuh):
 //               each block owns a tile of a weight gradient and a fixed range
 //               of the B*L rows, whose partial sums are added in order after
 //               it, so the batch sum is deterministic; the bias gradients

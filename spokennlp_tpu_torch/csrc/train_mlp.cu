@@ -16,8 +16,11 @@
 // two, the recomputed x W1 with its act' epilogue, the two products with a
 // weight read transposed (its (N, K) rows are the mma's column fragments)
 // and the two weight gradients, whose sums over the rows are split into
-// fixed row ranges summed in order. The float32 modes keep the SIMT tile on
-// the CUDA cores, unchanged.
+// fixed row ranges summed in order. In float32 the forward's products and
+// the recomputed x W1 keep the SIMT tile on the CUDA cores, unchanged, and
+// the backward's two products with a weight read transposed and its two
+// weight gradients run tf32x3_gemm.cuh's 3xTF32 tensor-core tile through the
+// same launchers, with the same row ranges.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept both weight matrices in VMEM, the (rows, I) intermediate in registers,
@@ -32,7 +35,7 @@
 //            2. dpre = (g W2^T) act'(pre), rounded;
 //            3. dx = dpre W1^T;
 //            4. dW1 = x^T dpre with db1, and dW2 = h^T g with db2, in
-//               weight_grad_kernel (bf16_gemm.cuh): a block owns a tile of
+//               launch_weight_grad (bf16_gemm.cuh): a block owns a tile of
 //               the weight gradient and a fixed range of the M rows, and the
 //               ranges' partial sums are added in order after it, so the
 //               sums over rows need no atomics and come out the same on
@@ -134,7 +137,7 @@ cudaError_t mlp_train_bwd(const T* x, const T* w1, const float* b1, const T* w2,
 // outputs out/dx); biases, hgrad_buf and the weight/bias gradients are
 // float32; act is an ACTIVATION_CODES value. The backward's ws (ws_floats
 // float32) is the weight gradients' workspace for `splits` row ranges
-// (launch_weight_grad, bf16_gemm.cuh; bf16 only). Each entry returns the
+// (launch_weight_grad, bf16_gemm.cuh). Each entry returns the
 // first CUDA error, or 0.
 extern "C" int spk_mlp_train_fwd(int dtype, const void* x, const void* w1, const void* b1,
                                  const void* w2, const void* b2, void* h_buf, void* out, int M,
@@ -189,9 +192,8 @@ extern "C" int spk_mlp_train_bwd(int dtype, const void* x, const void* w1, const
 
 // The training backwards' weight gradient alone, as they launch it
 // (launch_weight_grad, bf16_gemm.cuh): dw (Hin, N) and db (N,) float32 of x
-// (M, Hin) and dy (M, N) in the element type, over `splits` row ranges in
-// bf16 with the workspace ws (ws_floats float32). Returns the first CUDA
-// error, or 0.
+// (M, Hin) and dy (M, N) in the element type, over `splits` row ranges with
+// the workspace ws (ws_floats float32). Returns the first CUDA error, or 0.
 extern "C" int spk_weight_grad(int dtype, const void* x, const void* dy, void* dw, void* db,
                                void* ws, size_t ws_floats, int splits, int M, int Hin, int N,
                                void* stream) {
@@ -206,6 +208,31 @@ extern "C" int spk_weight_grad(int dtype, const void* x, const void* dy, void* d
     using bf = __nv_bfloat16;
     err = spk::launch_weight_grad<bf>(static_cast<const bf*>(x), static_cast<const bf*>(dy),
                                       f(dw), f(db), f(ws), ws_floats, splits, M, Hin, N, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The training backwards' product with a weight read transposed alone, as
+// they launch it (launch_gemm<T, true>, bf16_gemm.cuh): out (M, N) = (A (M,
+// K) . W^T) * gate of W (N, K), in the element type, gate (M, N) float32 or
+// null. Returns the first CUDA error, or 0.
+extern "C" int spk_gemm_transposed(int dtype, const void* A, const void* W, const void* gate,
+                                   void* out, int M, int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto gt = static_cast<const float*>(gate);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = spk::launch_gemm<float, true>(static_cast<const float*>(A),
+                                        static_cast<const float*>(W), nullptr,
+                                        static_cast<float*>(out), M, N, K, spk::kActNone, gt, s);
+  } else if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    err = spk::launch_gemm<bf, true>(static_cast<const bf*>(A), static_cast<const bf*>(W),
+                                     nullptr, static_cast<bf*>(out), M, N, K, spk::kActNone, gt,
+                                     s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -37,6 +37,11 @@
 // mma.sync, the keys split over the warps). global_kv_grad_kernel, whose G
 // global rows are a small share of the work, stays a SIMT kernel on the
 // CUDA cores; float32 runs every attention kernel there.
+// In float32 the backward's products with a weight read transposed and its
+// weight gradients run tf32x3_gemm.cuh's 3xTF32 tensor-core tile through the
+// same launchers (gemm_bias_act_t_f32tc_kernel, weight_grad_f32tc_kernel);
+// the projections it recomputes stay on the forward's SIMT tile, so it
+// differentiates the forward's own values.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into
@@ -61,7 +66,7 @@
 //               dvg summed over the (at most G) global rows;
 //            7. dx = [dq dk dv dqg dkg dvg] . [Wqkv Wg]^T in one GEMM, and
 //               d[Wqkv Wg] = x^T [dq ... dvg] and dWo = ctx^T g in
-//               weight_grad_kernel (bf16_gemm.cuh): each block owns a tile
+//               launch_weight_grad (bf16_gemm.cuh): each block owns a tile
 //               of a weight gradient and a fixed range of the B*L rows,
 //               whose partial sums are added in order after it, so the batch
 //               sum is deterministic; the bias gradients come from the same

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "spk_mlp_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "spk_mlp_train_bwd": [_I] + [_P] * 14 + [_Z] + [_I] * 5 + [_P],
     "spk_weight_grad": [_I] + [_P] * 5 + [_Z] + [_I] * 4 + [_P],
+    "spk_gemm_transposed": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "spk_sliding_block": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_sliding_block_w8a8": [_I] + [_P] * 25 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_sliding_train_fwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _U, _F, _P],

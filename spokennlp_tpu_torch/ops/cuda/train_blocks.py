@@ -158,7 +158,8 @@ def mlp_train_plain(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
 
 def backward_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., K) . (K, N) in float32: every product of the explicit plain
-    backwards (the planted faults of their bf16 card limit replace it)."""
+    backwards (the planted faults of their bf16 and float32 card limits
+    replace it)."""
     return a.float() @ b.float()
 
 
@@ -309,23 +310,26 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-# The bf16 weight gradients split their rows into ranges (launch_weight_grad,
-# csrc/bf16_gemm.cuh): each block of 128 x 128 output tiles walks one range,
-# two blocks an SM, and the ranges' partial sums are added in order after.
-# weight_grad_splits leaves a gradient of at least 1.5 tiles an SM whole (on
-# the H100, 216 tiles ran fastest unsplit: most SMs already hold two blocks,
-# and blocks at one k-range share their operands in L2) and otherwise takes
-# the count that fills the SMs best: the fewest waves of blocks per share of
-# the work, each range at least WGRAD_MIN_STAGES stages of 32 rows, at most
-# WGRAD_MAX_SPLITS ranges (PERF.md gives the measurement it was chosen by).
+# The weight gradients split their rows into ranges (launch_weight_grad,
+# csrc/bf16_gemm.cuh; bf16 on its tensor-core tile, float32 on the 3xTF32
+# tile of csrc/tf32x3_gemm.cuh): each block of 128 x 128 output tiles walks
+# one range, two blocks an SM, and the ranges' partial sums are added in
+# order after. weight_grad_splits takes the count that fills the SMs best:
+# the fewest waves of blocks per share of the work, each range at least
+# WGRAD_MIN_STAGES stages of 32 rows, at most WGRAD_MAX_SPLITS ranges; in
+# bf16 it leaves a gradient of at least 1.5 tiles an SM whole (on the H100,
+# 216 tiles ran fastest unsplit: most SMs already hold two blocks, and blocks
+# at one k-range share their operands in L2), while the 3xTF32 tile, three
+# times the tensor-core work a product, gains from the split there too
+# (PERF.md gives the measurements the rule was chosen by).
 WGRAD_TILE, WGRAD_BLOCKS_PER_SM, WGRAD_MIN_STAGES, WGRAD_MAX_SPLITS = 128, 2, 16, 8
 
 
-def weight_grad_splits(M: int, Hin: int, N: int, sms: int) -> int:
-    """The row ranges of a bf16 weight gradient (Hin, N) over M rows on a
-    card of ``sms`` SMs."""
+def weight_grad_splits(M: int, Hin: int, N: int, sms: int, dtype=torch.bfloat16) -> int:
+    """The row ranges of a weight gradient (Hin, N) over M rows in ``dtype``
+    on a card of ``sms`` SMs."""
     tiles = -(-Hin // WGRAD_TILE) * -(-N // WGRAD_TILE)
-    if 2 * tiles >= 3 * sms:
+    if dtype == torch.bfloat16 and 2 * tiles >= 3 * sms:
         return 1
     slots, stages = WGRAD_BLOCKS_PER_SM * sms, -(-M // 32)
     best, cost = 1, float(-(-tiles // slots))
@@ -339,7 +343,7 @@ def weight_grad_splits(M: int, Hin: int, N: int, sms: int) -> int:
 
 
 def weight_grad_workspace(splits: int, Hin: int, N: int) -> int:
-    """float32 elements of the workspace of a bf16 weight gradient over
+    """float32 elements of the workspace of a weight gradient over
     ``splits`` row ranges: each range's partial dW and db, padded to
     multiples of 4 (csrc/bf16_gemm.cuh weight_grad_workspace_floats)."""
     pad4 = lambda n: -(-n // 4) * 4
@@ -351,15 +355,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def weight_grad_layout(dtype, M: int, shapes, sms: int):
+    """(splits of each weight gradient (Hin, N) of ``shapes`` over M rows in
+    ``dtype`` on a card of ``sms`` SMs, float32 elements of the workspace
+    they share, one after another on the stream)."""
+    splits = [weight_grad_splits(M, hin, n, sms, dtype) for hin, n in shapes]
+    return splits, max(weight_grad_workspace(s, hin, n) for s, (hin, n) in zip(splits, shapes))
+
+
 def weight_grad_plan(device, dtype, M: int, *shapes):
-    """(splits of each weight gradient (Hin, N) over M rows, the float32
-    workspace they share, one after another on the stream, from the
-    allocator (None in float32, which takes no split), its length)."""
-    if dtype != torch.bfloat16:
-        return [1] * len(shapes), None, 0
+    """(splits of each weight gradient (Hin, N) over M rows in ``dtype``,
+    their float32 workspace from the allocator (None when none splits), its
+    length) on ``device``'s card."""
     sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
-    splits = [weight_grad_splits(M, hin, n, sms) for hin, n in shapes]
-    floats = max(weight_grad_workspace(s, hin, n) for s, (hin, n) in zip(splits, shapes))
+    splits, floats = weight_grad_layout(dtype, M, shapes, sms)
     ws = torch.empty(floats, dtype=torch.float32, device=device) if floats else None
     return splits, ws, floats
 
@@ -562,9 +571,9 @@ def mlp_train_bwd(x, w1, b1, w2, g, *, activation: str):
 def weight_grad(x: torch.Tensor, dy: torch.Tensor, splits: Optional[int] = None):
     """The training backwards' weight gradient alone: (dW = x^T dy (Hin, N),
     db (N,)) in float32 of x (M, Hin) and dy (M, N) in one compute dtype,
-    over ``splits`` row ranges in bf16 (``weight_grad_splits``' count by
-    default). No model path calls it: it holds and times the weight-gradient
-    tile alone. On a CPU tensor it runs ``weight_grad_plain``.
+    over ``splits`` row ranges (``weight_grad_splits``' count by default).
+    No model path calls it: it holds and times the weight-gradient tiles
+    alone. On a CPU tensor it runs ``weight_grad_plain``.
     ``weight_grad.launches`` counts its launches."""
     if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
         raise ValueError(f"weight_grad: x (M, Hin) and dy (M, N), got {tuple(x.shape)} and "
@@ -577,7 +586,7 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, splits: Optional[int] = None)
         raise TypeError(f"weight_grad: x must be float32 or bfloat16, got {x.dtype}")
     dev, f32 = x.device, torch.float32
     x, dy = x.contiguous(), dy.contiguous()
-    if splits is None or x.dtype != torch.bfloat16:
+    if splits is None:
         (splits,), ws, floats = weight_grad_plan(dev, x.dtype, M, (Hin, N))
     else:
         floats = weight_grad_workspace(int(splits), Hin, N)
@@ -592,8 +601,38 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, splits: Optional[int] = None)
     return dw, db
 
 
+def gemm_transposed(a: torch.Tensor, w: torch.Tensor, gate: Optional[torch.Tensor] = None):
+    """The training backwards' product with a weight read transposed alone:
+    (a (M, K) . w^T) * gate in a's dtype, of w (N, K) in a's dtype and gate
+    (M, N) float32 or None, the product in float32 before the gate and the
+    rounding. No model path calls it: it holds the transposed-weight tiles
+    alone. On a CPU tensor it runs ``backward_product``;
+    ``gemm_transposed.launches`` counts its launches."""
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
+        raise ValueError(f"gemm_transposed: a (M, K) and w (N, K), got {tuple(a.shape)} and "
+                         f"{tuple(w.shape)}")
+    (M, K), N = a.shape, w.shape[0]
+    if a.device.type == "cpu":
+        out = backward_product(a, w.t())
+        return (out if gate is None else out * gate.float()).to(a.dtype)
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"gemm_transposed: a must be float32 or bfloat16, got {a.dtype}")
+    a = a.contiguous()
+    _check_card_tensor("gemm_transposed: w", w, a.device, (N, K), a.dtype)
+    if gate is not None:
+        _check_card_tensor("gemm_transposed: gate", gate, a.device, (M, N), torch.float32)
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        code = build.library().spk_gemm_transposed(
+            _DTYPES[a.dtype], a.data_ptr(), w.data_ptr(), _ptr(gate), out.data_ptr(), M, N, K,
+            _stream())
+    build.check(code, "gemm_transposed")
+    gemm_transposed.launches += 1
+    return out
+
+
 for _fn in (attention_train_fwd, attention_train_bwd, mlp_train_fwd, mlp_train_bwd, weight_grad,
-            attention_rows, attention_grad):
+            gemm_transposed, attention_rows, attention_grad):
     _fn.launches = 0
 
 

@@ -555,6 +555,8 @@ def test_sass_verdict_on_canned_counts():
         f"{stack}15attn_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
         f"{stack}26gemm_bias_act_f32tc_kernelEPKfS2_S2_Pfiiii": [0, 0, 192],
         f"{stack}24residual_ln_f32tc_kernelEPKfS2_S2_S2_S2_S2_PfS3_iiifi": [0, 0, 96],
+        f"{ns}28gemm_bias_act_t_f32tc_kernelIfEEvPKT_S3_PKfPS1_iiiiS5_": [0, 0, 384],
+        f"{ns}24weight_grad_f32tc_kernelIfEEvPKT_S3_PfS4_iiiimm": [0, 0, 384],
     }
     assert chip_smoke.sass_verdict(good) == []
 
@@ -595,6 +597,14 @@ def test_sass_verdict_on_canned_counts():
     assert with_counts(f"{stack}26gemm_bias_act_f32tc_kernelEPKfS2_S2_Pfiiii", [0, 0, 0])
     assert with_counts(f"{stack}24residual_ln_f32tc_kernelEPKfS2_S2_S2_S2_S2_PfS3_iiifi",
                        [0, 0, 0])
+    # the float32 backwards' 3xTF32 tiles (the transposed-weight product, the
+    # weight gradient) without HMMA; their old names' float32 instances (the
+    # SIMT tile's) with it
+    assert with_counts(f"{ns}28gemm_bias_act_t_f32tc_kernelIfEEvPKT_S3_PKfPS1_iiiiS5_",
+                       [0, 0, 0])
+    assert with_counts(f"{ns}24weight_grad_f32tc_kernelIfEEvPKT_S3_PfS4_iiiimm", [0, 0, 0])
+    assert with_counts(f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_", [0, 0, 384])
+    assert with_counts(f"{ns}18weight_grad_kernelIfEEvPKT_", [0, 0, 384])
     # the global rows: bf16 (the W8A8 mode's float32 ctx and the statistics
     # pass among them) without HMMA, float32 with it
     assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 2, 0])

@@ -227,6 +227,37 @@ def test_sliding_explicit_backward_matches_jax_kernel_vjp(global_rows):
                                    atol=GRAD_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
 
 
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_explicit_backward_on_the_tf32x3_model_matches_jax_kernel_vjp(global_rows):
+    """Row 12's explicit plain backward with every product through the 3xTF32
+    model (int8_matmul.tf32x3_product, as the card's float32 backward takes
+    its products) against the VJP of JAX's training kernel (interpret mode)
+    in float32: to 1e-5 of each gradient's largest magnitude, as the float32
+    explicit backward against autograd."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_sliding import sliding_attention_block_train as jax_train
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    inp = _inputs(B, L, H, NH, seed=10, global_rows=global_rows)
+    mask, glob = jnp.asarray(inp["attention_mask"]), jnp.asarray(inp["global_mask"])
+    _, vjp = jax.vjp(
+        lambda h, *p: jax_train(h, mask, glob, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                dropout_rate=0.0, interpret=True, window=WINDOW, max_globals=16,
+                                global_rows=global_rows),
+        *(jnp.asarray(inp[k]) for k in ARGS))
+    want = vjp(jnp.asarray(inp["cotangent"]))
+    model = [(tb, "backward_product", None, lambda real, a, b: tf32x3_product(a, b))]
+    with chip_smoke.planted(model):
+        got = _explicit_backward(inp, global_rows)
+    for name, g, w in zip(ARGS, got, want):
+        w = np.asarray(w).reshape(g.shape)
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * np.abs(w).max() + 1e-12,
+                                   err_msg=name)
+
+
 # ------------------------------------- the gradient kernels' rounding model
 
 

@@ -346,6 +346,116 @@ def test_weight_grad_splits_and_workspace():
     torch.testing.assert_close(db, dy.sum(0))
 
 
+def test_weight_grad_plan_in_float32():
+    """The float32 split rule (the 3xTF32 tile also splits a gradient of 1.5
+    tiles an SM or more, where bf16 leaves it whole) and the shared
+    workspace's length at the training paths' shapes on 132 SMs."""
+    f32, bf = torch.float32, torch.bfloat16
+    assert tb.weight_grad_splits(16384, 768, 4608, 132, f32) == 6  # 216 tiles
+    assert tb.weight_grad_splits(16384, 768, 4608, 132, bf) == 1
+    assert tb.weight_grad_splits(4096, 768, 4608, 132, f32) == 6
+    assert tb.weight_grad_splits(126, 68, 136, 132, f32) == 1  # too few rows to split
+    splits, floats = tb.weight_grad_layout(f32, 16384, [(768, 3072), (3072, 768)], 132)
+    assert splits == [7, 7] and floats == 7 * (768 * 3072 + 3072)
+    splits, floats = tb.weight_grad_layout(f32, 16384, [(768, 2304), (768, 768)], 132)
+    assert splits == [7, 7] and floats == 7 * (768 * 2304 + 2304)
+    splits, floats = tb.weight_grad_layout(f32, 4096, [(768, 4608), (768, 768)], 132)
+    assert splits == [6, 7] and floats == max(6 * (768 * 4608 + 4608), 7 * (768 * 768 + 768))
+    assert tb.weight_grad_layout(f32, 126, [(68, 136)], 132) == ([1], 0)
+
+
+# The float32 backwards' products on the card take the 3xTF32 tile
+# (csrc/tf32x3_gemm.cuh), which int8_matmul.tf32x3_product models: against a
+# float64 product it errs by float32's own rounding, within 1e-6 of the
+# largest output (kernel 9's limit, tests/test_torch_ponet.py); plain TF32
+# (terms=1, the planted fault of chip_smoke.F32_BWD_GEMM_TOL) falls a
+# hundred times beyond that limit, and beyond the card's gate.
+TF32X3_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("product", ["transposed_weight", "weight_gradient"])
+def test_tf32x3_model_of_the_backward_products(product):
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    rng = np.random.default_rng(11)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    if product == "transposed_weight":  # dx = dproj W^T, W (N, K) read transposed
+        a, w = f(512, 768), f(192, 768)
+        got = {terms: tf32x3_product(a, w.t(), terms) for terms in (3, 1)}
+        ref = a.double() @ w.double().t()
+    else:  # dW = x^T dy summed over 4096 rows
+        x, dy = f(4096, 96), f(4096, 160)
+        got = {terms: tf32x3_product(x.t(), dy, terms) for terms in (3, 1)}
+        ref = x.double().t() @ dy.double()
+    reading = {t: ((g.double() - ref).abs().max() / ref.abs().max()).item()
+               for t, g in got.items()}
+    assert reading[3] <= TF32X3_RTOL, reading
+    assert reading[1] > 100 * TF32X3_RTOL, reading
+    assert chip_smoke.f32_gemm_excess(chip_smoke.f32_gemm_readings(
+        {"out": got[1]}, {"out": ref.float()})["out"]) > 1
+
+
+def _tf32x3_products():
+    """planted() patches: every product of the explicit plain backwards
+    through the 3xTF32 model, as the card's float32 backwards take theirs."""
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    return [(tb, "backward_product", None, lambda real, a, b: tf32x3_product(a, b))]
+
+
+@pytest.mark.parametrize("kernel", ["mlp_train_bwd", "attention_train_bwd"])
+def test_float32_backward_gemm_gate_rejects_plain_tf32(kernel):
+    """chip_smoke's float32 backward-product gate (F32_BWD_GEMM_TOL, each
+    output against the explicit plain backward) accepts a backward with its
+    products through the 3xTF32 model and rejects it with plain TF32
+    products, in every output a product reaches (not db2 and dbo, column
+    sums of the cotangent)."""
+    if kernel == "mlp_train_bwd":
+        t = {k: torch.from_numpy(v) for k, v in _mlp_inputs(1024, 128, 512, seed=12).items()}
+        names = ("dx", "dw1", "db1", "dw2", "db2")
+        plain = lambda: dict(zip(names, tb.mlp_train_bwd_plain(
+            t["x"], t["w1"], t["b1"], t["w2"], t["cotangent"], activation="gelu")))
+        moved = ("dx", "dw1", "db1", "dw2")
+    else:
+        inp = _attention_inputs(4, 128, 128, 4, seed=12, w_scale=128**-0.5)
+        t = {k: torch.from_numpy(v) for k, v in inp.items()}
+        x, g = t["hidden"].reshape(-1, 128), t["cotangent"].reshape(-1, 128)
+        rng = np.random.default_rng(12)
+        bufs = {"ctx": torch.from_numpy(rng.normal(size=(512, 128)).astype(np.float32)),
+                "dproj": torch.from_numpy(rng.normal(size=(512, 384)).astype(np.float32))}
+        wqkv, wo = t["qkv_kernel"].reshape(128, 384), t["out_kernel"].reshape(128, 128)
+        plain = lambda: chip_smoke.projection_gemms_plain(x, g, bufs, wqkv, wo)
+        moved = ("dctx", "dx", "dw_all", "dwo")
+    with chip_smoke.planted(_tf32x3_products()):
+        got = plain()
+    chip_smoke.check_f32_backward_gemms(kernel, got, plain)
+    with chip_smoke.planted(chip_smoke.plain_tf32_products()):
+        bad = plain()
+    with pytest.raises(RuntimeError, match="beyond its limit"):
+        chip_smoke.check_f32_backward_gemms(kernel, bad, plain)
+    readings = chip_smoke.f32_gemm_readings(bad, plain())
+    assert all(chip_smoke.f32_gemm_excess(readings[k]) > 1 for k in moved), readings
+
+
+def test_mlp_explicit_backward_on_the_tf32x3_model_matches_jax_kernel_vjp():
+    """Row 11's explicit plain backward with every product through the 3xTF32
+    model, as the card's float32 backward takes its products, against the
+    VJP of JAX's training kernel (interpret mode) in float32: to
+    EXPLICIT_RTOL of each gradient's largest magnitude, as the float32
+    products themselves."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_blocks import mlp_block_train as jax_mlp
+
+    inp = _mlp_inputs(M=B * L, H=H, I=4 * H, seed=13)
+    _, vjp = jax.vjp(lambda *a: jax_mlp(*a, activation="gelu", interpret=True),
+                     *(jnp.asarray(inp[k]) for k in MLP_ARGS))
+    with chip_smoke.planted(_tf32x3_products()):
+        got = _mlp_explicit(inp)
+    _assert_close_rel(got, vjp(jnp.asarray(inp["cotangent"])), EXPLICIT_RTOL, MLP_ARGS)
+
+
 # ------------------------------------------- the bf16 cores' rounding models
 
 
@@ -604,10 +714,10 @@ BWD_NAMES = ("dx", "dw_all", "db_all", "dwo", "dbo")
 MLP_NAMES = ("dx", "dw1", "db1", "dw2", "db2")
 
 
-def _bf16_mlp(M, Hc, I, device, seed):
+def _bf16_mlp(M, Hc, I, device, seed, dtype=torch.bfloat16):
     t = {k: torch.from_numpy(v).to(device) for k, v in _mlp_inputs(M, Hc, I, seed=seed).items()}
     for k in ("x", "w1", "w2", "cotangent"):
-        t[k] = t[k].to(torch.bfloat16)
+        t[k] = t[k].to(dtype)
     return t
 
 
@@ -629,14 +739,14 @@ def test_mlp_backward_products_match_explicit_plain_on_card(cuda, M, Hc, I):
     assert max(readings.values()) <= chip_smoke.BWD_GEMM_TOL["mlp_train_bwd"], readings
 
 
-def _bf16_attention(Bc, Lc, Hc, nh, hd, device, seed):
+def _bf16_attention(Bc, Lc, Hc, nh, hd, device, seed, dtype=torch.bfloat16):
     """Inputs of attention_train_bwd with any H beside nh heads of hd."""
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0: torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32))
-    HN, bf = nh * hd, torch.bfloat16
-    t = dict(hidden=f(Bc, Lc, Hc).to(bf), seg=torch.from_numpy(_segments(Bc, Lc, seed)),
-             wqkv=f(Hc, 3 * HN, scale=Hc**-0.5).to(bf), bqkv=f(3 * HN, scale=0.1),
-             wo=f(HN, Hc, scale=HN**-0.5).to(bf), g=f(Bc, Lc, Hc).to(bf),
+    HN, dt = nh * hd, dtype
+    t = dict(hidden=f(Bc, Lc, Hc).to(dt), seg=torch.from_numpy(_segments(Bc, Lc, seed)),
+             wqkv=f(Hc, 3 * HN, scale=Hc**-0.5).to(dt), bqkv=f(3 * HN, scale=0.1),
+             wo=f(HN, Hc, scale=HN**-0.5).to(dt), g=f(Bc, Lc, Hc).to(dt),
              seed=torch.tensor([seed], dtype=torch.int32))
     return {k: v.to(device) for k, v in t.items()}
 
@@ -667,7 +777,9 @@ def test_attention_backward_products_match_explicit_plain_on_card(cuda, Bc, Lc, 
                                             (32 * 512, 768, 3072, None)])
 def test_weight_grad_tile_matches_plain_on_card(cuda, dtype, M, Hin, N, splits):
     """The weight gradient alone (its row ranges summed in order, the bias
-    gradient from the same pass) against weight_grad_plain."""
+    gradient from the same pass) against weight_grad_plain: bf16 within the
+    bf16 backward products' limit, float32 (the 3xTF32 tile) within
+    chip_smoke.F32_BWD_GEMM_TOL."""
     g = torch.Generator(device=cuda).manual_seed(M)
     x = torch.randn(M, Hin, generator=g, device=cuda).to(dtype)
     dy = torch.randn(M, N, generator=g, device=cuda).to(dtype)
@@ -676,13 +788,46 @@ def test_weight_grad_tile_matches_plain_on_card(cuda, dtype, M, Hin, N, splits):
     torch.cuda.synchronize()
     assert tb.weight_grad.launches == n + 1
     want = dict(zip(("dw", "db"), tb.weight_grad_plain(x, dy)))
+    if dtype == torch.float32:
+        readings = chip_smoke.f32_gemm_readings({"dw": dw, "db": db}, want)
+        assert all(chip_smoke.f32_gemm_excess(r) <= 1 for r in readings.values()), readings
+        return
     readings = chip_smoke.backward_gemm_readings({"dw": dw, "db": db}, want)
     assert max(readings.values()) <= chip_smoke.BWD_GEMM_TOL["mlp_train_bwd"], readings
 
 
-def _long_backward(kernel, device):
-    """A bf16 call of the Longformer or BigBird backward kernel at the
-    training shape (B=2, L=2048, BERT-base widths, dropout 0.1)."""
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(70, 67, 131), (129, 130, 33), (200, 68, 3), (1000, 768, 3072),
+                                   (300, 2304, 4608)])
+@pytest.mark.parametrize("gated", [False, True], ids=["plain", "gate"])
+def test_transposed_weight_tile_matches_tf32x3_model_on_card(cuda, M, N, K, gated):
+    """The float32 backwards' product with a weight read transposed alone
+    (train_blocks.gemm_transposed on the 3xTF32 tile; the MLP's act' gate
+    multiplied in) against the 3xTF32 model of the same product at ragged M,
+    N and K (4-byte copies where K is odd), within chip_smoke.F32_BWD_GEMM_TOL;
+    the plain-TF32 model lies beyond it."""
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g, device=cuda)
+    w = torch.randn(N, K, generator=g, device=cuda)
+    gate = torch.rand(M, N, generator=g, device=cuda) if gated else None
+    n = tb.gemm_transposed.launches
+    got = tb.gemm_transposed(a, w, gate)
+    torch.cuda.synchronize()
+    assert tb.gemm_transposed.launches == n + 1
+    scale = lambda t: t if gate is None else t * gate
+    want = {"out": scale(tf32x3_product(a, w.t()))}
+    reading = chip_smoke.f32_gemm_readings({"out": got}, want)["out"]
+    assert chip_smoke.f32_gemm_excess(reading) <= 1, reading
+    bad = chip_smoke.f32_gemm_readings({"out": scale(tf32x3_product(a, w.t(), terms=1))},
+                                       {"out": scale(a @ w.t())})["out"]
+    assert chip_smoke.f32_gemm_excess(bad) > 1, bad
+
+
+def _long_backward(kernel, device, dtype=torch.bfloat16):
+    """A call of the Longformer or BigBird backward kernel at the training
+    shape (B=2, L=2048, BERT-base widths, dropout 0.1)."""
     from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
     from spokennlp_tpu_torch.ops.cuda import bigbird_block, sliding_block
     from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
@@ -690,8 +835,8 @@ def _long_backward(kernel, device):
 
     g = torch.Generator(device=device).manual_seed(5)
     randn = lambda *s: torch.randn(*s, generator=g, device=device)
-    bf, Lc = torch.bfloat16, 2048
-    hidden, cot = randn(2, Lc, 768).to(bf), randn(2, Lc, 768).to(bf)
+    dt, Lc = dtype, 2048
+    hidden, cot = randn(2, Lc, 768).to(dt), randn(2, Lc, 768).to(dt)
     mask = (torch.arange(Lc, device=device)[None] < torch.tensor([[Lc], [1500]],
                                                                    device=device)).int()
     seed = torch.tensor([9], dtype=torch.int32, device=device)
@@ -700,34 +845,36 @@ def _long_backward(kernel, device):
     if kernel == "sliding_train_bwd":
         glob = torch.zeros_like(mask)
         glob[:, 0] = 1
-        w = sliding_block.card_weights(p[0], p[1], p[0], p[1], p[2], bf)
+        w = sliding_block.card_weights(p[0], p[1], p[0], p[1], p[2], dt)
         return lambda: ts.sliding_train_bwd(hidden, mask, glob, seed, w, cot, window=512,
                                             max_globals=16, global_rows=True, **kw)[1:]
-    w = bigbird_block.card_weights(*p, bf)
+    w = bigbird_block.card_weights(*p, dt)
     tables = bigbird_tables(Lc // 64, 2, 3, 0, device)
     return lambda: tbb.bigbird_train_bwd(hidden, mask, seed, w, cot, tables, block_size=64,
                                          **kw)[1:]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kernel", ["mlp_train_bwd", "attention_train_bwd", "sliding_train_bwd",
                                     "bigbird_train_bwd", "weight_grad"])
-def test_bf16_weight_gradients_repeat_bit_for_bit_on_card(cuda, kernel):
-    """Each bf16 weight gradient (the rows split into ranges, summed in
-    order) gives the same bits on a second run, at the main paths' shapes."""
+def test_bf16_weight_gradients_repeat_bit_for_bit_on_card(cuda, kernel, dtype):
+    """Each weight gradient, bf16 and float32 (the rows split into ranges,
+    summed in order; in float32 on the 3xTF32 tile) gives the same bits on a
+    second run, at the main paths' shapes."""
     if kernel in ("sliding_train_bwd", "bigbird_train_bwd"):
-        run = _long_backward(kernel, cuda)
+        run = _long_backward(kernel, cuda, dtype)
     elif kernel == "mlp_train_bwd":
-        t = _bf16_mlp(32 * 512, 768, 3072, cuda, seed=3)
+        t = _bf16_mlp(32 * 512, 768, 3072, cuda, seed=3, dtype=dtype)
         run = lambda: list(_mlp_bwd(tb.mlp_train_bwd, t).values())[1:]
     elif kernel == "attention_train_bwd":
-        t = _bf16_attention(32, 512, 768, 12, 64, cuda, seed=3)
+        t = _bf16_attention(32, 512, 768, 12, 64, cuda, seed=3, dtype=dtype)
         run = lambda: tb.attention_train_bwd(
             t["hidden"], t["seg"], t["seed"], t["wqkv"], t["bqkv"], t["wo"], t["g"],
             num_heads=12, sm_scale=0.125, dropout_rate=0.1)[1:]
     else:
         g = torch.Generator(device=cuda).manual_seed(3)
-        x, dy = (torch.randn(32 * 512, n, generator=g, device=cuda).to(torch.bfloat16)
+        x, dy = (torch.randn(32 * 512, n, generator=g, device=cuda).to(dtype)
                  for n in (768, 768))
         run = lambda: tb.weight_grad(x, dy)
     first = run()

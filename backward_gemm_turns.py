@@ -20,17 +20,22 @@ use and printing one JSON line:
   summed into its GEMM kernels (the GEMM tiles' kernels, the weight
   gradient and its reduction, the MLP's recomputed product) and the rest
   (the attention cores, the count and memset kernels);
+- with ``--dtype float32``, ms a call of the float32 forwards of rows
+  10-13 and of kernels 7 (B=8, L=2048) and 8 (B=8, L=2048, the Longformer
+  masks), whose products run the same float32 tile as the backwards';
 - with ``--dtype float32``, windows trained per second of the Longformer
   recipe (run_finetune at the CLI's default dtype, float32: 3 optimizer
   steps of 4 micro-batches of 2 windows of 2048 tokens, BERT-base widths,
   12 layers, weights from a seed) through the checkout's own
   chip_smoke.train_path (host clock between the steps' metrics events);
 - the card's SM clock and power draw, read just after;
-- sha256 digests, on the same inputs, of what must not move: every float32
-  forward of rows 10-13, the bf16 and W8A8 outputs of the forward kernels
-  (1, 2, 3, 6-9 and rows 10-13's forwards) and the backwards in the other
-  dtype; and of what the change may move, the timed backwards' outputs
-  (``moved digest ...``).
+- sha256 digests, on the same inputs, of what must not move: the float32
+  forwards of rows 10-13 (unless timed), kernel 9's float32 output, the bf16
+  and W8A8 outputs of the forward kernels (1, 2, 3, 6-9 and rows 10-13's
+  forwards) and the backwards in the other dtype; and of what the change may
+  move (``moved digest ...``), the timed backwards' outputs and, with
+  ``--dtype float32``, the float32 forwards of rows 10-13 and kernels 7 and
+  8.
 
 Then it prints the mean of each checkout, whether each must-not-move digest
 is the same in every run, and whether each moved digest differs from the
@@ -217,10 +222,13 @@ def measure(reps: int, timed: str = "bfloat16") -> dict:
             else:
                 out[f"digest row {row} backward {dtype}"] = digest(fn())
         for row, fn in forwards.items():
-            out[f"digest row {row} forward {dtype}"] = digest(fn())
-        if dtype == "float32":
-            continue
-        # the forward kernels' bf16 and W8A8 outputs
+            if dtype == timed == "float32":  # the float32 forwards' products moved with them
+                out[f"row {row} forward ms"] = time_ms(fn, reps)
+                out[f"moved digest row {row} forward {dtype}"] = digest(fn())
+            else:
+                out[f"digest row {row} forward {dtype}"] = digest(fn())
+        # the forward kernels' outputs: bf16 and W8A8; in float32 kernels 7
+        # and 8 (timed with --dtype float32) and kernel 9
         blk = lambda **q: fused_attention_block(hidden, seg, att[0].to(dt), att[1],
                                                 att[2].to(dt), att[3], sm_scale=HD**-0.5, **ln,
                                                 **q)
@@ -240,6 +248,14 @@ def measure(reps: int, timed: str = "bfloat16") -> dict:
         pseg = (torch.arange(LL, device=dev) // 37)[None].expand(LB, LL).contiguous()
         ponet = lambda **q: fused_ponet_mixer_block(lhid, mask, pseg, *pon, local_window=3,
                                                      sm_scale=HD**-0.5, **ln, **q)
+        if dtype == "float32":
+            if timed == "float32":
+                for k, fn in (("7", slide), ("8", bird)):
+                    out[f"kernel {k} float32 ms"] = time_ms(fn, reps)
+                    out[f"moved digest kernel {k} float float32"] = digest(fn())
+            out["digest kernel 9 float float32"] = digest(ponet())
+            torch.cuda.empty_cache()
+            continue
         for mode, q in (("float", False), ("W8A8", True)):
             out[f"digest kernel 1 {mode} bf16"] = digest(blk(quantized=q))
             out[f"digest kernel 2 {mode} bf16"] = digest(mlpb(quantized=q))

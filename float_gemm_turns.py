@@ -10,11 +10,16 @@ archive``). The script runs one measuring process a checkout in the order
 parent, this, this, parent, each building that checkout's kernels at first
 use and printing one JSON line of CUDA-event times (ms a call, after a
 warm-up) with the card's SM clock and power draw read just after, and a
-digest (sha256 of the output's bytes) of each float32 kernel's output and of
-the W8A8 modes of kernels 1-3 in bf16 on the same inputs; then it prints the
-four lines, the mean of each checkout, and whether each digest is the same
-in both checkouts. Readings of one kernel move by up to a third between calls
-of the card, so only two checkouts measured in one call are compared.
+digest (sha256 of the output's bytes) of each kernel's output on the same
+inputs: the W8A8 modes of kernels 1-3 in both dtypes and the float modes in
+bf16, which must not move, and the float modes in float32, which a change of
+the float32 tile may move (``moved digest ...``); then it prints
+the four lines, the mean of each checkout, whether each must-not-move digest
+is the same in every run, and whether each moved digest differs from the
+parent's and repeats within each checkout; it exits 1 if a must-not-move
+digest differs or a moved one does not repeat. Readings of one kernel move
+by up to a third between calls of the card, so only two checkouts measured
+in one call are compared.
 
     python3 float_gemm_turns.py --measure
 
@@ -62,7 +67,8 @@ def digest(t) -> str:
 
 def measure(reps: int) -> dict:
     """{reading: ms, or the digest of an output} of the checkout on sys.path,
-    with the card's clock."""
+    the float32 float modes' digests marked as moved, with the card's
+    clock."""
     import torch
 
     from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
@@ -97,14 +103,14 @@ def measure(reps: int) -> dict:
             x, *w[6:], activation="gelu", eps=1e-12, quantized=False), reps)
         out[f"kernel 3 float {dtype}"] = time_ms(lambda: fused_encoder_stack(
             hidden, seg, *p, sm_scale=HD**-0.5, quantized=False), max(1, reps // 5))
-        modes = {"W8A8": True} if dtype == "bfloat16" else {"float": False, "W8A8": True}
-        for mode, q in modes.items():
-            out[f"digest kernel 1 {mode} {dtype}"] = digest(fused_attention_block(
+        for mode, q in (("float", False), ("W8A8", True)):
+            tag = "moved digest" if mode == "float" and dtype == "float32" else "digest"
+            out[f"{tag} kernel 1 {mode} {dtype}"] = digest(fused_attention_block(
                 hidden, seg, *w[:4], sm_scale=HD**-0.5, ln_scale=w[4], ln_bias=w[5],
                 quantized=q))
-            out[f"digest kernel 2 {mode} {dtype}"] = digest(fused_mlp_block(
+            out[f"{tag} kernel 2 {mode} {dtype}"] = digest(fused_mlp_block(
                 x, *w[6:], activation="gelu", eps=1e-12, quantized=q))
-            out[f"digest kernel 3 {mode} {dtype}"] = digest(fused_encoder_stack(
+            out[f"{tag} kernel 3 {mode} {dtype}"] = digest(fused_encoder_stack(
                 hidden, seg, *p, sm_scale=HD**-0.5, quantized=q))
     out["sm clock, power draw"] = smi("clocks.sm,power.draw")
     return out
@@ -149,7 +155,13 @@ def main() -> int:
                                              for k in rows[0] if k.startswith("kernel")}}))
     same = {k: len({r[k] for _, r in runs}) == 1 for k in runs[0][1] if k.startswith("digest")}
     print(json.dumps({"same output in every run": same}))
-    return 0
+    moved = {k: {"differs from the parent": runs[0][1][k] != runs[1][1][k],
+                 "repeats in each checkout": all(len({r[k] for l, r in runs if l == label}) == 1
+                                                 for label in roots)}
+             for k in runs[0][1] if k.startswith("moved digest")}
+    print(json.dumps({"moved outputs": moved}))
+    repeats = all(m["repeats in each checkout"] for m in moved.values())
+    return 0 if all(same.values()) and repeats else 1
 
 
 if __name__ == "__main__":

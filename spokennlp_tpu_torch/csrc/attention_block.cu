@@ -18,16 +18,16 @@
 // m16n8k16 bf16 core) and both projections (bf16_gemm.cuh's mma.sync bf16
 // tile) run on the tensor cores, and in W8A8 the projections run the int8
 // tile (int8_gemm.cuh's mma.sync s8 tile, weights handed over K-major). The
-// float32 projections (common.cuh's SIMT TileGemm) and the float32 core stay
-// on the CUDA cores (float32 FMA); moving the tiles onto wgmma is later
-// work.
+// float32 projections run tf32x3_gemm.cuh's 3xTF32 tile on the TF32 tensor
+// cores; the float32 core stays on the CUDA cores (float32 FMA). Moving the
+// tiles onto wgmma is later work.
 //
 // What the design does about the TPU kernel's assumptions. On the TPU one
 // grid step owned a whole (sequence, head group), kept q, k and v in VMEM
 // and summed ctx . Wo over head groups in a scratch buffer across sequential
 // grid steps. Hopper blocks run in parallel and carry nothing from one to
 // the next, so the block is a chain of launches:
-//   1. the QKV projection (common.cuh, or int8_gemm.cuh after a row-quant
+//   1. the QKV projection (bf16_gemm.cuh, or int8_gemm.cuh after a row-quant
 //      launch of x in W8A8): one GEMM over all B*L rows, bias added, q
 //      scaled by sm_scale, stored in the element type as (3, B, nh, L, hd);
 //   2. the attention core (attention_core.cuh): one block per (query tile of

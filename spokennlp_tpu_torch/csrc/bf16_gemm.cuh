@@ -7,21 +7,19 @@
 // launchers; and the backward passes' weight gradient dW = X^T . dY with the
 // bias gradient, summed over all rows.
 //
-// In bfloat16 their products run on the tensor cores (TileGemmBf16 below:
-// mma.sync m16n8k16 bf16 with float32 sums). In float32 the three forward
-// tile functions run common.cuh's SIMT TileGemm, as before the tensor-core
-// tile existed, so the float32 forwards of kernels 1-3, 7, 8 and 10-13 and
-// the products the float32 backwards recompute are unchanged by a bit; the
-// float32 backwards' products with a weight read transposed
-// (gemm_bias_act_t_f32tc_kernel, from launch_gemm<float, true>) and their
-// weight gradients (weight_grad_f32tc_kernel, from launch_weight_grad<float>)
-// run tf32x3_gemm.cuh's 3xTF32 tensor-core tile, as kernel 9's float32
-// products do (ponet_block.cu's own launchers). Every tensor-core tile shares
-// the epilogues below (gemm_bias_act_mma, residual_ln_mma). Bias,
-// activation, residual and LayerNorm are float32 in every mode, and a value
-// is rounded to the element type exactly where the SIMT version rounds it:
-// only the order of the float32 sums differs (a bf16 x bf16 product is
-// exact in float32) and, on the 3xTF32 tile, the products' precision.
+// Every product runs on the tensor cores, the tile chosen by the element
+// type (TileFor below): bfloat16 on TileGemmBf16 (mma.sync m16n8k16 bf16
+// with float32 sums), float32 on tf32x3_gemm.cuh's TileGemmTf32x3 (mma.sync
+// m16n8k8 TF32, each operand split into two TF32 parts, three products a
+// pair). Both stand their warps alike and leave the accumulator fragments in
+// the same places, so the epilogues below are written once: bias,
+// activation, gate, residual and LayerNorm are float32 in every mode, and a
+// value is rounded to the element type where the TPU kernels round it. So
+// kernels 1-3, 7-9, the training forwards of rows 10-13 and the products
+// their backwards recompute, the backwards' products with a weight read
+// transposed and their weight gradients all run the same kernels in both
+// dtypes; a backward that recomputes a forward product takes the forward's
+// kernel, tile and k-order, so it differentiates the forward's own values.
 //
 // The tile (TileGemmBf16). It multiplies A (M, K) by B (K, N), each stored
 // as its caller holds it: A row-major (M, K), or (K, M) for the weight
@@ -50,15 +48,14 @@
 // work, and the epilogues here already work on the accumulator fragments,
 // which it keeps in the same places.
 //
-// The weight gradient (weight_grad_kernel in bf16, weight_grad_f32tc_kernel
-// in float32, both through weight_grad_mma) sums over all B*L rows, a long
-// k-walk onto a small output: dWo (768 x 768) is 36 tiles of 128 x 128 for
-// 132 SMs. So it splits the rows into `splits` fixed ranges (grid z), each
-// block writing its range's partial tile into a float32 workspace from the
-// wrapper's allocator, and weight_grad_reduce_kernel adds the partials in
-// split order: no atomics, the same bits on every run. The bias gradient
-// comes from the same pass, as float32 column sums of the staged dY slices
-// in the blocks of the first tile row.
+// The weight gradient (weight_grad_kernel, on either tile) sums over all B*L
+// rows, a long k-walk onto a small output: dWo (768 x 768) is 36 tiles of 128
+// x 128 for 132 SMs. So it splits the rows into `splits` fixed ranges (grid
+// z), each block writing its range's partial tile into a float32 workspace
+// from the wrapper's allocator, and weight_grad_reduce_kernel adds the
+// partials in split order: no atomics, the same bits on every run. The bias
+// gradient comes from the same pass, as float32 column sums of the staged dY
+// slices in the blocks of the first tile row.
 #pragma once
 
 #include "tf32x3_gemm.cuh"
@@ -75,12 +72,6 @@ constexpr int kARowBytesB = 2 * kTileKB + 16;  // a staged A row, padded by 16 b
 constexpr int kGemmRowsB = 128, kGemmColsB = 128;
 constexpr int kLnRowsB = 64, kLnColsB = 128;
 static_assert(kTileKB % 16 == 0 && kStagesB >= 2, "whole mma k-steps, a ring of two or more");
-
-// Whether a GEMM of element type T runs on the tensor cores: bf16
-template <typename T>
-__host__ __device__ constexpr bool on_tensor_cores() {
-  return std::is_same<T, __nv_bfloat16>::value;
-}
 
 // One BM x BN tile of the float32 product A . B of bf16 A (M, K) and B (K,
 // N) on 256 threads (the file's header describes it): A stored row-major (M,
@@ -298,52 +289,26 @@ struct TileGemmBf16 {
   }
 };
 
-using GemmTileB = TileGemmBf16<kGemmRowsB, kGemmColsB>;
-using LnTileB = TileGemmBf16<kLnRowsB, kLnColsB>;
-// the backward passes' tiles: a weight read transposed, and the weight
+// The tiles of element type T: TileGemmBf16 in bf16, tf32x3_gemm.cuh's
+// TileGemmTf32x3 in float32. They share their shape (256 threads, warps 2 x
+// 4, 32-deep stages in a ring of three), their accumulator fragments' places
+// and their interface, so every tile function, kernel and launcher below
+// takes either. A and B carry no __restrict__ in either (the stack kernel
+// reads buffers that an earlier phase of the same launch wrote).
+template <typename T, int BM, int BN, bool kTransA = false, bool kTransB = false>
+using TileFor = std::conditional_t<std::is_same<T, float>::value,
+                                   TileGemmTf32x3<BM, BN, kTransA, kTransB>,
+                                   TileGemmBf16<BM, BN, kTransA, kTransB>>;
+// the GEMM and projection tile (W read as stored, or transposed by the
+// backward passes), the residual-LayerNorm row block and the weight
 // gradient X^T . dY
-using GemmTileTransB = TileGemmBf16<kGemmRowsB, kGemmColsB, false, true>;
-using WgradTileB = TileGemmBf16<kGemmRowsB, kGemmColsB, true, false>;
-
-// The output tiles of the three tile functions for element type T: the
-// tensor-core tile's in bf16, the SIMT tile's (64 x 64, kLnRows rows) else.
-template <typename T>
-__host__ __device__ constexpr int gemm_tile_rows() {
-  return on_tensor_cores<T>() ? kGemmRowsB : 64;
-}
-
-template <typename T>
-__host__ __device__ constexpr int gemm_tile_cols() {
-  return on_tensor_cores<T>() ? kGemmColsB : 64;
-}
-
-template <typename T>
-__host__ __device__ constexpr int ln_tile_rows() {
-  return on_tensor_cores<T>() ? kLnRowsB : kLnRows;
-}
-
-// The shared memory the tile functions take: the tensor-core ring (dynamic,
-// above 48 KB) or the SIMT staging (no weight read transposed: float32 reads
-// one on the 3xTF32 tile)
 template <typename T, bool kTransW = false>
-__host__ __device__ constexpr size_t gemm_smem_bytes() {
-  return on_tensor_cores<T>()
-             ? (size_t)TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>::kSmemBytes
-             : sizeof(float) * TileGemm<64, 64, T>::kSmemFloats;
-}
-
+using GemmTile = TileFor<T, kGemmRowsB, kGemmColsB, false, kTransW>;
 template <typename T>
-__host__ __device__ constexpr size_t ln_smem_bytes() {
-  return on_tensor_cores<T>() ? (size_t)LnTileB::kSmemBytes
-                              : sizeof(float) * TileGemm<kLnRows, kLnCols, T>::kSmemFloats;
-}
-
-// the least blocks an SM of a tile kernel: two for the tensor-core tile (128
-// registers a thread), none (ptxas's own choice, as before it) for the SIMT
+using LnTile = TileFor<T, kLnRowsB, kLnColsB>;
 template <typename T>
-__host__ __device__ constexpr int gemm_min_blocks() {
-  return on_tensor_cores<T>() ? 2 : 0;
-}
+using WgradTile = TileFor<T, kGemmRowsB, kGemmColsB, true, false>;
+static_assert(kTileKB == kTileKF && kStagesB == kStagesF, "one stage depth and ring for both");
 
 // out[i] = v0 and, when `both`, out[i + 1] = v1: one 4- or 8-byte store
 // where i is even, which the callers' row-major outputs of even width give
@@ -361,16 +326,18 @@ __device__ __forceinline__ void store_pair(T* out, size_t i, float v0, float v1,
   if (both) out[i + 1] = from_f32<T>(v1);
 }
 
-// gemm_bias_act_tile on a tensor-core tile G of T (TileGemmBf16, or
-// tf32x3_gemm.cuh's TileGemmTf32x3 in float32): the output tile at (row0,
-// col0), smem holding G::kSmemBytes, 16-byte aligned
-template <typename G, typename T>
-__device__ __forceinline__ void gemm_bias_act_mma(const T* A, const T* W, const float* bias,
-                                                  T* out, int M, int N, int K, int act,
-                                                  const float* gate, int row0, int col0,
-                                                  unsigned char* smem) {
+// out = act(A . W + bias) * gate, stored in T, for the output tile at (row0,
+// col0) of GemmTile<T, kTransW>. W is (K, N), or (N, K) read transposed when
+// kTransW; bias (N,) and gate (M, N) float32 may be null. `smem` holds
+// GemmTile<T, kTransW>::kSmemBytes, 16-byte aligned.
+template <typename T, bool kTransW = false>
+__device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const float* bias,
+                                                   T* out, int M, int N, int K, int act,
+                                                   const float* gate, int row0, int col0,
+                                                   float* smem) {
+  using G = GemmTile<T, kTransW>;
   typename G::Acc acc;
-  G::run(A, W, M, N, K, row0, col0, acc, smem);
+  G::run(A, W, M, N, K, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
   G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
     const int m = row0 + r, n = col0 + c;
     if (m >= M || n >= N) return;
@@ -385,218 +352,111 @@ __device__ __forceinline__ void gemm_bias_act_mma(const T* A, const T* W, const 
   });
 }
 
-// out = act(A . W + bias) * gate, stored in T, for the output tile at (row0,
-// col0) (gemm_tile_rows x gemm_tile_cols). W is (K, N), or (N, K) read
-// transposed when kTransW (bf16 only: float32 reads it on the 3xTF32 tile,
-// gemm_bias_act_t_f32tc_kernel); bias (N,) and gate (M, N) float32 may be
-// null. `smem` holds gemm_smem_bytes<T, kTransW>(), 16-byte aligned.
+// Grid (ceil(N / kGemmColsB), ceil(M / kGemmRowsB)), GemmTile<T,
+// kTransW>::kSmemBytes of dynamic shared memory; two blocks an SM (128
+// registers a thread).
 template <typename T, bool kTransW = false>
-__device__ __forceinline__ void gemm_bias_act_tile(const T* A, const T* W, const float* bias,
-                                                   T* out, int M, int N, int K, int act,
-                                                   const float* gate, int row0, int col0,
-                                                   float* smem) {
-  if constexpr (on_tensor_cores<T>()) {
-    gemm_bias_act_mma<TileGemmBf16<kGemmRowsB, kGemmColsB, false, kTransW>>(
-        A, W, bias, out, M, N, K, act, gate, row0, col0, reinterpret_cast<unsigned char*>(smem));
-  } else {
-    static_assert(!kTransW, "float32 reads a weight transposed on the 3xTF32 tile");
-    using G = TileGemm<64, 64, T>;
-    float acc[G::TM][G::TN];
-    G::run(A, W, M, N, K, row0, col0, acc, smem);
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      const int m = row0 + ty + 16 * i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < G::TN; ++j) {
-        const int n = col0 + tx + 16 * j;
-        if (n >= N) continue;
-        float v = apply_activation(acc[i][j] + (bias != nullptr ? bias[n] : 0.0f), act);
-        if (gate != nullptr) v *= gate[(size_t)m * N + n];
-        out[(size_t)m * N + n] = from_f32<T>(v);
-      }
-    }
-  }
-}
-
-// Grid (ceil(N / gemm_tile_cols), ceil(M / gemm_tile_rows)); the tensor-core
-// tile takes gemm_smem_bytes of dynamic shared memory, the SIMT tile static.
-template <typename T, bool kTransW = false>
-__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+__global__ void __launch_bounds__(kThreads, 2)
     gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ W,
                          const float* __restrict__ bias, T* __restrict__ out, int M, int N, int K,
                          int act, const float* __restrict__ gate = nullptr) {
-  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
-  if constexpr (on_tensor_cores<T>()) {
-    extern __shared__ __align__(16) unsigned char smem_bf16[];
-    gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * BM,
-                                   blockIdx.x * BN, reinterpret_cast<float*>(smem_bf16));
-  } else {
-    __shared__ float smem[TileGemm<64, 64, T>::kSmemFloats];
-    gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * BM,
-                                   blockIdx.x * BN, smem);
-  }
+  extern __shared__ __align__(16) float smem_tile[];
+  gemm_bias_act_tile<T, kTransW>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * kGemmRowsB,
+                                 blockIdx.x * kGemmColsB, smem_tile);
 }
 
-// The dynamic shared memory a tile kernel launches with (after allowing it)
-template <typename T, typename Kernel>
-cudaError_t tile_smem(Kernel kernel, size_t bytes, size_t* smem) {
-  *smem = on_tensor_cores<T>() ? bytes : 0;
-  return *smem ? prepare(kernel, *smem) : cudaSuccess;
-}
-
-// out = act(A . W^T + bias) * gate (M, N) in float32, W (N, K) read
-// transposed, on the 3xTF32 tile: the float32 backwards' products. A
-// template (T = float), so that only the translation units that launch it
-// compile it. Grid (ceil(N / 128), ceil(M / 128)), GemmTileTransBF32::
-// kSmemBytes of dynamic shared memory.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_bias_act_t_f32tc_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                                 const float* __restrict__ bias, T* __restrict__ out, int M,
-                                 int N, int K, int act, const float* __restrict__ gate) {
-  static_assert(std::is_same<T, float>::value, "the 3xTF32 tile takes float32");
-  using G = GemmTileTransBF32;
-  extern __shared__ __align__(16) unsigned char smem_f32tc_t[];
-  gemm_bias_act_mma<G, T>(A, W, bias, out, M, N, K, act, gate, blockIdx.y * G::kRows,
-                          blockIdx.x * G::kCols, smem_f32tc_t);
-}
-
-// W (K, N), or (N, K) read transposed when kTransW: bf16 on TileGemmBf16,
-// float32 on the SIMT tile, or with kTransW (the backwards' products) on the
-// 3xTF32 tile
+// out = act(A . W + bias) * gate (M, N); W (K, N), or (N, K) read
+// transposed when kTransW (the backwards' products)
 template <typename T, bool kTransW = false>
 inline cudaError_t launch_gemm(const T* A, const T* W, const float* bias, T* out, int M, int N,
                                int K, int act, const float* gate, cudaStream_t stream) {
-  if constexpr (!on_tensor_cores<T>() && kTransW) {
-    using G = GemmTileTransBF32;
-    const cudaError_t err = prepare(gemm_bias_act_t_f32tc_kernel<T>, G::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((N + G::kCols - 1) / G::kCols, (M + G::kRows - 1) / G::kRows);
-    gemm_bias_act_t_f32tc_kernel<T><<<grid, kThreads, G::kSmemBytes, stream>>>(
-        A, W, bias, out, M, N, K, act, gate);
-    return cudaGetLastError();
-  } else {
-    constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
-    size_t smem = 0;
-    const cudaError_t err = tile_smem<T>(gemm_bias_act_kernel<T, kTransW>,
-                                         gemm_smem_bytes<T, kTransW>(), &smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, smem, stream>>>(A, W, bias, out, M, N, K,
-                                                                       act, gate);
-    return cudaGetLastError();
-  }
+  constexpr int kSmem = GemmTile<T, kTransW>::kSmemBytes;
+  const cudaError_t err = prepare(gemm_bias_act_kernel<T, kTransW>, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kGemmColsB - 1) / kGemmColsB, (M + kGemmRowsB - 1) / kGemmRowsB);
+  gemm_bias_act_kernel<T, kTransW><<<grid, kThreads, kSmem, stream>>>(A, W, bias, out, M, N, K,
+                                                                      act, gate);
+  return cudaGetLastError();
 }
 
 // The output tile at (row0, col0) of (M=B*L, H) . (H, slots*nh*hd) + bias,
 // scattered to (slots, B, nh, L, hd), slot 0 scaled by sm_scale (1 keeps it
-// unscaled): q, k, v with slots = 3. `smem` as for gemm_bias_act_tile.
+// unscaled): q, k, v with slots = 3. `smem` holds GemmTile<T>::kSmemBytes,
+// 16-byte aligned.
 template <typename T>
 __device__ __forceinline__ void qkv_proj_tile(const T* x, const T* w, const float* bias, T* qkv,
                                               int B, int L, int H, int nh, int hd,
                                               float sm_scale, int slots, int row0, int col0,
                                               float* smem) {
   const int M = B * L, HN = nh * hd, N = slots * HN;
-  if constexpr (on_tensor_cores<T>()) {
-    using G = GemmTileB;
-    G::Acc acc;
-    G::run(x, w, M, N, H, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
-    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
-      const int m = row0 + r, n = col0 + c;
-      if (m >= M || n >= N) return;
-      float v0 = a0 + bias[n];
-      if (n < HN) v0 *= sm_scale;
-      if (n + 1 >= N) {
-        store_qkv<T>(qkv, v0, m, n, B, L, nh, hd);
-        return;
-      }
-      float v1 = a1 + bias[n + 1];
-      if (n + 1 < HN) v1 *= sm_scale;
-      if (hd % 2 == 0) {  // n even: d and d + 1 of one head, neighbours in qkv
-        const int b = m / L, l = m - b * L, s = n / HN, rr = n - s * HN, h = rr / hd;
-        store_pair(qkv, ((((size_t)s * B + b) * nh + h) * L + l) * hd + (rr - h * hd), v0, v1,
-                   true);
-      } else {
-        store_qkv<T>(qkv, v0, m, n, B, L, nh, hd);
-        store_qkv<T>(qkv, v1, m, n + 1, B, L, nh, hd);
-      }
-    });
-  } else {
-    using G = TileGemm<64, 64, T>;
-    float acc[G::TM][G::TN];
-    G::run(x, w, M, N, H, row0, col0, acc, smem);
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      const int m = row0 + ty + 16 * i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < G::TN; ++j) {
-        const int n = col0 + tx + 16 * j;
-        if (n >= N) continue;
-        float v = acc[i][j] + bias[n];
-        if (n < HN) v *= sm_scale;
-        store_qkv<T>(qkv, v, m, n, B, L, nh, hd);
-      }
+  using G = GemmTile<T>;
+  typename G::Acc acc;
+  G::run(x, w, M, N, H, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
+  G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+    const int m = row0 + r, n = col0 + c;
+    if (m >= M || n >= N) return;
+    float v0 = a0 + bias[n];
+    if (n < HN) v0 *= sm_scale;
+    if (n + 1 >= N) {
+      store_qkv<T>(qkv, v0, m, n, B, L, nh, hd);
+      return;
     }
-  }
+    float v1 = a1 + bias[n + 1];
+    if (n + 1 < HN) v1 *= sm_scale;
+    if (hd % 2 == 0) {  // n even: d and d + 1 of one head, neighbours in qkv
+      const int b = m / L, l = m - b * L, s = n / HN, rr = n - s * HN, h = rr / hd;
+      store_pair(qkv, ((((size_t)s * B + b) * nh + h) * L + l) * hd + (rr - h * hd), v0, v1,
+                 true);
+    } else {
+      store_qkv<T>(qkv, v0, m, n, B, L, nh, hd);
+      store_qkv<T>(qkv, v1, m, n + 1, B, L, nh, hd);
+    }
+  });
 }
 
-// Grid (ceil(slots*nh*hd / gemm_tile_cols), ceil(B*L / gemm_tile_rows)).
+// Grid (ceil(slots*nh*hd / kGemmColsB), ceil(B*L / kGemmRowsB)).
 template <typename T>
-__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+__global__ void __launch_bounds__(kThreads, 2)
     qkv_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ qkv, int B, int L, int H,
                     int nh, int hd, float sm_scale, int slots) {
-  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
-  if constexpr (on_tensor_cores<T>()) {
-    extern __shared__ __align__(16) unsigned char smem_bf16[];
-    qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, slots, blockIdx.y * BM,
-                     blockIdx.x * BN, reinterpret_cast<float*>(smem_bf16));
-  } else {
-    __shared__ float smem[TileGemm<64, 64, T>::kSmemFloats];
-    qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, slots, blockIdx.y * BM,
-                     blockIdx.x * BN, smem);
-  }
+  extern __shared__ __align__(16) float smem_tile[];
+  qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, slots, blockIdx.y * kGemmRowsB,
+                   blockIdx.x * kGemmColsB, smem_tile);
 }
 
 template <typename T>
 inline cudaError_t launch_qkv_proj(const T* x, const T* w, const float* bias, T* qkv, int B, int L,
                                    int H, int nh, int hd, float sm_scale, cudaStream_t stream,
                                    int slots = 3) {
-  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
-  size_t smem = 0;
-  const cudaError_t err = tile_smem<T>(qkv_proj_kernel<T>, gemm_smem_bytes<T>(), &smem);
+  constexpr int kSmem = GemmTile<T>::kSmemBytes;
+  const cudaError_t err = prepare(qkv_proj_kernel<T>, kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((slots * nh * hd + BN - 1) / BN, (B * L + BM - 1) / BM);
-  qkv_proj_kernel<T><<<grid, kThreads, smem, stream>>>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale,
-                                                       slots);
+  const dim3 grid((slots * nh * hd + kGemmColsB - 1) / kGemmColsB,
+                  (B * L + kGemmRowsB - 1) / kGemmRowsB);
+  qkv_proj_kernel<T><<<grid, kThreads, kSmem, stream>>>(x, w, bias, qkv, B, L, H, nh, hd,
+                                                        sm_scale, slots);
   return cudaGetLastError();
 }
 
 // out = LayerNorm(resid + A . W + bias) * ln_scale + ln_bias over rows of
-// width N, or out = A . W + bias when fuse_ln == 0, for the ln_tile_rows<T>
-// whole rows from row0. The block walks the N columns tile by tile, writes
+// width N, or out = A . W + bias when fuse_ln == 0, for the kLnRowsB whole
+// rows from row0. The block walks the N columns kLnColsB at a time, writes
 // the pre-norm rows in float32 to `rows` (M, N), then normalises each row
 // with one warp (ln_rows). The block reads back only what it wrote, while it
 // is still in L2; holding the rows in shared memory instead (98 KB at N=768)
 // let only two blocks onto an SM and ran at a third of the plain GEMM's
-// rate. `smem` holds ln_smem_bytes<T>(), 16-byte aligned.
-// residual_ln_rowblock on a tensor-core tile G of T (TileGemmBf16, or
-// tf32x3_gemm.cuh's TileGemmTf32x3): the G::kRows whole rows from row0,
-// walked G::kCols columns at a time, then normalised; smem holding
-// G::kSmemBytes, 16-byte aligned
-template <typename G, typename T>
-__device__ __forceinline__ void residual_ln_mma(const T* A, const T* W, const float* bias,
-                                                const T* resid, const float* ln_scale,
-                                                const float* ln_bias, float* rows, T* out, int M,
-                                                int N, int K, float eps, int fuse_ln, int row0,
-                                                unsigned char* smem) {
+// rate. `smem` holds LnTile<T>::kSmemBytes, 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, const float* bias,
+                                                     const T* resid, const float* ln_scale,
+                                                     const float* ln_bias, float* rows, T* out,
+                                                     int M, int N, int K, float eps, int fuse_ln,
+                                                     int row0, float* smem) {
+  using G = LnTile<T>;
   for (int col0 = 0; col0 < N; col0 += G::kCols) {
     typename G::Acc acc;
-    G::run(A, W, M, N, K, row0, col0, acc, smem);
+    G::run(A, W, M, N, K, row0, col0, acc, reinterpret_cast<unsigned char*>(smem));
     G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
       const int m = row0 + r, n = col0 + c;
       if (m >= M || n >= N) return;
@@ -614,58 +474,18 @@ __device__ __forceinline__ void residual_ln_mma(const T* A, const T* W, const fl
   ln_rows<T, G::kRows>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
 }
 
+// Grid (ceil(M / kLnRowsB)).
 template <typename T>
-__device__ __forceinline__ void residual_ln_rowblock(const T* A, const T* W, const float* bias,
-                                                     const T* resid, const float* ln_scale,
-                                                     const float* ln_bias, float* rows, T* out,
-                                                     int M, int N, int K, float eps, int fuse_ln,
-                                                     int row0, float* smem) {
-  if constexpr (on_tensor_cores<T>()) {
-    residual_ln_mma<LnTileB>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
-                             fuse_ln, row0, reinterpret_cast<unsigned char*>(smem));
-  } else {
-    using G = TileGemm<kLnRows, kLnCols, T>;
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    for (int col0 = 0; col0 < N; col0 += kLnCols) {
-      float acc[G::TM][G::TN];
-      G::run(A, W, M, N, K, row0, col0, acc, smem);
-#pragma unroll
-      for (int i = 0; i < G::TM; ++i) {
-        const int m = row0 + ty + 16 * i;
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < G::TN; ++j) {
-          const int c = col0 + tx + 16 * j;
-          if (c >= N) continue;
-          float v = acc[i][j] + bias[c];
-          if (fuse_ln) v += to_f32(resid[(size_t)m * N + c]);
-          rows[(size_t)m * N + c] = v;
-        }
-      }
-    }
-    __syncthreads();  // makes the block's global writes visible to the block
-    ln_rows<T, kLnRows>(rows, ln_scale, ln_bias, out, M, N, eps, fuse_ln, row0);
-  }
-}
-
-// Grid (ceil(M / ln_tile_rows<T>)).
-template <typename T>
-__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+__global__ void __launch_bounds__(kThreads, 2)
     gemm_bias_residual_ln_kernel(const T* __restrict__ A, const T* __restrict__ W,
                                  const float* __restrict__ bias, const T* __restrict__ resid,
                                  const float* __restrict__ ln_scale,
                                  const float* __restrict__ ln_bias, float* rows,
                                  T* __restrict__ out, int M, int N, int K, float eps,
                                  int fuse_ln) {
-  if constexpr (on_tensor_cores<T>()) {
-    extern __shared__ __align__(16) unsigned char smem_bf16[];
-    residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
-                            fuse_ln, blockIdx.x * kLnRowsB, reinterpret_cast<float*>(smem_bf16));
-  } else {
-    __shared__ float smem[TileGemm<kLnRows, kLnCols, T>::kSmemFloats];
-    residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
-                            fuse_ln, blockIdx.x * kLnRows, smem);
-  }
+  extern __shared__ __align__(16) float smem_tile[];
+  residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln,
+                          blockIdx.x * kLnRowsB, smem_tile);
 }
 
 template <typename T>
@@ -673,12 +493,10 @@ inline cudaError_t launch_residual_ln(const T* A, const T* W, const float* bias,
                                       const float* ln_scale, const float* ln_bias, float* rows,
                                       T* out, int M, int N, int K, float eps, int fuse_ln,
                                       cudaStream_t stream) {
-  constexpr int R = ln_tile_rows<T>();
-  size_t smem = 0;
-  const cudaError_t err = tile_smem<T>(gemm_bias_residual_ln_kernel<T>, ln_smem_bytes<T>(),
-                                       &smem);
+  constexpr int kSmem = LnTile<T>::kSmemBytes;
+  const cudaError_t err = prepare(gemm_bias_residual_ln_kernel<T>, kSmem);
   if (err != cudaSuccess) return err;
-  gemm_bias_residual_ln_kernel<T><<<(M + R - 1) / R, kThreads, smem, stream>>>(
+  gemm_bias_residual_ln_kernel<T><<<(M + kLnRowsB - 1) / kLnRowsB, kThreads, kSmem, stream>>>(
       A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln);
   return cudaGetLastError();
 }
@@ -687,53 +505,30 @@ inline cudaError_t launch_residual_ln(const T* A, const T* W, const float* bias,
 // of X (M, Hin) and dY (M, N), and with db != null the bias gradient db =
 // sum over rows of dY (N,). Nothing is shared between blocks: no atomics,
 // and the same sums in the same order on every run. The block at grid (x,
-// y, z) owns the 128 x 128 tile (y, x) of dW on the tile G (WgradTileB in
-// bf16, WgradTileF32 in float32) and the rows [z rows_per_split, (z + 1)
-// rows_per_split), and writes its partial tile to dW + z w_stride (and the
-// first tile row its partial db, the float32 column sums of the staged dY,
-// to db + z b_stride). Grid (ceil(N / 128), ceil(Hin / 128), splits).
-template <typename G, typename T>
-__device__ __forceinline__ void weight_grad_mma(const T* X, const T* dY, float* dW, float* db,
-                                                int M, int Hin, int N, int rows_per_split,
-                                                size_t w_stride, size_t b_stride,
-                                                unsigned char* smem) {
+// y, z) owns the 128 x 128 tile (y, x) of dW on WgradTile<T> and the rows
+// [z rows_per_split, (z + 1) rows_per_split), and writes its partial tile to
+// dW + z w_stride (and the first tile row its partial db, the float32 column
+// sums of the staged dY, to db + z b_stride). Grid (ceil(N / 128), ceil(Hin
+// / 128), splits), WgradTile<T>::kSmemBytes of dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    weight_grad_kernel(const T* __restrict__ X, const T* __restrict__ dY, float* __restrict__ dW,
+                       float* __restrict__ db, int M, int Hin, int N, int rows_per_split,
+                       size_t w_stride, size_t b_stride) {
+  using G = WgradTile<T>;
+  extern __shared__ __align__(16) float smem_tile[];
   const int row0 = blockIdx.y * G::kRows, col0 = blockIdx.x * G::kCols;
   const int k_begin = blockIdx.z * rows_per_split;
   const int k_end = min(M, k_begin + rows_per_split);
   float* out = dW + blockIdx.z * w_stride;
   float* bsum = blockIdx.y == 0 && db != nullptr ? db + blockIdx.z * b_stride : nullptr;
   typename G::Acc acc;
-  G::run(X, dY, Hin, N, k_end, row0, col0, acc, smem, k_begin, bsum);
+  G::run(X, dY, Hin, N, k_end, row0, col0, acc, reinterpret_cast<unsigned char*>(smem_tile),
+         k_begin, bsum);
   G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
     const int h = row0 + r, n = col0 + c;
     if (h < Hin && n < N) store_pair(out, (size_t)h * N + n, a0, a1, n + 1 < N);
   });
-}
-
-// the bf16 weight gradient, WgradTileB::kSmemBytes of dynamic shared memory
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    weight_grad_kernel(const T* __restrict__ X, const T* __restrict__ dY, float* __restrict__ dW,
-                       float* __restrict__ db, int M, int Hin, int N, int rows_per_split,
-                       size_t w_stride, size_t b_stride) {
-  static_assert(on_tensor_cores<T>(), "float32 takes weight_grad_f32tc_kernel");
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  weight_grad_mma<WgradTileB>(X, dY, dW, db, M, Hin, N, rows_per_split, w_stride, b_stride,
-                              smem_bf16);
-}
-
-// the float32 weight gradient on the 3xTF32 tile, WgradTileF32::kSmemBytes
-// of dynamic shared memory (a template, T = float, as
-// gemm_bias_act_t_f32tc_kernel)
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    weight_grad_f32tc_kernel(const T* __restrict__ X, const T* __restrict__ dY,
-                             float* __restrict__ dW, float* __restrict__ db, int M, int Hin, int N,
-                             int rows_per_split, size_t w_stride, size_t b_stride) {
-  static_assert(std::is_same<T, float>::value, "the 3xTF32 tile takes float32");
-  extern __shared__ __align__(16) unsigned char smem_f32tc_w[];
-  weight_grad_mma<WgradTileF32>(X, dY, dW, db, M, Hin, N, rows_per_split, w_stride, b_stride,
-                                smem_f32tc_w);
 }
 
 namespace {  // a kernel that is no template gets one copy a translation unit
@@ -773,36 +568,25 @@ inline size_t weight_grad_workspace_floats(int splits, int Hin, int N) {
 // dW (Hin, N) and db (N,) of X (M, Hin) and dY (M, N), the rows cut into
 // `splits` ranges of whole 32-row stages (ws: a workspace of at least
 // ws_floats >= weight_grad_workspace_floats(splits, Hin, N) floats when
-// splits > 1): bf16 on WgradTileB, float32 on the 3xTF32 WgradTileF32.
+// splits > 1), on WgradTile<T>.
 template <typename T>
 inline cudaError_t launch_weight_grad(const T* X, const T* dY, float* dW, float* db, float* ws,
                                       size_t ws_floats, int splits, int M, int Hin, int N,
                                       cudaStream_t stream) {
-  static_assert(kTileKB == kTileKF && WgradTileB::kRows == WgradTileF32::kRows &&
-                    WgradTileB::kCols == WgradTileF32::kCols,
-                "one split rule and one grid for both tiles");
-  constexpr int BM = WgradTileB::kRows, BN = WgradTileB::kCols;
-  void (*kernel)(const T*, const T*, float*, float*, int, int, int, int, size_t, size_t);
-  size_t smem;
-  if constexpr (on_tensor_cores<T>()) {
-    kernel = weight_grad_kernel<T>;
-    smem = WgradTileB::kSmemBytes;
-  } else {
-    kernel = weight_grad_f32tc_kernel<T>;
-    smem = WgradTileF32::kSmemBytes;
-  }
+  using G = WgradTile<T>;
+  constexpr int BM = G::kRows, BN = G::kCols, smem = G::kSmemBytes;
   const int stages = max(1, (M + kTileKB - 1) / kTileKB);
   const int per_split = (stages + max(1, splits) - 1) / max(1, splits) * kTileKB;
   splits = max(1, (M + per_split - 1) / per_split);  // no empty range
   if (splits > 1 && (ws == nullptr || ws_floats < weight_grad_workspace_floats(splits, Hin, N)))
     return cudaErrorInvalidValue;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare(weight_grad_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const size_t w_stride = ((size_t)Hin * N + 3) / 4 * 4, b_stride = ((size_t)N + 3) / 4 * 4;
   const dim3 grid((N + BN - 1) / BN, (Hin + BM - 1) / BM, splits);
   float* wsb = db != nullptr && splits > 1 ? ws + splits * w_stride : db;
-  kernel<<<grid, kThreads, smem, stream>>>(X, dY, splits > 1 ? ws : dW, wsb, M, Hin, N, per_split,
-                                           w_stride, b_stride);
+  weight_grad_kernel<T><<<grid, kThreads, smem, stream>>>(X, dY, splits > 1 ? ws : dW, wsb, M,
+                                                          Hin, N, per_split, w_stride, b_stride);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
   const size_t total = (size_t)Hin * N + N;
   const int blocks = (int)min((total + kThreads - 1) / kThreads, (size_t)1056);

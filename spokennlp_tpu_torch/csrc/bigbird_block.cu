@@ -26,12 +26,12 @@
 // so the block is launches over the whole batch:
 //   1. sliding_count_kernel: n_valid of each sequence (the suffix-padding
 //      contract turns the mask into one count, as on the TPU);
-//   2. qkv_proj_kernel (common.cuh): q (scaled), k, v to (3, B, nh, L, hd);
+//   2. qkv_proj_kernel (bf16_gemm.cuh): q (scaled), k, v to (3, B, nh, L, hd);
 //   3. bigbird_rows_kernel: per (64 query rows, head, sequence) the key tiles
 //      of its pieces, two passes (max, then exp and P.V); a tile of a global
 //      block walks every real key instead, so the global rows need no launch
 //      of their own and no sparse pass that the TPU kernel overwrote;
-//   4. gemm_bias_residual_ln_kernel (common.cuh): ctx . Wo + bo + x and the
+//   4. gemm_bias_residual_ln_kernel (bf16_gemm.cuh): ctx . Wo + bo + x and the
 //      LayerNorm.
 // The random table (and its validity flags) lives on the device, built once
 // per pattern by the wrapper; a block reads its own entries.

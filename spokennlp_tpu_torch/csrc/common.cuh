@@ -1,13 +1,13 @@
 // Shared device code of the encoder kernels: dtype conversion, the
 // activation table and its derivative, warp sums, a counter-based Philox
-// generator for dropout, a SIMT tiled GEMM (either operand may be read
-// transposed), the q/k/v scatter and the row LayerNorm. The tile functions
-// built on them (the GEMM with bias and activation, the QKV projection, the
-// GEMM whose epilogue adds bias and residual and applies LayerNorm over whole
-// rows, the weight gradient that reduces over all rows) live in bf16_gemm.cuh
-// beside the tensor-core tile their bf16 instantiations run. The inference kernels' bodies are device functions of one tile or row
-// block, so the whole-stack kernel (stack_block.cu) runs the same code on the
-// same tiles.
+// generator for dropout, the q/k/v scatter and the row LayerNorm. The GEMM
+// tile functions built on them (the GEMM with bias and activation, the QKV
+// projection, the GEMM whose epilogue adds bias and residual and applies
+// LayerNorm over whole rows, the weight gradient that reduces over all rows)
+// live in bf16_gemm.cuh beside the tensor-core tiles they run, bf16's and
+// tf32x3_gemm.cuh's float32 one. The inference kernels' bodies are device
+// functions of one tile or row block, so the whole-stack kernel
+// (stack_block.cu) runs the same code on the same tiles.
 //
 // All arithmetic accumulates in float32. Element types are float or
 // __nv_bfloat16; a value stored in the element type is rounded exactly where
@@ -24,7 +24,6 @@
 namespace spk {
 
 constexpr int kThreads = 256;  // every kernel here runs 256 threads a block
-constexpr int kTileK = 16;     // depth of one GEMM k-step
 constexpr float kNegInf = -1e9f;  // additive mask, as the JAX kernels use
 
 // Allow `kernel` `smem` bytes of dynamic shared memory (above 48 KB a launch
@@ -144,66 +143,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One BM x BN output tile of C = A . B on 256 threads, A (M, K) and B (K, N)
-// stored row-major. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty +
-// 16 i and columns tx + 16 j of the tile: the strided ownership keeps
-// shared-memory reads free of bank conflicts (A reads broadcast, B reads are
-// consecutive). A is staged as As[k][m], padded by one, so the stores do not
-// conflict either; global reads walk the operand's contiguous index.
-// Out-of-range rows, columns and depths read as zero.
-template <int BM, int BN, typename T>
-struct TileGemm {
-  static_assert(BM % 16 == 0 && BN % 16 == 0, "tile must be a multiple of 16");
-  static constexpr int TM = BM / 16;
-  static constexpr int TN = BN / 16;
-  static constexpr int kAStride = BM + 1;
-  static constexpr int kBStride = BN;
-  static constexpr int kSmemFloats = kTileK * kAStride + kTileK * kBStride;
-
-  // A and B carry no __restrict__: the persistent stack kernel reads
-  // buffers that an earlier phase of the same launch wrote, which the
-  // read-only (non-coherent) load path must not serve.
-  __device__ static void run(const T* A, const T* B, int M, int N, int K, int row0, int col0,
-                             float (&acc)[TM][TN], float* __restrict__ smem) {
-    float* As = smem;
-    float* Bs = smem + kTileK * kAStride;
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < K; k0 += kTileK) {
-      for (int e = tid; e < BM * kTileK; e += kThreads) {
-        const int m = e / kTileK, k = e % kTileK;
-        const int gm = row0 + m, gk = k0 + k;
-        As[k * kAStride + m] = (gm < M && gk < K) ? to_f32(A[(size_t)gm * K + gk]) : 0.0f;
-      }
-      for (int e = tid; e < kTileK * BN; e += kThreads) {
-        const int k = e / BN, n = e % BN;
-        const int gk = k0 + k, gn = col0 + n;
-        Bs[k * kBStride + n] = (gk < K && gn < N) ? to_f32(B[(size_t)gk * N + gn]) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kTileK; ++k) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[k * kAStride + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[k * kBStride + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-};
-
 // Store one projected value of column n (slot s = n / HN, head, dim) and row
 // m = b * L + l into the (slots, B, nh, L, hd) layout.
 template <typename T>
@@ -216,16 +155,11 @@ __device__ __forceinline__ void store_qkv(T* qkv, float v, int m, int n, int B, 
   qkv[((((size_t)s * B + b) * nh + h) * L + l) * hd + d] = from_f32<T>(v);
 }
 
-// Rows of the SIMT residual-LayerNorm GEMM a block owns, and its column tile
-// (bf16_gemm.cuh has the tensor-core tile's).
-constexpr int kLnRows = 32;
-constexpr int kLnCols = 128;
-
 // The second half of the row-owning epilogue: rows [row0, row0 + kRows)
 // of `rows` (M, N) float32, which this block wrote, normalised into out, one
 // warp a row (two-pass mean and variance in float32), or copied when fuse_ln
 // is 0. The block's threads must have passed a __syncthreads() since writing.
-template <typename T, int kRows = kLnRows>
+template <typename T, int kRows>
 __device__ __forceinline__ void ln_rows(const float* rows, const float* ln_scale,
                                         const float* ln_bias, T* out, int M, int N, float eps,
                                         int fuse_ln, int row0) {

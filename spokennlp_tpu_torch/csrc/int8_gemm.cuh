@@ -108,8 +108,8 @@ constexpr int kRowBytes8 = kTileK8 + 16;  // a staged row, padded by 16 bytes
 static_assert(kTileK8 % 32 == 0 && kStages8 >= 2, "whole mma k-steps, a ring of two or more");
 // The output tiles: (kGemmRows8 x kGemmCols8) for the GEMM, 2b and
 // projection kernels; the residual-LayerNorm blocks own kLnRows8 whole rows
-// and walk them kLnCols8 columns at a time (their own constants: kLnRows and
-// kLnCols in common.cuh shape the float kernels).
+// and walk them kLnCols8 columns at a time (their own constants: kLnRowsB and
+// kLnColsB in bf16_gemm.cuh shape the float kernels).
 constexpr int kGemmRows8 = 128, kGemmCols8 = 128;
 constexpr int kLnRows8 = 64, kLnCols8 = 128;
 

@@ -83,9 +83,15 @@ extern "C" int spk_int8_tile_smem(int which) {
                     : which == 1 ? spk::LnTileI8::kSmemBytes : -1;
 }
 
-// The bf16 tensor-core tiles' dynamic shared memory (bf16_gemm.cuh): which 0
-// the GEMM and projection tile, 1 the residual-LayerNorm tile.
+// The float tensor-core tiles' dynamic shared memory (bf16_gemm.cuh): which 0
+// the bf16 GEMM and projection tile, 1 the bf16 residual-LayerNorm tile, 2
+// and 3 the float32 (3xTF32) ones; -1 for another value.
 extern "C" int spk_bf16_tile_smem(int which) {
-  return which == 0 ? spk::GemmTileB::kSmemBytes
-                    : which == 1 ? spk::LnTileB::kSmemBytes : -1;
+  switch (which) {
+    case 0: return spk::GemmTile<__nv_bfloat16>::kSmemBytes;
+    case 1: return spk::LnTile<__nv_bfloat16>::kSmemBytes;
+    case 2: return spk::GemmTile<float>::kSmemBytes;
+    case 3: return spk::LnTile<float>::kSmemBytes;
+    default: return -1;
+  }
 }

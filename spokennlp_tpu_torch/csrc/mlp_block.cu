@@ -11,7 +11,8 @@
 // bfloat16, plus 200 MB for the intermediate's round trip below: some 600
 // operations a byte, so it is bound by arithmetic. In bfloat16 both products
 // run on the tensor cores (bf16_gemm.cuh's mma.sync bf16 tile, float32
-// sums); in float32 they run SIMT kernels on the CUDA cores (float32 FMA).
+// sums), in float32 too (tf32x3_gemm.cuh's 3xTF32 tile on the TF32 tensor
+// cores, three TF32 products a pair of operands).
 // In W8A8 both products run on the tensor cores (int8_gemm.cuh's mma.sync s8
 // tile, weights handed over K-major): the tile's issue rate and barriers
 // bound them, and the float32 intermediate's round trip below (about 0.2 ms
@@ -25,7 +26,7 @@
 //   1. gemm_bias_act: act(x W1 + b1), stored in the element type as (M, I),
 //      which is where the TPU kernel rounds it before the second product;
 //   2. gemm_bias_residual_ln: h W2 + b2 + x and the LayerNorm, with one block
-//      owning whole rows (common.cuh).
+//      owning whole rows (bf16_gemm.cuh).
 // In W8A8 the TPU kernel row-quantises the intermediate in float32, before
 // any rounding, over all I columns. Those columns are spread over many
 // column tiles here, so a block that owned whole rows would have to hold

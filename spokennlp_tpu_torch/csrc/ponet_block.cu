@@ -18,7 +18,7 @@
 //   - LMP: the max over offsets -w/2 .. w-1-w/2 with pad rows at -1e9;
 //   - mixed = where(mask, (ga + smp) + lmp, 0) in the element type;
 //   - the out projection (W8A8: mixed row-quantised), + bias, + x, LayerNorm,
-//     all in float32 (common.cuh's and int8_gemm.cuh's residual-LN epilogue).
+//     all in float32 (bf16_gemm.cuh's and int8_gemm.cuh's residual-LN epilogue).
 //
 // What bounds it here. At PoNet-base (B=8, L=4096, H=768) the block is six
 // (M, H) x (H, H) products, 232 GFLOP, against about 100 MB of input and
@@ -52,64 +52,13 @@
 //      its run is finished, and written once;
 //   5. the out projection with the residual-LayerNorm epilogue of kernels 1
 //      and 2 (W8A8: one row-quant launch of mixed first).
-// Steps 1 and 5 in float32 take the launchers below, on tf32x3_gemm.cuh's
-// tile.
+// Steps 1 and 5 take bf16_gemm.cuh's launchers in both float modes (float32
+// on tf32x3_gemm.cuh's tile).
 // Nothing is atomic: every sum is taken in the same order on every run.
 #include "int8_gemm.cuh"
-#include "tf32x3_gemm.cuh"
 
 namespace spk {
 namespace {
-
-// out = act(A . W + bias) (M, N) float32, W (K, N); grid (ceil(N / 128),
-// ceil(M / 128)), GemmTileF32::kSmemBytes of dynamic shared memory
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_bias_act_f32tc_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                               const float* __restrict__ bias, float* __restrict__ out, int M,
-                               int N, int K, int act) {
-  extern __shared__ __align__(16) unsigned char smem_f32tc[];
-  gemm_bias_act_mma<GemmTileF32, float>(A, W, bias, out, M, N, K, act, nullptr,
-                                        blockIdx.y * GemmTileF32::kRows,
-                                        blockIdx.x * GemmTileF32::kCols, smem_f32tc);
-}
-
-// out = LayerNorm(resid + A . W + bias) (or A . W + bias when fuse_ln is 0)
-// for 64 whole rows a block; grid (ceil(M / 64)), LnTileF32::kSmemBytes
-__global__ void __launch_bounds__(kThreads, 2)
-    residual_ln_f32tc_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                             const float* __restrict__ bias, const float* __restrict__ resid,
-                             const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-                             float* rows, float* __restrict__ out, int M, int N, int K, float eps,
-                             int fuse_ln) {
-  extern __shared__ __align__(16) unsigned char smem_f32tc_ln[];
-  residual_ln_mma<LnTileF32, float>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps,
-                                    fuse_ln, blockIdx.x * LnTileF32::kRows, smem_f32tc_ln);
-}
-
-// launch_gemm (bias, activation, no gate) for kernel 9's float32 products
-cudaError_t launch_gemm_f32tc(const float* A, const float* W, const float* bias, float* out,
-                              int M, int N, int K, int act, cudaStream_t stream) {
-  using G = GemmTileF32;
-  const cudaError_t err = prepare(gemm_bias_act_f32tc_kernel, G::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + G::kCols - 1) / G::kCols, (M + G::kRows - 1) / G::kRows);
-  gemm_bias_act_f32tc_kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(A, W, bias, out, M, N, K,
-                                                                       act);
-  return cudaGetLastError();
-}
-
-// launch_residual_ln for kernel 9's float32 out projection
-cudaError_t launch_residual_ln_f32tc(const float* A, const float* W, const float* bias,
-                                     const float* resid, const float* ln_scale,
-                                     const float* ln_bias, float* rows, float* out, int M, int N,
-                                     int K, float eps, int fuse_ln, cudaStream_t stream) {
-  using G = LnTileF32;
-  const cudaError_t err = prepare(residual_ln_f32tc_kernel, G::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  residual_ln_f32tc_kernel<<<(M + G::kRows - 1) / G::kRows, kThreads, G::kSmemBytes, stream>>>(
-      A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, fuse_ln);
-  return cudaGetLastError();
-}
 
 constexpr int kGaRows = 128;   // rows of one partial column sum of GA
 constexpr int kSmpRows = 64;   // rows of one SMP tile
@@ -403,9 +352,6 @@ cudaError_t ponet_block(int quantized, const T* x, const int* mask, const int* s
     if (err != cudaSuccess) return err;
     err = launch_gemm_i8<T>(s.x8, s.scales, static_cast<const int8_t*>(wp), swp, bp, s.proj, M,
                             5 * H, H, kActNone, stream);
-  } else if constexpr (std::is_same<T, float>::value) {
-    err = launch_gemm_f32tc(x, static_cast<const float*>(wp), bp, s.proj, M, 5 * H, H, kActNone,
-                            stream);
   } else {
     err = launch_gemm<T>(x, static_cast<const T*>(wp), bp, s.proj, M, 5 * H, H, kActNone, nullptr,
                          stream);
@@ -440,13 +386,8 @@ cudaError_t ponet_block(int quantized, const T* x, const int* mask, const int* s
                                     ln_scale, ln_bias, s.rows, out, M, H, H, 1, eps, fuse_ln,
                                     stream);
   }
-  if constexpr (std::is_same<T, float>::value) {
-    return launch_residual_ln_f32tc(s.mixed, static_cast<const float*>(wo), bo, x, ln_scale,
-                                    ln_bias, s.rows, out, M, H, H, eps, fuse_ln, stream);
-  } else {
-    return launch_residual_ln<T>(s.mixed, static_cast<const T*>(wo), bo, x, ln_scale, ln_bias,
-                                 s.rows, out, M, H, H, eps, fuse_ln, stream);
-  }
+  return launch_residual_ln<T>(s.mixed, static_cast<const T*>(wo), bo, x, ln_scale, ln_bias,
+                               s.rows, out, M, H, H, eps, fuse_ln, stream);
 }
 
 template <typename T>
@@ -505,16 +446,4 @@ extern "C" int spk_ponet_block(int dtype, int quantized, const void* x, const vo
                                                  mixed, first, last, flags, x8, scales, rows, out,
                                                  B, L, H, window, fuse_ln, sm_scale, eps, stream);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// out (M, N) = A (M, K) . W (K, N) + bias (N,), float32, on kernel 9's
-// float32 product tile (tf32x3_gemm.cuh, launch_gemm_f32tc) alone; no model
-// path calls it.
-// Returns the first CUDA error, or 0.
-extern "C" int spk_gemm_f32tc(const void* A, const void* W, const void* bias, void* out, int M,
-                              int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(spk::launch_gemm_f32tc(
-      static_cast<const float*>(A), static_cast<const float*>(W), static_cast<const float*>(bias),
-      static_cast<float*>(out), M, N, K, spk::kActNone, static_cast<cudaStream_t>(stream)));
 }

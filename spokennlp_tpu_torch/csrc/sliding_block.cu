@@ -27,7 +27,7 @@
 //   1. sliding_count_kernel: n_valid and n_glob of each sequence (the
 //      suffix-padding / prefix-globals contract turns both masks into two
 //      counts, as on the TPU);
-//   2. qkv_proj_kernel (common.cuh): local q (scaled), k, v, and with global
+//   2. qkv_proj_kernel (bf16_gemm.cuh): local q (scaled), k, v, and with global
 //      rows the global k, v over all rows, to (slots, B, nh, L, hd);
 //   3. band_rows_kernel: per (64 query rows, head, sequence) the 64 + 2C
 //      band keys in 64-key tiles (tiles with no real, non-global key are
@@ -36,7 +36,7 @@
 //   4. global_rows_kernel: per (16 global rows, head, sequence) their
 //      query projected from x and attention over all real keys, written
 //      over the local rows; only tiles that hold a row g < n_glob run;
-//   5. gemm_bias_residual_ln_kernel (common.cuh): ctx . Wo + bo + x and the
+//   5. gemm_bias_residual_ln_kernel (bf16_gemm.cuh): ctx . Wo + bo + x and the
 //      LayerNorm.
 //
 // W8A8 (the TPU kernel's quantized=True). The local q, k, v, the global k,

@@ -10,13 +10,13 @@
 //
 // What bounds it here. Its work is the two blocks' work times NL (about 3.1
 // TFLOP for 12 BERT-base layers at B=32, L=512), so it is bound by
-// arithmetic, as they are: the bf16 attention core, the bf16 GEMMs and the
+// arithmetic, as they are: the bf16 attention core, the float GEMMs and the
 // W8A8 products run on the tensor cores (attention_core.cuh's bf16 mma.sync
-// core, bf16_gemm.cuh's bf16 and int8_gemm.cuh's s8 mma.sync tiles), the
-// float32 GEMMs and core on the CUDA cores. What the TPU kernel
-// saved is what a stack of launches costs besides: 2-5 launches a block,
-// 24-108 a forward, each with a ramp-up and a tail where SMs idle, and the
-// hidden state's trips through device memory between them.
+// core; bf16_gemm.cuh's bf16 tile, tf32x3_gemm.cuh's 3xTF32 tile in float32
+// and int8_gemm.cuh's s8 mma.sync tile), the float32 core on the CUDA cores.
+// What the TPU kernel saved is what a stack of launches costs besides: 2-5
+// launches a block, 24-108 a forward, each with a ramp-up and a tail where
+// SMs idle, and the hidden state's trips through device memory between them.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept one sequence's hidden state in VMEM and walked the layers in a
@@ -79,40 +79,42 @@ struct StackArgs {
 };
 
 // The dynamic shared memory of a block: the largest of its phases' needs,
-// the float tiles (bf16: the tensor-core tiles' rings) or (W8A8) the int8
-// tiles' rings, and the attention core.
+// the float tiles' rings or (W8A8) the int8 tiles' rings, and the attention
+// core.
 template <typename T, int HD, bool kQuant>
 constexpr size_t stack_smem_bytes() {
-  constexpr size_t gemm = kQuant ? GemmTileI8::kSmemBytes : gemm_smem_bytes<T>();
-  constexpr size_t ln = kQuant ? LnTileI8::kSmemBytes : ln_smem_bytes<T>();
+  constexpr size_t gemm = kQuant ? GemmTileI8::kSmemBytes : GemmTile<T>::kSmemBytes;
+  constexpr size_t ln = kQuant ? LnTileI8::kSmemBytes : LnTile<T>::kSmemBytes;
   constexpr size_t core = attn_core_smem_bytes<T, HD>();
   constexpr size_t a = gemm > ln ? gemm : ln;
   return a > core ? a : core;
 }
 
-// The bf16 stack's tensor-core GEMM items, kept out of line as its core item
-// is: inlined, their registers would add to the whole kernel's pressure. The
-// float32 stack calls the SIMT tile functions inline, as before.
-__device__ __noinline__ void stack_qkv_item(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                                            const float* bias, __nv_bfloat16* qkv, int B, int L,
-                                            int H, int nh, int hd, float sm_scale, int row0,
-                                            int col0, float* smem) {
-  qkv_proj_tile<__nv_bfloat16>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, 3, row0, col0, smem);
+// The float stacks' tensor-core GEMM items (bf16, and float32 on the 3xTF32
+// tile), kept out of line as the bf16 core item is: inlined, their
+// registers would add to the whole kernel's pressure.
+template <typename T>
+__device__ __noinline__ void stack_qkv_item(const T* x, const T* w, const float* bias, T* qkv,
+                                            int B, int L, int H, int nh, int hd, float sm_scale,
+                                            int row0, int col0, float* smem) {
+  qkv_proj_tile<T>(x, w, bias, qkv, B, L, H, nh, hd, sm_scale, 3, row0, col0, smem);
 }
 
-__device__ __noinline__ void stack_gemm_act_item(const __nv_bfloat16* A,
-                                                 const __nv_bfloat16* W, const float* bias,
-                                                 __nv_bfloat16* out, int M, int N, int K,
-                                                 int act, int row0, int col0, float* smem) {
-  gemm_bias_act_tile<__nv_bfloat16>(A, W, bias, out, M, N, K, act, nullptr, row0, col0, smem);
+template <typename T>
+__device__ __noinline__ void stack_gemm_act_item(const T* A, const T* W, const float* bias, T* out,
+                                                 int M, int N, int K, int act, int row0,
+                                                 int col0, float* smem) {
+  gemm_bias_act_tile<T>(A, W, bias, out, M, N, K, act, nullptr, row0, col0, smem);
 }
 
-__device__ __noinline__ void stack_residual_ln_item(
-    const __nv_bfloat16* A, const __nv_bfloat16* W, const float* bias,
-    const __nv_bfloat16* resid, const float* ln_scale, const float* ln_bias, float* rows,
-    __nv_bfloat16* out, int M, int N, int K, float eps, int row0, float* smem) {
-  residual_ln_rowblock<__nv_bfloat16>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K,
-                                      eps, 1, row0, smem);
+template <typename T>
+__device__ __noinline__ void stack_residual_ln_item(const T* A, const T* W, const float* bias,
+                                                    const T* resid, const float* ln_scale,
+                                                    const float* ln_bias, float* rows, T* out,
+                                                    int M, int N, int K, float eps, int row0,
+                                                    float* smem) {
+  residual_ln_rowblock<T>(A, W, bias, resid, ln_scale, ln_bias, rows, out, M, N, K, eps, 1, row0,
+                          smem);
 }
 
 // One bf16 attention-core item of the stack, kept out of line: inlined, the
@@ -138,8 +140,8 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
   constexpr int kWarps = kThreads / 32;
   const int warp0 = blk * kWarps + threadIdx.x / 32, nwarps = nblk * kWarps;
   constexpr bool kF32 = std::is_same<T, float>::value;
-  // the float tiles' counts (bf16: the tensor-core tiles')
-  constexpr int TR = gemm_tile_rows<T>(), TC = gemm_tile_cols<T>(), LR = ln_tile_rows<T>();
+  // the float tiles' counts
+  constexpr int TR = kGemmRowsB, TC = kGemmColsB, LR = kLnRowsB;
   const int mt = (M + TR - 1) / TR, rb = (M + LR - 1) / LR;
   // the int8 tiles' counts
   const int mt8 = (M + kGemmRows8 - 1) / kGemmRows8, rb8 = (M + kLnRows8 - 1) / kLnRows8;
@@ -175,15 +177,9 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
                             (t % qt8) * kGemmCols8, smem8);
     } else {
       const T* w = static_cast<const T*>(a.wqkv) + lq;
-      for (int t = blk; t < mt * qt; t += nblk) {
-        if constexpr (kF32) {
-          qkv_proj_tile<T>(x, w, bqkv, qkv, B, L, H, nh, HD, a.sm_scale, 3, (t / qt) * TR,
-                           (t % qt) * TC, smem);
-        } else {
-          stack_qkv_item(x, w, bqkv, qkv, B, L, H, nh, HD, a.sm_scale, (t / qt) * TR,
-                         (t % qt) * TC, smem);
-        }
-      }
+      for (int t = blk; t < mt * qt; t += nblk)
+        stack_qkv_item<T>(x, w, bqkv, qkv, B, L, H, nh, HD, a.sm_scale, (t / qt) * TR,
+                          (t % qt) * TC, smem);
     }
     grid.sync();
     constexpr int kRows = core_rows<T>();  // the query tile of kernel 1's core launch
@@ -206,15 +202,9 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
                                    ln1b, a.rows, h1, M, H, HN, 1, a.eps, 1, t * kLnRows8, smem8);
     } else {
       const T* w = static_cast<const T*>(a.wo) + lo;
-      for (int t = blk; t < rb; t += nblk) {
-        if constexpr (kF32) {
-          residual_ln_rowblock<T>(ctx, w, bo, x, ln1s, ln1b, a.rows, h1, M, H, HN, a.eps, 1,
-                                  t * LR, smem);
-        } else {
-          stack_residual_ln_item(ctx, w, bo, x, ln1s, ln1b, a.rows, h1, M, H, HN, a.eps, t * LR,
-                                 smem);
-        }
-      }
+      for (int t = blk; t < rb; t += nblk)
+        stack_residual_ln_item<T>(ctx, w, bo, x, ln1s, ln1b, a.rows, h1, M, H, HN, a.eps, t * LR,
+                                  smem);
     }
     grid.sync();
 
@@ -239,45 +229,26 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
     } else {
       T* mid = static_cast<T*>(a.mid);
       const T* w1 = static_cast<const T*>(a.w1) + lm;
-      for (int t = blk; t < mt * it; t += nblk) {
-        if constexpr (kF32) {
-          gemm_bias_act_tile<T>(h1, w1, b1, mid, M, I, H, a.act, nullptr, (t / it) * TR,
-                                (t % it) * TC, smem);
-        } else {
-          stack_gemm_act_item(h1, w1, b1, mid, M, I, H, a.act, (t / it) * TR, (t % it) * TC,
-                              smem);
-        }
-      }
+      for (int t = blk; t < mt * it; t += nblk)
+        stack_gemm_act_item<T>(h1, w1, b1, mid, M, I, H, a.act, (t / it) * TR, (t % it) * TC,
+                               smem);
       grid.sync();
       const T* w2 = static_cast<const T*>(a.w2) + lm;
-      for (int t = blk; t < rb; t += nblk) {
-        if constexpr (kF32) {
-          residual_ln_rowblock<T>(mid, w2, b2, h1, ln2s, ln2b, a.rows, out, M, H, I, a.eps, 1,
+      for (int t = blk; t < rb; t += nblk)
+        stack_residual_ln_item<T>(mid, w2, b2, h1, ln2s, ln2b, a.rows, out, M, H, I, a.eps,
                                   t * LR, smem);
-        } else {
-          stack_residual_ln_item(mid, w2, b2, h1, ln2s, ln2b, a.rows, out, M, H, I, a.eps,
-                                 t * LR, smem);
-        }
-      }
     }
     grid.sync();
   }
 }
 
-// The float entry's least blocks an SM: bf16 two, as the bf16 core runs
-// alone (128 registers a thread; unbounded, this entry takes 234-248 and one
-// block an SM); float32 none (0 leaves ptxas as without the argument: 128
-// registers at head dim 64 and two blocks an SM, as before the bf16 core
-// moved; an explicit 1 makes it take 168, one block an SM and 1.55 times as
-// long; PERF.md)
-template <typename T>
-constexpr int stack_min_blocks() {
-  return std::is_same<T, float>::value ? 0 : 2;
-}
-
+// The float entry at two blocks an SM, as its tiles run alone (128
+// registers a thread): in bf16 unbounded it takes 234-248 and one block an
+// SM; in float32 the 3xTF32 tiles' rings (105 KB) leave room for two blocks,
+// which the bound keeps: at one (248 registers, no spill) the float32
+// stack ran 6 % slower (PERF.md).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, stack_min_blocks<T>())
-    encoder_stack_kernel(StackArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) encoder_stack_kernel(StackArgs a) {
   stack_layers<T, HD, false>(a);
 }
 

@@ -1,21 +1,19 @@
 // The float32 products on the tensor cores: TileGemmTf32x3, a float32 GEMM
 // tile on mma.sync m16n8k8 TF32 with float32 sums, three products a fragment
-// pair (3xTF32). Kernel 9's float32 mode takes it for its five projections
-// and its out projection (ponet_block.cu's launch_gemm_f32tc and
-// launch_residual_ln_f32tc); the float32 training backwards of rows 10-13
-// take it for their products with a weight read transposed (dctx = g Wo^T,
-// dx = dproj W^T, the MLP's dpre = (g W2^T) act' and dx = dpre W1^T) and
-// their weight gradients (dW = X^T dY), through bf16_gemm.cuh's launch_gemm
-// <float, true> and launch_weight_grad<float> (gemm_bias_act_t_f32tc_kernel,
-// weight_grad_f32tc_kernel). Every other float32 product, the forwards' and
-// the ones the backwards recompute, keeps common.cuh's SIMT tile.
+// pair (3xTF32). bf16_gemm.cuh takes it for every float32 product of its
+// tile functions, kernels and launchers (TileFor): the forward products of
+// kernels 1-3, 7-9 and of rows 10-13's training forwards, the products their
+// backwards recompute, the backwards' products with a weight read transposed
+// (dctx = g Wo^T, dx = dproj W^T, the MLP's dpre = (g W2^T) act' and dx =
+// dpre W1^T) and their weight gradients (dW = X^T dY). The float32 attention
+// cores stay on the CUDA cores.
 //
-// Replaces no TPU kernel of its own: it is the product tile of kernel 9's
-// float32 mode (spokennlp_tpu/ops/pallas/ponet_block.py, the jnp.dot of
-// _ponet_block_kernel in float32) and of the float32 backwards of
-// spokennlp_tpu/ops/pallas/train_blocks.py (_attention_train_bwd_kernel,
-// _mlp_train_bwd_kernel), train_sliding.py and train_bigbird.py, which ran
-// on the CUDA cores.
+// Replaces no TPU kernel of its own: it is the product tile of the float32
+// modes of the TPU kernels under spokennlp_tpu/ops/pallas/ that this port's
+// float32 GEMMs replace (the jnp.dot of attention_block.py, mlp_block.py,
+// stack_block.py, sliding_block.py, bigbird_block_kernel.py, ponet_block.py,
+// train_blocks.py, train_sliding.py and train_bigbird.py in float32), which
+// ran on the CUDA cores.
 //
 // The split. TF32 keeps 10 of float32's 23 mantissa bits, so one TF32
 // product of float32 operands errs by about 5e-4 of each term. Each operand
@@ -26,11 +24,11 @@
 // out), each TF32 x TF32 product exact in float32. That keeps about
 // float32's accuracy (2^-21 or so of a term) at a third of the TF32 tensor
 // cores' rate: 495 / 3 = 165 TFLOP/s against 67 on the CUDA cores. Bias,
-// activation, gate, residual and LayerNorm are float32 as on the SIMT tile
-// (bf16_gemm.cuh's gemm_bias_act_mma and residual_ln_mma epilogues); a
-// weight gradient's bias gradient is the plain float32 column sum of the
-// staged dY, never a TF32 product. Only the products' precision and the
-// order of the float32 sums change.
+// activation, gate, residual and LayerNorm are float32 (bf16_gemm.cuh's
+// epilogues, shared with the bf16 tile); a weight gradient's bias gradient is
+// the plain float32 column sum of the staged dY, never a TF32 product. The
+// tensor cores' float32 sums truncate, so the tile's error grows with the
+// depth: about 3e-5 of a product in norm at 4608.
 //
 // The tile. It multiplies A (M, K) by B (K, N) on 256 threads: 8 warps
 // standing 2 x 4, each owning a (BM / 2) x (BN / 4) sub-tile of m16 x n8
@@ -56,11 +54,11 @@
 // each A fragment once for its n8 tiles.
 //
 // What bounds it. Kernel 9 at PoNet-base (B=8, L=4096, H=768) does 232 GFLOP
-// of products: 1.41 ms at 165 TFLOP/s; row 11's backward at BERT-base (M =
-// 16384, H=768, I=3072) moves four products of 77.3 GFLOP onto it: 1.87 ms.
-// mma.sync reaches part of the tensor cores' rate (wgmma takes TF32 only
-// from K-major operands in shared memory, which needs a transposed weight
-// copy: later work).
+// of products: 1.41 ms at 165 TFLOP/s; kernel 2 at BERT-base (M = 16384,
+// H=768, I=3072) 155 GFLOP: 0.94 ms; row 11's backward five products of 387
+// GFLOP: 2.34 ms. mma.sync reaches part of the tensor cores' rate (wgmma
+// takes TF32 only from K-major operands in shared memory, which needs a
+// transposed weight copy: later work).
 #pragma once
 
 #include "ptx.cuh"
@@ -293,12 +291,5 @@ struct TileGemmTf32x3 {
     }
   }
 };
-
-using GemmTileF32 = TileGemmTf32x3<128, 128>;
-using LnTileF32 = TileGemmTf32x3<64, 128>;
-// the float32 backwards' tiles: a weight read transposed, and the weight
-// gradient X^T . dY
-using GemmTileTransBF32 = TileGemmTf32x3<128, 128, false, true>;
-using WgradTileF32 = TileGemmTf32x3<128, 128, true, false>;
 
 }  // namespace spk

@@ -42,10 +42,9 @@
 // pairs: the mask, the exponent and its roundings, a Philox-4x32-10 draw.
 // float32 runs the three cores' SIMT bodies (256 threads, float32 copies of
 // the tiles, attention_tiles.cuh), unchanged.
-// In float32 the backward's products with a weight read transposed and its
-// weight gradients run tf32x3_gemm.cuh's 3xTF32 tensor-core tile through the
-// same launchers (gemm_bias_act_t_f32tc_kernel, weight_grad_f32tc_kernel);
-// the projections it recomputes stay on the forward's SIMT tile, so it
+// In float32 every product, forward and backward, runs tf32x3_gemm.cuh's
+// 3xTF32 tensor-core tile through the same launchers; the projections the
+// backward recomputes take the forward's kernel and tile, so it
 // differentiates the forward's own values.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
@@ -53,11 +52,11 @@
 // of one head in VMEM, and summed the weight gradients over the sequential
 // batch grid in its output buffers. Hopper blocks run in parallel and carry
 // nothing from one to the next, so the work is split:
-//   forward  1. qkv_proj_kernel (common.cuh), unscaled q, to (3, B, nh, L, hd);
+//   forward  1. qkv_proj_kernel (bf16_gemm.cuh), unscaled q, to (3, B, nh, L, hd);
 //            2. attn_rows_kernel: one block per (64 query rows, head,
 //               sequence), two passes over 64-key tiles (the row's true
 //               maximum first), writes ctx (B, L, Hn);
-//            3. ctx . Wo + bo (gemm_bias_act_kernel, common.cuh).
+//            3. ctx . Wo + bo (gemm_bias_act_kernel, bf16_gemm.cuh).
 //   backward 1. q, k, v recomputed; dctx = g . Wo^T rounded;
 //            2. attn_rows_kernel again, now also writing the row statistics
 //               m, D and rowsum(dp p_eff) per query row, and ctx for dWo;
@@ -655,7 +654,7 @@ cudaError_t launch_grad_cores(int which, const T* qkv_buf, const int32_t* seg,
                               const int32_t* seed, const T* dctx, const float* stats, T* ds_buf,
                               T* dqkv, int B, int L, int nh, int hd, float sm_scale, uint32_t thr,
                               float keep_prob, cudaStream_t stream) {
-  if (on_tensor_cores<T>() && ds_buf == nullptr) return cudaErrorInvalidValue;
+  if (std::is_same<T, __nv_bfloat16>::value && ds_buf == nullptr) return cudaErrorInvalidValue;
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     const dim3 grid((L + kTile - 1) / kTile, nh, B);

@@ -33,10 +33,9 @@
 // (S, dP and P.V on mma.sync; the mask, the rounded exponent and the Philox
 // draw on the fragments); float32 runs every attention kernel on the CUDA
 // cores.
-// In float32 the backward's products with a weight read transposed and its
-// weight gradients run tf32x3_gemm.cuh's 3xTF32 tensor-core tile through the
-// same launchers (gemm_bias_act_t_f32tc_kernel, weight_grad_f32tc_kernel);
-// the projections it recomputes stay on the forward's SIMT tile, so it
+// In float32 every product, forward and backward, runs tf32x3_gemm.cuh's
+// 3xTF32 tensor-core tile through the same launchers; the projections the
+// backward recomputes take the forward's kernel and tile, so it
 // differentiates the forward's own values.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
@@ -45,7 +44,7 @@
 // and summed the weight gradients over the sequential batch grid. Hopper
 // blocks run in parallel, so every sum has one owner:
 //   forward  the launches of bigbird_block.cu with dropout, then ctx . Wo +
-//            bo (gemm_bias_act_kernel, common.cuh);
+//            bo (gemm_bias_act_kernel, bf16_gemm.cuh);
 //   backward 1. counts and projections recomputed; dctx = g . Wo^T rounded;
 //            2. bigbird_rows_kernel<kGrad>: ctx again (for dWo) and the row
 //               statistics (m, D, rowsum(dp p_eff)) of every row, the global

@@ -11,16 +11,13 @@
 // What bounds it here. At BERT-base (M = 32 * 512 rows, H=768, I=3072) the
 // forward is 155 GFLOP and the backward 309 GFLOP plus the recomputed
 // forward product, against 30 MB (forward) and 60 MB (backward) of inputs,
-// weights and outputs in bf16: bound by arithmetic. In bf16 every product,
-// forward and backward, runs bf16_gemm.cuh's tensor-core tile: the forward's
-// two, the recomputed x W1 with its act' epilogue, the two products with a
-// weight read transposed (its (N, K) rows are the mma's column fragments)
-// and the two weight gradients, whose sums over the rows are split into
-// fixed row ranges summed in order. In float32 the forward's products and
-// the recomputed x W1 keep the SIMT tile on the CUDA cores, unchanged, and
-// the backward's two products with a weight read transposed and its two
-// weight gradients run tf32x3_gemm.cuh's 3xTF32 tensor-core tile through the
-// same launchers, with the same row ranges.
+// weights and outputs in bf16: bound by arithmetic. Every product, forward
+// and backward, runs on the tensor cores, on bf16_gemm.cuh's tile of the
+// element type (bf16's mma.sync tile, or tf32x3_gemm.cuh's 3xTF32 tile in
+// float32): the forward's two, the recomputed x W1 with its act' epilogue,
+// the two products with a weight read transposed (its (N, K) rows are the
+// mma's column fragments) and the two weight gradients, whose sums over the
+// rows are split into fixed row ranges summed in order.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // kept both weight matrices in VMEM, the (rows, I) intermediate in registers,
@@ -48,51 +45,30 @@ namespace spk {
 namespace {
 
 // pre = x W1 + b1; h = act(pre) stored rounded in T, hgrad = act'(pre) in
-// float32. Grid (ceil(I / gemm_tile_cols), ceil(M / gemm_tile_rows)); bf16
-// takes gemm_smem_bytes of dynamic shared memory.
+// float32: the forward's first product (gemm_bias_act_kernel) on the same
+// tile, in the same k-order and with the same bias sum, so h has the
+// forward's bits. Grid (ceil(I / kGemmColsB), ceil(M / kGemmRowsB)),
+// GemmTile<T>::kSmemBytes of dynamic shared memory.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, gemm_min_blocks<T>())
+__global__ void __launch_bounds__(kThreads, 2)
     act_and_grad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                         const float* __restrict__ b1, T* __restrict__ h,
                         float* __restrict__ hgrad, int M, int H, int I, int act) {
-  if constexpr (on_tensor_cores<T>()) {
-    extern __shared__ __align__(16) unsigned char smem_bf16[];
-    using G = GemmTileB;
-    const int row0 = blockIdx.y * kGemmRowsB, col0 = blockIdx.x * kGemmColsB;
-    G::Acc acc;
-    G::run(x, w1, M, I, H, row0, col0, acc, smem_bf16);
-    G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
-      const int m = row0 + r, n = col0 + c;
-      if (m >= M || n >= I) return;
-      const bool both = n + 1 < I;
-      float h0, d0, h1 = 0.0f, d1 = 0.0f;
-      activation_and_grad(a0 + b1[n], act, h0, d0);
-      if (both) activation_and_grad(a1 + b1[n + 1], act, h1, d1);
-      store_pair(h, (size_t)m * I + n, h0, h1, both);
-      store_pair(hgrad, (size_t)m * I + n, d0, d1, both);
-    });
-  } else {
-    using G = TileGemm<64, 64, T>;
-    __shared__ float smem[G::kSmemFloats];
-    const int row0 = blockIdx.y * 64, col0 = blockIdx.x * 64;
-    float acc[G::TM][G::TN];
-    G::run(x, w1, M, I, H, row0, col0, acc, smem);
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      const int m = row0 + ty + 16 * i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < G::TN; ++j) {
-        const int n = col0 + tx + 16 * j;
-        if (n >= I) continue;
-        float hv, dh;
-        activation_and_grad(acc[i][j] + b1[n], act, hv, dh);
-        h[(size_t)m * I + n] = from_f32<T>(hv);
-        hgrad[(size_t)m * I + n] = dh;
-      }
-    }
-  }
+  using G = GemmTile<T>;
+  extern __shared__ __align__(16) unsigned char smem_act[];
+  const int row0 = blockIdx.y * G::kRows, col0 = blockIdx.x * G::kCols;
+  typename G::Acc acc;
+  G::run(x, w1, M, I, H, row0, col0, acc, smem_act);
+  G::for_pairs(acc, [&](int r, int c, float a0, float a1) {
+    const int m = row0 + r, n = col0 + c;
+    if (m >= M || n >= I) return;
+    const bool both = n + 1 < I;
+    float h0, d0, h1 = 0.0f, d1 = 0.0f;
+    activation_and_grad(a0 + b1[n], act, h0, d0);
+    if (both) activation_and_grad(a1 + b1[n + 1], act, h1, d1);
+    store_pair(h, (size_t)m * I + n, h0, h1, both);
+    store_pair(hgrad, (size_t)m * I + n, d0, d1, both);
+  });
 }
 
 template <typename T>
@@ -108,13 +84,12 @@ cudaError_t mlp_train_bwd(const T* x, const T* w1, const float* b1, const T* w2,
                           T* h_buf, float* hgrad_buf, T* dpre_buf, T* dx, float* dw1, float* db1,
                           float* dw2, float* db2, float* ws, size_t ws_floats, int splits, int M,
                           int H, int I, int act, cudaStream_t stream) {
-  constexpr int BM = gemm_tile_rows<T>(), BN = gemm_tile_cols<T>();
-  size_t smem = 0;
-  cudaError_t err = tile_smem<T>(act_and_grad_kernel<T>, gemm_smem_bytes<T>(), &smem);
+  using G = GemmTile<T>;
+  cudaError_t err = prepare(act_and_grad_kernel<T>, G::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((I + BN - 1) / BN, (M + BM - 1) / BM);
-  act_and_grad_kernel<T><<<grid, kThreads, smem, stream>>>(x, w1, b1, h_buf, hgrad_buf, M, H, I,
-                                                           act);
+  const dim3 grid((I + G::kCols - 1) / G::kCols, (M + G::kRows - 1) / G::kRows);
+  act_and_grad_kernel<T><<<grid, kThreads, G::kSmemBytes, stream>>>(x, w1, b1, h_buf, hgrad_buf,
+                                                                    M, H, I, act);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // dpre = (g W2^T) act'(pre), rounded (W2 is (I, H): read transposed)
@@ -214,27 +189,48 @@ extern "C" int spk_weight_grad(int dtype, const void* x, const void* dy, void* d
   return static_cast<int>(err);
 }
 
-// The training backwards' product with a weight read transposed alone, as
-// they launch it (launch_gemm<T, true>, bf16_gemm.cuh): out (M, N) = (A (M,
-// K) . W^T) * gate of W (N, K), in the element type, gate (M, N) float32 or
-// null. Returns the first CUDA error, or 0.
-extern "C" int spk_gemm_transposed(int dtype, const void* A, const void* W, const void* gate,
-                                   void* out, int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// One forward tile kernel of bf16_gemm.cuh alone, on the tile of its element
+// type (dtype: 0 = float32, 1 = bfloat16 of A, W, resid and out); no model
+// path calls it. which 0: out (M, N) = act(A (M, K) . W (K, N) + bias) *
+// gate (gemm_bias_act_kernel; bias (N,) and gate (M, N) float32 may be
+// null). 1: out (M, N) = LayerNorm(resid + A . W + bias) * ln_scale + ln_bias
+// (gemm_bias_residual_ln_kernel; rows (M, N) float32 scratch), or A . W +
+// bias when ln_scale and resid are null. 2: the q/k/v projection of A (M, K) by W (K, N
+// = 3 nh hd) + bias into out (3, 1, nh, M, hd), q scaled by sm_scale
+// (qkv_proj_kernel). 3: as 0 with W (N, K) read transposed, the training
+// backwards' products (launch_gemm<T, true>). Returns the first CUDA error,
+// or 0.
+extern "C" int spk_forward_tile(int dtype, int which, const void* A, const void* W,
+                                const void* bias, const void* gate, const void* resid,
+                                const void* ln_scale, const void* ln_bias, void* rows, void* out,
+                                int M, int N, int K, int act, int nh, float sm_scale, float eps,
+                                void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || (which == 2 && (nh <= 0 || N % (3 * nh))) ||
+      (which == 1 && (ln_scale == nullptr) != (resid == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto gt = static_cast<const float*>(gate);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = spk::launch_gemm<float, true>(static_cast<const float*>(A),
-                                        static_cast<const float*>(W), nullptr,
-                                        static_cast<float*>(out), M, N, K, spk::kActNone, gt, s);
-  } else if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    err = spk::launch_gemm<bf, true>(static_cast<const bf*>(A), static_cast<const bf*>(W),
-                                     nullptr, static_cast<bf*>(out), M, N, K, spk::kActNone, gt,
-                                     s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  const auto run = [&](auto zero) -> cudaError_t {
+    using T = decltype(zero);
+    const T* a = static_cast<const T*>(A);
+    const T* w = static_cast<const T*>(W);
+    T* o = static_cast<T*>(out);
+    switch (which) {
+      case 0:
+        return spk::launch_gemm<T>(a, w, f(bias), o, M, N, K, act, f(gate), s);
+      case 1:
+        return spk::launch_residual_ln<T>(a, w, f(bias), static_cast<const T*>(resid),
+                                          f(ln_scale), f(ln_bias), static_cast<float*>(rows), o,
+                                          M, N, K, eps, ln_scale != nullptr, s);
+      case 2:
+        return spk::launch_qkv_proj<T>(a, w, f(bias), o, 1, M, K, nh, N / (3 * nh), sm_scale, s);
+      case 3:
+        return spk::launch_gemm<T, true>(a, w, f(bias), o, M, N, K, act, f(gate), s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == 0) return static_cast<int>(run(0.0f));
+  if (dtype == 1) return static_cast<int>(run(__nv_bfloat16()));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

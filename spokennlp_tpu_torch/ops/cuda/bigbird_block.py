@@ -32,7 +32,9 @@ from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import (
     _DTYPES, NEG_INF, _layer_norm, quantize_attention_weights,
 )
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product, kmajor, rowquant_plain
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    float_product, int8_product, kmajor, rowquant_plain,
+)
 from spokennlp_tpu_torch.ops.cuda.sliding_block import _divide, _softmax
 from spokennlp_tpu_torch.ops.cuda.train_blocks import HEAD_DIMS
 from spokennlp_tpu_torch.ops.sliding_attention import _ctx_windows
@@ -128,9 +130,9 @@ def bigbird_context_plain(
     with no allowed key (none without a real token) averages its pieces:
     compare real rows only.
     """
-    x = hidden.float()
-    qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
-    q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
+    B, L, H = hidden.shape
+    qkv = float_product(hidden, qkv_kernel.reshape(H, -1)).reshape(B, L, *qkv_kernel.shape[1:])
+    q, k, v = (qkv + qkv_bias.float()).unbind(2)  # (B, L, nh, hd)
     return bigbird_attend(q * sm_scale, k, v, attention_mask, block_size=block_size,
                           num_global_blocks=num_global_blocks,
                           num_random_blocks=num_random_blocks, seed=seed,
@@ -174,7 +176,9 @@ def bigbird_block_plain(
         hidden, attention_mask, qkv_kernel, qkv_bias, sm_scale=sm_scale, block_size=block_size,
         num_global_blocks=num_global_blocks, num_random_blocks=num_random_blocks, seed=seed,
     )
-    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    B, L = ctx.shape[:2]
+    out = float_product(ctx.reshape(B, L, -1), out_kernel.reshape(-1, out_kernel.shape[-1]))
+    out = out + out_bias.float()
     if ln_scale is not None:
         out = _layer_norm(out + hidden.float(), ln_scale, ln_bias, eps)
     return out.to(hidden.dtype)

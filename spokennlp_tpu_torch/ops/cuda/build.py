@@ -46,7 +46,7 @@ _SIGNATURES = {
     "spk_mlp_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "spk_mlp_train_bwd": [_I] + [_P] * 14 + [_Z] + [_I] * 5 + [_P],
     "spk_weight_grad": [_I] + [_P] * 5 + [_Z] + [_I] * 4 + [_P],
-    "spk_gemm_transposed": [_I] + [_P] * 4 + [_I] * 3 + [_P],
+    "spk_forward_tile": [_I, _I] + [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "spk_sliding_block": [_I] + [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_sliding_block_w8a8": [_I] + [_P] * 25 + [_I] * 8 + [_F, _F, _I, _P],
     "spk_sliding_train_fwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _U, _F, _P],
@@ -61,7 +61,6 @@ _SIGNATURES = {
     "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],
     "spk_bigbird_rows": [_I] * 3 + [_P] * 8 + [_I] * 7 + [_U, _F, _P],
     "spk_ponet_block": [_I, _I] + [_P] * 24 + [_I] * 5 + [_F, _F, _P],
-    "spk_gemm_f32tc": [_P] * 4 + [_I] * 3 + [_P],
     "spk_int8_tile_smem": [_I],
     "spk_bf16_tile_smem": [_I],
 }

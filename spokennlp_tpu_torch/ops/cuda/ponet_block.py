@@ -255,36 +255,3 @@ def fused_ponet_mixer_block(
 
 
 fused_ponet_mixer_block.launches = 0
-
-
-def gemm_f32tc(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None):
-    """a (M, K) . w (K, N) + bias (N,), float32: kernel 9's float32 product
-    tile (``csrc/tf32x3_gemm.cuh``) alone. On the CPU it runs the plain
-    float32 product; on the card the tile, whose launches
-    ``gemm_f32tc.launches`` counts. No model path calls it: kernel 9
-    launches the tile inside its own entry."""
-    if a.device.type == "cpu":
-        out = float_product(a, w)
-        return out if bias is None else out + bias.float()
-    if a.device.type != "cuda":
-        raise ValueError(f"gemm_f32tc: unsupported device {a.device}")
-    for name, t in (("a", a), ("w", w), ("bias", bias)):
-        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
-                              or t.device != a.device):
-            raise ValueError(f"gemm_f32tc: {name} must be a contiguous float32 tensor on "
-                             f"{a.device}")
-    (M, K), N = a.shape, w.shape[1]
-    if w.shape[0] != K or (bias is not None and tuple(bias.shape) != (N,)):
-        raise ValueError(f"gemm_f32tc: shapes {tuple(a.shape)}, {tuple(w.shape)} and bias "
-                         f"{None if bias is None else tuple(bias.shape)} do not fit")
-    out = torch.empty(M, N, device=a.device)
-    with torch.cuda.device(a.device):
-        code = build.library().spk_gemm_f32tc(
-            a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
-    build.check(code, "gemm_f32tc")
-    gemm_f32tc.launches += 1
-    return out
-
-
-gemm_f32tc.launches = 0

@@ -33,6 +33,7 @@ import torch
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, NEG_INF, _layer_norm
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
+    float_product,
     int8_product,
     kmajor,
     quantize_colwise,
@@ -160,17 +161,19 @@ def sliding_context_plain(
     (a padding row far from any real token) averages its window: compare
     real rows only.
     """
-    L = hidden.shape[1]
+    B, L, H = hidden.shape
     G = global_columns(max_globals, L)
     x = hidden.float()
-    qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
-    q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
+    qkv = float_product(x, qkv_kernel.reshape(H, -1)).reshape(B, L, *qkv_kernel.shape[1:])
+    q, k, v = (qkv + qkv_bias.float()).unbind(2)  # (B, L, nh, hd)
     glob_qkv = None
     if global_rows:
+        # the global k and v are the kernels' projection GEMM (float_product);
+        # the global query is summed inside the global-rows kernel, not on it
         wg, bg = gqkv_kernel.float(), gqkv_bias.float()
+        kv = float_product(x, wg[:, 1:].reshape(H, -1)).reshape(B, L, 2, *wg.shape[2:]) + bg[1:]
         glob_qkv = ((torch.einsum("bgh,hnd->bgnd", x[:, :G], wg[:, 0]) + bg[0]) * sm_scale,
-                    torch.einsum("blh,hnd->blnd", x, wg[:, 1]) + bg[1],
-                    torch.einsum("blh,hnd->blnd", x, wg[:, 2]) + bg[2])
+                    kv[:, :, 0], kv[:, :, 1])
     return sliding_attend(q * sm_scale, k, v, glob_qkv,
                           *_counts(attention_mask, global_mask, G, global_rows), window=window,
                           G=G, dropout_rate=dropout_rate, keep=keep)
@@ -240,7 +243,9 @@ def sliding_block_plain(
         hidden, attention_mask, global_mask, qkv_kernel, qkv_bias, gqkv_kernel, gqkv_bias,
         sm_scale=sm_scale, window=window, max_globals=max_globals, global_rows=global_rows,
     )
-    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    B, L = ctx.shape[:2]
+    out = float_product(ctx.reshape(B, L, -1), out_kernel.reshape(-1, out_kernel.shape[-1]))
+    out = out + out_bias.float()
     if ln_scale is not None:
         out = _layer_norm(out + hidden.float(), ln_scale, ln_bias, eps)
     return out.to(hidden.dtype)

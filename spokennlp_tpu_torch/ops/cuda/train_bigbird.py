@@ -49,6 +49,7 @@ from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
 from spokennlp_tpu_torch.ops.cuda.bigbird_block import (
     bigbird_attend, bigbird_context_plain, card_weights, check_card_inputs,
 )
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import float_product
 from spokennlp_tpu_torch.ops.cuda.train_blocks import (
     _ptr, _stream, dropout_threshold, philox_bits, weight_grad_plan,
 )
@@ -101,7 +102,8 @@ def bigbird_train_plain(
 ) -> torch.Tensor:
     """The training block in plain float32 PyTorch; returns hidden's dtype.
     ``keep`` (the four masks of ``bigbird_keep_masks``) is needed when
-    ``dropout_rate`` > 0."""
+    ``dropout_rate`` > 0. The projections and the out projection go through
+    ``float_product`` (this module's and bigbird_block's)."""
     if dropout_rate > 0.0 and keep is None:
         raise ValueError("bigbird_train_plain: dropout_rate > 0 needs the keep masks")
     ctx = bigbird_context_plain(
@@ -109,7 +111,8 @@ def bigbird_train_plain(
         num_global_blocks=num_global_blocks, num_random_blocks=num_random_blocks,
         seed=pattern_seed, dropout_rate=dropout_rate, keep=keep,
     )
-    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    B, L, H = hidden.shape
+    out = float_product(ctx.reshape(B, L, -1), out_kernel.reshape(-1, H)) + out_bias.float()
     return out.to(hidden.dtype)
 
 
@@ -327,11 +330,12 @@ bigbird_rows.launches = 0
 
 
 def bigbird_train_fwd(hidden, mask, seed, w, bo, tables, *, num_heads: int, block_size: int,
-                      sm_scale: float, dropout_rate: float) -> torch.Tensor:
+                      sm_scale: float, dropout_rate: float, buffers: dict = None) -> torch.Tensor:
     """Forward kernel: hidden (B, L, H), the weights of ``card_weights`` ``w``,
     bo (H,) float32, mask (B, L) and seed (1,) int32 and the pattern's
-    ``bigbird_tables``, all on one card. ``bigbird_train_fwd.launches``
-    counts its launches."""
+    ``bigbird_tables``, all on one card. A ``buffers`` dict receives the
+    projections qkv (3, B, nh, L, hd). ``bigbird_train_fwd.launches`` counts
+    its launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
     hd = HN // num_heads
@@ -350,6 +354,8 @@ def bigbird_train_fwd(hidden, mask, seed, w, bo, tables, *, num_heads: int, bloc
         )
     build.check(code, "bigbird_train_fwd")
     bigbird_train_fwd.launches += 1
+    if buffers is not None:
+        buffers["qkv"] = qkv_buf
     return out
 
 

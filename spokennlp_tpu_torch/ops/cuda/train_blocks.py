@@ -49,8 +49,8 @@ import torch
 
 from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda import build
-from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, HEAD_DIMS, NEG_INF
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import ACTIVATION_CODES, ACTIVATIONS
+from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, HEAD_DIMS, NEG_INF, _layer_norm
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import ACTIVATION_CODES, ACTIVATIONS, float_product
 
 TRAIN_ACTIVATIONS = ("gelu", "gelu_new", "relu", "silu")  # those with a derivative
 
@@ -122,12 +122,13 @@ def attention_train_plain(
     """The training attention block in plain float32 PyTorch; returns
     hidden's dtype. ``keep`` (B, nh, L, L) bool is the dropout mask, needed
     when ``dropout_rate`` > 0: kept probabilities are scaled by
-    1 / (1 - rate). Masked keys get an additive -1e9, as in the kernels."""
-    x = hidden.float()
-    qkv = torch.einsum("blh,hsnd->blsnd", x, qkv_kernel.float()) + qkv_bias.float()
-    q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
+    1 / (1 - rate). Masked keys get an additive -1e9, as in the kernels.
+    Both products go through ``float_product``."""
+    B, L, H = hidden.shape
+    qkv = float_product(hidden, qkv_kernel.reshape(H, -1)).reshape(B, L, *qkv_kernel.shape[1:])
+    q, k, v = (qkv + qkv_bias.float()).unbind(2)  # (B, L, nh, hd)
     ctx = _attention_core_train(q, k, v, segment_ids, sm_scale, dropout_rate, keep)
-    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    out = float_product(ctx.reshape(B, L, -1), out_kernel.reshape(-1, H)) + out_bias.float()
     return out.to(hidden.dtype)
 
 
@@ -147,10 +148,10 @@ def _attention_core_train(q, k, v, segment_ids, sm_scale, dropout_rate, keep):
 
 
 def mlp_train_plain(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
-    """act(x W1 + b1) W2 + b2 in plain float32 PyTorch; returns x's dtype."""
-    xf = x.float()
-    h = ACTIVATIONS[activation](xf @ w1.float() + b1.float())
-    return (h @ w2.float() + b2.float()).to(x.dtype)
+    """act(x W1 + b1) W2 + b2 in plain float32 PyTorch, both products
+    through ``float_product``; returns x's dtype."""
+    h = ACTIVATIONS[activation](float_product(x, w1) + b1.float())
+    return (float_product(h, w2) + b2.float()).to(x.dtype)
 
 
 # ------------------------------------------------------- explicit backwards
@@ -389,11 +390,13 @@ def _check_card_tensor(name: str, t: torch.Tensor, device, shape, dtype=None):
 
 
 def attention_train_fwd(hidden, seg, seed, wqkv, bqkv, wo, bo, *, num_heads: int,
-                        sm_scale: float, dropout_rate: float) -> torch.Tensor:
+                        sm_scale: float, dropout_rate: float,
+                        buffers: Optional[dict] = None) -> torch.Tensor:
     """Forward kernel: hidden (B, L, H) and the weights wqkv (H, 3 Hn), wo
     (Hn, H) in the compute dtype, biases bqkv (3 Hn,), bo (H,) float32, seg
-    (B, L) and seed (1,) int32, all on one card. ``attention_train_fwd.
-    launches`` counts its launches."""
+    (B, L) and seed (1,) int32, all on one card. A ``buffers`` dict receives
+    the projections qkv (3, B, nh, L, hd) and ctx (B, L, Hn).
+    ``attention_train_fwd.launches`` counts its launches."""
     B, L, H = hidden.shape
     HN = wo.shape[0]
     hd = HN // num_heads
@@ -410,6 +413,8 @@ def attention_train_fwd(hidden, seg, seed, wqkv, bqkv, wo, bo, *, num_heads: int
         )
     build.check(code, "attention_train_fwd")
     attention_train_fwd.launches += 1
+    if buffers is not None:
+        buffers.update(qkv=qkv_buf, ctx=ctx_buf)
     return out
 
 
@@ -524,9 +529,11 @@ def attention_grad(qkv, seg, seed, dctx, stats, *, sm_scale: float, dropout_rate
     return dqkv, ds_buf
 
 
-def mlp_train_fwd(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
+def mlp_train_fwd(x, w1, b1, w2, b2, *, activation: str,
+                  buffers: Optional[dict] = None) -> torch.Tensor:
     """Forward kernel: x (M, H), w1 (H, I), w2 (I, H) in the compute dtype,
-    b1, b2 float32. ``mlp_train_fwd.launches`` counts its launches."""
+    b1, b2 float32. A ``buffers`` dict receives the intermediate h = act(x
+    W1 + b1) (M, I). ``mlp_train_fwd.launches`` counts its launches."""
     M, H = x.shape
     I = w1.shape[1]
     h_buf = torch.empty((M, I), dtype=x.dtype, device=x.device)
@@ -539,12 +546,15 @@ def mlp_train_fwd(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
         )
     build.check(code, "mlp_train_fwd")
     mlp_train_fwd.launches += 1
+    if buffers is not None:
+        buffers["h"] = h_buf
     return out
 
 
-def mlp_train_bwd(x, w1, b1, w2, g, *, activation: str):
+def mlp_train_bwd(x, w1, b1, w2, g, *, activation: str, buffers: Optional[dict] = None):
     """Backward kernel: recomputes the intermediate and returns (dx in the
-    compute dtype, dW1, db1, dW2, db2 in float32, summed over the rows).
+    compute dtype, dW1, db1, dW2, db2 in float32, summed over the rows). A
+    ``buffers`` dict receives the recomputed h (M, I).
     ``mlp_train_bwd.launches`` counts its launches."""
     M, H = x.shape
     I = w1.shape[1]
@@ -565,6 +575,8 @@ def mlp_train_bwd(x, w1, b1, w2, g, *, activation: str):
         )
     build.check(code, "mlp_train_bwd")
     mlp_train_bwd.launches += 1
+    if buffers is not None:
+        buffers["h"] = h_buf
     return dx, dw1, db1, dw2, db2
 
 
@@ -601,38 +613,86 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, splits: Optional[int] = None)
     return dw, db
 
 
-def gemm_transposed(a: torch.Tensor, w: torch.Tensor, gate: Optional[torch.Tensor] = None):
-    """The training backwards' product with a weight read transposed alone:
-    (a (M, K) . w^T) * gate in a's dtype, of w (N, K) in a's dtype and gate
-    (M, N) float32 or None, the product in float32 before the gate and the
-    rounding. No model path calls it: it holds the transposed-weight tiles
-    alone. On a CPU tensor it runs ``backward_product``;
-    ``gemm_transposed.launches`` counts its launches."""
-    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
-        raise ValueError(f"gemm_transposed: a (M, K) and w (N, K), got {tuple(a.shape)} and "
-                         f"{tuple(w.shape)}")
-    (M, K), N = a.shape, w.shape[0]
+# forward_tile's kernels: the C entry's `which`
+_TILE_KERNELS = {"gemm": 0, "residual_ln": 1, "qkv": 2, "gemm_t": 3}
+
+
+def forward_tile(a, w, bias=None, *, kernel: str = "gemm", gate=None, resid=None, ln=None,
+                 heads=None, sm_scale: float = 1.0, activation: str = "none",
+                 eps: float = 1e-12):
+    """One GEMM tile kernel of csrc/bf16_gemm.cuh alone, on the tile of a's
+    dtype (bf16's, or the 3xTF32 one in float32), a (M, K) and w in one
+    compute dtype, bias (N,) float32 or None (zeros). ``kernel``:
+
+    - "gemm": act(a w + bias) * gate of w (K, N), gate (M, N) float32 or None
+      (gemm_bias_act_kernel);
+    - "gemm_t": the same of w (N, K) read transposed, the training
+      backwards' products (gemm_bias_act_kernel<T, true>);
+    - "residual_ln": LayerNorm(resid + a w + bias) of resid (M, N) and ``ln``
+      = (ln_scale, ln_bias), or a w + bias when both are None
+      (gemm_bias_residual_ln_kernel);
+    - "qkv": the q/k/v projection (3, 1, heads, M, N / (3 heads)) of a w +
+      bias, q scaled by ``sm_scale`` (qkv_proj_kernel).
+
+    No model path calls it: it holds the tiles alone. On a CPU tensor it
+    runs the same arithmetic with ``float_product``;
+    ``forward_tile.launches`` counts its launches."""
+    if kernel not in _TILE_KERNELS:
+        raise ValueError(f"forward_tile: kernel {kernel!r} is none of {sorted(_TILE_KERNELS)}")
+    if (resid is None) != (ln is None) or (resid is not None and kernel != "residual_ln"):
+        raise ValueError("forward_tile: resid and ln go together, with kernel='residual_ln'")
+    if gate is not None and kernel not in ("gemm", "gemm_t"):
+        raise ValueError(f"forward_tile: kernel {kernel!r} takes no gate")
+    wk = w.t() if kernel == "gemm_t" and w.dim() == 2 else w  # (K, N)
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != wk.shape[0]:
+        raise ValueError(f"forward_tile: a (M, K) and w ({'N, K' if kernel == 'gemm_t' else 'K, N'}"
+                         f"), got {tuple(a.shape)} and {tuple(w.shape)}")
+    (M, K), N = a.shape, wk.shape[1]
+    if kernel == "qkv" and (not heads or N % (3 * heads)):
+        raise ValueError(f"forward_tile: N = {N} is no 3 x heads x head_dim")
+    if bias is None:
+        bias = torch.zeros(N, dtype=torch.float32, device=a.device)
     if a.device.type == "cpu":
-        out = backward_product(a, w.t())
-        return (out if gate is None else out * gate.float()).to(a.dtype)
+        y = float_product(a, wk) + bias.float()
+        if kernel in ("gemm", "gemm_t"):
+            y = ACTIVATIONS[activation](y)
+            y = y if gate is None else y * gate.float()
+        elif kernel == "residual_ln" and ln is not None:
+            y = _layer_norm(y + resid.float(), *ln, eps)
+        elif kernel == "qkv":
+            y[:, :N // 3] *= sm_scale
+            y = y.reshape(M, 3, heads, N // (3 * heads)).permute(1, 2, 0, 3)[:, None]
+        return y.to(a.dtype).contiguous()
+    if a.device.type != "cuda":
+        raise ValueError(f"forward_tile: unsupported device {a.device}")
     if a.dtype not in _DTYPES:
-        raise TypeError(f"gemm_transposed: a must be float32 or bfloat16, got {a.dtype}")
+        raise TypeError(f"forward_tile: a must be float32 or bfloat16, got {a.dtype}")
     a = a.contiguous()
-    _check_card_tensor("gemm_transposed: w", w, a.device, (N, K), a.dtype)
+    _check_card_tensor("forward_tile: w", w, a.device, tuple(w.shape), a.dtype)
+    _check_card_tensor("forward_tile: bias", bias, a.device, (N,), torch.float32)
     if gate is not None:
-        _check_card_tensor("gemm_transposed: gate", gate, a.device, (M, N), torch.float32)
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+        _check_card_tensor("forward_tile: gate", gate, a.device, (M, N), torch.float32)
+    if resid is not None:
+        _check_card_tensor("forward_tile: resid", resid, a.device, (M, N), a.dtype)
+        for t in ln:
+            _check_card_tensor("forward_tile: ln", t, a.device, (N,), torch.float32)
+    shape = (3, 1, heads, M, N // (3 * heads)) if kernel == "qkv" else (M, N)
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    rows = (torch.empty((M, N), dtype=torch.float32, device=a.device)
+            if kernel == "residual_ln" else None)
+    lns, lnb = ln if ln is not None else (None, None)
     with torch.cuda.device(a.device):
-        code = build.library().spk_gemm_transposed(
-            _DTYPES[a.dtype], a.data_ptr(), w.data_ptr(), _ptr(gate), out.data_ptr(), M, N, K,
-            _stream())
-    build.check(code, "gemm_transposed")
-    gemm_transposed.launches += 1
+        code = build.library().spk_forward_tile(
+            _DTYPES[a.dtype], _TILE_KERNELS[kernel], a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            _ptr(gate), _ptr(resid), _ptr(lns), _ptr(lnb), _ptr(rows), out.data_ptr(), M, N, K,
+            ACTIVATION_CODES[activation], heads or 0, float(sm_scale), float(eps), _stream())
+    build.check(code, "forward_tile")
+    forward_tile.launches += 1
     return out
 
 
 for _fn in (attention_train_fwd, attention_train_bwd, mlp_train_fwd, mlp_train_bwd, weight_grad,
-            gemm_transposed, attention_rows, attention_grad):
+            forward_tile, attention_rows, attention_grad):
     _fn.launches = 0
 
 

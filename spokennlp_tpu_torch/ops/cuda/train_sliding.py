@@ -47,7 +47,7 @@ from spokennlp_tpu_torch.ops.cuda.attention_models import (
     dense_core_grad, rounded, rows_attend,
 )
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
-from spokennlp_tpu_torch.ops.cuda.int8_matmul import int8_product
+from spokennlp_tpu_torch.ops.cuda.int8_matmul import float_product, int8_product
 from spokennlp_tpu_torch.ops.cuda.sliding_block import (
     _counts, card_weights, check_card_inputs, global_columns, sliding_attend,
     sliding_context_plain,
@@ -105,7 +105,8 @@ def sliding_train_plain(
 ) -> torch.Tensor:
     """The training block in plain float32 PyTorch; returns hidden's dtype.
     ``keep`` (the three masks of ``sliding_keep_masks``) is needed when
-    ``dropout_rate`` > 0."""
+    ``dropout_rate`` > 0. The projections and the out projection go through
+    ``float_product`` (this module's and sliding_block's)."""
     if dropout_rate > 0.0 and keep is None:
         raise ValueError("sliding_train_plain: dropout_rate > 0 needs the keep masks")
     ctx = sliding_context_plain(
@@ -113,7 +114,8 @@ def sliding_train_plain(
         sm_scale=sm_scale, window=window, max_globals=max_globals, global_rows=global_rows,
         dropout_rate=dropout_rate, keep=keep,
     )
-    out = torch.einsum("blnd,ndh->blh", ctx, out_kernel.float()) + out_bias.float()
+    B, L, H = hidden.shape
+    out = float_product(ctx.reshape(B, L, -1), out_kernel.reshape(-1, H)) + out_bias.float()
     return out.to(hidden.dtype)
 
 
@@ -516,10 +518,12 @@ sliding_global_rows.launches = 0
 
 def sliding_train_fwd(hidden, mask, glob, seed, w, bo, *, num_heads: int, window: int,
                       max_globals: int, global_rows: bool, sm_scale: float,
-                      dropout_rate: float) -> torch.Tensor:
+                      dropout_rate: float, buffers: dict = None) -> torch.Tensor:
     """Forward kernel: hidden (B, L, H), the weights of ``card_weights`` ``w``,
-    bo (H,) float32, mask, glob (B, L) and seed (1,) int32, all on one card.
-    ``sliding_train_fwd.launches`` counts its launches."""
+    bo (H,) float32, mask, glob (B, L) and seed (1,) int32, all on one card. A
+    ``buffers`` dict receives the projections qkv (3, B, nh, L, hd) and gkv
+    (2, B, nh, L, hd) or None. ``sliding_train_fwd.launches`` counts its
+    launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
     hd = HN // num_heads
@@ -541,6 +545,8 @@ def sliding_train_fwd(hidden, mask, glob, seed, w, bo, *, num_heads: int, window
         )
     build.check(code, "sliding_train_fwd")
     sliding_train_fwd.launches += 1
+    if buffers is not None:
+        buffers.update(qkv=qkv_buf, gkv=gkv_buf)
     return out
 
 

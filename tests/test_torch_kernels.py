@@ -232,6 +232,87 @@ def test_mlp_plain_matches_jax_kernel(jx, activation):
     np.testing.assert_allclose(got, want, **CPU_TOL)
 
 
+# The float32 forwards on the card take their products on the 3xTF32 tile,
+# which int8_matmul.tf32x3_product models (chip_smoke.tf32x3_model): the
+# plain versions with every float product through it still match JAX's
+# float32 kernels (interpret mode) to 1e-5 of each output's largest
+# magnitude, as the float32 products themselves.
+F32_MODEL_RTOL = 1e-5
+
+
+def _assert_within_share(got, want, share, valid=None):
+    """max |got - want| <= share max |want| (on the valid rows)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if valid is not None:
+        got, want = got[valid], want[valid]
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= share, err
+
+
+@pytest.mark.parametrize("fuse_ln", [True, False], ids=["ln", "no_ln"])
+def test_attention_plain_on_the_tf32x3_model_matches_jax_kernel(jx, fuse_ln):
+    B, L, H, nh, hd = 2, 64, 64, 4, 16
+    inp = _attention_inputs(B, L, H, nh, hd, seed=21)
+    if not fuse_ln:
+        inp.pop("ln_scale"), inp.pop("ln_bias")
+    j = jx.arrays(inp)
+    want = jx.fused_attention_block(
+        j.pop("hidden"), j.pop("segment_ids"), j.pop("qkv_kernel"), j.pop("qkv_bias"),
+        j.pop("out_kernel"), j.pop("out_bias"), sm_scale=hd**-0.5, interpret=True, **j)
+    with chip_smoke.planted(chip_smoke.float_products(chip_smoke.tf32x3_model)):
+        got = attention_block_plain(**_torch(inp), sm_scale=hd**-0.5)
+    _assert_within_share(got, want, F32_MODEL_RTOL, inp["segment_ids"] > 0)
+
+
+def test_mlp_plain_on_the_tf32x3_model_matches_jax_kernel(jx):
+    inp = _mlp_inputs(M=40, H=64, I=256, seed=22)
+    want = jx.fused_mlp_block(*jx.arrays(inp).values(), activation="gelu", eps=1e-12,
+                              quantized=False, interpret=True)
+    with chip_smoke.planted(chip_smoke.float_products(chip_smoke.tf32x3_model)):
+        got = mlp_block_plain(*_torch(inp).values(), activation="gelu", eps=1e-12)
+    _assert_within_share(got, want, F32_MODEL_RTOL)
+
+
+def _f32_forward_gate_call(kernel):
+    """(honest outputs, plain) of a float32 forward at BERT-base depths: the
+    exact float32 products stand in for the card's (they differ from the
+    3xTF32 model by float32 rounding, as the tile's truncating sums do)."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    if kernel in ("gemm 768", "gemm 3072"):
+        K = int(kernel.split()[1])
+        t = _torch(_mlp_inputs(M=64, H=K, I=256, seed=23))
+        plain = lambda: {"out": tb.forward_tile(t["x"], t["w1"], t["b1"])}
+    elif kernel == "fused_attention_block":
+        t = _torch(_attention_inputs(2, 64, 768, 12, 64, seed=24))
+        valid = t["segment_ids"] > 0
+        call = lambda **ln: attention_block_plain(
+            t["hidden"], t["segment_ids"], t["qkv_kernel"], t["qkv_bias"], t["out_kernel"],
+            t["out_bias"], sm_scale=64**-0.5, **ln)[valid]
+        plain = lambda: {"out": call(ln_scale=t["ln_scale"], ln_bias=t["ln_bias"]),
+                         "projection": call()}
+    else:  # fused_mlp_block: depths 768 (W1) and 3072 (W2)
+        t = _torch(_mlp_inputs(M=64, H=768, I=3072, seed=25))
+        plain = lambda: {"out": mlp_block_plain(*t.values(), activation="gelu", eps=1e-12)}
+    return plain(), plain
+
+
+@pytest.mark.parametrize("kernel", ["gemm 768", "gemm 3072", "fused_attention_block",
+                                    "fused_mlp_block"])
+def test_float32_forward_gate_rejects_plain_tf32(kernel):
+    """chip_smoke's float32 forward gate (check_f32_forward: F32_FWD_TOL
+    against the plain version on the 3xTF32 model, plain TF32 planted in its
+    products) accepts exact float32 products at depths 768 and 3072 and
+    rejects plain TF32 ones in the same outputs."""
+    honest, plain = _f32_forward_gate_call(kernel)
+    gate = chip_smoke.check_f32_forward(kernel, honest, plain)
+    assert gate["fault_excess"] > 1, gate
+    with chip_smoke.planted(chip_smoke.float_products(chip_smoke.plain_tf32)):
+        bad = plain()
+    with pytest.raises(RuntimeError, match="beyond its limit"):
+        chip_smoke.check_f32_forward(kernel, bad, plain)
+
+
 @pytest.mark.parametrize("name", sorted(ACTIVATIONS))
 def test_activation_table_matches_jax(jx, name):
     assert set(ACTIVATIONS) == set(jx.activations)
@@ -511,23 +592,26 @@ def test_sass_verdict_on_canned_counts():
         f"{ns}21attn_core_simt_kernelIfLi64EfEEvPKT_": [0, 0, 0],
         f"{ns}20gemm_bias_act_kernelI{bf}Lb0EEEvPKT_": [0, 0, 32],
         f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_": [0, 0, 32],
-        f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_": [0, 0, 0],
-        f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_": [0, 0, 0],
+        f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_": [0, 0, 192],
+        f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_": [0, 0, 384],
         f"{ns}18weight_grad_kernelI{bf}EEvPKT_": [0, 0, 64],
-        f"{ns}18weight_grad_kernelIfEEvPKT_": [0, 0, 0],
+        f"{ns}18weight_grad_kernelIfEEvPKT_": [0, 0, 384],
         f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i": [0, 0, 0],
         f"{stack}19act_and_grad_kernelI{bf}EEvPKT_": [0, 0, 32],
-        f"{stack}19act_and_grad_kernelIfEEvPKT_": [0, 0, 0],
+        f"{stack}19act_and_grad_kernelIfEEvPKT_": [0, 0, 192],
         f"{ns}15qkv_proj_kernelI{bf}EEvPKT_": [0, 0, 32],
-        f"{ns}15qkv_proj_kernelIfEEvPKT_": [0, 0, 0],
+        f"{ns}15qkv_proj_kernelIfEEvPKT_": [0, 0, 192],
         f"{ns}28gemm_bias_residual_ln_kernelI{bf}EEvPKT_": [0, 0, 16],
-        f"{ns}28gemm_bias_residual_ln_kernelIfEEvPKT_": [0, 0, 0],
+        f"{ns}28gemm_bias_residual_ln_kernelIfEEvPKT_": [0, 0, 96],
         f"{stack}20encoder_stack_kernelI{bf}Li64EEEvNS0_9StackArgsE": [0, 0, 0],
         f"{stack}20encoder_stack_kernelIfLi64EEEvNS0_9StackArgsE": [0, 0, 0],
         f"{stack}15stack_core_itemILi64EEEvPK{bf}": [0, 0, 16],
-        f"{stack}14stack_qkv_itemEPK{bf}": [0, 0, 32],
-        f"{stack}19stack_gemm_act_itemEPK{bf}": [0, 0, 32],
-        f"{stack}22stack_residual_ln_itemEPK{bf}": [0, 0, 16],
+        f"{stack}14stack_qkv_itemI{bf}EEvPKT_": [0, 0, 32],
+        f"{stack}19stack_gemm_act_itemI{bf}EEvPKT_": [0, 0, 32],
+        f"{stack}22stack_residual_ln_itemI{bf}EEvPKT_": [0, 0, 16],
+        f"{stack}14stack_qkv_itemIfEEvPKT_": [0, 0, 192],
+        f"{stack}19stack_gemm_act_itemIfEEvPKT_": [0, 0, 192],
+        f"{stack}22stack_residual_ln_itemIfEEvPKT_": [0, 0, 96],
         f"{ns}18global_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 64],
         f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_": [0, 2, 64],
         f"{ns}18global_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_": [0, 0, 112],
@@ -553,10 +637,6 @@ def test_sass_verdict_on_canned_counts():
         f"{stack}14attn_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
         f"{stack}15attn_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
         f"{stack}15attn_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
-        f"{stack}26gemm_bias_act_f32tc_kernelEPKfS2_S2_Pfiiii": [0, 0, 192],
-        f"{stack}24residual_ln_f32tc_kernelEPKfS2_S2_S2_S2_S2_PfS3_iiifi": [0, 0, 96],
-        f"{ns}28gemm_bias_act_t_f32tc_kernelIfEEvPKT_S3_PKfPS1_iiiiS5_": [0, 0, 384],
-        f"{ns}24weight_grad_f32tc_kernelIfEEvPKT_S3_PfS4_iiiimm": [0, 0, 384],
     }
     assert chip_smoke.sass_verdict(good) == []
 
@@ -565,20 +645,36 @@ def test_sass_verdict_on_canned_counts():
         changed[name] = counts
         return chip_smoke.sass_verdict(changed)
 
-    # a bf16 instantiation without HMMA (the backward's transposed-weight
-    # GEMM, weight gradient and recomputed product among them), a float32
-    # one with HMMA, a stack GEMM item without HMMA
-    assert with_counts(f"{ns}15qkv_proj_kernelI{bf}EEvPKT_", [0, 0, 0])
-    assert with_counts(f"{ns}28gemm_bias_residual_ln_kernelI{bf}EEvPKT_", [0, 0, 0])
-    assert with_counts(f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_", [0, 0, 8])
-    assert with_counts(f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_", [0, 0, 0])
-    assert with_counts(f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_", [0, 0, 8])
-    assert with_counts(f"{ns}18weight_grad_kernelI{bf}EEvPKT_", [0, 0, 0])
-    assert with_counts(f"{ns}18weight_grad_kernelIfEEvPKT_", [0, 0, 8])
-    assert with_counts(f"{stack}19act_and_grad_kernelI{bf}EEvPKT_", [0, 0, 0])
-    assert with_counts(f"{stack}19act_and_grad_kernelIfEEvPKT_", [0, 0, 8])
-    assert with_counts(f"{stack}20encoder_stack_kernelIfLi64EEEvNS0_9StackArgsE", [0, 0, 8])
-    assert with_counts(f"{stack}19stack_gemm_act_itemEPK{bf}", [0, 0, 0])
+    # a GEMM tile kernel's bf16 or float32 instantiation without HMMA (the
+    # forward GEMM, the projection, the residual LayerNorm, the backward's
+    # transposed-weight GEMM, weight gradient and recomputed product among
+    # them): the float32 ones as the SIMT tile left them, the old verdict's
+    # passing case; a float stack whose GEMM items hold no HMMA
+    for name in (f"{ns}15qkv_proj_kernelI{bf}EEvPKT_",
+                 f"{ns}28gemm_bias_residual_ln_kernelI{bf}EEvPKT_",
+                 f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_",
+                 f"{ns}18weight_grad_kernelI{bf}EEvPKT_",
+                 f"{stack}19act_and_grad_kernelI{bf}EEvPKT_",
+                 f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_",
+                 f"{ns}15qkv_proj_kernelIfEEvPKT_",
+                 f"{ns}28gemm_bias_residual_ln_kernelIfEEvPKT_",
+                 f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_",
+                 f"{ns}18weight_grad_kernelIfEEvPKT_",
+                 f"{stack}19act_and_grad_kernelIfEEvPKT_",
+                 f"{stack}19stack_gemm_act_itemI{bf}EEvPKT_",
+                 f"{stack}14stack_qkv_itemIfEEvPKT_",
+                 f"{stack}22stack_residual_ln_itemIfEEvPKT_"):
+        assert with_counts(name, [0, 0, 0]), name
+    # the float32 stack as it was: no GEMM items of its own (the SIMT tile
+    # functions inline), no HMMA
+    simt_stack = {k: v for k, v in good.items()
+                  if not any(f"{p}If" in k for p in chip_smoke.STACK_GEMM_ITEMS)}
+    found = chip_smoke.sass_verdict(simt_stack)
+    assert found and all("encoder_stack_kernelIf" in m for m in found), found
+    # a missing float32 instantiation
+    found = chip_smoke.sass_verdict({k: v for k, v in good.items()
+                                     if k != f"{ns}15qkv_proj_kernelIfEEvPKT_"})
+    assert found == ["cuobjdump -sass shows no float32 instantiation of qkv_proj_kernel"], found
     # the training backwards' gradient kernels: bf16 without HMMA, float32
     # with it
     assert with_counts(f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
@@ -589,22 +685,13 @@ def test_sass_verdict_on_canned_counts():
     assert with_counts(f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_", [0, 0, 8])
     # row 10's cores: bf16 (the statistics pass among them) without HMMA,
-    # float32 with it; kernel 9's 3xTF32 tile without HMMA
+    # float32 with it
     assert with_counts(f"{stack}16attn_rows_kernelI{bf}Li64ELb1EEEvPKT_", [0, 0, 0])
     assert with_counts(f"{stack}15attn_dkv_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
     assert with_counts(f"{stack}14attn_dq_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
     assert with_counts(f"{stack}14attn_dq_kernelIfLi64EEEvPKT_", [0, 0, 8])
-    assert with_counts(f"{stack}26gemm_bias_act_f32tc_kernelEPKfS2_S2_Pfiiii", [0, 0, 0])
-    assert with_counts(f"{stack}24residual_ln_f32tc_kernelEPKfS2_S2_S2_S2_S2_PfS3_iiifi",
-                       [0, 0, 0])
-    # the float32 backwards' 3xTF32 tiles (the transposed-weight product, the
-    # weight gradient) without HMMA; their old names' float32 instances (the
-    # SIMT tile's) with it
-    assert with_counts(f"{ns}28gemm_bias_act_t_f32tc_kernelIfEEvPKT_S3_PKfPS1_iiiiS5_",
-                       [0, 0, 0])
-    assert with_counts(f"{ns}24weight_grad_f32tc_kernelIfEEvPKT_S3_PfS4_iiiimm", [0, 0, 0])
-    assert with_counts(f"{ns}20gemm_bias_act_kernelIfLb1EEEvPKT_", [0, 0, 384])
-    assert with_counts(f"{ns}18weight_grad_kernelIfEEvPKT_", [0, 0, 384])
+    # the W8A8 stack's float32 instance (int8 GEMMs, the float32 core) with HMMA
+    assert with_counts(f"{stack}23encoder_stack_i8_kernelIfLi64EEEvNS0_9StackArgsE", [8, 0, 4])
     # the global rows: bf16 (the W8A8 mode's float32 ctx and the statistics
     # pass among them) without HMMA, float32 with it
     assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 2, 0])

@@ -13,6 +13,7 @@ float32 to 1e-4 (gradients relative to their largest magnitude); W8A8 by the
 int8-step rule of tests/test_torch_kernels.py (``assert_close_w8a8``).
 """
 
+import hashlib
 import math
 from unittest import mock
 
@@ -23,6 +24,7 @@ import torch
 from spokennlp_tpu_torch.configs import EncoderConfig
 from spokennlp_tpu_torch.models import ponet as tp
 from spokennlp_tpu_torch.ops.cuda import ponet_block as pb
+from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
 from test_torch_kernels import assert_close_w8a8
 
 F32_TOL = 1e-4
@@ -663,7 +665,8 @@ TILE_SHAPES = [(130, 200, 72), (257, 129, 130), (33, 17, 9), (300, 3840, 768), (
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,N,K", TILE_SHAPES)
 def test_f32tc_tile_matches_plain_product_on_card(cuda, M, N, K):
-    """Kernel 9's float32 product tile alone (pb.gemm_f32tc) against the
+    """Kernel 9's float32 product tile alone (the shared float32 GEMM tile
+    that kernel 9 launches, through train_blocks.forward_tile) against the
     float64 product plus bias: within 1e-5 of the largest output (3xTF32
     keeps about float32's accuracy); plain TF32 products of the same
     operands land beyond it from K = 64 on."""
@@ -673,16 +676,44 @@ def test_f32tc_tile_matches_plain_product_on_card(cuda, M, N, K):
     a = torch.randn(M, K, generator=g, device=cuda)
     w = torch.randn(K, N, generator=g, device=cuda) * K**-0.5
     bias = torch.randn(N, generator=g, device=cuda)
-    n = pb.gemm_f32tc.launches
-    got = pb.gemm_f32tc(a, w, bias)
+    n = tb.forward_tile.launches
+    got = tb.forward_tile(a, w, bias)
     torch.cuda.synchronize()
-    assert pb.gemm_f32tc.launches == n + 1
+    assert tb.forward_tile.launches == n + 1
     want = a.double() @ w.double() + bias.double()
     rel = lambda t: ((t.double() - want).abs().max() / want.abs().max()).item()
     assert rel(got) < 1e-5, rel(got)
-    assert torch.equal(pb.gemm_f32tc(a, w) + bias, got)  # the bias added last, in float32
+    assert torch.equal(tb.forward_tile(a, w) + bias, got)  # the bias added last, in float32
     if K >= 64:
         assert rel(im.tf32x3_product(a, w, terms=1) + bias) > 1e-5
+
+
+# sha256 (its first 16 hex digits) of kernel 9's float32 output, with and
+# without its LayerNorm, on kernel9_f32_digest's inputs, read on the card
+# from the build whose own float32 launchers (gemm_bias_act_f32tc_kernel,
+# residual_ln_f32tc_kernel in ponet_block.cu) bf16_gemm.cuh's shared
+# launch_gemm<float> and launch_residual_ln<float> replaced: the same tiles,
+# epilogues and grids, so the same bits
+KERNEL9_F32_DIGEST = "85c401c9c6e6cf2a"
+
+
+def kernel9_f32_digest(device) -> str:
+    """The digest of KERNEL9_F32_DIGEST from this checkout's build."""
+    inp = _on_card(block_inputs(2, 1000, 768, seed=17, run_len=(5, 61)), device, torch.float32)
+    args = [inp[k] for k in BLOCK_ARGS]
+    h = hashlib.sha256()
+    for ln in ({"ln_scale": inp["ln_scale"], "ln_bias": inp["ln_bias"]}, {}):
+        out = pb.fused_ponet_mixer_block(*args, local_window=3, sm_scale=768**-0.5, **ln)
+        h.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.gpu
+def test_kernel9_float32_keeps_its_bits_after_the_fold_on_card(cuda):
+    """Kernel 9's float32 products run bf16_gemm.cuh's shared float32
+    launchers, not copies of their own: its output keeps the bits it had
+    on its own launchers."""
+    assert kernel9_f32_digest(cuda) == KERNEL9_F32_DIGEST
 
 
 @pytest.mark.gpu

@@ -228,6 +228,32 @@ def test_sliding_explicit_backward_matches_jax_kernel_vjp(global_rows):
 
 
 @pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_train_forward_on_the_tf32x3_model_matches_jax_kernel(global_rows):
+    """Row 12's plain forward with its products through the 3xTF32 model
+    (chip_smoke.float_products: the projections and the out projection; the
+    global query stays exact, as the global-rows kernel sums it on the CUDA
+    cores), as the card's float32 forward takes them, against JAX's
+    training kernel (interpret mode) in float32: to 1e-5 of the output's
+    largest magnitude on the real rows."""
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_sliding import sliding_attention_block_train as jax_train
+
+    inp = _inputs(B, L, H, NH, seed=11, global_rows=global_rows)
+    mask, glob = jnp.asarray(inp["attention_mask"]), jnp.asarray(inp["global_mask"])
+    kw = dict(window=WINDOW, max_globals=16, global_rows=global_rows)
+    want = jax_train(jnp.asarray(inp["hidden"]), mask, glob,
+                     *(jnp.asarray(inp[k]) for k in ARGS[1:]), jnp.zeros((1,), jnp.int32),
+                     HD**-0.5, dropout_rate=0.0, interpret=True, **kw)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    with chip_smoke.planted(chip_smoke.float_products(chip_smoke.tf32x3_model)):
+        got = ts.sliding_train_plain(t["hidden"], t["attention_mask"], t["global_mask"],
+                                     *(t[k] for k in ARGS[1:]), sm_scale=HD**-0.5, **kw)
+    live = inp["attention_mask"].astype(bool)
+    assert _normalized(got.numpy()[live], np.asarray(want)[live]) <= 1e-5
+
+
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
 def test_explicit_backward_on_the_tf32x3_model_matches_jax_kernel_vjp(global_rows):
     """Row 12's explicit plain backward with every product through the 3xTF32
     model (int8_matmul.tf32x3_product, as the card's float32 backward takes

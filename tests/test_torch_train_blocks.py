@@ -207,6 +207,50 @@ def test_wrappers_on_cpu_count_no_launches():
         tb.mlp_block_train(*(torch.from_numpy(inp[k]) for k in MLP_ARGS), activation="none")
 
 
+@pytest.mark.parametrize("part", ["gemm", "gemm_gate", "gemm_t", "residual", "residual_ln", "qkv",
+                                  "unpaired"])
+def test_forward_tile_on_cpu_runs_its_plain_arithmetic(part):
+    """train_blocks.forward_tile on a CPU tensor: the tile's arithmetic in
+    plain float32 (bias, activation, gate, a weight read transposed; residual
+    and LayerNorm; the q/k/v scatter with q scaled), no launch counted; a
+    residual without its LayerNorm or the reverse, and another device,
+    raise."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(15)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    a, w, bias, gate, resid = f(9, 20), f(20, 24), f(24), f(9, 24), f(9, 24)
+    ln = (1 + 0.1 * f(24), 0.1 * f(24))
+    y = a @ w + bias
+    n = tb.forward_tile.launches
+    if part == "unpaired":
+        for kw in (dict(resid=resid), dict(ln=ln), dict(kernel="gemm", resid=resid, ln=ln)):
+            with pytest.raises(ValueError, match="resid and ln"):
+                tb.forward_tile(a, w, bias, **{"kernel": "residual_ln", **kw})
+        return
+    if part == "gemm":
+        got, want = tb.forward_tile(a, w, bias), y
+    elif part == "gemm_gate":
+        got = tb.forward_tile(a, w, bias, gate=gate, activation="gelu")
+        want = F.gelu(y, approximate="tanh") * gate
+    elif part == "gemm_t":
+        got = tb.forward_tile(a, w.t().contiguous(), bias, kernel="gemm_t", gate=gate)
+        want = y * gate
+    elif part == "residual":
+        got, want = tb.forward_tile(a, w, bias, kernel="residual_ln"), y
+    elif part == "residual_ln":
+        got = tb.forward_tile(a, w, bias, kernel="residual_ln", resid=resid, ln=ln)
+        want = F.layer_norm(y + resid, (24,), *ln, eps=1e-12)
+    else:
+        got = tb.forward_tile(a, w, bias, kernel="qkv", heads=2, sm_scale=0.5)
+        q, k, v = y.reshape(9, 3, 2, 4).unbind(1)
+        want = torch.stack([q * 0.5, k, v]).permute(0, 2, 1, 3)[:, None]
+    assert tb.forward_tile.launches == n
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tb.forward_tile(a.to("meta"), w.to("meta"), bias.to("meta"))
+
+
 # ------------------------------------------------------- explicit backwards
 # The explicit plain backwards (train_blocks.*_bwd_plain) in float32 equal
 # autograd of the plain forwards (the same sums, another order of a few:
@@ -454,6 +498,23 @@ def test_mlp_explicit_backward_on_the_tf32x3_model_matches_jax_kernel_vjp():
     with chip_smoke.planted(_tf32x3_products()):
         got = _mlp_explicit(inp)
     _assert_close_rel(got, vjp(jnp.asarray(inp["cotangent"])), EXPLICIT_RTOL, MLP_ARGS)
+
+
+def test_mlp_plain_forward_on_the_tf32x3_model_matches_jax_kernel():
+    """Row 11's plain forward with both products through the 3xTF32 model
+    (chip_smoke.float_products), as the card's float32 forward takes them,
+    against JAX's training kernel (interpret mode) in float32: to
+    EXPLICIT_RTOL of the output's largest magnitude."""
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_blocks import mlp_block_train as jax_mlp
+
+    inp = _mlp_inputs(M=B * L, H=H, I=4 * H, seed=14)
+    want = jax_mlp(*(jnp.asarray(inp[k]) for k in MLP_ARGS), activation="gelu", interpret=True)
+    with chip_smoke.planted(chip_smoke.float_products(chip_smoke.tf32x3_model)):
+        got = tb.mlp_train_plain(*(torch.from_numpy(inp[k]) for k in MLP_ARGS),
+                                 activation="gelu")
+    _assert_close_rel([got], [want], EXPLICIT_RTOL)
 
 
 # ------------------------------------------- the bf16 cores' rounding models
@@ -802,7 +863,7 @@ def test_weight_grad_tile_matches_plain_on_card(cuda, dtype, M, Hin, N, splits):
 @pytest.mark.parametrize("gated", [False, True], ids=["plain", "gate"])
 def test_transposed_weight_tile_matches_tf32x3_model_on_card(cuda, M, N, K, gated):
     """The float32 backwards' product with a weight read transposed alone
-    (train_blocks.gemm_transposed on the 3xTF32 tile; the MLP's act' gate
+    (train_blocks.forward_tile's "gemm_t" on the 3xTF32 tile; the MLP's act' gate
     multiplied in) against the 3xTF32 model of the same product at ragged M,
     N and K (4-byte copies where K is odd), within chip_smoke.F32_BWD_GEMM_TOL;
     the plain-TF32 model lies beyond it."""
@@ -812,10 +873,10 @@ def test_transposed_weight_tile_matches_tf32x3_model_on_card(cuda, M, N, K, gate
     a = torch.randn(M, K, generator=g, device=cuda)
     w = torch.randn(N, K, generator=g, device=cuda)
     gate = torch.rand(M, N, generator=g, device=cuda) if gated else None
-    n = tb.gemm_transposed.launches
-    got = tb.gemm_transposed(a, w, gate)
+    n = tb.forward_tile.launches
+    got = tb.forward_tile(a, w, kernel="gemm_t", gate=gate)
     torch.cuda.synchronize()
-    assert tb.gemm_transposed.launches == n + 1
+    assert tb.forward_tile.launches == n + 1
     scale = lambda t: t if gate is None else t * gate
     want = {"out": scale(tf32x3_product(a, w.t()))}
     reading = chip_smoke.f32_gemm_readings({"out": got}, want)["out"]
@@ -823,6 +884,132 @@ def test_transposed_weight_tile_matches_tf32x3_model_on_card(cuda, M, N, K, gate
     bad = chip_smoke.f32_gemm_readings({"out": scale(tf32x3_product(a, w.t(), terms=1))},
                                        {"out": scale(a @ w.t())})["out"]
     assert chip_smoke.f32_gemm_excess(bad) > 1, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(70, 67, 131), (129, 130, 33), (200, 68, 3), (1000, 768, 3072),
+                                   (300, 2304, 4608)])
+@pytest.mark.parametrize("part", ["gemm", "gemm_gate", "residual", "residual_ln"])
+def test_forward_tiles_match_tf32x3_model_on_card(cuda, M, N, K, part):
+    """Each float32 forward tile function alone (train_blocks.forward_tile on
+    the 3xTF32 tile: the GEMM with bias and activation, with the act' gate
+    multiplied in; the residual-LayerNorm row block with and without its
+    LayerNorm) against the 3xTF32 model of the same arithmetic at ragged M,
+    N and K (4-byte copies where K or N is odd), within
+    chip_smoke.F32_FWD_TOL; the plain-TF32 model lies beyond it."""
+    import torch.nn.functional as F
+
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g, device=cuda)
+    w = torch.randn(K, N, generator=g, device=cuda) * K**-0.5
+    bias = torch.randn(N, generator=g, device=cuda) * 0.1
+    kw, epilogue = {}, lambda y: y + bias
+    if part == "gemm_gate":
+        kw = dict(gate=torch.rand(M, N, generator=g, device=cuda), activation="gelu")
+        epilogue = lambda y: F.gelu(y + bias, approximate="tanh") * kw["gate"]
+    elif part.startswith("residual"):
+        resid = torch.randn(M, N, generator=g, device=cuda)
+        ln = (1 + 0.1 * torch.randn(N, generator=g, device=cuda),
+              0.1 * torch.randn(N, generator=g, device=cuda))
+        kw = dict(kernel="residual_ln")
+        if part == "residual_ln":
+            kw.update(resid=resid, ln=ln)
+            epilogue = lambda y: F.layer_norm(y + bias + resid, (N,), *ln, eps=1e-12)
+    n = tb.forward_tile.launches
+    got = tb.forward_tile(a, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert tb.forward_tile.launches == n + 1
+    reading = chip_smoke.f32_gemm_readings({"out": got}, {"out": epilogue(tf32x3_product(a, w))})
+    assert chip_smoke.f32_gemm_excess(reading["out"], chip_smoke.F32_FWD_TOL) <= 1, reading
+    bad = chip_smoke.f32_gemm_readings({"out": epilogue(tf32x3_product(a, w, terms=1))},
+                                       {"out": epilogue(a @ w)})
+    assert chip_smoke.f32_gemm_excess(bad["out"], chip_smoke.F32_FWD_TOL) > 1, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,heads,hd,K", [(70, 2, 11, 131), (129, 3, 7, 33), (1000, 12, 64, 768),
+                                          (513, 4, 32, 768)])
+def test_qkv_projection_tile_matches_tf32x3_model_on_card(cuda, M, heads, hd, K):
+    """The float32 q/k/v projection tile alone (its scatter to (3, 1, nh, M,
+    hd), q scaled; odd head dims store element by element) against the
+    3xTF32 model, within chip_smoke.F32_FWD_TOL."""
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    N = 3 * heads * hd
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    a = torch.randn(M, K, generator=g, device=cuda)
+    w = torch.randn(K, N, generator=g, device=cuda) * K**-0.5
+    bias = torch.randn(N, generator=g, device=cuda) * 0.1
+    got = tb.forward_tile(a, w, bias, kernel="qkv", heads=heads, sm_scale=hd**-0.5)
+    want = tf32x3_product(a, w) + bias
+    want[:, :N // 3] *= hd**-0.5
+    want = want.reshape(M, 3, heads, hd).permute(1, 2, 0, 3)[:, None]
+    reading = chip_smoke.f32_gemm_readings({"qkv": got}, {"qkv": want})["qkv"]
+    assert chip_smoke.f32_gemm_excess(reading, chip_smoke.F32_FWD_TOL) <= 1, reading
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["attention", "mlp", "sliding", "bigbird"])
+def test_float32_backward_recomputes_the_forwards_products_on_card(cuda, kernel):
+    """Each float32 training backward (rows 10-13) recomputes its forward's
+    products on the forward's kernels and tiles: the backward's q, k, v (and
+    Longformer's global k, v; the MLP's h) equal the forward's bit for bit,
+    so it differentiates the forward's own values."""
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import bigbird_block, sliding_block
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    randn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    seed = torch.tensor([9], dtype=torch.int32, device=cuda)
+    fb, bb = {}, {}
+    if kernel == "mlp":
+        x, cot = randn(1000, 768), randn(1000, 768)
+        w1, b1, w2, b2 = randn(768, 3072) * 0.036, randn(3072) * 0.02, randn(3072, 768) * 0.018, \
+            randn(768) * 0.02
+        tb.mlp_train_fwd(x, w1, b1, w2, b2, activation="gelu", buffers=fb)
+        tb.mlp_train_bwd(x, w1, b1, w2, cot, activation="gelu", buffers=bb)
+        keys = ("h",)
+    elif kernel == "attention":
+        Bk, Lk = 3, 200
+        hidden, cot = randn(Bk, Lk, 256), randn(Bk, Lk, 256)
+        seg = torch.ones(Bk, Lk, dtype=torch.int32, device=cuda)
+        seg[1, 150:] = 0
+        wqkv, bqkv = randn(256, 768) * 0.06, randn(768) * 0.02
+        wo, bo = randn(256, 256) * 0.06, randn(256) * 0.02
+        kw = dict(num_heads=4, sm_scale=0.125, dropout_rate=0.1)
+        tb.attention_train_fwd(hidden, seg, seed, wqkv, bqkv, wo, bo, **kw, buffers=fb)
+        tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kw, buffers=bb)
+        keys = ("qkv",)
+    else:
+        Lk = 1024
+        hidden, cot = randn(2, Lk, 768), randn(2, Lk, 768)
+        mask = (torch.arange(Lk, device=cuda)[None] < torch.tensor([[Lk], [700]],
+                                                                    device=cuda)).int()
+        p = [randn(768, 3, 12, 64) * 0.036, randn(3, 12, 64) * 0.02, randn(12, 64, 768) * 0.036]
+        kw = dict(num_heads=12, sm_scale=0.125, dropout_rate=0.1)
+        if kernel == "sliding":
+            glob = torch.zeros_like(mask)
+            glob[:, 0] = 1
+            w = sliding_block.card_weights(p[0], p[1], p[0], p[1], p[2], torch.float32)
+            lk = dict(kw, window=256, max_globals=16, global_rows=True)
+            ts.sliding_train_fwd(hidden, mask, glob, seed, w, randn(768) * 0.02, **lk, buffers=fb)
+            ts.sliding_train_bwd(hidden, mask, glob, seed, w, cot, **lk, buffers=bb)
+            keys = ("qkv", "gkv")
+        else:
+            w = bigbird_block.card_weights(*p, torch.float32)
+            tables = bigbird_tables(Lk // 64, 2, 3, 0, cuda)
+            tbb.bigbird_train_fwd(hidden, mask, seed, w, randn(768) * 0.02, tables,
+                                  block_size=64, **kw, buffers=fb)
+            tbb.bigbird_train_bwd(hidden, mask, seed, w, cot, tables, block_size=64, **kw,
+                                  buffers=bb)
+            keys = ("qkv",)
+    torch.cuda.synchronize()
+    for k in keys:
+        assert torch.equal(fb[k], bb[k]), k
 
 
 def _long_backward(kernel, device, dtype=torch.bfloat16):

@@ -12,18 +12,19 @@
    (gemm_act, gemm_act_quant, qkv_proj, residual_ln and the W8A8 stack)
    holds IMMA, the tensor cores' int8 product, and no function but 1c's int8
    attention core and the W8A8 global query holds IDP4A (__dp4a); every
-   bf16 instantiation of the dense attention core (attn_core_kernel), of the
-   rows kernels (band_rows, bigbird_rows, attn_rows), of the Longformer
-   global rows (global_rows, its W8A8 and statistics-pass instances among
-   them), of the training gradient kernels (band, bigbird and attn dq and
-   dkv) and of the W8A8 stack entry holds HMMA, the tensor cores' product,
-   and no float32 one does; both the bf16 and the float32 (3xTF32)
-   instantiations of the GEMM tile's kernels (gemm_bias_act, a weight read
+   bf16 instantiation of the band and BigBird rows kernels, of the
+   Longformer global rows (global_rows, its W8A8 and statistics-pass
+   instances among them) and of the band and BigBird gradient kernels (dq
+   and dkv) holds HMMA, the tensor cores' product, and no float32 one does
+   (global_kv_grad none at all); both the bf16 and the float32 (3xTF32)
+   instantiations of the dense attention core (attn_core_kernel), of row
+   10's cores (attn_rows, attn_dq, attn_dkv), of the W8A8 stack entry (or
+   its core item), of the GEMM tile's kernels (gemm_bias_act, a weight read
    as stored or transposed, qkv_proj, gemm_bias_residual_ln, weight_grad,
-   act_and_grad) and of the float stack entry (or its out-of-line items)
-   hold HMMA; no other function does (sass_verdict). Prints the ptxas
-   registers and spills of those functions and the float and int8 tiles'
-   shared memory too.
+   act_and_grad) and of the float stack entry (or its out-of-line GEMM
+   items, and its core item) hold HMMA; no other function does
+   (sass_verdict). Prints the ptxas registers and spills of those functions
+   and the float and int8 tiles' shared memory too.
 3. Inference kernel phase: each inference kernel against its plain PyTorch
    version at the main path's shapes (B=32, L=512, H=768, 12 heads of 64,
    I=3072), bfloat16 and float32, with padded tails and two packed segments;
@@ -53,9 +54,12 @@
    the MLP intermediate rounded to bf16) each failing that check; the
    attention over a projected qkv (kernel 6) beside
    scaled_dot_product_attention (its TFLOP/s and ratio printed), also held
-   against its own rounding model (CORE_GATE) with two planted faults
-   failing that gate; the blocks' dense core alone at their own launch
-   (attention_block.attention_core), held to the same gate and timed beside
+   against its own rounding model (CORE_GATE; in float32 its products on
+   the 3xTF32 model) with two planted faults, and in float32 plain TF32 in
+   the model's core products (F32_CORE_FAULT), failing that gate; the
+   blocks' dense core alone at their own launch
+   (attention_block.attention_core), held to the same gate (F32_CORE_FAULT
+   failing it) and timed beside
    scaled_dot_product_attention: the core columns of rows 1 and 1 W8A8 (row
    3's cores run inside the stack, untimed: it gets the library calls
    only); and the whole-stack kernel (kernel 3) over 12 layers, W8A8 and float, bit-identical to the chain of kernels 1 and 2
@@ -73,7 +77,12 @@
    attention backward's dproj against the rounding model of its gradient
    kernels (BWD_CORE_TOL, three planted faults each failing it), two runs'
    dproj bit-identical, its forward and backward split by kernel name and
-   its peak memory.
+   its peak memory. In float32 (the cores on 3xTF32) the same split, dproj
+   against that model with its core products on the 3xTF32 model
+   (F32_BWD_CORE_TOL) at both rates, two runs' dproj bit-identical, and
+   plain TF32 in the plain version's or the model's core products
+   (F32_CORE_FAULT) failing F32_TOL (the output and the gradients, by
+   autograd through the same products), F32_FWD_TOL and F32_BWD_CORE_TOL.
 5. Inference main path: topic-segmentation inference through the port's CLI
    (cli/run_inference.main) at BERT-base widths in bfloat16 on a synthetic
    wiki_section corpus of several hundred 512-token windows, with
@@ -205,7 +214,12 @@
    rows_bound_ms and rows_library_ms of the kernels line's rows 7, 8, 12
    and 13. The same for attn_rows (row 10's rows kernel) at B=32, L=512 as
    its forward and statistics pass at dropout 0.1, then row 10's gradient
-   kernels alone (attn_dkv, attn_dq: dkv_ms, dq_ms, grad_bound_ms). Then the
+   kernels alone (attn_dkv, attn_dq: dkv_ms, dq_ms, grad_bound_ms), in bf16
+   and in float32 (3xTF32: the model's products on the 3xTF32 model, the
+   dropped key tile and F32_CORE_FAULT failing ROWS_TOL), and
+   scaled_dot_product_attention with the mask, forward and backward, on
+   the same q, k, v and dctx as the library column of rows 10, 12 and 13's
+   backward cores (core_library_ms), in both dtypes. Then the
    Longformer global rows alone (global_rows_kernel on global_rows_mma.cuh's
    tensor-core body, train_sliding.sliding_global_rows) at B=8, L=2048 with
    CLS global (n_glob 1) and with 16 global tokens, in each mode: kernel 7
@@ -319,6 +333,21 @@ SNLD_TOL = {"float32": (1e-2, 2e-2), "bfloat16": (5e-2, 2e-2)}
 # it). Each of CORE_FAULTS, planted in the model (blhd_attention.py
 # core_alpha, core_allowed), must fail it.
 CORE_GATE = {"bfloat16": (2**-7, 1e-4), "float32": (1e-4, 1e-4)}
+# Kernel 6 takes its exponent in bf16 whatever its element type. In float32
+# its core now sums 3xTF32 products on the tensor cores, in another order
+# than the model's float32 products (the CUDA-core core's sums had matched
+# them bit for bit: 1.13e-6 against 2.31e-4, PERF.md), so s - m moves by
+# float32 rounding and the bf16 rounding of some s - m flips, as it does in
+# bf16; a flip moves a context by up to about one bf16 step of its
+# exponent's share, and one reading on the H100 (the card tests, PERF.md)
+# was 4.4e-3 against CORE_GATE["float32"]'s 5.7e-4. Its float32 gate is
+# then the bf16 exponent's: CORE_GATE["bfloat16"] element by element, and
+# in norm, ||err|| <= 2e-4 ||ref|| (ROWS_TOL["bfloat16"]'s norm part, the
+# bf16-exponent rows kernels'), which such rare flips hardly move (1.6e-5
+# to 5.0e-5 on the CPU for the same TF32 terms summed in float64 instead)
+# and plain TF32 core products (F32_CORE_FAULT: 1.25e-3 to 1.38e-3) and
+# CORE_FAULTS fail: SNLD_F32_GATE = ((rel, atol), norm).
+SNLD_F32_GATE = ((2**-7, 1e-4), 2e-4)
 CORE_FAULTS = ("rescale alpha not applied", "packed-segment mask reduced to the padding mask")
 # the stack runs the device code of kernels 1 and 2 on the same tiles: it
 # must equal their chain bit for bit. Against the plain loop of layers:
@@ -926,35 +955,136 @@ def float_products(stand_in):
                       train_bigbird, train_blocks, train_sliding)]
 
 
+_PRODUCT_FN = []
+
+
+def model_product(a, b, terms: int = 3):
+    """a . b through int8_matmul.tf32x3_product (``terms`` 3: the 3xTF32
+    model, 1: plain TF32), differentiable: its backward takes the two
+    gradient products the same way, so autograd of a plain version with a
+    product planted reads that product's model in its backward too."""
+    if not _PRODUCT_FN:
+        import torch
+
+        from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+        class Product(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, y, n):
+                ctx.save_for_backward(x, y)
+                ctx.n = n
+                return tf32x3_product(x, y, n)
+
+            @staticmethod
+            def backward(ctx, g):
+                x, y = ctx.saved_tensors
+                return (tf32x3_product(g, y.transpose(-1, -2), ctx.n),
+                        tf32x3_product(x.transpose(-1, -2), g, ctx.n), None)
+
+        _PRODUCT_FN.append(Product)
+    return _PRODUCT_FN[0].apply(a, b, terms)
+
+
 def tf32x3_model(real, a, b):
     """A planted() stand-in: the product a . b as the 3xTF32 tile takes it."""
-    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
-
-    return tf32x3_product(a, b)
+    return model_product(a, b)
 
 
 def plain_tf32(real, a, b):
     """A planted() stand-in: the product a . b in plain TF32 (F32_GEMM_FAULT)."""
-    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
-
-    return tf32x3_product(a, b, terms=1)
+    return model_product(a, b, terms=1)
 
 
-def check_f32_forward(name: str, got: dict, plain, tol=F32_FWD_TOL) -> dict:
+# The float32 dense attention cores on the tensor cores (attention_core.cuh's
+# 3xTF32 core: kernels 1, 1 W8A8's float32 mode, 1b, 3 and 6; row 10's
+# attn_rows, attn_dkv and attn_dq on the float32 bodies of
+# attention_rows_mma.cuh and attention_grad_mma.cuh) run S, dP, P V, dS k,
+# dS^T q and p_eff^T dctx as 3xTF32. Their plain versions and rounding
+# models take those products through attention_models.core_product: on the
+# 3xTF32 model (core_products(tf32x3_model)) they are what the kernels'
+# gates read against, and plain TF32 there (F32_CORE_FAULT) must fail every
+# float32 gate of a kernel with a dense core: CORE_GATE (the core alone,
+# kernel 6), F32_FWD_TOL (kernel 1, the stack, row 10's forward), F32_TOL
+# (row 10's output and gradients against autograd of its plain version)
+# and the dproj reading below. Row 10's float32 gradient kernels against
+# attention_core_bwd_model on the 3xTF32 model, dense over a sequence's keys
+# with float32 sums: element by element max |err| <= s max |ref| and in
+# norm ||err|| <= r ||ref|| in each slot of dproj, F32_BWD_CORE_TOL = (s,
+# r), as F32_FWD_TOL reads: on the CPU (B=4, L=512, 12 heads of 64,
+# dropout 0.1) the 3xTF32 model reads 1.1e-7 / 5.9e-7 against exact float32
+# products, plain TF32 2.5e-4 to 3.5e-4 / 4.2e-4 to 5.1e-4; the kernel
+# differs from its model only in the order of its float32 sums.
+F32_CORE_FAULT = "plain TF32 core products"
+F32_BWD_CORE_TOL = (1e-4, 8e-5)
+
+
+def card_core(real, q, k, v, segment_ids, exp_dtype):
+    """A planted() stand-in for attention_block.attention_core_plain: the
+    card's own dense core (attention_block.attention_core, the blocks'
+    launch) on the same q, k, v (B, L, nh, hd), as float32 (B, L, nh, hd)."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda.attention_block import attention_core
+
+    B, L, nh, hd = q.shape
+    qkv = torch.stack([q, k, v]).transpose(2, 3).contiguous()
+    return attention_core(qkv, segment_ids).float().reshape(B, L, nh, hd)
+
+
+# The W8A8 attention block's float32 mode row-quantises the context of the
+# float32 core. The 3xTF32 core's context differs from any float32 model of
+# it by the tensor cores' truncating sums (about 8e-6 of max |ctx| at the
+# main path's shapes, PERF.md), which moves an int8 step of ctx, and with it
+# a row of outputs, for about 2.5 % of the outputs (H100, the card tests):
+# W8A8_SHARE's 1 % is for the block's own float32 sums. So in float32 the
+# W8A8 check reads the block's plain version on the kernel's own core
+# (card_core), which CORE_GATE holds to its rounding model at the same
+# launch (core_columns).
+def on_card_core(dtype: str, fn):
+    """fn() with attention_block.attention_core_plain sent to card_core in
+    float32; fn() in bf16."""
+    from spokennlp_tpu_torch.ops.cuda import attention_block as ab
+
+    if dtype != "float32":
+        return fn()
+    with planted([(ab, "attention_core_plain", None, card_core)]):
+        return fn()
+
+
+def core_products(stand_in):
+    """planted() patches: every product of the attention cores' plain
+    versions and rounding models (attention_models.core_product) sent to
+    stand_in(the real function, a, b)."""
+    from spokennlp_tpu_torch.ops.cuda import attention_models as am
+
+    return [(am, "core_product", None, stand_in)]
+
+
+def check_f32_forward(name: str, got: dict, plain, tol=F32_FWD_TOL, core: bool = False,
+                      gate_core_fault: bool = True) -> dict:
     """Kernel ``name``'s float32 outputs ``got`` ({output: tensor}, real rows
     only) against its plain version (``plain()`` -> the same keys) with every
     float product through tf32x3_model, within ``tol`` (F32_FWD_TOL's max and
     norm parts); plain_tf32 planted in the same products must fail it in at
-    least one output. Returns {"model_reading", "model_norm_reading": the
-    largest of each part, "fault_excess": the fault's largest excess
-    (f32_gemm_excess)}."""
+    least one output. With ``core`` (a kernel with a dense float32 core) the
+    core's products are on the model too, and F32_CORE_FAULT, plain TF32 in
+    those alone, must fail it as well (printed only, without
+    ``gate_core_fault``: the stack, whose core's share of an output the
+    residual shrinks layer after layer). Returns {"model_reading",
+    "model_norm_reading": the largest of each part, "fault_excess": the
+    fault's largest excess (f32_gemm_excess), and with ``core``
+    "core_fault_excess"}."""
     import torch
 
+    cores = lambda stand_in: core_products(stand_in) if core else []
     with torch.no_grad():
-        with planted(float_products(tf32x3_model)):
+        with planted(float_products(tf32x3_model) + cores(tf32x3_model)):
             want = plain()
-        with planted(float_products(plain_tf32)):
+        with planted(float_products(plain_tf32) + cores(plain_tf32)):
             bad = f32_gemm_readings(got, plain())
+        if core:
+            with planted(float_products(tf32x3_model) + cores(plain_tf32)):
+                bad_core = f32_gemm_readings(got, plain())
     readings = f32_gemm_readings(got, want)
     fmt = lambda r: ", ".join(f"{k} {v[0]:.2e} / {v[1]:.2e}" for k, v in r.items())
     print(f"  {name} float32 against its plain version on the 3xTF32 model (max, norm): "
@@ -963,13 +1093,51 @@ def check_f32_forward(name: str, got: dict, plain, tol=F32_FWD_TOL) -> dict:
     if f32_gemm_excess(readings[worst], tol) > 1:
         fail(f"{name} float32: {worst} reads {readings[worst]} against the 3xTF32 model, beyond "
              f"its limit {tol}")
-    fault = max(f32_gemm_excess(r, tol) for r in bad.values())
-    print(f"  planted fault, {name}'s plain version with {F32_GEMM_FAULT}: " + fmt(bad) + ": "
-          + ("rejected" if fault > 1 else "ACCEPTED"))
-    if fault <= 1:
-        fail(f"the float32 forward limit of {name} accepts {F32_GEMM_FAULT}")
-    return {"model_reading": max(r[0] for r in readings.values()),
-            "model_norm_reading": max(r[1] for r in readings.values()), "fault_excess": fault}
+    out = {"model_reading": max(r[0] for r in readings.values()),
+           "model_norm_reading": max(r[1] for r in readings.values())}
+    faults = [(F32_GEMM_FAULT, bad, "fault_excess")]
+    if core:
+        faults.append((F32_CORE_FAULT, bad_core, "core_fault_excess"))
+    for fault, reading, key in faults:
+        excess = max(f32_gemm_excess(r, tol) for r in reading.values())
+        print(f"  planted fault, {name}'s plain version with {fault}: " + fmt(reading) + ": "
+              + ("rejected" if excess > 1 else "ACCEPTED")
+              + ("" if key == "fault_excess" or gate_core_fault else " (printed, not gated)"))
+        if excess <= 1 and (key == "fault_excess" or gate_core_fault):
+            fail(f"the float32 forward limit of {name} accepts {fault}")
+        out[key] = excess
+    return out
+
+
+def check_f32_backward_cores(name: str, dproj, model, hn: int) -> dict:
+    """Row ``name``'s float32 dproj (its gradient kernels' dq, dk, dv)
+    against its rounding model (``model()`` -> the model's dproj) with the
+    core products on the 3xTF32 model, within F32_BWD_CORE_TOL; the model
+    with F32_CORE_FAULT, and with its key tile dropped (core_bwd_faults),
+    must fail it. Returns {reading, norm_reading, faults: {fault: (max,
+    norm)}}."""
+    show = lambda rd: ", ".join(f"{k} {e:.2e} / {n:.2e}" for k, (e, n) in rd.items())
+    with planted(core_products(tf32x3_model)):
+        readings = core_bwd_readings(dproj, model(), hn, rtol=0.0)
+    print(f"  {name} float32 gradient kernels against their rounding model on the 3xTF32 model, "
+          f"max / norm: {show(readings)} (limits {F32_BWD_CORE_TOL})")
+    if core_bwd_excess(readings, F32_BWD_CORE_TOL) > 1:
+        fail(f"{name} float32: dproj beyond its rounding model's limits: {show(readings)}")
+    faults = {}
+    tile = BWD_CORE_FAULTS[2]
+    for fault, patches in ((F32_CORE_FAULT, core_products(plain_tf32)),
+                           (tile, core_products(tf32x3_model) + core_bwd_faults(name)[tile])):
+        with planted(patches):
+            bad = core_bwd_readings(dproj, model(), hn, rtol=0.0)
+        worst = (max(e for e, _ in bad.values()), max(n for _, n in bad.values()))
+        faults[fault] = worst
+        rejected = core_bwd_excess(bad, F32_BWD_CORE_TOL) > 1
+        print(f"  planted fault, {name}'s float32 rounding model with {fault}: max {worst[0]:.2e}, "
+              f"norm {worst[1]:.2e}: " + ("rejected" if rejected else "ACCEPTED"))
+        if not rejected:
+            fail(f"the float32 rounding-model limits of {name} accept {fault}")
+    return {"reading": max(e for e, _ in readings.values()),
+            "norm_reading": max(n for _, n in readings.values()), "faults": faults}
 
 
 # The bf16 gradient kernels of rows 12 and 13's backwards (band_dq,
@@ -1038,9 +1206,10 @@ def core_bwd_faults(name: str) -> dict:
     return faults
 
 
-def core_bwd_readings(got, want, hn: int) -> dict:
-    """{slot of dproj: (max(|got - want| - 2^-7 |want|) / max |want|,
-    ||got - want|| / ||want||)}."""
+def core_bwd_readings(got, want, hn: int, rtol: float = 2**-7) -> dict:
+    """{slot of dproj: (max(|got - want| - rtol |want|) / max |want|,
+    ||got - want|| / ||want||)}: rtol 2^-7 takes the bf16 rounding of dq,
+    dk and dv on both sides, 0 reads a float32 dproj."""
     import torch
 
     out = {}
@@ -1048,7 +1217,7 @@ def core_bwd_readings(got, want, hn: int) -> dict:
         g, w = got[:, i * hn:(i + 1) * hn].float(), want[:, i * hn:(i + 1) * hn].float()
         if not torch.isfinite(g).all():
             fail(f"non-finite {DPROJ_SLOTS[i]}")
-        out[DPROJ_SLOTS[i]] = (beyond_limit(g, w, (0.0, 2**-7)) / max(w.abs().max().item(), 1e-30),
+        out[DPROJ_SLOTS[i]] = (beyond_limit(g, w, (0.0, rtol)) / max(w.abs().max().item(), 1e-30),
                                ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
     return out
 
@@ -1189,19 +1358,28 @@ def rows_tol(got):
     return ROWS_TOL[str(got[0].dtype).split(".")[-1]]
 
 
-def check_rows(label: str, name: str, got, model) -> dict:
+def check_rows(label: str, name: str, got, model, f32: bool = False) -> dict:
     """A rows kernel's (ctx, stats) against ``model()`` within ROWS_TOL; each
-    of ROWS_FAULTS planted in the model must fail it. Returns {reading,
-    norm_reading, faults: {fault: (element-wise, norm)}}."""
+    of ROWS_FAULTS planted in the model must fail it. ``f32``: a float32
+    kernel on 3xTF32 (row 10's attn_rows), whose model takes its products on
+    the 3xTF32 model and whose e is unrounded, so that only the dropped key
+    tile of ROWS_FAULTS is a fault there, and F32_CORE_FAULT beside it.
+    Returns {reading, norm_reading, faults: {fault: (element-wise, norm)}}."""
     show = lambda rd: ", ".join(f"{k} {e:.2e} / {n:.2e}" for k, (e, n) in rd.items())
     tol = rows_tol(got)
-    readings = rows_readings(got, model())
+    base = core_products(tf32x3_model) if f32 else []
+    with planted(base):
+        readings = rows_readings(got, model())
     print(f"  {label} against its rounding model, element-wise / norm: {show(readings)} (limits "
           f"{tol[0]:g} max |ref|, {tol[1]:g} ||ref||)")
     if core_bwd_excess(readings, tol) > 1:
         fail(f"{label}: beyond its rounding model's limits: {show(readings)}")
     faults = {}
-    for fault, patches in rows_faults(name).items():
+    plants = rows_faults(name)
+    if f32:
+        plants = {ROWS_FAULTS[1]: base + plants[ROWS_FAULTS[1]],
+                  F32_CORE_FAULT: core_products(plain_tf32)}
+    for fault, patches in plants.items():
         with planted(patches):
             bad = rows_readings(got, model())
         worst = (max(e for e, _ in bad.values()), max(n for _, n in bad.values()))
@@ -1465,16 +1643,16 @@ def rows_kernel_phase(device, rows: dict):
     seed = torch.tensor([20231020], dtype=torch.int32, device=device)
     heads = lambda t: t.transpose(1, 2)
 
-    def run(label, name, row, launch, model, work_pairs, qkv, dctx, sdpa):
+    def run(label, name, row, launch, model, work_pairs, qkv, dctx, sdpa, f32=False):
         """check, time and bound one mode; returns its readings."""
         got = launch()
         torch.cuda.synchronize()
-        gate = check_rows(label, name, got, model)
+        gate = check_rows(label, name, got, model, f32)
         ms = time_ms(launch)
         Bq, Lq = qkv.shape[1], qkv.shape[3]
         flops = 4 * NH * HD * work_pairs * (1.5 if dctx is not None else 1.0)
         io = nbytes(qkv, got[0]) + (0 if dctx is None else nbytes(dctx, got[1]))
-        b = bound(flops, io)
+        b = bound(flops, io, "tf32x3" if f32 else "bfloat16")
         row.update(rows_ms=ms, rows_bound_ms=b["bound_ms"], rows_bound_by=b["bound_by"],
                    rows_reading=gate["reading"], rows_norm_reading=gate["norm_reading"])
         lib = ""
@@ -1491,6 +1669,20 @@ def rows_kernel_phase(device, rows: dict):
                                                                     scale=scale),
                             f"{label} (scaled_dot_product_attention with the mask, dense)")
 
+    def sdpa_bwd_ms(qkv, dctx, allowed, label, scale=1.0):
+        """SDPA with the mask, forward and backward (autograd to q, k and v
+        with the cotangent dctx): the library column of a backward's cores"""
+        q, k, v = (t.detach().requires_grad_() for t in qkv.unbind(0))
+        Bq, nq, Lq, hq = q.shape
+        g = dctx.reshape(Bq, Lq, nq, hq).transpose(1, 2)
+
+        def call():
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=scale)
+            return torch.autograd.grad(out, (q, k, v), g)
+
+        return library_time(call, f"{label} (scaled_dot_product_attention with the mask, dense, "
+                                  "forward and backward)")
+
     # attn_rows at row 10's shape, then its gradient kernels alone
     from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
 
@@ -1499,7 +1691,8 @@ def rows_kernel_phase(device, rows: dict):
     dctx = randn(B, L, HN).to(bf16)
     allowed = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None]
     lib = sdpa_ms(qkv, allowed, "attn_rows", scale=sm)
-    del allowed
+    rows["attention_train_bwd", "bfloat16"]["core_library_ms"] = sdpa_bwd_ms(
+        qkv, dctx, allowed, "row 10's backward cores bfloat16", scale=sm)
     keep = tb.dropout_keep_mask(seed, B, NH, L, DROPOUT)
     for label, name, dc, lib_ms in (
             ("attn_rows (row 10 forward, dropout 0.1)", "attention_train_fwd", None, lib),
@@ -1527,6 +1720,39 @@ def rows_kernel_phase(device, rows: dict):
     del qkv, dctx, keep, stats, out
     torch.cuda.empty_cache()
 
+    # row 10's float32 cores on 3xTF32: attn_rows as the forward and the
+    # statistics pass, then attn_dkv and attn_dq alone, with SDPA's
+    # columns on the same float32 q, k, v and dctx
+    f32 = torch.float32
+    qkv = rows_qkv(randn, B, L, f32, scale_q=False)
+    dctx = randn(B, L, HN)
+    lib = sdpa_ms(qkv, allowed, "attn_rows float32", scale=sm)
+    rows["attention_train_bwd", "float32"]["core_library_ms"] = sdpa_bwd_ms(
+        qkv, dctx, allowed, "row 10's backward cores float32", scale=sm)
+    del allowed
+    keep = tb.dropout_keep_mask(seed, B, NH, L, DROPOUT)
+    for label, name, dc, lib_ms in (
+            ("attn_rows float32 (row 10 forward, dropout 0.1)", "attention_train_fwd", None, lib),
+            ("attn_rows float32 (row 10 statistics pass, dropout 0.1)", "attention_train_bwd",
+             dctx, None)):
+        run(label, "attn_rows", rows[name, "float32"],
+            lambda: tb.attention_rows(qkv, seg, seed, sm_scale=sm, dctx=dc, dropout_rate=DROPOUT),
+            lambda: tb.attention_rows_model(
+                qkv[0], qkv[1], qkv[2], seg, sm_scale=sm, dropout_rate=DROPOUT, keep=keep,
+                dctx=None if dc is None else dc.reshape(B, L, NH, HD)),
+            B * L * L, qkv, dc, lib_ms, f32=True)
+    stats = tb.attention_rows(qkv, seg, seed, sm_scale=sm, dctx=dctx, dropout_rate=DROPOUT)[1]
+    out = grad(1)
+    row = rows["attention_train_bwd", "float32"]
+    row.update(dkv_ms=time_ms(lambda: grad(1, out)), dq_ms=time_ms(lambda: grad(2, out)))
+    row["grad_bound_ms"] = bound(10 * NH * HD * B * L * L,
+                                 7 * nbytes(dctx) + nbytes(stats), "tf32x3")["bound_ms"]
+    print(f"kernel attn_dkv float32 (row 10): {row['dkv_ms']:.3f} ms alone, attn_dq "
+          f"{row['dq_ms']:.3f} ms alone (from the stored float32 dS tiles); the pair's bound "
+          f"{row['grad_bound_ms']:.3f} ms (3xTF32)")
+    del qkv, dctx, keep, stats, out
+    torch.cuda.empty_cache()
+
     # band_rows at kernel 7's and row 12's shape
     mask, glob = sliding_masks(device)
     n_valid, n_glob = mask.sum(1), glob.sum(1)
@@ -1539,7 +1765,12 @@ def rows_kernel_phase(device, rows: dict):
     allowed = torch.stack([ts.sliding_model_allowed(LF_L, C, int(nv), int(ng), device)
                            for nv, ng in zip(n_valid, n_glob)])[:, None]
     lib = sdpa_ms(qkv, allowed, "band_rows")
-    del allowed
+    rows["sliding_train_bwd", "bfloat16"]["core_library_ms"] = sdpa_bwd_ms(
+        qkv, dctx, allowed, "row 12's backward cores bfloat16")
+    qkv32 = qkv.float()
+    rows["sliding_train_bwd", "float32"]["core_library_ms"] = sdpa_bwd_ms(
+        qkv32, dctx.float(), allowed, "row 12's backward cores float32")
+    del allowed, qkv32
     keep = ts.sliding_keep_masks(seed, LF_B, NH, LF_L, LF_WINDOW, G, DROPOUT)
     model = lambda rate, ctx_dtype=None, dc=None: ts.sliding_rows_model(
         qkv[0], qkv[1], qkv[2], None, n_valid, n_glob, window=LF_WINDOW, dropout_rate=rate,
@@ -1584,6 +1815,10 @@ def rows_kernel_phase(device, rows: dict):
         allowed = (reg[None] & (torch.arange(Lq, device=device)[None, None]
                                 < n_valid[:, None, None]))[:, None]
         lib = sdpa_ms(qkv, allowed, f"bigbird_rows B={Bq} L={Lq}")
+        if Bq == BB_TRAIN_B:  # row 13's backward cores
+            for dt_name, cast in (("bfloat16", lambda t: t), ("float32", lambda t: t.float())):
+                rows["bigbird_train_bwd", dt_name]["core_library_ms"] = sdpa_bwd_ms(
+                    cast(qkv), cast(dctx), allowed, f"row 13's backward cores {dt_name}")
         del allowed, reg
         keep = tbb.bigbird_keep_masks(seed, Bq, NH, Lq, BB_BLOCK, t.G, t.R, DROPOUT)
         for label, name, rate, cdt, grad in modes:
@@ -1600,12 +1835,14 @@ def rows_kernel_phase(device, rows: dict):
         torch.cuda.empty_cache()
 
 
-def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False):
+def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False, model=None):
     """Check kernel against plain on the valid rows (``tol`` = (atol, rtol),
-    the kernel's limit by default; ``w8a8``: w8a8_check); time both."""
+    the kernel's limit by default; ``w8a8``: w8a8_check), or against
+    ``model`` where given (the plain version on a rounding model of the
+    kernel's products); time the kernel and plain."""
     import torch
 
-    got, want = kernel(), plain()
+    got, want = kernel(), (model or plain)()
     torch.cuda.synchronize()
     got, want = got[valid].float(), want[valid].float()
     if not torch.isfinite(got).all():
@@ -1661,21 +1898,24 @@ IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_k
 # tensor cores all the same)
 IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # the functions that run bf16 products on the tensor cores and float32 ones
-# on the CUDA cores: the dense attention core's kernel (kernels 1 and 6), the
-# Longformer and BigBird backwards' gradient kernels (attention_grad_mma.cuh),
-# the sliding-window and BigBird rows kernels (attention_rows_mma.cuh: kernels
-# 7 and 8 in both modes, rows 12 and 13's forwards and statistics passes),
-# the Longformer global rows (global_rows_mma.cuh: kernel 7 in both modes,
-# row 12's forward and statistics pass; the bf16 query, S, P.V, dP and dS .
-# kg), row 10's three cores (its rows kernel on attention_rows_mma.cuh, its
-# gradient kernels on attention_grad_mma.cuh), the W8A8 stack (the bf16 core
-# out of line in stack_core_item; int8 GEMMs, and in float32 the core on the
-# CUDA cores). Each bf16 instantiation must hold HMMA (the W8A8 stack entry
-# itself or in its core item), the float32 ones none
-HMMA_KERNELS = ("attn_core_kernel", "encoder_stack_i8_kernel", "band_dq_kernel",
-                "band_dkv_kernel", "bigbird_dq_kernel", "bigbird_dkv_kernel", "band_rows_kernel",
-                "bigbird_rows_kernel", "global_rows_kernel", "attn_rows_kernel", "attn_dq_kernel",
-                "attn_dkv_kernel")
+# on the CUDA cores: the Longformer and BigBird backwards' gradient kernels
+# (attention_grad_mma.cuh), the sliding-window and BigBird rows kernels
+# (attention_rows_mma.cuh: kernels 7 and 8 in both modes, rows 12 and 13's
+# forwards and statistics passes), the Longformer global rows
+# (global_rows_mma.cuh: kernel 7 in both modes, row 12's forward and
+# statistics pass; the bf16 query, S, P.V, dP and dS . kg). Each bf16
+# instantiation must hold HMMA, the float32 ones none
+HMMA_KERNELS = ("band_dq_kernel", "band_dkv_kernel", "bigbird_dq_kernel", "bigbird_dkv_kernel",
+                "band_rows_kernel", "bigbird_rows_kernel", "global_rows_kernel")
+# the dense attention cores, on the tensor cores in both dtypes (bf16
+# mma.sync, float32 as 3xTF32 on mma.sync TF32: HMMA in SASS): the dense
+# core's kernel (kernels 1 and 6), row 10's three cores (its rows kernel on
+# attention_rows_mma.cuh, its gradient kernels on attention_grad_mma.cuh)
+# and the W8A8 stack (int8 GEMMs, the core out of line in stack_core_item).
+# Both instantiations of each must exist and hold HMMA (the W8A8 stack entry
+# itself or in its core item of its element type)
+CORE_HMMA_KERNELS = ("attn_core_kernel", "attn_rows_kernel", "attn_dq_kernel",
+                     "attn_dkv_kernel", "encoder_stack_i8_kernel")
 # the GEMM tile's kernels (bf16_gemm.cuh: kernels 1-3, 7-9 and the training
 # kernels' forward products, the products their backwards recompute, with
 # the MLP's act' epilogue (act_and_grad_kernel), those with a weight read as
@@ -1687,11 +1927,11 @@ HMMA_KERNELS = ("attn_core_kernel", "encoder_stack_i8_kernel", "band_dq_kernel",
 GEMM_HMMA_KERNELS = ("gemm_bias_act_kernel", "qkv_proj_kernel",
                      "gemm_bias_residual_ln_kernel", "weight_grad_kernel", "act_and_grad_kernel",
                      "encoder_stack_kernel")
-# the float stacks' out-of-line items (stack_block.cu): stack_core_item (bf16,
-# a template on the head dim) and the three GEMM items (templates on the
-# element type)
+# the float stacks' out-of-line items (stack_block.cu): stack_core_item (a
+# template on the element type and the head dim, the W8A8 stacks' too) and
+# the three GEMM items (templates on the element type)
 STACK_GEMM_ITEMS = ("stack_qkv_item", "stack_gemm_act_item", "stack_residual_ln_item")
-CORE_REPORT = ("attn_core_kernel", "attn_core_simt_kernel", "encoder_stack_kernel",
+CORE_REPORT = ("attn_core_kernel", "encoder_stack_kernel",
                "band_dq_kernel", "band_dkv_kernel", "global_kv_grad_kernel",
                "bigbird_dq_kernel", "bigbird_dkv_kernel", "band_rows_kernel",
                "global_rows_kernel", "bigbird_rows_kernel", "attn_rows_kernel", "attn_dq_kernel",
@@ -1769,11 +2009,11 @@ def sass_verdict(counts: dict) -> list:
     """The SASS check's findings on {mangled function: [IMMA, IDP4A, HMMA]
     counts} (one entry a function of the disassembly): every int8 tile
     kernel (IMMA_KERNELS) holds IMMA; no function outside IDP4A_ALLOWED holds
-    IDP4A; each bf16 instantiation of HMMA_KERNELS holds HMMA (the W8A8
-    stack entry itself or in its core item), no float32 one does; both
-    instantiations of each of GEMM_HMMA_KERNELS exist and hold HMMA (the
-    float stack entry itself or in its items of its element type); and no
-    other function holds HMMA. Returns the failures, [] when it passes."""
+    IDP4A; each bf16 instantiation of HMMA_KERNELS holds HMMA, no float32 one
+    does; both instantiations of each of CORE_HMMA_KERNELS and
+    GEMM_HMMA_KERNELS exist and hold HMMA (a stack entry itself or in its
+    items of its element type); and no other function holds HMMA. Returns
+    the failures, [] when it passes."""
     bad = []
     for p in IMMA_KERNELS:
         found = [n for n in counts if p in n]
@@ -1785,12 +2025,17 @@ def sass_verdict(counts: dict) -> list:
              if dp4a and not any(a in n for a in IDP4A_ALLOWED)]
     if stray:
         bad.append(f"IDP4A outside the int8 attention core and the global query: {stray}")
-    # HMMA of the out-of-line items: stack_core_item by its template
-    # argument, the head dim; the GEMM items by theirs, the element type
-    core_items = {template_args(n, "stack_core_item"): c[2] for n, c in counts.items()
-                  if "stack_core_itemI" in n}
-    gemm_items = {}
+    # HMMA of the out-of-line items, by their template arguments: the
+    # element type (and the head dim of stack_core_item, "<T>Li<HD>")
+    core_items, gemm_items = {}, {}
     for n, c in counts.items():
+        if "stack_core_itemI" in n:
+            f32 = is_float32_instance(n, "stack_core_item")
+            args = template_args(n, "stack_core_item")
+            core_items[f32, "L" + args.split("L", 1)[1]] = c[2]
+            if not c[2]:
+                bad.append(f"{n} has no HMMA: the {'float32' if f32 else 'bf16'} stack's core "
+                           "does not run on the tensor cores")
         for p in STACK_GEMM_ITEMS:
             if f"{p}I" in n:
                 f32 = is_float32_instance(n, p)
@@ -1798,23 +2043,19 @@ def sass_verdict(counts: dict) -> list:
                 if not c[2]:
                     bad.append(f"{n} has no HMMA: the {'float32' if f32 else 'bf16'} stack's "
                                "GEMMs do not run on the tensor cores")
-    bad += [f"{n} has no HMMA: the bf16 stack's core does not run on the tensor cores"
-            for n, hmma in core_items.items() if not hmma]
-    for p in HMMA_KERNELS + GEMM_HMMA_KERNELS:
+    for p in HMMA_KERNELS + CORE_HMMA_KERNELS + GEMM_HMMA_KERNELS:
         found = [n for n in counts if f"{p}I" in n]
-        both = p in GEMM_HMMA_KERNELS
+        both = p not in HMMA_KERNELS
         for want_f32 in (False, True) if both else (False,):
             if not any(is_float32_instance(n, p) == want_f32 for n in found):
                 bad.append(f"cuobjdump -sass shows no {'float32' if want_f32 else 'bf16'} "
                            f"instantiation of {p}")
         for n in found:
             args, hmma, f32 = template_args(n, p), counts[n][2], is_float32_instance(n, p)
-            if p == "encoder_stack_i8_kernel" and not f32:  # "<T>Li<HD>" -> "Li<HD>"
-                hmma += core_items.get("L" + args.split("L", 1)[1], 0)
-            if p == "encoder_stack_kernel":
+            if p == "encoder_stack_i8_kernel":  # its core item, "<T>Li<HD>"
+                hmma += core_items.get((f32, "L" + args.split("L", 1)[1]), 0)
+            if p == "encoder_stack_kernel":  # its GEMM items (its core item is read above)
                 hmma += sum(h for g, (f, h) in gemm_items.items() if f == f32)
-                if not f32:
-                    hmma += core_items.get("L" + args.split("L", 1)[1], 0)
             if both and not hmma:
                 bad.append(f"{n} has no HMMA: its {'float32' if f32 else 'bf16'} products do not "
                            "run on the tensor cores")
@@ -1823,8 +2064,9 @@ def sass_verdict(counts: dict) -> list:
             elif not both and not f32 and not hmma:
                 bad.append(f"{n} has no HMMA: its bf16 products do not run on the tensor cores")
     stray = [n for n, c in counts.items()
-             if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS + GEMM_HMMA_KERNELS
-                                 + ("stack_core_item",)) and n not in gemm_items]
+             if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS + CORE_HMMA_KERNELS
+                                 + GEMM_HMMA_KERNELS + ("stack_core_item",))
+             and n not in gemm_items]
     if stray:
         bad.append(f"HMMA outside the tensor-core functions: {stray}")
     return bad
@@ -1916,7 +2158,7 @@ def kernel_phase(device) -> dict:
                 "fused_attention_block", {"out": call(fused_attention_block)[valid],
                                           "projection": proj(fused_attention_block)[valid]},
                 lambda: {"out": call(attention_block_plain)[valid],
-                         "projection": proj(attention_block_plain)[valid]}))
+                         "projection": proj(attention_block_plain)[valid]}, core=True))
         products, core = 2 * M * H * 3 * HN + 2 * M * HN * H, 4 * B * NH * L * L * HD
         moved = nbytes(hidden, seg, qkv_k, out_k, *att.values(), *ln.values(), hidden)
         rows["fused_attention_block", dtype].update(split_bound(core, products, moved, dtype))
@@ -2138,33 +2380,47 @@ def core_limit(want, dtype: str) -> float:
 
 
 def core_model_check(qkv, seg, valid, dtype: str) -> dict:
-    """Kernel 6 against its own rounding model (snld_attention_plain) on the
-    valid rows within CORE_GATE; each of CORE_FAULTS, planted in the model,
-    must fail that gate. Returns the reading."""
+    """Kernel 6 against its own rounding model (snld_attention_plain; in
+    float32 its products on the 3xTF32 model) on the valid rows within
+    CORE_GATE (in float32 SNLD_F32_GATE: its exponent is bf16); each of
+    CORE_FAULTS, planted in the model, and in float32 F32_CORE_FAULT, must
+    fail that gate. Returns the reading."""
     from spokennlp_tpu_torch.ops.cuda import blhd_attention as ba
 
+    (rel, atol), norm_lim = (SNLD_F32_GATE if dtype == "float32"
+                             else (CORE_GATE[dtype], math.inf))
+
     def reading(got, want):
-        err = (got[valid].float() - want[valid].float()).abs().max().item()
-        return err, core_limit(want[valid], dtype)
+        g, w = got[valid].float(), want[valid].float()
+        return (g - w).abs().max().item(), ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
 
     scale = HD**-0.5
-    want = ba.snld_attention_plain(qkv, seg, scale)
-    err, lim = reading(ba.snld_self_attention(qkv, seg, scale), want)
-    rel, atol = CORE_GATE[dtype]
+    model = core_products(tf32x3_model) if dtype == "float32" else []
+    with planted(model):
+        want = ba.snld_attention_plain(qkv, seg, scale)
+    lim = rel * want[valid].float().abs().max().item() + atol
+    err, norm = reading(ba.snld_self_attention(qkv, seg, scale), want)
     print(f"  snld_self_attention {dtype} against its rounding model: max |err| {err:.3e} "
-          f"(limit {lim:.3e} = {rel:.3g} max |ctx| + {atol})")
-    if err > lim:
-        fail(f"snld_self_attention {dtype}: max |err| {err:.3e} against its rounding model "
-             f"exceeds {lim:.3e}")
-    for what, patch in core_faults().items():
-        with planted([patch]):
+          f"(limit {lim:.3e} = {rel:.3g} max |ctx| + {atol}), norm {norm:.3e} (limit {norm_lim})")
+    if err > lim or norm > norm_lim:
+        fail(f"snld_self_attention {dtype}: max |err| {err:.3e} / norm {norm:.3e} against its "
+             f"rounding model exceeds {lim:.3e} / {norm_lim}")
+    faults = {what: model + [patch] for what, patch in core_faults().items()}
+    if dtype == "float32":
+        faults[F32_CORE_FAULT] = core_products(plain_tf32)
+    out = {"model_err": err, "model_limit": lim, "model_norm": norm}
+    for what, patches in faults.items():
+        with planted(patches):
             bad = ba.snld_attention_plain(qkv, seg, scale)
-        e, _ = reading(bad, want)
-        print(f"  planted fault, core {what} ({dtype}): max |err| {e:.3e}: "
-              + ("rejected" if e > lim else "PASSES the gate"))
-        if e <= lim:
+        e, n = reading(bad, want)
+        rejected = e > lim or n > norm_lim
+        print(f"  planted fault, core {what} ({dtype}): max |err| {e:.3e}, norm {n:.3e}: "
+              + ("rejected" if rejected else "PASSES the gate"))
+        if not rejected:
             fail(f"the core gate lets a planted fault through: {what} ({dtype})")
-    return {"model_err": err, "model_limit": lim}
+        if what == F32_CORE_FAULT:
+            out.update(model_core_fault_err=e, model_core_fault_norm=n)
+    return out
 
 
 def w8a8_kernel_phase(device) -> dict:
@@ -2268,9 +2524,13 @@ def w8a8_kernel_phase(device) -> dict:
             hidden, seg, qkv_k, att["qkv_bias"], out_k, att["out_bias"], sm_scale=HD**-0.5,
             quantized=quantized, heads_per_block=hb, **ln)
         for hb in (NH, NH // 2):
+            # float32: ctx from the 3xTF32 core, then row-quantised: the plain
+            # version on the kernel's own core (on_card_core)
             row = compare(f"fused_attention_block W8A8 heads_per_block={hb}", dtype,
                           lambda: att_call(fused_attention_block, hb),
-                          lambda: att_call(attention_block_plain, hb), valid, w8a8=True)
+                          lambda: att_call(attention_block_plain, hb), valid, w8a8=True,
+                          model=lambda: on_card_core(
+                              dtype, lambda: att_call(attention_block_plain, hb)))
             if hb == NH:
                 ops = {"int8": 2 * M * H * 3 * HN + 2 * M * HN * H, dtype: core}
                 moved = nbytes(hidden, seg, qkv_k, out_k, *att.values(), *ln.values(), hidden)
@@ -2302,7 +2562,8 @@ def w8a8_kernel_phase(device) -> dict:
 
         # the check has teeth: each fault, planted once, fails it
         hb = NH // 2
-        want_att, want_mlp = att_call(attention_block_plain, hb), mlp(mlp_block_plain)
+        want_att = on_card_core(dtype, lambda: att_call(attention_block_plain, hb))
+        want_mlp = mlp(mlp_block_plain)
         planted = {
             "attention block ignoring heads_per_block":
                 (att_call(fused_attention_block, NH), want_att, valid),
@@ -2368,12 +2629,16 @@ def core_columns(rows: dict, device):
         qkv = torch.einsum("blh,hsnd->sbnld", hidden, w) + randn(3, 1, NH, 1, HD, scale=0.02)
         qkv[0] *= HD**-0.5
         qkv = qkv.to(dt).contiguous()
-        # the rounding model: exp in bf16 (snld_attention_plain) or float32
-        if dtype == "bfloat16":
-            want = snld_attention_plain(qkv.transpose(0, 1), seg, 1.0).transpose(1, 2)
-        else:
+        # the rounding model: exp in bf16 (snld_attention_plain) or float32,
+        # whose products are on the 3xTF32 model
+        def model():
+            if dtype == "bfloat16":
+                return snld_attention_plain(qkv.transpose(0, 1), seg, 1.0).transpose(1, 2)
             q, k, v = (t.transpose(1, 2) for t in qkv.unbind(0))
-            want = attention_core_plain(q, k, v, seg, torch.float32)
+            return attention_core_plain(q, k, v, seg, torch.float32)
+
+        with planted(core_products(tf32x3_model) if dtype == "float32" else []):
+            want = model()
         got = attention_core(qkv, seg).reshape(B, L, NH, HD)
         err = (got[valid].float() - want[valid].float()).abs().max().item()
         lim = core_limit(want[valid], dtype)
@@ -2382,6 +2647,16 @@ def core_columns(rows: dict, device):
         if not (torch.isfinite(got).all() and err <= lim):
             fail(f"attention_core {dtype}: max |err| {err:.3e} against its rounding model "
                  f"exceeds {lim:.3e}")
+        for name in ("fused_attention_block", "fused_attention_block_w8a8"):
+            rows[name, dtype].update(core_err=err, core_limit=lim)
+        if dtype == "float32":  # plain TF32 in the model's products must fail the gate
+            with planted(core_products(plain_tf32)):
+                bad = (model()[valid].float() - got[valid].float()).abs().max().item()
+            print(f"  planted fault, the blocks' core with {F32_CORE_FAULT}: max |err| {bad:.3e}: "
+                  + ("rejected" if bad > lim else "PASSES the gate"))
+            if bad <= lim:
+                fail(f"the float32 core gate lets {F32_CORE_FAULT} through")
+            rows["fused_attention_block", dtype]["core_fault_err"] = bad
         q, k, v = qkv.unbind(0)
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=1.0)
         for name in ("fused_attention_block", "fused_attention_block_w8a8"):
@@ -2466,7 +2741,7 @@ def stack_kernel_phase(device) -> dict:
         gate = {}
         if dtype == "float32":  # the loop of layers on the 3xTF32 model, plain TF32 planted
             gate = check_f32_forward(label, {"out": got[valid]}, lambda: {"out": plain()[valid]},
-                                     (limit, F32_FWD_TOL[1]))
+                                     (limit, F32_FWD_TOL[1]), core=True, gate_core_fault=False)
         times = timed_pair(kernel, plain, reps=3)
         chain_ms = time_ms(chain, reps=3)
         layer = 2 * M * H * 3 * HN + 2 * M * HN * H + 4 * M * H * I
@@ -2578,6 +2853,14 @@ def train_kernel_phase(device) -> dict:
                 got[:1], want[:1], att_names[:1], dtype, label + " fwd", "attention_train_fwd"))
             err["attention_train_bwd"] = max(err["attention_train_bwd"], _normalized_errors(
                 got[1:], want[1:], att_names[1:], dtype, label + " bwd", "attention_train_bwd"))
+            if dtype == "float32" and rate:  # F32_CORE_FAULT in the plain core, autograd and all
+                ref = {k: v.detach().requires_grad_() for k, v in ref.items()}
+                h = hidden.detach().requires_grad_()
+                with planted(core_products(plain_tf32)):
+                    out = tb.attention_train_plain(h, seg, *ref.values(), sm_scale=sm,
+                                                   dropout_rate=rate, keep=keep_r)
+                    bad = [out, *torch.autograd.grad(out, [h, *ref.values()], cot)]
+                core_fault = f32_tol_fault(got, bad, att_names, "attention_train")
 
             leaves = {k: v.detach().requires_grad_() for k, v in mlp_p.items()}
             xx = x.detach().requires_grad_()
@@ -2674,10 +2957,13 @@ def train_kernel_phase(device) -> dict:
                                              buffers=fbufs)
             fwd.update(check_f32_forward(
                 "attention_train_fwd", {"out": out}, lambda: {"out": tb.attention_train_plain(
-                    hidden, seg, *ref.values(), sm_scale=sm, dropout_rate=DROPOUT, keep=keep)}))
+                    hidden, seg, *ref.values(), sm_scale=sm, dropout_rate=DROPOUT, keep=keep)},
+                core=True))
+            fwd["f32_tol_core_fault"] = core_fault["fwd"]
+            bwd["f32_tol_core_fault"] = core_fault["bwd"]
             del out
             for rate in (0.0, DROPOUT):
-                bufs, kr = {}, dict(kw, dropout_rate=rate)
+                bufs, again, kr = {}, {}, dict(kw, dropout_rate=rate)
                 got = tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kr,
                                              buffers=bufs)
                 same_recomputed("attention_train_bwd", fbufs, bufs, ("qkv",))
@@ -2687,9 +2973,28 @@ def train_kernel_phase(device) -> dict:
                     lambda: projection_gemms_plain(x2, g2, bufs, wqkv, wo))
                 for k in ("reading", "norm_reading"):
                     bwd[f"gemm_{k}"] = max(bwd.get(f"gemm_{k}", 0.0), gate[k])
+                gate = check_f32_backward_cores(
+                    "attention_train_bwd", bufs["dproj"],
+                    lambda: tb.attention_core_model_dproj(bufs, sm_scale=sm, dropout_rate=rate,
+                                                          keep=keep if rate else None), HN)
+                for k in ("reading", "norm_reading"):
+                    bwd[f"core_{k}"] = max(bwd.get(f"core_{k}", 0.0), gate[k])
+                bwd.setdefault("core_faults", {}).update(
+                    {f"{f} rate {rate}": v for f, v in gate["faults"].items()})
                 same_bits("attention_train_bwd", got, tb.attention_train_bwd(
-                    hidden, seg, seed, wqkv, bqkv, wo, cot, **kr), dtype)
-                del got, bufs
+                    hidden, seg, seed, wqkv, bqkv, wo, cot, **kr, buffers=again), dtype)
+                if not torch.equal(again["dproj"], bufs["dproj"]):
+                    fail(f"attention_train_bwd float32 rate {rate}: two runs' dproj differ")
+                del got, bufs, again
+            from dense_core_turns import device_split
+
+            for name, call in (("attention_train_fwd", lambda: tb.attention_train_fwd(
+                    hidden, seg, seed, wqkv, bqkv, wo, bo, **kw)), ("attention_train_bwd",
+                    lambda: tb.attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, cot, **kw))):
+                split = device_split(call)
+                (fwd if name == "attention_train_fwd" else bwd)["split_ms"] = split
+                print(f"  {name} float32 device time by kernel (ms): "
+                      + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in split.items()))
         del dqkv, c2
         rows["attention_train_fwd", dtype] = {"max_abs_err": err["attention_train_fwd"], **fwd}
         rows["attention_train_bwd", dtype] = {"max_abs_err": err["attention_train_bwd"], **bwd}
@@ -2758,6 +3063,26 @@ def train_kernel_phase(device) -> dict:
                   f"({r['bound_by']})")
         torch.cuda.empty_cache()
     return rows
+
+
+def f32_tol_fault(got, bad, names, kernel: str) -> dict:
+    """F32_CORE_FAULT against a float32 training block's F32_TOL check: the
+    kernel's output and gradients ``got`` read against the plain version's
+    with the fault planted (``bad``, autograd through model_product) as
+    _normalized_errors reads them; the forward's and the backward's limits
+    must each reject it in at least one output. Returns {"fwd", "bwd": the
+    largest reading over its limit}."""
+    rel = [((g.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+           for g, b in zip(got, bad)]
+    out = {"fwd": rel[0] / limit(f"{kernel}_fwd", "float32"),
+           "bwd": max(rel[1:]) / limit(f"{kernel}_bwd", "float32")}
+    print(f"  planted fault, {kernel}'s float32 plain version with {F32_CORE_FAULT} (autograd "
+          f"through the same products): " + ", ".join(f"{n} {r:.2e}" for n, r in zip(names, rel))
+          + f": forward {'rejected' if out['fwd'] > 1 else 'ACCEPTED'} by F32_TOL, backward "
+          + ("rejected" if out["bwd"] > 1 else "ACCEPTED"))
+    if min(out.values()) <= 1:
+        fail(f"F32_TOL of {kernel} accepts {F32_CORE_FAULT}")
+    return out
 
 
 def same_bits(name: str, got, again, dtype: str = "bfloat16"):

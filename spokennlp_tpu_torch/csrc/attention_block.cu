@@ -19,8 +19,8 @@
 // tile) run on the tensor cores, and in W8A8 the projections run the int8
 // tile (int8_gemm.cuh's mma.sync s8 tile, weights handed over K-major). The
 // float32 projections run tf32x3_gemm.cuh's 3xTF32 tile on the TF32 tensor
-// cores; the float32 core stays on the CUDA cores (float32 FMA). Moving the
-// tiles onto wgmma is later work.
+// cores, and the float32 core attention_core.cuh's 3xTF32 mma.sync core.
+// Moving the tiles onto wgmma is later work.
 //
 // What the design does about the TPU kernel's assumptions. On the TPU one
 // grid step owned a whole (sequence, head group), kept q, k and v in VMEM
@@ -31,8 +31,7 @@
 //      launch of x in W8A8): one GEMM over all B*L rows, bias added, q
 //      scaled by sm_scale, stored in the element type as (3, B, nh, L, hd);
 //   2. the attention core (attention_core.cuh): one block per (query tile of
-//      128 rows in bf16, 64 in float32, head, sequence), exp in the element
-//      type as on the TPU; with
+//      128 rows, head, sequence), exp in the element type as on the TPU; with
 //      core_int8, a launch of the q/k scales per (sequence, head group) and
 //      one of v's column scales, then the int8 core (__dp4a products, two
 //      passes over the keys);

@@ -14,15 +14,18 @@
 // alpha = exp(m_old - m_new) rescales them unrounded, and the context is
 // divided by the sum after P.V, then rounded to T.
 //
-// Two cores keep those rounding points. In bfloat16 (T = __nv_bfloat16)
-// both products run on the tensor cores: mma.sync m16n8k16 bf16 with
-// float32 sums, on 128 query rows a block (16 a warp), the key and value
-// tiles staged through a two-stage cp.async ring and read with ldmatrix, the
-// softmax on the score fragments in registers; q, k, v and the rounded p are
-// bf16 values, so the products are those of the float32 core but for the
-// order of the float32 sums. In float32 (T = float) the core stays on the
-// CUDA cores (fmaf on float32 tiles, 64 query rows a block): true float32,
-// which a TF32 product would not give.
+// Two cores keep those rounding points, both on the tensor cores, 128 query
+// rows a block (16 a warp), the key and value tiles staged through a
+// two-stage cp.async ring and read with ldmatrix, the softmax on the score
+// fragments in registers. In bfloat16 (T = __nv_bfloat16) both products run
+// on mma.sync m16n8k16 bf16 with float32 sums: q, k, v and the rounded p are
+// bf16 values, so the products are exact but for the order of the float32
+// sums. In float32 (T = float) they run as 3xTF32 on mma.sync m16n8k8 (the
+// split of tf32x3_gemm.cuh): each product keeps about float32's accuracy
+// (2^-21 or so of a term; one plain TF32 product would err by 2^-11), and
+// the tensor cores' float32 sums truncate. The plain versions' rounding
+// model takes the core's products through attention_models.core_product
+// (int8_matmul.tf32x3_product on the card's gate).
 #pragma once
 
 #include "attention_tiles.cuh"
@@ -61,153 +64,35 @@ struct CoreMma {
   static_assert(HD % 16 == 0 && kRowBytes % 32 == 16, "whole k16 steps, odd 16-byte row stride");
 };
 
-// query rows a block owns: 128 on the tensor cores (bf16), 64 in float32
+// The float32 core's shared memory: q's tile of kRows rows, then two
+// stages of (k tile, v tile, the key tile's segment ids), each row of HD
+// floats padded to HD + 4: an odd number of 16-byte units, so the 8 row
+// addresses of an ldmatrix phase (q's and k's fragments) fall on distinct
+// bank groups, and the 32 lanes of one read of v's fragments (keys 2 t and
+// 2 t + 1, column g) on 32 distinct banks.
+template <int HD>
+struct CoreTf32 {
+  static constexpr int kRows = 16 * (kThreads / 32);  // query rows a block: 16 a warp
+  static constexpr int kRowFloats = HD + 4;
+  static constexpr int kRowBytes = 4 * kRowFloats;
+  static constexpr int kKvBytes = kTile * kRowBytes;
+  static constexpr int kStageBytes = 2 * kKvBytes + kTile * (int)sizeof(int);
+  static constexpr size_t kSmemBytes = (size_t)kRows * kRowBytes + 2 * (size_t)kStageBytes;
+  static_assert(HD % 8 == 0 && kRowFloats % 8 == 4, "whole k8 steps, odd 16-byte row stride");
+};
+
+// query rows a block owns: 128 in both dtypes (16 a warp)
 template <typename T>
 __host__ __device__ constexpr int core_rows() {
-  return std::is_same<T, float>::value ? kTile : CoreMma<16>::kRows;
+  return CoreMma<16>::kRows;
 }
 
 template <typename T, int HD>
 constexpr size_t attn_core_smem_bytes() {
   if constexpr (std::is_same<T, float>::value) {
-    // Qs [64][HD+1], Kt [HD][64+1], Vs [64][HD], Ps [64][64+1] as float,
-    // then the key tile's segment ids
-    return sizeof(float) * ((size_t)kTile * (HD + 1) + (size_t)HD * (kTile + 1) +
-                            (size_t)kTile * HD + (size_t)kTile * (kTile + 1)) +
-           sizeof(int) * kTile;
+    return CoreTf32<HD>::kSmemBytes;
   } else {
     return CoreMma<HD>::kSmemBytes;
-  }
-}
-
-// The float32 core. Thread (ty, tx) owns query rows ty + 16 i (i < 4),
-// score columns tx + 16 j of each key tile (j < 4) and output columns tx +
-// 16 j (j < HD/16). The 16 threads that share a row sit in one half-warp, so
-// row maxima and sums reduce with shuffles. No __restrict__ on qkv: the
-// stack kernel wrote it earlier in the same launch.
-template <typename T, int HD, typename ExpT>
-__device__ __forceinline__ void attn_core_tile_simt(const T* qkv, const int32_t* seg, T* out,
-                                                    int L, CoreLayout lay, float score_scale,
-                                                    int q0, int h, int b, float* smem) {
-  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int QS = HD + 1;
-  constexpr int KS = kTile + 1;
-  constexpr int TR = kTile / 16;  // rows per thread
-  constexpr int TC = kTile / 16;  // score columns per thread
-  constexpr int TD = HD / 16;     // output columns per thread
-  float* Qs = smem;
-  float* Kt = Qs + kTile * QS;
-  float* Vs = Kt + HD * KS;
-  float* Ps = Vs + kTile * HD;
-  int* seg_k = reinterpret_cast<int*>(Ps + kTile * KS);
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* Q = qkv + (size_t)b * lay.b_stride + (size_t)h * lay.h_stride;
-  const T* K = Q + lay.s_stride;
-  const T* V = K + lay.s_stride;
-  const int32_t* seg_b = seg + (size_t)b * L;
-
-  __syncthreads();  // a previous item of this block is done with the tiles
-  for (int e = tid; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int l = q0 + r;
-    Qs[r * QS + d] = l < L ? to_f32(Q[(size_t)l * HD + d]) : 0.0f;
-  }
-  int seg_q[TR];
-  float row_max[TR], row_sum[TR], o[TR][TD];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int l = q0 + ty + 16 * i;
-    seg_q[i] = l < L ? seg_b[l] : 0;
-    row_max[i] = -CUDART_INF_F;
-    row_sum[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) o[i][j] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();  // the previous step is done with Kt, Vs, Ps
-    for (int e = tid; e < kTile * HD; e += kThreads) {
-      const int c = e / HD, d = e % HD;
-      const int key = k0 + c;
-      const bool in = key < L;
-      Kt[d * KS + c] = in ? to_f32(K[(size_t)key * HD + d]) : 0.0f;
-      Vs[c * HD + d] = in ? to_f32(V[(size_t)key * HD + d]) : 0.0f;
-    }
-    if (tid < kTile) seg_k[tid] = k0 + tid < L ? seg_b[k0 + tid] : 0;
-    __syncthreads();
-
-    float s[TR][TC];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[TR], kv[TC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) qv[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < TC; ++j) kv[j] = Kt[d * KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int c = tx + 16 * j;
-        if (k0 + c >= L) {
-          s[i][j] = -CUDART_INF_F;  // beyond the sequence: not a key at all
-        } else {
-          s[i][j] *= score_scale;
-          if (!(seg_q[i] == seg_k[c] && seg_k[c] > 0)) s[i][j] += kNegInf;
-        }
-        tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      tile_max = half_warp_max(tile_max);
-      // every key tile holds at least one in-range key, so new_max is finite
-      const float new_max = fmaxf(row_max[i], tile_max);
-      const float alpha = expf(row_max[i] - new_max);
-      float tile_sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float p = round_to<T>(rounded_exp<ExpT>(s[i][j], new_max));
-        tile_sum += p;
-        Ps[(ty + 16 * i) * KS + tx + 16 * j] = p;
-      }
-      row_sum[i] = row_sum[i] * alpha + half_warp_sum(tile_sum);
-      row_max[i] = new_max;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) o[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float vv[TD];
-#pragma unroll
-      for (int j = 0; j < TD; ++j) vv[j] = Vs[c * HD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const float p = Ps[(ty + 16 * i) * KS + c];
-#pragma unroll
-        for (int j = 0; j < TD; ++j) o[i][j] = fmaf(p, vv[j], o[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int l = q0 + ty + 16 * i;
-    if (l >= L) continue;
-    T* dst = out + (size_t)b * lay.ob_stride + (size_t)h * lay.oh_stride + (size_t)l * lay.ol_stride;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) dst[tx + 16 * j] = from_f32<T>(o[i][j] / row_sum[i]);
   }
 }
 
@@ -411,15 +296,199 @@ __device__ __forceinline__ void attn_core_tile_mma(const __nv_bfloat16* qkv, con
   }
 }
 
-// One (query tile of core_rows<T>() rows, head, sequence): the bf16 core on
-// the tensor cores, or the float32 one on the CUDA cores. smem holds
+// The float32 core on the tensor cores, rows [q0, q0 + 128) of (b, h): the
+// bf16 core's walk (warp w owns query rows q0 + 16 w .. + 15, key tiles of
+// 64 through a two-stage cp.async ring, the online softmax on the score
+// fragments in registers) with both products as 3xTF32 on mma.sync m16n8k8
+// (ptx.cuh mma_tf32x3: every operand split into big = tf32(x) and small =
+// tf32(x - big), small . big + big . small + big . big in float32, as
+// tf32x3_gemm.cuh takes a float32 product). S = Q K^T: q's A fragments and
+// k's B fragments through ldmatrix of the float32 rows as they stand (an 8 x
+// 8 b16 matrix is 8 rows of 4 floats: a TF32 fragment's layout). P V: the
+// score accumulator holds keys 2 t and 2 t + 1 of an n8 tile where a TF32 A
+// fragment wants keys t and t + 4, so each k8 step takes the tile's keys in
+// the order (0, 2, 4, 6, 1, 3, 5, 7): its A fragment is the accumulator as
+// it stands, and the lane reads v's rows 2 t and 2 t + 1 (column g) for the
+// B fragment, 32-bit loads from the padded rows.
+template <int HD, typename ExpT>
+__device__ __forceinline__ void attn_core_tile_tf32(const float* qkv, const int32_t* seg,
+                                                    float* out, int L, CoreLayout lay,
+                                                    float score_scale, int q0, int h, int b,
+                                                    unsigned char* smem) {
+  using C = CoreTf32<HD>;
+  constexpr int kChunks = HD / 4;  // 16-byte copies a staged row
+  constexpr int RF = C::kRowFloats;
+  constexpr int ND = HD / 8;       // n8 tiles of the output
+  constexpr int NS = kTile / 8;    // n8 tiles of a key tile's scores
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const float* Q = qkv + (size_t)b * lay.b_stride + (size_t)h * lay.h_stride;
+  const float* K = Q + lay.s_stride;
+  const float* V = K + lay.s_stride;
+  const int32_t* seg_b = seg + (size_t)b * L;
+  unsigned char* stages = smem + C::kRows * C::kRowBytes;
+
+  // rows [r0, r0 + R) of the (L, HD) slab X into dst, zero-filled beyond L
+  const auto copy_rows = [&](const float* X, int r0, int R, unsigned char* dst) {
+    for (int e = tid; e < R * kChunks; e += kThreads) {
+      const int r = e / kChunks, c = e % kChunks, l = r0 + r;
+      const bool in = l < L;
+      cp_async16(smem_addr(dst + r * C::kRowBytes + 16 * c), in ? X + (size_t)l * HD + 4 * c : X,
+                 in ? 16 : 0);
+    }
+  };
+  const auto load_keys = [&](int kt) {
+    unsigned char* s = stages + (kt % 2) * C::kStageBytes;
+    const int k0 = kt * kTile;
+    copy_rows(K, k0, kTile, s);
+    copy_rows(V, k0, kTile, s + C::kKvBytes);
+    if (tid < kTile)
+      reinterpret_cast<int*>(s + 2 * C::kKvBytes)[tid] = k0 + tid < L ? seg_b[k0 + tid] : 0;
+  };
+
+  __syncthreads();  // a previous item of this block is done with the shared memory
+  copy_rows(Q, q0, C::kRows, smem);
+  load_keys(0);
+  cp_async_commit();
+
+  const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+  const bool live = q0 + 16 * warp < L;  // warp-uniform
+  const int seg_lo = r_lo < L ? seg_b[r_lo] : 0, seg_hi = r_hi < L ? seg_b[r_hi] : 0;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, sum_lo = 0.0f, sum_hi = 0.0f;
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  // ldmatrix row addresses: q's four 8 x 4-float matrices are (rows 0-7, d
+  // 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7) of an m16 x k8 fragment; k's
+  // (keys 0-7, d 0-3), (0-7, 4-7), (8-15, 0-3), (8-15, 4-7) of two n8 x k8
+  // fragments; v's B fragments: the lane's (key 2 t, d g) and (2 t + 1, g)
+  const uint32_t q_addr = smem_addr(smem + (16 * warp + lane % 16) * C::kRowBytes + (lane / 16) * 16);
+  const int k_off = (lane % 8 + 8 * (lane / 16)) * C::kRowBytes + ((lane / 8) % 2) * 16;
+  const int v_off = 2 * t * RF + g;
+
+  const int nk = (L + kTile - 1) / kTile;
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load_keys(kt + 1);  // its slot was freed by the barrier ending kt - 1
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and q) have landed
+    __syncthreads();
+    if (live) {
+      const unsigned char* s = stages + (kt % 2) * C::kStageBytes;
+      const uint32_t k_base = smem_addr(s) + k_off;
+      const float* vs = reinterpret_cast<const float*>(s + C::kKvBytes) + v_off;
+      const int* seg_k = reinterpret_cast<const int*>(s + 2 * C::kKvBytes);
+      float sc[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        uint32_t r[4], ab[4], as[4];
+        ldmatrix_x4(q_addr + kk * 32, r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tf32_split(__uint_as_float(r[i]), ab[i], as[i]);
+#pragma unroll
+        for (int nj = 0; nj < NS / 2; ++nj) {
+          uint32_t bb[4], bs[4];
+          ldmatrix_x4(k_base + nj * 16 * C::kRowBytes + kk * 32, r);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32_split(__uint_as_float(r[i]), bb[i], bs[i]);
+          mma_tf32x3(sc[2 * nj], ab, as, bb[0], bb[1], bs[0], bs[1]);
+          mma_tf32x3(sc[2 * nj + 1], ab, as, bb[2], bb[3], bs[2], bs[3]);
+        }
+      }
+
+      // scale, mask, -inf tail; the tile's row maxima
+      const int k0 = kt * kTile;
+      float max_lo = -CUDART_INF_F, max_hi = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int c = 8 * j + 2 * t;
+        const int2 sk = *reinterpret_cast<const int2*>(seg_k + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key_seg = e % 2 ? sk.y : sk.x;
+          const int row_seg = e < 2 ? seg_lo : seg_hi;
+          float v;
+          if (k0 + c + e % 2 >= L) {
+            v = -CUDART_INF_F;  // beyond the sequence: not a key at all
+          } else {
+            v = sc[j][e] * score_scale;
+            if (!(row_seg == key_seg && key_seg > 0)) v += kNegInf;
+          }
+          sc[j][e] = v;
+          if (e < 2) max_lo = fmaxf(max_lo, v);
+          else max_hi = fmaxf(max_hi, v);
+        }
+      }
+      // every key tile holds at least one in-range key, so the maxima are finite
+      const float new_lo = fmaxf(m_lo, quad_max(max_lo)), new_hi = fmaxf(m_hi, quad_max(max_hi));
+      const float alpha_lo = expf(m_lo - new_lo), alpha_hi = expf(m_hi - new_hi);
+      m_lo = new_lo;
+      m_hi = new_hi;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha_lo;
+        o[n][1] *= alpha_lo;
+        o[n][2] *= alpha_hi;
+        o[n][3] *= alpha_hi;
+      }
+
+      // p = e rounded to ExpT (a float32 e in float32 blocks, a bf16 one
+      // over a projected qkv), O += P V, 8 keys a k-step
+      float tile_lo = 0.0f, tile_hi = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float p0 = rounded_exp<ExpT>(sc[j][0], m_lo), p1 = rounded_exp<ExpT>(sc[j][1], m_lo),
+                    p2 = rounded_exp<ExpT>(sc[j][2], m_hi), p3 = rounded_exp<ExpT>(sc[j][3], m_hi);
+        tile_lo += p0 + p1;
+        tile_hi += p2 + p3;
+        // A fragment (rows g, g + 8; k t, t + 4) = keys 2 t, 2 t + 1
+        uint32_t ab[4], as[4];
+        tf32_split(p0, ab[0], as[0]);
+        tf32_split(p2, ab[1], as[1]);
+        tf32_split(p1, ab[2], as[2]);
+        tf32_split(p3, ab[3], as[3]);
+        const float* vj = vs + 8 * j * RF;
+#pragma unroll
+        for (int dn = 0; dn < ND; ++dn) {
+          uint32_t bb0, bs0, bb1, bs1;
+          tf32_split(vj[8 * dn], bb0, bs0);
+          tf32_split(vj[RF + 8 * dn], bb1, bs1);
+          mma_tf32x3(o[dn], ab, as, bb0, bb1, bs0, bs1);
+        }
+      }
+      sum_lo = sum_lo * alpha_lo + tile_lo;  // each lane's share of its rows' sums
+      sum_hi = sum_hi * alpha_hi + tile_hi;
+    }
+    __syncthreads();  // every warp is done with slot kt % 2
+  }
+  cp_async_wait<0>();
+
+  if (live) {
+    sum_lo = quad_sum(sum_lo);
+    sum_hi = quad_sum(sum_hi);
+    float* dst = out + (size_t)b * lay.ob_stride + (size_t)h * lay.oh_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (r_lo < L)
+        *reinterpret_cast<float2*>(dst + (size_t)r_lo * lay.ol_stride + 8 * n) =
+            make_float2(o[n][0] / sum_lo, o[n][1] / sum_lo);
+      if (r_hi < L)
+        *reinterpret_cast<float2*>(dst + (size_t)r_hi * lay.ol_stride + 8 * n) =
+            make_float2(o[n][2] / sum_hi, o[n][3] / sum_hi);
+    }
+  }
+}
+
+// One (query tile of core_rows<T>() rows, head, sequence) on the tensor
+// cores: the bf16 core, or the float32 one on 3xTF32. smem holds
 // attn_core_smem_bytes<T, HD>(), 16-byte aligned.
 template <typename T, int HD, typename ExpT>
 __device__ __forceinline__ void attn_core_tile(const T* qkv, const int32_t* seg, T* out, int L,
                                                CoreLayout lay, float score_scale, int q0, int h,
                                                int b, float* smem) {
   if constexpr (std::is_same<T, float>::value) {
-    attn_core_tile_simt<T, HD, ExpT>(qkv, seg, out, L, lay, score_scale, q0, h, b, smem);
+    attn_core_tile_tf32<HD, ExpT>(qkv, seg, out, L, lay, score_scale, q0, h, b,
+                                  reinterpret_cast<unsigned char*>(smem));
   } else {
     attn_core_tile_mma<HD, ExpT>(qkv, seg, out, L, lay, score_scale, q0, h, b,
                                  reinterpret_cast<unsigned char*>(smem));
@@ -428,24 +497,13 @@ __device__ __forceinline__ void attn_core_tile(const T* qkv, const int32_t* seg,
 
 namespace {
 
-// Grid (ceil(L / 128), nh, B): the bf16 core, two blocks an SM (at most 128
-// registers a thread; unbounded it takes 138 and one block an SM, PERF.md)
+// Grid (ceil(L / 128), nh, B), two blocks an SM: at most 128 registers a
+// thread (bf16 unbounded takes 138 and one block an SM, PERF.md); float32
+// at head dim 64 takes 105 KB of shared memory a block
 template <typename T, int HD, typename ExpT>
 __global__ void __launch_bounds__(kThreads, 2)
     attn_core_kernel(const T* qkv, const int32_t* seg, T* out, int L, CoreLayout lay,
                      float score_scale) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core core is bf16");
-  extern __shared__ __align__(16) float smem[];
-  attn_core_tile<T, HD, ExpT>(qkv, seg, out, L, lay, score_scale, blockIdx.x * core_rows<T>(),
-                              blockIdx.y, blockIdx.z, smem);
-}
-
-// Grid (ceil(L / 64), nh, B): the float32 core
-template <typename T, int HD, typename ExpT>
-__global__ void __launch_bounds__(kThreads)
-    attn_core_simt_kernel(const T* qkv, const int32_t* seg, T* out, int L, CoreLayout lay,
-                          float score_scale) {
-  static_assert(std::is_same<T, float>::value, "the CUDA-core core is float32");
   extern __shared__ __align__(16) float smem[];
   attn_core_tile<T, HD, ExpT>(qkv, seg, out, L, lay, score_scale, blockIdx.x * core_rows<T>(),
                               blockIdx.y, blockIdx.z, smem);
@@ -454,19 +512,14 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // The core over (3, B, nh, L, hd) q, k, v in the layout `lay`; qkv 16-byte
-// aligned in bfloat16 (its cp.async copies).
+// aligned (its cp.async copies).
 template <typename T, typename ExpT>
 cudaError_t launch_attn_core(const T* qkv, const int32_t* seg, T* out, int B, int L, int nh,
                              int hd, CoreLayout lay, float score_scale, cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     constexpr size_t smem = attn_core_smem_bytes<T, HD>();  // above 48 KB for HD >= 64
-    void (*kernel)(const T*, const int32_t*, T*, int, CoreLayout, float);
-    if constexpr (std::is_same<T, float>::value) {
-      kernel = attn_core_simt_kernel<T, HD, ExpT>;
-    } else {
-      kernel = attn_core_kernel<T, HD, ExpT>;
-    }
+    const auto kernel = attn_core_kernel<T, HD, ExpT>;
     const cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((L + core_rows<T>() - 1) / core_rows<T>(), nh, B);

@@ -27,6 +27,22 @@
 // point stays where it was. The rows kernels' bf16 body
 // (attention_rows_mma.cuh) stages its tiles through the same ring and reads
 // them with the same ldmatrix offsets.
+//
+// float32 has siblings of both passes on the same warps, ring and callbacks
+// (grad_tile_tf32, dq_from_ds_tile_tf32): every product as 3xTF32 on
+// mma.sync m16n8k8 (ptx.cuh tf32_split, mma_tf32x3; the split of
+// tf32x3_gemm.cuh), the tiles staged as float32 rows padded to HD + 4 floats
+// (an odd number of 16-byte units, for ldmatrix). The first products read
+// both operands through ldmatrix: an 8 x 8 b16 matrix is 8 rows of 4 floats,
+// a TF32 fragment. The second products take dS^T and p_eff^T from the
+// accumulators as they stand: the accumulator holds columns 2 t and 2 t + 1
+// of an n8 tile where a TF32 A fragment wants k = t and t + 4, so each k8
+// step takes the tile's columns in the order (0, 2, 4, 6, 1, 3, 5, 7), and
+// the lane reads q's (or dctx's) rows 2 t and 2 t + 1, column g, for its B
+// fragment: 32-bit loads, which the padding keeps on 32 distinct banks. dS
+// is stored once in float32 for the dq pass (twice the bf16 tiles' bytes,
+// 402 MB at B=32, L=512 for row 10), which reads it and k through 32-bit
+// loads from rows padded to 72 and HD + 8 floats.
 #pragma once
 
 #include "attention_core.cuh"
@@ -295,6 +311,191 @@ __host__ __device__ constexpr size_t grad_dkv_stage_bytes() {
 template <int HD>
 __host__ __device__ constexpr size_t grad_dkv_smem_mma() {
   return 2 * (size_t)GradMma<HD>::kTileBytes + 2 * grad_dkv_stage_bytes<HD>();
+}
+
+// ---------------------------------------------------------------- float32
+
+// The float32 tiles: rows of HD floats padded to HD + 4 (kRowFloats), and
+// the dq pass's k tile padded to HD + 8, so that the lanes' 32-bit reads of
+// column g in rows t and t + 4 fall on distinct banks.
+template <int HD>
+struct GradTf32 {
+  static_assert(HD % 8 == 0, "whole k8 steps");
+  static constexpr int kRowFloats = HD + 4;
+  static constexpr int kRowBytes = 4 * kRowFloats;
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kKRowFloats = HD + 8;
+  static constexpr int kKTileBytes = kTile * 4 * kKRowFloats;
+  static_assert(kRowFloats % 8 == 4, "odd 16-byte row stride");
+};
+
+// rows [r0, r0 + 64) of a float32 slab X (row stride `stride` elements)
+// into dst as rows of kPitch floats, rows outside [lo, hi) zero-filled
+// through the copy's source size
+template <int HD, int kPitch = HD + 4>
+__device__ __forceinline__ void stage_f32_rows(const float* X, size_t stride, int r0, int lo,
+                                               int hi, unsigned char* dst) {
+  constexpr int kChunks = HD / 4;  // 16-byte copies a row
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kGradThreads) {
+    const int r = e / kChunks, c = e % kChunks, l = r0 + r;
+    const bool in = l >= lo && l < hi;
+    cp_async16(smem_addr(dst + r * 4 * kPitch + 16 * c), in ? X + (size_t)l * stride + 4 * c : X,
+               in ? 16 : 0);
+  }
+}
+
+// Per-lane offsets into a staged float32 tile: the warp's A rows and the B
+// rows as stored for ldmatrix (bytes; GradLane's matrices, 4 floats a
+// matrix row), and the lane's (row 2 t, column g) for a B fragment along the
+// rows (floats)
+template <int HD>
+struct GradLaneF32 {
+  int a, b, bk;
+  __device__ __forceinline__ GradLaneF32() {
+    constexpr int RB = GradTf32<HD>::kRowBytes;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    a = (16 * warp + lane % 16) * RB + (lane / 16) * 16;
+    b = (lane % 8 + 8 * (lane / 16)) * RB + ((lane / 8) % 2) * 16;
+    bk = 2 * (lane % 4) * GradTf32<HD>::kRowFloats + lane / 4;
+  }
+};
+
+// x[j] = A . B^T as 3xTF32 for the warp's 16 rows against rows 32 c + 8 j ..
+// + 7 of a staged tile: A's fragments from the tile at a_tile, B's from the
+// tile at b_tile as its rows stand (shared-memory addresses)
+template <int HD>
+__device__ __forceinline__ void scores_tf32(uint32_t a_tile, uint32_t b_tile,
+                                            const GradLaneF32<HD>& lane, int c,
+                                            float (&x)[4][4]) {
+  constexpr int RB = GradTf32<HD>::kRowBytes;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    uint32_t r[4], ab[4], as[4];
+    ldmatrix_x4(a_tile + lane.a + kk * 32, r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split(__uint_as_float(r[i]), ab[i], as[i]);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      uint32_t bb[4], bs[4];
+      ldmatrix_x4(b_tile + lane.b + (32 * c + 16 * nj) * RB + kk * 32, r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tf32_split(__uint_as_float(r[i]), bb[i], bs[i]);
+      mma_tf32x3(x[2 * nj], ab, as, bb[0], bb[1], bs[0], bs[1]);
+      mma_tf32x3(x[2 * nj + 1], ab, as, bb[2], bb[3], bs[2], bs[3]);
+    }
+  }
+}
+
+// acc += X . Z as 3xTF32 over chunk c's 32 rows of a staged tile Z (its
+// rows run along k): x[j] holds the warp's accumulators of Z's rows 32 c +
+// 8 j + 2 t and + 1 (the k8 step's column order 0, 2, 4, 6, 1, 3, 5, 7), z
+// points at the tile plus the lane's offset (GradLaneF32::bk)
+template <int HD>
+__device__ __forceinline__ void accumulate_tf32(const float (&x)[4][4], const float* z, int c,
+                                                float (&acc)[HD / 8][4]) {
+  constexpr int RF = GradTf32<HD>::kRowFloats;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t ab[4], as[4];
+    tf32_split(x[j][0], ab[0], as[0]);
+    tf32_split(x[j][2], ab[1], as[1]);
+    tf32_split(x[j][1], ab[2], as[2]);
+    tf32_split(x[j][3], ab[3], as[3]);
+    const float* rows = z + (32 * c + 8 * j) * RF;
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      uint32_t bb0, bs0, bb1, bs1;
+      tf32_split(rows[8 * dn], bb0, bs0);
+      tf32_split(rows[RF + 8 * dn], bb1, bs1);
+      mma_tf32x3(acc[dn], ab, as, bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// grad_tile_mma in float32: the tiles at as_ / ap (the block's own k and
+// v) and bs / bp (the staged q and dctx) are float32 rows of HD + 4; grad
+// and sink as there (dS and p_eff float32 values), acc0 += dS . B_s, acc1
+// += p_eff . B_p.
+template <int HD, typename Grad, typename Sink>
+__device__ __forceinline__ void grad_tile_tf32(const unsigned char* as_, const unsigned char* ap,
+                                               const unsigned char* bs, const unsigned char* bp,
+                                               const GradLaneF32<HD>& lane, Grad grad, Sink sink,
+                                               float (&acc0)[HD / 8][4],
+                                               float (&acc1)[HD / 8][4]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int c = 0; c < kTile / 32; ++c) {
+    float x[4][4], y[4][4];
+    scores_tf32<HD>(smem_addr(as_), smem_addr(bs), lane, c, x);
+    scores_tf32<HD>(smem_addr(ap), smem_addr(bp), lane, c, y);
+    // the gradient on the fragments: x becomes dS, y p_eff
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = 0.0f;
+        x[j][e] = grad(x[j][e], y[j][e], e / 2, 32 * c + 8 * j + 2 * t + e % 2, pe);
+        y[j][e] = pe;
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) sink(hi, 32 * c + 8 * j + 2 * t, x[j][2 * hi], x[j][2 * hi + 1]);
+    accumulate_tf32<HD>(x, reinterpret_cast<const float*>(bs) + lane.bk, c, acc0);
+    accumulate_tf32<HD>(y, reinterpret_cast<const float*>(bp) + lane.bk, c, acc1);
+  }
+}
+
+// a stored float32 dS tile (64 keys, 64 rows), staged as rows of 72 floats
+constexpr int kDsRowFloatsF = kTile + 8;
+constexpr int kDsTileBytesF = kTile * 4 * kDsRowFloatsF;
+
+__device__ __forceinline__ void stage_ds_tile_f32(const float* src, unsigned char* dst) {
+  constexpr int kChunks = kTile / 4;
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kGradThreads) {
+    const int r = e / kChunks, c = e % kChunks;
+    cp_async16(smem_addr(dst + r * 4 * kDsRowFloatsF + 16 * c), src + r * kTile + 4 * c, 16);
+  }
+}
+
+// acc += dS . K as 3xTF32 over one staged float32 dS tile ds (64 keys, 64
+// rows, keys major) and the (64 keys, HD) k tile ks (rows of HD + 8), for
+// the warp's 16 rows: the lane's A values (row g (+ 8), key t (+ 4)) and B
+// values (key t (+ 4), column g) by 32-bit loads
+template <int HD>
+__device__ __forceinline__ void dq_from_ds_tile_tf32(const unsigned char* ds,
+                                                     const unsigned char* ks,
+                                                     float (&acc)[HD / 8][4]) {
+  constexpr int DF = kDsRowFloatsF, KF = GradTf32<HD>::kKRowFloats;
+  const int l = threadIdx.x % 32, warp = threadIdx.x / 32, g = l / 4, t = l % 4;
+  const float* a = reinterpret_cast<const float*>(ds) + t * DF + 16 * warp + g;
+  const float* b = reinterpret_cast<const float*>(ks) + t * KF + g;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    tf32_split(a[8 * kk * DF], ab[0], as[0]);
+    tf32_split(a[8 * kk * DF + 8], ab[1], as[1]);
+    tf32_split(a[(8 * kk + 4) * DF], ab[2], as[2]);
+    tf32_split(a[(8 * kk + 4) * DF + 8], ab[3], as[3]);
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      uint32_t bb0, bs0, bb1, bs1;
+      tf32_split(b[8 * kk * KF + 8 * dn], bb0, bs0);
+      tf32_split(b[(8 * kk + 4) * KF + 8 * dn], bb1, bs1);
+      mma_tf32x3(acc[dn], ab, as, bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// row g + 8 hi of the warp's accumulator into dst (a float32 row of HD)
+template <int HD>
+__device__ __forceinline__ void store_acc_row(const float (&acc)[HD / 8][4], int hi, float* dst) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    *reinterpret_cast<float2*>(dst + 8 * n + 2 * t) = make_float2(acc[n][2 * hi], acc[n][2 * hi + 1]);
 }
 
 }  // namespace spk

@@ -49,6 +49,16 @@
 // product and adds the TPU kernel's -1e9 on masked keys (RawScore, the
 // product itself, for the others).
 //
+// float32 has a sibling on the same warps, ring and callbacks
+// (rows_tile_tf32): S, dP and P V as 3xTF32 on mma.sync m16n8k8
+// (attention_grad_mma.cuh's float32 helpers: q, k, dctx and v's fragments
+// for S and dP through ldmatrix of float32 rows padded to HD + 4, P from
+// the score accumulators in the column order (0, 2, 4, 6, 1, 3, 5, 7) of
+// each k8 step, v's rows 2 t and 2 t + 1 by 32-bit loads), e = exp(s - m)
+// in float32. Row 10's float32 forward and statistics pass run it; the
+// band and BigBird rows kernels keep their float32 CUDA-core bodies, and
+// can take it by passing the same callbacks.
+//
 // What bounds it. At kernel 7's shape (B=8, L=2048, 12 heads of 64, window
 // 512) the three products the block runs (S twice, P V) over its 9 band
 // tiles and the global-column tile take about 4.8e10 operations, 0.05 ms at
@@ -258,6 +268,143 @@ __device__ __forceinline__ void rows_tile_mma(const __nv_bfloat16* Q, const __nv
     if (l >= q_end) continue;
     const float d = hi ? D_hi : D_lo, denom = d * keep_prob;
     Tc* dst = out + (size_t)l * out_stride + 2 * t;
+#pragma unroll
+    for (int nn = 0; nn < ND; ++nn)
+      store_pair(dst + 8 * nn, d > 0.0f ? o[nn][2 * hi] / denom : 0.0f,
+                 d > 0.0f ? o[nn][2 * hi + 1] / denom : 0.0f);
+    if (kGrad && t == 0) {
+      stats[l] = hi ? m_hi : m_lo;
+      stats[plane + l] = d;
+      stats[2 * plane + l] = d > 0.0f ? (hi ? rs_hi : rs_lo) / denom : 0.0f;
+    }
+  }
+}
+
+// shared memory of the float32 body: q's tile, dctx's with kGrad, then two
+// stages of (k tile, v tile), float32 rows of HD + 4
+template <int HD, bool kGrad>
+__host__ __device__ constexpr size_t rows_smem_tf32() {
+  return (size_t)(kGrad ? 6 : 5) * GradTf32<HD>::kTileBytes;
+}
+
+// rows_tile_mma in float32 (Q, K, V, dC float32 slabs; ctx float32; e =
+// exp(s - m) unrounded), the products as 3xTF32. smem holds
+// rows_smem_tf32<HD, kGrad>(), 16-byte aligned; 128 threads.
+template <int HD, bool kGrad, typename Live, typename Allowed, typename Keep,
+          typename Score = RawScore>
+__device__ __forceinline__ void rows_tile_tf32(const float* Q, const float* K, const float* V,
+                                               const float* dC, size_t dc_stride, int dc_lo,
+                                               int q0, int q_end, int L, int n, Live live,
+                                               Allowed allowed, Keep keep, float keep_prob,
+                                               float* out, size_t out_stride, float* stats,
+                                               size_t plane, unsigned char* smem,
+                                               Score score = Score{}) {
+  using Mm = GradTf32<HD>;
+  constexpr int ND = HD / 8;
+  unsigned char* Qs = smem;
+  unsigned char* dCs = smem + Mm::kTileBytes;
+  unsigned char* ring = dCs + (kGrad ? Mm::kTileBytes : 0);  // stage s: k, then v
+  const auto slot = [&](int s) { return ring + s * 2 * Mm::kTileBytes; };
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+  const bool live_w = q0 + 16 * warp < q_end;  // warp-uniform
+  const GradLaneF32<HD> lane;
+  const uint32_t qs = smem_addr(Qs), dcs = smem_addr(dCs);
+  const auto next = [&](int i) {
+    KeyTile kt;
+    while (i < n && !live(i, kt)) ++i;
+    return i;
+  };
+  // key tile i's k (and with_v its v) into ring slot s
+  const auto stage = [&](int s, int i, bool with_v) {
+    KeyTile kt;
+    live(i, kt);
+    stage_f32_rows<HD>(K, HD, kt.k0, 0, L, slot(s));
+    if (with_v) stage_f32_rows<HD>(V, HD, kt.k0, 0, L, slot(s) + Mm::kTileBytes);
+  };
+
+  stage_f32_rows<HD>(Q, HD, q0, 0, L, Qs);
+  if constexpr (kGrad) stage_f32_rows<HD>(dC, dc_stride, q0, dc_lo, L, dCs);
+
+  // pass 1: the row maxima over the allowed keys of every live tile
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;
+  grad_ring(n, next, [&](int s, int i) { stage(s, i, false); }, [&](int s, int i) {
+    if (!live_w) return;
+    KeyTile kt;
+    live(i, kt);
+#pragma unroll
+    for (int c = 0; c < kTile / 32; ++c) {
+      float x[4][4];
+      scores_tf32<HD>(qs, smem_addr(slot(s)), lane, c, x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kt.k0 + 32 * c + 8 * j + 2 * t + e % 2;
+          if (e < 2) {
+            if (allowed(kt, r_lo, key)) m_lo = fmaxf(m_lo, score(kt, r_lo, key, x[j][e]));
+          } else if (allowed(kt, r_hi, key)) {
+            m_hi = fmaxf(m_hi, score(kt, r_hi, key, x[j][e]));
+          }
+        }
+    }
+  });
+  m_lo = quad_max(m_lo);
+  m_hi = quad_max(m_hi);
+
+  // pass 2: e, D, the kept e into P V, with kGrad dP and rowsum(dp p_eff)
+  float D_lo = 0.0f, D_hi = 0.0f, rs_lo = 0.0f, rs_hi = 0.0f;
+  float o[ND][4];
+  zero_acc<HD>(o);
+  grad_ring(
+      n, next, [&](int s, int i) { stage(s, i, true); },
+      [&](int s, int i) {
+        if (!live_w) return;
+        KeyTile kt;
+        live(i, kt);
+        const uint32_t ks = smem_addr(slot(s)), vs = ks + Mm::kTileBytes;
+        const float* vz = reinterpret_cast<const float*>(slot(s) + Mm::kTileBytes) + lane.bk;
+#pragma unroll
+        for (int c = 0; c < kTile / 32; ++c) {
+          float x[4][4], y[4][4];
+          scores_tf32<HD>(qs, ks, lane, c, x);
+          if constexpr (kGrad) scores_tf32<HD>(dcs, vs, lane, c, y);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool hi = e >= 2;
+              const int key = kt.k0 + 32 * c + 8 * j + 2 * t + e % 2, row = hi ? r_hi : r_lo;
+              float pe = 0.0f;
+              if (allowed(kt, row, key)) {
+                const float ex =
+                    rounded_exp<float>(score(kt, row, key, x[j][e]), hi ? m_hi : m_lo);
+                (hi ? D_hi : D_lo) += ex;
+                if (keep(kt, row, key)) pe = ex;
+                if constexpr (kGrad) {
+                  float& rs = hi ? rs_hi : rs_lo;
+                  rs = fmaf(pe, y[j][e], rs);
+                }
+              }
+              x[j][e] = pe;
+            }
+          accumulate_tf32<HD>(x, vz, c, o);  // O += P V over the chunk's 32 keys
+        }
+      });
+
+  D_lo = quad_sum(D_lo);
+  D_hi = quad_sum(D_hi);
+  if constexpr (kGrad) {
+    rs_lo = quad_sum(rs_lo);
+    rs_hi = quad_sum(rs_hi);
+  }
+  if (!live_w) return;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int l = hi ? r_hi : r_lo;
+    if (l >= q_end) continue;
+    const float d = hi ? D_hi : D_lo, denom = d * keep_prob;
+    float* dst = out + (size_t)l * out_stride + 2 * t;
 #pragma unroll
     for (int nn = 0; nn < ND; ++nn)
       store_pair(dst + 8 * nn, d > 0.0f ? o[nn][2 * hi] / denom : 0.0f,

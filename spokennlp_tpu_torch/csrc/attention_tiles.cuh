@@ -1,7 +1,8 @@
 // Tile helpers of the attention kernels that stream (64, head_dim) tiles of
-// q, k, v through shared memory (train_attention.cu, sliding_attention.cuh):
-// tile loads, the two tile products, half-warp reductions, the rounded exp
-// and the head-dim dispatch.
+// q, k, v through shared memory (the float32 CUDA-core bodies of kernels
+// 7, 8, 12 and 13 and the int8 core of attention_core.cuh): tile loads, the
+// two tile products, half-warp reductions, the rounded exp and the head-dim
+// dispatch.
 //
 // A block runs kThreads = 256 threads as (ty, tx) = (tid / 16, tid % 16);
 // in a (64, 64) score tile thread (ty, tx) owns rows ty + 16 i and columns

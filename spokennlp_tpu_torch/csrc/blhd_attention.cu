@@ -16,11 +16,11 @@
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // took a whole (L, L) score matrix of HB heads into VMEM (L=512 fits) and
 // normalised after P.V. A Hopper block cannot hold that, so this is the
-// attention block's core (attention_core.cuh): in bfloat16 one block per (128
-// query rows, head, sequence) runs both products on the tensor cores
-// (mma.sync m16n8k16 bf16, float32 sums) over key tiles of 64 streamed
-// through a two-stage cp.async ring, with the online softmax in registers;
-// in float32 the CUDA-core core over 64 query rows. Both use this kernel's
+// attention block's core (attention_core.cuh): one block per (128 query
+// rows, head, sequence) runs both products on the tensor cores (mma.sync
+// m16n8k16 bf16 in bfloat16, 3xTF32 m16n8k8 in float32; float32 sums) over
+// key tiles of 64 streamed through a two-stage cp.async ring, with the
+// online softmax in registers. Both use this kernel's
 // layouts, apply the scale to the scores (q arrives unscaled) and round the
 // exponent to bfloat16 as the TPU kernel takes it.
 #include "attention_core.cuh"

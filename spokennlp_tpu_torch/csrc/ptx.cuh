@@ -1,7 +1,8 @@
 // The PTX the tensor-core tiles share (int8_gemm.cuh's s8 GEMM tile,
-// attention_core.cuh's bf16 attention core, tf32x3_gemm.cuh's float32
-// tile): cp.async copies into shared memory, ldmatrix fragment reads, the
-// TF32 rounding and the three mma.sync shapes.
+// attention_core.cuh's attention cores, tf32x3_gemm.cuh's float32 tile, the
+// attention bodies of attention_rows_mma.cuh and attention_grad_mma.cuh):
+// cp.async copies into shared memory, ldmatrix fragment reads, the TF32
+// rounding and split, and the three mma.sync shapes.
 #pragma once
 
 #include "common.cuh"
@@ -84,6 +85,23 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (big, small) of x: big = tf32(x), small = tf32(x - big), the 3xTF32
+// split of tf32x3_gemm.cuh
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c += a . b over one m16 n8 k8 fragment as 3xTF32 takes it, in the GEMM
+// tile's order: small_a . big_b, big_a . small_b, then big_a . big_b
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
 }
 
 }  // namespace spk

@@ -10,10 +10,10 @@
 //
 // What bounds it here. Its work is the two blocks' work times NL (about 3.1
 // TFLOP for 12 BERT-base layers at B=32, L=512), so it is bound by
-// arithmetic, as they are: the bf16 attention core, the float GEMMs and the
-// W8A8 products run on the tensor cores (attention_core.cuh's bf16 mma.sync
-// core; bf16_gemm.cuh's bf16 tile, tf32x3_gemm.cuh's 3xTF32 tile in float32
-// and int8_gemm.cuh's s8 mma.sync tile), the float32 core on the CUDA cores.
+// arithmetic, as they are: the attention cores, the float GEMMs and the W8A8
+// products run on the tensor cores (attention_core.cuh's mma.sync cores,
+// bf16 or 3xTF32 in float32; bf16_gemm.cuh's bf16 tile, tf32x3_gemm.cuh's
+// 3xTF32 tile in float32 and int8_gemm.cuh's s8 mma.sync tile).
 // What the TPU kernel saved is what a stack of launches costs besides: 2-5
 // launches a block, 24-108 a forward, each with a ramp-up and a tail where
 // SMs idle, and the hidden state's trips through device memory between them.
@@ -117,16 +117,15 @@ __device__ __noinline__ void stack_residual_ln_item(const T* A, const T* W, cons
                           smem);
 }
 
-// One bf16 attention-core item of the stack, kept out of line: inlined, the
+// One attention-core item of the stack, kept out of line: inlined, the
 // tensor-core core's registers raise the pressure of the whole kernel, and
-// the float bf16 stack spills more and runs about 1.5 times as long
-// (PERF.md). The float32 core stays inline, as it costs the float32 stack
-// nothing there.
-template <int HD>
-__device__ __noinline__ void stack_core_item(const __nv_bfloat16* qkv, const int32_t* seg,
-                                             __nv_bfloat16* ctx, int L, CoreLayout lay, int q0,
-                                             int h, int b, float* smem) {
-  attn_core_tile<__nv_bfloat16, HD, __nv_bfloat16>(qkv, seg, ctx, L, lay, 1.0f, q0, h, b, smem);
+// the float bf16 stack spilled more and ran about 1.5 times as long
+// (PERF.md). The float32 core (3xTF32 on the tensor cores) is taken out of
+// line the same way.
+template <typename T, int HD>
+__device__ __noinline__ void stack_core_item(const T* qkv, const int32_t* seg, T* ctx, int L,
+                                             CoreLayout lay, int q0, int h, int b, float* smem) {
+  attn_core_tile<T, HD, T>(qkv, seg, ctx, L, lay, 1.0f, q0, h, b, smem);
 }
 
 // Every layer of the stack, for one block of the cooperative grid.
@@ -139,7 +138,6 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
   const int nblk = gridDim.x, blk = blockIdx.x;
   constexpr int kWarps = kThreads / 32;
   const int warp0 = blk * kWarps + threadIdx.x / 32, nwarps = nblk * kWarps;
-  constexpr bool kF32 = std::is_same<T, float>::value;
   // the float tiles' counts
   constexpr int TR = kGemmRowsB, TC = kGemmColsB, LR = kLnRowsB;
   const int mt = (M + TR - 1) / TR, rb = (M + LR - 1) / LR;
@@ -186,11 +184,7 @@ __device__ __forceinline__ void stack_layers(StackArgs a) {
     const int lt = (L + kRows - 1) / kRows;
     for (int t = blk; t < lt * nh * B; t += nblk) {
       const int q0 = (t % lt) * kRows, h = (t / lt) % nh, b = t / (lt * nh);
-      if constexpr (kF32) {
-        attn_core_tile<T, HD, T>(qkv, a.seg, ctx, L, lay, 1.0f, q0, h, b, smem);
-      } else {
-        stack_core_item<HD>(qkv, a.seg, ctx, L, lay, q0, h, b, smem);
-      }
+      stack_core_item<T, HD>(qkv, a.seg, ctx, L, lay, q0, h, b, smem);
     }
     grid.sync();
     if constexpr (kQuant) {

@@ -40,12 +40,16 @@
 // each dS stored once in bf16 for the dq pass, which only multiplies). What
 // stays on the CUDA cores is the work on each of the B nh L^2 (row, key)
 // pairs: the mask, the exponent and its roundings, a Philox-4x32-10 draw.
-// float32 runs the three cores' SIMT bodies (256 threads, float32 copies of
-// the tiles, attention_tiles.cuh), unchanged.
-// In float32 every product, forward and backward, runs tf32x3_gemm.cuh's
-// 3xTF32 tensor-core tile through the same launchers; the projections the
-// backward recomputes take the forward's kernel and tile, so it
-// differentiates the forward's own values.
+// In float32 every product, forward and backward, runs on the tensor cores
+// as 3xTF32 (each float32 operand split into two TF32 parts, three mma.sync
+// m16n8k8 products in float32): the projections on tf32x3_gemm.cuh's tile
+// through the same launchers (the projections the backward recomputes take
+// the forward's kernel and tile, so it differentiates the forward's own
+// values), and the three cores on the float32 siblings of the same bodies
+// (rows_tile_tf32, grad_tile_tf32, dq_from_ds_tile_tf32; 128 threads, the
+// same callbacks), each dS stored once in float32 for the dq pass (402 MB
+// at B=32, L=512: forming dS again there would repeat S, dP, the exponent
+// and the Philox draw of every pair).
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v and the (L, L) probabilities
@@ -64,12 +68,12 @@
 //               summed over all query tiles it streams. Each block owns its
 //               keys' rows of dk and dv, so the sum over query tiles is a
 //               loop inside one block: no atomics, no partial buffers, and
-//               the same order on every run. In bf16 it also stores every
-//               dS tile (dense_ds_tile: B nh (L / 64)^2 tiles, 201 MB at
-//               B=32, L=512, from the wrapper's allocator);
+//               the same order on every run. It also stores every dS tile
+//               (dense_ds_tile: B nh (L / 64)^2 tiles, 201 MB in bf16 and
+//               402 MB in float32 at B=32, L=512, from the wrapper's
+//               allocator);
 //            4. attn_dq_kernel: per (query tile, head, sequence), dq summed
-//               over the key tiles it streams (in bf16 over those dS
-//               tiles; in float32 it forms dS again);
+//               over those dS tiles;
 //            5. dx = [dq dk dv] . Wqkv^T in one GEMM;
 //            6. dWqkv = x^T [dq dk dv] and dWo = ctx^T g in
 //               launch_weight_grad (bf16_gemm.cuh): each block owns a tile
@@ -78,8 +82,7 @@
 //               batch sum is deterministic too; the bias gradients come from
 //               the same pass.
 // The probabilities are recomputed in the backward instead of being stored
-// (twice in bf16: rows, dkv; three times in float32): only bf16's dS tiles
-// touch device memory.
+// (twice: rows, dkv): only the dS tiles touch device memory.
 #include "attention_rows_mma.cuh"
 #include "bf16_gemm.cuh"
 
@@ -93,172 +96,85 @@ __device__ __forceinline__ float masked_score(float dot, float sm_scale, int seg
 }
 
 // the segment ids of a sequence's key tiles (64 a tile, 0 past L), staged
-// beside the bf16 rows kernel's tiles
+// beside the rows kernel's tiles
 __host__ __device__ constexpr size_t seg_ids_bytes(int L) {
   return sizeof(int) * (size_t)((L + kTile - 1) / kTile) * kTile;
 }
 
-// shared memory of the rows kernel: in float32 four (64, HD) float tiles, a
-// (64, 64) score tile and the key tile's segment ids; in bf16
-// attention_rows_mma.cuh's staged tiles and the sequence's segment ids
+// the least resident blocks an SM the dense kernels are compiled for: bf16
+// as the other gradient kernels (grad_min_blocks); float32 two, which its
+// shared memory allows at head dim 64 (up to 255 registers a thread)
+template <typename T, int HD>
+__host__ __device__ constexpr int dense_min_blocks() {
+  return std::is_same<T, float>::value ? 2 : grad_min_blocks<T, HD>();
+}
+
+// shared memory of the rows kernel before the segment ids: the staged tiles
+// of attention_rows_mma.cuh's body in the element type
+template <typename T, int HD, bool kGrad>
+__host__ __device__ constexpr size_t rows_tiles_bytes() {
+  if constexpr (std::is_same<T, float>::value) {
+    return rows_smem_tf32<HD, kGrad>();
+  } else {
+    return rows_smem_mma<HD, kGrad>();
+  }
+}
+
 template <typename T, int HD, bool kGrad>
 size_t rows_smem_bytes(int L) {
-  if constexpr (std::is_same<T, float>::value) {
-    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS) +
-           sizeof(int) * kTile;
-  } else {
-    return rows_smem_mma<HD, kGrad>() + seg_ids_bytes(L);
-  }
+  return rows_tiles_bytes<T, HD, kGrad>() + seg_ids_bytes(L);
 }
 
 // Rows of one (query tile, head, sequence): m = max over all keys, then
 // D = sum e, ctx = (keep e) . v / (D keep_prob), stored rounded to (B, L, Hn).
 // With kGrad it also forms dp = dctx . v^T and writes the row statistics
 // (m, D, rowsum(dp p_eff)) to stats (3, B, nh, L) for the dq and dk/dv
-// kernels. Grid (ceil(L / 64), nh, B). bf16 runs attention_rows_mma.cuh's
-// tensor-core body (128 threads) over every key tile of the sequence, each
-// score scaled and masked as masked_score does; float32 the CUDA-core body
-// below (256 threads).
+// kernels. Grid (ceil(L / 64), nh, B), 128 threads: attention_rows_mma.cuh's
+// tensor-core body (bf16, or float32 on 3xTF32) over every key tile of the
+// sequence, each score scaled and masked as masked_score does.
 template <typename T, int HD, bool kGrad>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
     attn_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ seg,
                      const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                      T* __restrict__ ctx, float* __restrict__ stats, int B, int L, int nh,
                      float sm_scale, uint32_t thr, float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
-    const T* Q = qkv + ((size_t)b * nh + h) * head;
-    const int32_t* seg_b = seg + (size_t)b * L;
-    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
-    const int nt = (L + kTile - 1) / kTile;
-    int* seg_s = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) +
-                                        rows_smem_mma<HD, kGrad>());
-    for (int i = threadIdx.x; i < nt * kTile; i += kGradThreads) seg_s[i] = i < L ? seg_b[i] : 0;
-    // (the body's first barrier comes before its first read of seg_s)
-    rows_tile_mma<HD, kGrad>(
-        Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
-        kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, 0, q0, L, L, nt,
-        [&](int i, KeyTile& kt) {
-          kt.k0 = kTile * i;
-          kt.k_end = L;
-          kt.tag = 0u;
-          kt.col_off = 0;
-          return true;
-        },
-        [&](const KeyTile&, int, int key) { return key < L; },
-        [&](const KeyTile&, int row, int key) {
-          return thr == 0u || dropout_keep(seed, thr, b, h, row, key);
-        },
-        keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
-        kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
-        reinterpret_cast<unsigned char*>(smem), [&](const KeyTile&, int row, int key, float x) {
-          return masked_score(x, sm_scale, seg_s[row], seg_s[key]);
-        });
-    return;
-  } else {
-  using G = Geometry<HD>;
-  float* Qs = smem;
-  float* Ks = Qs + G::kTileFloats;
-  float* Vs = Ks + G::kTileFloats;
-  float* dCs = Vs + G::kTileFloats;
-  float* Ps = dCs + G::kTileFloats;
-  int* seg_k = reinterpret_cast<int*>(Ps + kTile * kPS);
-
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t head = (size_t)L * HD;
-  const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
-  const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
+  const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
+  const T* Q = qkv + ((size_t)b * nh + h) * head;
   const int32_t* seg_b = seg + (size_t)b * L;
-  const uint32_t seed = (uint32_t)seed_ptr[0];
-
-  load_head_tile<T, HD>(Qs, Q, q0, L);
-  if constexpr (kGrad) load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh);
-  int seg_q[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = q0 + ty + 16 * i;
-    seg_q[i] = l < L ? seg_b[l] : 0;
-  }
-
-  // pass 1: the row maxima over every key of the sequence
-  float m[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -CUDART_INF_F;
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, k0, L);
-    if (threadIdx.x < kTile) seg_k[threadIdx.x] = k0 + threadIdx.x < L ? seg_b[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    float s[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        if (k0 + c < L) m[i] = fmaxf(m[i], masked_score(s[i][j], sm_scale, seg_q[i], seg_k[c]));
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = half_warp_max(m[i]);
-
-  // pass 2: e, the denominator, (keep e) . v and, with kGrad, rowsum(dp keep e)
-  float D[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float o[4][G::TD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) o[i][j] = 0.0f;
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, k0, L);
-    load_head_tile<T, HD>(Vs, V, k0, L);
-    if (threadIdx.x < kTile) seg_k[threadIdx.x] = k0 + threadIdx.x < L ? seg_b[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-    if constexpr (kGrad) tile_dot<HD>(dCs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, key = k0 + c;
-        float e = 0.0f;
-        if (key < L) e = rounded_exp<T>(masked_score(s[i][j], sm_scale, seg_q[i], seg_k[c]), m[i]);
-        D[i] += e;
-        const float pe = (thr == 0u || dropout_keep(seed, thr, b, h, row, key)) ? e : 0.0f;
-        if constexpr (kGrad) rs[i] = fmaf(pe, dp[i][j], rs[i]);
-        Ps[(ty + 16 * i) * kPS + c] = pe;
-      }
-    }
-    __syncthreads();
-    tile_accumulate<HD>(Ps, Vs, o);
-  }
-
-  const size_t row_stride = (size_t)nh * HD;
-  const size_t plane = (size_t)B * nh * L;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float d_sum = half_warp_sum(D[i]);
-    const float rs_sum = kGrad ? half_warp_sum(rs[i]) : 0.0f;
-    const int l = q0 + ty + 16 * i;
-    if (l >= L) continue;
-    const float denom = d_sum * keep_prob;
-    T* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) out[tx + 16 * j] = from_f32<T>(o[i][j] / denom);
-    if (kGrad && tx == 0) {
-      const size_t r = ((size_t)b * nh + h) * L + l;
-      stats[r] = m[i];
-      stats[plane + r] = d_sum;
-      stats[2 * plane + r] = rs_sum / denom;
-    }
-  }
+  const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
+  const int nt = (L + kTile - 1) / kTile;
+  int* seg_s = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) +
+                                      rows_tiles_bytes<T, HD, kGrad>());
+  for (int i = threadIdx.x; i < nt * kTile; i += kGradThreads) seg_s[i] = i < L ? seg_b[i] : 0;
+  // (the body's first barrier comes before its first read of seg_s)
+  const auto live = [&](int i, KeyTile& kt) {
+    kt.k0 = kTile * i;
+    kt.k_end = L;
+    kt.tag = 0u;
+    kt.col_off = 0;
+    return true;
+  };
+  const auto allowed = [&](const KeyTile&, int, int key) { return key < L; };
+  const auto keep = [&](const KeyTile&, int row, int key) {
+    return thr == 0u || dropout_keep(seed, thr, b, h, row, key);
+  };
+  const auto score = [&](const KeyTile&, int row, int key, float x) {
+    return masked_score(x, sm_scale, seg_s[row], seg_s[key]);
+  };
+  const T* dC = kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr;
+  T* out = ctx + (size_t)b * L * HN + (size_t)h * HD;
+  float* st = kGrad ? stats + ((size_t)b * nh + h) * L : nullptr;
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
+  if constexpr (std::is_same<T, float>::value) {
+    rows_tile_tf32<HD, kGrad>(Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head, dC, HN,
+                              0, q0, L, L, nt, live, allowed, keep, keep_prob, out, HN, st,
+                              (size_t)B * nh * L, sm, score);
+  } else {
+    rows_tile_mma<HD, kGrad>(Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head, dC, HN,
+                             0, q0, L, L, nt, live, allowed, keep, keep_prob, out, HN, st,
+                             (size_t)B * nh * L, sm, score);
   }
 }
 
@@ -276,351 +192,228 @@ __device__ __forceinline__ void score_grad(float s, float dp, float m, float d_s
 
 // The first element of the stored dS tile of (query tile qt, key tile kt)
 // of (b, h) = bh, with nt tiles a sequence: (64 keys, 64 query rows), keys
-// major, as attention_grad_mma.cuh's dq pass reads it
+// major, as attention_grad_mma.cuh's dq passes read it
 __host__ __device__ __forceinline__ size_t dense_ds_tile(int bh, int qt, int kt, int nt) {
   return (((size_t)bh * nt + qt) * nt + kt) * (size_t)kDsTile;
 }
 
+// a stage of the dq pass: the k tile, then the dS tile
 template <typename T, int HD>
-constexpr size_t dq_smem_bytes() {
+__host__ __device__ constexpr size_t dq_stage_bytes() {
   if constexpr (std::is_same<T, float>::value) {
-    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS) +
-           sizeof(int) * kTile;
+    return (size_t)GradTf32<HD>::kKTileBytes + kDsTileBytesF;
   } else {
-    return grad_dq_smem_mma<HD>();
+    return grad_dq_stage_bytes<HD>();
   }
 }
 
-// dq of one (query tile, head, sequence): sum over key tiles of dS . k,
-// stored rounded into the (B*L, 3, nh, hd) gradient at slot 0.
-// Grid (ceil(L / 64), nh, B). float32 on the CUDA cores (256 threads)
-// forms dS itself; bf16 on the tensor cores (128 threads,
-// attention_grad_mma.cuh) reads the dS tiles attn_dkv_kernel stored in
-// ds_in (dense_ds_tile).
 template <typename T, int HD>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+constexpr size_t dq_smem_bytes() {
+  return 2 * dq_stage_bytes<T, HD>();
+}
+
+// dq of one (query tile, head, sequence): sum over key tiles of dS . k,
+// stored rounded into the (B*L, 3, nh, hd) gradient at slot 0, from the dS
+// tiles attn_dkv_kernel stored in ds_in (dense_ds_tile). Grid (ceil(L /
+// 64), nh, B), 128 threads on the tensor cores (attention_grad_mma.cuh:
+// bf16, or float32 on 3xTF32).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
     attn_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ seg,
                    const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                    const float* __restrict__ stats, const T* __restrict__ ds_in,
                    T* __restrict__ dqkv, int B, int L, int nh, float sm_scale, uint32_t thr,
                    float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    using Mm = GradMma<HD>;
-    unsigned char* ring = reinterpret_cast<unsigned char*>(smem);  // stage s: k, then dS
-    const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
-    const T* K = qkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
-    const int nt = (L + kTile - 1) / kTile;
-    const T* tiles = ds_in + dense_ds_tile(b * nh + h, blockIdx.x, 0, nt);
-    const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
-    const bool live = q0 + 16 * warp < L;  // warp-uniform
-    float dq[HD / 8][4];
-    zero_acc<HD>(dq);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);  // stage s: k, then dS
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
+  const int nt = (L + kTile - 1) / kTile;
+  const T* tiles = ds_in + dense_ds_tile(b * nh + h, blockIdx.x, 0, nt);
+  const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+  const bool live = q0 + 16 * warp < L;  // warp-uniform
+  float dq[HD / 8][4];
+  zero_acc<HD>(dq);
+  const auto stage_of = [&](int st) { return ring + st * dq_stage_bytes<T, HD>(); };
+  if constexpr (kF32) {
+    grad_ring(
+        nt, [](int t) { return t; },
+        [&](int st, int t) {
+          stage_f32_rows<HD, GradTf32<HD>::kKRowFloats>(K, HD, kTile * t, 0, L, stage_of(st));
+          stage_ds_tile_f32(tiles + (size_t)t * kDsTile, stage_of(st) + GradTf32<HD>::kKTileBytes);
+        },
+        [&](int st, int) {
+          if (live)
+            dq_from_ds_tile_tf32<HD>(stage_of(st) + GradTf32<HD>::kKTileBytes, stage_of(st), dq);
+        });
+  } else {
     const GradLane<HD> lane;
-    const auto stage_of = [&](int st) { return ring + st * grad_dq_stage_bytes<HD>(); };
     grad_ring(
         nt, [](int t) { return t; },
         [&](int st, int t) {
           stage_grad_rows<HD>(K, HD, kTile * t, 0, L, stage_of(st));
-          stage_ds_tile(tiles + (size_t)t * kDsTile, stage_of(st) + Mm::kTileBytes);
+          stage_ds_tile(tiles + (size_t)t * kDsTile, stage_of(st) + GradMma<HD>::kTileBytes);
         },
         [&](int st, int) {
           if (live)
-            dq_from_ds_tile<HD>(smem_addr(stage_of(st) + Mm::kTileBytes), smem_addr(stage_of(st)),
-                                lane, dq);
+            dq_from_ds_tile<HD>(smem_addr(stage_of(st) + GradMma<HD>::kTileBytes),
+                                smem_addr(stage_of(st)), lane, dq);
         });
-    if (!live) return;
-    const size_t row_stride = (size_t)3 * nh * HD;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int l = hi ? r_hi : r_lo;
-      if (l < L)
-        store_acc_row<HD>(dq, hi, dqkv + ((size_t)b * L + l) * row_stride + (size_t)h * HD,
-                          [](float v) { return v; });
-    }
-    return;
-  } else {
-  using G = Geometry<HD>;
-  float* Qs = smem;
-  float* Ks = Qs + G::kTileFloats;
-  float* Vs = Ks + G::kTileFloats;
-  float* dCs = Vs + G::kTileFloats;
-  float* Ps = dCs + G::kTileFloats;
-  int* seg_k = reinterpret_cast<int*>(Ps + kTile * kPS);
-
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t head = (size_t)L * HD;
-  const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
-  const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
-  const int32_t* seg_b = seg + (size_t)b * L;
-  const uint32_t seed = (uint32_t)seed_ptr[0];
-  const size_t plane = (size_t)B * nh * L;
-
-  load_head_tile<T, HD>(Qs, Q, q0, L);
-  load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh);
-  int seg_q[4];
-  float m[4], d_sum[4], rs[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = q0 + ty + 16 * i;
-    const size_t r = ((size_t)b * nh + h) * L + (l < L ? l : 0);
-    seg_q[i] = l < L ? seg_b[l] : 0;
-    m[i] = stats[r];
-    d_sum[i] = stats[plane + r];
-    rs[i] = stats[2 * plane + r];
   }
-  float dq[4][G::TD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) dq[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, k0, L);
-    load_head_tile<T, HD>(Vs, V, k0, L);
-    if (threadIdx.x < kTile) seg_k[threadIdx.x] = k0 + threadIdx.x < L ? seg_b[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-    tile_dot<HD>(dCs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, key = k0 + c;
-        float ds = 0.0f, p_eff = 0.0f;
-        if (key < L && row < L) {
-          const bool keep = thr == 0u || dropout_keep(seed, thr, b, h, row, key);
-          score_grad<T>(masked_score(s[i][j], sm_scale, seg_q[i], seg_k[c]), dp[i][j], m[i],
-                        d_sum[i], rs[i], keep, sm_scale, keep_prob, ds, p_eff);
-        }
-        Ps[(ty + 16 * i) * kPS + c] = ds;
-      }
-    }
-    __syncthreads();
-    tile_accumulate<HD>(Ps, Ks, dq);
-  }
-
+  if (!live) return;
   const size_t row_stride = (size_t)3 * nh * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = q0 + ty + 16 * i;
+  for (int hi = 0; hi < 2; ++hi) {
+    const int l = hi ? r_hi : r_lo;
     if (l >= L) continue;
     T* out = dqkv + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) out[tx + 16 * j] = from_f32<T>(dq[i][j]);
-  }
+    if constexpr (kF32) {
+      store_acc_row<HD>(dq, hi, out);
+    } else {
+      store_acc_row<HD>(dq, hi, out, [](float v) { return v; });
+    }
   }
 }
 
-// a ring stage of the bf16 dk/dv pass: q's tile, dctx's, then the 64 rows'
-// m, D, rowsum(dp p_eff) and segment ids
-template <int HD>
+// a ring stage of the dk/dv pass: q's tile, dctx's, then the 64 rows' m, D,
+// rowsum(dp p_eff) and segment ids
+template <typename T, int HD>
 __host__ __device__ constexpr size_t dense_dkv_stage_bytes() {
-  return 2 * (size_t)GradMma<HD>::kTileBytes + 4 * kTile * sizeof(float);
+  if constexpr (std::is_same<T, float>::value) {
+    return 2 * (size_t)GradTf32<HD>::kTileBytes + 4 * kTile * sizeof(float);
+  } else {
+    return 2 * (size_t)GradMma<HD>::kTileBytes + 4 * kTile * sizeof(float);
+  }
+}
+
+template <typename T, int HD>
+__host__ __device__ constexpr size_t dense_tile_bytes() {
+  if constexpr (std::is_same<T, float>::value) {
+    return GradTf32<HD>::kTileBytes;
+  } else {
+    return GradMma<HD>::kTileBytes;
+  }
 }
 
 template <typename T, int HD>
 constexpr size_t dkv_smem_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + 2 * (size_t)kTile * kPS +
-                            3 * (size_t)kTile) +
-           sizeof(int) * kTile;
-  } else {
-    return 2 * (size_t)GradMma<HD>::kTileBytes + 2 * dense_dkv_stage_bytes<HD>();
-  }
+  return 2 * dense_tile_bytes<T, HD>() + 2 * dense_dkv_stage_bytes<T, HD>();
 }
 
 // dk and dv of one (KEY tile, head, sequence): sums over every query tile of
 // dS^T . q and round(p_eff)^T . dctx, stored rounded into the (B*L, 3, nh,
-// hd) gradient at slots 1 and 2. Grid (ceil(L / 64), nh, B). In float32
-// (256 threads) thread (ty, tx) owns keys ty + 16 i and, in the score
-// tiles, queries tx + 16 j; in bf16 (128 threads) warp w owns keys 16 w ..
-// 16 w + 15 and forms S^T = k q^T and dP^T = v dctx^T on the tensor cores
-// (attention_grad_mma.cuh), whose dS^T and p_eff^T are the A fragments of dk
-// += dS^T q and dv += p_eff^T dctx; it also stores every dS in ds_out's
-// tiles, which attn_dq_kernel reads (dense_ds_tile).
+// hd) gradient at slots 1 and 2. Grid (ceil(L / 64), nh, B), 128 threads:
+// warp w owns keys 16 w .. 16 w + 15 and forms S^T = k q^T and dP^T = v
+// dctx^T on the tensor cores (attention_grad_mma.cuh: bf16, or float32 on
+// 3xTF32), whose dS^T and p_eff^T are the A fragments of dk += dS^T q and
+// dv += p_eff^T dctx; it also stores every dS in ds_out's tiles (in the
+// element type), which attn_dq_kernel reads (dense_ds_tile).
 template <typename T, int HD>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
     attn_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ seg,
                     const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                     const float* __restrict__ stats, T* __restrict__ ds_out,
                     T* __restrict__ dqkv, int B, int L, int nh, float sm_scale, uint32_t thr,
                     float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    using Mm = GradMma<HD>;
-    unsigned char* Ks = reinterpret_cast<unsigned char*>(smem);
-    unsigned char* Vs = Ks + Mm::kTileBytes;
-    unsigned char* ring = Vs + Mm::kTileBytes;  // stage s: q, dctx, m, D, rowsum, segment ids
-    const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
-    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
-    const T* Q = qkv + ((size_t)b * nh + h) * head;
-    const T* K = Q + (size_t)B * nh * head;
-    const T* V = K + (size_t)B * nh * head;
-    const int32_t* seg_b = seg + (size_t)b * L;
-    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
-    const size_t plane = (size_t)B * nh * L;
-    const float* st0 = stats + ((size_t)b * nh + h) * L;
-    const int nt = (L + kTile - 1) / kTile;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr size_t kTileB = dense_tile_bytes<T, HD>();
+  unsigned char* Ks = reinterpret_cast<unsigned char*>(smem);
+  unsigned char* Vs = Ks + kTileB;
+  unsigned char* ring = Vs + kTileB;  // stage s: q, dctx, m, D, rowsum, segment ids
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+  const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
+  const T* Q = qkv + ((size_t)b * nh + h) * head;
+  const T* K = Q + (size_t)B * nh * head;
+  const T* V = K + (size_t)B * nh * head;
+  const T* dC = dctx + (size_t)b * L * HN + (size_t)h * HD;
+  const int32_t* seg_b = seg + (size_t)b * L;
+  const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
+  const size_t plane = (size_t)B * nh * L;
+  const float* st0 = stats + ((size_t)b * nh + h) * L;
+  const int nt = (L + kTile - 1) / kTile;
 
+  if constexpr (kF32) {
+    stage_f32_rows<HD>(K, HD, k0, 0, L, Ks);
+    stage_f32_rows<HD>(V, HD, k0, 0, L, Vs);
+  } else {
     stage_grad_rows<HD>(K, HD, k0, 0, L, Ks);
     stage_grad_rows<HD>(V, HD, k0, 0, L, Vs);
-    const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
-    const int sk_lo = key_lo < L ? seg_b[key_lo] : 0, sk_hi = key_hi < L ? seg_b[key_hi] : 0;
-    const bool live = k0 + 16 * warp < L;  // warp-uniform
-    float dk[HD / 8][4], dv[HD / 8][4];
-    zero_acc<HD>(dk);
-    zero_acc<HD>(dv);
-    const GradLane<HD> lane;
-    const auto stage_of = [&](int st) { return ring + st * dense_dkv_stage_bytes<HD>(); };
-    grad_ring(
-        nt, [](int t) { return t; },
-        [&](int st, int t) {
-          unsigned char* sp = stage_of(st);
-          const int q0 = kTile * t;
-          stage_grad_rows<HD>(Q, HD, q0, 0, L, sp);
-          stage_grad_rows<HD>(dctx + (size_t)b * L * HN + (size_t)h * HD, HN, q0, 0, L,
-                              sp + Mm::kTileBytes);
-          float* sf = reinterpret_cast<float*>(sp + 2 * Mm::kTileBytes);
-          stage_grad_stats(st0, q0, 0, L, sf);
-          stage_grad_stats(st0 + plane, q0, 0, L, sf + kTile);
-          stage_grad_stats(st0 + 2 * plane, q0, 0, L, sf + 2 * kTile);
-          // the rows' segment ids, copied as 4-byte words (0 past L)
-          stage_grad_stats(reinterpret_cast<const float*>(seg_b), q0, 0, L, sf + 3 * kTile);
-        },
-        [&](int st, int t) {
-          if (!live) return;
-          const int q0 = kTile * t;
-          const unsigned char* sp = stage_of(st);
-          const float* m_s = reinterpret_cast<const float*>(sp + 2 * Mm::kTileBytes);
-          const float* d_s = m_s + kTile;
-          const float* rs_s = d_s + kTile;
-          const int* sq_s = reinterpret_cast<const int*>(rs_s + kTile);
-          T* ds_tile = ds_out + dense_ds_tile(b * nh + h, t, blockIdx.x, nt);
-          grad_tile_mma<HD>(
-              smem_addr(Ks), smem_addr(Vs), smem_addr(sp), smem_addr(sp + Mm::kTileBytes), lane,
-              [&](float sc, float dp, int hi, int col, float& pe) {
-                const int key = hi ? key_hi : key_lo, row = q0 + col;
-                if (row >= L || key >= L) return 0.0f;
-                const bool keep = thr == 0u || dropout_keep(seed, thr, b, h, row, key);
-                float ds;
-                score_grad<T>(masked_score(sc, sm_scale, sq_s[col], hi ? sk_hi : sk_lo), dp,
-                              m_s[col], d_s[col], rs_s[col], keep, sm_scale, keep_prob, ds, pe);
-                return ds;
-              },
-              // dS of rows (col, col + 1) at the key, into the tile of
-              // (query tile t, this key tile)
-              [&](int hi, int col, float d0, float d1) {
-                const int key = hi ? key_hi : key_lo;
-                *reinterpret_cast<__nv_bfloat162*>(ds_tile + (key - k0) * kTile + col) =
-                    __floats2bfloat162_rn(d0, d1);
-              },
-              dk, dv);
-        });
+  }
+  const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
+  const int sk_lo = key_lo < L ? seg_b[key_lo] : 0, sk_hi = key_hi < L ? seg_b[key_hi] : 0;
+  const bool live = k0 + 16 * warp < L;  // warp-uniform
+  float dk[HD / 8][4], dv[HD / 8][4];
+  zero_acc<HD>(dk);
+  zero_acc<HD>(dv);
+  const GradLane<HD> lane;
+  const GradLaneF32<HD> lane_f;
+  const auto stage_of = [&](int st) { return ring + st * dense_dkv_stage_bytes<T, HD>(); };
+  const auto load = [&](int st, int t) {
+    unsigned char* sp = stage_of(st);
+    const int q0 = kTile * t;
+    if constexpr (kF32) {
+      stage_f32_rows<HD>(Q, HD, q0, 0, L, sp);
+      stage_f32_rows<HD>(dC, HN, q0, 0, L, sp + kTileB);
+    } else {
+      stage_grad_rows<HD>(Q, HD, q0, 0, L, sp);
+      stage_grad_rows<HD>(dC, HN, q0, 0, L, sp + kTileB);
+    }
+    float* sf = reinterpret_cast<float*>(sp + 2 * kTileB);
+    stage_grad_stats(st0, q0, 0, L, sf);
+    stage_grad_stats(st0 + plane, q0, 0, L, sf + kTile);
+    stage_grad_stats(st0 + 2 * plane, q0, 0, L, sf + 2 * kTile);
+    // the rows' segment ids, copied as 4-byte words (0 past L)
+    stage_grad_stats(reinterpret_cast<const float*>(seg_b), q0, 0, L, sf + 3 * kTile);
+  };
+  const auto body = [&](int st, int t) {
     if (!live) return;
+    const int q0 = kTile * t;
+    const unsigned char* sp = stage_of(st);
+    const float* m_s = reinterpret_cast<const float*>(sp + 2 * kTileB);
+    const float* d_s = m_s + kTile;
+    const float* rs_s = d_s + kTile;
+    const int* sq_s = reinterpret_cast<const int*>(rs_s + kTile);
+    T* ds_tile = ds_out + dense_ds_tile(b * nh + h, t, blockIdx.x, nt);
+    // dS and p_eff of row q0 + col at the warp's key g + 8 hi
+    const auto grad = [&](float sc, float dp, int hi, int col, float& pe) {
+      const int key = hi ? key_hi : key_lo, row = q0 + col;
+      if (row >= L || key >= L) return 0.0f;
+      const bool keep = thr == 0u || dropout_keep(seed, thr, b, h, row, key);
+      float ds;
+      score_grad<T>(masked_score(sc, sm_scale, sq_s[col], hi ? sk_hi : sk_lo), dp, m_s[col],
+                    d_s[col], rs_s[col], keep, sm_scale, keep_prob, ds, pe);
+      return ds;
+    };
+    // dS of rows (col, col + 1) at the key, into the tile of (query tile
+    // t, this key tile)
+    const auto sink = [&](int hi, int col, float d0, float d1) {
+      store_pair(ds_tile + ((hi ? key_hi : key_lo) - k0) * kTile + col, d0, d1);
+    };
+    if constexpr (kF32) {
+      grad_tile_tf32<HD>(Ks, Vs, sp, sp + kTileB, lane_f, grad, sink, dk, dv);
+    } else {
+      grad_tile_mma<HD>(smem_addr(Ks), smem_addr(Vs), smem_addr(sp), smem_addr(sp + kTileB),
+                        lane, grad, sink, dk, dv);
+    }
+  };
+  grad_ring(nt, [](int t) { return t; }, load, body);
+  if (!live) return;
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int l = hi ? key_hi : key_lo;
-      if (l >= L) continue;
-      T* out = dqkv + ((size_t)b * L + l) * 3 * HN + (size_t)h * HD;
+  for (int hi = 0; hi < 2; ++hi) {
+    const int l = hi ? key_hi : key_lo;
+    if (l >= L) continue;
+    T* out = dqkv + ((size_t)b * L + l) * 3 * HN + (size_t)h * HD;
+    if constexpr (kF32) {
+      store_acc_row<HD>(dk, hi, out + HN);
+      store_acc_row<HD>(dv, hi, out + 2 * HN);
+    } else {
       store_acc_row<HD>(dk, hi, out + HN, [](float v) { return v; });
       store_acc_row<HD>(dv, hi, out + 2 * HN, [](float v) { return v; });
     }
-    return;
-  } else {
-  using G = Geometry<HD>;
-  float* Ks = smem;
-  float* Vs = Ks + G::kTileFloats;
-  float* Qs = Vs + G::kTileFloats;
-  float* dCs = Qs + G::kTileFloats;
-  float* dSs = dCs + G::kTileFloats;
-  float* Pes = dSs + kTile * kPS;
-  float* m_s = Pes + kTile * kPS;
-  float* d_s = m_s + kTile;
-  float* rs_s = d_s + kTile;
-  int* seg_qs = reinterpret_cast<int*>(rs_s + kTile);
-
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t head = (size_t)L * HD;
-  const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
-  const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
-  const int32_t* seg_b = seg + (size_t)b * L;
-  const uint32_t seed = (uint32_t)seed_ptr[0];
-  const size_t plane = (size_t)B * nh * L;
-  const size_t stat0 = ((size_t)b * nh + h) * L;
-
-  load_head_tile<T, HD>(Ks, K, k0, L);
-  load_head_tile<T, HD>(Vs, V, k0, L);
-  int seg_k[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    seg_k[i] = key < L ? seg_b[key] : 0;
-  }
-  float dk[4][G::TD], dv[4][G::TD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) dk[i][j] = dv[i][j] = 0.0f;
-
-  for (int q0 = 0; q0 < L; q0 += kTile) {
-    __syncthreads();
-    load_head_tile<T, HD>(Qs, Q, q0, L);
-    load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh);
-    if (threadIdx.x < kTile) {
-      const int l = q0 + threadIdx.x;
-      const bool in = l < L;
-      seg_qs[threadIdx.x] = in ? seg_b[l] : 0;
-      m_s[threadIdx.x] = in ? stats[stat0 + l] : 0.0f;
-      d_s[threadIdx.x] = in ? stats[plane + stat0 + l] : 1.0f;
-      rs_s[threadIdx.x] = in ? stats[2 * plane + stat0 + l] : 0.0f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(Ks, Qs, s);   // s[i][j]: key ty + 16 i, query tx + 16 j
-    tile_dot<HD>(Vs, dCs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, row = q0 + c;
-        float ds = 0.0f, p_eff = 0.0f;
-        if (key < L && row < L) {
-          const bool keep = thr == 0u || dropout_keep(seed, thr, b, h, row, key);
-          score_grad<T>(masked_score(s[i][j], sm_scale, seg_qs[c], seg_k[i]), dp[i][j], m_s[c],
-                        d_s[c], rs_s[c], keep, sm_scale, keep_prob, ds, p_eff);
-        }
-        dSs[(ty + 16 * i) * kPS + c] = ds;
-        Pes[(ty + 16 * i) * kPS + c] = round_to<T>(p_eff);
-      }
-    }
-    __syncthreads();
-    tile_accumulate<HD>(dSs, Qs, dk);
-    tile_accumulate<HD>(Pes, dCs, dv);
-  }
-
-  const size_t row_stride = (size_t)3 * nh * HD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = k0 + ty + 16 * i;
-    if (l >= L) continue;
-    T* out = dqkv + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) {
-      out[(size_t)nh * HD + tx + 16 * j] = from_f32<T>(dk[i][j]);
-      out[(size_t)2 * nh * HD + tx + 16 * j] = from_f32<T>(dv[i][j]);
-    }
-  }
   }
 }
 
@@ -637,7 +430,7 @@ cudaError_t launch_rows(const T* qkv_buf, const int32_t* seg, const int32_t* see
     const cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((L + kTile - 1) / kTile, nh, B);
-    kernel<<<grid, grad_threads<T>(), smem, stream>>>(qkv_buf, seg, seed, dctx, ctx_buf, stats, B,
+    kernel<<<grid, kGradThreads, smem, stream>>>(qkv_buf, seg, seed, dctx, ctx_buf, stats, B,
                                                       L, nh, sm_scale, thr, keep_prob);
     return cudaGetLastError();
   });
@@ -647,23 +440,23 @@ cudaError_t launch_rows(const T* qkv_buf, const int32_t* seg, const int32_t* see
 constexpr int kGradDkv = 1, kGradDq = 2, kGradBoth = 3;
 
 // The backward's gradient kernels after the statistics pass: attn_dkv_kernel
-// (dk, dv and, in bf16, every dS tile into ds_buf), then attn_dq_kernel (in
-// bf16 from those tiles), into dqkv (B*L, 3, nh, hd)
+// (dk, dv and every dS tile into ds_buf), then attn_dq_kernel (from those
+// tiles), into dqkv (B*L, 3, nh, hd)
 template <typename T>
 cudaError_t launch_grad_cores(int which, const T* qkv_buf, const int32_t* seg,
                               const int32_t* seed, const T* dctx, const float* stats, T* ds_buf,
                               T* dqkv, int B, int L, int nh, int hd, float sm_scale, uint32_t thr,
                               float keep_prob, cudaStream_t stream) {
-  if (std::is_same<T, __nv_bfloat16>::value && ds_buf == nullptr) return cudaErrorInvalidValue;
+  if (ds_buf == nullptr) return cudaErrorInvalidValue;
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     const dim3 grid((L + kTile - 1) / kTile, nh, B);
-    constexpr int threads = grad_threads<T>();
+    constexpr int threads = kGradThreads;
     cudaError_t e = cudaSuccess;
     if (which & kGradDkv) {
-      // bf16: a ragged last tile leaves dS entries that no warp writes,
-      // which the dq pass reads as zero
-      if (ds_buf != nullptr && L % kTile) {
+      // a ragged last tile leaves dS entries that no warp writes, which the
+      // dq pass reads as zero
+      if (L % kTile) {
         const int nt = (L + kTile - 1) / kTile;
         e = cudaMemsetAsync(ds_buf, 0, dense_ds_tile(B * nh, 0, 0, nt) * sizeof(T), stream);
         if (e != cudaSuccess) return e;
@@ -753,8 +546,8 @@ __global__ void dropout_mask_kernel(const int32_t* __restrict__ seed_ptr, uint8_
 // seg is int32 (B, L) and seed one int32 on the card. thr = 0 turns dropout
 // off. The backward's ws (ws_floats float32) is the weight gradients'
 // workspace for splits_proj (dWqkv) and splits_out (dWo) row ranges
-// (launch_weight_grad, bf16_gemm.cuh); its ds_buf (bf16; null in
-// float32) holds B nh ceil(L / 64)^2 dS tiles of 64 x 64 (dense_ds_tile).
+// (launch_weight_grad, bf16_gemm.cuh); its ds_buf (the element type) holds
+// B nh ceil(L / 64)^2 dS tiles of 64 x 64 (dense_ds_tile).
 // Each entry returns the first CUDA error, or 0.
 extern "C" int spk_attention_train_fwd(int dtype, const void* hidden, const void* seg,
                                        const void* seed, const void* wqkv, const void* bqkv,
@@ -807,7 +600,7 @@ extern "C" int spk_attention_train_bwd(int dtype, const void* hidden, const void
     err = spk::attention_train_bwd<float>(
         static_cast<const float*>(hidden), sg, sd, static_cast<const float*>(wqkv), bq,
         static_cast<const float*>(wo), static_cast<const float*>(g), f(qkv_buf), f(dctx_buf),
-        f(ctx_buf), st, f(dqkv), nullptr, f(dx), f(dwqkv), f(dbqkv), f(dwo), f(dbo), f(ws),
+        f(ctx_buf), st, f(dqkv), f(ds_buf), f(dx), f(dwqkv), f(dbqkv), f(dwo), f(dbo), f(ws),
         ws_floats, splits_proj, splits_out, B, L, H, nh, hd, sm_scale, thr, keep_prob, s);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
@@ -860,8 +653,8 @@ extern "C" int spk_attention_rows(int dtype, int grad, const void* qkv, const vo
 
 // The backward's gradient kernels alone, after spk_attention_rows with
 // grad = 1: which = 1 runs attn_dkv_kernel (dk, dv into slots 1 and 2 of
-// dqkv (B*L, 3, nh, hd); in bf16 also every dS tile into ds_buf), 2
-// attn_dq_kernel (dq into slot 0; in bf16 from ds_buf), 3 both. No model
+// dqkv (B*L, 3, nh, hd), and every dS tile into ds_buf, in the element
+// type), 2 attn_dq_kernel (dq into slot 0, from ds_buf), 3 both. No model
 // path calls it.
 extern "C" int spk_attention_grad(int dtype, int which, const void* qkv, const void* seg,
                                   const void* seed, const void* dctx, const void* stats,
@@ -877,7 +670,8 @@ extern "C" int spk_attention_grad(int dtype, int which, const void* qkv, const v
   if (dtype == 0) {
     err = spk::launch_grad_cores<float>(
         which, static_cast<const float*>(qkv), sg, sd, static_cast<const float*>(dctx), st,
-        nullptr, static_cast<float*>(dqkv), B, L, nh, hd, sm_scale, thr, keep_prob, s);
+        static_cast<float*>(ds_buf), static_cast<float*>(dqkv), B, L, nh, hd, sm_scale, thr,
+        keep_prob, s);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     err = spk::launch_grad_cores<bf>(

@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     DTYPE_CODES as _DTYPES,
@@ -75,16 +76,17 @@ def attention_core_plain(q, k, v, segment_ids, exp_dtype):
     """Masked softmax attention of (B, L, nh, hd) q (already scaled), k, v
     as the TPU kernels compute it: float32 scores plus the additive -1e9
     mask, e = exp(s - max) taken in ``exp_dtype`` and rounded to v's type,
-    the float32 sum of e, and the context divided by it after P.V. Returns
-    the float32 context (B, L, nh, hd)."""
-    scores = torch.einsum("blnd,bmnd->bnlm", q.float(), k.float())
+    the float32 sum of e, and the context divided by it after P.V; both
+    products through ``attention_models.core_product``. Returns the float32
+    context (B, L, nh, hd)."""
+    scores = am.core_product(q.transpose(1, 2), k.permute(0, 2, 3, 1))
     seg = segment_ids
     allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
     scores = scores + torch.where(allowed, 0.0, NEG_INF)[:, None]
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp((scores - m).to(exp_dtype)).to(v.dtype).float()
     denom = p.sum(dim=-1, keepdim=True)  # (B, nh, L, 1)
-    ctx = torch.einsum("bnlm,bmnd->blnd", p, v.float())
+    ctx = am.core_product(p, v.transpose(1, 2)).transpose(1, 2)
     return ctx / denom.permute(0, 2, 1, 3)
 
 
@@ -208,7 +210,9 @@ def attention_block_plain(
 ) -> torch.Tensor:
     """The fused block in plain PyTorch; returns hidden's dtype.
 
-    Float modes: everything in float32. W8A8: the TPU kernel's integer
+    Float modes: everything in float32, the projections through
+    ``float_product`` and the core's two products through
+    ``attention_models.core_product``. W8A8: the TPU kernel's integer
     arithmetic and roundings (``heads_per_block`` sets the ctx groups and,
     with ``core_int8``, the q and k scales). Masked keys get an additive
     -1e9, as in the TPU kernel, so a fully padded query row becomes a uniform
@@ -225,12 +229,12 @@ def attention_block_plain(
     qkv = float_product(x, qkv_kernel.reshape(H, -1)).reshape(B, L, *qkv_kernel.shape[1:])
     qkv = qkv + qkv_bias.float()
     q, k, v = qkv.unbind(2)  # (B, L, nh, hd)
-    scores = torch.einsum("blnd,bmnd->bnlm", q * sm_scale, k)
+    scores = am.core_product((q * sm_scale).transpose(1, 2), k.permute(0, 2, 3, 1))
     seg = segment_ids
     allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
     scores = scores + torch.where(allowed, 0.0, NEG_INF)[:, None]
     probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bnlm,bmnd->blnd", probs, v)
+    ctx = am.core_product(probs, v.transpose(1, 2)).transpose(1, 2)
     out = float_product(ctx.reshape(B, L, -1), out_kernel.reshape(-1, H)) + out_bias.float()
     if ln_scale is not None:
         out = _layer_norm(out + x, ln_scale, ln_bias, eps)

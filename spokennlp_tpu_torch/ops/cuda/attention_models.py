@@ -1,4 +1,4 @@
-"""The rounding models of the attention kernels' bf16 tensor-core bodies
+"""The rounding models of the attention kernels' tensor-core bodies
 (``csrc/attention_rows_mma.cuh``, ``csrc/attention_grad_mma.cuh``): the
 rows pass (the attention of a query row over its allowed keys, and the
 backward's statistics) and the softmax-with-dropout gradient, on dense
@@ -8,11 +8,27 @@ where the kernels round. The Longformer (``train_sliding``), BigBird
 models from them; the card gates of ``chip_smoke.py`` hold the kernels to
 those models and plant their faults by replacing ``round_ds``,
 ``round_p_eff``, ``rows_exponent`` or ``rows_softmax`` here.
+
+``core_product`` is the attention cores' own product hook, beside the
+projections' ``float_product``: the dense core's plain version and rounding
+model (``attention_block``, ``blhd_attention``), row 10's plain core and
+its rows and gradient models (``train_blocks``) and ``rows_attend``'s P V
+take their products through it. The float32 cores run those products as
+3xTF32 on the tensor cores; the card gates send the hook to the 3xTF32
+model (``int8_matmul.tf32x3_product``) and plant plain TF32 there.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def core_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., M, K) . (..., K, N) in float32: a product of an attention core
+    (S = q k^T, dP = dctx v^T, P V, dS k, dS^T q, p_eff^T dctx) in the plain
+    versions and rounding models (a card gate replaces it by the 3xTF32
+    model, a planted fault by plain TF32)."""
+    return a.float() @ b.float()
 
 
 def round_ds(ds: torch.Tensor, dt) -> torch.Tensor:
@@ -77,12 +93,13 @@ def rows_attend(s, v, allowed, keep, dt, keep_prob: float, dp=None):
     rows, keys), values v (..., keys, hd), ``allowed`` and ``keep`` (bool or
     None) and, for the statistics pass, dp = dctx v^T: D = sum e, ctx = (kept
     e) . v / (D keep_prob), rs = rowsum(dp p_eff) / (D keep_prob), both zero
-    where D = 0 (rs None without dp). float32 sums, no tiles."""
+    where D = 0 (rs None without dp). float32 sums, no tiles; P V through
+    ``core_product``."""
     m, e = rows_softmax(s, allowed, dt)
     pe = e if keep is None else torch.where(keep, e, 0.0)
     D = e.sum(-1)
     live = D > 0
     denom = torch.where(live, D * keep_prob, 1.0)
-    ctx = torch.where(live[..., None], (pe @ v) / denom[..., None], 0.0)
+    ctx = torch.where(live[..., None], core_product(pe, v) / denom[..., None], 0.0)
     rs = None if dp is None else torch.where(live, (pe * dp).sum(-1) / denom, 0.0)
     return ctx, m, D, rs

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from spokennlp_tpu_torch.ops.cuda import attention_block as ab
+from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import HEAD_DIMS, NEG_INF
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import DTYPE_CODES
@@ -62,7 +63,8 @@ def snld_attention_plain(qkv: torch.Tensor, segment_ids: torch.Tensor,
     s - m and e rounded to bfloat16, e rounded to qkv's type before it
     meets v, float32 sums of the rounded e, both rescaled by
     ``core_alpha``; the context divided by the sum after P.V, then rounded
-    to qkv's type. Returns (B, nh, L, hd)."""
+    to qkv's type. Both products go through
+    ``attention_models.core_product``. Returns (B, nh, L, hd)."""
     q, k, v = (qkv[:, i].float() for i in range(3))  # (B, nh, L, hd)
     B, nh, L, hd = q.shape
     bias = torch.where(core_allowed(segment_ids), 0.0, NEG_INF)
@@ -71,12 +73,12 @@ def snld_attention_plain(qkv: torch.Tensor, segment_ids: torch.Tensor,
     o = torch.zeros((B, nh, L, hd), device=q.device)
     for k0 in range(0, L, CORE_KEY_TILE):
         keys = slice(k0, k0 + CORE_KEY_TILE)
-        s = torch.einsum("bnld,bnmd->bnlm", q, k[:, :, keys]) * sm_scale + bias[..., keys]
+        s = am.core_product(q, k[:, :, keys].transpose(-1, -2)) * sm_scale + bias[..., keys]
         new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = core_alpha(m, new)
         e = torch.exp((s - new).to(torch.bfloat16)).to(qkv.dtype).float()
         total = total * alpha + e.sum(dim=-1, keepdim=True)
-        o = o * alpha + torch.einsum("bnlm,bnmd->bnld", e, v[:, :, keys])
+        o = o * alpha + am.core_product(e, v[:, :, keys])
         m = new
     return (o / total).to(qkv.dtype)
 

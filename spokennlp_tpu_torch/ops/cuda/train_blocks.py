@@ -23,13 +23,13 @@ rounded where the kernels round. No model path runs it; the tests and the
 card checks hold the kernels' products to it element by element, and plant
 faults of a GEMM tile in ``backward_product``.
 
-The attention kernels' bf16 cores have rounding models
-(``attention_rows_model``: the rows pass and its statistics;
+The attention kernels' cores (bf16, or float32 on 3xTF32) have rounding
+models (``attention_rows_model``: the rows pass and its statistics;
 ``attention_core_bwd_model``: the gradient kernels' dq, dk, dv), dense over
 a sequence's keys with float32 sums and no tiles, built from
-``attention_models``; ``attention_rows`` and ``attention_grad`` launch those
-cores alone (no model path calls them), and the card checks hold them to
-the models.
+``attention_models``, their products through its ``core_product`` hook;
+``attention_rows`` and ``attention_grad`` launch those cores alone (no
+model path calls them), and the card checks hold them to the models.
 
 Dropout draws keep bits from Philox4x32-10 keyed by the seed, one per
 (sequence, head, query row, key column), and keeps a probability iff its
@@ -134,8 +134,10 @@ def attention_train_plain(
 
 def _attention_core_train(q, k, v, segment_ids, sm_scale, dropout_rate, keep):
     """ctx (B, L, nh, hd) of q, k, v (B, L, nh, hd) float32: the training
-    core of ``attention_train_plain``."""
-    scores = torch.einsum("blnd,bmnd->bnlm", q, k) * sm_scale
+    core of ``attention_train_plain``, its two products through
+    ``attention_models.core_product``."""
+    heads = lambda t: t.transpose(1, 2)  # (B, nh, L, hd)
+    scores = am.core_product(heads(q), heads(k).transpose(-1, -2)) * sm_scale
     seg = segment_ids
     allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
     scores = scores + torch.where(allowed, 0.0, NEG_INF)[:, None]
@@ -144,7 +146,7 @@ def _attention_core_train(q, k, v, segment_ids, sm_scale, dropout_rate, keep):
         if keep is None:
             raise ValueError("attention_train_plain: dropout_rate > 0 needs the keep mask")
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
-    return torch.einsum("bnlm,bmnd->blnd", probs, v)
+    return am.core_product(probs, heads(v)).transpose(1, 2)
 
 
 def mlp_train_plain(x, w1, b1, w2, b2, *, activation: str) -> torch.Tensor:
@@ -242,7 +244,7 @@ def dense_model_scores(q, k, segment_ids, sm_scale: float) -> torch.Tensor:
     from the row's, or is 0), as the TPU kernel adds it."""
     seg = segment_ids
     allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
-    s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
+    s = am.core_product(q, k.transpose(-1, -2)) * sm_scale
     return s + torch.where(allowed, 0.0, NEG_INF)[:, None]
 
 
@@ -265,7 +267,7 @@ def attention_rows_model(q, k, v, segment_ids, *, sm_scale: float, dctx=None,
     nh, L) float32 = (m, D, rowsum(dp p_eff)) (rs zero without dctx)."""
     dt, L = q.dtype, q.shape[2]
     s = dense_model_scores(q, k, segment_ids, sm_scale)
-    dp = None if dctx is None else dctx.float().transpose(1, 2) @ v.float().transpose(-1, -2)
+    dp = None if dctx is None else am.core_product(dctx.transpose(1, 2), v.transpose(-1, -2))
     ctx, m, D, rs = am.rows_attend(s, v.float(), dense_model_allowed(L, q.device), keep, dt,
                                    1.0 - dropout_rate, dp)
     stats = torch.stack([m, D, torch.zeros_like(D) if rs is None else rs])
@@ -285,9 +287,10 @@ def attention_core_bwd_model(q, k, v, dctx, segment_ids, *, sm_scale: float, sta
     s = dense_model_scores(q, k, segment_ids, sm_scale)
     dc = dctx.float().transpose(1, 2)  # (B, nh, L, hd)
     tr = lambda t: t.transpose(-1, -2)
-    ds, pe = am.dense_core_grad(s, dc @ tr(v.float()), dense_model_allowed(L, q.device), keep,
-                                stats, dt, 1.0 - dropout_rate, scale=sm_scale)
-    grads = (ds @ k.float(), tr(ds) @ q.float(), tr(pe) @ dc)
+    ds, pe = am.dense_core_grad(s, am.core_product(dc, tr(v)), dense_model_allowed(L, q.device),
+                                keep, stats, dt, 1.0 - dropout_rate, scale=sm_scale)
+    mm = am.core_product
+    grads = (mm(ds, k), mm(tr(ds), q), mm(tr(pe), dc))
     return tuple(am.rounded(t, dt).transpose(1, 2).to(dt) for t in grads)
 
 
@@ -433,7 +436,7 @@ def attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, g, *, num_heads: int,
     empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
     qkv_buf, dctx_buf, ctx_buf = empty(3, B, num_heads, L, hd), empty(B, L, HN), empty(B, L, HN)
     stats, dqkv = empty(3, B, num_heads, L, dtype=torch.float32), empty(B, L, 3 * HN)
-    ds_buf = empty(dense_ds_elements(B, num_heads, L)) if dt == torch.bfloat16 else None
+    ds_buf = empty(dense_ds_elements(B, num_heads, L))
     dx = torch.empty_like(hidden)
     f32 = torch.float32
     dwqkv, dbqkv = empty(H, 3 * HN, dtype=f32), empty(3 * HN, dtype=f32)
@@ -456,9 +459,9 @@ def attention_train_bwd(hidden, seg, seed, wqkv, bqkv, wo, g, *, num_heads: int,
 
 
 def dense_ds_elements(B: int, nh: int, L: int) -> int:
-    """Elements of the bf16 backward's dS buffer: a (64 keys, 64 rows) tile
-    for each (query tile, key tile) of each (sequence, head)
-    (csrc/train_attention.cu dense_ds_tile)."""
+    """Elements of the backward's dS buffer, in the compute dtype: a (64
+    keys, 64 rows) tile for each (query tile, key tile) of each (sequence,
+    head) (csrc/train_attention.cu dense_ds_tile)."""
     nt = -(-L // 64)
     return B * nh * nt * nt * 64 * 64
 
@@ -495,12 +498,12 @@ def attention_rows(qkv, seg, seed, *, sm_scale: float, dctx=None, dropout_rate: 
 def attention_grad(qkv, seg, seed, dctx, stats, *, sm_scale: float, dropout_rate: float = 0.0,
                    which: int = 3, out=None):
     """The backward's gradient kernels alone, after ``attention_rows`` with
-    dctx: which = 1 runs attn_dkv_kernel (dk, dv and, in bf16, every dS
-    tile), 2 attn_dq_kernel (dq; in bf16 from the dS tiles of an earlier
-    call with the same ``out``), 3 both. qkv (3, B, nh, L, hd), seg (B, L),
+    dctx: which = 1 runs attn_dkv_kernel (dk, dv and every dS tile), 2
+    attn_dq_kernel (dq, from the dS tiles of an earlier call with the same
+    ``out``), 3 both. qkv (3, B, nh, L, hd), seg (B, L),
     seed (1,), dctx (B, L, nh hd), stats (3, B, nh, L). ``out`` = (dqkv,
     ds_buf) of an earlier call to write into, or None. Returns (dqkv (B*L,
-    3 nh hd), ds_buf (None in float32)). On the CPU it runs
+    3 nh hd), ds_buf (the dS tiles in qkv's dtype)). On the CPU it runs
     ``attention_core_bwd_model`` (all three slots); on the card the
     kernels, whose launches ``attention_grad.launches`` counts. No model
     path calls it."""
@@ -515,9 +518,8 @@ def attention_grad(qkv, seg, seed, dctx, stats, *, sm_scale: float, dropout_rate
         raise ValueError(f"attention_grad: unsupported device {qkv.device}")
     dt, dev = qkv.dtype, qkv.device
     if out is None:
-        ds = torch.empty(dense_ds_elements(B, nh, L), dtype=dt, device=dev) \
-            if dt == torch.bfloat16 else None
-        out = (torch.empty(B * L, 3 * nh * hd, dtype=dt, device=dev), ds)
+        out = (torch.empty(B * L, 3 * nh * hd, dtype=dt, device=dev),
+               torch.empty(dense_ds_elements(B, nh, L), dtype=dt, device=dev))
     dqkv, ds_buf = out
     with torch.cuda.device(dev):
         code = build.library().spk_attention_grad(

@@ -250,12 +250,15 @@ LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.cuda.attention_models")]
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "backward_gemm_turns",
-                                    "dense_core_turns", "backward_core_turns",
-                                    "rows_core_turns"])
+# the card scripts: chip_smoke.py and every measuring script in turns
+CARD_SCRIPTS = ["chip_smoke"] + sorted(p.stem for p in REPO.glob("*_turns.py"))
+
+
+@pytest.mark.parametrize("target", ["package"] + CARD_SCRIPTS)
 def test_port_imports_nothing_of_the_jax_package(target):
     """A fresh interpreter imports every module of the port (or one of the
-    card scripts) and checks that neither spokennlp_tpu nor jax was loaded."""
+    card scripts: chip_smoke.py and each ``*_turns.py``) and checks that
+    neither spokennlp_tpu nor jax was loaded."""
     code = """
 import importlib, pkgutil, sys
 import spokennlp_tpu_torch

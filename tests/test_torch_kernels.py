@@ -86,10 +86,33 @@ BF16_W8A8_TOL, BF16_W8A8_FLIPS = 2e-3, 0.002
 # against the row's max where the model rounds it against the running max:
 # within the same 2^-7 of max |ctx| (measured: at most 2.6e-3 of it).
 CORE_REL, CORE_F32_REL, CORE_ATOL = 2**-7, 1e-4, 1e-4
+# Kernel 6 in float32 takes its exponent in bf16 while its 3xTF32 products
+# sum in another order than the model's: it is held to the bf16 exponent's
+# element-wise gate (CORE_REL, CORE_ATOL) and in norm to SNLD_F32_NORM of
+# ||ctx|| (chip_smoke.SNLD_F32_GATE gives the readings).
+SNLD_F32_NORM = 2e-4
+
+
+def _snld_f32_gate(got, want):
+    """Kernel 6's float32 gate: _core_gate at CORE_REL and the norm part."""
+    _core_gate(got, want)
+    norm = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert norm <= SNLD_F32_NORM, norm
 
 
 def _core_rel(dtype):
     return CORE_F32_REL if dtype == torch.float32 else CORE_REL
+
+
+def _core_model(dtype, fn, terms=3):
+    """fn() with the cores' products (attention_models.core_product) on the
+    3xTF32 model in float32, as the float32 core computes them (terms=1:
+    plain TF32, chip_smoke.F32_CORE_FAULT)."""
+    if dtype != torch.float32:
+        return fn()
+    stand_in = chip_smoke.tf32x3_model if terms == 3 else chip_smoke.plain_tf32
+    with chip_smoke.planted(chip_smoke.core_products(stand_in)):
+        return fn()
 
 
 def _core_gate(got, want, rel=CORE_REL, atol=CORE_ATOL):
@@ -311,6 +334,103 @@ def test_float32_forward_gate_rejects_plain_tf32(kernel):
         bad = plain()
     with pytest.raises(RuntimeError, match="beyond its limit"):
         chip_smoke.check_f32_forward(kernel, bad, plain)
+
+
+def test_dense_core_on_the_tf32x3_model_matches_jax_attention_kernel(jx):
+    """The blocks' float32 core model (attention_core_plain, its products on
+    the 3xTF32 model) against the context of JAX's fused_attention_block in
+    interpret mode, read through an identity out projection (H = nh hd,
+    zero bias, no LayerNorm), on the real rows: to F32_MODEL_RTOL of the
+    largest, as the float32 products themselves."""
+    B, L, nh, hd = 2, 96, 4, 16
+    H = nh * hd
+    inp = _attention_inputs(B, L, H, nh, hd, seed=31)
+    inp.pop("ln_scale"), inp.pop("ln_bias")
+    inp["out_kernel"] = np.eye(H, dtype=np.float32).reshape(nh, hd, H)
+    inp["out_bias"] = np.zeros(H, np.float32)
+    j = jx.arrays(inp)
+    want = jx.fused_attention_block(
+        j.pop("hidden"), j.pop("segment_ids"), j.pop("qkv_kernel"), j.pop("qkv_bias"),
+        j.pop("out_kernel"), j.pop("out_bias"), sm_scale=hd**-0.5, interpret=True, **j)
+    t = _torch(inp)
+    qkv = torch.einsum("blh,hsnd->blsnd", t["hidden"], t["qkv_kernel"]) + t["qkv_bias"]
+    q, k, v = qkv.unbind(2)
+    got = _core_model(torch.float32, lambda: attention_core_plain(
+        q * hd**-0.5, k, v, t["segment_ids"], torch.float32))
+    _assert_within_share(got.reshape(B, L, H), want, F32_MODEL_RTOL, inp["segment_ids"] > 0)
+
+
+@pytest.mark.parametrize("L", [65, 200])
+def test_snld_core_model_on_the_tf32x3_model_matches_jax_kernel(jx, L):
+    """Kernel 6's float32 rounding model with its products on the 3xTF32
+    model against JAX's snld_self_attention (float32 qkv, interpret mode):
+    within CORE_REL of the largest |ctx| on the real rows, as the exact
+    model (test_snld_core_model_matches_jax_kernel; the exponent is bf16)."""
+    hd = 64
+    qkv, _ = _qkv_inputs(3, 4, L, hd, seed=L + 7)
+    seg = _ragged_segments(3, L, seed=L + 7)
+    want = np.asarray(jx.snld_self_attention(jx.jnp.asarray(qkv), jx.jnp.asarray(seg), hd**-0.5,
+                                             heads_per_block=2, interpret=True))
+    got = _core_model(torch.float32, lambda: snld_attention_plain(
+        torch.from_numpy(qkv), torch.from_numpy(seg), hd**-0.5)).numpy()
+    valid = np.broadcast_to(seg[:, None, :, None] > 0, got.shape)
+    _core_gate(torch.from_numpy(got[valid]), torch.from_numpy(want[valid]), atol=0.0)
+
+
+def _tf32x3_in_float64(real, a, b):
+    """The 3xTF32 model's three products summed in float64, then rounded:
+    the same TF32 terms as the card's core, in another order (a stand-in
+    for the kernel's own sums)."""
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32_round
+
+    a, b = a.float(), b.float()
+    ab, bb = tf32_round(a), tf32_round(b)
+    d = lambda t: t.double()
+    return ((d(tf32_round(a - ab)) @ d(bb) + d(ab) @ d(tf32_round(b - bb))) + d(ab) @ d(bb)).float()
+
+
+@pytest.mark.parametrize("B,nh,L,hd", [(4, 12, 512, 64), (2, 2, 130, 128), (3, 2, 513, 128)])
+def test_snld_float32_gate_accepts_other_sum_orders_and_rejects_plain_tf32(B, nh, L, hd):
+    """Kernel 6's float32 gate (chip_smoke.SNLD_F32_GATE: its exponent is
+    bf16) accepts its model with the same TF32 terms summed in another order
+    (float64), where flipped bf16 roundings of s - m exceed CORE_GATE's
+    float32 limit, and rejects plain TF32 products (F32_CORE_FAULT) by its
+    norm part; both planted faults of CORE_FAULTS fail it too."""
+    qkv, seg = _qkv_inputs(B, nh, L, hd, seed=B + L)
+    if B == 3:
+        seg = _ragged_segments(B, L, seed=B + L)
+    q, s = torch.from_numpy(qkv), torch.from_numpy(seg)
+    valid = (s > 0)[:, None, :].expand(B, nh, L)
+    fn = lambda: snld_attention_plain(q, s, hd**-0.5)[valid]
+    want = _core_model(torch.float32, fn)
+    with chip_smoke.planted(chip_smoke.core_products(_tf32x3_in_float64)):
+        _snld_f32_gate(fn(), want)
+    with pytest.raises(AssertionError):
+        _snld_f32_gate(_core_model(torch.float32, fn, terms=1), want)
+    for fault in chip_smoke.core_faults().values():
+        with chip_smoke.planted(chip_smoke.core_products(chip_smoke.tf32x3_model) + [fault]):
+            bad = fn()
+        with pytest.raises(AssertionError):
+            _snld_f32_gate(bad, want)
+
+
+def test_float32_core_gate_rejects_plain_tf32():
+    """chip_smoke's float32 core gate (CORE_GATE["float32"] against the
+    blocks' core model on the 3xTF32 model) accepts the model with the same
+    TF32 terms summed in another order (float64) and with exact float32
+    products, and rejects it with plain TF32 products (F32_CORE_FAULT), at
+    the main path's head dim over 512 keys."""
+    B, nh, L, hd = 2, 4, 512, 64
+    qkv = _block_qkv(B, nh, L, hd, seed=33, dtype=torch.float32)
+    seg = torch.from_numpy(_segments(B, L, seed=33))
+    fn = lambda: _block_core_model(qkv, seg)[seg > 0]
+    want = _core_model(torch.float32, fn)
+    rel, atol = chip_smoke.CORE_GATE["float32"]
+    with chip_smoke.planted(chip_smoke.core_products(_tf32x3_in_float64)):
+        _core_gate(fn(), want, rel=rel, atol=atol)
+    _core_gate(fn(), want, rel=rel, atol=atol)
+    with pytest.raises(AssertionError):
+        _core_gate(_core_model(torch.float32, fn, terms=1), want, rel=rel, atol=atol)
 
 
 @pytest.mark.parametrize("name", sorted(ACTIVATIONS))
@@ -588,8 +708,9 @@ def test_sass_verdict_on_canned_counts():
         f"{stack}23encoder_stack_i8_kernelI{bf}Li64EEEvNS0_9StackArgsE": [8, 0, 4],
         f"{stack}23encoder_stack_i8_kernelIfLi64EEEvNS0_9StackArgsE": [8, 0, 0],
         f"{ns}17attn_core_i8_kernelI{bf}Li64EEEvPKT_": [0, 6, 0],
-        f"{ns}16attn_core_kernelILi64E{bf}EEvPKS1_": [0, 0, 16],
-        f"{ns}21attn_core_simt_kernelIfLi64EfEEvPKT_": [0, 0, 0],
+        f"{ns}16attn_core_kernelI{bf}Li64ES1_EEvPKT_": [0, 0, 16],
+        f"{ns}16attn_core_kernelIfLi64EfEEvPKT_": [0, 0, 48],
+        f"{ns}16attn_core_kernelIfLi64E{bf}EEvPKT_": [0, 0, 48],
         f"{ns}20gemm_bias_act_kernelI{bf}Lb0EEEvPKT_": [0, 0, 32],
         f"{ns}20gemm_bias_act_kernelI{bf}Lb1EEEvPKT_": [0, 0, 32],
         f"{ns}20gemm_bias_act_kernelIfLb0EEEvPKT_": [0, 0, 192],
@@ -605,7 +726,8 @@ def test_sass_verdict_on_canned_counts():
         f"{ns}28gemm_bias_residual_ln_kernelIfEEvPKT_": [0, 0, 96],
         f"{stack}20encoder_stack_kernelI{bf}Li64EEEvNS0_9StackArgsE": [0, 0, 0],
         f"{stack}20encoder_stack_kernelIfLi64EEEvNS0_9StackArgsE": [0, 0, 0],
-        f"{stack}15stack_core_itemILi64EEEvPK{bf}": [0, 0, 16],
+        f"{stack}15stack_core_itemI{bf}Li64EEEvPKT_": [0, 0, 16],
+        f"{stack}15stack_core_itemIfLi64EEEvPKT_": [0, 0, 48],
         f"{stack}14stack_qkv_itemI{bf}EEvPKT_": [0, 0, 32],
         f"{stack}19stack_gemm_act_itemI{bf}EEvPKT_": [0, 0, 32],
         f"{stack}22stack_residual_ln_itemI{bf}EEvPKT_": [0, 0, 16],
@@ -632,11 +754,13 @@ def test_sass_verdict_on_canned_counts():
         f"{ns}19bigbird_rows_kernelIfLi64ELb1EfEEvPKT_": [0, 0, 0],
         f"{stack}16attn_rows_kernelI{bf}Li64ELb0EEEvPKT_": [0, 0, 96],
         f"{stack}16attn_rows_kernelI{bf}Li64ELb1EEEvPKT_": [0, 0, 128],
-        f"{stack}16attn_rows_kernelIfLi64ELb1EEEvPKT_": [0, 0, 0],
+        f"{stack}16attn_rows_kernelIfLi64ELb0EEEvPKT_": [0, 0, 72],
+        f"{stack}16attn_rows_kernelIfLi64ELb1EEEvPKT_": [0, 0, 96],
         f"{stack}14attn_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
-        f"{stack}14attn_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}14attn_dq_kernelIfLi64EEEvPKT_": [0, 0, 96],
         f"{stack}15attn_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
-        f"{stack}15attn_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}15attn_dkv_kernelIfLi64EEEvPKT_": [0, 0, 144],
+        f"{stack}21global_kv_grad_kernelIfLi64EEEvPKT_": [0, 0, 0],
     }
     assert chip_smoke.sass_verdict(good) == []
 
@@ -684,14 +808,33 @@ def test_sass_verdict_on_canned_counts():
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_", [0, 0, 8])
-    # row 10's cores: bf16 (the statistics pass among them) without HMMA,
-    # float32 with it
+    # row 10's cores and the dense core, on the tensor cores in both dtypes:
+    # either instantiation without HMMA (the float32 ones as the SIMT bodies
+    # left them, the old verdict's passing case), or a float32 one missing
     assert with_counts(f"{stack}16attn_rows_kernelI{bf}Li64ELb1EEEvPKT_", [0, 0, 0])
     assert with_counts(f"{stack}15attn_dkv_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
     assert with_counts(f"{stack}14attn_dq_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
-    assert with_counts(f"{stack}14attn_dq_kernelIfLi64EEEvPKT_", [0, 0, 8])
-    # the W8A8 stack's float32 instance (int8 GEMMs, the float32 core) with HMMA
-    assert with_counts(f"{stack}23encoder_stack_i8_kernelIfLi64EEEvNS0_9StackArgsE", [8, 0, 4])
+    for name in (f"{stack}15attn_dkv_kernelIfLi64EEEvPKT_", f"{stack}14attn_dq_kernelIfLi64EEEvPKT_",
+                 f"{stack}16attn_rows_kernelIfLi64ELb1EEEvPKT_",
+                 f"{ns}16attn_core_kernelIfLi64EfEEvPKT_",
+                 f"{ns}16attn_core_kernelIfLi64E{bf}EEvPKT_"):
+        found = with_counts(name, [0, 0, 0])
+        assert found == [f"{name} has no HMMA: its float32 products do not run on the tensor "
+                         "cores"], found
+    found = chip_smoke.sass_verdict({k: v for k, v in good.items() if "attn_rows_kernelIf" not in k})
+    assert found == ["cuobjdump -sass shows no float32 instantiation of attn_rows_kernel"], found
+    # the stacks' out-of-line core items of either type without HMMA: the
+    # float32 stack's core on the CUDA cores, and the W8A8 stack's
+    for name in (f"{stack}15stack_core_itemIfLi64EEEvPKT_",
+                 f"{stack}15stack_core_itemI{bf}Li64EEEvPKT_"):
+        assert with_counts(name, [0, 0, 0]), name
+    found = with_counts(f"{stack}15stack_core_itemIfLi64EEEvPKT_", [0, 0, 0])
+    assert any("encoder_stack_i8_kernelIf" in m for m in found), found
+    # the float32 band, BigBird and global-rows bodies stay on the CUDA
+    # cores: a float32 band or BigBird kernel, global_rows_kernel or
+    # global_kv_grad_kernel holding HMMA fails
+    assert with_counts(f"{stack}15band_dkv_kernelIfLi64EEEvPKT_", [0, 0, 8])
+    assert with_counts(f"{stack}21global_kv_grad_kernelIfLi64EEEvPKT_", [0, 0, 4])
     # the global rows: bf16 (the W8A8 mode's float32 ctx and the statistics
     # pass among them) without HMMA, float32 with it
     assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 2, 0])
@@ -707,6 +850,8 @@ def test_core_gate_limits_match_chip_smoke():
     """The card test and chip_smoke.py hold the core to the same limits."""
     assert chip_smoke.CORE_GATE == {"bfloat16": (CORE_REL, CORE_ATOL),
                                     "float32": (CORE_F32_REL, CORE_ATOL)}
+    assert chip_smoke.SNLD_F32_GATE == (chip_smoke.CORE_GATE["bfloat16"], SNLD_F32_NORM)
+    assert SNLD_F32_NORM == chip_smoke.ROWS_TOL["bfloat16"][1]
 
 
 def _block_qkv(B, nh, L, hd, seed, dtype):
@@ -945,8 +1090,10 @@ def test_bf16_limit_rejects_planted_faults_on_card(cuda, kernel):
 @pytest.mark.parametrize("hb", [12, 6])
 def test_attention_w8a8_kernel_matches_plain_on_card(cuda, dtype, hb):
     """Both sides quantise the float32 weights the same way and round q, k,
-    v, e and ctx where the TPU kernel does; the kernel's online softmax and
-    sum order move ctx by float32 rounding, which can move an int8 step."""
+    v, e and ctx where the TPU kernel does (in float32 on the kernel's own
+    core, chip_smoke.on_card_core: the 3xTF32 core's truncating sums would
+    move ctx's int8 steps beyond W8A8_FLIPS); the kernel's sum order moves
+    the rest by float32 rounding, which can move an int8 step."""
     B, L, H, nh, hd = 8, 512, 768, 12, 64
     inp = _attention_inputs(B, L, H, nh, hd, seed=21)
     t = _on_card(inp, cuda, torch.float32, activations=set())
@@ -956,7 +1103,8 @@ def test_attention_w8a8_kernel_matches_plain_on_card(cuda, dtype, hb):
     got = fused_attention_block(**t, **kw)
     torch.cuda.synchronize()
     assert fused_attention_block.launches == n + 1
-    want = attention_block_plain(**t, **kw)
+    want = chip_smoke.on_card_core(str(dtype).split(".")[-1],
+                                   lambda: attention_block_plain(**t, **kw))
     valid = t["segment_ids"] > 0
     assert_close_w8a8(got[valid], want[valid], bf16=dtype == torch.bfloat16)
 
@@ -984,7 +1132,8 @@ def test_mlp_w8a8_kernel_matches_plain_on_card(cuda, dtype):
 @pytest.mark.parametrize("B,L,H,nh,hd,hb", [(1, 1, 68, 2, 32, 2), (1, 70, 68, 2, 32, 1),
                                             (2, 35, 768, 12, 64, 1), (32, 512, 768, 12, 64, 6)])
 def test_attention_w8a8_launchers_on_ragged_shapes_on_card(cuda, dtype, B, L, H, nh, hd, hb):
-    """qkv_proj_i8 (slots 3) and residual_ln_i8 with nh / hb head groups."""
+    """qkv_proj_i8 (slots 3) and residual_ln_i8 with nh / hb head groups (in
+    float32 on the kernel's own core, chip_smoke.on_card_core)."""
     t = _on_card(_attention_inputs(B, L, H, nh, hd, seed=L + hb), cuda, torch.float32, set())
     if L < 8:  # every row real
         t["segment_ids"] = torch.ones_like(t["segment_ids"])
@@ -992,7 +1141,8 @@ def test_attention_w8a8_launchers_on_ragged_shapes_on_card(cuda, dtype, B, L, H,
     kw = dict(sm_scale=hd**-0.5, quantized=True, heads_per_block=hb)
     got = fused_attention_block(**t, **kw)
     torch.cuda.synchronize()
-    want = attention_block_plain(**t, **kw)
+    want = chip_smoke.on_card_core(str(dtype).split(".")[-1],
+                                   lambda: attention_block_plain(**t, **kw))
     valid = t["segment_ids"] > 0
     assert_close_w8a8(got[valid], want[valid], bf16=dtype == torch.bfloat16)
 
@@ -1098,9 +1248,11 @@ def test_w8a8_check_rejects_planted_faults_on_card(cuda, dtype, fault):
 def test_snld_kernel_matches_plain_on_card(cuda, dtype, B, nh, L, hd):
     """The kernel takes the exponent in bfloat16, the plain reference in
     float32: 2^-9 relative per probability. Against its own rounding model
-    (snld_attention_plain): within one bf16 step of the largest output
-    (_core_gate). The ragged cases (B = 3) add a single-key segment and a
-    sequence with no real token, whose output must be finite."""
+    (snld_attention_plain; in float32 its products on the 3xTF32 model):
+    within one bf16 step of the largest output (_core_gate; in float32 also
+    SNLD_F32_NORM in norm, which plain TF32 there fails). The ragged cases
+    (B = 3) add a single-key segment and a sequence with no real token,
+    whose output must be finite. Two runs give the same bits."""
     qkv, seg = _qkv_inputs(B, nh, L, hd, seed=B + L)
     if B == 3:
         seg = _ragged_segments(B, L, seed=B + L)
@@ -1113,7 +1265,14 @@ def test_snld_kernel_matches_plain_on_card(cuda, dtype, B, nh, L, hd):
     want = reference_snld_attention(q, s, hd**-0.5)
     valid = (s > 0)[:, None, :].expand(B, nh, L)
     torch.testing.assert_close(got[valid].float(), want[valid].float(), atol=1e-2, rtol=2e-2)
-    _core_gate(got[valid], snld_attention_plain(q, s, hd**-0.5)[valid], rel=_core_rel(dtype))
+    model = lambda terms=3: _core_model(dtype, lambda: snld_attention_plain(q, s, hd**-0.5),
+                                        terms)[valid]
+    gate = _snld_f32_gate if dtype == torch.float32 else _core_gate
+    gate(got[valid], model())
+    assert torch.equal(got, snld_self_attention(q, s, hd**-0.5))
+    if dtype == torch.float32 and L >= 64:  # plain TF32 in the model's products fails it
+        with pytest.raises(AssertionError):
+            gate(got[valid], model(terms=1))
 
 
 @pytest.mark.gpu
@@ -1122,7 +1281,9 @@ def test_snld_kernel_matches_plain_on_card(cuda, dtype, B, nh, L, hd):
 def test_attention_core_matches_its_rounding_model_on_card(cuda, dtype, B, nh, L, hd):
     """The blocks' core alone at their launch (attention_core, the block
     layout, the exponent in the element type) within the core's gate of
-    its rounding model, finite everywhere, one launch counted."""
+    its rounding model (in float32 on the 3xTF32 model, which plain TF32
+    there fails), finite everywhere, one launch counted, the same bits
+    twice."""
     qkv = _block_qkv(B, nh, L, hd, seed=B + L + hd, dtype=dtype).to(cuda)
     seg = torch.from_numpy(_ragged_segments(B, L, seed=B + L + hd)).to(cuda)
     n = attention_core.launches
@@ -1131,8 +1292,12 @@ def test_attention_core_matches_its_rounding_model_on_card(cuda, dtype, B, nh, L
     assert attention_core.launches == n + 1
     assert torch.isfinite(got).all()
     valid = seg > 0
-    _core_gate(got.reshape(B, L, nh, hd)[valid], _block_core_model(qkv, seg)[valid],
-               rel=_core_rel(dtype))
+    model = lambda terms=3: _core_model(dtype, lambda: _block_core_model(qkv, seg), terms)[valid]
+    _core_gate(got.reshape(B, L, nh, hd)[valid], model(), rel=_core_rel(dtype))
+    assert torch.equal(got, attention_core(qkv, seg))
+    if dtype == torch.float32 and L >= 64:
+        with pytest.raises(AssertionError):
+            _core_gate(got.reshape(B, L, nh, hd)[valid], model(terms=1), rel=_core_rel(dtype))
 
 
 @pytest.mark.gpu

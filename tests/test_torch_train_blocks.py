@@ -655,6 +655,139 @@ def test_dense_core_gate_rejects_the_planted_faults(fault):
     assert chip_smoke.core_bwd_excess(chip_smoke.core_bwd_readings(want, want, nh * hd), tol) == 0
 
 
+# Row 10's float32 cores run S, dP, P V, dS k, dS^T q and p_eff^T dctx as
+# 3xTF32 on the tensor cores; their rounding models take those products
+# through attention_models.core_product, which the card gates put on the
+# 3xTF32 model (chip_smoke.core_products(chip_smoke.tf32x3_model)). On the
+# CPU, the block assembled from those models (and its projections on the
+# same model) against JAX's training kernel in interpret mode at rate 0:
+# the output and every gradient within MODEL_BLOCK_RTOL of its largest
+# magnitude (measured: at most 8.1e-7), as the float32 products themselves.
+MODEL_BLOCK_RTOL = 1e-5
+# chip_smoke.F32_BWD_CORE_TOL: the float32 gradient kernels' dproj against
+# their rounding model on the 3xTF32 model, (share of max |ref|, of ||ref||)
+F32_CORE_TOL = (1e-4, 8e-5)
+
+
+def _model_block(inp, dctx_from=None):
+    """Row 10's float32 block from its rounding models, every product on
+    the 3xTF32 model: (out, dx, dWqkv, dbqkv, dWo, dbo) at rate 0 for the
+    cotangent of ``inp``."""
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    x, seg, g = t["hidden"], t["segment_ids"], t["cotangent"]
+    Bm, Lm, Hm = x.shape
+    nh, hd = t["qkv_kernel"].shape[2:]
+    wqkv, wo = t["qkv_kernel"].reshape(Hm, -1), t["out_kernel"].reshape(-1, Hm)
+    mm = lambda a, b: chip_smoke.tf32x3_model(None, a, b)
+    with chip_smoke.planted(chip_smoke.core_products(chip_smoke.tf32x3_model)):
+        qkv = (mm(x, wqkv) + t["qkv_bias"].reshape(-1)).reshape(Bm, Lm, 3, nh, hd)
+        q, k, v = (u.transpose(1, 2) for u in qkv.unbind(2))
+        dctx = mm(g, wo.t()).reshape(Bm, Lm, nh, hd)
+        ctx, stats = tb.attention_rows_model(q, k, v, seg, sm_scale=hd**-0.5, dctx=dctx)
+        ctx = ctx.reshape(Bm * Lm, nh * hd)
+        out = mm(ctx, wo) + t["out_bias"]
+        dproj = torch.stack(tb.attention_core_bwd_model(q, k, v, dctx, seg, sm_scale=hd**-0.5,
+                                                        stats=stats), 2).reshape(Bm * Lm, -1)
+    x2, g2 = x.reshape(Bm * Lm, Hm), g.reshape(Bm * Lm, Hm)
+    return [out.reshape(Bm, Lm, Hm), mm(dproj, wqkv.t()).reshape(Bm, Lm, Hm),
+            mm(x2.t(), dproj).reshape(t["qkv_kernel"].shape), dproj.sum(0).reshape(3, nh, hd),
+            mm(ctx.t(), g2).reshape(t["out_kernel"].shape), g2.sum(0)]
+
+
+def test_attention_models_on_the_tf32x3_model_match_jax_kernel_vjp():
+    """Row 10's float32 rounding models (attention_rows_model,
+    attention_core_bwd_model), their products on the 3xTF32 model, assembled
+    into the block with its projections on the same model: the output and
+    its VJP against JAX's attention_block_train (interpret mode, rate 0),
+    within MODEL_BLOCK_RTOL of each output's largest magnitude."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_blocks import attention_block_train as jax_attention
+
+    inp = _attention_inputs(B, L, H, NH, seed=51, w_scale=H**-0.5)
+    seg, seed = jnp.asarray(inp["segment_ids"]), jnp.zeros((1,), jnp.int32)
+    out, vjp = jax.vjp(lambda h, *w: jax_attention(h, seg, *w, seed, HD**-0.5, dropout_rate=0.0,
+                                                   interpret=True),
+                       *(jnp.asarray(inp[k]) for k in ATT_ARGS))
+    want = [out, *vjp(jnp.asarray(inp["cotangent"]))]
+    got = _model_block(inp)
+    for name, g, w in zip(("out",) + ATT_ARGS, got, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w.reshape(g.shape)).max() / np.abs(w).max()
+        assert err <= MODEL_BLOCK_RTOL, (name, err)
+
+
+def _f32_core_case(Bm=2, Lm=256, Hm=256, nh=4, rate=0.1, seed=53):
+    """float32 leaves of row 10 at rate ``rate`` with its keep mask."""
+    inp = _attention_inputs(Bm, Lm, Hm, nh, seed=seed, w_scale=Hm**-0.5)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    keep = tb.dropout_keep_mask(torch.tensor([seed], dtype=torch.int32), Bm, nh, Lm, rate)
+    return t, keep
+
+
+@pytest.mark.parametrize("gate", ["rows", "dproj", "forward", "gradients"])
+def test_float32_core_gates_reject_plain_tf32(gate):
+    """Each float32 gate of row 10 in chip_smoke.py, fed outputs whose core
+    products are exact float32 (they differ from the 3xTF32 model by float32
+    rounding, as the kernels' sums do), passes them and rejects
+    chip_smoke.F32_CORE_FAULT, plain TF32 in the rounding model's core
+    products: the rows kernel's ctx and statistics (ROWS_TOL), the gradient
+    kernels' dproj (F32_BWD_CORE_TOL), the forward (F32_FWD_TOL) and the
+    block's output and gradients against autograd of its plain version
+    (F32_TOL, the fault taken through the backward's products too). Each
+    check raises where it accepts a fault."""
+    t, keep = _f32_core_case()
+    Bm, Lm, Hm = t["hidden"].shape
+    nh, hd = t["qkv_kernel"].shape[2:]
+    sm, rate = hd**-0.5, 0.1
+    q, k, v, dctx = (torch.randn(Bm, nh, Lm, hd, generator=torch.Generator().manual_seed(i))
+                     for i in range(4))
+    dctx = dctx.transpose(1, 2).contiguous()
+    seg = t["segment_ids"]
+    if gate == "rows":
+        model = lambda: tb.attention_rows_model(q, k, v, seg, sm_scale=sm, dctx=dctx,
+                                                dropout_rate=rate, keep=keep)
+        gated = chip_smoke.check_rows("attn_rows float32", "attn_rows", model(), model, f32=True)
+        assert set(gated["faults"]) == {chip_smoke.ROWS_FAULTS[1], chip_smoke.F32_CORE_FAULT}
+    elif gate == "dproj":
+        model = lambda: torch.stack(tb.attention_core_bwd_model(
+            q, k, v, dctx, seg, sm_scale=sm, dropout_rate=rate, keep=keep), 2).reshape(Bm * Lm, -1)
+        gated = chip_smoke.check_f32_backward_cores("attention_train_bwd", model(), model, nh * hd)
+        assert gated["reading"] <= F32_CORE_TOL[0] and len(gated["faults"]) == 2
+    else:
+        args = [t[n] for n in ATT_ARGS]
+        plain = lambda h, *w: tb.attention_train_plain(h, seg, *w, sm_scale=sm,
+                                                       dropout_rate=rate, keep=keep)
+        if gate == "forward":
+            gated = chip_smoke.check_f32_forward(
+                "attention_train_fwd", {"out": plain(*args)}, lambda: {"out": plain(*args)},
+                core=True)
+            assert gated["core_fault_excess"] > 1
+        else:
+            def run(patches):
+                leaves = [a.detach().requires_grad_() for a in args]
+                with chip_smoke.planted(patches):
+                    out = plain(*leaves)
+                    return [out, *torch.autograd.grad(out, leaves, t["cotangent"])]
+
+            got = run([])
+            gated = chip_smoke.f32_tol_fault(
+                got, run(chip_smoke.core_products(chip_smoke.plain_tf32)), ("out",) + ATT_ARGS,
+                "attention_train")
+            assert min(gated.values()) > 1
+            honest = run(chip_smoke.core_products(chip_smoke.tf32x3_model))
+            for g, w, lim in zip(honest, got, [1e-4] + [2e-4] * 5):
+                assert ((g - w).abs().max() / w.abs().max()).item() <= lim
+
+
+def test_float32_core_gate_limits_match_chip_smoke():
+    """The card tests and chip_smoke.py hold row 10's float32 cores to the
+    same limits."""
+    assert chip_smoke.F32_BWD_CORE_TOL == F32_CORE_TOL
+    assert chip_smoke.F32_TOL["attention_train_bwd"] == CARD_TOL["attention"][torch.float32]
+
+
 def test_core_wrappers_on_cpu_run_the_models_and_count_no_launches():
     """attention_rows and attention_grad on CPU tensors run the rounding
     models and launch nothing; dense_ds_elements sizes the dS tiles."""
@@ -1075,14 +1208,14 @@ DENSE_CARD_SHAPES = [(4, 200, 256, 4), (2, 130, 256, 8), (2, 96, 256, 2), (3, 80
                      (2, 512, 768, 12)]
 
 
-def _dense_backward(cuda, Bc, Lc, Hc, nh, rate, seed):
-    """bf16 inputs of the attention block on the card, a backward's
-    intermediates (``attention_train_bwd``'s buffers), the keep mask and the
-    seed."""
+def _dense_backward(cuda, Bc, Lc, Hc, nh, rate, seed, dtype=torch.bfloat16):
+    """bf16 (or ``dtype``) inputs of the attention block on the card, a
+    backward's intermediates (``attention_train_bwd``'s buffers), the keep
+    mask and the seed."""
     hd = Hc // nh
     inp = _attention_inputs(Bc, Lc, Hc, nh, seed=seed, w_scale=Hc**-0.5)
     t = {k: torch.from_numpy(v).to(cuda) for k, v in inp.items()}
-    bf = torch.bfloat16
+    bf = dtype
     seed_t = torch.tensor([seed], dtype=torch.int32, device=cuda)
     wqkv = t["qkv_kernel"].to(bf).reshape(Hc, 3 * Hc).contiguous()
     wo = t["out_kernel"].to(bf).reshape(Hc, Hc).contiguous()
@@ -1166,3 +1299,63 @@ def test_attention_gradient_kernels_match_rounding_model_on_card(cuda, rate, Bc,
             bad = chip_smoke.core_bwd_readings(bufs["dproj"], model(), Hc)
         print(f"  {fault}: {bad}")
         assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fwd", "stats"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh", DENSE_CARD_SHAPES)
+def test_float32_attention_rows_kernel_matches_tf32x3_model_on_card(cuda, mode, rate, Bc, Lc,
+                                                                     Hc, nh):
+    """float32 (3xTF32): attn_rows_kernel alone on the q, k, v and dctx of a
+    backward of the block against attention_rows_model on the 3xTF32 model
+    within chip_smoke.ROWS_TOL (check_rows, which also fails where the model
+    with its key tile dropped or with F32_CORE_FAULT passes); the
+    statistics pass equals the backward's own
+    statistics and ctx; two runs give the same bits."""
+    hd = Hc // nh
+    _, bufs, _, keep, seed = _dense_backward(cuda, Bc, Lc, Hc, nh, rate, Lc + 5, torch.float32)
+    qkv, seg = bufs["qkv"], bufs["seg"]
+    dctx = bufs["dctx"].reshape(Bc, Lc, Hc) if mode == "stats" else None
+    runs = [tb.attention_rows(qkv, seg, seed, sm_scale=hd**-0.5, dctx=dctx, dropout_rate=rate)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    if mode == "stats":
+        assert torch.equal(runs[0][1], bufs["stats"])
+        assert torch.equal(runs[0][0].reshape(Bc * Lc, Hc), bufs["ctx"])
+    model = lambda: tb.attention_rows_model(
+        qkv[0], qkv[1], qkv[2], seg, sm_scale=hd**-0.5, dropout_rate=rate, keep=keep,
+        dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd))
+    got = runs[0] if dctx is not None else (runs[0][0], None)
+    wanted = (lambda: model()) if dctx is not None else (lambda: (model()[0], None))
+    chip_smoke.check_rows(f"attn_rows float32 {Bc}x{Lc} {mode} rate {rate}", "attn_rows", got,
+                          wanted, f32=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh", DENSE_CARD_SHAPES)
+def test_float32_attention_gradient_kernels_match_tf32x3_model_on_card(cuda, rate, Bc, Lc, Hc,
+                                                                        nh):
+    """float32 (3xTF32): the gradient kernels' dproj against
+    attention_core_model_dproj on the 3xTF32 model within
+    chip_smoke.F32_BWD_CORE_TOL in each slot (check_f32_backward_cores,
+    which also fails where F32_CORE_FAULT or the dropped key tile passes);
+    two runs give the same bits; attn_dkv then attn_dq launched alone
+    (tb.attention_grad, float32 dS tiles) give the backward's dproj."""
+    hd = Hc // nh
+    args, bufs, _, keep, seed = _dense_backward(cuda, Bc, Lc, Hc, nh, rate, Lc + 9, torch.float32)
+    again = {}
+    tb.attention_train_bwd(*args, num_heads=nh, sm_scale=hd**-0.5, dropout_rate=rate,
+                           buffers=again)
+    assert torch.equal(bufs["dproj"], again["dproj"])
+    kw = dict(sm_scale=hd**-0.5, dropout_rate=rate)
+    dctx = bufs["dctx"].reshape(Bc, Lc, Hc)
+    out = tb.attention_grad(bufs["qkv"], bufs["seg"], seed, dctx, bufs["stats"], which=1, **kw)
+    alone, ds = tb.attention_grad(bufs["qkv"], bufs["seg"], seed, dctx, bufs["stats"], which=2,
+                                  out=out, **kw)
+    assert ds.dtype == torch.float32 and ds.numel() == tb.dense_ds_elements(Bc, nh, Lc)
+    assert torch.equal(alone, bufs["dproj"])
+    model = lambda: tb.attention_core_model_dproj(bufs, keep=keep, **kw)
+    chip_smoke.check_f32_backward_cores("attention_train_bwd", bufs["dproj"], model, Hc)

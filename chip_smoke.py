@@ -12,13 +12,13 @@
    (gemm_act, gemm_act_quant, qkv_proj, residual_ln and the W8A8 stack)
    holds IMMA, the tensor cores' int8 product, and no function but 1c's int8
    attention core and the W8A8 global query holds IDP4A (__dp4a); every
-   bf16 instantiation of the band and BigBird rows kernels, of the
-   Longformer global rows (global_rows, its W8A8 and statistics-pass
-   instances among them) and of the band and BigBird gradient kernels (dq
-   and dkv) holds HMMA, the tensor cores' product, and no float32 one does
-   (global_kv_grad none at all); both the bf16 and the float32 (3xTF32)
-   instantiations of the dense attention core (attn_core_kernel), of row
-   10's cores (attn_rows, attn_dq, attn_dkv), of the W8A8 stack entry (or
+   bf16 instantiation of the Longformer global rows (global_rows, its W8A8
+   and statistics-pass instances among them) holds HMMA, the tensor cores'
+   product, and no float32 one does (global_kv_grad none at all); both the
+   bf16 and the float32 (3xTF32) instantiations of the dense attention core
+   (attn_core_kernel), of row 10's cores (attn_rows, attn_dq, attn_dkv), of
+   the band and BigBird rows kernels and gradient kernels (dq and dkv), of
+   the W8A8 stack entry (or
    its core item), of the GEMM tile's kernels (gemm_bias_act, a weight read
    as stored or transposed, qkv_proj, gemm_bias_residual_ln, weight_grad,
    act_and_grad) and of the float stack entry (or its out-of-line GEMM
@@ -116,6 +116,14 @@
    float32, with and without global rows, at dropout 0 and 0.1 (the kernels'
    three keep masks replayed); the keep fraction of each mask within 1e-3
    of 0.9; two backward runs bit-identical; kernel, plain and bound times.
+   In float32 (the band rows and gradient kernels on 3xTF32) the forwards
+   against their plain versions with every product, the cores' too, on the
+   3xTF32 model (F32_FWD_TOL), the backward's dproj against its rounding
+   model on that model (F32_BWD_CORE_TOL) at both rates, with and without
+   global rows, two runs' dproj bit-identical, the backward split by kernel
+   name, and plain TF32 in the cores' products (F32_CORE_FAULT) failing
+   each of those gates and F32_TOL (the output and gradients, by autograd
+   through the same products). Phase 12 does the same for BigBird.
 9. Longformer inference main path: cli/run_inference.main with
    --attention_type sliding_window --attention_window 512 --max_seq_length
    2048 --per_device_eval_batch_size 8 on long documents (at least half the
@@ -216,7 +224,10 @@
    its forward and statistics pass at dropout 0.1, then row 10's gradient
    kernels alone (attn_dkv, attn_dq: dkv_ms, dq_ms, grad_bound_ms), in bf16
    and in float32 (3xTF32: the model's products on the 3xTF32 model, the
-   dropped key tile and F32_CORE_FAULT failing ROWS_TOL), and
+   dropped key tile and F32_CORE_FAULT failing ROWS_TOL); band_rows and
+   bigbird_rows in float32 in the same modes (the W8A8 modes with float32
+   activations run the float modes' instantiations), held the same way;
+   and
    scaled_dot_product_attention with the mask, forward and backward, on
    the same q, k, v and dctx as the library column of rows 10, 12 and 13's
    backward cores (core_library_ms), in both dtypes. Then the
@@ -615,17 +626,24 @@ def bound(flops, n_bytes: int, dtype: str = "bfloat16") -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
+def core_type(dtype: str) -> str:
+    """The peak rate an attention core's operations take in ``dtype``: bf16
+    on the tensor cores, float32 as 3xTF32."""
+    return "tf32x3" if dtype == "float32" else dtype
+
+
 def split_bound(rest, moved, n_bytes: int, dtype: str) -> dict:
     """bound() of a kernel that does ``moved`` operations in the products it
     takes the GEMM tile for (in float32 the 3xTF32 tile: every product of
     the forwards, the backwards' recomputed ones, those with a weight read
-    transposed and the weight gradients) and ``rest`` in the others (the
-    attention cores): in float32 the moved ones at the 3xTF32 rate and the
-    rest on the CUDA cores, with the bound of all of it on the CUDA cores
-    beside (``simt_bound_ms``); in bf16 all of it on the tensor cores."""
+    transposed and the weight gradients) and ``rest`` in its attention
+    cores: in float32 all of it at the 3xTF32 rate (every float32 attention
+    core runs 3xTF32 but the Longformer global rows, a small share priced
+    the same), with the bound of all of it on the CUDA cores beside
+    (``simt_bound_ms``); in bf16 all of it on the tensor cores."""
     if dtype != "float32":
         return bound(rest + moved, n_bytes, dtype)
-    return {**bound({"float32": rest, "tf32x3": moved}, n_bytes),
+    return {**bound(rest + moved, n_bytes, "tf32x3"),
             "simt_bound_ms": bound(rest + moved, n_bytes, dtype)["bound_ms"]}
 
 
@@ -1051,6 +1069,63 @@ def on_card_core(dtype: str, fn):
         return fn()
 
 
+def card_band_rows(real, q, k, v, glob_qkv, n_valid, n_glob, *, window, G, exp_dtype=None,
+                   dropout_rate=0.0, keep=None):
+    """A planted() stand-in for sliding_block.sliding_attend at dropout 0:
+    the card's own band rows kernel (train_sliding.sliding_rows) on the same
+    q, k, v (B, L, nh, hd), the global rows from the plain attention (their
+    float32 kernel sums on the CUDA cores), as float32 (B, L, nh, hd)."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    ctx = real(q, k, v, glob_qkv, n_valid, n_glob, window=window, G=G, exp_dtype=exp_dtype)
+    qkv = torch.stack([q, k, v]).transpose(2, 3).contiguous()
+    counts = torch.stack([n_valid, n_glob], 1).int().contiguous()
+    band = ts.sliding_rows(qkv, counts, None, window=window)[0].float()
+    local = torch.arange(q.shape[1], device=q.device)[None] >= n_glob[:, None]
+    return torch.where(local[..., None, None], band, ctx)
+
+
+def card_bigbird_rows(real, q, k, v, attention_mask, *, block_size, num_global_blocks,
+                      num_random_blocks, seed, exp_dtype=None, dropout_rate=0.0, keep=None):
+    """A planted() stand-in for bigbird_block.bigbird_attend at dropout 0:
+    the card's own rows kernel (train_bigbird.bigbird_rows, the global rows
+    among its tiles) on the same q, k, v (B, L, nh, hd), as float32 (B, L,
+    nh, hd)."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+
+    n_valid = (attention_mask > 0).sum(1)
+    counts = torch.stack([n_valid, torch.zeros_like(n_valid)], 1).int().contiguous()
+    t = bigbird_tables(q.shape[1] // block_size, num_global_blocks, num_random_blocks, seed,
+                       q.device)
+    qkv = torch.stack([q, k, v]).transpose(2, 3).contiguous()
+    return tbb.bigbird_rows(qkv, counts, None, t, block_size=block_size)[0].float()
+
+
+# The same for the W8A8 Longformer and BigBird blocks' float32 mode, whose
+# ctx comes from the band and BigBird rows kernels on 3xTF32: against the
+# plain version's exact float32 attention 3.4 % and 3.8 % of their outputs
+# moved an int8 step (H100, B=8, L=2048 and B=4, L=4096; PERF.md, PR 19),
+# so in float32 the W8A8 check of kernels 7 and 8 reads the plain version
+# on the kernel's own rows (card_band_rows, card_bigbird_rows), which phase
+# 20 holds to ROWS_TOL["float32"] in the same instantiation.
+def on_card_rows(dtype: str, fn):
+    """fn() with sliding_block.sliding_attend and bigbird_block.bigbird_attend
+    sent to the card's rows kernels in float32; fn() in bf16."""
+    from spokennlp_tpu_torch.ops.cuda import bigbird_block as bbk
+    from spokennlp_tpu_torch.ops.cuda import sliding_block as sb
+
+    if dtype != "float32":
+        return fn()
+    with planted([(sb, "sliding_attend", None, card_band_rows),
+                  (bbk, "bigbird_attend", None, card_bigbird_rows)]):
+        return fn()
+
+
 def core_products(stand_in):
     """planted() patches: every product of the attention cores' plain
     versions and rounding models (attention_models.core_product) sent to
@@ -1109,20 +1184,22 @@ def check_f32_forward(name: str, got: dict, plain, tol=F32_FWD_TOL, core: bool =
     return out
 
 
-def check_f32_backward_cores(name: str, dproj, model, hn: int) -> dict:
-    """Row ``name``'s float32 dproj (its gradient kernels' dq, dk, dv)
-    against its rounding model (``model()`` -> the model's dproj) with the
-    core products on the 3xTF32 model, within F32_BWD_CORE_TOL; the model
-    with F32_CORE_FAULT, and with its key tile dropped (core_bwd_faults),
-    must fail it. Returns {reading, norm_reading, faults: {fault: (max,
-    norm)}}."""
+def check_f32_backward_cores(name: str, dproj, model, hn: int, label: str = None) -> dict:
+    """Row ``name``'s float32 dproj (its gradient kernels' dq, dk, dv, and
+    row 12's dqg, dkg, dvg) against its rounding model (``model()`` -> the
+    model's dproj) with the core products on the 3xTF32 model, within
+    F32_BWD_CORE_TOL; the model with F32_CORE_FAULT, and with its key tile
+    dropped (core_bwd_faults), must fail it. ``label`` names the case in the
+    report (``name`` by default). Returns {reading, norm_reading, faults:
+    {fault: (max, norm)}}."""
     show = lambda rd: ", ".join(f"{k} {e:.2e} / {n:.2e}" for k, (e, n) in rd.items())
+    label = label or name
     with planted(core_products(tf32x3_model)):
         readings = core_bwd_readings(dproj, model(), hn, rtol=0.0)
-    print(f"  {name} float32 gradient kernels against their rounding model on the 3xTF32 model, "
-          f"max / norm: {show(readings)} (limits {F32_BWD_CORE_TOL})")
+    print(f"  {label} float32 gradient kernels against their rounding model on the 3xTF32 "
+          f"model, max / norm: {show(readings)} (limits {F32_BWD_CORE_TOL})")
     if core_bwd_excess(readings, F32_BWD_CORE_TOL) > 1:
-        fail(f"{name} float32: dproj beyond its rounding model's limits: {show(readings)}")
+        fail(f"{label} float32: dproj beyond its rounding model's limits: {show(readings)}")
     faults = {}
     tile = BWD_CORE_FAULTS[2]
     for fault, patches in ((F32_CORE_FAULT, core_products(plain_tf32)),
@@ -1132,10 +1209,10 @@ def check_f32_backward_cores(name: str, dproj, model, hn: int) -> dict:
         worst = (max(e for e, _ in bad.values()), max(n for _, n in bad.values()))
         faults[fault] = worst
         rejected = core_bwd_excess(bad, F32_BWD_CORE_TOL) > 1
-        print(f"  planted fault, {name}'s float32 rounding model with {fault}: max {worst[0]:.2e}, "
-              f"norm {worst[1]:.2e}: " + ("rejected" if rejected else "ACCEPTED"))
+        print(f"  planted fault, {label}'s float32 rounding model with {fault}: max "
+              f"{worst[0]:.2e}, norm {worst[1]:.2e}: " + ("rejected" if rejected else "ACCEPTED"))
         if not rejected:
-            fail(f"the float32 rounding-model limits of {name} accept {fault}")
+            fail(f"the float32 rounding-model limits of {label} accept {fault}")
     return {"reading": max(e for e, _ in readings.values()),
             "norm_reading": max(n for _, n in readings.values()), "faults": faults}
 
@@ -1628,7 +1705,12 @@ def rows_kernel_phase(device, rows: dict):
     with the boolean mask of the allowed keys, dense over L x L
     (rows_library_ms). Then row 10's gradient kernels alone, attn_dkv and
     attn_dq (dkv_ms, dq_ms, beside grad_bound_ms). Adds those keys to the
-    bf16 rows of kernels 7, 8, 10, 12 and 13."""
+    bf16 rows of kernels 7, 8, 10, 12 and 13. Then the same in float32 (the
+    bodies on 3xTF32, check_rows(f32=True), the bound at the 3xTF32 rate):
+    attn_rows and row 10's gradient kernels, band_rows as kernel 7, row 12's
+    forward and statistics pass, bigbird_rows as kernel 8 and row 13's
+    forward and statistics pass; kernels 7 and 8's W8A8 rows take the float
+    modes' readings."""
     import torch
     import torch.nn.functional as F
 
@@ -1834,6 +1916,74 @@ def rows_kernel_phase(device, rows: dict):
         del qkv, dctx, keep
         torch.cuda.empty_cache()
 
+    # the float32 band and BigBird rows kernels on 3xTF32 in each mode a main
+    # path runs them (kernel 7's and 8's W8A8 modes with float32 activations
+    # run the float modes' instantiations: their rows take the same reading)
+    f32 = torch.float32
+    mask, glob = sliding_masks(device)
+    n_valid, n_glob = mask.sum(1), glob.sum(1)
+    counts = torch.stack([n_valid, n_glob], 1).int().contiguous()
+    pairs = sliding_work(mask, glob, LF_WINDOW, H, NH, HD)["rows_pairs"]
+    qkv = rows_qkv(randn, LF_B, LF_L, f32)
+    dctx = randn(LF_B, LF_L, HN) * mask[..., None]
+    allowed = torch.stack([ts.sliding_model_allowed(LF_L, C, int(nv), int(ng), device)
+                           for nv, ng in zip(n_valid, n_glob)])[:, None]
+    lib = sdpa_ms(qkv, allowed, "band_rows float32")
+    del allowed
+    keep = ts.sliding_keep_masks(seed, LF_B, NH, LF_L, LF_WINDOW, G, DROPOUT)
+    for label, name, rate, dc, lib_ms in (
+            ("band_rows float32 (kernel 7)", "sliding_attention_block", 0.0, None, lib),
+            ("band_rows float32 (row 12 forward, dropout 0.1)", "sliding_train_fwd", DROPOUT,
+             None, lib),
+            ("band_rows float32 (row 12 statistics pass, dropout 0.1)", "sliding_train_bwd",
+             DROPOUT, dctx, None)):
+        run(label, "band_rows", rows[name, "float32"],
+            lambda: ts.sliding_rows(qkv, counts, seed, window=LF_WINDOW, dctx=dc,
+                                    dropout_rate=rate),
+            lambda: ts.sliding_rows_model(
+                qkv[0], qkv[1], qkv[2], None, n_valid, n_glob, window=LF_WINDOW,
+                dropout_rate=rate, keep=keep if rate else None,
+                dctx=None if dc is None else dc.reshape(LF_B, LF_L, NH, HD)),
+            pairs, qkv, dc, lib_ms, f32=True)
+    del qkv, dctx, keep
+    torch.cuda.empty_cache()
+    for Bq, Lq, modes in (
+            (BB_B, BB_L, (("bigbird_rows float32 (kernel 8)", "bigbird_attention_block", 0.0,
+                           False),)),
+            (BB_TRAIN_B, BB_TRAIN_L, (("bigbird_rows float32 (row 13 forward, dropout 0.1)",
+                                       "bigbird_train_fwd", DROPOUT, False),
+                                      ("bigbird_rows float32 (row 13 statistics pass, dropout "
+                                       "0.1)", "bigbird_train_bwd", DROPOUT, True)))):
+        mask = bigbird_masks(device, Bq, Lq)
+        n_valid = mask.sum(1)
+        counts = torch.stack([n_valid, torch.zeros_like(n_valid)], 1).int().contiguous()
+        t = bigbird_tables(Lq // BB_BLOCK, BB_GLOBAL, BB_RANDOM, BB_SEED, device)
+        pairs = bigbird_work(mask, BB_BLOCK, t, H, NH, HD)["core"] / (4 * NH * HD)
+        qkv = rows_qkv(randn, Bq, Lq, f32)
+        dctx = randn(Bq, Lq, HN) * mask[..., None]
+        reg = torch.from_numpy(tbb.bigbird_model_regions(
+            Lq, BB_BLOCK, t.G, t.R, t.rand.cpu().numpy(), t.rok.cpu().numpy())).to(device) > 0
+        allowed = (reg[None] & (torch.arange(Lq, device=device)[None, None]
+                                < n_valid[:, None, None]))[:, None]
+        lib = sdpa_ms(qkv, allowed, f"bigbird_rows float32 B={Bq} L={Lq}")
+        del allowed, reg
+        keep = tbb.bigbird_keep_masks(seed, Bq, NH, Lq, BB_BLOCK, t.G, t.R, DROPOUT)
+        for label, name, rate, grad in modes:
+            dc = dctx if grad else None
+            run(label, "bigbird_rows", rows[name, "float32"],
+                lambda: tbb.bigbird_rows(qkv, counts, seed, t, block_size=BB_BLOCK, dctx=dc,
+                                         dropout_rate=rate),
+                lambda: tbb.bigbird_rows_model(
+                    qkv[0], qkv[1], qkv[2], n_valid, t, block_size=BB_BLOCK, dropout_rate=rate,
+                    keep=keep if rate else None,
+                    dctx=None if dc is None else dc.reshape(Bq, Lq, NH, HD)),
+                pairs, qkv, dc, None if grad else lib, f32=True)
+        del qkv, dctx, keep
+        torch.cuda.empty_cache()
+    for name in ("sliding_attention_block", "bigbird_attention_block"):
+        rows[f"{name}_w8a8", "float32"].update(
+            {k: v for k, v in rows[name, "float32"].items() if k.startswith("rows_")})
+
 
 def compare(name, dtype, kernel, plain, valid, tol=None, reps=10, w8a8=False, model=None):
     """Check kernel against plain on the valid rows (``tol`` = (atol, rtol),
@@ -1898,24 +2048,25 @@ IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_k
 # tensor cores all the same)
 IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
 # the functions that run bf16 products on the tensor cores and float32 ones
-# on the CUDA cores: the Longformer and BigBird backwards' gradient kernels
-# (attention_grad_mma.cuh), the sliding-window and BigBird rows kernels
-# (attention_rows_mma.cuh: kernels 7 and 8 in both modes, rows 12 and 13's
-# forwards and statistics passes), the Longformer global rows
-# (global_rows_mma.cuh: kernel 7 in both modes, row 12's forward and
-# statistics pass; the bf16 query, S, P.V, dP and dS . kg). Each bf16
-# instantiation must hold HMMA, the float32 ones none
-HMMA_KERNELS = ("band_dq_kernel", "band_dkv_kernel", "bigbird_dq_kernel", "bigbird_dkv_kernel",
-                "band_rows_kernel", "bigbird_rows_kernel", "global_rows_kernel")
-# the dense attention cores, on the tensor cores in both dtypes (bf16
-# mma.sync, float32 as 3xTF32 on mma.sync TF32: HMMA in SASS): the dense
-# core's kernel (kernels 1 and 6), row 10's three cores (its rows kernel on
-# attention_rows_mma.cuh, its gradient kernels on attention_grad_mma.cuh)
-# and the W8A8 stack (int8 GEMMs, the core out of line in stack_core_item).
-# Both instantiations of each must exist and hold HMMA (the W8A8 stack entry
+# on the CUDA cores: the Longformer global rows (global_rows_mma.cuh: kernel
+# 7 in both modes, row 12's forward and statistics pass; the bf16 query, S,
+# P.V, dP and dS . kg). Each bf16 instantiation must hold HMMA, the float32
+# ones none (global_kv_grad_kernel, whose instantiations are all SIMT, is
+# held to none by the stray rule below)
+HMMA_KERNELS = ("global_rows_kernel",)
+# the attention cores on the tensor cores in both dtypes (bf16 mma.sync,
+# float32 as 3xTF32 on mma.sync TF32: HMMA in SASS): the dense core's kernel
+# (kernels 1 and 6), row 10's three cores, the sliding-window and BigBird
+# rows kernels (kernels 7 and 8 in both modes, rows 12 and 13's forwards and
+# statistics passes; attention_rows_mma.cuh) and the Longformer and BigBird
+# backwards' gradient kernels (attention_grad_mma.cuh), and the W8A8 stack
+# (int8 GEMMs, the core out of line in stack_core_item). Both
+# instantiations of each must exist and hold HMMA (the W8A8 stack entry
 # itself or in its core item of its element type)
 CORE_HMMA_KERNELS = ("attn_core_kernel", "attn_rows_kernel", "attn_dq_kernel",
-                     "attn_dkv_kernel", "encoder_stack_i8_kernel")
+                     "attn_dkv_kernel", "band_rows_kernel", "bigbird_rows_kernel",
+                     "band_dq_kernel", "band_dkv_kernel", "bigbird_dq_kernel",
+                     "bigbird_dkv_kernel", "encoder_stack_i8_kernel")
 # the GEMM tile's kernels (bf16_gemm.cuh: kernels 1-3, 7-9 and the training
 # kernels' forward products, the products their backwards recompute, with
 # the MLP's act' epilogue (act_and_grad_kernel), those with a weight read as
@@ -2060,7 +2211,7 @@ def sass_verdict(counts: dict) -> list:
                 bad.append(f"{n} has no HMMA: its {'float32' if f32 else 'bf16'} products do not "
                            "run on the tensor cores")
             elif not both and f32 and hmma:
-                bad.append(f"{n} holds HMMA: its float32 core must stay on the CUDA cores")
+                bad.append(f"{n} holds HMMA: its float32 rows must stay on the CUDA cores")
             elif not both and not f32 and not hmma:
                 bad.append(f"{n} has no HMMA: its bf16 products do not run on the tensor cores")
     stray = [n for n, c in counts.items()
@@ -2271,15 +2422,16 @@ def colquant_per_tensor(w):
 def planted(patches):
     """Plant a fault in a plain version: each (owner, name, call, stand_in)
     sends the ``call``-th call (from 0; None: every call) of owner.name to
-    stand_in(the real function, *its arguments)."""
+    stand_in(the real function, *its arguments, **its keyword arguments)."""
     from unittest import mock
 
     with contextlib.ExitStack() as stack:
         for owner, name, call, stand_in in patches:
             def patched(*args, real=getattr(owner, name), calls=itertools.count(), call=call,
-                        stand_in=stand_in):
+                        stand_in=stand_in, **kw):
                 i = next(calls)
-                return stand_in(real, *args) if call is None or i == call else real(*args)
+                return (stand_in(real, *args, **kw) if call is None or i == call
+                        else real(*args, **kw))
 
             stack.enter_context(mock.patch.object(owner, name, patched))
         yield
@@ -2747,8 +2899,8 @@ def stack_kernel_phase(device) -> dict:
         layer = 2 * M * H * 3 * HN + 2 * M * HN * H + 4 * M * H * I
         core = NL * 4 * B * NH * L * L * HD
         n_bytes = nbytes(hidden, seg, *p, hidden)
-        ops = bound({"int8": NL * layer, dtype: core}, n_bytes) if quantized else split_bound(
-            core, NL * layer, n_bytes, dtype)
+        ops = (bound({"int8": NL * layer, core_type(dtype): core}, n_bytes) if quantized
+               else split_bound(core, NL * layer, n_bytes, dtype))
         row = {"max_abs_err": e, **gate, **times, **ops, "chain_ms": chain_ms,
                "grid": fused_encoder_stack.grid}
         if quantized:  # the library column: torch._int_mm on the 4 NL products only
@@ -3218,10 +3370,10 @@ def grad_bound(work: dict, slab: int, n_in: int, n_out: int, rows: int, dtype: s
     products, 10 hd a pair (the global rows' dq of row 12 is counted too,
     one row of 2048); n_in slabs of (B L, nh hd) read (q, k, v, dctx and the
     global rows' kg, vg), n_out written, and the rows' three float32
-    statistics."""
+    statistics; float32 at the 3xTF32 rate."""
     size = 4 if dtype == "float32" else 2
     return bound(2.5 * work["core"], (n_in + n_out) * slab * size + 3 * rows * 4,
-                 dtype)["bound_ms"]
+                 core_type(dtype))["bound_ms"]
 
 
 def projections_library_ms(hidden, w: dict, names, label: str) -> float:
@@ -3244,12 +3396,16 @@ def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model
     gradient kernels' gate (``core_model(buffers, global_rows)`` gives the
     rounding model's dproj), dproj the same bits in two runs and the
     backward's device time by kernel, in float32 the float32 backward-GEMM
-    gate at rates 0 and DROPOUT, of row 12 (``name`` sliding_train_bwd, with
-    and without global rows) or 13 (bigbird_train_bwd): ``masks(global_rows)``
-    gives (mask, glob) and ``backward(mask, glob, cot, global_rows, buffers,
-    rate=DROPOUT)`` runs the backward kernel. Returns {library_ms,
-    gemm_reading, and in bf16 core_reading, core_norm_reading, core_faults,
-    split_ms}."""
+    gate and the float32 gradient kernels' gate (check_f32_backward_cores)
+    at rates 0 and DROPOUT, of row 12 (``name`` sliding_train_bwd, with and
+    without global rows) or 13 (bigbird_train_bwd): ``masks(global_rows)``
+    gives (mask, glob), ``backward(mask, glob, cot, global_rows, buffers,
+    rate=DROPOUT)`` runs the backward kernel and ``core_model(buffers,
+    global_rows, rate=DROPOUT)`` gives the rounding model's dproj. Returns
+    {library_ms, gemm_reading, core_reading, core_norm_reading, core_faults,
+    split_ms, and in float32 gemm_norm_reading, core_ms (the statistics
+    pass, the global rows and the gradient kernels) and grad_ms (the
+    gradient kernels)}."""
     import torch
 
     B, L, H = hidden.shape
@@ -3301,17 +3457,40 @@ def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model
                 print(f"  {name} bfloat16 device time by kernel (ms): " + ", ".join(
                     f"{k[:-3]} {v:.3f}" for k, v in split.items() if v)
                     + f"; the gradient kernels' bound {row_bound:.3f}")
-        else:  # float32: the moved products on the 3xTF32 tile, at both rates
+        else:  # float32: the products and the attention cores on 3xTF32, at both rates
             for rate in (DROPOUT, 0.0):
                 if rate != DROPOUT:
                     bufs = {}
                     out = outputs(backward(mk, gl, cot, gr, bufs, rate))
                 out["dctx"] = bufs["dctx"]
-                gate = check_f32_backward_gemms(
-                    f"{name} global_rows={gr} rate {rate}", out, lambda: projection_gemms_plain(
-                        x2, cot.reshape(M, H), bufs, w_all, wo))
+                label = f"{name} global_rows={gr} rate {rate}"
+                gate = check_f32_backward_gemms(label, out, lambda: projection_gemms_plain(
+                    x2, cot.reshape(M, H), bufs, w_all, wo))
                 for k in ("reading", "norm_reading"):
                     row[f"gemm_{k}"] = max(row.get(f"gemm_{k}", 0.0), gate[k])
+                gate = check_f32_backward_cores(name, bufs["dproj"],
+                                                lambda: core_model(bufs, gr, rate), HN, label)
+                for k in ("reading", "norm_reading"):
+                    row[f"core_{k}"] = max(row.get(f"core_{k}", 0.0), gate[k])
+                row.setdefault("core_faults", {}).update(
+                    {f"{f}, global_rows={gr}, rate {rate}": v for f, v in gate["faults"].items()})
+                if rate == DROPOUT:
+                    again = {}
+                    backward(mk, gl, cot, gr, again)
+                    if not torch.equal(again["dproj"], bufs["dproj"]):
+                        fail(f"{label} float32: two runs' dproj differ")
+                    print(f"  {label} float32: two runs' dproj bit-identical")
+                    del again
+            if gr == settings[0]:
+                from backward_core_turns import device_split
+
+                split = device_split(lambda: backward(mk, gl, cot, gr, None), global_apart=True)
+                row.update(split_ms=split, grad_ms=split["grad_ms"],
+                           core_ms=split["stats_ms"] + split["global_rows_ms"] + split["grad_ms"])
+                print(f"  {name} float32 device time by kernel (ms): " + ", ".join(
+                    f"{k[:-3]} {v:.3f}" for k, v in split.items() if v)
+                    + f"; the cores {row['core_ms']:.3f}, the gradient kernels' bound "
+                    f"{row_bound:.3f}")
         del got, bufs, out
     return row
 
@@ -3387,6 +3566,12 @@ def sliding_kernel_phase(device) -> dict:
                     if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
                         fail(f"{lab}: two backward runs differ")
                     print(f"  {lab}: two backward runs bit-identical")
+                    if dtype == "float32":  # F32_CORE_FAULT in the plain core, autograd and all
+                        with planted(core_products(plain_tf32)):
+                            bad = grads(ts.sliding_train_plain, rounded, keep=keep)
+                        core_fault = f32_tol_fault(got, bad, ("out",) + grad_names,
+                                                   "sliding_train")
+                        del bad
                 del got, want
 
         # times on the main path's masks (CLS global), the kernels called directly
@@ -3422,12 +3607,13 @@ def sliding_kernel_phase(device) -> dict:
                     "out": blk_of(sb.fused_sliding_attention_block, *ps, **ln),
                     "projection": blk_of(sb.fused_sliding_attention_block, *ps)},
                 lambda: {"out": blk_of(sb.sliding_block_plain, *rs, **ln),
-                         "projection": blk_of(sb.sliding_block_plain, *rs)}))
+                         "projection": blk_of(sb.sliding_block_plain, *rs)}, core=True))
             fbufs, bbufs = {}, {}
             with torch.no_grad():
                 out = ts.sliding_train_fwd(hidden, m32, g32, seed, w, bo, **cfg, buffers=fbufs)
             fwd.update(check_f32_forward("sliding_train_fwd", {"out": out[valid]},
-                                         lambda: {"out": plain(hidden, *rs)[valid]}))
+                                         lambda: {"out": plain(hidden, *rs)[valid]}, core=True))
+            fwd["f32_tol_core_fault"], bwd["f32_tol_core_fault"] = core_fault["fwd"], core_fault["bwd"]
             ts.sliding_train_bwd(hidden, m32, g32, seed, w, cot, **cfg, buffers=bbufs)
             same_recomputed("sliding_train_bwd", fbufs, bbufs, ("qkv", "gkv"))
             del out, fbufs, bbufs
@@ -3450,9 +3636,9 @@ def sliding_kernel_phase(device) -> dict:
             lambda mk, gl, ck, gr, bufs, rate=DROPOUT: ts.sliding_train_bwd(
                 hidden, mk.int().contiguous(), gl.int().contiguous(), seed, w, ck,
                 **dict(cfg, global_rows=gr, dropout_rate=rate), buffers=bufs), randn,
-            lambda bufs, gr: ts.sliding_core_model_dproj(
-                bufs, window=LF_WINDOW, sm_scale=HD**-0.5, dropout_rate=DROPOUT, keep=keep),
-            bwd["grad_bound_ms"]))
+            lambda bufs, gr, rate=DROPOUT: ts.sliding_core_model_dproj(
+                bufs, window=LF_WINDOW, sm_scale=HD**-0.5, dropout_rate=rate,
+                keep=keep if rate else None), bwd["grad_bound_ms"]))
         for name, row in (("sliding_attention_block", blk), ("sliding_train_fwd", fwd),
                           ("sliding_train_bwd", bwd)):
             rows[name, dtype] = {"max_abs_err": err[name], **row}
@@ -3581,6 +3767,12 @@ def bigbird_kernel_phase(device) -> dict:
                         fail(f"{lab}: two backward runs differ")
                     print(f"  {lab}: two backward runs bit-identical")
                     del again
+                    if dtype == "float32":  # F32_CORE_FAULT in the plain core, autograd and all
+                        with planted(core_products(plain_tf32)):
+                            bad = grads(tbb.bigbird_train_plain, rounded, keep=keep)
+                        core_fault = f32_tol_fault(got, bad, ("out",) + grad_names,
+                                                   "bigbird_train")
+                        del bad
                 del got, want, keep
 
         # times at the slice's shapes, the kernels called directly
@@ -3607,7 +3799,7 @@ def bigbird_kernel_phase(device) -> dict:
                     "out": blk_of(bbk.fused_bigbird_attention_block, *ps, **ln),
                     "projection": blk_of(bbk.fused_bigbird_attention_block, *ps)},
                 lambda: {"out": blk_of(bbk.bigbird_block_plain, *rs, **ln),
-                         "projection": blk_of(bbk.bigbird_block_plain, *rs)}))
+                         "projection": blk_of(bbk.bigbird_block_plain, *rs)}, core=True))
         blk["library_ms"] = projections_library_ms(hidden, w, ("wqkv",),
                                                    f"bigbird_attention_block {dtype}")
 
@@ -3645,7 +3837,8 @@ def bigbird_kernel_phase(device) -> dict:
             with torch.no_grad():
                 out = tbb.bigbird_train_fwd(hidden, m32, seed, w, bo, t, **cfg, buffers=fbufs)
             fwd.update(check_f32_forward("bigbird_train_fwd", {"out": out[valid]},
-                                         lambda: {"out": plain(hidden, *rs)[valid]}))
+                                         lambda: {"out": plain(hidden, *rs)[valid]}, core=True))
+            fwd["f32_tol_core_fault"], bwd["f32_tol_core_fault"] = core_fault["fwd"], core_fault["bwd"]
             tbb.bigbird_train_bwd(hidden, m32, seed, w, cot, t, **cfg, buffers=bbufs)
             same_recomputed("bigbird_train_bwd", fbufs, bbufs, ("qkv",))
             del out, fbufs, bbufs
@@ -3662,9 +3855,9 @@ def bigbird_kernel_phase(device) -> dict:
             lambda mk, gl, ck, gr, bufs, rate=DROPOUT: tbb.bigbird_train_bwd(
                 hidden, m32, seed, w, ck, t, **dict(cfg, dropout_rate=rate), buffers=bufs),
             randn,
-            lambda bufs, gr: tbb.bigbird_core_model_dproj(
-                bufs, t, block_size=BB_BLOCK, sm_scale=HD**-0.5, dropout_rate=DROPOUT, keep=keep),
-            bwd["grad_bound_ms"]))
+            lambda bufs, gr, rate=DROPOUT: tbb.bigbird_core_model_dproj(
+                bufs, t, block_size=BB_BLOCK, sm_scale=HD**-0.5, dropout_rate=rate,
+                keep=keep if rate else None), bwd["grad_bound_ms"]))
         del keep
         fwd["work_gflop"] = (work["proj"] + work["core"] + work["out"]) / 1e9
         bwd["work_gflop"] = (3 * work["proj"] + 3 * work["core"] + 2 * work["out"]) / 1e9
@@ -3950,11 +4143,13 @@ def w8a8_long_kernel_phase(device) -> dict:
         for global_rows in (True, False):
             mask, glob = sliding_masks(device, global_rows)
             gkw = dict(kw, global_rows=global_rows)
+            plain_of = lambda: sb.sliding_block_plain(hidden, mask, glob, *ps, quantized=True,
+                                                      **gkw)
             row = compare(f"sliding_attention_block W8A8 global_rows={global_rows}", dtype,
                           lambda: sb.fused_sliding_attention_block(hidden, mask, glob, *ps,
                                                                    quantized=True, **gkw),
-                          lambda: sb.sliding_block_plain(hidden, mask, glob, *ps, quantized=True,
-                                                         **gkw), mask.bool(), w8a8=True, reps=5)
+                          plain_of, mask.bool(), w8a8=True, reps=5,
+                          model=lambda: on_card_rows(dtype, plain_of))
             if global_rows:
                 plain = lambda: sb.sliding_block_plain(hidden, mask, glob, *ps, quantized=True,
                                                        **gkw)
@@ -3969,8 +4164,8 @@ def w8a8_long_kernel_phase(device) -> dict:
                 w = sb.quantize_sliding_weights(ps[0], ps[2], ps[4])
                 moved = nbytes(hidden, mask, glob, *w.values(), *ps[1:4:2], ps[5], *ln.values(),
                                hidden)
-                row.update(bound({"int8": work["proj"] + work["out"], dtype: work["core"]},
-                                 moved))
+                row.update(bound({"int8": work["proj"] + work["out"],
+                                  core_type(dtype): work["core"]}, moved))
                 x8, _ = im.rowquant_plain(hidden.reshape(-1, H))
                 xg8 = x8.reshape(LF_B, LF_L, H)[:, :sb.global_columns(LF_MAX_GLOBALS, LF_L)]
                 # the ctx's int8 operand has x8's shape (Hn = H): x8 stands in for it
@@ -3991,7 +4186,8 @@ def w8a8_long_kernel_phase(device) -> dict:
         row = compare("bigbird_attention_block W8A8", dtype,
                       lambda: bbk.fused_bigbird_attention_block(*args, quantized=True, **ln),
                       lambda: bbk.bigbird_block_plain(*args, quantized=True, **ln), mask.bool(),
-                      w8a8=True, reps=5)
+                      w8a8=True, reps=5, model=lambda: on_card_rows(
+                          dtype, lambda: bbk.bigbird_block_plain(*args, quantized=True, **ln)))
         want = bbk.bigbird_block_plain(*args, quantized=True, **ln)
         planted_rows = {}
         for f, patches in long_w8a8_faults(bbk, NH).items():
@@ -4004,7 +4200,8 @@ def w8a8_long_kernel_phase(device) -> dict:
         work = bigbird_work(mask, BB_BLOCK, t, H, NH, HD)
         wqkv8, swqkv, wo8, swo = quantize_attention_weights(ps[0], ps[2], 1)
         moved = nbytes(hidden, mask, wqkv8, swqkv, wo8, swo, ps[1], ps[3], *ln.values(), hidden)
-        row.update(bound({"int8": work["proj"] + work["out"], dtype: work["core"]}, moved))
+        row.update(bound({"int8": work["proj"] + work["out"], core_type(dtype): work["core"]},
+                         moved))
         x8, _ = im.rowquant_plain(hidden.reshape(-1, H))
         row["library_ms"] = int_mm_time([(x8, wqkv8), (x8, wo8)],
                                         f"bigbird_attention_block W8A8 {dtype}")
@@ -5046,8 +5243,10 @@ def main() -> int:
                  "launches": launches[name], **rows[name, dtype], "dtype": dtype}
         f32_row = rows.get((name, "float32")) if dtype != "float32" else None
         if f32_row is not None:  # the float32 mode: its time and bound (products on 3xTF32)
-            entry.update({f"f32_{k}": f32_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                            "simt_bound_ms") if k in f32_row})
+            entry.update({f"f32_{k}": f32_row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "simt_bound_ms", "rows_ms", "rows_bound_ms",
+                "rows_library_ms", "core_ms", "grad_ms", "grad_bound_ms", "core_library_ms")
+                if k in f32_row})
         kernels.append(entry)
     f32 = {name: rows[name, "float32"] for name in KERNELS if (name, "float32") in rows}
     print(json.dumps({"float32": f32}))

@@ -6,7 +6,7 @@ two checkouts of the port in turns on one CUDA card, splits each call's
 device time by kernel name, and checks that the outputs that must not move
 are the same bits in both.
 
-    python3 rows_core_turns.py --parent DIR [--reps N]
+    python3 rows_core_turns.py --parent DIR [--dtype bfloat16|float32] [--reps N]
 
 DIR is another checkout of the repo (the parent commit, unpacked with ``git
 archive``). The script runs one measuring process a checkout in the order
@@ -45,7 +45,28 @@ same in every run (the two-call digests: in the runs of this checkout).
 Readings of one kernel move by up to a third between calls of the card, so
 only two checkouts measured in one call are compared.
 
-    python3 rows_core_turns.py --measure
+With ``--dtype float32`` each process prints instead:
+
+- ms a call (CUDA events) of the rows kernels alone in float32
+  (``train_sliding.sliding_rows``, ``train_bigbird.bigbird_rows``):
+  ``band_rows`` as kernel 7 (B=8, L=2048, CLS global), as row 12's forward
+  (dropout 0.1) and as its statistics pass (with dctx), ``bigbird_rows`` as
+  kernel 8 (B=4, L=4096) and as row 13's forward and statistics pass (B=8,
+  L=2048); beside each, scaled_dot_product_attention on the same float32
+  q, k, v with the boolean mask of the allowed keys, dense over L x L (the
+  forwards);
+- ms a call and the device time by kernel name, as above, of kernels 7 and
+  8 in float32 (float mode, and W8A8 with float32 activations) and of rows
+  12 and 13's float32 forwards (row 12 and kernel 7 also at B=2);
+- digests of what must not move: those of ``backward_gemm_turns.py``
+  (every bf16 and W8A8 output, the bf16 backwards included, and rows 10
+  and 11 and kernel 9 in float32) but rows 12 and 13's float32 forwards
+  and backwards, kernels 1, 2, 3 (two layers) and 6 in float32, and the
+  float32 global rows alone (``sliding_global_rows``, n_glob 1 and 16,
+  forward and statistics pass); and two-call digests of the timed float32
+  outputs, which may move but must repeat within a checkout.
+
+    python3 rows_core_turns.py --measure [--dtype float32]
 
 measures the checkout the script is run from (its working directory) alone.
 
@@ -86,6 +107,9 @@ SPLIT = (("rows", ("band_rows_kernel", "bigbird_rows_kernel")),
 MOVED = ("digest kernel 7 ", "digest row 12 forward bfloat16")
 # the calls whose bf16 outputs must not move (``must_not_move``)
 STILL = ("kernel 8 float", "kernel 8 W8A8", "row 13 forward", "row 13 backward")
+# backward_gemm_turns.py's digests that the float32 rows and gradient
+# kernels move: rows 12 and 13's float32 forwards and backwards
+F32_MOVED = tuple(f"digest row {r} {p} float32" for r in (12, 13) for p in ("forward", "backward"))
 
 
 def device_split(fn) -> dict:
@@ -111,11 +135,13 @@ def device_split(fn) -> dict:
     return split
 
 
-def measure(reps: int) -> dict:
+def measure(reps: int, dtype: str = "bfloat16") -> dict:
     """{reading: ms, or the digest of an output} of the checkout on sys.path,
     with the card's clock."""
     import torch
 
+    if dtype == "float32":
+        return measure_f32(reps)
     import backward_gemm_turns
     from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
     from spokennlp_tpu_torch.ops.cuda import bigbird_block as bbk
@@ -202,6 +228,162 @@ def measure(reps: int) -> dict:
     return out
 
 
+def measure_f32(reps: int) -> dict:
+    """measure's float32 counterpart (the module's docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    import backward_gemm_turns
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import bigbird_block as bbk
+    from spokennlp_tpu_torch.ops.cuda import sliding_block as sb
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.blhd_attention import snld_self_attention
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+    # every digest of backward_gemm_turns.py must stay but rows 12 and 13's
+    # float32 ones, the bf16 backwards' ("moved digest" there) among them
+    out = {k.replace("moved digest", "digest"): v
+           for k, v in backward_gemm_turns.measure(1).items()
+           if k.startswith(("digest", "moved digest")) and not k.startswith(F32_MOVED)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, f32 = torch.device("cuda"), torch.float32
+    g = torch.Generator(device=dev).manual_seed(19)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    HN, sm = NH * HD, HD**-0.5
+    att = [randn(H, 3, NH, HD, scale=H**-0.5), randn(3, NH, HD, scale=0.02),
+           randn(NH, HD, H, scale=HN**-0.5), randn(H, scale=0.02)]
+    gqkv = [randn(H, 3, NH, HD, scale=H**-0.5), randn(3, NH, HD, scale=0.02)]
+    ln = dict(ln_scale=1 + randn(H, scale=0.1), ln_bias=randn(H, scale=0.1))
+    seed = torch.tensor([20231019], dtype=torch.int32, device=dev)
+    lengths = lambda L, n: (torch.arange(L, device=dev)[None]
+                            < torch.tensor(n, device=dev)[:, None]).int()
+    mask = lengths(LL, [LL, 1024, LL, 1300, LL, 1650, LL, 1900])
+    glob = torch.zeros_like(mask)
+    glob[:, 0] = 1
+    bmask = lengths(BB_L, [BB_L, 3072, BB_L, 100])
+    tables = bigbird_tables(LL // BLOCK, 2, 3, 0, dev)
+    btables = bigbird_tables(BB_L // BLOCK, 2, 3, 0, dev)
+
+    def qkv_of(Bq, Lq, scale_q=True):
+        x, w = randn(Bq, Lq, H), randn(H, 3, NH, HD, scale=H**-0.5)
+        qkv = torch.einsum("blh,hsnd->sbnld", x, w) + randn(3, 1, NH, 1, HD, scale=0.02)
+        if scale_q:
+            qkv[0] *= sm
+        return qkv.contiguous()
+
+    def sdpa(qkv, allowed):
+        q, k, v = qkv.unbind(0)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=1.0)
+
+    # the rows kernels alone, with SDPA on the same q, k, v and the mask of
+    # the allowed keys
+    counts = torch.stack([mask.sum(1), glob.sum(1)], 1).int().contiguous()
+    qkv, dctx = qkv_of(LB, LL), randn(LB, LL, HN) * mask[..., None]
+    C = WINDOW // 2
+    allowed = torch.stack([ts.sliding_model_allowed(LL, C, int(nv), 1, dev)
+                           for nv in mask.sum(1)])[:, None]
+    alone = {"band_rows as kernel 7": (lambda: ts.sliding_rows(qkv, counts, seed, window=WINDOW),
+                                       sdpa(qkv, allowed)),
+             "band_rows as row 12 forward": (lambda: ts.sliding_rows(
+                 qkv, counts, seed, window=WINDOW, dropout_rate=0.1), None),
+             "band_rows as row 12 statistics pass": (lambda: ts.sliding_rows(
+                 qkv, counts, seed, window=WINDOW, dctx=dctx, dropout_rate=0.1), None)}
+    for name, (fn, lib) in alone.items():
+        out[f"{name} float32 ms"] = time_ms(fn, reps)
+        if lib is not None:
+            out[f"{name} float32 SDPA ms"] = time_ms(lib, reps)
+        for run in ("a", "b"):
+            out[f"twice {name} float32 run {run}"] = digest([t for t in fn() if t is not None])
+    # the float32 global rows, which stay on the CUDA cores
+    gkv = qkv_of(LB, LL, scale_q=False)[1:].contiguous()
+    x = randn(LB, LL, H)
+    for n_g in (1, 16):
+        cg = torch.stack([mask.sum(1), torch.full_like(mask.sum(1), n_g)], 1).int().contiguous()
+        for tag, dc in (("forward", None), ("statistics pass", dctx)):
+            out[f"digest global rows alone {tag} n_glob {n_g} float32"] = digest(
+                [t for t in ts.sliding_global_rows(x, att[0][:, 0].reshape(H, HN).contiguous(),
+                                                   att[1][0].reshape(-1).contiguous(), gkv, cg,
+                                                   seed, sm_scale=sm, dctx=dc, dropout_rate=0.1)
+                 if t is not None])
+    del qkv, dctx, allowed, gkv, alone
+    torch.cuda.empty_cache()
+    bcounts = lambda m: torch.stack([m.sum(1), torch.zeros_like(m.sum(1))], 1).int().contiguous()
+    for Bq, Lq, m, t, modes in ((BB_B, BB_L, bmask, btables, ("kernel 8",)),
+                                (LB, LL, mask, tables, ("row 13 forward",
+                                                        "row 13 statistics pass"))):
+        qkv, dctx = qkv_of(Bq, Lq), randn(Bq, Lq, HN) * m[..., None]
+        reg = torch.from_numpy(tbb.bigbird_model_regions(
+            Lq, BLOCK, t.G, t.R, t.rand.cpu().numpy(), t.rok.cpu().numpy())).to(dev) > 0
+        allowed = (reg[None] & (torch.arange(Lq, device=dev)[None, None]
+                                < m.sum(1)[:, None, None]))[:, None]
+        cb = bcounts(m)
+        for mode in modes:
+            rate = 0.0 if mode == "kernel 8" else 0.1
+            dc = dctx if mode.endswith("pass") else None
+            name = f"bigbird_rows as {mode}"
+            fn = lambda rate=rate, dc=dc: tbb.bigbird_rows(qkv, cb, seed, t, block_size=BLOCK,
+                                                           dctx=dc, dropout_rate=rate)
+            out[f"{name} float32 ms"] = time_ms(fn, reps)
+            if dc is None:
+                out[f"{name} float32 SDPA ms"] = time_ms(sdpa(qkv, allowed), reps)
+            for run in ("a", "b"):
+                out[f"twice {name} float32 run {run}"] = digest([x for x in fn() if x is not None])
+        del qkv, dctx, allowed, reg
+        torch.cuda.empty_cache()
+
+    # kernels 7 and 8 and rows 12 and 13's forwards, split by kernel name
+    lhid, bhid = randn(LB, LL, H), randn(BB_B, BB_L, H)
+    sw = sb.card_weights(att[0], att[1], *gqkv, att[2], f32)
+    bw = bbk.card_weights(att[0], att[1], att[2], f32)
+    kw = dict(num_heads=NH, sm_scale=sm, dropout_rate=0.1)
+    scfg = dict(kw, window=WINDOW, max_globals=16, global_rows=True)
+    calls = {}
+    for mode, q in (("float", False), ("W8A8", True)):
+        for nb, tag in ((LB, ""), (2, " B=2")):
+            calls[f"kernel 7 {mode}{tag}"] = (
+                lambda q=q, nb=nb: sb.fused_sliding_attention_block(
+                    lhid[:nb], mask[:nb], glob[:nb], att[0], att[1], *gqkv, att[2], att[3],
+                    sm_scale=sm, window=WINDOW, **ln, quantized=q))
+        calls[f"kernel 8 {mode}"] = lambda q=q: bbk.fused_bigbird_attention_block(
+            bhid, bmask, att[0], att[1], att[2], att[3], block_size=BLOCK, num_global_blocks=2,
+            num_random_blocks=3, seed=0, sm_scale=sm, **ln, quantized=q)
+    for nb, tag in ((LB, ""), (2, " B=2")):
+        calls[f"row 12 forward{tag}"] = lambda nb=nb: ts.sliding_train_fwd(
+            lhid[:nb], mask[:nb], glob[:nb], seed, sw, att[3], **scfg)
+    calls["row 13 forward"] = lambda: tbb.bigbird_train_fwd(lhid, mask, seed, bw, att[3], tables,
+                                                            **kw, block_size=BLOCK)
+    for name, fn in calls.items():
+        out[f"{name} float32 ms"] = time_ms(fn, reps)
+        out.update({f"{name} float32 {k}": v for k, v in device_split(fn).items()})
+        for run in ("a", "b"):
+            out[f"twice {name} float32 run {run}"] = digest(fn())
+    out["sm clock, power draw"] = smi("clocks.sm,power.draw")
+
+    # what must not move in float32: kernels 1, 2, 3 and 6
+    seg = torch.ones(32, 512, dtype=torch.int32, device=dev)
+    seg[1::2, 400:] = 0
+    hidden = randn(32, 512, H)
+    mlp = [randn(H, 4 * H, scale=H**-0.5), randn(4 * H, scale=0.02),
+           randn(4 * H, H, scale=(4 * H)**-0.5), randn(H, scale=0.02)]
+    stack_p = [t[None].expand(2, *t.shape).contiguous() for t in
+               (att[0], att[1], att[2], att[3], ln["ln_scale"], ln["ln_bias"], *mlp,
+                ln["ln_scale"], ln["ln_bias"])]
+    out["digest kernel 1 float32"] = digest(fused_attention_block(hidden, seg, *att, sm_scale=sm,
+                                                                  **ln))
+    out["digest kernel 2 float32"] = digest(fused_mlp_block(
+        hidden.reshape(-1, H), *mlp, **ln, activation="gelu", eps=1e-12, quantized=False))
+    for mode, q in (("float", False), ("W8A8", True)):
+        out[f"digest kernel 3 {mode} float32"] = digest(fused_encoder_stack(
+            hidden, seg, *stack_p, sm_scale=sm, quantized=q))
+    out["digest kernel 6 float32"] = digest(snld_self_attention(randn(32, 3, NH, 512, HD), seg,
+                                                                sm))
+    return out
+
+
 def global_rows_alone(x, mask, sw, gqkv, seed, reps: int) -> dict:
     """ms of device time of one launch of the global rows alone
     (``train_sliding.sliding_global_rows``) in each mode (kernel 7 bf16 and
@@ -278,6 +460,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--paths", action="store_true",
                     help="the Longformer main paths end to end instead of the kernels")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="bfloat16: the kernels in bf16 and W8A8; float32: the float32 rows "
+                         "kernels")
     args = ap.parse_args()
     import torch
 
@@ -286,7 +471,7 @@ def main() -> int:
         return 1
     if args.measure:
         sys.path.insert(0, os.getcwd())  # the measured checkout, before the script's own
-        print(json.dumps(paths() if args.paths else measure(args.reps)))
+        print(json.dumps(paths() if args.paths else measure(args.reps, args.dtype)))
         return 0
     if not args.parent:
         ap.error("--parent or --measure")
@@ -298,7 +483,8 @@ def main() -> int:
         root = roots[label]
         env = {**os.environ, "PYTHONPATH": str(root)}
         proc = subprocess.run([sys.executable, str(here / "rows_core_turns.py"), "--measure",
-                               "--reps", str(args.reps)] + ["--paths"] * args.paths, cwd=root,
+                               "--reps", str(args.reps), "--dtype", args.dtype]
+                              + ["--paths"] * args.paths, cwd=root,
                               env=env, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)

@@ -52,23 +52,31 @@ namespace spk {
 constexpr int kGradWarps = 4;
 constexpr int kGradThreads = 32 * kGradWarps;
 
-// threads of a gradient kernel: 256 on the CUDA cores (float32), 128 on
-// the tensor cores (bf16)
+// threads of the Longformer global rows kernel (global_rows_kernel): 256 on
+// the CUDA cores (float32), 128 on the tensor cores (bf16)
 template <typename T>
 __host__ __device__ constexpr int grad_threads() {
   return std::is_same<T, float>::value ? kThreads : kGradThreads;
 }
 
-// the least resident blocks an SM that a gradient kernel is compiled for
-// (its launch bounds' second argument): 4 in bf16 up to head dim 64, which
-// caps a thread at 128 registers (on the H100, rows 12 and 13's gradient
-// kernels ran 1.27 x and 1.11 x faster than at ptxas's own 186-246
+// the least resident blocks an SM that a bf16 tensor-core attention kernel
+// is compiled for (its launch bounds' second argument): 4 up to head dim 64,
+// which caps a thread at 128 registers (on the H100, rows 12 and 13's
+// gradient kernels ran 1.27 x and 1.11 x faster than at ptxas's own 186-246
 // registers, PERF.md); at head dim 128 the accumulators alone take 128 and
-// shared memory holds two blocks an SM, so ptxas chooses; 0 for float32, as
-// before
+// shared memory holds two blocks an SM, so ptxas chooses; 0 for the float32
+// global rows kernel on the CUDA cores
 template <typename T, int HD>
 __host__ __device__ constexpr int grad_min_blocks() {
   return std::is_same<T, float>::value || HD > 64 ? 0 : 4;
+}
+
+// the same for the rows and gradient kernels of rows 10, 12 and 13 and
+// kernels 7 and 8 in both element types: float32 on 3xTF32 two, which its
+// shared memory allows at head dim 64 (up to 255 registers a thread)
+template <typename T, int HD>
+__host__ __device__ constexpr int core_min_blocks() {
+  return std::is_same<T, float>::value ? 2 : grad_min_blocks<T, HD>();
 }
 
 template <int HD>
@@ -271,12 +279,6 @@ __device__ __forceinline__ void dq_from_ds_tile(uint32_t ds, uint32_t ks, const 
   }
 }
 
-// a stage of the dq pass: the k tile, then the dS tile
-template <int HD>
-__host__ __device__ constexpr size_t grad_dq_stage_bytes() {
-  return (size_t)GradMma<HD>::kTileBytes + kDsTileBytes;
-}
-
 template <int HD>
 __device__ __forceinline__ void zero_acc(float (&acc)[HD / 8][4]) {
 #pragma unroll
@@ -293,24 +295,6 @@ __device__ __forceinline__ void store_acc_row(const float (&acc)[HD / 8][4], int
   for (int n = 0; n < HD / 8; ++n)
     *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t) =
         __floats2bfloat162_rn(f(acc[n][2 * hi]), f(acc[n][2 * hi + 1]));
-}
-
-// the shared memory of the bf16 gradient kernels: the dq pass holds two
-// stages of (k, dS); the dk/dv pass k and v, then two stages of (q, dctx,
-// the 64 rows' m, D and rowsum(dp p_eff))
-template <int HD>
-__host__ __device__ constexpr size_t grad_dq_smem_mma() {
-  return 2 * grad_dq_stage_bytes<HD>();
-}
-
-template <int HD>
-__host__ __device__ constexpr size_t grad_dkv_stage_bytes() {
-  return 2 * (size_t)GradMma<HD>::kTileBytes + 3 * kTile * sizeof(float);
-}
-
-template <int HD>
-__host__ __device__ constexpr size_t grad_dkv_smem_mma() {
-  return 2 * (size_t)GradMma<HD>::kTileBytes + 2 * grad_dkv_stage_bytes<HD>();
 }
 
 // ---------------------------------------------------------------- float32
@@ -362,7 +346,12 @@ struct GradLaneF32 {
 
 // x[j] = A . B^T as 3xTF32 for the warp's 16 rows against rows 32 c + 8 j ..
 // + 7 of a staged tile: A's fragments from the tile at a_tile, B's from the
-// tile at b_tile as its rows stand (shared-memory addresses)
+// tile at b_tile as its rows stand (shared-memory addresses). The k8 steps
+// stay a loop: unrolled, ptxas hoisted every step's fragments and splits
+// (the band rows kernel's statistics pass 185 registers against 149 rolled,
+// row 10's attn_dkv 235 against 198), and on the H100 the float32 rows and
+// gradient kernels ran 1.2-1.5 x slower (PERF.md, PR 19); the sums' order
+// is the same either way.
 template <int HD>
 __device__ __forceinline__ void scores_tf32(uint32_t a_tile, uint32_t b_tile,
                                             const GradLaneF32<HD>& lane, int c,
@@ -370,7 +359,7 @@ __device__ __forceinline__ void scores_tf32(uint32_t a_tile, uint32_t b_tile,
   constexpr int RB = GradTf32<HD>::kRowBytes;
 #pragma unroll
   for (int j = 0; j < 4; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.0f;
-#pragma unroll
+#pragma unroll 1
   for (int kk = 0; kk < HD / 8; ++kk) {
     uint32_t r[4], ab[4], as[4];
     ldmatrix_x4(a_tile + lane.a + kk * 32, r);
@@ -489,13 +478,125 @@ __device__ __forceinline__ void dq_from_ds_tile_tf32(const unsigned char* ds,
   }
 }
 
-// row g + 8 hi of the warp's accumulator into dst (a float32 row of HD)
-template <int HD>
-__device__ __forceinline__ void store_acc_row(const float (&acc)[HD / 8][4], int hi, float* dst) {
+// row g + 8 hi of the warp's accumulator into dst (a float32 row of HD),
+// each element through f
+template <int HD, typename F>
+__device__ __forceinline__ void store_acc_row(const float (&acc)[HD / 8][4], int hi, float* dst,
+                                              F f) {
   const int t = threadIdx.x % 4;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
-    *reinterpret_cast<float2*>(dst + 8 * n + 2 * t) = make_float2(acc[n][2 * hi], acc[n][2 * hi + 1]);
+    *reinterpret_cast<float2*>(dst + 8 * n + 2 * t) =
+        make_float2(f(acc[n][2 * hi]), f(acc[n][2 * hi + 1]));
+}
+
+// ------------------------------------------------------ by element type
+
+// A kernel that runs both element types' bodies (the rows and gradient
+// kernels of rows 10, 12 and 13 and kernels 7 and 8) stages its tiles
+// through these: bf16's tiles (GradMma), or float32's (GradTf32).
+template <typename T, int HD>
+__host__ __device__ constexpr size_t grad_tile_bytes() {
+  if constexpr (std::is_same<T, float>::value) {
+    return GradTf32<HD>::kTileBytes;
+  } else {
+    return GradMma<HD>::kTileBytes;
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void stage_tile(const __nv_bfloat16* X, size_t stride, int r0, int lo,
+                                           int hi, unsigned char* dst) {
+  stage_grad_rows<HD>(X, stride, r0, lo, hi, dst);
+}
+
+template <int HD>
+__device__ __forceinline__ void stage_tile(const float* X, size_t stride, int r0, int lo, int hi,
+                                           unsigned char* dst) {
+  stage_f32_rows<HD>(X, stride, r0, lo, hi, dst);
+}
+
+// a stage of the dq pass: the k tile, then the dS tile
+template <typename T, int HD>
+__host__ __device__ constexpr size_t grad_dq_stage() {
+  if constexpr (std::is_same<T, float>::value) {
+    return (size_t)GradTf32<HD>::kKTileBytes + kDsTileBytesF;
+  } else {
+    return (size_t)GradMma<HD>::kTileBytes + kDsTileBytes;
+  }
+}
+
+// The dq pass of a gradient kernel (row 10's, the Longformer's, BigBird's)
+// over the key tiles t < n that next(t) walks (next as grad_ring's): k's
+// rows from k0_of(t) of the (L, HD) slab K and the stored dS tile at tile(t)
+// into a ring of two stages at smem, acc += dS . K for the warp's 16 rows
+// where ``live``.
+template <typename T, int HD, typename Next, typename K0, typename Tile>
+__device__ __forceinline__ void dq_from_ds_tiles(const T* K, int L, int n, Next next, K0 k0_of,
+                                                 Tile tile, bool live, unsigned char* smem,
+                                                 float (&acc)[HD / 8][4]) {
+  const auto stage_of = [&](int s) { return smem + s * grad_dq_stage<T, HD>(); };
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int KB = GradTf32<HD>::kKTileBytes;
+    grad_ring(
+        n, next,
+        [&](int s, int t) {
+          stage_f32_rows<HD, GradTf32<HD>::kKRowFloats>(K, HD, k0_of(t), 0, L, stage_of(s));
+          stage_ds_tile_f32(tile(t), stage_of(s) + KB);
+        },
+        [&](int s, int) {
+          if (live) dq_from_ds_tile_tf32<HD>(stage_of(s) + KB, stage_of(s), acc);
+        });
+  } else {
+    constexpr int KB = GradMma<HD>::kTileBytes;
+    const GradLane<HD> lane;
+    grad_ring(
+        n, next,
+        [&](int s, int t) {
+          stage_grad_rows<HD>(K, HD, k0_of(t), 0, L, stage_of(s));
+          stage_ds_tile(tile(t), stage_of(s) + KB);
+        },
+        [&](int s, int) {
+          if (live)
+            dq_from_ds_tile<HD>(smem_addr(stage_of(s) + KB), smem_addr(stage_of(s)), lane, acc);
+        });
+  }
+}
+
+// the shared memory of the Longformer and BigBird gradient kernels: the dq
+// pass holds two stages of (k, dS); the dk/dv pass k and v, then two stages
+// of (q, dctx, the 64 rows' m, D and rowsum(dp p_eff))
+template <typename T, int HD>
+__host__ __device__ constexpr size_t grad_dq_smem() {
+  return 2 * grad_dq_stage<T, HD>();
+}
+
+template <typename T, int HD>
+__host__ __device__ constexpr size_t grad_dkv_stage() {
+  return 2 * grad_tile_bytes<T, HD>() + 3 * kTile * sizeof(float);
+}
+
+template <typename T, int HD>
+__host__ __device__ constexpr size_t grad_dkv_smem() {
+  return 2 * grad_tile_bytes<T, HD>() + 2 * grad_dkv_stage<T, HD>();
+}
+
+// The dk/dv pass's body on one staged query tile for the warp's 16 keys:
+// the tiles at ks / vs (the block's own k and v) and qs / dcs (the staged q
+// and dctx), grad and sink as grad_tile_mma takes them; bf16 or float32.
+template <typename T, int HD, typename Grad, typename Sink>
+__device__ __forceinline__ void grad_tile(const unsigned char* ks, const unsigned char* vs,
+                                          const unsigned char* qs, const unsigned char* dcs,
+                                          Grad grad, Sink sink, float (&acc0)[HD / 8][4],
+                                          float (&acc1)[HD / 8][4]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const GradLaneF32<HD> lane;
+    grad_tile_tf32<HD>(ks, vs, qs, dcs, lane, grad, sink, acc0, acc1);
+  } else {
+    const GradLane<HD> lane;
+    grad_tile_mma<HD>(smem_addr(ks), smem_addr(vs), smem_addr(qs), smem_addr(dcs), lane, grad,
+                      sink, acc0, acc1);
+  }
 }
 
 }  // namespace spk

@@ -55,17 +55,20 @@
 // for S and dP through ldmatrix of float32 rows padded to HD + 4, P from
 // the score accumulators in the column order (0, 2, 4, 6, 1, 3, 5, 7) of
 // each k8 step, v's rows 2 t and 2 t + 1 by 32-bit loads), e = exp(s - m)
-// in float32. Row 10's float32 forward and statistics pass run it; the
-// band and BigBird rows kernels keep their float32 CUDA-core bodies, and
-// can take it by passing the same callbacks.
+// in float32. Every rows kernel takes both through rows_tile, the same
+// callbacks in either element type: the float32 forwards and statistics
+// passes of rows 10, 12 and 13 and kernels 7 and 8's float32 modes (float,
+// and W8A8 with float32 activations) run the float32 sibling.
 //
 // What bounds it. At kernel 7's shape (B=8, L=2048, 12 heads of 64, window
 // 512) the three products the block runs (S twice, P V) over its 9 band
 // tiles and the global-column tile take about 4.8e10 operations, 0.05 ms at
-// the bf16 tensor-core peak, against some 100 MB of q, k, v and ctx, 0.03
-// ms at 3.35 TB/s. What stays on the CUDA cores is the work on each of
-// about 1e8 allowed (row, key) pairs: the mask, two roundings and an exp,
-// and in training a Philox-4x32-10 draw.
+// the bf16 tensor-core peak (0.29 ms as 3xTF32, whose three TF32 products a
+// float32 product take a third of the TF32 peak each), against some 100 MB
+// of q, k, v and ctx in bf16, 0.03 ms at 3.35 TB/s (0.06 ms in float32).
+// What stays on the CUDA cores is the work on each of about 1e8 allowed
+// (row, key) pairs: the mask, two roundings and an exp, and in training a
+// Philox-4x32-10 draw.
 #pragma once
 
 #include "attention_grad_mma.cuh"
@@ -414,6 +417,37 @@ __device__ __forceinline__ void rows_tile_tf32(const float* Q, const float* K, c
       stats[plane + l] = d;
       stats[2 * plane + l] = d > 0.0f ? (hi ? rs_hi : rs_lo) / denom : 0.0f;
     }
+  }
+}
+
+// the shared memory of rows_tile: the staged tiles of the element type's body
+template <typename T, int HD, bool kGrad>
+__host__ __device__ constexpr size_t rows_tiles_bytes() {
+  if constexpr (std::is_same<T, float>::value) {
+    return rows_smem_tf32<HD, kGrad>();
+  } else {
+    return rows_smem_mma<HD, kGrad>();
+  }
+}
+
+// rows_tile_mma on bf16 q, k, v, or rows_tile_tf32 on float32 ones (whose
+// ctx is float32): one call for both element types, with the same callbacks.
+// smem holds rows_tiles_bytes<T, HD, kGrad>(), 16-byte aligned; 128 threads.
+template <int HD, bool kGrad, typename T, typename Tc, typename Live, typename Allowed,
+          typename Keep, typename Score = RawScore>
+__device__ __forceinline__ void rows_tile(const T* Q, const T* K, const T* V, const T* dC,
+                                          size_t dc_stride, int dc_lo, int q0, int q_end, int L,
+                                          int n, Live live, Allowed allowed, Keep keep,
+                                          float keep_prob, Tc* out, size_t out_stride,
+                                          float* stats, size_t plane, unsigned char* smem,
+                                          Score score = Score{}) {
+  if constexpr (std::is_same<T, float>::value) {
+    static_assert(std::is_same<Tc, float>::value, "the float32 body stores a float32 ctx");
+    rows_tile_tf32<HD, kGrad>(Q, K, V, dC, dc_stride, dc_lo, q0, q_end, L, n, live, allowed, keep,
+                              keep_prob, out, out_stride, stats, plane, smem, score);
+  } else {
+    rows_tile_mma<HD, kGrad>(Q, K, V, dC, dc_stride, dc_lo, q0, q_end, L, n, live, allowed, keep,
+                             keep_prob, out, out_stride, stats, plane, smem, score);
   }
 }
 

@@ -1,8 +1,8 @@
 // Tile helpers of the attention kernels that stream (64, head_dim) tiles of
-// q, k, v through shared memory (the float32 CUDA-core bodies of kernels
-// 7, 8, 12 and 13 and the int8 core of attention_core.cuh): tile loads, the
-// two tile products, half-warp reductions, the rounded exp and the head-dim
-// dispatch.
+// q, k, v through shared memory on the CUDA cores (the int8 core of
+// attention_core.cuh, the Longformer global_kv_grad_kernel): the tile load,
+// the two tile products, half-warp reductions, the rounded exp and the
+// head-dim dispatch.
 //
 // A block runs kThreads = 256 threads as (ty, tx) = (tid / 16, tid % 16);
 // in a (64, 64) score tile thread (ty, tx) owns rows ty + 16 i and columns
@@ -37,22 +37,6 @@ __device__ __forceinline__ void load_head_tile(float* dst, const T* __restrict__
     const int r = e / HD, d = e % HD;
     const int l = row0 + r;
     dst[r * Geometry<HD>::S + d] = (l >= 0 && l < L) ? to_f32(src[(size_t)l * HD + d]) : 0.0f;
-  }
-}
-
-// The same from a (B*L, Hn) row-major matrix (ctx or dctx), head h of
-// sequence b; rows outside [row_lo, L) read as zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_row_tile(float* dst, const T* __restrict__ src, int b, int h,
-                                              int row0, int L, int nh, int row_lo = 0) {
-  const size_t stride = (size_t)nh * HD;
-  for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int l = row0 + r;
-    dst[r * Geometry<HD>::S + d] =
-        (l >= row_lo && l >= 0 && l < L)
-            ? to_f32(src[((size_t)b * L + l) * stride + (size_t)h * HD + d])
-            : 0.0f;
   }
 }
 

@@ -63,7 +63,7 @@ __device__ __forceinline__ void block_tile(const BigBird& bb, int x, int& i, int
   r_end = min(r0 + kTile, (i + 1) * bb.C);
 }
 
-// The bf16 rows kernel's block order: block (blockIdx.x, y, z) of the grid
+// The rows kernel's block order: block (blockIdx.x, y, z) of the grid
 // (nb S, nh, B), taken in linear order (x fastest), works on query tile x of
 // (head h, sequence b) with the G S tiles of the global blocks of every
 // (head, sequence) first, then the others. A global tile walks every real
@@ -129,138 +129,37 @@ __device__ __forceinline__ bool key_tile(const BigBird& bb, int i, int t, int n_
 // maxima over the allowed keys of every key tile, pass 2 forms e, D = sum e
 // and ctx = (kept e) . v / (D keep_prob), stored rounded to Tc in (B, L,
 // nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T and writes
-// the row statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B). bf16 runs
-// attention_rows_mma.cuh's tensor-core body (128 threads), float32 the
-// CUDA-core body below (256 threads).
+// the row statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B), taken in
+// global_first's order, 128 threads: attention_rows_mma.cuh's tensor-core
+// body, bf16 or float32 on 3xTF32, with the same callbacks (key_tile's
+// tiles).
 template <typename T, int HD, bool kGrad, typename Tc = T>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
     bigbird_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                         BigBird bb, const int32_t* __restrict__ seed_ptr,
                         const T* __restrict__ dctx, Tc* __restrict__ ctx,
                         float* __restrict__ stats, int B, int nh, uint32_t thr, float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    int x, h, b, i, q0, q_end;
-    global_first(bb, nh, x, h, b);
-    block_tile(bb, x, i, q0, q_end);
-    const int L = bb.L;
-    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
-    const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-    const int n_valid = counts[2 * b];
-    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
-    rows_tile_mma<HD, kGrad>(
-        Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
-        kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, 0, q0, q_end, L,
-        key_tiles(bb, i, n_valid),
-        [&](int t, KeyTile& kt) { return key_tile(bb, i, t, n_valid, kt); },
-        [&](const KeyTile& kt, int row, int key) { return key < kt.k_end; },
-        [&](const KeyTile& kt, int row, int key) {
-          return keep_prob_bits(seed, thr, b, h | kt.tag, row, key + kt.col_off);
-        },
-        keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
-        kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
-        reinterpret_cast<unsigned char*>(smem));
-    return;
-  } else {
-  using G = Geometry<HD>;
-  float* Qs = smem;
-  float* Ks = Qs + G::kTileFloats;
-  float* Vs = Ks + G::kTileFloats;
-  float* dCs = Vs + G::kTileFloats;
-  float* Ps = dCs + G::kTileFloats;
-
-  int i, q0, q_end;
-  block_tile(bb, blockIdx.x, i, q0, q_end);
-  const int h = blockIdx.y, b = blockIdx.z, L = bb.L;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t head = (size_t)L * HD;
+  int x, h, b, i, q0, q_end;
+  global_first(bb, nh, x, h, b);
+  block_tile(bb, x, i, q0, q_end);
+  const int L = bb.L;
+  const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
   const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
-  const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
   const int n_valid = counts[2 * b];
   const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
-  const int nt = key_tiles(bb, i, n_valid);
-
-  load_head_tile<T, HD>(Qs, Q, q0, L);
-  if constexpr (kGrad) load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh);
-
-  float m[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) m[a] = -CUDART_INF_F;
-  for (int t = 0; t < nt; ++t) {
-    KeyTile kt;
-    if (!key_tile(bb, i, t, n_valid, kt)) continue;
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, kt.k0, L);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (kt.k0 + tx + 16 * c < kt.k_end) m[a] = fmaxf(m[a], s[a][c]);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) m[a] = half_warp_max(m[a]);
-
-  float D[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float o[4][G::TD];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < G::TD; ++c) o[a][c] = 0.0f;
-  for (int t = 0; t < nt; ++t) {
-    KeyTile kt;
-    if (!key_tile(bb, i, t, n_valid, kt)) continue;
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, kt.k0, L);
-    load_head_tile<T, HD>(Vs, V, kt.k0, L);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-    if constexpr (kGrad) tile_dot<HD>(dCs, Vs, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = q0 + ty + 16 * a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c, key = kt.k0 + col;
-        float pe = 0.0f;
-        if (key < kt.k_end) {
-          const float e = rounded_exp<T>(s[a][c], m[a]);
-          D[a] += e;
-          pe = keep_prob_bits(seed, thr, b, h | kt.tag, row, key + kt.col_off) ? e : 0.0f;
-          if constexpr (kGrad) rs[a] = fmaf(pe, dp[a][c], rs[a]);
-        }
-        Ps[(ty + 16 * a) * kPS + col] = pe;
-      }
-    }
-    __syncthreads();
-    tile_accumulate<HD>(Ps, Vs, o);
-  }
-
-  const size_t row_stride = (size_t)nh * HD;
-  const size_t plane = (size_t)B * nh * L;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float d_sum = half_warp_sum(D[a]);
-    const float rs_sum = kGrad ? half_warp_sum(rs[a]) : 0.0f;
-    const int l = q0 + ty + 16 * a;
-    if (l >= q_end) continue;
-    const float denom = d_sum * keep_prob;
-    Tc* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
-#pragma unroll
-    for (int c = 0; c < G::TD; ++c)
-      out[tx + 16 * c] = from_f32<Tc>(d_sum > 0.0f ? o[a][c] / denom : 0.0f);
-    if (kGrad && tx == 0) {
-      const size_t r = ((size_t)b * nh + h) * L + l;
-      stats[r] = m[a];
-      stats[plane + r] = d_sum;
-      stats[2 * plane + r] = d_sum > 0.0f ? rs_sum / denom : 0.0f;
-    }
-  }
-  }
+  rows_tile<HD, kGrad>(
+      Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
+      kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, 0, q0, q_end, L,
+      key_tiles(bb, i, n_valid),
+      [&](int t, KeyTile& kt) { return key_tile(bb, i, t, n_valid, kt); },
+      [&](const KeyTile& kt, int row, int key) { return key < kt.k_end; },
+      [&](const KeyTile& kt, int row, int key) {
+        return keep_prob_bits(seed, thr, b, h | kt.tag, row, key + kt.col_off);
+      },
+      keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
+      kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
+      reinterpret_cast<unsigned char*>(smem));
 }
 
 // counts and q, k, v; wqkv (H, 3 nh hd) in the element type, bqkv float32.
@@ -286,12 +185,12 @@ cudaError_t bigbird_attention(const BigBird& bb, const int32_t* seed, const int3
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     auto rows = bigbird_rows_kernel<T, HD, kGrad, Tc>;
-    constexpr size_t smem = rows_smem_bytes<T, HD, kGrad>();
+    constexpr size_t smem = rows_tiles_bytes<T, HD, kGrad>();
     cudaError_t e = prepare(rows, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid(bb.nb * bb.S, nh, B);
-    rows<<<grid, grad_threads<T>(), smem, stream>>>(qkv_buf, counts, bb, seed, dctx, ctx_buf,
-                                                    stats, B, nh, thr, keep_prob);
+    rows<<<grid, kGradThreads, smem, stream>>>(qkv_buf, counts, bb, seed, dctx, ctx_buf, stats, B,
+                                               nh, thr, keep_prob);
     return cudaGetLastError();
   });
 }

@@ -111,170 +111,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// shared memory of a rows kernel (band_rows_kernel, bigbird_rows_kernel):
-// in float32 four (64, HD) float tiles and a (64, 64) score tile, in bf16
-// attention_rows_mma.cuh's staged tiles
-template <typename T, int HD, bool kGrad>
-constexpr size_t rows_smem_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
-  } else {
-    return rows_smem_mma<HD, kGrad>();
-  }
-}
-
 // The local rows of one (64 query rows, head, sequence): pass 1 takes the
 // row maxima over the band tiles and the global-column tile, pass 2 forms e,
 // D = sum e and ctx = (kept e) . v / (D keep_prob), stored rounded to Tc in
 // (B, L, nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T,
 // with the cotangent of global rows taken as zero, and writes the row
-// statistics (m, D, rowsum(dp p_eff)). Grid (ceil(L / 64), nh, B). bf16 runs
-// attention_rows_mma.cuh's tensor-core body (128 threads), float32 the
-// CUDA-core body below (256 threads).
+// statistics (m, D, rowsum(dp p_eff)). Grid (ceil(L / 64), nh, B), 128
+// threads: attention_rows_mma.cuh's tensor-core body, bf16 or float32 on
+// 3xTF32, with the same callbacks (the band tiles, then the global-column
+// tile).
 template <typename T, int HD, bool kGrad, typename Tc = T>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
     band_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                      const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                      Tc* __restrict__ ctx, float* __restrict__ stats, int B, int L, int nh, int C,
                      uint32_t thr, float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
-    const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-    const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
-    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
-    const int nbt = band_tiles(C);  // then the global-column tile
-    rows_tile_mma<HD, kGrad>(
-        Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
-        kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, n_glob, q0, L, L,
-        nbt + (n_glob > 0 ? 1 : 0),
-        [&](int t, KeyTile& kt) {
-          const bool gcol = t == nbt;
-          kt.k0 = gcol ? 0 : q0 - C + kTile * t;
-          kt.k_end = gcol ? n_glob : n_valid;
-          kt.tag = gcol ? kGlobalColStream : 0u;
-          kt.col_off = 0;
-          return gcol || band_tile_live(kt.k0, n_glob, n_valid);
-        },
-        [&](const KeyTile& kt, int row, int key) {
-          return kt.tag ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid);
-        },
-        [&](const KeyTile& kt, int row, int key) {
-          return keep_prob_bits(seed, thr, b, h | kt.tag, row, key);
-        },
-        keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
-        kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
-        reinterpret_cast<unsigned char*>(smem));
-    return;
-  } else {
-  using G = Geometry<HD>;
-  float* Qs = smem;
-  float* Ks = Qs + G::kTileFloats;
-  float* Vs = Ks + G::kTileFloats;
-  float* dCs = Vs + G::kTileFloats;
-  float* Ps = dCs + G::kTileFloats;
-
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t head = (size_t)L * HD;
+  const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
   const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
-  const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
   const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
   const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
-  const int nt = band_tiles(C) + (n_glob > 0 ? 1 : 0);  // the last one: global columns
-
-  load_head_tile<T, HD>(Qs, Q, q0, L);
-  if constexpr (kGrad) load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh, n_glob);
-
-  float m[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -CUDART_INF_F;
-  for (int t = 0; t < nt; ++t) {
-    const bool gcol = t == band_tiles(C);
-    const int k0 = gcol ? 0 : q0 - C + kTile * t;
-    if (!gcol && !band_tile_live(k0, n_glob, n_valid)) continue;  // uniform over the block
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, k0, L);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const bool ok = gcol ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid);
-        if (ok) m[i] = fmaxf(m[i], s[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = half_warp_max(m[i]);
-
-  float D[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float o[4][G::TD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) o[i][j] = 0.0f;
-  for (int t = 0; t < nt; ++t) {
-    const bool gcol = t == band_tiles(C);
-    const int k0 = gcol ? 0 : q0 - C + kTile * t;
-    if (!gcol && !band_tile_live(k0, n_glob, n_valid)) continue;
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, k0, L);
-    load_head_tile<T, HD>(Vs, V, k0, L);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-    if constexpr (kGrad) tile_dot<HD>(dCs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, key = k0 + c;
-        const bool ok = gcol ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid);
-        float pe = 0.0f;
-        if (ok) {
-          const float e = rounded_exp<T>(s[i][j], m[i]);
-          D[i] += e;
-          const bool keep = gcol ? keep_prob_bits(seed, thr, b, h | kGlobalColStream, row, key)
-                                 : keep_prob_bits(seed, thr, b, h, row, key);
-          pe = keep ? e : 0.0f;
-          if constexpr (kGrad) rs[i] = fmaf(pe, dp[i][j], rs[i]);
-        }
-        Ps[(ty + 16 * i) * kPS + c] = pe;
-      }
-    }
-    __syncthreads();
-    tile_accumulate<HD>(Ps, Vs, o);
-  }
-
-  const size_t row_stride = (size_t)nh * HD;
-  const size_t plane = (size_t)B * nh * L;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float d_sum = half_warp_sum(D[i]);
-    const float rs_sum = kGrad ? half_warp_sum(rs[i]) : 0.0f;
-    const int l = q0 + ty + 16 * i;
-    if (l >= L) continue;
-    const float denom = d_sum * keep_prob;
-    Tc* out = ctx + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j)
-      out[tx + 16 * j] = from_f32<Tc>(d_sum > 0.0f ? o[i][j] / denom : 0.0f);
-    if (kGrad && tx == 0) {
-      const size_t r = ((size_t)b * nh + h) * L + l;
-      stats[r] = m[i];
-      stats[plane + r] = d_sum;
-      stats[2 * plane + r] = d_sum > 0.0f ? rs_sum / denom : 0.0f;
-    }
-  }
-  }
+  const int nbt = band_tiles(C);  // then the global-column tile
+  rows_tile<HD, kGrad>(
+      Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
+      kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, n_glob, q0, L, L,
+      nbt + (n_glob > 0 ? 1 : 0),
+      [&](int t, KeyTile& kt) {
+        const bool gcol = t == nbt;
+        kt.k0 = gcol ? 0 : q0 - C + kTile * t;
+        kt.k_end = gcol ? n_glob : n_valid;
+        kt.tag = gcol ? kGlobalColStream : 0u;
+        kt.col_off = 0;
+        return gcol || band_tile_live(kt.k0, n_glob, n_valid);
+      },
+      [&](const KeyTile& kt, int row, int key) {
+        return kt.tag ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid);
+      },
+      [&](const KeyTile& kt, int row, int key) {
+        return keep_prob_bits(seed, thr, b, h | kt.tag, row, key);
+      },
+      keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
+      kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
+      reinterpret_cast<unsigned char*>(smem));
 }
 
 // The W8A8 global query: x8 (B L, H) int8 with row scales sx (the block's
@@ -509,12 +388,12 @@ cudaError_t launch_band_rows(const T* qkv_buf, const int32_t* counts, const int3
                              const T* dctx, Tc* ctx_buf, float* stats, int B, int L, int nh,
                              int C, uint32_t thr, float keep_prob, cudaStream_t stream) {
   auto band = band_rows_kernel<T, HD, kGrad, Tc>;
-  constexpr size_t smem = rows_smem_bytes<T, HD, kGrad>();
+  constexpr size_t smem = rows_tiles_bytes<T, HD, kGrad>();
   const cudaError_t e = prepare(band, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((L + kTile - 1) / kTile, nh, B);
-  band<<<grid, grad_threads<T>(), smem, stream>>>(qkv_buf, counts, seed, dctx, ctx_buf, stats, B,
-                                                  L, nh, C, thr, keep_prob);
+  band<<<grid, kGradThreads, smem, stream>>>(qkv_buf, counts, seed, dctx, ctx_buf, stats, B, L, nh,
+                                             C, thr, keep_prob);
   return cudaGetLastError();
 }
 

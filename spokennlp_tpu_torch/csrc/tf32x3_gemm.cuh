@@ -5,11 +5,11 @@
 // kernels 1-3, 7-9 and of rows 10-13's training forwards, the products their
 // backwards recompute, the backwards' products with a weight read transposed
 // (dctx = g Wo^T, dx = dproj W^T, the MLP's dpre = (g W2^T) act' and dx =
-// dpre W1^T) and their weight gradients (dW = X^T dY). The float32 dense
-// attention cores (attention_core.cuh; row 10's attn_rows, attn_dkv and
-// attn_dq) take the same split and mma.sync shape (ptx.cuh tf32_split,
-// mma_tf32x3) on their own tiles; the band, BigBird and global-rows bodies
-// of rows 7, 8, 12 and 13 stay on the CUDA cores in float32.
+// dpre W1^T) and their weight gradients (dW = X^T dY). The float32
+// attention cores (attention_core.cuh; the rows and gradient kernels of rows
+// 10, 12 and 13 and kernels 7 and 8) take the same split and mma.sync shape
+// (ptx.cuh tf32_split, mma_tf32x3) on their own tiles; the Longformer global
+// rows stay on the CUDA cores in float32.
 //
 // Replaces no TPU kernel of its own: it is the product tile of the float32
 // modes of the TPU kernels under spokennlp_tpu/ops/pallas/ that this port's

@@ -101,25 +101,8 @@ __host__ __device__ constexpr size_t seg_ids_bytes(int L) {
   return sizeof(int) * (size_t)((L + kTile - 1) / kTile) * kTile;
 }
 
-// the least resident blocks an SM the dense kernels are compiled for: bf16
-// as the other gradient kernels (grad_min_blocks); float32 two, which its
-// shared memory allows at head dim 64 (up to 255 registers a thread)
-template <typename T, int HD>
-__host__ __device__ constexpr int dense_min_blocks() {
-  return std::is_same<T, float>::value ? 2 : grad_min_blocks<T, HD>();
-}
-
-// shared memory of the rows kernel before the segment ids: the staged tiles
-// of attention_rows_mma.cuh's body in the element type
-template <typename T, int HD, bool kGrad>
-__host__ __device__ constexpr size_t rows_tiles_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return rows_smem_tf32<HD, kGrad>();
-  } else {
-    return rows_smem_mma<HD, kGrad>();
-  }
-}
-
+// shared memory of the rows kernel: the staged tiles of
+// attention_rows_mma.cuh's body in the element type, then the segment ids
 template <typename T, int HD, bool kGrad>
 size_t rows_smem_bytes(int L) {
   return rows_tiles_bytes<T, HD, kGrad>() + seg_ids_bytes(L);
@@ -133,7 +116,7 @@ size_t rows_smem_bytes(int L) {
 // tensor-core body (bf16, or float32 on 3xTF32) over every key tile of the
 // sequence, each score scaled and masked as masked_score does.
 template <typename T, int HD, bool kGrad>
-__global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
     attn_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ seg,
                      const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                      T* __restrict__ ctx, float* __restrict__ stats, int B, int L, int nh,
@@ -166,16 +149,9 @@ __global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
   const T* dC = kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr;
   T* out = ctx + (size_t)b * L * HN + (size_t)h * HD;
   float* st = kGrad ? stats + ((size_t)b * nh + h) * L : nullptr;
-  unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
-  if constexpr (std::is_same<T, float>::value) {
-    rows_tile_tf32<HD, kGrad>(Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head, dC, HN,
-                              0, q0, L, L, nt, live, allowed, keep, keep_prob, out, HN, st,
-                              (size_t)B * nh * L, sm, score);
-  } else {
-    rows_tile_mma<HD, kGrad>(Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head, dC, HN,
-                             0, q0, L, L, nt, live, allowed, keep, keep_prob, out, HN, st,
-                             (size_t)B * nh * L, sm, score);
-  }
+  rows_tile<HD, kGrad>(Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head, dC, HN, 0, q0,
+                       L, L, nt, live, allowed, keep, keep_prob, out, HN, st, (size_t)B * nh * L,
+                       reinterpret_cast<unsigned char*>(smem), score);
 }
 
 // dS of one (query, key) pair, rounded to T, and p_eff: the softmax-with-
@@ -197,36 +173,19 @@ __host__ __device__ __forceinline__ size_t dense_ds_tile(int bh, int qt, int kt,
   return (((size_t)bh * nt + qt) * nt + kt) * (size_t)kDsTile;
 }
 
-// a stage of the dq pass: the k tile, then the dS tile
-template <typename T, int HD>
-__host__ __device__ constexpr size_t dq_stage_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return (size_t)GradTf32<HD>::kKTileBytes + kDsTileBytesF;
-  } else {
-    return grad_dq_stage_bytes<HD>();
-  }
-}
-
-template <typename T, int HD>
-constexpr size_t dq_smem_bytes() {
-  return 2 * dq_stage_bytes<T, HD>();
-}
-
 // dq of one (query tile, head, sequence): sum over key tiles of dS . k,
 // stored rounded into the (B*L, 3, nh, hd) gradient at slot 0, from the dS
 // tiles attn_dkv_kernel stored in ds_in (dense_ds_tile). Grid (ceil(L /
 // 64), nh, B), 128 threads on the tensor cores (attention_grad_mma.cuh:
 // bf16, or float32 on 3xTF32).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
     attn_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ seg,
                    const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                    const float* __restrict__ stats, const T* __restrict__ ds_in,
                    T* __restrict__ dqkv, int B, int L, int nh, float sm_scale, uint32_t thr,
                    float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);  // stage s: k, then dS
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
   const T* K = qkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
@@ -236,44 +195,18 @@ __global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
   const bool live = q0 + 16 * warp < L;  // warp-uniform
   float dq[HD / 8][4];
   zero_acc<HD>(dq);
-  const auto stage_of = [&](int st) { return ring + st * dq_stage_bytes<T, HD>(); };
-  if constexpr (kF32) {
-    grad_ring(
-        nt, [](int t) { return t; },
-        [&](int st, int t) {
-          stage_f32_rows<HD, GradTf32<HD>::kKRowFloats>(K, HD, kTile * t, 0, L, stage_of(st));
-          stage_ds_tile_f32(tiles + (size_t)t * kDsTile, stage_of(st) + GradTf32<HD>::kKTileBytes);
-        },
-        [&](int st, int) {
-          if (live)
-            dq_from_ds_tile_tf32<HD>(stage_of(st) + GradTf32<HD>::kKTileBytes, stage_of(st), dq);
-        });
-  } else {
-    const GradLane<HD> lane;
-    grad_ring(
-        nt, [](int t) { return t; },
-        [&](int st, int t) {
-          stage_grad_rows<HD>(K, HD, kTile * t, 0, L, stage_of(st));
-          stage_ds_tile(tiles + (size_t)t * kDsTile, stage_of(st) + GradMma<HD>::kTileBytes);
-        },
-        [&](int st, int) {
-          if (live)
-            dq_from_ds_tile<HD>(smem_addr(stage_of(st) + GradMma<HD>::kTileBytes),
-                                smem_addr(stage_of(st)), lane, dq);
-        });
-  }
+  dq_from_ds_tiles<T, HD>(
+      K, L, nt, [](int t) { return t; }, [](int t) { return kTile * t; },
+      [&](int t) { return tiles + (size_t)t * kDsTile; }, live,
+      reinterpret_cast<unsigned char*>(smem), dq);
   if (!live) return;
   const size_t row_stride = (size_t)3 * nh * HD;
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int l = hi ? r_hi : r_lo;
-    if (l >= L) continue;
-    T* out = dqkv + ((size_t)b * L + l) * row_stride + (size_t)h * HD;
-    if constexpr (kF32) {
-      store_acc_row<HD>(dq, hi, out);
-    } else {
-      store_acc_row<HD>(dq, hi, out, [](float v) { return v; });
-    }
+    if (l < L)
+      store_acc_row<HD>(dq, hi, dqkv + ((size_t)b * L + l) * row_stride + (size_t)h * HD,
+                        [](float v) { return v; });
   }
 }
 
@@ -281,25 +214,12 @@ __global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
 // rowsum(dp p_eff) and segment ids
 template <typename T, int HD>
 __host__ __device__ constexpr size_t dense_dkv_stage_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return 2 * (size_t)GradTf32<HD>::kTileBytes + 4 * kTile * sizeof(float);
-  } else {
-    return 2 * (size_t)GradMma<HD>::kTileBytes + 4 * kTile * sizeof(float);
-  }
-}
-
-template <typename T, int HD>
-__host__ __device__ constexpr size_t dense_tile_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return GradTf32<HD>::kTileBytes;
-  } else {
-    return GradMma<HD>::kTileBytes;
-  }
+  return 2 * grad_tile_bytes<T, HD>() + 4 * kTile * sizeof(float);
 }
 
 template <typename T, int HD>
 constexpr size_t dkv_smem_bytes() {
-  return 2 * dense_tile_bytes<T, HD>() + 2 * dense_dkv_stage_bytes<T, HD>();
+  return 2 * grad_tile_bytes<T, HD>() + 2 * dense_dkv_stage_bytes<T, HD>();
 }
 
 // dk and dv of one (KEY tile, head, sequence): sums over every query tile of
@@ -311,15 +231,14 @@ constexpr size_t dkv_smem_bytes() {
 // dv += p_eff^T dctx; it also stores every dS in ds_out's tiles (in the
 // element type), which attn_dq_kernel reads (dense_ds_tile).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
     attn_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ seg,
                     const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                     const float* __restrict__ stats, T* __restrict__ ds_out,
                     T* __restrict__ dqkv, int B, int L, int nh, float sm_scale, uint32_t thr,
                     float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr size_t kTileB = dense_tile_bytes<T, HD>();
+  constexpr size_t kTileB = grad_tile_bytes<T, HD>();
   unsigned char* Ks = reinterpret_cast<unsigned char*>(smem);
   unsigned char* Vs = Ks + kTileB;
   unsigned char* ring = Vs + kTileB;  // stage s: q, dctx, m, D, rowsum, segment ids
@@ -336,32 +255,20 @@ __global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
   const float* st0 = stats + ((size_t)b * nh + h) * L;
   const int nt = (L + kTile - 1) / kTile;
 
-  if constexpr (kF32) {
-    stage_f32_rows<HD>(K, HD, k0, 0, L, Ks);
-    stage_f32_rows<HD>(V, HD, k0, 0, L, Vs);
-  } else {
-    stage_grad_rows<HD>(K, HD, k0, 0, L, Ks);
-    stage_grad_rows<HD>(V, HD, k0, 0, L, Vs);
-  }
+  stage_tile<HD>(K, HD, k0, 0, L, Ks);
+  stage_tile<HD>(V, HD, k0, 0, L, Vs);
   const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
   const int sk_lo = key_lo < L ? seg_b[key_lo] : 0, sk_hi = key_hi < L ? seg_b[key_hi] : 0;
   const bool live = k0 + 16 * warp < L;  // warp-uniform
   float dk[HD / 8][4], dv[HD / 8][4];
   zero_acc<HD>(dk);
   zero_acc<HD>(dv);
-  const GradLane<HD> lane;
-  const GradLaneF32<HD> lane_f;
   const auto stage_of = [&](int st) { return ring + st * dense_dkv_stage_bytes<T, HD>(); };
   const auto load = [&](int st, int t) {
     unsigned char* sp = stage_of(st);
     const int q0 = kTile * t;
-    if constexpr (kF32) {
-      stage_f32_rows<HD>(Q, HD, q0, 0, L, sp);
-      stage_f32_rows<HD>(dC, HN, q0, 0, L, sp + kTileB);
-    } else {
-      stage_grad_rows<HD>(Q, HD, q0, 0, L, sp);
-      stage_grad_rows<HD>(dC, HN, q0, 0, L, sp + kTileB);
-    }
+    stage_tile<HD>(Q, HD, q0, 0, L, sp);
+    stage_tile<HD>(dC, HN, q0, 0, L, sp + kTileB);
     float* sf = reinterpret_cast<float*>(sp + 2 * kTileB);
     stage_grad_stats(st0, q0, 0, L, sf);
     stage_grad_stats(st0 + plane, q0, 0, L, sf + kTile);
@@ -393,12 +300,7 @@ __global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
     const auto sink = [&](int hi, int col, float d0, float d1) {
       store_pair(ds_tile + ((hi ? key_hi : key_lo) - k0) * kTile + col, d0, d1);
     };
-    if constexpr (kF32) {
-      grad_tile_tf32<HD>(Ks, Vs, sp, sp + kTileB, lane_f, grad, sink, dk, dv);
-    } else {
-      grad_tile_mma<HD>(smem_addr(Ks), smem_addr(Vs), smem_addr(sp), smem_addr(sp + kTileB),
-                        lane, grad, sink, dk, dv);
-    }
+    grad_tile<T, HD>(Ks, Vs, sp, sp + kTileB, grad, sink, dk, dv);
   };
   grad_ring(nt, [](int t) { return t; }, load, body);
   if (!live) return;
@@ -407,13 +309,8 @@ __global__ void __launch_bounds__(kGradThreads, dense_min_blocks<T, HD>())
     const int l = hi ? key_hi : key_lo;
     if (l >= L) continue;
     T* out = dqkv + ((size_t)b * L + l) * 3 * HN + (size_t)h * HD;
-    if constexpr (kF32) {
-      store_acc_row<HD>(dk, hi, out + HN);
-      store_acc_row<HD>(dv, hi, out + 2 * HN);
-    } else {
-      store_acc_row<HD>(dk, hi, out + HN, [](float v) { return v; });
-      store_acc_row<HD>(dv, hi, out + 2 * HN, [](float v) { return v; });
-    }
+    store_acc_row<HD>(dk, hi, out + HN, [](float v) { return v; });
+    store_acc_row<HD>(dv, hi, out + 2 * HN, [](float v) { return v; });
   }
 }
 
@@ -469,8 +366,8 @@ cudaError_t launch_grad_cores(int which, const T* qkv_buf, const int32_t* seg,
     }
     if (which & kGradDq) {
       auto dq = attn_dq_kernel<T, HD>;
-      if ((e = prepare(dq, dq_smem_bytes<T, HD>())) != cudaSuccess) return e;
-      dq<<<grid, threads, dq_smem_bytes<T, HD>(), stream>>>(
+      if ((e = prepare(dq, grad_dq_smem<T, HD>())) != cudaSuccess) return e;
+      dq<<<grid, threads, grad_dq_smem<T, HD>(), stream>>>(
           qkv_buf, seg, seed, dctx, stats, ds_buf, dqkv, B, L, nh, sm_scale, thr, keep_prob);
       e = cudaGetLastError();
     }

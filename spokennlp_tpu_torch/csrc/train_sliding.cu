@@ -36,11 +36,18 @@
 // global_rows_mma.cuh's (the global query, S, dP, P.V and dS . kg on
 // mma.sync, the keys split over the warps). global_kv_grad_kernel, whose G
 // global rows are a small share of the work, stays a SIMT kernel on the
-// CUDA cores; float32 runs every attention kernel there.
-// In float32 every product, forward and backward, runs tf32x3_gemm.cuh's
-// 3xTF32 tensor-core tile through the same launchers; the projections the
-// backward recomputes take the forward's kernel and tile, so it
-// differentiates the forward's own values.
+// CUDA cores.
+// In float32 every product, forward and backward, runs on the tensor cores
+// as 3xTF32 (each float32 operand split into two TF32 parts, three mma.sync
+// m16n8k8 products in float32): the projections on tf32x3_gemm.cuh's tile
+// through the same launchers (the projections the backward recomputes take
+// the forward's kernel and tile, so it differentiates the forward's own
+// values), the band rows kernel and the gradient kernels on the float32
+// siblings of the same bodies (rows_tile_tf32, grad_tile_tf32,
+// dq_from_ds_tile_tf32; 128 threads, the same callbacks), each dS stored
+// once in float32 for the dq pass (503 MB at B=8, L=2048, window 512). The
+// float32 global rows (global_rows_kernel, global_kv_grad_kernel) stay on
+// the CUDA cores.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into
@@ -57,10 +64,10 @@
 //               summed over the query tiles whose band covers it and, for
 //               the tile that holds the global keys, over every query row's
 //               global columns. Each block owns its keys: no atomics, the
-//               same order on every run. In bf16 it also stores each dS
-//               once (sliding_ds_tiles);
+//               same order on every run. It also stores each dS once, in
+//               the element type (sliding_ds_tiles);
 //            5. band_dq_kernel: per (query tile, head, sequence) dq over the
-//               band and global-column tiles, from those dS tiles in bf16;
+//               band and global-column tiles, from those dS tiles;
 //            6. global_kv_grad_kernel: per (key tile, head, sequence) dkg and
 //               dvg summed over the (at most G) global rows;
 //            7. dx = [dq dk dv dqg dkg dvg] . [Wqkv Wg]^T in one GEMM, and
@@ -71,8 +78,8 @@
 //               sum is deterministic; the bias gradients come from the same
 //               pass.
 // Saved between the passes: the inputs and the seed only; the scores and
-// probabilities are recomputed tile by tile in each kernel (in bf16, dS
-// passes from step 4 to step 5 through device memory).
+// probabilities are recomputed tile by tile in each kernel (dS passes from
+// step 4 to step 5 through device memory).
 #include "attention_grad_mma.cuh"
 #include "sliding_attention.cuh"
 
@@ -83,15 +90,6 @@ namespace {
 // holds band_tiles(C) band tiles, then the global-column tile.
 __host__ __device__ __forceinline__ size_t sliding_ds_tiles(int bh, int qt, int L, int C) {
   return ((size_t)bh * ((L + kTile - 1) / kTile) + qt) * (band_tiles(C) + 1) * (size_t)kDsTile;
-}
-
-template <typename T, int HD>
-constexpr size_t dq_smem_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + (size_t)kTile * kPS);
-  } else {
-    return grad_dq_smem_mma<HD>();
-  }
 }
 
 // dS of one (row, key) pair, rounded to T, and p_eff, from the row's
@@ -106,357 +104,186 @@ __device__ __forceinline__ void sliding_score_grad(float s, float dp, float m, f
 }
 
 // dq of one (query tile, head, sequence): sum over the band and global-column
-// tiles of dS . k; stored as round(round(dq) * sm_scale) into slot 0 of
-// dproj (B*L rows of stride ld). Grid (ceil(L / 64), nh, B). float32 on the
-// CUDA cores (256 threads) forms dS itself; bf16 on the tensor cores (128
-// threads, attention_grad_mma.cuh) reads the dS tiles band_dkv_kernel
-// stored in ds_in (sliding_ds_tiles).
+// tiles of dS . k, from the dS tiles band_dkv_kernel stored in ds_in
+// (sliding_ds_tiles); stored as round(round(dq) * sm_scale) into slot 0 of
+// dproj (B*L rows of stride ld). Grid (ceil(L / 64), nh, B), 128 threads on
+// the tensor cores (attention_grad_mma.cuh: bf16, or float32 on 3xTF32).
 template <typename T, int HD>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
     band_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
-                   const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
-                   const float* __restrict__ stats, const T* __restrict__ ds_in,
-                   T* __restrict__ dproj, int B, int L, int nh, int C, int ld, float sm_scale,
-                   uint32_t thr, float keep_prob) {
+                   const T* __restrict__ ds_in, T* __restrict__ dproj, int B, int L, int nh,
+                   int C, int ld, float sm_scale) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    using Mm = GradMma<HD>;
-    unsigned char* ring = reinterpret_cast<unsigned char*>(smem);  // stage s: k, then dS
-    const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
-    const T* K = qkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
-    const T* tiles = ds_in + sliding_ds_tiles(b * nh + h, blockIdx.x, L, C);
-    const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
-    const int nbt = band_tiles(C), nt = nbt + (n_glob > 0 ? 1 : 0);  // the last: global columns
-    const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
-    const bool live = q0 + 16 * warp < L;  // warp-uniform
-    float dq[HD / 8][4];
-    zero_acc<HD>(dq);
-    const GradLane<HD> lane;
-    const auto k0_of = [&](int t) { return t == nbt ? 0 : q0 - C + kTile * t; };
-    const auto stage_of = [&](int s) { return ring + s * grad_dq_stage_bytes<HD>(); };
-    grad_ring(
-        nt,
-        [&](int t) {
-          while (t < nt && t != nbt && !band_tile_live(k0_of(t), n_glob, n_valid)) ++t;
-          return t;
-        },
-        [&](int s, int t) {
-          stage_grad_rows<HD>(K, HD, k0_of(t), 0, L, stage_of(s));
-          stage_ds_tile(tiles + (size_t)t * kDsTile, stage_of(s) + Mm::kTileBytes);
-        },
-        [&](int s, int t) {
-          if (live)
-            dq_from_ds_tile<HD>(smem_addr(stage_of(s) + Mm::kTileBytes), smem_addr(stage_of(s)),
-                                lane, dq);
-        });
-    if (!live) return;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int l = hi ? r_hi : r_lo;
-      if (l < L)
-        store_acc_row<HD>(dq, hi, dproj + ((size_t)b * L + l) * ld + (size_t)h * HD,
-                          [&](float v) { return round_to<T>(v) * sm_scale; });
-    }
-    return;
-  } else {
-  using G = Geometry<HD>;
-  float* Qs = smem;
-  float* Ks = Qs + G::kTileFloats;
-  float* Vs = Ks + G::kTileFloats;
-  float* dCs = Vs + G::kTileFloats;
-  float* Ps = dCs + G::kTileFloats;
-
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t head = (size_t)L * HD;
-  const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
-  const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+  const T* K = qkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
+  const T* tiles = ds_in + sliding_ds_tiles(b * nh + h, blockIdx.x, L, C);
   const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
-  const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
-  const size_t plane = (size_t)B * nh * L;
-  const int nt = band_tiles(C) + (n_glob > 0 ? 1 : 0);
-
-  load_head_tile<T, HD>(Qs, Q, q0, L);
-  load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh, n_glob);
-  float m[4], d_sum[4], rs[4];
+  const int nbt = band_tiles(C), nt = nbt + (n_glob > 0 ? 1 : 0);  // the last: global columns
+  const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
+  const bool live = q0 + 16 * warp < L;  // warp-uniform
+  float dq[HD / 8][4];
+  zero_acc<HD>(dq);
+  const auto k0_of = [&](int t) { return t == nbt ? 0 : q0 - C + kTile * t; };
+  dq_from_ds_tiles<T, HD>(
+      K, L, nt,
+      [&](int t) {
+        while (t < nt && t != nbt && !band_tile_live(k0_of(t), n_glob, n_valid)) ++t;
+        return t;
+      },
+      k0_of, [&](int t) { return tiles + (size_t)t * kDsTile; }, live,
+      reinterpret_cast<unsigned char*>(smem), dq);
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = q0 + ty + 16 * i;
-    const size_t r = ((size_t)b * nh + h) * L + (l < L ? l : 0);
-    m[i] = stats[r];
-    d_sum[i] = stats[plane + r];
-    rs[i] = stats[2 * plane + r];
-  }
-  float dq[4][G::TD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) dq[i][j] = 0.0f;
-
-  for (int t = 0; t < nt; ++t) {
-    const bool gcol = t == band_tiles(C);
-    const int k0 = gcol ? 0 : q0 - C + kTile * t;
-    if (!gcol && !band_tile_live(k0, n_glob, n_valid)) continue;
-    __syncthreads();
-    load_head_tile<T, HD>(Ks, K, k0, L);
-    load_head_tile<T, HD>(Vs, V, k0, L);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(Qs, Ks, s);
-    tile_dot<HD>(dCs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, key = k0 + c;
-        const bool ok = row < L && (gcol ? key < n_glob
-                                         : band_allowed(row, key, C, n_glob, n_valid));
-        float ds = 0.0f, p_eff;
-        if (ok) {
-          const bool keep = gcol ? keep_prob_bits(seed, thr, b, h | kGlobalColStream, row, key)
-                                 : keep_prob_bits(seed, thr, b, h, row, key);
-          sliding_score_grad<T>(s[i][j], dp[i][j], m[i], d_sum[i], rs[i], keep, keep_prob, ds,
-                                p_eff);
-        }
-        Ps[(ty + 16 * i) * kPS + c] = ds;
-      }
-    }
-    __syncthreads();
-    tile_accumulate<HD>(Ps, Ks, dq);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = q0 + ty + 16 * i;
-    if (l >= L) continue;
-    T* out = dproj + ((size_t)b * L + l) * ld + (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) out[tx + 16 * j] = from_f32<T>(round_to<T>(dq[i][j]) * sm_scale);
-  }
+  for (int hi = 0; hi < 2; ++hi) {
+    const int l = hi ? r_hi : r_lo;
+    if (l < L)
+      store_acc_row<HD>(dq, hi, dproj + ((size_t)b * L + l) * ld + (size_t)h * HD,
+                        [&](float v) { return round_to<T>(v) * sm_scale; });
   }
 }
 
-template <typename T, int HD>
-constexpr size_t dkv_smem_bytes() {
-  if constexpr (std::is_same<T, float>::value) {
-    return sizeof(float) * (4 * (size_t)Geometry<HD>::kTileFloats + 2 * (size_t)kTile * kPS +
-                            3 * (size_t)kTile);
+// The dk/dv pass's block order: block (blockIdx.x, y, z) of the grid
+// (ceil(L / 64), nh, B), taken in linear order (x fastest), works on key
+// tile x of (head h, sequence b) with the first key tile of every (head,
+// sequence) first, then the others. The first key tile holds the global
+// columns (n_glob <= 16) and walks every query tile of the sequence besides
+// its band's (41 query tiles at L=2048, window 512, against 9): in grid
+// order the last heads' ones started late and ran on alone at the end of the
+// launch; started first, they run beside the short tiles.
+__device__ __forceinline__ void first_tile_first(int nh, int& x, int& h, int& b) {
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + nh * blockIdx.z);
+  const int n_first = nh * gridDim.z;
+  int hb;
+  if (lin < n_first) {
+    x = 0;
+    hb = lin;
   } else {
-    return grad_dkv_smem_mma<HD>();
+    const int r = lin - n_first;
+    x = 1 + r % (gridDim.x - 1);
+    hb = r / (gridDim.x - 1);
   }
+  h = hb % nh;
+  b = hb / nh;
 }
 
 // dk and dv of one (KEY tile, head, sequence): sums of dS^T . q and
 // round(p_eff)^T . dctx over the query tiles whose band reaches the keys,
 // and, when the tile holds global keys (k0 < n_glob), over every query
 // tile's global columns; stored rounded into slots 1 and 2 of dproj. Grid
-// (ceil(L / 64), nh, B). In float32 (256 threads) thread (ty, tx) owns keys
-// ty + 16 i and, in the score tiles, queries tx + 16 j; in bf16 (128
-// threads) warp w owns keys 16 w .. 16 w + 15 and forms S^T = k q^T and
-// dP^T = v dctx^T on the tensor cores, whose dS^T and p_eff^T are the A
-// fragments of dk += dS^T q and dv += p_eff^T dctx; it also stores every
-// dS in ds_out's tiles, which band_dq_kernel reads (sliding_ds_tiles).
+// (ceil(L / 64), nh, B) in first_tile_first's order, 128 threads: warp w
+// owns keys 16 w .. 16 w + 15 and forms S^T = k q^T and dP^T = v dctx^T on
+// the tensor cores (attention_grad_mma.cuh: bf16, or float32 on 3xTF32),
+// whose dS^T and p_eff^T are the A fragments of dk += dS^T q and dv +=
+// p_eff^T dctx; it also stores every dS, in the element type, in ds_out's
+// tiles, which band_dq_kernel reads (sliding_ds_tiles).
 template <typename T, int HD>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
     band_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
                     const int32_t* __restrict__ seed_ptr, const T* __restrict__ dctx,
                     const float* __restrict__ stats, T* __restrict__ ds_out,
                     T* __restrict__ dproj, int B, int L, int nh, int C, int ld, uint32_t thr,
                     float keep_prob) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    using Mm = GradMma<HD>;
-    unsigned char* Ks = reinterpret_cast<unsigned char*>(smem);
-    unsigned char* Vs = Ks + Mm::kTileBytes;
-    unsigned char* ring = Vs + Mm::kTileBytes;  // stage s: q, dctx, then m, D, rowsum
-    const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
-    const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
-    const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
-    const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
-    const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
-    const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
-    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
-    const size_t plane = (size_t)B * nh * L;
-    const float* st0 = stats + ((size_t)b * nh + h) * L;
-
-    stage_grad_rows<HD>(K, HD, k0, 0, L, Ks);
-    stage_grad_rows<HD>(V, HD, k0, 0, L, Vs);
-    const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
-    const bool live = k0 + 16 * warp < L;  // warp-uniform
-    float dk[HD / 8][4], dv[HD / 8][4];
-    zero_acc<HD>(dk);
-    zero_acc<HD>(dv);
-    const GradLane<HD> lane;
-    // band query tiles (when the keys hold a real, non-global one), then, for
-    // the tile of the global keys, every query tile for the global columns
-    const int nbt = band_tiles(C);
-    const int n_band = band_tile_live(k0, n_glob, n_valid) ? nbt : 0;
-    const int n = n_band + (k0 < n_glob ? (L + kTile - 1) / kTile : 0);
-    const auto q0_of = [&](int t) { return t >= n_band ? kTile * (t - n_band) : k0 - C + kTile * t; };
-    const auto stage_of = [&](int s) { return ring + s * grad_dkv_stage_bytes<HD>(); };
-    grad_ring(
-        n,
-        [&](int t) {
-          for (; t < n; ++t)
-            if (q0_of(t) + kTile > 0 && q0_of(t) < L) break;
-          return t;
-        },
-        [&](int s, int t) {
-          unsigned char* st = stage_of(s);
-          const int q0 = q0_of(t);
-          stage_grad_rows<HD>(Q, HD, q0, 0, L, st);
-          stage_grad_rows<HD>(dctx + (size_t)b * L * HN + (size_t)h * HD, HN, q0, n_glob, L,
-                              st + Mm::kTileBytes);
-          float* sf = reinterpret_cast<float*>(st + 2 * Mm::kTileBytes);
-          stage_grad_stats(st0, q0, 0, L, sf);
-          stage_grad_stats(st0 + plane, q0, 0, L, sf + kTile);
-          stage_grad_stats(st0 + 2 * plane, q0, 0, L, sf + 2 * kTile);
-        },
-        [&](int s, int t) {
-          if (!live) return;
-          const bool gcol = t >= n_band;
-          const int q0 = q0_of(t);
-          const unsigned char* st = stage_of(s);
-          const float* m_s = reinterpret_cast<const float*>(st + 2 * Mm::kTileBytes);
-          const float* d_s = m_s + kTile;
-          const float* rs_s = d_s + kTile;
-          grad_tile_mma<HD>(
-              smem_addr(Ks), smem_addr(Vs), smem_addr(st), smem_addr(st + Mm::kTileBytes), lane,
-              [&](float sc, float dp, int hi, int col, float& pe) {
-                const int key = hi ? key_hi : key_lo, row = q0 + col;
-                const bool ok = row >= 0 && row < L &&
-                                (gcol ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid));
-                if (!ok) return 0.0f;
-                const bool keep = gcol
-                                      ? keep_prob_bits(seed, thr, b, h | kGlobalColStream, row, key)
-                                      : keep_prob_bits(seed, thr, b, h, row, key);
-                float ds;
-                sliding_score_grad<T>(sc, dp, m_s[col], d_s[col], rs_s[col], keep, keep_prob, ds,
-                                      pe);
-                return ds;
-              },
-              // dS of rows (row, row + 1) at key into the dq pass's tile of
-              // the row's query tile: the band tile that holds the key, or
-              // the global-column tile
-              [&](int hi, int col, float d0, float d1) {
-                const int key = hi ? key_hi : key_lo, row = q0 + col;
-                if (row < 0 || row >= L) return;
-                int t = nbt, kin = key;
-                if (!gcol) {
-                  const int off = key - (row - row % kTile) + C;
-                  if (off < 0 || off >= kTile * nbt) return;  // no band tile of the row's: masked
-                  t = off / kTile;
-                  kin = off % kTile;
-                }
-                T* dst = ds_out + sliding_ds_tiles(b * nh + h, row / kTile, L, C) +
-                         (size_t)t * kDsTile + kin * kTile + row % kTile;
-                *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(d0, d1);
-              },
-              dk, dv);
-        });
-    if (!live) return;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int l = hi ? key_hi : key_lo;
-      if (l >= L) continue;
-      T* out = dproj + ((size_t)b * L + l) * ld + (size_t)h * HD;
-      store_acc_row<HD>(dk, hi, out + HN, [](float v) { return v; });
-      store_acc_row<HD>(dv, hi, out + 2 * HN, [](float v) { return v; });
-    }
-    return;
-  } else {
-  using G = Geometry<HD>;
-  float* Ks = smem;
-  float* Vs = Ks + G::kTileFloats;
-  float* Qs = Vs + G::kTileFloats;
-  float* dCs = Qs + G::kTileFloats;
-  float* dSs = dCs + G::kTileFloats;
-  float* Pes = dSs + kTile * kPS;
-  float* m_s = Pes + kTile * kPS;
-  float* d_s = m_s + kTile;
-  float* rs_s = d_s + kTile;
-
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t head = (size_t)L * HD;
+  constexpr size_t kTileB = grad_tile_bytes<T, HD>();
+  unsigned char* Ks = reinterpret_cast<unsigned char*>(smem);
+  unsigned char* Vs = Ks + kTileB;
+  unsigned char* ring = Vs + kTileB;  // stage s: q, dctx, then m, D, rowsum
+  int x, h, b;
+  first_tile_first(nh, x, h, b);
+  const int k0 = x * kTile;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+  const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
   const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
   const T* K = qkv + (((size_t)1 * B + b) * nh + h) * head;
   const T* V = qkv + (((size_t)2 * B + b) * nh + h) * head;
   const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
   const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;
   const size_t plane = (size_t)B * nh * L;
-  const size_t stat0 = ((size_t)b * nh + h) * L;
+  const float* st0 = stats + ((size_t)b * nh + h) * L;
+  T* ds_bh = ds_out + sliding_ds_tiles(b * nh + h, 0, L, C);  // query tile qt's at qt (nbt + 1)
 
-  load_head_tile<T, HD>(Ks, K, k0, L);
-  load_head_tile<T, HD>(Vs, V, k0, L);
-  float dk[4][G::TD], dv[4][G::TD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) dk[i][j] = dv[i][j] = 0.0f;
-
+  stage_tile<HD>(K, HD, k0, 0, L, Ks);
+  stage_tile<HD>(V, HD, k0, 0, L, Vs);
+  const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
+  const bool live = k0 + 16 * warp < L;  // warp-uniform
+  float dk[HD / 8][4], dv[HD / 8][4];
+  zero_acc<HD>(dk);
+  zero_acc<HD>(dv);
   // band query tiles (when the keys hold a real, non-global one), then, for
   // the tile of the global keys, every query tile for the global columns
-  const int n_band = band_tile_live(k0, n_glob, n_valid) ? band_tiles(C) : 0;
-  const int n_gcol = k0 < n_glob ? (L + kTile - 1) / kTile : 0;
-  for (int t = 0; t < n_band + n_gcol; ++t) {
-    const bool gcol = t >= n_band;
-    const int q0 = gcol ? kTile * (t - n_band) : k0 - C + kTile * t;
-    if (q0 + kTile <= 0 || q0 >= L) continue;  // uniform over the block
-    __syncthreads();
-    load_head_tile<T, HD>(Qs, Q, q0, L);
-    load_row_tile<T, HD>(dCs, dctx, b, h, q0, L, nh, n_glob);
-    if (threadIdx.x < kTile) {
-      const int l = q0 + threadIdx.x;
-      const bool in = l >= 0 && l < L;
-      m_s[threadIdx.x] = in ? stats[stat0 + l] : 0.0f;
-      d_s[threadIdx.x] = in ? stats[plane + stat0 + l] : 1.0f;
-      rs_s[threadIdx.x] = in ? stats[2 * plane + stat0 + l] : 0.0f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(Ks, Qs, s);  // s[i][j]: key ty + 16 i, query tx + 16 j
-    tile_dot<HD>(Vs, dCs, dp);
+  const int nbt = band_tiles(C);
+  const int n_band = band_tile_live(k0, n_glob, n_valid) ? nbt : 0;
+  const int n = n_band + (k0 < n_glob ? (L + kTile - 1) / kTile : 0);
+  const auto q0_of = [&](int t) { return t >= n_band ? kTile * (t - n_band) : k0 - C + kTile * t; };
+  const auto stage_of = [&](int s) { return ring + s * grad_dkv_stage<T, HD>(); };
+  grad_ring(
+      n,
+      [&](int t) {
+        for (; t < n; ++t)
+          if (q0_of(t) + kTile > 0 && q0_of(t) < L) break;
+        return t;
+      },
+      [&](int s, int t) {
+        unsigned char* st = stage_of(s);
+        const int q0 = q0_of(t);
+        stage_tile<HD>(Q, HD, q0, 0, L, st);
+        stage_tile<HD>(dctx + (size_t)b * L * HN + (size_t)h * HD, HN, q0, n_glob, L, st + kTileB);
+        float* sf = reinterpret_cast<float*>(st + 2 * kTileB);
+        stage_grad_stats(st0, q0, 0, L, sf);
+        stage_grad_stats(st0 + plane, q0, 0, L, sf + kTile);
+        stage_grad_stats(st0 + 2 * plane, q0, 0, L, sf + 2 * kTile);
+      },
+      [&](int s, int t) {
+        if (!live) return;
+        const bool gcol = t >= n_band;
+        const int q0 = q0_of(t);
+        const unsigned char* st = stage_of(s);
+        const float* m_s = reinterpret_cast<const float*>(st + 2 * kTileB);
+        const float* d_s = m_s + kTile;
+        const float* rs_s = d_s + kTile;
+        grad_tile<T, HD>(
+            Ks, Vs, st, st + kTileB,
+            [&](float sc, float dp, int hi, int col, float& pe) {
+              const int key = hi ? key_hi : key_lo, row = q0 + col;
+              const bool ok = row >= 0 && row < L &&
+                              (gcol ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid));
+              if (!ok) return 0.0f;
+              const bool keep = gcol
+                                    ? keep_prob_bits(seed, thr, b, h | kGlobalColStream, row, key)
+                                    : keep_prob_bits(seed, thr, b, h, row, key);
+              float ds;
+              sliding_score_grad<T>(sc, dp, m_s[col], d_s[col], rs_s[col], keep, keep_prob, ds,
+                                    pe);
+              return ds;
+            },
+            // dS of rows (row, row + 1) at key into the dq pass's tile of
+            // the row's query tile: the band tile that holds the key, or the
+            // global-column tile
+            [&](int hi, int col, float d0, float d1) {
+              const int key = hi ? key_hi : key_lo, row = q0 + col;
+              if (row < 0 || row >= L) return;
+              int t = nbt, kin = key;
+              if (!gcol) {
+                const int off = key - (row - row % kTile) + C;
+                if (off < 0 || off >= kTile * nbt) return;  // no band tile of the row's: masked
+                t = off / kTile;
+                kin = off % kTile;
+              }
+              store_pair(ds_bh + (size_t)((row / kTile) * (nbt + 1) + t) * kDsTile + kin * kTile +
+                             row % kTile,
+                         d0, d1);
+            },
+            dk, dv);
+      });
+  if (!live) return;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, row = q0 + c;
-        const bool ok = row >= 0 && row < L &&
-                        (gcol ? key < n_glob : band_allowed(row, key, C, n_glob, n_valid));
-        float ds = 0.0f, p_eff = 0.0f;
-        if (ok) {
-          const bool keep = gcol ? keep_prob_bits(seed, thr, b, h | kGlobalColStream, row, key)
-                                 : keep_prob_bits(seed, thr, b, h, row, key);
-          sliding_score_grad<T>(s[i][j], dp[i][j], m_s[c], d_s[c], rs_s[c], keep, keep_prob, ds,
-                                p_eff);
-        }
-        dSs[(ty + 16 * i) * kPS + c] = ds;
-        Pes[(ty + 16 * i) * kPS + c] = round_to<T>(p_eff);
-      }
-    }
-    __syncthreads();
-    tile_accumulate<HD>(dSs, Qs, dk);
-    tile_accumulate<HD>(Pes, dCs, dv);
-  }
-
-  const size_t HN = (size_t)nh * HD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = k0 + ty + 16 * i;
+  for (int hi = 0; hi < 2; ++hi) {
+    const int l = hi ? key_hi : key_lo;
     if (l >= L) continue;
     T* out = dproj + ((size_t)b * L + l) * ld + (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < G::TD; ++j) {
-      out[HN + tx + 16 * j] = from_f32<T>(dk[i][j]);
-      out[2 * HN + tx + 16 * j] = from_f32<T>(dv[i][j]);
-    }
-  }
+    store_acc_row<HD>(dk, hi, out + HN, [](float v) { return v; });
+    store_acc_row<HD>(dv, hi, out + 2 * HN, [](float v) { return v; });
   }
 }
 
@@ -601,27 +428,25 @@ cudaError_t sliding_train_bwd(const T* hidden, const int32_t* mask, const int32_
                                    ctx_buf, stats, qg_buf, gstats, dproj + 3 * HN, B, L, H, nh,
                                    hd, C, G, global_rows, ld, sm_scale, thr, keep_prob, stream);
   if (err != cudaSuccess) return err;
+  if (ds_buf == nullptr) return cudaErrorInvalidValue;
   err = with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     const dim3 grid((L + kTile - 1) / kTile, nh, B);
-    constexpr int threads = grad_threads<T>();
     cudaError_t e = cudaSuccess;
-    if (ds_buf != nullptr && (C % kTile || L % kTile)) {  // bf16
+    if (C % kTile || L % kTile) {
       // tiles that no block fills whole: what the dk/dv pass leaves stays zero
       e = cudaMemsetAsync(ds_buf, 0, sliding_ds_tiles(B * nh, 0, L, C) * sizeof(T), stream);
       if (e != cudaSuccess) return e;
     }
     auto dkv = band_dkv_kernel<T, HD>;
-    if ((e = prepare(dkv, dkv_smem_bytes<T, HD>())) != cudaSuccess) return e;
-    dkv<<<grid, threads, dkv_smem_bytes<T, HD>(), stream>>>(qkv_buf, counts, seed, dctx_buf,
-                                                             stats, ds_buf, dproj, B, L, nh, C, ld,
-                                                             thr, keep_prob);
+    if ((e = prepare(dkv, grad_dkv_smem<T, HD>())) != cudaSuccess) return e;
+    dkv<<<grid, kGradThreads, grad_dkv_smem<T, HD>(), stream>>>(
+        qkv_buf, counts, seed, dctx_buf, stats, ds_buf, dproj, B, L, nh, C, ld, thr, keep_prob);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     auto dq = band_dq_kernel<T, HD>;
-    if ((e = prepare(dq, dq_smem_bytes<T, HD>())) != cudaSuccess) return e;
-    dq<<<grid, threads, dq_smem_bytes<T, HD>(), stream>>>(qkv_buf, counts, seed, dctx_buf, stats,
-                                                           ds_buf, dproj, B, L, nh, C, ld,
-                                                           sm_scale, thr, keep_prob);
+    if ((e = prepare(dq, grad_dq_smem<T, HD>())) != cudaSuccess) return e;
+    dq<<<grid, kGradThreads, grad_dq_smem<T, HD>(), stream>>>(qkv_buf, counts, ds_buf, dproj, B,
+                                                                L, nh, C, ld, sm_scale);
     if ((e = cudaGetLastError()) != cudaSuccess || !global_rows) return e;
     auto gkv = global_kv_grad_kernel<T, HD>;
     const size_t smem = gkv_smem_bytes<HD>(G);
@@ -681,7 +506,7 @@ __global__ void sliding_mask_kernel(const int32_t* __restrict__ seed_ptr, uint8_
 // gradients float32. wqkv (H, 3 nh hd), wgq (H, nh hd), wgkv (H, 2 nh hd),
 // wo (nh hd, H), w_all = [wqkv wg] (H, ld); dproj (B*L, ld) with ld = 6 nh hd
 // (3 nh hd without global rows), qg_buf (B, nh, G, hd). thr = 0 turns dropout
-// off (seed may then be null). ds_buf (bf16; null in float32) holds B nh
+// off (seed may then be null). ds_buf (the element type) holds B nh
 // ceil(L / 64) (band_tiles(C) + 1) tiles of 64 x 64 dS that the dk/dv pass
 // writes and the dq pass reads. Each entry returns the first CUDA error, or
 // 0.

@@ -12,10 +12,15 @@ those models and plant their faults by replacing ``round_ds``,
 ``core_product`` is the attention cores' own product hook, beside the
 projections' ``float_product``: the dense core's plain version and rounding
 model (``attention_block``, ``blhd_attention``), row 10's plain core and
-its rows and gradient models (``train_blocks``) and ``rows_attend``'s P V
-take their products through it. The float32 cores run those products as
-3xTF32 on the tensor cores; the card gates send the hook to the 3xTF32
-model (``int8_matmul.tf32x3_product``) and plant plain TF32 there.
+its rows and gradient models (``train_blocks``), the Longformer and BigBird
+blocks' plain attention (``sliding_block.sliding_attend``,
+``bigbird_block.bigbird_attend``) and their rows and gradient models
+(``train_sliding``, ``train_bigbird``) and ``rows_attend``'s P V take their
+products through it. The float32 cores run those products as 3xTF32 on the
+tensor cores; the card gates send the hook to the 3xTF32 model
+(``int8_matmul.tf32x3_product``) and plant plain TF32 there. The Longformer
+global rows, whose float32 kernels stay on the CUDA cores, take
+``exact_product``.
 """
 
 from __future__ import annotations
@@ -88,18 +93,25 @@ def rows_softmax(s: torch.Tensor, allowed: torch.Tensor, dt):
     return m, torch.where(allowed, e, 0.0)
 
 
-def rows_attend(s, v, allowed, keep, dt, keep_prob: float, dp=None):
+def exact_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., M, K) . (..., K, N) in float32, never replaced: the products of
+    the models of kernels that run them on the CUDA cores (the Longformer
+    global rows)."""
+    return a.float() @ b.float()
+
+
+def rows_attend(s, v, allowed, keep, dt, keep_prob: float, dp=None, product=None):
     """(ctx, m, D, rs) of the rows kernels on dense float32 scores s (...,
     rows, keys), values v (..., keys, hd), ``allowed`` and ``keep`` (bool or
     None) and, for the statistics pass, dp = dctx v^T: D = sum e, ctx = (kept
     e) . v / (D keep_prob), rs = rowsum(dp p_eff) / (D keep_prob), both zero
     where D = 0 (rs None without dp). float32 sums, no tiles; P V through
-    ``core_product``."""
+    ``product`` (``core_product`` by default)."""
     m, e = rows_softmax(s, allowed, dt)
     pe = e if keep is None else torch.where(keep, e, 0.0)
     D = e.sum(-1)
     live = D > 0
     denom = torch.where(live, D * keep_prob, 1.0)
-    ctx = torch.where(live[..., None], core_product(pe, v) / denom[..., None], 0.0)
+    ctx = torch.where(live[..., None], (product or core_product)(pe, v) / denom[..., None], 0.0)
     rs = None if dp is None else torch.where(live, (pe * dp).sum(-1) / denom, 0.0)
     return ctx, m, D, rs

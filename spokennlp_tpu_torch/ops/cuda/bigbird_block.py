@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables, random_tail
+from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import (
     _DTYPES, NEG_INF, _layer_norm, quantize_attention_weights,
@@ -54,7 +55,8 @@ def bigbird_attend(q, k, v, attention_mask, *, block_size: int, num_global_block
     """The attention context (B, L, nh, hd) float32 of the kernels' semantics
     from projected (B, L, nh, hd) q (scaled), k, v, piece by piece as the
     kernels take them. ``exp_dtype``: the TPU kernels' rounded exponent
-    (``sliding_block._softmax``). ``keep`` as in ``bigbird_context_plain``."""
+    (``sliding_block._softmax``). ``keep`` as in ``bigbird_context_plain``.
+    The products go through ``attention_models.core_product``."""
     q, k, v = q.float(), k.float(), v.float()
     B, L, nh, hd = q.shape
     C = block_size
@@ -63,7 +65,8 @@ def bigbird_attend(q, k, v, attention_mask, *, block_size: int, num_global_block
     GC, dev = G * C, q.device
     n_valid = (attention_mask > 0).sum(1)
     real = lambda keys: keys[None] < n_valid.reshape(-1, *[1] * keys.dim())  # (B, *keys.shape)
-    qc = q.reshape(B, nb, C, nh, hd)
+    heads = lambda t: t.permute(0, 3, 1, 2, 4)  # (B, n, rows, nh, hd) -> (B, nh, n, rows, hd)
+    mm, qh = am.core_product, heads(q.reshape(B, nb, C, nh, hd))
 
     # window blocks i - 1, i, i + 1 without the global blocks; then the
     # global columns; then the random blocks: (scores, values, keys allowed)
@@ -80,7 +83,7 @@ def bigbird_attend(q, k, v, attention_mask, *, block_size: int, num_global_block
         gather = lambda t: t[:, keys_r.reshape(-1)].reshape(B, nb, R * C, nh, hd)
         pieces.append((gather(k), gather(v), real(keys_r) & live[None]))
     scores = torch.cat([
-        torch.where(ok[:, None, :, None, :], torch.einsum("bicnd,bijnd->bnicj", qc, kp), NEG_INF)
+        torch.where(ok[:, None, :, None, :], mm(qh, heads(kp).transpose(-1, -2)), NEG_INF)
         for kp, _, ok in pieces], dim=-1)  # (B, nh, nb, C, K C)
     probs, denom = _softmax(scores, exp_dtype)
     probs = probs.split([kp.shape[2] for kp, _, _ in pieces], dim=-1)
@@ -90,18 +93,18 @@ def bigbird_attend(q, k, v, attention_mask, *, block_size: int, num_global_block
         masks = [m for m, n in zip(masks, (1, GC, R)) if n]
         scale = 1.0 / (1.0 - dropout_rate)
         probs = [torch.where(m, p * scale, 0.0) for m, p in zip(masks, probs)]
-    ctx = sum(torch.einsum("bnicj,bijnd->bicnd", p, vp) for p, (_, vp, _) in zip(probs, pieces))
-    ctx = _divide(ctx, denom, (0, 2, 3, 1, 4)).reshape(B, L, nh, hd)
+    ctx = sum(mm(p, heads(vp)) for p, (_, vp, _) in zip(probs, pieces))  # (B, nh, nb, C, hd)
+    ctx = _divide(ctx, denom, (0, 1, 2, 3, 4)).permute(0, 2, 3, 1, 4).reshape(B, L, nh, hd)
     if not GC:
         return ctx
 
     # the global rows: dense over every real key
-    s = torch.einsum("bgnd,blnd->bngl", q[:, :GC], k)
+    s = mm(q[:, :GC].transpose(1, 2), k.permute(0, 2, 3, 1))  # (B, nh, GC, L)
     p, denom = _softmax(torch.where(real(torch.arange(L, device=dev))[:, None, None], s,
                                     NEG_INF), exp_dtype)
     if dropout_rate > 0.0:
         p = torch.where(keep[3], p / (1.0 - dropout_rate), 0.0)
-    cg = _divide(torch.einsum("bngl,blnd->bgnd", p, v), denom, (0, 2, 1, 3))
+    cg = _divide(mm(p, v.transpose(1, 2)), denom, (0, 1, 2, 3)).transpose(1, 2)
     return torch.cat([cg, ctx[:, GC:]], dim=1)
 
 

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES, NEG_INF, _layer_norm
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
@@ -87,7 +88,9 @@ def sliding_attend(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, G: int, e
     ``glob_qkv`` = (qg (B, G, nh, hd) scaled, kg, vg (B, L, nh, hd)) or
     None; ``n_valid``, ``n_glob`` (B,) counts. ``exp_dtype``: the TPU
     kernels' rounded exponent (``_softmax``). ``keep`` as in
-    ``sliding_context_plain``."""
+    ``sliding_context_plain``. The band's and the global columns' products
+    go through ``attention_models.core_product``; the global rows', which
+    the kernels sum on the CUDA cores, are exact."""
     q, k, v = q.float(), k.float(), v.float()
     B, L, nh, hd = q.shape
     C = window // 2
@@ -97,11 +100,12 @@ def sliding_attend(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, G: int, e
     in_band = (key[:, None, :] - row[:, :, None]).abs() <= C  # (nc, C, 3C)
     key_ok = (key[None] >= n_glob[:, None, None]) & (key[None] < n_valid[:, None, None])
     allowed = in_band[None] & key_ok[:, :, None, :]  # (B, nc, C, 3C)
-    q_chunks = q.reshape(B, nc, C, nh, hd)
-    scores = torch.einsum("bicnd,bijnd->bnicj", q_chunks, _ctx_windows(k, C))
+    heads = lambda t: t.permute(0, 3, 1, 2, 4)  # (B, n, rows, nh, hd) -> (B, nh, n, rows, hd)
+    mm, qh = am.core_product, heads(q.reshape(B, nc, C, nh, hd))
+    scores = mm(qh, heads(_ctx_windows(k, C)).transpose(-1, -2))  # (B, nh, nc, C, 3C)
     scores = torch.where(allowed[:, None], scores, NEG_INF)
     g_ok = torch.arange(G, device=dev)[None] < n_glob[:, None]  # (B, G)
-    g_scores = torch.einsum("bicnd,bgnd->bnicg", q_chunks, k[:, :G])
+    g_scores = mm(qh, heads(k[:, None, :G]).transpose(-1, -2))  # (B, nh, nc, C, G)
     g_scores = torch.where(g_ok[:, None, None, None], g_scores, NEG_INF)
     probs, denom = _softmax(torch.cat([scores, g_scores], dim=-1), exp_dtype)
     p_band, p_g = probs[..., : 3 * C], probs[..., 3 * C:]
@@ -110,9 +114,8 @@ def sliding_attend(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, G: int, e
         scale = 1.0 / (1.0 - dropout_rate)
         p_band = torch.where(band_keep, p_band * scale, 0.0)
         p_g = torch.where(gcol_keep.reshape(B, nh, nc, C, G), p_g * scale, 0.0)
-    ctx = (torch.einsum("bnicj,bijnd->bicnd", p_band, _ctx_windows(v, C))
-           + torch.einsum("bnicg,bgnd->bicnd", p_g, v[:, :G]))
-    ctx = _divide(ctx, denom, (0, 2, 3, 1, 4)).reshape(B, L, nh, hd)
+    ctx = mm(p_band, heads(_ctx_windows(v, C))) + mm(p_g, heads(v[:, None, :G]))
+    ctx = _divide(ctx, denom, (0, 1, 2, 3, 4)).permute(0, 2, 3, 1, 4).reshape(B, L, nh, hd)
     if glob_qkv is None:
         return ctx
 

@@ -216,25 +216,26 @@ def bigbird_core_bwd_model(q, k, v, dctx, n_valid, tables, *, block_size: int, s
     (None: taken here) and the four keep masks of ``bigbird_keep_masks``.
     Dense over a sequence's keys with float32 sums and no tiles; rounds
     where the kernels round (``attention_models.dense_core_grad``; dq before
-    and after the scale, dk and dv once). Returns (dq, dk, dv), each (B, L,
-    nh, hd) in q's dtype."""
+    and after the scale, dk and dv once); the products through
+    ``attention_models.core_product``. Returns (dq, dk, dv), each (B, L, nh,
+    hd) in q's dtype."""
     dt, dev = q.dtype, q.device
     B, nh, L, hd = q.shape
     C, G, R, kp = block_size, tables.G, tables.R, 1.0 - dropout_rate
     rand, rok = tables.rand.cpu().numpy(), tables.rok.cpu().numpy()
     reg = torch.from_numpy(bigbird_model_regions(L, C, G, R, rand, rok)).to(dev)
-    tr = lambda t: t.transpose(-1, -2)
+    tr, mm = lambda t: t.transpose(-1, -2), am.core_product
     outs = [torch.zeros(B, nh, L, hd, device=dev) for _ in range(3)]
     for b in range(B):
         allowed = (reg > 0) & (torch.arange(L, device=dev) < int(n_valid[b]))[None]
         kd = None if keep is None else _bigbird_dense_keep(keep, b, reg, C, G, R, rand, rok)
         qb, kb, vb = (t[b].float() for t in (q, k, v))
         dc = dctx[b].float().transpose(0, 1)
-        ds, pe = am.dense_core_grad(qb @ tr(kb), dc @ tr(vb), allowed, kd,
+        ds, pe = am.dense_core_grad(mm(qb, tr(kb)), mm(dc, tr(vb)), allowed, kd,
                                     None if stats is None else stats[:, b], dt, kp)
-        outs[0][b] = am.rounded(am.rounded(ds @ kb, dt) * sm_scale, dt)
-        outs[1][b] = am.rounded(tr(ds) @ qb, dt)
-        outs[2][b] = am.rounded(tr(pe) @ dc, dt)
+        outs[0][b] = am.rounded(am.rounded(mm(ds, kb), dt) * sm_scale, dt)
+        outs[1][b] = am.rounded(mm(tr(ds), qb), dt)
+        outs[2][b] = am.rounded(mm(tr(pe), dc), dt)
     return tuple(o.transpose(1, 2).to(dt) for o in outs)
 
 
@@ -262,9 +263,10 @@ def bigbird_rows_model(q, k, v, n_valid, tables, *, block_size: int, dctx=None,
     ``bigbird_model_regions``) with float32 sums and no tiles; e rounded
     where the kernel rounds it (``attention_models.rows_exponent``, against the
     row's true maximum), ctx rounded to ``ctx_dtype`` (q's dtype by
-    default). Returns ctx (B, L, nh, hd) and the row statistics (3, B, nh,
-    L) float32 = (m, D, rowsum(dp p_eff)) (-inf, 0, 0 for a row with no
-    allowed key; rs zero without dctx)."""
+    default); the products through ``attention_models.core_product``.
+    Returns ctx (B, L, nh, hd) and the row statistics (3, B, nh, L) float32
+    = (m, D, rowsum(dp p_eff)) (-inf, 0, 0 for a row with no allowed key;
+    rs zero without dctx)."""
     dt, dev = q.dtype, q.device
     B, nh, L, hd = q.shape
     C, G, R, kp = block_size, tables.G, tables.R, 1.0 - dropout_rate
@@ -277,8 +279,8 @@ def bigbird_rows_model(q, k, v, n_valid, tables, *, block_size: int, dctx=None,
         allowed = (reg > 0) & (torch.arange(L, device=dev) < int(n_valid[b]))[None]
         kd = None if keep is None else _bigbird_dense_keep(keep, b, reg, C, G, R, rand, rok)
         qb, kb, vb = (t[b].float() for t in (q, k, v))
-        dp = None if dctx is None else dctx[b].float().transpose(0, 1) @ tr(vb)
-        c, m, D, rs = am.rows_attend(qb @ tr(kb), vb, allowed, kd, dt, kp, dp)
+        dp = None if dctx is None else am.core_product(dctx[b].float().transpose(0, 1), tr(vb))
+        c, m, D, rs = am.rows_attend(am.core_product(qb, tr(kb)), vb, allowed, kd, dt, kp, dp)
         ctx[b], stats[0, b], stats[1, b] = c, m, D
         if rs is not None:
             stats[2, b] = rs
@@ -360,11 +362,11 @@ def bigbird_train_fwd(hidden, mask, seed, w, bo, tables, *, num_heads: int, bloc
 
 
 def bigbird_ds_elements(B: int, nh: int, L: int, block_size: int, G: int, R: int) -> int:
-    """bf16 elements of the dS tiles that the bf16 backward's dk/dv pass
-    writes once for its dq pass: a (64, 64) tile for each key tile that a
-    64-row query tile visits, ceil(L / 64) for the global rows' query tiles
-    and (3 + G + R) S for the others (csrc/train_bigbird.cu
-    bigbird_ds_tile)."""
+    """Elements, in the compute dtype (bf16 or float32), of the dS tiles that
+    the backward's dk/dv pass writes once for its dq pass: a (64, 64) tile
+    for each key tile that a 64-row query tile visits, ceil(L / 64) for the
+    global rows' query tiles and (3 + G + R) S for the others
+    (csrc/train_bigbird.cu bigbird_ds_tile)."""
     S, nb = -(-block_size // 64), L // block_size
     return B * nh * (G * S * -(-L // 64) + (nb - G) * S * (3 + G + R) * S) * 64 * 64
 
@@ -377,8 +379,9 @@ def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block
     the intermediates its products read: ctx and dctx (M, Hn), dproj = [dq
     dk dv] (M, 3 Hn) and w_all = Wqkv (H, 3 Hn); and those its gradient
     kernels read: qkv (3, B, nh, L, hd), the row statistics stats (3, B, nh,
-    L) and counts (B, 2) (``bigbird_core_model_dproj``). In bf16 the dk/dv
-    pass stores dS in a buffer of ``bigbird_ds_elements`` for the dq pass.
+    L) and counts (B, 2) (``bigbird_core_model_dproj``). The dk/dv pass
+    stores dS in a buffer of ``bigbird_ds_elements`` (the compute dtype) for
+    the dq pass.
     ``bigbird_train_bwd.launches`` counts its launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
@@ -388,8 +391,7 @@ def bigbird_train_bwd(hidden, mask, seed, w, g, tables, *, num_heads: int, block
     empty = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device=dev)
     bufs = (empty(B, 2, dtype=torch.int32), empty(3, B, num_heads, L, hd), empty(B, L, HN),
             empty(B, L, HN), empty(3, B, num_heads, L, dtype=f32), empty(B * L, 3 * HN))
-    ds = (empty(bigbird_ds_elements(B, num_heads, L, block_size, tables.G, tables.R))
-          if dt == torch.bfloat16 else None)
+    ds = empty(bigbird_ds_elements(B, num_heads, L, block_size, tables.G, tables.R))
     dx = torch.empty_like(hidden)
     dwqkv, dbqkv = empty(H, 3 * HN, dtype=f32), empty(3 * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)

@@ -43,8 +43,9 @@ import torch
 
 from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda.attention_models import (
-    dense_core_grad, rounded, rows_attend,
+    dense_core_grad, exact_product, rounded, rows_attend,
 )
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import float_product, int8_product
@@ -240,14 +241,16 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
     over a sequence's keys with float32 sums and no tiles; rounds where the
     kernels round (``dense_core_grad``; dq before and after the scale, the
     global rows' dq after it, dk and dv once). The banded rows' cotangent is
-    zero on global rows. Returns (dq, dk, dv) and with glob_qkv (dqg, dkg,
-    dvg), each (B, L, nh, hd) in q's dtype (dqg zero beyond the global
-    rows)."""
+    zero on global rows. The band's and global columns' products go through
+    ``attention_models.core_product``, the global rows' (whose kernels stay
+    on the CUDA cores) are exact. Returns (dq, dk, dv) and with glob_qkv
+    (dqg, dkg, dvg), each (B, L, nh, hd) in q's dtype (dqg zero beyond the
+    global rows)."""
     dt, dev = q.dtype, q.device
     B, nh, L, hd = q.shape
     C, kp = window // 2, 1.0 - dropout_rate
     outs = [torch.zeros(B, nh, L, hd, device=dev) for _ in range(3 if glob_qkv is None else 6)]
-    tr = lambda t: t.transpose(-1, -2)
+    tr, mm = lambda t: t.transpose(-1, -2), am.core_product
     for b in range(B):
         nv, ng = int(n_valid[b]), int(n_glob[b])
         qb, kb, vb = (t[b].float() for t in (q, k, v))
@@ -255,11 +258,12 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
         dcl = dc.clone()
         dcl[:, :ng] = 0.0
         kd = None if keep is None else _sliding_dense_keep(keep, b, L, C, ng)
-        ds, pe = dense_core_grad(qb @ tr(kb), dcl @ tr(vb), sliding_model_allowed(L, C, nv, ng, dev),
-                                 kd, None if stats is None else stats[:, b], dt, kp)
-        outs[0][b] = rounded(rounded(ds @ kb, dt) * sm_scale, dt)
-        outs[1][b] = rounded(tr(ds) @ qb, dt)
-        outs[2][b] = rounded(tr(pe) @ dcl, dt)
+        ds, pe = dense_core_grad(mm(qb, tr(kb)), mm(dcl, tr(vb)),
+                                 sliding_model_allowed(L, C, nv, ng, dev), kd,
+                                 None if stats is None else stats[:, b], dt, kp)
+        outs[0][b] = rounded(rounded(mm(ds, kb), dt) * sm_scale, dt)
+        outs[1][b] = rounded(mm(tr(ds), qb), dt)
+        outs[2][b] = rounded(mm(tr(pe), dcl), dt)
         if glob_qkv is None or ng == 0:
             continue
         qg, kg, vg = (t[b].float() for t in glob_qkv)
@@ -311,7 +315,8 @@ def sliding_rows_model(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, dctx=
     reads it, also rowsum(dp p_eff). Dense over a sequence's keys with
     float32 sums and no tiles; e rounded where the kernels round it
     (``rows_exponent``, against the row's true maximum), ctx rounded to
-    ``ctx_dtype`` (q's dtype by default). Returns ctx (B, L, nh, hd) and the
+    ``ctx_dtype`` (q's dtype by default); the band rows' products through
+    ``attention_models.core_product``. Returns ctx (B, L, nh, hd) and the
     row statistics (3, B, nh, L) float32 = (m, D, rowsum(dp p_eff)) of the
     band rows (-inf, 0, 0 for a row with no allowed key; rs zero without
     dctx)."""
@@ -328,10 +333,10 @@ def sliding_rows_model(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, dctx=
         if dctx is not None:
             dcl = dctx[b].float().transpose(0, 1).clone()  # (nh, L, hd)
             dcl[:, :ng] = 0.0
-            dp = dcl @ tr(vb)
+            dp = am.core_product(dcl, tr(vb))
         kd = None if keep is None else _sliding_dense_keep(keep, b, L, C, ng)
-        c, m, D, rs = rows_attend(qb @ tr(kb), vb, sliding_model_allowed(L, C, nv, ng, dev), kd,
-                                  dt, kp, dp)
+        c, m, D, rs = rows_attend(am.core_product(qb, tr(kb)), vb,
+                                  sliding_model_allowed(L, C, nv, ng, dev), kd, dt, kp, dp)
         ctx[b], stats[0, b], stats[1, b] = c, m, D
         if rs is not None:
             stats[2, b] = rs
@@ -355,8 +360,10 @@ def sliding_global_rows_model(qg, kg, vg, n_valid, n_glob, *, sm_scale: float = 
     (``rows_attend``), ctx rounded to ``ctx_dtype`` (qg's dtype by default).
     With ``dctx`` (B, L, nh, hd) also the statistics (m, D, rowsum(dp
     p_eff)) and dqg = round((dS . kg) sm_scale) with dS from
-    ``dense_core_grad`` on those statistics. Dense over the keys with float32
-    sums. Returns ctx (B, G, nh, hd), the statistics (3, B, nh, G) float32
+    ``dense_core_grad`` on those statistics. Dense over the keys with exact
+    float32 products (``attention_models.exact_product``: the kernel runs
+    them on the CUDA cores). Returns ctx (B, G, nh, hd), the statistics (3,
+    B, nh, G) float32
     and dqg (B, G, nh, hd) in qg's dtype (the last two None without dctx),
     zero on rows g >= n_glob."""
     dt, dev = qg.dtype, qg.device
@@ -375,7 +382,7 @@ def sliding_global_rows_model(qg, kg, vg, n_valid, n_glob, *, sm_scale: float = 
         s, allowed = q @ tr(k), sliding_global_allowed(L, nv, ng, dev)
         kb = None if keep is None else keep[b][:, :ng]
         dp = None if dctx is None else dctx[b, :ng].float().transpose(0, 1) @ tr(v)
-        c, m, D, rs = rows_attend(s, v, allowed, kb, dt, kp, dp)
+        c, m, D, rs = rows_attend(s, v, allowed, kb, dt, kp, dp, product=exact_product)
         ctx[b, :, :ng] = c
         if dctx is None:
             continue
@@ -551,10 +558,11 @@ def sliding_train_fwd(hidden, mask, glob, seed, w, bo, *, num_heads: int, window
 
 
 def sliding_ds_elements(B: int, nh: int, L: int, window: int) -> int:
-    """bf16 elements of the dS tiles that the bf16 backward's dk/dv pass
-    writes once for its dq pass: a (64, 64) tile for each of the
-    band_tiles(C) band tiles and the global-column tile of every 64-row query
-    tile (csrc/train_sliding.cu sliding_ds_tiles)."""
+    """Elements, in the compute dtype (bf16 or float32), of the dS tiles that
+    the backward's dk/dv pass writes once for its dq pass: a (64, 64) tile
+    for each of the band_tiles(C) band tiles and the global-column tile of
+    every 64-row query tile (csrc/train_sliding.cu sliding_ds_tiles); 251 MB
+    in bf16 and 503 MB in float32 at B=8, L=2048, 12 heads, window 512."""
     band_tiles = (64 + 2 * (window // 2) + 63) // 64
     return B * nh * -(-L // 64) * (band_tiles + 1) * 64 * 64
 
@@ -571,8 +579,9 @@ def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window:
     Hn without global rows); and those its gradient kernels read: qkv (3, B,
     nh, L, hd), gkv (2, B, nh, L, hd), qg (B, nh, G, hd) (None without global
     rows), the row statistics stats (3, B, nh, L) and gstats (3, B, nh, G)
-    and counts (B, 2) (``sliding_core_model_dproj``). In bf16 the dk/dv
-    pass stores dS in a buffer of ``sliding_ds_elements`` for the dq pass.
+    and counts (B, 2) (``sliding_core_model_dproj``). The dk/dv pass
+    stores dS in a buffer of ``sliding_ds_elements`` (the compute dtype) for
+    the dq pass.
     ``sliding_train_bwd.launches`` counts its launches."""
     B, L, H = hidden.shape
     HN = w["wo"].shape[0]
@@ -593,7 +602,7 @@ def sliding_train_bwd(hidden, mask, glob, seed, w, g, *, num_heads: int, window:
         gstats=empty(3, B, num_heads, G, dtype=f32) if global_rows else None,
         qg=empty(B, num_heads, G, hd) if global_rows else None, dproj=empty(B * L, slots * HN),
     )
-    ds = empty(sliding_ds_elements(B, num_heads, L, window)) if dt == torch.bfloat16 else None
+    ds = empty(sliding_ds_elements(B, num_heads, L, window))
     dx = torch.empty_like(hidden)
     dw_all, db_all = empty(H, slots * HN, dtype=f32), empty(slots * HN, dtype=f32)
     dwo, dbo = empty(HN, H, dtype=f32), empty(H, dtype=f32)

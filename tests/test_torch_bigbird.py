@@ -41,6 +41,7 @@ CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the gradient kernels' card limit)
+from test_torch_sliding import _tf32x3_everywhere  # noqa: E402
 
 B, H, NH, BLOCK, G, R = 2, 32, 2, 8, 2, 3
 HD = H // NH
@@ -425,6 +426,129 @@ def test_explicit_backward_with_model_core_matches_jax_kernel_vjp_in_bf16():
                                    atol=BF16_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
 
 
+# ------------------------------- the float32 cores on the 3xTF32 model (CPU)
+
+
+@pytest.mark.parametrize("L,n_valid,r", [(64, 45, 3), (64, 50, 0)])
+def test_float32_models_on_the_tf32x3_model_match_jax_kernel_vjp(L, n_valid, r):
+    """Row 13's float32 rounding models (bigbird_rows_model,
+    bigbird_core_bwd_model), their products on the 3xTF32 model, assembled
+    into the block with its projections on the same model: the output
+    (bigbird_rows_model on the projections, then the out projection) and the
+    explicit backward with its core's gradient from the model (model_core)
+    against JAX's bigbird_attention_block_train and its VJP (interpret
+    mode, rate 0) in float32, within 1e-5 of each output's largest magnitude
+    (real rows of the output)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_bigbird import bigbird_attention_block_train as jt
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tbl
+
+    inp = _inputs(B, L, H, NH, seed=L + n_valid + 71, n_valid=n_valid)
+    kw = dict(block_size=BLOCK, num_global_blocks=G, num_random_blocks=r, pattern_seed=4)
+    mask = jnp.asarray(inp["attention_mask"])
+    out, vjp = jax.vjp(lambda h, *p: jt(h, mask, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                        dropout_rate=0.0, interpret=True, **kw),
+                       *(jnp.asarray(inp[k]) for k in ARGS))
+    want = [out, *vjp(jnp.asarray(inp["cotangent"]))]
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    sm, tables = HD**-0.5, ba.bigbird_tables(L // BLOCK, G, r, 4, "cpu")
+    heads = lambda z: z.transpose(1, 2)
+    with chip_smoke.planted(_tf32x3_everywhere()):
+        p = tbl.backward_product(t["hidden"].reshape(-1, H), t["qkv_kernel"].reshape(H, -1))
+        p = (p + t["qkv_bias"].reshape(-1)).reshape(B, L, 3, NH, HD)
+        ctx, _ = tb.bigbird_rows_model(heads(p[:, :, 0] * sm), heads(p[:, :, 1]),
+                                       heads(p[:, :, 2]), t["attention_mask"].sum(1), tables,
+                                       block_size=BLOCK)
+        o = tbl.backward_product(ctx.reshape(B * L, -1), t["out_kernel"].reshape(-1, H))
+        got = [(o + t["out_bias"]).reshape(B, L, H)] + list(tb.bigbird_train_bwd_plain(
+            t["hidden"], t["attention_mask"], *(t[k] for k in ARGS[1:4]), t["cotangent"],
+            sm_scale=sm, model_core=True, **kw))
+    live = inp["attention_mask"].astype(bool)
+    got[0], want[0] = got[0].numpy()[live], np.asarray(want[0])[live]
+    for name, g, w in zip(("out",) + ARGS, got, want):
+        g = np.asarray(g)
+        w = np.asarray(w).reshape(g.shape)
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("gate", ["rows", "dproj"])
+def test_float32_core_gates_reject_plain_tf32(gate):
+    """chip_smoke's float32 gates of row 13's cores, fed outputs whose core
+    products are exact float32 (they differ from the 3xTF32 model by float32
+    rounding, as the kernels' sums do), pass them and reject
+    chip_smoke.F32_CORE_FAULT (plain TF32 in the model's core products) and
+    the model with a random key block dropped, at L=128 in blocks of 16 (2
+    global, 3 random), rate 0.1: the rows kernel's ctx and statistics
+    (ROWS_TOL["float32"], check_rows with f32) and the gradient kernels'
+    dproj (F32_BWD_CORE_TOL, check_f32_backward_cores). Each check raises
+    where it accepts a fault."""
+    Lm, C, nh, hd = 128, 16, 2, 64
+    sm = hd**-0.5
+    rng = np.random.default_rng(73)
+    f = lambda *s, scale=1.0: torch.from_numpy(rng.normal(size=s).astype(np.float32) * scale)
+    n_valid = torch.tensor([Lm, 100])
+    q, k, v = (f(2, nh, Lm, hd, scale=sc) for sc in (sm, 1.0, 1.0))
+    dctx = f(2, Lm, nh, hd) * (torch.arange(Lm)[None] < n_valid[:, None])[..., None, None]
+    tables = ba.bigbird_tables(Lm // C, G, R, 4, "cpu")
+    keep = tb.bigbird_keep_masks(torch.tensor([7], dtype=torch.int32), 2, nh, Lm, C, tables.G,
+                                 tables.R, 0.1)
+    if gate == "rows":
+        model = lambda: tb.bigbird_rows_model(q, k, v, n_valid, tables, block_size=C, dctx=dctx,
+                                              dropout_rate=0.1, keep=keep)
+        gated = chip_smoke.check_rows("bigbird_rows float32", "bigbird_rows", model(), model,
+                                      f32=True)
+        assert set(gated["faults"]) == {chip_smoke.ROWS_FAULTS[1], chip_smoke.F32_CORE_FAULT}
+    else:
+        model = lambda: torch.stack(tb.bigbird_core_bwd_model(
+            q, k, v, dctx, n_valid, tables, block_size=C, sm_scale=sm, dropout_rate=0.1,
+            keep=keep), 2).reshape(2 * Lm, -1)
+        gated = chip_smoke.check_f32_backward_cores("bigbird_train_bwd", model(), model, nh * hd)
+        assert gated["reading"] <= chip_smoke.F32_BWD_CORE_TOL[0] and len(gated["faults"]) == 2
+
+
+def test_float32_forward_and_tol_gates_reject_plain_tf32():
+    """Kernel 8's and row 13's float32 gates on their plain versions, fed the
+    plain versions with exact float32 products: F32_FWD_TOL with the core on
+    the 3xTF32 model (check_f32_forward with core) rejects
+    chip_smoke.F32_CORE_FAULT, and so does F32_TOL on row 13's output and
+    gradients against autograd of its plain version with the fault in the
+    core's products, forward and backward (f32_tol_fault), at L=128 in
+    blocks of 16 (2 global, 3 random), rate 0.1."""
+    Lm, Hm, nh, C = 128, 64, 2, 16
+    inp = _inputs(2, Lm, Hm, nh, seed=75, n_valid=100)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    tables = ba.bigbird_tables(Lm // C, G, R, 4, "cpu")
+    keep = tb.bigbird_keep_masks(torch.tensor([75], dtype=torch.int32), 2, nh, Lm, C, tables.G,
+                                 tables.R, 0.1)
+    pattern = dict(block_size=C, num_global_blocks=G, num_random_blocks=R)
+    live = t["attention_mask"].bool()
+    blk = lambda **ln: bb.bigbird_block_plain(t["hidden"], t["attention_mask"],
+                                              *(t[k] for k in ARGS[1:]), **pattern, seed=4,
+                                              sm_scale=(Hm // nh)**-0.5, **ln)[live]
+    ln = dict(ln_scale=t["ln_scale"], ln_bias=t["ln_bias"])
+    gated = chip_smoke.check_f32_forward("bigbird_attention_block",
+                                         {"out": blk(**ln), "projection": blk()},
+                                         lambda: {"out": blk(**ln), "projection": blk()},
+                                         core=True)
+    assert gated["core_fault_excess"] > 1
+
+    def run(patches):
+        leaves = [t[k].detach().requires_grad_() for k in ARGS]
+        with chip_smoke.planted(patches):
+            out = tb.bigbird_train_plain(leaves[0], t["attention_mask"], *leaves[1:], **pattern,
+                                         pattern_seed=4, sm_scale=(Hm // nh)**-0.5,
+                                         dropout_rate=0.1, keep=keep)
+            return [out, *torch.autograd.grad(out, leaves, t["cotangent"])]
+
+    got = run([])
+    gated = chip_smoke.f32_tol_fault(got, run(chip_smoke.core_products(chip_smoke.plain_tf32)),
+                                     ("out",) + ARGS, "bigbird_train")
+    assert min(gated.values()) > 1
+
+
 # ------------------------------------------------------------------ dropout
 
 
@@ -681,3 +805,82 @@ def test_bigbird_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, Bc
         print(f"  {fault}: {bad}")
         assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
 
+
+# float32 (3xTF32) cases (B, L, H, nh, block, R, n_valid of the padded
+# rows): L not a multiple of 64 (7 blocks of 32), blocks of 96 (a block spans
+# two tiles, the last one short) and 16 (head dim 16), head dims 64 and 128,
+# with 0 and 3 random blocks
+F32_CARD_SHAPES = [(2, 224, 128, 2, 32, 3, 150), (2, 384, 128, 2, 96, 0, 250),
+                   (2, 192, 64, 4, 16, 3, 150), (2, 512, 256, 2, 64, 3, 300),
+                   (2, 1024, 128, 2, 64, 0, 700)]
+
+
+def _f32_backward(cuda, Bc, Lc, Hc, nh, C, r, nv, rate, seed):
+    """Two float32 backwards of the block on the card: (their buffers, the
+    seed, the tables, the keep masks)."""
+    inp = _inputs(Bc, Lc, Hc, nh, seed=seed, n_valid=nv)
+    t = _card_tensors(inp, cuda, torch.float32)
+    w = bb.card_weights(t["qkv_kernel"], t["qkv_bias"], t["out_kernel"], torch.float32)
+    dseed = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    tables = ba.bigbird_tables(Lc // C, 2, r, 6, cuda)
+    runs = [{}, {}]
+    for bufs in runs:
+        tb.bigbird_train_bwd(t["hidden"], t["attention_mask"], dseed, w, t["cotangent"], tables,
+                             num_heads=nh, block_size=C, sm_scale=(Hc // nh)**-0.5,
+                             dropout_rate=rate, buffers=bufs)
+    keep = (tb.bigbird_keep_masks(dseed, Bc, nh, Lc, C, tables.G, tables.R, rate)
+            if rate else None)
+    return runs, dseed, tables, keep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fwd", "stats"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,C,r,nv", F32_CARD_SHAPES)
+def test_float32_bigbird_rows_kernel_matches_tf32x3_model_on_card(cuda, mode, rate, Bc, Lc, Hc,
+                                                                   nh, C, r, nv):
+    """float32 (3xTF32): bigbird_rows_kernel alone on the q, k, v, counts and
+    dctx of a backward of the block against bigbird_rows_model on the
+    3xTF32 model within chip_smoke.ROWS_TOL (check_rows, which also fails
+    where the model with a key block dropped or with F32_CORE_FAULT
+    passes); the statistics pass equals the backward's own statistics and
+    ctx; two runs give the same bits."""
+    hd = Hc // nh
+    (bufs, _), seed, tables, keep = _f32_backward(cuda, Bc, Lc, Hc, nh, C, r, nv, rate,
+                                                  Lc + C + 19)
+    qkv, counts = bufs["qkv"], bufs["counts"]
+    dctx = bufs["dctx"].reshape(Bc, Lc, Hc) if mode == "stats" else None
+    runs = [tb.bigbird_rows(qkv, counts, seed, tables, block_size=C, dctx=dctx,
+                            dropout_rate=rate) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    if mode == "stats":
+        assert torch.equal(runs[0][1], bufs["stats"])
+        assert torch.equal(runs[0][0].reshape(Bc * Lc, -1), bufs["ctx"])
+    model = lambda: tb.bigbird_rows_model(
+        qkv[0], qkv[1], qkv[2], counts.long()[:, 0], tables, block_size=C, dropout_rate=rate,
+        keep=keep, dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd))
+    got = runs[0] if dctx is not None else (runs[0][0], None)
+    wanted = (lambda: model()) if dctx is not None else (lambda: (model()[0], None))
+    chip_smoke.check_rows(f"bigbird_rows float32 {Bc}x{Lc} block {C} R {r} {mode} rate {rate}",
+                          "bigbird_rows", got, wanted, f32=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,C,r,nv", F32_CARD_SHAPES)
+def test_float32_bigbird_gradient_kernels_match_tf32x3_model_on_card(cuda, rate, Bc, Lc, Hc, nh,
+                                                                      C, r, nv):
+    """float32 (3xTF32): the gradient kernels' dproj (bigbird_dq,
+    bigbird_dkv on float32 dS tiles) against bigbird_core_model_dproj on the
+    3xTF32 model within chip_smoke.F32_BWD_CORE_TOL in each slot
+    (check_f32_backward_cores, which also fails where F32_CORE_FAULT or the
+    dropped key block passes); two runs give the same bits."""
+    hd = Hc // nh
+    runs, _, tables, keep = _f32_backward(cuda, Bc, Lc, Hc, nh, C, r, nv, rate, Lc + C + 23)
+    assert torch.equal(runs[0]["dproj"], runs[1]["dproj"])
+    model = lambda: tb.bigbird_core_model_dproj(runs[0], tables, block_size=C,
+                                                sm_scale=hd**-0.5, dropout_rate=rate, keep=keep)
+    chip_smoke.check_f32_backward_cores(
+        "bigbird_train_bwd", runs[0]["dproj"], model, Hc,
+        f"bigbird_train_bwd {Bc}x{Lc} block {C} R {r} rate {rate}")

@@ -739,19 +739,19 @@ def test_sass_verdict_on_canned_counts():
         f"{ns}18global_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_": [0, 0, 112],
         f"{ns}18global_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 2, 0],
         f"{stack}14band_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
-        f"{stack}14band_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}14band_dq_kernelIfLi64EEEvPKT_": [0, 0, 96],
         f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
-        f"{stack}15band_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}15band_dkv_kernelIfLi64EEEvPKT_": [0, 0, 144],
         f"{stack}17bigbird_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
-        f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_": [0, 0, 96],
         f"{stack}18bigbird_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
-        f"{stack}18bigbird_dkv_kernelIfLi64EEEvPKT_": [0, 0, 0],
+        f"{stack}18bigbird_dkv_kernelIfLi64EEEvPKT_": [0, 0, 144],
         f"{ns}16band_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 96],
         f"{ns}16band_rows_kernelI{bf}Li64ELb0EfEEvPKT_": [0, 0, 96],
         f"{ns}16band_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_": [0, 0, 128],
-        f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 0, 0],
+        f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 0, 72],
         f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 96],
-        f"{ns}19bigbird_rows_kernelIfLi64ELb1EfEEvPKT_": [0, 0, 0],
+        f"{ns}19bigbird_rows_kernelIfLi64ELb1EfEEvPKT_": [0, 0, 96],
         f"{stack}16attn_rows_kernelI{bf}Li64ELb0EEEvPKT_": [0, 0, 96],
         f"{stack}16attn_rows_kernelI{bf}Li64ELb1EEEvPKT_": [0, 0, 128],
         f"{stack}16attn_rows_kernelIfLi64ELb0EEEvPKT_": [0, 0, 72],
@@ -799,15 +799,25 @@ def test_sass_verdict_on_canned_counts():
     found = chip_smoke.sass_verdict({k: v for k, v in good.items()
                                      if k != f"{ns}15qkv_proj_kernelIfEEvPKT_"})
     assert found == ["cuobjdump -sass shows no float32 instantiation of qkv_proj_kernel"], found
-    # the training backwards' gradient kernels: bf16 without HMMA, float32
-    # with it
+    # the Longformer and BigBird backwards' gradient kernels and rows
+    # kernels, on the tensor cores in both dtypes: a bf16 instantiation (the
+    # W8A8 mode's float32 ctx among them) without HMMA, a float32 one without
+    # it (as the SIMT bodies left them, the old verdict's passing case), or a
+    # float32 one missing
     assert with_counts(f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_", [0, 0, 0])
-    assert with_counts(f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_", [0, 0, 8])
-    # the rows kernels: bf16 (the W8A8 mode's float32 ctx among them) without
-    # HMMA, float32 with it
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 0, 0])
     assert with_counts(f"{ns}19bigbird_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_", [0, 0, 0])
-    assert with_counts(f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_", [0, 0, 8])
+    for name in (f"{stack}14band_dq_kernelIfLi64EEEvPKT_", f"{stack}15band_dkv_kernelIfLi64EEEvPKT_",
+                 f"{stack}17bigbird_dq_kernelIfLi64EEEvPKT_",
+                 f"{stack}18bigbird_dkv_kernelIfLi64EEEvPKT_",
+                 f"{ns}16band_rows_kernelIfLi64ELb0EfEEvPKT_",
+                 f"{ns}19bigbird_rows_kernelIfLi64ELb1EfEEvPKT_"):
+        found = with_counts(name, [0, 0, 0])
+        assert found == [f"{name} has no HMMA: its float32 products do not run on the tensor "
+                         "cores"], found
+    found = chip_smoke.sass_verdict({k: v for k, v in good.items()
+                                     if "bigbird_dkv_kernelIf" not in k})
+    assert found == ["cuobjdump -sass shows no float32 instantiation of bigbird_dkv_kernel"], found
     # row 10's cores and the dense core, on the tensor cores in both dtypes:
     # either instantiation without HMMA (the float32 ones as the SIMT bodies
     # left them, the old verdict's passing case), or a float32 one missing
@@ -830,11 +840,10 @@ def test_sass_verdict_on_canned_counts():
         assert with_counts(name, [0, 0, 0]), name
     found = with_counts(f"{stack}15stack_core_itemIfLi64EEEvPKT_", [0, 0, 0])
     assert any("encoder_stack_i8_kernelIf" in m for m in found), found
-    # the float32 band, BigBird and global-rows bodies stay on the CUDA
-    # cores: a float32 band or BigBird kernel, global_rows_kernel or
-    # global_kv_grad_kernel holding HMMA fails
-    assert with_counts(f"{stack}15band_dkv_kernelIfLi64EEEvPKT_", [0, 0, 8])
-    assert with_counts(f"{stack}21global_kv_grad_kernelIfLi64EEEvPKT_", [0, 0, 4])
+    # the float32 Longformer global rows stay on the CUDA cores:
+    # global_kv_grad_kernel (or global_rows_kernel, below) holding HMMA fails
+    found = with_counts(f"{stack}21global_kv_grad_kernelIfLi64EEEvPKT_", [0, 0, 4])
+    assert len(found) == 1 and "HMMA outside" in found[0], found
     # the global rows: bf16 (the W8A8 mode's float32 ctx and the statistics
     # pass among them) without HMMA, float32 with it
     assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 2, 0])
@@ -844,6 +853,19 @@ def test_sass_verdict_on_canned_counts():
     assert with_counts(f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i", [0, 0, 4])
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_", [0, 3, 128])
     assert with_counts(f"{ns}18gemm_act_i8_kernelI{bf}EEvPKa", [0, 0, 0])
+
+
+def test_sass_rule_puts_the_band_and_bigbird_cores_on_the_tensor_cores():
+    """The SASS rule's lists: the band and BigBird rows and gradient kernels
+    need HMMA in both dtypes (CORE_HMMA_KERNELS), the Longformer global rows
+    in bf16 only (HMMA_KERNELS), and global_kv_grad_kernel, on no list,
+    none at all."""
+    six = ("band_rows_kernel", "bigbird_rows_kernel", "band_dq_kernel", "band_dkv_kernel",
+           "bigbird_dq_kernel", "bigbird_dkv_kernel")
+    assert set(six) <= set(chip_smoke.CORE_HMMA_KERNELS)
+    assert chip_smoke.HMMA_KERNELS == ("global_rows_kernel",)
+    lists = chip_smoke.HMMA_KERNELS + chip_smoke.CORE_HMMA_KERNELS + chip_smoke.GEMM_HMMA_KERNELS
+    assert "global_kv_grad_kernel" not in lists
 
 
 def test_core_gate_limits_match_chip_smoke():

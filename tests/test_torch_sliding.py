@@ -476,6 +476,166 @@ def test_explicit_backward_with_model_core_matches_jax_kernel_vjp_in_bf16(global
                                    atol=BF16_RTOL * np.abs(w).max() + 1e-12, err_msg=name)
 
 
+# ------------------------------- the float32 cores on the 3xTF32 model (CPU)
+
+
+def _tf32x3_everywhere():
+    """planted() patches: every float32 product of the forward, the explicit
+    backward and the cores' models on the 3xTF32 model, as the card's
+    float32 kernels take them."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import tf32x3_product
+
+    return (chip_smoke.float_products(chip_smoke.tf32x3_model)
+            + chip_smoke.core_products(chip_smoke.tf32x3_model)
+            + [(tb, "backward_product", None, lambda real, a, b: tf32x3_product(a, b))])
+
+
+def _f32_model_block(inp, global_rows):
+    """Row 12's float32 rounding models assembled into the block, every
+    product on the 3xTF32 model: the output from sliding_rows_model (the
+    global rows from sliding_global_rows_model over it) on the projections,
+    then the out projection; the gradients from the explicit backward with
+    its core's gradient from sliding_core_bwd_model (model_core)."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    Bm, Lm, Hm = t["hidden"].shape
+    nh, hd = t["qkv_kernel"].shape[2:]
+    G, sm = sb.global_columns(16, Lm), hd**-0.5
+    kernels = [t["qkv_kernel"]] + ([t["gqkv_kernel"]] if global_rows else [])
+    biases = [t["qkv_bias"]] + ([t["gqkv_bias"]] if global_rows else [])
+    w_all = torch.cat([k.reshape(Hm, -1) for k in kernels], 1)
+    b_all = torch.cat([b.reshape(-1) for b in biases])
+    heads = lambda z: z.transpose(1, 2)
+    with chip_smoke.planted(_tf32x3_everywhere()):
+        p = (tb.backward_product(t["hidden"].reshape(-1, Hm), w_all) + b_all)
+        p = p.reshape(Bm, Lm, -1, nh, hd)
+        glob = (heads(p[:, :G, 3] * sm), heads(p[:, :, 4]), heads(p[:, :, 5])) if global_rows \
+            else None
+        ctx, _ = ts.sliding_rows_model(
+            heads(p[:, :, 0] * sm), heads(p[:, :, 1]), heads(p[:, :, 2]), glob,
+            *sb._counts(t["attention_mask"], t["global_mask"], G, global_rows), window=WINDOW)
+        out = tb.backward_product(ctx.reshape(Bm * Lm, -1), t["out_kernel"].reshape(-1, Hm))
+        out = (out + t["out_bias"]).reshape(Bm, Lm, Hm)
+        grads = ts.sliding_train_bwd_plain(
+            t["hidden"], t["attention_mask"], t["global_mask"], *(t[k] for k in ARGS[1:6]),
+            t["cotangent"], sm_scale=sm, window=WINDOW, max_globals=16, global_rows=global_rows,
+            model_core=True)
+    return [out] + list(grads)
+
+
+@pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
+def test_float32_models_on_the_tf32x3_model_match_jax_kernel_vjp(global_rows):
+    """Row 12's float32 rounding models (sliding_rows_model,
+    sliding_core_bwd_model), their products on the 3xTF32 model, assembled
+    into the block with its projections on the same model: the output and
+    its VJP against JAX's sliding_attention_block_train (interpret mode,
+    rate 0) in float32, within 1e-5 of each output's largest magnitude (real
+    rows of the output)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_sliding import sliding_attention_block_train as jax_train
+
+    inp = _inputs(B, L, H, NH, seed=61, global_rows=global_rows)
+    mask, glob = jnp.asarray(inp["attention_mask"]), jnp.asarray(inp["global_mask"])
+    out, vjp = jax.vjp(
+        lambda h, *p: jax_train(h, mask, glob, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                dropout_rate=0.0, interpret=True, window=WINDOW, max_globals=16,
+                                global_rows=global_rows),
+        *(jnp.asarray(inp[k]) for k in ARGS))
+    want = [out, *vjp(jnp.asarray(inp["cotangent"]))]
+    got = _f32_model_block(inp, global_rows)
+    live = inp["attention_mask"].astype(bool)
+    got[0], want[0] = got[0].numpy()[live], np.asarray(want[0])[live]
+    for name, g, w in zip(("out",) + ARGS, got, want):
+        g = np.asarray(g)
+        w = np.asarray(w).reshape(g.shape)
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+def _f32_gate_case(rate=0.1, Bm=2, Lm=128, nh=2, hd=64, window=32, seed=63):
+    """float32 q (scaled), k, v, qg, kg, vg (B, nh, L, hd), dctx (B, L, nh,
+    hd), the counts (CLS global; the second row padded to 100) and the keep
+    masks of row 12 at L=128, window 32."""
+    G, sm = sb.global_columns(16, Lm), hd**-0.5
+    n_valid, n_glob = torch.tensor([Lm, 100]), torch.tensor([1, 1])
+    (q, k, v, qg, kg, vg), dctx = _core_leaves(Bm, Lm, nh, hd, seed, n_valid)
+    heads = lambda t, scale=1.0: (t.detach() * scale).transpose(1, 2)
+    keep = ts.sliding_keep_masks(torch.tensor([seed], dtype=torch.int32), Bm, nh, Lm, window, G,
+                                 rate)
+    return dict(q=heads(q, sm), k=heads(k), v=heads(v),
+                glob=(heads(qg, sm)[:, :, :G], heads(kg), heads(vg)), dctx=dctx, n_valid=n_valid,
+                n_glob=n_glob, window=window, sm=sm, keep=keep, rate=rate)
+
+
+@pytest.mark.parametrize("gate", ["rows", "dproj"])
+def test_float32_core_gates_reject_plain_tf32(gate):
+    """chip_smoke's float32 gates of row 12's cores, fed outputs whose core
+    products are exact float32 (they differ from the 3xTF32 model by float32
+    rounding, as the kernels' sums do), pass them and reject
+    chip_smoke.F32_CORE_FAULT (plain TF32 in the model's core products) and
+    the model with a key tile dropped, at L=128, window 32, rate 0.1: the
+    band rows kernel's ctx and statistics (ROWS_TOL["float32"], check_rows
+    with f32) and the gradient kernels' dproj (F32_BWD_CORE_TOL,
+    check_f32_backward_cores). Each check raises where it accepts a fault."""
+    c = _f32_gate_case()
+    Bm, nh, Lm, hd = c["q"].shape
+    if gate == "rows":
+        model = lambda: ts.sliding_rows_model(
+            c["q"], c["k"], c["v"], None, c["n_valid"], c["n_glob"], window=c["window"],
+            dctx=c["dctx"], dropout_rate=c["rate"], keep=c["keep"])
+        gated = chip_smoke.check_rows("band_rows float32", "band_rows", model(), model, f32=True)
+        assert set(gated["faults"]) == {chip_smoke.ROWS_FAULTS[1], chip_smoke.F32_CORE_FAULT}
+        assert chip_smoke.ROWS_TOL["float32"] == (5e-3, 1e-4)
+    else:
+        model = lambda: torch.stack(ts.sliding_core_bwd_model(
+            c["q"], c["k"], c["v"], c["glob"], c["dctx"], c["n_valid"], c["n_glob"],
+            window=c["window"], sm_scale=c["sm"], dropout_rate=c["rate"], keep=c["keep"]),
+            2).reshape(Bm * Lm, -1)
+        gated = chip_smoke.check_f32_backward_cores("sliding_train_bwd", model(), model, nh * hd)
+        assert gated["reading"] <= chip_smoke.F32_BWD_CORE_TOL[0] and len(gated["faults"]) == 2
+
+
+def test_float32_forward_and_tol_gates_reject_plain_tf32():
+    """Kernel 7's and row 12's float32 gates on their plain versions, fed the
+    plain versions with exact float32 products: F32_FWD_TOL with the core on
+    the 3xTF32 model (check_f32_forward with core) rejects
+    chip_smoke.F32_CORE_FAULT, and so does F32_TOL on row 12's output and
+    gradients against autograd of its plain version with the fault in the
+    core's products, forward and backward (f32_tol_fault), at L=128, window
+    32, CLS global, rate 0.1."""
+    Bm, Lm, Hm, nh, window = 2, 128, 64, 2, 32
+    inp = _inputs(Bm, Lm, Hm, nh, seed=65)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    keep = ts.sliding_keep_masks(torch.tensor([65], dtype=torch.int32), Bm, nh, Lm, window,
+                                 sb.global_columns(16, Lm), 0.1)
+    kw = dict(sm_scale=(Hm // nh)**-0.5, window=window, max_globals=16)
+    live = t["attention_mask"].bool()
+    blk = lambda **ln: sb.sliding_block_plain(t["hidden"], t["attention_mask"], t["global_mask"],
+                                              *(t[k] for k in ARGS[1:]), **kw, **ln)[live]
+    ln = dict(ln_scale=t["ln_scale"], ln_bias=t["ln_bias"])
+    gated = chip_smoke.check_f32_forward("sliding_attention_block",
+                                         {"out": blk(**ln), "projection": blk()},
+                                         lambda: {"out": blk(**ln), "projection": blk()},
+                                         core=True)
+    assert gated["core_fault_excess"] > 1
+
+    def run(patches):
+        leaves = [t[k].detach().requires_grad_() for k in ARGS]
+        with chip_smoke.planted(patches):
+            out = ts.sliding_train_plain(leaves[0], t["attention_mask"], t["global_mask"],
+                                         *leaves[1:], **kw, dropout_rate=0.1, keep=keep)
+            return [out, *torch.autograd.grad(out, leaves, t["cotangent"])]
+
+    got = run([])
+    gated = chip_smoke.f32_tol_fault(got, run(chip_smoke.core_products(chip_smoke.plain_tf32)),
+                                     ("out",) + ARGS, "sliding_train")
+    assert min(gated.values()) > 1
+
+
 # --------------------------------------------- the global rows alone (CPU)
 
 
@@ -969,6 +1129,85 @@ def test_sliding_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, Bc
         print(f"  {fault}: {bad}")
         assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
 
+
+
+# float32 (3xTF32) cases (B, L, H, nh, window, n_glob): L not a multiple of
+# 64 (240 with window 48, 176 with window 16 at head dim 16), windows 128
+# and 512 (head dims 64, 32 and 128), n_glob 0, 1 and 16
+F32_CARD_CASES = [(2, 240, 128, 2, 48, 1), (2, 176, 64, 4, 16, 16), (2, 384, 128, 2, 128, 16),
+                  (2, 320, 256, 8, 128, 0), (2, 1024, 256, 2, 512, 1)]
+
+
+def _f32_backward(cuda, Bc, Lc, Hc, nh, window, n_glob, rate, seed):
+    """Two float32 backwards of the block on the card (n_glob global tokens
+    on every row): (their buffers, the seed, the keep masks)."""
+    inp = _inputs(Bc, Lc, Hc, nh, seed=seed)
+    inp["global_mask"] = _masks(Bc, Lc, seed, n_globals=(n_glob,))[1]
+    t = _card_tensors(inp, cuda, torch.float32)
+    w = sb.card_weights(*(t[k] for k in ARGS[1:6]), torch.float32)
+    dseed = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    runs = [{}, {}]
+    for bufs in runs:
+        ts.sliding_train_bwd(t["hidden"], t["attention_mask"], t["global_mask"], dseed, w,
+                             t["cotangent"], num_heads=nh, window=window, max_globals=16,
+                             global_rows=True, sm_scale=(Hc // nh)**-0.5, dropout_rate=rate,
+                             buffers=bufs)
+    keep = (ts.sliding_keep_masks(dseed, Bc, nh, Lc, window, sb.global_columns(16, Lc), rate)
+            if rate else None)
+    return runs, dseed, keep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fwd", "stats"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,window,n_glob", F32_CARD_CASES)
+def test_float32_sliding_rows_kernel_matches_tf32x3_model_on_card(cuda, mode, rate, Bc, Lc, Hc,
+                                                                   nh, window, n_glob):
+    """float32 (3xTF32): band_rows_kernel alone on the q, k, v, counts and
+    dctx of a backward of the block against sliding_rows_model on the 3xTF32
+    model within chip_smoke.ROWS_TOL (check_rows, which also fails where the
+    model with its key tile dropped or with F32_CORE_FAULT passes); the
+    statistics pass equals the backward's own statistics; two runs give the
+    same bits."""
+    hd = Hc // nh
+    (bufs, _), seed, keep = _f32_backward(cuda, Bc, Lc, Hc, nh, window, n_glob, rate, Lc + 13)
+    qkv, counts = bufs["qkv"], bufs["counts"]
+    dctx = bufs["dctx"].reshape(Bc, Lc, Hc) if mode == "stats" else None
+    runs = [ts.sliding_rows(qkv, counts, seed, window=window, dctx=dctx, dropout_rate=rate)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    if mode == "stats":
+        assert torch.equal(runs[0][1], bufs["stats"])
+    n = counts.long()
+    model = lambda: ts.sliding_rows_model(
+        qkv[0], qkv[1], qkv[2], None, n[:, 0], n[:, 1], window=window, dropout_rate=rate,
+        keep=keep, dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd))
+    got = runs[0] if dctx is not None else (runs[0][0], None)
+    wanted = (lambda: model()) if dctx is not None else (lambda: (model()[0], None))
+    chip_smoke.check_rows(f"band_rows float32 {Bc}x{Lc} window {window} n_glob {n_glob} {mode} "
+                          f"rate {rate}", "band_rows", got, wanted, f32=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,window,n_glob", F32_CARD_CASES)
+def test_float32_sliding_gradient_kernels_match_tf32x3_model_on_card(cuda, rate, Bc, Lc, Hc, nh,
+                                                                      window, n_glob):
+    """float32 (3xTF32): the gradient kernels' dproj (band_dq, band_dkv on
+    float32 dS tiles, and the global rows' slots) against
+    sliding_core_model_dproj on the 3xTF32 model within
+    chip_smoke.F32_BWD_CORE_TOL in each slot (check_f32_backward_cores,
+    which also fails where F32_CORE_FAULT or the dropped key tile passes);
+    two runs give the same bits."""
+    hd = Hc // nh
+    runs, _, keep = _f32_backward(cuda, Bc, Lc, Hc, nh, window, n_glob, rate, Lc + 17)
+    assert torch.equal(runs[0]["dproj"], runs[1]["dproj"])
+    model = lambda: ts.sliding_core_model_dproj(runs[0], window=window, sm_scale=hd**-0.5,
+                                                dropout_rate=rate, keep=keep)
+    chip_smoke.check_f32_backward_cores(
+        "sliding_train_bwd", runs[0]["dproj"], model, Hc,
+        f"sliding_train_bwd {Bc}x{Lc} window {window} n_glob {n_glob} rate {rate}")
 
 
 GLOBAL_MODES = [("bf16", 0.0), ("bf16", 0.1), ("w8a8", 0.0), ("stats", 0.0), ("stats", 0.1)]

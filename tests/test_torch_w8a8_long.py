@@ -365,6 +365,41 @@ def test_bigbird_w8a8_planted_faults(fault):
         assert_close_w8a8(got[valid], want[valid])
 
 
+@pytest.mark.parametrize("trunk", ["sliding", "bigbird"])
+def test_on_card_rows_reads_the_rows_kernels_wrappers(monkeypatch, trunk):
+    """chip_smoke.on_card_rows sends the W8A8 blocks' float32 attention to the
+    rows kernels' wrappers (train_sliding.sliding_rows,
+    train_bigbird.bigbird_rows; on the CPU their rounding models, with exact
+    products): the plain W8A8 block in float32 through them agrees with the
+    plain one (the W8A8 check, float32; kernel 7's global rows from the plain
+    attention), each wrapper runs once, and bf16 is left alone."""
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    owner, name = (ts, "sliding_rows") if trunk == "sliding" else (tbb, "bigbird_rows")
+    calls = []
+    real = getattr(owner, name)
+    monkeypatch.setattr(owner, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    if trunk == "sliding":
+        h, mask, glob, w, ln = _sliding_case("float32")
+        plain = lambda h=h: sb.sliding_block_plain(h, mask, glob, *w, quantized=True,
+                                                   sm_scale=HD**-0.5, window=WINDOW,
+                                                   max_globals=16, **ln)
+    else:
+        t = {k: torch.from_numpy(v) for k, v in bigbird_inputs(B, L, H, NH, seed=29).items()}
+        mask, h = t["attention_mask"], t["hidden"]
+        plain = lambda h=h: bb.bigbird_block_plain(
+            h, mask, *(t[k] for k in BIGBIRD_ARGS), BLOCK, GB, RB, 3, HD**-0.5, quantized=True,
+            ln_scale=t["ln_scale"], ln_bias=t["ln_bias"])
+    want = plain()
+    got = chip_smoke.on_card_rows("float32", plain)
+    assert len(calls) == 1
+    valid = mask > 0
+    assert_close_w8a8(got[valid], want[valid])
+    chip_smoke.on_card_rows("bfloat16", lambda: plain(h.bfloat16()))
+    assert len(calls) == 1
+
+
 @pytest.mark.parametrize("fault", chip_smoke.CORE_MLP_FAULTS)
 def test_core_and_static_scale_planted_faults(fault):
     """2b with the per-row scale of row 2 W8A8; 1c with q and k scales over

@@ -36,6 +36,9 @@ With ``--dtype float32`` each process prints instead:
   the card's SM clock and power draw, and the device time of one call of
   each by kernel name as above, the global rows (``global_rows``) apart from
   the statistics pass;
+- ms of device time of the float32 global rows alone
+  (``rows_core_turns.global_rows_alone``: as kernel 7, row 12's forward and
+  its statistics pass, 1 and 16 global tokens, B=8 and B=2);
 - windows trained per second of the float32 Longformer recipe
   (``backward_gemm_turns.recipe_windows_per_s``: run_finetune at the CLI's
   default dtype, 3 optimizer steps of 4 micro-batches of 2 windows of 2048
@@ -43,8 +46,9 @@ With ``--dtype float32`` each process prints instead:
 - digests of what must not move: those of ``backward_gemm_turns.py`` (every
   bf16 and W8A8 output, the bf16 backwards included, and rows 10 and 11
   and kernel 9 in float32) but rows 12 and 13's float32 forwards and
-  backwards; and digests of rows 12 and 13's float32 dproj from two calls,
-  which may move but must be equal within this checkout.
+  backwards; and digests of rows 12 and 13's float32 dproj and of the
+  global rows alone from two calls, which may move but must be equal
+  within this checkout.
 
 Then it prints the mean of each checkout and whether each digest is the
 same in every run (rows 12 and 13's dproj: in the runs of this
@@ -66,6 +70,7 @@ import sys
 from pathlib import Path
 
 from backward_gemm_turns import GEMM_KERNELS, digest, smi, time_ms
+from rows_core_turns import global_rows_alone
 
 B, L, H, NH, HD, I = 32, 512, 768, 12, 64, 3072
 LB, LL, WINDOW, BLOCK = 8, 2048, 512, 64
@@ -224,6 +229,9 @@ def measure_f32(reps: int) -> dict:
             out[f"dproj row {row} float32 run {run}"] = digest(bufs["dproj"])
     del lhid, lcot
     torch.cuda.empty_cache()
+    out.update(global_rows_alone(randn(LB, LL, H), mask, sw, gqkv, seed, reps, w8a8=False,
+                                 n_globs=(1, 16)))
+    torch.cuda.empty_cache()
     with contextlib.redirect_stdout(sys.stderr):  # train_path's report
         out["recipe float32 windows per s"] = backward_gemm_turns.recipe_windows_per_s()
     return out
@@ -275,6 +283,11 @@ def main() -> int:
     for row in ("12", "13"):
         same[f"dproj row {row} {tag}, this checkout"] = len(
             {r[f"dproj row {row} {tag} run {run}"] for r in mine for run in "ab"}) == 1
+    for k in mine[0]:
+        if k.startswith("twice") and k.endswith(" run a"):
+            name = k[len("twice "):-len(" run a")]
+            same[f"{name}, this checkout"] = len(
+                {r[f"twice {name} run {run}"] for r in mine for run in "ab"}) == 1
     print(json.dumps({"same output in every run": same}))
     return 0 if all(same.values()) else 1
 

@@ -11,13 +11,12 @@
    cuobjdump -sass on the library and fails unless every int8 tile kernel
    (gemm_act, gemm_act_quant, qkv_proj, residual_ln and the W8A8 stack)
    holds IMMA, the tensor cores' int8 product, and no function but 1c's int8
-   attention core and the W8A8 global query holds IDP4A (__dp4a); every
-   bf16 instantiation of the Longformer global rows (global_rows, its W8A8
-   and statistics-pass instances among them) holds HMMA, the tensor cores'
-   product, and no float32 one does (global_kv_grad none at all); both the
+   attention core and the W8A8 global query holds IDP4A (__dp4a); both the
    bf16 and the float32 (3xTF32) instantiations of the dense attention core
    (attn_core_kernel), of row 10's cores (attn_rows, attn_dq, attn_dkv), of
-   the band and BigBird rows kernels and gradient kernels (dq and dkv), of
+   the band and BigBird rows kernels and gradient kernels (dq and dkv) and
+   the Longformer global rows (global_rows, its W8A8 and statistics-pass
+   instances among them; global_kv_grad holds none at all), of
    the W8A8 stack entry (or
    its core item), of the GEMM tile's kernels (gemm_bias_act, a weight read
    as stored or transposed, qkv_proj, gemm_bias_residual_ln, weight_grad,
@@ -116,10 +115,13 @@
    float32, with and without global rows, at dropout 0 and 0.1 (the kernels'
    three keep masks replayed); the keep fraction of each mask within 1e-3
    of 0.9; two backward runs bit-identical; kernel, plain and bound times.
-   In float32 (the band rows and gradient kernels on 3xTF32) the forwards
-   against their plain versions with every product, the cores' too, on the
-   3xTF32 model (F32_FWD_TOL), the backward's dproj against its rounding
-   model on that model (F32_BWD_CORE_TOL) at both rates, with and without
+   global_kv_grad_kernel's device time in the backward's split beside its
+   bound (gkv_ms, gkv_bound_ms), in both dtypes.
+   In float32 (the band and global rows and the gradient kernels on
+   3xTF32) the forwards against their plain versions with every product,
+   the cores' too, on the 3xTF32 model (F32_FWD_TOL), the backward's dproj
+   against its rounding model on that model (F32_BWD_CORE_TOL) at both
+   rates, with and without
    global rows, two runs' dproj bit-identical, the backward split by kernel
    name, and plain TF32 in the cores' products (F32_CORE_FAULT) failing
    each of those gates and F32_TOL (the output and gradients, by autograd
@@ -242,7 +244,16 @@
    failing, two launches the same bits; the kernel's device time beside
    its bound and SDPA's with the key-padding mask: global_ms,
    global_bound_ms and global_library_ms (and their _16 twins) of the
-   kernels line's rows 7, 7 W8A8 and 12.
+   kernels line's rows 7, 7 W8A8 and 12. Then the same in float32 (the
+   3xTF32 body, the keys of a (head, sequence) over a cluster of blocks) in
+   the four modes (kernel 7, kernel 7 W8A8 with float32 activations, row
+   12's forward and statistics pass) at n_glob 1 and 16 and at B=8 and the
+   recipe's B=2: qg within QG_F32_TOL (W8A8 bit for bit; the bias-free and
+   the plain TF32 query must fail), ctx and the statistics within
+   ROWS_TOL["float32"] and dqg within F32_BWD_CORE_TOL against the model on
+   the 3xTF32 products (F32_CORE_FAULT and the dropped key tile must fail),
+   two launches the same bits, the time beside the 3xTF32 bound and SDPA
+   float32's (the float32 rows' global_* keys, B=2 ending in _b2).
 21. Prints the serving runs, the Longformer, BigBird, MUG and W8A8
    long-context runs and the kernels as JSON lines, the card's name and
    power limit, and last {"ok": true, "device": {...}}.
@@ -638,8 +649,8 @@ def split_bound(rest, moved, n_bytes: int, dtype: str) -> dict:
     the forwards, the backwards' recomputed ones, those with a weight read
     transposed and the weight gradients) and ``rest`` in its attention
     cores: in float32 all of it at the 3xTF32 rate (every float32 attention
-    core runs 3xTF32 but the Longformer global rows, a small share priced
-    the same), with the bound of all of it on the CUDA cores beside
+    core runs 3xTF32 but global_kv_grad, a small share priced the same),
+    with the bound of all of it on the CUDA cores beside
     (``simt_bound_ms``); in bf16 all of it on the tensor cores."""
     if dtype != "float32":
         return bound(rest + moved, n_bytes, dtype)
@@ -1073,8 +1084,9 @@ def card_band_rows(real, q, k, v, glob_qkv, n_valid, n_glob, *, window, G, exp_d
                    dropout_rate=0.0, keep=None):
     """A planted() stand-in for sliding_block.sliding_attend at dropout 0:
     the card's own band rows kernel (train_sliding.sliding_rows) on the same
-    q, k, v (B, L, nh, hd), the global rows from the plain attention (their
-    float32 kernel sums on the CUDA cores), as float32 (B, L, nh, hd)."""
+    q, k, v (B, L, nh, hd), the global rows from the plain attention (one
+    row a sequence; phase 20 holds the global rows kernel alone to its
+    model), as float32 (B, L, nh, hd)."""
     import torch
 
     from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
@@ -1497,6 +1509,13 @@ def rows_qkv(randn, Bq: int, Lq: int, dt, scale_q: bool = True):
 # sums, the same dequantisation).
 QG_TOL = (1e-4, 2**-7)
 QG_FAULT = "the global query without its bias"
+# The float32 query on the 3xTF32 tile against the plain one (exact float32
+# products): element by element max |err| <= s max |ref| and in norm
+# ||err|| <= r ||ref||, F32_FWD_TOL's (s, r), which the bias-free query
+# and plain TF32 products (F32_GEMM_FAULT's tf32x3_product(..., terms=1))
+# must each fail
+QG_F32_TOL = F32_FWD_TOL
+QG_F32_FAULTS = (QG_FAULT, "plain TF32 query products")
 
 
 def global_rows_readings(got, want) -> dict:
@@ -1510,38 +1529,51 @@ def global_rows_readings(got, want) -> dict:
         g, w = gd.float(), wd.float()
         if not torch.isfinite(g).all():
             fail("global rows: non-finite dqg")
-        out["dqg"] = (beyond_limit(g, w, (0.0, 2**-7)) / max(w.abs().max().item(), 1e-30),
+        rtol = 2**-7 if gd.dtype == torch.bfloat16 else 0.0
+        out["dqg"] = (beyond_limit(g, w, (0.0, rtol)) / max(w.abs().max().item(), 1e-30),
                       ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
     return out
 
 
-def global_rows_excess(readings: dict, ctx_dtype) -> float:
+def global_rows_excess(readings: dict, ctx_dtype, f32: bool = False) -> float:
     """The largest global-rows reading over its limit (ROWS_TOL by ctx's
-    dtype, BWD_CORE_TOL for dqg): above 1 fails."""
+    dtype, BWD_CORE_TOL for dqg, F32_BWD_CORE_TOL in float32): above 1
+    fails."""
     rows = {k: v for k, v in readings.items() if k != "dqg"}
     excess = core_bwd_excess(rows, ROWS_TOL[str(ctx_dtype).split(".")[-1]])
     if "dqg" in readings:
-        excess = max(excess, core_bwd_excess({"dqg": readings["dqg"]},
-                                             BWD_CORE_TOL["sliding_train_bwd"]))
+        excess = max(excess, core_bwd_excess(
+            {"dqg": readings["dqg"]},
+            F32_BWD_CORE_TOL if f32 else BWD_CORE_TOL["sliding_train_bwd"]))
     return excess
 
 
-def check_global_rows(label: str, got, model) -> dict:
+def check_global_rows(label: str, got, model, f32: bool = False) -> dict:
     """The global rows' (ctx, qg, stats, dqg) against ``model()`` within
     their limits; each of ROWS_FAULTS planted in the model must fail them.
-    Returns {reading, norm_reading, faults: {fault: (element-wise, norm)}}."""
+    ``f32``: the float32 body on 3xTF32, whose model takes its products on
+    the 3xTF32 model and whose e is unrounded, so that of ROWS_FAULTS only
+    the dropped key tile is a fault there, and F32_CORE_FAULT beside it (as
+    check_rows). Returns {reading, norm_reading, faults: {fault:
+    (element-wise, norm)}}."""
     show = lambda rd: ", ".join(f"{k} {e:.2e} / {n:.2e}" for k, (e, n) in rd.items())
-    readings = global_rows_readings(got, model())
+    base = core_products(tf32x3_model) if f32 else []
+    with planted(base):
+        readings = global_rows_readings(got, model())
     print(f"  {label} against its rounding model, element-wise / norm: {show(readings)}")
-    if global_rows_excess(readings, got[0].dtype) > 1:
+    if global_rows_excess(readings, got[0].dtype, f32) > 1:
         fail(f"{label}: beyond its rounding model's limits: {show(readings)}")
     faults = {}
-    for fault, patches in rows_faults("global_rows").items():
+    plants = rows_faults("global_rows")
+    if f32:
+        plants = {ROWS_FAULTS[1]: base + plants[ROWS_FAULTS[1]],
+                  F32_CORE_FAULT: core_products(plain_tf32)}
+    for fault, patches in plants.items():
         with planted(patches):
             bad = global_rows_readings(got, model())
         worst = (max(e for e, _ in bad.values()), max(n for _, n in bad.values()))
         faults[fault] = worst
-        rejected = global_rows_excess(bad, got[0].dtype) > 1
+        rejected = global_rows_excess(bad, got[0].dtype, f32) > 1
         print(f"  planted fault, {label}'s model with {fault}: element-wise {worst[0]:.2e}, "
               f"norm {worst[1]:.2e}: " + ("rejected" if rejected else "ACCEPTED"))
         if not rejected:
@@ -1554,6 +1586,37 @@ def query_reading(qg, want) -> float:
     """max(|qg - want| - 2^-7 |want|) / max |want| of the kernel's global
     query against the plain one (QG_TOL's element-wise part)."""
     return beyond_limit(qg, want, (0.0, QG_TOL[1])) / max(want.float().abs().max().item(), 1e-30)
+
+
+def query_f32_readings(qg, want) -> tuple:
+    """(max |qg - want| / max |want|, ||qg - want|| / ||want||) of the
+    float32 query against the plain one, read against QG_F32_TOL."""
+    g, w = qg.float(), want.float()
+    return ((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30),
+            ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
+
+
+def check_f32_query(label: str, qg, plain) -> dict:
+    """The float32 global query qg against ``plain(bias=True)`` (the plain
+    query, train_sliding.sliding_global_query) within QG_F32_TOL; the
+    bias-free query (``plain(bias=False)``) and the plain query on plain
+    TF32 products (float_products(plain_tf32)) must each fail it. Returns
+    {reading, norm_reading, faults: {fault: (element-wise, norm)}}."""
+    within = lambda r: r[0] <= QG_F32_TOL[0] and r[1] <= QG_F32_TOL[1]
+    reading = query_f32_readings(qg, plain(True))
+    print(f"  {label}: qg against the plain query, element-wise / norm {reading[0]:.2e} / "
+          f"{reading[1]:.2e} (limits {QG_F32_TOL[0]:g} max |ref|, {QG_F32_TOL[1]:g} ||ref||)")
+    if not within(reading):
+        fail(f"{label}: the float32 query beyond QG_F32_TOL")
+    faults = {QG_F32_FAULTS[0]: query_f32_readings(qg, plain(False))}
+    with planted(float_products(plain_tf32)):
+        faults[QG_F32_FAULTS[1]] = query_f32_readings(qg, plain(True))
+    for fault, bad in faults.items():
+        print(f"  planted fault, {label}'s query with {fault}: element-wise {bad[0]:.2e}, norm "
+              f"{bad[1]:.2e}: " + ("ACCEPTED" if within(bad) else "rejected"))
+        if within(bad):
+            fail(f"the float32 query's limit accepts {fault} ({label})")
+    return {"reading": reading[0], "norm_reading": reading[1], "faults": faults}
 
 
 def kernel_device_ms(fn, name=None, reps: int = 10, tries: int = 3) -> float:
@@ -1603,7 +1666,11 @@ def global_rows_phase(device, rows: dict):
     with the key-padding mask, device time). Adds global_ms,
     global_bound_ms, global_bound_by, global_library_ms, global_reading and
     global_norm_reading (n_glob 1) and the same keys ending in _16 (n_glob
-    16) to rows 7, 7 W8A8 and 12 (forward and backward)."""
+    16) to rows 7, 7 W8A8 and 12 (forward and backward). Then the same in
+    float32 (the 3xTF32 body; kernel 7 W8A8 on float32 activations) at B=8
+    and at the recipe's micro-batch B=2 (keys ending in _b2): the query
+    within QG_F32_TOL (check_f32_query), the rest with check_global_rows(f32),
+    the bound at the 3xTF32 rate, SDPA in float32; into the float32 rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1613,32 +1680,38 @@ def global_rows_phase(device, rows: dict):
 
     g = torch.Generator(device=device).manual_seed(15)
     randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
-    bf16, HN, sm = torch.bfloat16, NH * HD, HD**-0.5
+    HN, sm = NH * HD, HD**-0.5
     seed = torch.tensor([20231021], dtype=torch.int32, device=device)
     G = sb.global_columns(LF_MAX_GLOBALS, LF_L)
-    x = randn(LF_B, LF_L, H).to(bf16)
-    wgq, bgq = randn(H, HN, scale=H**-0.5).to(bf16), randn(HN, scale=0.02)
-    gkv = rows_qkv(randn, LF_B, LF_L, bf16, scale_q=False)[1:].contiguous()
-    x8, sx = rowquant_plain(x.reshape(-1, H))
-    wgq8, swgq = quantize_colwise(wgq.float())
-    quant = {"x8": x8.contiguous(), "sx": sx.reshape(-1).contiguous(),
-             "wgq8": wgq8.contiguous(), "swgq": swgq.reshape(-1).contiguous()}
     mask, _ = sliding_masks(device)
-    n_valid = mask.sum(1)
-    dctx = (randn(LF_B, LF_L, HN) * mask[..., None]).to(bf16)
     keep = ts.sliding_keep_masks(seed, LF_B, NH, LF_L, LF_WINDOW, G, DROPOUT)[2]
-    key_mask = mask.bool()[:, None, None, :]
-    keys = int(n_valid.sum())
-    modes = (("kernel 7 bfloat16", "sliding_attention_block", 0.0, None, False),
-             ("kernel 7 W8A8, float32 ctx", "sliding_attention_block_w8a8", 0.0, quant, False),
-             ("row 12 forward, dropout 0.1", "sliding_train_fwd", DROPOUT, None, False),
-             ("row 12 statistics pass, dropout 0.1", "sliding_train_bwd", DROPOUT, None, True))
-    for n_g in (1, 16):
+
+    def inputs(dt):
+        """x, wgq, bgq, gkv, the W8A8 query's quant and dctx in dt"""
+        x = randn(LF_B, LF_L, H).to(dt)
+        wgq, bgq = randn(H, HN, scale=H**-0.5).to(dt), randn(HN, scale=0.02)
+        gkv = rows_qkv(randn, LF_B, LF_L, dt, scale_q=False)[1:].contiguous()
+        x8, sx = rowquant_plain(x.reshape(-1, H))
+        wgq8, swgq = quantize_colwise(wgq.float())
+        quant = {"x8": x8.contiguous(), "sx": sx.reshape(-1).contiguous(),
+                 "wgq8": wgq8.contiguous(), "swgq": swgq.reshape(-1).contiguous()}
+        dctx = (randn(LF_B, LF_L, HN) * mask[..., None]).to(dt)
+        return x, wgq, bgq, gkv, quant, dctx
+
+    def run(dt_name, x, wgq, bgq, gkv, quant, dctx, nb, n_g, suffix, modes):
+        """check, time and bound each mode at batch nb with n_g global rows"""
+        f32 = dt_name == "float32"
+        x, gkv, dctx = x[:nb], gkv[:, :nb].contiguous(), dctx[:nb]
+        if quant is not None:
+            quant = {**quant, "x8": quant["x8"][:nb * LF_L], "sx": quant["sx"][:nb * LF_L]}
+        n_valid = mask[:nb].sum(1)
         counts = torch.stack([n_valid, torch.full_like(n_valid, n_g)], 1).int().contiguous()
-        suffix = "" if n_g == 1 else "_16"
+        key_mask = mask[:nb].bool()[:, None, None, :]
+        keys, es = int(n_valid.sum()), x.element_size()
         lib = None
-        for label, name, rate, q, grad in modes:
-            label = f"global_rows ({label}, n_glob {n_g})"
+        for label, name, rate, w8a8, grad in modes:
+            label = f"global_rows ({label}, n_glob {n_g}, B={nb})"
+            q = quant if w8a8 else None
             dc = dctx if grad else None
             launch = lambda: ts.sliding_global_rows(x, wgq, bgq, gkv, counts, seed, sm_scale=sm,
                                                     dctx=dc, dropout_rate=rate, quant=q)
@@ -1646,40 +1719,42 @@ def global_rows_phase(device, rows: dict):
             torch.cuda.synchronize()
             if not all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"{label}: two launches differ")
-            want_q = ts.sliding_global_query(x, wgq, bgq, counts[:, 1], num_heads=NH,
-                                             sm_scale=sm, G=G, quant=q)
+            plain = lambda bias=True, q=q: ts.sliding_global_query(
+                x, wgq, bgq if bias else torch.zeros_like(bgq), counts[:, 1], num_heads=NH,
+                sm_scale=sm, G=G, quant=q)
             if q is not None:
-                if not torch.equal(got[1], want_q):
+                if not torch.equal(got[1], plain()):
                     fail(f"{label}: the int8 query differs from the plain one")
                 print(f"  {label}: qg equals the plain int8 query bit for bit")
+            elif f32:
+                check_f32_query(label, got[1], plain)
             else:
-                qr = query_reading(got[1], want_q)
-                bad_q = query_reading(got[1], ts.sliding_global_query(
-                    x, wgq, torch.zeros_like(bgq), counts[:, 1], num_heads=NH, sm_scale=sm,
-                    G=G))
+                qr, bad_q = query_reading(got[1], plain()), query_reading(got[1], plain(False))
                 print(f"  {label}: qg against the plain query {qr:.2e} (limit {QG_TOL[0]:g} "
                       f"max |ref|); with {QG_FAULT}: {bad_q:.2e}")
                 if qr > QG_TOL[0] or bad_q <= QG_TOL[0]:
                     fail(f"{label}: the query's limit does not hold or accepts {QG_FAULT}")
             gate = check_global_rows(label, got, lambda: ts.sliding_global_rows_model(
                 got[1], gkv[0], gkv[1], n_valid, counts[:, 1], sm_scale=sm,
-                dctx=None if dc is None else dc.reshape(LF_B, LF_L, NH, HD), dropout_rate=rate,
-                keep=keep if rate else None, ctx_dtype=torch.float32 if q is not None else None))
+                dctx=None if dc is None else dc.reshape(nb, LF_L, NH, HD), dropout_rate=rate,
+                keep=keep[:nb] if rate else None,
+                ctx_dtype=torch.float32 if q is not None else None), f32)
             if lib is None:
                 qg = got[1]
                 lib = kernel_device_ms(lambda: F.scaled_dot_product_attention(
                     qg, gkv[0], gkv[1], attn_mask=key_mask, scale=1.0))
             ms = kernel_device_ms(launch, "global_rows_kernel")
-            n_rows = LF_B * n_g
+            n_rows = nb * n_g
             query_ops = 2 * H * HN * n_rows
             attn_ops = (8 if grad else 4) * HD * NH * n_g * keys
-            ops = ({"int8": query_ops, "bfloat16": attn_ops} if q is not None
-                   else query_ops + attn_ops)
-            io = (2 * 2 * NH * HD * keys + n_rows * H * (1 if q is not None else 2)
-                  + H * HN * (1 if q is not None else 2) + n_rows * HN * got[0].element_size()
-                  + (n_rows * HN * 2 * 3 + 3 * n_rows * NH * 4 if grad else 0))
+            core = "tf32x3" if f32 else "bfloat16"
+            ops = {"int8": query_ops, core: attn_ops} if q is not None else {
+                core: query_ops + attn_ops}
+            io = (2 * es * NH * HD * keys + n_rows * H * (1 if q is not None else es)
+                  + H * HN * (1 if q is not None else es) + n_rows * HN * got[0].element_size()
+                  + (n_rows * HN * es * 3 + 3 * n_rows * NH * 4 if grad else 0))
             b = bound(ops, io)
-            rows[name, "bfloat16"].update({
+            rows.setdefault((name, dt_name), {}).update({
                 f"global_ms{suffix}": ms, f"global_bound_ms{suffix}": b["bound_ms"],
                 f"global_bound_by{suffix}": b["bound_by"], f"global_library_ms{suffix}": lib,
                 f"global_reading{suffix}": gate["reading"],
@@ -1687,7 +1762,31 @@ def global_rows_phase(device, rows: dict):
             print(f"kernel {label}: {ms:.4f} ms of device time, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}), SDPA with the key-padding mask {lib:.4f} ms; with the "
                   f"wrapper (CUDA events) {time_ms(launch):.4f} ms")
-        torch.cuda.empty_cache()
+
+    tensors = inputs(torch.bfloat16)
+    modes = (("kernel 7 bfloat16", "sliding_attention_block", 0.0, False, False),
+             ("kernel 7 W8A8, float32 ctx", "sliding_attention_block_w8a8", 0.0, True, False),
+             ("row 12 forward, dropout 0.1", "sliding_train_fwd", DROPOUT, False, False),
+             ("row 12 statistics pass, dropout 0.1", "sliding_train_bwd", DROPOUT, False, True))
+    for n_g in (1, 16):
+        run("bfloat16", *tensors, LF_B, n_g, "" if n_g == 1 else "_16", modes)
+    del tensors
+    torch.cuda.empty_cache()
+    # the float32 body (3xTF32, the keys over a cluster of blocks), at B=8
+    # and at the recipe's micro-batch of 2
+    tensors = inputs(torch.float32)
+    modes = (("kernel 7 float32", "sliding_attention_block", 0.0, False, False),
+             ("kernel 7 W8A8, float32 activations", "sliding_attention_block_w8a8", 0.0, True,
+              False),
+             ("row 12 forward float32, dropout 0.1", "sliding_train_fwd", DROPOUT, False, False),
+             ("row 12 statistics pass float32, dropout 0.1", "sliding_train_bwd", DROPOUT, False,
+              True))
+    for nb in (LF_B, LF_TRAIN_B):
+        for n_g in (1, 16):
+            suffix = ("" if n_g == 1 else "_16") + ("" if nb == LF_B else "_b2")
+            run("float32", *tensors, nb, n_g, suffix, modes)
+    del tensors
+    torch.cuda.empty_cache()
 
 
 def rows_kernel_phase(device, rows: dict):
@@ -2047,26 +2146,22 @@ IMMA_KERNELS = ("gemm_act_i8_kernel", "gemm_act_quant_i8_kernel", "qkv_proj_i8_k
 # the main paths: no tile to fill; its W8A8 instances' attention runs on the
 # tensor cores all the same)
 IDP4A_ALLOWED = ("attn_core_i8_kernel", "global_rows_kernel")
-# the functions that run bf16 products on the tensor cores and float32 ones
-# on the CUDA cores: the Longformer global rows (global_rows_mma.cuh: kernel
-# 7 in both modes, row 12's forward and statistics pass; the bf16 query, S,
-# P.V, dP and dS . kg). Each bf16 instantiation must hold HMMA, the float32
-# ones none (global_kv_grad_kernel, whose instantiations are all SIMT, is
-# held to none by the stray rule below)
-HMMA_KERNELS = ("global_rows_kernel",)
 # the attention cores on the tensor cores in both dtypes (bf16 mma.sync,
 # float32 as 3xTF32 on mma.sync TF32: HMMA in SASS): the dense core's kernel
 # (kernels 1 and 6), row 10's three cores, the sliding-window and BigBird
 # rows kernels (kernels 7 and 8 in both modes, rows 12 and 13's forwards and
-# statistics passes; attention_rows_mma.cuh) and the Longformer and BigBird
-# backwards' gradient kernels (attention_grad_mma.cuh), and the W8A8 stack
-# (int8 GEMMs, the core out of line in stack_core_item). Both
+# statistics passes; attention_rows_mma.cuh), the Longformer global rows
+# (global_rows_mma.cuh: kernel 7 in both modes, row 12's forward and
+# statistics pass; the query, S, P.V, dP and dS . kg) and the Longformer and
+# BigBird backwards' gradient kernels (attention_grad_mma.cuh), and the W8A8
+# stack (int8 GEMMs, the core out of line in stack_core_item). Both
 # instantiations of each must exist and hold HMMA (the W8A8 stack entry
-# itself or in its core item of its element type)
+# itself or in its core item of its element type); global_kv_grad_kernel,
+# SIMT in both dtypes, is held to none by the stray rule
 CORE_HMMA_KERNELS = ("attn_core_kernel", "attn_rows_kernel", "attn_dq_kernel",
                      "attn_dkv_kernel", "band_rows_kernel", "bigbird_rows_kernel",
-                     "band_dq_kernel", "band_dkv_kernel", "bigbird_dq_kernel",
-                     "bigbird_dkv_kernel", "encoder_stack_i8_kernel")
+                     "global_rows_kernel", "band_dq_kernel", "band_dkv_kernel",
+                     "bigbird_dq_kernel", "bigbird_dkv_kernel", "encoder_stack_i8_kernel")
 # the GEMM tile's kernels (bf16_gemm.cuh: kernels 1-3, 7-9 and the training
 # kernels' forward products, the products their backwards recompute, with
 # the MLP's act' epilogue (act_and_grad_kernel), those with a weight read as
@@ -2160,8 +2255,7 @@ def sass_verdict(counts: dict) -> list:
     """The SASS check's findings on {mangled function: [IMMA, IDP4A, HMMA]
     counts} (one entry a function of the disassembly): every int8 tile
     kernel (IMMA_KERNELS) holds IMMA; no function outside IDP4A_ALLOWED holds
-    IDP4A; each bf16 instantiation of HMMA_KERNELS holds HMMA, no float32 one
-    does; both instantiations of each of CORE_HMMA_KERNELS and
+    IDP4A; both instantiations of each of CORE_HMMA_KERNELS and
     GEMM_HMMA_KERNELS exist and hold HMMA (a stack entry itself or in its
     items of its element type); and no other function holds HMMA. Returns
     the failures, [] when it passes."""
@@ -2194,10 +2288,9 @@ def sass_verdict(counts: dict) -> list:
                 if not c[2]:
                     bad.append(f"{n} has no HMMA: the {'float32' if f32 else 'bf16'} stack's "
                                "GEMMs do not run on the tensor cores")
-    for p in HMMA_KERNELS + CORE_HMMA_KERNELS + GEMM_HMMA_KERNELS:
+    for p in CORE_HMMA_KERNELS + GEMM_HMMA_KERNELS:
         found = [n for n in counts if f"{p}I" in n]
-        both = p not in HMMA_KERNELS
-        for want_f32 in (False, True) if both else (False,):
+        for want_f32 in (False, True):
             if not any(is_float32_instance(n, p) == want_f32 for n in found):
                 bad.append(f"cuobjdump -sass shows no {'float32' if want_f32 else 'bf16'} "
                            f"instantiation of {p}")
@@ -2207,16 +2300,12 @@ def sass_verdict(counts: dict) -> list:
                 hmma += core_items.get((f32, "L" + args.split("L", 1)[1]), 0)
             if p == "encoder_stack_kernel":  # its GEMM items (its core item is read above)
                 hmma += sum(h for g, (f, h) in gemm_items.items() if f == f32)
-            if both and not hmma:
+            if not hmma:
                 bad.append(f"{n} has no HMMA: its {'float32' if f32 else 'bf16'} products do not "
                            "run on the tensor cores")
-            elif not both and f32 and hmma:
-                bad.append(f"{n} holds HMMA: its float32 rows must stay on the CUDA cores")
-            elif not both and not f32 and not hmma:
-                bad.append(f"{n} has no HMMA: its bf16 products do not run on the tensor cores")
     stray = [n for n, c in counts.items()
-             if c[2] and not any(f"{p}I" in n for p in HMMA_KERNELS + CORE_HMMA_KERNELS
-                                 + GEMM_HMMA_KERNELS + ("stack_core_item",))
+             if c[2] and not any(f"{p}I" in n for p in CORE_HMMA_KERNELS + GEMM_HMMA_KERNELS
+                                 + ("stack_core_item",))
              and n not in gemm_items]
     if stray:
         bad.append(f"HMMA outside the tensor-core functions: {stray}")
@@ -3390,6 +3479,25 @@ def projections_library_ms(hidden, w: dict, names, label: str) -> float:
                         f"{label} (torch.matmul on its projections)")
 
 
+def global_kv_grad_row(split: dict, mask, glob, dt) -> dict:
+    """gkv_ms, global_kv_grad_kernel's device time in a Longformer
+    backward's split, beside gkv_bound_ms: the real keys' kg and vg, the
+    global rows' qg, dctx and statistics read once, dproj's dkg and dvg
+    slots (every row) written once, and 8 hd operations (s, dp, dkg, dvg) a
+    (global row, real key) pair of each head on the CUDA cores."""
+    import torch
+
+    Bm, Lm = mask.shape
+    es, hn = torch.empty(0, dtype=dt).element_size(), NH * HD
+    n_valid, n_glob = mask.sum(1), glob.sum(1)
+    keys, n_rows = int(n_valid.sum()), int(n_glob.sum())
+    io = 2 * keys * hn * es + 2 * n_rows * hn * es + 3 * n_rows * NH * 4 + 2 * Bm * Lm * hn * es
+    b = bound(8 * HD * NH * int((n_valid * n_glob).sum()), io, "float32")
+    print(f"  global_kv_grad {str(dt).split('.')[-1]}: {split['global_kv_grad_ms']:.4f} ms of "
+          f"device time, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"gkv_ms": split["global_kv_grad_ms"], "gkv_bound_ms": b["bound_ms"]}
+
+
 def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model,
                         row_bound: float) -> dict:
     """The library column and, in bf16, the backward-GEMM gate, the
@@ -3454,6 +3562,8 @@ def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model
 
                 split = device_split(lambda: backward(mk, gl, cot, gr, None))
                 row["split_ms"] = split
+                if name == "sliding_train_bwd":
+                    row.update(global_kv_grad_row(split, mk, gl, dt))
                 print(f"  {name} bfloat16 device time by kernel (ms): " + ", ".join(
                     f"{k[:-3]} {v:.3f}" for k, v in split.items() if v)
                     + f"; the gradient kernels' bound {row_bound:.3f}")
@@ -3487,6 +3597,8 @@ def long_backward_gemms(name, hidden, dt, wo, masks, backward, randn, core_model
                 split = device_split(lambda: backward(mk, gl, cot, gr, None), global_apart=True)
                 row.update(split_ms=split, grad_ms=split["grad_ms"],
                            core_ms=split["stats_ms"] + split["global_rows_ms"] + split["grad_ms"])
+                if name == "sliding_train_bwd":
+                    row.update(global_kv_grad_row(split, mk, gl, dt))
                 print(f"  {name} float32 device time by kernel (ms): " + ", ".join(
                     f"{k[:-3]} {v:.3f}" for k, v in split.items() if v)
                     + f"; the cores {row['core_ms']:.3f}, the gradient kernels' bound "
@@ -5245,7 +5357,9 @@ def main() -> int:
         if f32_row is not None:  # the float32 mode: its time and bound (products on 3xTF32)
             entry.update({f"f32_{k}": f32_row[k] for k in (
                 "ms", "plain_ms", "bound_ms", "simt_bound_ms", "rows_ms", "rows_bound_ms",
-                "rows_library_ms", "core_ms", "grad_ms", "grad_bound_ms", "core_library_ms")
+                "rows_library_ms", "core_ms", "grad_ms", "grad_bound_ms", "core_library_ms",
+                "global_ms", "global_bound_ms", "global_library_ms", "global_ms_16",
+                "global_bound_ms_16", "global_library_ms_16", "gkv_ms", "gkv_bound_ms")
                 if k in f32_row})
         kernels.append(entry)
     f32 = {name: rows[name, "float32"] for name in KERNELS if (name, "float32") in rows}

@@ -55,16 +55,21 @@ With ``--dtype float32`` each process prints instead:
   L=2048); beside each, scaled_dot_product_attention on the same float32
   q, k, v with the boolean mask of the allowed keys, dense over L x L (the
   forwards);
+- ms of device time of the float32 global rows alone
+  (``sliding_global_rows``) as kernel 7, row 12's forward and its
+  statistics pass, with 1 and 16 global tokens, at B=8 and B=2;
 - ms a call and the device time by kernel name, as above, of kernels 7 and
   8 in float32 (float mode, and W8A8 with float32 activations) and of rows
   12 and 13's float32 forwards (row 12 and kernel 7 also at B=2);
 - digests of what must not move: those of ``backward_gemm_turns.py``
   (every bf16 and W8A8 output, the bf16 backwards included, and rows 10
   and 11 and kernel 9 in float32) but rows 12 and 13's float32 forwards
-  and backwards, kernels 1, 2, 3 (two layers) and 6 in float32, and the
-  float32 global rows alone (``sliding_global_rows``, n_glob 1 and 16,
-  forward and statistics pass); and two-call digests of the timed float32
-  outputs, which may move but must repeat within a checkout.
+  and backwards, kernels 1, 2, 3 (two layers) and 6 in float32, kernel 7
+  (float and W8A8) and row 12 (forward and backward) in float32 without
+  global rows, and kernel 7's and row 12's forward float32 output rows at
+  or beyond n_glob (rows 1 on, CLS global); and two-call digests of the
+  timed float32 outputs and the global rows alone, which may move but must
+  repeat within a checkout.
 
     python3 rows_core_turns.py --measure [--dtype float32]
 
@@ -298,18 +303,13 @@ def measure_f32(reps: int) -> dict:
             out[f"{name} float32 SDPA ms"] = time_ms(lib, reps)
         for run in ("a", "b"):
             out[f"twice {name} float32 run {run}"] = digest([t for t in fn() if t is not None])
-    # the float32 global rows, which stay on the CUDA cores
-    gkv = qkv_of(LB, LL, scale_q=False)[1:].contiguous()
-    x = randn(LB, LL, H)
-    for n_g in (1, 16):
-        cg = torch.stack([mask.sum(1), torch.full_like(mask.sum(1), n_g)], 1).int().contiguous()
-        for tag, dc in (("forward", None), ("statistics pass", dctx)):
-            out[f"digest global rows alone {tag} n_glob {n_g} float32"] = digest(
-                [t for t in ts.sliding_global_rows(x, att[0][:, 0].reshape(H, HN).contiguous(),
-                                                   att[1][0].reshape(-1).contiguous(), gkv, cg,
-                                                   seed, sm_scale=sm, dctx=dc, dropout_rate=0.1)
-                 if t is not None])
-    del qkv, dctx, allowed, gkv, alone
+    del qkv, dctx, allowed, alone
+    torch.cuda.empty_cache()
+    # the float32 global rows alone (their W8A8 mode in kernel 7 W8A8's split
+    # below: a parent may not launch it alone)
+    sw = sb.card_weights(att[0], att[1], *gqkv, att[2], f32)
+    out.update(global_rows_alone(randn(LB, LL, H), mask, sw, gqkv, seed, reps, w8a8=False,
+                                 n_globs=(1, 16)))
     torch.cuda.empty_cache()
     bcounts = lambda m: torch.stack([m.sum(1), torch.zeros_like(m.sum(1))], 1).int().contiguous()
     for Bq, Lq, m, t, modes in ((BB_B, BB_L, bmask, btables, ("kernel 8",)),
@@ -337,7 +337,6 @@ def measure_f32(reps: int) -> dict:
 
     # kernels 7 and 8 and rows 12 and 13's forwards, split by kernel name
     lhid, bhid = randn(LB, LL, H), randn(BB_B, BB_L, H)
-    sw = sb.card_weights(att[0], att[1], *gqkv, att[2], f32)
     bw = bbk.card_weights(att[0], att[1], att[2], f32)
     kw = dict(num_heads=NH, sm_scale=sm, dropout_rate=0.1)
     scfg = dict(kw, window=WINDOW, max_globals=16, global_rows=True)
@@ -361,7 +360,24 @@ def measure_f32(reps: int) -> dict:
         out.update({f"{name} float32 {k}": v for k, v in device_split(fn).items()})
         for run in ("a", "b"):
             out[f"twice {name} float32 run {run}"] = digest(fn())
+        if name.startswith(("kernel 7", "row 12")) and not name.endswith("B=2"):
+            # the rows at or beyond n_glob (CLS is the one global token) do
+            # not depend on the global rows
+            out[f"digest {name} rows 1 on float32"] = digest(fn()[:, 1:])
     out["sm clock, power draw"] = smi("clocks.sm,power.draw")
+    # kernel 7 and row 12 without global rows
+    nog = torch.zeros_like(glob)
+    for mode, q in (("float", False), ("W8A8", True)):
+        out[f"digest kernel 7 {mode} no globals float32"] = digest(
+            sb.fused_sliding_attention_block(lhid, mask, nog, att[0], att[1], *gqkv, att[2],
+                                             att[3], sm_scale=sm, window=WINDOW, **ln,
+                                             quantized=q, global_rows=False))
+    ncfg = dict(scfg, global_rows=False)
+    out["digest row 12 forward no globals float32"] = digest(
+        ts.sliding_train_fwd(lhid, mask, nog, seed, sw, att[3], **ncfg))
+    out["digest row 12 backward no globals float32"] = digest(
+        ts.sliding_train_bwd(lhid, mask, nog, seed, sw, randn(LB, LL, H) * mask[..., None],
+                             **ncfg))
 
     # what must not move in float32: kernels 1, 2, 3 and 6
     seg = torch.ones(32, 512, dtype=torch.int32, device=dev)
@@ -384,11 +400,14 @@ def measure_f32(reps: int) -> dict:
     return out
 
 
-def global_rows_alone(x, mask, sw, gqkv, seed, reps: int) -> dict:
+def global_rows_alone(x, mask, sw, gqkv, seed, reps: int, w8a8: bool = True,
+                      n_globs=(1,)) -> dict:
     """ms of device time of one launch of the global rows alone
-    (``train_sliding.sliding_global_rows``) in each mode (kernel 7 bf16 and
-    W8A8, row 12's forward and statistics pass at dropout 0.1), CLS global, at
-    B=8 and B=2, on the global projections of x."""
+    (``train_sliding.sliding_global_rows``) in each mode (kernel 7 float and,
+    with ``w8a8``, W8A8, row 12's forward and statistics pass at dropout
+    0.1) with each of ``n_globs`` global tokens (CLS global: 1), at B=8 and
+    B=2, on the global projections of x; in float32 also two-call digests of
+    each mode's outputs."""
     import torch
 
     from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
@@ -400,20 +419,29 @@ def global_rows_alone(x, mask, sw, gqkv, seed, reps: int) -> dict:
     gkv = kv.to(x.dtype).contiguous()
     x8, sx = rowquant_plain(x.reshape(-1, H))
     w8, swq = quantize_colwise(sw["wgq"].float())
-    dctx = torch.randn(x.shape[0], LL, NH * HD, device=dev).to(x.dtype)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dctx = torch.randn(x.shape[0], LL, NH * HD, generator=g, device=dev).to(x.dtype)
+    modes = [("kernel 7 float", False, 0.0, False), ("kernel 7 W8A8", True, 0.0, False),
+             ("row 12 forward", False, 0.1, False), ("row 12 statistics pass", False, 0.1, True)]
     for nb, tag in ((LB, ""), (2, " B=2")):
-        counts = torch.stack([mask[:nb].sum(1), torch.ones(nb, dtype=torch.long, device=dev)],
-                             1).int().contiguous()
         quant = dict(x8=x8[:nb * LL], sx=sx.reshape(-1)[:nb * LL], wgq8=w8.contiguous(),
                      swgq=swq.reshape(-1).contiguous())
-        for mode, q, rate, dc in (("kernel 7 float", None, 0.0, None),
-                                  ("kernel 7 W8A8", quant, 0.0, None),
-                                  ("row 12 forward", None, 0.1, None),
-                                  ("row 12 statistics pass", None, 0.1, dctx[:nb])):
-            fn = lambda q=q, rate=rate, dc=dc: ts.sliding_global_rows(
-                x[:nb], sw["wgq"], sw["bgq"], gkv[:, :nb].contiguous(), counts, seed,
-                sm_scale=HD**-0.5, dctx=dc, dropout_rate=rate, quant=q)
-            out[f"global rows alone, {mode}{tag} ms"] = device_split(fn)["global_rows_ms"]
+        for n_g in n_globs:
+            counts = torch.stack([mask[:nb].sum(1), torch.full((nb,), n_g, device=dev)],
+                                 1).int().contiguous()
+            for mode, q, rate, grad in modes:
+                if q and not w8a8:
+                    continue
+                fn = lambda q=q, rate=rate, grad=grad: ts.sliding_global_rows(
+                    x[:nb], sw["wgq"], sw["bgq"], gkv[:, :nb].contiguous(), counts, seed,
+                    sm_scale=HD**-0.5, dctx=dctx[:nb] if grad else None, dropout_rate=rate,
+                    quant=quant if q else None)
+                name = f"global rows alone, {mode}{tag}" + ("" if n_g == 1 else f" n_glob {n_g}")
+                out[f"{name} ms"] = device_split(fn)["global_rows_ms"]
+                if x.dtype == torch.float32:
+                    for run in ("a", "b"):
+                        out[f"twice {name} float32 run {run}"] = digest(
+                            [t for t in fn() if t is not None])
     return out
 
 

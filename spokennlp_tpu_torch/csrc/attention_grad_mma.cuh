@@ -52,20 +52,14 @@ namespace spk {
 constexpr int kGradWarps = 4;
 constexpr int kGradThreads = 32 * kGradWarps;
 
-// threads of the Longformer global rows kernel (global_rows_kernel): 256 on
-// the CUDA cores (float32), 128 on the tensor cores (bf16)
-template <typename T>
-__host__ __device__ constexpr int grad_threads() {
-  return std::is_same<T, float>::value ? kThreads : kGradThreads;
-}
-
 // the least resident blocks an SM that a bf16 tensor-core attention kernel
 // is compiled for (its launch bounds' second argument): 4 up to head dim 64,
 // which caps a thread at 128 registers (on the H100, rows 12 and 13's
 // gradient kernels ran 1.27 x and 1.11 x faster than at ptxas's own 186-246
 // registers, PERF.md); at head dim 128 the accumulators alone take 128 and
 // shared memory holds two blocks an SM, so ptxas chooses; 0 for the float32
-// global rows kernel on the CUDA cores
+// global rows kernel (global_rows_mma.cuh's 3xTF32 body), whose shared
+// memory holds one block an SM at head dim 64
 template <typename T, int HD>
 __host__ __device__ constexpr int grad_min_blocks() {
   return std::is_same<T, float>::value || HD > 64 ? 0 : 4;

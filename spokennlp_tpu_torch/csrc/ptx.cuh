@@ -104,4 +104,29 @@ __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ab)[4
   mma_tf32(c, ab, bb0, bb1);
 }
 
+// Thread block clusters: this block's rank in its cluster, a barrier of
+// every thread of the cluster (its arrive releases and its wait acquires
+// what the blocks wrote to shared memory before it), and a float32 read of
+// the shared memory of block `rank` of the cluster at the offset of `local`
+// in this block's
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_cluster(const float* local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 }  // namespace spk

@@ -65,7 +65,7 @@ __device__ __forceinline__ bool band_tile_live(int k0, int n_glob, int n_valid) 
   return k0 + kTile > n_glob && k0 < n_valid;
 }
 
-// sum and max over the 256 threads of a block; `red` holds 8 floats
+// sum over the 256 threads of a block; `red` holds 8 floats
 __device__ __forceinline__ float block_sum(float v, float* red) {
   v = warp_sum(v);
   __syncthreads();
@@ -74,18 +74,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   float t = 0.0f;
 #pragma unroll
   for (int w = 0; w < kThreads / 32; ++w) t += red[w];
-  return t;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float t = -CUDART_INF_F;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) t = fmaxf(t, red[w]);
   return t;
 }
 
@@ -166,24 +154,20 @@ struct QuantQuery {
   const float* sw = nullptr;
 };
 
-template <int HD>
-size_t global_rows_smem_bytes(int L) {
-  return sizeof(float) * (2 * (size_t)L + 2 * HD + kThreads + kThreads / 32);
-}
-
 // The global rows g < n_glob of (head, sequence): qg from x and the global
 // query weights (in W8A8 from the int8 rows of x and int8 weights: qq),
 // full attention over the real keys through kg and vg, and ctx rows g
-// replaced. qg (rounded) goes to qg_buf (B, nh, G, hd) where it is not
-// null (always with kGrad). With kGrad it also writes the row statistics
-// (m, D, rowsum(dp p_eff)) to gstats (3, B, nh, G) and d(x Wgq + bgq) = dS
-// . kg * sm_scale, rounded, to row g of dqg (row stride ld). bf16 runs
-// global_rows_mma.cuh's tensor-core body: grid (ceil(G / 16), nh, B) of
-// 128 threads, a block for 16 global rows. float32 runs the CUDA-core body
-// below: grid (G, nh, B) of 256 threads, a block for one row. Blocks whose
-// rows all lie at or beyond n_glob return.
+// replaced. qg goes to qg_buf (B, nh, G, hd) where it is not null (always
+// with kGrad). With kGrad it also writes the row statistics (m, D,
+// rowsum(dp p_eff)) to gstats (3, B, nh, G) and d(x Wgq + bgq) = dS . kg *
+// sm_scale to row g of dqg (row stride ld). 128 threads, on the tensor
+// cores in both element types (global_rows_mma.cuh): bf16 grid (ceil(G /
+// 16), nh, B), a block for 16 global rows of a (head, sequence); float32
+// (3xTF32) the same rows on a cluster of kGlobCluster blocks, grid
+// (kGlobCluster ceil(G / 16), nh, B). Blocks whose rows all lie at or
+// beyond n_glob return.
 template <typename T, int HD, bool kGrad, typename Tc = T>
-__global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
+__global__ void __launch_bounds__(kGradThreads, grad_min_blocks<T, HD>())
     global_rows_kernel(const T* __restrict__ x, const T* __restrict__ wgq,
                        const float* __restrict__ bgq, const T* __restrict__ gkv,
                        const int32_t* __restrict__ counts, const int32_t* __restrict__ seed_ptr,
@@ -192,155 +176,62 @@ __global__ void __launch_bounds__(grad_threads<T>(), grad_min_blocks<T, HD>())
                        int nh, int G, int ld, float sm_scale, uint32_t thr, float keep_prob,
                        QuantQuery qq) {
   extern __shared__ __align__(16) float smem[];
-  if constexpr (!std::is_same<T, float>::value) {
-    const int b = blockIdx.z;
-    const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
-    const uint32_t tag = blockIdx.y | kGlobalRowStream;
-    global_rows_tile_mma<HD, kGrad, Tc>(
-        x, wgq, bgq, gkv, counts, thr != 0u,
-        [&](int row, int key) { return keep_prob_bits(seed, thr, b, tag, row, key); }, dctx, ctx,
-        qg_buf, gstats, dqg, B, L, H, nh, G, ld, sm_scale, keep_prob, qq.x8, qq.sx, qq.w8, qq.sw,
-        reinterpret_cast<unsigned char*>(smem));
-    return;
-  } else {
-  constexpr int P = kThreads / HD;  // threads that share a head-dim column
-  float* ebuf = smem;          // scores, then e
-  float* dpbuf = ebuf + L;     // dp, then dS
-  float* qs = dpbuf + L;       // qg
-  float* dcs = qs + HD;        // the row's cotangent
-  float* part = dcs + HD;      // (P, HD) partial sums
-  float* red = part + kThreads;
-
-  const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_valid = counts[2 * b], n_glob = counts[2 * b + 1];
-  if (g >= n_glob) return;
-  const int tid = threadIdx.x, d = tid % HD, p = tid / HD;
-  const int HN = nh * HD;
+  const int b = blockIdx.z;
   const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
-  const T* KG = gkv + (((size_t)0 * B + b) * nh + h) * (size_t)L * HD;
-  const T* VG = gkv + (((size_t)1 * B + b) * nh + h) * (size_t)L * HD;
-  const size_t grow = (size_t)b * L + g;
-
-  // qg = round((x_g Wgq + bgq) * sm_scale); in W8A8 the int32 product of
-  // the quantised row and weights, dequantised as the projections are
-  if (qq.x8 != nullptr) {
-    int acc = 0;
-    for (int k = p; k < H; k += P)
-      acc += (int)qq.x8[grow * H + k] * (int)qq.w8[(size_t)k * HN + h * HD + d];
-    part[tid] = __int_as_float(acc);
+  const uint32_t tag = blockIdx.y | kGlobalRowStream;
+  const auto keep = [&](int row, int key) { return keep_prob_bits(seed, thr, b, tag, row, key); };
+  unsigned char* s = reinterpret_cast<unsigned char*>(smem);
+  if constexpr (std::is_same<T, float>::value) {
+    static_assert(std::is_same<Tc, float>::value, "the float32 body stores a float32 ctx");
+    global_rows_tile_tf32<HD, kGrad>(x, wgq, bgq, gkv, counts, thr != 0u, keep, dctx, ctx,
+                                     qg_buf, gstats, dqg, B, L, H, nh, G, ld, sm_scale, keep_prob,
+                                     qq.x8, qq.sx, qq.w8, qq.sw, s);
   } else {
-    float acc = 0.0f;
-    for (int k = p; k < H; k += P) acc = fmaf(to_f32(x[grow * H + k]), to_f32(wgq[(size_t)k * HN + h * HD + d]), acc);
-    part[tid] = acc;
-  }
-  __syncthreads();
-  if (tid < HD) {
-    float sum = 0.0f;
-    if (qq.x8 != nullptr) {
-      int isum = 0;
-      for (int i = 0; i < P; ++i) isum += __float_as_int(part[i * HD + tid]);
-      sum = dequant(isum, qq.sx[grow], qq.sw[h * HD + tid]);
-    } else {
-      for (int i = 0; i < P; ++i) sum += part[i * HD + tid];
-    }
-    const float q = round_to<T>(__fmul_rn(__fadd_rn(sum, bgq[h * HD + tid]), sm_scale));
-    qs[tid] = q;
-    if (qg_buf != nullptr) qg_buf[(((size_t)b * nh + h) * G + g) * HD + tid] = from_f32<T>(q);
-    if constexpr (kGrad) dcs[tid] = to_f32(dctx[grow * HN + h * HD + tid]);
-  }
-  __syncthreads();
-
-  // scores (and dp) over the real keys, their maximum
-  float mx = -CUDART_INF_F;
-  for (int key = tid; key < n_valid; key += kThreads) {
-    const T* kr = KG + (size_t)key * HD;
-    float s = 0.0f;
-#pragma unroll 8
-    for (int i = 0; i < HD; ++i) s = fmaf(qs[i], to_f32(kr[i]), s);
-    ebuf[key] = s;
-    mx = fmaxf(mx, s);
-    if constexpr (kGrad) {
-      const T* vr = VG + (size_t)key * HD;
-      float dp = 0.0f;
-#pragma unroll 8
-      for (int i = 0; i < HD; ++i) dp = fmaf(dcs[i], to_f32(vr[i]), dp);
-      dpbuf[key] = dp;
-    }
-  }
-  const float m = block_max(mx, red);
-  float dsum = 0.0f;
-  for (int key = tid; key < n_valid; key += kThreads) {
-    const float e = rounded_exp<T>(ebuf[key], m);
-    ebuf[key] = e;
-    dsum += e;
-  }
-  const float D = block_sum(dsum, red);  // ends in __syncthreads: ebuf is complete
-  const float denom = D * keep_prob;
-
-  // ctx_g = (kept e) . vg / denom; with kGrad also rowsum(dp p_eff)
-  float o = 0.0f, rs = 0.0f;
-  for (int key = p; key < n_valid; key += P) {
-    const bool keep = keep_prob_bits(seed, thr, b, h | kGlobalRowStream, g, key);
-    const float pe = keep ? ebuf[key] : 0.0f;
-    o = fmaf(pe, to_f32(VG[(size_t)key * HD + d]), o);
-    if (kGrad && d == 0) rs = fmaf(pe, dpbuf[key], rs);
-  }
-  __syncthreads();
-  part[tid] = o;
-  __syncthreads();
-  if (tid < HD) {
-    float sum = 0.0f;
-    for (int i = 0; i < P; ++i) sum += part[i * HD + tid];
-    ctx[grow * HN + h * HD + tid] = from_f32<Tc>(D > 0.0f ? sum / denom : 0.0f);
-  }
-  if constexpr (kGrad) {
-    const float rs_sum = block_sum(rs, red);
-    const float rsn = D > 0.0f ? rs_sum / denom : 0.0f;
-    // dS = round(p_eff dp - p rs) into dpbuf
-    for (int key = tid; key < n_valid; key += kThreads) {
-      const bool keep = keep_prob_bits(seed, thr, b, h | kGlobalRowStream, g, key);
-      const float e = ebuf[key];
-      const float pe = keep ? e / denom : 0.0f;  // D > 0 wherever a key is real
-      dpbuf[key] = round_to<T>(pe * dpbuf[key] - (e / D) * rsn);
-    }
-    __syncthreads();
-    float dq = 0.0f;
-    for (int key = p; key < n_valid; key += P)
-      dq = fmaf(dpbuf[key], to_f32(KG[(size_t)key * HD + d]), dq);
-    part[tid] = dq;
-    __syncthreads();
-    if (tid < HD) {
-      float sum = 0.0f;
-      for (int i = 0; i < P; ++i) sum += part[i * HD + tid];
-      dqg[grow * ld + h * HD + tid] = from_f32<T>(sum * sm_scale);
-    }
-    if (tid == 0) {
-      const size_t r = ((size_t)b * nh + h) * G + g, plane = (size_t)B * nh * G;
-      gstats[r] = m;
-      gstats[plane + r] = D;
-      gstats[2 * plane + r] = rsn;
-    }
-  }
+    global_rows_tile_mma<HD, kGrad, Tc>(x, wgq, bgq, gkv, counts, thr != 0u, keep, dctx, ctx,
+                                        qg_buf, gstats, dqg, B, L, H, nh, G, ld, sm_scale,
+                                        keep_prob, qq.x8, qq.sx, qq.w8, qq.sw, s);
   }
 }
 
-// global_rows_kernel over the (2, B, nh, L, hd) kg, vg in gkv
+// global_rows_kernel over the (2, B, nh, L, hd) kg, vg in gkv: float32 in
+// clusters of (kGlobCluster, 1, 1) blocks
 template <typename T, int HD, bool kGrad, typename Tc>
 cudaError_t launch_global_rows(const T* x, const T* wgq, const float* bgq, const T* gkv,
                                const int32_t* counts, const int32_t* seed, const T* dctx, Tc* ctx,
                                T* qg_buf, float* gstats, T* dqg, int B, int L, int H, int nh,
                                int G, int ld, float sm_scale, uint32_t thr, float keep_prob,
                                const QuantQuery& qq, cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
   auto rows = global_rows_kernel<T, HD, kGrad, Tc>;
-  const size_t smem = kF32 ? global_rows_smem_bytes<HD>(L) : global_rows_smem_mma<HD, kGrad>();
-  const cudaError_t e = prepare(rows, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(kF32 ? G : (G + kGlobRows - 1) / kGlobRows, nh, B);
-  rows<<<grid, grad_threads<T>(), smem, stream>>>(x, wgq, bgq, gkv, counts, seed, dctx, ctx,
-                                                   qg_buf, gstats, dqg, B, L, H, nh, G, ld,
-                                                   sm_scale, thr, keep_prob, qq);
-  return cudaGetLastError();
+  const int tiles = (G + kGlobRows - 1) / kGlobRows;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem = global_rows_smem_tf32<HD, kGrad>();
+    cudaError_t e = prepare(rows, smem);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = kGlobCluster;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles * kGlobCluster, nh, B);
+    cfg.blockDim = dim3(kGradThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, rows, x, wgq, bgq, gkv, counts, seed, dctx, ctx, qg_buf, gstats,
+                           dqg, B, L, H, nh, G, ld, sm_scale, thr, keep_prob, qq);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  } else {
+    constexpr size_t smem = global_rows_smem_mma<HD, kGrad>();
+    const cudaError_t e = prepare(rows, smem);
+    if (e != cudaSuccess) return e;
+    rows<<<dim3(tiles, nh, B), kGradThreads, smem, stream>>>(x, wgq, bgq, gkv, counts, seed, dctx,
+                                                             ctx, qg_buf, gstats, dqg, B, L, H,
+                                                             nh, G, ld, sm_scale, thr, keep_prob,
+                                                             qq);
+    return cudaGetLastError();
+  }
 }
 
 // counts, q, k, v and (with global rows) kg, vg. wqkv (H, 3 nh hd) and

@@ -17,7 +17,9 @@
 // tensor-core body (S and P.V on mma.sync, the mask, exponent and sums on the
 // fragments), and global_rows_kernel global_rows_mma.cuh's (the global
 // query, S and P.V on mma.sync, the keys split over the warps); float32
-// keeps every attention kernel on the CUDA cores.
+// runs the same kernels as 3xTF32 on mma.sync TF32 (tf32x3_gemm.cuh's tile,
+// the 3xTF32 siblings of both attention bodies, the global rows' keys split
+// further over a cluster of blocks).
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, kept q, k, v of the whole sequence in VMEM
@@ -35,7 +37,8 @@
 //      P.V): the band never leaves the block;
 //   4. global_rows_kernel: per (16 global rows, head, sequence) their
 //      query projected from x and attention over all real keys, written
-//      over the local rows; only tiles that hold a row g < n_glob run;
+//      over the local rows; only tiles that hold a row g < n_glob run
+//      (float32: a cluster of blocks a tile, each over a range of keys);
 //   5. gemm_bias_residual_ln_kernel (bf16_gemm.cuh): ctx . Wo + bo + x and the
 //      LayerNorm.
 //
@@ -54,7 +57,8 @@
 // tile, weights K-major); the global query stays an exact int32 loop on
 // the CUDA cores in global_rows_kernel (one live row a sequence on the main
 // paths, too small for a tile), and the band and global rows run their
-// bf16 tensor-core bodies with a float32 ctx (Tc = float).
+// tensor-core bodies (bf16 with a float32 ctx, Tc = float, or 3xTF32 on
+// float32 activations).
 #include "sliding_attention.cuh"
 
 namespace spk {
@@ -240,9 +244,9 @@ extern "C" int spk_sliding_rows(int dtype, int ctx_f32, int grad, const void* qk
 // also the global rows' statistics gstats (3, B, nh, G) float32 and dqg
 // rows g < n_glob (row stride ld), from dctx (B, L, nh hd). dtype: 0 =
 // float32, 1 = bfloat16 (x, wgq, gkv, dctx, qg, dqg and ctx); ctx_f32: the
-// W8A8 blocks' mode (bf16 kg, vg, a float32 ctx, no grad), the query from
-// x8 (B L, H) int8 with row scales sx (B L) and wgq8 (H, nh hd) int8 with
-// column scales swgq (x and wgq unused). seed (1,) int32 may be null when
+// W8A8 blocks' mode (kg, vg in the element type, a float32 ctx, no grad),
+// the query from x8 (B L, H) int8 with row scales sx (B L) and wgq8 (H, nh
+// hd) int8 with column scales swgq (x and wgq unused). seed (1,) int32 may be null when
 // thr is 0. Returns the first CUDA error, or 0.
 extern "C" int spk_sliding_global_rows(int dtype, int ctx_f32, int grad, const void* x,
                                        const void* wgq, const void* bgq, const void* gkv,
@@ -271,8 +275,8 @@ extern "C" int spk_sliding_global_rows(int dtype, int ctx_f32, int grad, const v
   using Yes = std::true_type;
   using No = std::false_type;
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && !ctx_f32) {
-    err = grad ? run(float{}, float{}, Yes{}) : run(float{}, float{}, No{});
+  if (dtype == 0) {  // ctx_f32: the W8A8 blocks' query on float32 activations
+    if (!(ctx_f32 && grad)) err = grad ? run(float{}, float{}, Yes{}) : run(float{}, float{}, No{});
   } else if (dtype == 1 && ctx_f32) {
     if (!grad) err = run(bf16{}, float{}, No{});
   } else if (dtype == 1) {

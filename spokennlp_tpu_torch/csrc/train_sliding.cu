@@ -45,9 +45,10 @@
 // values), the band rows kernel and the gradient kernels on the float32
 // siblings of the same bodies (rows_tile_tf32, grad_tile_tf32,
 // dq_from_ds_tile_tf32; 128 threads, the same callbacks), each dS stored
-// once in float32 for the dq pass (503 MB at B=8, L=2048, window 512). The
-// float32 global rows (global_rows_kernel, global_kv_grad_kernel) stay on
-// the CUDA cores.
+// once in float32 for the dq pass (503 MB at B=8, L=2048, window 512), and
+// global_rows_kernel on global_rows_tile_tf32 (a cluster of blocks a
+// (head, sequence), each over a range of its keys). global_kv_grad_kernel
+// stays on the CUDA cores in both dtypes.
 //
 // What the design does about the TPU kernel's assumptions. The TPU kernel
 // ran one grid step per sequence, summed dk and dv of overlapping bands into

@@ -15,12 +15,11 @@ model (``attention_block``, ``blhd_attention``), row 10's plain core and
 its rows and gradient models (``train_blocks``), the Longformer and BigBird
 blocks' plain attention (``sliding_block.sliding_attend``,
 ``bigbird_block.bigbird_attend``) and their rows and gradient models
-(``train_sliding``, ``train_bigbird``) and ``rows_attend``'s P V take their
-products through it. The float32 cores run those products as 3xTF32 on the
-tensor cores; the card gates send the hook to the 3xTF32 model
-(``int8_matmul.tf32x3_product``) and plant plain TF32 there. The Longformer
-global rows, whose float32 kernels stay on the CUDA cores, take
-``exact_product``.
+(``train_sliding``, ``train_bigbird``, the Longformer global rows' among
+them) and ``rows_attend``'s P V take their products through it. The float32
+cores run those products as 3xTF32 on the tensor cores; the card gates send
+the hook to the 3xTF32 model (``int8_matmul.tf32x3_product``) and plant
+plain TF32 there.
 """
 
 from __future__ import annotations
@@ -91,13 +90,6 @@ def rows_softmax(s: torch.Tensor, allowed: torch.Tensor, dt):
     m = torch.where(allowed, s, -torch.inf).amax(-1)
     e = rows_exponent(s, torch.where(torch.isfinite(m), m, 0.0)[..., None], dt)
     return m, torch.where(allowed, e, 0.0)
-
-
-def exact_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., M, K) . (..., K, N) in float32, never replaced: the products of
-    the models of kernels that run them on the CUDA cores (the Longformer
-    global rows)."""
-    return a.float() @ b.float()
 
 
 def rows_attend(s, v, allowed, keep, dt, keep_prob: float, dp=None, product=None):

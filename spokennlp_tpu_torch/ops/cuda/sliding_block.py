@@ -88,9 +88,8 @@ def sliding_attend(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, G: int, e
     ``glob_qkv`` = (qg (B, G, nh, hd) scaled, kg, vg (B, L, nh, hd)) or
     None; ``n_valid``, ``n_glob`` (B,) counts. ``exp_dtype``: the TPU
     kernels' rounded exponent (``_softmax``). ``keep`` as in
-    ``sliding_context_plain``. The band's and the global columns' products
-    go through ``attention_models.core_product``; the global rows', which
-    the kernels sum on the CUDA cores, are exact."""
+    ``sliding_context_plain``. The products of the band, the global columns
+    and the global rows go through ``attention_models.core_product``."""
     q, k, v = q.float(), k.float(), v.float()
     B, L, nh, hd = q.shape
     C = window // 2
@@ -119,13 +118,13 @@ def sliding_attend(q, k, v, glob_qkv, n_valid, n_glob, *, window: int, G: int, e
     if glob_qkv is None:
         return ctx
 
-    qg, kg, vg = (t.float() for t in glob_qkv)
+    qg, kg, vg = (t.float().transpose(1, 2) for t in glob_qkv)  # (B, nh, G or L, hd)
     key_real = torch.arange(L, device=dev)[None] < n_valid[:, None]  # (B, L)
-    s = torch.einsum("bgnd,blnd->bngl", qg, kg)
+    s = mm(qg, kg.transpose(-1, -2))  # (B, nh, G, L)
     p, denom = _softmax(torch.where(key_real[:, None, None], s, NEG_INF), exp_dtype)
     if dropout_rate > 0.0:
         p = torch.where(keep[2], p / (1.0 - dropout_rate), 0.0)
-    cg = _divide(torch.einsum("bngl,blnd->bgnd", p, vg), denom, (0, 2, 1, 3))
+    cg = _divide(mm(p, vg).transpose(1, 2), denom, (0, 2, 1, 3))
     is_global = (torch.arange(G, device=dev)[None] < n_glob[:, None])[:, :, None, None]
     return torch.cat([torch.where(is_global, cg, ctx[:, :G]), ctx[:, G:]], dim=1)
 
@@ -171,12 +170,12 @@ def sliding_context_plain(
     q, k, v = (qkv + qkv_bias.float()).unbind(2)  # (B, L, nh, hd)
     glob_qkv = None
     if global_rows:
-        # the global k and v are the kernels' projection GEMM (float_product);
-        # the global query is summed inside the global-rows kernel, not on it
+        # the global k and v are the kernels' projection GEMM, the global
+        # query the global-rows kernel's own product (both float_product)
         wg, bg = gqkv_kernel.float(), gqkv_bias.float()
         kv = float_product(x, wg[:, 1:].reshape(H, -1)).reshape(B, L, 2, *wg.shape[2:]) + bg[1:]
-        glob_qkv = ((torch.einsum("bgh,hnd->bgnd", x[:, :G], wg[:, 0]) + bg[0]) * sm_scale,
-                    kv[:, :, 0], kv[:, :, 1])
+        qg = float_product(x[:, :G], wg[:, 0].reshape(H, -1)).reshape(B, G, *wg.shape[2:])
+        glob_qkv = ((qg + bg[0]) * sm_scale, kv[:, :, 0], kv[:, :, 1])
     return sliding_attend(q * sm_scale, k, v, glob_qkv,
                           *_counts(attention_mask, global_mask, G, global_rows), window=window,
                           G=G, dropout_rate=dropout_rate, keep=keep)

@@ -45,7 +45,7 @@ from spokennlp_tpu_torch.ops.cuda import build
 from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
 from spokennlp_tpu_torch.ops.cuda import attention_models as am
 from spokennlp_tpu_torch.ops.cuda.attention_models import (
-    dense_core_grad, exact_product, rounded, rows_attend,
+    dense_core_grad, rounded, rows_attend,
 )
 from spokennlp_tpu_torch.ops.cuda.attention_block import _DTYPES
 from spokennlp_tpu_torch.ops.cuda.int8_matmul import float_product, int8_product
@@ -241,9 +241,10 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
     over a sequence's keys with float32 sums and no tiles; rounds where the
     kernels round (``dense_core_grad``; dq before and after the scale, the
     global rows' dq after it, dk and dv once). The banded rows' cotangent is
-    zero on global rows. The band's and global columns' products go through
-    ``attention_models.core_product``, the global rows' (whose kernels stay
-    on the CUDA cores) are exact. Returns (dq, dk, dv) and with glob_qkv
+    zero on global rows. The products of the band, the global columns and
+    the global rows' dq go through ``attention_models.core_product``; the
+    global keys' dk and dv (global_kv_grad_kernel, on the CUDA cores) are
+    exact. Returns (dq, dk, dv) and with glob_qkv
     (dqg, dkg, dvg), each (B, L, nh, hd) in q's dtype (dqg zero beyond the
     global rows)."""
     dt, dev = q.dtype, q.device
@@ -268,11 +269,11 @@ def sliding_core_bwd_model(q, k, v, glob_qkv, dctx, n_valid, n_glob, *, window: 
             continue
         qg, kg, vg = (t[b].float() for t in glob_qkv)
         qg = qg[:, :ng]
-        ds, pe = dense_core_grad(qg @ tr(kg), dc[:, :ng] @ tr(vg),
+        ds, pe = dense_core_grad(mm(qg, tr(kg)), mm(dc[:, :ng], tr(vg)),
                                  sliding_global_allowed(L, nv, ng, dev),
                                  None if keep is None else keep[2][b][:, :ng],
                                  None if gstats is None else gstats[:, b, :, :ng], dt, kp)
-        outs[3][b, :, :ng] = rounded(ds @ kg * sm_scale, dt)
+        outs[3][b, :, :ng] = rounded(mm(ds, kg) * sm_scale, dt)
         outs[4][b] = rounded(tr(ds) @ qg, dt)
         outs[5][b] = rounded(tr(pe) @ dc[:, :ng], dt)
     return tuple(o.transpose(1, 2).to(dt) for o in outs)
@@ -360,12 +361,11 @@ def sliding_global_rows_model(qg, kg, vg, n_valid, n_glob, *, sm_scale: float = 
     (``rows_attend``), ctx rounded to ``ctx_dtype`` (qg's dtype by default).
     With ``dctx`` (B, L, nh, hd) also the statistics (m, D, rowsum(dp
     p_eff)) and dqg = round((dS . kg) sm_scale) with dS from
-    ``dense_core_grad`` on those statistics. Dense over the keys with exact
-    float32 products (``attention_models.exact_product``: the kernel runs
-    them on the CUDA cores). Returns ctx (B, G, nh, hd), the statistics (3,
-    B, nh, G) float32
-    and dqg (B, G, nh, hd) in qg's dtype (the last two None without dctx),
-    zero on rows g >= n_glob."""
+    ``dense_core_grad`` on those statistics. Dense over the keys with float32
+    sums, every product through ``attention_models.core_product``. Returns
+    ctx (B, G, nh, hd), the statistics (3, B, nh, G) float32 and dqg (B, G,
+    nh, hd) in qg's dtype (the last two None without dctx), zero on rows g
+    >= n_glob."""
     dt, dev = qg.dtype, qg.device
     B, nh, G, hd = qg.shape
     L = kg.shape[2]
@@ -373,22 +373,22 @@ def sliding_global_rows_model(qg, kg, vg, n_valid, n_glob, *, sm_scale: float = 
     ctx = torch.zeros(B, nh, G, hd, device=dev)
     stats = torch.zeros(3, B, nh, G, device=dev)
     dqg = torch.zeros(B, nh, G, hd, device=dev)
-    tr = lambda t: t.transpose(-1, -2)
+    tr, mm = lambda t: t.transpose(-1, -2), am.core_product
     for b in range(B):
         nv, ng = int(n_valid[b]), int(n_glob[b])
         if ng == 0:
             continue
         q, k, v = qg[b, :, :ng].float(), kg[b].float(), vg[b].float()
-        s, allowed = q @ tr(k), sliding_global_allowed(L, nv, ng, dev)
+        s, allowed = mm(q, tr(k)), sliding_global_allowed(L, nv, ng, dev)
         kb = None if keep is None else keep[b][:, :ng]
-        dp = None if dctx is None else dctx[b, :ng].float().transpose(0, 1) @ tr(v)
-        c, m, D, rs = rows_attend(s, v, allowed, kb, dt, kp, dp, product=exact_product)
+        dp = None if dctx is None else mm(dctx[b, :ng].float().transpose(0, 1), tr(v))
+        c, m, D, rs = rows_attend(s, v, allowed, kb, dt, kp, dp)
         ctx[b, :, :ng] = c
         if dctx is None:
             continue
         stats[0, b, :, :ng], stats[1, b, :, :ng], stats[2, b, :, :ng] = m, D, rs
         ds, _ = dense_core_grad(s, dp, allowed, kb, (m, D, rs), dt, kp)
-        dqg[b, :, :ng] = rounded(ds @ k * sm_scale, dt)
+        dqg[b, :, :ng] = rounded(mm(ds, k) * sm_scale, dt)
     ctx = ctx.transpose(1, 2).to(ctx_dtype or dt)
     if dctx is None:
         return ctx, None, None
@@ -439,14 +439,15 @@ def sliding_global_query(x, wgq, bgq, n_glob, *, num_heads: int, sm_scale: float
                          quant=None):
     """The global rows' query as the plain versions take it: qg = round((x_g
     Wgq + bgq) sm_scale) of the first G rows of x (B, L, H), wgq (H, nh hd)
-    in x's dtype, bgq (nh hd,) float32, float32 sums; with ``quant`` (as
+    in x's dtype, bgq (nh hd,) float32, the product through ``float_product``
+    (the kernels' bf16 tile or 3xTF32); with ``quant`` (as
     ``sliding_global_rows`` takes it) the exact int32 product of the int8
     rows and weights, dequantised as the projections are. Returns (B, nh,
     G, hd) in x's dtype, zero on rows g >= n_glob (B,)."""
     B, L, H = x.shape
     dev = x.device
     if quant is None:
-        qg = x[:, :G].float() @ wgq.float() + bgq.float()
+        qg = float_product(x[:, :G], wgq) + bgq.float()
     else:
         rows = (torch.arange(B, device=dev)[:, None] * L + torch.arange(G, device=dev)[None])
         rows = rows.reshape(-1)

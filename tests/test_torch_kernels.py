@@ -737,7 +737,8 @@ def test_sass_verdict_on_canned_counts():
         f"{ns}18global_rows_kernelI{bf}Li64ELb0ES1_EEvPKT_": [0, 0, 64],
         f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_": [0, 2, 64],
         f"{ns}18global_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_": [0, 0, 112],
-        f"{ns}18global_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 2, 0],
+        f"{ns}18global_rows_kernelIfLi64ELb0EfEEvPKT_": [0, 2, 72],
+        f"{ns}18global_rows_kernelIfLi64ELb1EfEEvPKT_": [0, 0, 120],
         f"{stack}14band_dq_kernelI{bf}Li64EEEvPKT_": [0, 0, 32],
         f"{stack}14band_dq_kernelIfLi64EEEvPKT_": [0, 0, 96],
         f"{stack}15band_dkv_kernelI{bf}Li64EEEvPKT_": [0, 0, 48],
@@ -840,15 +841,25 @@ def test_sass_verdict_on_canned_counts():
         assert with_counts(name, [0, 0, 0]), name
     found = with_counts(f"{stack}15stack_core_itemIfLi64EEEvPKT_", [0, 0, 0])
     assert any("encoder_stack_i8_kernelIf" in m for m in found), found
-    # the float32 Longformer global rows stay on the CUDA cores:
-    # global_kv_grad_kernel (or global_rows_kernel, below) holding HMMA fails
+    # global_kv_grad_kernel stays on the CUDA cores in both dtypes: holding
+    # HMMA fails
     found = with_counts(f"{stack}21global_kv_grad_kernelIfLi64EEEvPKT_", [0, 0, 4])
     assert len(found) == 1 and "HMMA outside" in found[0], found
-    # the global rows: bf16 (the W8A8 mode's float32 ctx and the statistics
-    # pass among them) without HMMA, float32 with it
+    # the global rows, on the tensor cores in both dtypes: a bf16
+    # instantiation (the W8A8 mode's float32 ctx and the statistics pass
+    # among them) without HMMA, a float32 one without it (as the CUDA-core
+    # body left them, the old verdict's passing case), or the float32 ones
+    # missing
     assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb0EfEEvPKT_", [0, 2, 0])
     assert with_counts(f"{ns}18global_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_", [0, 0, 0])
-    assert with_counts(f"{ns}18global_rows_kernelIfLi64ELb0EfEEvPKT_", [0, 2, 4])
+    for name in (f"{ns}18global_rows_kernelIfLi64ELb0EfEEvPKT_",
+                 f"{ns}18global_rows_kernelIfLi64ELb1EfEEvPKT_"):
+        found = with_counts(name, [0, 2, 0])
+        assert found == [f"{name} has no HMMA: its float32 products do not run on the tensor "
+                         "cores"], found
+    found = chip_smoke.sass_verdict({k: v for k, v in good.items()
+                                     if "global_rows_kernelIf" not in k})
+    assert found == ["cuobjdump -sass shows no float32 instantiation of global_rows_kernel"], found
     # a stray function with HMMA or IDP4A, an int8 tile kernel without IMMA
     assert with_counts(f"{stack}25weight_grad_reduce_kernelEPKfimmPfmS2_i", [0, 0, 4])
     assert with_counts(f"{ns}16band_rows_kernelI{bf}Li64ELb1ES1_EEvPKT_", [0, 3, 128])
@@ -857,15 +868,17 @@ def test_sass_verdict_on_canned_counts():
 
 def test_sass_rule_puts_the_band_and_bigbird_cores_on_the_tensor_cores():
     """The SASS rule's lists: the band and BigBird rows and gradient kernels
-    need HMMA in both dtypes (CORE_HMMA_KERNELS), the Longformer global rows
-    in bf16 only (HMMA_KERNELS), and global_kv_grad_kernel, on no list,
-    none at all."""
-    six = ("band_rows_kernel", "bigbird_rows_kernel", "band_dq_kernel", "band_dkv_kernel",
-           "bigbird_dq_kernel", "bigbird_dkv_kernel")
-    assert set(six) <= set(chip_smoke.CORE_HMMA_KERNELS)
-    assert chip_smoke.HMMA_KERNELS == ("global_rows_kernel",)
-    lists = chip_smoke.HMMA_KERNELS + chip_smoke.CORE_HMMA_KERNELS + chip_smoke.GEMM_HMMA_KERNELS
+    and the Longformer global rows need HMMA in both dtypes
+    (CORE_HMMA_KERNELS; no list holds kernels whose float32 instances must
+    stay off the tensor cores), and global_kv_grad_kernel, on no list, none
+    at all."""
+    seven = ("band_rows_kernel", "bigbird_rows_kernel", "band_dq_kernel", "band_dkv_kernel",
+             "bigbird_dq_kernel", "bigbird_dkv_kernel", "global_rows_kernel")
+    assert set(seven) <= set(chip_smoke.CORE_HMMA_KERNELS)
+    assert not hasattr(chip_smoke, "HMMA_KERNELS")
+    lists = chip_smoke.CORE_HMMA_KERNELS + chip_smoke.GEMM_HMMA_KERNELS
     assert "global_kv_grad_kernel" not in lists
+    assert "global_rows_kernel" in chip_smoke.IDP4A_ALLOWED  # the W8A8 query
 
 
 def test_core_gate_limits_match_chip_smoke():

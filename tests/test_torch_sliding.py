@@ -230,9 +230,8 @@ def test_sliding_explicit_backward_matches_jax_kernel_vjp(global_rows):
 @pytest.mark.parametrize("global_rows", [True, False], ids=["globals", "no_globals"])
 def test_train_forward_on_the_tf32x3_model_matches_jax_kernel(global_rows):
     """Row 12's plain forward with its products through the 3xTF32 model
-    (chip_smoke.float_products: the projections and the out projection; the
-    global query stays exact, as the global-rows kernel sums it on the CUDA
-    cores), as the card's float32 forward takes them, against JAX's
+    (chip_smoke.float_products: the projections, the global query and the
+    out projection), as the card's float32 forward takes them, against JAX's
     training kernel (interpret mode) in float32: to 1e-5 of the output's
     largest magnitude on the real rows."""
     import jax.numpy as jnp
@@ -491,7 +490,7 @@ def _tf32x3_everywhere():
             + [(tb, "backward_product", None, lambda real, a, b: tf32x3_product(a, b))])
 
 
-def _f32_model_block(inp, global_rows):
+def _f32_model_block(inp, global_rows, window=WINDOW):
     """Row 12's float32 rounding models assembled into the block, every
     product on the 3xTF32 model: the output from sliding_rows_model (the
     global rows from sliding_global_rows_model over it) on the projections,
@@ -515,12 +514,12 @@ def _f32_model_block(inp, global_rows):
             else None
         ctx, _ = ts.sliding_rows_model(
             heads(p[:, :, 0] * sm), heads(p[:, :, 1]), heads(p[:, :, 2]), glob,
-            *sb._counts(t["attention_mask"], t["global_mask"], G, global_rows), window=WINDOW)
+            *sb._counts(t["attention_mask"], t["global_mask"], G, global_rows), window=window)
         out = tb.backward_product(ctx.reshape(Bm * Lm, -1), t["out_kernel"].reshape(-1, Hm))
         out = (out + t["out_bias"]).reshape(Bm, Lm, Hm)
         grads = ts.sliding_train_bwd_plain(
             t["hidden"], t["attention_mask"], t["global_mask"], *(t[k] for k in ARGS[1:6]),
-            t["cotangent"], sm_scale=sm, window=WINDOW, max_globals=16, global_rows=global_rows,
+            t["cotangent"], sm_scale=sm, window=window, max_globals=16, global_rows=global_rows,
             model_core=True)
     return [out] + list(grads)
 
@@ -634,6 +633,80 @@ def test_float32_forward_and_tol_gates_reject_plain_tf32():
     gated = chip_smoke.f32_tol_fault(got, run(chip_smoke.core_products(chip_smoke.plain_tf32)),
                                      ("out",) + ARGS, "sliding_train")
     assert min(gated.values()) > 1
+
+
+@pytest.mark.parametrize("n_glob", [1, 2])
+def test_float32_global_rows_on_the_tf32x3_model_match_jax_kernel_vjp(n_glob):
+    """Row 12's float32 rounding models with global rows at L=128, window 32
+    (the global rows' model sliding_global_rows_model inside
+    sliding_rows_model, their dq inside sliding_core_bwd_model), every
+    product on the 3xTF32 model as the float32 kernels take them (the global
+    rows' query, S, dP, P V and dS kg on global_rows_mma.cuh's 3xTF32 body),
+    assembled into the block: the output and its VJP against JAX's
+    sliding_attention_block_train (interpret mode, rate 0) in float32 with
+    n_glob global tokens a row, within 1e-5 of each output's largest
+    magnitude (real rows of the output)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas.train_sliding import sliding_attention_block_train as jax_train
+
+    Lm, window = 128, 32
+    inp = _inputs(B, Lm, H, NH, seed=67)
+    inp["global_mask"] = _masks(B, Lm, 67, n_globals=(n_glob,))[1]
+    mask, glob = jnp.asarray(inp["attention_mask"]), jnp.asarray(inp["global_mask"])
+    out, vjp = jax.vjp(
+        lambda h, *p: jax_train(h, mask, glob, *p, jnp.zeros((1,), jnp.int32), HD**-0.5,
+                                dropout_rate=0.0, interpret=True, window=window, max_globals=16,
+                                global_rows=True),
+        *(jnp.asarray(inp[k]) for k in ARGS))
+    want = [out, *vjp(jnp.asarray(inp["cotangent"]))]
+    got = _f32_model_block(inp, True, window)
+    live = inp["attention_mask"].astype(bool)
+    got[0], want[0] = got[0].numpy()[live], np.asarray(want[0])[live]
+    for name, g, w in zip(("out",) + ARGS, got, want):
+        g = np.asarray(g)
+        w = np.asarray(w).reshape(g.shape)
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("gate", ["forward", "statistics pass", "query"])
+def test_float32_global_gates_reject_plain_tf32(gate):
+    """chip_smoke's float32 gates of the global rows at L=128, window 32, CLS
+    global, rate 0.1, fed outputs whose products are exact float32 (they
+    differ from the 3xTF32 model by float32 rounding, as the kernel's sums
+    do): ctx and the statistics within ROWS_TOL["float32"] and dqg within
+    F32_BWD_CORE_TOL (check_global_rows with f32) pass and reject
+    chip_smoke.F32_CORE_FAULT (plain TF32 in the model's products) and the
+    model with a key tile dropped; the 3xTF32 query within QG_F32_TOL
+    (check_f32_query) passes and rejects the bias-free query and the query
+    on plain TF32 products. Each check raises where it accepts a fault."""
+    c = _f32_gate_case()
+    if gate == "query":
+        rng = np.random.default_rng(69)
+        f = lambda *shape, scale=1.0: torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32))
+        Bm, Lm, Hm, nh, hd = 2, 128, 64, 2, 64
+        x, wgq, bgq = f(Bm, Lm, Hm), f(Hm, nh * hd, scale=Hm**-0.5), f(nh * hd, scale=0.1)
+        n_glob, G = torch.tensor([1, 16]), sb.global_columns(16, Lm)
+        plain = lambda bias=True: ts.sliding_global_query(
+            x, wgq, bgq if bias else torch.zeros_like(bgq), n_glob, num_heads=nh,
+            sm_scale=hd**-0.5, G=G)
+        with chip_smoke.planted(chip_smoke.float_products(chip_smoke.tf32x3_model)):
+            qg = plain()
+        gated = chip_smoke.check_f32_query("global query float32", qg, plain)
+        assert set(gated["faults"]) == set(chip_smoke.QG_F32_FAULTS)
+        assert chip_smoke.QG_F32_TOL == chip_smoke.F32_FWD_TOL
+        return
+    dctx = c["dctx"] if gate == "statistics pass" else None
+    model = lambda: ts.sliding_global_rows_model(
+        *c["glob"], c["n_valid"], c["n_glob"], sm_scale=c["sm"], dctx=dctx,
+        dropout_rate=c["rate"], keep=c["keep"][2])
+    ctx, stats, dqg = model()
+    gated = chip_smoke.check_global_rows(f"global_rows float32 {gate}",
+                                         (ctx, c["glob"][0], stats, dqg), model, f32=True)
+    assert set(gated["faults"]) == {chip_smoke.ROWS_FAULTS[1], chip_smoke.F32_CORE_FAULT}
 
 
 # --------------------------------------------- the global rows alone (CPU)
@@ -1294,3 +1367,85 @@ def test_sliding_global_rows_kernel_matches_rounding_model_on_card(cuda, mode, r
             bad = chip_smoke.global_rows_readings(runs[0], model())
         print(f"  {fault}: {bad}")
         assert chip_smoke.global_rows_excess(bad, ctx.dtype) > 1, (fault, bad)
+
+
+# float32 global rows (3xTF32, a cluster of blocks a (head, sequence)):
+# ragged lengths (L 240 and 176 with padded rows), head dims 64, 16 and 128,
+# n_glob 0, 1 and 16, the recipe's micro-batch of 2 and the serving batch
+# of 8 at the main paths' shape
+F32_GLOBAL_CARD_CASES = ([((2, 240, 128, 2, 48), n) for n in (0, 1, 16)]
+                         + [((8, 176, 64, 4, 16), n) for n in (1, 16)]
+                         + [((2, 384, 256, 2, 128), n) for n in (1, 16)]
+                         + [((Bc, 2048, 768, 12, 512), n) for Bc in (2, 8) for n in (1, 16)])
+F32_GLOBAL_MODES = [("f32", 0.0), ("f32", 0.1), ("w8a8", 0.0), ("stats", 0.0), ("stats", 0.1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,rate", F32_GLOBAL_MODES)
+@pytest.mark.parametrize("shape,n_glob", F32_GLOBAL_CARD_CASES)
+def test_float32_global_rows_kernel_matches_tf32x3_model_on_card(cuda, mode, rate, shape, n_glob):
+    """float32 (3xTF32): global_rows_kernel alone (ts.sliding_global_rows) on
+    the kg, vg, counts and dctx of a float32 backward of the block with
+    n_glob global tokens a row, in each mode: a float32 ctx, the W8A8
+    blocks' int8 query on float32 activations, and the statistics pass. qg
+    within chip_smoke.QG_F32_TOL of the plain query (check_f32_query, which
+    also fails where the bias-free or the plain TF32 query passes; W8A8 bit
+    for bit), ctx, the statistics and dqg against sliding_global_rows_model
+    on the 3xTF32 model (check_global_rows with f32: ROWS_TOL["float32"],
+    F32_BWD_CORE_TOL; F32_CORE_FAULT and the dropped key tile must fail);
+    the statistics pass's qg, statistics and dqg equal the backward's own;
+    two runs give the same bits; with no global token every output is
+    zero."""
+    Bc, Lc, Hc, nh, window = shape
+    from spokennlp_tpu_torch.ops.cuda.int8_matmul import quantize_colwise, rowquant_plain
+
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + 19)
+    G = sb.global_columns(16, Lc)
+    inp["global_mask"][:] = 0
+    inp["global_mask"][:, :n_glob] = 1
+    t = _card_tensors(inp, cuda, torch.float32)
+    hd = Hc // nh
+    w = sb.card_weights(*(t[k] for k in ARGS[1:6]), torch.float32)
+    seed = torch.tensor([29], dtype=torch.int32, device=cuda)
+    bufs = {}
+    ts.sliding_train_bwd(t["hidden"], t["attention_mask"], t["global_mask"], seed, w,
+                         t["cotangent"], num_heads=nh, window=window, max_globals=16,
+                         global_rows=True, sm_scale=hd**-0.5, dropout_rate=rate, buffers=bufs)
+    counts, gkv, x = bufs["counts"], bufs["gkv"], t["hidden"]
+    quant = None
+    if mode == "w8a8":
+        x8, sx = rowquant_plain(x.reshape(-1, Hc))
+        w8, sw = quantize_colwise(w["wgq"].float())
+        quant = dict(x8=x8, sx=sx.reshape(-1).contiguous(), wgq8=w8.contiguous(),
+                     swgq=sw.reshape(-1).contiguous())
+    dctx = bufs["dctx"] if mode == "stats" else None
+    runs = [ts.sliding_global_rows(x, w["wgq"], w["bgq"], gkv, counts, seed, sm_scale=hd**-0.5,
+                                   dctx=dctx, dropout_rate=rate, quant=quant) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    ctx, qg, stats, dqg = runs[0]
+    assert ctx.dtype == qg.dtype == torch.float32
+    n = counts.long()
+    live = torch.arange(G, device=cuda)[None] < n[:, 1:2]
+    plain = lambda bias=True: ts.sliding_global_query(
+        x, w["wgq"], w["bgq"] if bias else torch.zeros_like(w["bgq"]), n[:, 1], num_heads=nh,
+        sm_scale=hd**-0.5, G=G, quant=quant)
+    if mode == "stats":
+        assert torch.equal(qg, torch.where(live[:, None, :, None], bufs["qg"], 0.0))
+        assert torch.equal(stats, torch.where(live[None, :, None], bufs["gstats"], 0.0))
+        dproj = bufs["dproj"].reshape(Bc, Lc, 6, nh, hd)[:, :G, 3]
+        assert torch.equal(dqg, torch.where(live[:, :, None, None], dproj, 0.0))
+    if n_glob == 0:
+        assert not any(r.any() for r in runs[0] if r is not None)
+        return
+    label = f"global_rows float32 {Bc}x{Lc} hd {hd} n_glob {n_glob} {mode} rate {rate}"
+    if quant is not None:
+        assert torch.equal(qg, plain())
+    else:
+        chip_smoke.check_f32_query(label, qg, plain)
+    keep = ts.sliding_keep_masks(seed, Bc, nh, Lc, window, G, rate)[2] if rate else None
+    model = lambda: ts.sliding_global_rows_model(
+        qg, gkv[0], gkv[1], n[:, 0], n[:, 1], sm_scale=hd**-0.5,
+        dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd), dropout_rate=rate,
+        keep=keep)
+    chip_smoke.check_global_rows(label, runs[0], model, f32=True)

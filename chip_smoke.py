@@ -98,13 +98,30 @@
    each kernel path's argmax agreement >= 0.99 with the einsum path of its
    quantisation on the first 128 windows (W8A8 against unquantised printed,
    not gated); windows/s, peak memory, and the busy share and top kernels
-   of the auto and pallas engine calls under torch.profiler.
+   of the auto and pallas engine calls under torch.profiler. The serving
+   paths of the same model: attention_impl "flash" (kernel 6 once a layer a
+   batch, gated against einsum like pallas); eval/streaming.py at batch 128,
+   two batches a chunk (kernels 1 + 2; its per-document scores equal the
+   batch engine's bit for bit; its timing split printed); the cos predictor
+   at batch 32 (kernel 3) against the W8A8 einsum path (the > 0.5 decisions
+   agree on >= 0.99 of the sentences). Packed inference (eval/
+   packed_inference.py) over a corpus of short documents (most rows hold
+   several windows): at batch 32 (kernel 3) and 128 (kernels 1 + 2) against
+   the unpacked engine (argmax agreement >= 0.99), and kernel 3 on the
+   packed rows against its chain of kernels 1 + 2 (bit for bit) and its
+   plain loop. Checkpoints: the serving model exported natively, as an HF
+   directory and as HF safetensors written here, each read back through
+   run_inference --model_name_or_path with the same per-document scores, bit
+   for bit, as the model in memory.
 6. Training main path: fine-tuning through cli/run_finetune.main at
    BERT-base widths and 12 layers, L=512, bfloat16, with the DA view, TSSP
    and eop_matrix CSSL, for a few optimizer steps on a synthetic corpus.
    Checks that each training kernel ran layers x views x steps times, that
    every loss and grad_norm is finite, and that the checkpoint written at
    the end reloads and equals the final model; prints steps/s and windows/s.
+   Then two steps with attention_impl "flash" and --save_hf_format: the
+   same training kernels as many times a step, and final_model_hf loads back
+   to final_model's parameters.
 7. Fused against einsum training on one batch at dropout 0: the loss within
    1e-2 relative and the cosine similarity of every layer's weight-matrix
    gradients >= 0.99.
@@ -254,8 +271,9 @@
    the 3xTF32 products (F32_CORE_FAULT and the dropped key tile must fail),
    two launches the same bits, the time beside the 3xTF32 bound and SDPA
    float32's (the float32 rows' global_* keys, B=2 ending in _b2).
-21. Prints the serving runs, the Longformer, BigBird, MUG and W8A8
-   long-context runs and the kernels as JSON lines, the card's name and
+21. Prints the serving runs (flash, streaming and cos among them), the
+   packed, checkpoint and flash training runs, the Longformer, BigBird, MUG
+   and W8A8 long-context runs and the kernels as JSON lines, the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
@@ -264,6 +282,7 @@ when any phase fails.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import itertools
 import json
@@ -4939,11 +4958,11 @@ def mug_path(ckpts: dict, data: Path, out: Path, device="cuda") -> dict:
     return result
 
 
-def serving_model(attention_impl: str, quantize: str):
+def serving_model(attention_impl: str, quantize: str, predictor: str = "lt"):
     """bench.py's make_model at full width (BERT-base, 512 positions, no
     pooler, softmax in the compute type, bf16 compute, float32 parameters),
     weights from seed 0 drawn on the card: every call gives the same
-    weights."""
+    weights. ``predictor``: the ts_score_predictor ("lt" or "cos")."""
     import torch
 
     from spokennlp_tpu_torch.configs import EncoderConfig, TopicSegConfig
@@ -4954,7 +4973,8 @@ def serving_model(attention_impl: str, quantize: str):
                         attention_impl=attention_impl, softmax_in_compute_dtype=True,
                         quantize=quantize)
     with torch.device("cuda"):
-        model = TopicSegModel(enc, TopicSegConfig(), dtype=torch.bfloat16,
+        model = TopicSegModel(enc, TopicSegConfig(ts_score_predictor=predictor),
+                              dtype=torch.bfloat16,
                               generator=torch.Generator(device="cuda").manual_seed(0))
     return model.eval()
 
@@ -4963,12 +4983,14 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
     """The repo's serving configuration through the engine call
     (run_topic_seg_inference), as scripts/bench_engine.py drives it, on the
     dense phase's corpus: W8A8 and unquantised, attention_impl auto at each of
-    SERVE_BATCHES, the W8A8 einsum path and the bf16 pallas and einsum paths.
-    Checks each run's launches per batch and finite metrics; holds each
+    SERVE_BATCHES, the W8A8 einsum path and the bf16 pallas, flash and einsum
+    paths. Checks each run's launches per batch and finite metrics; holds each
     kernel path's logits on the first 128 windows against the einsum path of
     its quantisation (argmax agreement >= MIN_ARGMAX_AGREEMENT); prints
     windows/s and peak memory, and the device busy share and top kernels of
-    the auto and pallas engine calls."""
+    the auto and pallas engine calls. Then streams the corpus through the
+    W8A8 model at the large batch (streaming_run) and runs the cos predictor
+    (cos_runs)."""
     import torch
 
     from spokennlp_tpu_torch.cli import common, run_inference
@@ -5004,6 +5026,7 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
             ("none", "auto", small, {"fused_encoder_stack": 1}),
             ("none", "auto", large, blocks),
             ("none", "pallas", small, {"snld_self_attention": LAYERS}),
+            ("none", "flash", small, {"snld_self_attention": LAYERS}),
             ("none", "einsum", small, {})]
     res = {}
     for quantize, impl, bs, per_batch in runs:
@@ -5043,6 +5066,8 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
                   f"ms; top kernels " + ", ".join(f"{name} {v['ms']:.1f} ms ({v['share']:.3f})"
                                                   for name, v in row["top_kernels"].items()))
         row["logits"] = predict_windows_scanned(model, first, bs, gather_sents=True)[live]
+        if (quantize, impl, bs) == ("w8a8", "auto", large):
+            row["streaming"] = streaming_run(model, docs, wcfg, out, bs)
         res[quantize, impl, bs] = row
         del model
         torch.cuda.empty_cache()
@@ -5053,6 +5078,7 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
              (("none", "auto", small), ("none", "einsum", small), True),
              (("none", "auto", large), ("none", "einsum", small), True),
              (("none", "pallas", small), ("none", "einsum", small), True),
+             (("none", "flash", small), ("none", "einsum", small), True),
              (("w8a8", "einsum", small), ("none", "einsum", small), False)]
     agreement = {}
     for a, b, gate in pairs:
@@ -5067,7 +5093,290 @@ def serving_path(data_dir: str, out_dir: str) -> dict:
             fail(f"serving agreement {name}: {value:.4f} < {MIN_ARGMAX_AGREEMENT}")
     for row in res.values():
         row.pop("logits")
-    return {"runs": {" ".join(map(str, k)): v for k, v in res.items()}, "agreement": agreement}
+    return {"runs": {" ".join(map(str, k)): v for k, v in res.items()}, "agreement": agreement,
+            "cos": cos_runs(docs, wcfg, small)}
+
+
+def streaming_run(model, docs, wcfg, batch_out: dict, bs: int, chunk_batches: int = 2) -> dict:
+    """eval/streaming.py's engine over the corpus on ``model`` at batch
+    ``bs``: its per-document scores must equal ``batch_out``'s (the batch
+    engine's call at the same batch) bit for bit, and the dense kernels run
+    once a layer a batch, the tail chunk padded to whole batches. Prints its
+    windows/s, timing split, peak memory and launches."""
+    from spokennlp_tpu_torch.eval.streaming import stream_topic_seg_inference
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+
+    wrappers = {"fused_attention_block": fused_attention_block, "fused_mlp_block": fused_mlp_block}
+    reset_counts(wrappers)
+    reset_peak()
+    t0 = time.perf_counter()
+    out = stream_topic_seg_inference(model, docs, wcfg, batch_size=bs,
+                                     chunk_batches=chunk_batches, threshold=0.5)
+    secs = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    peak = peak_gib()
+    timing = out["timing"]
+    n_batches = chunk_batches * math.ceil(timing["windows"] / (bs * chunk_batches))
+    if launches != {k: LAYERS * n_batches for k in wrappers}:
+        fail(f"streaming: launches {launches}, expected {LAYERS} x {n_batches} batches each")
+    same = len(out["per_doc"]) == len(batch_out["per_doc"]) and all(
+        np.array_equal(a["labels"], b["labels"]) and np.array_equal(a["scores"], b["scores"])
+        for a, b in zip(out["per_doc"], batch_out["per_doc"]))
+    if not same:
+        fail("streaming: per-document scores differ from the batch engine's at the same batch")
+    if out["metrics"] != batch_out["metrics"]:
+        fail(f"streaming: metrics {out['metrics']} differ from the batch engine's")
+    parts = sum(timing[k] for k in ("featurize", "dispatch", "fetch", "aggregate", "metrics"))
+    row = {"windows_per_s": timing["windows"] / secs, "seconds": secs, "timing": timing,
+           "timing_parts_share": parts / timing["total"], "peak_gib": peak, "launches": launches}
+    print(f"streaming W8A8 batch {bs}, {chunk_batches} batches a chunk: {timing['windows']} "
+          f"windows in {secs:.3f} s ({row['windows_per_s']:.1f} windows/s), peak {peak:.2f} "
+          f"GiB, launches {launches}; per-document scores equal the batch engine's bit for bit; "
+          f"timing {timing} (parts {row['timing_parts_share']:.4f} of the total)")
+    return row
+
+
+def cos_runs(docs, wcfg, bs: int) -> dict:
+    """The cos predictor (sigmoid of adjacent sentences' cosine) on the W8A8
+    serving model at batch ``bs`` (kernel 3, once a batch) and on the W8A8
+    einsum path: the > 0.5 decisions must agree on MIN_ARGMAX_AGREEMENT of
+    the labelled slots; prints the largest |difference|, each run's
+    windows/s, peak memory and launches."""
+    import torch
+
+    from spokennlp_tpu_torch.eval.inference import run_topic_seg_inference
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+    wrappers = {"fused_encoder_stack": fused_encoder_stack}
+    rows, scores = {}, {}
+    for impl in ("auto", "einsum"):
+        model = serving_model(impl, "w8a8", predictor="cos")
+        reset_counts(wrappers)
+        reset_peak()
+        t0 = time.perf_counter()
+        out = run_topic_seg_inference(model, docs, wcfg, batch_size=bs, threshold=0.5,
+                                      ts_score_predictor="cos")
+        secs = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        n, peak = out["num_windows"], peak_gib()
+        want = math.ceil(n / bs) if impl == "auto" else 0
+        if launches["fused_encoder_stack"] != want:
+            fail(f"cos {impl}: launches {launches}, expected fused_encoder_stack {want}")
+        scores[impl] = np.concatenate([d["scores"] for d in out["per_doc"]])
+        if scores[impl].ndim != 1 or not np.isfinite(scores[impl]).all():
+            fail(f"cos {impl}: scores must be finite and one a labelled sentence")
+        rows[impl] = {"windows_per_s": n / secs, "seconds": secs, "peak_gib": peak,
+                      "launches": launches, "metrics": out["metrics"]}
+        print(f"cos W8A8 {impl} batch {bs}: {n} windows in {secs:.3f} s "
+              f"({n / secs:.1f} windows/s), peak {peak:.2f} GiB, launches {launches}")
+        del model
+        torch.cuda.empty_cache()
+    a, b = scores["auto"], scores["einsum"]
+    agreement = float(((a > 0.5) == (b > 0.5)).mean())
+    dmax = float(np.abs(a - b).max())
+    print(f"cos kernel 3 vs einsum on {len(a)} labelled sentences: > 0.5 decisions agree on "
+          f"{agreement:.4f}, max |d sigmoid-cos| {dmax:.3e}")
+    if agreement < MIN_ARGMAX_AGREEMENT:
+        fail(f"cos: decisions agree on {agreement:.4f} < {MIN_ARGMAX_AGREEMENT}")
+    return {"runs": rows, "agreement": agreement, "max_abs_diff": dmax}
+
+
+def packed_path(data_dir: str, out_dir: str) -> dict:
+    """eval/packed_inference.py on the W8A8 serving model over a corpus of
+    short documents (at least half the packed rows must hold two windows or
+    more): at the small serving batch (kernel 3 on the packed segment ids)
+    and the large one (kernels 1 + 2), each against the unpacked engine at
+    the same batch (argmax agreement >= MIN_ARGMAX_AGREEMENT on the labelled
+    sentences); and kernel 3 on the first packed batch against its chain of
+    kernels 1 + 2 (bit for bit) and its plain loop (STACK_TOL). Prints rows
+    against windows, windows/s, peak memory and launches."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, run_inference
+    from spokennlp_tpu_torch.data.windowing import stack_windows, window_document
+    from spokennlp_tpu_torch.eval.inference import predict_windows_scanned
+    from spokennlp_tpu_torch.eval.packed_inference import build_packed_batch, predict_windows_packed
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+    args = run_inference.make_parser().parse_args(main_path_argv(data_dir, out_dir))
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    _, _, wcfg, _ = common.build_configs(args, special)
+    docs = common.load_docs(args, tokenize_fn)["test"]
+    windows = [w for i, d in enumerate(docs)
+               for w in window_document(d["sent_token_ids"], d["labels"], wcfg, i)]
+    batch = stack_windows(windows)
+    packed, plan = build_packed_batch(windows, L)
+    per_row = np.array([len(p.window_indices) for p in plan])
+    share = float((per_row >= 2).mean())
+    print(f"packed: {len(windows)} windows in {len(plan)} rows of {L} tokens, {per_row.mean():.2f} "
+          f"windows a row (at most {per_row.max()}), {share:.3f} of the rows hold two or more")
+    if share < 0.5:
+        fail(f"packed: only {share:.3f} of the rows hold two windows or more")
+    model = serving_model("auto", "w8a8")
+    wrappers = {"fused_encoder_stack": fused_encoder_stack,
+                "fused_attention_block": fused_attention_block, "fused_mlp_block": fused_mlp_block}
+    live = batch["sent_labels"] != -100
+    res = {"windows": len(windows), "rows": len(plan), "windows_per_row": float(per_row.mean()),
+           "rows_with_two_or_more": share}
+    small, large = SERVE_BATCHES
+    for bs, per_batch in ((small, {"fused_encoder_stack": 1}),
+                          (large, {"fused_attention_block": LAYERS, "fused_mlp_block": LAYERS})):
+        reset_counts(wrappers)
+        reset_peak()
+        t0 = time.perf_counter()
+        logits = predict_windows_packed(model, windows, L, batch_size=bs)
+        secs = time.perf_counter() - t0  # ends in a copy to the host
+        launches = read_counts(wrappers)
+        peak = peak_gib()
+        n_batches = math.ceil(len(plan) / bs)
+        expected = {k: per_batch.get(k, 0) * n_batches for k in wrappers}
+        if launches != expected:
+            fail(f"packed batch {bs}: launches {launches}, expected {expected}")
+        got = np.take_along_axis(logits, batch["sent_positions"][:, :, None], axis=1)[live]
+        want = predict_windows_scanned(model, batch, bs, gather_sents=True)[live]
+        agreement = float((got.argmax(-1) == want.argmax(-1)).mean())
+        dmax = float(np.abs(got - want).max())
+        res[f"batch {bs}"] = {"windows_per_s": len(windows) / secs, "seconds": secs,
+                              "peak_gib": peak, "agreement": agreement, "max_dlogit": dmax,
+                              "launches": {k: v for k, v in launches.items() if v}}
+        print(f"packed W8A8 batch {bs}: {len(plan)} rows for {len(windows)} windows in "
+              f"{secs:.3f} s ({len(windows) / secs:.1f} windows/s), peak {peak:.2f} GiB, "
+              f"launches {res[f'batch {bs}']['launches']}; against the unpacked engine on "
+              f"{int(live.sum())} labelled sentences: argmax {agreement:.4f}, max |dlogit| "
+              f"{dmax:.4f}")
+        if agreement < MIN_ARGMAX_AGREEMENT:
+            fail(f"packed batch {bs}: argmax agreement {agreement:.4f} < {MIN_ARGMAX_AGREEMENT}")
+    res["kernel_check"] = packed_kernel_check(model, packed, small)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def packed_kernel_check(model, packed: dict, rows: int) -> dict:
+    """Kernel 3 on the first ``rows`` packed rows of ``packed``
+    (build_packed_batch's arrays: several windows a row, positions restarting
+    at each) with the W8A8 model's weights, against its chain of kernels 1 + 2
+    (bit for bit) and the plain loop of layers (STACK_TOL), on the rows'
+    real tokens."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack, stack_plain
+
+    t = {k: torch.from_numpy(v[:rows]).cuda() for k, v in packed.items()}
+    cfg, seg = model.enc_cfg, t["pack_segment_ids"]
+    valid = seg > 0
+    kw = dict(sm_scale=cfg.head_dim**-0.5, quantized=True, activation=cfg.hidden_act,
+              eps=cfg.layer_norm_eps)
+    with torch.inference_mode():
+        ids = t["input_ids"]
+        hidden = model.encoder.embeddings(ids, torch.zeros_like(ids), t["position_ids"])
+        p = [torch.stack(ps) for ps in zip(*(l.stack_params() for l in model.encoder.layers()))]
+        got = fused_encoder_stack(hidden, seg, *p, **kw)
+        h = hidden
+        for l in range(cfg.num_layers):
+            h = fused_attention_block(h, seg, *(x[l] for x in p[:4]), sm_scale=kw["sm_scale"],
+                                      ln_scale=p[4][l], ln_bias=p[5][l], eps=kw["eps"],
+                                      quantized=True)
+            h = fused_mlp_block(h.reshape(-1, cfg.hidden_size), *(x[l] for x in p[6:]),
+                                activation=kw["activation"], eps=kw["eps"],
+                                quantized=True).reshape(hidden.shape)
+        want = stack_plain(hidden, seg, *p, **kw)
+        torch.cuda.synchronize()
+    if not torch.equal(got[valid], h[valid]):
+        fail("packed rows: kernel 3 differs from its chain of kernels 1 + 2")
+    e = (got[valid].float() - want[valid].float()).abs().max().item()
+    rel, limit = e / want[valid].float().abs().max().item(), STACK_TOL["W8A8", "bfloat16"]
+    per_row = seg.amax(1).float().mean().item()
+    print(f"packed rows ({rows}, {per_row:.2f} windows a row on average): kernel 3 equals its "
+          f"chain of kernels 1 + 2 bit for bit; against the plain loop max |err| {e:.3e}, / max "
+          f"|ref| {rel:.3e} (limit {limit})")
+    if rel > limit:
+        fail(f"packed rows: kernel 3 against the plain loop {rel:.3e} > {limit}")
+    return {"max_abs_err": e, "rel_err": rel}
+
+
+def checkpoint_path(data_dir: str, root: Path) -> dict:
+    """The W8A8 serving model exported as a native checkpoint
+    (models/checkpoint_io.py), as an HF directory (models/hf_export.py, the
+    exporter of run_finetune --save_hf_format) and as that directory with
+    model.safetensors written here (cli/hf_checkpoint.write_safetensors) in
+    place of pytorch_model.bin, each read back through run_inference
+    --model_name_or_path at the small serving batch: its per-document scores
+    must equal, bit for bit, those of the model in memory under the
+    configuration the directory carries (native: the W8A8 serving one; HF:
+    the same weights unquantised with a float32 softmax, what an HF config
+    can say); kernel 3 runs once a batch. Prints each run's seconds,
+    windows/s, peak memory and launches."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, hf_checkpoint, run_inference
+    from spokennlp_tpu_torch.eval.inference import run_topic_seg_inference
+    from spokennlp_tpu_torch.models import checkpoint_io, hf_export
+    from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+    small = SERVE_BATCHES[0]
+    argv = main_path_argv(data_dir, str(root / "out"))
+    args = run_inference.make_parser().parse_args(argv)
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    _, task_cfg, wcfg, _ = common.build_configs(args, special)
+    docs = common.load_docs(args, tokenize_fn)["test"]
+    model = serving_model("auto", "w8a8")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    params = checkpoint_io.params_from_state_dict(state)
+    t0 = time.perf_counter()
+    dirs = {"native": root / "native", "hf": root / "hf", "hf safetensors": root / "hf_st"}
+    checkpoint_io.save_checkpoint(str(dirs["native"]), params, model.enc_cfg)
+    hf_export.save_hf_checkpoint(str(dirs["hf"]), params, model.enc_cfg)
+    dirs["hf safetensors"].mkdir()
+    (dirs["hf safetensors"] / "config.json").write_text((dirs["hf"] / "config.json").read_text())
+    hf_checkpoint.write_safetensors(
+        str(dirs["hf safetensors"] / "model.safetensors"),
+        torch.load(dirs["hf"] / "pytorch_model.bin", weights_only=True), {"format": "pt"})
+    print(f"checkpoints: native, HF and safetensors written in {time.perf_counter() - t0:.1f} s")
+    hf_cfg = dataclasses.replace(model.enc_cfg, quantize="none", softmax_in_compute_dtype=False)
+    with torch.device(next(model.parameters()).device):
+        hf_model = TopicSegModel(hf_cfg, task_cfg, dtype=torch.bfloat16)
+    hf_model.load_state_dict(state, strict=True)
+    want = {"native": run_topic_seg_inference(model, docs, wcfg, batch_size=small, threshold=0.5),
+            "hf": run_topic_seg_inference(hf_model.eval(), docs, wcfg, batch_size=small,
+                                          threshold=0.5)}
+    del model, hf_model
+    torch.cuda.empty_cache()
+    wrappers = {"fused_encoder_stack": fused_encoder_stack}
+    res = {}
+    for name, path in dirs.items():
+        reset_counts(wrappers)
+        reset_peak()
+        t0 = time.perf_counter()
+        out = run_inference.main(argv + ["--model_name_or_path", str(path), "--output_dir",
+                                          str(root / f"out_{name.replace(' ', '_')}")])
+        secs = time.perf_counter() - t0
+        launches, peak = read_counts(wrappers), peak_gib()
+        n_batches = math.ceil(out["num_windows"] / small)
+        if launches["fused_encoder_stack"] != n_batches:
+            fail(f"checkpoint {name}: launches {launches}, expected kernel 3 {n_batches} times")
+        ref = want["native" if name == "native" else "hf"]
+        same = len(out["per_doc"]) == len(ref["per_doc"]) and all(
+            np.array_equal(a["scores"], b["scores"]) for a, b in zip(out["per_doc"],
+                                                                    ref["per_doc"]))
+        if not same:
+            fail(f"checkpoint {name}: run_inference's scores differ from the model in memory")
+        res[name] = {"seconds": secs, "predict_time_s": out["predict_time_s"],
+                     "windows_per_s": out["num_windows"] / out["predict_time_s"],
+                     "peak_gib": peak, "launches": launches}
+        print(f"checkpoint {name}: run_inference --model_name_or_path {path.name} in {secs:.1f} s "
+              f"(engine {out['predict_time_s']:.3f} s, {res[name]['windows_per_s']:.1f} "
+              f"windows/s), peak {peak:.2f} GiB, launches {launches}; per-document scores equal "
+              f"the model in memory bit for bit")
+    return res
 
 
 def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1) -> dict:
@@ -5123,6 +5432,36 @@ def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1)
           f"trained; peak {peak:.2f} GiB; last step {row['losses']}; launches {launches}; "
           f"checkpoint step {latest['step']} reloaded, equal to final_model")
     return row
+
+
+def flash_train_path(train_data: str, out_dir: Path, auto: dict, device="cuda") -> dict:
+    """Two optimizer steps of the dense training main path with
+    --attention_impl flash and --save_hf_format: the training kernels must
+    run as many times a step as on ``auto``'s run (train_path's row), and
+    final_model_hf must load back (cli/common.py maybe_load_pretrained) to
+    final_model's parameters bit for bit."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import common
+    from spokennlp_tpu_torch.configs import EncoderConfig
+    from spokennlp_tpu_torch.models.convert import jax_params_to_state_dict
+
+    argv = train_argv(train_data, str(out_dir)) + ["--attention_impl", "flash",
+                                                   "--save_hf_format"]
+    argv[argv.index("--num_train_epochs") + 1] = repr(epochs_for_steps(argv, 2))
+    row = train_path(argv, LAYERS, B, device=device)
+    per_step = lambda r: {k: v / r["steps"] for k, v in r["launches"].items()}
+    if per_step(row) != per_step(auto):
+        fail(f"flash training: launches a step {per_step(row)}, auto's {per_step(auto)}")
+    final = torch.load(out_dir / "final_model" / "model.pt", map_location="cpu", weights_only=True)
+    ns = argparse.Namespace(model_name_or_path=str(out_dir / "final_model_hf"))
+    cfg, tree = common.maybe_load_pretrained(ns, EncoderConfig())
+    loaded = jax_params_to_state_dict(tree)
+    if set(loaded) != set(final) or not all(torch.equal(loaded[k], final[k]) for k in final):
+        fail("flash training: final_model_hf does not load back to final_model's parameters")
+    print(f"flash training: {row['steps']} steps, launches a step {per_step(row)} (auto's "
+          f"{per_step(auto)}); final_model_hf loads back to final_model bit for bit")
+    return {k: row[k] for k in ("launches", "steps", "steps_per_s", "windows_per_s", "peak_gib")}
 
 
 def fused_vs_einsum_grads(argv, batch_size, device="cuda") -> dict:
@@ -5231,11 +5570,25 @@ def main() -> int:
         infer = main_path(main_path_argv(data, str(Path(tmp) / "out")) + ["--attention_impl",
                                                                             "fused"],
                           LAYERS, B, kernel_impl="fused")
+        t1 = time.perf_counter()
         serving = serving_path(data, str(Path(tmp) / "serve_out"))
+        print(f"serving phase (with flash, streaming and cos): {time.perf_counter() - t1:.1f} s")
+        # short documents: several windows in each packed row
+        t1 = time.perf_counter()
+        packed = packed_path(write_corpus(Path(tmp), n_test_docs=300, seed=5, sentences=(4, 14)),
+                             str(Path(tmp) / "packed_out"))
+        print(f"packed phase: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        (Path(tmp) / "ckpt").mkdir()
+        ckpts = checkpoint_path(data, Path(tmp) / "ckpt")
+        print(f"checkpoint phase: {time.perf_counter() - t1:.1f} s")
         # about 2.9 windows a document: TRAIN_STEPS batches of B in one epoch
         train_data = write_corpus(Path(tmp), n_test_docs=4,
                                   n_train_docs=math.ceil(TRAIN_STEPS * B / 2.5), seed=1)
         train = train_path(train_argv(train_data, str(Path(tmp) / "train_out")), LAYERS, B)
+        t1 = time.perf_counter()
+        flash_train = flash_train_path(train_data, Path(tmp) / "flash_train_out", train)
+        print(f"flash training phase: {time.perf_counter() - t1:.1f} s")
         fused_vs_einsum_grads(train_argv(train_data, str(Path(tmp) / "grad_out")), batch_size=B)
         torch.cuda.empty_cache()
 
@@ -5334,7 +5687,9 @@ def main() -> int:
                     w8a8_long["bigbird"]["runs"]["w8a8 auto"]["launches"][
                         "bigbird_attention_block"],
                 **MODE_LAUNCHES}
-    print(json.dumps({"serving": serving}))
+    print(json.dumps({"serving": serving}, default=float))
+    print(json.dumps({"packed": packed, "checkpoints": ckpts, "flash training": flash_train},
+                     default=float))
     for name, inf, trn in (("longformer", lf_infer, lf_train), ("bigbird", bb_infer, bb_train)):
         print(json.dumps({name: {
             "inference": {k: inf[k] for k in ("launches", "windows", "windows_per_s", "peak_gib",

@@ -1,21 +1,31 @@
 """Shared CLI plumbing of the port: flag groups, tokenizer resolution,
-configs and corpus loading.
+configs, checkpoint loading and corpus loading.
 
 The port's own copy of ``spokennlp_tpu/cli/common.py``'s flag groups,
-``resolve_tokenizer``, ``build_configs`` and ``load_docs``, with the same
-flags and defaults. ``resolve_tokenizer`` knows a ``--vocab_file`` and the
-hash fallback but not a checkpoint directory's tokenizer (the CLIs refuse a
-checkpoint directory before they get here). The fallback hashes words with
-``zlib.crc32``, where the JAX package's uses the salted ``hash()``: the same
-flags give the same ids in every interpreter, and other ids than JAX's.
+``resolve_tokenizer``, ``build_configs``, ``maybe_load_pretrained``,
+``resize_word_embeddings`` and ``load_docs``, with the same flags and
+defaults. ``resolve_tokenizer`` reads a checkpoint directory's WordPiece
+``vocab.txt`` (the JAX package's ``AutoTokenizer`` path for BERT-style
+tokenizers, ``[BOS]`` added where the vocabulary lacks it), a
+``--vocab_file``, or falls back to hashing words with ``zlib.crc32``, where
+the JAX package's uses the salted ``hash()``: the same flags give the same
+ids in every interpreter, and other ids than JAX's. ``maybe_load_pretrained``
+reads the directory without ``transformers`` (``cli/hf_checkpoint.py``) and
+raises where it cannot, where the JAX package warns and starts from random
+weights.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import zlib
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from spokennlp_tpu_torch.configs import EncoderConfig, TopicSegConfig, TrainConfig, WindowingConfig
 
@@ -113,6 +123,30 @@ def add_training_args(p: argparse.ArgumentParser):
 
 def resolve_tokenizer(args) -> Tuple[Callable[[str], List[int]], dict]:
     """Return (tokenize_fn, special_ids {cls, pad, bos/eos})."""
+    path = args.model_name_or_path
+    if path and os.path.isfile(os.path.join(path, "vocab.txt")):
+        from spokennlp_tpu_torch.utils.tokenization import FullTokenizer
+
+        lower = True
+        tok_cfg = os.path.join(path, "tokenizer_config.json")
+        if os.path.exists(tok_cfg):
+            with open(tok_cfg) as f:
+                lower = bool(json.load(f).get("do_lower_case", True))
+        tok = FullTokenizer.from_vocab_file(os.path.join(path, "vocab.txt"), do_lower_case=lower)
+        vocab = tok.vocab
+        # a BERT vocabulary has no BOS: [BOS] is added as a new token, as
+        # the reference does before resizing the embeddings
+        bos = vocab.get("[BOS]", len(vocab))
+        special = {
+            "cls": vocab.get("[CLS]", bos),
+            "pad": vocab.get("[PAD]", 0),
+            "bos": bos,
+            "sep": vocab.get("[SEP]", 102),
+            "vocab_size": max(len(vocab), bos + 1),
+        }
+        if "[MASK]" in vocab:
+            special["mask"] = vocab["[MASK]"]
+        return tok.encode, special
     if args.vocab_file:
         from spokennlp_tpu_torch.utils.tokenization import FullTokenizer
 
@@ -198,6 +232,84 @@ def build_configs(args, special):
         ),
     )
     return enc, task, wcfg, tcfg
+
+
+def maybe_load_pretrained(args, enc_cfg) -> Optional[Tuple[EncoderConfig, Dict]]:
+    """``--model_name_or_path`` -> (config, parameter tree), or None without
+    one. A native checkpoint (``params.msgpack`` and ``config.json``,
+    ``models/checkpoint_io.py``; its config, else ``enc_cfg``) gives its whole
+    tree; an HF directory of type bert, longformer, electra or big_bird
+    (``cli/hf_checkpoint.py``) the trunk's, with any task heads beside it
+    under ``"encoder"``. The CLI's ``--attention_impl`` and
+    ``--gradient_checkpointing`` apply on top of the checkpoint's config.
+    A path that is not a directory, or a directory that cannot be read,
+    raises."""
+    path = args.model_name_or_path
+    if not path:
+        return None
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"--model_name_or_path {path}: not a directory (the port reads "
+                                "local checkpoints only)")
+    from spokennlp_tpu_torch.models import checkpoint_io
+
+    if checkpoint_io.is_native_checkpoint(path):
+        params, cfg = checkpoint_io.load_checkpoint(path)
+        cfg = cfg or enc_cfg
+    else:
+        from spokennlp_tpu_torch.cli import hf_checkpoint
+
+        cfg, params = hf_checkpoint.load_hf_checkpoint(path)
+    cfg = dataclasses.replace(cfg, attention_impl=enc_cfg.attention_impl, remat=enc_cfg.remat)
+    return cfg, params
+
+
+def resize_word_embeddings(params, enc_cfg, new_vocab_size: int, seed: int = 0):
+    """Grow word_embeddings to ``new_vocab_size`` rows; returns (params, cfg).
+
+    The reference calls model.resize_token_embeddings(len(tokenizer)) after
+    adding the [BOS] special token (ts_sentence_seq_labeling.py:282-284);
+    without this, the new token id would fall past the table. New rows are
+    drawn N(0, 0.02) from numpy's generator at ``seed``, like HF's resize
+    and as the JAX package draws them. Accepts either a trunk tree
+    (embeddings at the top) or a task-model tree (under "encoder")."""
+    trunk = params.get("encoder", params)
+    emb = np.asarray(trunk["embeddings"]["word_embeddings"]["embedding"])
+    old_vocab, width = emb.shape
+    if new_vocab_size <= old_vocab:
+        if enc_cfg.vocab_size != old_vocab:
+            enc_cfg = dataclasses.replace(enc_cfg, vocab_size=old_vocab)
+        return params, enc_cfg
+    extra = (
+        np.random.default_rng(seed)
+        .normal(0.0, 0.02, size=(new_vocab_size - old_vocab, width))
+        .astype(emb.dtype)
+    )
+    new_trunk = dict(trunk)
+    new_emb_scope = dict(trunk["embeddings"])
+    new_emb_scope["word_embeddings"] = {"embedding": np.concatenate([emb, extra], axis=0)}
+    new_trunk["embeddings"] = new_emb_scope
+    if "encoder" in params:
+        params = dict(params)
+        params["encoder"] = new_trunk
+    else:
+        params = new_trunk
+    return params, dataclasses.replace(enc_cfg, vocab_size=new_vocab_size)
+
+
+def load_pretrained_into(model: torch.nn.Module, params: Dict):
+    """Put a parameter tree from ``maybe_load_pretrained`` into ``model``: a
+    task tree's every module, or a trunk's under ``encoder``; what the tree
+    does not hold keeps its initialisation. A name the model lacks or a
+    shape it does not have raises."""
+    from spokennlp_tpu_torch.models.convert import jax_params_to_state_dict
+
+    loaded = jax_params_to_state_dict(params if "encoder" in params else {"encoder": params})
+    sd = model.state_dict()
+    unknown = sorted(set(loaded) - set(sd))
+    if unknown:
+        raise KeyError(f"the checkpoint holds parameters the model lacks: {unknown[:8]}")
+    sd.update(loaded)
+    model.load_state_dict(sd, strict=True)
 
 
 def load_docs(args, tokenize_fn):

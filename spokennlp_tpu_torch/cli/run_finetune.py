@@ -5,13 +5,16 @@ Counterpart of ``spokennlp_tpu/cli/run_finetune.py``: the same flags, plus
 ``--logging_steps`` (the train-metrics cadence, 50 as in the JAX trainer).
 It writes ``metrics.jsonl`` (train, eval and train_end events),
 ``all_results.json`` (train, ``eval_*`` and ``predict_*`` results) and the
-trained model as ``final_model/model.pt`` (a ``state_dict``) with
-``final_model/config.json`` (the encoder config). Weights start from
-``--seed``; ``--seeds`` with two or more seeds repeats the run under
-``<output_dir>/seed_<n>`` for each and writes the mean and standard
-deviation of every numeric result to ``multi_seed_results.json`` (the
-reference's ``for seed in 42 59 88`` loop). Loading checkpoints, TensorBoard
-and multi-device training are not ported yet.
+trained model in ``final_model/``: ``params.msgpack`` and ``config.json``
+(the native checkpoint, which ``--model_name_or_path`` and the JAX package
+read) and ``model.pt`` (the ``state_dict``); with ``--save_hf_format`` also
+``final_model_hf/`` (``pytorch_model.bin`` and an HF ``config.json``).
+Weights start from ``--model_name_or_path`` (``run_inference``'s checkpoint
+directories) or ``--seed``; ``--seeds`` with two or more seeds repeats the
+run under ``<output_dir>/seed_<n>`` for each and writes the mean and
+standard deviation of every numeric result to ``multi_seed_results.json``
+(the reference's ``for seed in 42 59 88`` loop). TensorBoard, gradient
+checkpointing and multi-device training are not ported yet.
 
     python -m spokennlp_tpu_torch.cli.run_finetune --data_dir <wiki_section dir> \
         --output_dir out --do_train --do_eval --do_predict --dtype bfloat16 \
@@ -34,7 +37,8 @@ import os
 import torch
 
 from spokennlp_tpu_torch.cli import common
-from spokennlp_tpu_torch.cli.run_inference import build_model, resolve_device
+from spokennlp_tpu_torch.cli.run_inference import build_model, configs_and_weights, resolve_device
+from spokennlp_tpu_torch.models import checkpoint_io
 
 
 def make_parser():
@@ -53,11 +57,11 @@ def make_parser():
 
 
 def save_final_model(path: str, model: torch.nn.Module, enc_cfg):
-    """``<path>/model.pt`` (the state_dict) and ``<path>/config.json``."""
-    os.makedirs(path, exist_ok=True)
+    """The native checkpoint (``<path>/params.msgpack``, ``<path>/config.json``)
+    and ``<path>/model.pt`` (the state_dict)."""
+    checkpoint_io.save_checkpoint(path, checkpoint_io.params_from_state_dict(model.state_dict()),
+                                  enc_cfg)
     torch.save(model.state_dict(), os.path.join(path, "model.pt"))
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(enc_cfg), f, indent=2)
 
 
 def main(argv=None):
@@ -88,20 +92,16 @@ def main_single(args):
     from spokennlp_tpu_torch.train.trainer import TopicSegTrainer
 
     resolve_device(args.device)
-    if args.model_name_or_path and os.path.isdir(args.model_name_or_path):
-        raise NotImplementedError("loading checkpoints is not ported yet; omit "
-                                  "--model_name_or_path to initialise from --seed")
     if args.model_parallel_size != 1 or args.jax_distributed:
         raise NotImplementedError("the port trains on one device")
-    if args.report_to or args.gradient_checkpointing or args.save_hf_format:
-        raise NotImplementedError("--report_to, --gradient_checkpointing and "
-                                  "--save_hf_format are not ported yet")
+    if args.report_to or args.gradient_checkpointing:
+        raise NotImplementedError("--report_to and --gradient_checkpointing are not ported yet")
     os.makedirs(args.output_dir, exist_ok=True)
 
     tokenize_fn, special = common.resolve_tokenizer(args)
-    enc_cfg, task_cfg, wcfg, tcfg = common.build_configs(args, special)
+    enc_cfg, task_cfg, wcfg, tcfg, params = configs_and_weights(args, special)
     tcfg = dataclasses.replace(tcfg, log_every=args.logging_steps)
-    model = build_model(args, enc_cfg, task_cfg)
+    model = build_model(args, enc_cfg, task_cfg, params)
 
     docs = common.load_docs(args, tokenize_fn)
     trainer = TopicSegTrainer(
@@ -130,6 +130,15 @@ def main_single(args):
         if args.do_train:
             results.update(trainer.train())
             save_final_model(os.path.join(args.output_dir, "final_model"), model, enc_cfg)
+            if args.save_hf_format:
+                from spokennlp_tpu_torch.models import hf_export
+
+                src = args.model_name_or_path
+                hf_export.save_hf_checkpoint(
+                    os.path.join(args.output_dir, "final_model_hf"),
+                    checkpoint_io.params_from_state_dict(model.state_dict()), enc_cfg,
+                    tokenizer_src=src if src and os.path.isdir(src) else None,
+                )
         if args.do_eval:
             results.update({f"eval_{k}": v for k, v in trainer.evaluate().items()})
     finally:
@@ -144,6 +153,7 @@ def main_single(args):
             topk=args.topk,
             f1_at_k=args.f1_at_k,
             ts_score_predictor=args.ts_score_predictor,
+            cos_temp=args.ts_score_predictor_cos_temp,
         )
         results.update({f"predict_{k}": v for k, v in out["metrics"].items()})
 

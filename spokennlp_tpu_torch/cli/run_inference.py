@@ -2,11 +2,15 @@
 
 Counterpart of ``spokennlp_tpu/cli/run_inference.py``: the same flags and
 output files (``predict_*.txt`` with one JSON line per document and
-``predict_*_results.json`` with the metrics), plus ``--device``. Weights are
-initialised from ``--seed``; loading checkpoints is not ported yet.
+``predict_*_results.json`` with the metrics), plus ``--device``. Weights
+come from ``--model_name_or_path`` (a native checkpoint directory or an HF
+one of type bert, longformer, electra or big_bird; ``cli/common.py``
+``maybe_load_pretrained``), else from ``--seed``. ``--ts_score_predictor
+cos`` scores sentences by the sigmoid of adjacent cosine similarities.
 
     python -m spokennlp_tpu_torch.cli.run_inference --data_dir <wiki_section dir> \
-        --output_dir out --dtype bfloat16 --per_device_eval_batch_size 32
+        --output_dir out --dtype bfloat16 --per_device_eval_batch_size 32 \
+        [--model_name_or_path <checkpoint dir>]
 """
 
 from __future__ import annotations
@@ -39,15 +43,33 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_model(args, enc_cfg, task_cfg):
+def build_model(args, enc_cfg, task_cfg, params=None):
     """The topic-segmentation model on ``args.device`` with weights drawn
-    from ``torch.Generator().manual_seed(args.seed)``."""
+    from ``torch.Generator().manual_seed(args.seed)``, then ``params`` (a tree
+    from ``common.maybe_load_pretrained``) put over them."""
     from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     generator = torch.Generator().manual_seed(args.seed)
     model = TopicSegModel(enc_cfg, task_cfg, dtype=dtype, generator=generator)
+    if params is not None:
+        common.load_pretrained_into(model, params)
     return model.to(resolve_device(args.device)).eval()
+
+
+def configs_and_weights(args, special):
+    """(enc_cfg, task_cfg, wcfg, tcfg, params): the flags' configs, with the
+    checkpoint's encoder config and its tree, its word embeddings grown to
+    the tokenizer's vocabulary, where ``--model_name_or_path`` names one
+    (params None otherwise)."""
+    enc_cfg, task_cfg, wcfg, tcfg = common.build_configs(args, special)
+    params = None
+    pretrained = common.maybe_load_pretrained(args, enc_cfg)
+    if pretrained is not None:
+        enc_cfg, params = pretrained
+        params, enc_cfg = common.resize_word_embeddings(params, enc_cfg, special["vocab_size"],
+                                                        seed=tcfg.seed)
+    return enc_cfg, task_cfg, wcfg, tcfg, params
 
 
 def main(argv=None):
@@ -55,16 +77,13 @@ def main(argv=None):
 
     args = make_parser().parse_args(argv)
     resolve_device(args.device)
-    if args.model_name_or_path and os.path.isdir(args.model_name_or_path):
-        raise NotImplementedError("loading checkpoints is not ported yet; omit "
-                                  "--model_name_or_path to initialise from --seed")
     if args.model_parallel_size != 1 or args.jax_distributed:
         raise NotImplementedError("the port runs on one device")
     os.makedirs(args.output_dir, exist_ok=True)
 
     tokenize_fn, special = common.resolve_tokenizer(args)
-    enc_cfg, task_cfg, wcfg, _ = common.build_configs(args, special)
-    model = build_model(args, enc_cfg, task_cfg)
+    enc_cfg, task_cfg, wcfg, _, params = configs_and_weights(args, special)
+    model = build_model(args, enc_cfg, task_cfg, params)
 
     docs = common.load_docs(args, tokenize_fn)
     test_docs = docs.get("test") or docs.get("validation") or []
@@ -81,6 +100,7 @@ def main(argv=None):
         topk=args.topk,
         f1_at_k=args.f1_at_k,
         ts_score_predictor=args.ts_score_predictor,
+        cos_temp=args.ts_score_predictor_cos_temp,
     )
     out["predict_time_s"] = time.perf_counter() - t0
     print("predict_time(s): ", out["predict_time_s"])
@@ -91,7 +111,12 @@ def main(argv=None):
     )
     with open(os.path.join(args.output_dir, metric_name + ".txt"), "w") as f:
         for doc, res in zip(test_docs, out["per_doc"]):
-            preds = np.argmax(res["scores"], -1).tolist() if len(res["labels"]) else []
+            if not len(res["labels"]):
+                preds = []
+            elif res["scores"].ndim == 2:
+                preds = np.argmax(res["scores"], -1).tolist()
+            else:  # cos predictor: sigmoid-cos > 0.5 -> similar -> O (1)
+                preds = (res["scores"] > 0.5).astype(np.int32).tolist()
             f.write(
                 json.dumps(
                     {

@@ -1,11 +1,14 @@
-"""Corpus loaders for the topic-segmentation datasets.
+"""Corpus converters and loaders for the topic-segmentation datasets.
 
-The port's own copy of the loaders of ``spokennlp_tpu/data/corpora.py``
-(same behaviour; imports only the standard library): unified jsonl
-``{"sentences": [...], "labels": [...]}`` -> examples with label ids ->
-tokenized documents for the windowing featurizer, and the config.ini
-dataset-name -> folder mapping. The raw-corpus converters, which produce the
-jsonl files once and may use nltk, stay in the JAX package.
+The port's own copy of ``spokennlp_tpu/data/corpora.py`` (same behaviour;
+imports only the standard library, and nltk's ``sent_tokenize`` where it
+imports): raw corpora (WikiSection json, wiki-727k / wiki-50 folders,
+WikiElements) -> unified jsonl ``{"sentences": [...], "labels": [...]}``
+where label 1 = final sentence of a topic, 0 = final sentence of a
+paragraph, -100 = mid-paragraph sentence (the reference's
+preprocess_data.py:19-221); jsonl -> examples with label ids -> tokenized
+documents for the windowing featurizer; and the config.ini dataset-name ->
+folder mapping.
 """
 
 from __future__ import annotations
@@ -21,6 +24,131 @@ IGNORE = -100
 
 # raw-file label space: 1 = end of topic, 0 = end of paragraph, -100 = other
 _RAW_TO_ID = {1: LABEL_EOP, "1": LABEL_EOP, 0: LABEL_O, "0": LABEL_O}
+
+
+SECTION_FLAG = "========"  # wiki-727k / wiki-50 section marker prefix
+
+
+def sentence_split(text: str) -> List[str]:
+    """Paragraph-preserving sentence split. Uses nltk punkt when available
+    (the reference's sent_tokenize), falling back to a regex splitter."""
+    try:
+        from nltk.tokenize import sent_tokenize
+
+        return sent_tokenize(text)
+    except (ImportError, LookupError):  # no nltk, or no punkt data
+        import re
+
+        parts = re.split(r"(?<=[.!?])\s+", text.strip())
+        return [p for p in parts if p]
+
+
+def section_to_sentences(sec_text: str):
+    """One section -> (sentences, labels): paragraph ends 0, topic end 1,
+    others -100 (reference tokenize_method, preprocess_data.py:19-33)."""
+    paragraphs = [p for p in sec_text.split("\n") if p != ""]
+    sents: List[str] = []
+    labels: List[int] = []
+    for p in paragraphs:
+        p_sents = sentence_split(p)
+        if not p_sents:
+            continue
+        sents.extend(p_sents)
+        labels.extend([IGNORE] * (len(p_sents) - 1) + [0])
+    if labels:
+        labels[-1] = 1
+    return sents, labels
+
+
+def convert_wikisection_file(in_file: str) -> List[Dict]:
+    """WikiSection raw json -> unified examples (:34-77)."""
+    out = []
+    with open(in_file) as f:
+        data = json.load(f)
+    for example in data:
+        text, annotations = example["text"], example["annotations"]
+        sentences, labels = [], []
+        section_topics, sentence_topics = [], []
+        ok = True
+        for anno in annotations:
+            sec_text = text[anno["begin"] : anno["begin"] + anno["length"]]
+            s, l = section_to_sentences(sec_text)
+            if len(s) != len(l):
+                ok = False
+                break
+            sentences += s
+            labels += l
+            section_topics.append(anno["sectionLabel"])
+            sentence_topics += [anno["sectionLabel"]] * len(s)
+        if not ok or not sentences:
+            continue
+        out.append(
+            {
+                "sentences": sentences,
+                "labels": labels,
+                "section_topic_labels": section_topics,
+                "sentence_topic_labels": sentence_topics,
+            }
+        )
+    return out
+
+
+def convert_choi_style_file(path: str) -> Dict:
+    """One wiki-727k / wiki-50 file ('========'-delimited sections) -> one
+    example (:129-168). Sentence labels: 0 within section, 1 at section end."""
+    with open(path) as f:
+        lines = f.readlines()
+    flag_idx = [i for i, l in enumerate(lines) if l.startswith(SECTION_FLAG)]
+    flag_idx.append(len(lines))
+    sentences, labels = [], []
+    for i in range(len(flag_idx) - 1):
+        start, end = flag_idx[i] + 1, flag_idx[i + 1]
+        if start == end:
+            continue
+        sec = [l.strip() for l in lines[start:end]]
+        sentences += sec
+        labels += [0] * (len(sec) - 1) + [1]
+    return {"file": path, "sentences": sentences, "labels": labels}
+
+
+def convert_wiki_folder(folder: str, out_file: str):
+    all_files = []
+    for root, _, files in os.walk(folder):
+        for name in sorted(files):
+            all_files.append(os.path.join(root, name))
+    with open(out_file, "w") as f:
+        for path in sorted(all_files):
+            ex = convert_choi_style_file(path)
+            f.write(json.dumps(ex) + "\n")
+
+
+def convert_wiki_elements(text_file: str, seg_file: str, out_file: str):
+    """WikiElements paragraph-level corpus (:184-221)."""
+    with open(seg_file) as f:
+        seg_lines = f.readlines()
+    with open(text_file) as f:
+        para_lines = f.readlines()
+    assert len(seg_lines) == len(para_lines)
+    docs: Dict[str, List[Dict]] = {}
+    for seg_line, para_line in zip(seg_lines, para_lines):
+        doc_index, para_index, topic_title = seg_line.strip().split(",")[:3]
+        docs.setdefault(doc_index, []).append(
+            {"topic_title": topic_title, "para_text": para_line.strip()}
+        )
+    with open(out_file, "w") as f:
+        for doc_index in sorted(docs.keys()):
+            paras = docs[doc_index]
+            labels = []
+            cur = ""
+            for i in range(len(paras) - 1, -1, -1):
+                labels.insert(0, 1 if paras[i]["topic_title"] != cur else 0)
+                cur = paras[i]["topic_title"]
+            f.write(
+                json.dumps(
+                    {"sentences": [p["para_text"] for p in paras], "labels": labels}
+                )
+                + "\n"
+            )
 
 
 # ------------------------------------------------------------------- loaders

@@ -25,6 +25,9 @@ Attention paths, resolved by ``attention_impl`` (``resolve_attention_impl``):
   kernel (ops/cuda/stack_block.py); no per-layer hidden states;
 - ``"pallas"``: the einsum path's projections around the attention kernel
   over a projected (B, 3, nh, L, hd) qkv (ops/cuda/blhd_attention.py);
+- ``"flash"``: no kernel of its own (JAX's is its library's TPU kernel):
+  ``"pallas"`` at inference and ``"train_fused"`` in training on the card,
+  ``"einsum"`` elsewhere (``_resolve_flash``);
 - ``"train_fused"``: per layer, the training attention block (probability
   dropout inside the kernel) and the training MLP core
   (ops/cuda/train_blocks.py), each with a backward kernel; residual,
@@ -543,6 +546,24 @@ def _resolve_bigbird(cfg: EncoderConfig, device: torch.device, impl: str, seq_le
     return "bias" if bb == "bias" else "block"
 
 
+def _resolve_flash(cfg: EncoderConfig, device: torch.device, training: bool,
+                   seq_len: Optional[int]) -> str:
+    """``"flash"`` on the port's own kernels. JAX runs its library's TPU
+    flash kernel for dense models where ``flash_available`` holds and the
+    einsum path anywhere else; here the einsum path off the card and for
+    sparse trunks, and on the card kernel 6 (``"pallas"``) at inference or
+    the training kernels (``"train_fused"``, which have a backward) in
+    training. On the card a shape that ``flash_available`` refuses (L not a
+    multiple of 128 and of min(L, 512), head_dim not of 8) raises."""
+    if device.type != "cuda" or cfg.attention_type != "dense":
+        return "einsum"
+    if seq_len is None or seq_len % 128 or seq_len % min(seq_len, 512) or cfg.head_dim % 8:
+        raise ValueError(f"attention_impl='flash' cannot take sequence length {seq_len} with "
+                         f"head_dim {cfg.head_dim} (L a multiple of 128 and of min(L, 512), "
+                         f"head_dim of 8); ask for attention_impl='einsum'")
+    return "train_fused" if training else "pallas"
+
+
 def resolve_attention_impl(
     cfg: EncoderConfig, device: torch.device, output_attentions: bool, training: bool = False,
     seq_len: Optional[int] = None, prefix_globals: Optional[int] = None,
@@ -550,7 +571,7 @@ def resolve_attention_impl(
     output_hidden_states: bool = False,
 ) -> str:
     """The path the encoder will run: "einsum", "fused", "stack", "pallas" or
-    "train_fused", for sliding-window models the einsum path's "bias" or
+    "train_fused" ("flash" resolves to one of them, ``_resolve_flash``), for sliding-window models the einsum path's "bias" or
     "chunked", for BigBird models its "bias" or "block"; raises for what the
     port does not have yet, and on CUDA for a sliding-window or BigBird call
     that breaks the kernels' contract. In training mode
@@ -570,6 +591,8 @@ def resolve_attention_impl(
         else:
             small = batch_size is not None and batch_size <= 32
             impl = "stack" if small and not output_hidden_states else "fused"
+    if impl == "flash":
+        impl = "einsum" if output_attentions else _resolve_flash(cfg, device, training, seq_len)
     if impl not in ("einsum", "fused", "train_fused", "stack", "pallas"):
         raise NotImplementedError(f"attention_impl={impl!r} is not ported yet")
     if training and impl in ("fused", "stack"):

@@ -145,27 +145,37 @@ class TopicSegTrainer:
         """Window-level eval: boundary precision/recall/F1 and Pk/WD over the
         labelled sentences of every window (the reference's compute_metrics)."""
         from spokennlp_tpu_torch.data.windowing import stack_windows, window_document
-        from spokennlp_tpu_torch.eval.inference import predict_windows_scanned
+        from spokennlp_tpu_torch.eval.inference import predict_cos_scores, predict_windows_scanned
 
         docs = docs if docs is not None else self.eval_docs
         if docs is None:
             logger.warning("evaluate() called with no eval docs; skipping")
             return {}
-        if self.task_cfg.ts_score_predictor != "lt":
-            raise NotImplementedError("the cos predictor is not ported yet")
         windows = []
         for eid, doc in enumerate(docs):
             windows.extend(window_document(doc["sent_token_ids"], doc["labels"], self.wcfg, eid))
         if not windows:
             return {}
         batch = stack_windows(windows)
-        logits = predict_windows_scanned(self.model, batch, self.batch_size, gather_sents=True)
         preds, refs = [], []
-        for i in range(len(windows)):
-            live = batch["sent_labels"][i] != -100
-            if live.any():
-                preds.append(np.argmax(logits[i][live], -1).tolist())
-                refs.append(batch["sent_labels"][i][live].tolist())
+        if self.task_cfg.ts_score_predictor == "cos":
+            # the linear head carries no ts gradient in cos mode: a slot of
+            # eop_mask is predicted O (1) where its sigmoid-cos is above 0.5
+            sims = predict_cos_scores(self.model, batch, self.batch_size,
+                                      self.task_cfg.ts_score_predictor_cos_temp)
+            for i in range(len(windows)):
+                live = batch["eop_mask"][i].astype(bool)
+                if live.any():
+                    preds.append((sims[i][live] > 0.5).astype(int).tolist())
+                    refs.append(batch["sent_labels"][i][live].astype(int).tolist())
+        else:
+            logits = predict_windows_scanned(self.model, batch, self.batch_size,
+                                             gather_sents=True)
+            for i in range(len(windows)):
+                live = batch["sent_labels"][i] != -100
+                if live.any():
+                    preds.append(np.argmax(logits[i][live], -1).tolist())
+                    refs.append(batch["sent_labels"][i][live].tolist())
         prf = seg_metrics.boundary_prf(preds, refs)
         # label id 0 = B-EOP
         wm = seg_metrics.compute_window_metric(

@@ -213,10 +213,15 @@ def test_attention_impl_resolution():
     assert resolve_attention_impl(lf, cuda, False, training=True, **kw) == "train_fused"
     lf_einsum = dataclasses.replace(lf, attention_impl="einsum", sliding_window_impl="chunked")
     assert resolve_attention_impl(lf_einsum, cuda, False, **kw) == "chunked"
-    for bad in (
-        dataclasses.replace(TINY, attention_impl="flash"),
-        dataclasses.replace(TINY, attention_type="ponet"),
-    ):
+    # "flash" runs the port's own kernels on the card (kernel 6 at inference,
+    # the training kernels in training) and the einsum path elsewhere
+    flash = dataclasses.replace(TINY, attention_impl="flash")
+    assert resolve_attention_impl(flash, cuda, False, seq_len=128) == "pallas"
+    assert resolve_attention_impl(flash, cuda, False, training=True, seq_len=128) == "train_fused"
+    assert resolve_attention_impl(flash, cpu, False, seq_len=128) == "einsum"
+    with pytest.raises(ValueError, match="attention_impl='einsum'"):
+        resolve_attention_impl(flash, cuda, output_attentions=False, seq_len=64)
+    for bad in (dataclasses.replace(TINY, attention_type="ponet"),):
         with pytest.raises(NotImplementedError):
             resolve_attention_impl(bad, cuda, output_attentions=False)
 

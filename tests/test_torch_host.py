@@ -240,6 +240,129 @@ def test_mug_host_copies_match_jax(tmp_path):
         assert t_cli.main(argv) == j_cli.main(argv), task
 
 
+def test_analysis_matches_jax(tmp_path):
+    """eval/analysis.py: ensembling, the sentence-level re-mapping, run
+    statistics, the p-value, corpus statistics, model tags, the result
+    one-liner and the plot, against the JAX package's module."""
+    from spokennlp_tpu.eval import analysis as ja
+    from spokennlp_tpu_torch.eval import analysis as ta
+
+    rng = np.random.default_rng(7)
+    for x in (-30.0, -0.5, 0.0, 2.0, 40.0):
+        assert ta.stable_sigmoid(x) == ja.stable_sigmoid(x)
+    labels = [rng.integers(0, 2, size=n).tolist() for n in (5, 9, 3)]
+    logits = [rng.normal(size=(len(l), 2)).astype(np.float32) for l in labels]
+    sims = [rng.normal(size=len(l)).tolist() for l in labels]
+    for kw in ({}, {"sim_temp": 2.0, "threshold": 0.4}):
+        assert ta.ensemble_scores(logits, sims, labels, **kw) == \
+            ja.ensemble_scores(logits, sims, labels, **kw)
+    sent = [[-100, 0, -100, 1, 0], [0, -100, -100, 1]]
+    para_labels = [[0, 1, 0], [0, 1]]
+    para_preds = [[1, 1, 0], [0, 0]]
+    assert ta.sent_level_metric_from_para_level(para_preds, para_labels, sent) == \
+        ja.sent_level_metric_from_para_level(para_preds, para_labels, sent)
+    runs = rng.normal(size=(3, 4)).tolist()
+    assert ta.compute_avg_std(runs, list("abcd")) == ja.compute_avg_std(runs, list("abcd"))
+    assert ta.compute_p_value(runs[0], runs[1]) == ja.compute_p_value(runs[0], runs[1])
+    examples = [{"sentences": ["a", "b", "c"], "labels": [0, 1, -100]},
+                {"sentences": ["d"], "labels": ["1"]}]
+    assert ta.data_statistics(examples) == ja.data_statistics(examples)
+    for name in ("allenai/longformer-base-4096", "google/bigbird-roberta-base",
+                 "electra-large", "bert-base-uncased"):
+        assert ta.abridge_model_name(name) == ja.abridge_model_name(name)
+    with pytest.raises(ValueError):
+        ta.abridge_model_name("gpt2")
+    prefix = "threshold_0.5_example_level"
+    res = {f"{prefix}_{k}": float(v) for k, v in zip(("precision", "recall", "f1", "pk", "wd"),
+                                                      rng.random(5))}
+    outs = []
+    for side, mod in (("j", ja), ("t", ta)):
+        (tmp_path / side).mkdir()
+        path = tmp_path / side / "predict_results.json"
+        path.write_text(json.dumps(res))
+        outs.append((mod.convert_res_format(str(path), 0.5),
+                     (tmp_path / side / "predict_results_str_metric.txt").read_text()))
+    assert outs[0] == outs[1]
+    pytest.importorskip("matplotlib")
+    out = ta.plot_metric_curves([1, 2, 3], {"ours": [0.1, 0.2, 0.3],
+                                            "base": ([0.1, 0.1, 0.2], {"linestyle": "--"})},
+                                str(tmp_path / "curve.png"))
+    assert os.path.getsize(out) > 0
+
+
+def _raw_corpora(root: Path) -> Path:
+    """Small raw corpora in the reference's formats: WikiSection json for
+    both subsets and splits, a wiki-727k folder, WikiElements files."""
+    rng = np.random.default_rng(11)
+    words = lambda n: " ".join(f"w{i}" for i in rng.integers(0, 50, size=n))
+    raw = root / "raw"
+    raw.mkdir()
+    for subset in ("disease", "city"):
+        for split in ("train", "validation", "test"):
+            docs = []
+            for _ in range(2):
+                text, annotations = "", []
+                for s in range(3):
+                    sec = "\n".join(f"{words(4)}. {words(3)}! {words(5)}?"
+                                     for _ in range(rng.integers(1, 3)))
+                    annotations.append({"begin": len(text), "length": len(sec),
+                                        "sectionLabel": f"{subset}.s{s}"})
+                    text += sec + "\n"
+                docs.append({"text": text, "annotations": annotations})
+            (raw / f"wikisection_en_{subset}_{split}.json").write_text(json.dumps(docs))
+    for mode in ("train", "dev", "test"):
+        d = raw / "wiki727k" / mode / "sub"
+        d.mkdir(parents=True)
+        for i in range(2):
+            lines = []
+            for s in range(3):
+                lines.append(f"========,{s},title{s}.")
+                lines += [words(6) + "." for _ in range(rng.integers(1, 4))]
+            (d / f"doc{i}").write_text("\n".join(lines) + "\n")
+    el = raw / "elements"
+    el.mkdir()
+    seg, text = [], []
+    for doc in range(3):
+        for para in range(4):
+            seg.append(f"d{doc},{para},topic{para // 2}")
+            text.append(words(7))
+    (el / "wikielements.segmenttitles").write_text("\n".join(seg) + "\n")
+    (el / "wikielements.text").write_text("\n".join(text) + "\n")
+    return raw
+
+
+def test_corpus_converters_and_run_process_data_match_jax(tmp_path):
+    """data/corpora.py's raw-corpus converters and cli/run_process_data.py
+    write the same jsonl files as the JAX package's, for every wiki
+    dataset; --dataset ami raises."""
+    from spokennlp_tpu.cli import run_process_data as j_cli
+    from spokennlp_tpu.data import corpora as jc
+    from spokennlp_tpu_torch.cli import run_process_data as t_cli
+    from spokennlp_tpu_torch.data import corpora as tc
+
+    raw = _raw_corpora(tmp_path)
+    section = str(raw / "wikisection_en_city_test.json")
+    assert tc.convert_wikisection_file(section) == jc.convert_wikisection_file(section)
+    one = next((raw / "wiki727k" / "dev").rglob("doc*"))
+    assert tc.convert_choi_style_file(str(one)) == jc.convert_choi_style_file(str(one))
+    assert tc.section_to_sentences("a b. c d!\n\ne f?") == \
+        jc.section_to_sentences("a b. c d!\n\ne f?")
+    for dataset, folder in (("wiki_section", raw), ("wiki727k", raw / "wiki727k"),
+                            ("wiki50", raw / "wiki727k" / "test"),
+                            ("wiki_elements", raw / "elements")):
+        outs = {}
+        for side, cli in (("j", j_cli), ("t", t_cli)):
+            out = tmp_path / side / dataset / "out"
+            cli.main(["--dataset", dataset, "--data_folder", str(folder),
+                      "--out_folder", str(out)])
+            outs[side] = {str(p.relative_to(tmp_path / side)): p.read_text()
+                          for p in sorted((tmp_path / side / dataset).rglob("*.jsonl"))}
+        assert outs["t"] == outs["j"] and outs["t"], dataset
+    with pytest.raises(NotImplementedError, match="data/ami.py"):
+        t_cli.main(["--dataset", "ami", "--data_folder", str(raw),
+                    "--out_folder", str(tmp_path / "ami")])
+
+
 # the Longformer, BigBird and MUG slices' modules, which the package walk must reach
 LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.sliding_attention", "ops.cuda.sliding_block", "ops.cuda.train_sliding", "eval.analysis",
@@ -247,7 +370,8 @@ LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "models.checkpoint_io", "models.ponet", "ops.cuda.ponet_block", "projects.mug.data",
     "projects.mug.topic_segmentation", "projects.mug.extractive_summarization",
     "projects.mug.evaluate", "eval.rouge", "cli.run_mug", "cli.run_mug_evaluate",
-    "ops.cuda.attention_models")]
+    "ops.cuda.attention_models", "eval.packed_inference", "eval.streaming", "models.hf_convert",
+    "models.hf_export", "cli.hf_checkpoint", "cli.run_process_data")]
 
 
 # the card scripts: chip_smoke.py and every measuring script in turns

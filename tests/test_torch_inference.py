@@ -119,9 +119,15 @@ def test_predict_windows_pads_the_tail_batch():
 
 
 def test_cos_predictor_not_ported():
+    """The cos predictor is ported (tests/test_torch_serving_paths.py holds
+    it against JAX): it gives one score a labelled sentence; a predictor
+    that is neither lt nor cos raises."""
     port = TopicSegModel(ENC, TASK).eval()
-    with pytest.raises(NotImplementedError):
-        run_topic_seg_inference(port, _docs(), WCFG, ts_score_predictor="cos")
+    out = run_topic_seg_inference(port, _docs(), WCFG, ts_score_predictor="cos")
+    for doc in out["per_doc"]:
+        assert doc["scores"].shape == doc["labels"].shape
+    with pytest.raises(ValueError):
+        run_topic_seg_inference(port, _docs(), WCFG, ts_score_predictor="both")
 
 
 def _write_corpus(root, n_test=3, seed=0):

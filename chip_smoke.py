@@ -273,8 +273,38 @@
    float32's (the float32 rows' global_* keys, B=2 ending in _b2).
 21. Prints the serving runs (flash, streaming and cos among them), the
    packed, checkpoint and flash training runs, the Longformer, BigBird, MUG
-   and W8A8 long-context runs and the kernels as JSON lines, the card's name and
-   power limit, and last {"ok": true, "device": {...}}.
+   and W8A8 long-context runs, the training-at-scale runs (phases 22-26) and
+   the kernels as JSON lines, the card's name and power limit, and last
+   {"ok": true, "device": {...}}.
+22. Gradient checkpointing on the dense training main path (after phase 7):
+   run_finetune --gradient_checkpointing at batch 32 in bf16 (against phase
+   6's run) and float32 (both runs, 2 steps each): rows 10 and 11's forwards
+   twice a layer a view a step, their backwards once; windows trained/s and
+   peak memory with and without; one composite step's loss and gradients at
+   dropout 0.1 with and without checkpointing bit for bit (the plain step
+   run twice: what moves from run to run, PyTorch's CUDA embedding backward
+   of token_type_embeddings, is named and held to the training kernels'
+   card limit instead).
+23. The same for the float32 Longformer recipe (after phase 10): 2 optimizer
+   steps of 2 x 4 micro-batches with --gradient_checkpointing against the
+   recipe's float32 run, and one micro-batch's gradients bit for bit.
+24. MLM+NSP pretraining: cli/run_pretrain_mlm.main at its defaults
+   (BERT-base, 128 tokens, batch 8, float32) for an epoch of a synthetic
+   meetings corpus (3 steps or more): rows 10 and 11 once a layer a step,
+   finite losses, sequences/s; one batch's loss within LOSS_RTOL and every
+   layer's weight-matrix gradient cosine >= MIN_GRAD_COSINE against the
+   einsum path at dropout 0.
+25. Feature extraction: cli/run_extract_features at its defaults (BERT-base,
+   128 tokens, batch 8, float32, the last four layers) over 64 examples:
+   kernels 1 and 2 once a layer a batch, examples/s; the first batch's
+   features of every layer against the einsum path (with the kernels' tanh
+   GELU) within F32_FWD_TOL.
+26. The data-parallel train step inside a process group of world size 1
+   over NCCL against the step without a group (run twice): metrics and
+   gradients bit for bit where the plain step repeats itself; run_finetune
+   for 3 steps at batch 32 (bf16) with and without the group: launches and
+   windows trained/s; the run without writes --report_to tensorboard, read
+   back with TensorBoard's reader.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -5379,10 +5409,13 @@ def checkpoint_path(data_dir: str, root: Path) -> dict:
     return res
 
 
-def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1) -> dict:
+def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1,
+               fwd_factor=1) -> dict:
     """Run the fine-tuning CLI; check launches (on the card), losses and the
     checkpoint. ``kernels``: {name: wrapper} that must run once per layer,
-    view and micro-step (the dense training kernels by default)."""
+    view and micro-step (the dense training kernels by default), the
+    forwards (``*_fwd``) ``fwd_factor`` times (2 under
+    --gradient_checkpointing: the backward recomputes each layer)."""
     import torch
 
     from spokennlp_tpu_torch.cli import run_finetune
@@ -5405,9 +5438,10 @@ def train_path(argv, n_layers, batch_size, device="cuda", kernels=None, accum=1)
         fail(f"{steps} train events for {results['train_steps']} micro-steps of {accum}")
     views = 2  # anchor and DA
     for name, n in launches.items():
-        if on_card and n != n_layers * views * steps * accum:
+        factor = fwd_factor if name.endswith("_fwd") else 1
+        if on_card and n != n_layers * views * steps * accum * factor:
             fail(f"{name} ran {n} times, expected {n_layers} layers x {views} views x "
-                 f"{steps} steps x {accum} micro-steps")
+                 f"{steps} steps x {accum} micro-steps x {factor}")
     keys = ("loss", "ts_loss", "cl_loss", "da_ts_loss", "tssp_loss", "grad_norm")
     for e in train:
         if not all(k in e and math.isfinite(e[k]) for k in keys):
@@ -5522,6 +5556,429 @@ def fused_vs_einsum_grads(argv, batch_size, device="cuda") -> dict:
     return {"loss_rel": rel, "min_cos": cos[worst]}
 
 
+# ------------------------------------------------------ training at scale
+# Phases 22-26: gradient checkpointing (--gradient_checkpointing) on the
+# dense step in bf16 and float32 and on the float32 Longformer recipe,
+# MLM+NSP pretraining (run_pretrain_mlm, rows 10 and 11), feature extraction
+# (run_extract_features, kernels 1 and 2) and one fine-tuning run in a
+# process group of world size 1 over NCCL.
+
+PRETRAIN_DOCS = 12  # 3-5 sentence pairs a meeting: about 5 batches of 8 in one epoch
+EXTRACT_EXAMPLES = 64  # 8 batches of 8 at run_extract_features' defaults
+
+
+def step_gradients(model, batch: dict, task_cfg, seed: int, device) -> dict:
+    """{"loss", and each parameter's name: its gradient} of one composite
+    step on ``model`` in training mode, its dropout drawn as the train step
+    draws it at micro-step 0 (train_step.step_generator)."""
+    import torch
+
+    from spokennlp_tpu_torch.models.topic_seg import compute_topic_seg_loss
+    from spokennlp_tpu_torch.train.train_step import CSSL_KEYS, step_generator
+
+    model.train()
+    gen = step_generator(device, seed, 0)
+    views = [model(batch["input_ids"][:, v], attention_mask=batch["attention_mask"][:, v],
+                   token_type_ids=batch["token_type_ids"][:, v],
+                   sent_positions=batch["sent_positions"][:, v], generator=gen) for v in (0, 1)]
+    cssl = {v: batch[k] for k, v in CSSL_KEYS.items()} if "cssl_anchor_indices" in batch else None
+    loss, _ = compute_topic_seg_loss(task_cfg, views[0], views[1], batch, cssl)
+    named = [(n, p) for n, p in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    return {"loss": loss.detach(),
+            **{n: g.detach() for (n, _), g in zip(named, grads) if g is not None}}
+
+
+def differing(a: dict, b: dict) -> list:
+    """Names of the entries of ``a`` that ``b`` lacks or differs in by a bit."""
+    import torch
+
+    return [n for n in a if n not in b or not torch.equal(a[n], b[n])]
+
+
+# PyTorch's CUDA embedding backward sums the gradient of a table whose ids
+# repeat many times (token_type_embeddings: 2 rows) in an order that can
+# change from run to run, so the plain step need not repeat itself bit for
+# bit. A step's entries are held bit for bit where the plain step repeats
+# itself, and the entries that moved from run to run are named and held to
+# the training kernels' card limit instead.
+def same_bits_but_moved(label: str, plain: dict, again: dict, other: dict, tol: float) -> dict:
+    """``other`` against ``plain`` bit for bit in every entry that ``again``
+    (the plain step once more) repeats; the entries that moved from run to
+    run within ``tol`` of their max |ref|."""
+    moved = differing(plain, again)
+    bad = [n for n in differing(plain, other) if n not in moved]
+    rel = lambda n: ((other[n].float() - plain[n].float()).abs().max()
+                     / plain[n].float().abs().max().clamp_min(1e-30)).item()
+    worst = max((rel(n) for n in moved), default=0.0)
+    print(f"{label}: {len(plain) - len(moved)} of {len(plain)} entries (the loss and the "
+          f"gradients) repeat bit for bit in the plain step and equal it bit for bit: "
+          f"{not bad}; moved from run to run: {moved}"
+          + (f" (PyTorch's CUDA embedding backward), within {worst:.3e} of max |ref| (limit "
+             f"{tol})" if moved else ""))
+    if bad:
+        fail(f"{label}: {bad[:6]} differ from the plain step's ({len(bad)} in all)")
+    if worst > tol:
+        fail(f"{label}: the entries that moved from run to run {worst:.3e} from the plain "
+             f"step's, limit {tol}")
+    return {"equal_bits": len(plain) - len(moved), "entries": len(plain), "moved": moved,
+            "moved_max_rel": worst}
+
+
+def step_inputs(argv, batch_size, device):
+    """(args, enc_cfg, task_cfg, the first training batch on ``device``) of
+    run_finetune's ``argv``."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, run_finetune
+    from spokennlp_tpu_torch.data.featurization import batches_from_docs
+    from spokennlp_tpu_torch.train.train_step import batch_to_device
+
+    args = run_finetune.make_parser().parse_args(argv)
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    enc_cfg, task_cfg, wcfg, _ = common.build_configs(args, special)
+    docs = common.load_docs(args, tokenize_fn)["train"]
+    batch = batch_to_device(next(batches_from_docs(docs, wcfg, task_cfg, batch_size,
+                                                   np.random.default_rng(0))),
+                            torch.device(device))
+    return args, enc_cfg, task_cfg, batch
+
+
+def remat_grads(argv, batch_size, device="cuda") -> dict:
+    """One composite step's loss and gradients at the recipe's dropout (0.1)
+    with and without --gradient_checkpointing, the same weights, batch and
+    generator: bit for bit (same_bits_but_moved; the plain step runs twice)."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli.run_inference import build_model
+
+    args, enc_cfg, task_cfg, batch = step_inputs(argv, batch_size, device)
+    runs = {}
+    for name, remat in (("plain", False), ("plain again", False), ("checkpointed", True)):
+        model = build_model(args, dataclasses.replace(enc_cfg, remat=remat), task_cfg)
+        runs[name] = step_gradients(model, batch, task_cfg, args.seed, torch.device(device))
+        del model
+    tol = F32_TOL["attention_train_bwd"] if args.dtype == "float32" else TRAIN_TOL["bfloat16"]
+    return same_bits_but_moved(
+        f"checkpointed step, {args.attention_type} {args.dtype} at batch {batch_size}",
+        runs["plain"], runs["plain again"], runs["checkpointed"], tol)
+
+
+def remat_phase(train_data: str, root: Path, bf16_plain: dict, device="cuda") -> dict:
+    """Phase 22: the dense training main path with --gradient_checkpointing at
+    batch 32 in bf16 (against the main path's run, ``bf16_plain``) and in
+    float32 (both runs here, 2 steps each): launches (the forwards twice),
+    windows trained/s and peak memory with and without, and the gradients
+    bit for bit (remat_grads)."""
+    out = {}
+    argv = train_argv(train_data, str(root / "remat_bf16")) + ["--gradient_checkpointing"]
+    row = train_path(argv, LAYERS, B, device=device, fwd_factor=2)
+    out["bfloat16"] = {"plain": {k: bf16_plain[k] for k in ("windows_per_s", "peak_gib")},
+                       "checkpointed": {k: row[k] for k in ("windows_per_s", "peak_gib",
+                                                            "launches")},
+                       "grads": remat_grads(train_argv(train_data, str(root / "rg_bf16")), B,
+                                            device)}
+    f32 = cli_default_dtype(train_argv(train_data, str(root / "plain_f32")))
+    f32[f32.index("--num_train_epochs") + 1] = repr(epochs_for_steps(f32, 2))
+    plain = train_path(f32, LAYERS, B, device=device)
+    remat = train_path([a.replace("plain_f32", "remat_f32") for a in f32]
+                       + ["--gradient_checkpointing"], LAYERS, B, device=device, fwd_factor=2)
+    out["float32"] = {"plain": {k: plain[k] for k in ("windows_per_s", "peak_gib")},
+                      "checkpointed": {k: remat[k] for k in ("windows_per_s", "peak_gib",
+                                                             "launches")},
+                      "grads": remat_grads(cli_default_dtype(
+                          train_argv(train_data, str(root / "rg_f32"))), B, device)}
+    for dtype, r in out.items():
+        print(f"gradient checkpointing, dense BERT-base {dtype} at batch {B}: "
+              f"{r['checkpointed']['windows_per_s']:.2f} windows trained/s and "
+              f"{r['checkpointed']['peak_gib']:.2f} GiB peak, without "
+              f"{r['plain']['windows_per_s']:.2f} and {r['plain']['peak_gib']:.2f}")
+    return out
+
+
+def lf_remat_phase(lf_data: str, root: Path, plain: dict, device="cuda") -> dict:
+    """Phase 23: the float32 Longformer recipe with --gradient_checkpointing
+    for LF_STEPS optimizer steps (the sliding training kernels, forwards
+    twice) against the recipe's float32 run without it (``plain``), and the
+    gradients of one micro-batch bit for bit."""
+    argv = lambda out, epochs: cli_default_dtype(longformer_train_argv(lf_data, str(root / out),
+                                                                       epochs))
+    epochs = epochs_for_steps(argv("lf_remat", 1.0), LF_STEPS)
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+
+    row = train_path(argv("lf_remat", epochs) + ["--gradient_checkpointing"], LAYERS, LF_TRAIN_B,
+                     accum=LF_ACCUM, fwd_factor=2, device=device,
+                     kernels={"sliding_train_fwd": ts.sliding_train_fwd,
+                              "sliding_train_bwd": ts.sliding_train_bwd,
+                              "mlp_train_fwd": tb.mlp_train_fwd,
+                              "mlp_train_bwd": tb.mlp_train_bwd})
+    grads = remat_grads(argv("lf_remat_grads", epochs), LF_TRAIN_B, device)
+    print(f"gradient checkpointing, Longformer-base float32 recipe: {row['windows_per_s']:.3f} "
+          f"windows trained/s and {row['peak_gib']:.2f} GiB peak, without "
+          f"{plain['windows_per_s']:.3f} and {plain['peak_gib']:.2f}")
+    return {"plain": {k: plain[k] for k in ("windows_per_s", "peak_gib")},
+            "checkpointed": {k: row[k] for k in ("windows_per_s", "peak_gib", "launches")},
+            "grads": grads}
+
+
+def write_meetings(path: Path, n_docs: int, seed: int = 6) -> str:
+    """A meetings JSONL ({"sentences": [{"text"}]}) of ``n_docs`` meetings of
+    4-6 sentences of 10-40 words."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(3000)]
+    with open(path, "w") as f:
+        for _ in range(n_docs):
+            f.write(json.dumps({"sentences": [
+                {"text": " ".join(rng.choice(words, size=rng.integers(10, 40)))}
+                for _ in range(rng.integers(4, 7))]}) + "\n")
+    return str(path)
+
+
+def pretrain_path(root: Path, device="cuda", extra=()) -> dict:
+    """Phase 24: run_pretrain_mlm at its defaults (BERT-base, 128 tokens,
+    batch 8, float32) for PRETRAIN_STEPS steps on a synthetic meetings corpus:
+    rows 10 and 11 once a layer a step, finite losses, sequences/s; then one
+    batch's loss and gradients on the training kernels against the einsum
+    path at dropout 0 (loss within LOSS_RTOL, every layer's weight-matrix
+    gradient cosine >= MIN_GRAD_COSINE)."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_pretrain_mlm
+    from spokennlp_tpu_torch.configs import EncoderConfig
+    from spokennlp_tpu_torch.objectives import mlm
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.train.train_step import batch_to_device
+
+    corpus = write_meetings(root / "meetings.jsonl", PRETRAIN_DOCS)
+    argv = ["--train_file", corpus, "--output_dir", str(root / "pretrain_out"),
+            "--device", device, "--num_train_epochs", "1", *extra]
+    wrappers = {n: getattr(tb, n) for n in ("attention_train_fwd", "attention_train_bwd",
+                                            "mlp_train_fwd", "mlp_train_bwd")}
+    args = run_pretrain_mlm.make_parser().parse_args(argv)
+    layers = args.num_hidden_layers
+    reset_counts(wrappers)
+    reset_peak()
+    res = run_pretrain_mlm.main(argv)
+    launches = read_counts(wrappers)
+    peak = peak_gib()
+    steps = res["steps"]
+    if steps < 3:
+        fail(f"pretraining took {steps} steps, expected 3 or more")
+    if device == "cuda" and any(n != layers * steps for n in launches.values()):
+        fail(f"pretraining launches {launches}, expected {layers} layers x {steps} steps each")
+    if not all(math.isfinite(res["final"][k]) for k in ("loss", "mlm_loss", "nsp_loss",
+                                                        "grad_norm")):
+        fail(f"pretraining: non-finite metrics {res['final']}")
+
+    from spokennlp_tpu_torch.cli import common
+
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    docs = run_pretrain_mlm.load_documents(corpus, tokenize_fn)
+    dcfg = mlm.PretrainDataConfig(cls_token_id=special["cls"], sep_token_id=special["sep"],
+                                  pad_token_id=special["pad"], mask_token_id=special["mask"])
+    full = mlm.build_pretraining_batch(docs, dcfg, np.random.default_rng(0), args.max_seq_length,
+                                       args.max_predictions_per_seq, args.masked_lm_prob,
+                                       special["vocab_size"])
+    batch = batch_to_device({k: v[:args.per_device_train_batch_size] for k, v in full.items()},
+                            torch.device(device))
+    enc = EncoderConfig(vocab_size=special["vocab_size"], hidden_size=args.hidden_size,
+                        num_layers=layers, num_heads=args.num_attention_heads,
+                        intermediate_size=args.intermediate_size, max_position_embeddings=512,
+                        add_pooler=True, hidden_dropout=0.0, attention_dropout=0.0)
+    res_g = {}
+    for impl in ("train_fused", "einsum"):
+        model = mlm.BertForPreTraining(dataclasses.replace(enc, attention_impl=impl),
+                                       generator=torch.Generator().manual_seed(0)).to(device)
+        model.train()
+        out = model(batch["input_ids"], batch["attention_mask"], batch["token_type_ids"],
+                    batch["mlm_positions"])
+        loss, _ = mlm.pretraining_loss(out, batch)
+        named = [(n, p) for n, p in model.named_parameters()
+                 if n.startswith("encoder.layer_") and n.endswith("kernel")]
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        res_g[impl] = (loss.item(), {n: g for (n, _), g in zip(named, grads)})
+        del model, out
+    (lf, gf), (le, ge) = res_g["train_fused"], res_g["einsum"]
+    rel = abs(lf - le) / abs(le)
+    cos = {n: torch.nn.functional.cosine_similarity(gf[n].flatten(), ge[n].flatten(),
+                                                    dim=0).item() for n in gf}
+    worst = min(cos, key=cos.get)
+    print(f"pretraining (run_pretrain_mlm defaults: BERT-base, 128 tokens, batch 8, float32): "
+          f"{steps} steps, {res['sequences_per_s']:.2f} sequences/s steady, peak {peak:.2f} GiB, "
+          f"launches {launches}, last {res['final']}; one batch on the training kernels against "
+          f"einsum at dropout 0: loss {lf:.6f} vs {le:.6f} (rel {rel:.2e}), lowest gradient "
+          f"cosine {cos[worst]:.6f} ({worst})")
+    if not rel <= LOSS_RTOL:
+        fail(f"pretraining loss {lf} vs einsum {le}: rel {rel:.3e} > {LOSS_RTOL}")
+    if cos[worst] < MIN_GRAD_COSINE:
+        fail(f"pretraining gradient cosine {cos[worst]:.5f} of {worst} < {MIN_GRAD_COSINE}")
+    return {"steps": steps, "sequences_per_s": res["sequences_per_s"], "peak_gib": peak,
+            "launches": launches, "loss_rel": rel, "min_cos": cos[worst]}
+
+
+def extract_features_path(root: Path, device="cuda", extra=()) -> dict:
+    """Phase 25: run_extract_features at its defaults (BERT-base, 128 tokens,
+    batch 8, float32, layers -1 to -4) on EXTRACT_EXAMPLES examples (a third
+    of them pairs): kernels 1 and 2 once a layer a batch, examples/s; then
+    every layer's features of the first batch's real tokens against the
+    einsum path within F32_FWD_TOL. The kernels' GELU is the tanh form, as
+    on the TPU, so the einsum path runs the same function (gelu_new)."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_extract_features as rx
+    from spokennlp_tpu_torch.models.encoder import Encoder
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+
+    rng = np.random.default_rng(7)
+    words = [f"w{i}" for i in range(3000)]
+    sent = lambda: " ".join(rng.choice(words, size=rng.integers(8, 70)))
+    lines = [sent() + (f" ||| {sent()}" if i % 3 == 0 else "") for i in range(EXTRACT_EXAMPLES)]
+    (root / "extract_in.txt").write_text("\n".join(lines) + "\n")
+    args = rx.build_parser().parse_args([
+        "--input_file", str(root / "extract_in.txt"),
+        "--output_file", str(root / "features.jsonl"), "--device", device, *extra])
+    wrappers = {"fused_attention_block": fused_attention_block,
+                "fused_mlp_block": fused_mlp_block}
+    reset_counts(wrappers)
+    reset_peak()
+    out = rx.run(args)
+    launches = read_counts(wrappers)
+    peak = peak_gib()
+    batches = math.ceil(EXTRACT_EXAMPLES / args.batch_size)
+    layers = args.num_hidden_layers
+    if device == "cuda" and any(n != layers * batches for n in launches.values()):
+        fail(f"feature extraction launches {launches}, expected {layers} x {batches} batches")
+    n_lines = len((root / "features.jsonl").read_text().splitlines())
+    if n_lines != EXTRACT_EXAMPLES:
+        fail(f"feature extraction wrote {n_lines} lines for {EXTRACT_EXAMPLES} examples")
+
+    tokenize, to_ids = rx.resolve_string_tokenizer(args)
+    feats = [rx.convert_example(a, b, tokenize, to_ids, args.max_seq_length)
+             for a, b in rx.read_examples(args.input_file)[:args.batch_size]]
+    ids, mask, types = (torch.tensor([f[i] for f in feats], dtype=torch.int32, device=device)
+                        for i in (1, 2, 3))
+    fused = rx.build_encoder(args)
+    plain = Encoder(dataclasses.replace(fused.cfg, attention_impl="einsum",
+                                        hidden_act="gelu_new")).to(device).eval()
+    plain.load_state_dict(fused.state_dict(), strict=True)
+    real = mask.bool()
+    with torch.inference_mode():
+        got, want = (m(ids, attention_mask=mask, token_type_ids=types,
+                       output_hidden_states=True).hidden_states[1:] for m in (fused, plain))
+    readings = f32_gemm_readings({f"layer {i}": g[real] for i, g in enumerate(got)},
+                                 {f"layer {i}": w[real] for i, w in enumerate(want)})
+    worst = max(readings, key=lambda k: f32_gemm_excess(readings[k], F32_FWD_TOL))
+    rate = out["examples"] / out["seconds"]
+    print(f"feature extraction (run_extract_features defaults: BERT-base, 128 tokens, batch 8, "
+          f"float32): {out['examples']} examples in {out['seconds']:.3f} s = {rate:.1f} "
+          f"examples/s (JSONL writing included), peak {peak:.2f} GiB, launches {launches}; "
+          f"features against the einsum path, worst {worst}: max {readings[worst][0]:.2e}, norm "
+          f"{readings[worst][1]:.2e} (limits {F32_FWD_TOL})")
+    if f32_gemm_excess(readings[worst], F32_FWD_TOL) > 1:
+        fail(f"extracted features: {worst} reads {readings[worst]} against the einsum path, "
+             f"beyond {F32_FWD_TOL}")
+    return {"examples": out["examples"], "examples_per_s": rate, "peak_gib": peak,
+            "launches": launches, "reading": readings[worst]}
+
+
+def dp_step(args, enc_cfg, task_cfg, batch, device) -> dict:
+    """The train step of run_finetune (train_step.make_topic_seg_train_step:
+    inside a process group the data-parallel step) on a fresh model: its
+    metrics and the gradients it hands to the optimizer, by name."""
+    from spokennlp_tpu_torch.cli.run_inference import build_model
+    from spokennlp_tpu_torch.configs import TrainConfig
+    from spokennlp_tpu_torch.train import optim
+    from spokennlp_tpu_torch.train.train_step import make_topic_seg_train_step
+
+    model = build_model(args, enc_cfg, task_cfg)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    opt = optim.make_optimizer(model, TrainConfig(gradient_accumulation_steps=1), 10)
+    seen, real = {}, opt.step
+
+    def step(grads):
+        seen.update({n: g.detach().clone() for n, g in zip(names, grads)})
+        return real(grads)
+
+    opt.step = step
+    metrics = make_topic_seg_train_step(model, task_cfg, opt, seed=args.seed)(batch)
+    return {**{k: v.detach() for k, v in metrics.items()}, **seen}
+
+
+def nccl_step_path(train_data: str, root: Path, device="cuda") -> dict:
+    """Phase 26: the data-parallel train step in a process group of world
+    size 1 over NCCL (tcp://localhost: global denominators, CSSL through the
+    gather, one all-reduce of the gradients) against the step without a
+    group on the same batch: metrics and the gradients handed to the
+    optimizer bit for bit (same_bits_but_moved; the plain step runs twice);
+    then run_finetune for 3 steps at batch 32 (bf16) with and without the
+    group: the training kernels' launches and the windows trained/s of
+    each."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_finetune
+    from spokennlp_tpu_torch.dryrun import free_port
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.parallel import dist
+
+    def cli_run(name: str, extra=()) -> list:
+        argv = [a for a in train_argv(train_data, str(root / name))
+                if a not in ("--do_eval", "--do_predict")] + list(extra)
+        argv[argv.index("--num_train_epochs") + 1] = repr(epochs_for_steps(argv, 3))
+        wrappers = {n: getattr(tb, n) for n in ("attention_train_fwd", "attention_train_bwd",
+                                                "mlp_train_fwd", "mlp_train_bwd")}
+        reset_counts(wrappers)
+        run_finetune.main(argv)
+        launches = read_counts(wrappers)
+        if device == "cuda" and any(n != LAYERS * 2 * 3 for n in launches.values()):
+            fail(f"{name}: launches {launches}, expected {LAYERS} x 2 views x 3 steps")
+        events = [json.loads(l) for l in (root / name / "metrics.jsonl").read_text().splitlines()]
+        return [e for e in events if e["event"] == "train"]
+
+    inputs = step_inputs(train_argv(train_data, str(root / "nccl_step")), B, device)
+    plain, again = dp_step(*inputs, device), dp_step(*inputs, device)
+    plain_train = cli_run("nccl_plain", ["--report_to", "tensorboard"])
+    tensorboard_steps = read_tensorboard(root / "nccl_plain" / "tensorboard", "train/loss")
+    if tensorboard_steps != [e["step"] for e in plain_train]:
+        fail(f"--report_to tensorboard: train/loss at steps {tensorboard_steps}, metrics.jsonl "
+             f"at {[e['step'] for e in plain_train]}")
+    dist.initialize_distributed(device, f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        if device == "cuda" and torch.distributed.get_backend() != "nccl":
+            fail("the process group is not NCCL")
+        group = dp_step(*inputs, device)
+        group_train = cli_run("nccl_group")
+    finally:
+        dist.destroy()
+    row = same_bits_but_moved(f"the world-size-1 {'NCCL' if device == 'cuda' else 'gloo'} step",
+                              plain, again, group, TRAIN_TOL["bfloat16"])
+    rate = lambda t: B * (len(t) - 1) / (t[-1]["time"] - t[0]["time"])
+    row.update(plain_windows_per_s=rate(plain_train), group_windows_per_s=rate(group_train))
+    print(f"run_finetune, 3 steps at batch {B} bf16: {row['group_windows_per_s']:.2f} windows "
+          f"trained/s in the group, {row['plain_windows_per_s']:.2f} without (that run with "
+          f"--report_to tensorboard: train/loss read back at steps {tensorboard_steps})")
+    return row
+
+
+def read_tensorboard(logdir: Path, tag: str) -> list:
+    """The steps of ``tag``'s scalars in ``logdir``'s event files, read with
+    TensorBoard's own reader."""
+    import tensorboard
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(str(logdir))
+    acc.Reload()
+    print(f"tensorboard {tensorboard.__version__}: {logdir.name} holds {acc.Tags()['scalars']}")
+    return [e.step for e in acc.Scalars(tag)]
+
+
 def main() -> int:
     import torch
 
@@ -5591,6 +6048,19 @@ def main() -> int:
         print(f"flash training phase: {time.perf_counter() - t1:.1f} s")
         fused_vs_einsum_grads(train_argv(train_data, str(Path(tmp) / "grad_out")), batch_size=B)
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        scale = {"checkpointing": remat_phase(train_data, Path(tmp), train)}
+        print(f"phase 22 (gradient checkpointing, dense): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        scale["nccl"] = nccl_step_path(train_data, Path(tmp))
+        print(f"phase 26 (NCCL world size 1): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        scale["pretraining"] = pretrain_path(Path(tmp))
+        print(f"phase 24 (pretraining): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        scale["feature extraction"] = extract_features_path(Path(tmp))
+        print(f"phase 25 (feature extraction): {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
 
         # the Longformer paths: long documents, about 2 windows of 2048 each
         lf_data = write_corpus(Path(tmp), n_test_docs=40, n_train_docs=8, seed=2,
@@ -5619,6 +6089,11 @@ def main() -> int:
                      "mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd})
         lf_train_f32.update(fused_vs_einsum_grads(
             cli_default_dtype(argv("lf_f32_grad_out", epochs)), batch_size=LF_TRAIN_B))
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        scale["longformer checkpointing"] = lf_remat_phase(lf_data, Path(tmp), lf_train_f32)
+        print(f"phase 23 (gradient checkpointing, Longformer float32): "
+              f"{time.perf_counter() - t1:.1f} s")
         torch.cuda.empty_cache()
 
         # the BigBird paths: longer documents, about 1.5 windows of 4096 each
@@ -5701,6 +6176,7 @@ def main() -> int:
         k: lf_train_f32[k] for k in ("launches", "steps", "steps_per_s", "windows_per_s",
                                      "peak_gib", "loss_rel", "min_cos")}}}))
     print(json.dumps({"mug": mug}, default=float))
+    print(json.dumps({"training at scale": scale}, default=float))
     print(json.dumps({"w8a8_long": w8a8_long}, default=float))
     kernels = []
     for name, (source, replaces) in KERNELS.items():

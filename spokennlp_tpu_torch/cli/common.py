@@ -3,11 +3,12 @@ configs, checkpoint loading and corpus loading.
 
 The port's own copy of ``spokennlp_tpu/cli/common.py``'s flag groups,
 ``resolve_tokenizer``, ``build_configs``, ``maybe_load_pretrained``,
-``resize_word_embeddings`` and ``load_docs``, with the same flags and
-defaults. ``resolve_tokenizer`` reads a checkpoint directory's WordPiece
-``vocab.txt`` (the JAX package's ``AutoTokenizer`` path for BERT-style
-tokenizers, ``[BOS]`` added where the vocabulary lacks it), a
-``--vocab_file``, or falls back to hashing words with ``zlib.crc32``, where
+``resize_word_embeddings``, ``maybe_init_distributed`` and ``load_docs``,
+with the same flags and defaults (``--jax_distributed`` keeps its name and
+joins a ``torch.distributed`` process group). ``resolve_tokenizer`` reads
+a checkpoint directory's WordPiece ``vocab.txt`` (the JAX package's
+``AutoTokenizer`` path for BERT-style tokenizers, ``[BOS]`` added where the
+vocabulary lacks it), a ``--vocab_file``, or falls back to hashing words with ``zlib.crc32``, where
 the JAX package's uses the salted ``hash()``: the same flags give the same
 ids in every interpreter, and other ids than JAX's. ``maybe_load_pretrained``
 reads the directory without ``transformers`` (``cli/hf_checkpoint.py``) and
@@ -117,8 +118,10 @@ def add_training_args(p: argparse.ArgumentParser):
                    help="tensorboard writes event files under "
                    "<output_dir>/tensorboard")
     g.add_argument("--jax_distributed", action="store_true",
-                   help="call jax.distributed.initialize (multi-host; "
-                   "coordinator from JAX_COORDINATOR_ADDRESS et al.)")
+                   help="join a torch.distributed process group (data parallel; "
+                   "address, world size and rank from torchrun's MASTER_ADDR, "
+                   "MASTER_PORT, WORLD_SIZE and RANK; NCCL on cuda, gloo on cpu); "
+                   "torchrun with WORLD_SIZE > 1 joins without the flag")
 
 
 def resolve_tokenizer(args) -> Tuple[Callable[[str], List[int]], dict]:
@@ -232,6 +235,23 @@ def build_configs(args, special):
         ),
     )
     return enc, task, wcfg, tcfg
+
+
+def maybe_init_distributed(args) -> bool:
+    """Join the process group (parallel/dist.py) behind ``--jax_distributed``,
+    or when torchrun started several processes (``WORLD_SIZE`` > 1): JAX sees
+    every local device from one process, the port runs one process a card.
+    Inside a group ``args.device`` "cuda" becomes this process's card.
+    Returns whether this call made the group (its caller leaves it at the
+    end). Without either, or without torchrun's environment, a no-op."""
+    from spokennlp_tpu_torch.parallel import dist
+
+    joined = False
+    if getattr(args, "jax_distributed", False) or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        joined = dist.initialize_distributed(device=args.device)
+    if dist.is_distributed():
+        args.device = str(dist.process_device(args.device))
+    return joined
 
 
 def maybe_load_pretrained(args, enc_cfg) -> Optional[Tuple[EncoderConfig, Dict]]:

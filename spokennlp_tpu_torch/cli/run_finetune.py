@@ -13,8 +13,13 @@ Weights start from ``--model_name_or_path`` (``run_inference``'s checkpoint
 directories) or ``--seed``; ``--seeds`` with two or more seeds repeats the
 run under ``<output_dir>/seed_<n>`` for each and writes the mean and
 standard deviation of every numeric result to ``multi_seed_results.json``
-(the reference's ``for seed in 42 59 88`` loop). TensorBoard, gradient
-checkpointing and multi-device training are not ported yet.
+(the reference's ``for seed in 42 59 88`` loop). ``--gradient_checkpointing``
+recomputes every layer in the backward (``EncoderConfig.remat``, the same
+gradients bit for bit); ``--report_to tensorboard`` writes the train and
+eval scalars under ``<output_dir>/tensorboard``. Under ``torchrun
+--nproc_per_node=N`` (or with ``--jax_distributed``) it trains data parallel,
+one process a card (NCCL; gloo with ``--device cpu``): the global batch is
+``--per_device_train_batch_size`` x N, and rank 0 writes every file.
 
     python -m spokennlp_tpu_torch.cli.run_finetune --data_dir <wiki_section dir> \
         --output_dir out --do_train --do_eval --do_predict --dtype bfloat16 \
@@ -39,6 +44,8 @@ import torch
 from spokennlp_tpu_torch.cli import common
 from spokennlp_tpu_torch.cli.run_inference import build_model, configs_and_weights, resolve_device
 from spokennlp_tpu_torch.models import checkpoint_io
+from spokennlp_tpu_torch.parallel import dist as dist_lib
+from spokennlp_tpu_torch.parallel import mesh as mesh_lib
 
 
 def make_parser():
@@ -66,6 +73,17 @@ def save_final_model(path: str, model: torch.nn.Module, enc_cfg):
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    joined = common.maybe_init_distributed(args)
+    try:
+        return run_seeds(args)
+    finally:
+        if joined:
+            dist_lib.destroy()
+
+
+def run_seeds(args):
+    """``main_single`` once, or once a seed of ``--seeds`` with the mean and
+    standard deviation of the results."""
     if args.seeds and len(args.seeds) > 1:
         from spokennlp_tpu_torch.eval.analysis import compute_avg_std
 
@@ -78,10 +96,11 @@ def main(argv=None):
             keys = keys or sorted(k for k, v in res.items() if isinstance(v, (int, float)))
             per_seed.append([float(res.get(k, 0.0)) for k in keys])
         agg = compute_avg_std(per_seed, keys)
-        os.makedirs(args.output_dir, exist_ok=True)
-        with open(os.path.join(args.output_dir, "multi_seed_results.json"), "w") as f:
-            json.dump(agg, f, indent=2)
-        print(json.dumps(agg, indent=2))
+        if dist_lib.rank() == 0:
+            os.makedirs(args.output_dir, exist_ok=True)
+            with open(os.path.join(args.output_dir, "multi_seed_results.json"), "w") as f:
+                json.dump(agg, f, indent=2)
+            print(json.dumps(agg, indent=2))
         return agg
     return main_single(args)
 
@@ -92,10 +111,8 @@ def main_single(args):
     from spokennlp_tpu_torch.train.trainer import TopicSegTrainer
 
     resolve_device(args.device)
-    if args.model_parallel_size != 1 or args.jax_distributed:
-        raise NotImplementedError("the port trains on one device")
-    if args.report_to or args.gradient_checkpointing:
-        raise NotImplementedError("--report_to and --gradient_checkpointing are not ported yet")
+    mesh_lib.check_model_parallel(args.model_parallel_size)
+    is_main = dist_lib.rank() == 0
     os.makedirs(args.output_dir, exist_ok=True)
 
     tokenize_fn, special = common.resolve_tokenizer(args)
@@ -129,6 +146,7 @@ def main_single(args):
     try:
         if args.do_train:
             results.update(trainer.train())
+        if args.do_train and is_main:
             save_final_model(os.path.join(args.output_dir, "final_model"), model, enc_cfg)
             if args.save_hf_format:
                 from spokennlp_tpu_torch.models import hf_export
@@ -157,9 +175,11 @@ def main_single(args):
         )
         results.update({f"predict_{k}": v for k, v in out["metrics"].items()})
 
-    with open(os.path.join(args.output_dir, "all_results.json"), "w") as f:
-        json.dump(results, f, indent=2, default=float)
-    print(json.dumps(results, indent=2, default=float))
+    if is_main:
+        with open(os.path.join(args.output_dir, "all_results.json"), "w") as f:
+            json.dump(results, f, indent=2, default=float)
+        print(json.dumps(results, indent=2, default=float))
+    dist_lib.barrier()
     return results
 
 

@@ -7,6 +7,9 @@ come from ``--model_name_or_path`` (a native checkpoint directory or an HF
 one of type bert, longformer, electra or big_bird; ``cli/common.py``
 ``maybe_load_pretrained``), else from ``--seed``. ``--ts_score_predictor
 cos`` scores sentences by the sigmoid of adjacent cosine similarities.
+Under ``torchrun --nproc_per_node=N`` (or with ``--jax_distributed``) each
+process scores its block of the windows on its card and every process gets
+all the scores (eval/inference.py); rank 0 writes the files.
 
     python -m spokennlp_tpu_torch.cli.run_inference --data_dir <wiki_section dir> \
         --output_dir out --dtype bfloat16 --per_device_eval_batch_size 32 \
@@ -24,6 +27,8 @@ import numpy as np
 import torch
 
 from spokennlp_tpu_torch.cli import common
+from spokennlp_tpu_torch.parallel import dist as dist_lib
+from spokennlp_tpu_torch.parallel import mesh as mesh_lib
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -73,12 +78,21 @@ def configs_and_weights(args, special):
 
 
 def main(argv=None):
-    from spokennlp_tpu_torch.eval.inference import run_topic_seg_inference
-
     args = make_parser().parse_args(argv)
     resolve_device(args.device)
-    if args.model_parallel_size != 1 or args.jax_distributed:
-        raise NotImplementedError("the port runs on one device")
+    mesh_lib.check_model_parallel(args.model_parallel_size)
+    joined = common.maybe_init_distributed(args)
+    try:
+        return predict(args)
+    finally:
+        if joined:
+            dist_lib.destroy()
+
+
+def predict(args):
+    """One prediction run of the parsed flags; rank 0 writes the files."""
+    from spokennlp_tpu_torch.eval.inference import run_topic_seg_inference
+
     os.makedirs(args.output_dir, exist_ok=True)
 
     tokenize_fn, special = common.resolve_tokenizer(args)
@@ -105,6 +119,8 @@ def main(argv=None):
     out["predict_time_s"] = time.perf_counter() - t0
     print("predict_time(s): ", out["predict_time_s"])
 
+    if dist_lib.rank() != 0:
+        return out
     metric_name = "_".join(
         ["predict", args.test_data_name, f"max_seq{args.max_seq_length}",
          f"ts_score_{args.ts_score_predictor}"]

@@ -12,6 +12,14 @@ its cosine similarity with the next one (``make_cos_predict_fn``);
 (N, L, C) logits. Featurization, aggregation and the metrics are the port's
 copies of the JAX package's host modules (``data.windowing_fast``,
 ``data.windowing``, ``eval.seg_metrics``).
+
+Inside a ``torch.distributed`` process group of several ranks (data
+parallel, as JAX shards the engine's batches over its mesh) the engine
+splits the windows into one equal block a rank (``parallel.mesh.
+rank_rows``, the last window repeated to fill), each rank scores its block
+and the scores are gathered in rank order on every rank, so every rank
+aggregates and scores the whole corpus; ``make_predict_fn``'s scorer takes
+a batch whose rows divide by the world size and does the same within it.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from spokennlp_tpu_torch.data import windowing as W
 from spokennlp_tpu_torch.data.windowing_fast import window_documents_stacked
 from spokennlp_tpu_torch.eval import seg_metrics
 from spokennlp_tpu_torch.objectives import cssl as cssl_ops
+from spokennlp_tpu_torch.parallel import dist as dist_lib
+from spokennlp_tpu_torch.parallel import mesh as mesh_lib
 
 
 def model_device(model: torch.nn.Module) -> torch.device:
@@ -55,15 +65,23 @@ def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
 def make_predict_fn(model: torch.nn.Module):
     """The window scorer: (input_ids, attention_mask, token_type_ids), numpy
     or tensors, -> (B, L, C) float32 token logits on the model's device, in
-    eval mode."""
+    eval mode; in a process group of several ranks each scores its block of
+    the B rows (B must divide by the world size) and every rank gets all."""
     device = model_device(model)
 
     def predict(input_ids, attention_mask, token_type_ids) -> torch.Tensor:
         ids, mask, tt = (torch.as_tensor(a).to(device) for a in
                          (input_ids, attention_mask, token_type_ids))
+        world = dist_lib.world_size()
+        if world > 1:  # this rank's rows, then every rank's
+            ids, mask, tt = (mesh_lib.shard_batch({"x": t}, dist_lib.rank(), world)["x"]
+                             for t in (ids, mask, tt))
         with evaluating(model):
             out = model(ids, attention_mask=mask, token_type_ids=tt)
-        return out["token_logits"].float()
+        logits = out["token_logits"].float()
+        if world > 1:
+            logits = torch.cat(dist_lib.all_gather_tensors(logits), 0)
+        return logits
 
     return predict
 
@@ -176,6 +194,19 @@ def cos_per_doc(batch: Dict[str, np.ndarray], sims: np.ndarray, num_docs: int) -
             for l, s in zip(doc_labels, doc_scores)]
 
 
+def rank_block(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """This rank's block of the stacked windows (``mesh.rank_rows``: equal
+    blocks, the last window repeated past the end); the whole batch on one
+    process."""
+    world = dist_lib.world_size()
+    if world == 1:
+        return batch
+    n = batch["input_ids"].shape[0]
+    start, end = mesh_lib.rank_rows(n, dist_lib.rank(), world)
+    rows = np.minimum(np.arange(start, end), n - 1)
+    return {k: batch[k][rows] for k in COS_KEYS}
+
+
 def run_topic_seg_inference(
     model: torch.nn.Module,
     docs: Sequence[Dict],
@@ -201,13 +232,17 @@ def run_topic_seg_inference(
     if ts_score_predictor not in ("lt", "cos"):
         raise ValueError(f"ts_score_predictor={ts_score_predictor!r}")
     batch = window_documents_stacked(docs, windowing_cfg)
-    if batch["input_ids"].shape[0] == 0:
+    n = batch["input_ids"].shape[0]
+    if n == 0:
         raise ValueError("no windows to stack")
+    local, device = rank_block(batch), model_device(model)
     if ts_score_predictor == "cos":
-        sims = predict_cos_scores(model, batch, batch_size, cos_temp)
+        sims = dist_lib.gather_rows(predict_cos_scores(model, local, batch_size, cos_temp), n,
+                                    device)
         per_doc = cos_per_doc(batch, sims, len(docs))
     else:
-        scores = predict_windows_scanned(model, batch, batch_size, gather_sents=True)
+        scores = dist_lib.gather_rows(
+            predict_windows_scanned(model, local, batch_size, gather_sents=True), n, device)
         per_doc = W.aggregate_gathered_predictions(
             batch["example_id"], batch["sent_labels"], scores, num_examples=len(docs)
         )

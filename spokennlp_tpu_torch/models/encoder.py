@@ -79,6 +79,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spokennlp_tpu_torch.configs import EncoderConfig
 from spokennlp_tpu_torch.ops.bigbird_attention import (
@@ -627,8 +628,37 @@ def resolve_attention_impl(
     return "chunked" if chunked and seq_len % C == 0 else "bias"
 
 
+def checkpointed(fn, generator: Optional[torch.Generator], *args, **kwargs):
+    """``fn(*args, generator=..., **kwargs)`` under gradient checkpointing
+    (``torch.utils.checkpoint``, non-reentrant): its activations are not kept
+    but recomputed in the backward. ``checkpoint`` restores only the default
+    generators, so the layer draws its dropout masks and kernel seeds from a
+    copy of ``generator`` made from the state ``generator`` has before the
+    call, in the forward and again in the recompute; ``generator`` then
+    continues from where the copy ended. The layer sees the same stream as
+    without checkpointing, so its gradients are the same bit for bit."""
+    if generator is None:  # the default generator: checkpoint restores it
+        return checkpoint(fn, *args, generator=None, use_reentrant=False, **kwargs)
+    start = generator.get_state()
+    end = []
+
+    def run(*a, **kw):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        out = fn(*a, generator=g, **kw)
+        if not end:
+            end.append(g.get_state())
+        return out
+
+    out = checkpoint(run, *args, use_reentrant=False, **kwargs)
+    generator.set_state(end[0])
+    return out
+
+
 class Encoder(nn.Module):
-    """The trunk: embeddings, N transformer layers, optional pooler."""
+    """The trunk: embeddings, N transformer layers, optional pooler.
+    ``cfg.remat`` checkpoints every layer in training mode (``checkpointed``),
+    on every path, as JAX wraps each layer in ``nn.remat``."""
 
     def __init__(
         self,
@@ -708,10 +738,14 @@ class Encoder(nn.Module):
         # BigBird's kernels and block path read the (B, L) mask itself
         bigbird = (attention_mask if cfg.attention_type == "bigbird"
                    and impl in ("fused", "train_fused", "block") else None)
+        remat = cfg.remat and self.training
         if impl in ("fused", "train_fused"):
             for layer in self.layers():
                 if impl == "fused":
                     hidden = layer.forward_fused(hidden, seg, masks, quantized, bigbird)
+                elif remat:
+                    hidden = checkpointed(layer.forward_train_fused, generator, hidden, seg,
+                                          sliding=masks, bigbird=bigbird)
                 else:
                     hidden = layer.forward_train_fused(hidden, seg, generator, masks, bigbird)
                 if output_hidden_states:
@@ -734,8 +768,13 @@ class Encoder(nn.Module):
                     same = pack_segment_ids[:, :, None] == pack_segment_ids[:, None, :]
                     bias = bias + torch.where(same, 0.0, NEG_INF)[:, None, :, :]
             for layer in self.layers():
-                hidden, probs = layer(hidden, bias, output_attentions, generator, masks, quantized,
-                                      seg if impl == "pallas" else None, bigbird)
+                args = (hidden, bias, output_attentions)
+                kw = dict(sliding=masks, quantized=quantized,
+                          segment_ids=seg if impl == "pallas" else None, bigbird=bigbird)
+                if remat:
+                    hidden, probs = checkpointed(layer, generator, *args, **kw)
+                else:
+                    hidden, probs = layer(*args, generator=generator, **kw)
                 if output_hidden_states:
                     all_hidden = all_hidden + (hidden,)
                 if output_attentions:

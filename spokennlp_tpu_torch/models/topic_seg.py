@@ -10,7 +10,10 @@ and the loss of the reference's ``LossCalculator``:
           + tssp_w * CE(DA sentence-pair logits) [DA view only]
 
 The reference multiplies the TSSP weight twice; this applies it once, as
-the JAX package does.
+the JAX package does. Under data parallel (``dp``, parallel/dist.py) the
+loss is this rank's share of the whole batch's: the cross-entropies divide
+by global counts, and CSSL, whose indices span the batch, runs on every
+rank's gathered eop features and counts 1 / world_size on each.
 """
 
 from __future__ import annotations
@@ -98,7 +101,7 @@ def _view(batch: Dict[str, torch.Tensor], key: str, view: int) -> torch.Tensor:
     return batch[key][:, view]
 
 
-def ts_view_loss(task_cfg: TopicSegConfig, outputs, labels, eop_positions, eop_mask):
+def ts_view_loss(task_cfg: TopicSegConfig, outputs, labels, eop_positions, eop_mask, dp=None):
     """The boundary loss of one view and its logits for prediction.
 
     Returns (ts_loss, logits, eop_pair_cos_sim).
@@ -116,10 +119,11 @@ def ts_view_loss(task_cfg: TopicSegConfig, outputs, labels, eop_positions, eop_m
             labels,
             class_weights=loss_ops.ts_class_weights(task_cfg.weight_label_zero),
             focal_gamma=task_cfg.focal_loss_gamma,
+            dp=dp,
         )
     elif task_cfg.ts_score_predictor == "cos":
         # BCE on the adjacent-eop cosine: label 1 (O, same topic) -> similar
-        ts = loss_ops.bce_with_logits_ignore(sims, sim_labels)
+        ts = loss_ops.bce_with_logits_ignore(sims, sim_labels, dp=dp)
         logits = torch.sigmoid(sims)
     else:
         raise ValueError(f"unsupported ts_score_predictor {task_cfg.ts_score_predictor}")
@@ -132,15 +136,17 @@ def compute_topic_seg_loss(
     da_out: Optional[Dict[str, torch.Tensor]],
     batch: Dict[str, torch.Tensor],
     cssl_indices: Optional[Dict[str, torch.Tensor]] = None,
+    dp=None,
 ):
-    """The composite training loss. Returns (loss, aux dict)."""
+    """The composite training loss. Returns (loss, aux dict); with ``dp``
+    both are this rank's shares."""
     aux: Dict[str, torch.Tensor] = {}
     anchor_labels = _view(batch, "labels", 0)
     anchor_eop_pos = _view(batch, "sent_positions", 0).long()
     anchor_eop_mask = _view(batch, "eop_mask", 0)
 
     ts_loss, anchor_logits, _ = ts_view_loss(
-        task_cfg, anchor_out, anchor_labels, anchor_eop_pos, anchor_eop_mask
+        task_cfg, anchor_out, anchor_labels, anchor_eop_pos, anchor_eop_mask, dp
     )
     loss = task_cfg.ts_loss_weight * ts_loss
     aux["ts_loss"] = ts_loss
@@ -149,9 +155,12 @@ def compute_topic_seg_loss(
     if task_cfg.cl_loss_weight != 0.0:
         eop_feats = cssl_ops.gather_sentence_features(anchor_out["seq_output"], anchor_eop_pos)
         eop_labels = torch.take_along_dim(anchor_labels, anchor_eop_pos, dim=1)
+        eop_mask = anchor_eop_mask
+        if dp is not None:  # the indices and topic ids span the whole batch
+            eop_feats = dp.gather(eop_feats)
+            eop_labels, eop_mask = dp.gather_const(eop_labels), dp.gather_const(eop_mask)
         if task_cfg.cl_anchor_level == "eop_matrix":
-            cl = cssl_ops.eop_matrix_cl_loss(eop_feats, eop_labels, anchor_eop_mask,
-                                             task_cfg.cl_temp)
+            cl = cssl_ops.eop_matrix_cl_loss(eop_feats, eop_labels, eop_mask, task_cfg.cl_temp)
         elif task_cfg.cl_anchor_level in ("eop_list", "eot_list"):
             if cssl_indices is None:
                 raise ValueError("list-mode CSSL needs the host-side indices")
@@ -165,6 +174,8 @@ def compute_topic_seg_loss(
             )
         else:
             raise ValueError(f"unsupported cl_anchor_level {task_cfg.cl_anchor_level}")
+        if dp is not None:
+            cl = cl / dp.world_size
         loss = loss + task_cfg.cl_loss_weight * cl
         aux["cl_loss"] = cl
 
@@ -175,6 +186,7 @@ def compute_topic_seg_loss(
             _view(batch, "labels", 1),
             _view(batch, "sent_positions", 1),
             _view(batch, "eop_mask", 1),
+            dp,
         )
         loss = loss + task_cfg.ts_loss_weight * da_ts_loss
         aux["da_ts_loss"] = da_ts_loss
@@ -183,7 +195,7 @@ def compute_topic_seg_loss(
         if task_cfg.tssp_loss_weight != 0.0 and task_cfg.do_tssp:
             sent_mask = _view(batch, "sent_mask", 1).bool()
             tssp_labels = torch.where(sent_mask, _view(batch, "pair_orders", 1), IGNORE)
-            tssp = loss_ops.cross_entropy_with_ignore(da_out["tssp_logits"], tssp_labels)
+            tssp = loss_ops.cross_entropy_with_ignore(da_out["tssp_logits"], tssp_labels, dp=dp)
             loss = loss + task_cfg.tssp_loss_weight * tssp
             aux["tssp_loss"] = tssp
 

@@ -8,6 +8,10 @@ reference's torch losses:
   positions (``CrossEntropyLoss`` "mean" with ``ignore_index``);
 - focal loss: the mean over ALL positions, ignored ones counting as 0, as
   the reference's ``FocalLoss`` takes ``torch.mean`` of that vector.
+
+Under data parallel (``dp``, parallel/dist.py) each rank returns its
+numerator over the global denominator, so the ranks' losses add up to the
+loss of the whole batch.
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ def cross_entropy_with_ignore(
     class_weights: Optional[torch.Tensor] = None,
     focal_gamma: float = 0.0,
     ignore_id: int = IGNORE,
+    dp=None,
 ) -> torch.Tensor:
     """Scalar cross-entropy over positions whose label != ``ignore_id``.
 
     logits (..., C), labels (...,) int; ``class_weights`` (C,) optional;
     ``focal_gamma`` > 0 applies the focal factor (1 - p_true)^gamma.
+    ``dp``: this rank's share under data parallel.
     """
     num_classes = logits.shape[-1]
     logits = logits.reshape(-1, num_classes).float()
@@ -48,23 +54,33 @@ def cross_entropy_with_ignore(
 
     if focal_gamma != 0.0:
         focal = torch.pow(1.0 - torch.exp(logp_true), focal_gamma)
-        return torch.where(valid, focal * ce, 0.0).mean()
+        focal_ce = torch.where(valid, focal * ce, 0.0)
+        if dp is None:
+            return focal_ce.mean()
+        return focal_ce.sum() / dp.total(torch.tensor(float(focal_ce.numel()),
+                                                      device=logits.device))
 
     denom = torch.where(valid, w, 0.0).sum()
-    return ce.sum() / denom.clamp_min(1e-12)
+    return ce.sum() / _total(denom, dp).clamp_min(1e-12)
+
+
+def _total(t: torch.Tensor, dp) -> torch.Tensor:
+    """``t`` summed over the data-parallel ranks (itself without ``dp``)."""
+    return t if dp is None else dp.total(t)
 
 
 def bce_with_logits_ignore(
-    logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = IGNORE
+    logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = IGNORE, dp=None,
 ) -> torch.Tensor:
-    """Mean binary cross-entropy with logits over valid positions."""
+    """Mean binary cross-entropy with logits over valid positions (``dp``:
+    this rank's share under data parallel)."""
     logits = logits.reshape(-1).float()
     labels = labels.reshape(-1)
     valid = labels != ignore_id
     y = torch.where(valid, labels, 0).float()
     loss = logits.clamp_min(0.0) - logits * y + torch.log1p(torch.exp(-logits.abs()))
     loss = torch.where(valid, loss, 0.0)
-    return loss.sum() / valid.sum().clamp_min(1)
+    return loss.sum() / _total(valid.sum(), dp).clamp_min(1)
 
 
 def ts_class_weights(weight_label_zero: float) -> Optional[torch.Tensor]:

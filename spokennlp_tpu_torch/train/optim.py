@@ -14,12 +14,14 @@ semantics:
   micro-batch gradients, every k-th call;
 - the learning rate of the n-th optimizer step (n from 0) is the schedule at n.
 
-The noam schedule and per-module learning-rate groups are not ported yet.
+Also the counterparts of ``noam_schedule`` (the PALM title-generation
+recipe's schedule) and ``make_module_lr_optimizer`` (optax's
+``multi_transform`` over per-module learning-rate groups).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -38,6 +40,17 @@ def linear_warmup_schedule(base_lr: float, total_steps: int,
         t = step - warmup_steps if warmup_steps > 0 else step
         n = max(total_steps - warmup_steps, 1) if warmup_steps > 0 else max(total_steps, 1)
         return base_lr * (1.0 - min(t, n) / n)
+
+    return schedule
+
+
+def noam_schedule(model_size: int, factor: float, warmup_steps: int) -> Callable[[int], float]:
+    """Noam learning rate: factor * model_size^-0.5 * min(s^-0.5, s *
+    warmup_steps^-1.5) at s = step + 1."""
+
+    def schedule(step: int) -> float:
+        s = step + 1
+        return factor * model_size ** (-0.5) * min(s ** (-0.5), s * warmup_steps ** (-1.5))
 
     return schedule
 
@@ -131,3 +144,36 @@ def make_optimizer(model: nn.Module, cfg: TrainConfig, total_steps: int) -> Trai
     parameters."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     return TrainOptimizer([p for _, p in named], [n for n, _ in named], cfg, total_steps)
+
+
+def module_lr_groups(names: Sequence[str], module_lrs: Mapping[str, float]) -> List[str]:
+    """The group of each parameter name: the first of ``module_lrs``'s keys,
+    in sorted order, that is a substring of the name's Flax path (its parts
+    joined by "/", as optax's ``multi_transform`` label sees it), else
+    ``"__base__"``."""
+    keys = sorted(module_lrs)
+    groups = []
+    for name in names:
+        path = name.replace(".", "/")
+        groups.append(next((k for k in keys if k in path), "__base__"))
+    return groups
+
+
+def make_module_lr_optimizer(named_params: Sequence[Tuple[str, nn.Parameter]], base_lr: float,
+                             module_lrs: Mapping[str, float], weight_decay: float = 0.0,
+                             b1: float = 0.9, b2: float = 0.999,
+                             eps: float = 1e-8) -> torch.optim.Optimizer:
+    """Adam (AdamW when ``weight_decay``, decaying every parameter, as
+    optax's ``adamw`` without a mask) with one learning rate a module group:
+    a parameter whose path holds a key of ``module_lrs`` takes that key's
+    rate (``module_lr_groups``), the rest ``base_lr``. The reference's
+    cross-encoder group (mmvts/src/main_multimodal.py:695-705)."""
+    named = list(named_params)
+    groups: Dict[str, List[nn.Parameter]] = {}
+    for (_, p), g in zip(named, module_lr_groups([n for n, _ in named], module_lrs)):
+        groups.setdefault(g, []).append(p)
+    lrs = {"__base__": base_lr, **module_lrs}
+    return torch.optim.AdamW(
+        [{"params": ps, "lr": lrs[g]} for g, ps in groups.items()],
+        lr=base_lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+    )

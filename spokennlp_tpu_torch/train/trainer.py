@@ -1,18 +1,25 @@
-"""Training loop for topic segmentation on one device: epochs, the eval
-cadence, checkpoints and best-metric retention.
+"""Training loop for topic segmentation: epochs, the eval cadence,
+checkpoints and best-metric retention, on one device or data parallel.
 
 Counterpart of ``TopicSegTrainer`` in ``spokennlp_tpu/train/trainer.py``:
 
 - eval every ``total_steps // eval_cnt`` optimizer steps (at least 40), the
   reference's cadence;
-- metrics stream to a JSONL file and the log, one line per event;
+- metrics stream to a JSONL file and the log, one line per event, and with
+  ``train_cfg.tensorboard_dir`` to TensorBoard scalars ``<event>/<name>``
+  (``torch.utils.tensorboard``), as the JAX trainer writes them;
 - checkpoints are ``torch.save`` files (model, optimizer, step, eval
   metrics) under ``train_cfg.checkpoint_dir``; the ``save_total_limit``
   best by ``metric_for_best`` are kept, as the JAX trainer's Orbax manager
   keeps them;
-- ``restore_latest`` resumes from the newest kept checkpoint.
-
-Multi-device training and TensorBoard are not ported yet.
+- ``restore_latest`` resumes from the newest kept checkpoint;
+- inside a ``torch.distributed`` process group (data parallel, one process
+  a card): the global batch is ``per_device_batch_size`` x world size, every
+  rank builds the same batches from the same seed and trains on its rows
+  (``parallel.mesh.shard_batch``; short batches repeat their last row
+  first), the weights start from rank 0's; eval splits the windows over the
+  ranks and gathers the predictions with ``allgather_ragged``, as JAX's
+  trainer does; rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import torch
 from spokennlp_tpu_torch.configs import TopicSegConfig, TrainConfig, WindowingConfig
 from spokennlp_tpu_torch.data.featurization import batches_from_docs, featurize_paired
 from spokennlp_tpu_torch.eval import seg_metrics
+from spokennlp_tpu_torch.parallel import dist as dist_lib
+from spokennlp_tpu_torch.parallel import mesh as mesh_lib
 from spokennlp_tpu_torch.train import optim
 from spokennlp_tpu_torch.train.train_step import batch_to_device, make_topic_seg_train_step
 
@@ -37,24 +46,41 @@ logger = logging.getLogger("spokennlp_tpu_torch.trainer")
 
 
 class MetricLogger:
-    """JSONL metric stream (one line per event) and the log."""
+    """JSONL metric stream (one line per event), the log, and with
+    ``tensorboard_dir`` every numeric value of an event but its step, time
+    and epoch as the scalar ``<event>/<name>`` at the event's step."""
 
-    def __init__(self, path: Optional[str]):
+    def __init__(self, path: Optional[str], tensorboard_dir: Optional[str] = None):
         self._f = None
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._f = open(path, "a")
+        self._tb = None
+        if tensorboard_dir:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._tb = SummaryWriter(tensorboard_dir)
 
     def log(self, event: Dict):
-        line = json.dumps({**event, "time": time.time()}, default=float)
+        event = {**event, "time": time.time()}
+        line = json.dumps(event, default=float)
         logger.info(line)
         if self._f:
             self._f.write(line + "\n")
             self._f.flush()
+        if self._tb is not None:
+            step = int(event.get("step", 0))
+            tag = event.get("event", "metrics")
+            for k, v in event.items():
+                if k not in ("event", "step", "time", "epoch") and isinstance(v, (int, float)):
+                    self._tb.add_scalar(f"{tag}/{k}", float(v), step)
+            self._tb.flush()
 
     def close(self):
         if self._f:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class TopicSegTrainer:
@@ -77,8 +103,15 @@ class TopicSegTrainer:
         self.train_docs = list(train_docs)
         self.eval_docs = list(eval_docs) if eval_docs else None
         self.metric_for_best = metric_for_best
-        self.metrics_log = MetricLogger(log_path)
-        self.batch_size = train_cfg.per_device_batch_size
+        mesh_lib.check_model_parallel(train_cfg.model_parallel_size)
+        self.rank, self.world_size = dist_lib.rank(), dist_lib.world_size()
+        self.is_main = self.rank == 0
+        self.metrics_log = MetricLogger(log_path if self.is_main else None,
+                                        train_cfg.tensorboard_dir if self.is_main else None)
+        self.batch_size = train_cfg.per_device_batch_size * self.world_size
+        dp = dist_lib.data_parallel()
+        if dp is not None:  # every rank starts from rank 0's weights
+            dp.broadcast_([p.data for p in model.parameters()])
 
         n_windows = len(featurize_paired(
             self.train_docs, self.wcfg, np.random.default_rng(train_cfg.seed),
@@ -111,6 +144,7 @@ class TopicSegTrainer:
                 self.train_docs, self.wcfg, self.task_cfg, self.batch_size, data_rng,
                 drop_last=False, num_proc=cfg.preprocessing_num_workers,
             ):
+                batch = mesh_lib.shard_batch(batch, self.rank, self.world_size)
                 metrics = self.step_fn(batch_to_device(batch, self.device))
                 step += 1
                 # log and eval cadences count optimizer steps
@@ -143,7 +177,9 @@ class TopicSegTrainer:
 
     def evaluate(self, docs: Optional[Sequence[Dict]] = None) -> Dict:
         """Window-level eval: boundary precision/recall/F1 and Pk/WD over the
-        labelled sentences of every window (the reference's compute_metrics)."""
+        labelled sentences of every window (the reference's compute_metrics).
+        Each rank scores its block of the windows; the predictions are
+        gathered in rank order (window order) on every rank."""
         from spokennlp_tpu_torch.data.windowing import stack_windows, window_document
         from spokennlp_tpu_torch.eval.inference import predict_cos_scores, predict_windows_scanned
 
@@ -156,12 +192,18 @@ class TopicSegTrainer:
             windows.extend(window_document(doc["sent_token_ids"], doc["labels"], self.wcfg, eid))
         if not windows:
             return {}
-        batch = stack_windows(windows)
+        start, end = mesh_lib.rank_rows(len(windows), self.rank, self.world_size)
+        windows = windows[start:end]
         preds, refs = [], []
-        if self.task_cfg.ts_score_predictor == "cos":
+        # each rank scores its windows at the per-device batch size
+        bs = self.train_cfg.per_device_batch_size
+        batch = stack_windows(windows) if windows else None
+        if batch is None:  # fewer windows than ranks: this rank scores none
+            pass
+        elif self.task_cfg.ts_score_predictor == "cos":
             # the linear head carries no ts gradient in cos mode: a slot of
             # eop_mask is predicted O (1) where its sigmoid-cos is above 0.5
-            sims = predict_cos_scores(self.model, batch, self.batch_size,
+            sims = predict_cos_scores(self.model, batch, bs,
                                       self.task_cfg.ts_score_predictor_cos_temp)
             for i in range(len(windows)):
                 live = batch["eop_mask"][i].astype(bool)
@@ -169,13 +211,15 @@ class TopicSegTrainer:
                     preds.append((sims[i][live] > 0.5).astype(int).tolist())
                     refs.append(batch["sent_labels"][i][live].astype(int).tolist())
         else:
-            logits = predict_windows_scanned(self.model, batch, self.batch_size,
-                                             gather_sents=True)
+            logits = predict_windows_scanned(self.model, batch, bs, gather_sents=True)
             for i in range(len(windows)):
                 live = batch["sent_labels"][i] != -100
                 if live.any():
                     preds.append(np.argmax(logits[i][live], -1).tolist())
                     refs.append(batch["sent_labels"][i][live].tolist())
+        # every rank's windows, in window order (no-op on one process)
+        preds = dist_lib.allgather_ragged(preds)
+        refs = dist_lib.allgather_ragged(refs)
         prf = seg_metrics.boundary_prf(preds, refs)
         # label id 0 = B-EOP
         wm = seg_metrics.compute_window_metric(
@@ -201,8 +245,12 @@ class TopicSegTrainer:
 
     def _save(self, step: int, eval_metrics: Dict):
         """Write ``step_<n>.pt`` and keep the ``save_total_limit`` best by
-        ``metric_for_best`` (the newer on a tie)."""
+        ``metric_for_best`` (the newer on a tie); rank 0 writes, the others
+        wait for it."""
         if self.checkpoint_dir is None:
+            return
+        if not self.is_main:
+            dist_lib.barrier()
             return
         root = self.checkpoint_dir
         root.mkdir(parents=True, exist_ok=True)
@@ -219,6 +267,7 @@ class TopicSegTrainer:
         for e in entries[keep:]:
             (root / e["file"]).unlink(missing_ok=True)
         (root / "checkpoints.json").write_text(json.dumps(entries[:keep], indent=2))
+        dist_lib.barrier()
 
     def restore_latest(self, checkpoint_dir: Optional[str] = None) -> bool:
         """Resume from the newest kept checkpoint (under ``checkpoint_dir``

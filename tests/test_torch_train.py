@@ -270,6 +270,104 @@ def test_optimizer_updates_match_optax(accumulation):
     assert opt.micro_step == 4
 
 
+@pytest.mark.parametrize("warmup", [1, 4000])
+def test_noam_schedule_matches_jax(warmup):
+    from spokennlp_tpu.train.optim import noam_schedule as jax_noam
+
+    want, got = jax_noam(768, 2.0, warmup), optim.noam_schedule(768, 2.0, warmup)
+    for step in (0, 1, 2, 10, 999, 3999, 4000, 10000):
+        assert math.isclose(got(step), float(want(step)), rel_tol=1e-6), step
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_module_lr_optimizer_matches_optax(weight_decay):
+    """One step of per-module learning-rate groups on both sides: paths
+    that hold a key take its rate (the first key in sorted order), the rest
+    the base rate."""
+    import jax.numpy as jnp
+    import optax
+
+    from spokennlp_tpu.train.optim import make_module_lr_optimizer as jax_make
+
+    rng = np.random.default_rng(3)
+    shapes = {"encoder.layer_0.kernel": (4, 3), "cross_encoder.layer_0.kernel": (3, 2),
+              "cross_encoder.head.bias": (2,), "head.bias": (3,)}
+    init = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grad = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    module_lrs = {"cross_encoder": 1e-2, "head": 3e-3}
+
+    def nest(d):
+        tree = {}
+        for name, v in d.items():
+            *path, leaf = name.split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = jnp.asarray(v)
+        return tree
+
+    assert optim.module_lr_groups(list(shapes), module_lrs) == [
+        "__base__", "cross_encoder", "cross_encoder", "head"]
+    tx = jax_make(1e-3, module_lrs, weight_decay=weight_decay)
+    jp = nest(init)
+    updates, _ = tx.update(nest(grad), tx.init(jp), jp)
+    jp = optax.apply_updates(jp, updates)
+    params = [torch.nn.Parameter(torch.from_numpy(init[k].copy())) for k in shapes]
+    opt = optim.make_module_lr_optimizer(list(zip(shapes, params)), 1e-3, module_lrs,
+                                         weight_decay=weight_decay)
+    for p, k in zip(params, shapes):
+        p.grad = torch.from_numpy(grad[k].copy())
+    opt.step()
+    for p, k in zip(params, shapes):
+        node = jp
+        for part in k.split("."):
+            node = node[part]
+        np.testing.assert_allclose(_np(p), np.asarray(node), atol=1e-6, rtol=0, err_msg=k)
+
+
+def test_tensorboard_events_read_back_by_tensorboard(tmp_path):
+    """MetricLogger's TensorBoard events, read with TensorBoard's reader:
+    every numeric value of an event but its step, time and epoch, as
+    <event>/<name> at the event's step; and run_finetune --report_to
+    tensorboard writes the scalars its metrics.jsonl holds."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    from spokennlp_tpu_torch.cli import run_finetune
+    from spokennlp_tpu_torch.train.trainer import MetricLogger
+
+    log = MetricLogger(str(tmp_path / "metrics.jsonl"), str(tmp_path / "tb"))
+    logged = [{"event": "train", "step": s, "epoch": 1, "loss": 1.5 / s, "grad_norm": 0.25 * s}
+              for s in (1, 2, 3)] + [{"event": "eval", "step": 3, "f1": 0.625}]
+    for e in logged:
+        log.log(e)
+    log.close()
+    acc = EventAccumulator(str(tmp_path / "tb"))
+    acc.Reload()
+    assert sorted(acc.Tags()["scalars"]) == ["eval/f1", "train/grad_norm", "train/loss"]
+    for tag, key, event in (("train/loss", "loss", "train"), ("train/grad_norm", "grad_norm",
+                                                               "train"), ("eval/f1", "f1", "eval")):
+        want = [(e["step"], e[key]) for e in logged if e["event"] == event]
+        got = [(s.step, s.value) for s in acc.Scalars(tag)]
+        assert [g[0] for g in got] == [w[0] for w in want]
+        np.testing.assert_allclose([g[1] for g in got], [w[1] for w in want], rtol=1e-7)
+
+    out = tmp_path / "out"
+    run_finetune.main([
+        "--data_dir", _write_corpus(tmp_path), "--output_dir", str(out), "--device", "cpu",
+        "--hidden_size", "32", "--num_hidden_layers", "1", "--num_attention_heads", "2",
+        "--intermediate_size", "64", "--max_seq_length", "64", "--num_train_epochs", "1",
+        "--per_device_train_batch_size", "4", "--gradient_accumulation_steps", "1",
+        "--logging_steps", "1", "--do_train", "--report_to", "tensorboard"])
+    train = [e for e in map(json.loads, (out / "metrics.jsonl").read_text().splitlines())
+             if e["event"] == "train"]
+    acc = EventAccumulator(str(out / "tensorboard"))
+    acc.Reload()
+    got = [(s.step, s.value) for s in acc.Scalars("train/loss")]
+    assert got == [(e["step"], pytest.approx(e["loss"], rel=1e-6)) for e in train] and got
+    # the run's end: its final eval among the scalars
+    assert {"train_end/final_f1", "train_end/train_steps"} <= set(acc.Tags()["scalars"])
+
+
 # -------------------------------------------------------- full train step
 
 

@@ -273,9 +273,9 @@
    float32's (the float32 rows' global_* keys, B=2 ending in _b2).
 21. Prints the serving runs (flash, streaming and cos among them), the
    packed, checkpoint and flash training runs, the Longformer, BigBird, MUG
-   and W8A8 long-context runs, the training-at-scale runs (phases 22-26) and
-   the kernels as JSON lines, the card's name and power limit, and last
-   {"ok": true, "device": {...}}.
+   and W8A8 long-context runs, the training-at-scale runs (phases 22-26),
+   the Track 3-4 and AID runs (phases 27-29) and the kernels as JSON lines,
+   the card's name and power limit, and last {"ok": true, "device": {...}}.
 22. Gradient checkpointing on the dense training main path (after phase 7):
    run_finetune --gradient_checkpointing at batch 32 in bf16 (against phase
    6's run) and float32 (both runs, 2 steps each): rows 10 and 11's forwards
@@ -305,6 +305,33 @@
    for 3 steps at batch 32 (bf16) with and without the group: launches and
    windows trained/s; the run without writes --report_to tensorboard, read
    back with TensorBoard's reader.
+
+27. MUG Track 4: cli/run_mug.main --track keyphrase at BERT-base widths,
+   L=512, batch 4, float32, one epoch of 16 synthetic sentences (CJK
+   characters, one empty, one of 500; a 21,128-character vocabulary) and 10
+   eval sentences: rows 10 and 11 once a layer a step, kernel 3 once a
+   predict batch; finite losses; on one training batch holding the empty
+   sentence the loss within LOSS_RTOL and every layer's weight-matrix
+   gradient cosine >= MIN_GRAD_COSINE against the einsum path at dropout 0;
+   the trained model's Viterbi tags from the kernel path's emissions
+   against its einsum twin's (tanh GELU) on >= 0.99 of the valid positions;
+   sentences trained/s and tagged/s, and the CRF's share of a step (its
+   loss and backward alone against the whole step).
+28. Action-item detection: cli/run_aid.main at its defaults (BERT-base,
+   L=128, batch 16, float32, context-drop-dynamic, cls) for one epoch (4
+   steps): the same launches (kernel 3 once an eval batch), loss and
+   gradients against einsum, eval argmax agreement >= 0.99 against the
+   einsum twin, examples trained/s.
+29. MUG Track 3: cli/run_title_generation.main --model_arch palm at
+   PALM-chinese-base widths (768, 12 encoder and 12 decoder layers, 12
+   heads, 3072), S=512, T=32, 4 beams, batch 4, a character vocabulary, 3
+   steps and one decoded eval batch; then --model_arch seq2seq at the CLI's
+   defaults for 2 steps. Rows 10 and 11 once an encoder layer a step,
+   kernel 3 once a decode step (the whole model runs again at each step,
+   as in JAX); the loss and gradients against einsum; the first decode
+   step's log-probabilities within F32_FWD_TOL of the einsum path with the
+   kernels' tanh GELU; titles/s. Each phase prints its seconds; the
+   kernels line's launches of rows 10, 11 and 3 include these paths'.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -5979,6 +6006,530 @@ def read_tensorboard(logdir: Path, tag: str) -> list:
     return [e.step for e in acc.Scalars(tag)]
 
 
+# ------------------------------------------- MUG Tracks 3 and 4, and AID
+# Phases 27-29: the BERT-CRF keyphrase tagger (run_mug --track keyphrase),
+# action-item detection (run_aid) and title generation (run_title_generation,
+# PALM and seq2seq), at the widths their CLIs and the reference's recipes
+# give, float32 as the CLIs compute; weights from a seed, corpora made here.
+# The trunks run rows 10 and 11 in training and kernel 3 at inference; the
+# CRF, the heads and the decoders are plain PyTorch, as in JAX.
+
+KPE_L, KPE_BATCH = 512, 4
+KPE_TRAIN_SENTS, KPE_EVAL_SENTS = 16, 10  # 4 steps in one epoch, 3 predict batches
+CJK_VOCAB = 21128  # the Chinese BERT vocabulary's size
+AID_TRAIN, AID_EVAL = (2, 16), (4, 30)  # (meetings, sentences): 4 steps of 16, 8 eval batches
+TTG_S, TTG_T, TTG_BEAMS, TTG_BATCH = 512, 32, 4, 4
+TTG_CHARS = 3000  # the character vocabulary's size, about
+
+
+def train_wrappers() -> dict:
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+
+    return {n: getattr(tb, n) for n in ("attention_train_fwd", "attention_train_bwd",
+                                        "mlp_train_fwd", "mlp_train_bwd")}
+
+
+@contextlib.contextmanager
+def wrapped(owner, name: str, make):
+    """owner.name replaced by make(the real one) while inside."""
+    from unittest import mock
+
+    with mock.patch.object(owner, name, make(getattr(owner, name))):
+        yield
+
+
+def synced(device) -> float:
+    """The host clock after the card's queue has drained."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def timed_calls(device, times: list, keep: list = None):
+    """make() for wrapped(): each call of the wrapped function is timed on
+    the host clock after a synchronise (seconds into ``times``); ``keep``
+    collects each call's first argument."""
+    def make(real):
+        def call(*a, **kw):
+            if keep is not None:
+                keep.append(a[0] if a else None)
+            t0 = synced(device)
+            out = real(*a, **kw)
+            times.append(synced(device) - t0)
+            return out
+        return call
+    return make
+
+
+def host_ms(fn, reps: int) -> float:
+    """ms a call of fn on the host clock (the CPU rehearsal's time_ms)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+def steady_rate(times: list, per_call: int) -> float:
+    """Items a second over the calls after the first (the card's warm-up)."""
+    rest = times[1:] or times
+    return per_call * len(rest) / sum(rest)
+
+
+def gradient_check(label: str, build, loss_of, device) -> dict:
+    """One batch's loss and the gradients of every weight matrix (the
+    trunk's, the head's, the decoder's: each ``kernel``) on the training
+    kernels against the einsum path, the same weights (``build(impl,
+    generator)``: the model at dropout 0, drawn on ``device`` from one
+    seed), within LOSS_RTOL and MIN_GRAD_COSINE."""
+    import torch
+
+    res = {}
+    for impl in ("train_fused", "einsum"):
+        with torch.device(device):
+            model = build(impl, torch.Generator(device=device).manual_seed(1)).train()
+        loss = loss_of(model)
+        named = [(n, p) for n, p in model.named_parameters() if n.endswith("kernel")]
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        res[impl] = (loss.item(), {n: g for (n, _), g in zip(named, grads)})
+        del model, loss
+    (lf, gf), (le, ge) = res["train_fused"], res["einsum"]
+    rel = abs(lf - le) / abs(le)
+    # a matrix the loss does not reach has a zero gradient on both paths
+    cos = {n: 1.0 if not gf[n].any() and not ge[n].any() else
+           torch.nn.functional.cosine_similarity(gf[n].flatten(), ge[n].flatten(),
+                                                 dim=0).item() for n in gf}
+    worst = min(cos, key=cos.get)
+    print(f"  {label}: one batch on the training kernels against einsum at dropout 0: loss "
+          f"{lf:.6f} vs {le:.6f} (rel {rel:.2e}), lowest gradient cosine {cos[worst]:.6f} "
+          f"({worst}) over {len(cos)} weight matrices")
+    if not rel <= LOSS_RTOL:
+        fail(f"{label}: loss {lf} vs einsum {le}: rel {rel:.3e} > {LOSS_RTOL}")
+    if cos[worst] < MIN_GRAD_COSINE:
+        fail(f"{label}: gradient cosine {cos[worst]:.5f} of {worst} < {MIN_GRAD_COSINE}")
+    return {"loss_rel": rel, "min_cos": cos[worst]}
+
+
+def einsum_twin(model, cls, *args):
+    """``model``'s class on the einsum path with the kernels' tanh GELU
+    (``gelu_new``), carrying its weights, in eval mode on its device."""
+    import dataclasses
+
+    import torch
+
+    enc = dataclasses.replace(model.enc_cfg, attention_impl="einsum", hidden_act="gelu_new")
+    with torch.device(next(model.parameters()).device):
+        twin = cls(enc, *args)
+    twin.load_state_dict(model.state_dict(), strict=True)
+    return twin.eval()
+
+
+def cjk_text(rng, n: int, pool: int = 3000) -> str:
+    return "".join(chr(0x4E00 + int(c)) for c in rng.integers(0, pool, size=n))
+
+
+def write_kpe_corpus(root: Path, seed: int = 8) -> Path:
+    """MUG meetings for Track 4 (train.jsonl: KPE_TRAIN_SENTS sentences,
+    dev.jsonl: KPE_EVAL_SENTS) of CJK characters: sentences of 8-160
+    characters, one of 500 and one empty (an all-padding row) in each,
+    meeting-level key words that the sentences contain; vocab.txt, one line
+    a character, at CJK_VOCAB entries."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    keys = [cjk_text(rng, int(rng.integers(2, 5)), 400) for _ in range(6)]
+
+    def sentence(j):
+        if j == 0:
+            return ""
+        n = 500 if j == 1 else int(rng.integers(8, 160))
+        s = cjk_text(rng, n)
+        if rng.random() < 0.7:
+            at = int(rng.integers(0, max(n - 5, 1)))
+            kw = keys[int(rng.integers(0, len(keys)))]
+            s = s[:at] + kw + s[at + len(kw):]
+        return s[:n]
+
+    for name, n in (("train.jsonl", KPE_TRAIN_SENTS), ("dev.jsonl", KPE_EVAL_SENTS)):
+        meeting = {"meeting_key": name[:3], "candidate": [{"key_word": keys[:3]},
+                                                           {"key_word": keys[2:]}],
+                   "sentences": [{"id": j + 1, "s": sentence(j)} for j in range(n)]}
+        (root / name).write_text(json.dumps(meeting, ensure_ascii=False) + "\n")
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab = specials + [chr(0x4E00 + i) for i in range(CJK_VOCAB - len(specials))]
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    return root
+
+
+def kpe_path(root: Path, device="cuda", widths=()) -> dict:
+    """Phase 27: run_mug --track keyphrase at BERT-base widths (``widths``:
+    CLI size flags for a rehearsal), L = KPE_L, batch KPE_BATCH, float32, one
+    epoch: rows 10 and 11 once a layer a step, kernel 3 once a predict
+    batch; finite losses; sentences trained/s and tagged/s (host clock after
+    a synchronise, the first call left out). Then on one training batch (the
+    empty sentence in it) the loss and gradients against the einsum path at
+    dropout 0; Viterbi tags of the trained model's kernel-path emissions
+    against its einsum twin's (tanh GELU) on every eval sentence's valid
+    positions (>= MIN_ARGMAX_AGREEMENT); and the CRF's share of a training
+    step (its loss and backward alone against the whole step, CUDA events)."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, run_mug
+    from spokennlp_tpu_torch.ops import crf
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+    from spokennlp_tpu_torch.projects.mug import data as mug_data
+    from spokennlp_tpu_torch.projects.mug import keyphrase as kp
+
+    data = write_kpe_corpus(root / "kpe")
+    argv = ["--track", "keyphrase", "--train_file", str(data / "train.jsonl"), "--eval_file",
+            str(data / "dev.jsonl"), "--output_dir", str(root / "kpe_out"), "--vocab_file",
+            str(data / "vocab.txt"), "--max_seq_length", str(KPE_L),
+            "--per_device_train_batch_size", str(KPE_BATCH), "--num_train_epochs", "1",
+            "--device", device, *widths]
+    args = run_mug.make_parser().parse_args(argv)
+    wrappers = {**train_wrappers(), "fused_encoder_stack": fused_encoder_stack}
+    step_s, tag_s, models = [], [], []
+    reset_counts(wrappers)
+    reset_peak()
+    t0 = time.perf_counter()
+    with wrapped(kp, "make_kpe_train_step", lambda real: lambda *a, **kw: timed_calls(
+            device, step_s)(real(*a, **kw))), \
+            wrapped(kp, "decode_tags", timed_calls(device, tag_s, models)):
+        res = run_mug.main(argv)
+    secs, peak = time.perf_counter() - t0, peak_gib()
+    launches = read_counts(wrappers)
+    steps, batches = len(step_s), len(tag_s)
+    layers = args.num_hidden_layers
+    expected = {**{n: layers * steps for n in train_wrappers()}, "fused_encoder_stack": batches}
+    print(f"Track 4 (run_mug --track keyphrase, L={KPE_L}, batch {KPE_BATCH}, float32): "
+          f"{steps} steps, {batches} predict batches in {secs:.1f} s, peak {peak:.2f} GiB, "
+          f"losses {res['train_loss']}, launches {launches}, metrics {res['metrics']}")
+    if steps < 3 or batches < 2:
+        fail(f"Track 4 took {steps} steps and {batches} predict batches (3 and 2 or more)")
+    if device == "cuda" and launches != expected:
+        fail(f"Track 4 launches {launches}, expected {expected}")
+    if not all(math.isfinite(v) for v in res["train_loss"]):
+        fail(f"Track 4: non-finite training loss {res['train_loss']}")
+    row = {"launches": launches, "steps": steps, "predict_batches": batches, "run_s": secs,
+           "peak_gib": peak, "train_loss": res["train_loss"], "metrics": res["metrics"],
+           "sentences_trained_per_s": steady_rate(step_s, KPE_BATCH),
+           "sentences_tagged_per_s": steady_rate(tag_s, KPE_BATCH)}
+
+    tokenize_fn, special = common.resolve_tokenizer(argparse.Namespace(
+        model_name_or_path=None, vocab_file=str(data / "vocab.txt")))
+    train_rows = kp.featurize_kpe(mug_data.read_jsonl(str(data / "train.jsonl")), tokenize_fn,
+                                  special["pad"], KPE_L, with_tags=True)
+    batch = {k: torch.from_numpy(np.stack([r[k] for r in train_rows[:KPE_BATCH]])).to(device)
+             for k in ("input_ids", "attention_mask", "tags")}
+    if batch["attention_mask"][:, 0].all():
+        fail("Track 4: the gradient check's batch holds no empty sentence")
+    trained = models[0]
+    enc0 = dataclasses.replace(trained.enc_cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    build = lambda impl, gen: kp.BertCrfTagger(dataclasses.replace(enc0, attention_impl=impl),
+                                               generator=gen)
+    row.update(gradient_check("Track 4", build, lambda m: m(
+        batch["input_ids"], batch["attention_mask"], tags=batch["tags"])["loss"], device))
+
+    eval_rows = kp.featurize_kpe(mug_data.read_jsonl(str(data / "dev.jsonl")), tokenize_fn,
+                                 special["pad"], KPE_L, with_tags=False)
+    twin = einsum_twin(trained, kp.BertCrfTagger)
+    ids = np.stack([r["input_ids"] for r in eval_rows])
+    mask = np.stack([r["attention_mask"] for r in eval_rows])
+    got, want = [], []
+    for s in range(0, len(eval_rows), KPE_BATCH):  # the CLI's chunks: kernel 3 at B = 4
+        sl = slice(s, s + KPE_BATCH)
+        got.append(kp.decode_tags(trained, ids[sl], mask[sl]))
+        want.append(kp.decode_tags(twin, ids[sl], mask[sl]))
+    valid = mask.astype(bool)
+    agree = float((np.concatenate(got)[valid] == np.concatenate(want)[valid]).mean())
+    print(f"  Track 4 Viterbi tags, kernel path against the einsum path (tanh GELU) on "
+          f"{int(valid.sum())} valid positions of {len(eval_rows)} sentences: {agree:.5f}")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        fail(f"Track 4: Viterbi agreement {agree:.5f} < {MIN_ARGMAX_AGREEMENT}")
+    row["viterbi_agreement"] = agree
+    del twin
+
+    # the CRF's share of a step: its loss and backward on the step's emissions
+    model = trained.train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-9)
+    step = kp.make_kpe_train_step(model, opt, torch.Generator(device=device).manual_seed(2))
+    em = model(batch["input_ids"], batch["attention_mask"])["emissions"].detach()
+    em.requires_grad_(True)
+
+    def crf_alone():
+        loss = -crf.crf_log_likelihood(em, batch["tags"], batch["attention_mask"],
+                                       model.transitions)
+        loss.backward()
+
+    timer = time_ms if device == "cuda" else host_ms
+    step(batch), crf_alone()
+    step_ms, crf_ms = timer(lambda: step(batch), 3), timer(crf_alone, 3)
+    row.update(step_ms=step_ms, crf_ms=crf_ms, crf_share=crf_ms / step_ms)
+    print(f"  Track 4 step at B={KPE_BATCH}, L={KPE_L}: {step_ms:.2f} ms, of which the CRF's "
+          f"loss and backward alone {crf_ms:.2f} ms ({100 * crf_ms / step_ms:.1f} %); "
+          f"{row['sentences_trained_per_s']:.2f} sentences trained/s, "
+          f"{row['sentences_tagged_per_s']:.2f} tagged/s")
+    del model, opt, step, models, trained
+    return row
+
+
+def write_aid_meetings(path: Path, meetings: int, sentences: int, seed: int) -> str:
+    """AID meetings JSONL ({"sentences": [{"text", "label"}]}): sentences of
+    6-40 words, a fifth of them action items."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(3000)]
+    with open(path, "w") as f:
+        for m in range(meetings):
+            f.write(json.dumps({"meeting": f"m{m}", "sentences": [
+                {"text": " ".join(rng.choice(words, size=int(rng.integers(6, 41)))),
+                 "label": int(rng.random() < 0.2)} for _ in range(sentences)]}) + "\n")
+    return str(path)
+
+
+def aid_path(root: Path, device="cuda", widths=()) -> dict:
+    """Phase 28: run_aid at its defaults (BERT-base, L=128, batch 16,
+    float32, context-drop-dynamic, cls) for one epoch: rows 10 and 11 once a
+    layer a step, kernel 3 once an eval batch; finite losses; examples
+    trained/s (host clock after a synchronise, the first step left out);
+    one batch's loss and gradients against einsum at dropout 0; the trained
+    model's eval argmax against its einsum twin (tanh GELU)."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import common, run_aid
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+    from spokennlp_tpu_torch.projects import action_item as ai
+
+    train = write_aid_meetings(root / "aid_train.jsonl", *AID_TRAIN, seed=11)
+    dev = write_aid_meetings(root / "aid_dev.jsonl", *AID_EVAL, seed=12)
+    argv = ["--train_file", train, "--eval_file", dev, "--output_dir", str(root / "aid_out"),
+            "--num_train_epochs", "1", "--device", device, *widths]
+    args = run_aid.make_parser().parse_args(argv)
+    bs = args.per_device_train_batch_size
+    wrappers = {**train_wrappers(), "fused_encoder_stack": fused_encoder_stack}
+    step_s, models = [], []
+    reset_counts(wrappers)
+    reset_peak()
+    t0 = time.perf_counter()
+
+    def make_step(real):
+        def build_step(model, *a, **kw):
+            models.append(model)
+            return timed_calls(device, step_s)(real(model, *a, **kw))
+        return build_step
+
+    with wrapped(ai, "make_aid_train_step", make_step):
+        res = run_aid.main(argv)
+    secs, peak = time.perf_counter() - t0, peak_gib()
+    launches = read_counts(wrappers)
+    n_eval = sum(len(json.loads(l)["sentences"]) for l in open(dev))
+    steps, batches = len(step_s), math.ceil(n_eval / bs)
+    expected = {**{n: args.num_hidden_layers * steps for n in train_wrappers()},
+                "fused_encoder_stack": batches}
+    print(f"AID (run_aid defaults: L={args.max_seq_length}, batch {bs}, float32, "
+          f"{args.drop_type}, {args.classifier_input}): {steps} steps and {batches} eval "
+          f"batches in {secs:.1f} s (best_model written), peak {peak:.2f} GiB, launches "
+          f"{launches}, {res['history']}")
+    if steps < 3:
+        fail(f"AID took {steps} steps, expected 3 or more")
+    if device == "cuda" and launches != expected:
+        fail(f"AID launches {launches}, expected {expected}")
+    if not all(math.isfinite(h["train_loss"]) for h in res["history"]):
+        fail(f"AID: non-finite loss in {res['history']}")
+    row = {"launches": launches, "steps": steps, "eval_batches": batches, "run_s": secs,
+           "peak_gib": peak, "history": res["history"],
+           "examples_trained_per_s": steady_rate(step_s, bs)}
+
+    tokenize_fn, special = common.resolve_tokenizer(argparse.Namespace(
+        model_name_or_path=None, vocab_file=None))
+    trained = models[0]
+    cfg = dataclasses.replace(trained.cfg, dropout_rate=0.0)
+    examples = []
+    rng = np.random.default_rng(0)
+    for m in (json.loads(l) for l in open(train)):
+        examples += ai.build_paired_examples(m["sentences"], cfg, rng)
+    to_dev = lambda b: {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    batch = to_dev(ai.collate_examples(examples[:bs], tokenize_fn, cfg, special["cls"],
+                                       special["sep"]))
+    enc0 = dataclasses.replace(trained.enc_cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    build = lambda impl, gen: ai.AidModel(dataclasses.replace(enc0, attention_impl=impl), cfg,
+                                          generator=gen)
+    keys = ("input_ids", "attention_mask", "token_type_ids", "sep_position")
+    row.update(gradient_check("AID", build, lambda m: ai.aid_loss(
+        m(*(batch[k] for k in keys)), batch["label"], cfg)[0], device))
+
+    eval_cfg = dataclasses.replace(cfg, drop_type="none", noisy_type="remain")
+    ex = []
+    for m in (json.loads(l) for l in open(dev)):
+        ex += ai.build_paired_examples(m["sentences"], eval_cfg, rng)
+    twin = einsum_twin(trained, ai.AidModel, cfg)
+    trained.eval()
+    got, want = [], []
+    with torch.no_grad():
+        for s in range(0, len(ex), bs):  # the CLI's eval batches: kernel 3 at B = 16
+            b = to_dev(ai.collate_examples(ex[s:s + bs], tokenize_fn, cfg, special["cls"],
+                                           special["sep"]))
+            got.append(trained(*(b[k] for k in keys)).argmax(-1).cpu())
+            want.append(twin(*(b[k] for k in keys)).argmax(-1).cpu())
+    agree = float((torch.cat(got) == torch.cat(want)).float().mean())
+    print(f"  AID eval argmax, kernel path against the einsum path (tanh GELU) on {len(ex)} "
+          f"examples: {agree:.4f}; {row['examples_trained_per_s']:.1f} examples trained/s")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        fail(f"AID: eval argmax agreement {agree:.4f} < {MIN_ARGMAX_AGREEMENT}")
+    row["agreement"] = agree
+    del twin, trained, models
+    return row
+
+
+def write_title_corpus(root: Path, train_meetings: int, eval_meetings: int,
+                       seed: int = 13) -> Path:
+    """MUG meetings for Track 3: four topics a meeting of 12 sentences of
+    20-60 characters (about 480 a topic) from TTG_CHARS CJK characters, two
+    candidate titles of 4-12 characters each."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+
+    def meeting(key):
+        sents = [{"id": j + 1, "s": cjk_text(rng, int(rng.integers(20, 61)), TTG_CHARS)}
+                 for j in range(48)]
+        topics = [{"id": end, "candidate": [
+            {"title": cjk_text(rng, int(rng.integers(4, 13)), TTG_CHARS)} for _ in range(2)]}
+            for end in (12, 24, 36, 48)]
+        return {"meeting_key": key, "sentences": sents, "topic_segment_ids": topics}
+
+    for name, n in (("train.jsonl", train_meetings), ("dev.jsonl", eval_meetings)):
+        with open(root / name, "w") as f:
+            for i in range(n):
+                f.write(json.dumps(meeting(f"{name[:3]}{i}"), ensure_ascii=False) + "\n")
+    return root
+
+
+def title_path(root: Path, arch: str, device="cuda", widths=None) -> dict:
+    """Phase 29: run_title_generation --model_arch ``arch`` for one epoch:
+    PALM at PALM-chinese-base widths (768, 12 + 12 layers, 12 heads, 3072)
+    over S=512, T=32, 4 beams, batch 4 (3 steps, one decoded eval batch);
+    seq2seq at the CLI's defaults (2 steps). ``widths``: size flags instead
+    (a rehearsal). Rows 10 and 11 once an encoder layer a step, kernel 3
+    once a decode step; finite losses; titles/s of the decode; one batch's
+    loss and gradients against einsum at dropout 0; the first decode step's
+    log-probabilities (B x beams rows) on the kernel path against the einsum
+    path with the kernels' tanh GELU within F32_FWD_TOL."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_title_generation as ttg
+    from spokennlp_tpu_torch.models import palm, seq2seq
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+    steps_wanted = 3 if arch == "palm" else 2
+    data = write_title_corpus(root / f"ttg_{arch}", math.ceil(steps_wanted * TTG_BATCH / 4), 1)
+    if widths is None:
+        widths = (["--hidden_size", str(H), "--num_hidden_layers", str(LAYERS),
+                   "--num_decoder_layers", str(LAYERS), "--num_attention_heads", str(NH),
+                   "--intermediate_size", str(I)] if arch == "palm" else [])
+    argv = ["--train_file", str(data / "train.jsonl"), "--eval_file", str(data / "dev.jsonl"),
+            "--output_dir", str(root / f"ttg_{arch}_out"), "--model_arch", arch,
+            "--max_source_length", str(TTG_S), "--max_target_length", str(TTG_T),
+            "--num_beams", str(TTG_BEAMS), "--per_device_train_batch_size", str(TTG_BATCH),
+            "--num_train_epochs", "1", "--device", device, *widths]
+    args = ttg.make_parser().parse_args(argv)
+    wrappers = {**train_wrappers(), "fused_encoder_stack": fused_encoder_stack}
+    step_s, decode_s, decode_steps, built = [], [], [], []
+
+    def count_steps(real):
+        def search(step_log_probs, *a, **kw):
+            def step(*sa):
+                decode_steps.append(1)
+                return step_log_probs(*sa)
+            return real(step, *a, **kw)
+        return search
+
+    def make_step(real):
+        def build_step(model, *a, **kw):
+            built.append(model)
+            return timed_calls(device, step_s)(real(model, *a, **kw))
+        return build_step
+
+    decoder = "palm_beam_decode" if arch == "palm" else "beam_decode"
+    module = palm if arch == "palm" else seq2seq
+    reset_counts(wrappers)
+    reset_peak()
+    t0 = time.perf_counter()
+    with wrapped(seq2seq, "beam_search", count_steps), wrapped(palm, "beam_search", count_steps), \
+            wrapped(ttg, "make_title_train_step", make_step), \
+            wrapped(module, decoder, timed_calls(device, decode_s)):
+        res = ttg.main(argv)
+    secs, peak = time.perf_counter() - t0, peak_gib()
+    launches = read_counts(wrappers)
+    steps, n_decode = len(step_s), len(decode_steps)
+    n_eval = len(ttg.pairs_from(str(data / "dev.jsonl"), require_refs=False))
+    expected = {**{n: args.num_hidden_layers * steps for n in train_wrappers()},
+                "fused_encoder_stack": n_decode}
+    print(f"Track 3 (run_title_generation --model_arch {arch}: H={args.hidden_size}, "
+          f"{args.num_hidden_layers} + {args.num_decoder_layers} layers, S={TTG_S}, T={TTG_T}, "
+          f"{TTG_BEAMS} beams, batch {TTG_BATCH}, float32): {steps} steps, {len(decode_s)} "
+          f"decoded batches of {n_eval} topics in {n_decode} decode steps, {secs:.1f} s, peak "
+          f"{peak:.2f} GiB, launches {launches}, {res['history']}")
+    if steps < steps_wanted or not decode_s:
+        fail(f"Track 3 {arch}: {steps} steps and {len(decode_s)} decoded batches")
+    if device == "cuda" and launches != expected:
+        fail(f"Track 3 {arch}: launches {launches}, expected {expected}")
+    if not all(math.isfinite(h["train_loss"]) for h in res["history"]):
+        fail(f"Track 3 {arch}: non-finite loss in {res['history']}")
+    row = {"launches": launches, "steps": steps, "decode_steps": n_decode, "run_s": secs,
+           "peak_gib": peak, "history": res["history"],
+           "titles_per_s": n_eval / sum(decode_s), "decode_s": sum(decode_s)}
+
+    trained = built[0]
+    # the CLI's character ids, rebuilt in the CLI's order
+    encode, _, _, pad, bos, eos, _ = ttg.make_tokenizer(None)
+    train_pairs = ttg.pairs_from(str(data / "train.jsonl"), require_refs=True)
+    eval_pairs = ttg.pairs_from(str(data / "dev.jsonl"), require_refs=False)
+    for r in train_pairs + eval_pairs:
+        encode(r["source"]), [encode(t) for t in r["titles"]]
+    feats = ttg.featurize(train_pairs, encode, TTG_S, TTG_T, pad, bos, eos)
+    batch = {k: torch.from_numpy(v[:TTG_BATCH]).to(device) for k, v in feats.items()}
+    enc0 = dataclasses.replace(trained.enc_cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    dec0 = dataclasses.replace(trained.cfg, dropout=0.0)
+    cls = palm.PalmModel if arch == "palm" else seq2seq.Seq2SeqModel
+    loss_fn = palm.palm_loss if arch == "palm" else seq2seq.seq2seq_loss
+    build = lambda impl, gen: cls(dataclasses.replace(enc0, attention_impl=impl), dec0,
+                                  generator=gen)
+    row.update(gradient_check(f"Track 3 {arch}", build, lambda m: loss_fn(m, batch), device))
+
+    # the first decode step on the kernel path and on its einsum twin
+    efeats = ttg.featurize(eval_pairs[:TTG_BATCH], encode, TTG_S, TTG_T, pad, bos, eos)
+    ids = torch.from_numpy(efeats["input_ids"]).to(device).repeat_interleave(TTG_BEAMS, 0)
+    mask = torch.from_numpy(efeats["attention_mask"]).to(device).repeat_interleave(TTG_BEAMS, 0)
+    dec = torch.full((ids.shape[0], TTG_T), pad, dtype=torch.int32, device=device)
+    dec[:, 0] = bos
+    dmask = torch.zeros_like(dec)
+    dmask[:, 0] = 1
+    twin = einsum_twin(trained, cls, trained.cfg)
+    trained.eval()
+
+    def first_step(model):
+        with torch.no_grad():
+            out = model(ids, mask, dec, decoder_attention_mask=dmask)
+        return (out["log_probs"][:, 0] if arch == "palm"
+                else torch.log_softmax(out["logits"][:, 0].float(), -1))
+
+    reading = f32_gemm_readings({"log_probs": first_step(trained)},
+                                {"log_probs": first_step(twin)})["log_probs"]
+    print(f"  Track 3 {arch}: first decode step's log-probs ({ids.shape[0]} rows), kernel path "
+          f"against the einsum path (tanh GELU): max {reading[0]:.2e}, norm {reading[1]:.2e} "
+          f"(limits {F32_FWD_TOL}); {row['titles_per_s']:.2f} titles/s decoded")
+    if f32_gemm_excess(reading, F32_FWD_TOL) > 1:
+        fail(f"Track 3 {arch}: first decode step {reading} beyond {F32_FWD_TOL}")
+    row["first_step_reading"] = reading
+    del twin, trained, built
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -6139,6 +6690,20 @@ def main() -> int:
                                                      str(Path(tmp) / "lf_w8a8")),
                      "bigbird": long_serving_path("bigbird", bb_data, str(Path(tmp) / "bb_w8a8"))}
         print(f"phase 19 (W8A8 long-context serving): {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+
+        # MUG Tracks 3 and 4 and action-item detection
+        tracks = {}
+        for phase, label, run in (
+                (27, "keyphrase", lambda: kpe_path(Path(tmp))),
+                (28, "aid", lambda: aid_path(Path(tmp))),
+                (29, "title palm", lambda: title_path(Path(tmp), "palm")),
+                (29, "title seq2seq", lambda: title_path(Path(tmp), "seq2seq"))):
+            t1 = time.perf_counter()
+            tracks[label] = run()
+            tracks[label]["phase_s"] = time.perf_counter() - t1
+            print(f"phase {phase} ({label}): {tracks[label]['phase_s']:.1f} s")
+            torch.cuda.empty_cache()
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
 
     served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
@@ -6162,6 +6727,10 @@ def main() -> int:
                     w8a8_long["bigbird"]["runs"]["w8a8 auto"]["launches"][
                         "bigbird_attention_block"],
                 **MODE_LAUNCHES}
+    # rows 10, 11 and kernel 3 also ran on the Track 3-4 and AID paths
+    for row in tracks.values():
+        for name, n in row["launches"].items():
+            launches[name] += n
     print(json.dumps({"serving": serving}, default=float))
     print(json.dumps({"packed": packed, "checkpoints": ckpts, "flash training": flash_train},
                      default=float))
@@ -6178,6 +6747,7 @@ def main() -> int:
     print(json.dumps({"mug": mug}, default=float))
     print(json.dumps({"training at scale": scale}, default=float))
     print(json.dumps({"w8a8_long": w8a8_long}, default=float))
+    print(json.dumps({"mug tracks 3-4 and aid": tracks}, default=float, ensure_ascii=False))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's row in the type its main path computes in

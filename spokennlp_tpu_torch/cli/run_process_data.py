@@ -1,14 +1,16 @@
 """Corpus preprocessing CLI: raw corpora -> unified jsonl.
 
 Counterpart of ``spokennlp_tpu/cli/run_process_data.py`` (the reference's
-preprocess_data.py:227-264) for the wiki datasets, with the same flags and
-files:
+preprocess_data.py:227-264), with the same flags and files: the wiki
+datasets, and AMI (``--dataset ami``: the NXT XML annotations ->
+train/dev/test.txt TSVs for action-item detection, ``data/ami.py``; with
+``--ami_meetings_jsonl`` also ``<split>_meetings.jsonl`` for
+``cli/run_aid.py``):
 
     python -m spokennlp_tpu_torch.cli.run_process_data --dataset wiki_section \\
         --data_folder <raw dir> --out_folder <dir>/wiki_section
-
-``--dataset ami`` raises: the AMI converter (``data/ami.py``) is not ported
-yet.
+    python -m spokennlp_tpu_torch.cli.run_process_data --dataset ami \\
+        --data_folder <AMI NXT dir> --out_folder <dir>/ami --ami_meetings_jsonl
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ def main(argv=None):
     p.add_argument("--ami_meetings_jsonl", action="store_true",
                    help="also write meetings jsonl for cli/run_aid")
     args = p.parse_args(argv)
-    if args.dataset == "ami":
-        raise NotImplementedError("--dataset ami: the AMI converter (data/ami.py) is not ported "
-                                  "yet (ROADMAP.md queue 1, item 6)")
     os.makedirs(args.out_folder, exist_ok=True)
 
     if args.dataset == "wiki_section":
@@ -70,6 +69,25 @@ def main(argv=None):
             os.path.join(args.data_folder, "wikielements.segmenttitles"),
             os.path.join(args.out_folder, "test.jsonl"),
         )
+    elif args.dataset == "ami":
+        # AMI NXT XML annotations -> AID train/dev/test TSVs (data/ami.py;
+        # reference: action-item-detection/data_script/ami_process.py)
+        from spokennlp_tpu_torch.data import ami
+
+        splits = ami.process_ami_corpus(
+            args.data_folder,
+            args.out_folder,
+            num_left=args.ami_num_context,
+            num_right=args.ami_num_context,
+            similarity_file=args.ami_similarity_file,
+        )
+        if args.ami_meetings_jsonl:
+            from spokennlp_tpu_torch.cli.run_aid import ami_rows_to_meetings
+
+            for split, rows in splits.items():
+                with open(os.path.join(args.out_folder, f"{split}_meetings.jsonl"), "w") as f:
+                    for m in ami_rows_to_meetings(rows):
+                        f.write(json.dumps(m) + "\n")
     print("done")
 
 

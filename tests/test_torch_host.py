@@ -290,6 +290,82 @@ def test_analysis_matches_jax(tmp_path):
     assert os.path.getsize(out) > 0
 
 
+def test_track_3_4_and_aid_host_copies_match_jax(tmp_path):
+    """The host copies of this slice: data/ami.py (each parser and the whole
+    corpus build), run_aid's ami_rows_to_meetings, projects/swab.py and the
+    keyphrase helpers (BIO tags, spans, ranked phrases) give what the JAX
+    package's modules give."""
+    from spokennlp_tpu.cli import run_aid as j_aid
+    from spokennlp_tpu.data import ami as j_ami
+    from spokennlp_tpu.projects import swab as j_swab
+    from spokennlp_tpu.projects.mug import keyphrase as j_kp
+    from spokennlp_tpu_torch.cli import run_aid as t_aid
+    from spokennlp_tpu_torch.data import ami as t_ami
+    from spokennlp_tpu_torch.projects import swab as t_swab
+    from spokennlp_tpu_torch.projects.mug import keyphrase as t_kp
+    from test_torch_aid import ami_tree
+
+    raw = Path(ami_tree(tmp_path / "ami"))
+    meet = "ES2002a"
+    for fn, path in (("parse_abstractive", raw / "abstractive" / f"{meet}.abssumm.xml"),
+                     ("parse_extractive", raw / "extractive" / f"{meet}.summlink.xml"),
+                     ("parse_da_types", raw / "ontologies" / "da-types.xml"),
+                     ("parse_words", raw / "words" / f"{meet}.A.words.xml"),
+                     ("parse_dialogue_acts", raw / "dialogueActs" / f"{meet}.A.dialog-act.xml")):
+        _assert_same(getattr(t_ami, fn)(str(path)), getattr(j_ami, fn)(str(path)), fn)
+    for name in ("ES2003d", "TS3007b", "XX9999", "IS1000a"):
+        assert t_ami.which_split(name) == j_ami.which_split(name)
+    kw = dict(num_left=1, num_right=3, num_global=1, seed=7)
+    got = t_ami.process_ami_corpus(str(raw), str(tmp_path / "t"), **kw)
+    want = j_ami.process_ami_corpus(str(raw), str(tmp_path / "j"), **kw)
+    _assert_same(got, want, "ami splits")
+    for split in ("train", "dev", "test"):
+        assert (tmp_path / "t" / f"{split}.txt").read_text() == \
+            (tmp_path / "j" / f"{split}.txt").read_text()
+        _assert_same(t_aid.ami_rows_to_meetings(got[split]),
+                     j_aid.ami_rows_to_meetings(want[split]), split)
+
+    rng = np.random.default_rng(8)
+    words = ["预算", "方案", "讨论", "设计", "we", "should", "order", "chips", "."]
+    docs = []
+    for i in range(3):
+        sents = [{"id": j + 1, "s": " ".join(rng.choice(words, size=int(rng.integers(2, 7)))),
+                  "s_gt": " ".join(rng.choice(words, size=3))} for j in range(9)]
+        docs.append({"meeting_key": f"d{i}", "sentences": sents, "paragraph_segment_ids": [
+            {"id": e, "target": " ".join(rng.choice(words, size=4))} for e in (3, 7, 9)]})
+    (tmp_path / "swab.json").write_text(json.dumps(docs, ensure_ascii=False))
+    (tmp_path / "swab.jsonl").write_text("\n".join(json.dumps(d) for d in docs))
+    for name in ("swab.json", "swab.jsonl"):
+        _assert_same(t_swab.load_swab(str(tmp_path / name)),
+                     j_swab.load_swab(str(tmp_path / name)), name)
+    pairs = []
+    for d in docs:
+        for gt in (False, True):
+            got_p, want_p = t_swab.paragraph_pairs(d, gt), j_swab.paragraph_pairs(d, gt)
+            _assert_same(got_p, want_p, "pairs")
+            pairs += got_p
+    hyps = [p["source"] for p in pairs]
+    refs = [p["target"] for p in pairs]
+    assert t_swab.evaluate_cos2w(hyps, refs) == j_swab.evaluate_cos2w(hyps, refs)
+
+    for _ in range(20):
+        tokens = list(rng.choice(list("abcab"), size=int(rng.integers(0, 12))))
+        kps = [list(rng.choice(list("abc"), size=int(rng.integers(0, 3)))) for _ in range(3)]
+        tags = t_kp.bio_tags_from_keyphrases(tokens, kps)
+        assert tags == j_kp.bio_tags_from_keyphrases(tokens, kps)
+        noisy = rng.integers(0, 3, size=len(tokens)).tolist()
+        cut = int(rng.integers(0, len(tokens) + 1))  # a valid prefix, then padding
+        mask = [1] * cut + [0] * (len(tokens) - cut)
+        for t in (tags, noisy):
+            assert t_kp.spans_from_bio(t, mask) == j_kp.spans_from_bio(t, mask)
+    token_lists = [list("abcabc"), list("bca"), list("aab")]
+    tag_lists = [[1, 2, 0, 1, 2, 2], [2, 1, 0], [1, 1, 2]]
+    masks = [[1] * 6, [1, 1, 0], [1, 1, 1]]
+    for k in (1, 2, 20):
+        assert t_kp.extract_keyphrases(token_lists, tag_lists, masks, k) == \
+            j_kp.extract_keyphrases(token_lists, tag_lists, masks, k)
+
+
 def _raw_corpora(root: Path) -> Path:
     """Small raw corpora in the reference's formats: WikiSection json for
     both subsets and splits, a wiki-727k folder, WikiElements files."""
@@ -333,8 +409,8 @@ def _raw_corpora(root: Path) -> Path:
 
 def test_corpus_converters_and_run_process_data_match_jax(tmp_path):
     """data/corpora.py's raw-corpus converters and cli/run_process_data.py
-    write the same jsonl files as the JAX package's, for every wiki
-    dataset; --dataset ami raises."""
+    write the same files as the JAX package's, for every wiki dataset and
+    for AMI (an NXT tree built as tests/test_ami.py builds one)."""
     from spokennlp_tpu.cli import run_process_data as j_cli
     from spokennlp_tpu.data import corpora as jc
     from spokennlp_tpu_torch.cli import run_process_data as t_cli
@@ -358,12 +434,20 @@ def test_corpus_converters_and_run_process_data_match_jax(tmp_path):
             outs[side] = {str(p.relative_to(tmp_path / side)): p.read_text()
                           for p in sorted((tmp_path / side / dataset).rglob("*.jsonl"))}
         assert outs["t"] == outs["j"] and outs["t"], dataset
-    with pytest.raises(NotImplementedError, match="data/ami.py"):
-        t_cli.main(["--dataset", "ami", "--data_folder", str(raw),
-                    "--out_folder", str(tmp_path / "ami")])
+    from test_torch_aid import ami_tree
+
+    ami_raw = ami_tree(tmp_path / "ami_raw")
+    outs = {}
+    for side, cli in (("j", j_cli), ("t", t_cli)):
+        out = tmp_path / side / "ami"
+        cli.main(["--dataset", "ami", "--data_folder", ami_raw, "--out_folder", str(out),
+                  "--ami_meetings_jsonl"])
+        outs[side] = {p.name: p.read_text() for p in sorted(out.iterdir())}
+    assert outs["t"] == outs["j"] and outs["t"]["train.txt"]
 
 
-# the Longformer, BigBird and MUG slices' modules, which the package walk must reach
+# the Longformer, BigBird, MUG, Track 3-4 and AID slices' modules, which the
+# package walk must reach
 LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.sliding_attention", "ops.cuda.sliding_block", "ops.cuda.train_sliding", "eval.analysis",
     "ops.bigbird_attention", "ops.cuda.bigbird_block", "ops.cuda.train_bigbird",
@@ -371,7 +455,9 @@ LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "projects.mug.topic_segmentation", "projects.mug.extractive_summarization",
     "projects.mug.evaluate", "eval.rouge", "cli.run_mug", "cli.run_mug_evaluate",
     "ops.cuda.attention_models", "eval.packed_inference", "eval.streaming", "models.hf_convert",
-    "models.hf_export", "cli.hf_checkpoint", "cli.run_process_data")]
+    "models.hf_export", "cli.hf_checkpoint", "cli.run_process_data", "ops.crf",
+    "projects.mug.keyphrase", "projects.action_item", "data.ami", "cli.run_aid",
+    "models.seq2seq", "models.palm", "cli.run_title_generation", "projects.swab")]
 
 
 # the card scripts: chip_smoke.py and every measuring script in turns

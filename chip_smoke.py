@@ -6530,6 +6530,649 @@ def title_path(root: Path, arch: str, device="cuda", widths=None) -> dict:
     return row
 
 
+# the Ditto slice: BERT-base (with its pooler) over run_ditto's 128 tokens in
+# batches of 32, an STS file of DITTO_PAIRS pairs, small relatedness and
+# probing sets
+DITTO_PAIRS, DITTO_L, DITTO_B = 1000, 128, 32
+DITTO_WORDS = 3000
+# the attention diagonal in float32 against float64: a share of the row's
+# softmax, summed over one head's 64-term products; a missing key mask
+# (planted) moves it by far more
+DIAG_TOL = 1e-5
+# Ditto's nine poolers on kernels 1 and 2 against the einsum path, (max
+# |err| / max |ref|, ||err|| / ||ref||): F32_FWD_TOL's norm part; its max
+# part is one block's, and the cls pooler (tanh of a 768-wide product of
+# the 12th layer's CLS row, near 1 where it saturates) read 1.72e-4 of its
+# largest value (norm 4.58e-5) on the H100 (PERF.md, section 6), so 3e-4. The
+# einsum path with the erf GELU, planted, reads 12 x F32_FWD_TOL
+DITTO_POOLER_TOL = (3e-4, F32_FWD_TOL[1])
+# the SLD slice: GPT-2 small at SLDConfig's defaults (V = 50257 + 2 + 2000,
+# blocks of 1024), batch 8, float32, SLD_STEPS optimizer steps, then one
+# decode eval of SLD_B prompts of 400-700 speech tokens, greedy and 4 beams
+SLD_B, SLD_STEPS, SLD_BEAMS, SLD_LR = 8, 4, 4, 1e-4
+SLD_SPEECH, SLD_CHECK_STEPS = (400, 700), 16
+# the SLD loss in float32 against float64 on the same logits, relative, per
+# part: the CEs sum terms of one sign (read 1.8e-8 and 5.6e-8 on the H100,
+# PERF.md), so 1e-5; the KL sums 8 x 1023 x 2000 terms q (log q - log p) of
+# both signs, small against their magnitudes (1.7e-5 of it, which is 9.2e-6
+# of the total), so 1e-4 for the KL and the total. Each of SLD_FAULTS moves
+# the total by 1e-3 of it or more
+SLD_LOSS_RTOL = {"loss": 1e-4, "ce_speech": 1e-5, "ce_text": 1e-5, "kl_speech": 1e-4}
+# WavLM-Large (microsoft/wavlm-large's config.json): 24 x 1024, 16 heads,
+# 4096, the "layer" conv norm with conv biases, stable pre-LN
+WAVLM_LARGE = dict(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+                   conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True)
+SLD_WAVES, SLD_WAVE_S, SLD_LAYER = 8, (5.0, 20.0), 23
+SLD_SPEEDS = (0.9, 1.0, 1.1)
+
+
+def ditto_checkpoints(root: Path, device="cuda", widths=None) -> dict:
+    """BERT-base with its pooler at random (seed 30), written as a native
+    checkpoint and as an HF directory: {"native": dir, "hf": dir}."""
+    import torch
+
+    from spokennlp_tpu_torch.configs import EncoderConfig
+    from spokennlp_tpu_torch.models import checkpoint_io, hf_export
+    from spokennlp_tpu_torch.models.encoder import Encoder
+
+    cfg = EncoderConfig(add_pooler=True, **(widths or {}))
+    with torch.device(device):
+        enc = Encoder(cfg, generator=torch.Generator(device=device).manual_seed(30))
+    params = checkpoint_io.params_from_state_dict(enc.state_dict())
+    out = {"native": root / "ditto_native", "hf": root / "ditto_hf"}
+    checkpoint_io.save_checkpoint(str(out["native"]), params, cfg)
+    hf_export.save_hf_checkpoint(str(out["hf"]), params, cfg)
+    return out
+
+
+def ditto_sentences(rng, n: int, lo: int = 6, hi: int = 160) -> list:
+    words = [f"w{i}" for i in range(DITTO_WORDS)]
+    return [" ".join(rng.choice(words, size=int(rng.integers(lo, hi)))) for _ in range(n)]
+
+
+def write_ditto_data(root: Path, small: int = 96) -> dict:
+    """An STS TSV of DITTO_PAIRS pairs (6-160 words: some past 128 tokens),
+    relatedness train/test TSVs and probing splits of ``small`` rows each."""
+    rng = np.random.default_rng(31)
+    sts = root / "sts.tsv"
+    a, b = ditto_sentences(rng, DITTO_PAIRS), ditto_sentences(rng, DITTO_PAIRS)
+    sts.write_text("\n".join(f"{x}\t{y}\t{g:.2f}" for x, y, g in
+                             zip(a, b, rng.uniform(0, 5, size=DITTO_PAIRS))) + "\n")
+    rel = root / "relatedness"
+    rel.mkdir()
+    for name in ("train.tsv", "test.tsv"):
+        x, y = ditto_sentences(rng, small, hi=40), ditto_sentences(rng, small, hi=40)
+        (rel / name).write_text("\n".join(f"{g:.1f}\t{p}\t{q}" for g, p, q in
+                                          zip(rng.uniform(1, 5, size=small), x, y)) + "\n")
+    probe = {split: (ditto_sentences(rng, small, hi=40),
+                     rng.integers(0, 2, size=small).tolist()) for split in ("train", "dev", "test")}
+    return {"sts": sts, "relatedness": rel, "probe": probe}
+
+
+def diagonal_float64(encoder, hidden, mask, layer: int, head: int, key_mask: bool = True):
+    """exp(s_ii - logsumexp_j s_ij) of one (layer, head) in float64 (without
+    the key mask when ``key_mask`` is False: the planted fault)."""
+    import torch
+
+    qkv = getattr(encoder, f"layer_{layer}").attention.qkv
+    k, b = qkv.kernel.double(), qkv.bias.double()
+    h = hidden.double()
+    q = h @ k[:, 0, head] + b[0, head]
+    kk = h @ k[:, 1, head] + b[1, head]
+    s = q @ kk.transpose(1, 2) / math.sqrt(encoder.cfg.head_dim)
+    sm = s + (1.0 - mask[:, None, :].double()) * -1e9 if key_mask else s
+    return torch.exp(torch.diagonal(s, dim1=1, dim2=2) - torch.logsumexp(sm, -1))
+
+
+def ditto_path(root: Path, device="cuda", widths=None) -> dict:
+    """Phase 30: run_ditto --pooler att_first_last (the recipe's (0, 9)) on
+    the HF directory at --max_seq_length 128, --batch_size 32 over the STS
+    file and the relatedness regression: kernels 1 and 2 once a layer a
+    batch, sentences embedded/s; the SentEval MLP probe (the l2 grid) on the
+    card over the probing set's embeddings; the native checkpoint gives the
+    same numbers. Then on one batch: every pooler on the kernels against the
+    einsum path (tanh GELU) within DITTO_POOLER_TOL (the erf GELU planted there
+    must fail), the diagonal against float64 within DIAG_TOL (the key mask
+    left out must fail), and kernels 1 and 2 at B = 32, L = 128 in float32
+    against their plain versions, timed. sklearn is not on the card's
+    machine: the logreg probe and the k-fold splits are not run here."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_ditto
+    from spokennlp_tpu_torch.models.encoder import Encoder
+    from spokennlp_tpu_torch.ops.cuda.attention_block import (
+        attention_block_plain, fused_attention_block,
+    )
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block, mlp_block_plain
+    from spokennlp_tpu_torch.projects import ditto, senteval_classifier
+
+    ckpts = ditto_checkpoints(root, device, widths)
+    data = write_ditto_data(root)
+    wrappers = {"fused_attention_block": fused_attention_block,
+                "fused_mlp_block": fused_mlp_block}
+    embed_s = []
+
+    def timed_embed(real):
+        def make(*a, **kw):
+            return timed_calls(device, embed_s)(real(*a, **kw))
+        return make
+
+    argv = ["--pooler", "att_first_last", "--max_seq_length", str(DITTO_L), "--batch_size",
+            str(DITTO_B), "--sts_tsv", str(data["sts"]), "--relatedness_dir",
+            str(data["relatedness"]), "--device", device]
+    runs = {}
+    for name in ("hf", "native"):
+        reset_counts(wrappers)
+        reset_peak()
+        t0 = time.perf_counter()
+        with wrapped(ditto, "make_embed_fn", timed_embed):
+            res = run_ditto.main(argv + ["--model_name_or_path", str(ckpts[name]),
+                                         "--output_dir", str(root / f"ditto_{name}")])
+        runs[name] = {"results": res, "run_s": time.perf_counter() - t0,
+                      "launches": read_counts(wrappers), "peak_gib": peak_gib(),
+                      "batches": len(embed_s)}
+        if name == "hf":
+            hf_batches = len(embed_s)
+            rate = steady_rate(embed_s, DITTO_B)
+            embed_s.clear()
+    encoder, tokenize_fn, special = run_ditto.load_encoder(argparse.Namespace(
+        model_name_or_path=str(ckpts["hf"]), pooler="att_first_last"), device)
+    layers = encoder.cfg.num_layers
+    hf = runs["hf"]
+    print(f"Ditto (run_ditto: {layers} layers, L={DITTO_L}, batch {DITTO_B}, float32, "
+          f"att_first_last at the recipe's (0, 9)): {hf_batches} batches in {hf['run_s']:.1f} s, "
+          f"{rate:.1f} sentences embedded/s (host clock after a synchronise, the first batch left "
+          f"out), peak {hf['peak_gib']:.2f} GiB, launches {hf['launches']}; {hf['results']}")
+    for name, run in runs.items():
+        if device == "cuda" and any(n != layers * run["batches"]
+                                    for n in run["launches"].values()):
+            fail(f"Ditto ({name}): launches {run['launches']}, expected {layers} x "
+                 f"{run['batches']} batches")
+        if not all(math.isfinite(v) for r in run["results"].values() for v in r.values()):
+            fail(f"Ditto ({name}): a non-finite result in {run['results']}")
+    if runs["native"]["results"] != hf["results"]:
+        fail(f"Ditto: the native checkpoint gives {runs['native']['results']}, the HF directory "
+             f"{hf['results']}")
+
+    def tokenize(sentences):
+        rows = [[special["cls"]] + tokenize_fn(s)[: DITTO_L - 1] for s in sentences]
+        ids = np.full((len(rows), DITTO_L), special["pad"], np.int32)
+        mask = np.zeros((len(rows), DITTO_L), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)], mask[i, : len(r)] = r, 1
+        return ids, mask
+
+    # the MLP probe of the SentEval protocol, on the card (its l2 grid)
+    probe = data["probe"]
+    embed = ditto.make_embed_fn(encoder, "att_first_last", 0, 9)
+    X = {s: ditto._embed_corpus(embed, tokenize, probe[s][0], DITTO_B) for s in probe}
+    y = {s: np.asarray(probe[s][1]) for s in probe}
+    t0 = time.perf_counter()
+    clf, reg, dev_acc = senteval_classifier.fit_with_reg_grid(
+        X["train"], y["train"], X["dev"], y["dev"], 2, device=device)
+    probe_row = {"dev_acc": dev_acc, "test_acc": clf.score(X["test"], y["test"]), "best_reg": reg,
+                 "fit_s": time.perf_counter() - t0}
+    print(f"  Ditto MLP probe (SentEval protocol, nhid 0, l2 grid) on the card: {probe_row}")
+
+    rng = np.random.default_rng(32)
+    ids, mask = tokenize(ditto_sentences(rng, DITTO_B))
+    ids, mask = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+    # the einsum twin with the kernels' tanh GELU, and with the erf GELU
+    # planted (on the CPU, where "auto" is the einsum path with the erf
+    # GELU, the other way round)
+    acts = ("gelu_new", "gelu") if device == "cuda" else ("gelu", "gelu_new")
+    twins = {}
+    for act in acts:
+        with torch.device(device):
+            twins[act] = Encoder(dataclasses.replace(encoder.cfg, attention_impl="einsum",
+                                                     hidden_act=act))
+        twins[act].load_state_dict(encoder.state_dict(), strict=True)
+        twins[act].eval()
+    got = {p: ditto.make_embed_fn(encoder, p, 0, 9)(ids, mask) for p in ditto.POOLERS}
+    want = {p: ditto.make_embed_fn(twins[acts[0]], p, 0, 9)(ids, mask) for p in ditto.POOLERS}
+    bad = {p: ditto.make_embed_fn(twins[acts[1]], p, 0, 9)(ids, mask) for p in ditto.POOLERS}
+    readings = f32_gemm_readings(got, want)
+    worst = max(readings, key=lambda k: f32_gemm_excess(readings[k], DITTO_POOLER_TOL))
+    planted = f32_gemm_readings(got, bad)
+    caught = max(f32_gemm_excess(r, DITTO_POOLER_TOL) for r in planted.values())
+    print(f"  Ditto poolers on kernels 1 and 2 against the einsum path ({acts[0]}), one batch of "
+          f"{DITTO_B}: worst {worst} max {readings[worst][0]:.2e}, norm {readings[worst][1]:.2e} "
+          f"(limits {DITTO_POOLER_TOL}); planted {acts[1]} in the einsum path: "
+          f"{'rejected' if caught > 1 else 'ACCEPTED'} ({caught:.1f} x the limit)")
+    if f32_gemm_excess(readings[worst], DITTO_POOLER_TOL) > 1:
+        fail(f"Ditto pooler {worst} reads {readings[worst]} against the einsum path")
+    if caught <= 1:
+        fail(f"the Ditto pooler check accepts an einsum path with {acts[1]}")
+    with torch.no_grad():
+        h0 = encoder(ids, attention_mask=mask, output_hidden_states=True).hidden_states[0]
+        diag = ditto.attention_diagonal(encoder, h0, mask, 0, 9)
+        d64 = diagonal_float64(encoder, h0, mask, 0, 9)
+        d_bad = diagonal_float64(encoder, h0, mask, 0, 9, key_mask=False)
+    diag_err = (diag.double() - d64).abs().max().item()
+    bad_err = (diag.double() - d_bad).abs().max().item()
+    print(f"  Ditto diagonal (layer 0, head 9) against float64: max |err| {diag_err:.2e} "
+          f"(limit {DIAG_TOL}); planted, the key mask left out: {bad_err:.2e} "
+          f"({'rejected' if bad_err > DIAG_TOL else 'ACCEPTED'})")
+    if diag_err > DIAG_TOL or bad_err <= DIAG_TOL:
+        fail(f"Ditto diagonal: {diag_err:.3e} (planted {bad_err:.3e}) against {DIAG_TOL}")
+
+    kernel_rows = {}
+    if device == "cuda":  # kernels 1 and 2 at Ditto's shape, layer 0's weights
+        layer = encoder.layer_0
+        att, ln1, mlp_ln = layer.attention, layer.attention_ln, layer.mlp_ln
+        seg = mask.to(torch.int32)
+        valid = seg > 0
+        Bk, Lk, Hk = h0.shape
+        nh, hd, I_ = encoder.cfg.num_heads, encoder.cfg.head_dim, encoder.cfg.intermediate_size
+        call = lambda fn: fn(h0, seg, att.qkv.kernel, att.qkv.bias, att.out.kernel,
+                             att.out.bias, sm_scale=hd**-0.5, ln_scale=ln1.scale,
+                             ln_bias=ln1.bias, eps=encoder.cfg.layer_norm_eps)
+        row = compare("fused_attention_block", "float32", lambda: call(fused_attention_block),
+                      lambda: call(attention_block_plain), valid)
+        M, HN = Bk * Lk, nh * hd
+        moved = nbytes(h0, seg, att.qkv.kernel, att.qkv.bias, att.out.kernel, att.out.bias,
+                       ln1.scale, ln1.bias, h0)
+        row.update(split_bound(4 * Bk * nh * Lk * Lk * hd, 2 * M * Hk * 3 * HN + 2 * M * HN * Hk,
+                               moved, "float32"))
+        x2, c2 = h0.reshape(M, Hk), torch.randn(M, HN, device=device)
+        wq, wo = att.qkv.kernel.reshape(Hk, 3 * HN), att.out.kernel.reshape(HN, Hk)
+        row["library_ms"] = library_time(lambda: (x2 @ wq, c2 @ wo),
+                                         "fused_attention_block float32 at 32 x 128")
+        kernel_rows["fused_attention_block"] = row
+        h1 = call(fused_attention_block).reshape(M, Hk)
+        mlp = lambda fn, **kw: fn(h1, layer.mlp_in.kernel, layer.mlp_in.bias,
+                                  layer.mlp_out.kernel, layer.mlp_out.bias, mlp_ln.scale,
+                                  mlp_ln.bias, activation=encoder.cfg.hidden_act,
+                                  eps=encoder.cfg.layer_norm_eps, **kw)
+        row = compare("fused_mlp_block", "float32", lambda: mlp(fused_mlp_block, quantized=False),
+                      lambda: mlp(mlp_block_plain), slice(None))
+        moved = nbytes(h1, layer.mlp_in.kernel, layer.mlp_in.bias, layer.mlp_out.kernel,
+                       layer.mlp_out.bias, mlp_ln.scale, mlp_ln.bias, h1)
+        row.update(split_bound(0, 4 * M * Hk * I_, moved, "float32"))
+        hi = torch.randn(M, I_, device=device)
+        row["library_ms"] = library_time(lambda: (h1 @ layer.mlp_in.kernel,
+                                                  hi @ layer.mlp_out.kernel),
+                                         "fused_mlp_block float32 at 32 x 128")
+        kernel_rows["fused_mlp_block"] = row
+    return {"launches": hf["launches"], "batches": hf_batches, "sentences_per_s": rate,
+            "run_s": hf["run_s"], "peak_gib": hf["peak_gib"], "results": hf["results"],
+            "probe": probe_row, "pooler_reading": readings[worst], "diag_err": diag_err,
+            "kernels_32x128": kernel_rows}
+
+
+def sld_examples(cfg, n: int, rng, speech=SLD_SPEECH, text=(20, 256)) -> list:
+    """``n`` packed SLD examples: random speech codes (``speech`` tokens) and
+    text ids (``text`` tokens)."""
+    from spokennlp_tpu_torch.projects.sld import pack_example
+
+    return [pack_example(rng.integers(0, cfg.vocab_size_speech, size=int(rng.integers(*speech))),
+                         rng.integers(0, cfg.gpt_vocab_size - 1, size=int(rng.integers(*text))),
+                         cfg) for _ in range(n)]
+
+
+def stack_examples(examples, device) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(np.stack([e[k] for e in examples])).to(device)
+            for k in ("input_ids", "attention_mask", "labels")}
+
+
+SLD_FAULTS = ("KL over every element, not batchmean", "target index not clamped at 0")
+
+
+def sld_loss_float64(logits, labels, mask, cfg, fault=None) -> dict:
+    """The reference composite loss (run_clm.py:787-831) in float64 on the
+    same logits: {"loss", "ce_speech", "ce_text", "kl_speech"}; ``fault``
+    one of SLD_FAULTS."""
+    import torch
+    import torch.nn.functional as F
+
+    x = logits.double()
+    B, Vs, T, eps = x.shape[0], cfg.vocab_size_speech, cfg.kl_temperature, 1e-9
+    m = mask.double()
+    sl = x[:, :-1, -Vs:] * m[:, :-1, None] + eps
+    tgt = (labels[:, 1:].long() - cfg.gpt_vocab_size - 2) * mask[:, 1:].long()
+    if fault != SLD_FAULTS[1]:
+        tgt = tgt.clamp_min(0)
+    one_hot = (tgt[..., None] == torch.arange(Vs, device=x.device)).double()
+    sm = (one_hot * (1 - cfg.label_smoothing_eps) + cfg.label_smoothing_eps / Vs) * m[:, 1:, None]
+    q = F.softmax((sm + eps) / T, -1)
+    kl = (q * (torch.log(q) - F.log_softmax(sl / T, -1))).sum()
+    kl = kl / (q.numel() if fault == SLD_FAULTS[0] else B) * T**2
+    lp = F.log_softmax(x[:, :-1], -1)
+    lab = labels[:, 1:].long()
+    picked = lp.gather(-1, lab.clamp_min(0)[..., None])[..., 0]
+    del lp
+
+    def ce(valid):
+        return -(picked * valid).sum() / valid.sum()
+
+    text = (lab != -100) & (lab < cfg.gpt_vocab_size + 1)
+    speech = (lab != -100) & (lab >= cfg.gpt_vocab_size + 1)
+    parts = {"ce_speech": ce(speech), "ce_text": ce(text), "kl_speech": kl}
+    parts["loss"] = (cfg.weight_ce_speech * parts["ce_speech"]
+                     + cfg.weight_ce_text * parts["ce_text"] + cfg.weight_kl_speech * kl)
+    return {k: v.item() for k, v in parts.items()}
+
+
+def write_sld_corpus(root: Path, n_train: int, n_eval: int, speech=(600, 700)) -> dict:
+    """run_sld's JSONL rows ({"speech_tokens", "text"}) from a 300-word
+    vocabulary: 5-40 words of text, ``speech`` codes below 2000."""
+    rng = np.random.default_rng(43)
+    words = [f"w{i}" for i in range(300)]
+    out = {}
+    for name, n in (("train", n_train), ("eval", n_eval)):
+        path = root / f"sld_{name}.jsonl"
+        with open(path, "w") as f:
+            for _ in range(n):
+                codes = rng.integers(0, 2000, size=int(rng.integers(*speech))).tolist()
+                text = " ".join(rng.choice(words, size=int(rng.integers(5, 41))))
+                f.write(json.dumps({"speech_tokens": codes, "text": text}) + "\n")
+        out[name] = path
+    return out
+
+
+def sld_path(root: Path, device="cuda", gpt_widths=None, sld_kw=None, cli_widths=()) -> dict:
+    """Phase 31: SLD at GPT-2-small width. The library: SLDConfig's defaults
+    (V = 52,259, blocks of 1024), GPT2LMModel at random (seed 40), AdamW at
+    SLD_LR (decay 1e-4), SLD_STEPS steps at batch SLD_B in float32 with time
+    masking and dropout: finite losses, the last below the first, sequences
+    trained/s and the peak; the SLD loss on one batch's logits against
+    float64 within SLD_LOSS_RTOL (SLD_FAULTS planted in the float64 formula
+    must fail); one decode eval of SLD_B prompts (greedy, then SLD_BEAMS
+    beams) to WER/CER, decoded tokens/s; the first SLD_CHECK_STEPS KV-cache
+    greedy steps against a full forward's argmax, and one beam against
+    greedy, token for token. The CLI: run_sld at its defaults on a
+    300-word corpus for one epoch. No kernel runs here: the JAX model runs
+    no TPU kernel."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_sld
+    from spokennlp_tpu_torch.models import generation as gen
+    from spokennlp_tpu_torch.models.gpt2 import GPT2Config, GPT2LMModel
+    from spokennlp_tpu_torch.projects import sld
+
+    cfg = sld.SLDConfig(**(sld_kw or {}))
+    gcfg = GPT2Config(vocab_size=cfg.total_vocab, **(gpt_widths or {}))
+    with torch.device(device):
+        model = GPT2LMModel(gcfg, generator=torch.Generator(device=device).manual_seed(40))
+    optimizer = torch.optim.AdamW(model.parameters(), lr=SLD_LR, weight_decay=1e-4)
+    step = sld.make_sld_train_step(model, cfg, optimizer,
+                                   torch.Generator(device=device).manual_seed(41))
+    rng = np.random.default_rng(42)
+    # 400-700 speech tokens at the default blocks of 1024 (a quarter to a
+    # half of a rehearsal's shorter blocks)
+    speech = SLD_SPEECH if cfg.block_size >= 1024 else (cfg.block_size // 4, cfg.block_size // 2)
+    train = sld_examples(cfg, SLD_B * SLD_STEPS, rng, speech, (20, cfg.max_text_length))
+    losses, step_s = [], []
+    reset_peak()
+    for s in range(SLD_STEPS):
+        batch = stack_examples(train[s * SLD_B:(s + 1) * SLD_B], device)
+        t0 = synced(device)
+        losses.append(float(step(batch)["loss"]))
+        step_s.append(synced(device) - t0)
+    peak = peak_gib()
+    rate = steady_rate(step_s, SLD_B)
+    print(f"SLD (GPT-2 {gcfg.num_layers} x {gcfg.hidden_size}, V={gcfg.vocab_size}, blocks of "
+          f"{cfg.block_size}, batch {SLD_B}, float32, AdamW lr {SLD_LR}): losses {losses}, "
+          f"{rate:.2f} sequences trained/s (host clock after a synchronise, the first step left "
+          f"out), peak {peak:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"SLD: the loss over {SLD_STEPS} steps reads {losses}: not finite and falling")
+
+    model.eval()
+    with torch.no_grad():
+        logits = model(batch["input_ids"], attention_mask=batch["attention_mask"])["logits"]
+        loss, parts = sld.sld_loss(logits, batch["labels"], batch["attention_mask"], cfg)
+    got = {"loss": loss.item(), **{k: v.item() for k, v in parts.items()}}
+    want = sld_loss_float64(logits, batch["labels"], batch["attention_mask"], cfg)
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    planted = {f: abs(got["loss"] - w["loss"]) / abs(w["loss"]) for f, w in (
+        (f, sld_loss_float64(logits, batch["labels"], batch["attention_mask"], cfg, f))
+        for f in SLD_FAULTS)}
+    del logits
+    print(f"  SLD loss in float32 against float64 on one batch's logits: {got}, relative "
+          f"{ {k: f'{v:.1e}' for k, v in rel.items()} } (limits {SLD_LOSS_RTOL}); planted, the "
+          f"total's: { {f: f'{v:.1e}' for f, v in planted.items()} }")
+    if any(rel[k] > SLD_LOSS_RTOL[k] for k in rel):
+        fail(f"SLD loss against float64: {rel}")
+    if min(planted.values()) <= SLD_LOSS_RTOL["loss"]:
+        fail(f"the SLD loss check accepts a planted fault: {planted}")
+
+    evals = sld_examples(cfg, SLD_B, np.random.default_rng(44), speech, (5, 40))
+    texts = [" ".join(str(int(t)) for t in sld.extract_text_tokens(e["labels"][None], cfg)[0])
+             for e in evals]
+    detok = lambda ids: " ".join(str(int(t)) for t in ids)
+    trainer = sld.SLDTrainer(model, cfg, optimizer, train, evals, texts, detok,
+                             batch_size=SLD_B, num_epochs=0)
+    calls = []
+    hook = model.register_forward_pre_hook(lambda *a: calls.append(1))
+    decode = {}
+    for beams, name in ((1, "greedy_generate"), (SLD_BEAMS, "beam_generate")):
+        trainer.num_beams = beams
+        times, calls[:] = [], []
+        with wrapped(gen, name, timed_calls(device, times)):
+            metrics = trainer.decode_eval()
+        steps = len(calls) - len(times)  # one prefill a call
+        decode[name] = {**metrics, "decode_steps": steps, "seconds": sum(times),
+                        "tokens_per_s": SLD_B * steps / sum(times)}
+    hook.remove()
+    print(f"  SLD decode eval of {SLD_B} prompts ({trainer._prompt_ids.shape[1]} tokens, left "
+          f"padded) to {trainer.decode_max_len}: {decode} (WER and CER of random weights: "
+          f"meaningless, the decode's own output only)")
+
+    ids = torch.from_numpy(trainer._prompt_ids).to(device)
+    mask = torch.from_numpy(trainer._prompt_mask).to(device)
+    P = ids.shape[1]
+    eos = cfg.text_end_id
+    out = gen.greedy_generate(model, ids, mask, P + SLD_CHECK_STEPS, eos)
+    beam1 = gen.beam_generate(model, ids, mask, P + SLD_CHECK_STEPS, eos, num_beams=1)
+    mismatch, near = 0, 0
+    with torch.no_grad():
+        for t in range(P, P + SLD_CHECK_STEPS):
+            am = torch.cat([mask, torch.ones((SLD_B, t - P), dtype=mask.dtype, device=device)], 1)
+            full = model(out[:, :t], attention_mask=am,
+                         position_ids=gen._prompt_position_ids(am))["logits"][:, -1]
+            top2 = full.topk(2, -1).values
+            going = ~(out[:, P:t] == eos).any(1)  # a finished row repeats EOS
+            differ = going & (torch.argmax(full, -1).to(out.dtype) != out[:, t])
+            mismatch += int(differ.sum())
+            near += int((differ & (top2[:, 0] - top2[:, 1] < 1e-4)).sum())
+    same_beam = bool((beam1 == out).all())
+    print(f"  SLD KV-cache greedy against a full forward's argmax over {SLD_CHECK_STEPS} steps x "
+          f"{SLD_B} rows: {mismatch} differ ({near} of them at a top-2 gap below 1e-4); one beam "
+          f"equals greedy: {same_beam}")
+    # one decode step (slot P of the cache): host clock against device time
+    with torch.no_grad():
+        cache, am_full, _ = gen._prefill(model, ids, mask, P + 1)
+        am_full[:, P] = 1
+        n_real = mask.long().sum(1)[:, None]
+        one = lambda: model(out[:, P:P + 1], am_full, n_real, cache, P)
+        decode_step = {"host_ms": host_ms(lambda: (one(), synced(device)), 10)}
+        if device == "cuda":
+            decode_step["device_ms"] = kernel_device_ms(one, reps=10)
+    print(f"  SLD decode step at B={SLD_B} over {P + 1} cache slots: {decode_step}")
+    if mismatch != near or near > 1 or not same_beam:
+        fail(f"SLD decode: {mismatch} tokens differ from the full forward ({near} near ties), "
+             f"beam 1 == greedy: {same_beam}")
+    del trainer, model, optimizer, out, beam1, cache
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    corpus = write_sld_corpus(root, 2 * SLD_B, 4)
+    argv = ["--train_file", str(corpus["train"]), "--eval_file", str(corpus["eval"]),
+            "--output_dir", str(root / "sld_out"), "--num_train_epochs", "1", "--device", device,
+            *cli_widths]
+    cli_s = []
+
+    def make_step(real):
+        def build(*a, **kw):
+            return timed_calls(device, cli_s)(real(*a, **kw))
+        return build
+
+    reset_peak()
+    t0 = time.perf_counter()
+    with wrapped(sld, "make_sld_train_step", make_step):
+        res = run_sld.main(argv)
+    cli = {"run_s": time.perf_counter() - t0, "steps": len(cli_s), "peak_gib": peak_gib(),
+           "history": res["history"], "sequences_per_s": steady_rate(cli_s, SLD_B)}
+    print(f"  run_sld at its defaults (GPT-2 small, blocks of 1024, batch 8, one epoch of "
+          f"{2 * SLD_B} rows, greedy eval of 4): {cli}")
+    if cli["steps"] != 2 or not all(math.isfinite(h["train_loss"]) for h in res["history"]):
+        fail(f"run_sld: {cli}")
+    if not (root / "sld_out" / "sld_results.json").exists():
+        fail("run_sld wrote no sld_results.json")
+    return {"losses": losses, "sequences_per_s": rate, "step_s": step_s, "peak_gib": peak,
+            "loss_rel": rel, "decode": decode, "decode_step": decode_step,
+            "kv_mismatch": mismatch, "cli": cli}
+
+
+def write_waves(root: Path, n: int, seconds=SLD_WAVE_S, seed: int = 51):
+    """``n`` 16 kHz 16-bit waves of ``seconds`` (a range) under
+    ``root/audio`` and their transcripts: tones and noise in 0.5 s
+    segments, 3-12 words each."""
+    import wave as wavemod
+
+    rng = np.random.default_rng(seed)
+    audio = root / "audio"
+    audio.mkdir()
+    words = [f"w{i}" for i in range(50)]
+    lines = []
+    for i in range(n):
+        n_samples = int(rng.uniform(*seconds) * 16000)
+        t = np.arange(n_samples) / 16000
+        f0 = np.repeat(rng.uniform(100, 1000, size=n_samples // 8000 + 1), 8000)[:n_samples]
+        wav = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.05 * rng.normal(size=n_samples)
+        with wavemod.open(str(audio / f"utt{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(wav, -1, 1) * 32767).astype(np.int16).tobytes())
+        lines.append(f"utt{i}\t" + " ".join(rng.choice(words, size=int(rng.integers(3, 13)))))
+    (root / "trans.tsv").write_text("\n".join(lines) + "\n")
+    return audio, root / "trans.tsv"
+
+
+def wavlm_hf_dir(root: Path, device="cuda", widths=None) -> Path:
+    """WavLM-Large (or ``widths``) at random (seed 50), written as an HF
+    directory (config.json, model.safetensors) without transformers."""
+    import torch
+
+    from spokennlp_tpu_torch.cli.hf_checkpoint import write_safetensors
+    from spokennlp_tpu_torch.models import checkpoint_io
+    from spokennlp_tpu_torch.models.wavlm import (
+        _HF_KEYS, WavLMConfig, WavLMModel, params_to_hf_wavlm,
+    )
+
+    cfg = WavLMConfig(**(widths or WAVLM_LARGE))
+    with torch.device(device):
+        model = WavLMModel(cfg, generator=torch.Generator(device=device).manual_seed(50))
+    params = checkpoint_io.params_from_state_dict(model.state_dict())
+    del model
+    out = root / "wavlm_large"
+    out.mkdir()
+    hf_cfg = {"model_type": "wavlm", "architectures": ["WavLMModel"],
+              **{hf: getattr(cfg, field) for field, hf in _HF_KEYS.items()}}
+    (out / "config.json").write_text(json.dumps(hf_cfg, indent=2))
+    write_safetensors(str(out / "model.safetensors"),
+                      {k: torch.from_numpy(v) for k, v in params_to_hf_wavlm(params, cfg).items()})
+    return out
+
+
+def wavlm_path(root: Path, device="cuda", widths=None, seconds=SLD_WAVE_S,
+               layer: int = SLD_LAYER, train_args=None) -> dict:
+    """Phase 32: run_sld_pipeline over SLD_WAVES synthetic 16 kHz waves of
+    5-20 s at speeds 0.9/1.0/1.1 with WavLM-Large written at random as an HF
+    directory: stages 1-2 (manifests, layer-23 features on the card), the
+    k-means centres drawn from the speed-1.0 training features (sklearn, and
+    so stage 3's MiniBatchKMeans, is not on the card's machine), then stages
+    4-7 (tokens, joined files, BPE, run_sld for one epoch at a small width).
+    Seconds of audio a second for stage 2; the layer-23 features of one 2 s
+    wave against the same model on the CPU in float32 within F32_FWD_TOL
+    (layer 22's planted must fail)."""
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_sld_pipeline
+    from spokennlp_tpu_torch.projects import sld_pipeline as pipe
+
+    hf_dir = wavlm_hf_dir(root, device, widths)
+    audio, trans = write_waves(root, SLD_WAVES, seconds)
+    seed = next(s for s in range(100) if 1 <= len(pipe.make_manifest(
+        str(audio), ext="wav", valid_percent=0.25, seed=s)["valid"]) - 1 <= 2)
+    work = root / "sld_work"
+    common = ["--audio_dir", str(audio), "--transcript_file", str(trans), "--work_dir", str(work),
+              "--model_name", str(hf_dir), "--layer", str(layer), "--speeds",
+              *map(str, SLD_SPEEDS), "--valid_percent", "0.25", "--seed", str(seed),
+              "--device", device]
+    feat_s, samples = [], []
+
+    def make(real):
+        def extract(model, waves, *a, **kw):
+            samples.append(waves.shape[1])
+            return timed_calls(device, feat_s)(real)(model, waves, *a, **kw)
+        return extract
+
+    reset_peak()
+    t0 = time.perf_counter()
+    with wrapped(pipe, "extract_wavlm_features", make):
+        run_sld_pipeline.main(common + ["--stop_stage", "2"])
+    stage2_s, peak = time.perf_counter() - t0, peak_gib()
+    rate = sum(samples[1:]) / 16000 / sum(feat_s[1:])
+    feats = np.load(work / "feats" / f"train_sp1.0_0_1.npy")
+    centres = feats[np.random.default_rng(52).choice(len(feats), size=100, replace=False)]
+    np.save(work / "kmeans_centers.npy", centres)
+    args = {"num_train_epochs": 1, "hidden_size": 64, "num_hidden_layers": 2,
+            "num_attention_heads": 2, "vocab_size_speech": 100, **(train_args or {})}
+    t0 = time.perf_counter()
+    state = run_sld_pipeline.main(common + ["--start_stage", "4", "--train_args",
+                                            json.dumps(args)])
+    rest_s = time.perf_counter() - t0
+    hist = state["train_result"]["history"]
+    print(f"WavLM (stage 2 of run_sld_pipeline: {len(samples)} utterances, "
+          f"{sum(samples) / 16000:.1f} s of audio at speeds {SLD_SPEEDS}, layer {layer}, "
+          f"float32): {stage2_s:.1f} s for stages 1-2, {rate:.1f} s of audio a second (stage-2 "
+          f"calls after the first), peak {peak:.2f} GiB; stages 4-7 {rest_s:.1f} s, "
+          f"{len(state['bpe_merges'])} BPE merges, run_sld {hist}")
+    if not all(math.isfinite(h["train_loss"]) for h in hist) or not state["bpe_merges"]:
+        fail(f"SLD pipeline: {hist}, {len(state['bpe_merges'])} merges")
+
+    cpu_model = pipe.load_feature_model(str(hf_dir), "cpu")
+    card_model = pipe.load_feature_model(str(hf_dir), device)
+    wave = pipe.read_wav(str(audio / "utt0.wav"))[None, :32000]
+    got = pipe.extract_wavlm_features(card_model, wave, layer)
+    want = pipe.extract_wavlm_features(cpu_model, wave, layer)
+    bad = pipe.extract_wavlm_features(cpu_model, wave, layer - 1)
+    reading = f32_gemm_readings({"features": torch.from_numpy(got)},
+                                {"features": torch.from_numpy(want)})["features"]
+    planted = f32_gemm_readings({"features": torch.from_numpy(got)},
+                                {"features": torch.from_numpy(bad)})["features"]
+    print(f"  WavLM layer-{layer} features of a 2 s wave, {device} against the CPU (float32): max "
+          f"{reading[0]:.2e}, norm {reading[1]:.2e} (limits {F32_FWD_TOL}); planted layer "
+          f"{layer - 1}: {planted[0]:.2e}, {planted[1]:.2e}")
+    if f32_gemm_excess(reading, F32_FWD_TOL) > 1 or f32_gemm_excess(planted, F32_FWD_TOL) <= 1:
+        fail(f"WavLM features against the CPU: {reading} (planted {planted})")
+    # one utterance of the stage (the first wave at speed 1.0): host clock
+    # against device time, and the host's relative-position table alone
+    from spokennlp_tpu_torch.models.wavlm import relative_position_buckets
+
+    wave = pipe.read_wav(str(audio / "utt0.wav"))[None, :]
+    call = lambda: pipe.extract_wavlm_features(card_model, wave, layer)
+    frames = call().shape[1]
+    split = {"audio_s": wave.shape[1] / 16000, "frames": frames,
+             "host_ms": host_ms(lambda: (call(), synced(device)), 3),
+             "bucket_table_ms": host_ms(lambda: relative_position_buckets.__wrapped__(
+                 frames, card_model.cfg.num_buckets, card_model.cfg.max_bucket_distance), 3)}
+    if device == "cuda":
+        split["device_ms"] = kernel_device_ms(call, reps=3)
+    print(f"  WavLM one utterance: {split}")
+    del cpu_model, card_model
+    return {"utterances": len(samples), "audio_s": sum(samples) / 16000,
+            "audio_s_per_s": rate, "stage2_s": stage2_s, "rest_s": rest_s, "peak_gib": peak,
+            "history": hist, "reading": reading, "utterance": split}
+
+
 def main() -> int:
     import torch
 
@@ -6704,6 +7347,23 @@ def main() -> int:
             tracks[label]["phase_s"] = time.perf_counter() - t1
             print(f"phase {phase} ({label}): {tracks[label]['phase_s']:.1f} s")
             torch.cuda.empty_cache()
+
+        # Ditto and SLD; sklearn is not on the card's machine, so these phases
+        # are built without its calls (no logreg probe, no k-fold splits, no
+        # MiniBatchKMeans)
+        import importlib.util
+
+        print(f"phases 30-32 leave out sklearn's calls (sklearn importable here: "
+              f"{importlib.util.find_spec('sklearn') is not None})")
+        slice24 = {}
+        for phase, label, run in ((30, "ditto", lambda: ditto_path(Path(tmp))),
+                                  (31, "sld", lambda: sld_path(Path(tmp))),
+                                  (32, "wavlm", lambda: wavlm_path(Path(tmp)))):
+            t1 = time.perf_counter()
+            slice24[label] = run()
+            slice24[label]["phase_s"] = time.perf_counter() - t1
+            print(f"phase {phase} ({label}): {slice24[label]['phase_s']:.1f} s")
+            torch.cuda.empty_cache()
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
 
     served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
@@ -6728,7 +7388,7 @@ def main() -> int:
                         "bigbird_attention_block"],
                 **MODE_LAUNCHES}
     # rows 10, 11 and kernel 3 also ran on the Track 3-4 and AID paths
-    for row in tracks.values():
+    for row in (*tracks.values(), slice24["ditto"]):
         for name, n in row["launches"].items():
             launches[name] += n
     print(json.dumps({"serving": serving}, default=float))
@@ -6748,6 +7408,7 @@ def main() -> int:
     print(json.dumps({"training at scale": scale}, default=float))
     print(json.dumps({"w8a8_long": w8a8_long}, default=float))
     print(json.dumps({"mug tracks 3-4 and aid": tracks}, default=float, ensure_ascii=False))
+    print(json.dumps({"ditto and sld": slice24}, default=float))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's row in the type its main path computes in
@@ -6762,6 +7423,10 @@ def main() -> int:
                 "global_ms", "global_bound_ms", "global_library_ms", "global_ms_16",
                 "global_bound_ms_16", "global_library_ms_16", "gkv_ms", "gkv_bound_ms")
                 if k in f32_row})
+        ditto_row = slice24["ditto"]["kernels_32x128"].get(name)
+        if ditto_row is not None:  # float32 at Ditto's shape, B = 32, L = 128
+            entry.update({f"ditto_f32_{k}": ditto_row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})
         kernels.append(entry)
     f32 = {name: rows[name, "float32"] for name in KERNELS if (name, "float32") in rows}
     print(json.dumps({"float32": f32}))

@@ -86,14 +86,20 @@ def _unchunk(tree):
 
 def params_from_state_dict(state_dict: Mapping) -> dict:
     """A flat ``state_dict`` (dotted names, as ``models/convert.py`` makes
-    them) back into the nested Flax tree of numpy arrays."""
+    them) back into the nested Flax tree of numpy arrays (convolution
+    kernels back in Flax's layout, ``convert.CONV_KERNEL``)."""
+    from spokennlp_tpu_torch.models.convert import CONV_KERNEL
+
     tree: dict = {}
     for name, value in state_dict.items():
         *path, leaf = name.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = _as_numpy(value)
+        value = _as_numpy(value)
+        if CONV_KERNEL.search(name) and value.ndim == 3:
+            value = np.ascontiguousarray(value.transpose(2, 1, 0))
+        node[leaf] = value
     return tree
 
 

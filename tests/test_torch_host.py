@@ -446,8 +446,146 @@ def test_corpus_converters_and_run_process_data_match_jax(tmp_path):
     assert outs["t"] == outs["j"] and outs["t"]["train.txt"]
 
 
-# the Longformer, BigBird, MUG, Track 3-4 and AID slices' modules, which the
-# package walk must reach
+def test_ditto_and_sld_host_copies_match_jax(tmp_path):
+    """The host copies of the Ditto and SLD slice give what the JAX
+    package's give: eval/asr_metrics.py; the pipeline's manifests, wave
+    reader, speed perturbation, run dedupe, labels, k-means tokens and BPE;
+    SLD's packing, prompts, text extraction and run_sld's word vocabulary;
+    the Ditto loaders (STS, SentEval STS, the seven transfer tasks, probing,
+    relatedness in three formats), recipes and score encoding; WavLM's
+    relative-position buckets."""
+    import wave as wavemod
+
+    from spokennlp_tpu.cli import run_sld as j_cli
+    from spokennlp_tpu.eval import asr_metrics as j_asr
+    from spokennlp_tpu.models import wavlm as j_wavlm
+    from spokennlp_tpu.projects import ditto as j_ditto
+    from spokennlp_tpu.projects import sld as j_sld
+    from spokennlp_tpu.projects import sld_pipeline as j_pipe
+    from spokennlp_tpu_torch.cli import run_sld as t_cli
+    from spokennlp_tpu_torch.eval import asr_metrics as t_asr
+    from spokennlp_tpu_torch.models import wavlm as t_wavlm
+    from spokennlp_tpu_torch.projects import ditto as t_ditto
+    from spokennlp_tpu_torch.projects import sld as t_sld
+    from spokennlp_tpu_torch.projects import sld_pipeline as t_pipe
+
+    rng = np.random.default_rng(9)
+    words = ["go", "stop", "left", "", "中文", "naïve", "up"]
+    refs = [" ".join(rng.choice(words, size=int(rng.integers(0, 8)))) for _ in range(12)]
+    hyps = [" ".join(rng.choice(words, size=int(rng.integers(0, 8)))) for _ in range(12)]
+    for fn in ("wer", "cer"):
+        assert getattr(t_asr, fn)(hyps, refs) == getattr(j_asr, fn)(hyps, refs)
+    assert t_asr.edit_distance("kitten", "sitting") == j_asr.edit_distance("kitten", "sitting")
+
+    audio = tmp_path / "audio" / "sub"
+    audio.mkdir(parents=True)
+    for i, (width, ch) in enumerate(((2, 1), (4, 1), (2, 2))):
+        pcm = rng.integers(-2**(8 * width - 2), 2**(8 * width - 2), size=400 * ch)
+        with wavemod.open(str(audio / f"u{i}.wav"), "wb") as w:
+            w.setnchannels(ch)
+            w.setsampwidth(width)
+            w.setframerate(16000)
+            w.writeframes(pcm.astype(np.int16 if width == 2 else np.int32).tobytes())
+    (audio / "skip.flac").write_text("")
+    man_t = t_pipe.make_manifest(str(tmp_path / "audio"), ext="wav", valid_percent=0.4, seed=3)
+    _assert_same(man_t, j_pipe.make_manifest(str(tmp_path / "audio"), ext="wav",
+                                             valid_percent=0.4, seed=3), "manifest")
+    tmap = {"sub/u0.wav": "by path", "u1": "by id"}
+    for split in man_t:
+        assert t_pipe.make_labels(man_t[split], tmap) == j_pipe.make_labels(man_t[split], tmap)
+    for i in range(3):
+        w = t_pipe.read_wav(str(audio / f"u{i}.wav"))
+        _assert_same(w, j_pipe.read_wav(str(audio / f"u{i}.wav")), f"wav {i}")
+        for factor in (0.9, 1.0, 1.1):
+            _assert_same(t_pipe.speed_perturb(w, factor), j_pipe.speed_perturb(w, factor))
+    toks = rng.integers(0, 5, size=200).tolist()
+    assert t_pipe.dedupe_runs(toks) == j_pipe.dedupe_runs(toks)
+
+    class KM:
+        cluster_centers_ = rng.normal(size=(7, 6)).astype(np.float32)
+
+    feats = rng.normal(size=(50, 6)).astype(np.float32)
+    _assert_same(t_pipe.apply_kmeans(KM, feats), j_pipe.apply_kmeans(KM, feats), "kmeans")
+    corpus = [" ".join(str(t) for t in rng.integers(0, 6, size=int(rng.integers(3, 20))))
+              for _ in range(30)]
+    merges = t_pipe.train_bpe(corpus, vocab_size=20)
+    assert merges == j_pipe.train_bpe(corpus, vocab_size=20) and merges
+    for line in corpus[:5]:
+        assert t_pipe.bpe_encode(line.split(), merges) == j_pipe.bpe_encode(line.split(), merges)
+
+    kw = dict(gpt_vocab_size=30, vocab_size_speech=12, block_size=24, max_text_length=6,
+              eos_token_id=29)
+    jc, tc = j_sld.SLDConfig(**kw), t_sld.SLDConfig(**kw)
+    assert (tc.total_vocab, tc.speech_end_id, tc.text_end_id) == \
+        (jc.total_vocab, jc.speech_end_id, jc.text_end_id)
+    packed = []
+    for n_sp, n_tx in ((5, 3), (30, 9), (0, 2), (4, 0)):
+        sp, tx = rng.integers(0, 12, size=n_sp).tolist(), rng.integers(0, 29, size=n_tx).tolist()
+        got, want = t_sld.pack_example(sp, tx, tc), j_sld.pack_example(sp, tx, jc)
+        _assert_same(got, want, f"pack {n_sp} {n_tx}")
+        if got is not None:
+            packed.append(got["input_ids"])
+    ids = np.stack(packed + [np.full(24, 5, np.int32)])
+    _assert_same(t_sld.build_prompts(ids, tc), j_sld.build_prompts(ids, jc), "prompts")
+    assert t_sld.extract_text_tokens(ids, tc) == j_sld.extract_text_tokens(ids, jc)
+    rows = [{"text": r} for r in refs]
+    (te, td, tn), (je, jd_, jn) = t_cli._word_vocab([rows]), j_cli._word_vocab([rows])
+    assert tn == jn and [te(r) for r in refs] == [je(r) for r in refs]
+    assert td([0, 1, 99]) == jd_([0, 1, 99])
+
+    for L, nb, md in ((12, 32, 50), (300, 320, 800)):
+        _assert_same(t_wavlm.relative_position_buckets(L, nb, md),
+                     j_wavlm.relative_position_buckets(L, nb, md), f"buckets {L}")
+
+    d = tmp_path / "senteval"
+    d.mkdir()
+    sents = [" ".join(rng.choice(words[:3] + ["x", "y"], size=3)) for _ in range(6)]
+    (d / "sts.tsv").write_text("\n".join(f"{a}\t{b}\t{i}.5" for i, (a, b) in
+                                         enumerate(zip(sents, sents[::-1]))) + "\nbad line\n")
+    _assert_same(t_ditto.load_sts_tsv(str(d / "sts.tsv")), j_ditto.load_sts_tsv(str(d / "sts.tsv")))
+    for ss in ("a", "b"):
+        (d / f"STS.input.{ss}.txt").write_text("\n".join(f"{a}\t{b}" for a, b in
+                                                        zip(sents, sents[1:])))
+        (d / f"STS.gs.{ss}.txt").write_text("\n".join(["1.0", "", "3.5", "4", "0"]))
+    _assert_same(t_ditto.load_senteval_sts(str(d), ["a", "b"], "x"),
+                 j_ditto.load_senteval_sts(str(d), ["a", "b"], "x"))
+    for name in ("rt-polarity.pos", "rt-polarity.neg", "custrev.pos", "custrev.neg",
+                 "subj.subjective", "subj.objective", "mpqa.pos", "mpqa.neg"):
+        (d / name).write_text("\n".join(sents[:3]) + "\n\n")
+    (d / "sentiment-train").write_text("1\tgood one\n0\tbad one\nnolabel")
+    (d / "sentiment-test").write_text("1\tfine\n")
+    (d / "train_5500.label").write_text("DESC:def what is x\nNUM:count how many\nHUM:ind who\n")
+    (d / "TREC_10.label").write_text("NUM:date when\nDESC:def what\n")
+    header = "Quality\t#1 ID\t#2 ID\t#1 String\t#2 String\n"
+    (d / "msr_paraphrase_train.txt").write_text(header + "1\t1\t2\ta b\tc d\n0\t3\t4\te\tf\n")
+    (d / "msr_paraphrase_test.txt").write_text(header + "1\t5\t6\tg\th\nshort\n")
+    for task in ("MR", "CR", "SUBJ", "MPQA", "SST2", "TREC", "MRPC"):
+        _assert_same(t_ditto.load_senteval_classification(str(d), task),
+                     j_ditto.load_senteval_classification(str(d), task), task)
+    (d / "probe.txt").write_text("tr\tB\tone two\ntr\tA\tthree\nva\tA\tfour\n"
+                                 "te\tB\tfive six\nxx\tA\tskip\n")
+    _assert_same(t_ditto.load_senteval_probing(str(d / "probe.txt")),
+                 j_ditto.load_senteval_probing(str(d / "probe.txt")), "probing")
+    (d / "SICK_train.txt").write_text("pair\tA\tB\tscore\n1\ta\tb\t3.2\n")
+    (d / "SICK_test_annotated.txt").write_text("pair\tA\tB\tscore\n2\tc\td\t4.5\n")
+    (d / "sts-train.csv").write_text("g\tf\ty\t1\t2.5\tone\ttwo\nshort\trow\n")
+    (d / "sts-test.csv").write_text("g\tf\ty\t2\t4.0\tthree\tfour\n")
+    (d / "train.tsv").write_text("2.0\ta\tb\n")
+    (d / "test.tsv").write_text("5.0\tc\td\n")
+    for fmt in ("sick", "stsb", "tsv"):
+        _assert_same(t_ditto.load_relatedness_files(str(d), fmt),
+                     j_ditto.load_relatedness_files(str(d), fmt), fmt)
+    scores = np.array([1.0, 2.5, 4.99, 5.0, 0.3, 7.0], np.float32)
+    _assert_same(t_ditto._score_distribution(scores), j_ditto._score_distribution(scores))
+    for name in ("bert-base-uncased", "my-roberta-base-ft", "SBERT", "electra", "other"):
+        assert t_ditto.recipe_for(name) == j_ditto.recipe_for(name)
+    a, b = rng.normal(size=(9, 5)), rng.normal(size=(9, 5))
+    _assert_same(t_ditto.cosine_scores(a, b), j_ditto.cosine_scores(a, b))
+    assert t_ditto.spearman(a[:, 0], b[:, 0]) == j_ditto.spearman(a[:, 0], b[:, 0])
+
+
+# the Longformer, BigBird, MUG, Track 3-4, AID, Ditto and SLD slices' modules,
+# which the package walk must reach
 LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.sliding_attention", "ops.cuda.sliding_block", "ops.cuda.train_sliding", "eval.analysis",
     "ops.bigbird_attention", "ops.cuda.bigbird_block", "ops.cuda.train_bigbird",
@@ -457,7 +595,10 @@ LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.cuda.attention_models", "eval.packed_inference", "eval.streaming", "models.hf_convert",
     "models.hf_export", "cli.hf_checkpoint", "cli.run_process_data", "ops.crf",
     "projects.mug.keyphrase", "projects.action_item", "data.ami", "cli.run_aid",
-    "models.seq2seq", "models.palm", "cli.run_title_generation", "projects.swab")]
+    "models.seq2seq", "models.palm", "cli.run_title_generation", "projects.swab",
+    "eval.asr_metrics", "projects.senteval_classifier", "projects.ditto", "cli.run_ditto",
+    "models.gpt2", "models.generation", "projects.sld", "cli.run_sld", "models.wavlm",
+    "projects.sld_pipeline", "cli.run_sld_pipeline")]
 
 
 # the card scripts: chip_smoke.py and every measuring script in turns

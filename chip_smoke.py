@@ -332,6 +332,28 @@
    step's log-probabilities within F32_FWD_TOL of the einsum path with the
    kernels' tanh GELU; titles/s. Each phase prints its seconds; the
    kernels line's launches of rows 10, 11 and 3 include these paths'.
+30-32. Ditto, SLD and WavLM-Large (ditto_path, sld_path, wavlm_path).
+33. MMVTS on BERT-base: cli/run_finetune_multimodal.main at its defaults
+   (512 tokens, float32, batch 2, 4 accumulation steps, 64 clips a window)
+   with the reference's fusion widths (768, CLIP's 512-wide vis and
+   Whisper-small's 768-wide audio features), ma_moe with the capacity
+   dispatch, modality CL over tv, av and at, list-mode topic CL (near), for
+   an epoch of 4-6 micro-batches of a synthetic clvts corpus, then eval and
+   one --do_pretrain run: rows 10 and 11 once a layer a micro-batch, kernel
+   3 once an eval batch of 2; finite losses and video metrics; windows
+   trained/s and evaluated/s, peak memory, the MoE's share of a step (CUDA
+   events); one batch's loss and weight gradients against the einsum path
+   at dropout 0 (LOSS_RTOL, MIN_GRAD_COSINE); eval argmax against the
+   einsum twin >= 0.99.
+34. The same on Longformer-base over 2048 tokens (window 512) with the ca
+   cross-encoder, the transformer projector and the hybrid predictor with
+   per-clip gates: rows 12 and 11 in training, kernels 7 and 2 in eval
+   (the all-zeros global mask: no global rows); no pretraining run.
+35. CLIP ViT-B/16 at random: encode_clip_frames over 320 random frames in
+   40 uneven clips (one empty): frames/s and the tower's time a batch of
+   32; three clips against the CPU within F32_FWD_TOL, with the erf GELU
+   planted in place of QuickGELU failing it. The kernels line's launches of
+   rows 2, 3, 7, 10, 11 and 12 include phases 33-34's.
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -6090,8 +6112,9 @@ def gradient_check(label: str, build, loss_of, device) -> dict:
             model = build(impl, torch.Generator(device=device).manual_seed(1)).train()
         loss = loss_of(model)
         named = [(n, p) for n, p in model.named_parameters() if n.endswith("kernel")]
-        grads = torch.autograd.grad(loss, [p for _, p in named])
-        res[impl] = (loss.item(), {n: g for (n, _), g in zip(named, grads)})
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        res[impl] = (loss.item(), {n: torch.zeros_like(p) if g is None else g
+                                   for (n, p), g in zip(named, grads)})
         del model, loss
     (lf, gf), (le, ge) = res["train_fused"], res["einsum"]
     rel = abs(lf - le) / abs(le)
@@ -7173,6 +7196,372 @@ def wavlm_path(root: Path, device="cuda", widths=None, seconds=SLD_WAVE_S,
             "history": hist, "reading": reading, "utterance": split}
 
 
+# MMVTS (phases 33-35): the reference's fusion widths (mm_hidden_size = the
+# text width, scripts/parity_mmvts.py:156; CLIP ViT-B/16's 512-wide frame
+# features; Whisper-small's 768-wide audio), the composite objective, and
+# corpora cut to 4-6 micro-batches of 2 windows and a few eval batches
+MM_FLAGS = ["--mm_hidden_size", "768", "--vis_hidden_size", "512", "--audio_hidden_size", "768",
+            "--do_modality_cl", "--align_pairs", "tv,av,at", "--do_topic_mm_cl",
+            "--topic_cl_type", "list", "--topic_cl_choice", "near"]
+MM_TRUNKS = {
+    # phase 33: BERT-base over 512 tokens, ma_moe with the capacity dispatch
+    "dense": dict(flags=["--cross_encoder_type", "ma_moe", "--moe_impl", "dispatch"],
+                  train=(6, (30, 50)), eval=(5, (30, 50)), words=(6, 16)),
+    # phase 34: Longformer-base over 2048 tokens, ca, the transformer
+    # projector and the hybrid predictor with per-clip gates
+    "sliding_window": dict(flags=["--attention_type", "sliding_window", "--attention_window",
+                                  "512", "--max_seq_length", "2048", "--cross_encoder_type", "ca",
+                                  "--projector_type", "transformer", "--predictor_type", "hybrid",
+                                  "--predictor_hybrid_weight_type", "l"],
+                           train=(5, (80, 100)), eval=(3, (70, 90)), words=(20, 36)),
+}
+MM_STEPS = (4, 6)
+CLIP_FRAMES, CLIP_CPU_CLIPS = 320, 3  # ViT-B/16 frames in uneven clips; clips checked on the CPU
+
+
+def write_video_corpus(root: Path, trunk: str, seed: int = 33) -> tuple:
+    """A clvts corpus (train, dev and test jsonl: clips of random words,
+    about one in eight closing a topic, cumulative clip end seconds) and a
+    vis (512) and an audio (768) feature .npy a video: (corpus, vis, audio)
+    directories."""
+    rng = np.random.default_rng(seed)
+    spec = MM_TRUNKS[trunk]
+    base = root / f"mmvts_{trunk}"
+    dirs = [base / d for d in ("clvts", "vis", "audio")]
+    for d in dirs:
+        d.mkdir(parents=True)
+    words = [f"w{i}" for i in range(3000)]
+    for split, (videos, clips) in (("train", spec["train"]), ("dev", spec["eval"]),
+                                   ("test", (1, spec["eval"][1]))):
+        with open(dirs[0] / f"{split}.jsonl", "w") as f:
+            for v in range(videos):
+                n = int(rng.integers(*clips))
+                labels = (rng.random(n) < 0.125).astype(int).tolist()
+                labels[-1] = 1
+                vid = f"{split}{v}"
+                f.write(json.dumps({
+                    "example_id": vid, "lecture": vid, "labels": labels,
+                    "text": [" ".join(rng.choice(words, size=int(rng.integers(*spec["words"]))))
+                             for _ in range(n)],
+                    "clip_end_seconds": np.cumsum(rng.uniform(4, 20, n)).round(2).tolist()}) + "\n")
+                for d, width in ((dirs[1], 512), (dirs[2], 768)):
+                    np.save(d / f"{vid}.npy", rng.normal(size=(n, width)).astype(np.float32))
+    return tuple(str(d) for d in dirs)
+
+
+def mmvts_wrappers(trunk: str) -> tuple:
+    """({name: wrapper} of the training kernels, of the eval kernels) of a
+    trunk's path under auto: rows 10 and 11 and kernel 3 (batch 2), or rows
+    12 and 11 and kernels 7 and 2."""
+    from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
+    from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.sliding_block import fused_sliding_attention_block
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+    mlp = {"mlp_train_fwd": tb.mlp_train_fwd, "mlp_train_bwd": tb.mlp_train_bwd}
+    if trunk == "dense":
+        return ({"attention_train_fwd": tb.attention_train_fwd,
+                 "attention_train_bwd": tb.attention_train_bwd, **mlp},
+                {"fused_encoder_stack": fused_encoder_stack})
+    return ({"sliding_train_fwd": ts.sliding_train_fwd,
+             "sliding_train_bwd": ts.sliding_train_bwd, **mlp},
+            {"sliding_attention_block": fused_sliding_attention_block,
+             "fused_mlp_block": fused_mlp_block})
+
+
+def moe_share(model, batch, loss_of, device) -> dict:
+    """The capacity-dispatch MoE's share of one training step: the step
+    (forward, loss, backward; CUDA events, a mean of 5 after a warm-up)
+    against each MoE layer's own forward and backward on the inputs it took
+    in that step."""
+    import torch
+
+    from spokennlp_tpu_torch.models import multimodal as mm
+
+    taken = []
+
+    def make(real):
+        def forward(self, x, mask, *a, **kw):
+            taken.append((self, x.detach(), mask))
+            return real(self, x, mask, *a, **kw)
+        return forward
+
+    step = lambda: torch.autograd.grad(loss_of(model), list(model.parameters()),
+                                       allow_unused=True)
+    with wrapped(mm.MoELayer, "forward", make):
+        step()
+    moe_calls = list(taken)
+
+    def moe_alone():
+        for layer, x, mask in moe_calls:
+            xg = x.clone().requires_grad_()
+            y, aux = layer(xg, mask)
+            torch.autograd.grad((y.float().sum() + aux), [xg, *layer.parameters()])
+
+    moe_alone()  # a warm-up; the step had its own above
+    timer = time_ms if torch.device(device).type == "cuda" else host_ms
+    return {"moe_layers": len(moe_calls), "moe_ms": timer(moe_alone, 5),
+            "step_ms": timer(step, 5)}
+
+
+def mmvts_path(root: Path, trunk: str = "dense", device="cuda", widths=(),
+               pretrain: bool = True) -> dict:
+    """Phases 33 (``trunk`` "dense") and 34 ("sliding_window"):
+    run_finetune_multimodal at its defaults (float32, batch 2, 4
+    accumulation steps) with the reference's fusion widths (MM_FLAGS) over a
+    synthetic clvts corpus with vis and audio feature files, for one epoch
+    of 4-6 micro-batches, then eval (and, for the dense trunk, one
+    --do_pretrain run). The trunk's training kernels once a layer a
+    micro-batch and its eval kernels once a layer (kernel 3: once) an eval
+    batch; finite losses; windows trained/s (host clock after a
+    synchronise, the first call and the first optimizer update left out)
+    and evaluated/s (the first call left out), peak memory, the MoE's
+    share of a step (phase 33); one batch's loss and every weight matrix's
+    gradient against the einsum path at dropout 0 (LOSS_RTOL,
+    MIN_GRAD_COSINE); the trained model's eval argmax on valid clips against
+    its einsum twin (tanh GELU) >= MIN_ARGMAX_AGREEMENT."""
+    import dataclasses
+
+    import torch
+
+    from spokennlp_tpu_torch.cli import run_finetune_multimodal as cli
+    from spokennlp_tpu_torch.objectives import mmvts_losses
+    from spokennlp_tpu_torch.projects import mmvts
+
+    data, vis, audio = write_video_corpus(root, trunk)
+    spec = MM_TRUNKS[trunk]
+    out = root / f"mmvts_{trunk}_out"
+    argv = ["--dataset_name", "clvts", "--data_dir", data, "--vis_feature_dir", vis,
+            "--audio_feature_dir", audio, "--output_dir", str(out), "--do_train", "--do_eval",
+            "--num_train_epochs", "1", *MM_FLAGS, *spec["flags"], "--device", device, *widths]
+    args = cli.make_parser().parse_args(argv)
+    train_k, eval_k = mmvts_wrappers(trunk)
+    step_s, fwd, updates, captured = [], [], [], {}
+
+    def make_step(real):
+        def build_step(model, optimizer, *a, **kw):
+            captured["model"] = model
+            real_update = optimizer.step
+
+            def update(*ua, **ukw):  # TrainOptimizer says whether it stepped
+                out = real_update(*ua, **ukw)
+                updates.append(out is not False)
+                return out
+
+            optimizer.step = update
+
+            def forward(*fa, _real=model.forward, **fkw):
+                t0 = synced(device)
+                res = _real(*fa, **fkw)
+                fwd.append((model.training, synced(device) - t0))
+                return res
+
+            model.forward = forward
+            return timed_calls(device, step_s)(real(model, optimizer, *a, **kw))
+        return build_step
+
+    reset_counts({**train_k, **eval_k})
+    reset_peak()
+    t0 = time.perf_counter()
+    with wrapped(mmvts, "make_mmvts_train_step", make_step):
+        res = cli.main(argv)
+    secs, peak = time.perf_counter() - t0, peak_gib()
+    launches = read_counts({**train_k, **eval_k})
+    model = captured.pop("model")
+    del model.forward
+    eval_s = [s for training, s in fwd if not training]
+    steps, layers = len(step_s), model.enc_cfg.num_layers
+    expected = {**{n: layers * steps for n in train_k},
+                **{n: len(eval_s) * (1 if n == "fused_encoder_stack" else layers)
+                   for n in eval_k}}
+    hist = res["history"]
+    print(f"MMVTS {trunk} (run_finetune_multimodal: L={args.max_seq_length}, batch "
+          f"{args.per_device_train_batch_size}, {args.gradient_accumulation_steps} accumulation "
+          f"steps, float32, {args.cross_encoder_type}, {args.projector_type} projector, "
+          f"{args.predictor_type} predictor, {args.max_clips_per_window} clips a window): "
+          f"{steps} micro-batches and {len(eval_s)} eval batches in {secs:.1f} s, peak "
+          f"{peak:.2f} GiB, launches {launches}, history {hist}, eval {res.get('eval')}")
+    if not MM_STEPS[0] <= steps <= MM_STEPS[1] or not eval_s:
+        fail(f"MMVTS {trunk}: {steps} micro-batches (expected {MM_STEPS}), {len(eval_s)} eval "
+             "batches")
+    if device == "cuda" and launches != expected:
+        fail(f"MMVTS {trunk}: launches {launches}, expected {expected}")
+    if not all(math.isfinite(v) for h in hist for v in h.values() if v is not None):
+        fail(f"MMVTS {trunk}: non-finite loss in {hist}")
+    if not all(math.isfinite(v) for v in res["eval"].values()):
+        fail(f"MMVTS {trunk}: eval {res['eval']}")
+    bs = args.per_device_train_batch_size
+    # the steady rate leaves out the first call (the card's warm-up) and the
+    # first optimizer update (AdamW allocates its state), printed apart
+    first = updates.index(True)
+    steady = [t for i, t in enumerate(step_s) if i not in (0, first)]
+    row = {"launches": launches, "steps": steps, "eval_batches": len(eval_s), "run_s": secs,
+           "peak_gib": peak, "history": hist, "eval": res["eval"],
+           "windows_trained_per_s": bs * len(steady) / sum(steady),
+           "step_ms": [t * 1e3 for t in step_s], "first_update_step": first,
+           "windows_evaluated_per_s": steady_rate(eval_s, bs)}
+
+    # one training batch at dropout 0, the CLI's loss (list indices from one
+    # seed), against the einsum path
+    windows = featurized_windows(args, data, vis, audio)
+    keys = ("input_ids", "attention_mask", "clip_positions", "clip_mask", "clip_labels",
+            "vis_feats", "audio_feats")
+    stack = lambda ws: {k: torch.from_numpy(np.stack([w[k] for w in ws])).to(device)
+                        for k in keys}
+    batch = stack(windows["train"][:bs])
+    idx = mmvts_losses.build_topic_cl_list_indices(
+        batch["clip_labels"].cpu().numpy(), batch["clip_mask"].cpu().numpy(),
+        args.topic_cl_pos_k, args.topic_cl_neg_k, args.topic_cl_choice,
+        np.random.default_rng(0))
+    idx = {k: torch.from_numpy(v).to(device) for k, v in idx.items()}
+    loss_kw = dict(weight_label_zero=args.weight_label_zero_mm, do_modality_cl=True,
+                   align_pairs=cli.parse_align_pairs(args.align_pairs), cl_temp=args.cl_temp,
+                   do_topic_mm_cl=True, topic_cl_type="list", topic_cl_indices=idx)
+
+    def loss_of(m):
+        o = m(batch["input_ids"], batch["attention_mask"], batch["clip_positions"],
+              batch["clip_mask"], vis_feats=batch["vis_feats"], audio_feats=batch["audio_feats"])
+        return mmvts_losses.mmvts_total_loss(m.mm_cfg, o, batch["clip_labels"],
+                                             batch["clip_mask"], **loss_kw)[0]
+
+    enc0 = dataclasses.replace(model.enc_cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    mm0 = dataclasses.replace(model.mm_cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    build = lambda impl, gen: mmvts.MMVTSModel(dataclasses.replace(enc0, attention_impl=impl),
+                                               mm0, generator=gen)
+    row.update(gradient_check(f"MMVTS {trunk}", build, loss_of, device))
+    if model.mm_cfg.moe_impl == "dispatch" and "moe" in model.mm_cfg.cross_encoder_type:
+        with torch.device(device):
+            m0 = build("auto", torch.Generator(device=device).manual_seed(1)).train()
+        share = moe_share(m0, batch, loss_of, device)
+        share["share"] = share["moe_ms"] / share["step_ms"]
+        print(f"  MMVTS {trunk}: the capacity-dispatch MoE ({share['moe_layers']} layers, "
+              f"forward and backward alone) {share['moe_ms']:.3f} ms of a {share['step_ms']:.3f} "
+              f"ms step at B={bs}: {share['share']:.1%}")
+        row["moe"] = share
+        del m0
+
+    twin = einsum_twin(model, mmvts.MMVTSModel, model.mm_cfg)
+    model.eval()
+    got, want = [], []
+    with torch.no_grad():
+        for s in range(0, len(windows["validation"]), bs):
+            b = stack(windows["validation"][s:s + bs])
+            a = (b["input_ids"], b["attention_mask"], b["clip_positions"], b["clip_mask"])
+            kw = dict(vis_feats=b["vis_feats"], audio_feats=b["audio_feats"])
+            valid = b["clip_mask"].bool()
+            got.append(model(*a, **kw)["logits"].argmax(-1)[valid].cpu())
+            want.append(twin(*a, **kw)["logits"].argmax(-1)[valid].cpu())
+    agree = float((torch.cat(got) == torch.cat(want)).float().mean())
+    print(f"  MMVTS {trunk} eval argmax, kernel path against the einsum path (tanh GELU) on "
+          f"{len(torch.cat(got))} clips: {agree:.4f}; {row['windows_trained_per_s']:.2f} windows "
+          f"trained/s (micro-batches of {bs}: {[round(t, 1) for t in row['step_ms']]} ms, the "
+          f"first optimizer update at {first}), {row['windows_evaluated_per_s']:.2f} evaluated/s")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        fail(f"MMVTS {trunk}: eval argmax agreement {agree:.4f} < {MIN_ARGMAX_AGREEMENT}")
+    row["agreement"] = agree
+    del twin, model
+
+    if pretrain:
+        reset_counts(train_k)
+        t0 = time.perf_counter()
+        pre = cli.main([a for a in argv if a != "--do_eval"] + [
+            "--do_pretrain", "--output_dir", str(root / f"mmvts_{trunk}_pretrain")])
+        pre_launches = read_counts(train_k)
+        print(f"  MMVTS {trunk} --do_pretrain: {time.perf_counter() - t0:.1f} s, launches "
+              f"{pre_launches}, {pre['history']}")
+        if pre["history"][-1]["ts_loss"] != 0.0 or not math.isfinite(
+                pre["history"][-1]["total_loss"]):
+            fail(f"MMVTS pretraining: {pre['history']}")
+        if device == "cuda" and pre_launches != {n: layers * steps for n in train_k}:
+            fail(f"MMVTS pretraining launches {pre_launches}")
+        row["pretrain"] = {"launches": pre_launches, "history": pre["history"]}
+        for n, c in pre_launches.items():
+            row["launches"][n] += c
+    return row
+
+
+def featurized_windows(args, data, vis, audio) -> dict:
+    """The CLI's windows of each split (its tokenizer and featurisation,
+    here again)."""
+    from spokennlp_tpu_torch.cli import common
+    from spokennlp_tpu_torch.configs import WindowingConfig
+    from spokennlp_tpu_torch.data import corpora
+    from spokennlp_tpu_torch.projects.mmvts import featurize_video
+
+    tokenize_fn, special = common.resolve_tokenizer(args)
+    wcfg = WindowingConfig(max_seq_length=args.max_seq_length, cls_token_id=special["cls"],
+                           pad_token_id=special["pad"], bos_token_id=special["bos"])
+    out = {}
+    for split, examples in corpora.load_dataset_splits("clvts", data).items():
+        rows = []
+        lecture = {e["example_id"]: e["lecture"] for e in examples}
+        for ex in corpora.tokenize_examples(examples, tokenize_fn):
+            feats = {m: np.load(Path(d) / f"{lecture[ex['example_id']]}.npy")
+                     for m, d in (("vis", vis), ("audio", audio))}
+            rows += featurize_video(ex["sent_token_ids"], [1 if lab == 0 else 0 for lab in
+                                                           ex["labels"]], feats, wcfg,
+                                    ex["example_id"], args.max_clips_per_window)
+        out[split] = rows
+    return out
+
+
+def clip_path(device="cuda", cfg_kw=None, frames: int = CLIP_FRAMES) -> dict:
+    """Phase 35: encode_clip_frames with CLIP ViT-B/16 at random (seed 35;
+    224 px, patches of 16, 12 layers of 768, a 512-wide projection) over
+    ``frames`` random 240 x 320 frames in uneven clips (one without frames):
+    frames/s of the call (host preprocessing included; the second call, the
+    first warms up) and the tower's time for a batch of 32 (CUDA events);
+    the first CLIP_CPU_CLIPS clips' features against the same tower on the
+    CPU in float32 within F32_FWD_TOL, where the erf GELU planted in place of
+    QuickGELU must fail."""
+    import torch
+    import torch.nn.functional as F
+
+    from spokennlp_tpu_torch.models import clip_vit
+
+    cfg = clip_vit.CLIPViTConfig(**(cfg_kw or {}))
+    with torch.device(device):
+        tower = clip_vit.CLIPVisionTower(cfg, generator=torch.Generator(device=device).manual_seed(35))
+    rng = np.random.default_rng(35)
+    counts = rng.integers(1, 2 * frames // 40, size=40)
+    counts = (counts * frames / counts.sum()).astype(int)
+    counts[1] = 0
+    counts[-1] += frames - counts.sum()
+    images = rng.integers(0, 256, size=(frames, 240, 320, 3), dtype=np.uint8)
+    clip_vit.encode_clip_frames(tower, images[:64], [64])
+    t0 = synced(device)
+    feats = clip_vit.encode_clip_frames(tower, images, counts.tolist())
+    secs = synced(device) - t0
+    pixels = torch.from_numpy(clip_vit.preprocess_images(images[:32], cfg.image_size)).to(device)
+    with torch.no_grad():
+        tower_ms = (time_ms if torch.device(device).type == "cuda" else host_ms)(
+            lambda: tower(pixels), 5)
+    n_cpu = int(counts[:CLIP_CPU_CLIPS].sum())
+    cpu_tower = clip_vit.CLIPVisionTower(cfg)
+    cpu_tower.load_state_dict({k: v.cpu() for k, v in tower.state_dict().items()})
+    want = clip_vit.encode_clip_frames(cpu_tower, images[:n_cpu], counts[:CLIP_CPU_CLIPS].tolist())
+    with wrapped(clip_vit, "quick_gelu", lambda real: lambda x: F.gelu(x)):
+        bad = clip_vit.encode_clip_frames(tower, images[:n_cpu], counts[:CLIP_CPU_CLIPS].tolist())
+    T = lambda a: {"features": torch.from_numpy(a)}
+    reading = f32_gemm_readings(T(feats[:CLIP_CPU_CLIPS]), T(want))["features"]
+    planted = f32_gemm_readings(T(bad), T(want))["features"]
+    row = {"frames": frames, "clips": len(counts), "frames_per_s": frames / secs,
+           "tower_ms_32": tower_ms, "reading": reading, "planted": planted}
+    print(f"CLIP ViT-B/16 (encode_clip_frames, float32, batches of 32): {frames} frames of "
+          f"240 x 320 in {len(counts)} clips in {secs:.2f} s, {row['frames_per_s']:.1f} frames/s; "
+          f"the tower {tower_ms:.3f} ms a batch of 32; {n_cpu} frames against the CPU: max "
+          f"{reading[0]:.2e}, norm {reading[1]:.2e} (limits {F32_FWD_TOL}); planted erf GELU: "
+          f"{planted[0]:.2e}, {planted[1]:.2e}")
+    if feats.shape != (len(counts), cfg.projection_dim) or feats[1].any():
+        fail(f"CLIP features {feats.shape}, the empty clip {np.abs(feats[1]).max()}")
+    if f32_gemm_excess(reading, F32_FWD_TOL) > 1 or f32_gemm_excess(planted, F32_FWD_TOL) <= 1:
+        fail(f"CLIP features against the CPU: {reading} (planted {planted})")
+    del tower, cpu_tower
+    return row
+
+
+
 def main() -> int:
     import torch
 
@@ -7364,6 +7753,20 @@ def main() -> int:
             slice24[label]["phase_s"] = time.perf_counter() - t1
             print(f"phase {phase} ({label}): {slice24[label]['phase_s']:.1f} s")
             torch.cuda.empty_cache()
+
+        # MMVTS: the fusion stack on the dense and Longformer trunks, then
+        # CLIP's frame features
+        slice25 = {}
+        for phase, label, run in (
+                (33, "mmvts dense", lambda: mmvts_path(Path(tmp), "dense")),
+                (34, "mmvts longformer", lambda: mmvts_path(Path(tmp), "sliding_window",
+                                                            pretrain=False)),
+                (35, "clip", lambda: clip_path())):
+            t1 = time.perf_counter()
+            slice25[label] = run()
+            slice25[label]["phase_s"] = time.perf_counter() - t1
+            print(f"phase {phase} ({label}): {slice25[label]['phase_s']:.1f} s")
+            torch.cuda.empty_cache()
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
 
     served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
@@ -7387,8 +7790,10 @@ def main() -> int:
                     w8a8_long["bigbird"]["runs"]["w8a8 auto"]["launches"][
                         "bigbird_attention_block"],
                 **MODE_LAUNCHES}
-    # rows 10, 11 and kernel 3 also ran on the Track 3-4 and AID paths
-    for row in (*tracks.values(), slice24["ditto"]):
+    # rows 10, 11 and kernel 3 also ran on the Track 3-4, AID and MMVTS paths,
+    # rows 12, 7 and 2 on the MMVTS Longformer path
+    for row in (*tracks.values(), slice24["ditto"], slice25["mmvts dense"],
+                slice25["mmvts longformer"]):
         for name, n in row["launches"].items():
             launches[name] += n
     print(json.dumps({"serving": serving}, default=float))
@@ -7409,6 +7814,7 @@ def main() -> int:
     print(json.dumps({"w8a8_long": w8a8_long}, default=float))
     print(json.dumps({"mug tracks 3-4 and aid": tracks}, default=float, ensure_ascii=False))
     print(json.dumps({"ditto and sld": slice24}, default=float))
+    print(json.dumps({"mmvts and clip": slice25}, default=float))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's row in the type its main path computes in

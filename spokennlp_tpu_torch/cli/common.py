@@ -332,6 +332,20 @@ def load_pretrained_into(model: torch.nn.Module, params: Dict):
     model.load_state_dict(sd, strict=True)
 
 
+def merge_trunk(encoder: torch.nn.Module, trunk: Dict, keys=("encoder",)):
+    """Put a checkpoint's trunk into ``encoder`` leaf by leaf, as the JAX
+    CLIs deep-merge it into the fresh encoder subtree: the subtree under the
+    first of ``keys`` the tree holds (else the bare tree); leaves the
+    checkpoint lacks keep their initialisation, leaves the model lacks are
+    left out (Flax's apply ignores them)."""
+    from spokennlp_tpu_torch.models.convert import jax_params_to_state_dict
+
+    sub = next((trunk[k] for k in keys if k in trunk), trunk)
+    sd = encoder.state_dict()
+    sd.update({k: v for k, v in jax_params_to_state_dict(sub).items() if k in sd})
+    encoder.load_state_dict(sd, strict=True)
+
+
 def load_docs(args, tokenize_fn):
     from spokennlp_tpu_torch.data import corpora
 

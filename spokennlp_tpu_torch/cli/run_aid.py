@@ -80,20 +80,6 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def merge_trunk(model, trunk):
-    """Put a checkpoint's trunk (a tree with ``"encoder"`` at its top, or a
-    bare trunk) into ``model.encoder``, leaf by leaf, as JAX deep-merges it
-    into the fresh encoder subtree: leaves the checkpoint lacks keep their
-    initialisation, and leaves the model lacks are left out (Flax's apply
-    ignores them)."""
-    from spokennlp_tpu_torch.models.convert import jax_params_to_state_dict
-
-    enc_sub = trunk["encoder"] if "encoder" in trunk else trunk
-    sd = model.encoder.state_dict()
-    sd.update({k: v for k, v in jax_params_to_state_dict(enc_sub).items() if k in sd})
-    model.encoder.load_state_dict(sd, strict=True)
-
-
 def main(argv=None):
     args = make_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -158,7 +144,7 @@ def main(argv=None):
         enc_cfg = dc.replace(loaded_cfg, add_pooler=args.classifier_input == "cls")
     model = AidModel(enc_cfg, cfg, generator=torch.Generator().manual_seed(args.seed))
     if trunk is not None:
-        merge_trunk(model, trunk)
+        common.merge_trunk(model.encoder, trunk)
     model = model.to(device)
 
     optimizer = torch.optim.AdamW(model.parameters(), lr=args.learning_rate,

@@ -1,4 +1,5 @@
-"""Data-parallel dry run on the CPU: ``dryrun_multichip(n)``.
+"""Multi-process dry runs on the CPU: ``dryrun_multichip(n)`` (data
+parallel) and ``dryrun_moe_ep(n)`` (the expert-sharded MoE).
 
 Counterpart of ``__graft_entry__.dryrun_multichip``: one full train step of
 the topic-segmentation model sharded over ``n`` data-parallel ranks (here
@@ -7,10 +8,24 @@ the loss within 5e-4 relative and the gradient norm within 5e-3 relative
 (JAX's own limits), at dropout 0, first for the dense model and then for the
 sliding-window (Longformer) one. Each rank holds 2 of the 2n windows, with
 another number of labelled sentences in each, so a loss averaged per rank
-would not reproduce the step. Tensor parallel and the MoE dispatch are not
-part of the port's dry run (parallel/mesh.py).
+would not reproduce the step. Tensor parallel is not part of the port's
+dry run (parallel/mesh.py).
 
-    python -m spokennlp_tpu_torch.dryrun 2
+``dryrun_moe_ep(n)`` is JAX's expert-parallel check
+(tests/test_moe_dispatch.py ``test_dispatch_expert_sharded_ep``) over ``n``
+gloo processes: the MoE layer in ``dispatch`` mode (8 experts, top 2,
+capacity factor 2) with its ``w_in`` / ``w_out`` split over the ranks by
+JAX's expert rule (``parallel/mesh.py expert_range``) and the gate and the
+dispatch plan replicated; each rank computes its experts' capacity slots,
+and the partial outputs are summed over the ranks (an all-reduce whose
+backward is the identity: every rank's loss reads the whole sum). The
+output must match the single-process layer's within JAX's limits (atol
+1e-5, rtol 1e-4), the balance loss within 1e-4 relative, and the gradients
+of a loss over both (x's and the gate's summed over the ranks, each rank's
+experts') within the output's limits.
+
+    python -m spokennlp_tpu_torch.dryrun 2          # both
+    python -m spokennlp_tpu_torch.dryrun 2 moe_ep   # the MoE alone
 
 ``run_workers`` starts the processes (``python -c``, one a rank, joined by
 ``torch.distributed`` over ``tcp://localhost:<free port>``) and returns
@@ -30,9 +45,11 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 LOSS_RTOL, GRAD_NORM_RTOL = 5e-4, 5e-3
 L, K = 64, 8
+MOE_TOL, MOE_AUX_RTOL = (1e-5, 1e-4), 1e-4  # (atol, rtol) of y and the gradients
 
 
 def free_port() -> int:
@@ -129,8 +146,6 @@ def train_step_metrics(trunk: str, batch: Dict[str, np.ndarray], world: int = 1,
     """One step of a fresh model (weights from seed 0) on rank ``rank``'s rows
     of ``batch``: the step's metrics (the global batch's inside a process
     group)."""
-    import torch
-
     from spokennlp_tpu_torch.configs import TrainConfig
     from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
     from spokennlp_tpu_torch.parallel.mesh import shard_batch
@@ -177,9 +192,111 @@ def dryrun_multichip(n_devices: int = 2, timeout: float = 300) -> Dict:
     return {"single": single, "sharded": sharded}
 
 
+def _moe_setup():
+    """The MoE layer (weights from seed 0), x, its mask (the second row
+    padded after 12 tokens) and the loss's probe, as JAX's EP test sizes
+    them: B=2, L=16, H=32, 8 experts of width 64, top 2."""
+    from spokennlp_tpu_torch.models.multimodal import MoELayer, MultimodalConfig
+
+    cfg = MultimodalConfig(hidden_size=32, intermediate_size=64, hidden_dropout=0.0,
+                           attention_dropout=0.0, moe_num_experts=8, moe_top_k=2,
+                           moe_residual=False, moe_impl="dispatch", moe_capacity_factor=2.0)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(2, 16, 32)).astype(np.float32)).requires_grad_()
+    mask = torch.ones((2, 16), dtype=torch.int32)
+    mask[1, 12:] = 0
+    probe = torch.from_numpy(rng.normal(size=(2, 16, 32)).astype(np.float32))
+    return MoELayer(cfg, 32, generator=torch.Generator().manual_seed(0)), x, mask, probe
+
+
+class _SumRanks(torch.autograd.Function):
+    """An all-reduce sum whose backward is the identity (every rank's loss
+    reads the whole sum)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        total = y.detach().clone()
+        torch.distributed.all_reduce(total)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _moe_result(layer, x, y, aux) -> Dict:
+    """y, aux and the gradients of sum(y * probe) + aux (already run
+    backward), as JSON lists."""
+    as_list = lambda t: t.detach().numpy().tolist()
+    return {"y": as_list(y), "aux": float(aux.detach()), "dx": as_list(x.grad),
+            "dgate_kernel": as_list(layer.gate.kernel.grad),
+            "dgate_bias": as_list(layer.gate.bias.grad),
+            "dw_in": as_list(layer.w_in.grad), "dw_out": as_list(layer.w_out.grad)}
+
+
+def moe_single() -> Dict:
+    """The single-process layer: its forward, then the loss's gradients."""
+    layer, x, mask, probe = _moe_setup()
+    y, aux = layer(x, mask)
+    ((y * probe).sum() + aux).backward()
+    return _moe_result(layer, x, y, aux)
+
+
+def _moe_ep_worker(payload: Dict) -> Dict:
+    """One rank of the expert-sharded layer: the gate and the dispatch plan
+    replicated, this rank's experts' slots, the partial outputs summed over
+    the ranks; x's and the gate's gradients summed over the ranks, the
+    experts' gathered in rank order. The balance loss enters the loss on
+    rank 0 only, so that the summed gradients count it once."""
+    from spokennlp_tpu_torch.models import multimodal as mm
+    from spokennlp_tpu_torch.parallel import dist
+    from spokennlp_tpu_torch.parallel.mesh import expert_range
+
+    layer, x, mask, probe = _moe_setup()
+    cfg = layer.cfg
+    world, rank = dist.world_size(), dist.rank()
+    experts = expert_range(rank, world, cfg.moe_num_experts)
+    B, L, H = x.shape
+    topi, gates_k, dense = mm.route(layer.gate(x.float()), cfg.moe_top_k, cfg.moe_num_experts)
+    slot, gate, C = mm.dispatch_plan(mask, topi, gates_k, cfg)
+    part = mm.dispatch_experts(x.reshape(B * L, H).float(), slot, gate, C,
+                               layer.w_in[experts.start:experts.stop],
+                               layer.w_out[experts.start:experts.stop], experts.start)
+    y = _SumRanks.apply(part).reshape(B, L, H)
+    aux = mm.balance_loss(dense, mask, cfg.moe_loss_weight)
+    ((y * probe).sum() + (aux if rank == 0 else 0.0)).backward()
+    for p in (x, layer.gate.kernel, layer.gate.bias):
+        torch.distributed.all_reduce(p.grad)
+    for p in (layer.w_in, layer.w_out):
+        p.grad = torch.cat(dist.all_gather_tensors(p.grad[experts.start:experts.stop]))
+    return _moe_result(layer, x, y, aux)
+
+
+def dryrun_moe_ep(n_ranks: int = 2, timeout: float = 300) -> Dict:
+    """The expert-sharded MoE over ``n_ranks`` gloo processes against the
+    single-process layer; raises outside the limits. Returns both."""
+    single = moe_single()
+    sharded = run_workers(n_ranks, "spokennlp_tpu_torch.dryrun:_moe_ep_worker", {},
+                          timeout=timeout, threads=1)
+    atol, rtol = MOE_TOL
+    for key in ("y", "dx", "dgate_kernel", "dgate_bias", "dw_in", "dw_out"):
+        got, want = np.asarray(sharded[key]), np.asarray(single[key])
+        if not np.allclose(got, want, atol=atol, rtol=rtol):
+            raise AssertionError(f"dryrun_moe_ep: {key} differs by {np.abs(got - want).max()}")
+    if abs(sharded["aux"] - single["aux"]) > MOE_AUX_RTOL * abs(single["aux"]):
+        raise AssertionError(f"dryrun_moe_ep: aux {sharded['aux']} != {single['aux']}")
+    print(f"dryrun_moe_ep ok: {n_ranks} gloo processes, 8 experts split "
+          f"{8 // n_ranks} a rank; y, aux {sharded['aux']:.6e} and the gradients of x, the gate "
+          f"and the experts match the single-process layer")
+    return {"single": single, "sharded": sharded}
+
+
 def main(argv: Optional[Sequence[str]] = None):
     args = list(sys.argv[1:] if argv is None else argv)
-    dryrun_multichip(int(args[0]) if args else 2)
+    n = int(args[0]) if args else 2
+    if "moe_ep" not in args[1:]:
+        dryrun_multichip(n)
+    dryrun_moe_ep(n)
 
 
 if __name__ == "__main__":

@@ -88,7 +88,7 @@ def params_from_state_dict(state_dict: Mapping) -> dict:
     """A flat ``state_dict`` (dotted names, as ``models/convert.py`` makes
     them) back into the nested Flax tree of numpy arrays (convolution
     kernels back in Flax's layout, ``convert.CONV_KERNEL``)."""
-    from spokennlp_tpu_torch.models.convert import CONV_KERNEL
+    from spokennlp_tpu_torch.models.convert import CONV_KERNEL, conv_to_flax
 
     tree: dict = {}
     for name, value in state_dict.items():
@@ -97,8 +97,8 @@ def params_from_state_dict(state_dict: Mapping) -> dict:
         for part in path:
             node = node.setdefault(part, {})
         value = _as_numpy(value)
-        if CONV_KERNEL.search(name) and value.ndim == 3:
-            value = np.ascontiguousarray(value.transpose(2, 1, 0))
+        if CONV_KERNEL.search(name) and value.ndim in (3, 4):
+            value = conv_to_flax(value)
         node[leaf] = value
     return tree
 

@@ -8,6 +8,9 @@ block of rows, in rank order, and keeps those tensors whole. The
 ``model`` axis (tensor parallel) is a later slice of the port: the fused
 kernels take whole weights and fuse the out projection with the residual
 and the LayerNorm, so a head split would need an all-reduce inside them.
+Its expert rule is here: JAX shards the leading E axis of every MoE expert
+stack over the ``model`` axis (``is_expert_param``, ``expert_range``), which
+``dryrun.dryrun_moe_ep`` runs over a process group.
 """
 
 from __future__ import annotations
@@ -57,3 +60,21 @@ def rank_rows(n: int, rank: int, world_size: int) -> Tuple[int, int]:
     trainer's eval cuts the block at ``n``."""
     per = -(-n // world_size)
     return rank * per, (rank + 1) * per
+
+
+def is_expert_param(name: str) -> bool:
+    """JAX's expert rule (``spokennlp_tpu/parallel/mesh.py`` ``param_partition_spec``):
+    ``w_in`` / ``w_out`` under a module whose name holds "moe" is an (E, ...)
+    expert stack whose leading axis shards over the ``model`` axis."""
+    parts = name.split(".")
+    return parts[-1] in ("w_in", "w_out") and any("moe" in p for p in parts[:-1])
+
+
+def expert_range(rank: int, world_size: int, num_experts: int) -> range:
+    """The experts rank ``rank`` holds of ``num_experts``: its contiguous
+    block of E / n in rank order, as a NamedSharding of the leading axis
+    over ``world_size`` devices places them. E must divide by n."""
+    if num_experts % world_size:
+        raise ValueError(f"{num_experts} experts do not divide over {world_size} ranks")
+    per = num_experts // world_size
+    return range(rank * per, (rank + 1) * per)

@@ -584,8 +584,8 @@ def test_ditto_and_sld_host_copies_match_jax(tmp_path):
     assert t_ditto.spearman(a[:, 0], b[:, 0]) == j_ditto.spearman(a[:, 0], b[:, 0])
 
 
-# the Longformer, BigBird, MUG, Track 3-4, AID, Ditto and SLD slices' modules,
-# which the package walk must reach
+# the Longformer, BigBird, MUG, Track 3-4, AID, Ditto, SLD and MMVTS slices'
+# modules, which the package walk must reach
 LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "ops.sliding_attention", "ops.cuda.sliding_block", "ops.cuda.train_sliding", "eval.analysis",
     "ops.bigbird_attention", "ops.cuda.bigbird_block", "ops.cuda.train_bigbird",
@@ -598,7 +598,9 @@ LONGFORMER_MODULES = [f"spokennlp_tpu_torch.{m}" for m in (
     "models.seq2seq", "models.palm", "cli.run_title_generation", "projects.swab",
     "eval.asr_metrics", "projects.senteval_classifier", "projects.ditto", "cli.run_ditto",
     "models.gpt2", "models.generation", "projects.sld", "cli.run_sld", "models.wavlm",
-    "projects.sld_pipeline", "cli.run_sld_pipeline")]
+    "projects.sld_pipeline", "cli.run_sld_pipeline", "eval.video_metrics",
+    "objectives.mmvts_losses", "models.multimodal", "models.clip_vit", "projects.mmvts",
+    "cli.run_finetune_multimodal", "dryrun")]
 
 
 # the card scripts: chip_smoke.py and every measuring script in turns

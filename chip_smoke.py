@@ -281,10 +281,10 @@
    6's run) and float32 (both runs, 2 steps each): rows 10 and 11's forwards
    twice a layer a view a step, their backwards once; windows trained/s and
    peak memory with and without; one composite step's loss and gradients at
-   dropout 0.1 with and without checkpointing bit for bit (the plain step
-   run twice: what moves from run to run, PyTorch's CUDA embedding backward
-   of token_type_embeddings, is named and held to the training kernels'
-   card limit instead).
+   dropout 0.1 with and without checkpointing bit for bit, every entry (the
+   plain step run twice must repeat itself bit for bit: the embedding
+   tables' backward sums in an order the data fixes, models/encoder.py
+   ``table_grad``; nothing may move from run to run).
 23. The same for the float32 Longformer recipe (after phase 10): 2 optimizer
    steps of 2 x 4 micro-batches with --gradient_checkpointing against the
    recipe's float32 run, and one micro-batch's gradients bit for bit.
@@ -300,8 +300,8 @@
    features of every layer against the einsum path (with the kernels' tanh
    GELU) within F32_FWD_TOL.
 26. The data-parallel train step inside a process group of world size 1
-   over NCCL against the step without a group (run twice): metrics and
-   gradients bit for bit where the plain step repeats itself; run_finetune
+   over NCCL against the step without a group (run twice, repeating itself
+   bit for bit): metrics and every gradient bit for bit; run_finetune
    for 3 steps at batch 32 (bf16) with and without the group: launches and
    windows trained/s; the run without writes --report_to tensorboard, read
    back with TensorBoard's reader.
@@ -354,6 +354,24 @@
    32; three clips against the CPU within F32_FWD_TOL, with the erf GELU
    planted in place of QuickGELU failing it. The kernels line's launches of
    rows 2, 3, 7, 10, 11 and 12 include phases 33-34's.
+36-39. The multi-device paths, two ranks on the one card over gloo
+   (dryrun.run_workers: NCCL refuses two ranks on one GPU, so the
+   collectives cross through the host) against one rank on the same global
+   batch (two_rank_phases): 36 SLD data parallel at GPT-2 small (8 x 1024,
+   float32, dropout and time masking on); 37 MMVTS dense data parallel
+   (BERT-base trunk on auto, the reference's fusion widths, the modality
+   CL, the matrix topic CL and ma_moe's capacity dispatch over both ranks'
+   tokens); 38 run_finetune's step at BERT-base on auto with
+   --model_parallel_size 2 (rows 10 and 11 on the weights gathered whole,
+   eval on kernel 3); 39 MMVTS on Longformer-base over 2048 tokens with
+   --model_parallel_size 2 (the experts and heads sharded; rows 12 and 11,
+   kernels 7 and 2 on gathered weights). Each: the loss within dryrun.LOSS_RTOL, the gradient
+   norm within dryrun.GRAD_NORM_RTOL, the gradients' cosine >=
+   TWO_RANK_MIN_COSINE, the time masks and a greedy decode (36) or the eval
+   argmax equal; rows trained/s beside the one-rank run's; the two-rank
+   launches (counted from 0 on rank 0) join the kernels line's. Before
+   them, kernel 3 (float32) at MMVTS's eval batch of 2 and at 1 against the
+   chain of kernels 1 and 2 (bit for bit, both timed).
 
 Exits non-zero, and prints no result, without a card, outside the repo, or
 when any phase fails.
@@ -5645,33 +5663,20 @@ def differing(a: dict, b: dict) -> list:
     return [n for n in a if n not in b or not torch.equal(a[n], b[n])]
 
 
-# PyTorch's CUDA embedding backward sums the gradient of a table whose ids
-# repeat many times (token_type_embeddings: 2 rows) in an order that can
-# change from run to run, so the plain step need not repeat itself bit for
-# bit. A step's entries are held bit for bit where the plain step repeats
-# itself, and the entries that moved from run to run are named and held to
-# the training kernels' card limit instead.
-def same_bits_but_moved(label: str, plain: dict, again: dict, other: dict, tol: float) -> dict:
-    """``other`` against ``plain`` bit for bit in every entry that ``again``
-    (the plain step once more) repeats; the entries that moved from run to
-    run within ``tol`` of their max |ref|."""
-    moved = differing(plain, again)
-    bad = [n for n in differing(plain, other) if n not in moved]
-    rel = lambda n: ((other[n].float() - plain[n].float()).abs().max()
-                     / plain[n].float().abs().max().clamp_min(1e-30)).item()
-    worst = max((rel(n) for n in moved), default=0.0)
-    print(f"{label}: {len(plain) - len(moved)} of {len(plain)} entries (the loss and the "
-          f"gradients) repeat bit for bit in the plain step and equal it bit for bit: "
-          f"{not bad}; moved from run to run: {moved}"
-          + (f" (PyTorch's CUDA embedding backward), within {worst:.3e} of max |ref| (limit "
-             f"{tol})" if moved else ""))
+def same_step_bits(label: str, plain: dict, again: dict, other: dict) -> dict:
+    """The plain step run twice (``plain``, ``again``) repeats itself bit for
+    bit in every entry, the loss and every gradient (the embedding tables'
+    backward sums in an order the data fixes: models/encoder.py
+    ``table_grad``), and ``other`` equals it bit for bit; fails otherwise."""
+    moved, bad = differing(plain, again), differing(plain, other)
+    print(f"{label}: the plain step repeats itself bit for bit in all {len(plain)} entries (the "
+          f"loss and the gradients): {not moved}; equal to it bit for bit: {not bad}")
+    if moved:
+        fail(f"{label}: the plain step does not repeat itself: {moved[:6]} moved from run to run "
+             f"({len(moved)} in all)")
     if bad:
         fail(f"{label}: {bad[:6]} differ from the plain step's ({len(bad)} in all)")
-    if worst > tol:
-        fail(f"{label}: the entries that moved from run to run {worst:.3e} from the plain "
-             f"step's, limit {tol}")
-    return {"equal_bits": len(plain) - len(moved), "entries": len(plain), "moved": moved,
-            "moved_max_rel": worst}
+    return {"equal_bits": len(plain), "entries": len(plain)}
 
 
 def step_inputs(argv, batch_size, device):
@@ -5696,7 +5701,7 @@ def step_inputs(argv, batch_size, device):
 def remat_grads(argv, batch_size, device="cuda") -> dict:
     """One composite step's loss and gradients at the recipe's dropout (0.1)
     with and without --gradient_checkpointing, the same weights, batch and
-    generator: bit for bit (same_bits_but_moved; the plain step runs twice)."""
+    generator: bit for bit (same_step_bits; the plain step runs twice)."""
     import dataclasses
 
     import torch
@@ -5709,10 +5714,9 @@ def remat_grads(argv, batch_size, device="cuda") -> dict:
         model = build_model(args, dataclasses.replace(enc_cfg, remat=remat), task_cfg)
         runs[name] = step_gradients(model, batch, task_cfg, args.seed, torch.device(device))
         del model
-    tol = F32_TOL["attention_train_bwd"] if args.dtype == "float32" else TRAIN_TOL["bfloat16"]
-    return same_bits_but_moved(
+    return same_step_bits(
         f"checkpointed step, {args.attention_type} {args.dtype} at batch {batch_size}",
-        runs["plain"], runs["plain again"], runs["checkpointed"], tol)
+        runs["plain"], runs["plain again"], runs["checkpointed"])
 
 
 def remat_phase(train_data: str, root: Path, bf16_plain: dict, device="cuda") -> dict:
@@ -5966,7 +5970,7 @@ def nccl_step_path(train_data: str, root: Path, device="cuda") -> dict:
     size 1 over NCCL (tcp://localhost: global denominators, CSSL through the
     gather, one all-reduce of the gradients) against the step without a
     group on the same batch: metrics and the gradients handed to the
-    optimizer bit for bit (same_bits_but_moved; the plain step runs twice);
+    optimizer bit for bit (same_step_bits; the plain step runs twice);
     then run_finetune for 3 steps at batch 32 (bf16) with and without the
     group: the training kernels' launches and the windows trained/s of
     each."""
@@ -6006,8 +6010,8 @@ def nccl_step_path(train_data: str, root: Path, device="cuda") -> dict:
         group_train = cli_run("nccl_group")
     finally:
         dist.destroy()
-    row = same_bits_but_moved(f"the world-size-1 {'NCCL' if device == 'cuda' else 'gloo'} step",
-                              plain, again, group, TRAIN_TOL["bfloat16"])
+    row = same_step_bits(f"the world-size-1 {'NCCL' if device == 'cuda' else 'gloo'} step",
+                         plain, again, group)
     rate = lambda t: B * (len(t) - 1) / (t[-1]["time"] - t[0]["time"])
     row.update(plain_windows_per_s=rate(plain_train), group_windows_per_s=rate(group_train))
     print(f"run_finetune, 3 steps at batch {B} bf16: {row['group_windows_per_s']:.2f} windows "
@@ -7562,6 +7566,239 @@ def clip_path(device="cuda", cfg_kw=None, frames: int = CLIP_FRAMES) -> dict:
 
 
 
+# phases 36-39: two ranks on the one card over gloo (NCCL refuses two ranks
+# on one GPU; gloo crosses through the host, so the rates are not those of
+# two cards), each against one rank at full width on the same global batch
+TWO_RANK_SLD = dict(gpt_vocab=50257, speech_vocab=2000, block=1024, text=256, hidden_size=768,
+                    num_layers=12, num_heads=12, intermediate_size=3072, rows=8, seed=36,
+                    decode=8, decode_new=16, dropout=0.1, time_masking=0.3, rate_steps=1)
+# the dense MMVTS trunk at BERT-base, the CLI's defaults (512 tokens, 64
+# clips, batch 2, capacity 1.25) and the reference's fusion widths; the
+# trunk's probability dropout 0: the training kernels key their masks on the
+# rows a rank holds (dist.rank_seed), the einsum path's dropout is drawn over
+# the global batch
+TWO_RANK_MMVTS = dict(vocab=30522, hidden_size=768, num_layers=12, num_heads=12,
+                      intermediate_size=3072, L=512, K=64, mm_hidden=768, vis=512, audio=768,
+                      heads=8, mm_inter=1024, experts=4, capacity=1.25, expert_scale=1.0, rows=2,
+                      seed=37, impl="auto", dropout=0.1, trunk_attention_dropout=0.0, mp=1,
+                      rate_steps=1)
+# phase 39: the same fusion widths on the Longformer-base trunk over 2048
+# tokens (window 512; rows 12 and 11 in training, kernels 7 and 2 in eval)
+TWO_RANK_MMVTS_LF = {**TWO_RANK_MMVTS, "L": 2048, "window": 512, "seed": 39}
+TWO_RANK_MIN_COSINE = 0.9999
+TWO_RANK_FT = {}  # train_argv's widths for phase 38 (BERT-base: its defaults)
+
+
+def stack_small_batches(device) -> dict:
+    """Kernel 3 (float32, as MMVTS evaluates) over LAYERS layers of BERT-base
+    at L=512 and batches of 2 (MMVTS's eval batch) and 1, against the chain
+    of kernels 1 and 2 on the same inputs (bit for bit, then both timed in
+    turns: CUDA events, a mean of 5 after a warm-up)."""
+    import torch
+
+    from spokennlp_tpu_torch.ops.cuda.attention_block import fused_attention_block
+    from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+    from spokennlp_tpu_torch.ops.cuda.stack_block import fused_encoder_stack
+
+    g = torch.Generator(device=device).manual_seed(38)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=device) * scale
+    HN, NL = NH * HD, LAYERS
+    p = [randn(NL, H, 3, NH, HD, scale=H**-0.5), randn(NL, 3, NH, HD, scale=0.02),
+         randn(NL, NH, HD, H, scale=HN**-0.5), randn(NL, H, scale=0.02),
+         1 + randn(NL, H, scale=0.1), randn(NL, H, scale=0.1), randn(NL, H, I, scale=H**-0.5),
+         randn(NL, I, scale=0.02), randn(NL, I, H, scale=I**-0.5), randn(NL, H, scale=0.02),
+         1 + randn(NL, H, scale=0.1), randn(NL, H, scale=0.1)]
+    out = {}
+    for b in (2, 1):
+        hidden = randn(b, L, H)
+        seg = torch.ones((b, L), dtype=torch.int32, device=device)
+        seg[-1, L - 100:] = 0
+        kernel = lambda: fused_encoder_stack(hidden, seg, *p, sm_scale=HD**-0.5, quantized=False)
+
+        def chain():
+            h = hidden
+            for l in range(NL):
+                h = fused_attention_block(h, seg, *(t[l] for t in p[:4]), sm_scale=HD**-0.5,
+                                          ln_scale=p[4][l], ln_bias=p[5][l], quantized=False)
+                h = fused_mlp_block(h.reshape(b * L, H), *(t[l] for t in p[6:]),
+                                    activation="gelu", eps=1e-12,
+                                    quantized=False).reshape(b, L, H)
+            return h
+
+        valid = seg > 0
+        if not torch.equal(kernel()[valid], chain()[valid]):
+            fail(f"kernel 3 at batch {b}: differs from the chain of kernels 1 and 2")
+        times = timed_pair(kernel, chain, reps=5)
+        out[b] = {"ms": times["ms"], "chain_ms": times["plain_ms"]}
+        print(f"kernel 3 float32, {NL} layers of BERT-base at L={L}, batch {b}: "
+              f"{times['ms']:.3f} ms, the chain of kernels 1 and 2 {times['plain_ms']:.3f} ms "
+              f"(bit for bit equal)")
+    return out
+
+
+def two_rank_finetune(argv, device, grads_path, rate_steps: int, batch_size: int) -> dict:
+    """Phase 38's step: run_finetune's train step (dp_step) on the first
+    batch of ``batch_size`` at ``argv``'s widths, the model on the current mesh
+    (cli/common.py ``place_on_mesh`` with ``--model_parallel_size``), its
+    metrics, the whole gradients (saved to ``grads_path`` by rank 0), the
+    updated model's argmax on the batch's labelled tokens (eval: kernel 3 at
+    B <= 32), and windows trained/s over ``rate_steps`` more steps."""
+    import torch
+
+    from spokennlp_tpu_torch import dryrun
+    from spokennlp_tpu_torch.cli import common
+    from spokennlp_tpu_torch.cli.run_inference import build_model
+    from spokennlp_tpu_torch.configs import TrainConfig
+    from spokennlp_tpu_torch.train import optim
+    from spokennlp_tpu_torch.train.train_step import make_topic_seg_train_step
+
+    args, enc_cfg, task_cfg, batch = step_inputs(argv, batch_size, device)
+    model = common.place_on_mesh(build_model(args, enc_cfg, task_cfg), args.model_parallel_size)
+    opt = optim.make_optimizer(model, TrainConfig(gradient_accumulation_steps=1), 10)
+    seen, real = {}, opt.step
+
+    def update(grads):
+        seen["grads"] = [g.clone() for g in grads]
+        return real(grads)
+
+    opt.step = update
+    step = make_topic_seg_train_step(model, task_cfg, opt, seed=args.seed)
+    metrics = {k: float(v) for k, v in step(batch).items()}
+    dryrun._flat_grads(opt.params, seen["grads"], grads_path)
+    model.eval()
+    with torch.no_grad():
+        out = model(batch["input_ids"][:, 0], attention_mask=batch["attention_mask"][:, 0],
+                    token_type_ids=batch["token_type_ids"][:, 0])
+    live = batch["labels"][:, 0] != -100
+    argmax = torch.argmax(out["token_logits"], -1)[live].cpu().tolist()
+    return {**metrics, "argmax": argmax,
+            "rows_per_s": dryrun._rows_per_s(step, batch, batch_size, rate_steps, device)}
+
+
+def two_rank_worker(payload: dict) -> dict:
+    """What each of the two ranks of phases 36-39 runs (dryrun.run_workers,
+    gloo, both on cuda:0): SLD data parallel (dryrun.sld_step), MMVTS data
+    parallel (dryrun.mmvts_step), run_finetune's step at
+    --model_parallel_size 2 (two_rank_finetune) and MMVTS at mp 2 (the
+    experts and heads sharded); each phase's launches counted from 0 just
+    before it, and its seconds."""
+    import torch
+
+    from spokennlp_tpu_torch import dryrun
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dense, longformer = ({**k[0], **k[1]} for k in (mmvts_wrappers("dense"),
+                                                    mmvts_wrappers("sliding_window")))
+    device = payload["device"]
+    runs = {
+        "sld": lambda: dryrun.sld_step(payload["sld"]),
+        "mmvts dp": lambda: dryrun.mmvts_step(payload["mmvts"]),
+        "finetune mp": lambda: two_rank_finetune(payload["finetune"], device,
+                                                 payload["finetune_grads"], 1, payload["batch"]),
+        "mmvts mp": lambda: dryrun.mmvts_step(payload["mmvts mp"]),
+    }
+    out = {}
+    for name, run in runs.items():
+        wrappers = longformer if name == "mmvts mp" else dense
+        reset_counts(wrappers)
+        t0 = synced(device)
+        out[name] = run()
+        synced(device)
+        out[name].update(launches=read_counts(wrappers), phase_s=time.perf_counter() - t0)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def grad_cosine(a, b) -> float:
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def two_rank_phases(root: Path, train_data: str, device="cuda") -> dict:
+    """Phases 36-39: two ranks on the one card over gloo against one rank on
+    the same global batch, each at full width: SLD at GPT-2 small (8 x 1024,
+    float32: the loss within dryrun.LOSS_RTOL, the gradient norm within
+    dryrun.GRAD_NORM_RTOL, the gradients' cosine >= TWO_RANK_MIN_COSINE, the
+    time masks and 8 prompts' greedy decode equal); MMVTS dense data
+    parallel (the modality CL, the matrix topic CL, ma_moe's dispatch over
+    both ranks' tokens: the same, and the eval argmax equal); run_finetune's
+    step at BERT-base on auto with --model_parallel_size 2 (rows 10 and 11
+    on the weights gathered whole, eval on kernel 3: the same); MMVTS on the
+    Longformer-base trunk at mp 2 (the experts and heads sharded; rows 12
+    and 11, kernels 7 and 2 on gathered weights). Prints each phase's rows
+    trained/s beside the one-rank run's and the launches of the two-rank
+    runs."""
+    import time
+
+    import torch
+
+    from spokennlp_tpu_torch import dryrun
+
+    grads = {k: str(root / f"two_rank_{k.replace(' ', '_')}.pt")
+             for k in ("sld", "mmvts dp", "finetune mp", "mmvts mp", "one")}
+    sld = {**TWO_RANK_SLD, "device": device}
+    mm = {**TWO_RANK_MMVTS, "device": device}
+    lf = {**TWO_RANK_MMVTS_LF, "device": device}
+    ft = train_argv(train_data, str(root / "two_rank_ft"), device=device, **TWO_RANK_FT)
+    payload = {"device": device, "batch": B, "sld": {**sld, "grads_path": grads["sld"]},
+               "mmvts": {**mm, "grads_path": grads["mmvts dp"]},
+               "finetune": ft + ["--model_parallel_size", "2"],
+               "finetune_grads": grads["finetune mp"],
+               "mmvts mp": {**lf, "mp": 2, "grads_path": grads["mmvts mp"]}}
+    t0 = time.perf_counter()
+    one = {}
+    for name, run in (("sld", lambda g: dryrun.sld_step({**sld, "grads_path": g})),
+                      ("mmvts", lambda g: dryrun.mmvts_step({**mm, "grads_path": g})),
+                      ("finetune", lambda g: two_rank_finetune(ft, device, g, 1, B)),
+                      ("mmvts lf", lambda g: dryrun.mmvts_step({**lf, "grads_path": g}))):
+        one[name] = run(grads["one"])
+        one[name]["grads"] = torch.load(grads["one"])
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = dryrun.run_workers(2, "chip_smoke:two_rank_worker", payload, timeout=600,
+                             device=device)
+    two_s = time.perf_counter() - t0
+    rows = {}
+    for phase, name, ref, what in ((36, "sld", "sld", "sequences"), (37, "mmvts dp", "mmvts",
+                                                                       "windows"),
+                                   (38, "finetune mp", "finetune", "windows"),
+                                   (39, "mmvts mp", "mmvts lf", "windows")):
+        got, want = two[name], one[ref]
+        try:
+            dryrun.check_step(f"phase {phase} ({name})", want, got)
+        except AssertionError as e:
+            fail(str(e))
+        cos = grad_cosine(torch.load(grads[name]), want["grads"])
+        same = {k: got[k] == want[k] for k in ("time_mask", "tokens", "argmax") if k in want}
+        rows[name] = {"loss": got["loss"], "one_rank_loss": want["loss"],
+                      "grad_norm": got["grad_norm"], "one_rank_grad_norm": want["grad_norm"],
+                      "grad_cosine": cos, "equal": same, "launches": got["launches"],
+                      "rows_per_s": got["rows_per_s"], "one_rank_rows_per_s": want["rows_per_s"],
+                      "phase_s": got["phase_s"]}
+        print(f"phase {phase} ({name}, two ranks on one card over gloo): loss {got['loss']:.6f} "
+              f"(one rank {want['loss']:.6f}), grad_norm {got['grad_norm']:.6f} "
+              f"({want['grad_norm']:.6f}), gradient cosine {cos:.8f}, equal {same}; "
+              f"{got['rows_per_s']:.2f} {what} trained/s against one rank's "
+              f"{want['rows_per_s']:.2f} (gloo through the host: not a two-card rate); "
+              f"launches {got['launches']}; {got['phase_s']:.1f} s")
+        if cos < TWO_RANK_MIN_COSINE:
+            fail(f"phase {phase} ({name}): gradient cosine {cos} below {TWO_RANK_MIN_COSINE}")
+        if not all(same.values()):
+            fail(f"phase {phase} ({name}): {[k for k, v in same.items() if not v]} differ from "
+                 "one rank's")
+        if device == "cuda" and name != "sld" and any(n == 0 for n in got["launches"].values()):
+            fail(f"phase {phase} ({name}): a kernel of the path was not launched: "
+                 f"{got['launches']}")
+    print(f"phases 36-39: one rank {one_s:.1f} s, two ranks {two_s:.1f} s")
+    return {**rows, "one_rank_s": one_s, "two_rank_s": two_s}
+
+
 def main() -> int:
     import torch
 
@@ -7767,6 +8004,14 @@ def main() -> int:
             slice25[label]["phase_s"] = time.perf_counter() - t1
             print(f"phase {phase} ({label}): {slice25[label]['phase_s']:.1f} s")
             torch.cuda.empty_cache()
+
+        # the multi-device paths: two ranks on the one card over gloo, after
+        # kernel 3 at MMVTS's eval batches
+        t1 = time.perf_counter()
+        small_stack = stack_small_batches(device)
+        two_rank = {**two_rank_phases(Path(tmp), train_data), "kernel 3 small batches": small_stack}
+        print(f"phases 36-39 (two ranks): {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
 
     served = lambda run, k: serving["runs"][run]["launches"].get(k, 0)
@@ -7793,7 +8038,8 @@ def main() -> int:
     # rows 10, 11 and kernel 3 also ran on the Track 3-4, AID and MMVTS paths,
     # rows 12, 7 and 2 on the MMVTS Longformer path
     for row in (*tracks.values(), slice24["ditto"], slice25["mmvts dense"],
-                slice25["mmvts longformer"]):
+                slice25["mmvts longformer"], *(two_rank[k] for k in ("mmvts dp", "finetune mp",
+                                                                     "mmvts mp"))):
         for name, n in row["launches"].items():
             launches[name] += n
     print(json.dumps({"serving": serving}, default=float))
@@ -7815,6 +8061,7 @@ def main() -> int:
     print(json.dumps({"mug tracks 3-4 and aid": tracks}, default=float, ensure_ascii=False))
     print(json.dumps({"ditto and sld": slice24}, default=float))
     print(json.dumps({"mmvts and clip": slice25}, default=float))
+    print(json.dumps({"two ranks on one card": two_rank}, default=float))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # each kernel's row in the type its main path computes in

@@ -254,6 +254,20 @@ def maybe_init_distributed(args) -> bool:
     return joined
 
 
+def place_on_mesh(model: torch.nn.Module, model_parallel_size: int) -> torch.nn.Module:
+    """Lay the process group out as JAX's ``make_mesh`` does ((world // mp,
+    mp): data and model axes) and cut ``model``'s parameters to this rank's
+    shards by JAX's partition rule (``parallel/mesh.py``); raises, naming
+    the flag, when mp does not divide the world size. One process, mp 1: a
+    no-op."""
+    from spokennlp_tpu_torch.parallel import dist
+    from spokennlp_tpu_torch.parallel.mesh import shard_module_
+
+    dist.make_mesh(model_parallel_size)
+    shard_module_(model, dist.model_axis())
+    return model
+
+
 def maybe_load_pretrained(args, enc_cfg) -> Optional[Tuple[EncoderConfig, Dict]]:
     """``--model_name_or_path`` -> (config, parameter tree), or None without
     one. A native checkpoint (``params.msgpack`` and ``config.json``,
@@ -320,16 +334,19 @@ def load_pretrained_into(model: torch.nn.Module, params: Dict):
     """Put a parameter tree from ``maybe_load_pretrained`` into ``model``: a
     task tree's every module, or a trunk's under ``encoder``; what the tree
     does not hold keeps its initialisation. A name the model lacks or a
-    shape it does not have raises."""
+    shape it does not have raises. A model-sharded model takes its slices of
+    the (whole) tree."""
+    from spokennlp_tpu_torch.models.checkpoint_io import load_state_
     from spokennlp_tpu_torch.models.convert import jax_params_to_state_dict
+    from spokennlp_tpu_torch.parallel.mesh import gather_state_dict
 
     loaded = jax_params_to_state_dict(params if "encoder" in params else {"encoder": params})
-    sd = model.state_dict()
+    sd = gather_state_dict(model)
     unknown = sorted(set(loaded) - set(sd))
     if unknown:
         raise KeyError(f"the checkpoint holds parameters the model lacks: {unknown[:8]}")
     sd.update(loaded)
-    model.load_state_dict(sd, strict=True)
+    load_state_(model, sd)
 
 
 def merge_trunk(encoder: torch.nn.Module, trunk: Dict, keys=("encoder",)):

@@ -17,9 +17,13 @@ standard deviation of every numeric result to ``multi_seed_results.json``
 recomputes every layer in the backward (``EncoderConfig.remat``, the same
 gradients bit for bit); ``--report_to tensorboard`` writes the train and
 eval scalars under ``<output_dir>/tensorboard``. Under ``torchrun
---nproc_per_node=N`` (or with ``--jax_distributed``) it trains data parallel,
-one process a card (NCCL; gloo with ``--device cpu``): the global batch is
-``--per_device_train_batch_size`` x N, and rank 0 writes every file.
+--nproc_per_node=N`` (or with ``--jax_distributed``) it trains one process a
+card (NCCL; gloo with ``--device cpu``) on JAX's (N // mp, mp) mesh of
+``--model_parallel_size`` mp (which must divide N): data parallel over
+N // mp data ranks, the global batch ``--per_device_train_batch_size`` x
+N // mp, and the heads and MLP columns of every layer sharded over the mp
+ranks of a data line (parallel/mesh.py); rank 0 writes every file, with the
+whole weights.
 
     python -m spokennlp_tpu_torch.cli.run_finetune --data_dir <wiki_section dir> \
         --output_dir out --do_train --do_eval --do_predict --dtype bfloat16 \
@@ -63,12 +67,11 @@ def make_parser():
     return p
 
 
-def save_final_model(path: str, model: torch.nn.Module, enc_cfg):
+def save_final_model(path: str, state: dict, enc_cfg):
     """The native checkpoint (``<path>/params.msgpack``, ``<path>/config.json``)
-    and ``<path>/model.pt`` (the state_dict)."""
-    checkpoint_io.save_checkpoint(path, checkpoint_io.params_from_state_dict(model.state_dict()),
-                                  enc_cfg)
-    torch.save(model.state_dict(), os.path.join(path, "model.pt"))
+    and ``<path>/model.pt`` of a whole ``state_dict`` (``checkpoint_io.model_state``)."""
+    checkpoint_io.save_checkpoint(path, checkpoint_io.params_from_state_dict(state), enc_cfg)
+    torch.save(state, os.path.join(path, "model.pt"))
 
 
 def main(argv=None):
@@ -111,14 +114,15 @@ def main_single(args):
     from spokennlp_tpu_torch.train.trainer import TopicSegTrainer
 
     resolve_device(args.device)
-    mesh_lib.check_model_parallel(args.model_parallel_size)
+    mesh_lib.check_model_parallel(args.model_parallel_size, dist_lib.world_size())
     is_main = dist_lib.rank() == 0
     os.makedirs(args.output_dir, exist_ok=True)
 
     tokenize_fn, special = common.resolve_tokenizer(args)
     enc_cfg, task_cfg, wcfg, tcfg, params = configs_and_weights(args, special)
     tcfg = dataclasses.replace(tcfg, log_every=args.logging_steps)
-    model = build_model(args, enc_cfg, task_cfg, params)
+    model = common.place_on_mesh(build_model(args, enc_cfg, task_cfg, params),
+                                 args.model_parallel_size)
 
     docs = common.load_docs(args, tokenize_fn)
     trainer = TopicSegTrainer(
@@ -146,15 +150,17 @@ def main_single(args):
     try:
         if args.do_train:
             results.update(trainer.train())
+        # every rank gathers the model-sharded weights; rank 0 writes them
+        state = checkpoint_io.model_state(model) if args.do_train else None
         if args.do_train and is_main:
-            save_final_model(os.path.join(args.output_dir, "final_model"), model, enc_cfg)
+            save_final_model(os.path.join(args.output_dir, "final_model"), state, enc_cfg)
             if args.save_hf_format:
                 from spokennlp_tpu_torch.models import hf_export
 
                 src = args.model_name_or_path
                 hf_export.save_hf_checkpoint(
                     os.path.join(args.output_dir, "final_model_hf"),
-                    checkpoint_io.params_from_state_dict(model.state_dict()), enc_cfg,
+                    checkpoint_io.params_from_state_dict(state), enc_cfg,
                     tokenizer_src=src if src and os.path.isdir(src) else None,
                 )
         if args.do_eval:

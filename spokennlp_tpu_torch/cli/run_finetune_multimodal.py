@@ -22,11 +22,16 @@ clip grid. On the card the dense trunk trains on rows 10 and 11 and
 evaluates batches of at most 32 on kernel 3; ``--attention_type
 sliding_window`` trains on rows 12 and 11 and evaluates on kernels 7 and 2.
 
-Modality InfoNCE and the matrix topic CL take their negatives across the
-whole batch, so a batch split over ranks would compute another loss: under
-a world size above 1 (torchrun, ``--jax_distributed``) or a
-``--model_parallel_size`` above 1 the CLI raises (ROADMAP, queue 1: data
-parallel for MMVTS and SLD; tensor parallel, item 4).
+Under ``torchrun --nproc_per_node=N`` (or with ``--jax_distributed``) it
+runs on JAX's (N // mp, mp) mesh of ``--model_parallel_size`` mp, one
+process a card: the global batch is ``--per_device_train_batch_size`` x
+N // mp, as JAX's ``bs = per_device_batch_size * dp``; each data rank
+trains on its rows with the loss over the global batch (projects/mmvts.py);
+the trunk's and the fusion layers' heads and MLP columns and the MoE's
+experts are sharded over the mp ranks of a data line (parallel/mesh.py).
+Every rank scores every eval window at the global batch (the MoE's capacity
+follows the batch, so the predictions are one process's at that batch);
+rank 0 writes ``mm_results.json``.
 
     python -m spokennlp_tpu_torch.cli.run_finetune_multimodal --dataset_name clvts \\
         --data_dir <clvts dir> --output_dir out --do_train --do_eval \\
@@ -116,24 +121,22 @@ def parse_align_pairs(spec: str):
     return pairs
 
 
-def check_single_process(args):
-    """MMVTS runs in one process on one device: raise otherwise."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or args.jax_distributed:
-        raise NotImplementedError(
-            "run_finetune_multimodal runs on one device: modality InfoNCE and the matrix "
-            "topic CL take negatives across the whole batch, so a per-rank split computes "
-            "another loss (ROADMAP, queue 1: data parallel for MMVTS and SLD)")
-    if args.model_parallel_size != 1:
-        raise NotImplementedError(
-            f"model_parallel_size={args.model_parallel_size}: tensor parallel is not ported "
-            "(ROADMAP, queue 1, item 4)")
-
-
 def main(argv=None):
-    args = make_parser().parse_args(argv)
-    check_single_process(args)
-    os.makedirs(args.output_dir, exist_ok=True)
+    from spokennlp_tpu_torch.cli import common
+    from spokennlp_tpu_torch.parallel import dist
 
+    args = make_parser().parse_args(argv)
+    os.makedirs(args.output_dir, exist_ok=True)
+    joined = common.maybe_init_distributed(args)
+    try:
+        return run(args)
+    finally:
+        if joined:
+            dist.destroy()
+
+
+def run(args):
+    """One MMVTS run of the parsed flags; returns its results."""
     import dataclasses as dc
 
     import numpy as np
@@ -145,11 +148,14 @@ def main(argv=None):
     from spokennlp_tpu_torch.eval.video_metrics import evaluate_video_corpus
     from spokennlp_tpu_torch.models.multimodal import MultimodalConfig
     from spokennlp_tpu_torch.objectives.mmvts_losses import build_topic_cl_list_indices
+    from spokennlp_tpu_torch.parallel import dist
+    from spokennlp_tpu_torch.parallel import mesh as mesh_lib
     from spokennlp_tpu_torch.projects import mmvts
     from spokennlp_tpu_torch.train import optim
     from spokennlp_tpu_torch.train.train_step import batch_to_device
 
     device = resolve_device(args.device)
+    mesh_lib.check_model_parallel(args.model_parallel_size, dist.world_size())
     tokenize_fn, special = common.resolve_tokenizer(args)
     enc_cfg, _task, wcfg, tcfg = common.build_configs(args, special)
 
@@ -227,7 +233,8 @@ def main(argv=None):
                              generator=torch.Generator().manual_seed(tcfg.seed))
     if trunk is not None:
         common.merge_trunk(model.text_encoder, trunk, keys=("text_encoder", "encoder"))
-    model = model.to(device)
+    model = common.place_on_mesh(model.to(device), args.model_parallel_size)
+    mesh = dist.mesh()
 
     if args.cross_encoder_lr:
         optimizer = optim.make_module_lr_optimizer(
@@ -255,7 +262,7 @@ def main(argv=None):
     ex0 = train_rows[0]
     batch_keys = ["input_ids", "attention_mask", "clip_positions", "clip_mask",
                   "clip_labels"] + [k for k in ex0 if k.endswith("_feats")]
-    bs = max(tcfg.per_device_batch_size, 1)
+    bs = max(tcfg.per_device_batch_size * mesh.data_size, mesh.data_size)
     data_rng = np.random.default_rng(tcfg.seed)
 
     history = []
@@ -273,9 +280,11 @@ def main(argv=None):
                         batch["clip_labels"], batch["clip_mask"], args.topic_cl_pos_k,
                         args.topic_cl_neg_k, args.topic_cl_choice, data_rng)
                     batch.update({f"topic_cl_{k}": v for k, v in idx.items()})
+                batch = mesh_lib.shard_batch(batch, mesh.data_index, mesh.data_size)
                 metrics = step_fn(batch_to_device(batch, device))
             history.append({"epoch": epoch + 1, **{k: float(v) for k, v in metrics.items()}})
-            print(json.dumps(history[-1]))
+            if dist.rank() == 0:
+                print(json.dumps(history[-1]))
 
     results = {"history": history}
     eval_rows = windows.get("validation") or windows.get("test") or []
@@ -315,10 +324,13 @@ def main(argv=None):
                                      else [float(c + 1) * 10.0 for c in cids]),
             })
         results["eval"] = evaluate_video_corpus(examples)
-        print(json.dumps(results["eval"], indent=2))
+        if dist.rank() == 0:
+            print(json.dumps(results["eval"], indent=2))
 
-    with open(os.path.join(args.output_dir, "mm_results.json"), "w") as f:
-        json.dump(results, f, indent=2, default=float)
+    if dist.rank() == 0:
+        with open(os.path.join(args.output_dir, "mm_results.json"), "w") as f:
+            json.dump(results, f, indent=2, default=float)
+    dist.barrier()
     return results
 
 

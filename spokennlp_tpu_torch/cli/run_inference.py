@@ -8,8 +8,10 @@ one of type bert, longformer, electra or big_bird; ``cli/common.py``
 ``maybe_load_pretrained``), else from ``--seed``. ``--ts_score_predictor
 cos`` scores sentences by the sigmoid of adjacent cosine similarities.
 Under ``torchrun --nproc_per_node=N`` (or with ``--jax_distributed``) each
-process scores its block of the windows on its card and every process gets
-all the scores (eval/inference.py); rank 0 writes the files.
+data rank scores its block of the windows on its card and every process gets
+all the scores (eval/inference.py); with ``--model_parallel_size`` mp
+(dividing N) the mp ranks of a data line hold JAX's shards of the weights
+and score one block together; rank 0 writes the files.
 
     python -m spokennlp_tpu_torch.cli.run_inference --data_dir <wiki_section dir> \
         --output_dir out --dtype bfloat16 --per_device_eval_batch_size 32 \
@@ -80,9 +82,9 @@ def configs_and_weights(args, special):
 def main(argv=None):
     args = make_parser().parse_args(argv)
     resolve_device(args.device)
-    mesh_lib.check_model_parallel(args.model_parallel_size)
     joined = common.maybe_init_distributed(args)
     try:
+        mesh_lib.check_model_parallel(args.model_parallel_size, dist_lib.world_size())
         return predict(args)
     finally:
         if joined:
@@ -97,7 +99,8 @@ def predict(args):
 
     tokenize_fn, special = common.resolve_tokenizer(args)
     enc_cfg, task_cfg, wcfg, _, params = configs_and_weights(args, special)
-    model = build_model(args, enc_cfg, task_cfg, params)
+    model = common.place_on_mesh(build_model(args, enc_cfg, task_cfg, params),
+                                 args.model_parallel_size)
 
     docs = common.load_docs(args, tokenize_fn)
     test_docs = docs.get("test") or docs.get("validation") or []

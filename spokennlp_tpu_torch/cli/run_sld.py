@@ -25,6 +25,13 @@ tokenizer is read with ``transformers``' ``AutoTokenizer``, without which
 the run raises rather than put the checkpoint's rows under a word
 vocabulary's ids.
 
+Under ``torchrun --nproc_per_node=N`` (or inside a process group its caller
+made) it trains data parallel, as JAX shards the batch over its devices:
+``--per_device_train_batch_size`` is the global batch (JAX's meaning), which
+N must divide, each process trains on its rows (NCCL; gloo with ``--device
+cpu``), every process decodes the eval set, and rank 0 writes the files
+(projects/sld.py).
+
 Input jsonl rows: {"speech_tokens": [int, ...], "text": "..."} (the output
 of projects/sld_pipeline.py).
 
@@ -121,10 +128,24 @@ def load_pretrained(path: str, gcfg, total_vocab: int, seed: int):
 
 
 def main(argv=None):
+    from spokennlp_tpu_torch.cli import common
+    from spokennlp_tpu_torch.parallel import dist
+
     args = make_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
+    joined = common.maybe_init_distributed(args)
+    try:
+        return run(args)
+    finally:
+        if joined:
+            dist.destroy()
 
+
+def run(args):
+    """One SLD run of the parsed flags; returns its results."""
     import torch
+
+    from spokennlp_tpu_torch.parallel import dist
 
     from spokennlp_tpu_torch.cli.run_inference import resolve_device
     from spokennlp_tpu_torch.models.convert import jax_params_to_state_dict
@@ -223,9 +244,10 @@ def main(argv=None):
         clip_grad_norm=args.clip_grad_norm,
     )
     res = trainer.train()
-    with open(os.path.join(args.output_dir, "sld_results.json"), "w") as f:
-        json.dump(res, f, indent=2, default=float)
-    print(json.dumps(res["final"], indent=2, default=float))
+    if dist.rank() == 0:
+        with open(os.path.join(args.output_dir, "sld_results.json"), "w") as f:
+            json.dump(res, f, indent=2, default=float)
+        print(json.dumps(res["final"], indent=2, default=float))
     return res
 
 

@@ -20,6 +20,9 @@ rank_rows``, the last window repeated to fill), each rank scores its block
 and the scores are gathered in rank order on every rank, so every rank
 aggregates and scores the whole corpus; ``make_predict_fn``'s scorer takes
 a batch whose rows divide by the world size and does the same within it.
+The blocks are the data axis's (``dist.mesh``): under
+``--model_parallel_size`` the ranks of one data line score the same block
+with their shards of the weights.
 """
 
 from __future__ import annotations
@@ -72,15 +75,15 @@ def make_predict_fn(model: torch.nn.Module):
     def predict(input_ids, attention_mask, token_type_ids) -> torch.Tensor:
         ids, mask, tt = (torch.as_tensor(a).to(device) for a in
                          (input_ids, attention_mask, token_type_ids))
-        world = dist_lib.world_size()
-        if world > 1:  # this rank's rows, then every rank's
-            ids, mask, tt = (mesh_lib.shard_batch({"x": t}, dist_lib.rank(), world)["x"]
+        dp = dist_lib.data_parallel()
+        if dp is not None and dp.world_size > 1:  # this data rank's rows, then every rank's
+            ids, mask, tt = (mesh_lib.shard_batch({"x": t}, dp.rank, dp.world_size)["x"]
                              for t in (ids, mask, tt))
         with evaluating(model):
             out = model(ids, attention_mask=mask, token_type_ids=tt)
         logits = out["token_logits"].float()
-        if world > 1:
-            logits = torch.cat(dist_lib.all_gather_tensors(logits), 0)
+        if dp is not None and dp.world_size > 1:
+            logits = dp.gather_const(logits)
         return logits
 
     return predict
@@ -198,11 +201,11 @@ def rank_block(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """This rank's block of the stacked windows (``mesh.rank_rows``: equal
     blocks, the last window repeated past the end); the whole batch on one
     process."""
-    world = dist_lib.world_size()
+    world = dist_lib.data_size()
     if world == 1:
         return batch
     n = batch["input_ids"].shape[0]
-    start, end = mesh_lib.rank_rows(n, dist_lib.rank(), world)
+    start, end = mesh_lib.rank_rows(n, dist_lib.data_rank(), world)
     rows = np.minimum(np.arange(start, end), n - 1)
     return {k: batch[k][rows] for k in COS_KEYS}
 

@@ -9,6 +9,12 @@ C-order buffer; ext type 3 a numpy scalar in the same form). Arrays that
 flax split into chunks (``__msgpack_chunked_array__``) are joined on read.
 So a JAX run's checkpoint loads into the port (``models/convert.py``), and
 one the port writes loads into JAX.
+
+A checkpoint holds whole weights whatever the mesh: ``model_state`` gathers
+a model-sharded model's parameters before a save, ``load_state_`` cuts a
+whole ``state_dict`` to this rank's shards after a load (parallel/mesh.py),
+so a checkpoint written at ``--model_parallel_size 2`` loads at 1 with the
+same bits, and the other way round.
 """
 
 from __future__ import annotations
@@ -134,3 +140,19 @@ def load_checkpoint(path: str) -> Tuple[dict, Optional[EncoderConfig]]:
         with open(cfg_path) as f:
             cfg = EncoderConfig(**json.load(f))
     return _unchunk(params), cfg
+
+
+def model_state(model) -> dict:
+    """``model``'s ``state_dict`` with its model-sharded parameters gathered
+    whole (every rank of the model group calls it)."""
+    from spokennlp_tpu_torch.parallel.mesh import gather_state_dict
+
+    return gather_state_dict(model)
+
+
+def load_state_(model, state: Mapping, strict: bool = True):
+    """Load a whole ``state_dict`` into ``model``, each model-sharded
+    parameter taking this rank's slice."""
+    from spokennlp_tpu_torch.parallel.mesh import shard_state_dict
+
+    model.load_state_dict(shard_state_dict(state, model), strict=strict)

@@ -98,6 +98,8 @@ from spokennlp_tpu_torch.ops.cuda.train_sliding import sliding_attention_block_t
 from spokennlp_tpu_torch.ops.sliding_attention import (
     chunked_sliding_window_attention, global_key_index, sliding_window_attention_mask_bias,
 )
+from spokennlp_tpu_torch.parallel.dist import draw_rand, rank_seed
+from spokennlp_tpu_torch.parallel.mesh import shard_axis, whole
 
 ACT2FN = {
     # HF semantics: "gelu" is the exact erf form; the fused MLP kernel uses
@@ -134,14 +136,21 @@ class EncoderOutput:
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], heads: Optional[tuple] = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability 1 - rate and scale kept
     values by 1 / (1 - rate), in x's dtype; the identity outside training.
-    The mask comes from ``generator`` (the default one when None)."""
+    The mask comes from ``generator`` (the default one when None), drawn
+    over the global batch under ``dist.sharded_batch``; ``heads`` (start,
+    stop, count, ...): x holds those heads of axis 1, and the mask is drawn
+    for every head and cut to them (a model rank's share of the
+    probabilities)."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+    shape = x.shape if heads is None else (x.shape[0], heads[2], *x.shape[2:])
+    keep = draw_rand(shape, generator, x.device)
+    if heads is not None:
+        keep = keep[:, heads[0]:heads[1]]
+    return torch.where(keep >= rate, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 # the std of a standard normal truncated to [-2, 2]: Flax's truncated normal
@@ -196,7 +205,49 @@ class Embed(nn.Module):
         nn.init.normal_(self.embedding.data, std=1.0 / math.sqrt(features), generator=generator)
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.embedding(ids, self.embedding).to(dtype)
+        return lookup(self.embedding, ids).to(dtype)
+
+
+ONE_HOT_ROWS = 4096
+"""Tables of at most this many rows (token types, positions) take their
+gradient as a one-hot product; larger ones (vocabularies) as a sorted
+segment sum."""
+
+
+def table_grad(ids: torch.Tensor, g: torch.Tensor, num: int) -> torch.Tensor:
+    """The gradient of ``table[ids]`` for a table of ``num`` rows, the rows
+    of each id summed in an order fixed by the data: a float32 one-hot
+    product for small tables, else the rows sorted by id (stable) and each
+    id's run summed in order (``segment_reduce``), written once per id.
+    PyTorch's CUDA embedding backward adds repeated ids with atomics, in an
+    order that changes from run to run."""
+    ids = ids.reshape(-1).long()
+    g = g.reshape(ids.numel(), -1).float()
+    if num <= ONE_HOT_ROWS:
+        return F.one_hot(ids, num).float().T @ g
+    order = torch.argsort(ids, stable=True)
+    uniq, counts = torch.unique_consecutive(ids[order], return_counts=True)
+    sums = torch.segment_reduce(g[order], "sum", lengths=counts, axis=0)
+    return g.new_zeros(num, g.shape[1]).index_copy_(0, uniq, sums)
+
+
+class _Lookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.num = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return table_grad(ids, g, ctx.num).to(g.dtype), None
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)`` with the deterministic backward
+    (``table_grad``): the same gradient, the same bits on every run."""
+    return _Lookup.apply(table, ids)
 
 
 class Embeddings(nn.Module):
@@ -257,14 +308,27 @@ class FusedQKV(nn.Module):
         _lecun_normal_(self.kernel.data, hidden, generator)
 
     def forward(self, hidden: torch.Tensor, quantize: bool = False,
-                layout: str = "blsnd") -> torch.Tensor:
+                layout: str = "blsnd", gathered: bool = False,
+                heads: Optional[tuple] = None) -> torch.Tensor:
+        """``gathered``: a model-sharded kernel gathered whole first (the
+        kernels' and W8A8's paths); ``heads`` (start, stop, count, model
+        axis): the whole kernel's heads start..stop, their gradient summed
+        over the model group (a whole projection feeding a model rank's
+        heads)."""
         dt = hidden.dtype
+        kernel, bias = self.kernel, self.bias
+        if gathered:
+            kernel, bias = whole(kernel), whole(bias)
+        if heads is not None:
+            ax = heads[3]
+            kernel = ax.copy(kernel)[:, :, heads[0]:heads[1]]
+            bias = ax.copy(bias)[:, heads[0]:heads[1]]
         if quantize and layout == "blsnd":
             B, L, H = hidden.shape
-            out = quant_dense(hidden.reshape(B * L, H), self.kernel.reshape(H, -1),
-                              self.bias.reshape(-1), out_dtype=dt)
-            return out.reshape(B, L, *self.kernel.shape[1:])
-        kernel, bias = self.kernel.to(dt), self.bias.to(dt)
+            out = quant_dense(hidden.reshape(B * L, H), kernel.reshape(H, -1),
+                              bias.reshape(-1), out_dtype=dt)
+            return out.reshape(B, L, *kernel.shape[1:])
+        kernel, bias = kernel.to(dt), bias.to(dt)
         if layout == "blsnd":
             return torch.einsum("blh,hsnd->blsnd", hidden, kernel) + bias
         if layout == "bsnld":
@@ -284,16 +348,25 @@ class AttnOutProj(nn.Module):
         _lecun_normal_(self.kernel.data, num_heads * head_dim, generator)
 
     def forward(self, ctx: torch.Tensor, quantize: bool = False,
-                layout: str = "blnd") -> torch.Tensor:  # -> (B, L, H)
+                layout: str = "blnd", gathered: bool = False,
+                partial=None) -> torch.Tensor:  # -> (B, L, H)
+        """``gathered``: a model-sharded kernel gathered whole first;
+        ``partial`` (a model axis): ``ctx`` holds this rank's heads of a
+        sharded kernel, and the heads' products are summed over the model
+        group before the bias is added once."""
         dt = ctx.dtype
+        kernel = whole(self.kernel) if gathered else self.kernel
         if quantize and layout == "blnd":
             B, L, nh, hd = ctx.shape
-            out = quant_dense(ctx.reshape(B * L, nh * hd), self.kernel.reshape(nh * hd, -1),
+            out = quant_dense(ctx.reshape(B * L, nh * hd), kernel.reshape(nh * hd, -1),
                               self.bias, out_dtype=dt)
             return out.reshape(B, L, -1)
         if layout not in ("blnd", "bnld"):
             raise ValueError(layout)
-        return torch.einsum(f"{layout},ndh->blh", ctx, self.kernel.to(dt)) + self.bias.to(dt)
+        out = torch.einsum(f"{layout},ndh->blh", ctx, kernel.to(dt))
+        if partial is not None:
+            out = partial.reduce(out)
+        return out + self.bias.to(dt)
 
 
 class SelfAttention(nn.Module):
@@ -323,10 +396,22 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         dt = hidden.dtype
         scale = 1.0 / math.sqrt(cfg.head_dim)
+        # the model axis: the einsum path computes this rank's heads and sums
+        # the out projection over the model group; the kernel (pallas) and
+        # W8A8 paths take the weights gathered whole
+        ax = shard_axis(self.qkv.kernel)
+        gathered = ax is not None and (segment_ids is not None or quantized)
         if segment_ids is not None:
-            ctx = snld_self_attention(self.qkv(hidden, layout="bsnld"), segment_ids, scale)
-            return self.out(ctx, layout="bnld"), None
-        q, k, v = self.qkv(hidden, quantize=quantized).unbind(2)  # (B, L, nh, hd)
+            ctx = snld_self_attention(self.qkv(hidden, layout="bsnld", gathered=gathered),
+                                      segment_ids, scale)
+            return self.out(ctx, layout="bnld", gathered=gathered), None
+        split = None if gathered else ax
+        heads = None
+        if split is not None:
+            hidden = split.copy(hidden)
+            n = self.qkv.kernel.shape[2]
+            heads = (split.index * n, (split.index + 1) * n, cfg.num_heads, split)
+        q, k, v = self.qkv(hidden, quantize=quantized, gathered=gathered).unbind(2)
         sm_dtype = dt if cfg.softmax_in_compute_dtype else torch.float32
         probs = None
         if bigbird is not None:
@@ -344,31 +429,34 @@ class SelfAttention(nn.Module):
             if attention_bias is not None:
                 scores = scores + attention_bias.to(scores.dtype)
             probs = torch.softmax(scores.to(sm_dtype), dim=-1).to(dt)
-            probs = dropout(probs, cfg.attention_dropout, self.training, generator)
+            probs = dropout(probs, cfg.attention_dropout, self.training, generator, heads)
             ctx = torch.einsum("bhlm,bmhd->blhd", probs, v)
         if sliding is not None and sliding.global_mask is not None:
-            ctx = self._global_pass(hidden, ctx, sliding, scale, generator)
-        return self.out(ctx, quantize=quantized), (probs if output_attentions else None)
+            ctx = self._global_pass(hidden, ctx, sliding, scale, generator, heads)
+        out = self.out(ctx, quantize=quantized, gathered=gathered, partial=split)
+        return out, (probs if output_attentions else None)
 
-    def _global_pass(self, hidden, ctx, sliding: SlidingMasks, scale, generator):
+    def _global_pass(self, hidden, ctx, sliding: SlidingMasks, scale, generator, heads=None):
         """Longformer's global rows: their queries attend to every real key
         through ``qkv_global`` and replace the local rows (O(G L) for the
-        first ``max_global_tokens`` global rows on the chunked path)."""
+        first ``max_global_tokens`` global rows on the chunked path).
+        ``heads``: a model rank's heads of the whole ``qkv_global``."""
         dt = hidden.dtype
-        qg, kg, vg = self.qkv_global(hidden).unbind(2)
+        qg, kg, vg = self.qkv_global(hidden, heads=heads).unbind(2)
         mask, glob = sliding.attention_mask, sliding.global_mask
         if sliding.chunked:
             g_idx, g_valid = global_key_index(mask, glob, self.cfg.max_global_tokens)
             index = g_idx[:, :, None, None].expand(-1, -1, *ctx.shape[2:])
             g_scores = torch.einsum("bghd,bmhd->bhgm", torch.gather(qg, 1, index) * scale, kg)
             g_probs = torch.softmax((g_scores + sliding.key_padding_bias).float(), dim=-1).to(dt)
-            g_probs = dropout(g_probs, self.cfg.attention_dropout, self.training, generator)
+            g_probs = dropout(g_probs, self.cfg.attention_dropout, self.training, generator,
+                              heads)
             rows = torch.einsum("bhgm,bmhd->bghd", g_probs, vg)
             rows = torch.where(g_valid[:, :, None, None], rows, torch.gather(ctx, 1, index))
             return ctx.scatter(1, index, rows)
         g_scores = torch.einsum("blhd,bmhd->bhlm", qg * scale, kg) + sliding.key_padding_bias
         g_probs = torch.softmax(g_scores.float(), dim=-1).to(dt)
-        g_probs = dropout(g_probs, self.cfg.attention_dropout, self.training, generator)
+        g_probs = dropout(g_probs, self.cfg.attention_dropout, self.training, generator, heads)
         g_ctx = torch.einsum("bhlm,bmhd->blhd", g_probs, vg)
         return torch.where(glob.bool()[:, :, None, None], g_ctx, ctx)
 
@@ -397,18 +485,19 @@ class TransformerLayer(nn.Module):
         hidden = self.attention_ln(hidden + attn_out)
         if quantized:  # the activation in mlp_in's epilogue, as JAX's QuantDense
             dt = hidden.dtype
-            mlp = quant_dense(hidden, self.mlp_in.kernel, self.mlp_in.bias, out_dtype=dt,
-                              activation=self.cfg.hidden_act)
-            mlp = quant_dense(mlp, self.mlp_out.kernel, self.mlp_out.bias, out_dtype=dt)
+            mlp = quant_dense(hidden, whole(self.mlp_in.kernel), whole(self.mlp_in.bias),
+                              out_dtype=dt, activation=self.cfg.hidden_act)
+            mlp = quant_dense(mlp, whole(self.mlp_out.kernel), self.mlp_out.bias, out_dtype=dt)
         else:
-            mlp = self.mlp_out(ACT2FN[self.cfg.hidden_act](self.mlp_in(hidden)))
+            mlp = sharded_mlp(hidden, self.mlp_in, self.mlp_out, ACT2FN[self.cfg.hidden_act])
         mlp = dropout(mlp, rate, self.training, generator)
         return self.mlp_ln(hidden + mlp), probs
 
     def _sliding_args(self, sliding: SlidingMasks):
         attn = self.attention
-        return (sliding.attention_mask, sliding.global_mask, attn.qkv.kernel, attn.qkv.bias,
-                attn.qkv_global.kernel, attn.qkv_global.bias, attn.out.kernel, attn.out.bias)
+        return (sliding.attention_mask, sliding.global_mask, whole(attn.qkv.kernel),
+                whole(attn.qkv.bias), attn.qkv_global.kernel, attn.qkv_global.bias,
+                whole(attn.out.kernel), attn.out.bias)
 
     def _bigbird_pattern(self):
         cfg = self.cfg
@@ -427,33 +516,35 @@ class TransformerLayer(nn.Module):
         attn, ln1 = self.attention, self.attention_ln
         ln = dict(sm_scale=1.0 / math.sqrt(cfg.head_dim), ln_scale=ln1.scale, ln_bias=ln1.bias,
                   eps=cfg.layer_norm_eps, quantized=quantized)
+        qkv_k, qkv_b, out_k = whole(attn.qkv.kernel), whole(attn.qkv.bias), whole(attn.out.kernel)
         if bigbird is not None:
-            h1 = fused_bigbird_attention_block(hidden, bigbird, attn.qkv.kernel, attn.qkv.bias,
-                                               attn.out.kernel, attn.out.bias,
-                                               *self._bigbird_pattern(), **ln)
+            h1 = fused_bigbird_attention_block(hidden, bigbird, qkv_k, qkv_b, out_k,
+                                               attn.out.bias, *self._bigbird_pattern(), **ln)
         elif sliding is None:
-            h1 = fused_attention_block(hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias,
-                                       attn.out.kernel, attn.out.bias, **ln)
+            h1 = fused_attention_block(hidden, segment_ids, qkv_k, qkv_b, out_k, attn.out.bias,
+                                       **ln)
         else:
             h1 = fused_sliding_attention_block(
                 hidden, *self._sliding_args(sliding), window=cfg.attention_window,
                 max_globals=cfg.max_global_tokens, global_rows=sliding.global_rows, **ln,
             )
         out = fused_mlp_block(
-            h1.reshape(B * L, H), self.mlp_in.kernel, self.mlp_in.bias,
-            self.mlp_out.kernel, self.mlp_out.bias, self.mlp_ln.scale, self.mlp_ln.bias,
+            h1.reshape(B * L, H), whole(self.mlp_in.kernel), whole(self.mlp_in.bias),
+            whole(self.mlp_out.kernel), self.mlp_out.bias, self.mlp_ln.scale, self.mlp_ln.bias,
             activation=cfg.hidden_act, eps=cfg.layer_norm_eps, quantized=quantized,
         )
         return out.reshape(B, L, H)
 
     def stack_params(self):
-        """This layer's raw parameters in the order of the stack kernel
-        (ops/cuda/stack_block.py PARAM_NAMES)."""
+        """This layer's parameters in the order of the stack kernel
+        (ops/cuda/stack_block.py PARAM_NAMES), model-sharded ones gathered
+        whole."""
         attn = self.attention
-        return (attn.qkv.kernel, attn.qkv.bias, attn.out.kernel, attn.out.bias,
-                self.attention_ln.scale, self.attention_ln.bias, self.mlp_in.kernel,
-                self.mlp_in.bias, self.mlp_out.kernel, self.mlp_out.bias, self.mlp_ln.scale,
-                self.mlp_ln.bias)
+        return tuple(whole(p) for p in (
+            attn.qkv.kernel, attn.qkv.bias, attn.out.kernel, attn.out.bias,
+            self.attention_ln.scale, self.attention_ln.bias, self.mlp_in.kernel,
+            self.mlp_in.bias, self.mlp_out.kernel, self.mlp_out.bias, self.mlp_ln.scale,
+            self.mlp_ln.bias))
 
     def forward_train_fused(self, hidden, segment_ids, generator=None,
                             sliding: Optional[SlidingMasks] = None,
@@ -470,16 +561,19 @@ class TransformerLayer(nn.Module):
         if rate > 0.0:
             seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=hidden.device,
                                  dtype=torch.int32)
+            seed = rank_seed(seed).to(torch.int32)
         sm_scale = 1.0 / math.sqrt(cfg.head_dim)
+        # the kernels take whole weights: a model-sharded layer gathers them
+        qkv_k, qkv_b, out_k = whole(attn.qkv.kernel), whole(attn.qkv.bias), whole(attn.out.kernel)
         if bigbird is not None:
             attn_out = bigbird_attention_block_train(
-                hidden, bigbird, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel, attn.out.bias,
+                hidden, bigbird, qkv_k, qkv_b, out_k, attn.out.bias,
                 seed, sm_scale, *self._bigbird_pattern(), dropout_rate=rate,
             )
         elif sliding is None:
             attn_out = attention_block_train(
-                hidden, segment_ids, attn.qkv.kernel, attn.qkv.bias, attn.out.kernel,
-                attn.out.bias, seed, sm_scale=sm_scale, dropout_rate=rate,
+                hidden, segment_ids, qkv_k, qkv_b, out_k, attn.out.bias, seed,
+                sm_scale=sm_scale, dropout_rate=rate,
             )
         else:
             attn_out = sliding_attention_block_train(
@@ -490,11 +584,23 @@ class TransformerLayer(nn.Module):
         attn_out = dropout(attn_out, cfg.hidden_dropout, self.training, generator)
         hidden = self.attention_ln(hidden + attn_out)
         mlp = mlp_block_train(
-            hidden.reshape(B * L, H), self.mlp_in.kernel, self.mlp_in.bias, self.mlp_out.kernel,
-            self.mlp_out.bias, activation=cfg.hidden_act,
+            hidden.reshape(B * L, H), whole(self.mlp_in.kernel), whole(self.mlp_in.bias),
+            whole(self.mlp_out.kernel), self.mlp_out.bias, activation=cfg.hidden_act,
         ).reshape(B, L, H)
         mlp = dropout(mlp, cfg.hidden_dropout, self.training, generator)
         return self.mlp_ln(hidden + mlp)
+
+
+def sharded_mlp(x, mlp_in: Dense, mlp_out: Dense, act) -> torch.Tensor:
+    """``mlp_out(act(mlp_in(x)))``; with ``mlp_in``'s columns and
+    ``mlp_out``'s rows sharded over the model axis, this rank's columns'
+    share summed over the model group, ``mlp_out``'s bias added once."""
+    ax = shard_axis(mlp_in.kernel)
+    if ax is None:
+        return mlp_out(act(mlp_in(x)))
+    h = act(mlp_in(ax.copy(x)))
+    dt = h.dtype
+    return ax.reduce(h @ mlp_out.kernel.to(dt)) + mlp_out.bias.to(dt)
 
 
 def sliding_contract_breach(cfg: EncoderConfig, seq_len: int, prefix_globals: Optional[int],

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spokennlp_tpu_torch.models.encoder import LayerNorm, dropout
+from spokennlp_tpu_torch.models.encoder import LayerNorm, dropout, lookup
 
 NEG_INF = -1e9
 
@@ -181,8 +181,10 @@ class GPT2LMModel(nn.Module):
         device = input_ids.device
         if position_ids is None:
             position_ids = cache_index + torch.arange(L, device=device)[None, :]
-        hidden = (F.embedding(input_ids, self.wte.embedding).to(self.dtype)
-                  + F.embedding(position_ids, self.wpe.embedding).to(self.dtype))
+        # the deterministic table backward (encoder.lookup): the same bits
+        # on every run
+        hidden = (lookup(self.wte.embedding, input_ids).to(self.dtype)
+                  + lookup(self.wpe.embedding, position_ids).to(self.dtype))
         hidden = dropout(hidden, cfg.embd_dropout, self.training, generator)
         if cache is None:
             bias = attention_bias(L, attention_mask, device)

@@ -44,10 +44,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from spokennlp_tpu_torch.models.encoder import (
-    AttnOutProj, Dense, FusedQKV, LayerNorm, dropout,
+    AttnOutProj, Dense, FusedQKV, LayerNorm, dropout, sharded_mlp,
 )
 from spokennlp_tpu_torch.models.generation import top_k
 from spokennlp_tpu_torch.models.seq2seq import HeadsOut, HeadsProj
+from spokennlp_tpu_torch.parallel.dist import batch_dp
+from spokennlp_tpu_torch.parallel.mesh import shard_axis
 
 NEG_INF = -1e9
 MODALITIES = ("text", "vis", "audio")
@@ -101,15 +103,16 @@ class MultimodalConfig:
                 "audio": self.audio_hidden_size}[modality]
 
 
-def _attend(q, k, v, key_mask, rate: float, deterministic: bool, generator):
+def _attend(q, k, v, key_mask, rate: float, deterministic: bool, generator, heads=None):
     """Scaled dot-product attention of (B, L, nh, hd) q over (B, M, nh, hd)
-    k and v with an additive -1e9 key mask, the softmax in float32."""
+    k and v with an additive -1e9 key mask, the softmax in float32
+    (``heads``: a model rank's heads, for the dropout mask)."""
     dt = q.dtype
     hd = q.shape[-1]
     scores = torch.einsum("blhd,bmhd->bhlm", q * (1.0 / math.sqrt(hd)), k)
     bias = (1.0 - key_mask[:, None, None, :].float()) * NEG_INF
     probs = F.softmax((scores + bias.to(scores.dtype)).float(), dim=-1).to(dt)
-    probs = dropout(probs, rate, not deterministic, generator)
+    probs = dropout(probs, rate, not deterministic, generator, heads)
     return torch.einsum("bhlm,bmhd->blhd", probs, v)
 
 
@@ -128,7 +131,7 @@ class _PostLNBlock(nn.Module):
     def finish(self, x, attn, deterministic: bool, generator):
         rate = self.cfg.hidden_dropout
         x = self.attn_ln(x + dropout(attn, rate, not deterministic, generator))
-        mlp = self.mlp_out(F.gelu(self.mlp_in(x), approximate="none"))
+        mlp = sharded_mlp(x, self.mlp_in, self.mlp_out, lambda h: F.gelu(h, approximate="none"))
         return self.mlp_ln(x + dropout(mlp, rate, not deterministic, generator))
 
 
@@ -142,9 +145,23 @@ class DenseSelfAttentionLayer(_PostLNBlock):
         self.out = AttnOutProj(nh, H // nh, H, generator)
 
     def forward(self, x, key_mask, deterministic: bool = True, generator=None):
-        q, k, v = self.qkv(x).unbind(2)
-        ctx = _attend(q, k, v, key_mask, self.cfg.attention_dropout, deterministic, generator)
-        return self.finish(x, self.out(ctx), deterministic, generator)
+        ax = shard_axis(self.qkv.kernel)
+        if ax is None:
+            q, k, v = self.qkv(x).unbind(2)
+            ctx = _attend(q, k, v, key_mask, self.cfg.attention_dropout, deterministic,
+                          generator)
+            return self.finish(x, self.out(ctx), deterministic, generator)
+        # the model axis (JAX's rule shards qkv's heads; ``out`` stays whole):
+        # this rank's heads through its rows of ``out``, summed over the group
+        q, k, v = self.qkv(ax.copy(x)).unbind(2)
+        n = q.shape[2]
+        h0 = ax.index * n
+        ctx = _attend(q, k, v, key_mask, self.cfg.attention_dropout, deterministic, generator,
+                      (h0, h0 + n, self.cfg.num_cross_encoder_heads))
+        dt = ctx.dtype
+        part = torch.einsum("blnd,ndh->blh", ctx, ax.copy(self.out.kernel)[h0:h0 + n].to(dt))
+        attn = ax.reduce(part) + self.out.bias.to(dt)
+        return self.finish(x, attn, deterministic, generator)
 
 
 class CrossAttentionLayer(_PostLNBlock):
@@ -183,12 +200,17 @@ def route(gate_logits: torch.Tensor, k: int, num_experts: int):
     return topi, gates_k, dense
 
 
-def balance_loss(dense_gates: torch.Tensor, mask: torch.Tensor, weight: float) -> torch.Tensor:
+def balance_loss(dense_gates: torch.Tensor, mask: torch.Tensor, weight: float,
+                 dp=None) -> torch.Tensor:
     """weight * (cv^2(importance) + cv^2(load)) over the valid tokens, with
-    the population variance (``jnp.var``)."""
+    the population variance (``jnp.var``). ``dp``: the tokens are this
+    rank's of a global batch, and both sums run over every rank's (the
+    importance's differentiably)."""
     maskf = mask.float()[..., None]
     importance = torch.sum(dense_gates * maskf, dim=(0, 1))
     load = torch.sum((dense_gates > 0).float() * maskf, dim=(0, 1))
+    if dp is not None:
+        importance, load = dp.sum(importance), dp.total(load)
 
     def cv_squared(v):
         return torch.var(v, unbiased=False) / (torch.mean(v) ** 2 + 1e-10)
@@ -197,23 +219,32 @@ def balance_loss(dense_gates: torch.Tensor, mask: torch.Tensor, weight: float) -
 
 
 def dispatch_plan(mask: torch.Tensor, topi: torch.Tensor, gates_k: torch.Tensor,
-                  cfg: MultimodalConfig):
+                  cfg: MultimodalConfig, dp=None):
     """GShard's capacity dispatch over the N = B L tokens: (slot (N, K) into
     the (E C + 1) slot table, the last slot taking every dropped
     assignment; gate (N, K), 0 where dropped; C). Choice 0 of every token
-    outranks any choice 1 (a float32 cumsum over the k-major flattening)."""
+    outranks any choice 1 (a float32 cumsum over the k-major flattening).
+    ``dp``: the tokens are this rank's block of a global batch; the plan is
+    made over every rank's tokens in the global order (C from the global N,
+    one cumsum), as JAX's SPMD step makes it, and this rank's rows kept."""
     E, K = cfg.moe_num_experts, cfg.moe_top_k
-    N = mask.numel()
+    n_local = mask.numel()
+    topi = topi.reshape(n_local, K)
+    maskf = mask.reshape(n_local).float()
+    lo = 0
+    if dp is not None:
+        topi, maskf = dp.gather_const(topi), dp.gather_const(maskf)
+        lo = dp.rank * n_local
+    N = maskf.numel()
     C = capacity(N, cfg)
-    maskf = mask.reshape(N).float()
-    topi = topi.reshape(N, K)
     onehot_e = F.one_hot(topi, E).float() * maskf[:, None, None]  # (N, K, E)
     flat = onehot_e.transpose(0, 1).reshape(K * N, E)
     pos_before = torch.cumsum(flat, dim=0) - flat
     pos = (pos_before.reshape(K, N, E).transpose(0, 1) * onehot_e).sum(-1)  # (N, K)
     keep = (pos < C) & (maskf[:, None] > 0)
-    slot = torch.where(keep, topi * C + pos.long(), E * C)
-    gate = torch.where(keep, gates_k.reshape(N, K) * maskf[:, None], 0.0)
+    slot = torch.where(keep, topi * C + pos.long(), E * C)[lo:lo + n_local]
+    keep, maskf = keep[lo:lo + n_local], maskf[lo:lo + n_local]
+    gate = torch.where(keep, gates_k.reshape(n_local, K) * maskf[:, None], 0.0)
     return slot, gate, C
 
 
@@ -257,22 +288,33 @@ class MoELayer(nn.Module):
         nn.init.normal_(self.w_out.data, std=0.02, generator=generator)
 
     def forward(self, x, mask, deterministic: bool = True, generator=None):
+        """Under ``dist.sharded_batch`` the dispatch plan and the balance
+        loss read every data rank's tokens; with ``w_in``/``w_out`` sharded
+        over the model axis (expert parallel) this rank runs its experts and
+        the shares are summed over the model group."""
         c = self.cfg
         B, L, H = x.shape
+        dp = batch_dp()
         gate_logits = self.gate(x.float())  # the gate runs in float32
         topi, gates_k, dense_gates = route(gate_logits, c.moe_top_k, c.moe_num_experts)
+        ax = shard_axis(self.w_in)
+        first = 0 if ax is None else ax.index * self.w_in.shape[0]
+        xf = x.float() if ax is None else ax.copy(x.float())
         if c.moe_impl == "dispatch":
-            slot, gate, C = dispatch_plan(mask, topi, gates_k, c)
-            y = dispatch_experts(x.reshape(B * L, H).float(), slot, gate, C, self.w_in,
-                                 self.w_out).reshape(B, L, H).to(x.dtype)
+            slot, gate, C = dispatch_plan(mask, topi, gates_k, c, dp)
+            y = dispatch_experts(xf.reshape(B * L, H), slot,
+                                 gate if ax is None else ax.copy(gate), C, self.w_in,
+                                 self.w_out, first).reshape(B, L, H)
         elif c.moe_impl == "dense":
-            hidden = F.gelu(torch.einsum("blh,ehi->blei", x.float(), self.w_in),
-                            approximate="none")
+            gates = dense_gates if ax is None else ax.copy(dense_gates)
+            hidden = F.gelu(torch.einsum("blh,ehi->blei", xf, self.w_in), approximate="none")
             expert_out = torch.einsum("blei,eih->bleh", hidden, self.w_out)
-            y = torch.einsum("bleh,ble->blh", expert_out, dense_gates).to(x.dtype)
+            y = torch.einsum("bleh,ble->blh", expert_out,
+                             gates[..., first:first + self.w_in.shape[0]])
         else:
             raise ValueError(f"moe_impl={c.moe_impl!r}")
-        aux = balance_loss(dense_gates, mask, c.moe_loss_weight)
+        y = (y if ax is None else ax.reduce(y)).to(x.dtype)
+        aux = balance_loss(dense_gates, mask, c.moe_loss_weight, dp)
         return (x + y if c.moe_residual else y), aux
 
 

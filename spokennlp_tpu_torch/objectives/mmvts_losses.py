@@ -13,8 +13,15 @@ Label convention (MMVTS): clip label 1 = END of topic (config.label_eot = 1)
 — inverted from the emnlp2023 B-EOP=0 scheme.
 
 Modality InfoNCE and the matrix topic CL take their negatives across the
-whole batch, so the loss of a batch split over data-parallel ranks would
-differ: the losses take no ``dp`` argument.
+whole batch, and the topic ids run on across its rows, so under data
+parallel (``dp``) ``mmvts_total_loss`` gathers what the losses read from
+every rank in rank order (the features and logits differentiably, the
+labels and masks as constants), computes the global batch's loss on every
+rank, and returns its 1 / n share: the ranks' shares add up to the
+single-process loss, and the gradients summed over the ranks are its
+gradients (the gather's backward sums the features' gradient over the
+ranks). The topic ids of the gathered labels carry their offsets on across
+the ranks' rows, and every mean divides by the global count.
 """
 
 from __future__ import annotations
@@ -247,9 +254,31 @@ def mmvts_total_loss(
     topic_cl_type: str = "matrix",
     topic_cl_fct: str = "simcse",
     topic_cl_indices: Optional[Dict[str, torch.Tensor]] = None,
+    dp=None,
 ):
     """The composite loss (loss_layer.py:68-118) -> (total, aux).
-    ``align_pairs`` maps pair names ("av", "at", "tv") to weights."""
+    ``align_pairs`` maps pair names ("av", "at", "tv") to weights. ``dp``
+    (a data axis of several ranks): the batch is this rank's rows of a
+    global one; the loss and every aux entry are this rank's 1 / n share of
+    the global batch's (``outputs["moe_loss"]`` is already global:
+    models/multimodal.py ``balance_loss``)."""
+    if dp is not None and dp.world_size > 1:
+        outputs = {
+            "logits": dp.gather(outputs["logits"]),
+            "projected": {m: dp.gather(v) for m, v in outputs["projected"].items()},
+            "features": {m: dp.gather(v) for m, v in outputs["features"].items()},
+            "fused": dp.gather(outputs["fused"]) if do_topic_mm_cl else outputs["fused"],
+            "moe_loss": outputs.get("moe_loss"),
+        }
+        total, aux = mmvts_total_loss(
+            cfg, outputs, dp.gather_const(clip_labels), dp.gather_const(clip_mask),
+            weight_label_zero=weight_label_zero, ts_lw=ts_lw, do_modality_cl=do_modality_cl,
+            modality_cl_lw=modality_cl_lw, align_pairs=align_pairs,
+            align_before_fuse=align_before_fuse, cl_temp=cl_temp, do_topic_mm_cl=do_topic_mm_cl,
+            topic_mm_cl_lw=topic_mm_cl_lw, topic_cl_type=topic_cl_type,
+            topic_cl_fct=topic_cl_fct, topic_cl_indices=topic_cl_indices)
+        share = 1.0 / dp.world_size
+        return total * share, {k: v * share for k, v in aux.items()}
     aux: Dict[str, torch.Tensor] = {}
     total = ts_lw * ts_loss(outputs["logits"], clip_labels, clip_mask, weight_label_zero)
     aux["ts_loss"] = total

@@ -17,6 +17,15 @@ and 11 in training and kernels 7 and 2 at inference, without global rows.
 
 Parameter names follow the Flax tree (``text_encoder``, ``fusion``), so a
 JAX tree loads with ``load_state_dict(..., strict=True)``.
+
+Inside a process group the train step runs JAX's SPMD step over the global
+batch: each data rank takes its rows, the forward runs under
+``dist.sharded_batch`` (dropout drawn over the global batch, the MoE's
+dispatch planned over every rank's tokens), the loss is the rank's share
+of the global batch's (``mmvts_losses.mmvts_total_loss(dp=...)``), and the
+gradients and metrics are summed over the data group before the optimizer
+call; under the model axis the trunk's and the fusion layers' heads and
+MLP columns and the MoE's experts are sharded (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from spokennlp_tpu_torch.models.encoder import Encoder
 from spokennlp_tpu_torch.models.multimodal import MultiModalForTS, MultimodalConfig
 from spokennlp_tpu_torch.objectives import mmvts_losses
 from spokennlp_tpu_torch.objectives.cssl import gather_sentence_features
+from spokennlp_tpu_torch.parallel.dist import data_parallel, sharded_batch
 from spokennlp_tpu_torch.train.optim import TrainOptimizer
 from spokennlp_tpu_torch.train.train_step import step_generator
 
@@ -129,19 +139,28 @@ def make_mmvts_train_step(model: MMVTSModel, optimizer, loss_kwargs: Dict,
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
+        dp = data_parallel()
         device = batch["input_ids"].device
         generator = step_generator(device, seed, calls[0])
         calls[0] += 1
-        out = model(batch["input_ids"], batch["attention_mask"], batch["clip_positions"],
-                    batch["clip_mask"], vis_feats=batch.get("vis_feats"),
-                    audio_feats=batch.get("audio_feats"), generator=generator)
         kwargs = dict(loss_kwargs)
         if "topic_cl_anchor_valid" in batch:
             kwargs["topic_cl_indices"] = {v: batch[k] for k, v in TOPIC_CL_KEYS.items()}
-        loss, aux = mmvts_losses.mmvts_total_loss(model.mm_cfg, out, batch["clip_labels"],
-                                                  batch["clip_mask"], **kwargs)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with sharded_batch(dp):
+            out = model(batch["input_ids"], batch["attention_mask"], batch["clip_positions"],
+                        batch["clip_mask"], vis_feats=batch.get("vis_feats"),
+                        audio_feats=batch.get("audio_feats"), generator=generator)
+            loss, aux = mmvts_losses.mmvts_total_loss(model.mm_cfg, out, batch["clip_labels"],
+                                                      batch["clip_mask"], dp=dp, **kwargs)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        metrics = {k: v.detach() for k, v in aux.items() if torch.is_tensor(v) and v.ndim == 0}
+        if dp is not None:
+            dp.all_reduce_(grads)
+            names = sorted(metrics)
+            shares = torch.stack([metrics[k].float() for k in names])
+            dp.all_reduce_([shares])
+            metrics = dict(zip(names, shares.unbind()))
         if isinstance(optimizer, TrainOptimizer):
             optimizer.step(grads)
         else:
@@ -149,7 +168,7 @@ def make_mmvts_train_step(model: MMVTSModel, optimizer, loss_kwargs: Dict,
                 p.grad = g
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-        return {k: v.detach() for k, v in aux.items() if torch.is_tensor(v) and v.ndim == 0}
+        return metrics
 
     return step
 

@@ -20,7 +20,16 @@ pytorch/language-modeling/run_clm.py:74-1022):
   (``max_to_keep=2``) as native checkpoints (models/checkpoint_io.py) where
   JAX keeps Orbax ones.
 
-One card: JAX's data-parallel mesh is not ported (ROADMAP, queue 1).
+Data parallel, as JAX shards SLD's batch over a data mesh: inside a
+``torch.distributed`` process group the trainer's ``batch_size`` stays the
+global batch (JAX's ``per_device_train_batch_size``; the world size must
+divide it), each rank trains on its block of rows, the time masks and the
+dropout masks are drawn over the global batch from the one generator every
+rank seeds alike (``dist.sharded_batch``), the loss's denominators are the
+global batch's (the CEs' label counts summed over the ranks, the KL's
+"batchmean" over the global B), and the gradients are summed over the ranks
+before clipping. Every rank decodes the whole eval set (the same WER/CER);
+rank 0 writes the checkpoints. SLD never uses the model axis.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from spokennlp_tpu_torch.ops.losses import cross_entropy_with_ignore
+from spokennlp_tpu_torch.parallel import dist as dist_lib
 
 IGNORE = -100
 
@@ -95,22 +105,25 @@ def pack_example(
 
 def time_mask_inputs(input_ids: torch.Tensor, generator: Optional[torch.Generator],
                      cfg: SLDConfig) -> torch.Tensor:
-    """Randomly replace a fraction of input tokens with EOS (:788-791)."""
+    """Randomly replace a fraction of input tokens with EOS (:788-791); under
+    ``dist.sharded_batch`` the mask is the global batch's, cut to this
+    rank's rows."""
     if cfg.time_masking <= 0:
         return input_ids
-    mask = torch.rand(input_ids.shape, generator=generator,
-                      device=input_ids.device) < cfg.time_masking
+    mask = dist_lib.draw_rand(input_ids.shape, generator, input_ids.device) < cfg.time_masking
     return torch.where(mask, cfg.eos_token_id, input_ids)
 
 
 def sld_loss(logits: torch.Tensor, labels: torch.Tensor, attention_mask: torch.Tensor,
-             cfg: SLDConfig):
+             cfg: SLDConfig, dp=None):
     """The reference composite loss, exactly (:787-831).
 
     logits: (B, L, V_total); labels/attention_mask: (B, L).
-    Returns (loss, {"ce_speech", "ce_text", "kl_speech"}).
+    Returns (loss, {"ce_speech", "ce_text", "kl_speech"}). ``dp``: the rows
+    are this rank's of a global batch and the loss is its share (the CEs'
+    label counts and the KL's B are the global batch's).
     """
-    B = logits.shape[0]
+    B = logits.shape[0] * (dp.world_size if dp is not None else 1)
     Vs = cfg.vocab_size_speech
     T = cfg.kl_temperature
     eps = 1e-9
@@ -136,8 +149,8 @@ def sld_loss(logits: torch.Tensor, labels: torch.Tensor, attention_mask: torch.T
     shift_labels = labels[:, 1:].long()
     text_labels = torch.where(shift_labels >= cfg.gpt_vocab_size + 1, IGNORE, shift_labels)
     speech_labels = torch.where(shift_labels < cfg.gpt_vocab_size + 1, IGNORE, shift_labels)
-    loss_ce_text = cross_entropy_with_ignore(shift_logits, text_labels)
-    loss_ce_speech = cross_entropy_with_ignore(shift_logits, speech_labels)
+    loss_ce_text = cross_entropy_with_ignore(shift_logits, text_labels, dp=dp)
+    loss_ce_speech = cross_entropy_with_ignore(shift_logits, speech_labels, dp=dp)
 
     loss = (
         cfg.weight_ce_speech * loss_ce_speech
@@ -153,26 +166,42 @@ def make_sld_train_step(model, cfg: SLDConfig, optimizer: torch.optim.Optimizer,
     """step(batch of tensors) -> metrics: time masking and dropout from
     ``generator``, the SLD loss, then (after optax's global-norm clip when
     ``clip_grad_norm`` > 0) ``optimizer``'s step and ``scheduler``'s.
-    The metrics are the loss and its parts before the update, as in JAX."""
-    from spokennlp_tpu_torch.train.optim import clip_by_global_norm_
+    The metrics are the loss and its parts before the update, as in JAX,
+    and the gradient norm before clipping. Inside a process group the batch
+    holds this rank's rows of the global batch: the masks are drawn over
+    the global batch, the loss is this rank's share, the gradients and the
+    metrics are summed over the ranks before the clip."""
+    from spokennlp_tpu_torch.train.optim import clip_by_global_norm_, global_norm
 
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
-        ids = time_mask_inputs(batch["input_ids"], generator, cfg)
-        out = model(ids, attention_mask=batch["attention_mask"], generator=generator)
-        loss, aux = sld_loss(out["logits"], batch["labels"], batch["attention_mask"], cfg)
+        dp = dist_lib.data_parallel()
+        with dist_lib.sharded_batch(dp):
+            ids = time_mask_inputs(batch["input_ids"], generator, cfg)
+            out = model(ids, attention_mask=batch["attention_mask"], generator=generator)
+            loss, aux = sld_loss(out["logits"], batch["labels"], batch["attention_mask"], cfg,
+                                 dp)
         grads = torch.autograd.grad(loss, params)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        if dp is not None:
+            dp.all_reduce_(grads)
+            names = sorted(metrics)
+            shares = torch.stack([metrics[k].float() for k in names])
+            dp.all_reduce_([shares])
+            metrics = dict(zip(names, shares.unbind()))
         if clip_grad_norm > 0:
-            clip_by_global_norm_(grads, clip_grad_norm)
+            metrics["grad_norm"] = clip_by_global_norm_(grads, clip_grad_norm)
+        else:
+            metrics["grad_norm"] = global_norm(grads)
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         if scheduler is not None:
             scheduler.step()
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        return metrics
 
     return step
 
@@ -258,6 +287,13 @@ class SLDTrainer:
         self.checkpoint_dir = checkpoint_dir
         self.metric_for_best = metric_for_best
         self.device = next(model.parameters()).device
+        self.rank, self.world_size = dist_lib.data_rank(), dist_lib.data_size()
+        if batch_size % self.world_size:
+            raise ValueError(f"--per_device_train_batch_size {batch_size} (the global batch, as "
+                             f"in JAX) does not divide over {self.world_size} data-parallel ranks")
+        dp = dist_lib.data_parallel()
+        if dp is not None:  # every rank starts from the first rank's weights
+            dp.broadcast_([p.data for p in model.parameters()])
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step_fn = make_sld_train_step(model, cfg, optimizer, self.generator, scheduler,
                                            clip_grad_norm)
@@ -321,6 +357,9 @@ class SLDTrainer:
         ``max_to_keep=2`` and ``best_fn`` does."""
         if not self.checkpoint_dir:
             return
+        if dist_lib.rank() != 0:
+            dist_lib.barrier()
+            return
         from spokennlp_tpu_torch.models import checkpoint_io
 
         path = os.path.join(os.path.abspath(self.checkpoint_dir), str(epoch))
@@ -334,6 +373,7 @@ class SLDTrainer:
         for _, old in ranked[:-2]:
             shutil.rmtree(os.path.join(os.path.abspath(self.checkpoint_dir), str(old)))
         self._kept = [e for e in self._kept if e in ranked[-2:]]
+        dist_lib.barrier()
 
     def train(self) -> Dict:
         data_rng = np.random.default_rng(self.seed)
@@ -341,6 +381,8 @@ class SLDTrainer:
         for epoch in range(1, self.num_epochs + 1):
             losses = []
             for batch in self._batches(data_rng):
+                per = self.batch_size // self.world_size  # this rank's block of rows
+                batch = {k: v[self.rank * per:(self.rank + 1) * per] for k, v in batch.items()}
                 tb = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
                 metrics = self.step_fn(tb)
                 losses.append(float(metrics["loss"]))

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from spokennlp_tpu_torch.configs import TrainConfig
+from spokennlp_tpu_torch.parallel.mesh import shard_axis
 
 
 def linear_warmup_schedule(base_lr: float, total_steps: int,
@@ -106,7 +107,7 @@ class TrainOptimizer:
             grads = torch._foreach_div(self._acc, float(k))
         else:
             self.micro_step += 1
-        clip_by_global_norm_(grads, self.max_grad_norm)
+        clip_by_global_norm_(grads, self.max_grad_norm, self.params)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.optimizer.step()
@@ -125,15 +126,28 @@ class TrainOptimizer:
         self.micro_step = state["micro_step"]
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all gradients, in float32."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([g.float() for g in grads])))
+def global_norm(grads: Sequence[torch.Tensor],
+                params: Sequence[nn.Parameter] = ()) -> torch.Tensor:
+    """sqrt(sum of squares) over all gradients, in float32. With the
+    ``params`` they belong to, model-sharded ones (``parallel/mesh.py``)
+    count their squares summed over the model group and whole ones once:
+    the norm of the logical arrays, as optax's ``clip_by_global_norm``
+    reads it over JAX's sharded tree."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    axes = [shard_axis(p) for p in params]
+    ax = next((a for a in axes if a is not None), None)
+    if ax is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = lambda sel: torch.stack([n * n for n, a in zip(norms, axes) if sel(a)]).sum()
+    return torch.sqrt(ax.total(sq(lambda a: a is not None)) + sq(lambda a: a is None))
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         params: Sequence[nn.Parameter] = ()) -> torch.Tensor:
     """Scale the gradients in place by max_norm / norm when norm >= max_norm
-    (optax's clip_by_global_norm); returns the norm before clipping."""
-    norm = global_norm(grads)
+    (optax's clip_by_global_norm); returns the norm before clipping
+    (``params``: see ``global_norm``)."""
+    norm = global_norm(grads, params)
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(list(grads), scale)
     return norm

@@ -15,10 +15,16 @@ streams.
 Under data parallel (a ``torch.distributed`` process group; parallel/dist.py)
 each rank runs the step on its rows of the global batch: the loss is its
 share of the global loss (global denominators, CSSL over every rank's
-features), the gradients are summed over the ranks in one coalesced
+features), the gradients are summed over the data group in one coalesced
 all-reduce before the gradient norm and the optimizer call, so clipping
 reads the global norm as optax does after JAX's psum, and the metrics are
-summed over the ranks. Every rank then takes the same AdamW step. DDP is
+summed over the data group. Every rank then takes the same AdamW step. The
+generator is the same on every rank and the step runs under
+``dist.sharded_batch``, so each dropout mask is drawn over the global batch
+and the rank keeps its rows: the masks are the single-process ones. Under
+the model axis (``--model_parallel_size``) the ranks of one data line take
+the same rows, the sharded parameters' gradients stay on their ranks, and
+the gradient norm counts them over the model group (optim.global_norm). DDP is
 not used: it reduces in hooks of ``backward()``, where the step takes
 ``torch.autograd.grad``, and it would leave the gradient norm and the
 losses to be reduced apart anyway; one all-reduce of one flat buffer a
@@ -34,7 +40,7 @@ import torch
 
 from spokennlp_tpu_torch.configs import TopicSegConfig
 from spokennlp_tpu_torch.models.topic_seg import compute_topic_seg_loss
-from spokennlp_tpu_torch.parallel.dist import data_parallel
+from spokennlp_tpu_torch.parallel.dist import data_parallel, sharded_batch
 from spokennlp_tpu_torch.train.optim import TrainOptimizer, global_norm
 
 CSSL_KEYS = {
@@ -51,10 +57,11 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[
             for k, v in batch.items()}
 
 
-def step_generator(device: torch.device, seed: int, step: int, rank: int = 0) -> torch.Generator:
-    """The generator of one micro-step's dropout masks and kernel seeds
-    (another stream on each data-parallel rank)."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step + rank * 7_919)
+def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
+    """The generator of one micro-step's dropout masks and kernel seeds, the
+    same on every data-parallel rank (the steps draw over the global batch,
+    ``dist.sharded_batch``)."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
 
 
 def make_topic_seg_train_step(
@@ -92,14 +99,16 @@ def make_topic_seg_train_step(
         model.train()
         dp = data_parallel()
         device = batch["input_ids"].device
-        generator = step_generator(device, seed, optimizer.micro_step, dp.rank if dp else 0)
-        anchor_out = apply_view(batch, 0, generator)
-        da_out = apply_view(batch, 1, generator) if with_da else None
-        cssl_indices = None
-        if "cssl_anchor_indices" in batch:
-            cssl_indices = {v: batch[k] for k, v in CSSL_KEYS.items()}
-        loss, aux = compute_topic_seg_loss(task_cfg, anchor_out, da_out, batch, cssl_indices, dp)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        generator = step_generator(device, seed, optimizer.micro_step)
+        with sharded_batch(dp):  # the backward too: checkpointed layers redraw there
+            anchor_out = apply_view(batch, 0, generator)
+            da_out = apply_view(batch, 1, generator) if with_da else None
+            cssl_indices = None
+            if "cssl_anchor_indices" in batch:
+                cssl_indices = {v: batch[k] for k, v in CSSL_KEYS.items()}
+            loss, aux = compute_topic_seg_loss(task_cfg, anchor_out, da_out, batch,
+                                               cssl_indices, dp)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a parameter the loss does not reach (the TSSP head without TSSP)
         # gets a zero gradient, as jax.grad gives it: AdamW still decays it
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
@@ -110,7 +119,7 @@ def make_topic_seg_train_step(
             shares = torch.stack([metrics[k].float() for k in names])
             dp.all_reduce_([shares])
             metrics = dict(zip(names, shares.unbind()))
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = global_norm(grads, params)
         optimizer.step(grads)
         return metrics
 

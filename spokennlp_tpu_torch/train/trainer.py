@@ -13,13 +13,16 @@ Counterpart of ``TopicSegTrainer`` in ``spokennlp_tpu/train/trainer.py``:
   best by ``metric_for_best`` are kept, as the JAX trainer's Orbax manager
   keeps them;
 - ``restore_latest`` resumes from the newest kept checkpoint;
-- inside a ``torch.distributed`` process group (data parallel, one process
-  a card): the global batch is ``per_device_batch_size`` x world size, every
-  rank builds the same batches from the same seed and trains on its rows
+- inside a ``torch.distributed`` process group (one process a card): the
+  global batch is ``per_device_batch_size`` x the data axis's size (the
+  world size over ``model_parallel_size``), every rank builds the same
+  batches from the same seed and trains on its data rank's rows
   (``parallel.mesh.shard_batch``; short batches repeat their last row
-  first), the weights start from rank 0's; eval splits the windows over the
-  ranks and gathers the predictions with ``allgather_ragged``, as JAX's
-  trainer does; rank 0 alone logs and writes checkpoints.
+  first; the ranks of one data line take the same rows), the weights start
+  from the first data rank's; eval splits the windows over the data ranks
+  and gathers the predictions with ``allgather_ragged``, as JAX's trainer
+  does; rank 0 alone logs and writes checkpoints, which hold the whole
+  weights and optimizer state (a model-sharded run gathers them first).
 """
 
 from __future__ import annotations
@@ -103,9 +106,13 @@ class TopicSegTrainer:
         self.train_docs = list(train_docs)
         self.eval_docs = list(eval_docs) if eval_docs else None
         self.metric_for_best = metric_for_best
-        mesh_lib.check_model_parallel(train_cfg.model_parallel_size)
-        self.rank, self.world_size = dist_lib.rank(), dist_lib.world_size()
-        self.is_main = self.rank == 0
+        mesh_lib.check_model_parallel(train_cfg.model_parallel_size, dist_lib.world_size())
+        if dist_lib.mesh().model_size != train_cfg.model_parallel_size:
+            raise ValueError(f"model_parallel_size={train_cfg.model_parallel_size}: the mesh has "
+                             f"{dist_lib.mesh().model_size} model ranks (dist.make_mesh, "
+                             "mesh.shard_module_ before the trainer)")
+        self.rank, self.world_size = dist_lib.data_rank(), dist_lib.data_size()
+        self.is_main = dist_lib.rank() == 0
         self.metrics_log = MetricLogger(log_path if self.is_main else None,
                                         train_cfg.tensorboard_dir if self.is_main else None)
         self.batch_size = train_cfg.per_device_batch_size * self.world_size
@@ -249,6 +256,10 @@ class TopicSegTrainer:
         wait for it."""
         if self.checkpoint_dir is None:
             return
+        # every rank gathers (the model axis's collectives); rank 0 writes
+        model_state = mesh_lib.gather_state_dict(self.model)
+        opt_state = mesh_lib.gather_optimizer_state(self.optimizer.state_dict(),
+                                                    self.optimizer.optimizer)
         if not self.is_main:
             dist_lib.barrier()
             return
@@ -256,7 +267,7 @@ class TopicSegTrainer:
         root.mkdir(parents=True, exist_ok=True)
         name = f"step_{step}.pt"
         tmp = root / f"{name}.tmp"
-        torch.save({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+        torch.save({"model": model_state, "optimizer": opt_state,
                     "step": step, "metrics": {k: float(v) for k, v in eval_metrics.items()}}, tmp)
         os.replace(tmp, root / name)
         entries = [e for e in self._index(root) if e["step"] != step]
@@ -278,6 +289,7 @@ class TopicSegTrainer:
             return False
         latest = max(entries, key=lambda e: e["step"])
         state = torch.load(root / latest["file"], map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.model.load_state_dict(mesh_lib.shard_state_dict(state["model"], self.model))
+        self.optimizer.load_state_dict(mesh_lib.shard_optimizer_state(state["optimizer"],
+                                                                      self.optimizer.optimizer))
         return True

@@ -131,8 +131,11 @@ def test_shard_batch_and_model_parallel_checks():
     np.testing.assert_array_equal(got["cssl_anchor_indices"], np.arange(5))
     with pytest.raises(ValueError, match="not divisible"):
         mesh.shard_batch(batch, 0, 3)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="--model_parallel_size 2 does not divide"):
         mesh.check_model_parallel(2)
+    with pytest.raises(ValueError, match="--model_parallel_size 3 does not divide"):
+        mesh.check_model_parallel(3, 4)
+    mesh.check_model_parallel(2, 4)
     assert [mesh.rank_rows(5, r, 2) for r in range(2)] == [(0, 3), (3, 6)]
     assert [mesh.rank_rows(1, r, 2) for r in range(2)] == [(0, 1), (1, 2)]
 

@@ -214,20 +214,16 @@ def test_pretrain_mode_on_the_port(tmp_path, monkeypatch):
 
 
 def test_multimodal_cli_runs_in_one_process(tmp_path, monkeypatch):
-    """Modality InfoNCE and the matrix topic CL take negatives across the
-    whole batch: under a world size above 1 or a model-parallel size above
-    1 the CLI raises and names the ROADMAP item; without a card the default
-    device raises."""
+    """In one process a model-parallel size that does not divide the world
+    size (1) raises and names the flag (the multi-rank runs are in
+    tests/test_torch_mmvts_dist.py); without a card the default device
+    raises."""
     from spokennlp_tpu_torch.cli import run_finetune_multimodal as tcli
 
     base = ["--data_dir", str(tmp_path), "--dataset_name", "clvts", "--output_dir",
             str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="--model_parallel_size 2 does not divide"):
         tcli.main(base + ["--model_parallel_size", "2"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="data parallel for MMVTS"):
-        tcli.main(base)
-    monkeypatch.delenv("WORLD_SIZE")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(base[:-2])

@@ -103,3 +103,82 @@ def worker(payload):
     inf = run_inference.main(flags + ["--output_dir", payload["out"] + "/inf"])
     res["inference"] = {k: float(v) for k, v in inf["metrics"].items()}
     return res
+
+
+# --------------------------------------------------------------------------
+# tests/test_torch_sld_dist.py, test_torch_mmvts_dist.py and
+# test_torch_model_parallel.py: what their gloo ranks run
+
+
+def sld_worker(payload):
+    """SLD data parallel: the step (dryrun.sld_step), its planted per-rank
+    mean, then run_sld inside the group."""
+    from spokennlp_tpu_torch import dryrun
+    from spokennlp_tpu_torch.cli import run_sld
+
+    res = {"step": dryrun.sld_step(dryrun.SLD_TINY),
+           "fault": dryrun.sld_step({**dryrun.SLD_TINY, "fault": "per_rank_mean"})}
+    res["cli"] = run_sld.main(payload["flags"] + ["--output_dir", payload["out"]])
+    return res
+
+
+def mmvts_worker(payload):
+    """MMVTS on two ranks: the step at mp 1 and 2 (dryrun.mmvts_step), the
+    three planted per-rank shortcuts, then run_finetune_multimodal inside
+    the group at mp 1 and 2."""
+    from spokennlp_tpu_torch import dryrun
+    from spokennlp_tpu_torch.cli import run_finetune_multimodal
+
+    tiny = dryrun.MMVTS_TINY
+    res = {f"mp {mp}": dryrun.mmvts_step({**tiny, "mp": mp}) for mp in (1, 2)}
+    for fault in ("per_rank_mean", "per_rank_capacity", "per_rank_topic_ids"):
+        res[fault] = dryrun.mmvts_step({**tiny, "fault": fault})
+    for name, extra in payload["clis"].items():
+        res[name] = run_finetune_multimodal.main(
+            payload["flags"] + extra + ["--output_dir", f"{payload['out']}/{name}"])
+    return res
+
+
+def mp_worker(payload):
+    """The model axis: the topic-segmentation step on both paths of
+    dryrun.MP_IMPLS (and its gradient norm counted on each rank's shards
+    alone, the planted fault), then the CLIs with --model_parallel_size 2
+    and a native checkpoint through the mesh both ways."""
+    from spokennlp_tpu_torch import dryrun
+    from spokennlp_tpu_torch.cli import (
+        common, run_finetune, run_finetune_multimodal, run_inference,
+    )
+    from spokennlp_tpu_torch.models import checkpoint_io
+    from spokennlp_tpu_torch.parallel import dist
+    from spokennlp_tpu_torch.train import train_step
+
+    batch = dryrun.synthetic_batch(payload["rows"])
+    res = {f"{trunk} {impl}": dryrun.train_step_metrics(trunk, batch, impl, 2)
+           for trunk in dryrun.MP_TRUNKS for impl in dryrun.MP_IMPLS}
+    real = train_step.global_norm
+    train_step.global_norm = lambda grads, params=(): real(grads)  # each rank's shards alone
+    try:
+        res["fault"] = dryrun.train_step_metrics("dense", batch, "einsum", 2)
+    finally:
+        train_step.global_norm = real
+    for name, flags in payload.get("clis", {}).items():
+        if name == "inference":
+            res[name] = {k: float(v) for k, v in run_inference.main(flags)["metrics"].items()}
+        else:
+            res[name] = (run_finetune_multimodal if name == "mmvts" else run_finetune).main(flags)
+    if "checkpoint_in" in payload:  # a whole checkpoint into the sharded model, and back out
+        enc, task, _ = configs()
+        import torch
+
+        from spokennlp_tpu_torch.models.topic_seg import TopicSegModel
+
+        model = common.place_on_mesh(
+            TopicSegModel(enc, task, generator=torch.Generator().manual_seed(0)), 2)
+        params, _ = checkpoint_io.load_checkpoint(payload["checkpoint_in"])
+        common.load_pretrained_into(model, params)
+        state = checkpoint_io.model_state(model)
+        if dist.rank() == 0:
+            checkpoint_io.save_checkpoint(payload["checkpoint_out"],
+                                          checkpoint_io.params_from_state_dict(state))
+        res["sharded_params"] = sum(hasattr(p, "model_shard") for p in model.parameters())
+    return res

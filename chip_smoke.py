@@ -1960,6 +1960,42 @@ def rows_kernel_phase(device, rows: dict):
               f"({b['bound_by']}){lib}")
         return gate
 
+    def global_tiles(label, row, launch, qkv, n_valid, dctx, f32=False, ctx_dtype=None):
+        """The BigBird global tiles alone (bigbird_rows_kernel launched on
+        them, device time) in a mode of bigbird_rows, beside their bound
+        (a global row against each real key: 4 hd operations a pair, 2 hd
+        more with dP; the real keys' k and v, the rows' q, ctx and with dctx
+        dctx and the statistics, read or written once) and SDPA on the same
+        q, k, v with the key-padding mask (the forwards); and the other
+        tiles alone (window_tiles_ms)."""
+        GC = BB_GLOBAL * BB_BLOCK
+        ms = kernel_device_ms(lambda: launch(parts="global"), "bigbird_rows_kernel")
+        row["window_tiles_ms"] = kernel_device_ms(lambda: launch(parts="window"),
+                                                  "bigbird_rows_kernel")
+        elt = qkv.element_size()
+        pairs = GC * NH * int(n_valid.sum())
+        flops = 4 * HD * pairs * (1.5 if dctx is not None else 1.0)
+        io = (2 * NH * HD * int(n_valid.sum()) * elt + qkv.shape[1] * NH * GC * HD * elt
+              + qkv.shape[1] * GC * HN * (4 if f32 or ctx_dtype == torch.float32 else elt))
+        if dctx is not None:
+            io += qkv.shape[1] * GC * HN * elt + 3 * qkv.shape[1] * NH * GC * 4
+        b = bound(flops, io, "tf32x3" if f32 else "bfloat16")
+        row.update(global_tiles_ms=ms, global_tiles_bound_ms=b["bound_ms"],
+                   global_tiles_bound_by=b["bound_by"])
+        lib = ""
+        if dctx is None:
+            q, k, v = qkv.unbind(0)
+            keys = (torch.arange(qkv.shape[3], device=device)[None]
+                    < n_valid[:, None])[:, None, None]
+            qg = q[:, :, :GC].contiguous()
+            row["global_tiles_library_ms"] = library_time(
+                lambda: F.scaled_dot_product_attention(qg, k, v, attn_mask=keys, scale=1.0),
+                f"{label}'s global rows (scaled_dot_product_attention, key-padding mask)")
+            lib = f", SDPA on the global rows {row['global_tiles_library_ms']:.4f} ms"
+        print(f"kernel {label}, its global tiles alone: {ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}){lib}; the other tiles alone "
+              f"{row['window_tiles_ms']:.4f} ms")
+
     def sdpa_ms(qkv, allowed, label, scale=1.0):
         q, k, v = qkv.unbind(0)
         return library_time(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
@@ -2120,14 +2156,16 @@ def rows_kernel_phase(device, rows: dict):
         keep = tbb.bigbird_keep_masks(seed, Bq, NH, Lq, BB_BLOCK, t.G, t.R, DROPOUT)
         for label, name, rate, cdt, grad in modes:
             dc = dctx if grad else None
-            run(label, "bigbird_rows", rows[name, "bfloat16"],
-                lambda: tbb.bigbird_rows(qkv, counts, seed, t, block_size=BB_BLOCK, dctx=dc,
-                                         dropout_rate=rate, ctx_dtype=cdt),
+            launch = lambda parts="all": tbb.bigbird_rows(
+                qkv, counts, seed, t, block_size=BB_BLOCK, dctx=dc, dropout_rate=rate,
+                ctx_dtype=cdt, parts=parts)
+            run(label, "bigbird_rows", rows[name, "bfloat16"], launch,
                 lambda: tbb.bigbird_rows_model(
                     qkv[0], qkv[1], qkv[2], n_valid, t, block_size=BB_BLOCK, dropout_rate=rate,
                     keep=keep if rate else None, ctx_dtype=cdt,
                     dctx=None if dc is None else dc.reshape(Bq, Lq, NH, HD)),
                 pairs, qkv, dc, None if grad else lib)
+            global_tiles(label, rows[name, "bfloat16"], launch, qkv, n_valid, dc, ctx_dtype=cdt)
         del qkv, dctx, keep
         torch.cuda.empty_cache()
 
@@ -2185,14 +2223,16 @@ def rows_kernel_phase(device, rows: dict):
         keep = tbb.bigbird_keep_masks(seed, Bq, NH, Lq, BB_BLOCK, t.G, t.R, DROPOUT)
         for label, name, rate, grad in modes:
             dc = dctx if grad else None
-            run(label, "bigbird_rows", rows[name, "float32"],
-                lambda: tbb.bigbird_rows(qkv, counts, seed, t, block_size=BB_BLOCK, dctx=dc,
-                                         dropout_rate=rate),
+            launch = lambda parts="all": tbb.bigbird_rows(
+                qkv, counts, seed, t, block_size=BB_BLOCK, dctx=dc, dropout_rate=rate,
+                parts=parts)
+            run(label, "bigbird_rows", rows[name, "float32"], launch,
                 lambda: tbb.bigbird_rows_model(
                     qkv[0], qkv[1], qkv[2], n_valid, t, block_size=BB_BLOCK, dropout_rate=rate,
                     keep=keep if rate else None,
                     dctx=None if dc is None else dc.reshape(Bq, Lq, NH, HD)),
                 pairs, qkv, dc, None if grad else lib, f32=True)
+            global_tiles(label, rows[name, "float32"], launch, qkv, n_valid, dc, f32=True)
         del qkv, dctx, keep
         torch.cuda.empty_cache()
     for name in ("sliding_attention_block", "bigbird_attention_block"):
@@ -4294,6 +4334,21 @@ def ponet_kernel_phase(device) -> dict:
             if ptype == "tf32x3":
                 row["simt_bound_ms"] = bound(products + elementwise, io, "float32")["bound_ms"]
             row.update(max_abs_err=err, work_gflop=(products + elementwise) / 1e9)
+            # the pooling chain alone (GA's and SMP/LMP/mix's kernels, device
+            # time) beside its bytes bound: GA reads q, k and v, SMP/LMP/mix
+            # s, l and q and writes mixed, each once
+            elt = hidden.element_size()
+            for part, prefix, n_bytes in (("ga", "ga_", 3 * M * H * elt),
+                                          ("smp", "smp_", 4 * M * H * elt)):
+                row[f"{part}_ms"] = kernel_device_ms(lambda: call(pb.fused_ponet_mixer_block),
+                                                     prefix)
+                row[f"{part}_bound_ms"] = bound(0, n_bytes)["bound_ms"]
+            row.update(pool_ms=row["ga_ms"] + row["smp_ms"],
+                       pool_bound_ms=row["ga_bound_ms"] + row["smp_bound_ms"])
+            print(f"  {name} {dtype}, the pooling chain: GA {row['ga_ms']:.4f} ms (bound "
+                  f"{row['ga_bound_ms']:.4f}), SMP/LMP/mix {row['smp_ms']:.4f} ms (bound "
+                  f"{row['smp_bound_ms']:.4f}), both bound by bytes; no library call computes "
+                  "them")
             if quantized:  # the library column: torch._int_mm on the six products only
                 x8 = im.rowquant_plain(hidden.reshape(M, H))[0]
                 wp8 = im.quantize_colwise(params["proj_kernels"])[0]

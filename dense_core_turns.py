@@ -18,19 +18,26 @@ use and printing one JSON line:
   B=32, L=512, 12 heads of 64, dropout 0.1 (padded tails, two packed
   windows on odd rows); the card's SM clock and power draw read after each;
 - the device time of one call of each, by kernel name (torch.profiler):
-  kernel 9's projections GEMM (``gemm_bias_act``), GA (``ga_``), SMP and
-  the mix (``smp_``) and the out projection with LayerNorm
+  kernel 9's projections GEMM (``gemm_bias_act``), GA (``ga_ms``, the sum
+  of each GA kernel's: the column sums ``ga_partial``, g's ``ga_finish``,
+  the scores ``ga_scores``, the softmax ``ga_softmax``), SMP,
+  LMP and the mix (``smp_ms``, the sum of the tile summaries ``smp_tiles``,
+  the parent's ``smp_edges``, the scan ``smp_scan``, which also finishes
+  GA's pooled value, and ``smp_mix``) and the out projection with LayerNorm
   (``residual_ln``); row 10's projections (``qkv_proj``), ``attn_rows``
   (the forward's, or the backward's statistics pass), ``attn_dq``,
   ``attn_dkv``, the other GEMMs (``gemm_bias_act``: the out projection, or
   dctx and dx), the weight gradients and the rest;
 - the peak device memory of one row 10 backward in bf16;
 - sha256 digests of what must not move: the digests of
-  ``backward_gemm_turns.py`` (every output of rows 1-8 and 11-13 in every
+  ``backward_gemm_turns.py`` (every output of rows 1-7 and 11-12 in every
   mode, kernel 9 in bf16 and W8A8, row 10 in float32) without row 10's
-  bf16 forward, and kernel 9 in W8A8 with float32 activations;
-- digests of kernel 9 in float32 and of row 10's bf16 forward and backward
-  from two calls, which must be equal within this checkout.
+  bf16 forward, kernel 9 in W8A8 with float32 activations and the timed
+  kernel 9 calls' outputs in bf16 and float32 (kernel 8's and row 13's are
+  left to ``rows_core_turns.py``: their BigBird global rows sum in another
+  order since the global tiles split over clusters);
+- digests of row 10's bf16 forward and backward from two calls, which must
+  be equal within this checkout.
 
 With ``--dtype float32`` each process prints instead:
 
@@ -48,8 +55,8 @@ With ``--dtype float32`` each process prints instead:
   float32 dense serving (``run_inference`` at batch 32, ``auto``: the
   stack kernel), both through the checkout's own ``chip_smoke.py``;
 - digests of what must not move: those of ``backward_gemm_turns.py``
-  (every bf16 and W8A8 output of rows 1-13 and kernels 1-9, the bf16
-  backwards included, kernel 9 and rows 11-13 in float32) but row 10's
+  (every bf16 and W8A8 output of rows 1-12 and kernels 1-9 but 8, the bf16
+  backwards included, kernel 9 and rows 11-12 in float32) but row 10's
   float32 forward and backward, and kernels 2, 7 and 8 in float32; and
   two-call digests of the timed float32 outputs, which may move but must
   repeat within a checkout.
@@ -62,6 +69,13 @@ only two checkouts measured in one call are compared.
     python3 dense_core_turns.py --measure
 
 measures the checkout the script is run from (its working directory) alone.
+
+    python3 dense_core_turns.py --parent DIR --paths
+
+reads instead, in the same turns, MUG Track 1 end to end through each
+checkout's ``chip_smoke.py`` (phase 16: ``run_mug`` from a PoNet-base
+checkpoint in float32 and W8A8, then ``predict_boundaries`` on the kernel
+path, windows/s by host clock).
 """
 
 from __future__ import annotations
@@ -85,12 +99,25 @@ SPLIT = (("rows", ("attn_rows_kernel",)),
          ("gemm", ("gemm_bias_act",)),
          ("out", ("residual_ln",)),
          ("wgrad", ("weight_grad",)),
-         ("ga", ("ga_",)),
-         ("smp", ("smp_",)))
+         ("ga_partial", ("ga_partial",)),
+         ("ga_finish", ("ga_finish",)),
+         ("ga_scores", ("ga_scores",)),
+         ("ga_softmax", ("ga_softmax",)),
+         ("smp_tiles", ("smp_tiles",)),
+         ("smp_edges", ("smp_edges",)),
+         ("smp_scan", ("smp_scan",)),
+         ("smp_mix", ("smp_mix",)))
+# parts of SPLIT summed into kernel 9's pooling chain: GA, and SMP, LMP and
+# the mix
+GROUPS = {"ga": ("ga_partial", "ga_finish", "ga_scores", "ga_softmax"),
+          "smp": ("smp_tiles", "smp_edges", "smp_scan", "smp_mix")}
 # backward_gemm_turns.py's digests that the work measured in each dtype
-# moves: row 10's bf16 forward, or row 10's float32 forward and backward
-MOVED = {"bfloat16": ("digest row 10 forward bfloat16",),
-         "float32": ("digest row 10 forward float32", "digest row 10 backward float32")}
+# moves: row 10's bf16 forward, or row 10's float32 forward and backward;
+# and in both, kernel 8's and row 13's, whose BigBird global rows sum in
+# another order (rows_core_turns.py holds their other rows)
+BIGBIRD = ("digest kernel 8 ", "digest row 13 ")
+MOVED = {"bfloat16": ("digest row 10 forward bfloat16",) + BIGBIRD,
+         "float32": ("digest row 10 forward float32", "digest row 10 backward float32") + BIGBIRD}
 
 
 def device_split(fn, call_ms=None, tries: int = 3) -> dict:
@@ -123,6 +150,9 @@ def device_split(fn, call_ms=None, tries: int = 3) -> dict:
             best = split
         if call_ms is None or sum(best.values()) >= 0.9 * call_ms:
             break
+    for group, parts in GROUPS.items():
+        if any(f"{k}_ms" in best for k in parts):
+            best[f"{group}_ms"] = sum(best.get(f"{k}_ms", 0.0) for k in parts)
     return best
 
 
@@ -304,7 +334,9 @@ def measure(reps: int, dtype: str = "bfloat16") -> dict:
             out[f"{name} {dtype} ms"] = time_ms(fn, reps)
             out[f"{name} {dtype} sm clock, power draw"] = smi("clocks.sm,power.draw")
             out.update({f"{name} {dtype} {k}": v for k, v in device_split(fn).items()})
-            if (name == "kernel 9") == (dtype == "float32"):  # what may move
+            if name == "kernel 9":  # must not move
+                out[f"digest {name} {dtype}"] = digest(fn())
+            elif dtype == "bfloat16":  # may move
                 for run in ("a", "b"):
                     out[f"twice {name} {dtype} run {run}"] = digest(fn())
         if dtype == "float32":
@@ -319,11 +351,27 @@ def measure(reps: int, dtype: str = "bfloat16") -> dict:
     return out
 
 
+def paths() -> dict:
+    """{path: windows/s} of MUG Track 1 on the checkout on sys.path, through
+    its chip_smoke.py's phase 16 (the same corpus, checkpoints and flags)."""
+    import contextlib
+    import tempfile
+
+    import chip_smoke as cs
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(sys.stderr):
+        mug = cs.mug_path(cs.ponet_checkpoints(Path(tmp)),
+                          cs.write_mug_corpus(Path(tmp) / "mug", n_train=3, n_eval=4), Path(tmp))
+    return {f"MUG Track 1 {label}, kernel path, windows/s": mug[label]["kernel"]["windows_per_s"]
+            for label in ("float32", "W8A8")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="the other checkout's root")
     ap.add_argument("--measure", action="store_true", help="measure this checkout alone")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--paths", action="store_true", help="MUG Track 1 end to end instead")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="bfloat16: kernel 9 and row 10; float32: the float32 dense cores")
     args = ap.parse_args()
@@ -334,7 +382,7 @@ def main() -> int:
         return 1
     if args.measure:
         sys.path.insert(0, os.getcwd())  # the measured checkout, before the script's own
-        print(json.dumps(measure(args.reps, args.dtype)))
+        print(json.dumps(paths() if args.paths else measure(args.reps, args.dtype)))
         return 0
     if not args.parent:
         ap.error("--parent or --measure")
@@ -346,7 +394,8 @@ def main() -> int:
         root = roots[label]
         env = {**os.environ, "PYTHONPATH": str(root)}
         proc = subprocess.run([sys.executable, str(here / "dense_core_turns.py"), "--measure",
-                               "--reps", str(args.reps), "--dtype", args.dtype], cwd=root,
+                               "--reps", str(args.reps), "--dtype", args.dtype]
+                              + ["--paths"] * args.paths, cwd=root,
                               env=env, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)

@@ -28,17 +28,26 @@ use and printing one JSON line:
   (``residual_ln``, ``gemm_bias_act``), the weight gradients, the
   backwards' gradient kernels and the rest (counts, casts, row
   quantisation, memsets);
-- sha256 digests of what must not move: every float32 output of kernels 7
-  and 8 (float and W8A8 modes) and of rows 12 and 13 (forward and
-  backward); every output of kernel 8 and row 13 in bf16 and W8A8; every
-  output of kernel 7 and row 12 without global rows; kernel 7's output rows
-  at or beyond n_glob (rows 1 on; CLS is the one global token) in bf16 and
-  W8A8, which do not depend on the global rows; and every output of rows
-  1-6 and 9-11 (the digests of ``backward_gemm_turns.py`` without those of
-  kernel 7 and row 12's forward in bf16);
-- digests of the bf16 and W8A8 outputs of kernels 7 and 8 and of rows 12
-  and 13's bf16 forwards and backwards from two calls, which must be equal
-  within this checkout.
+- the BigBird rows kernel alone (``train_bigbird.bigbird_rows``, device
+  time) as kernel 8 (bf16 ctx and the W8A8 block's float32 ctx, and in
+  float32, B=4, L=4096) and as row 13's forward and statistics pass (B=8,
+  L=2048, dropout 0.1; bf16 and float32), on every query tile; where the
+  wrapper takes ``parts``, also on the global tiles alone and the other
+  tiles alone;
+- sha256 digests of what must not move: every output of kernels 7 and 8
+  and rows 12 and 13 (forward and backward) in bf16, W8A8 and float32 but
+  those that the bf16 BigBird global tiles move (kernel 8 in both modes,
+  row 13 forward and backward, in bf16; float32 walks a global tile in one
+  block, as before); of those, kernel 8's and row 13's forward output rows
+  beyond the global blocks (rows 128 on), which do not depend on the
+  global rows; of the BigBird rows kernel alone, its ctx rows 128 on and,
+  in the statistics pass, every row's maximum (the global rows' too: the
+  split takes the exact maximum over its blocks); kernel 7's output rows
+  at or beyond n_glob (rows 1 on; CLS is the one global token); and every
+  output of rows 1-6 and 9-11 (the digests of ``backward_gemm_turns.py``
+  without those of kernel 8 and row 13);
+- digests of the outputs of every timed call from two calls, which must be
+  equal within this checkout.
 
 Then it prints the mean of each checkout and whether each digest is the
 same in every run (the two-call digests: in the runs of this checkout).
@@ -75,14 +84,15 @@ With ``--dtype float32`` each process prints instead:
 
 measures the checkout the script is run from (its working directory) alone.
 
-    python3 rows_core_turns.py --parent DIR --paths
+    python3 rows_core_turns.py --parent DIR --paths [--trunk longformer|bigbird]
 
-reads instead, in the same turns, the Longformer main paths end to end
-through ``chip_smoke.py``'s own functions of each checkout: the engine call
-at batch 8 x 2048 (windows/s, host clock), the recipe's training for 2
-optimizer steps of 4 x 2 windows (windows trained/s) and the W8A8 and float
-kernel paths of the W8A8 long-context serving phase (median windows/s of 3
-calls).
+reads instead, in the same turns, the long-context main paths end to end
+through ``chip_smoke.py``'s own functions of each checkout: Longformer's
+engine call at batch 8 x 2048 (windows/s, host clock), the recipe's
+training for 2 optimizer steps of 4 x 2 windows (windows trained/s) and the
+W8A8 and float kernel paths of the W8A8 long-context serving phase (median
+windows/s of 3 calls); with ``--trunk bigbird`` BigBird's engine call at
+batch 4 x 4096 and its W8A8 serving phase's two kernel paths.
 """
 
 from __future__ import annotations
@@ -107,14 +117,18 @@ SPLIT = (("rows", ("band_rows_kernel", "bigbird_rows_kernel")),
          ("proj", ("qkv_proj",)),
          ("out", ("residual_ln", "gemm_bias_act")),
          ("wgrad", ("weight_grad",)))
-# backward_gemm_turns.py's digests that the global rows move: the bf16 and
-# W8A8 outputs of kernel 7 and row 12's bf16 forward
-MOVED = ("digest kernel 7 ", "digest row 12 forward bfloat16")
-# the calls whose bf16 outputs must not move (``must_not_move``)
-STILL = ("kernel 8 float", "kernel 8 W8A8", "row 13 forward", "row 13 backward")
+# backward_gemm_turns.py's digests that the BigBird global tiles move: every
+# output of kernel 8 and row 13
+MOVED = ("digest kernel 8 ", "digest row 13 ")
+# the calls whose bf16 outputs the BigBird global tiles move (their global
+# rows' sums run in another order); every other output must not move
+MOVED_CALLS = ("kernel 8 float", "kernel 8 W8A8", "row 13 forward", "row 13 backward")
+GLOBAL_ROWS = 2 * BLOCK  # the global blocks' rows of kernel 8 and row 13
 # backward_gemm_turns.py's digests that the float32 rows and gradient
-# kernels move: rows 12 and 13's float32 forwards and backwards
-F32_MOVED = tuple(f"digest row {r} {p} float32" for r in (12, 13) for p in ("forward", "backward"))
+# kernels move: rows 12 and 13's float32 forwards and backwards; and those
+# that the BigBird global tiles move (MOVED)
+F32_MOVED = tuple(f"digest row {r} {p} float32" for r in (12, 13)
+                  for p in ("forward", "backward")) + MOVED
 
 
 def device_split(fn) -> dict:
@@ -215,8 +229,12 @@ def measure(reps: int, dtype: str = "bfloat16") -> dict:
                                                                  tables, **bcfg)
         timed |= {"row 13 forward", "row 13 backward"}
         for name, fn in calls.items():
-            if dtype == "float32" or name.endswith("no globals") or name in STILL:
+            if name not in MOVED_CALLS or dtype == "float32":
                 out[f"digest {name} {dtype}"] = digest(fn())
+            elif name != "row 13 backward":
+                # the rows beyond the global blocks do not depend on the global rows
+                out[f"digest {name} rows {GLOBAL_ROWS} on {dtype}"] = digest(
+                    fn()[:, GLOBAL_ROWS:])
             if name.startswith("kernel 7 ") and dtype == "bfloat16" and name in timed:
                 # the rows at or beyond n_glob (CLS only) do not depend on the global rows
                 out[f"digest {name} rows 1 on bfloat16"] = digest(fn()[:, 1:])
@@ -229,7 +247,62 @@ def measure(reps: int, dtype: str = "bfloat16") -> dict:
                 out[f"twice {name} bf16 run {run}"] = digest(fn())
         if dtype == "bfloat16" and hasattr(ts, "sliding_global_rows"):
             out.update(global_rows_alone(lhid, mask, sw, gqkv, seed, reps))
+        out.update(bigbird_rows_alone(bhid, bmask, lhid, mask, bw, seed, tables))
         torch.cuda.empty_cache()
+    return out
+
+
+def bigbird_rows_alone(bhid, bmask, lhid, mask, bw, seed, tables) -> dict:
+    """ms of device time of one launch of the BigBird rows kernel alone
+    (``train_bigbird.bigbird_rows``) as kernel 8 (bf16 ctx and the W8A8
+    block's float32 ctx; float32 q, k, v in the float mode) on the q, k, v of
+    a block call at B=4, L=4096, and as row 13's forward and statistics pass
+    (dropout 0.1) at B=8, L=2048, on every query tile; where the wrapper
+    takes ``parts``, also on the global tiles alone and on the other tiles
+    alone. With the digests of what must not move: ctx rows GLOBAL_ROWS on
+    and, in the statistics pass, every row's maximum."""
+    import inspect
+
+    import torch
+
+    from spokennlp_tpu_torch.ops.bigbird_attention import bigbird_tables
+    from spokennlp_tpu_torch.ops.cuda import train_bigbird as tbb
+
+    out = {}
+    dev = bhid.device
+    has_parts = "parts" in inspect.signature(tbb.bigbird_rows).parameters
+    variants = {"": {}}
+    if has_parts:
+        variants.update({" global tiles": {"parts": "global"},
+                         " window tiles": {"parts": "window"}})
+    btables = bigbird_tables(BB_L // BLOCK, 2, 3, 0, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    for label, hid, msk, tab, rate, modes in (
+            ("kernel 8", bhid, bmask, btables, 0.0, (("bf16 ctx", None, False),
+                                                    ("W8A8 float32 ctx", torch.float32, False))
+             if bhid.dtype == torch.bfloat16 else (("float32", None, False),)),
+            ("row 13", lhid, mask, tables, 0.1, (("forward", None, False),
+                                                 ("statistics pass", None, True)))):
+        bufs = {}
+        tbb.bigbird_train_fwd(hid, msk, seed, bw, torch.zeros(H, device=dev), tab,
+                              num_heads=NH, block_size=BLOCK, sm_scale=HD**-0.5,
+                              dropout_rate=rate, buffers=bufs)
+        qkv = bufs["qkv"]
+        counts = torch.stack([msk.sum(1), torch.zeros_like(msk[:, 0])], 1).int().contiguous()
+        dctx = torch.randn(hid.shape[0], hid.shape[1], NH * HD, generator=g,
+                           device=dev).to(hid.dtype)
+        for mode, cdt, grad in modes:
+            for tag, kw in variants.items():
+                fn = lambda cdt=cdt, grad=grad, kw=kw: tbb.bigbird_rows(
+                    qkv, counts, seed, tab, block_size=BLOCK, dctx=dctx if grad else None,
+                    dropout_rate=rate, ctx_dtype=cdt, **kw)
+                dt = "" if hid.dtype == torch.bfloat16 else " float32"
+                out[f"bigbird rows alone{dt}, {label} {mode}{tag} ms"] = device_split(fn)["rows_ms"]
+                if not tag:
+                    ctx, stats = fn()
+                    out[f"digest bigbird rows alone{dt}, {label} {mode}, rows {GLOBAL_ROWS} on"
+                        f" and maxima"] = digest(
+                            [ctx[:, GLOBAL_ROWS:]] + ([stats[0]] if grad else []))
     return out
 
 
@@ -253,7 +326,8 @@ def measure_f32(reps: int) -> dict:
     # float32 ones, the bf16 backwards' ("moved digest" there) among them
     out = {k.replace("moved digest", "digest"): v
            for k, v in backward_gemm_turns.measure(1).items()
-           if k.startswith(("digest", "moved digest")) and not k.startswith(F32_MOVED)}
+           if k.startswith(("digest", "moved digest"))
+           and not k.replace("moved digest", "digest").startswith(F32_MOVED)}
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, f32 = torch.device("cuda"), torch.float32
     g = torch.Generator(device=dev).manual_seed(19)
@@ -445,13 +519,33 @@ def global_rows_alone(x, mask, sw, gqkv, seed, reps: int, w8a8: bool = True,
     return out
 
 
-def paths() -> dict:
-    """{path: windows/s} of the Longformer main paths of the checkout on
-    sys.path, through its chip_smoke.py's phases 9, 10 and 19 (the same
-    corpus, seeds and flags)."""
+def paths(trunk: str = "longformer") -> dict:
+    """{path: windows/s} of the long-context main paths of the checkout on
+    sys.path, through its chip_smoke.py's phases 9, 10 and 19 (Longformer)
+    or 13 and 19 (BigBird: the engine call and W8A8 serving), with the same
+    corpus, seeds and flags."""
     import tempfile
 
     import chip_smoke as cs
+
+    if trunk == "bigbird":
+        from spokennlp_tpu_torch.ops.cuda.bigbird_block import fused_bigbird_attention_block
+        from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
+
+        with tempfile.TemporaryDirectory() as tmp:
+            data = cs.write_corpus(Path(tmp), n_test_docs=24, n_train_docs=8, seed=3,
+                                   sentences=(300, 600))
+            infer = cs.main_path(
+                cs.main_path_argv(data, str(Path(tmp) / "bb_out"), seq=cs.BB_L, batch=cs.BB_B,
+                                  bigbird=True), cs.LAYERS, cs.BB_B,
+                kernels={"bigbird_attention_block": fused_bigbird_attention_block,
+                         "fused_mlp_block": fused_mlp_block}, long_tokens=cs.BB_LONG_TOKENS)
+            serving = cs.long_serving_path("bigbird", data, str(Path(tmp) / "bb_w8a8"))
+        return {"BigBird engine call, float, windows/s": infer["windows_per_s"],
+                "BigBird W8A8 serving, W8A8 kernel path, windows/s":
+                    serving["runs"]["w8a8 auto"]["windows_per_s"],
+                "BigBird W8A8 serving, float kernel path, windows/s":
+                    serving["runs"]["none auto"]["windows_per_s"]}
     from spokennlp_tpu_torch.ops.cuda import train_blocks as tb
     from spokennlp_tpu_torch.ops.cuda import train_sliding as ts
     from spokennlp_tpu_torch.ops.cuda.mlp_block import fused_mlp_block
@@ -491,6 +585,8 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="bfloat16: the kernels in bf16 and W8A8; float32: the float32 rows "
                          "kernels")
+    ap.add_argument("--trunk", choices=("longformer", "bigbird"), default="longformer",
+                    help="with --paths: whose main paths")
     args = ap.parse_args()
     import torch
 
@@ -499,7 +595,7 @@ def main() -> int:
         return 1
     if args.measure:
         sys.path.insert(0, os.getcwd())  # the measured checkout, before the script's own
-        print(json.dumps(paths() if args.paths else measure(args.reps, args.dtype)))
+        print(json.dumps(paths(args.trunk) if args.paths else measure(args.reps, args.dtype)))
         return 0
     if not args.parent:
         ap.error("--parent or --measure")
@@ -511,8 +607,8 @@ def main() -> int:
         root = roots[label]
         env = {**os.environ, "PYTHONPATH": str(root)}
         proc = subprocess.run([sys.executable, str(here / "rows_core_turns.py"), "--measure",
-                               "--reps", str(args.reps), "--dtype", args.dtype]
-                              + ["--paths"] * args.paths, cwd=root,
+                               "--reps", str(args.reps), "--dtype", args.dtype,
+                               "--trunk", args.trunk] + ["--paths"] * args.paths, cwd=root,
                               env=env, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)

@@ -44,6 +44,13 @@
 // for a row with D = 0, and with kGrad the row statistics (m, D,
 // rowsum(dp p_eff) / (D keep_prob)).
 //
+// A Split policy decides whose rows a block's maxima and sums are:
+// WholeRows (every rows kernel but one) has the block walk every key tile
+// of its rows; ClusterRows (BigBird's global tiles, bigbird_attention.cuh)
+// splits one query tile's key tiles over a thread-block cluster, takes the
+// rows' maxima over the cluster between the passes and adds the blocks' D,
+// O and rs in rank order into rank 0, which stores them.
+//
 // The dense training kernels (train_attention.cu) run the same body over
 // every key tile of the sequence, with a score functor that scales the
 // product and adds the TPU kernel's -1e9 on masked keys (RawScore, the
@@ -124,6 +131,114 @@ struct RawScore {
   }
 };
 
+// Whose rows a block's maxima and sums are. WholeRows: the block walks
+// every key tile of its rows, so they are the rows' own (every rows kernel
+// but BigBird's global tiles).
+struct WholeRows {
+  __device__ __forceinline__ void maxima(float&, float&) const {}
+  template <bool kGrad, int ND>
+  __device__ __forceinline__ bool totals(float (&)[ND][4], float&, float&, float&, float&,
+                                         unsigned char*) const {
+    return true;
+  }
+};
+
+// ClusterRows: the key tiles of one query tile split over the `size` blocks
+// (kMaxCluster at most) of a thread-block cluster, this one `rank`; xch: 3
+// kTile floats of its shared memory (the rows' m, D and rs, which the
+// cluster reads). maxima takes each row's maximum over every block, so e is
+// taken against the row's true maximum (the same bits as one block's walk);
+// totals adds the blocks' D, rs and O in rank order into rank 0 (each
+// block's partial O, float32 (64, HD), through its drained ring) and says
+// whether this block stores the rows (rank 0 does). Every thread of every
+// block calls both; nothing is atomic, so two calls give the same bits. A
+// lane reads a block's values all before it adds them, so its reads of
+// the other blocks' shared memory are in flight together.
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+struct ClusterRows {
+  float* xch;
+  int rank, size;
+
+  __device__ __forceinline__ void maxima(float& m_lo, float& m_hi) const {
+    const int g = (threadIdx.x % 32) / 4, lo = 16 * (threadIdx.x / 32) + g;
+    if (threadIdx.x % 4 == 0) {
+      xch[lo] = m_lo;
+      xch[lo + 8] = m_hi;
+    }
+    cluster_sync();
+    float v_lo[kMaxCluster], v_hi[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < size) {
+        const uint32_t at = cluster_addr(xch + lo, r);
+        v_lo[r] = ld_cluster_at(at);
+        v_hi[r] = ld_cluster_at(at + 8 * sizeof(float));
+      }
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < size) {
+        m_lo = fmaxf(m_lo, v_lo[r]);
+        m_hi = fmaxf(m_hi, v_hi[r]);
+      }
+  }
+
+  template <bool kGrad, int ND>
+  __device__ __forceinline__ bool totals(float (&o)[ND][4], float& D_lo, float& D_hi,
+                                         float& rs_lo, float& rs_hi, unsigned char* ring) const {
+    constexpr int HD = 8 * ND;
+    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4, lo = 16 * (threadIdx.x / 32) + g;
+    // the byte offset of accumulator (nn, e) in a block's partial O
+    const auto at = [&](int nn, int e) {
+      return ((lo + 8 * (e / 2)) * HD + 8 * nn + 2 * t + e % 2) * 4;
+    };
+    float* part = reinterpret_cast<float*>(ring);
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int nn = 0; nn < ND; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[at(nn, e) / 4] = o[nn][e];
+    if (t == 0) {
+      xch[kTile + lo] = D_lo;
+      xch[kTile + lo + 8] = D_hi;
+      if (kGrad) {
+        xch[2 * kTile + lo] = rs_lo;
+        xch[2 * kTile + lo + 8] = rs_hi;
+      }
+    }
+    cluster_sync();
+    if (rank == 0) {
+      for (int r = 0; r < size; ++r) {
+        const uint32_t pr = cluster_addr(part, r), xr = cluster_addr(xch, r);
+        float v[ND][4], d[4];
+#pragma unroll
+        for (int nn = 0; nn < ND; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[nn][e] = ld_cluster_at(pr + at(nn, e));
+        d[0] = ld_cluster_at(xr + (kTile + lo) * 4);
+        d[1] = ld_cluster_at(xr + (kTile + lo + 8) * 4);
+        if (kGrad) {
+          d[2] = ld_cluster_at(xr + (2 * kTile + lo) * 4);
+          d[3] = ld_cluster_at(xr + (2 * kTile + lo + 8) * 4);
+        }
+        const auto add = [&](float& acc, float x) { acc = r == 0 ? x : acc + x; };
+#pragma unroll
+        for (int nn = 0; nn < ND; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) add(o[nn][e], v[nn][e]);
+        add(D_lo, d[0]);
+        add(D_hi, d[1]);
+        if (kGrad) {
+          add(rs_lo, d[2]);
+          add(rs_hi, d[3]);
+        }
+      }
+    }
+    cluster_sync();  // no block leaves while rank 0 reads its shared memory
+    return rank == 0;
+  }
+};
+
 // two adjacent outputs of a row
 __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
@@ -143,14 +258,14 @@ __device__ __forceinline__ void store_pair(float* dst, float v0, float v1) {
 // statistics' row 0 of (b, h) in its first plane (kGrad only). smem holds
 // rows_smem_mma<HD, kGrad>(), 16-byte aligned; 128 threads.
 template <int HD, bool kGrad, typename Tc, typename Live, typename Allowed, typename Keep,
-          typename Score = RawScore>
+          typename Score = RawScore, typename Split = WholeRows>
 __device__ __forceinline__ void rows_tile_mma(const __nv_bfloat16* Q, const __nv_bfloat16* K,
                                               const __nv_bfloat16* V, const __nv_bfloat16* dC,
                                               size_t dc_stride, int dc_lo, int q0, int q_end,
                                               int L, int n, Live live, Allowed allowed, Keep keep,
                                               float keep_prob, Tc* out, size_t out_stride,
                                               float* stats, size_t plane, unsigned char* smem,
-                                              Score score = Score{}) {
+                                              Score score = Score{}, Split split = Split{}) {
   using Mm = GradMma<HD>;
   using bf16 = __nv_bfloat16;
   constexpr int RB = Mm::kRowBytes, ND = HD / 8;
@@ -204,6 +319,7 @@ __device__ __forceinline__ void rows_tile_mma(const __nv_bfloat16* Q, const __nv
   });
   m_lo = quad_max(m_lo);
   m_hi = quad_max(m_hi);
+  split.maxima(m_lo, m_hi);
 
   // pass 2: e, D, the kept e into P V, with kGrad dP and rowsum(dp p_eff)
   float D_lo = 0.0f, D_hi = 0.0f, rs_lo = 0.0f, rs_hi = 0.0f;
@@ -264,7 +380,7 @@ __device__ __forceinline__ void rows_tile_mma(const __nv_bfloat16* Q, const __nv
     rs_lo = quad_sum(rs_lo);
     rs_hi = quad_sum(rs_hi);
   }
-  if (!live_w) return;
+  if (!split.template totals<kGrad>(o, D_lo, D_hi, rs_lo, rs_hi, ring) || !live_w) return;
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int l = hi ? r_hi : r_lo;
@@ -294,14 +410,14 @@ __host__ __device__ constexpr size_t rows_smem_tf32() {
 // exp(s - m) unrounded), the products as 3xTF32. smem holds
 // rows_smem_tf32<HD, kGrad>(), 16-byte aligned; 128 threads.
 template <int HD, bool kGrad, typename Live, typename Allowed, typename Keep,
-          typename Score = RawScore>
+          typename Score = RawScore, typename Split = WholeRows>
 __device__ __forceinline__ void rows_tile_tf32(const float* Q, const float* K, const float* V,
                                                const float* dC, size_t dc_stride, int dc_lo,
                                                int q0, int q_end, int L, int n, Live live,
                                                Allowed allowed, Keep keep, float keep_prob,
                                                float* out, size_t out_stride, float* stats,
                                                size_t plane, unsigned char* smem,
-                                               Score score = Score{}) {
+                                               Score score = Score{}, Split split = Split{}) {
   using Mm = GradTf32<HD>;
   constexpr int ND = HD / 8;
   unsigned char* Qs = smem;
@@ -354,6 +470,7 @@ __device__ __forceinline__ void rows_tile_tf32(const float* Q, const float* K, c
   });
   m_lo = quad_max(m_lo);
   m_hi = quad_max(m_hi);
+  split.maxima(m_lo, m_hi);
 
   // pass 2: e, D, the kept e into P V, with kGrad dP and rowsum(dp p_eff)
   float D_lo = 0.0f, D_hi = 0.0f, rs_lo = 0.0f, rs_hi = 0.0f;
@@ -401,7 +518,7 @@ __device__ __forceinline__ void rows_tile_tf32(const float* Q, const float* K, c
     rs_lo = quad_sum(rs_lo);
     rs_hi = quad_sum(rs_hi);
   }
-  if (!live_w) return;
+  if (!split.template totals<kGrad>(o, D_lo, D_hi, rs_lo, rs_hi, ring) || !live_w) return;
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int l = hi ? r_hi : r_lo;
@@ -434,20 +551,20 @@ __host__ __device__ constexpr size_t rows_tiles_bytes() {
 // ctx is float32): one call for both element types, with the same callbacks.
 // smem holds rows_tiles_bytes<T, HD, kGrad>(), 16-byte aligned; 128 threads.
 template <int HD, bool kGrad, typename T, typename Tc, typename Live, typename Allowed,
-          typename Keep, typename Score = RawScore>
+          typename Keep, typename Score = RawScore, typename Split = WholeRows>
 __device__ __forceinline__ void rows_tile(const T* Q, const T* K, const T* V, const T* dC,
                                           size_t dc_stride, int dc_lo, int q0, int q_end, int L,
                                           int n, Live live, Allowed allowed, Keep keep,
                                           float keep_prob, Tc* out, size_t out_stride,
                                           float* stats, size_t plane, unsigned char* smem,
-                                          Score score = Score{}) {
+                                          Score score = Score{}, Split split = Split{}) {
   if constexpr (std::is_same<T, float>::value) {
     static_assert(std::is_same<Tc, float>::value, "the float32 body stores a float32 ctx");
     rows_tile_tf32<HD, kGrad>(Q, K, V, dC, dc_stride, dc_lo, q0, q_end, L, n, live, allowed, keep,
-                              keep_prob, out, out_stride, stats, plane, smem, score);
+                              keep_prob, out, out_stride, stats, plane, smem, score, split);
   } else {
     rows_tile_mma<HD, kGrad>(Q, K, V, dC, dc_stride, dc_lo, q0, q_end, L, n, live, allowed, keep,
-                             keep_prob, out, out_stride, stats, plane, smem, score);
+                             keep_prob, out, out_stride, stats, plane, smem, score, split);
   }
 }
 

@@ -30,13 +30,15 @@
 // Work is cut into 64-row tiles: a block of C rows spans S = ceil(C / 64)
 // query tiles (the last one short when 64 does not divide C), and each piece
 // of C keys S key tiles. At BigBird-base's block of 64 a piece is one tile.
-// A query tile of a global block walks the key tiles of [0, n_valid); one of
-// another block walks its (3 + G + R) S pieces' tiles, skipping those with no
-// allowed key. Layouts: qkv (3, B, nh, L, hd) in the element type, q
-// pre-scaled; ctx (B, L, nh*hd) in its type Tc (the element type, or
-// float32 in W8A8); counts (B, 2) int32 (n_valid, 0); row
-// statistics (3, B, nh, L) float32 = (m, D, rowsum(dp p_eff)). Nothing of
-// size (L, K C) or (L, L) is written to device memory.
+// A query tile of a global block walks the key tiles of [0, n_valid) (in
+// bf16 split over a cluster of blocks where L is long: global_cluster); one
+// of another block walks its (3 + G + R) S pieces' tiles, skipping those
+// with no allowed key (bigbird_rows_kernel).
+// Layouts: qkv (3, B, nh, L, hd) in the element type, q pre-scaled; ctx (B,
+// L, nh*hd) in its type Tc (the element type, or float32 in W8A8); counts (B,
+// 2) int32 (n_valid, 0); row statistics (3, B, nh, L) float32 = (m, D,
+// rowsum(dp p_eff)). Nothing of size (L, K C) or (L, L) is written to device
+// memory.
 #pragma once
 
 #include "sliding_attention.cuh"
@@ -63,29 +65,24 @@ __device__ __forceinline__ void block_tile(const BigBird& bb, int x, int& i, int
   r_end = min(r0 + kTile, (i + 1) * bb.C);
 }
 
-// The rows kernel's block order: block (blockIdx.x, y, z) of the grid
-// (nb S, nh, B), taken in linear order (x fastest), works on query tile x of
-// (head h, sequence b) with the G S tiles of the global blocks of every
-// (head, sequence) first, then the others. A global tile walks every real
-// key (up to 8 times the tiles of another at BigBird-base): in grid order
-// the last heads' global tiles started late and ran on alone at the end of
-// the launch (on the H100 the launch without them took 46 % of its time,
-// PERF.md); started first, they run beside the short tiles.
-__device__ __forceinline__ void global_first(const BigBird& bb, int nh, int& x, int& h, int& b) {
-  const int gs = bb.G * bb.S, per = bb.nb * bb.S;
-  const int lin = blockIdx.x + per * (blockIdx.y + nh * blockIdx.z);
-  const int n_global = gs * nh * gridDim.z;
-  int hb;
-  if (lin < n_global) {
-    x = lin % gs;
-    hb = lin / gs;
-  } else {
-    const int r = lin - n_global, rest = per - gs;
-    x = gs + r % rest;
-    hb = r / rest;
-  }
-  h = hb % nh;
-  b = hb / nh;
+// The global tiles' cluster: a global query tile walks the key tiles of
+// [0, n_valid), up to ceil(L / 64), where another walks (3 + G + R) S; in
+// bf16, where that is more, its key tiles are split over a cluster of
+// kGlobalCluster blocks. The launch is bound by the blocks' throughput, not
+// by a long walk left alone at its end: each block of a cluster stages its
+// query tile, fills its ring and waits at three cluster barriers, so more
+// blocks a tile add work. On the H100 (rows_core_turns.py; PERF.md) clusters
+// of 2 read best in bf16 at kernel 8's L=4096 and row 13's L=2048, beside
+// 1, 4 and 8. float32 keeps one block a tile: its launch with clusters of 2
+// read slower than one block's. It depends on L alone, so a row's sums run
+// in the same order at any batch.
+constexpr int kGlobalCluster = 2;
+
+template <typename T>
+inline int global_cluster(const BigBird& bb) {
+  if (std::is_same<T, float>::value) return 1;
+  const int walk = (bb.L + kTile - 1) / kTile, window = (3 + bb.G + bb.R) * bb.S;
+  return walk > window ? kGlobalCluster : 1;
 }
 
 __device__ __forceinline__ int key_tiles(const BigBird& bb, int i, int n_valid) {
@@ -129,37 +126,93 @@ __device__ __forceinline__ bool key_tile(const BigBird& bb, int i, int t, int n_
 // maxima over the allowed keys of every key tile, pass 2 forms e, D = sum e
 // and ctx = (kept e) . v / (D keep_prob), stored rounded to Tc in (B, L,
 // nh*hd). With kGrad (the backward) it also forms dp = dctx . v^T and writes
-// the row statistics (m, D, rowsum(dp p_eff)). Grid (nb S, nh, B), taken in
-// global_first's order, 128 threads: attention_rows_mma.cuh's tensor-core
-// body, bf16 or float32 on 3xTF32, with the same callbacks (key_tile's
-// tiles).
-template <typename T, int HD, bool kGrad, typename Tc = T>
-__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
-    bigbird_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
-                        BigBird bb, const int32_t* __restrict__ seed_ptr,
-                        const T* __restrict__ dctx, Tc* __restrict__ ctx,
-                        float* __restrict__ stats, int B, int nh, uint32_t thr, float keep_prob) {
-  extern __shared__ __align__(16) float smem[];
-  int x, h, b, i, q0, q_end;
-  global_first(bb, nh, x, h, b);
-  block_tile(bb, x, i, q0, q_end);
-  const int L = bb.L;
+// the row statistics (m, D, rowsum(dp p_eff)). attention_rows_mma.cuh's
+// tensor-core body, bf16 or float32 on 3xTF32, with the same callbacks
+// (key_tile's tiles), 128 threads. global: query tile `tile` of the G S
+// global tiles of every (head, sequence), else window tile `tile` of the
+// (nb - G) S others, walking its (3 + G + R) S pieces. kCluster (global
+// tiles only): the tile's key tiles split over the kGlobalCluster blocks
+// of a cluster, this one walking the rank-th of the contiguous ranges
+// (ClusterRows: the rows' maxima taken over the cluster before pass 2, D,
+// O and rs added in rank order into rank 0, which stores them); else one
+// block walks them all.
+template <typename T, int HD, bool kGrad, bool kCluster, typename Tc>
+__device__ __forceinline__ void bigbird_tile(const T* qkv, const int32_t* counts,
+                                             const BigBird& bb, const int32_t* seed_ptr,
+                                             const T* dctx, Tc* ctx, float* stats, int B, int nh,
+                                             uint32_t thr, float keep_prob, bool global, int tile,
+                                             unsigned char* smem) {
+  const int per = (global ? bb.G : bb.nb - bb.G) * bb.S;  // tiles a (head, sequence)
+  const int hb = tile / per, h = hb % nh, b = hb / nh, L = bb.L;
+  int i, q0, q_end;
+  block_tile(bb, (global ? 0 : bb.G * bb.S) + tile % per, i, q0, q_end);
   const size_t head = (size_t)L * HD, HN = (size_t)nh * HD;
   const T* Q = qkv + (((size_t)0 * B + b) * nh + h) * head;
   const int n_valid = counts[2 * b];
   const uint32_t seed = thr ? (uint32_t)seed_ptr[0] : 0u;  // null without dropout
+  // the key tiles [t0, t0 + n) of this block
+  int t0 = 0, n = key_tiles(bb, i, n_valid);
+  std::conditional_t<kCluster, ClusterRows, WholeRows> split{};
+  if constexpr (kCluster) {
+    constexpr int cs = kGlobalCluster;
+    const int rank = cluster_rank();
+    t0 = rank * n / cs;
+    n = (rank + 1) * n / cs - t0;
+    float* xch = reinterpret_cast<float*>(smem + rows_tiles_bytes<T, HD, kGrad>());
+    split = ClusterRows{xch, rank, cs};
+  }
   rows_tile<HD, kGrad>(
       Q, Q + (size_t)B * nh * head, Q + 2 * (size_t)B * nh * head,
-      kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, 0, q0, q_end, L,
-      key_tiles(bb, i, n_valid),
-      [&](int t, KeyTile& kt) { return key_tile(bb, i, t, n_valid, kt); },
+      kGrad ? dctx + (size_t)b * L * HN + (size_t)h * HD : nullptr, HN, 0, q0, q_end, L, n,
+      [&](int t, KeyTile& kt) { return key_tile(bb, i, t0 + t, n_valid, kt); },
       [&](const KeyTile& kt, int row, int key) { return key < kt.k_end; },
       [&](const KeyTile& kt, int row, int key) {
         return keep_prob_bits(seed, thr, b, h | kt.tag, row, key + kt.col_off);
       },
       keep_prob, ctx + (size_t)b * L * HN + (size_t)h * HD, HN,
-      kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L,
-      reinterpret_cast<unsigned char*>(smem));
+      kGrad ? stats + ((size_t)b * nh + h) * L : nullptr, (size_t)B * nh * L, smem, RawScore{},
+      split);
+}
+
+// One launch, its blocks in linear order (blockIdx.x): the n_global global
+// query tiles of every (head, sequence) first, then the n_window others. A
+// global tile walks up to 8 times the key tiles of another at L=4096:
+// started first, the global tiles run beside the window tiles and no long
+// walk runs on alone at the end of the launch. With kSplit the launch is in
+// clusters of kGlobalCluster blocks, each cluster a unit of work: a global
+// tile whose key tiles its blocks split (ClusterRows), or kGlobalCluster
+// window tiles, one a block (the last unit's spare blocks return). Without
+// it, one block a tile and one body for both kinds (with a copy of the
+// float32 body for each, the launch read 1.52 ms against the parent's 1.27
+// at kernel 8's shape on the H100: PERF.md). Dynamic shared memory:
+// rows_tiles_bytes, and with kSplit ClusterRows' 3 kTile floats.
+template <typename T, int HD, bool kGrad, bool kSplit, typename Tc = T>
+__global__ void __launch_bounds__(kGradThreads, core_min_blocks<T, HD>())
+    bigbird_rows_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ counts,
+                        BigBird bb, const int32_t* __restrict__ seed_ptr,
+                        const T* __restrict__ dctx, Tc* __restrict__ ctx,
+                        float* __restrict__ stats, int B, int nh, uint32_t thr, float keep_prob,
+                        int n_global, int n_window) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* s = reinterpret_cast<unsigned char*>(smem);
+  if constexpr (kSplit) {
+    constexpr int cs = kGlobalCluster;
+    const int unit = blockIdx.x / cs;
+    if (unit < n_global) {
+      bigbird_tile<T, HD, kGrad, true>(qkv, counts, bb, seed_ptr, dctx, ctx, stats, B, nh, thr,
+                                       keep_prob, true, unit, s);
+      return;
+    }
+    const int tile = (unit - n_global) * cs + blockIdx.x % cs;
+    if (tile >= n_window) return;
+    bigbird_tile<T, HD, kGrad, false>(qkv, counts, bb, seed_ptr, dctx, ctx, stats, B, nh, thr,
+                                      keep_prob, false, tile, s);
+  } else {
+    const int x = blockIdx.x;
+    const bool global = x < n_global;
+    bigbird_tile<T, HD, kGrad, false>(qkv, counts, bb, seed_ptr, dctx, ctx, stats, B, nh, thr,
+                                      keep_prob, global, global ? x : x - n_global, s);
+  }
 }
 
 // counts and q, k, v; wqkv (H, 3 nh hd) in the element type, bqkv float32.
@@ -176,21 +229,53 @@ cudaError_t bigbird_projections(const T* hidden, const int32_t* mask, const T* w
 }
 
 // The attention of the projected q, k, v into ctx (of type Tc); with kGrad
-// also the row statistics.
+// also the row statistics: one bigbird_rows_kernel launch, in clusters where
+// global_cluster<T>(bb) splits the global tiles, else one block a tile.
+// parts: which tiles, 1 the global ones, 2 the others, 3 both (every caller
+// but a measurement); the others alone launch one block a tile.
 template <typename T, bool kGrad, typename Tc = T>
 cudaError_t bigbird_attention(const BigBird& bb, const int32_t* seed, const int32_t* counts,
                               const T* qkv_buf, const T* dctx, Tc* ctx_buf, float* stats, int B,
-                              int nh, int hd, uint32_t thr, float keep_prob,
-                              cudaStream_t stream) {
+                              int nh, int hd, uint32_t thr, float keep_prob, cudaStream_t stream,
+                              int parts = 3) {
+  if (parts < 1 || parts > 3) return cudaErrorInvalidValue;
+  const int n_global = parts & 1 ? bb.G * bb.S * nh * B : 0;
+  const int n_window = parts & 2 ? (bb.nb - bb.G) * bb.S * nh * B : 0;
+  if (n_global + n_window == 0) return cudaSuccess;
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    auto rows = bigbird_rows_kernel<T, HD, kGrad, Tc>;
     constexpr size_t smem = rows_tiles_bytes<T, HD, kGrad>();
-    cudaError_t e = prepare(rows, smem);
+    cudaError_t e;
+    if constexpr (!std::is_same<T, float>::value) {  // float32 never splits (global_cluster)
+      if (n_global > 0 && global_cluster<T>(bb) > 1) {
+        constexpr int cs = kGlobalCluster;
+        auto rows = bigbird_rows_kernel<T, HD, kGrad, true, Tc>;
+        constexpr size_t xsmem = smem + 3 * kTile * sizeof(float);
+        e = prepare(rows, xsmem);
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute cluster[1];
+        cluster[0].id = cudaLaunchAttributeClusterDimension;
+        cluster[0].val.clusterDim.x = cs;
+        cluster[0].val.clusterDim.y = 1;
+        cluster[0].val.clusterDim.z = 1;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3((n_global + (n_window + cs - 1) / cs) * cs);
+        cfg.blockDim = dim3(kGradThreads);
+        cfg.dynamicSmemBytes = xsmem;
+        cfg.stream = stream;
+        cfg.attrs = cluster;
+        cfg.numAttrs = 1;
+        e = cudaLaunchKernelEx(&cfg, rows, qkv_buf, counts, bb, seed, dctx, ctx_buf, stats, B, nh,
+                               thr, keep_prob, n_global, n_window);
+        return e != cudaSuccess ? e : cudaGetLastError();
+      }
+    }
+    auto rows = bigbird_rows_kernel<T, HD, kGrad, false, Tc>;
+    e = prepare(rows, smem);
     if (e != cudaSuccess) return e;
-    const dim3 grid(bb.nb * bb.S, nh, B);
-    rows<<<grid, kGradThreads, smem, stream>>>(qkv_buf, counts, bb, seed, dctx, ctx_buf, stats, B,
-                                               nh, thr, keep_prob);
+    rows<<<n_global + n_window, kGradThreads, smem, stream>>>(
+        qkv_buf, counts, bb, seed, dctx, ctx_buf, stats, B, nh, thr, keep_prob, n_global,
+        n_window);
     return cudaGetLastError();
   });
 }

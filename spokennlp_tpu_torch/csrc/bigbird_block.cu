@@ -166,13 +166,14 @@ extern "C" int spk_bigbird_block_w8a8(int dtype, const void* hidden, const void*
 // counts (B, 2) int32 and the pattern's rand and rok (nb, max(R, 1)) int32,
 // into ctx (B, L, nh hd) and, with grad, the row statistics (3, B, nh, L)
 // float32 (dctx (B, L, nh hd) read). dtype and ctx_f32 as for
-// spk_sliding_rows; seed (1,) int32 may be null when thr is 0. Returns the
-// first CUDA error, or 0.
+// spk_sliding_rows; seed (1,) int32 may be null when thr is 0. parts: the
+// tiles launched, 1 the global ones, 2 the others, 3 both (as the blocks
+// launch them). Returns the first CUDA error, or 0.
 extern "C" int spk_bigbird_rows(int dtype, int ctx_f32, int grad, const void* qkv,
                                 const void* counts, const void* rand, const void* rok,
                                 const void* seed, const void* dctx, void* ctx, void* stats, int B,
                                 int L, int nh, int hd, int C, int G, int R, unsigned thr,
-                                float keep_prob, void* stream) {
+                                float keep_prob, int parts, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   const spk::BigBird bb = spk::make_bigbird(L, C, G, R, i32(rand), i32(rok));
@@ -181,7 +182,8 @@ extern "C" int spk_bigbird_rows(int dtype, int ctx_f32, int grad, const void* qk
     using Tc = decltype(c_tag);
     return spk::bigbird_attention<T, decltype(grad_c)::value, Tc>(
         bb, i32(seed), i32(counts), static_cast<const T*>(qkv), static_cast<const T*>(dctx),
-        static_cast<Tc*>(ctx), static_cast<float*>(stats), B, nh, hd, thr, keep_prob, s);
+        static_cast<Tc*>(ctx), static_cast<float*>(stats), B, nh, hd, thr, keep_prob, s,
+        parts);
   };
   using bf16 = __nv_bfloat16;
   using Yes = std::true_type;

@@ -108,7 +108,7 @@ __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ab)[4
 // every thread of the cluster (its arrive releases and its wait acquires
 // what the blocks wrote to shared memory before it), and a float32 read of
 // the shared memory of block `rank` of the cluster at the offset of `local`
-// in this block's
+// in this block's (cluster_addr, the address; ld_cluster_at, the read)
 __device__ __forceinline__ int cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -119,14 +119,23 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float ld_cluster(const float* local, int rank) {
+__device__ __forceinline__ uint32_t cluster_addr(const void* local, int rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote)
                : "r"(smem_addr(local)), "r"(rank));
+  return remote;
+}
+
+// a float32 read at a cluster_addr address
+__device__ __forceinline__ float ld_cluster_at(uint32_t remote) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
   return v;
+}
+
+__device__ __forceinline__ float ld_cluster(const float* local, int rank) {
+  return ld_cluster_at(cluster_addr(local, rank));
 }
 
 }  // namespace spk

@@ -193,6 +193,31 @@ __device__ __forceinline__ bool query_tile_of(const BigBird& bb, const int32_t* 
   return true;
 }
 
+// The dk/dv kernel's block order: block (blockIdx.x, y, z) of the grid
+// (nb S, nh, B), taken in linear order (x fastest), works on key tile x of
+// (head h, sequence b) with the G S tiles of the global blocks of every
+// (head, sequence) first, then the others. A global key tile is reached by
+// every query tile (up to 8 times the tiles of another at BigBird-base):
+// in grid order the last heads' global tiles would start late and run on
+// alone at the end of the launch; started first, they run beside the
+// short tiles.
+__device__ __forceinline__ void global_first(const BigBird& bb, int nh, int& x, int& h, int& b) {
+  const int gs = bb.G * bb.S, per = bb.nb * bb.S;
+  const int lin = blockIdx.x + per * (blockIdx.y + nh * blockIdx.z);
+  const int n_global = gs * nh * gridDim.z;
+  int hb;
+  if (lin < n_global) {
+    x = lin % gs;
+    hb = lin / gs;
+  } else {
+    const int r = lin - n_global, rest = per - gs;
+    x = gs + r % rest;
+    hb = r / rest;
+  }
+  h = hb % nh;
+  b = hb / nh;
+}
+
 // dk and dv of one (KEY tile, head, sequence): sums of dS^T . q and
 // round(p_eff)^T . dctx over the query tiles that reach its keys, stored
 // rounded into slots 1 and 2 of dproj. Grid (nb S, nh, B) in global_first's

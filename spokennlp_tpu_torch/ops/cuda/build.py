@@ -59,7 +59,7 @@ _SIGNATURES = {
     "spk_bigbird_train_fwd": [_I] + [_P] * 13 + [_I] * 8 + [_F, _U, _F, _P],
     "spk_bigbird_train_bwd": [_I] + [_P] * 24 + [_Z] + [_I] * 10 + [_F, _U, _F, _P],
     "spk_bigbird_dropout_mask": [_P] * 5 + [_I] * 6 + [_U, _P],
-    "spk_bigbird_rows": [_I] * 3 + [_P] * 8 + [_I] * 7 + [_U, _F, _P],
+    "spk_bigbird_rows": [_I] * 3 + [_P] * 8 + [_I] * 7 + [_U, _F, _I, _P],
     "spk_ponet_block": [_I, _I] + [_P] * 24 + [_I] * 5 + [_F, _F, _P],
     "spk_int8_tile_smem": [_I],
     "spk_bf16_tile_smem": [_I],

@@ -39,7 +39,7 @@ from spokennlp_tpu_torch.ops.cuda.int8_matmul import (
     rowquant_plain,
 )
 
-GA_ROWS, SMP_ROWS = 128, 64  # csrc/ponet_block.cu kGaRows, kSmpRows
+GA_ROWS, SMP_ROWS, GA_WARPS = 128, 64, 8  # csrc/ponet_block.cu kGaRows, kSmpRows, kGaWarps
 
 
 def run_starts(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -114,6 +114,21 @@ def lmp_plain(l, mrow, local_window: int):
     return lmp
 
 
+def mixed_plain(proj, gp, attention_mask, segment_ids, *, local_window: int):
+    """``where(mask, (gp q + smp) + lmp, 0)`` in proj's dtype, (B, L, H), from
+    the kernel's own buffers: the five projections proj (B*L, 5H) and GA's
+    pooled value gp (B, H) (float32 holding values of proj's dtype). SMP
+    and LMP select values and the mix rounds where the kernel rounds, so the
+    kernel's ``mixed`` equals it bit for bit."""
+    B, L = attention_mask.shape
+    H = gp.shape[-1]
+    dt = proj.dtype
+    q, _, _, s, l = (p.reshape(B, L, H) for p in proj.split(H, dim=-1))
+    mrow = (attention_mask > 0)[..., None]
+    pooled = gp.to(dt)[:, None] * q + smp_plain(s, mrow, segment_ids)
+    return torch.where(mrow, pooled + lmp_plain(l, mrow, local_window), 0.0)
+
+
 def ponet_mixer_block_plain(hidden, attention_mask, segment_ids, proj_kernels, proj_biases,
                             out_kernel, out_bias, *, local_window: int, sm_scale: float,
                             quantized: bool = False, ln_scale=None, ln_bias=None,
@@ -175,10 +190,12 @@ def fused_ponet_mixer_block(
 ) -> torch.Tensor:
     """LN(x + mixer(x) Wo + bo) when ln_scale and ln_bias are given, else
     mixer(x) Wo + bo; returns (B, L, H) in hidden's dtype. Float modes:
-    weights rounded to hidden's dtype. A ``buffers`` dict receives the five
-    projections the kernel computed, ``proj`` (B*L, 5H) in hidden's dtype
-    (on the card only). ``fused_ponet_mixer_block.launches`` counts the
-    calls that ran the kernels on the card."""
+    weights rounded to hidden's dtype. A ``buffers`` dict receives what the
+    kernel computed (on the card only): the five projections ``proj`` (B*L,
+    5H) and the mix ``mixed`` (B*L, H), both in hidden's dtype, and GA's
+    pooled value ``gp`` (B, H) float32 (``mixed_plain`` of the first and
+    the last equals the second). ``fused_ponet_mixer_block.launches`` counts
+    the calls that ran the kernels on the card."""
     if hidden.device.type == "cpu":
         return ponet_mixer_block_plain(
             hidden, attention_mask, segment_ids, proj_kernels, proj_biases, out_kernel, out_bias,
@@ -231,9 +248,11 @@ def fused_ponet_mixer_block(
     else:
         wp, wo = side_by_side(proj_kernels.to(dt)), out_kernel.to(dt).contiguous()
         swp = swo = x8 = scales = None
-    tiles = -(-L // SMP_ROWS)
+    tiles, nch = -(-L // SMP_ROWS), -(-L // GA_ROWS)
     empty = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
-    scratch = [empty(M, 5 * H, dtype=dt), empty(B, -(-L // GA_ROWS), H), empty(B, H),
+    # proj, GA's partial sums, its per-sequence counts, softmax sums and
+    # maximum, its scores, gp, mixed, SMP's tile summaries and flags
+    scratch = [empty(M, 5 * H, dtype=dt), empty(B, nch, H), empty(B, nch + GA_WARPS + 1),
                empty(B, L), empty(B, H), empty(M, H, dtype=dt), empty(B, tiles, H, 2),
                empty(B, tiles, H, 2), empty(B, tiles, dtype=torch.int32)]
     rows = empty(M, H)
@@ -250,7 +269,7 @@ def fused_ponet_mixer_block(
     build.check(code, "fused_ponet_mixer_block")
     fused_ponet_mixer_block.launches += 1
     if buffers is not None:
-        buffers["proj"] = scratch[0]
+        buffers.update(proj=scratch[0], gp=scratch[4], mixed=scratch[5])
     return out
 
 

@@ -59,6 +59,28 @@ from spokennlp_tpu_torch.ops.cuda.train_sliding import (
 )
 
 RANDOM_STREAM = 3 << 16
+GLOBAL_CLUSTER = 2  # csrc/bigbird_attention.cuh kGlobalCluster
+
+
+def global_cluster(L: int, block_size: int, G: int, R: int, dtype) -> int:
+    """The blocks a global query tile's keys are split over on the card
+    (csrc/bigbird_attention.cuh ``global_cluster``): in bf16 GLOBAL_CLUSTER
+    where the tile walks more key tiles of 64 than another query tile, else
+    (and in float32) one; it depends on L, never on the batch."""
+    if dtype == torch.float32:
+        return 1
+    walk, window = -(-L // 64), (3 + G + R) * -(-block_size // 64)
+    return GLOBAL_CLUSTER if walk > window else 1
+
+
+def global_key_ranges(n_valid: int, cluster: int) -> list:
+    """The key ranges [k0, k1) that the blocks of a global tile's cluster
+    walk, in rank order, for a sequence of n_valid real keys: contiguous
+    runs of its key tiles of 64 (an empty range where there are fewer tiles
+    than blocks)."""
+    nt = -(-n_valid // 64)
+    return [(r * nt // cluster * 64, min(n_valid, (r + 1) * nt // cluster * 64))
+            for r in range(cluster)]
 
 
 def bigbird_keep_masks(seed: torch.Tensor, B: int, nh: int, L: int, block_size: int, G: int,
@@ -287,17 +309,25 @@ def bigbird_rows_model(q, k, v, n_valid, tables, *, block_size: int, dctx=None,
     return ctx.transpose(1, 2).to(ctx_dtype or dt), stats
 
 
+ROWS_PARTS = {"all": 3, "global": 1, "window": 2}  # csrc/bigbird_block.cu spk_bigbird_rows
+
+
 def bigbird_rows(qkv, counts, seed, tables, *, block_size: int, dctx=None,
-                 dropout_rate: float = 0.0, ctx_dtype=None):
+                 dropout_rate: float = 0.0, ctx_dtype=None, parts: str = "all"):
     """bigbird_rows_kernel alone: qkv (3, B, nh, L, hd) with q scaled, counts
     (B, 2) int32 (n_valid first), seed (1,) int32 (read at a rate above 0),
     the pattern's ``bigbird_tables`` and, for the statistics pass, dctx (B,
     L, nh hd). Returns ctx (B, L, nh, hd) in ``ctx_dtype`` (qkv's dtype, or
     float32 from bf16 q, k, v as the W8A8 block runs it) and, with dctx, the
-    row statistics (3, B, nh, L) float32 (else None). On the CPU it runs
-    ``bigbird_rows_model``; on the card the kernel, whose launches
-    ``bigbird_rows.launches`` counts. No model path calls it: the blocks
-    launch the kernel inside their own entries."""
+    row statistics (3, B, nh, L) float32 (else None). ``parts`` sets the
+    tiles launched: "all" as the blocks launch them, or the "global" or the
+    other ("window") query tiles alone (the other rows of ctx and the
+    statistics are then left unwritten), a measurement's split. On
+    the CPU it runs ``bigbird_rows_model``; on the card the kernel, whose
+    launches ``bigbird_rows.launches`` counts. No model path calls it: the
+    blocks launch the kernel inside their own entries."""
+    if parts not in ROWS_PARTS:
+        raise ValueError(f"bigbird_rows: parts must be one of {sorted(ROWS_PARTS)}, got {parts!r}")
     _, B, nh, L, hd = qkv.shape
     dt = qkv.dtype
     ctx_dtype = ctx_dtype or dt
@@ -319,7 +349,7 @@ def bigbird_rows(qkv, counts, seed, tables, *, block_size: int, dctx=None,
             _DTYPES[dt], int(ctx_dtype != dt), int(dctx is not None), ptr(qkv), ptr(counts),
             ptr(tables.rand), ptr(tables.rok), ptr(seed), ptr(dctx), ptr(ctx), ptr(stats), B, L,
             nh, hd, block_size, tables.G, tables.R, dropout_threshold(dropout_rate),
-            1.0 - dropout_rate, _stream())
+            1.0 - dropout_rate, ROWS_PARTS[parts], _stream())
     build.check(code, "bigbird_rows")
     bigbird_rows.launches += 1
     return ctx, stats

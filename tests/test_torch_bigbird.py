@@ -334,6 +334,51 @@ def test_rows_model_matches_jax_kernel_context_in_float32(L, n_valid, r):
                                atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,n_valid,cluster", [(512, 300, 0), (512, 300, 8), (2048, 1500, 0),
+                                               (4096, 3100, 0), (4096, 3100, 8), (512, 40, 3)])
+def test_global_rows_summed_over_the_cluster_ranges_match_the_model(dt, L, n_valid, cluster):
+    """The card splits a global query tile's keys over a cluster of blocks
+    (``global_cluster``: in bf16 1 at L=512, 2 at 2048 and 4096, blocks of
+    64 with 2 global and 3 random blocks, in float32 1; or ``cluster``, the
+    other sizes that csrc's ClusterRows takes) that walk
+    ``global_key_ranges``: each block
+    forms D and P.V over its range against the row's maximum over all ranges,
+    and the first adds them in rank order. The ranges cover [0, n_valid) in
+    order (some empty with more blocks than key tiles); the maxima over them
+    are the model's bits, and the rank-order sums agree with
+    bigbird_rows_model's dense ones (m, D, ctx of the global rows) within
+    float32 rounding."""
+    from spokennlp_tpu_torch.ops.cuda import attention_models as am
+
+    C, nh, hd, GC = 64, 2, 16, 2 * 64
+    cs = cluster or tb.global_cluster(L, C, 2, 3, dt)
+    assert cs == cluster or cs == (1 if dt == torch.float32 else {512: 1, 2048: 2, 4096: 2}[L])
+    ranges = tb.global_key_ranges(n_valid, cs)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_valid and len(ranges) == cs
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    g = torch.Generator().manual_seed(L + n_valid + cs)
+    q, k, v = (torch.randn(1, nh, L, hd, generator=g).to(dt) for _ in range(3))
+    q = (q.float() * hd**-0.5).to(dt)
+    tables = ba.bigbird_tables(L // C, 2, 3, 0, "cpu")
+    ctx, stats = tb.bigbird_rows_model(q, k, v, torch.tensor([n_valid]), tables, block_size=C,
+                                       ctx_dtype=torch.float32)
+    s = am.core_product(q[0, :, :GC].float(), k[0].float().transpose(-1, -2))  # (nh, GC, L)
+    allowed = (torch.arange(L) < n_valid)[None, None]
+    m, e = am.rows_softmax(s, allowed, dt)
+    ninf = torch.tensor(-torch.inf)
+    part_m = [torch.where(allowed[..., k0:k1], s[..., k0:k1], ninf).amax(-1)
+              for k0, k1 in ranges if k1 > k0]
+    assert torch.equal(torch.stack(part_m).amax(0), stats[0, 0, :, :GC])
+    D = O = None
+    for k0, k1 in ranges:  # rank order
+        d, o = e[..., k0:k1].sum(-1), am.core_product(e[..., k0:k1], v[0, :, k0:k1].float())
+        D, O = (d, o) if D is None else (D + d, O + o)
+    torch.testing.assert_close(D, stats[1, 0, :, :GC], rtol=2e-6, atol=0)
+    want = ctx[0, :GC].transpose(0, 1)  # (nh, GC, hd)
+    torch.testing.assert_close(O / D[..., None], want, rtol=0, atol=2e-6 * want.abs().max())
+
+
 @pytest.mark.parametrize("rate,r", [(0.0, 3), (0.1, 3), (0.1, 0)])
 def test_rows_model_statistics_match_autograd_of_plain_softmax(rate, r):
     """float32: bigbird_rows_model's statistics against the plain softmax
@@ -804,6 +849,91 @@ def test_bigbird_rows_kernel_matches_rounding_model_on_card(cuda, mode, rate, Bc
             bad = chip_smoke.rows_readings(runs[0], model())
         print(f"  {fault}: {bad}")
         assert chip_smoke.core_bwd_excess(bad, tol) > 1, (fault, bad)
+
+
+# (B, L, H, nh, block, R, n_valid of the padded rows) of the global tiles'
+# cluster cases: 5 key tiles of 300 real keys, blocks of 96 (a global block
+# spans two query tiles, the second short), L=2048 (clusters of 2 in bf16)
+CLUSTER_SHAPES = [(2, 512, 128, 2, 64, 3, 300), (2, 384, 128, 2, 96, 1, 250),
+                  (2, 2048, 128, 2, 64, 3, 1500)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "w8a8", "stats", "f32", "f32 stats"])
+@pytest.mark.parametrize("Bc,Lc,Hc,nh,C,r,nv", CLUSTER_SHAPES)
+def test_bigbird_global_tiles_split_over_a_cluster_on_card(cuda, mode, Bc, Lc, Hc, nh, C, r, nv):
+    """bigbird_rows_kernel as the blocks launch it (in bf16 at L=2048 a
+    global tile's keys split over a cluster of 2 blocks, else one block a
+    tile) against the rows kernels' rounding model: ctx and the statistics
+    within its limits, and two calls give the same bits; the global and
+    the window tiles launched apart (``parts``; the window tiles alone one
+    block a tile, without clusters) give the launch's bits, so the window
+    rows do not depend on the split."""
+    dt = torch.float32 if mode.startswith("f32") else torch.bfloat16
+    inp = _inputs(Bc, Lc, Hc, nh, seed=Lc + C + 29, n_valid=nv)
+    t = _card_tensors(inp, cuda, dt)
+    hd, GC = Hc // nh, 2 * C
+    w = bb.card_weights(t["qkv_kernel"], t["qkv_bias"], t["out_kernel"], dt)
+    seed = torch.tensor([17], dtype=torch.int32, device=cuda)
+    tables = ba.bigbird_tables(Lc // C, 2, r, 6, cuda)
+    bufs = {}
+    tb.bigbird_train_bwd(t["hidden"], t["attention_mask"], seed, w, t["cotangent"].to(dt),
+                         tables, num_heads=nh, block_size=C, sm_scale=hd**-0.5, dropout_rate=0.1,
+                         buffers=bufs)
+    qkv, counts = bufs["qkv"], bufs["counts"]
+    dctx = bufs["dctx"].reshape(Bc, Lc, Hc) if mode.endswith("stats") else None
+    cdt = torch.float32 if mode == "w8a8" else None
+    rows = lambda p="all": tb.bigbird_rows(qkv, counts, seed, tables, block_size=C, dctx=dctx,
+                                           dropout_rate=0.1, ctx_dtype=cdt, parts=p)
+    keep = tb.bigbird_keep_masks(seed, Bc, nh, Lc, C, tables.G, tables.R, 0.1)
+    with chip_smoke.planted(chip_smoke.core_products(chip_smoke.tf32x3_model)
+                            if dt == torch.float32 else []):
+        model = tb.bigbird_rows_model(
+            qkv[0], qkv[1], qkv[2], counts.long()[:, 0], tables, block_size=C,
+            dropout_rate=0.1, keep=keep, ctx_dtype=cdt,
+            dctx=None if dctx is None else dctx.reshape(Bc, Lc, nh, hd))
+    runs = [rows(), rows()]
+    torch.cuda.synchronize()
+    got = runs[0]
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs))
+    readings = chip_smoke.rows_readings(got if dctx is not None else (got[0], None),
+                                        model if dctx is not None else (model[0], None))
+    print(f"{Bc}x{Lc} block {C} {mode} cluster "
+          f"{tb.global_cluster(Lc, C, 2, r, dt)}: {readings}")
+    assert chip_smoke.core_bwd_excess(readings, chip_smoke.rows_tol(got)) <= 1, readings
+    parts = {p: rows(p) for p in ("global", "window")}
+    torch.cuda.synchronize()
+    assert torch.equal(parts["global"][0][:, :GC], got[0][:, :GC])
+    assert torch.equal(parts["window"][0][:, GC:], got[0][:, GC:])
+    if dctx is not None:
+        assert torch.equal(parts["global"][1][..., :GC], got[1][..., :GC])
+        assert torch.equal(parts["window"][1][..., GC:], got[1][..., GC:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate,b", [(0.0, 1), (0.1, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bigbird_rows_do_not_depend_on_the_batch_on_card(cuda, dtype, rate, b):
+    """At L=2048 (clusters of 2) one sequence's ctx and statistics are the
+    same bits alone (B=1) and as row b of B=3, global rows included: the
+    global tiles' split depends on L, never on B. With dropout the sequence
+    keeps its index (row 0), since the keep bits' counters hold it."""
+    Bc, Lc, nh, hd, C = 3, 2048, 2, 64, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(3, Bc, nh, Lc, hd, generator=g, device=cuda)
+    qkv[0] *= hd**-0.5
+    qkv = qkv.to(dtype)
+    dctx = torch.randn(Bc, Lc, nh * hd, generator=g, device=cuda).to(dtype)
+    counts = torch.tensor([[1900, 0], [1500, 0], [700, 0]], dtype=torch.int32, device=cuda)
+    seed = torch.tensor([23], dtype=torch.int32, device=cuda)
+    tables = ba.bigbird_tables(Lc // C, 2, 3, 6, cuda)
+    kw = dict(block_size=C, dropout_rate=rate)
+    ctx3, st3 = tb.bigbird_rows(qkv, counts, seed, tables, dctx=dctx, **kw)
+    ctx1, st1 = tb.bigbird_rows(qkv[:, b:b + 1].contiguous(), counts[b:b + 1].contiguous(), seed,
+                                tables, dctx=dctx[b:b + 1].contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ctx1[0], ctx3[b])
+    assert torch.equal(st1[:, 0], st3[:, b])
 
 
 # float32 (3xTF32) cases (B, L, H, nh, block, R, n_valid of the padded

@@ -124,32 +124,120 @@ def mug_windows(n_sents=(100, 6), seed=0, L=L):
 # ------------------------------------------------------------ the pooling functions
 
 
-def test_pooling_functions_match_jax():
+# run layouts of the pooling tests (``run_layout``); "mug" is the MUG rows'
+# mix at L=64, the others take L=320 on the CPU (five 64-row SMP tiles of
+# the card kernel)
+POOL_LAYOUTS = ("mug", "long run", "one run", "pad run", "noncontig", "tied maxima")
+
+
+def run_layout(name, B, L, seed):
+    """(mask, segment ids, tie rows) of B rows of one run layout: "mug"
+    (mug_rows' ties, padded and full rows), "long run" (CLS, then one run
+    over more than three 64-row SMP tiles, then runs of 5), "one run" (every
+    row, CLS too, one id), "pad run" (a few short sentences, then the pad
+    run n_sent + 1 over most tiles), "noncontig" (two ids alternating in
+    runs of 5: equal ids that are not adjacent) and "tied maxima" (mug_rows'
+    ties: singleton runs and pairs of equal rows inside runs)."""
+    if name == "mug":
+        return mug_rows(B, L, seed, kinds=("ties", "padded", "full"))
+    if name in ("noncontig", "tied maxima"):
+        return mug_rows(B, L, seed, kinds=("noncontig",) if name == "noncontig" else ("ties",))
+    rng = np.random.default_rng(seed)
+    mask, seg, ties = np.ones((B, L), np.int32), np.zeros((B, L), np.int32), []
+    for b in range(B):
+        if name == "one run":
+            seg[b] = 7
+        elif name == "long run":
+            end = min(L - 3, 1 + 4 * 64 + 9 * b)
+            seg[b, 1:end] = 1
+            seg[b, end:] = 2 + np.arange(L - end) // 5
+            ties += [(b, int(rng.integers(2, end)))]
+        else:  # pad run
+            n, sid, l = int(rng.integers(L // 12, L // 8)), 1, 1
+            while l < n:
+                run = int(rng.integers(3, 10))
+                seg[b, l:min(n, l + run)] = sid
+                l, sid = l + run, sid + 1
+            seg[b, n:], mask[b, n:] = sid, 0
+    return mask, seg, ties
+
+
+class _Ref:
+    """A stand-in for a Pallas ref (``ref[:]`` reads and writes an array), to
+    run the JAX kernel's scan helpers outside a kernel."""
+
+    def __init__(self, a):
+        self.a = a
+
+    @property
+    def shape(self):
+        return self.a.shape
+
+    def __getitem__(self, _):
+        return self.a
+
+    def __setitem__(self, _, v):
+        self.a = v
+
+
+def jax_kernel_smp(x, mask, seg):
+    """SMP over runs as the JAX fused kernel takes it (ponet_block.py's
+    forward segmented top-2 scan, then the reverse scan seeded at the runs'
+    ends, through its own helpers), of one row's (L, D) float32 values."""
+    import jax.numpy as jnp
+
+    from spokennlp_tpu.ops.pallas import ponet_block as jpb
+
+    sm = jnp.where(jnp.asarray(mask)[:, None] > 0, jnp.asarray(x), jpb.NEG_INF)
+    seg2 = jnp.asarray(seg)[:, None]
+    edge = jnp.full((1, 1), -1, seg2.dtype)
+    starts = (seg2 != jnp.concatenate([edge, seg2[:-1]], axis=0)).astype(jnp.int32)
+    ends = (seg2 != jnp.concatenate([seg2[1:], edge], axis=0)).astype(jnp.int32)
+    a1, a2, f = _Ref(sm), _Ref(jnp.full(sm.shape, jpb.NEG_INF, jnp.float32)), _Ref(starts)
+    jpb._segmented_top2_ref(a1, a2, f, reverse=False, unrolled=True)
+    a1.a, a2.a, f.a = (jnp.where(ends > 0, a1.a, jpb.NEG_INF),
+                       jnp.where(ends > 0, a2.a, jpb.NEG_INF), ends)
+    jpb._segmented_top2_ref(a1, a2, f, reverse=True, unrolled=True)
+    tok_m2 = jnp.where(a2.a <= jpb.NEG_INF / 2, a1.a, a2.a)
+    return np.asarray(jnp.where(sm >= a1.a, tok_m2, a1.a))
+
+
+@pytest.mark.parametrize("layout", POOL_LAYOUTS)
+def test_pooling_functions_match_jax(layout):
     """segment_max_with_second, smp_second_max and local_max_pool select
     values, so they equal JAX's exactly: ties on the max, singleton and
-    empty segments, pads forced into segment 0, ids at and past L + 1."""
+    empty segments, pads forced into segment 0, ids at and past L + 1; and
+    the fused kernel's SMP over runs (``smp_plain``, what kernel 9 runs)
+    equals the JAX kernel's scans exactly, on each run layout."""
     import jax.numpy as jnp
 
     from spokennlp_tpu.models import ponet as jp
 
-    B, D = 3, 8
+    B, D, Lp = 3, 8, L if layout == "mug" else 320
     rng = np.random.default_rng(1)
-    x = rng.normal(size=(B, L, D)).astype(np.float32)
-    x[0, 5] = x[0, 6]  # a tie on the max inside a segment
-    mask, seg, _ = mug_rows(B, L, 1, kinds=("ties", "padded", "full"))
-    seg[2, 40:] = L + 1 + np.arange(L - 40) % 3  # ids at and past num_segments
+    x = rng.normal(size=(B, Lp, D)).astype(np.float32)
+    mask, seg, ties = run_layout(layout, B, Lp, 1)
+    if layout == "mug":  # the inputs this test had before its run layouts
+        x[0, 5] = x[0, 6]  # a tie on the max inside a segment
+        seg[2, 40:] = Lp + 1 + np.arange(Lp - 40) % 3  # ids at and past num_segments
+    else:
+        for b, l in ties:
+            x[b, l] = x[b, l - 1] = np.abs(x[b]).max() + 1.0  # a tie on the run's max
     forced = np.where(mask > 0, seg, 0)
-    S = L + 1
+    S = Lp + 1
     T = torch.from_numpy
     m1, m2 = tp.segment_max_with_second(T(x), T(forced), S)
     got_smp = tp.smp_second_max(T(x), T(forced), S)
+    runs = pb.smp_plain(T(x), T(mask > 0)[..., None], T(seg))
     for b in range(B):
         j1, j2 = jp.segment_max_with_second(jnp.asarray(x[b]), jnp.asarray(forced[b]), S)
         np.testing.assert_array_equal(m1[b].numpy(), np.asarray(j1))
         np.testing.assert_array_equal(m2[b].numpy(), np.asarray(j2))
         want = jp.smp_second_max(jnp.asarray(x[b]), jnp.asarray(forced[b]), S)
         np.testing.assert_array_equal(got_smp[b].numpy(), np.asarray(want))
-    assert (m1.numpy() == jp.NEG_INF).any()  # empty segments read -1e9
+        np.testing.assert_array_equal(runs[b].numpy(), jax_kernel_smp(x[b], mask[b], seg[b]))
+    if layout == "mug":
+        assert (m1.numpy() == jp.NEG_INF).any()  # empty segments read -1e9
     for window in (1, 2, 3, 4, 5):
         want = jp.local_max_pool(jnp.asarray(x), window, jnp.asarray(mask))
         got = tp.local_max_pool(T(x), window, T(mask))
@@ -600,6 +688,43 @@ def test_ponet_kernel_matches_plain_on_card(cuda, dtype, quantized, B, L, H, win
         else:
             err = ((g - w).abs().max() / w.abs().max()).item()
             assert err < CARD_TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "w8a8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", POOL_LAYOUTS)
+def test_pooling_chain_matches_plain_bit_for_bit_on_card(cuda, layout, dtype, quantized):
+    """Kernel 9's pooling chain on each run layout at the slice's widths
+    (B=4, L=1000: 16 SMP tiles, the last one short): its ``mixed`` equals
+    ``mixed_plain`` of its own projections and gp bit for bit (SMP and LMP
+    select values, the mix rounds where the plain version rounds), its gp is
+    within CARD_TOL of the plain GA's, and two calls give the same bits."""
+    B, Lc, H = 4, 1000, 768
+    inp = block_inputs(B, Lc, H, seed=Lc + len(layout), run_len=(5, 61))
+    mask, seg, ties = run_layout(layout, B, Lc, seed=3)
+    inp.update(attention_mask=mask, segment_ids=seg)
+    for b, l in ties:
+        inp["hidden"][b, l] = inp["hidden"][b, l - 1]
+    inp = _on_card(inp, cuda, dtype)
+    args = [inp[k] for k in BLOCK_ARGS]
+    kw = dict(local_window=3, sm_scale=H**-0.5, quantized=quantized)
+    runs = [{}, {}]
+    for bufs in runs:
+        pb.fused_ponet_mixer_block(*args, **kw, buffers=bufs)
+    torch.cuda.synchronize()
+    bufs = runs[0]
+    assert all(torch.equal(runs[0][k], runs[1][k]) for k in ("proj", "gp", "mixed"))
+    want = pb.mixed_plain(bufs["proj"], bufs["gp"], inp["attention_mask"], inp["segment_ids"],
+                          local_window=3)
+    assert torch.equal(bufs["mixed"].reshape(B, Lc, H), want)
+    mrow = (inp["attention_mask"] > 0)[..., None]
+    q, k, v = (p.reshape(B, Lc, H) for p in bufs["proj"].split(H, dim=-1)[:3])
+    gp = (pb.ga_plain(q, k, v, mrow, H**-0.5) / q).float()  # gp * q / q where q != 0
+    live = (q != 0) & mrow
+    err = ((bufs["gp"][:, None].expand_as(gp) - gp).abs()[live].max()
+           / gp.abs()[live].max()).item()
+    assert err < CARD_TOL[dtype], err
 
 
 @pytest.mark.gpu
